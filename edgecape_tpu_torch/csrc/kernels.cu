@@ -1,0 +1,662 @@
+// Hand-written Hopper building blocks for the four eval-path ops of
+// edgecape_tpu_torch (ops/fused_vit_block.py, ops/fused_encoder.py,
+// ops/fused_decoder.py, ops/flash_attention.py).
+//
+// Each TPU kernel of the JAX package becomes a short chain of these
+// launches, with the TPU kernel's rounding points kept:
+//   * ec_gemm       tiled bf16 GEMM, fp32 accumulation (WMMA 16x16x16,
+//                   128x128 tiles, cp.async double buffering),
+//                   strided-batched, with a fused epilogue
+//                   (bias, pre-activation add, exact-erf GELU / ReLU,
+//                   fp32 LayerScale residual, bf16 or fp32 store);
+//   * ec_layernorm  row LayerNorm with fp32 statistics and an optional
+//                   residual input, fp32 and/or bf16 outputs;
+//   * ec_attention  short-sequence attention: one block per (batch, head)
+//                   with all its keys and values resident in shared
+//                   memory, additive per-key mask and optional
+//                   [B, H, Nq, Nk] bias, fp32 softmax, P rounded to bf16
+//                   before P.V, output rounded to bf16;
+//   * ec_add_pos    src = bf16(bf16(x) + pos) for the joint encoder.
+//
+// Plain C interface, loaded with ctypes; every entry point returns
+// cudaGetLastError() (or cudaErrorInvalidValue for a refused shape).
+// Nothing allocates or synchronises: the Python wrappers own the buffers
+// and the stream.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+enum { DT_F32 = 0, DT_BF16 = 1 };
+enum { ACT_NONE = 0, ACT_GELU = 1, ACT_RELU = 2 };
+
+__device__ __forceinline__ float ld_val(const void* p, int dt, long i) {
+  return dt == DT_F32 ? static_cast<const float*>(p)[i]
+                      : __bfloat162float(static_cast<const bf16*>(p)[i]);
+}
+
+__device__ __forceinline__ void st_val(void* p, int dt, long i, float v) {
+  if (dt == DT_F32) {
+    static_cast<float*>(p)[i] = v;
+  } else {
+    static_cast<bf16*>(p)[i] = __float2bfloat16(v);
+  }
+}
+
+// Copy 8 consecutive bf16 values (the first `valid` of them; the rest are
+// zero) into 16-byte-aligned shared memory: one 16-byte load when the
+// source allows it.
+__device__ __forceinline__ void load8(bf16* dst, const bf16* src, int valid) {
+  if (valid >= 8 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      dst[i] = i < valid ? src[i] : __float2bfloat16(0.0f);
+    }
+  }
+}
+
+// As load8, from a bf16 or fp32 source (fp32 is rounded to bf16).
+__device__ __forceinline__ void load8_any(bf16* dst, const void* base, int dt,
+                                          long off, int valid) {
+  if (dt == DT_BF16) {
+    load8(dst, static_cast<const bf16*>(base) + off, valid);
+  } else {
+    const float* s = static_cast<const float*>(base) + off;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      dst[i] = __float2bfloat16(i < valid ? s[i] : 0.0f);
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// ------------------------------------------------------------------ GEMM
+// C[z] = epilogue(A[z] @ op(B[z])), A [M, K] bf16 row-major (row stride
+// lda), B either [N, K] (torch Linear weight, b_nk = 1) or [K, N]
+// (b_nk = 0), row stride ldb. z is the batch index (grid.z); a batch
+// stride of 0 shares the operand across the batch.
+//
+// epilogue: y = acc + bias[n] + pre[m, n]; y = act(y);
+//           y = res[m, n] + ls[n] * y (when res is given; ls may be null);
+//           C[m, n] = y as fp32 or bf16.
+
+#define GBM 128
+#define GBN 128
+#define GBK 64
+#define GSTAGES 2          // k-tiles in flight
+#define GTHREADS 256       // 8 warps: 2 (rows) x 4 (columns), 64 x 32 each
+#define A_LD (GBK + 8)
+#define BNK_LD (GBK + 8)
+#define BKN_LD (GBN + 8)
+#define C_LD (GBN + 4)
+#define A_STAGE (GBM * A_LD)
+#define B_STAGE (GBN * BNK_LD > GBK * BKN_LD ? GBN * BNK_LD : GBK * BKN_LD)
+#define GEMM_PIPE_BYTES (GSTAGES * (A_STAGE + B_STAGE) * 2)
+#define GEMM_C_BYTES (GBM * C_LD * 4)
+#define GEMM_SMEM (GEMM_PIPE_BYTES > GEMM_C_BYTES ? GEMM_PIPE_BYTES : GEMM_C_BYTES)
+
+struct GemmArgs {
+  const bf16* A; long lda, sA;
+  const bf16* B; long ldb, sB;
+  void* C; long ldc, sC; int c_dt;
+  int M, N, K;
+  const float* bias;
+  const void* pre; int pre_dt; long ldpre, sPre;
+  int act;
+  const void* res; int res_dt; long ldres, sRes;
+  const float* ls;
+};
+
+// Copy 8 bf16 values into shared memory: an asynchronous 16-byte copy
+// (cp.async, completed by cp_async_wait) when the source is whole and
+// aligned, else synchronous element loads with zero fill.
+__device__ __forceinline__ void copy8(bf16* dst, const bf16* src, int valid) {
+  if (valid >= 8 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dst[i] = i < valid ? src[i] : __float2bfloat16(0.0f);
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One k-tile of A and B into stage buffers As / Bs.
+template <bool B_NK>
+__device__ __forceinline__ void gemm_load_tile(const GemmArgs& p, const bf16* A,
+                                               const bf16* B, int m0, int n0, int k0,
+                                               bf16* As, bf16* Bs) {
+  const int tid = threadIdx.x;
+  for (int c = tid; c < GBM * GBK / 8; c += GTHREADS) {
+    const int r = c / (GBK / 8), kc = (c % (GBK / 8)) * 8;
+    const int gm = m0 + r, gk = k0 + kc;
+    copy8(&As[r * A_LD + kc], A + (long)gm * p.lda + gk, gm < p.M ? min(8, p.K - gk) : 0);
+  }
+  if constexpr (B_NK) {
+    for (int c = tid; c < GBN * GBK / 8; c += GTHREADS) {
+      const int r = c / (GBK / 8), kc = (c % (GBK / 8)) * 8;
+      const int gn = n0 + r, gk = k0 + kc;
+      copy8(&Bs[r * BNK_LD + kc], B + (long)gn * p.ldb + gk, gn < p.N ? min(8, p.K - gk) : 0);
+    }
+  } else {
+    for (int c = tid; c < GBK * GBN / 8; c += GTHREADS) {
+      const int r = c / (GBN / 8), nc = (c % (GBN / 8)) * 8;
+      const int gk = k0 + r, gn = n0 + nc;
+      copy8(&Bs[r * BKN_LD + nc], B + (long)gk * p.ldb + gn, gk < p.K ? min(8, p.N - gn) : 0);
+    }
+  }
+}
+
+// 128 x 128 output tile per block, k in steps of GBK, GSTAGES k-tiles of
+// copies in flight while the oldest is multiplied.
+template <bool B_NK>
+__global__ void __launch_bounds__(GTHREADS) gemm_kernel(GemmArgs p) {
+  extern __shared__ __align__(128) unsigned char gsmem[];
+  bf16* As0 = reinterpret_cast<bf16*>(gsmem);
+  bf16* Bs0 = As0 + GSTAGES * A_STAGE;
+  float* Cs = reinterpret_cast<float*>(gsmem);     // after the k loop
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
+  const long z = blockIdx.z;
+  const bf16* A = p.A + z * p.sA;
+  const bf16* B = p.B + z * p.sB;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  const int nk = (p.K + GBK - 1) / GBK;
+#pragma unroll
+  for (int st = 0; st < GSTAGES - 1; ++st) {
+    if (st < nk)
+      gemm_load_tile<B_NK>(p, A, B, m0, n0, st * GBK, As0 + st * A_STAGE,
+                           Bs0 + st * B_STAGE);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<GSTAGES - 2>();
+    __syncthreads();     // tile kt landed; tile kt-1's stage is free
+    const int next = kt + GSTAGES - 1;
+    if (next < nk)
+      gemm_load_tile<B_NK>(p, A, B, m0, n0, next * GBK,
+                           As0 + (next % GSTAGES) * A_STAGE,
+                           Bs0 + (next % GSTAGES) * B_STAGE);
+    cp_async_commit();
+    const bf16* As = As0 + (kt % GSTAGES) * A_STAGE;
+    const bf16* Bs = Bs0 + (kt % GSTAGES) * B_STAGE;
+#pragma unroll
+    for (int kk = 0; kk < GBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wmma::load_matrix_sync(af[i], &As[(wm * 64 + i * 16) * A_LD + kk], A_LD);
+      if constexpr (B_NK) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::load_matrix_sync(bfr[j], &Bs[(wn * 32 + j * 16) * BNK_LD + kk], BNK_LD);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
+      } else {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::load_matrix_sync(bfr[j], &Bs[kk * BKN_LD + wn * 32 + j * 16], BKN_LD);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();       // every warp is done with the stages before Cs
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(&Cs[(wm * 64 + i * 16) * C_LD + wn * 32 + j * 16],
+                              acc[i][j], C_LD, wmma::mem_row_major);
+  __syncthreads();
+
+  // epilogue: each thread takes runs of 8 columns of one row
+  for (int e = tid; e < GBM * (GBN / 8); e += GTHREADS) {
+    const int r = e / (GBN / 8), c = (e % (GBN / 8)) * 8;
+    const int gm = m0 + r, gn = n0 + c;
+    if (gm >= p.M || gn >= p.N) continue;
+    const int cnt = min(8, p.N - gn);
+    float y[8];
+    const float4 lo = *reinterpret_cast<const float4*>(&Cs[r * C_LD + c]);
+    const float4 hi = *reinterpret_cast<const float4*>(&Cs[r * C_LD + c + 4]);
+    y[0] = lo.x; y[1] = lo.y; y[2] = lo.z; y[3] = lo.w;
+    y[4] = hi.x; y[5] = hi.y; y[6] = hi.z; y[7] = hi.w;
+    const long pre_off = z * p.sPre + (long)gm * p.ldpre + gn;
+    const long res_off = z * p.sRes + (long)gm * p.ldres + gn;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i >= cnt) break;
+      float v = y[i];
+      if (p.bias) v += p.bias[gn + i];
+      if (p.pre) v += ld_val(p.pre, p.pre_dt, pre_off + i);
+      if (p.act == ACT_GELU) {
+        v = 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
+      } else if (p.act == ACT_RELU) {
+        v = fmaxf(v, 0.0f);
+      }
+      if (p.res) v = ld_val(p.res, p.res_dt, res_off + i) + (p.ls ? p.ls[gn + i] : 1.0f) * v;
+      y[i] = v;
+    }
+    const long off = z * p.sC + (long)gm * p.ldc + gn;
+    if (p.c_dt == DT_BF16) {
+      bf16* dst = static_cast<bf16*>(p.C) + off;
+      if (cnt == 8 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+        __align__(16) bf16 pack[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) pack[i] = __float2bfloat16(y[i]);
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(pack);
+      } else {
+        for (int i = 0; i < cnt; ++i) dst[i] = __float2bfloat16(y[i]);
+      }
+    } else {
+      float* dst = static_cast<float*>(p.C) + off;
+      if (cnt == 8 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+        reinterpret_cast<float4*>(dst)[0] = make_float4(y[0], y[1], y[2], y[3]);
+        reinterpret_cast<float4*>(dst)[1] = make_float4(y[4], y[5], y[6], y[7]);
+      } else {
+        for (int i = 0; i < cnt; ++i) dst[i] = y[i];
+      }
+    }
+  }
+}
+
+extern "C" int ec_gemm(const void* A, long lda, long sA,
+                       const void* B, long ldb, long sB, int b_nk,
+                       void* C, long ldc, long sC, int c_dt,
+                       int M, int N, int K, int batch,
+                       const void* bias,
+                       const void* pre, int pre_dt, long ldpre, long sPre,
+                       int act,
+                       const void* res, int res_dt, long ldres, long sRes,
+                       const void* ls, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || batch <= 0 || (M + GBM - 1) / GBM > 65535 ||
+      batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  GemmArgs p;
+  p.A = static_cast<const bf16*>(A); p.lda = lda; p.sA = sA;
+  p.B = static_cast<const bf16*>(B); p.ldb = ldb; p.sB = sB;
+  p.C = C; p.ldc = ldc; p.sC = sC; p.c_dt = c_dt;
+  p.M = M; p.N = N; p.K = K;
+  p.bias = static_cast<const float*>(bias);
+  p.pre = pre; p.pre_dt = pre_dt; p.ldpre = ldpre; p.sPre = sPre;
+  p.act = act;
+  p.res = res; p.res_dt = res_dt; p.ldres = ldres; p.sRes = sRes;
+  p.ls = static_cast<const float*>(ls);
+  dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM, batch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* kernel = b_nk ? (const void*)gemm_kernel<true> : (const void*)gemm_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       GEMM_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  if (b_nk) {
+    gemm_kernel<true><<<grid, GTHREADS, GEMM_SMEM, s>>>(p);
+  } else {
+    gemm_kernel<false><<<grid, GTHREADS, GEMM_SMEM, s>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------- LayerNorm
+// One warp per row of C <= 512 values: y = LN(x + r) * gamma + beta with
+// fp32 mean and (two-pass) variance; writes fp32 and/or bf16 rows.
+
+#define LN_MAXV 16
+
+__global__ void layernorm_kernel(const void* x, int x_dt, long ldx,
+                                 const void* r, int r_dt, long ldr,
+                                 const float* gamma, const float* beta,
+                                 float eps, float* of, long ldof,
+                                 bf16* ob, long ldob, int rows, int C) {
+  const long row = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  float v[LN_MAXV];
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < LN_MAXV; ++i) {
+    const int c = lane + 32 * i;
+    v[i] = 0.0f;
+    if (c < C) {
+      float t = ld_val(x, x_dt, row * ldx + c);
+      if (r) t += ld_val(r, r_dt, row * ldr + c);
+      v[i] = t;
+      s += t;
+    }
+  }
+  const float mean = warp_sum(s) / C;
+  float q = 0.0f;
+#pragma unroll
+  for (int i = 0; i < LN_MAXV; ++i) {
+    const int c = lane + 32 * i;
+    if (c < C) {
+      const float d = v[i] - mean;
+      q += d * d;
+    }
+  }
+  const float inv = rsqrtf(warp_sum(q) / C + eps);
+#pragma unroll
+  for (int i = 0; i < LN_MAXV; ++i) {
+    const int c = lane + 32 * i;
+    if (c < C) {
+      const float y = (v[i] - mean) * inv * gamma[c] + beta[c];
+      if (of) of[row * ldof + c] = y;
+      if (ob) ob[row * ldob + c] = __float2bfloat16(y);
+    }
+  }
+}
+
+extern "C" int ec_layernorm(const void* x, int x_dt, long ldx,
+                            const void* r, int r_dt, long ldr,
+                            const void* gamma, const void* beta, float eps,
+                            void* of, long ldof, void* ob, long ldob,
+                            int rows, int C, void* stream) {
+  if (C <= 0 || C > 32 * LN_MAXV || rows <= 0) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const long blocks = ((long)rows * 32 + threads - 1) / threads;
+  layernorm_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, x_dt, ldx, r, r_dt, ldr, static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), eps, static_cast<float*>(of), ldof,
+      static_cast<bf16*>(ob), ldob, rows, C);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------- add position
+__global__ void add_pos_kernel(const void* x, int x_dt, const bf16* pos,
+                               bf16* out, long row_elems, long total) {
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long)gridDim.x * blockDim.x) {
+    const float a = __bfloat162float(__float2bfloat16(ld_val(x, x_dt, i)));
+    out[i] = __float2bfloat16(a + __bfloat162float(pos[i % row_elems]));
+  }
+}
+
+extern "C" int ec_add_pos(const void* x, int x_dt, const void* pos, void* out,
+                          long row_elems, long total, void* stream) {
+  if (row_elems <= 0 || total <= 0) return (int)cudaErrorInvalidValue;
+  long blocks = (total + 255) / 256;
+  if (blocks > 65535L * 16) blocks = 65535L * 16;
+  add_pos_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, x_dt, static_cast<const bf16*>(pos), static_cast<bf16*>(out),
+      row_elems, total);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------- attention
+// out[b, i, h*D:(h+1)*D] = softmax(q.k^T * scale + kb[b] + bias[b, h, i])
+// . v, with q/k/v read (bf16 or fp32, rounded to bf16) at element offset
+// b*s?b + n*s?n + h*D. One block per (batch, head): the head's keys and
+// values are loaded into shared memory once and every warp of the block
+// takes 16-row query tiles. Each tile makes two passes over 32-key
+// chunks: the first finds each row's max and exp-sum in fp32, the second
+// recomputes the scores, forms p = exp(s - max) / sum rounded to bf16 (the
+// rounding point of the TPU kernels) and accumulates P.V on tensor cores.
+// Keys beyond Nk are -inf. A row with every key masked gives 0 (the TPU
+// kernels give NaN; the model never masks a whole row).
+
+#define ATT_KC 32          // keys per chunk
+#define ATT_MAX_NK 512     // keys a block holds in shared memory
+#define ATT_MAX_WARPS 16
+#define ALIGN128(n) (((n) + 127) & ~(size_t)127)
+
+struct AttnArgs {
+  const void* q; const void* k; const void* v; int in_dt;
+  long sqb, sqn, skb, skn, svb, svn;
+  int H, Nq, Nk, NKP;
+  const float* kb; long skbb;
+  const float* bias;
+  float scale;
+  void* out; int out_dt; long sob, son;
+};
+
+// Shared-memory layout: K and V [NKP][KLD] bf16, then per warp a query
+// tile [16][KLD] bf16, a score / output staging tile [16][SLD] fp32 and a
+// probability tile [16][PLD] bf16.
+template <int D>
+struct AttnSmem {
+  static constexpr int KLD = D + 8;
+  static constexpr int SLD = (ATT_KC > D ? ATT_KC : D) + 4;
+  static constexpr int PLD = ATT_KC + 8;
+  static constexpr size_t Q_BYTES = ALIGN128((size_t)16 * KLD * 2);
+  static constexpr size_t S_BYTES = ALIGN128((size_t)16 * SLD * 4);
+  static constexpr size_t P_BYTES = ALIGN128((size_t)16 * PLD * 2);
+  static constexpr size_t WARP_BYTES = Q_BYTES + S_BYTES + P_BYTES;
+  static __host__ __device__ size_t kv_bytes(int nkp) {
+    return ALIGN128((size_t)2 * nkp * KLD * 2);
+  }
+};
+
+// Scores of a 16-row query tile against keys [c0, c0 + 32), fp32 into Ss.
+template <int D>
+__device__ __forceinline__ void score_chunk(
+    const wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>* qa,
+    const bf16* Ks, int c0, float* Ss) {
+  constexpr int KLD = AttnSmem<D>::KLD, SLD = AttnSmem<D>::SLD;
+#pragma unroll
+  for (int nt = 0; nt < ATT_KC / 16; ++nt) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
+    wmma::fill_fragment(s, 0.0f);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
+      wmma::load_matrix_sync(kf, Ks + (size_t)(c0 + nt * 16) * KLD + kk * 16, KLD);
+      wmma::mma_sync(s, qa[kk], kf, s);
+    }
+    wmma::store_matrix_sync(Ss + nt * 16, s, SLD, wmma::mem_row_major);
+  }
+}
+
+template <int D>
+__global__ void attn_kernel(AttnArgs p) {
+  using L = AttnSmem<D>;
+  constexpr int KLD = L::KLD, SLD = L::SLD, PLD = L::PLD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int NKP = p.NKP;
+  const int nwarps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned full = 0xffffffffu;
+
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + (size_t)NKP * KLD;
+  unsigned char* wbase = smem + L::kv_bytes(NKP) + warp * L::WARP_BYTES;
+  bf16* Qs = reinterpret_cast<bf16*>(wbase);
+  float* Ss = reinterpret_cast<float*>(wbase + L::Q_BYTES);
+  bf16* Ps = reinterpret_cast<bf16*>(wbase + L::Q_BYTES + L::S_BYTES);
+
+  const long bh = blockIdx.x;
+  const long b = bh / p.H;
+  const int h = (int)(bh % p.H);
+
+  for (int c = threadIdx.x; c < NKP * (D / 8); c += blockDim.x) {
+    const int n = c / (D / 8), d8 = (c % (D / 8)) * 8;
+    const int valid = n < p.Nk ? 8 : 0;
+    load8_any(&Ks[n * KLD + d8], p.k, p.in_dt, b * p.skb + (long)n * p.skn + h * D + d8, valid);
+    load8_any(&Vs[n * KLD + d8], p.v, p.in_dt, b * p.svb + (long)n * p.svn + h * D + d8, valid);
+  }
+  __syncthreads();
+
+  const float* kbrow = p.kb ? p.kb + b * p.skbb : nullptr;
+  const int r = lane >> 1, half = lane & 1;   // this lane: row r, 16 columns
+  const int ntiles = (p.Nq + 15) / 16;
+  for (int tile = warp; tile < ntiles; tile += nwarps) {
+    const int q0 = tile * 16;
+    for (int c = lane; c < 16 * (D / 8); c += 32) {
+      const int rr = c / (D / 8), d8 = (c % (D / 8)) * 8;
+      const int row = q0 + rr;
+      load8_any(&Qs[rr * KLD + d8], p.q, p.in_dt, b * p.sqb + (long)row * p.sqn + h * D + d8,
+                row < p.Nq ? 8 : 0);
+    }
+    __syncwarp();
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[D / 16];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wmma::load_matrix_sync(qa[kk], Qs + kk * 16, KLD);
+
+    const int row = q0 + r;
+    const float* brow = (p.bias && row < p.Nq)
+                            ? p.bias + ((size_t)bh * p.Nq + row) * p.Nk
+                            : nullptr;
+    // pass 1: row max and exp-sum
+    float m = -INFINITY, l = 0.0f;
+    for (int c0 = 0; c0 < NKP; c0 += ATT_KC) {
+      score_chunk<D>(qa, Ks, c0, Ss);
+      __syncwarp();
+      float sv[16];
+      float cm = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int j = c0 + half * 16 + i;
+        float s = -INFINITY;
+        if (j < p.Nk) {
+          s = Ss[r * SLD + half * 16 + i] * p.scale;
+          if (kbrow) s += kbrow[j];
+          if (brow) s += brow[j];
+        }
+        sv[i] = s;
+        cm = fmaxf(cm, s);
+      }
+      cm = fmaxf(cm, __shfl_xor_sync(full, cm, 1));
+      const float mn = fmaxf(m, cm);
+      float part = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) part += sv[i] == -INFINITY ? 0.0f : expf(sv[i] - mn);
+      part += __shfl_xor_sync(full, part, 1);
+      l = (m == -INFINITY ? 0.0f : l * expf(m - mn)) + part;
+      m = mn;
+      __syncwarp();
+    }
+    // pass 2: P = bf16(exp(s - m) / l), O += P.V
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[D / 16];
+#pragma unroll
+    for (int t = 0; t < D / 16; ++t) wmma::fill_fragment(o[t], 0.0f);
+    for (int c0 = 0; c0 < NKP; c0 += ATT_KC) {
+      score_chunk<D>(qa, Ks, c0, Ss);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int j = c0 + half * 16 + i;
+        float pv = 0.0f;
+        if (j < p.Nk) {
+          float s = Ss[r * SLD + half * 16 + i] * p.scale;
+          if (kbrow) s += kbrow[j];
+          if (brow) s += brow[j];
+          pv = s == -INFINITY ? 0.0f : expf(s - m) / l;
+        }
+        Ps[r * PLD + half * 16 + i] = __float2bfloat16(pv);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int kt = 0; kt < ATT_KC / 16; ++kt) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
+        wmma::load_matrix_sync(pa, Ps + kt * 16, PLD);
+#pragma unroll
+        for (int t = 0; t < D / 16; ++t) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
+          wmma::load_matrix_sync(vb, Vs + (size_t)(c0 + kt * 16) * KLD + t * 16, KLD);
+          wmma::mma_sync(o[t], pa, vb, o[t]);
+        }
+      }
+      __syncwarp();
+    }
+#pragma unroll
+    for (int t = 0; t < D / 16; ++t)
+      wmma::store_matrix_sync(Ss + t * 16, o[t], SLD, wmma::mem_row_major);
+    __syncwarp();
+    for (int c = lane; c < 16 * D; c += 32) {
+      const int rr = c / D, d = c % D;
+      const int orow = q0 + rr;
+      if (orow < p.Nq) {
+        const float ov = __bfloat162float(__float2bfloat16(Ss[rr * SLD + d]));
+        st_val(p.out, p.out_dt, b * p.sob + (long)orow * p.son + h * D + d, ov);
+      }
+    }
+    __syncwarp();
+  }
+}
+
+template <int D>
+static int launch_attn(const AttnArgs& p, int B, cudaStream_t s) {
+  using L = AttnSmem<D>;
+  const size_t limit = 227 * 1024, kv = L::kv_bytes(p.NKP);
+  if (kv + L::WARP_BYTES > limit) return (int)cudaErrorInvalidValue;
+  int max_warps = (int)((limit - kv) / L::WARP_BYTES);
+  if (max_warps > ATT_MAX_WARPS) max_warps = ATT_MAX_WARPS;
+  // as few rounds of query tiles as the warps allow, spread evenly
+  const int ntiles = (p.Nq + 15) / 16;
+  const int rounds = (ntiles + max_warps - 1) / max_warps;
+  const int nw = (ntiles + rounds - 1) / rounds;
+  const size_t smem = kv + nw * L::WARP_BYTES;
+  cudaError_t e = cudaFuncSetAttribute(attn_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  attn_kernel<D><<<(unsigned)((long)B * p.H), nw * 32, smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ec_attention(const void* q, const void* k, const void* v, int in_dt,
+                            long sqb, long sqn, long skb, long skn, long svb, long svn,
+                            int B, int H, int D, int Nq, int Nk,
+                            const void* kb, long skbb, const void* bias, float scale,
+                            void* out, int out_dt, long sob, long son, void* stream) {
+  const int nkp = (Nk + ATT_KC - 1) / ATT_KC * ATT_KC;
+  if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || nkp > ATT_MAX_NK)
+    return (int)cudaErrorInvalidValue;
+  AttnArgs p;
+  p.q = q; p.k = k; p.v = v; p.in_dt = in_dt;
+  p.sqb = sqb; p.sqn = sqn; p.skb = skb; p.skn = skn; p.svb = svb; p.svn = svn;
+  p.H = H; p.Nq = Nq; p.Nk = Nk; p.NKP = nkp;
+  p.kb = static_cast<const float*>(kb); p.skbb = skbb;
+  p.bias = static_cast<const float*>(bias);
+  p.scale = scale;
+  p.out = out; p.out_dt = out_dt; p.sob = sob; p.son = son;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 32) return launch_attn<32>(p, B, s);
+  if (D == 64) return launch_attn<64>(p, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* ec_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -25,7 +25,10 @@ setup(
     version="0.1.0",
     description=("TPU-native one-/few-shot category-agnostic keypoint "
                  "estimation with learned skeleton edge weights"),
-    packages=find_packages(include=["edgecape_tpu", "edgecape_tpu.*"]),
+    packages=find_packages(include=["edgecape_tpu", "edgecape_tpu.*",
+                                    "edgecape_tpu_torch",
+                                    "edgecape_tpu_torch.*"]),
+    package_data={"edgecape_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy"],
     extras_require={"data": ["opencv-python"], "viz": ["matplotlib"],

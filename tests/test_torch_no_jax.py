@@ -1,0 +1,61 @@
+"""The port runs where jax, flax, optax and cv2 are absent (the machine
+with the card has none of them): a fresh interpreter with those modules
+blocked imports every module of edgecape_tpu_torch and runs a tiny
+cached forward on the CPU, on both the strict and the kernel-op path."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+for m in ("jax", "flax", "optax", "cv2"):
+    sys.modules[m] = None
+import numpy as np
+import torch
+import edgecape_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(edgecape_tpu_torch.__path__,
+                                               "edgecape_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+from edgecape_tpu.config import Config, ModelConfig, stage3_config
+from edgecape_tpu_torch.api import PoseEstimator
+from edgecape_tpu_torch.models.dinov2 import DinoV2Config
+k, size, g = 6, 28, 2
+for flash, dt in ((False, "float32"), (True, "bfloat16")):
+    cfg = stage3_config(Config(model=ModelConfig(
+        max_kpt=k, image_size=size, heatmap_size=8, backbone_dim=32,
+        d_model=32, num_feats=16, similarity_proj_dim=32, dim_feedforward=48,
+        dynamic_proj_dim=16, nhead=2, use_flash=flash, compute_dtype=dt,
+        head_dtype=dt)))
+    est = PoseEstimator(cfg, generator=torch.Generator().manual_seed(0),
+                        backbone_cfg=DinoV2Config(depth=1, embed_dim=32,
+                                                  num_heads=1))
+    rng = np.random.default_rng(0)
+    support = {"img_s": rng.integers(0, 256, (g, 1, size, size, 3),
+                                     dtype=np.uint8),
+               "joints_s": rng.uniform(2, size - 2, (g, 1, k, 2)).astype(
+                   np.float32),
+               "vis_s": np.ones((g, 1, k), np.float32),
+               "binary_adj": np.ones((g, k, k), np.float32)}
+    query = {"img_q": rng.integers(0, 256, (4, size, size, 3),
+                                   dtype=np.uint8),
+             "group": np.array([0, 0, 1, 1])}
+    pred, adj = est.forward_cached(support, query)
+    assert pred.shape == (4, k, 2) and torch.isfinite(pred).all()
+blocked = [m for m in ("jax", "flax", "optax", "cv2")
+           if sys.modules.get(m) is not None]
+assert not blocked, blocked
+print("OK", len(names))
+"""
+
+
+def test_port_imports_and_runs_without_jax_flax_optax_cv2():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().startswith("OK")
