@@ -41,6 +41,16 @@ def maybe_normalize(imgs: torch.Tensor) -> torch.Tensor:
     return imgs
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the CUDA device unless the
+    caller names another; asking for CUDA without one is an error."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the GPU unless "
+                           "it is given device=\"cpu\"")
+    return device
+
+
 def _cast_floats(ctx: SupportContext, dtype) -> SupportContext:
     return SupportContext(*(
         t.to(dtype) if t is not None and t.is_floating_point() else t
@@ -57,14 +67,15 @@ class PoseEstimator:
     convert.init_params); when absent they are drawn by init_params from
     `generator` (seed 0 by default). cfg.model.use_flash None means:
     kernels on a CUDA device, plain modules on the CPU; an explicit False
-    is the strict path."""
+    is the strict path. Runs on the CUDA device unless `device` says
+    otherwise, and raises without one."""
 
     def __init__(self, cfg, backbone_state: Optional[dict] = None,
                  head_state: Optional[dict] = None,
                  generator: Optional[torch.Generator] = None,
-                 device="cpu",
+                 device="cuda",
                  backbone_cfg: dinov2.DinoV2Config = dinov2.VIT_S14):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         flash = cfg.model.use_flash
         self.use_flash = bool(self.device.type == "cuda" if flash is None
                               else flash)
@@ -90,6 +101,13 @@ class PoseEstimator:
         self.head.to(self.device).eval()
         self.query_head = self.head if self.head_dtype == torch.float32 \
             else copy.deepcopy(self.head).to(self.head_dtype)
+
+    def load_head_state(self, head_state: dict) -> None:
+        """Swap other head weights in (the trainer's eval hook does so
+        with the live ones)."""
+        self.head.load_state_dict(head_state)
+        if self.query_head is not self.head:
+            self.query_head = copy.deepcopy(self.head).to(self.head_dtype)
 
     # ------------------------------------------------------- two phases
     def support_context(self, img_s, joints_s, vis_s,

@@ -1,6 +1,8 @@
-// Hand-written Hopper building blocks for the four eval-path ops of
-// edgecape_tpu_torch (ops/fused_vit_block.py, ops/fused_encoder.py,
-// ops/fused_decoder.py, ops/flash_attention.py).
+// Hand-written Hopper kernels of edgecape_tpu_torch: the building blocks
+// of the four eval-path ops (ops/fused_vit_block.py, ops/fused_encoder.py,
+// ops/fused_decoder.py, ops/flash_attention.py flash_mha) and the
+// forward / backward pair of the training attention
+// (ops/flash_attention.py flash_mha_train).
 //
 // Each TPU kernel of the JAX package becomes a short chain of these
 // launches, with the TPU kernel's rounding points kept:
@@ -16,7 +18,12 @@
 //                   memory, additive per-key mask and optional
 //                   [B, H, Nq, Nk] bias, fp32 softmax, P rounded to bf16
 //                   before P.V, output rounded to bf16;
-//   * ec_add_pos    src = bf16(bf16(x) + pos) for the joint encoder.
+//   * ec_add_pos    src = bf16(bf16(x) + pos) for the joint encoder;
+//   * ec_attn_train_fwd / ec_attn_train_bwd  the differentiable attention
+//                   of the training step with key mask, [B, H, Nq, Nk]
+//                   bias and Philox dropout on the probabilities (see
+//                   "training attention" below); ec_dropout_mask writes
+//                   the keep mask they draw.
 //
 // Plain C interface, loaded with ctypes; every entry point returns
 // cudaGetLastError() (or cudaErrorInvalidValue for a refused shape).
@@ -654,6 +661,632 @@ extern "C" int ec_attention(const void* q, const void* k, const void* v, int in_
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 32) return launch_attn<32>(p, B, s);
   if (D == 64) return launch_attn<64>(p, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------- training attention
+// Differentiable attention of the training step (ops/flash_attention.py
+// flash_mha_train): out = dropout(softmax(q.k^T * scale + kb[b] +
+// bias[b, h])) . v and its gradients dq, dk, dv, dbias. Same block shape
+// as the eval kernel above (one block per (batch, head), keys and values
+// resident in shared memory, warps on 16-row tiles, 32-wide chunks), with
+// the rounding points of the TPU training kernels: p stays fp32 through
+// the dropout and is rounded to bf16 only as the operand of p.v; the
+// output is stored fp32; in the backward `do` and ds are rounded to bf16
+// as matmul operands and every gradient is stored fp32.
+//
+// Dropout bits come from Philox-4x32-10 keyed by a 64-bit seed (read from
+// device memory, so drawing it never waits for the device) and
+// counted by (column / 4, row, batch * H + head): one call gives the bits
+// of four neighbouring key columns of one query row, whatever the tiling,
+// so the backward regenerates the forward's mask. keep = bits >= thresh.
+//
+// The forward saves each row's max and reciprocal exp-sum; the backward
+// reads them instead of making a statistics pass of its own.
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    k.x += 0x9E3779B9u;
+    k.y += 0xBB67AE85u;
+  }
+  return c;
+}
+
+// Random bits of key columns [4 * cg, 4 * cg + 4) of query row `row` of
+// (batch, head) `bh`, as bits[0..3].
+__device__ __forceinline__ void dropout_bits(unsigned long long seed, unsigned bh,
+                                             unsigned row, unsigned cg, unsigned* bits) {
+  const uint4 r = philox4x32_10(make_uint4(cg, row, bh, 0u),
+                                make_uint2((unsigned)seed, (unsigned)(seed >> 32)));
+  bits[0] = r.x; bits[1] = r.y; bits[2] = r.z; bits[3] = r.w;
+}
+
+__global__ void dropout_mask_kernel(const unsigned long long* seed_ptr, unsigned thresh,
+                                    long BH, int Nq, int Nk, unsigned char* keep) {
+  const unsigned long long seed = *seed_ptr;
+  const int ncg = (Nk + 3) / 4;
+  const long total = BH * Nq * ncg;
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long)gridDim.x * blockDim.x) {
+    const int cg = (int)(i % ncg);
+    const long rest = i / ncg;
+    const int row = (int)(rest % Nq);
+    const long bh = rest / Nq;
+    unsigned bits[4];
+    dropout_bits(seed, (unsigned)bh, (unsigned)row, (unsigned)cg, bits);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int j = cg * 4 + a;
+      if (j < Nk) keep[(bh * Nq + row) * Nk + j] = bits[a] >= thresh ? 1 : 0;
+    }
+  }
+}
+
+// The keep mask the training kernels use for (seed, thresh): uint8
+// [BH, Nq, Nk], so that a plain version can be fed the kernels' own mask.
+extern "C" int ec_dropout_mask(const void* seed, unsigned thresh, long BH, int Nq, int Nk,
+                               void* keep, void* stream) {
+  if (!seed || BH <= 0 || Nq <= 0 || Nk <= 0) return (int)cudaErrorInvalidValue;
+  const long total = BH * Nq * ((Nk + 3) / 4);
+  long blocks = (total + 255) / 256;
+  if (blocks > 65535L * 16) blocks = 65535L * 16;
+  dropout_mask_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned long long*>(seed), thresh, BH, Nq, Nk,
+      static_cast<unsigned char*>(keep));
+  return (int)cudaGetLastError();
+}
+
+struct TrainArgs {
+  const void* q; const void* k; const void* v; int in_dt;
+  long sqb, sqn, skb, skn, svb, svn;
+  int H, Nq, Nk, NKP, NQP;
+  const float* kb; long skbb;        // [B, Nk] additive key mask or null
+  const float* bias;                 // [B, H, Nq, Nk] or null
+  float scale;
+  const unsigned long long* seed;    // one value on the device; read when thresh > 0
+  unsigned thresh; float inv_keep;   // thresh 0: no dropout
+  float* stats;                      // [B * H, Nq, 2]: row max, 1 / exp-sum
+  float* out; long sob, son;         // forward: fp32 [B, Nq, H * D]
+  const void* dout; int do_dt; long sdb, sdn;
+  float* dq; float* dk; float* dv;   // backward: fp32 [B, N, H * D], contiguous
+  float* dbias;                      // [B, H, Nq, Nk] or null
+};
+
+template <int D>
+__global__ void __launch_bounds__(ATT_MAX_WARPS * 32) train_fwd_kernel(TrainArgs p) {
+  using L = AttnSmem<D>;
+  constexpr int KLD = L::KLD, SLD = L::SLD, PLD = L::PLD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int NKP = p.NKP;
+  const int nwarps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned full = 0xffffffffu;
+
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + (size_t)NKP * KLD;
+  unsigned char* wbase = smem + L::kv_bytes(NKP) + warp * L::WARP_BYTES;
+  bf16* Qs = reinterpret_cast<bf16*>(wbase);
+  float* Ss = reinterpret_cast<float*>(wbase + L::Q_BYTES);
+  bf16* Ps = reinterpret_cast<bf16*>(wbase + L::Q_BYTES + L::S_BYTES);
+
+  const long bh = blockIdx.x;
+  const long b = bh / p.H;
+  const int h = (int)(bh % p.H);
+  const unsigned long long seed = p.thresh ? *p.seed : 0ull;
+
+  for (int c = threadIdx.x; c < NKP * (D / 8); c += blockDim.x) {
+    const int n = c / (D / 8), d8 = (c % (D / 8)) * 8;
+    const int valid = n < p.Nk ? 8 : 0;
+    load8_any(&Ks[n * KLD + d8], p.k, p.in_dt, b * p.skb + (long)n * p.skn + h * D + d8, valid);
+    load8_any(&Vs[n * KLD + d8], p.v, p.in_dt, b * p.svb + (long)n * p.svn + h * D + d8, valid);
+  }
+  __syncthreads();
+
+  const float* kbrow = p.kb ? p.kb + b * p.skbb : nullptr;
+  const int r = lane >> 1, half = lane & 1;   // this lane: row r, 16 columns
+  const int ntiles = (p.Nq + 15) / 16;
+  for (int tile = warp; tile < ntiles; tile += nwarps) {
+    const int q0 = tile * 16;
+    for (int c = lane; c < 16 * (D / 8); c += 32) {
+      const int rr = c / (D / 8), d8 = (c % (D / 8)) * 8;
+      const int row = q0 + rr;
+      load8_any(&Qs[rr * KLD + d8], p.q, p.in_dt, b * p.sqb + (long)row * p.sqn + h * D + d8,
+                row < p.Nq ? 8 : 0);
+    }
+    __syncwarp();
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[D / 16];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) wmma::load_matrix_sync(qa[kk], Qs + kk * 16, KLD);
+
+    const int row = q0 + r;
+    const float* brow = (p.bias && row < p.Nq)
+                            ? p.bias + ((size_t)bh * p.Nq + row) * p.Nk
+                            : nullptr;
+    // pass 1: row max and exp-sum
+    float m = -INFINITY, l = 0.0f;
+    for (int c0 = 0; c0 < NKP; c0 += ATT_KC) {
+      score_chunk<D>(qa, Ks, c0, Ss);
+      __syncwarp();
+      float sv[16];
+      float cm = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int j = c0 + half * 16 + i;
+        float s = -INFINITY;
+        if (j < p.Nk) {
+          s = Ss[r * SLD + half * 16 + i] * p.scale;
+          if (kbrow) s += kbrow[j];
+          if (brow) s += brow[j];
+        }
+        sv[i] = s;
+        cm = fmaxf(cm, s);
+      }
+      cm = fmaxf(cm, __shfl_xor_sync(full, cm, 1));
+      const float mn = fmaxf(m, cm);
+      float part = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) part += sv[i] == -INFINITY ? 0.0f : expf(sv[i] - mn);
+      part += __shfl_xor_sync(full, part, 1);
+      l = (m == -INFINITY ? 0.0f : l * expf(m - mn)) + part;
+      m = mn;
+      __syncwarp();
+    }
+    const float inv_l = l > 0.0f ? 1.0f / l : 0.0f;
+    if (half == 0 && row < p.Nq) {
+      p.stats[((size_t)bh * p.Nq + row) * 2] = m;
+      p.stats[((size_t)bh * p.Nq + row) * 2 + 1] = inv_l;
+    }
+    // pass 2: p = exp(s - m) / l in fp32, dropout, O += bf16(p_dropped).V
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[D / 16];
+#pragma unroll
+    for (int t = 0; t < D / 16; ++t) wmma::fill_fragment(o[t], 0.0f);
+    for (int c0 = 0; c0 < NKP; c0 += ATT_KC) {
+      score_chunk<D>(qa, Ks, c0, Ss);
+      __syncwarp();
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        unsigned bits[4] = {0xffffffffu, 0xffffffffu, 0xffffffffu, 0xffffffffu};
+        if (p.thresh)
+          dropout_bits(seed, (unsigned)bh, (unsigned)row,
+                       (unsigned)((c0 + half * 16) / 4 + g), bits);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int i = g * 4 + a;
+          const int j = c0 + half * 16 + i;
+          float pv = 0.0f;
+          if (j < p.Nk) {
+            float s = Ss[r * SLD + half * 16 + i] * p.scale;
+            if (kbrow) s += kbrow[j];
+            if (brow) s += brow[j];
+            pv = s == -INFINITY ? 0.0f : expf(s - m) * inv_l;
+            pv = bits[a] >= p.thresh ? pv * p.inv_keep : 0.0f;
+          }
+          Ps[r * PLD + half * 16 + i] = __float2bfloat16(pv);
+        }
+      }
+      __syncwarp();
+#pragma unroll
+      for (int kt = 0; kt < ATT_KC / 16; ++kt) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
+        wmma::load_matrix_sync(pa, Ps + kt * 16, PLD);
+#pragma unroll
+        for (int t = 0; t < D / 16; ++t) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
+          wmma::load_matrix_sync(vb, Vs + (size_t)(c0 + kt * 16) * KLD + t * 16, KLD);
+          wmma::mma_sync(o[t], pa, vb, o[t]);
+        }
+      }
+      __syncwarp();
+    }
+#pragma unroll
+    for (int t = 0; t < D / 16; ++t)
+      wmma::store_matrix_sync(Ss + t * 16, o[t], SLD, wmma::mem_row_major);
+    __syncwarp();
+    for (int c = lane; c < 16 * D; c += 32) {
+      const int rr = c / D, d = c % D;
+      const int orow = q0 + rr;
+      if (orow < p.Nq) p.out[b * p.sob + (long)orow * p.son + h * D + d] = Ss[rr * SLD + d];
+    }
+    __syncwarp();
+  }
+}
+
+// Backward. Phase A: warps own 16-row query tiles with K and V resident,
+// exactly as the forward: a first pass over the key chunks sums
+// delta = rowsum(dp * p), a second forms ds = p * (dp - delta), stores it
+// as dbias and accumulates dq = bf16(ds) . k. Phase B: the block swaps
+// its resident operands for Q and dO, and warps own 16-row KEY tiles:
+// for each chunk of 32 queries they recompute p^T and dp^T from the saved
+// row statistics and delta, and accumulate dv = bf16(pd)^T . do and
+// dk = bf16(ds)^T . q. One block owns a head, so dk and dv need no
+// atomics and the sums have a fixed order.
+template <int D>
+struct TrainBwdSmem {
+  static constexpr int KLD = D + 8;
+  static constexpr int SLD = (ATT_KC > D ? ATT_KC : D) + 4;
+  static constexpr int PLD = ATT_KC + 8;
+  static constexpr size_t T_BYTES = ALIGN128((size_t)16 * KLD * 2);
+  static constexpr size_t S_BYTES = ALIGN128((size_t)16 * SLD * 4);
+  static constexpr size_t P_BYTES = ALIGN128((size_t)16 * PLD * 2);
+  static constexpr size_t WARP_BYTES = 2 * (T_BYTES + S_BYTES + P_BYTES);
+  static __host__ __device__ size_t big_bytes(int np) {
+    return ALIGN128((size_t)2 * np * KLD * 2);
+  }
+  static __host__ __device__ size_t stat_bytes(int nqp) {
+    return ALIGN128((size_t)3 * nqp * 4);
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(ATT_MAX_WARPS * 32) train_bwd_kernel(TrainArgs p) {
+  using L = TrainBwdSmem<D>;
+  constexpr int KLD = L::KLD, SLD = L::SLD, PLD = L::PLD;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int NKP = p.NKP, NQP = p.NQP;
+  const int NP = NKP > NQP ? NKP : NQP;
+  const int nwarps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned full = 0xffffffffu;
+
+  bf16* Big0 = reinterpret_cast<bf16*>(smem);          // K, then Q
+  bf16* Big1 = Big0 + (size_t)NP * KLD;                // V, then dO
+  float* Ms = reinterpret_cast<float*>(smem + L::big_bytes(NP));
+  float* Ls = Ms + NQP;
+  float* Dl = Ls + NQP;
+  unsigned char* wbase = smem + L::big_bytes(NP) + L::stat_bytes(NQP) + warp * L::WARP_BYTES;
+  bf16* T0 = reinterpret_cast<bf16*>(wbase);
+  bf16* T1 = reinterpret_cast<bf16*>(wbase + L::T_BYTES);
+  float* S0 = reinterpret_cast<float*>(wbase + 2 * L::T_BYTES);
+  float* S1 = reinterpret_cast<float*>(wbase + 2 * L::T_BYTES + L::S_BYTES);
+  bf16* P0 = reinterpret_cast<bf16*>(wbase + 2 * L::T_BYTES + 2 * L::S_BYTES);
+  bf16* P1 = reinterpret_cast<bf16*>(wbase + 2 * L::T_BYTES + 2 * L::S_BYTES + L::P_BYTES);
+
+  const long bh = blockIdx.x;
+  const long b = bh / p.H;
+  const int h = (int)(bh % p.H);
+  const unsigned long long seed = p.thresh ? *p.seed : 0ull;
+  const float* kbrow = p.kb ? p.kb + b * p.skbb : nullptr;
+
+  for (int c = threadIdx.x; c < NKP * (D / 8); c += blockDim.x) {
+    const int n = c / (D / 8), d8 = (c % (D / 8)) * 8;
+    const int valid = n < p.Nk ? 8 : 0;
+    load8_any(&Big0[n * KLD + d8], p.k, p.in_dt, b * p.skb + (long)n * p.skn + h * D + d8, valid);
+    load8_any(&Big1[n * KLD + d8], p.v, p.in_dt, b * p.svb + (long)n * p.svn + h * D + d8, valid);
+  }
+  for (int i = threadIdx.x; i < NQP; i += blockDim.x) {
+    const bool in = i < p.Nq;
+    Ms[i] = in ? p.stats[((size_t)bh * p.Nq + i) * 2] : 0.0f;
+    Ls[i] = in ? p.stats[((size_t)bh * p.Nq + i) * 2 + 1] : 0.0f;
+    Dl[i] = 0.0f;
+  }
+  __syncthreads();
+
+  // ---- phase A: dq, dbias, delta
+  {
+    const int r = lane >> 1, half = lane & 1;   // this lane: row r, 16 columns
+    const int ntiles = (p.Nq + 15) / 16;
+    for (int tile = warp; tile < ntiles; tile += nwarps) {
+      const int q0 = tile * 16;
+      for (int c = lane; c < 16 * (D / 8); c += 32) {
+        const int rr = c / (D / 8), d8 = (c % (D / 8)) * 8;
+        const int row = q0 + rr;
+        const int valid = row < p.Nq ? 8 : 0;
+        load8_any(&T0[rr * KLD + d8], p.q, p.in_dt,
+                  b * p.sqb + (long)row * p.sqn + h * D + d8, valid);
+        load8_any(&T1[rr * KLD + d8], p.dout, p.do_dt,
+                  b * p.sdb + (long)row * p.sdn + h * D + d8, valid);
+      }
+      __syncwarp();
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[D / 16], da[D / 16];
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wmma::load_matrix_sync(qa[kk], T0 + kk * 16, KLD);
+        wmma::load_matrix_sync(da[kk], T1 + kk * 16, KLD);
+      }
+      const int row = q0 + r;
+      const float* brow = (p.bias && row < p.Nq)
+                              ? p.bias + ((size_t)bh * p.Nq + row) * p.Nk
+                              : nullptr;
+      float* dbrow = (p.dbias && row < p.Nq)
+                         ? p.dbias + ((size_t)bh * p.Nq + row) * p.Nk
+                         : nullptr;
+      const float m = Ms[q0 + r], inv_l = Ls[q0 + r];
+      float delta = 0.0f;
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq[D / 16];
+#pragma unroll
+      for (int t = 0; t < D / 16; ++t) wmma::fill_fragment(dq[t], 0.0f);
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int c0 = 0; c0 < NKP; c0 += ATT_KC) {
+          score_chunk<D>(qa, Big0, c0, S0);     // q . k^T
+          score_chunk<D>(da, Big1, c0, S1);     // do . v^T
+          __syncwarp();
+          float part = 0.0f;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            unsigned bits[4] = {0xffffffffu, 0xffffffffu, 0xffffffffu, 0xffffffffu};
+            if (p.thresh)
+              dropout_bits(seed, (unsigned)bh, (unsigned)row,
+                           (unsigned)((c0 + half * 16) / 4 + g), bits);
+#pragma unroll
+            for (int a = 0; a < 4; ++a) {
+              const int i = g * 4 + a;
+              const int j = c0 + half * 16 + i;
+              float ds = 0.0f;
+              if (j < p.Nk && row < p.Nq) {
+                float s = S0[r * SLD + half * 16 + i] * p.scale;
+                if (kbrow) s += kbrow[j];
+                if (brow) s += brow[j];
+                const float pr = s == -INFINITY ? 0.0f : expf(s - m) * inv_l;
+                const float dp = bits[a] >= p.thresh
+                                     ? S1[r * SLD + half * 16 + i] * p.inv_keep
+                                     : 0.0f;
+                if (pass == 0) {
+                  part += dp * pr;
+                } else {
+                  ds = pr * (dp - delta);
+                  if (dbrow) dbrow[j] = ds;
+                }
+              }
+              if (pass == 1) P0[r * PLD + half * 16 + i] = __float2bfloat16(ds);
+            }
+          }
+          if (pass == 0) {
+            part += __shfl_xor_sync(full, part, 1);
+            delta += part;
+          } else {
+            __syncwarp();
+#pragma unroll
+            for (int kt = 0; kt < ATT_KC / 16; ++kt) {
+              wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
+              wmma::load_matrix_sync(pa, P0 + kt * 16, PLD);
+#pragma unroll
+              for (int t = 0; t < D / 16; ++t) {
+                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> kf;
+                wmma::load_matrix_sync(kf, Big0 + (size_t)(c0 + kt * 16) * KLD + t * 16, KLD);
+                wmma::mma_sync(dq[t], pa, kf, dq[t]);
+              }
+            }
+          }
+          __syncwarp();
+        }
+      }
+      if (half == 0) Dl[q0 + r] = delta;
+#pragma unroll
+      for (int t = 0; t < D / 16; ++t)
+        wmma::store_matrix_sync(S0 + t * 16, dq[t], SLD, wmma::mem_row_major);
+      __syncwarp();
+      for (int c = lane; c < 16 * D; c += 32) {
+        const int rr = c / D, d = c % D;
+        const int orow = q0 + rr;
+        if (orow < p.Nq)
+          p.dq[((size_t)b * p.Nq + orow) * p.H * D + h * D + d] = S0[rr * SLD + d] * p.scale;
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();      // every warp is done with K and V; delta is complete
+
+  // ---- phase B: dk, dv
+  for (int c = threadIdx.x; c < NQP * (D / 8); c += blockDim.x) {
+    const int n = c / (D / 8), d8 = (c % (D / 8)) * 8;
+    const int valid = n < p.Nq ? 8 : 0;
+    load8_any(&Big0[n * KLD + d8], p.q, p.in_dt, b * p.sqb + (long)n * p.sqn + h * D + d8, valid);
+    load8_any(&Big1[n * KLD + d8], p.dout, p.do_dt, b * p.sdb + (long)n * p.sdn + h * D + d8,
+              valid);
+  }
+  __syncthreads();
+  {
+    const int kg = lane & 3, qg = lane >> 2;   // this lane: 4 keys x 4 queries
+    const int ntiles = (p.Nk + 15) / 16;
+    for (int tile = warp; tile < ntiles; tile += nwarps) {
+      const int k0 = tile * 16;
+      for (int c = lane; c < 16 * (D / 8); c += 32) {
+        const int rr = c / (D / 8), d8 = (c % (D / 8)) * 8;
+        const int n = k0 + rr;
+        const int valid = n < p.Nk ? 8 : 0;
+        load8_any(&T0[rr * KLD + d8], p.k, p.in_dt, b * p.skb + (long)n * p.skn + h * D + d8,
+                  valid);
+        load8_any(&T1[rr * KLD + d8], p.v, p.in_dt, b * p.svb + (long)n * p.svn + h * D + d8,
+                  valid);
+      }
+      __syncwarp();
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ka[D / 16], va[D / 16];
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        wmma::load_matrix_sync(ka[kk], T0 + kk * 16, KLD);
+        wmma::load_matrix_sync(va[kk], T1 + kk * 16, KLD);
+      }
+      float kbv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int key = k0 + kg * 4 + a;
+        kbv[a] = key < p.Nk ? (kbrow ? kbrow[key] : 0.0f) : -INFINITY;
+      }
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> dv[D / 16], dk[D / 16];
+#pragma unroll
+      for (int t = 0; t < D / 16; ++t) {
+        wmma::fill_fragment(dv[t], 0.0f);
+        wmma::fill_fragment(dk[t], 0.0f);
+      }
+      for (int q0 = 0; q0 < NQP; q0 += ATT_KC) {
+        score_chunk<D>(ka, Big0, q0, S0);     // k . q^T  = s^T
+        score_chunk<D>(va, Big1, q0, S1);     // v . do^T = dpd^T
+        __syncwarp();
+#pragma unroll
+        for (int bq = 0; bq < 4; ++bq) {
+          const int qc = qg * 4 + bq;
+          const int qi = q0 + qc;
+          unsigned bits[4] = {0xffffffffu, 0xffffffffu, 0xffffffffu, 0xffffffffu};
+          float m = 0.0f, inv_l = 0.0f, delta = 0.0f;
+          const float* brow = nullptr;
+          if (qi < p.Nq) {
+            m = Ms[qi]; inv_l = Ls[qi]; delta = Dl[qi];
+            if (p.bias) brow = p.bias + ((size_t)bh * p.Nq + qi) * p.Nk;
+            if (p.thresh)
+              dropout_bits(seed, (unsigned)bh, (unsigned)qi, (unsigned)(k0 / 4 + kg), bits);
+          }
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            const int kr = kg * 4 + a;
+            const int key = k0 + kr;
+            float pd = 0.0f, ds = 0.0f;
+            if (qi < p.Nq && key < p.Nk) {
+              float s = S0[kr * SLD + qc] * p.scale + kbv[a];
+              if (brow) s += brow[key];
+              const float pr = s == -INFINITY ? 0.0f : expf(s - m) * inv_l;
+              const bool keep = bits[a] >= p.thresh;
+              pd = keep ? pr * p.inv_keep : 0.0f;
+              const float dp = keep ? S1[kr * SLD + qc] * p.inv_keep : 0.0f;
+              ds = pr * (dp - delta);
+            }
+            P0[kr * PLD + qc] = __float2bfloat16(pd);
+            P1[kr * PLD + qc] = __float2bfloat16(ds);
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int kt = 0; kt < ATT_KC / 16; ++kt) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa, sa;
+          wmma::load_matrix_sync(pa, P0 + kt * 16, PLD);
+          wmma::load_matrix_sync(sa, P1 + kt * 16, PLD);
+#pragma unroll
+          for (int t = 0; t < D / 16; ++t) {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> of, qf;
+            wmma::load_matrix_sync(of, Big1 + (size_t)(q0 + kt * 16) * KLD + t * 16, KLD);
+            wmma::load_matrix_sync(qf, Big0 + (size_t)(q0 + kt * 16) * KLD + t * 16, KLD);
+            wmma::mma_sync(dv[t], pa, of, dv[t]);
+            wmma::mma_sync(dk[t], sa, qf, dk[t]);
+          }
+        }
+        __syncwarp();
+      }
+#pragma unroll
+      for (int t = 0; t < D / 16; ++t) {
+        wmma::store_matrix_sync(S0 + t * 16, dv[t], SLD, wmma::mem_row_major);
+        wmma::store_matrix_sync(S1 + t * 16, dk[t], SLD, wmma::mem_row_major);
+      }
+      __syncwarp();
+      for (int c = lane; c < 16 * D; c += 32) {
+        const int rr = c / D, d = c % D;
+        const int n = k0 + rr;
+        if (n < p.Nk) {
+          const size_t o = ((size_t)b * p.Nk + n) * p.H * D + h * D + d;
+          p.dv[o] = S0[rr * SLD + d];
+          p.dk[o] = S1[rr * SLD + d] * p.scale;
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// Warps per block: as few rounds of `ntiles` tiles as the shared memory
+// left beside `fixed` bytes allows, spread evenly; 0 when not one fits.
+static int train_warps(size_t fixed, size_t warp_bytes, int ntiles) {
+  const size_t limit = 227 * 1024;
+  if (fixed + warp_bytes > limit) return 0;
+  int max_warps = (int)((limit - fixed) / warp_bytes);
+  if (max_warps > ATT_MAX_WARPS) max_warps = ATT_MAX_WARPS;
+  const int rounds = (ntiles + max_warps - 1) / max_warps;
+  return (ntiles + rounds - 1) / rounds;
+}
+
+template <int D>
+static int launch_train_fwd(const TrainArgs& p, int B, cudaStream_t s) {
+  using L = AttnSmem<D>;
+  const size_t kv = L::kv_bytes(p.NKP);
+  const int nw = train_warps(kv, L::WARP_BYTES, (p.Nq + 15) / 16);
+  if (nw == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = kv + nw * L::WARP_BYTES;
+  cudaError_t e = cudaFuncSetAttribute(train_fwd_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  train_fwd_kernel<D><<<(unsigned)((long)B * p.H), nw * 32, smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+static int launch_train_bwd(const TrainArgs& p, int B, cudaStream_t s) {
+  using L = TrainBwdSmem<D>;
+  const int np = p.NKP > p.NQP ? p.NKP : p.NQP;
+  const size_t fixed = L::big_bytes(np) + L::stat_bytes(p.NQP);
+  const int nt = (p.Nq > p.Nk ? p.Nq : p.Nk) + 15;
+  const int nw = train_warps(fixed, L::WARP_BYTES, nt / 16);
+  if (nw == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = fixed + nw * L::WARP_BYTES;
+  cudaError_t e = cudaFuncSetAttribute(train_bwd_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  train_bwd_kernel<D><<<(unsigned)((long)B * p.H), nw * 32, smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+static bool train_args(TrainArgs& p, const void* q, const void* k, const void* v, int in_dt,
+                       long sqb, long sqn, long skb, long skn, long svb, long svn,
+                       int B, int H, int Nq, int Nk, const void* kb, long skbb,
+                       const void* bias, float scale, const void* seed,
+                       unsigned thresh, float inv_keep, void* stats) {
+  const int nkp = (Nk + ATT_KC - 1) / ATT_KC * ATT_KC;
+  const int nqp = (Nq + ATT_KC - 1) / ATT_KC * ATT_KC;
+  if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || nkp > ATT_MAX_NK || nqp > ATT_MAX_NK)
+    return false;
+  p.q = q; p.k = k; p.v = v; p.in_dt = in_dt;
+  p.sqb = sqb; p.sqn = sqn; p.skb = skb; p.skn = skn; p.svb = svb; p.svn = svn;
+  p.H = H; p.Nq = Nq; p.Nk = Nk; p.NKP = nkp; p.NQP = nqp;
+  p.kb = static_cast<const float*>(kb); p.skbb = skbb;
+  p.bias = static_cast<const float*>(bias);
+  p.scale = scale;
+  if (thresh && !seed) return false;
+  p.seed = static_cast<const unsigned long long*>(seed);
+  p.thresh = thresh; p.inv_keep = inv_keep;
+  p.stats = static_cast<float*>(stats);
+  p.out = nullptr; p.sob = 0; p.son = 0;
+  p.dout = nullptr; p.do_dt = 0; p.sdb = 0; p.sdn = 0;
+  p.dq = nullptr; p.dk = nullptr; p.dv = nullptr; p.dbias = nullptr;
+  return true;
+}
+
+extern "C" int ec_attn_train_fwd(const void* q, const void* k, const void* v, int in_dt,
+                                 long sqb, long sqn, long skb, long skn, long svb, long svn,
+                                 int B, int H, int D, int Nq, int Nk,
+                                 const void* kb, long skbb, const void* bias, float scale,
+                                 const void* seed, unsigned thresh, float inv_keep,
+                                 void* out, long sob, long son, void* stats, void* stream) {
+  TrainArgs p;
+  if (!train_args(p, q, k, v, in_dt, sqb, sqn, skb, skn, svb, svn, B, H, Nq, Nk, kb, skbb,
+                  bias, scale, seed, thresh, inv_keep, stats))
+    return (int)cudaErrorInvalidValue;
+  p.out = static_cast<float*>(out); p.sob = sob; p.son = son;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 32) return launch_train_fwd<32>(p, B, s);
+  if (D == 64) return launch_train_fwd<64>(p, B, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int ec_attn_train_bwd(const void* q, const void* k, const void* v, int in_dt,
+                                 long sqb, long sqn, long skb, long skn, long svb, long svn,
+                                 int B, int H, int D, int Nq, int Nk,
+                                 const void* kb, long skbb, const void* bias, float scale,
+                                 const void* seed, unsigned thresh, float inv_keep,
+                                 const void* dout, int do_dt, long sdb, long sdn,
+                                 const void* stats, void* dq, void* dk, void* dv, void* dbias,
+                                 void* stream) {
+  TrainArgs p;
+  if (!train_args(p, q, k, v, in_dt, sqb, sqn, skb, skn, svb, svn, B, H, Nq, Nk, kb, skbb,
+                  bias, scale, seed, thresh, inv_keep, const_cast<void*>(stats)))
+    return (int)cudaErrorInvalidValue;
+  p.dout = dout; p.do_dt = do_dt; p.sdb = sdb; p.sdn = sdn;
+  p.dq = static_cast<float*>(dq); p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv); p.dbias = static_cast<float*>(dbias);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 32) return launch_train_bwd<32>(p, B, s);
+  if (D == 64) return launch_train_bwd<64>(p, B, s);
   return (int)cudaErrorInvalidValue;
 }
 

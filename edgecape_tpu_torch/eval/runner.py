@@ -221,3 +221,13 @@ def compute_metrics(dataset, records, metric_list) -> OrderedDict:
         info["EPE"] = float(np.mean(de.sum(axis=-1)
                                     / np.maximum(masks.sum(axis=-1), 1)))
     return info
+
+
+def append_testing_log(work_dir: str, config_name: str, ckpt: str,
+                       results: dict) -> None:
+    """One line per evaluated checkpoint in work_dir/testing_log.txt."""
+    os.makedirs(work_dir, exist_ok=True)
+    with open(os.path.join(work_dir, "testing_log.txt"), "a") as f:
+        f.write(f"config: {config_name} ckpt: {ckpt} ")
+        f.write(" ".join(f"{k}: {v}" for k, v in results.items()))
+        f.write("\n")

@@ -1,7 +1,15 @@
 """EdgeCape keypoint head over frozen backbone features; counterpart of
 edgecape_tpu/models/edgecape.py with its encode_support / encode_query /
 decode split (the support context is computed once per episode group
-and shared by its queries)."""
+and shared by its queries).
+
+Train / eval is `module.training`; in training mode the dropout layers
+draw from the `generator` argument, the encoder and decoder run as
+plain modules (the fused encoder / decoder ops are eval-only and take no
+gradient) and, with use_flash, self-attention goes through
+flash_mha_train. The masked-keypoint reconstruction branch of the
+curriculum is composed by the training step (train/loop.py) from
+`encode`, `mask_tokens` and two calls of `decode`."""
 
 from __future__ import annotations
 
@@ -42,15 +50,23 @@ class EncodeOutput(NamedTuple):
     spatial_hw: tuple
 
 
+class ModelOutput(NamedTuple):
+    outputs: torch.Tensor          # [L, B, K, 2] per-layer predictions
+    points: list                   # trajectory [initial, ...]
+    encode: EncodeOutput
+
+
 class EdgeCape(nn.Module):
     def __init__(self, cfg, use_flash: bool = False):
         """cfg: a model configuration with the fields of
         edgecape_tpu.config.ModelConfig (read by attribute). use_flash
-        routes the eval path through the hand-written kernel ops."""
+        routes eval through the hand-written fused ops and training
+        self-attention through flash_mha_train."""
         super().__init__()
         c = cfg
         self.cfg = cfg
         self.use_flash = flash = bool(use_flash)
+        drop = float(c.dropout)
         self.input_proj = nn.Linear(c.backbone_dim, c.d_model)
         self.query_proj = nn.Linear(c.backbone_dim, c.d_model)
         self.skeleton = SkeletonPredictor(
@@ -60,17 +76,17 @@ class EdgeCape(nn.Module):
             learn_skeleton=c.learn_skeleton,
             adj_normalization=c.adj_normalization,
             use_zero_conv=c.use_zero_conv, use_flash=flash,
-            image_feat_dim=c.backbone_dim)
+            image_feat_dim=c.backbone_dim, dropout=drop)
         self.encoder_layers = nn.ModuleList(
             EncoderLayer(c.d_model, c.nhead, c.dim_feedforward,
-                         use_flash=flash)
+                         use_flash=flash, dropout=drop)
             for _ in range(c.num_encoder_layers))
         self.proposal_gen = ProposalGenerator(
             c.d_model, c.similarity_proj_dim, c.dynamic_proj_dim)
         self.decoder = Decoder(
             c.d_model, c.nhead, c.dim_feedforward, c.num_decoder_layers,
             attn_bias=c.attn_bias, max_hops=c.max_hops,
-            num_feats=c.num_feats, use_flash=flash)
+            num_feats=c.num_feats, use_flash=flash, dropout=drop)
         self.mask_token = nn.Parameter(torch.zeros(1, c.d_model))
 
     def _img_pos(self, b, gh, gw, dtype, device):
@@ -79,8 +95,8 @@ class EdgeCape(nn.Module):
         return grid.reshape(gh * gw, c.d_model).expand(
             b, gh * gw, c.d_model).to(dtype)
 
-    def encode_support(self, feat_s, target_s, mask_s,
-                       binary_adj) -> SupportContext:
+    def encode_support(self, feat_s, target_s, mask_s, binary_adj,
+                       generator=None) -> SupportContext:
         """feat_s [B, S, gh, gw, Cb]; target_s [B, S, K, H, W]; mask_s
         [B, K]; binary_adj [B, K, K]."""
         b, s, gh, gw, _ = feat_s.shape
@@ -89,14 +105,16 @@ class EdgeCape(nn.Module):
         kp_tokens0 = self.query_proj(pooled)
         kp_valid = mask_s > 0
         adj, hop_stack, raw_adj = self.skeleton(
-            binary_adj, kp_tokens0, feat_s, kp_valid, img_pos)
+            binary_adj, kp_tokens0, feat_s, kp_valid, img_pos,
+            generator=generator)
         return SupportContext(kp_tokens0, kp_valid, mask_s, adj, hop_stack,
                               raw_adj)
 
-    def encode_query(self, feat_q, ctx: SupportContext) -> EncodeOutput:
+    def encode_query(self, feat_q, ctx: SupportContext,
+                     generator=None) -> EncodeOutput:
         """Joint encoder over [query image tokens ++ support kp tokens],
-        then the proposal generator. With use_flash the encoder runs
-        through the hand-written fused_encoder_stack op."""
+        then the proposal generator. With use_flash, in eval mode, the
+        encoder runs through the hand-written fused_encoder_stack op."""
         c = self.cfg
         b, gh, gw, _ = feat_q.shape
         hw = gh * gw
@@ -109,13 +127,13 @@ class EdgeCape(nn.Module):
         valid = torch.cat([torch.ones(b, hw, dtype=torch.bool,
                                       device=feat_q.device), ctx.kp_valid],
                           dim=1)
-        if self.use_flash:
+        if self.use_flash and not self.training:
             tokens = fused_encoder_stack(tokens, pos[0], valid,
                                          self.encoder_layers,
                                          num_heads=c.nhead, eps=1e-5)
         else:
             for layer in self.encoder_layers:
-                tokens = layer(tokens, pos, valid)
+                tokens = layer(tokens, pos, valid, generator=generator)
         enc_img, enc_kp = tokens[:, :hw], tokens[:, hw:]
         prop_loss, sim, proposals = self.proposal_gen(enc_img, enc_kp,
                                                       (gh, gw))
@@ -126,14 +144,40 @@ class EdgeCape(nn.Module):
             proposals=proposals, proposals_for_loss=prop_loss,
             similarity=sim.reshape(b, k, gh, gw), spatial_hw=(gh, gw))
 
+    def encode(self, feat_q, feat_s, target_s, mask_s, binary_adj,
+               generator=None) -> EncodeOutput:
+        """Full encode (support then query phase)."""
+        ctx = self.encode_support(feat_s, target_s, mask_s, binary_adj,
+                                  generator=generator)
+        return self.encode_query(feat_q, ctx, generator=generator)
+
     def decode(self, kp_tokens, img_tokens, proposals, adj, hop_stack,
-               kp_valid, img_pos):
+               kp_valid, img_pos, generator=None):
         """([L, B, K, 2] per-layer predictions via the head recompute from
-        the normed tokens, point trajectory)."""
+        the normed tokens, without the decoder's gradient stop between
+        layers; point trajectory)."""
         inter, points = self.decoder(
             kp_tokens, img_tokens, kp_valid=kp_valid, img_pos=img_pos,
-            initial_proposals=proposals, adj=adj, hop_stack=hop_stack)
+            initial_proposals=proposals, adj=adj, hop_stack=hop_stack,
+            generator=generator)
         outs = [torch.sigmoid(self.decoder.kpt_branches[i](inter[i])
                               + inverse_sigmoid(points[i]))
                 for i in range(inter.shape[0])]
         return torch.stack(outs, dim=0), points
+
+    def mask_tokens(self, kp_tokens, random_mask, kp_valid):
+        """Masked valid keypoints take the learnable mask token; the kept
+        tokens are detached. random_mask [B, K]: 1 keep, 0 mask."""
+        keep = random_mask[..., None].to(kp_tokens.dtype)
+        fill = (1.0 - keep) * kp_valid[..., None].to(kp_tokens.dtype) \
+            * self.mask_token
+        return kp_tokens.detach() * keep + fill
+
+    def forward(self, feat_q, feat_s, target_s, mask_s, binary_adj,
+                generator=None) -> ModelOutput:
+        enc = self.encode(feat_q, feat_s, target_s, mask_s, binary_adj,
+                          generator=generator)
+        outputs, points = self.decode(
+            enc.kp_tokens, enc.img_tokens, enc.proposals, enc.adj,
+            enc.hop_stack, enc.kp_valid, enc.img_pos, generator=generator)
+        return ModelOutput(outputs=outputs, points=points, encode=enc)

@@ -17,7 +17,8 @@ class SkeletonPredictor(nn.Module):
                  num_layers: int = 3, dim_feedforward: int = 384,
                  max_hop: int = 4, learn_skeleton: bool = False,
                  adj_normalization: bool = True, use_zero_conv: bool = True,
-                 use_flash: bool = False, image_feat_dim: int = 384):
+                 use_flash: bool = False, image_feat_dim: int = 384,
+                 dropout: float = 0.0):
         super().__init__()
         self.d_model = d_model
         self.max_hop = max_hop
@@ -28,18 +29,20 @@ class SkeletonPredictor(nn.Module):
             self.image_project = nn.Linear(image_feat_dim, d_model)
             self.refine = nn.ModuleList(
                 DecoderLayer(d_model, nhead, dim_feedforward,
-                             two_way_attn=True, use_flash=use_flash)
+                             two_way_attn=True, use_flash=use_flash,
+                             dropout=dropout)
                 for _ in range(num_layers))
             if use_zero_conv:
                 self.zero_conv_w = nn.Parameter(torch.zeros(1))
                 self.zero_conv_b = nn.Parameter(torch.zeros(1))
 
     def forward(self, binary_adj, kp_tokens, support_feats, kp_valid,
-                img_pos):
+                img_pos, generator=None):
         """binary_adj [B, K, K]; kp_tokens [B, K, C]; support_feats
         [B, S, gh, gw, Cb]; kp_valid [B, K] bool; img_pos [B, gh*gw, C].
         Returns adj [B, 2, K, K], hop_stack [B, K, K, max_hop+1] or None,
-        raw_adj [B, K, K]."""
+        raw_adj [B, K, K]. `generator` feeds the refine layers' dropout in
+        training mode."""
         kp_invalid = ~kp_valid
         gt_norm = graph.normalize_adjacency(binary_adj, kp_invalid)
         if not self.learn_skeleton:
@@ -65,7 +68,8 @@ class SkeletonPredictor(nn.Module):
         img_pos_rep = rep(img_pos)
         for layer in self.refine:
             x, img = layer(x, img, kp_valid=valid_rep, kp_query_pos=zero_pos,
-                           img_pos=img_pos_rep, adj=adj_rep)
+                           img_pos=img_pos_rep, adj=adj_rep,
+                           generator=generator)
         refined = x.reshape(b, s, k, c).mean(dim=1)
 
         unit = refined / (torch.linalg.norm(refined, dim=-1, keepdim=True)

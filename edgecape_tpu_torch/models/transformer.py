@@ -1,7 +1,13 @@
 """Graph-transformer core: joint encoder, proposal generator and the
 GCN-FFN decoder with the Markov attention bias; counterpart of
 edgecape_tpu/models/transformer.py. Batch-first [B, N, C]; K is padded
-to max_kpt with invalid keypoints carried as masks."""
+to max_kpt with invalid keypoints carried as masks.
+
+Train / eval is `module.training`. Dropout sits where the JAX modules
+have it and draws from an explicit `torch.Generator` handed down through
+the `generator` arguments (never the global state); the hand-written
+fused ops are eval-only, and training self-attention goes through
+`flash_mha_train`."""
 
 from __future__ import annotations
 
@@ -11,7 +17,7 @@ import torch.nn.functional as F
 
 from ..ops import pos_enc, softargmax
 from ..ops.fused_decoder import fused_decoder_layer
-from ..ops.flash_attention import flash_mha
+from ..ops.flash_attention import flash_mha, flash_mha_train
 from ..ops.pos_enc import inverse_sigmoid
 
 
@@ -29,23 +35,43 @@ def ensure_some_valid(valid: torch.Tensor) -> torch.Tensor:
     return valid | (none_valid & first)
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator) -> torch.Tensor:
+    """Inverted dropout with the keep mask drawn from `generator` (on the
+    generator's device); the identity in eval mode or at rate 0."""
+    if not training or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training mode needs a generator")
+    keep = torch.rand(x.shape, generator=generator,
+                      device=generator.device) >= rate
+    return torch.where(keep.to(x.device), x * (1.0 / (1.0 - rate)),
+                       torch.zeros_like(x))
+
+
 class MultiHeadAttention(nn.Module):
     """torch.nn.MultiheadAttention math, batch-first, with distinct q/k/v
-    input widths, a key-validity mask and an additive logit bias."""
+    input widths, a key-validity mask, an additive logit bias and dropout
+    on the probabilities. With use_flash, self-attention shapes go to the
+    hand-written kernels: flash_mha in eval mode (no bias), and
+    flash_mha_train (bias, in-kernel dropout, gradients) in training
+    mode."""
 
     def __init__(self, embed_dim: int, num_heads: int, q_dim: int = None,
                  k_dim: int = None, v_dim: int = None,
-                 use_flash: bool = False):
+                 use_flash: bool = False, dropout: float = 0.0):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.use_flash = use_flash
+        self.dropout = dropout
         self.q_proj = nn.Linear(q_dim or embed_dim, embed_dim)
         self.k_proj = nn.Linear(k_dim or embed_dim, embed_dim)
         self.v_proj = nn.Linear(v_dim or embed_dim, embed_dim)
         self.out_proj = nn.Linear(embed_dim, embed_dim)
 
-    def forward(self, q_in, k_in, v_in, *, key_valid=None, bias=None):
+    def forward(self, q_in, k_in, v_in, *, key_valid=None, bias=None,
+                generator=None):
         b, nq, _ = q_in.shape
         nk = k_in.shape[1]
         h = self.num_heads
@@ -53,9 +79,15 @@ class MultiHeadAttention(nn.Module):
         q = self.q_proj(q_in).reshape(b, nq, h, hd)
         k = self.k_proj(k_in).reshape(b, nk, h, hd)
         v = self.v_proj(v_in).reshape(b, nk, h, hd)
-        if self.use_flash and nq == nk and bias is None:
+        if (self.use_flash and nq == nk and bias is None
+                and not self.training):
             out = flash_mha(q, k, v, key_valid).reshape(b, nq,
                                                          self.embed_dim)
+            return self.out_proj(out)
+        if self.use_flash and nq == nk and nq <= 512 and self.training:
+            out = flash_mha_train(
+                q, k, v, key_valid, bias, dropout_rate=self.dropout,
+                generator=generator).reshape(b, nq, self.embed_dim)
             return self.out_proj(out)
         logits = torch.einsum("bqhd,bkhd->bhqk", (q * (hd ** -0.5)).float(),
                               k.float())
@@ -65,6 +97,7 @@ class MultiHeadAttention(nn.Module):
             logits = logits.masked_fill(~key_valid[:, None, None, :],
                                         torch.finfo(torch.float32).min)
         probs = torch.softmax(logits, dim=-1).to(q_in.dtype)
+        probs = dropout(probs, self.dropout, self.training, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(
             b, nq, self.embed_dim)
         return self.out_proj(out)
@@ -91,21 +124,27 @@ class EncoderLayer(nn.Module):
     """Post-norm self-attention + ReLU FFN; position added to q, k and v."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
-                 use_flash: bool = False):
+                 use_flash: bool = False, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.self_attn = MultiHeadAttention(d_model, nhead,
-                                            use_flash=use_flash)
+                                            use_flash=use_flash,
+                                            dropout=dropout)
         self.norm1 = ln(d_model)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.norm2 = ln(d_model)
 
-    def forward(self, tokens, pos, key_valid):
+    def forward(self, tokens, pos, key_valid, generator=None):
+        def drop(t):
+            return dropout(t, self.dropout, self.training, generator)
+
         src = tokens + pos
-        x = self.norm1(src + self.self_attn(src, src, src,
-                                            key_valid=key_valid))
-        f = self.linear2(F.relu(self.linear1(x)))
-        return self.norm2(x + f)
+        att = self.self_attn(src, src, src, key_valid=key_valid,
+                             generator=generator)
+        x = self.norm1(src + drop(att))
+        f = self.linear2(drop(F.relu(self.linear1(x))))
+        return self.norm2(x + drop(f))
 
 
 class ProposalGenerator(nn.Module):
@@ -156,18 +195,22 @@ class DecoderLayer(nn.Module):
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int, *,
                  attn_bias: bool = False, max_hops: int = 4,
-                 two_way_attn: bool = False, use_flash: bool = False):
+                 two_way_attn: bool = False, use_flash: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         self.attn_bias = attn_bias
         self.two_way = two_way_attn
+        self.dropout = dropout
         if attn_bias:
             self.bias_mlp = MarkovBiasMLP(nhead, max_hops)
         self.self_attn = MultiHeadAttention(d_model, nhead,
-                                            use_flash=use_flash)
+                                            use_flash=use_flash,
+                                            dropout=dropout)
         self.norm1 = ln(d_model)
         self.cross_attn = MultiHeadAttention(2 * d_model, nhead,
                                              v_dim=d_model,
-                                             use_flash=use_flash)
+                                             use_flash=use_flash,
+                                             dropout=dropout)
         self.choker = nn.Linear(2 * d_model, d_model)
         self.norm2 = ln(d_model)
         self.gcn = GCNLayer(d_model, dim_feedforward)
@@ -176,27 +219,36 @@ class DecoderLayer(nn.Module):
         if two_way_attn:
             self.two_way_attn = MultiHeadAttention(2 * d_model, nhead,
                                                    v_dim=d_model,
-                                                   use_flash=use_flash)
+                                                   use_flash=use_flash,
+                                                   dropout=dropout)
             self.two_way_choker = nn.Linear(2 * d_model, d_model)
             self.norm4 = ln(d_model)
 
     def forward(self, kp_tokens, img_tokens, *, kp_valid, kp_query_pos,
-                img_pos, hop_stack=None, adj=None):
+                img_pos, hop_stack=None, adj=None, generator=None):
+        def drop(t):
+            return dropout(t, self.dropout, self.training, generator)
+
         bias = None
         if self.attn_bias and hop_stack is not None:
             bias = self.bias_mlp(hop_stack)
         att = self.self_attn(kp_tokens, kp_tokens, kp_tokens,
-                             key_valid=kp_valid, bias=bias)
-        x = self.norm1(kp_tokens + att)
+                             key_valid=kp_valid, bias=bias,
+                             generator=generator)
+        x = self.norm1(kp_tokens + drop(att))
         q = torch.cat([x, kp_query_pos], dim=-1)
         k = torch.cat([img_tokens, img_pos], dim=-1)
-        x = self.norm2(x + self.choker(self.cross_attn(q, k, img_tokens)))
-        x = self.norm3(x + self.ffn2(self.gcn(x, adj)))
+        att = self.choker(self.cross_attn(q, k, img_tokens,
+                                          generator=generator))
+        x = self.norm2(x + drop(att))
+        f = self.ffn2(drop(self.gcn(x, adj)))
+        x = self.norm3(x + drop(f))
         if self.two_way:
             q2 = torch.cat([img_tokens, img_pos], dim=-1)
             k2 = torch.cat([x, kp_query_pos], dim=-1)
-            att2 = self.two_way_choker(self.two_way_attn(q2, k2, x))
-            img_tokens = self.norm4(img_tokens + att2)
+            att2 = self.two_way_choker(self.two_way_attn(
+                q2, k2, x, generator=generator))
+            img_tokens = self.norm4(img_tokens + drop(att2))
         return x, img_tokens
 
 
@@ -229,14 +281,15 @@ class KptBranch(nn.Module):
 class Decoder(nn.Module):
     """Iterative refinement: per layer, sine-embed the current coords ->
     ref_point_head -> decoder layer -> kpt_branch delta ->
-    sigmoid(inverse_sigmoid(prev) + delta). The coordinate trajectory
-    stays fp32. With use_flash every layer goes through the hand-written
-    fused_decoder_layer op."""
+    sigmoid(inverse_sigmoid(prev) + delta), with the gradient stopped at
+    the initial proposals and between layers. The coordinate trajectory
+    stays fp32. With use_flash, in eval mode, every layer goes through the
+    hand-written fused_decoder_layer op (which takes no gradient)."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  num_layers: int, *, attn_bias: bool = False,
                  max_hops: int = 4, num_feats: int = 128,
-                 use_flash: bool = False):
+                 use_flash: bool = False, dropout: float = 0.0):
         super().__init__()
         self.nhead = nhead
         self.attn_bias = attn_bias
@@ -245,7 +298,7 @@ class Decoder(nn.Module):
         self.layers = nn.ModuleList(
             DecoderLayer(d_model, nhead, dim_feedforward,
                          attn_bias=attn_bias, max_hops=max_hops,
-                         use_flash=use_flash)
+                         use_flash=use_flash, dropout=dropout)
             for _ in range(num_layers))
         self.norm = ln(d_model)
         self.ref_point_head = RefPointHead(d_model)
@@ -253,9 +306,9 @@ class Decoder(nn.Module):
                                           for _ in range(num_layers))
 
     def forward(self, kp_tokens, img_tokens, *, kp_valid, img_pos,
-                initial_proposals, adj, hop_stack=None):
+                initial_proposals, adj, hop_stack=None, generator=None):
         kp_valid = ensure_some_valid(kp_valid)
-        bi = initial_proposals.float()
+        bi = initial_proposals.float().detach()
         points = [bi]
         intermediate = []
         x = kp_tokens
@@ -263,7 +316,7 @@ class Decoder(nn.Module):
         for layer, branch in zip(self.layers, self.kpt_branches):
             query_pos = self.ref_point_head(
                 pos_enc.sine_coords(bi, self.num_feats).to(x.dtype))
-            if self.use_flash:
+            if self.use_flash and not self.training:
                 if self.attn_bias and hop_stack is not None:
                     bias = markov_bias_fn(layer.bias_mlp, hop_stack)
                 else:
@@ -275,8 +328,10 @@ class Decoder(nn.Module):
             else:
                 x, img_tokens = layer(
                     x, img_tokens, kp_valid=kp_valid, kp_query_pos=query_pos,
-                    img_pos=img_pos, hop_stack=hop_stack, adj=adj)
+                    img_pos=img_pos, hop_stack=hop_stack, adj=adj,
+                    generator=generator)
             intermediate.append(self.norm(x))
-            bi = torch.sigmoid(inverse_sigmoid(bi) + branch(x))
-            points.append(bi)
+            bi_pred = torch.sigmoid(inverse_sigmoid(bi) + branch(x))
+            bi = bi_pred.detach()
+            points.append(bi_pred)
         return torch.stack(intermediate, dim=0), points

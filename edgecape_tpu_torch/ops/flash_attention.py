@@ -17,15 +17,34 @@ memory.
 
 The wrapper runs the kernel for CUDA tensors and the plain PyTorch
 version for CPU tensors; `launches` counts kernel runs.
+
+`flash_mha_train` is the differentiable attention of the training step
+and replaces the TPU pair `_flash_train_fwd` / `_flash_train_bwd` of the
+same JAX file: softmax(q k^T / sqrt(D) + key mask + bias) with dropout on
+the probabilities, times v, with bf16 matmul operands and fp32 softmax,
+dropout, output and gradients (dq, dk, dv and dbias for the Markov bias).
+Two CUDA kernels (ops/kernels.attention_train_fwd / _bwd) behind a
+`torch.autograd.Function`: the forward keeps each row's max and exp-sum,
+the backward recomputes the probabilities from them and regenerates the
+dropout mask from the same Philox seed, so neither scores, probabilities
+nor mask reach device memory. At the training shapes ([16 x 8 heads,
+100..356 tokens, D=32]) the work is a few microseconds of tensor-core
+time and the launch dominates; one block per (batch, head) keeps the
+whole head in shared memory. `launches_fwd` / `launches_bwd` count
+kernel runs.
 """
 
 from __future__ import annotations
 
 import math
 
+import torch
+
 from . import plain
 
 launches = 0
+launches_fwd = 0
+launches_bwd = 0
 
 
 def flash_mha_plain(q, k, v, key_valid=None):
@@ -47,7 +66,6 @@ def flash_mha(q, k, v, key_valid=None):
     if not q.is_cuda:
         return flash_mha_plain(q, k, v, key_valid)
     from . import kernels as K
-    launches += 1
     b, nq, h, d = q.shape
     nk = k.shape[1]
     kb = None if key_valid is None else plain.key_bias(key_valid)
@@ -55,4 +73,126 @@ def flash_mha(q, k, v, key_valid=None):
                       v.reshape(b, nk, h * d), num_heads=h,
                       scale=1.0 / math.sqrt(d), key_bias=kb,
                       out_dtype=q.dtype)
+    launches += 1
     return out.reshape(b, nq, h, d)
+
+
+class _RoundGradBf16(torch.autograd.Function):
+    """Identity whose gradient is rounded to bf16 (kept in fp32): the
+    backward kernel's rounding of `do` and `ds` as matmul operands."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return plain.bf16(g)
+
+
+def _bf16_operand(x):
+    """bf16-rounded values in fp32, with the gradient passed through
+    unrounded (the kernels store every gradient in fp32)."""
+    x = x.to(torch.float32)
+    return x + (plain.bf16(x) - x).detach()
+
+
+def flash_mha_train_plain(q, k, v, key_valid=None, bias=None, *,
+                          dropout_rate: float = 0.0, generator=None,
+                          keep=None):
+    """Plain PyTorch version of flash_mha_train with the kernels' rounding
+    points, differentiated by autograd. `keep` is an explicit dropout
+    mask, bool [B, H, Nq, Nk]; without one and with dropout_rate > 0 it
+    is drawn from `generator`. A row whose keys are all masked gives 0,
+    like the kernels."""
+    b, nq, h, d = q.shape
+    qf, kf, vf = (_bf16_operand(t).transpose(1, 2) for t in (q, k, v))
+    s = _RoundGradBf16.apply(
+        torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / math.sqrt(d)))
+    if key_valid is not None:
+        s = s + plain.key_bias(key_valid)[:, None, None, :]
+    if bias is not None:
+        s = s + bias.to(torch.float32)
+    m = s.detach().amax(dim=-1, keepdim=True)
+    e = torch.exp(s - torch.where(torch.isinf(m), torch.zeros_like(m), m))
+    total = e.sum(dim=-1, keepdim=True)
+    p = e / torch.where(total > 0, total, torch.ones_like(total))
+    if dropout_rate > 0.0:
+        if keep is None:
+            if generator is None:
+                raise ValueError("dropout needs a generator")
+            keep = torch.rand(p.shape, generator=generator,
+                              device=generator.device) >= dropout_rate
+        p = torch.where(keep.to(p.device), p * (1.0 / (1.0 - dropout_rate)),
+                        torch.zeros_like(p))
+    out = _RoundGradBf16.apply(torch.matmul(_bf16_operand(p), vf))
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _flat(t):
+    """[B, N, H, D] -> [B, N, H*D] with a unit last stride."""
+    b, n, h, d = t.shape
+    return t.reshape(b, n, h * d)
+
+
+class _FlashTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_valid, bias, rate, seed):
+        global launches_fwd
+        from . import kernels as K
+        b, nq, h, d = q.shape
+        kb = None if key_valid is None else plain.key_bias(key_valid)
+        out, stats = K.attention_train_fwd(
+            _flat(q), _flat(k), _flat(v), num_heads=h,
+            scale=1.0 / math.sqrt(d), key_bias=kb, bias=bias, seed=seed,
+            rate=rate)
+        launches_fwd += 1
+        ctx.save_for_backward(q, k, v, key_valid, bias, stats, seed)
+        ctx.rate = rate
+        return out.reshape(b, nq, h, d).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        global launches_bwd
+        from . import kernels as K
+        q, k, v, key_valid, bias, stats, seed = ctx.saved_tensors
+        b, nq, h, d = q.shape
+        kb = None if key_valid is None else plain.key_bias(key_valid)
+        dq, dk, dv, dbias = K.attention_train_bwd(
+            _flat(q), _flat(k), _flat(v), _flat(g), stats, num_heads=h,
+            scale=1.0 / math.sqrt(d), key_bias=kb, bias=bias,
+            seed=seed, rate=ctx.rate,
+            need_dbias=ctx.needs_input_grad[4])
+        launches_bwd += 1
+        return (dq.reshape(q.shape).to(q.dtype),
+                dk.reshape(k.shape).to(k.dtype),
+                dv.reshape(v.shape).to(v.dtype), None,
+                None if dbias is None else dbias.to(bias.dtype), None, None)
+
+
+def dropout_seed(generator, device) -> torch.Tensor:
+    """A seed for the kernels' Philox stream, drawn from `generator`: a
+    one-element int64 tensor on `device` (the kernels read it there, so
+    nothing waits for the device)."""
+    return torch.randint(0, 2 ** 62, (1,), generator=generator,
+                         device=generator.device).to(device)
+
+
+def flash_mha_train(q, k, v, key_valid=None, bias=None, *,
+                    dropout_rate: float = 0.0, generator=None):
+    """Differentiable attention for the training step. q [B, Nq, H, D];
+    k/v [B, Nk, H, D]; key_valid [B, Nk] bool or None; bias additive
+    logits [B, H, Nq, Nk] or None (receives a gradient). dropout_rate
+    drops probabilities inside the kernel, seeded from `generator`
+    (required when the rate is > 0); the backward regenerates the same
+    mask. CUDA tensors go to the kernels (D 32 or 64, at most 512
+    tokens, else an error), CPU tensors to the plain version."""
+    if dropout_rate > 0.0 and generator is None:
+        raise ValueError("dropout needs a generator")
+    if not q.is_cuda:
+        return flash_mha_train_plain(q, k, v, key_valid, bias,
+                                     dropout_rate=dropout_rate,
+                                     generator=generator)
+    seed = dropout_seed(generator, q.device) if dropout_rate > 0.0 else None
+    return _FlashTrain.apply(q, k, v, key_valid, bias, float(dropout_rate),
+                             seed)

@@ -151,7 +151,8 @@ def fused_decoder_layer(x, query_pos, img_tokens, img_pos, kp_valid, bias,
         return fused_decoder_layer_plain(
             x, query_pos, img_tokens, img_pos, kp_valid, bias, adj, layer,
             num_heads=num_heads, eps=eps)
-    launches += 1
-    return _fused_decoder_layer_cuda(
+    out = _fused_decoder_layer_cuda(
         x, query_pos, img_tokens, img_pos, kp_valid, bias, adj, layer,
         num_heads=num_heads, eps=eps)
+    launches += 1
+    return out

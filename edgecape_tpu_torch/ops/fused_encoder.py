@@ -96,9 +96,10 @@ def fused_encoder_layer(tokens, pos, key_valid, layer, *, num_heads: int,
     if not tokens.is_cuda:
         return fused_encoder_layer_plain(tokens, pos, key_valid, layer,
                                          num_heads=num_heads, eps=eps)
+    out = _fused_encoder_layer_cuda(tokens, pos, key_valid, layer,
+                                    num_heads=num_heads, eps=eps)
     launches += 1
-    return _fused_encoder_layer_cuda(tokens, pos, key_valid, layer,
-                                     num_heads=num_heads, eps=eps)
+    return out
 
 
 def fused_encoder_stack(tokens, pos, key_valid, layers, *, num_heads: int,
@@ -106,10 +107,10 @@ def fused_encoder_stack(tokens, pos, key_valid, layers, *, num_heads: int,
     """The whole encoder: each layer's output, in tokens.dtype, feeds the
     next (bf16-rounded when tokens are bf16, as in the TPU stack)."""
     global stack_launches
-    if tokens.is_cuda:
-        stack_launches += 1
     x = tokens
     for layer in layers:
         x = fused_encoder_layer(x, pos, key_valid, layer,
                                 num_heads=num_heads, eps=eps)
+    if tokens.is_cuda:
+        stack_launches += 1
     return x

@@ -90,5 +90,6 @@ def fused_vit_block(x: torch.Tensor, blk, *, num_heads: int,
     global launches
     if not x.is_cuda:
         return fused_vit_block_plain(x, blk, num_heads=num_heads, eps=eps)
+    out = _fused_vit_block_cuda(x, blk, num_heads=num_heads, eps=eps)
     launches += 1
-    return _fused_vit_block_cuda(x, blk, num_heads=num_heads, eps=eps)
+    return out

@@ -1,5 +1,6 @@
-"""Build, load and call the hand-written CUDA building blocks
-(`csrc/kernels.cu`).
+"""Build, load and call the hand-written CUDA kernels
+(`csrc/kernels.cu`): the building blocks of the eval ops and the training
+attention's forward / backward pair.
 
 The sources are compiled with `nvcc` for `sm_90a` into a shared library
 with a plain C interface at first use, and loaded with ctypes. The build
@@ -44,6 +45,11 @@ _P = ctypes.c_void_p
 _L = ctypes.c_long
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U32 = ctypes.c_uint
+# q, k, v, dtype, six strides, B, H, D, Nq, Nk, key bias + stride, bias,
+# scale, seed (device pointer), keep threshold, 1 / (1 - rate)
+_TRAIN_HEAD = [_P, _P, _P, _I, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _I,
+               _P, _L, _P, _F, _P, _U32, _F]
 _SIGNATURES = {
     "ec_gemm": [_P, _L, _L, _P, _L, _L, _I, _P, _L, _L, _I, _I, _I, _I, _I,
                 _P, _P, _I, _L, _L, _I, _P, _I, _L, _L, _P, _P],
@@ -52,6 +58,10 @@ _SIGNATURES = {
     "ec_add_pos": [_P, _I, _P, _P, _L, _L, _P],
     "ec_attention": [_P, _P, _P, _I, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I,
                      _I, _P, _L, _P, _F, _P, _I, _L, _L, _P],
+    "ec_attn_train_fwd": _TRAIN_HEAD + [_P, _L, _L, _P, _P],
+    "ec_attn_train_bwd": _TRAIN_HEAD + [_P, _I, _L, _L, _P, _P, _P, _P, _P,
+                                        _P],
+    "ec_dropout_mask": [_P, _U32, _L, _I, _I, _P, _P],
 }
 
 
@@ -275,3 +285,111 @@ def attention(q, k, v, *, num_heads: int, scale: float, key_bias=None,
           float(scale), out.data_ptr(), _dt(out), out.stride(0),
           out.stride(1), _stream())
     return out
+
+
+def dropout_threshold(rate: float):
+    """(keep threshold on 32 random bits, 1 / (1 - rate)): an element is
+    kept when its bits are >= the threshold; 0 switches dropout off."""
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout rate {rate} outside [0, 1)")
+    if rate == 0.0:
+        return 0, 1.0
+    return min(int(rate * 2 ** 32), 2 ** 32 - 1), 1.0 / (1.0 - rate)
+
+
+def _seed_ptr(seed, thresh):
+    """Device pointer of the one-element int64 seed tensor (None without
+    dropout)."""
+    if not thresh:
+        return None
+    if seed is None or not seed.is_cuda or seed.dtype != torch.int64 \
+            or seed.numel() != 1:
+        raise ValueError("dropout needs a one-element int64 CUDA seed tensor")
+    return seed.data_ptr()
+
+
+def _train_head(q, k, v, num_heads, scale, key_bias, bias, seed, rate):
+    """Checks and the leading arguments shared by the two training
+    attention entry points; returns (args, key_bias, bias) with the
+    fp32 contiguous tensors kept alive by the caller."""
+    _cuda(q, k, v, key_bias, bias)
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError("q, k, v dtypes differ")
+    b, nq, c = q.shape
+    nk = k.shape[1]
+    d = c // num_heads
+    if d not in (32, 64) or max(nq, nk) > 512:
+        raise ValueError(f"training attention takes head dim 32 or 64 and at "
+                         f"most 512 tokens, got D={d}, Nq={nq}, Nk={nk}")
+    for t in (q, k, v):
+        if t.stride(-1) != 1:
+            raise ValueError("attention operands need a unit last stride")
+    if key_bias is not None:
+        key_bias = key_bias.to(torch.float32).contiguous()
+    if bias is not None:
+        bias = bias.to(torch.float32).contiguous()
+        if tuple(bias.shape) != (b, num_heads, nq, nk):
+            raise ValueError(f"bias shape {tuple(bias.shape)}")
+    thresh, inv_keep = dropout_threshold(rate)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), _dt(q), q.stride(0),
+            q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            b, num_heads, d, nq, nk, _ptr(key_bias),
+            key_bias.stride(0) if key_bias is not None else 0, _ptr(bias),
+            float(scale), _seed_ptr(seed, thresh), thresh, inv_keep]
+    return args, key_bias, bias
+
+
+def attention_train_fwd(q, k, v, *, num_heads: int, scale: float,
+                        key_bias=None, bias=None, seed=None,
+                        rate: float = 0.0):
+    """Training attention forward on [B, N, H*D] views: returns
+    (out fp32 [B, Nq, H*D], stats fp32 [B*H, Nq, 2] = row max and
+    reciprocal exp-sum, for the backward). Dropout at `rate` on the
+    probabilities from Philox keyed by `seed`, a one-element int64 CUDA
+    tensor."""
+    args, key_bias, bias = _train_head(q, k, v, num_heads, scale, key_bias,
+                                       bias, seed, rate)
+    b, nq, c = q.shape
+    out = torch.empty((b, nq, c), dtype=torch.float32, device=q.device)
+    stats = torch.empty((b * num_heads, nq, 2), dtype=torch.float32,
+                        device=q.device)
+    _call("ec_attn_train_fwd", *args, out.data_ptr(), out.stride(0),
+          out.stride(1), stats.data_ptr(), _stream())
+    return out, stats
+
+
+def attention_train_bwd(q, k, v, dout, stats, *, num_heads: int,
+                        scale: float, key_bias=None, bias=None,
+                        seed=None, rate: float = 0.0,
+                        need_dbias: bool = True):
+    """Training attention backward: (dq, dk, dv fp32 [B, N, H*D], dbias
+    fp32 [B, H, Nq, Nk] or None when there is no bias or it is not
+    needed), with the dropout mask regenerated from `seed`."""
+    args, key_bias, bias = _train_head(q, k, v, num_heads, scale, key_bias,
+                                       bias, seed, rate)
+    _cuda(dout, stats)
+    b, nq, c = q.shape
+    nk = k.shape[1]
+    dout = dout.contiguous()
+    if tuple(dout.shape) != (b, nq, c):
+        raise ValueError(f"dout shape {tuple(dout.shape)}")
+    dq = torch.empty((b, nq, c), dtype=torch.float32, device=q.device)
+    dk = torch.empty((b, nk, c), dtype=torch.float32, device=q.device)
+    dv = torch.empty((b, nk, c), dtype=torch.float32, device=q.device)
+    dbias = None if bias is None or not need_dbias else torch.empty(
+        (b, num_heads, nq, nk), dtype=torch.float32, device=q.device)
+    _call("ec_attn_train_bwd", *args, dout.data_ptr(), _dt(dout),
+          dout.stride(0), dout.stride(1), stats.data_ptr(), dq.data_ptr(),
+          dk.data_ptr(), dv.data_ptr(), _ptr(dbias), _stream())
+    return dq, dk, dv, dbias
+
+
+def dropout_mask(seed: torch.Tensor, rate: float, bh: int, nq: int,
+                 nk: int) -> torch.Tensor:
+    """The keep mask the training attention kernels draw for (seed, rate):
+    bool [bh, nq, nk] on the seed's device."""
+    thresh, _ = dropout_threshold(rate)
+    keep = torch.empty((bh, nq, nk), dtype=torch.uint8, device=seed.device)
+    _call("ec_dropout_mask", _seed_ptr(seed, thresh), thresh, bh, nq, nk,
+          keep.data_ptr(), _stream())
+    return keep.bool()

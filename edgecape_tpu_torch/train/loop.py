@@ -1,0 +1,323 @@
+"""Training step and epoch loop on one device; counterpart of
+edgecape_tpu/train/loop.py (its mesh / multi-process branches are not
+ported yet).
+
+One step: the frozen backbone under no_grad (on a CUDA device through
+the hand-written fused_vit_block op, on the CPU the plain trunk), the
+support heatmaps rendered on the device from the joints, encode ->
+decode, and for masked supervision the reconstruction branch: the
+decoder applied once more to the masked tokens with its parameters
+detached (`torch.func.functional_call`), so that this loss moves the
+skeleton branch and the mask token and not the decoder. Then the loss
+dict, Adam at the scheduled rate, and the train-time PCK probe.
+
+The trainer takes its data as objects: a dataset with `__len__`,
+`num_shots` and `resample_episodes()`, and a loader factory called as
+`loader_factory(dataset, batch_size, shuffle=True, masking_ratio=...,
+drop_last=True, num_workers=..., seed=...)` whose result's `epoch()`
+yields batches carrying the `BATCH_KEYS` arrays (as attributes or as a
+dict). It imports no loader itself.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Callable, Optional
+
+import torch
+
+from .. import __version__
+from .. import config as config_lib
+from ..api import resolve_device
+from ..models import dinov2
+from ..models.convert import init_params
+from ..models.edgecape import EdgeCape
+from ..models.head import keypoint_losses, pck_accuracy
+from ..ops import heatmap
+from . import checkpoint as ckpt_lib
+from .state import apply_lr, clip_by_global_norm, make_optimizer
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+BATCH_KEYS = ("img_s", "img_q", "joints_s", "vis_s", "target_q",
+              "weight_q", "joints_q", "binary_adj", "rand_mask")
+
+
+def batch_to_tensors(batch, device) -> dict:
+    """The BATCH_KEYS arrays of a loader batch (attributes or dict
+    entries) as tensors on `device`."""
+    get = batch.__getitem__ if isinstance(batch, dict) else \
+        (lambda k: getattr(batch, k))
+    return {k: torch.as_tensor(get(k)).to(device, non_blocking=True)
+            for k in BATCH_KEYS}
+
+
+def make_loss_fn(model: EdgeCape, backbone: dinov2.DinoViT, cfg):
+    """loss_fn(batch, generator) -> (total loss, metrics dict of 0-d
+    tensors). `batch`: the BATCH_KEYS tensors on the model's device,
+    images ImageNet-normalised floats; `generator` feeds every dropout
+    draw of the step."""
+    mcfg = cfg.model
+    size = float(mcfg.image_size)
+    bb_dtype = _DTYPES[mcfg.compute_dtype]
+    hs = mcfg.heatmap_size
+    sigma = cfg.train_data.sigma
+    if cfg.train_data.use_udp:
+        render = heatmap.render_udp
+    elif getattr(cfg.train_data, "unbiased_encoding", False):
+        render = heatmap.render_msra_unbiased
+    else:
+        render = heatmap.render_msra
+
+    def extract(imgs):
+        # The backbone is frozen, so on a CUDA device its bf16 fused-block
+        # path is valid under training whatever the compute dtype: the
+        # features are rounded to bf16 and the head still trains at the
+        # compute dtype. train_backbone_fast=False keeps the plain trunk.
+        with torch.no_grad():
+            if mcfg.train_backbone_fast and imgs.is_cuda:
+                return dinov2.fast_forward(backbone, imgs)
+            return backbone(imgs.to(bb_dtype)).float()
+
+    def loss_fn(batch, generator=None):
+        b, s = batch["img_s"].shape[:2]
+        imgs = torch.cat(
+            [batch["img_s"].reshape((b * s,) + batch["img_s"].shape[2:]),
+             batch["img_q"]], dim=0)
+        feats = extract(imgs)
+        gh, gw = feats.shape[1:3]
+        feat_s = feats[:b * s].reshape(b, s, gh, gw, -1)
+        feat_q = feats[b * s:]
+        target_s, weight_s = render(batch["joints_s"], batch["vis_s"],
+                                    (hs, hs), (size, size), sigma)
+        mask_s = torch.prod(weight_s[..., 0], dim=1)              # [B, K]
+
+        enc = model.encode(feat_q, feat_s, target_s, mask_s,
+                           batch["binary_adj"], generator=generator)
+        outputs, _ = model.decode(enc.kp_tokens, enc.img_tokens,
+                                  enc.proposals, enc.adj, enc.hop_stack,
+                                  enc.kp_valid, enc.img_pos,
+                                  generator=generator)
+        recon = None
+        if mcfg.masked_supervision:
+            masked_tokens = model.mask_tokens(enc.kp_tokens,
+                                              batch["rand_mask"],
+                                              enc.kp_valid)
+            frozen = {n: p.detach()
+                      for n, p in model.decoder.named_parameters()}
+            _, recon_points = torch.func.functional_call(
+                model.decoder, frozen,
+                (masked_tokens, enc.img_tokens.detach()),
+                dict(kp_valid=enc.kp_valid, img_pos=enc.img_pos.detach(),
+                     initial_proposals=enc.proposals.detach(), adj=enc.adj,
+                     hop_stack=enc.hop_stack, generator=generator))
+            recon = recon_points[-1]
+
+        weight = batch["weight_q"] * mask_s                       # [B, K]
+        targets_norm = batch["joints_q"] / size
+        losses = keypoint_losses(
+            outputs, targets_norm, weight,
+            proposals_for_loss=enc.proposals_for_loss, recon=recon,
+            skeleton_loss_weight=mcfg.skeleton_loss_weight,
+            similarity=enc.similarity, target_heatmap=batch["target_q"],
+            with_heatmap_loss=mcfg.with_heatmap_loss,
+            heatmap_loss_weight=mcfg.heatmap_loss_weight)
+        total = sum(losses.values())
+        with torch.no_grad():
+            acc = pck_accuracy(outputs[-1] * size, batch["joints_q"], weight,
+                               torch.full((b, 2), size,
+                                          device=weight.device))
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["loss"] = total.detach()
+        metrics["acc_pose"] = acc
+        return total, metrics
+
+    return loss_fn
+
+
+def make_train_step(model: EdgeCape, backbone: dinov2.DinoViT, optimizer,
+                    sched: Callable[[int], float], cfg):
+    """train_step(batch, generator, step) -> metrics: one update of the
+    trainable parameters in place, at the rate of `sched(step)` (the step
+    count before the update). The gradients stay in `.grad` until the
+    next step."""
+    loss_fn = make_loss_fn(model, backbone, cfg)
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    grad_clip = cfg.train.grad_clip
+
+    def train_step(batch, generator, step: int):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        total, metrics = loss_fn(batch, generator)
+        total.backward()
+        if grad_clip is not None:
+            clip_by_global_norm(params, grad_clip)
+        apply_lr(optimizer, sched(step))
+        optimizer.step()
+        return metrics
+
+    return train_step
+
+
+class Trainer:
+    """Epoch-based trainer with an eval hook, best-PCK tracking,
+    checkpoints and resume. Runs on the CUDA device unless `device` says
+    otherwise."""
+
+    def __init__(self, cfg, train_ds, loader_factory, val_ds=None,
+                 backbone_state: Optional[dict] = None, device="cuda",
+                 log_fn=print,
+                 backbone_cfg: dinov2.DinoV2Config = dinov2.VIT_S14):
+        self.device = resolve_device(device)
+        flash = cfg.model.use_flash
+        use_flash = bool(self.device.type == "cuda" if flash is None
+                         else flash)
+        cfg = config_lib.replace(cfg, model=config_lib.replace(
+            cfg.model, use_flash=use_flash))
+        self.cfg = cfg
+        self.train_ds = train_ds
+        self.val_ds = val_ds
+        self.loader_factory = loader_factory
+        self.log = log_fn
+        self.backbone_cfg = backbone_cfg
+
+        init_gen = torch.Generator().manual_seed(cfg.train.seed)
+        bb_state, head_state = init_params(init_gen, cfg.model, backbone_cfg)
+        self.backbone_state = bb_state if backbone_state is None \
+            else backbone_state
+        # warm start (the curriculum's load_from between stages)
+        if cfg.load_from:
+            loaded = ckpt_lib.load_checkpoint(cfg.load_from)
+            head_state = ckpt_lib.merge_params(head_state,
+                                               loaded.get("model", loaded))
+            self.log(f"warm-started from {cfg.load_from}")
+
+        fast = cfg.model.train_backbone_fast and self.device.type == "cuda"
+        self.backbone = dinov2.DinoViT(backbone_cfg, cfg.model.image_size)
+        self.backbone.load_state_dict(self.backbone_state)
+        self.backbone.to(self.device, torch.float32 if fast else
+                         _DTYPES[cfg.model.compute_dtype]).eval()
+        self.backbone.requires_grad_(False)
+        if fast:
+            self.log("train step: fused bf16 backbone active "
+                     "(model.train_backbone_fast=false for the plain trunk)")
+        self.model = EdgeCape(cfg.model, use_flash=use_flash)
+        self.model.load_state_dict(head_state)
+        self.model.to(self.device)
+
+        self.steps_per_epoch = max(len(train_ds) // cfg.train.batch_size, 1)
+        self.optimizer, self.sched = make_optimizer(
+            cfg.train, self.steps_per_epoch, self.model,
+            cfg.model.model_freeze)
+        self.step = 0
+        self.start_epoch = 0
+        self.best_pck = -1.0
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            cfg.train.seed)
+        self._eval_estimator = None
+
+        # auto-resume from the work directory's latest checkpoint
+        resume = cfg.resume_from or ckpt_lib.latest_checkpoint(cfg.work_dir)
+        if resume:
+            tree = ckpt_lib.load_checkpoint(resume)
+            self.model.load_state_dict(tree["model"])
+            self.optimizer.load_state_dict(tree["optimizer"])
+            self.step = int(tree["step"])
+            self.start_epoch = int(tree["epoch"]) + 1
+            self.best_pck = float(tree["best_pck"])
+            self.log(f"resumed from {resume} at epoch {self.start_epoch}")
+
+        self._step_fn = make_train_step(self.model, self.backbone,
+                                        self.optimizer, self.sched, cfg)
+
+    def train_step(self, batch) -> dict:
+        """One update on a loader batch (or a dict of BATCH_KEYS arrays);
+        returns the metrics as 0-d tensors on the device."""
+        metrics = self._step_fn(batch_to_tensors(batch, self.device),
+                                self.generator, self.step)
+        self.step += 1
+        return metrics
+
+    # -------------------------------------------------------------- save
+    def _save(self, name: str, epoch: int) -> None:
+        os.makedirs(self.cfg.work_dir, exist_ok=True)
+        ckpt_lib.save_checkpoint(
+            os.path.join(self.cfg.work_dir, name),
+            {"model": self.model.state_dict(),
+             "optimizer": self.optimizer.state_dict(),
+             "step": self.step, "epoch": epoch, "best_pck": self.best_pck})
+        with open(os.path.join(self.cfg.work_dir, name + ".meta.json"),
+                  "w") as f:
+            json.dump({"version": __version__, "epoch": epoch,
+                       "config": config_lib.asdict(self.cfg)}, f,
+                      default=str)
+        ckpt_lib.write_latest(self.cfg.work_dir, name)
+
+    # -------------------------------------------------------------- eval
+    def _evaluate(self) -> float:
+        from ..api import PoseEstimator
+        from ..eval.runner import run_eval
+        # one estimator for the run; the live head weights are swapped in
+        # at each eval
+        if self._eval_estimator is None:
+            self._eval_estimator = PoseEstimator(
+                self.cfg, self.backbone_state, self.model.state_dict(),
+                device=self.device, backbone_cfg=self.backbone_cfg)
+        else:
+            self._eval_estimator.load_head_state(self.model.state_dict())
+        res = run_eval(self.val_ds, self._eval_estimator,
+                       batch_size=max(self.cfg.train.batch_size, 1),
+                       res_folder=self.cfg.work_dir, progress=False)
+        return float(res["PCK"])
+
+    # --------------------------------------------------------------- fit
+    def fit(self) -> None:
+        cfg = self.cfg
+        masking = (cfg.model.masking_ratio
+                   if cfg.model.masked_supervision else 0.0)
+        os.makedirs(cfg.work_dir, exist_ok=True)
+        log_path = os.path.join(cfg.work_dir, "train_log.jsonl")
+        loader = self.loader_factory(
+            self.train_ds, cfg.train.batch_size, shuffle=True,
+            masking_ratio=masking, drop_last=True,
+            num_workers=cfg.train.num_workers, seed=cfg.train.seed)
+
+        for epoch in range(self.start_epoch, cfg.train.total_epochs):
+            t0 = time.time()
+            agg, n_agg, n_it = {}, 0, 0
+            for batch in loader.epoch():
+                metrics = self.train_step(batch)
+                n_it += 1
+                if n_it % cfg.train.log_interval == 0 or n_it == 1:
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                    for k, v in metrics.items():
+                        agg[k] = agg.get(k, 0.0) + v
+                    n_agg += 1
+                    self.log(f"epoch {epoch} it {n_it}/"
+                             f"{self.steps_per_epoch} "
+                             + " ".join(f"{k}={v:.4f}"
+                                        for k, v in sorted(metrics.items())))
+            # after the epoch: reshuffle the episode pairs
+            self.train_ds.resample_episodes()
+
+            entry = {"epoch": epoch, "time": round(time.time() - t0, 2),
+                     "lr": float(self.sched(self.step))}
+            if n_agg:  # epoch mean of the sampled train metrics
+                entry.update({f"train_{k}": round(v / n_agg, 6)
+                              for k, v in sorted(agg.items())})
+            if self.val_ds is not None and \
+                    (epoch + 1) % cfg.train.eval_interval == 0:
+                pck = self._evaluate()
+                entry["val_pck"] = pck
+                if pck > self.best_pck:
+                    self.best_pck = pck
+                    self._save(f"best_PCK_epoch_{epoch + 1}", epoch)
+                self.log(f"epoch {epoch} val PCK={pck:.4f} "
+                         f"(best {self.best_pck:.4f})")
+            if (epoch + 1) % cfg.train.ckpt_interval == 0 or \
+                    epoch + 1 == cfg.train.total_epochs:
+                self._save(f"epoch_{epoch + 1}", epoch)
+            with open(log_path, "a") as f:
+                f.write(json.dumps(entry) + "\n")

@@ -139,3 +139,95 @@ def test_flash_mha_matches_plain(dev):
         fvalid[:, 0] = True
         _close(FA.flash_mha(q, k, v, fvalid),
                FA.flash_mha_plain(q, k, v, fvalid))
+
+
+def _train_case(dev, b, n, h, d, masked, with_bias, seed=20):
+    q, k, v, g = (_rn(dev, b, n, h, d, seed=seed + i) for i in range(4))
+    valid = None
+    if masked:
+        valid = _rn(dev, b, n, seed=seed + 4) > -0.3
+        valid[:, 0] = True
+    bias = _rn(dev, b, h, n, n, seed=seed + 5) if with_bias else None
+    return q, k, v, g, valid, bias
+
+
+def _grads(fn, q, k, v, g, valid, bias, **kw):
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    bl = None if bias is None else bias.clone().requires_grad_(True)
+    out = fn(*leaves, valid, bl, **kw)
+    grads = torch.autograd.grad(out, leaves + ([bl] if bl is not None
+                                               else []), g)
+    return out.detach(), grads
+
+
+# odd N, N < D, D = 64, N past one 16-warp round of query tiles
+TRAIN_SHAPES = [(2, 19, 4, 32), (1, 7, 2, 32), (2, 45, 2, 64),
+                (1, 300, 2, 32)]
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_flash_mha_train_matches_plain(dev, shape, masked, with_bias):
+    """Forward and dq, dk, dv, dbias at rate 0 against autograd through
+    the plain version (same rounding points)."""
+    from edgecape_tpu_torch.ops import flash_attention as FA
+    case = _train_case(dev, *shape, masked, with_bias)
+    out, grads = _grads(FA.flash_mha_train, *case)
+    ref, rgrads = _grads(FA.flash_mha_train_plain, *case)
+    assert out.dtype == torch.float32
+    _close(out, ref)
+    for a, r in zip(grads, rgrads):
+        _close(a, r)
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES[:3])
+def test_flash_mha_train_dropout_uses_one_mask(dev, shape):
+    """At rate 0.25 the kernels agree, forward and backward, with the
+    plain version fed the kernels' own keep mask; the mask keeps about
+    3/4; the same seed repeats the output and another seed does not."""
+    from edgecape_tpu_torch.ops import flash_attention as FA
+    from edgecape_tpu_torch.ops import kernels as K
+    b, n, h, d = shape
+    case = _train_case(dev, *shape, True, True)
+    rate = 0.25
+
+    def gen(s):
+        return torch.Generator().manual_seed(s)
+
+    seed = FA.dropout_seed(gen(3), dev)
+    keep = K.dropout_mask(seed, rate, b * h, n, n).reshape(b, h, n, n)
+    assert abs(keep.float().mean().item() - (1 - rate)) < 0.05
+    out, grads = _grads(FA.flash_mha_train, *case, dropout_rate=rate,
+                        generator=gen(3))
+    ref, rgrads = _grads(FA.flash_mha_train_plain, *case, dropout_rate=rate,
+                         keep=keep)
+    _close(out, ref)
+    for a, r in zip(grads, rgrads):
+        _close(a, r)
+    again, _ = _grads(FA.flash_mha_train, *case, dropout_rate=rate,
+                      generator=gen(3))
+    other, _ = _grads(FA.flash_mha_train, *case, dropout_rate=rate,
+                      generator=gen(4))
+    assert torch.equal(out, again) and not torch.equal(out, other)
+
+
+def test_flash_mha_train_fully_masked_row_is_zero(dev):
+    """A batch row with every key masked gives 0 and zero gradients (the
+    model's ensure_some_valid keeps this off the path)."""
+    from edgecape_tpu_torch.ops import flash_attention as FA
+    q, k, v, g, valid, _ = _train_case(dev, 2, 19, 2, 32, True, False)
+    valid[1] = False
+    for fn in (FA.flash_mha_train, FA.flash_mha_train_plain):
+        out, grads = _grads(fn, q, k, v, g, valid, None)
+        assert bool((out[1] == 0).all())
+        assert all(bool(torch.isfinite(t).all()) and
+                   bool((t[1] == 0).all()) for t in grads)
+
+
+def test_flash_mha_train_refuses_unsupported_shapes(dev):
+    from edgecape_tpu_torch.ops import flash_attention as FA
+    with pytest.raises(ValueError):
+        FA.flash_mha_train(*(_rn(dev, 1, 8, 2, 16) for _ in range(3)))
+    with pytest.raises(ValueError):
+        FA.flash_mha_train(*(_rn(dev, 1, 513, 1, 32) for _ in range(3)))

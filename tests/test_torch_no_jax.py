@@ -1,7 +1,9 @@
-"""The port runs where jax, flax, optax and cv2 are absent (the machine
-with the card has none of them): a fresh interpreter with those modules
-blocked imports every module of edgecape_tpu_torch and runs a tiny
-cached forward on the CPU, on both the strict and the kernel-op path."""
+"""The port runs where jax, flax, optax, orbax and cv2 are absent (the
+machine with the card has none of them): a fresh interpreter with those
+modules blocked imports every module of edgecape_tpu_torch (the training
+modules included), checks that none of them pulled in the JAX package,
+and runs a tiny cached forward and two training steps of the trainer on
+the CPU, on both the strict and the kernel-op path."""
 
 import os
 import subprocess
@@ -11,7 +13,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
 import importlib, pkgutil, sys
-for m in ("jax", "flax", "optax", "cv2"):
+BLOCKED = ("jax", "flax", "optax", "orbax", "cv2")
+for m in BLOCKED:
     sys.modules[m] = None
 import numpy as np
 import torch
@@ -20,10 +23,43 @@ names = [m.name for m in pkgutil.walk_packages(edgecape_tpu_torch.__path__,
                                                "edgecape_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for needed in ("config", "train.state", "train.loop", "train.checkpoint",
+               "train.curriculum"):
+    assert "edgecape_tpu_torch." + needed in names, needed
+pulled = [m for m in sys.modules if m.split(".")[0] == "edgecape_tpu"]
+assert not pulled, pulled
 from edgecape_tpu.config import Config, ModelConfig, stage3_config
 from edgecape_tpu_torch.api import PoseEstimator
 from edgecape_tpu_torch.models.dinov2 import DinoV2Config
+from edgecape_tpu_torch.train.loop import Trainer
 k, size, g = 6, 28, 2
+trunk = DinoV2Config(depth=1, embed_dim=32, num_heads=1)
+
+
+class Episodes:
+    # a dataset that is its own loader, in memory
+    num_shots = 1
+
+    def __len__(self):
+        return 4
+
+    def resample_episodes(self):
+        pass
+
+    def epoch(self):
+        rng = np.random.default_rng(1)
+        f32 = np.float32
+        for _ in range(2):
+            yield {"img_s": rng.normal(size=(2, 1, size, size, 3)).astype(f32),
+                   "img_q": rng.normal(size=(2, size, size, 3)).astype(f32),
+                   "joints_s": rng.uniform(2, size - 2, (2, 1, k, 2)).astype(f32),
+                   "vis_s": np.ones((2, 1, k), f32),
+                   "target_q": np.zeros((2, k, 8, 8), f32),
+                   "weight_q": np.ones((2, k), f32),
+                   "joints_q": rng.uniform(2, size - 2, (2, k, 2)).astype(f32),
+                   "binary_adj": np.ones((2, k, k), f32),
+                   "rand_mask": (rng.uniform(size=(2, k)) > 0.5).astype(f32)}
+
 for flash, dt in ((False, "float32"), (True, "bfloat16")):
     cfg = stage3_config(Config(model=ModelConfig(
         max_kpt=k, image_size=size, heatmap_size=8, backbone_dim=32,
@@ -31,8 +67,7 @@ for flash, dt in ((False, "float32"), (True, "bfloat16")):
         dynamic_proj_dim=16, nhead=2, use_flash=flash, compute_dtype=dt,
         head_dtype=dt)))
     est = PoseEstimator(cfg, generator=torch.Generator().manual_seed(0),
-                        backbone_cfg=DinoV2Config(depth=1, embed_dim=32,
-                                                  num_heads=1))
+                        device="cpu", backbone_cfg=trunk)
     rng = np.random.default_rng(0)
     support = {"img_s": rng.integers(0, 256, (g, 1, size, size, 3),
                                      dtype=np.uint8),
@@ -45,8 +80,17 @@ for flash, dt in ((False, "float32"), (True, "bfloat16")):
              "group": np.array([0, 0, 1, 1])}
     pred, adj = est.forward_cached(support, query)
     assert pred.shape == (4, k, 2) and torch.isfinite(pred).all()
-blocked = [m for m in ("jax", "flax", "optax", "cv2")
-           if sys.modules.get(m) is not None]
+    import dataclasses, tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = dataclasses.replace(
+            cfg, work_dir=tmp, train=dataclasses.replace(
+                cfg.train, batch_size=2, total_epochs=1, log_interval=1))
+        data = Episodes()
+        tr = Trainer(tcfg, data, lambda ds, bs, **kw: ds, device="cpu",
+                     log_fn=lambda *a: None, backbone_cfg=trunk)
+        tr.fit()
+        assert tr.step == 2
+blocked = [m for m in BLOCKED if sys.modules.get(m) is not None]
 assert not blocked, blocked
 print("OK", len(names))
 """

@@ -82,7 +82,8 @@ def _jax_estimator(cfg, weights):
 
 def _torch_estimator(cfg, weights):
     bb_sd, head_sd = from_jax_params(*weights)
-    return PoseEstimator(cfg, bb_sd, head_sd, backbone_cfg=TORCH_TRUNK)
+    return PoseEstimator(cfg, bb_sd, head_sd, device="cpu",
+                         backbone_cfg=TORCH_TRUNK)
 
 
 def _episodes(seed=0, g=2, q_per=3):
