@@ -44,7 +44,28 @@ Phases (any failure exits non-zero before the last line):
    gradients on the kernel path agree with the plain path
    (use_flash=False). Prints ms/step of both paths and profiles one warm
    step;
-5. prints {"kernels": [...]} on its own line, then the result line
+5. the kernel-variant ops against their plain versions at the eval
+   chunk's shapes: fused_ln_mlp and fused_attn_block at [510, 257, 384];
+   fused_vit_block2 bit-equal to two fused_vit_block calls (bf16 and fp32
+   input) and each of its blocks against the plain block;
+   fused_decoder_stack (510 rows, K=100, 256 image tokens, C=256, 3
+   layers, Markov bias) layer by layer on the same inputs, then the whole
+   stack against the chain of fused_decoder_layer with the glue in
+   PyTorch;
+6. the variant path: forward_cached at full width with the decoder_stack
+   and vit_pair_blocks switches on (launch counts per chunk asserted,
+   predictions against the default path), the throughput of the default
+   path, both switches and each switch alone in turns, and the A/B ratio
+   of each switch (`--write-tuned PATH` writes them as a measured-defaults
+   file);
+7. the uncached path: run_eval(cache_supports=False) over in-memory
+   episodes at full width, 1-shot and 5-shot, through the kernels, held
+   against the cached loop on the same episodes; forward_debug on one
+   batch; the strict fp32 estimator on the card (TF32 switched on around
+   it, which it must switch off) against the same estimator on the CPU;
+8. the bench tool's four chains (tools/bench_attn_variants.py) at full
+   width, which launch fused_attn_block and fused_ln_mlp;
+9. prints {"kernels": [...]} on its own line, then the result line
    {"ok": true, "device": {...}} last.
 Nothing here imports jax or the JAX package.
 """
@@ -88,11 +109,25 @@ PATH_MEDIAN_TOL, PATH_CELL, PATH_WITHIN_SHARE = 0.01, 1.0 / 16, 0.9
 # of a percent or a missing rounding point exceeds.
 GRAD_ATOL, DBIAS_ATOL, TENSOR_REL_L2 = 5e-3, 1e-4, 1e-3
 
-# The card's published peaks (H100 SXM): device memory rate and dense bf16
-# tensor-core rate. bound_ms of a kernel is the larger of its bytes (each
-# input read once, each output written once) over the first and its
-# operations over the second.
-PEAK_BYTES_S, PEAK_BF16_FLOPS = 3.35e12, 989e12
+# The card's published peaks (H100 SXM): device memory rate, dense bf16
+# tensor-core rate, fp32 rate outside the tensor cores. bound_ms of a
+# kernel is the larger of its bytes (each input read once, each output
+# written once) over the first and its operations over the peak rate of
+# their type.
+PEAK_BYTES_S, PEAK_BF16_FLOPS, PEAK_F32_FLOPS = 3.35e12, 989e12, 67e12
+# fused_decoder_stack: one layer on the same inputs, kernel against plain,
+# on coordinates in [0, 1] (the delta heads are drawn with weights of
+# 0.02, so one bf16 ulp of a token moves a coordinate by about 1e-5 and a
+# handful of them add up); the whole stack against the layer chain within
+# the JAX package's bounds for that pair, and not bit-equal.
+STACK_LAYER_MAX, STACK_LAYER_MEAN = 2e-3, 1e-4
+STACK_CHAIN_MEDIAN, STACK_CHAIN_P95 = 1e-3, 5e-3
+# Uncached and 5-shot episodes: groups, queries per group, batch size.
+EVAL_GROUPS, EVAL_QUERIES, EVAL_BATCH = 8, 4, 16
+# Strict fp32 on the card against the CPU: fp32 on both sides, summed in
+# another order through 12 trunk blocks and the head; TF32 (10 mantissa
+# bits) would show as 1e-3 on the trunk's features.
+STRICT_MEDIAN, STRICT_P99 = 1e-4, 2e-3
 
 # Training phase: batch, steps of the stage-3 fit (the first is warm-up),
 # steps of the plain-path and stage-2 trainers, dropout, the keep share's
@@ -137,10 +172,11 @@ def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
 
 
 # ------------------------------------------------------------ config
-def bound(n_bytes: float, flops: float):
+def bound(n_bytes: float, flops: float, f32_flops: float = 0.0):
     """(bound_ms, bound_by) of a kernel that must move n_bytes and do
-    flops bf16 tensor-core operations."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS
+    flops bf16 tensor-core operations and f32_flops fp32 ones."""
+    t_bytes = n_bytes / PEAK_BYTES_S
+    t_ops = flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
         else "operations"
 
@@ -152,6 +188,74 @@ def nbytes(*tensors) -> int:
 
 def param_bytes(*modules) -> int:
     return sum(nbytes(*m.parameters()) for m in modules)
+
+
+def seeded_randn(seed, dev):
+    """rn(*shape, s=1.0): normal draws of scale s from one seeded host
+    generator, moved to dev."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to(dev)
+    return g, rn
+
+
+def randomize(module, rn, dev):
+    """Seeded weights for an op check: LayerScale 1 (so every sub-step
+    shows), matrices at 1 / sqrt(fan-in), LayerNorm scales about 1, small
+    non-zero biases, the kpt_branch delta heads at 0.02."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith(("ls1", "ls2")):
+                p.fill_(1.0)
+            elif ".out." in name or name.startswith("out."):
+                p.copy_(rn(*p.shape, s=0.02))
+            elif p.dim() == 2:
+                p.copy_(rn(*p.shape, s=1.0 / math.sqrt(p.shape[1])))
+            elif name.endswith("weight"):      # LayerNorm scale
+                p.copy_(1.0 + rn(*p.shape, s=0.1))
+            else:
+                p.copy_(rn(*p.shape, s=0.1))
+    return module.to(dev).eval()
+
+
+def check_op(entries, bad, name, replaces, op_src, out, ref, kern, plain,
+             bnd, library=None, counter=None, extra=""):
+    """One [op] line and one entry of the kernels line: the kernel's
+    output `out` against the plain version's `ref` within ATOL + RTOL *
+    |ref| (mean within MEAN_TOL), the times of kern() and plain() and of
+    the library call, the bound `bnd`. counter: (module, attribute) of the
+    op's launch counter, which one call of kern() must raise by one."""
+    per_call = ""
+    if counter is not None:
+        n0 = getattr(*counter)
+        kern()
+        n = getattr(*counter) - n0
+        per_call = f"; {n} launch counted per call"
+        if n != 1:
+            bad.append(f"{name}: {n} counted launches for one call")
+    torch.cuda.synchronize()
+    d = (out.float() - ref.float()).abs()
+    excess = (d - (ATOL + RTOL * ref.float().abs())).max().item()
+    err, mean = d.max().item(), d.mean().item()
+    ok = excess <= 0 and mean <= MEAN_TOL and bool(
+        torch.isfinite(out.float()).all())
+    ms, plain_ms = time_ms(kern), time_ms(plain)
+    lib_ms = time_ms(library) if library is not None else None
+    print(f"[op] {name}: shape {tuple(out.shape)} max_abs_err {err:.4g} "
+          f"mean_abs_err {mean:.3g} (tol {ATOL} + {RTOL:.4g}*|ref|, mean "
+          f"{MEAN_TOL}; worst excess {excess:.3g}) kernel {ms:.3f} ms "
+          f"plain {plain_ms:.3f} ms bound {bnd[0]:.4f} ms ({bnd[1]}) "
+          f"library {'none' if lib_ms is None else f'{lib_ms:.3f} ms'}"
+          f"{per_call}{extra} {'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        bad.append(name)
+    entries[name] = {"name": name, "route": "cuda",
+                     "source": "edgecape_tpu_torch/csrc/kernels.cu",
+                     "op": op_src, "replaces": replaces, "launches": 0,
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bnd[0], "bound_by": bnd[1],
+                     "library_ms": lib_ms}
 
 
 def main_path_config():
@@ -180,34 +284,17 @@ def op_checks(dev, entries):
     from edgecape_tpu_torch.models.transformer import (DecoderLayer,
                                                        EncoderLayer)
 
-    g = torch.Generator().manual_seed(SEED)
-
-    def rn(*shape, s=1.0):
-        return (torch.randn(*shape, generator=g) * s).to(dev)
-
-    def randomize(module):
-        with torch.no_grad():
-            for name, p in module.named_parameters():
-                if name.endswith(("ls1", "ls2")):
-                    p.fill_(1.0)              # every sub-step shows
-                elif p.dim() == 2:
-                    p.copy_(rn(*p.shape, s=1.0 / math.sqrt(p.shape[1])))
-                elif name.endswith("weight"):  # LayerNorm scale
-                    p.copy_(1.0 + rn(*p.shape, s=0.1))
-                else:
-                    p.copy_(rn(*p.shape, s=0.1))
-        return module.to(dev).eval()
-
+    g, rn = seeded_randn(SEED, dev)
     nq, hw, c = GROUPS * QUERIES, 256, 256
     bf = torch.bfloat16
-    blk = randomize(Block(VIT_S14))
+    blk = randomize(Block(VIT_S14), rn, dev)
     x = rn(nq, 257, 384).to(bf)
-    enc = [randomize(EncoderLayer(c, 8, 384)) for _ in range(3)]
+    enc = [randomize(EncoderLayer(c, 8, 384), rn, dev) for _ in range(3)]
     tok = rn(nq, hw + K, c).to(bf)
     pos = rn(hw + K, c).to(bf)
     valid = torch.rand(nq, hw + K, generator=g).to(dev) > 0.2
     valid[:, :hw] = True
-    dec = randomize(DecoderLayer(c, 8, 384, attn_bias=True))
+    dec = randomize(DecoderLayer(c, 8, 384, attn_bias=True), rn, dev)
     kx, qpos = rn(nq, K, c).to(bf), rn(nq, K, c).to(bf)
     img, ipos = rn(nq, hw, c).to(bf), rn(hw, c).to(bf)
     kvalid = torch.rand(nq, K, generator=g).to(dev) > 0.3
@@ -298,30 +385,8 @@ def op_checks(dev, entries):
     with torch.no_grad():
         for name, replaces, op_src, kern, plain, pairs in cases:
             out, ref = pairs() if pairs else (kern(), plain())
-            torch.cuda.synchronize()
-            d = (out.float() - ref.float()).abs()
-            excess = (d - (ATOL + RTOL * ref.float().abs())).max().item()
-            err, mean = d.max().item(), d.mean().item()
-            ok = excess <= 0 and mean <= MEAN_TOL and bool(
-                torch.isfinite(out).all())
-            ms, plain_ms = time_ms(kern), time_ms(plain)
-            lib_ms = time_ms(library[name]) if name in library else None
-            bound_ms, bound_by = bounds[name]
-            print(f"[op] {name}: shape {tuple(out.shape)} max_abs_err "
-                  f"{err:.4g} mean_abs_err {mean:.3g} (tol {ATOL} + "
-                  f"{RTOL:.4g}*|ref|, mean {MEAN_TOL}; worst excess "
-                  f"{excess:.3g}) kernel {ms:.3f} ms plain {plain_ms:.3f} "
-                  f"ms bound {bound_ms:.4f} ms ({bound_by}) library "
-                  f"{'none' if lib_ms is None else f'{lib_ms:.3f} ms'} "
-                  f"{'OK' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                bad.append(name)
-            entries[name] = {"name": name, "route": "cuda",
-                             "source": "edgecape_tpu_torch/csrc/kernels.cu",
-                             "op": op_src, "replaces": replaces,
-                             "launches": 0, "max_abs_err": err, "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": bound_ms,
-                             "bound_by": bound_by, "library_ms": lib_ms}
+            check_op(entries, bad, name, replaces, op_src, out, ref, kern,
+                     plain, bounds[name], library=library.get(name))
         # the training step runs fused_vit_block on its support and query
         # images together, another row count than the eval chunk's (other
         # GEMM tile counts and partial tiles): held at that shape too
@@ -490,9 +555,10 @@ def main_path(dev, entries, power):
           f"{power} (information only)", flush=True)
     profile(lambda: est.forward_cached(data[1][0], data[1][1]),
             "one chunk of the kernel path", power)
+    return est, data, preds, (bb, head)
 
 
-def profile(run, what, power):
+def profile(run, what, power, rows=30):
     """Prints device time by kernel over one warm call of run() (one
     chunk of the eval kernel path, or one training step), and the share
     of its wall time (call to synchronize) in which the device ran a
@@ -530,7 +596,7 @@ def profile(run, what, power):
     print(f"[profile] {what} on {power}: wall "
           f"{wall_us / 1e3:.3f} ms (profiler on), {busy}", flush=True)
     print(prof.key_averages().table(sort_by="cuda_time_total",
-                                    row_limit=30), flush=True)
+                                    row_limit=rows), flush=True)
 
 
 # ------------------------------------------- training attention op checks
@@ -784,16 +850,17 @@ class RefedBatch:
 
 class EvalEpisodes:
     """In-memory validation set with the dataset interface the port's
-    eval loop reads (eval/runner.py): a few one-shot episode groups of
-    uint8 images with crop boxes covering the whole image."""
+    eval loops read (eval/runner.py): a few episode groups of `shots`
+    support images and `queries` query images each (uint8, kept, so the
+    cached and the uncached loop see the same episodes), with crop boxes
+    covering the whole image."""
     img_prefix = "."
     name2id = {}
 
-    def __init__(self, rng, groups=4, queries=3):
+    def __init__(self, rng, groups=4, queries=3, shots=1):
         self.cfg = types.SimpleNamespace(
             pck_threshold_list=(0.05, 0.1, 0.15, 0.2, 0.25))
-        self.rng = rng
-        self.queries = queries
+        self.queries, self.shots = queries, shots
         adj = np.zeros((K, K), np.float32)
         for i in range(K - 1):
             adj[i, i + 1] = adj[i + 1, i] = 1.0
@@ -804,41 +871,82 @@ class EvalEpisodes:
                         [rng.uniform(8, SIZE - 8, (K, 2)), np.zeros((K, 1))],
                         axis=1).astype(np.float32),
                     "joints_3d_visible": np.ones((K, 3), np.float32),
-                    "bbox": np.array([0, 0, SIZE, SIZE], np.float32)}
+                    "bbox": np.array([0, 0, SIZE, SIZE], np.float32),
+                    "image": rng.integers(0, 256, (SIZE, SIZE, 3),
+                                          dtype=np.uint8)}
 
         self.db, self.paired_samples, self.groups = [], [], []
         for _ in range(groups):
-            self.db.append(item())
-            sid, rows = len(self.db) - 1, []
+            sids = []
+            for _ in range(shots):
+                self.db.append(item())
+                sids.append(len(self.db) - 1)
+            rows = []
             for _ in range(queries):
                 self.db.append(item())
                 rows.append(len(self.paired_samples))
-                self.paired_samples.append([sid, len(self.db) - 1])
-            self.groups.append((sid, rows))
+                self.paired_samples.append(sids + [len(self.db) - 1])
+            self.groups.append((tuple(sids), rows))
+
+    def __len__(self):
+        return len(self.paired_samples)
 
     def support_groups(self):
         return self.groups
 
-    def collate_group(self, chunk):
-        rng, g = self.rng, len(chunk)
-        rows = [r for _, rs in chunk for r in rs]
+    def _support(self, sid_lists):
+        img = np.stack([np.stack([self.db[s]["image"] for s in sids])
+                        for sids in sid_lists])
+        joints = np.stack([np.stack([self.db[s]["joints_3d"][:, :2]
+                                     for s in sids]) for sids in sid_lists])
+        return img, joints
+
+    def _meta(self, rows):
         nq = len(rows)
-        support = {
-            "img_s": rng.integers(0, 256, (g, 1, SIZE, SIZE, 3),
-                                  dtype=np.uint8),
-            "joints_s": np.stack([self.db[sid]["joints_3d"][None, :, :2]
-                                  for sid, _ in chunk]),
-            "vis_s": np.ones((g, 1, K), np.float32),
-            "binary_adj": np.tile(self.adj, (g, 1, 1))}
-        query = {"img_q": rng.integers(0, 256, (nq, SIZE, SIZE, 3),
-                                       dtype=np.uint8),
-                 "group": np.repeat(np.arange(g, dtype=np.int32),
-                                    self.queries)}
-        meta = {"query_image_file": [f"./q{r}.png" for r in rows],
+        return {"query_image_file": [f"./q{r}.png" for r in rows],
                 "query_center": np.full((nq, 2), SIZE / 2, np.float32),
                 "query_scale": np.full((nq, 2), SIZE / 200.0, np.float32),
                 "bbox_id": rows}
-        return support, query, meta
+
+    def collate_group(self, chunk):
+        g = len(chunk)
+        rows = [r for _, rs in chunk for r in rs]
+        img_s, joints_s = self._support([sids for sids, _ in chunk])
+        support = {"img_s": img_s, "joints_s": joints_s,
+                   "vis_s": np.ones((g, self.shots, K), np.float32),
+                   "binary_adj": np.tile(self.adj, (g, 1, 1))}
+        query = {"img_q": np.stack([self.db[self.paired_samples[r][-1]]
+                                    ["image"] for r in rows]),
+                 "group": np.repeat(np.arange(g, dtype=np.int32),
+                                    self.queries)}
+        return support, query, self._meta(rows)
+
+    def batches(self, batch_size, masking_ratio=0.0):
+        """One episode per row, as the uncached loop takes them:
+        normalised float images and rendered support heatmaps."""
+        from edgecape_tpu_torch.api import IMAGENET_MEAN, IMAGENET_STD
+        from edgecape_tpu_torch.ops import heatmap
+
+        def norm(img):
+            return ((img.astype(np.float32) / 255.0 - IMAGENET_MEAN)
+                    / IMAGENET_STD).astype(np.float32)
+
+        for i in range(0, len(self.paired_samples), batch_size):
+            rows = list(range(i, min(i + batch_size,
+                                     len(self.paired_samples))))
+            pairs = [self.paired_samples[r] for r in rows]
+            img_s, joints_s = self._support([p[:-1] for p in pairs])
+            vis = torch.ones((len(rows), self.shots, K))
+            target, weight = heatmap.render_msra(
+                torch.from_numpy(joints_s), vis, (64, 64),
+                (float(SIZE), float(SIZE)), 1.0)
+            yield types.SimpleNamespace(
+                img_s=norm(img_s),
+                img_q=norm(np.stack([self.db[p[-1]]["image"]
+                                     for p in pairs])),
+                target_s=target.numpy(), weight_s=weight[..., 0].numpy(),
+                binary_adj=np.tile(self.adj, (len(rows), 1, 1)),
+                meta=self._meta(rows))
 
 
 def loss_without_dropout(trainer, batch):
@@ -1065,7 +1173,472 @@ def train_path(dev, entries, power):
                 "one stage-3 training step of the kernel path", power)
 
 
+# ------------------------------------------------------------ phase 5
+def variant_op_checks(dev, entries, power):
+    """fused_ln_mlp, fused_attn_block, fused_vit_block2 and
+    fused_decoder_stack against their plain versions at the eval chunk's
+    shapes; one call of the stack under the profiler."""
+    import edgecape_tpu_torch.ops.fused_attn_block as FB
+    import edgecape_tpu_torch.ops.fused_decoder as FD
+    import edgecape_tpu_torch.ops.fused_mlp as FM
+    import edgecape_tpu_torch.ops.fused_vit_block as FV
+    from edgecape_tpu_torch.models.dinov2 import VIT_S14, Block
+    from edgecape_tpu_torch.models.transformer import (Decoder,
+                                                       ensure_some_valid,
+                                                       inverse_sigmoid)
+
+    g, rn = seeded_randn(SEED + 5, dev)
+    bf = torch.bfloat16
+    bad = []
+    nq, n_tok, c_vit = GROUPS * QUERIES, 257, 384
+    with torch.no_grad():
+        blk_a, blk_b = (randomize(Block(VIT_S14), rn, dev)
+                        for _ in range(2))
+        x = rn(nq, n_tok, c_vit).to(bf)
+        at = blk_a.attn
+        wqkv = at.qkv.weight.t().contiguous()                  # [C, 3C]
+        attn_args = (blk_a.norm1.weight, blk_a.norm1.bias,
+                     wqkv[:, :c_vit].contiguous(), at.qkv.bias[:c_vit],
+                     wqkv[:, c_vit:2 * c_vit].contiguous(),
+                     at.qkv.bias[c_vit:2 * c_vit],
+                     wqkv[:, 2 * c_vit:].contiguous(),
+                     at.qkv.bias[2 * c_vit:],
+                     at.proj.weight.t().contiguous(), at.proj.bias, blk_a.ls1)
+        mlp_args = (blk_a.norm2.weight, blk_a.norm2.bias,
+                    blk_a.mlp_fc1.weight.t().contiguous(), blk_a.mlp_fc1.bias,
+                    blk_a.mlp_fc2.weight.t().contiguous(), blk_a.mlp_fc2.bias,
+                    blk_a.ls2)
+        xb = 2 * nbytes(x)
+        check_op(entries, bad, "fused_ln_mlp",
+                 "edgecape_tpu/ops/fused_mlp.py:67",
+                 "edgecape_tpu_torch/ops/fused_mlp.py",
+                 FM.fused_ln_mlp(x, *mlp_args),
+                 FM.fused_ln_mlp_plain(x, *mlp_args),
+                 lambda: FM.fused_ln_mlp(x, *mlp_args),
+                 lambda: FM.fused_ln_mlp_plain(x, *mlp_args),
+                 bound(xb + nbytes(*mlp_args),
+                       2 * nq * n_tok * 8 * c_vit ** 2),
+                 counter=(FM, "launches"))
+        check_op(entries, bad, "fused_attn_block",
+                 "edgecape_tpu/ops/fused_attn_block.py:100",
+                 "edgecape_tpu_torch/ops/fused_attn_block.py",
+                 FB.fused_attn_block(x, *attn_args, num_heads=6),
+                 FB.fused_attn_block_plain(x, *attn_args, num_heads=6),
+                 lambda: FB.fused_attn_block(x, *attn_args, num_heads=6),
+                 lambda: FB.fused_attn_block_plain(x, *attn_args, num_heads=6),
+                 bound(xb + nbytes(*attn_args),
+                       2 * nq * n_tok * 4 * c_vit ** 2
+                       + 4 * nq * n_tok ** 2 * c_vit),
+                 counter=(FB, "launches"))
+
+        # fused_vit_block2: bit-equal to two calls of fused_vit_block for
+        # bf16 and for fp32 input; each block against the plain block on
+        # the kernel's own input (a one-ulp difference is amplified by the
+        # next block, as in the encoder stack)
+        for xin in (x, x.float()):
+            one = FV.fused_vit_block(xin, blk_a, num_heads=6, eps=1e-6)
+            two = FV.fused_vit_block(one, blk_b, num_heads=6, eps=1e-6)
+            pair = FV.fused_vit_block2(xin, blk_a, blk_b, num_heads=6,
+                                       eps=1e-6)
+            same = torch.equal(pair, two) and pair.dtype == xin.dtype
+            print(f"[op] fused_vit_block2 on {xin.dtype}: bit-equal to two "
+                  f"fused_vit_block calls: {same}", flush=True)
+            if not same:
+                bad.append(f"fused_vit_block2 bit-equality on {xin.dtype}")
+            if xin is x:
+                outs = torch.stack([one, two])
+                refs = torch.stack([
+                    FV.fused_vit_block_plain(x, blk_a, num_heads=6, eps=1e-6),
+                    FV.fused_vit_block_plain(one, blk_b, num_heads=6,
+                                             eps=1e-6)])
+        one_ms = time_ms(lambda: FV.fused_vit_block(x, blk_a, num_heads=6,
+                                                    eps=1e-6))
+        check_op(entries, bad, "fused_vit_block2",
+                 "edgecape_tpu/ops/fused_vit_block.py:248",
+                 "edgecape_tpu_torch/ops/fused_vit_block.py", outs, refs,
+                 lambda: FV.fused_vit_block2(x, blk_a, blk_b, num_heads=6,
+                                             eps=1e-6),
+                 lambda: FV.fused_vit_block2_plain(x, blk_a, blk_b,
+                                                   num_heads=6, eps=1e-6),
+                 bound(xb + param_bytes(blk_a, blk_b),
+                       2 * (2 * nq * n_tok * 12 * c_vit ** 2
+                            + 4 * nq * n_tok ** 2 * c_vit)),
+                 counter=(FV, "launches2"),
+                 extra=f"; one fused_vit_block {one_ms:.3f} ms")
+
+        # fused_decoder_stack at the chunk's decoder shape
+        hw, c, heads, ffn, layers, nf, nhop = 256, 256, 8, 384, 3, 128, 5
+        # in bf16 like the estimator's query head, whose bias MLP and glue
+        # then run on bf16 parameters
+        dec = randomize(Decoder(c, heads, ffn, layers, attn_bias=True,
+                                max_hops=nhop - 1, num_feats=nf,
+                                use_flash=True), rn, dev).to(bf)
+        kx = rn(nq, K, c, s=0.5).to(bf)
+        coords = torch.rand(nq, K, 2, generator=g).to(dev) * 0.8 + 0.1
+        img, ipos = rn(nq, hw, c, s=0.5).to(bf), rn(hw, c, s=0.5).to(bf)
+        kvalid = torch.rand(nq, K, generator=g).to(dev) > 0.3
+        kvalid[:, 0] = True
+        kvalid = ensure_some_valid(kvalid)
+        hops = torch.rand(nq, K, K, nhop, generator=g).to(dev).to(bf)
+        adj = (torch.rand(nq, 2, K, K, generator=g).to(dev) / K).to(bf)
+        args = (kx, coords, img, ipos, kvalid, hops, adj)
+        kw = dict(num_heads=heads, num_feats=nf)
+        worst = 0.0
+        for i in range(layers):
+            sub = Decoder(c, heads, ffn, 1, attn_bias=True, max_hops=nhop - 1,
+                          num_feats=nf)
+            sub.layers[0], sub.kpt_branches[0] = dec.layers[i], \
+                dec.kpt_branches[i]
+            sub.ref_point_head, sub.norm = dec.ref_point_head, dec.norm
+            sub.to(dev).eval()
+            o, p_ = FD.fused_decoder_stack(*args, sub, **kw)
+            ro, rp = FD.fused_decoder_stack_plain(*args, sub, **kw)
+            torch.cuda.synchronize()
+            d = torch.cat([(o - ro).abs().flatten(),
+                           (p_ - rp).abs().flatten()])
+            ok = d.max().item() <= STACK_LAYER_MAX and \
+                d.mean().item() <= STACK_LAYER_MEAN and \
+                bool(torch.isfinite(o).all() and torch.isfinite(p_).all())
+            worst = max(worst, d.max().item())
+            print(f"[op] fused_decoder_stack layer {i} alone, outputs and "
+                  f"points {tuple(o.shape)}: max_abs_err {d.max().item():.4g} "
+                  f"mean_abs_err {d.mean().item():.3g} (tol "
+                  f"{STACK_LAYER_MAX}, mean {STACK_LAYER_MEAN}) "
+                  f"{'OK' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                bad.append(f"fused_decoder_stack layer {i}")
+
+        def chain():
+            """The layer chain: fused_decoder_layer per layer, the glue and
+            the head recompute in PyTorch."""
+            inter, points = dec(kx, img, kp_valid=kvalid,
+                                img_pos=ipos[None].expand(nq, -1, -1),
+                                initial_proposals=coords, adj=adj,
+                                hop_stack=hops)
+            return torch.stack([
+                torch.sigmoid(dec.kpt_branches[i](inter[i]).float()
+                              + inverse_sigmoid(points[i]))
+                for i in range(layers)])
+
+        n0 = FD.launches
+        ref_chain = chain()
+        if FD.launches - n0 != layers:
+            fail("the layer chain did not run fused_decoder_layer")
+        n0 = FD.stack_launches
+        stack_out, _ = FD.fused_decoder_stack(*args, dec, **kw)
+        one_call = FD.stack_launches - n0
+        torch.cuda.synchronize()
+        d = (stack_out - ref_chain.float()).abs()[:, kvalid]
+        med = d.median().item()
+        p95 = float(np.quantile(d.cpu().numpy(), 0.95))
+        ok = 0 < d.max().item() and med <= STACK_CHAIN_MEDIAN \
+            and p95 <= STACK_CHAIN_P95
+        print(f"[op] fused_decoder_stack vs the chain of fused_decoder_layer "
+              f"(valid keypoints): median {med:.4g} (tol "
+              f"{STACK_CHAIN_MEDIAN}), 95th percentile {p95:.4g} (tol "
+              f"{STACK_CHAIN_P95}), max {d.max().item():.4g} (must be > 0) "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append("fused_decoder_stack vs the layer chain")
+        chain_ms = time_ms(chain)
+        r = nq * K
+        layer_flops = (
+            2 * r * 4 * c ** 2 + 4 * nq * K * K * c
+            + 2 * r * (4 + 4 + 2) * c ** 2 + 2 * nq * hw * (2 + 2) * c ** 2
+            + 4 * nq * K * hw * 2 * c + 2 * r * (2 * c * ffn + ffn * c)
+            + 2 * nq * 2 * K * K * ffn)
+        glue_flops = 2 * r * (4 * nf * c + c * c) \
+            + 2 * 2 * r * (3 * c * c + 2 * c)
+        hid = nhop - 1 + heads
+        bias_flops = 2 * nq * K * K * (nhop * hid + hid * heads)
+        outs_bytes = 2 * layers * r * 2 * 4
+        whole = FD.fused_decoder_stack(*args, dec, **kw)
+        whole_ref = FD.fused_decoder_stack_plain(*args, dec, **kw)
+        err = max((a - b).abs().max().item()
+                  for a, b in zip(whole, whole_ref))
+        ms = time_ms(lambda: FD.fused_decoder_stack(*args, dec, **kw))
+        plain_ms = time_ms(lambda: FD.fused_decoder_stack_plain(*args, dec,
+                                                                **kw), reps=3)
+        bnd = bound(nbytes(*args) + param_bytes(dec) + outs_bytes,
+                    layers * (layer_flops + glue_flops), layers * bias_flops)
+        print(f"[op] fused_decoder_stack: {layers} layers, rows {nq}, K {K}, "
+              f"HW {hw}, C {c}, Markov bias from the hop stack in the "
+              f"kernel: {one_call} launch count per call, whole stack vs "
+              f"plain max_abs_err {err:.4g} (information: ulp differences "
+              f"grow through the layers; the bound is on each layer alone, "
+              f"worst {worst:.4g}, tol {STACK_LAYER_MAX}) kernel {ms:.3f} ms "
+              f"plain {plain_ms:.3f} ms chain of fused_decoder_layer with "
+              f"PyTorch glue {chain_ms:.3f} ms bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}) library none", flush=True)
+        entries["fused_decoder_stack"] = {
+            "name": "fused_decoder_stack", "route": "cuda",
+            "source": "edgecape_tpu_torch/csrc/kernels.cu",
+            "op": "edgecape_tpu_torch/ops/fused_decoder.py",
+            "replaces": "edgecape_tpu/ops/fused_decoder.py:531",
+            "launches": 0, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": None, "chain_ms": chain_ms}
+        if not bad:
+            profile(lambda: FD.fused_decoder_stack(*args, dec, **kw),
+                    "one fused_decoder_stack call at the chunk's shape",
+                    power, rows=14)
+    if bad:
+        fail(f"variant ops disagree with their plain versions: {bad}")
+
+
+# ------------------------------------------------------------ phase 6
+def variant_path(dev, entries, power, est, data, default_preds, tuned_out):
+    """forward_cached with the decoder_stack and vit_pair_blocks switches:
+    launch counts, agreement with the default path, and the A/B ratios."""
+    from edgecape_tpu_torch.eval.runner import run_cached
+    from edgecape_tpu_torch.ops import kernel_config as KC
+    import edgecape_tpu_torch.ops.fused_decoder as FD
+    import edgecape_tpu_torch.ops.fused_vit_block as FV
+
+    nq = GROUPS * QUERIES
+    chunks = [(i, GROUPS) for i in range(CHUNKS)]
+
+    def run(stack, pair):
+        KC.set_decoder_stack(stack)
+        KC.set_vit_pair_blocks(pair)
+        preds = []
+        FV.launches = FV.launches2 = FD.launches = FD.stack_launches = 0
+        t0 = time.perf_counter()
+        run_cached(est, chunks, lambda i: data[i],
+                   lambda pred, *a: preds.append(pred))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"fused_vit_block": FV.launches,
+                  "fused_vit_block2": FV.launches2,
+                  "fused_decoder_layer": FD.launches,
+                  "fused_decoder_stack": FD.stack_launches}
+        return preds, wall, counts
+
+    try:
+        run(True, True)                      # warm-up of the variant ops
+        preds, wall, counts = run(True, True)
+        expect = {"fused_vit_block": 0, "fused_vit_block2": 12 * CHUNKS,
+                  "fused_decoder_layer": 0, "fused_decoder_stack": CHUNKS}
+        print(f"[variant] both switches on: launches {counts} expected "
+              f"{expect} ({CHUNKS} chunks: per chunk 12 fused_vit_block2 "
+              f"over the two backbone passes and 1 fused_decoder_stack)",
+              flush=True)
+        if counts != expect:
+            fail("variant path launch counts differ from what it implies")
+        for name in ("fused_vit_block2", "fused_decoder_stack"):
+            entries[name]["launches"] = counts[name]
+        d = np.abs(np.stack(preds) - np.stack(default_preds))
+        ok = np.isfinite(np.stack(preds)).all() and d.max() > 0 \
+            and np.median(d) <= STACK_CHAIN_MEDIAN \
+            and np.quantile(d, 0.95) <= STACK_CHAIN_P95
+        print(f"[variant] predictions vs the default path: median "
+              f"{np.median(d):.4g} (tol {STACK_CHAIN_MEDIAN}), 95th "
+              f"percentile {np.quantile(d, 0.95):.4g} (tol {STACK_CHAIN_P95})"
+              f", max {d.max():.4g} (must be > 0) {'OK' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail("variant path disagrees with the default path")
+        # the pair switch alone must not change a bit
+        p_pair, _, _ = run(False, True)
+        if not np.array_equal(np.stack(p_pair), np.stack(default_preds)):
+            fail("vit_pair_blocks changed the predictions")
+
+        # A/B in turns: default, both, pair, stack, three times over; best
+        # wall of each
+        walls = {"default": [], "both": [], "vit_pair_blocks": [],
+                 "decoder_stack": []}
+        for _ in range(3):
+            for name, (stack, pair) in (("default", (False, False)),
+                                        ("both", (True, True)),
+                                        ("vit_pair_blocks", (False, True)),
+                                        ("decoder_stack", (True, False))):
+                walls[name].append(run(stack, pair)[1])
+        best = {k: min(v) for k, v in walls.items()}
+        rate = {k: CHUNKS * nq / v for k, v in best.items()}
+        ratios = {k: best["default"] / best[k]
+                  for k in ("both", "vit_pair_blocks", "decoder_stack")}
+        print(f"[variant] {CHUNKS} chunks x {nq} queries, best of 3 in turns "
+              f"on {power}: default {rate['default']:.1f} img/s, both "
+              f"switches {rate['both']:.1f} img/s, vit_pair_blocks alone "
+              f"{rate['vit_pair_blocks']:.1f} img/s, decoder_stack alone "
+              f"{rate['decoder_stack']:.1f} img/s; A/B ratio (default time / "
+              f"variant time) both {ratios['both']:.4f}, vit_pair_blocks "
+              f"{ratios['vit_pair_blocks']:.4f}, decoder_stack "
+              f"{ratios['decoder_stack']:.4f} (a switch is on above "
+              f"{KC.THRESHOLD}; information only)", flush=True)
+        if tuned_out:
+            tuned = {"card": power, "threshold": KC.THRESHOLD,
+                     "measured_by": "chip_smoke.py --write-tuned",
+                     "shape": f"{CHUNKS} chunks of {GROUPS} groups x "
+                              f"{QUERIES} queries, K={K}, {SIZE} px, bf16",
+                     "img_per_s": rate,
+                     "ab_ratios": {k: ratios[k] for k in
+                                   ("vit_pair_blocks", "decoder_stack")},
+                     "switches": {k: bool(ratios[k] > KC.THRESHOLD) for k in
+                                  ("vit_pair_blocks", "decoder_stack")}}
+            with open(tuned_out, "w") as f:
+                json.dump(tuned, f, indent=1)
+                f.write("\n")
+            print(f"[variant] wrote {tuned_out}", flush=True)
+    finally:
+        KC.set_decoder_stack(False)
+        KC.set_vit_pair_blocks(False)
+
+
+# ------------------------------------------------------------ phase 7
+def uncached_path(dev, power, est, weights):
+    """run_eval(cache_supports=False) through the kernels, 1-shot and
+    5-shot, against the cached loop on the same episodes; forward_debug;
+    strict fp32 on the card against the CPU."""
+    from edgecape_tpu_torch.api import PoseEstimator
+    from edgecape_tpu_torch.eval.runner import run_eval
+    import edgecape_tpu_torch.ops.fused_decoder as FD
+    import edgecape_tpu_torch.ops.fused_encoder as FE
+    import edgecape_tpu_torch.ops.fused_vit_block as FV
+    import edgecape_tpu_torch.ops.flash_attention as FA
+
+    def kp(path):
+        with open(path + "/result_keypoints.json") as f:
+            return np.array([r["keypoints"] for r in json.load(f)])[..., :2]
+
+    for shots in (1, 5):
+        ds = EvalEpisodes(np.random.default_rng(SEED + 10 + shots),
+                          groups=EVAL_GROUPS, queries=EVAL_QUERIES,
+                          shots=shots)
+        with tempfile.TemporaryDirectory() as tmp:
+            FV.launches = FE.stack_launches = FD.launches = FA.launches = 0
+            res = run_eval(ds, est, batch_size=EVAL_BATCH,
+                           res_folder=tmp + "/u", progress=False)
+            torch.cuda.synchronize()
+            counts = {"fused_vit_block": FV.launches,
+                      "fused_encoder_stack": FE.stack_launches,
+                      "fused_decoder_layer": FD.launches,
+                      "flash_mha": FA.launches}
+            n_batches = -(-len(ds) // EVAL_BATCH)
+            expect = {"fused_vit_block": 12 * n_batches,
+                      "fused_encoder_stack": n_batches,
+                      "fused_decoder_layer": 3 * n_batches,
+                      "flash_mha": 3 * n_batches}
+            cres = run_eval(ds, est, batch_size=EVAL_BATCH,
+                            res_folder=tmp + "/c", progress=False,
+                            cache_supports=True)
+            pu, pc = kp(tmp + "/u"), kp(tmp + "/c")
+        d = np.abs(pu - pc) / SIZE
+        med, within = float(np.median(d)), float(np.mean(d <= PATH_CELL))
+        ok = counts == expect and pu.shape == (len(ds), K, 2) \
+            and np.isfinite(pu).all() and pu.min() >= -1e-3 \
+            and pu.max() <= SIZE + 1e-3 \
+            and all(np.isfinite(res[k]) for k in ("PCK", "NME", "AUC", "EPE")) \
+            and med <= PATH_MEDIAN_TOL and within >= PATH_WITHIN_SHARE
+        print(f"[uncached] {shots}-shot, {len(ds)} episodes in {n_batches} "
+              f"batches through the kernels: launches {counts} expected "
+              f"{expect}; PCK {res['PCK']:.4f} NME {res['NME']:.4f} (random "
+              f"weights; cached loop: PCK {cres['PCK']:.4f}), "
+              f"{res['images_per_sec']} img/s uncached, "
+              f"{cres['images_per_sec']} img/s cached on {power} "
+              f"(information only: {len(ds)} episodes); uncached vs cached "
+              f"predictions: median {med:.4g} (tol {PATH_MEDIAN_TOL}), share "
+              f"within {PATH_CELL:.4g}: {within:.4f} (tol >= "
+              f"{PATH_WITHIN_SHARE}) {'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"the uncached {shots}-shot path failed")
+
+    # forward_debug on one batch: always the plain modules
+    ds = EvalEpisodes(np.random.default_rng(SEED + 20), groups=2, queries=2)
+    batch = next(ds.batches(4))
+    n0 = (FV.launches, FE.stack_launches, FD.launches, FA.launches)
+    pred, raw_adj, sim, attn = est.forward_debug(batch)
+    torch.cuda.synchronize()
+    ok = tuple(pred.shape) == (4, K, 2) and tuple(raw_adj.shape) == (4, K, K) \
+        and tuple(sim.shape) == (4, K, 16, 16) \
+        and tuple(attn.shape) == (3, 4, K, 256) \
+        and all(bool(torch.isfinite(t.float()).all())
+                for t in (pred, raw_adj, sim, attn)) \
+        and bool(((attn.float().sum(-1) - 1).abs() < 1e-2).all()) \
+        and n0 == (FV.launches, FE.stack_launches, FD.launches, FA.launches)
+    print(f"[debug] forward_debug: pred {tuple(pred.shape)}, similarity "
+          f"{tuple(sim.shape)}, attention maps {tuple(attn.shape)} (rows sum "
+          f"to 1), finite, no kernel op launched: {'OK' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("forward_debug failed")
+
+    # strict fp32: the same estimator on the card and on the CPU. TF32 is
+    # switched on around the card's run; the estimator must switch it off.
+    cfg = main_path_config()
+    cfg.model.use_flash = False
+    cfg.model.compute_dtype = cfg.model.head_dtype = "float32"
+    bb, head = weights
+    on_card = PoseEstimator(cfg, bb, head, device=dev)
+    on_cpu = PoseEstimator(cfg, bb, head, device="cpu")
+    if not on_card.strict:
+        fail("the fp32 estimator did not select the strict path")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        t0 = time.perf_counter()
+        pg, _, traj = on_card.forward_batch(batch)
+        pg = pg.cpu().numpy()
+        card_s = time.perf_counter() - t0
+        kept = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32) == (True, True)
+        # what the check would see if the estimator left TF32 on
+        on_card.strict = False
+        p_tf32 = on_card.forward_batch(batch)[0].cpu().numpy()
+        on_card.strict = True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    pc = on_cpu.forward_batch(batch)[0].numpy()
+    d = np.abs(pg - pc)
+    d_tf32 = np.abs(p_tf32 - pc)
+    ok = kept and tuple(traj.shape) == (4, 4, K, 2) \
+        and np.median(d) <= STRICT_MEDIAN \
+        and np.quantile(d, 0.99) <= STRICT_P99
+    print(f"[strict] fp32, use_flash=False, 4 one-shot episodes at full "
+          f"width, card vs CPU: median {np.median(d):.3g} (tol "
+          f"{STRICT_MEDIAN}), 99th percentile {np.quantile(d, 0.99):.3g} "
+          f"(tol {STRICT_P99}), max {d.max():.3g} (with TF32 left on the "
+          f"same comparison gives median {np.median(d_tf32):.3g}, 99th "
+          f"percentile {np.quantile(d_tf32, 0.99):.3g}); first call on the card "
+          f"{card_s:.3f} s; caller's TF32 settings restored: {kept} "
+          f"{'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("strict fp32 on the card disagrees with the CPU")
+
+
+# ------------------------------------------------------------ phase 8
+def bench_tool(entries, power):
+    """The four chains of tools/bench_attn_variants at full width."""
+    from edgecape_tpu_torch.tools import bench_attn_variants as BV
+    import edgecape_tpu_torch.ops.fused_attn_block as FB
+    import edgecape_tpu_torch.ops.fused_mlp as FM
+    import edgecape_tpu_torch.ops.fused_vit_block as FV
+
+    FB.launches = FM.launches = FV.launches = 0
+    out = BV.main(["all"])
+    runs = BV.LAYERS * (BV.ITERS + 1)
+    counts = {"fused_attn_block": FB.launches, "fused_ln_mlp": FM.launches,
+              "fused_vit_block": FV.launches}
+    expect = {"fused_attn_block": 2 * runs, "fused_ln_mlp": 2 * runs,
+              "fused_vit_block": runs}
+    print(f"[bench] launches {counts} expected {expect}; both / block "
+          f"{out['both'] / out['block']:.4f} on {power}", flush=True)
+    if counts != expect or not all(np.isfinite(v) and v > 0
+                                   for v in out.values()):
+        fail("the bench tool's chains did not run as they should")
+    entries["fused_attn_block"]["launches"] = counts["fused_attn_block"]
+    entries["fused_ln_mlp"]["launches"] = counts["fused_ln_mlp"]
+
+
 def main() -> None:
+    tuned_out = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--write-tuned":
+        tuned_out = sys.argv[2]
+    elif len(sys.argv) > 1:
+        fail("usage: chip_smoke.py [--write-tuned PATH]")
     if not torch.cuda.is_available():
         fail("no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1080,14 +1653,32 @@ def main() -> None:
     kernels.lib()
     print(f"[build] kernels ready in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {kernels.build_seconds} s)", flush=True)
+    # every phase names the form it drives: the per-layer and per-block
+    # forms here, the variants in the variant path, whatever the
+    # measured-defaults file says
+    from edgecape_tpu_torch.ops import kernel_config
+    print(f"[variant] measured-defaults file {kernel_config.tuned_path()}: "
+          f"decoder_stack {kernel_config.decoder_stack_default()}, "
+          f"vit_pair_blocks {kernel_config.vit_pair_blocks_default()}",
+          flush=True)
+    kernel_config.set_decoder_stack(False)
+    kernel_config.set_vit_pair_blocks(False)
     dev = torch.device("cuda", 0)
     entries = {}
     op_checks(dev, entries)
     train_op_checks(dev, entries)
     torch.cuda.empty_cache()
-    main_path(dev, entries, power)
+    est, data, preds, weights = main_path(dev, entries, power)
     torch.cuda.empty_cache()
     train_path(dev, entries, power)
+    torch.cuda.empty_cache()
+    variant_op_checks(dev, entries, power)
+    torch.cuda.empty_cache()
+    variant_path(dev, entries, power, est, data, preds, tuned_out)
+    uncached_path(dev, power, est, weights)
+    del est
+    torch.cuda.empty_cache()
+    bench_tool(entries, power)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(power, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,34 @@
-"""High-level estimator: backbone + head, cached-support eval forward;
-counterpart of edgecape_tpu/api.py:PoseEstimator.forward_cached.
+"""High-level estimator: backbone + head; counterpart of
+edgecape_tpu/api.py:PoseEstimator (single device).
 
-The support context is computed once per episode group, gathered onto
-each query row by `group`, and the query phase runs in `head_dtype`
-(head parameters and the support context cast at the boundary, scores,
-soft-argmax and the coordinate trajectory kept fp32 inside the modules);
-predictions come back fp32. With `use_flash` (resolved to True on a CUDA
-device) the eval path runs the hand-written kernels: the bf16 backbone
-through fused_vit_block, the skeleton's keypoint self-attention through
-flash_mha, the joint encoder through fused_encoder_stack and each decoder
-layer through fused_decoder_layer."""
+Entry points:
+* `forward_cached`: the support context is computed once per episode
+  group, gathered onto each query row by `group`, and the query phase
+  runs in `head_dtype` (head parameters and the support context cast at
+  the boundary, scores, soft-argmax and the coordinate trajectory kept
+  fp32 inside the modules); predictions come back fp32;
+* `forward_batch`: one episode per row (an EpisodeBatch with rendered
+  support heatmaps), support and query images through the backbone
+  together; returns the predictions, the predicted adjacency and the
+  point trajectory;
+* `forward_debug`: as forward_batch but always on the plain modules,
+  returning the similarity maps and the decoder's cross-attention maps;
+* `decode_batch`: normalised predictions to original-image coordinates
+  and result records (numpy, on the host).
+
+With `use_flash` (resolved to True on a CUDA device) the eval path runs
+the hand-written kernels: the bf16 backbone through fused_vit_block (or
+fused_vit_block2 per pair of blocks), the skeleton's keypoint
+self-attention through flash_mha, the joint encoder through
+fused_encoder_stack and the decoder through fused_decoder_layer per layer
+(or fused_decoder_stack as a whole); ops/kernel_config.py holds the two
+variant switches. An explicit use_flash=False with float32 compute and
+head dtype is the strict path: plain modules, and on a CUDA device TF32
+switched off for its matmuls and convolutions."""
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Optional
 
@@ -23,6 +39,7 @@ from .models import dinov2
 from .models.convert import init_params
 from .models.edgecape import EdgeCape, SupportContext
 from .ops import heatmap
+from .ops.affine import transform_preds_batch
 
 # ImageNet statistics, as in edgecape_tpu/ops/warp.py
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
@@ -55,6 +72,22 @@ def _cast_floats(ctx: SupportContext, dtype) -> SupportContext:
     return SupportContext(*(
         t.to(dtype) if t is not None and t.is_floating_point() else t
         for t in ctx))
+
+
+@contextlib.contextmanager
+def strict_fp32():
+    """Full-precision float32 on the card for the strict path: TF32 off
+    for matmuls and for cuDNN while the block runs (cuDNN's default is
+    on), and the settings restored after it."""
+    mm, cd = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+        torch.backends.cudnn.allow_tf32 = cd
 
 
 class PoseEstimator:
@@ -101,6 +134,13 @@ class PoseEstimator:
         self.head.to(self.device).eval()
         self.query_head = self.head if self.head_dtype == torch.float32 \
             else copy.deepcopy(self.head).to(self.head_dtype)
+        self.strict = (not self.use_flash
+                       and self.compute_dtype == torch.float32
+                       and self.head_dtype == torch.float32)
+
+    def _precision(self):
+        """The context a forward runs in: strict_fp32 on the strict path."""
+        return strict_fp32() if self.strict else contextlib.nullcontext()
 
     def load_head_state(self, head_state: dict) -> None:
         """Swap other head weights in (the trainer's eval hook does so
@@ -165,7 +205,7 @@ class PoseEstimator:
         def t(a):
             return torch.as_tensor(a).to(dev, non_blocking=True)
 
-        with torch.no_grad():
+        with torch.no_grad(), self._precision():
             ctx = self.support_context(t(support["img_s"]),
                                        t(support["joints_s"]),
                                        t(support["vis_s"]),
@@ -175,3 +215,96 @@ class PoseEstimator:
                                         for a in ctx))
             pred = self.query_rows(ctx_rows, t(query["img_q"]))
         return pred, ctx_rows.raw_adj
+
+    # ---------------------------------------------------- uncached paths
+    def _batch_tensors(self, batch):
+        dev = self.device
+
+        def t(a):
+            return torch.as_tensor(a).to(dev, non_blocking=True)
+
+        return (t(batch.img_s), t(batch.img_q), t(batch.target_s),
+                t(batch.weight_s), t(batch.binary_adj))
+
+    def _encode_batch(self, img_s, img_q, target_s, weight_s, binary_adj,
+                      *, backbone, use_flash: bool):
+        """Backbone over support and query images together; returns the
+        head's inputs (feat_q, feat_s, target_s, mask_s, binary_adj).
+        Images arrive normalised."""
+        b, s = img_s.shape[:2]
+        imgs = torch.cat([img_s.reshape((b * s,) + img_s.shape[2:]), img_q],
+                         dim=0)
+        feats = dinov2.extract_features(backbone, imgs,
+                                        dtype=self.compute_dtype,
+                                        use_flash=use_flash)
+        feat_s = feats[:b * s].reshape((b, s) + feats.shape[1:])
+        mask_s = torch.prod(weight_s, dim=1)
+        return feats[b * s:], feat_s, target_s, mask_s, binary_adj
+
+    def forward_batch(self, batch):
+        """batch: an EpisodeBatch (img_s [B, S, H, W, 3], img_q
+        [B, H, W, 3], both normalised; target_s [B, S, K, h, w]; weight_s
+        [B, S, K]; binary_adj [B, K, K]). Returns (pred_norm [B, K, 2] in
+        [0, 1], raw_adj [B, K, K], trajectory [L+1, B, K, 2]) on the
+        estimator's device."""
+        with torch.no_grad(), self._precision():
+            args = self._encode_batch(*self._batch_tensors(batch),
+                                      backbone=self.backbone,
+                                      use_flash=self.use_flash)
+            out = self.head(*args)
+            traj = torch.stack([out.encode.proposals] + list(out.points[1:]),
+                               dim=0)
+        return out.outputs[-1], out.encode.raw_adj, traj
+
+    def forward_debug(self, batch):
+        """The debug forward, always on the plain modules (no kernel op,
+        whatever use_flash says): returns (pred_norm [B, K, 2], raw_adj,
+        similarity [B, K, gh, gw], attn_maps [L, B, K, HW]), the last
+        being the decoder's kp->image cross-attention probabilities
+        averaged over heads."""
+        backbone, head = self.backbone, self.head
+        if self.use_flash:
+            # the same weights on modules built without the kernel routes
+            if getattr(self, "_debug_modules", None) is None:
+                self._debug_modules = (
+                    dinov2.DinoViT(self.backbone_cfg,
+                                   self.cfg.model.image_size).to(
+                        self.device, self.compute_dtype).eval(),
+                    EdgeCape(self.cfg.model).to(self.device).eval())
+            backbone, head = self._debug_modules
+            backbone.load_state_dict(self.backbone.state_dict())
+            head.load_state_dict(self.head.state_dict())
+        with torch.no_grad(), self._precision():
+            args = self._encode_batch(*self._batch_tensors(batch),
+                                      backbone=backbone, use_flash=False)
+            enc = head.encode(*args)
+            outputs, _, attn = head.decode(
+                enc.kp_tokens, enc.img_tokens, enc.proposals, enc.adj,
+                enc.hop_stack, enc.kp_valid, enc.img_pos, return_attn=True)
+        return outputs[-1], enc.raw_adj, enc.similarity, attn
+
+    # ------------------------------------------------------------ decode
+    def decode_batch(self, pred_norm, batch) -> dict:
+        """Normalised predictions -> original-image coordinates and
+        result records (the reference's head.decode)."""
+        size = self.cfg.model.image_size
+        if isinstance(pred_norm, torch.Tensor):
+            pred_norm = pred_norm.detach().cpu().numpy()
+        coords = np.asarray(pred_norm) * size
+        centers = batch.meta["query_center"]
+        scales = batch.meta["query_scale"]
+        preds_img = transform_preds_batch(
+            coords, centers, scales, (size, size),
+            use_udp=self.cfg.test_data.use_udp)
+        b, k = coords.shape[:2]
+        all_preds = np.zeros((b, k, 3), np.float32)
+        all_preds[:, :, :2] = preds_img
+        all_preds[:, :, 2] = 1.0
+        boxes = np.zeros((b, 6), np.float32)
+        boxes[:, 0:2] = centers
+        boxes[:, 2:4] = scales
+        boxes[:, 4] = np.prod(scales * 200.0, axis=1)
+        boxes[:, 5] = 1.0
+        return {"preds": all_preds, "boxes": boxes,
+                "image_paths": batch.meta["query_image_file"],
+                "bbox_ids": batch.meta["bbox_id"]}

@@ -16,9 +16,15 @@
 //   * ec_attention  short-sequence attention: one block per (batch, head)
 //                   with all its keys and values resident in shared
 //                   memory, additive per-key mask and optional
-//                   [B, H, Nq, Nk] bias, fp32 softmax, P rounded to bf16
-//                   before P.V, output rounded to bf16;
+//                   [B, H, Nq, Nk] bias (read, or formed in the kernel
+//                   from the bf16 hop stack by the Markov bias MLP),
+//                   fp32 softmax, P rounded to bf16 before P.V, output
+//                   rounded to bf16;
 //   * ec_add_pos    src = bf16(bf16(x) + pos) for the joint encoder;
+//   * ec_sine_feats / ec_coord_update  the decoder stack's glue between
+//                   layers (ops/fused_decoder.py fused_decoder_stack):
+//                   coordinates to bf16 sine features, and the fp32
+//                   sigmoid coordinate update of both kpt_branch passes;
 //   * ec_attn_train_fwd / ec_attn_train_bwd  the differentiable attention
 //                   of the training step with key mask, [B, H, Nq, Nk]
 //                   bias and Philox dropout on the probabilities (see
@@ -456,7 +462,78 @@ struct AttnArgs {
   const float* bias;
   float scale;
   void* out; int out_dt; long sob, son;
+  // Markov bias formed in the kernel (attn_kernel<D, NHOP > 0>): hops
+  // [B, nhop, Nq, Nk] bf16, w1 [nhop, hid], b1 [hid], w2 [hid, H], b2 [H]
+  const bf16* hops; int nhop, hid;
+  const float* w1; const float* b1; const float* w2; const float* b2;
 };
+
+#define HOP_MAX 8          // hop planes the in-kernel bias MLP takes
+#define HOP_MAX_HID 32     // its hidden width
+#define HOP_ROW 12         // floats per hidden unit in shared memory
+#define HOP_MLP_FLOATS (HOP_MAX_HID * HOP_ROW + 4)
+
+// Markov bias of 16 neighbouring keys [j0, j0 + 16) of one query row for
+// one head: relu(hops . w1 + b1) . w2[:, h] + b2[h] in fp32, from the bf16
+// hop planes at hrow (plane stride `plane`). mlp (shared memory): per
+// hidden unit m a row of HOP_ROW floats, w1[0..7][m] (zero beyond nhop) |
+// b1[m] | w2[m, h] | 0 | 0, read as three 16-byte loads; then b2[h]. NHOP
+// is the number of planes the loops are unrolled for (nhop <= NHOP).
+// Eight keys at a time, so one hidden unit's weights are read once per
+// eight keys. Keys at or beyond Nk get no bias (their score is -inf).
+template <int NHOP>
+__device__ __forceinline__ void hop_bias16(const bf16* hrow, long plane, int nhop,
+                                           int hid, const float* mlp, int j0, int Nk,
+                                           float* bv) {
+  const float b2 = mlp[hid * HOP_ROW];
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const int jg = j0 + g * 8;
+    if (jg >= Nk) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) bv[g * 8 + i] = 0.0f;
+      continue;
+    }
+    float hv[NHOP][8];
+#pragma unroll
+    for (int jh = 0; jh < NHOP; ++jh) {
+      const bf16* src = hrow + jh * plane + jg;
+      if (jh < nhop && jg + 8 <= Nk && (reinterpret_cast<uintptr_t>(src) & 7) == 0) {
+        const uint2 lo = *reinterpret_cast<const uint2*>(src);
+        const uint2 hi = *reinterpret_cast<const uint2*>(src + 4);
+        const unsigned w[4] = {lo.x, lo.y, hi.x, hi.y};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {      // a bf16 is the top half of a float
+          hv[jh][2 * i] = __uint_as_float(w[i] << 16);
+          hv[jh][2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          hv[jh][i] = (jh < nhop && jg + i < Nk) ? __bfloat162float(src[i]) : 0.0f;
+      }
+    }
+    float acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = b2;
+#pragma unroll 2
+    for (int m = 0; m < hid; ++m) {
+      const float4 wa = *reinterpret_cast<const float4*>(mlp + m * HOP_ROW);
+      const float4 wb = *reinterpret_cast<const float4*>(mlp + m * HOP_ROW + 4);
+      const float4 wc = *reinterpret_cast<const float4*>(mlp + m * HOP_ROW + 8);
+      const float w1[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float a = wc.x;
+#pragma unroll
+        for (int jh = 0; jh < NHOP; ++jh) a += hv[jh][i] * w1[jh];
+        acc[i] += fmaxf(a, 0.0f) * wc.y;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) bv[g * 8 + i] = acc[i];
+  }
+}
 
 // Shared-memory layout: K and V [NKP][KLD] bf16, then per warp a query
 // tile [16][KLD] bf16, a score / output staging tile [16][SLD] fp32 and a
@@ -472,6 +549,11 @@ struct AttnSmem {
   static constexpr size_t WARP_BYTES = Q_BYTES + S_BYTES + P_BYTES;
   static __host__ __device__ size_t kv_bytes(int nkp) {
     return ALIGN128((size_t)2 * nkp * KLD * 2);
+  }
+  // per warp, with the bias formed in the kernel: its tile [16][nkp + 4]
+  // fp32, written in the first pass over the keys and read in the second
+  static __host__ __device__ size_t bias_bytes(int nkp) {
+    return ALIGN128((size_t)16 * (nkp + 4) * 4);
   }
 };
 
@@ -495,9 +577,12 @@ __device__ __forceinline__ void score_chunk(
   }
 }
 
-template <int D>
-__global__ void attn_kernel(AttnArgs p) {
+// NHOP: 0 without the in-kernel bias, else the hop planes to unroll for.
+template <int D, int NHOP>
+__global__ void __launch_bounds__(ATT_MAX_WARPS * 32) attn_kernel(AttnArgs p) {
   using L = AttnSmem<D>;
+  constexpr bool HOPS = NHOP > 0;
+  __shared__ __align__(16) float mlp_s[HOPS ? HOP_MLP_FLOATS : 4];
   constexpr int KLD = L::KLD, SLD = L::SLD, PLD = L::PLD;
   extern __shared__ __align__(128) unsigned char smem[];
   const int NKP = p.NKP;
@@ -507,10 +592,13 @@ __global__ void attn_kernel(AttnArgs p) {
 
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + (size_t)NKP * KLD;
-  unsigned char* wbase = smem + L::kv_bytes(NKP) + warp * L::WARP_BYTES;
+  const size_t warp_bytes = L::WARP_BYTES + (HOPS ? L::bias_bytes(NKP) : 0);
+  unsigned char* wbase = smem + L::kv_bytes(NKP) + warp * warp_bytes;
   bf16* Qs = reinterpret_cast<bf16*>(wbase);
   float* Ss = reinterpret_cast<float*>(wbase + L::Q_BYTES);
   bf16* Ps = reinterpret_cast<bf16*>(wbase + L::Q_BYTES + L::S_BYTES);
+  float* Bt = reinterpret_cast<float*>(wbase + L::WARP_BYTES);   // HOPS only
+  const int BLD = NKP + 4;
 
   const long bh = blockIdx.x;
   const long b = bh / p.H;
@@ -522,9 +610,21 @@ __global__ void attn_kernel(AttnArgs p) {
     load8_any(&Ks[n * KLD + d8], p.k, p.in_dt, b * p.skb + (long)n * p.skn + h * D + d8, valid);
     load8_any(&Vs[n * KLD + d8], p.v, p.in_dt, b * p.svb + (long)n * p.svn + h * D + d8, valid);
   }
+  if constexpr (HOPS) {
+    for (int i = threadIdx.x; i < p.hid * HOP_ROW; i += blockDim.x) {
+      const int m = i / HOP_ROW, f = i % HOP_ROW;
+      float v = 0.0f;
+      if (f < p.nhop) v = p.w1[f * p.hid + m];
+      else if (f == 8) v = p.b1[m];
+      else if (f == 9) v = p.w2[m * p.H + h];
+      mlp_s[i] = v;
+    }
+    if (threadIdx.x == 0) mlp_s[p.hid * HOP_ROW] = p.b2[h];
+  }
   __syncthreads();
 
   const float* kbrow = p.kb ? p.kb + b * p.skbb : nullptr;
+  const long hop_plane = (long)p.Nq * p.Nk;
   const int r = lane >> 1, half = lane & 1;   // this lane: row r, 16 columns
   const int ntiles = (p.Nq + 15) / 16;
   for (int tile = warp; tile < ntiles; tile += nwarps) {
@@ -544,11 +644,25 @@ __global__ void attn_kernel(AttnArgs p) {
     const float* brow = (p.bias && row < p.Nq)
                             ? p.bias + ((size_t)bh * p.Nq + row) * p.Nk
                             : nullptr;
-    // pass 1: row max and exp-sum
+    const bf16* hrow = nullptr;
+    if constexpr (HOPS) {
+      if (row < p.Nq) hrow = p.hops + (b * p.nhop * p.Nq + row) * (long)p.Nk;
+    }
+    // pass 1: row max and exp-sum (and, with HOPS, the row tile's bias)
     float m = -INFINITY, l = 0.0f;
     for (int c0 = 0; c0 < NKP; c0 += ATT_KC) {
       score_chunk<D>(qa, Ks, c0, Ss);
       __syncwarp();
+      float bv[HOPS ? 16 : 1];
+      if constexpr (HOPS) {
+        if (hrow) {
+          hop_bias16<NHOP>(hrow, hop_plane, p.nhop, p.hid, mlp_s, c0 + half * 16, p.Nk, bv);
+#pragma unroll
+          for (int i = 0; i < 16; i += 4)
+            *reinterpret_cast<float4*>(&Bt[r * BLD + c0 + half * 16 + i]) =
+                make_float4(bv[i], bv[i + 1], bv[i + 2], bv[i + 3]);
+        }
+      }
       float sv[16];
       float cm = -INFINITY;
 #pragma unroll
@@ -559,6 +673,9 @@ __global__ void attn_kernel(AttnArgs p) {
           s = Ss[r * SLD + half * 16 + i] * p.scale;
           if (kbrow) s += kbrow[j];
           if (brow) s += brow[j];
+          if constexpr (HOPS) {
+            if (hrow) s += bv[i];
+          }
         }
         sv[i] = s;
         cm = fmaxf(cm, s);
@@ -588,6 +705,9 @@ __global__ void attn_kernel(AttnArgs p) {
           float s = Ss[r * SLD + half * 16 + i] * p.scale;
           if (kbrow) s += kbrow[j];
           if (brow) s += brow[j];
+          if constexpr (HOPS) {
+            if (hrow) s += Bt[r * BLD + j];
+          }
           pv = s == -INFINITY ? 0.0f : expf(s - m) / l;
         }
         Ps[r * PLD + half * 16 + i] = __float2bfloat16(pv);
@@ -622,23 +742,27 @@ __global__ void attn_kernel(AttnArgs p) {
   }
 }
 
-template <int D>
+template <int D, int NHOP>
 static int launch_attn(const AttnArgs& p, int B, cudaStream_t s) {
   using L = AttnSmem<D>;
-  const size_t limit = 227 * 1024, kv = L::kv_bytes(p.NKP);
-  if (kv + L::WARP_BYTES > limit) return (int)cudaErrorInvalidValue;
-  int max_warps = (int)((limit - kv) / L::WARP_BYTES);
+  constexpr bool HOPS = NHOP > 0;
+  // the block's dynamic shared memory, less the static bias-MLP weights
+  const size_t limit = 227 * 1024 - (HOPS ? ALIGN128(HOP_MLP_FLOATS * 4) : 0);
+  const size_t kv = L::kv_bytes(p.NKP);
+  const size_t warp_bytes = L::WARP_BYTES + (HOPS ? L::bias_bytes(p.NKP) : 0);
+  if (kv + warp_bytes > limit) return (int)cudaErrorInvalidValue;
+  int max_warps = (int)((limit - kv) / warp_bytes);
   if (max_warps > ATT_MAX_WARPS) max_warps = ATT_MAX_WARPS;
   // as few rounds of query tiles as the warps allow, spread evenly
   const int ntiles = (p.Nq + 15) / 16;
   const int rounds = (ntiles + max_warps - 1) / max_warps;
   const int nw = (ntiles + rounds - 1) / rounds;
-  const size_t smem = kv + nw * L::WARP_BYTES;
-  cudaError_t e = cudaFuncSetAttribute(attn_kernel<D>,
+  const size_t smem = kv + nw * warp_bytes;
+  cudaError_t e = cudaFuncSetAttribute(attn_kernel<D, NHOP>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
-  attn_kernel<D><<<(unsigned)((long)B * p.H), nw * 32, smem, s>>>(p);
+  attn_kernel<D, NHOP><<<(unsigned)((long)B * p.H), nw * 32, smem, s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -646,9 +770,15 @@ extern "C" int ec_attention(const void* q, const void* k, const void* v, int in_
                             long sqb, long sqn, long skb, long skn, long svb, long svn,
                             int B, int H, int D, int Nq, int Nk,
                             const void* kb, long skbb, const void* bias, float scale,
-                            void* out, int out_dt, long sob, long son, void* stream) {
+                            void* out, int out_dt, long sob, long son,
+                            const void* hops, int nhop, int hid, const void* w1,
+                            const void* b1, const void* w2, const void* b2,
+                            void* stream) {
   const int nkp = (Nk + ATT_KC - 1) / ATT_KC * ATT_KC;
   if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || nkp > ATT_MAX_NK)
+    return (int)cudaErrorInvalidValue;
+  if (hops && (bias || D != 32 || nhop <= 0 || nhop > HOP_MAX || hid <= 0 ||
+               hid > HOP_MAX_HID || !w1 || !b1 || !w2 || !b2))
     return (int)cudaErrorInvalidValue;
   AttnArgs p;
   p.q = q; p.k = k; p.v = v; p.in_dt = in_dt;
@@ -658,10 +788,74 @@ extern "C" int ec_attention(const void* q, const void* k, const void* v, int in_
   p.bias = static_cast<const float*>(bias);
   p.scale = scale;
   p.out = out; p.out_dt = out_dt; p.sob = sob; p.son = son;
+  p.hops = static_cast<const bf16*>(hops); p.nhop = nhop; p.hid = hid;
+  p.w1 = static_cast<const float*>(w1); p.b1 = static_cast<const float*>(b1);
+  p.w2 = static_cast<const float*>(w2); p.b2 = static_cast<const float*>(b2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 32) return launch_attn<32>(p, B, s);
-  if (D == 64) return launch_attn<64>(p, B, s);
+  if (hops) return nhop <= 5 ? launch_attn<32, 5>(p, B, s) : launch_attn<32, HOP_MAX>(p, B, s);
+  if (D == 32) return launch_attn<32, 0>(p, B, s);
+  if (D == 64) return launch_attn<64, 0>(p, B, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------ decoder-stack glue
+// feats[r] = bf16([sin(ay) | cos(ay) | sin(ax) | cos(ax)]), each F wide,
+// with a? = (c? * 2 pi) * rdt[i] in fp32 for the normalised coordinates
+// ct[r] = (x, y): the sine embedding of the decoder's current points in
+// the column order that the pre-permuted ref_point_head fc1 expects.
+__global__ void sine_feats_kernel(const float* ct, const float* rdt, bf16* out,
+                                  long rows, int F) {
+  const long total = rows * F;
+  for (long idx = (long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
+       idx += (long)gridDim.x * blockDim.x) {
+    const long r = idx / F;
+    const int i = (int)(idx % F);
+    const float ax = (ct[2 * r] * 6.283185307179586f) * rdt[i];
+    const float ay = (ct[2 * r + 1] * 6.283185307179586f) * rdt[i];
+    bf16* o = out + r * 4 * F + i;
+    o[0] = __float2bfloat16(sinf(ay));
+    o[F] = __float2bfloat16(cosf(ay));
+    o[2 * F] = __float2bfloat16(sinf(ax));
+    o[3 * F] = __float2bfloat16(cosf(ax));
+  }
+}
+
+extern "C" int ec_sine_feats(const void* ct, const void* rdt, void* out, long rows,
+                             int F, void* stream) {
+  if (rows <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
+  long blocks = (rows * F + 255) / 256;
+  if (blocks > 65535L * 16) blocks = 65535L * 16;
+  sine_feats_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(ct), static_cast<const float*>(rdt),
+      static_cast<bf16*>(out), rows, F);
+  return (int)cudaGetLastError();
+}
+
+// pts = sigmoid(inverse_sigmoid(ct) + dd[:n]), outs = sigmoid(
+// inverse_sigmoid(ct) + dd[n:]) over n = rows * 2 fp32 coordinates:
+// dd holds the kpt_branch deltas of the raw tokens, then those of the
+// final-normed tokens. inverse_sigmoid clips its argument and both odds
+// terms at eps.
+__global__ void coord_update_kernel(const float* ct, const float* dd, float* pts,
+                                    float* outs, long n, float eps) {
+  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long)gridDim.x * blockDim.x) {
+    const float c = fminf(fmaxf(ct[i], 0.0f), 1.0f);
+    const float inv = logf(fmaxf(c, eps) / fmaxf(1.0f - c, eps));
+    pts[i] = 1.0f / (1.0f + expf(-(inv + dd[i])));
+    outs[i] = 1.0f / (1.0f + expf(-(inv + dd[n + i])));
+  }
+}
+
+extern "C" int ec_coord_update(const void* ct, const void* dd, void* pts, void* outs,
+                               long n, float eps, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  long blocks = (n + 255) / 256;
+  if (blocks > 65535L * 16) blocks = 65535L * 16;
+  coord_update_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(ct), static_cast<const float*>(dd),
+      static_cast<float*>(pts), static_cast<float*>(outs), n, eps);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------- training attention

@@ -1,18 +1,21 @@
-"""Cached episodic evaluation; counterpart of the cache_supports branch of
+"""Episodic evaluation, single process; counterpart of
 edgecape_tpu/eval/runner.py:run_eval.
 
-Episode groups (one support set, its queries) are evaluated in chunks of
-a fixed group count. The loop is depth-2: chunk i is queued on the
-device before chunk i-1's predictions are pulled to the host, decoded
-(inverse crop affine) and turned into result records, so host decode
-overlaps device work; the next chunk's host collation runs on a worker
-thread. Metrics follow the reference's _report_metric (PCK@thresholds,
-mPCK, NME, AUC, EPE, thresholds normalised by the query bbox's longer
-side, visibility = query AND all supports).
+Cached (`cache_supports=True`): episode groups (one support set, its
+queries) are evaluated in chunks of a fixed group count. The loop is
+depth-2: chunk i is queued on the device before chunk i-1's predictions
+are pulled to the host, decoded (inverse crop affine) and turned into
+result records, so host decode overlaps device work; the next chunk's
+host collation runs on a worker thread. Uncached (the default, as in the
+JAX package): one episode per row through `forward_batch` and
+`decode_batch`, batch after batch. Metrics follow the reference's
+_report_metric (PCK@thresholds, mPCK, NME, AUC, EPE, thresholds
+normalised by the query bbox's longer side, visibility = query AND all
+supports).
 
-The loop takes any dataset with the MP100Dataset interface
-(`support_groups`, `collate_group`, `paired_samples`, `db`, `name2id`,
-`img_prefix`, `cfg.pck_threshold_list`).
+The loops take any dataset with the MP100Dataset interface
+(`support_groups`, `collate_group`, `batches`, `paired_samples`, `db`,
+`name2id`, `img_prefix`, `cfg.pck_threshold_list`).
 """
 
 from __future__ import annotations
@@ -106,33 +109,54 @@ def run_cached(estimator, chunks, collate, on_chunk):
 def run_eval(dataset, estimator, batch_size: int = 32,
              res_folder: str = ".",
              metric_list=("PCK", "NME", "AUC", "EPE"),
-             progress: bool = True) -> OrderedDict:
-    """Cached 1-process eval over every episode group of `dataset`;
-    writes result_keypoints.json and returns the metrics."""
+             progress: bool = True,
+             cache_supports: bool = False) -> OrderedDict:
+    """1-process eval over every episode of `dataset`, cached by episode
+    group or one episode per row; writes result_keypoints.json and
+    returns the metrics."""
     os.makedirs(res_folder, exist_ok=True)
     size = estimator.cfg.model.image_size
-    groups = dataset.support_groups()
-    n_total = sum(len(rows) for _, rows in groups)
     records = []
     n_done = 0
     t0 = time.perf_counter()
 
-    def on_chunk(pred_host, query, meta, real):
-        nonlocal n_done
-        n_real = int(np.sum(np.asarray(query["group"]) < real))
-        meta = {k: v[:n_real] for k, v in meta.items()}
-        preds_img = transform_preds_batch(
-            pred_host[:n_real] * size, meta["query_center"],
-            meta["query_scale"], (size, size))
-        records.extend(records_from(preds_img, meta, dataset))
-        n_done += n_real
+    def report(n_total):
         if progress:
             rate = n_done / max(time.perf_counter() - t0, 1e-9)
             print(f"\reval {n_done}/{n_total} ({rate:.1f} img/s)", end="",
                   flush=True)
 
-    timings = run_cached(estimator, make_chunks(groups, batch_size),
-                         dataset.collate_group, on_chunk)
+    timings = {}
+    if cache_supports:
+        groups = dataset.support_groups()
+        n_total = sum(len(rows) for _, rows in groups)
+
+        def on_chunk(pred_host, query, meta, real):
+            nonlocal n_done
+            n_real = int(np.sum(np.asarray(query["group"]) < real))
+            meta = {k: v[:n_real] for k, v in meta.items()}
+            preds_img = transform_preds_batch(
+                pred_host[:n_real] * size, meta["query_center"],
+                meta["query_scale"], (size, size))
+            records.extend(records_from(preds_img, meta, dataset))
+            n_done += n_real
+            report(n_total)
+
+        timings = run_cached(estimator, make_chunks(groups, batch_size),
+                             dataset.collate_group, on_chunk)
+    else:
+        n_total = len(dataset)
+        for batch in dataset.batches(batch_size, masking_ratio=0.0):
+            pred_norm, _, _ = estimator.forward_batch(batch)
+            out = estimator.decode_batch(pred_norm, batch)
+            records.extend(records_from(
+                out["preds"][:, :, :2],
+                {"query_image_file": out["image_paths"],
+                 "query_center": out["boxes"][:, 0:2],
+                 "query_scale": out["boxes"][:, 2:4],
+                 "bbox_id": out["bbox_ids"]}, dataset))
+            n_done += len(out["bbox_ids"])
+            report(n_total)
     if progress:
         print()
     # dedup by bbox_id like the reference _sort_and_unique_bboxes

@@ -5,17 +5,20 @@ Channels-last [B, H, W, C] images like the JAX module, the patch embed as
 reshape + matmul, the position embedding stored at the target grid,
 pre-norm blocks with LayerScale and a fused qkv projection, exact GELU.
 `fast_forward` is the bf16 eval path: every block goes through the
-hand-written `fused_vit_block` op."""
+hand-written `fused_vit_block` op, or every pair of blocks through
+`fused_vit_block2` when the vit_pair_blocks switch is on."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.flash_attention import flash_mha
+from ..ops.kernel_config import vit_pair_blocks_default
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,10 +116,15 @@ class DinoViT(nn.Module):
         return x[:, 1:].reshape(x.shape[0], gh, gw, c)
 
 
-def fast_forward(vit: DinoViT, images: torch.Tensor) -> torch.Tensor:
+def fast_forward(vit: DinoViT, images: torch.Tensor,
+                 pair_blocks: Optional[bool] = None) -> torch.Tensor:
     """bf16 eval forward through the fused block op (the counterpart of
-    the JAX fast_forward); returns fp32 features [B, gh, gw, C]."""
-    from ..ops.fused_vit_block import fused_vit_block
+    the JAX fast_forward); returns fp32 features [B, gh, gw, C].
+    pair_blocks: two blocks per op (fused_vit_block2, bit-equal) when the
+    depth is even; None takes kernel_config.vit_pair_blocks_default()."""
+    from ..ops.fused_vit_block import fused_vit_block, fused_vit_block2
+    if pair_blocks is None:
+        pair_blocks = vit_pair_blocks_default()
     c = vit.cfg
     bf = torch.bfloat16
     patches, gh, gw = _patches(images.to(bf), c.patch_size)
@@ -124,8 +132,13 @@ def fast_forward(vit: DinoViT, images: torch.Tensor) -> torch.Tensor:
                  vit.patch_embed.bias.to(bf))
     cls = vit.cls_token.to(bf).expand(x.shape[0], 1, c.embed_dim)
     x = torch.cat([cls, x], dim=1) + vit.pos_embed.to(bf)
-    for blk in vit.blocks:
-        x = fused_vit_block(x, blk, num_heads=c.num_heads, eps=c.ln_eps)
+    if pair_blocks and c.depth % 2 == 0:
+        for i in range(0, c.depth, 2):
+            x = fused_vit_block2(x, vit.blocks[i], vit.blocks[i + 1],
+                                 num_heads=c.num_heads, eps=c.ln_eps)
+    else:
+        for blk in vit.blocks:
+            x = fused_vit_block(x, blk, num_heads=c.num_heads, eps=c.ln_eps)
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True)
     var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)

@@ -20,6 +20,7 @@ import torch.nn as nn
 
 from ..ops import pos_enc
 from ..ops.fused_encoder import fused_encoder_stack
+from ..ops.kernel_config import decoder_stack_default
 from .head import pool_support_keypoints
 from .skeleton import SkeletonPredictor
 from .transformer import (Decoder, EncoderLayer, ProposalGenerator,
@@ -152,17 +153,30 @@ class EdgeCape(nn.Module):
         return self.encode_query(feat_q, ctx, generator=generator)
 
     def decode(self, kp_tokens, img_tokens, proposals, adj, hop_stack,
-               kp_valid, img_pos, generator=None):
+               kp_valid, img_pos, generator=None,
+               return_attn: bool = False):
         """([L, B, K, 2] per-layer predictions via the head recompute from
         the normed tokens, without the decoder's gradient stop between
-        layers; point trajectory)."""
-        inter, points = self.decoder(
+        layers; point trajectory[; attention maps [L, B, K, HW] with
+        return_attn]). With use_flash, in eval mode, without return_attn
+        and with the decoder_stack switch on (ops/kernel_config.py), the
+        whole decoder runs as one op, tolerance-equal to the layer
+        chain."""
+        if (self.use_flash and not self.training and not return_attn
+                and decoder_stack_default()):
+            return self.decoder.decode_stacked(
+                kp_tokens, img_tokens, kp_valid=kp_valid, img_pos=img_pos,
+                initial_proposals=proposals, adj=adj, hop_stack=hop_stack)
+        dec_out = self.decoder(
             kp_tokens, img_tokens, kp_valid=kp_valid, img_pos=img_pos,
             initial_proposals=proposals, adj=adj, hop_stack=hop_stack,
-            generator=generator)
+            generator=generator, return_attn=return_attn)
+        inter, points = dec_out[:2]
         outs = [torch.sigmoid(self.decoder.kpt_branches[i](inter[i])
                               + inverse_sigmoid(points[i]))
                 for i in range(inter.shape[0])]
+        if return_attn:
+            return torch.stack(outs, dim=0), points, dec_out[2]
         return torch.stack(outs, dim=0), points
 
     def mask_tokens(self, kp_tokens, random_mask, kp_valid):

@@ -7,7 +7,8 @@ Train / eval is `module.training`. Dropout sits where the JAX modules
 have it and draws from an explicit `torch.Generator` handed down through
 the `generator` arguments (never the global state); the hand-written
 fused ops are eval-only, and training self-attention goes through
-`flash_mha_train`."""
+`flash_mha_train`. `return_attn` (the debug forward) asks the decoder for
+its kp->image cross-attention maps and keeps it on the plain modules."""
 
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import pos_enc, softargmax
-from ..ops.fused_decoder import fused_decoder_layer
+from ..ops.fused_decoder import fused_decoder_layer, fused_decoder_stack
 from ..ops.flash_attention import flash_mha, flash_mha_train
 from ..ops.pos_enc import inverse_sigmoid
 
@@ -71,7 +72,9 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = nn.Linear(embed_dim, embed_dim)
 
     def forward(self, q_in, k_in, v_in, *, key_valid=None, bias=None,
-                generator=None):
+                generator=None, return_probs: bool = False):
+        """return_probs: also return the probabilities averaged over the
+        heads [B, Nq, Nk] (torch's need_weights), on the plain path."""
         b, nq, _ = q_in.shape
         nk = k_in.shape[1]
         h = self.num_heads
@@ -80,11 +83,12 @@ class MultiHeadAttention(nn.Module):
         k = self.k_proj(k_in).reshape(b, nk, h, hd)
         v = self.v_proj(v_in).reshape(b, nk, h, hd)
         if (self.use_flash and nq == nk and bias is None
-                and not self.training):
+                and not self.training and not return_probs):
             out = flash_mha(q, k, v, key_valid).reshape(b, nq,
                                                          self.embed_dim)
             return self.out_proj(out)
-        if self.use_flash and nq == nk and nq <= 512 and self.training:
+        if (self.use_flash and nq == nk and nq <= 512 and self.training
+                and not return_probs):
             out = flash_mha_train(
                 q, k, v, key_valid, bias, dropout_rate=self.dropout,
                 generator=generator).reshape(b, nq, self.embed_dim)
@@ -98,9 +102,11 @@ class MultiHeadAttention(nn.Module):
                                         torch.finfo(torch.float32).min)
         probs = torch.softmax(logits, dim=-1).to(q_in.dtype)
         probs = dropout(probs, self.dropout, self.training, generator)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(
-            b, nq, self.embed_dim)
-        return self.out_proj(out)
+        out = self.out_proj(torch.einsum(
+            "bhqk,bkhd->bqhd", probs, v).reshape(b, nq, self.embed_dim))
+        if return_probs:
+            return out, probs.mean(dim=1)
+        return out
 
 
 class MarkovBiasMLP(nn.Module):
@@ -225,7 +231,10 @@ class DecoderLayer(nn.Module):
             self.norm4 = ln(d_model)
 
     def forward(self, kp_tokens, img_tokens, *, kp_valid, kp_query_pos,
-                img_pos, hop_stack=None, adj=None, generator=None):
+                img_pos, hop_stack=None, adj=None, generator=None,
+                return_attn: bool = False):
+        """Returns (kp tokens, img tokens[, the cross-attention
+        probabilities averaged over heads [B, K, HW] with return_attn])."""
         def drop(t):
             return dropout(t, self.dropout, self.training, generator)
 
@@ -238,8 +247,14 @@ class DecoderLayer(nn.Module):
         x = self.norm1(kp_tokens + drop(att))
         q = torch.cat([x, kp_query_pos], dim=-1)
         k = torch.cat([img_tokens, img_pos], dim=-1)
-        att = self.choker(self.cross_attn(q, k, img_tokens,
-                                          generator=generator))
+        attn_map = None
+        if return_attn:
+            att, attn_map = self.cross_attn(q, k, img_tokens,
+                                            generator=generator,
+                                            return_probs=True)
+        else:
+            att = self.cross_attn(q, k, img_tokens, generator=generator)
+        att = self.choker(att)
         x = self.norm2(x + drop(att))
         f = self.ffn2(drop(self.gcn(x, adj)))
         x = self.norm3(x + drop(f))
@@ -249,6 +264,8 @@ class DecoderLayer(nn.Module):
             att2 = self.two_way_choker(self.two_way_attn(
                 q2, k2, x, generator=generator))
             img_tokens = self.norm4(img_tokens + drop(att2))
+        if return_attn:
+            return x, img_tokens, attn_map
         return x, img_tokens
 
 
@@ -283,8 +300,9 @@ class Decoder(nn.Module):
     ref_point_head -> decoder layer -> kpt_branch delta ->
     sigmoid(inverse_sigmoid(prev) + delta), with the gradient stopped at
     the initial proposals and between layers. The coordinate trajectory
-    stays fp32. With use_flash, in eval mode, every layer goes through the
-    hand-written fused_decoder_layer op (which takes no gradient)."""
+    stays fp32. With use_flash, in eval mode and without return_attn,
+    every layer goes through the hand-written fused_decoder_layer op (which
+    takes no gradient); `decode_stacked` is the whole decoder as one op."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
                  num_layers: int, *, attn_bias: bool = False,
@@ -306,17 +324,23 @@ class Decoder(nn.Module):
                                           for _ in range(num_layers))
 
     def forward(self, kp_tokens, img_tokens, *, kp_valid, img_pos,
-                initial_proposals, adj, hop_stack=None, generator=None):
+                initial_proposals, adj, hop_stack=None, generator=None,
+                return_attn: bool = False):
+        """Returns (normed tokens per layer [L, B, K, C], the point
+        trajectory [initial, after layer 0, ...][, attention maps
+        [L, B, K, HW] with return_attn])."""
         kp_valid = ensure_some_valid(kp_valid)
         bi = initial_proposals.float().detach()
         points = [bi]
         intermediate = []
+        attn_maps = []
         x = kp_tokens
         b, k = x.shape[:2]
+        use_fused = self.use_flash and not self.training and not return_attn
         for layer, branch in zip(self.layers, self.kpt_branches):
             query_pos = self.ref_point_head(
                 pos_enc.sine_coords(bi, self.num_feats).to(x.dtype))
-            if self.use_flash and not self.training:
+            if use_fused:
                 if self.attn_bias and hop_stack is not None:
                     bias = markov_bias_fn(layer.bias_mlp, hop_stack)
                 else:
@@ -326,12 +350,34 @@ class Decoder(nn.Module):
                     x, query_pos, img_tokens, img_pos[0], kp_valid, bias,
                     adj, layer, num_heads=self.nhead, eps=1e-5)
             else:
-                x, img_tokens = layer(
+                out = layer(
                     x, img_tokens, kp_valid=kp_valid, kp_query_pos=query_pos,
                     img_pos=img_pos, hop_stack=hop_stack, adj=adj,
-                    generator=generator)
+                    generator=generator, return_attn=return_attn)
+                x, img_tokens = out[:2]
+                if return_attn:
+                    attn_maps.append(out[2])
             intermediate.append(self.norm(x))
             bi_pred = torch.sigmoid(inverse_sigmoid(bi) + branch(x))
             bi = bi_pred.detach()
             points.append(bi_pred)
+        if return_attn:
+            return (torch.stack(intermediate, dim=0), points,
+                    torch.stack(attn_maps, dim=0))
         return torch.stack(intermediate, dim=0), points
+
+    def decode_stacked(self, kp_tokens, img_tokens, *, kp_valid, img_pos,
+                       initial_proposals, adj, hop_stack=None):
+        """Eval fast path: the whole decoder, layers and the glue between
+        them (bias MLP, sine embedding + ref_point_head, kpt_branch,
+        trajectory update, the head recompute from the final-normed
+        tokens), through the hand-written fused_decoder_stack op. Returns
+        the head-recompute predictions [L, B, K, 2] and the point
+        trajectory list: what EdgeCape.decode returns."""
+        kp_valid = ensure_some_valid(kp_valid)
+        bi = initial_proposals.float().detach()
+        outputs, points_arr = fused_decoder_stack(
+            kp_tokens, bi, img_tokens, img_pos[0], kp_valid,
+            hop_stack if self.attn_bias else None, adj, self,
+            num_heads=self.nhead, num_feats=self.num_feats, eps=1e-5)
+        return outputs, [bi] + list(points_arr.unbind(0))

@@ -1,4 +1,5 @@
-"""One graph-decoder layer as a chain of hand-written CUDA launches.
+"""One graph-decoder layer, and the whole decoder with its glue, as
+chains of hand-written CUDA launches.
 
 Replaces the TPU kernel `edgecape_tpu/ops/fused_decoder.py:
 fused_decoder_layer` (`_kernel`), eval mode:
@@ -23,8 +24,40 @@ in the key GEMM's epilogue. The adjacency contraction is a strided
 batched GEMM over rows on tensor cores with the second slice accumulating
 onto the first and ReLU fused. A single launch per layer is later work.
 
-The wrapper runs the kernels for a CUDA tensor and the plain PyTorch
-version for a CPU tensor; `launches` counts kernel runs.
+`fused_decoder_stack` replaces the TPU kernel `fused_decoder_stack`
+(`_stack_kernel` through `_stack_chunk`) of the same file: all decoder
+layers plus what the layer chain leaves to the framework between them:
+* the Markov bias MLP (n_hop -> hid -> H, ReLU) over the hop stack,
+  rounded to bf16 once and laid out [B, n_hop, K, K]. The self-attention
+  kernel forms the bias from it for its own (row, head, key) tile in
+  fp32, with the few hundred MLP weights in shared memory, so the
+  [B, H, K, K] fp32 bias (163 MB per layer at 510 rows, K = 100) is never
+  written to or read from device memory; the 51 MB hop stack is read
+  instead;
+* the sine embedding of the current points (a kernel that writes
+  [sin_y | cos_y | sin_x | cos_x] bf16 features; `permute_fc1` folds the
+  embedding's sin / cos interleave into ref_point_head's first weight)
+  and ref_point_head as two GEMMs with the GELU epilogue;
+* the final norm and both kpt_branch evaluations (trajectory delta from
+  the raw tokens, head-recompute delta from the final-normed tokens) as
+  one pass over 2 B K stacked rows, its last GEMM with N = 2;
+* a kernel for sigmoid(inverse_sigmoid(ct) + delta) that writes the
+  layer's `points` and `outputs` in fp32; the next layer reads its
+  coordinates from `points`.
+No PyTorch op runs between the layers. The rounding points are the TPU
+kernel's: bf16 hop stack and adjacency, bf16 ref_point_head / kpt_branch
+weights and activations, fp32 coordinates; its polynomial erf is the
+exact `erff` here (they differ by less than 1.5e-7). The image tokens do
+not change across layers, so the cross-attention key and value
+projections of all layers are one GEMM each over [B HW, C] x [C, L 2C].
+The bf16 weights, the fused qkv weight, the permuted fc1 and the stacked
+cross-attention weights are prepared once per decoder module and kept
+until a parameter changes. K is not padded and nothing is chunked: the
+weights live in device memory, not in a scratchpad.
+
+The wrappers run the kernels for a CUDA tensor and the plain PyTorch
+version for a CPU tensor; `launches` counts kernel runs of the layer op
+and `stack_launches` those of the stack op.
 """
 
 from __future__ import annotations
@@ -32,8 +65,10 @@ from __future__ import annotations
 import torch
 
 from . import plain
+from .pos_enc import inverse_sigmoid
 
 launches = 0
+stack_launches = 0
 
 
 def fused_decoder_layer_plain(x, query_pos, img_tokens, img_pos, kp_valid,
@@ -155,4 +190,251 @@ def fused_decoder_layer(x, query_pos, img_tokens, img_pos, kp_valid, bias,
         x, query_pos, img_tokens, img_pos, kp_valid, bias, adj, layer,
         num_heads=num_heads, eps=eps)
     launches += 1
+    return out
+
+
+# ------------------------------------------------------------------ stack
+def permute_fc1(fc1_weight: torch.Tensor, num_feats: int) -> torch.Tensor:
+    """Fold the sine embedding's sin / cos interleave into
+    ref_point_head.fc1. fc1_weight: the torch Linear weight [C, 2F], whose
+    column j multiplies emb[j] = sin(ang[j]) for even j, cos(ang[j]) for
+    odd j, y first then x (pos_enc.sine_coords). The stack feeds
+    [sin_y | cos_y | sin_x | cos_x], each F wide, so the result [C, 4F]
+    holds each column at its (axis, sin / cos, frequency) slot and zeros
+    elsewhere."""
+    f = num_feats
+    ev = torch.arange(0, f, 2)
+    od = torch.arange(1, f, 2)
+    out = fc1_weight.new_zeros((fc1_weight.shape[0], 4 * f))
+    out[:, ev] = fc1_weight[:, ev]                      # sin_y, even
+    out[:, f + od] = fc1_weight[:, od]                  # cos_y, odd
+    out[:, 2 * f + ev] = fc1_weight[:, f + ev]          # sin_x
+    out[:, 3 * f + od] = fc1_weight[:, f + od]          # cos_x
+    return out
+
+
+def _rdt(num_feats: int, device=None) -> torch.Tensor:
+    """Reciprocal temperatures of the sine embedding, [F] fp32."""
+    t = torch.tensor([10000.0 ** (2.0 * (i // 2) / num_feats)
+                      for i in range(num_feats)], dtype=torch.float32)
+    return (1.0 / t).to(device)
+
+
+def _has_bias(decoder, hop_stack) -> bool:
+    return bool(decoder.attn_bias) and hop_stack is not None
+
+
+@torch.no_grad()
+def fused_decoder_stack_plain(x, initial_coords, img_tokens, img_pos,
+                              kp_valid, hop_stack, adj, decoder, *,
+                              num_heads: int, num_feats: int,
+                              eps: float = 1e-5):
+    """Plain PyTorch version of the stack, with the TPU kernel's rounding
+    points; like the kernels it takes no gradient. Arguments as
+    fused_decoder_stack."""
+    f32 = torch.float32
+    b = x.shape[0]
+    rph, norm = decoder.ref_point_head, decoder.norm
+    fc1p = permute_fc1(rph.fc1.weight.to(f32), num_feats)
+    rdt = _rdt(num_feats, x.device)
+    hops = plain.bf16(hop_stack) if _has_bias(decoder, hop_stack) else None
+    xb = x.to(torch.bfloat16)
+    ct = initial_coords.to(f32)
+    outs, pts = [], []
+    for layer, branch in zip(decoder.layers, decoder.kpt_branches):
+        ang_x = (ct[..., 0:1] * 6.283185307179586) * rdt
+        ang_y = (ct[..., 1:2] * 6.283185307179586) * rdt
+        feats = torch.cat([torch.sin(ang_y), torch.cos(ang_y),
+                           torch.sin(ang_x), torch.cos(ang_x)], dim=-1)
+        h = plain.gelu(plain.linear(feats, fc1p, rph.fc1.bias))
+        qpos = plain.bf16(plain.linear(h, rph.fc2.weight, rph.fc2.bias))
+        bias = None
+        if hops is not None:
+            mlp = layer.bias_mlp
+            hid = torch.relu(hops @ mlp.fc1.weight.to(f32).t()
+                             + mlp.fc1.bias.to(f32))
+            bias = (hid @ mlp.fc2.weight.to(f32).t()
+                    + mlp.fc2.bias.to(f32)).permute(0, 3, 1, 2)
+        xb = fused_decoder_layer_plain(
+            xb, qpos, img_tokens, img_pos, kp_valid, bias, adj, layer,
+            num_heads=num_heads, eps=eps)                     # bf16
+        n_bf = plain.layer_norm(xb, norm.weight, norm.bias, eps)
+        kh = torch.cat([xb.to(f32), n_bf], dim=0)            # [2B, K, C]
+        for fc in (branch.fc0, branch.fc1, branch.fc2):
+            kh = plain.gelu(plain.linear(kh, fc.weight, fc.bias))
+        dd = plain.linear(kh, branch.out.weight, branch.out.bias)
+        inv = inverse_sigmoid(ct)
+        ct_new = torch.sigmoid(inv + dd[:b])
+        outs.append(torch.sigmoid(inv + dd[b:]))
+        pts.append(ct_new)
+        ct = ct_new
+    return torch.stack(outs, dim=0), torch.stack(pts, dim=0)
+
+
+def _stack_weights(decoder, num_feats: int, has_bias: bool) -> dict:
+    """The stack's weights in the form its launches take, built once per
+    decoder module and kept until a parameter is replaced or written."""
+    params = list(decoder.parameters())
+    key = (num_feats, has_bias) + tuple(
+        (p.data_ptr(), p._version, p.dtype) for p in params)
+    cached = getattr(decoder, "_stack_cache", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    bf, f32 = torch.bfloat16, torch.float32
+    w16 = lambda w: w.detach().to(bf).contiguous()  # noqa: E731
+    v32 = lambda v: v.detach().to(f32).contiguous()  # noqa: E731
+    rph, norm = decoder.ref_point_head, decoder.norm
+    c = norm.weight.shape[0]
+    layers = []
+    for layer, branch in zip(decoder.layers, decoder.kpt_branches):
+        sa, ca = layer.self_attn, layer.cross_attn
+        wq = w16(ca.q_proj.weight)
+        w = {
+            "wqkv": w16(torch.cat([sa.q_proj.weight, sa.k_proj.weight,
+                                   sa.v_proj.weight])),
+            "bqkv": v32(torch.cat([sa.q_proj.bias, sa.k_proj.bias,
+                                   sa.v_proj.bias])),
+            "wso": w16(sa.out_proj.weight), "bso": v32(sa.out_proj.bias),
+            "ln1": (v32(layer.norm1.weight), v32(layer.norm1.bias)),
+            "wcq_x": wq[:, :c].contiguous(), "wcq_p": wq[:, c:].contiguous(),
+            "bcq": v32(ca.q_proj.bias),
+            "wco": w16(ca.out_proj.weight), "bco": v32(ca.out_proj.bias),
+            "wch": w16(layer.choker.weight), "bch": v32(layer.choker.bias),
+            "ln2": (v32(layer.norm2.weight), v32(layer.norm2.bias)),
+            "wg": w16(layer.gcn.conv.weight), "bg": v32(layer.gcn.conv.bias),
+            "wf": w16(layer.ffn2.weight), "bf": v32(layer.ffn2.bias),
+            "ln3": (v32(layer.norm3.weight), v32(layer.norm3.bias)),
+            "kpt": [(w16(fc.weight), v32(fc.bias))
+                    for fc in (branch.fc0, branch.fc1, branch.fc2)],
+            "kow": w16(branch.out.weight), "kob": v32(branch.out.bias),
+        }
+        if has_bias:
+            mlp = layer.bias_mlp
+            w["hop_mlp"] = (v32(mlp.fc1.weight.t()), v32(mlp.fc1.bias),
+                            v32(mlp.fc2.weight.t()), v32(mlp.fc2.bias))
+        layers.append(w)
+    cas = [layer.cross_attn for layer in decoder.layers]
+    wk = [w16(ca.k_proj.weight) for ca in cas]                 # [2C, 2C]
+    weights = {
+        "layers": layers,
+        "rdt": _rdt(num_feats, norm.weight.device),
+        "fc1p": w16(permute_fc1(rph.fc1.weight.detach().to(f32), num_feats)),
+        "rb1": v32(rph.fc1.bias), "fc2": w16(rph.fc2.weight),
+        "rb2": v32(rph.fc2.bias),
+        "fn": (v32(norm.weight), v32(norm.bias)),
+        # cross-attention keys and values of every layer in one GEMM each
+        "wck_img": torch.cat([w[:, :c] for w in wk]).contiguous(),
+        "wck_pos": torch.cat([w[:, c:] for w in wk]).contiguous(),
+        "bck": v32(torch.cat([ca.k_proj.bias for ca in cas])),
+        "wcv": w16(torch.cat([ca.v_proj.weight for ca in cas])),
+        "bcv": v32(torch.cat([ca.v_proj.bias for ca in cas])),
+    }
+    decoder._stack_cache = (key, weights)
+    return weights
+
+
+def _fused_decoder_stack_cuda(x, initial_coords, img_tokens, img_pos,
+                              kp_valid, hop_stack, adj, decoder, *,
+                              num_heads, num_feats, eps):
+    from . import kernels as K
+    bf, f32 = torch.bfloat16, torch.float32
+    b, k, c = x.shape
+    hw = img_tokens.shape[1]
+    r = b * k
+    d, d2 = c // num_heads, 2 * c // num_heads
+    c2 = 2 * c
+    has_bias = _has_bias(decoder, hop_stack)
+    w = _stack_weights(decoder, num_feats, has_bias)
+    n_layers = len(w["layers"])
+
+    # inputs in the kernels' types and layouts, once for all layers
+    xb = x.to(bf).reshape(r, c).contiguous()
+    ct = initial_coords.to(f32).reshape(r, 2).contiguous()
+    img = img_tokens.to(bf).contiguous()
+    ipos = img_pos.to(bf).contiguous()
+    adjb = adj.to(bf).contiguous()
+    kb = plain.key_bias(kp_valid)
+    hops = hop_stack.to(bf).permute(0, 3, 1, 2).contiguous() \
+        if has_bias else None
+    kpos = K.gemm(ipos, w["wck_pos"], b_nk=True, bias=w["bck"],
+                  out_dtype=f32)                             # [HW, L 2C]
+    k_all = K.gemm(img, w["wck_img"], b_nk=True, pre=kpos)   # [B, HW, L 2C]
+    v_all = K.gemm(img.view(b * hw, c), w["wcv"], b_nk=True,
+                   bias=w["bcv"]).view(b, hw, n_layers * c2)
+
+    outs = torch.empty((n_layers, b, k, 2), dtype=f32, device=x.device)
+    pts = torch.empty((n_layers, b, k, 2), dtype=f32, device=x.device)
+    kin = torch.empty((2 * r, c), dtype=bf, device=x.device)
+    for li, lw in enumerate(w["layers"]):
+        # query positions from the current points
+        feats = K.sine_feats(ct, w["rdt"])
+        h = K.gemm(feats, w["fc1p"], b_nk=True, bias=w["rb1"],
+                   act=K.ACT_GELU)
+        qpos = K.gemm(h, w["fc2"], b_nk=True, bias=w["rb2"])
+
+        # (1) self-attention with the Markov bias formed in the kernel
+        qkv = K.gemm(xb, lw["wqkv"], b_nk=True,
+                     bias=lw["bqkv"]).view(b, k, 3 * c)
+        att = K.attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
+                          num_heads=num_heads, scale=d ** -0.5, key_bias=kb,
+                          hops=hops, hop_mlp=lw.get("hop_mlp"))
+        a = K.gemm(att.view(r, c), lw["wso"], b_nk=True, bias=lw["bso"],
+                   out_dtype=f32)
+        x1, x1b = K.layernorm(xb, *lw["ln1"], eps, r=a, out_bf16=True)
+
+        # (2) concat-position cross-attention, out_proj, choker
+        tq = K.gemm(x1b, lw["wcq_x"], b_nk=True, out_dtype=f32)
+        q2 = K.gemm(qpos, lw["wcq_p"], b_nk=True, bias=lw["bcq"], pre=tq)
+        sl = slice(li * c2, (li + 1) * c2)
+        att2 = K.attention(q2.view(b, k, c2), k_all[..., sl], v_all[..., sl],
+                           num_heads=num_heads, scale=d2 ** -0.5)
+        o2 = K.gemm(att2.view(r, c2), lw["wco"], b_nk=True, bias=lw["bco"])
+        a2 = K.gemm(o2, lw["wch"], b_nk=True, bias=lw["bch"], out_dtype=f32)
+        x2, x2b = K.layernorm(x1, *lw["ln2"], eps, r=a2, out_bf16=True)
+
+        # (3) GCN over the 2-slice adjacency, ffn2
+        y = K.gemm(x2b, lw["wg"], b_nk=True, bias=lw["bg"])
+        f_dim = y.shape[-1] // 2
+        y = y.view(b, k, 2 * f_dim)
+        m0 = K.gemm(adjb[:, 0], y[..., :f_dim], b_nk=False, out_dtype=f32)
+        f = K.gemm(adjb[:, 1], y[..., f_dim:], b_nk=False, pre=m0,
+                   act=K.ACT_RELU)
+        f2 = K.gemm(f.view(r, f_dim), lw["wf"], b_nk=True, bias=lw["bf"],
+                    out_dtype=f32)
+
+        # LN3 into the first half of kin, the final norm of it into the
+        # second: kpt_branch runs once over both
+        K.layernorm(x2, *lw["ln3"], eps, r=f2, out_f32=False,
+                    out_bf16=kin[:r])
+        xb = kin[:r]
+        K.layernorm(xb, *w["fn"], eps, out_f32=False, out_bf16=kin[r:])
+        kh = kin
+        for kw_, kb_ in lw["kpt"]:
+            kh = K.gemm(kh, kw_, b_nk=True, bias=kb_, act=K.ACT_GELU)
+        dd = K.gemm(kh, lw["kow"], b_nk=True, bias=lw["kob"], out_dtype=f32)
+        K.coord_update(ct, dd, pts[li], outs[li])
+        ct = pts[li].view(r, 2)
+    return outs, pts
+
+
+def fused_decoder_stack(x, initial_coords, img_tokens, img_pos, kp_valid,
+                        hop_stack, adj, decoder, *, num_heads: int,
+                        num_feats: int, eps: float = 1e-5):
+    """The whole refinement decoder. x [B, K, C]; initial_coords
+    [B, K, 2]; img_tokens [B, HW, C]; img_pos [HW, C]; kp_valid [B, K]
+    bool; hop_stack [B, K, K, n_hop] or None; adj [B, 2, K, K]; decoder:
+    a models.transformer.Decoder (its layers, kpt_branches,
+    ref_point_head and norm; the bias MLPs are used when the decoder has
+    them and a hop stack is given). Returns (outputs [L, B, K, 2]: the
+    head-recompute predictions, points [L, B, K, 2]: the trajectory after
+    each layer), both fp32."""
+    global stack_launches
+    if not x.is_cuda:
+        return fused_decoder_stack_plain(
+            x, initial_coords, img_tokens, img_pos, kp_valid, hop_stack,
+            adj, decoder, num_heads=num_heads, num_feats=num_feats, eps=eps)
+    out = _fused_decoder_stack_cuda(
+        x, initial_coords, img_tokens, img_pos, kp_valid, hop_stack, adj,
+        decoder, num_heads=num_heads, num_feats=num_feats, eps=eps)
+    stack_launches += 1
     return out

@@ -1,4 +1,5 @@
-"""One pre-norm DINOv2 block as a chain of hand-written CUDA launches.
+"""One pre-norm DINOv2 block, and two consecutive blocks, as chains of
+hand-written CUDA launches.
 
 Replaces the TPU kernel `edgecape_tpu/ops/fused_vit_block.py:
 fused_vit_block` (`_kernel`, `_block_body`): LN1 -> q/k/v -> softmax
@@ -20,8 +21,19 @@ keys and values of a head resident in shared memory for the attention.
 Fusing the block into one launch (wgmma + TMA, the MLP hidden kept on
 chip) is later work.
 
-The wrapper runs the kernels for a CUDA tensor and the plain PyTorch
-version for a CPU tensor; `launches` counts kernel runs.
+`fused_vit_block2` replaces the TPU kernel `fused_vit_block2`
+(`_kernel2`) of the same file: two consecutive blocks in one op, the
+intermediate rounded to bf16 between them, bit-equal to two calls of
+fused_vit_block. On the TPU the gain was a token block that stayed in
+VMEM across both blocks; here the two blocks' launches are enqueued back
+to back over one set of activation buffers (normed tokens, qkv,
+attention output, fp32 residual, MLP hidden), so the pair allocates once
+and its second block finds its buffers where the first left them. The
+bound is twice the single block's.
+
+The wrappers run the kernels for a CUDA tensor and the plain PyTorch
+version for a CPU tensor; `launches` and `launches2` count kernel runs
+of the two ops.
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ import torch
 from . import plain
 
 launches = 0
+launches2 = 0
 
 
 def _weights(blk):
@@ -62,24 +75,46 @@ def fused_vit_block_plain(x: torch.Tensor, blk, *, num_heads: int,
     return y.to(x.dtype)
 
 
-def _fused_vit_block_cuda(x, blk, *, num_heads, eps):
+def _buffers(b, n, c, f_dim, device):
+    """One set of activation buffers of a block: normed tokens, qkv,
+    attention output, fp32 residual, MLP hidden."""
+    bf = torch.bfloat16
+    r = b * n
+    return {"h": torch.empty((r, c), dtype=bf, device=device),
+            "qkv": torch.empty((r, 3 * c), dtype=bf, device=device),
+            "att": torch.empty((b, n, c), dtype=bf, device=device),
+            "x1": torch.empty((r, c), dtype=torch.float32, device=device),
+            "f": torch.empty((r, f_dim), dtype=bf, device=device)}
+
+
+def _fused_vit_block_cuda(x, blk, *, num_heads, eps, out_dtype=None,
+                          bufs=None):
+    """The launches of one block; the result is stored as out_dtype
+    (x.dtype by default). bufs: a set of activation buffers to work in
+    (_buffers), else each launch allocates its own output."""
     from . import kernels as K
     (n1w, n1b, wqkv, bqkv, wp, bp, ls1, n2w, n2b, w1, b1, w2, b2,
      ls2) = _weights(blk)
     w16 = lambda w: w.detach().to(torch.bfloat16)  # noqa: E731
     b, n, c = x.shape
     d = c // num_heads
+    buf = (bufs or {}).get
     xb = x.to(torch.bfloat16).reshape(b * n, c).contiguous()
-    _, h = K.layernorm(xb, n1w, n1b, eps, out_f32=False, out_bf16=True)
-    qkv = K.gemm(h, w16(wqkv), b_nk=True, bias=bqkv).view(b, n, 3 * c)
+    _, h = K.layernorm(xb, n1w, n1b, eps, out_f32=False,
+                       out_bf16=True if bufs is None else bufs["h"])
+    qkv = K.gemm(h, w16(wqkv), b_nk=True, bias=bqkv,
+                 out=buf("qkv")).view(b, n, 3 * c)
     att = K.attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
-                      num_heads=num_heads, scale=1.0 / math.sqrt(d))
+                      num_heads=num_heads, scale=1.0 / math.sqrt(d),
+                      out=buf("att"))
     x1 = K.gemm(att.view(b * n, c), w16(wp), b_nk=True, bias=bp, res=xb,
-                ls=ls1, out_dtype=torch.float32)
-    _, h2 = K.layernorm(x1, n2w, n2b, eps, out_f32=False, out_bf16=True)
-    f = K.gemm(h2, w16(w1), b_nk=True, bias=b1, act=K.ACT_GELU)
+                ls=ls1, out_dtype=torch.float32, out=buf("x1"))
+    _, h2 = K.layernorm(x1, n2w, n2b, eps, out_f32=False,
+                        out_bf16=True if bufs is None else bufs["h"])
+    f = K.gemm(h2, w16(w1), b_nk=True, bias=b1, act=K.ACT_GELU,
+               out=buf("f"))
     y = K.gemm(f, w16(w2), b_nk=True, bias=b2, res=x1, ls=ls2,
-               out_dtype=x.dtype)
+               out_dtype=out_dtype or x.dtype)
     return y.view(b, n, c)
 
 
@@ -92,4 +127,31 @@ def fused_vit_block(x: torch.Tensor, blk, *, num_heads: int,
         return fused_vit_block_plain(x, blk, num_heads=num_heads, eps=eps)
     out = _fused_vit_block_cuda(x, blk, num_heads=num_heads, eps=eps)
     launches += 1
+    return out
+
+
+def fused_vit_block2_plain(x: torch.Tensor, blk_a, blk_b, *, num_heads: int,
+                           eps: float = 1e-6) -> torch.Tensor:
+    """Plain PyTorch version of the pair: the first block's result
+    rounded to bf16, then the second block; x.dtype out."""
+    mid = fused_vit_block_plain(x, blk_a, num_heads=num_heads, eps=eps)
+    return fused_vit_block_plain(mid.to(torch.bfloat16).to(x.dtype), blk_b,
+                                 num_heads=num_heads, eps=eps)
+
+
+def fused_vit_block2(x: torch.Tensor, blk_a, blk_b, *, num_heads: int,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """blk_b(bf16(blk_a(x))): two consecutive blocks, bit-equal to two
+    calls of fused_vit_block. x: [B, N, C]; returns x.dtype."""
+    global launches2
+    if not x.is_cuda:
+        return fused_vit_block2_plain(x, blk_a, blk_b, num_heads=num_heads,
+                                      eps=eps)
+    b, n, c = x.shape
+    bufs = _buffers(b, n, c, blk_a.mlp_fc1.weight.shape[0], x.device)
+    mid = _fused_vit_block_cuda(x, blk_a, num_heads=num_heads, eps=eps,
+                                out_dtype=torch.bfloat16, bufs=bufs)
+    out = _fused_vit_block_cuda(mid, blk_b, num_heads=num_heads, eps=eps,
+                                out_dtype=x.dtype, bufs=bufs)
+    launches2 += 1
     return out

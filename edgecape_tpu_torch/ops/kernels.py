@@ -1,6 +1,7 @@
 """Build, load and call the hand-written CUDA kernels
-(`csrc/kernels.cu`): the building blocks of the eval ops and the training
-attention's forward / backward pair.
+(`csrc/kernels.cu`): the building blocks of the eval ops, the glue
+kernels of the decoder stack and the training attention's forward /
+backward pair.
 
 The sources are compiled with `nvcc` for `sm_90a` into a shared library
 with a plain C interface at first use, and loaded with ctypes. The build
@@ -57,7 +58,10 @@ _SIGNATURES = {
                      _I, _I, _P],
     "ec_add_pos": [_P, _I, _P, _P, _L, _L, _P],
     "ec_attention": [_P, _P, _P, _I, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I,
-                     _I, _P, _L, _P, _F, _P, _I, _L, _L, _P],
+                     _I, _P, _L, _P, _F, _P, _I, _L, _L, _P, _I, _I, _P, _P,
+                     _P, _P, _P],
+    "ec_sine_feats": [_P, _P, _P, _L, _I, _P],
+    "ec_coord_update": [_P, _P, _P, _P, _L, _F, _P],
     "ec_attn_train_fwd": _TRAIN_HEAD + [_P, _L, _L, _P, _P],
     "ec_attn_train_bwd": _TRAIN_HEAD + [_P, _I, _L, _L, _P, _P, _P, _P, _P,
                                         _P],
@@ -169,15 +173,17 @@ def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *, b_nk: bool,
          out_dtype=torch.bfloat16, bias=None, pre=None, act: int = ACT_NONE,
-         res=None, ls=None) -> torch.Tensor:
+         res=None, ls=None, out=None) -> torch.Tensor:
     """out = epilogue(a @ (b^T if b_nk else b)).
 
     a: [M, K] or batched [Z, M, K] bf16 with unit last stride. b: [N, K]
     (b_nk, a torch Linear weight) or [K, N], optionally batched [Z, ...]
     (an unbatched operand is shared across the batch). pre / res:
     [M, N] or [Z, M, N] fp32 or bf16 (a 2-D one is shared across the
-    batch). Epilogue: y = acc + bias + pre; act; y = res + ls * y."""
-    _cuda(a, b, bias, pre, res, ls)
+    batch). Epilogue: y = acc + bias + pre; act; y = res + ls * y.
+    `out`: a tensor of the result's shape to write into (its dtype is the
+    output dtype), for callers that keep their activation buffers."""
+    _cuda(a, b, bias, pre, res, ls, out)
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise TypeError("gemm operands must be bfloat16")
     batched = a.dim() == 3
@@ -200,8 +206,11 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, b_nk: bool,
             return t.data_ptr(), t.stride(-2), t.stride(0)
         return t.data_ptr(), t.stride(-2), 0
 
-    out = torch.empty(((z,) if batched else ()) + (m, n), dtype=out_dtype,
-                      device=a.device)
+    shape = ((z,) if batched else ()) + (m, n)
+    if out is None:
+        out = torch.empty(shape, dtype=out_dtype, device=a.device)
+    elif tuple(out.shape) != shape:
+        raise ValueError(f"gemm out {tuple(out.shape)} is not {shape}")
     for t in (pre, res):
         if t is not None and tuple(t.shape[-2:]) != (m, n):
             raise ValueError(f"epilogue operand {tuple(t.shape)} is not "
@@ -219,10 +228,24 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, b_nk: bool,
     return out
 
 
+def _ln_out(want, x, dtype):
+    """An output of layernorm: None, a new tensor, or the caller's own
+    (contiguous, x's shape, `dtype`)."""
+    if want is False or want is None:
+        return None
+    if want is True:
+        return torch.empty(x.shape, dtype=dtype, device=x.device)
+    if want.dtype != dtype or want.shape != x.shape \
+            or not want.is_contiguous() or not want.is_cuda:
+        raise ValueError("layernorm output buffer does not fit")
+    return want
+
+
 def layernorm(x: torch.Tensor, gamma, beta, eps: float, *, r=None,
-              out_f32: bool = True, out_bf16: bool = False):
+              out_f32=True, out_bf16=False):
     """LN(x + r) over the last dim with fp32 statistics; returns
-    (fp32 or None, bf16 or None)."""
+    (fp32 or None, bf16 or None). out_f32 / out_bf16: False, True (a new
+    tensor) or a tensor to write into."""
     _cuda(x, r, gamma, beta)
     x = x.contiguous()
     c = x.shape[-1]
@@ -231,10 +254,8 @@ def layernorm(x: torch.Tensor, gamma, beta, eps: float, *, r=None,
         if r.shape != x.shape:
             raise ValueError("layernorm residual shape differs")
         r = r.contiguous()
-    of = torch.empty(x.shape, dtype=torch.float32, device=x.device) \
-        if out_f32 else None
-    ob = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device) \
-        if out_bf16 else None
+    of = _ln_out(out_f32, x, torch.float32)
+    ob = _ln_out(out_bf16, x, torch.bfloat16)
     gamma, beta = _f32(gamma), _f32(beta)
     _call("ec_layernorm", x.data_ptr(), _dt(x), c, _ptr(r),
           _dt(r) if r is not None else 0, c, gamma.data_ptr(),
@@ -257,12 +278,17 @@ def add_pos(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 
 
 def attention(q, k, v, *, num_heads: int, scale: float, key_bias=None,
-              bias=None, out_dtype=torch.bfloat16) -> torch.Tensor:
+              bias=None, hops=None, hop_mlp=None, out_dtype=torch.bfloat16,
+              out=None) -> torch.Tensor:
     """Multi-head attention on [B, N, H*D] views (unit last stride):
     softmax(q k^T * scale + key_bias[b] + bias[b, h]) v per head, output
-    [B, Nq, H*D] rounded to bf16 (stored as out_dtype). key_bias:
-    [B, Nk] fp32 (0 or -inf); bias: [B, H, Nq, Nk] fp32."""
-    _cuda(q, k, v, key_bias, bias)
+    [B, Nq, H*D] rounded to bf16 (stored as out_dtype, or into `out`).
+    key_bias: [B, Nk] fp32 (0 or -inf); bias: [B, H, Nq, Nk] fp32. In its
+    place, `hops` [B, n_hop, Nq, Nk] bf16 with hop_mlp = (w1 [n_hop, hid],
+    b1 [hid], w2 [hid, H], b2 [H]) fp32 has the kernel form the Markov bias
+    relu(hops . w1 + b1) . w2 + b2 itself, so that it never lies in device
+    memory (head dim 32 only)."""
+    _cuda(q, k, v, key_bias, bias, hops, out)
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("q, k, v dtypes differ")
     b, nq, c = q.shape
@@ -277,14 +303,65 @@ def attention(q, k, v, *, num_heads: int, scale: float, key_bias=None,
         bias = bias.to(torch.float32).contiguous()
         if tuple(bias.shape) != (b, num_heads, nq, nk):
             raise ValueError(f"bias shape {tuple(bias.shape)}")
-    out = torch.empty((b, nq, c), dtype=out_dtype, device=q.device)
+    nhop = hid = 0
+    w1 = b1 = w2 = b2 = None
+    if hops is not None:
+        w1, b1, w2, b2 = hop_mlp
+        _cuda(w1, b1, w2, b2)
+        nhop, hid = w1.shape
+        if bias is not None or hops.dtype != torch.bfloat16 \
+                or not hops.is_contiguous() \
+                or tuple(hops.shape) != (b, nhop, nq, nk) \
+                or tuple(w2.shape) != (hid, num_heads) \
+                or any(t.dtype != torch.float32 or not t.is_contiguous()
+                       for t in (w1, b1, w2, b2)):
+            raise ValueError("in-kernel Markov bias takes a contiguous bf16 "
+                             "hop stack [B, n_hop, Nq, Nk], fp32 MLP weights "
+                             "and no other bias")
+    if out is None:
+        out = torch.empty((b, nq, c), dtype=out_dtype, device=q.device)
+    elif tuple(out.shape) != (b, nq, c) or out.stride(-1) != 1:
+        raise ValueError(f"attention out {tuple(out.shape)}")
     _call("ec_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), _dt(q),
           q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
           v.stride(1), b, num_heads, d, nq, nk, _ptr(key_bias),
           key_bias.stride(0) if key_bias is not None else 0, _ptr(bias),
           float(scale), out.data_ptr(), _dt(out), out.stride(0),
-          out.stride(1), _stream())
+          out.stride(1), _ptr(hops), nhop, hid, _ptr(w1), _ptr(b1),
+          _ptr(w2), _ptr(b2), _stream())
     return out
+
+
+def sine_feats(ct: torch.Tensor, rdt: torch.Tensor) -> torch.Tensor:
+    """Normalised (x, y) coordinates ct [R, 2] fp32 -> bf16 [R, 4F] sine
+    features [sin_y | cos_y | sin_x | cos_x], angle = (c * 2 pi) * rdt
+    with rdt [F] fp32 the reciprocal temperatures."""
+    _cuda(ct, rdt)
+    if ct.dtype != torch.float32 or rdt.dtype != torch.float32 \
+            or ct.dim() != 2 or ct.shape[1] != 2 \
+            or not ct.is_contiguous() or not rdt.is_contiguous():
+        raise ValueError("sine_feats takes contiguous fp32 [R, 2] and [F]")
+    rows, f = ct.shape[0], rdt.numel()
+    out = torch.empty((rows, 4 * f), dtype=torch.bfloat16, device=ct.device)
+    _call("ec_sine_feats", ct.data_ptr(), rdt.data_ptr(), out.data_ptr(),
+          rows, f, _stream())
+    return out
+
+
+def coord_update(ct: torch.Tensor, dd: torch.Tensor, pts: torch.Tensor,
+                 outs: torch.Tensor, eps: float = 1e-3) -> None:
+    """pts = sigmoid(inverse_sigmoid(ct) + dd[:R]), outs = sigmoid(
+    inverse_sigmoid(ct) + dd[R:]) for ct [R, 2] and dd [2R, 2], all fp32
+    and contiguous; pts and outs [R, 2] are written in place."""
+    _cuda(ct, dd, pts, outs)
+    n = ct.numel()
+    for t, size in ((ct, n), (dd, 2 * n), (pts, n), (outs, n)):
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.numel() != size:
+            raise ValueError("coord_update takes contiguous fp32 tensors "
+                             "[R, 2], [2R, 2], [R, 2], [R, 2]")
+    _call("ec_coord_update", ct.data_ptr(), dd.data_ptr(), pts.data_ptr(),
+          outs.data_ptr(), n, float(eps), _stream())
 
 
 def dropout_threshold(rate: float):

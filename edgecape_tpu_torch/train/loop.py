@@ -269,7 +269,8 @@ class Trainer:
             self._eval_estimator.load_head_state(self.model.state_dict())
         res = run_eval(self.val_ds, self._eval_estimator,
                        batch_size=max(self.cfg.train.batch_size, 1),
-                       res_folder=self.cfg.work_dir, progress=False)
+                       res_folder=self.cfg.work_dir, progress=False,
+                       cache_supports=True)
         return float(res["PCK"])
 
     # --------------------------------------------------------------- fit

@@ -231,3 +231,202 @@ def test_flash_mha_train_refuses_unsupported_shapes(dev):
         FA.flash_mha_train(*(_rn(dev, 1, 8, 2, 16) for _ in range(3)))
     with pytest.raises(ValueError):
         FA.flash_mha_train(*(_rn(dev, 1, 513, 1, 32) for _ in range(3)))
+
+
+# ------------------------------------------------- kernel-variant ops
+def _half_args(dev, c, f, seed=3):
+    g = torch.Generator().manual_seed(seed)
+
+    def mat(i, o):
+        return (torch.randn(i, o, generator=g) / math.sqrt(i)).to(dev)
+
+    def vec(n, s=0.1, shift=0.0):
+        return (torch.randn(n, generator=g) * s + shift).to(dev)
+
+    attn = (vec(c, shift=1.0), vec(c), mat(c, c), vec(c), mat(c, c), vec(c),
+            mat(c, c), vec(c), mat(c, c), vec(c), torch.ones(c, device=dev))
+    mlp = (vec(c, shift=1.0), vec(c), mat(c, f), vec(f), mat(f, c), vec(c),
+           torch.ones(c, device=dev))
+    return attn, mlp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_ln_mlp_matches_plain(dev, dtype):
+    from edgecape_tpu_torch.ops import fused_mlp as FM
+    _, mlp = _half_args(dev, 128, 200)
+    x = _rn(dev, 3, 37, 128).to(dtype)
+    n0 = FM.launches
+    out = FM.fused_ln_mlp(x, *mlp)
+    assert out.dtype == dtype and FM.launches == n0 + 1
+    _close(out, FM.fused_ln_mlp_plain(x, *mlp))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attn_block_matches_plain(dev, dtype):
+    from edgecape_tpu_torch.ops import fused_attn_block as FB
+    attn, _ = _half_args(dev, 128, 200)
+    x = _rn(dev, 3, 37, 128).to(dtype)
+    n0 = FB.launches
+    out = FB.fused_attn_block(x, *attn, num_heads=2)
+    assert out.dtype == dtype and FB.launches == n0 + 1
+    _close(out, FB.fused_attn_block_plain(x, *attn, num_heads=2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_vit_block2_bit_equal_to_two_blocks(dev, dtype):
+    from edgecape_tpu_torch.ops import fused_vit_block as FV
+    Block, DinoV2Config, _, _ = _modules()
+    cfg = DinoV2Config(embed_dim=128, num_heads=2)
+    with torch.no_grad():
+        a, b = _randomize(Block(cfg), dev, 1), _randomize(Block(cfg), dev, 2)
+        x = _rn(dev, 3, 37, 128).to(dtype)
+        n1, n2 = FV.launches, FV.launches2
+        pair = FV.fused_vit_block2(x, a, b, num_heads=2)
+        assert (FV.launches, FV.launches2) == (n1, n2 + 1)
+        two = FV.fused_vit_block(FV.fused_vit_block(x, a, num_heads=2), b,
+                                 num_heads=2)
+        assert pair.dtype == dtype and torch.equal(pair, two)
+
+
+def test_gemm_two_output_columns(dev):
+    """kpt_branch's last layer: N = 2, a sliver of one 128-wide tile."""
+    from edgecape_tpu_torch.ops import kernels as K
+    a = _rn(dev, 300, 64).to(torch.bfloat16)
+    w = _rn(dev, 2, 64, seed=1).to(torch.bfloat16)
+    bias = _rn(dev, 2, seed=2)
+    out = K.gemm(a, w, b_nk=True, bias=bias, out_dtype=torch.float32)
+    assert out.shape == (300, 2)
+    torch.testing.assert_close(out, a.float() @ w.float().t() + bias,
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_attention_forms_the_markov_bias_from_the_hop_stack(dev):
+    """The bias formed in the kernel from the bf16 hop stack against the
+    same bias computed by PyTorch and handed in as a tensor."""
+    from edgecape_tpu_torch.ops import kernels as K
+    b, n, h, d, nhop, hid = 3, 37, 4, 32, 5, 9
+    q, k, v = (_rn(dev, b, n, h * d, seed=s).to(torch.bfloat16)
+               for s in (1, 2, 3))
+    hops = torch.rand(b, nhop, n, n, generator=torch.Generator()
+                      .manual_seed(4)).to(dev).to(torch.bfloat16)
+    w1, b1 = _rn(dev, nhop, hid, seed=5), _rn(dev, hid, seed=6)
+    w2, b2 = _rn(dev, hid, h, seed=7), _rn(dev, h, seed=8)
+    kb = torch.zeros(b, n, device=dev)
+    kb[:, -5:] = -math.inf
+    hf = hops.float().permute(0, 2, 3, 1)                  # [B, N, N, hop]
+    bias = (torch.relu(hf @ w1 + b1) @ w2 + b2).permute(0, 3, 1, 2)
+    ref = K.attention(q, k, v, num_heads=h, scale=d ** -0.5, key_bias=kb,
+                      bias=bias.contiguous())
+    out = K.attention(q, k, v, num_heads=h, scale=d ** -0.5, key_bias=kb,
+                      hops=hops, hop_mlp=(w1, b1, w2, b2))
+    d_ = (out.float() - ref.float()).abs()
+    # the two sum the MLP in another order: at most a bf16 ulp of an output
+    assert d_.max().item() <= 2 ** -7 and d_.mean().item() <= 1e-4
+
+
+def test_sine_feats_and_coord_update_match_pytorch(dev):
+    from edgecape_tpu_torch.ops import kernels as K
+    from edgecape_tpu_torch.ops.fused_decoder import _rdt
+    from edgecape_tpu_torch.ops.pos_enc import inverse_sigmoid
+    g = torch.Generator().manual_seed(9)
+    ct = torch.rand(77, 2, generator=g).to(dev)
+    ct[0] = torch.tensor([0.0, 1.0])          # the clipped ends
+    rdt = _rdt(16, dev)
+    feats = K.sine_feats(ct, rdt)
+    ax = (ct[:, 0:1] * 6.283185307179586) * rdt
+    ay = (ct[:, 1:2] * 6.283185307179586) * rdt
+    ref = torch.cat([torch.sin(ay), torch.cos(ay), torch.sin(ax),
+                     torch.cos(ax)], dim=-1)
+    assert feats.shape == (77, 64) and feats.dtype == torch.bfloat16
+    # one bf16 ulp of values up to 1
+    assert (feats.float() - ref).abs().max().item() <= 2 ** -8
+    dd = torch.randn(154, 2, generator=g).to(dev)
+    pts, outs = torch.empty_like(ct), torch.empty_like(ct)
+    K.coord_update(ct, dd, pts, outs)
+    inv = inverse_sigmoid(ct)
+    torch.testing.assert_close(pts, torch.sigmoid(inv + dd[:77]), rtol=0,
+                               atol=1e-6)
+    torch.testing.assert_close(outs, torch.sigmoid(inv + dd[77:]), rtol=0,
+                               atol=1e-6)
+
+
+def _small_decoder(dev, layers, bias, seed=1):
+    from edgecape_tpu_torch.models.transformer import Decoder
+    dec = _randomize(Decoder(64, 2, 96, layers, attn_bias=bias, max_hops=4,
+                             num_feats=32, use_flash=True), dev, seed)
+    with torch.no_grad():
+        for br in dec.kpt_branches:          # small delta heads
+            br.out.weight.mul_(0.1)
+            br.out.bias.mul_(0.1)
+    return dec
+
+
+def _small_decoder_inputs(dev, b=3, k=13, hw=20, c=64):
+    g = torch.Generator().manual_seed(11)
+    valid = torch.rand(b, k, generator=g) > 0.3
+    valid[:, 0] = True
+    return ((torch.randn(b, k, c, generator=g) * 0.5).to(dev),
+            (torch.rand(b, k, 2, generator=g) * 0.8 + 0.1).to(dev),
+            (torch.randn(b, hw, c, generator=g) * 0.5).to(dev),
+            (torch.randn(hw, c, generator=g) * 0.5).to(dev), valid.to(dev),
+            torch.rand(b, k, k, 5, generator=g).to(dev),
+            (torch.rand(b, 2, k, k, generator=g) / k).to(dev))
+
+
+@pytest.mark.parametrize("bias", [True, False])
+def test_fused_decoder_stack_matches_plain(dev, bias):
+    """One layer alone against the plain version (coordinates in [0, 1]:
+    2e-3 max, 2e-4 mean, a few bf16 ulps of a token through delta heads of
+    about 0.01), then two layers against the layer chain."""
+    from edgecape_tpu_torch.ops import fused_decoder as FD
+    args = list(_small_decoder_inputs(dev))
+    if not bias:
+        args[5] = None
+    kw = dict(num_heads=2, num_feats=32)
+    with torch.no_grad():
+        one = _small_decoder(dev, 1, bias)
+        n0 = FD.stack_launches
+        o, p = FD.fused_decoder_stack(*args, one, **kw)
+        assert FD.stack_launches == n0 + 1
+        ro, rp = FD.fused_decoder_stack_plain(*args, one, **kw)
+        for a, r in ((o, ro), (p, rp)):
+            assert a.shape == (1, 3, 13, 2) and a.dtype == torch.float32
+            d = (a - r).abs()
+            assert bool(torch.isfinite(a).all())
+            assert d.max().item() <= 2e-3 and d.mean().item() <= 2e-4
+        two = _small_decoder(dev, 2, bias, seed=2)
+        x, ct, img, ipos, valid, hops, adj = args
+        outs, pts = two.decode_stacked(
+            x, img, kp_valid=valid, img_pos=ipos[None].expand(3, -1, -1),
+            initial_proposals=ct, adj=adj, hop_stack=hops)
+        n0 = FD.launches
+        inter, points = two(x, img, kp_valid=valid,
+                            img_pos=ipos[None].expand(3, -1, -1),
+                            initial_proposals=ct, adj=adj, hop_stack=hops)
+        assert FD.launches == n0 + 2
+        d = (pts[-1] - points[-1]).abs()
+        assert d.median().item() <= 1e-3 and d.max().item() <= 2e-2
+
+
+def test_decoder_stack_weight_cache_follows_the_parameters(dev):
+    """The prepared weights are rebuilt when a parameter is written (a
+    load_state_dict) or replaced (a cast of the module)."""
+    from edgecape_tpu_torch.ops import fused_decoder as FD
+    args = _small_decoder_inputs(dev)
+    kw = dict(num_heads=2, num_feats=32)
+    with torch.no_grad():
+        dec = _small_decoder(dev, 1, True)
+        first, _ = FD.fused_decoder_stack(*args, dec, **kw)
+        cached = dec._stack_cache[1]
+        FD.fused_decoder_stack(*args, dec, **kw)
+        assert dec._stack_cache[1] is cached          # reused
+        other = _small_decoder(dev, 1, True, seed=5)
+        dec.load_state_dict(other.state_dict())
+        second, _ = FD.fused_decoder_stack(*args, dec, **kw)
+        want, _ = FD.fused_decoder_stack(*args, other, **kw)
+        assert dec._stack_cache[1] is not cached
+        assert torch.equal(second, want) and not torch.equal(second, first)
+        dec.to(torch.bfloat16)
+        third, _ = FD.fused_decoder_stack(*args, dec, **kw)
+        ref, _ = FD.fused_decoder_stack_plain(*args, dec, **kw)
+        assert (third - ref).abs().max().item() <= 2e-3

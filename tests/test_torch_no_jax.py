@@ -3,7 +3,9 @@ machine with the card has none of them): a fresh interpreter with those
 modules blocked imports every module of edgecape_tpu_torch (the training
 modules included), checks that none of them pulled in the JAX package,
 and runs a tiny cached forward and two training steps of the trainer on
-the CPU, on both the strict and the kernel-op path."""
+the CPU, on both the strict and the kernel-op path; a second interpreter
+does the same for the variant switches, the uncached and debug forwards,
+the bench tool's chains and the chip smoke's module."""
 
 import os
 import subprocess
@@ -24,7 +26,8 @@ names = [m.name for m in pkgutil.walk_packages(edgecape_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 for needed in ("config", "train.state", "train.loop", "train.checkpoint",
-               "train.curriculum"):
+               "train.curriculum", "ops.kernel_config", "ops.fused_mlp",
+               "ops.fused_attn_block", "tools.bench_attn_variants"):
     assert "edgecape_tpu_torch." + needed in names, needed
 pulled = [m for m in sys.modules if m.split(".")[0] == "edgecape_tpu"]
 assert not pulled, pulled
@@ -101,5 +104,73 @@ def test_port_imports_and_runs_without_jax_flax_optax_cv2():
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().startswith("OK")
+
+
+VARIANT_SCRIPT = r"""
+import importlib, sys, types
+BLOCKED = ("jax", "flax", "optax", "orbax", "cv2")
+for m in BLOCKED:
+    sys.modules[m] = None
+import numpy as np
+import torch
+for name in ("ops.kernel_config", "ops.fused_mlp", "ops.fused_attn_block",
+             "ops.fused_vit_block", "ops.fused_decoder",
+             "tools.bench_attn_variants"):
+    importlib.import_module("edgecape_tpu_torch." + name)
+import chip_smoke                      # the smoke's module itself
+from edgecape_tpu.config import Config, ModelConfig, stage3_config
+from edgecape_tpu_torch.api import PoseEstimator
+from edgecape_tpu_torch.models.dinov2 import DinoV2Config
+from edgecape_tpu_torch.ops import kernel_config
+from edgecape_tpu_torch.tools import bench_attn_variants as bench
+k, size = 6, 28
+trunk = DinoV2Config(depth=2, embed_dim=32, num_heads=1)
+cfg = stage3_config(Config(model=ModelConfig(
+    max_kpt=k, image_size=size, heatmap_size=8, backbone_dim=32, d_model=32,
+    num_feats=16, similarity_proj_dim=32, dim_feedforward=48,
+    dynamic_proj_dim=16, nhead=2, use_flash=True, compute_dtype="bfloat16",
+    head_dtype="bfloat16")))
+est = PoseEstimator(cfg, generator=torch.Generator().manual_seed(0),
+                    device="cpu", backbone_cfg=trunk)
+rng = np.random.default_rng(0)
+f32 = np.float32
+batch = types.SimpleNamespace(
+    img_s=rng.normal(size=(3, 2, size, size, 3)).astype(f32),
+    img_q=rng.normal(size=(3, size, size, 3)).astype(f32),
+    target_s=rng.uniform(size=(3, 2, k, 8, 8)).astype(f32),
+    weight_s=np.ones((3, 2, k), f32), binary_adj=np.ones((3, k, k), f32),
+    meta={"query_center": np.full((3, 2), size / 2, f32),
+          "query_scale": np.full((3, 2), size / 200.0, f32),
+          "query_image_file": ["a", "b", "c"], "bbox_id": [0, 1, 2]})
+kernel_config.set_decoder_stack(True)
+kernel_config.set_vit_pair_blocks(True)
+pred, adj, traj = est.forward_batch(batch)
+assert pred.shape == (3, k, 2) and traj.shape == (4, 3, k, 2)
+assert torch.isfinite(traj).all()
+out = est.decode_batch(pred, batch)
+assert out["preds"].shape == (3, k, 3)
+pred, adj, sim, attn = est.forward_debug(batch)
+assert sim.shape == (3, k, 2, 2) and attn.shape == (3, 3, k, 4)
+p = bench.params(np.random.default_rng(1), c=32, device="cpu")
+x = torch.from_numpy(rng.normal(size=(2, 5, 32)).astype(f32))
+for which in bench.VARIANTS:
+    assert torch.isfinite(bench.chain(which, x, p, layers=2, heads=2)).all()
+pulled = [m for m in sys.modules if m.split(".")[0] == "edgecape_tpu"
+          and m not in ("edgecape_tpu", "edgecape_tpu.config")]
+assert not pulled, pulled
+blocked = [m for m in BLOCKED if sys.modules.get(m) is not None]
+assert not blocked, blocked
+print("OK")
+"""
+
+
+def test_variant_and_uncached_paths_run_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", VARIANT_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().startswith("OK")

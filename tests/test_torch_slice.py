@@ -192,7 +192,7 @@ def test_run_eval_metrics_equal_jax(weights, synth, tmp_path):
                             progress=False, cache_supports=True)
     tres = trunner.run_eval(ds, _torch_estimator(cfg, weights),
                             batch_size=6, res_folder=str(tmp_path / "torch"),
-                            progress=False)
+                            progress=False, cache_supports=True)
     for key in ("PCK@0.05", "PCK@0.1", "PCK@0.15", "PCK@0.2", "PCK@0.25",
                 "mPCK", "PCK", "AUC"):
         assert tres[key] == jres[key], key

@@ -269,10 +269,13 @@ def test_decoder_stops_gradient_between_layers():
 def test_fused_ops_are_not_taken_in_training_mode(monkeypatch):
     """use_flash in training mode runs the plain encoder / decoder layers
     (the fused ops detach their weights) and flash_mha_train for the
-    self-attention; in eval mode the fused ops."""
+    self-attention; in eval mode the fused ops: one fused_decoder_layer
+    per layer, or the whole decoder as fused_decoder_stack with the
+    decoder_stack switch on."""
     import edgecape_tpu_torch.models.edgecape as M
     import edgecape_tpu_torch.models.transformer as T
-    calls = {"enc": 0, "dec": 0, "train": 0, "eval": 0}
+    calls = {"enc": 0, "dec": 0, "stack": 0, "train": 0, "eval": 0}
+    monkeypatch.setenv("EDGECAPE_DEC_STACK", "0")
 
     def count(name, fn):
         def wrapped(*a, **kw):
@@ -284,6 +287,8 @@ def test_fused_ops_are_not_taken_in_training_mode(monkeypatch):
                         count("enc", M.fused_encoder_stack))
     monkeypatch.setattr(T, "fused_decoder_layer",
                         count("dec", T.fused_decoder_layer))
+    monkeypatch.setattr(T, "fused_decoder_stack",
+                        count("stack", T.fused_decoder_stack))
     monkeypatch.setattr(T, "flash_mha_train",
                         count("train", T.flash_mha_train))
     monkeypatch.setattr(T, "flash_mha", count("eval", T.flash_mha))
@@ -294,17 +299,27 @@ def test_fused_ops_are_not_taken_in_training_mode(monkeypatch):
     total, _ = loss_fn(batch)
     total.backward()
     # 2 refine + 2 encoder + 2 decoder self-attentions, the decoder's twice
-    assert calls == {"enc": 0, "dec": 0, "train": 8, "eval": 0}
+    assert calls == {"enc": 0, "dec": 0, "stack": 0, "train": 8, "eval": 0}
     enc_w = model.encoder_layers[0].linear1.weight
     dec_w = model.decoder.layers[0].ffn2.weight
     assert enc_w.grad.abs().max() > 0 and dec_w.grad.abs().max() > 0
     model.eval()
-    with torch.no_grad():
-        model(torch.zeros(B, 4, 4, 64), torch.zeros(B, 1, 4, 4, 64),
-              torch.rand(B, 1, K, HM, HM), torch.ones(B, K),
-              torch.from_numpy(_batch()["binary_adj"]))
+
+    def eval_forward():
+        with torch.no_grad():
+            model(torch.zeros(B, 4, 4, 64), torch.zeros(B, 1, 4, 4, 64),
+                  torch.rand(B, 1, K, HM, HM), torch.ones(B, K),
+                  torch.from_numpy(_batch()["binary_adj"]))
+
+    eval_forward()
     assert calls["enc"] == 1 and calls["dec"] == 2 and calls["eval"] == 2
-    assert calls["train"] == 8
+    assert calls["train"] == 8 and calls["stack"] == 0
+    monkeypatch.setenv("EDGECAPE_DEC_STACK", "1")
+    eval_forward()
+    assert calls["enc"] == 2 and calls["dec"] == 2 and calls["stack"] == 1
+    model.train()
+    loss_fn(batch)[0].backward()
+    assert calls["dec"] == 2 and calls["stack"] == 1 and calls["train"] == 16
 
 
 def test_train_step_updates_trainable_and_keeps_frozen():
