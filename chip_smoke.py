@@ -65,15 +65,33 @@ Phases (any failure exits non-zero before the last line):
    it, which it must switch off) against the same estimator on the CPU;
 8. the bench tool's four chains (tools/bench_attn_variants.py) at full
    width, which launch fused_attn_block and fused_ln_mlp;
-9. prints {"kernels": [...]} on its own line, then the result line
+9. the matmul chain of the probe tool (ops/mm_chain.py) against its
+   plain version at a small shape and at the tool's three cases, row tiles
+   cut per image (`loop`) and per group (`fold`), the two bit-equal over
+   the whole output; then the tool itself
+   (python -m edgecape_tpu_torch.tools.probe_m_fold), its three lines;
+10. the disk path: the port's generator writes a synthetic MP-100 stand-in
+   (PPM images, COCO json) to a temporary directory; the full-width
+   stage-3 model trains through `cli.train` (main with an argv) for two
+   short epochs of batch 16 with the threaded loader, then `cli.test`
+   evaluates the checkpoint that wrote, cached and with
+   --no-cache-supports. Launch counters of both runs, the files they must
+   leave (result_keypoints.json, testing_log.txt, train_log.jsonl,
+   config.json, a TensorBoard event file read back), finite metrics, the
+   same PCK from both eval loops; prints the disk eval's img/s beside its
+   host collate, dispatch and device-wait seconds, and ms per training
+   step with the loader;
+11. prints {"kernels": [...]} on its own line, then the result line
    {"ok": true, "device": {...}} last.
 Nothing here imports jax or the JAX package.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -140,6 +158,21 @@ TRAIN_B, TRAIN_STEPS, SIDE_STEPS, DROPOUT, KEEP_BAND = 16, 6, 3, 0.1, 0.005
 # about 2^-8 per product; the local soft-argmax window can move on a near
 # tie and change a keypoint's gradient, hence L2 and not max norms.
 GRAD_REL_L2, GRAD_TENSOR_REL_L2 = 0.05, 0.25
+# mm_chain against its plain version: a bf16 output after up to 6 residual
+# steps, each of which rounds h and x to bf16; the two sum in different
+# orders, so single roundings flip (one bf16 ulp is 2^-8 of a value) and
+# are carried through the later steps. Max error within 2^-6 of the
+# output's largest magnitude, mean error within 0.5% of its mean magnitude
+# (measured: 0.0047 and 0.0021).
+MM_MAX_REL, MM_MEAN_REL = 2.0 ** -6, 5e-3
+MM_SMALL = ("small b=6 g=3 n=70 c=256 f=192 reps=3", 6, 3, 70, 256, 192, 3)
+# Disk path: classes and images per class of the synthetic stand-in (256 px
+# sources), test episodes per class, training epochs (the first one warms
+# up), the bound on the PCK difference between the cached loop (bf16 head)
+# and the uncached one (fp32 head) on the same checkpoint and episodes
+# (measured 0.0013 over 480 query images).
+DISK_CLASSES, DISK_IMAGES, DISK_EPISODES, DISK_EPOCHS = 8, 16, 4, 2
+DISK_PCK_TOL = 0.01
 
 
 def fail(msg: str) -> None:
@@ -259,19 +292,13 @@ def check_op(entries, bad, name, replaces, op_src, out, ref, kern, plain,
 
 
 def main_path_config():
-    """The stage-3 eval configuration of the main path (the fields of
-    edgecape_tpu.config's ModelConfig/DataConfig that the port reads)."""
-    model = types.SimpleNamespace(
-        backbone_dim=384, image_size=SIZE, patch_size=14, d_model=256,
-        nhead=8, num_encoder_layers=3, num_decoder_layers=3,
-        dim_feedforward=384, dropout=0.1, similarity_proj_dim=256, dynamic_proj_dim=128,
-        num_feats=128, max_kpt=K, heatmap_size=64, skeleton_num_layers=3,
-        use_zero_conv=True, adj_normalization=True, learn_skeleton=True,
-        attn_bias=True, max_hops=4, compute_dtype="bfloat16",
-        head_dtype="bfloat16", use_flash=True)
-    test_data = types.SimpleNamespace(use_udp=False, unbiased_encoding=False,
-                                      sigma=1.0)
-    return types.SimpleNamespace(model=model, test_data=test_data)
+    """The stage-3 eval configuration of the main path: learned skeleton
+    and Markov bias, K=100, 224 px, bf16 compute and head dtype."""
+    from edgecape_tpu_torch.config import Config, ModelConfig
+    return Config(model=ModelConfig(
+        image_size=SIZE, max_kpt=K, learn_skeleton=True, attn_bias=True,
+        max_hops=4, compute_dtype="bfloat16", head_dtype="bfloat16",
+        use_flash=True))
 
 
 # ------------------------------------------------------------ phase 2
@@ -787,24 +814,17 @@ def train_config(work_dir):
     """Stage-1 ('base') training configuration at full width; the stage-2
     and stage-3 configurations are derived from it by the port's
     stage2_config / stage3_config."""
+    from edgecape_tpu_torch import config as C
     cfg = main_path_config()
-    m = cfg.model
-    m.compute_dtype = m.head_dtype = "float32"   # the head trains in fp32
-    m.learn_skeleton = m.attn_bias = False
-    m.masked_supervision, m.masking_ratio = False, 0.5
-    m.use_bias_attn_module, m.model_freeze = False, None
-    m.with_heatmap_loss, m.heatmap_loss_weight = False, 2.0
-    m.skeleton_loss_weight, m.train_backbone_fast = 1.0, True
-    m.dropout = DROPOUT
-    cfg.train_data = types.SimpleNamespace(use_udp=False,
-                                           unbiased_encoding=False,
-                                           sigma=1.0)
-    cfg.train = types.SimpleNamespace(
+    # the head trains in fp32
+    cfg.model = C.replace(cfg.model, compute_dtype="float32",
+                          head_dtype="float32", learn_skeleton=False,
+                          attn_bias=False, dropout=DROPOUT)
+    cfg.train = C.TrainConfig(
         total_epochs=1, lr=1e-4, warmup_iters=2, warmup_ratio=0.001,
-        lr_step=(160, 180), lr_gamma=0.1, batch_size=TRAIN_B,
-        eval_interval=1000, ckpt_interval=1000, log_interval=1, seed=SEED,
-        grad_clip=None, num_workers=1)
-    cfg.work_dir, cfg.load_from, cfg.resume_from = work_dir, None, None
+        batch_size=TRAIN_B, eval_interval=1000, ckpt_interval=1000,
+        log_interval=1, seed=SEED, num_workers=1, tensorboard=False)
+    cfg.work_dir = work_dir
     return cfg
 
 
@@ -858,8 +878,8 @@ class EvalEpisodes:
     name2id = {}
 
     def __init__(self, rng, groups=4, queries=3, shots=1):
-        self.cfg = types.SimpleNamespace(
-            pck_threshold_list=(0.05, 0.1, 0.15, 0.2, 0.25))
+        from edgecape_tpu_torch.config import DataConfig
+        self.cfg = DataConfig()
         self.queries, self.shots = queries, shots
         adj = np.zeros((K, K), np.float32)
         for i in range(K - 1):
@@ -1633,6 +1653,247 @@ def bench_tool(entries, power):
     entries["fused_ln_mlp"]["launches"] = counts["fused_ln_mlp"]
 
 
+# ------------------------------------------------------------ phase 9
+def mm_chain_checks(dev, entries, power):
+    """ops.mm_chain against mm_chain_plain at a small shape and the probe
+    tool's three cases, `loop` and `fold`."""
+    import edgecape_tpu_torch.ops.mm_chain as MC
+    from edgecape_tpu_torch.tools import probe_m_fold as P
+
+    bad = []
+    for ci, (label, b, g, n, c, f, reps) in enumerate([MM_SMALL] + P.CASES):
+        x, w1, w2 = P.inputs(b, n, c, f, dev)
+        n0 = MC.launches
+        outs = {fold: MC.mm_chain(x, w1, w2, reps, g, fold)
+                for fold in (False, True)}
+        counted = MC.launches - n0
+        torch.cuda.synchronize()
+        ref = MC.mm_chain_plain(x, w1, w2, reps, g, True).float()
+        bitsame = torch.equal(outs[False], outs[True])
+        d = (outs[True].float() - ref).abs()
+        err, mean = d.max().item(), d.mean().item()
+        top, mean_mag = ref.abs().max().item(), ref.abs().mean().item()
+        ok = (bitsame and counted == 2 and err <= MM_MAX_REL * top
+              and mean <= MM_MEAN_REL * mean_mag
+              and bool(torch.isfinite(outs[True].float()).all()))
+        ms = {fold: time_ms(lambda: MC.mm_chain(x, w1, w2, reps, g, fold))
+              for fold in (False, True)}
+        plain_ms = time_ms(lambda: MC.mm_chain_plain(x, w1, w2, reps, g,
+                                                     True), reps=3, warmup=1)
+        flops = 4.0 * b * n * c * f * reps
+        bnd = bound(nbytes(x, x, w1, w2), flops)
+        print(f"[op] mm_chain {label}: shape {tuple(ref.shape)} max_abs_err "
+              f"{err:.4g} (tol {MM_MAX_REL:.4g} * max|ref| = "
+              f"{MM_MAX_REL * top:.4g}) mean_abs_err {mean:.4g} (tol "
+              f"{MM_MEAN_REL} * mean|ref| = {MM_MEAN_REL * mean_mag:.4g}) "
+              f"loop == fold bit for bit: {bitsame}; kernel loop "
+              f"{ms[False]:.3f} ms ({flops / ms[False] / 1e9:.1f} TFLOP/s) "
+              f"fold {ms[True]:.3f} ms ({flops / ms[True] / 1e9:.1f} "
+              f"TFLOP/s) plain {plain_ms:.3f} ms bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}) library none; {counted} launches counted for two "
+              f"calls on {power} {'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append(label)
+        if ci == 1:       # the table's row: the backbone case, g = 2, fold
+            entries["mm_chain"] = {
+                "name": "mm_chain", "route": "cuda",
+                "source": "edgecape_tpu_torch/csrc/mm_chain.cu",
+                "op": "edgecape_tpu_torch/ops/mm_chain.py",
+                "replaces": "scripts/probe_m_fold.py:73", "launches": 0,
+                "max_abs_err": err, "ms": ms[True], "loop_ms": ms[False],
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": None}
+    if bad:
+        fail("mm_chain disagrees with its plain version: " + ", ".join(bad))
+
+
+def probe_tool(entries, power):
+    """python -m edgecape_tpu_torch.tools.probe_m_fold, as a user runs it."""
+    import edgecape_tpu_torch.ops.mm_chain as MC
+    from edgecape_tpu_torch.tools import probe_m_fold as P
+
+    MC.launches = 0
+    print("[probe] python -m edgecape_tpu_torch.tools.probe_m_fold", flush=True)
+    results = P.main([])
+    expect = len(P.CASES) * 2 * (1 + P.RUNS * P.ITERS)
+    print(f"[probe] {len(results)} cases on {power}; mm_chain launches "
+          f"{MC.launches} expected {expect}", flush=True)
+    for r in results:
+        print(f"[probe] {r['label']}: loop {r['loop_ms']:.3f} ms fold "
+              f"{r['fold_ms']:.3f} ms ratio {r['speedup']:.4f} bitsame "
+              f"{r['bitsame']}", flush=True)
+    if len(results) != len(P.CASES) or MC.launches != expect or not all(
+            r["bitsame"] and r["finite"] and r["loop_ms"] > 0
+            and r["fold_ms"] > 0 for r in results):
+        fail("the probe tool did not run as it should")
+    entries["mm_chain"]["launches"] = MC.launches
+
+
+# ----------------------------------------------------------- phase 10
+DISK_CONFIG = """from edgecape_tpu_torch.config import (Config, DataConfig, ModelConfig,
+                                       TrainConfig, stage3_config)
+
+_data = dict(ann_file={ann!r}, img_prefix={img!r}, num_shots=1,
+             image_size={size}, heatmap_size=64, max_kpt={k}, sigma=1.0)
+config = stage3_config(Config(
+    model=ModelConfig(image_size={size}, max_kpt={k}, use_flash=True,
+                      dropout={dropout}),
+    train_data=DataConfig(**_data),
+    val_data=DataConfig(),
+    test_data=DataConfig(num_queries={queries}, num_episodes={episodes},
+                         **_data),
+    train=TrainConfig(total_epochs={epochs}, lr=1e-4, warmup_iters=2,
+                      batch_size={batch}, eval_interval=1000,
+                      ckpt_interval={epochs}, log_interval=1, seed={seed},
+                      num_workers=4),
+    work_dir={work!r}))
+"""
+
+
+def disk_path(dev, entries, power):
+    """cli.train then cli.test on files on disk, at full width."""
+    from edgecape_tpu_torch.cli import test as cli_test
+    from edgecape_tpu_torch.cli import train as cli_train
+    from edgecape_tpu_torch.data import synthetic
+    from edgecape_tpu_torch.models.convert import (init_params,
+                                                   redraw_zero_inits)
+    from edgecape_tpu_torch.ops import kernel_config
+    from edgecape_tpu_torch.utils.tb_writer import read_scalars
+    import edgecape_tpu_torch.ops.flash_attention as FA
+    import edgecape_tpu_torch.ops.fused_decoder as FD
+    import edgecape_tpu_torch.ops.fused_encoder as FE
+    import edgecape_tpu_torch.ops.fused_vit_block as FV
+
+    def reset():
+        FA.launches_fwd = FA.launches_bwd = FA.launches = 0
+        FV.launches = FV.launches2 = 0
+        FE.launches = FE.stack_launches = 0
+        FD.launches = FD.stack_launches = 0
+
+    def counts():
+        return {"fused_vit_block": FV.launches,
+                "fused_vit_block2": FV.launches2,
+                "fused_encoder_stack": FE.stack_launches,
+                "fused_decoder_layer": FD.launches,
+                "fused_decoder_stack": FD.stack_launches,
+                "flash_mha": FA.launches,
+                "flash_mha_train_fwd": FA.launches_fwd,
+                "flash_mha_train_bwd": FA.launches_bwd}
+
+    # the switches as a user finds them (the measured-defaults file)
+    kernel_config.set_decoder_stack(None)
+    kernel_config.set_vit_pair_blocks(None)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            ann = synthetic.generate(
+                os.path.join(tmp, "data"), num_classes=DISK_CLASSES,
+                images_per_class=DISK_IMAGES, image_size=256, seed=SEED)
+            work = os.path.join(tmp, "work")
+            cfg_path = os.path.join(tmp, "disk_config.py")
+            with open(cfg_path, "w") as f:
+                f.write(DISK_CONFIG.format(
+                    ann=ann, img=os.path.join(tmp, "data", "images"),
+                    size=SIZE, k=K, dropout=DROPOUT, queries=QUERIES,
+                    episodes=DISK_EPISODES, epochs=DISK_EPOCHS, batch=TRAIN_B,
+                    seed=SEED, work=work))
+            gen = torch.Generator().manual_seed(SEED)
+            model_cfg = main_path_config().model
+            bb, head = init_params(gen, model_cfg)
+            redraw_zero_inits(bb, head, gen)
+            bb_path = os.path.join(tmp, "backbone.pt")
+            torch.save({"backbone": bb}, bb_path)
+            print(f"[disk] stand-in: {DISK_CLASSES} classes x {DISK_IMAGES} "
+                  f"PPM images of 256 px, written in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+            # --- training from disk
+            reset()
+            trainer = cli_train.main(["--config", cfg_path, "--backbone-ckpt",
+                                      bb_path, "--seed", str(SEED)])
+            torch.cuda.synchronize()
+            got = counts()
+            steps = trainer.step
+            print(f"[disk] cli.train: {steps} steps of batch {TRAIN_B} in "
+                  f"{DISK_EPOCHS} epochs; launches {got}", flush=True)
+            if steps < 4 or got["fused_vit_block"] != 12 * steps or \
+                    min(got["flash_mha_train_fwd"],
+                        got["flash_mha_train_bwd"]) < steps:
+                fail("cli.train did not run through the training kernels")
+            with open(os.path.join(work, "train_log.jsonl")) as f:
+                log = [json.loads(line) for line in f]
+            tb_files = glob.glob(os.path.join(work, "tf_logs", "events.*"))
+            scalars = read_scalars(tb_files[0]) if tb_files else []
+            tags = {tag for tag, _, _ in scalars}
+            ckpt = os.path.join(work, f"epoch_{DISK_EPOCHS}")
+            ok = (len(log) == DISK_EPOCHS and os.path.exists(ckpt)
+                  and os.path.exists(os.path.join(work, "config.json"))
+                  and "train/loss" in tags and "train/lr" in tags
+                  and all(np.isfinite(e["train_loss"]) for e in log)
+                  and all(np.isfinite(v) for _, v, _ in scalars))
+            per_epoch = steps // DISK_EPOCHS
+            print(f"[disk] train_log.jsonl {len(log)} epochs, losses "
+                  f"{[e['train_loss'] for e in log]}; TensorBoard "
+                  f"{len(scalars)} scalars read back, tags {sorted(tags)}; "
+                  f"epoch {DISK_EPOCHS}: "
+                  f"{log[-1]['time'] * 1e3 / per_epoch:.1f} ms/step with the "
+                  f"loader over {per_epoch} steps on {power} (information "
+                  f"only) {'OK' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail("cli.train did not leave its files")
+
+            # --- eval from disk: cached, then one episode per row
+            results = {}
+            for flags in ([], ["--no-cache-supports"]):
+                reset()
+                res = cli_test.main(
+                    [cfg_path, ckpt, "--backbone-ckpt", bb_path, "--work-dir",
+                     os.path.join(work, "eval" + str(len(flags))),
+                     "--cfg-options", "model.compute_dtype=bfloat16",
+                     "model.head_dtype=bfloat16"] + flags)
+                torch.cuda.synchronize()
+                got = counts()
+                results[bool(flags)] = res
+                print(f"[disk] cli.test {' '.join(flags) or '(cached)'}: "
+                      f"launches {got}", flush=True)
+                dec = got["fused_decoder_stack"] + got["fused_decoder_layer"]
+                vit = got["fused_vit_block"] + got["fused_vit_block2"]
+                if min(vit, got["fused_encoder_stack"], dec,
+                       got["flash_mha"]) <= 0 or \
+                        got["flash_mha_train_fwd"] or \
+                        got["flash_mha_train_bwd"]:
+                    fail("cli.test did not run through the eval kernels")
+                wd = os.path.join(work, "eval" + str(len(flags)))
+                with open(os.path.join(wd, "result_keypoints.json")) as f:
+                    recs = json.load(f)
+                n_img = DISK_CLASSES * DISK_EPISODES * QUERIES
+                if len(recs) != n_img or not os.path.exists(
+                        os.path.join(wd, "testing_log.txt")) or not all(
+                        np.isfinite(v) for v in res.values()):
+                    fail("cli.test did not leave its files or gave "
+                         "metrics that are not finite")
+            c, u = results[False], results[True]
+            worst = max(abs(c[k] - u[k]) for k in c if k.startswith("PCK")
+                        or k == "mPCK")
+            ok = worst <= DISK_PCK_TOL
+            print(f"[disk] {n_img} query images: cached "
+                  f"{c['images_per_sec']} img/s (host collate "
+                  f"{c['host_collate_seconds']} s, dispatch "
+                  f"{c['dispatch_seconds']} s, device wait "
+                  f"{c['device_wait_seconds']} s of {c['eval_seconds']} s), "
+                  f"uncached {u['images_per_sec']} img/s on {power} "
+                  f"(information only); PCK@0.2 cached {c['PCK']:.4f} "
+                  f"uncached {u['PCK']:.4f}, mPCK {c['mPCK']:.4f} / "
+                  f"{u['mPCK']:.4f}, NME {c['NME']:.4f} / {u['NME']:.4f}; "
+                  f"largest PCK difference {worst:.4g} (tol {DISK_PCK_TOL}) "
+                  f"{'OK' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail("the cached and the uncached disk eval disagree")
+    finally:
+        kernel_config.set_decoder_stack(False)
+        kernel_config.set_vit_pair_blocks(False)
+
+
 def main() -> None:
     tuned_out = None
     if len(sys.argv) == 3 and sys.argv[1] == "--write-tuned":
@@ -1679,6 +1940,11 @@ def main() -> None:
     del est
     torch.cuda.empty_cache()
     bench_tool(entries, power)
+    torch.cuda.empty_cache()
+    mm_chain_checks(dev, entries, power)
+    probe_tool(entries, power)
+    torch.cuda.empty_cache()
+    disk_path(dev, entries, power)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(power, flush=True)
     print(json.dumps({"ok": True, "device": {

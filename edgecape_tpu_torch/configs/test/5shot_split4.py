@@ -1,0 +1,3 @@
+from edgecape_tpu_torch.configs._base import test_config
+
+config = test_config(split=4, shots=5)

@@ -1,0 +1,3 @@
+from edgecape_tpu_torch.configs._base import train_config
+
+config = train_config(split=4, shots=1)

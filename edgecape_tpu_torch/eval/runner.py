@@ -23,12 +23,14 @@ from __future__ import annotations
 import json
 import os
 import time
+import warnings
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from ..ops.affine import transform_preds_batch
+from . import metrics
 
 
 def make_chunks(groups, batch_size: int):
@@ -233,6 +235,21 @@ def compute_metrics(dataset, records, metric_list) -> OrderedDict:
         info["mPCK"] = mpck / len(pck_list)
         info["PCK"] = info[f"PCK@{0.2}"] if 0.2 in pck_list else \
             info[f"PCK@{pck_list[-1]}"]
+    if "PCKh" in metric_list:
+        # head-box normalisation; without any head_size the keys are left
+        # out rather than reported as 0
+        hs = np.array([[dataset.db[pair[-1]].get("head_size", 0.0)] * 2
+                       for pair in dataset.paired_samples], np.float32)
+        if (hs > 0).any():
+            dh, hvalid, hsafe = _distances(preds, gts, masks, hs)
+            for t in pck_list:
+                info[f"PCKh@{t}"] = float(np.mean(
+                    ((dh < t) & hvalid).sum(axis=-1) / hsafe))
+            info["PCKh"] = info[f"PCKh@{0.2}"] if 0.2 in pck_list else \
+                info[f"PCKh@{pck_list[-1]}"]
+        else:
+            warnings.warn("PCKh requested but no record has head_size>0; "
+                          "omitting PCKh metrics", RuntimeWarning)
     if "NME" in metric_list:
         info["NME"] = float(np.mean(np.where(valid, d, 0.0).sum(axis=-1)
                                     / safe))
@@ -244,6 +261,39 @@ def compute_metrics(dataset, records, metric_list) -> OrderedDict:
         de = np.where(masks, np.linalg.norm(preds - gts, axis=-1), 0.0)
         info["EPE"] = float(np.mean(de.sum(axis=-1)
                                     / np.maximum(masks.sum(axis=-1), 1)))
+    return info
+
+
+def compute_metrics_reference(dataset, records, metric_list) -> OrderedDict:
+    """The per-record oracle of compute_metrics: records x thresholds
+    single-sample calls into eval/metrics.py."""
+    assert len(records) == len(dataset.paired_samples)
+    pck_list = list(dataset.cfg.pck_threshold_list)
+    preds, gts, masks, thr = _gather_eval_arrays(dataset, records)
+    rows = list(zip(preds, gts, masks, thr))
+    info = OrderedDict()
+    if "PCK" in metric_list:
+        mpck = 0.0
+        for t_ in pck_list:
+            v = float(np.mean([metrics.pck_accuracy(
+                o[None], g[None], m[None], t_, t[None])[1]
+                for o, g, m, t in rows]))
+            info[f"PCK@{t_}"] = v
+            mpck += v
+        info["mPCK"] = mpck / len(pck_list)
+        info["PCK"] = info[f"PCK@{0.2}"] if 0.2 in pck_list else \
+            info[f"PCK@{pck_list[-1]}"]
+    if "NME" in metric_list:
+        info["NME"] = float(np.mean([
+            metrics.nme(o[None], g[None], m[None], t[None])
+            for o, g, m, t in rows]))
+    if "AUC" in metric_list:
+        info["AUC"] = float(np.mean([
+            metrics.auc(o[None], g[None], m[None], t[0])
+            for o, g, m, t in rows]))
+    if "EPE" in metric_list:
+        info["EPE"] = float(np.mean([
+            metrics.epe(o[None], g[None], m[None]) for o, g, m, _ in rows]))
     return info
 
 

@@ -14,12 +14,17 @@ the flax initialisers, normal(0.02) position embedding, LayerScale at
 `redraw_zero_inits` replaces those zero / 1e-5 initialisations with
 seeded random values, so that a check of the forward exercises every
 part of it.
+
+`load_backbone` reads backbone weights from disk: a torch-hub DINOv2
+state dict (`.pth`), converted like the JAX package's
+`dinov2.convert_torch_state_dict`, or a checkpoint file of the port.
 """
 
 from __future__ import annotations
 
 import math
 import re
+from typing import Optional
 
 import numpy as np
 import torch
@@ -126,3 +131,82 @@ def redraw_zero_inits(backbone_sd: dict, head_sd: dict,
             head_sd[name] = rn(v, 0.5)
         elif name.endswith("zero_conv_b"):
             head_sd[name] = rn(v, 0.1)
+
+
+def resize_pos_embed(pos_embed: torch.Tensor, src_grid: int, dst_hw,
+                     offset: float = 0.1) -> torch.Tensor:
+    """Bicubic-resize the patch position grid [1, 1 + g*g, C], keeping
+    the cls slot: DINOv2's interpolate_pos_encoding (scale_factor =
+    (dst + 0.1) / src, bicubic, antialias off)."""
+    dst_h, dst_w = dst_hw
+    cls_tok, patch = pos_embed[:, :1], pos_embed[:, 1:]
+    dim = patch.shape[-1]
+    if src_grid * src_grid != patch.shape[1]:
+        raise ValueError("pos_embed is not a square grid")
+    if (dst_h, dst_w) == (src_grid, src_grid):
+        return pos_embed
+    grid = patch.reshape(1, src_grid, src_grid, dim).permute(0, 3, 1, 2)
+    out = torch.nn.functional.interpolate(
+        grid.float(), mode="bicubic", antialias=False,
+        scale_factor=(float(dst_h + offset) / src_grid,
+                      float(dst_w + offset) / src_grid))
+    if tuple(out.shape[-2:]) != (dst_h, dst_w):
+        raise ValueError(f"resized position grid is {tuple(out.shape[-2:])}")
+    resized = out.permute(0, 2, 3, 1).reshape(1, dst_h * dst_w, dim)
+    return torch.cat([cls_tok, resized], dim=1)
+
+
+def convert_hub_state_dict(sd: dict, image_size: int = 224,
+                           cfg: DinoV2Config = VIT_S14) -> dict:
+    """torch-hub DINOv2 state dict (torch tensors or numpy arrays) -> the
+    state dict of the port's DinoViT at `image_size`."""
+    def t(key):
+        v = sd[key]
+        if not torch.is_tensor(v):
+            v = torch.from_numpy(np.asarray(v))
+        return v.detach().to("cpu", torch.float32)
+
+    g = image_size // cfg.patch_size
+    # conv [C, 3, P, P] -> Linear weight [C, P*P*3] over patches flattened
+    # in (ph, pw, 3) order
+    conv_w = t("patch_embed.proj.weight")
+    out = {
+        "cls_token": t("cls_token"),
+        "pos_embed": resize_pos_embed(t("pos_embed"), cfg.pretrain_grid,
+                                      (g, g)),
+        "patch_embed.weight": conv_w.permute(0, 2, 3, 1).reshape(
+            cfg.embed_dim, -1),
+        "patch_embed.bias": t("patch_embed.proj.bias"),
+        "norm.weight": t("norm.weight"), "norm.bias": t("norm.bias"),
+    }
+    hub_names = {"norm1": "norm1", "norm2": "norm2", "attn.qkv": "attn.qkv",
+                 "attn.proj": "attn.proj", "mlp_fc1": "mlp.fc1",
+                 "mlp_fc2": "mlp.fc2"}
+    for i in range(cfg.depth):
+        p = f"blocks.{i}."
+        for ours, theirs in hub_names.items():
+            for leaf in ("weight", "bias"):
+                out[f"{p}{ours}.{leaf}"] = t(f"{p}{theirs}.{leaf}")
+        out[p + "ls1"] = t(p + "ls1.gamma")
+        out[p + "ls2"] = t(p + "ls2.gamma")
+    return {k: v.contiguous().clone() for k, v in out.items()}
+
+
+def load_backbone(path: Optional[str], image_size: int,
+                  cfg: DinoV2Config = VIT_S14) -> Optional[dict]:
+    """Backbone state dict for DinoViT from a torch-hub DINOv2 `.pth`
+    (converted on the fly) or a file of the port holding a backbone state
+    dict (optionally under the key "backbone"). None -> None: the caller
+    falls back to random weights, with a warning."""
+    if path is None:
+        return None
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("state_dict", "model", "backbone"):
+        if key in sd and isinstance(sd[key], dict):
+            sd = sd[key]
+    if "patch_embed.proj.weight" in sd:
+        return convert_hub_state_dict(sd, image_size, cfg)
+    if "patch_embed.weight" not in sd:
+        raise ValueError(f"{path}: neither a torch-hub DINOv2 state dict nor "
+                         "a backbone state dict of this package")
+    return {k: v.to(torch.float32) for k, v in sd.items()}

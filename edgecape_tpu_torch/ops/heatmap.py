@@ -1,10 +1,13 @@
-"""On-device Gaussian keypoint-heatmap rendering; counterpart of the
-`render_*_jnp` functions of edgecape_tpu/ops/heatmap.py. All three
-encodings the cached eval can select are here: MSRA (the default),
-MSRA unbiased and UDP."""
+"""Gaussian keypoint-heatmap rendering; counterpart of
+edgecape_tpu/ops/heatmap.py. All three encodings are here, MSRA (the
+default), MSRA unbiased and UDP, each twice: `render_*` on tensors (the
+`render_*_jnp` device functions of the JAX module, used by the cached
+eval) and `render_*_np` on numpy arrays, one keypoint set at a time (the
+JAX module's host renderers, called by data/pipeline.py)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -87,3 +90,133 @@ def render_udp(joints_xy, visible, heatmap_size, image_size, sigma: float):
     draw = (weight > 0.5)[..., None, None]
     return (g * _window(xs, ys, ul, br) * draw).to(torch.float32), \
         weight[..., None]
+
+
+# ------------------------------------------------ host (numpy) renderers
+def _msra_centers(joints_xy: np.ndarray, feat_stride: np.ndarray) -> np.ndarray:
+    # int(v + 0.5) truncates toward zero after adding 0.5.
+    return np.trunc(joints_xy / feat_stride + 0.5).astype(np.int64)
+
+
+def render_msra_np(joints_xy, visible, heatmap_size, image_size, sigma: float):
+    """MSRA truncated-gaussian targets, vectorized.
+
+    Args:
+      joints_xy: [K, 2] keypoint coords in input-image pixels.
+      visible: [K] visibility (>0 means labeled).
+      heatmap_size: (W, H).
+      image_size: (W, H) of the model input.
+      sigma: gaussian sigma in heatmap pixels.
+
+    Returns:
+      target [K, H, W] float32, weight [K, 1] float32.
+
+    Semantics:
+    center snapped to int(x/stride + 0.5); gaussian truncated to a
+    (6*sigma+1)^2 window with peak value 1; weight zeroed when the window
+    falls fully outside the map.
+    """
+    W, H = int(heatmap_size[0]), int(heatmap_size[1])
+    joints_xy = np.asarray(joints_xy, dtype=np.float32)
+    K = joints_xy.shape[0]
+    feat_stride = np.asarray(image_size, dtype=np.float32) / np.array(
+        [W, H], dtype=np.float32)
+    tmp_size = sigma * 3
+
+    mu = _msra_centers(joints_xy[:, :2], feat_stride)  # [K, 2] int
+    # window bounds: int() truncation toward zero of mu -/+ ts —
+    # matters when 3*sigma is fractional (asymmetric window, and the
+    # gaussian anchors at ul + (2*ts+1)//2 rather than at mu)
+    ul = np.trunc(mu - tmp_size)
+    br = np.trunc(mu + tmp_size + 1)
+    in_bounds = ~((ul[:, 0] >= W) | (ul[:, 1] >= H) | (br[:, 0] < 0)
+                  | (br[:, 1] < 0))
+
+    weight = (np.asarray(visible, dtype=np.float32).reshape(K)
+              * in_bounds.astype(np.float32)).reshape(K, 1)
+
+    x0 = (2.0 * tmp_size + 1.0) // 2.0
+    center = ul + x0                                      # [K, 2]
+    xs = np.arange(W, dtype=np.float32)[None, None, :]   # [1, 1, W]
+    ys = np.arange(H, dtype=np.float32)[None, :, None]   # [1, H, 1]
+    dx = xs - center[:, 0].astype(np.float32)[:, None, None]
+    dy = ys - center[:, 1].astype(np.float32)[:, None, None]
+    g = np.exp(-(dx * dx + dy * dy) / (2.0 * sigma * sigma))
+    window = ((xs >= ul[:, 0][:, None, None])
+              & (xs < br[:, 0][:, None, None])
+              & (ys >= ul[:, 1][:, None, None])
+              & (ys < br[:, 1][:, None, None]))
+    draw = (weight[:, 0] > 0.5)[:, None, None]
+    target = (g * window * draw).astype(np.float32)
+    return target, weight.astype(np.float32)
+
+
+def render_udp_np(joints_xy, visible, heatmap_size, image_size, sigma: float):
+    """UDP GaussianHeatMap targets: continuous sub-pixel center, stride
+    (size-1)/(hsize-1). Args/returns match render_msra_np."""
+    W, H = int(heatmap_size[0]), int(heatmap_size[1])
+    joints_xy = np.asarray(joints_xy, dtype=np.float32)
+    K = joints_xy.shape[0]
+    feat_stride = ((np.asarray(image_size, dtype=np.float32) - 1.0)
+                   / (np.array([W, H], dtype=np.float32) - 1.0))
+    tmp_size = sigma * 3
+
+    mu_ac = joints_xy[:, :2] / feat_stride          # continuous center
+    mu = np.trunc(mu_ac + 0.5)                      # snapped (window anchor)
+    ul = np.trunc(mu - tmp_size)
+    br = np.trunc(mu + tmp_size + 1)
+    in_bounds = ~((ul[:, 0] >= W) | (ul[:, 1] >= H) | (br[:, 0] < 0)
+                  | (br[:, 1] < 0))
+    weight = (np.asarray(visible, dtype=np.float32).reshape(K)
+              * in_bounds.astype(np.float32)).reshape(K, 1)
+
+    # gaussian anchor:
+    # x0 = size//2 + (mu_ac - mu) relative to ul
+    x0 = (2.0 * tmp_size + 1.0) // 2.0
+    center = ul + x0 + (mu_ac - mu)
+    xs = np.arange(W, dtype=np.float32)[None, None, :]
+    ys = np.arange(H, dtype=np.float32)[None, :, None]
+    dx = xs - center[:, 0][:, None, None]
+    dy = ys - center[:, 1][:, None, None]
+    g = np.exp(-(dx * dx + dy * dy) / (2.0 * sigma * sigma))
+    window = ((xs >= ul[:, 0][:, None, None])
+              & (xs < br[:, 0][:, None, None])
+              & (ys >= ul[:, 1][:, None, None])
+              & (ys < br[:, 1][:, None, None]))
+    draw = (weight[:, 0] > 0.5)[:, None, None]
+    target = (g * window * draw).astype(np.float32)
+    return target, weight.astype(np.float32)
+
+
+def render_msra_unbiased_np(joints_xy, visible, heatmap_size, image_size,
+                         sigma: float):
+    """MSRA targets with `unbiased_encoding=True` (Dark-pose style): the
+    gaussian is centered at
+    the CONTINUOUS sub-pixel coordinate, drawn over the full map (no
+    window truncation), and the in-bounds check uses float window bounds
+    (no int() snapping).
+
+    Args/returns match render_msra_np.
+    """
+    W, H = int(heatmap_size[0]), int(heatmap_size[1])
+    joints_xy = np.asarray(joints_xy, dtype=np.float32)
+    K = joints_xy.shape[0]
+    feat_stride = np.asarray(image_size, dtype=np.float32) / np.array(
+        [W, H], dtype=np.float32)
+    tmp_size = sigma * 3
+
+    mu = joints_xy[:, :2] / feat_stride               # [K, 2] continuous
+    ul = mu - tmp_size                                # float bounds
+    br = mu + tmp_size + 1
+    in_bounds = ~((ul[:, 0] >= W) | (ul[:, 1] >= H) | (br[:, 0] < 0)
+                  | (br[:, 1] < 0))
+    weight = (np.asarray(visible, dtype=np.float32).reshape(K)
+              * in_bounds.astype(np.float32)).reshape(K, 1)
+
+    xs = np.arange(W, dtype=np.float32)[None, None, :]
+    ys = np.arange(H, dtype=np.float32)[None, :, None]
+    dx = xs - mu[:, 0][:, None, None]
+    dy = ys - mu[:, 1][:, None, None]
+    g = np.exp(-(dx * dx + dy * dy) / (2.0 * sigma * sigma))
+    draw = (weight[:, 0] > 0.5)[:, None, None]
+    return (g * draw).astype(np.float32), weight.astype(np.float32)

@@ -1,13 +1,14 @@
-"""Build, load and call the hand-written CUDA kernels
-(`csrc/kernels.cu`): the building blocks of the eval ops, the glue
-kernels of the decoder stack and the training attention's forward /
-backward pair.
+"""Build, load and call the hand-written CUDA kernels (`csrc/*.cu`):
+in `kernels.cu` the building blocks of the eval ops, the glue kernels of
+the decoder stack and the training attention's forward / backward pair,
+in `mm_chain.cu` the matmul chain of the probe tool.
 
-The sources are compiled with `nvcc` for `sm_90a` into a shared library
-with a plain C interface at first use, and loaded with ctypes. The build
-lands in `edgecape_tpu_torch/_build/` (or `$EDGECAPE_TORCH_BUILD_DIR`),
-named by a hash of the sources and flags, so an unchanged tree reuses it
-and an edited source rebuilds. Nothing here runs at import time: the CPU
+Each source is compiled with `nvcc` for `sm_90a` into a shared library
+with a plain C interface at first use (one compiler process per source,
+all started together), and loaded with ctypes. The build lands in
+`edgecape_tpu_torch/_build/` (or `$EDGECAPE_TORCH_BUILD_DIR`), named by a
+hash of the source and flags, so an unchanged tree reuses it and an
+edited source rebuilds. Nothing here runs at import time: the CPU
 tests import every module of the package.
 
 The Python helpers below take torch tensors, check what the kernels
@@ -39,7 +40,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
 F32, BF16 = 0, 1
 ACT_NONE, ACT_GELU, ACT_RELU = 0, 1, 2
 
-_LIB: Optional[ctypes.CDLL] = None
+_LIB = None                               # the loaded libraries
 build_seconds: Optional[float] = None     # wall time of the last build
 
 _P = ctypes.c_void_p
@@ -66,6 +67,7 @@ _SIGNATURES = {
     "ec_attn_train_bwd": _TRAIN_HEAD + [_P, _I, _L, _L, _P, _P, _P, _P, _P,
                                         _P],
     "ec_dropout_mask": [_P, _U32, _L, _I, _I, _P, _P],
+    "ec_mm_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -88,42 +90,72 @@ def build_dir() -> str:
                           os.path.join(_PKG, "_build"))
 
 
-def library_path() -> str:
+def library_path(src: str) -> str:
+    """The library of one source, named by a hash of it and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        with open(src, "rb") as f:
-            h.update(os.path.basename(src).encode() + b"\0" + f.read())
-    return os.path.join(build_dir(), f"libedgecape_kernels_{h.hexdigest()[:16]}.so")
+    with open(src, "rb") as f:
+        h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(build_dir(),
+                        f"libedgecape_{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the sources if the library for their hash is missing;
-    returns its path."""
+def build(verbose: bool = False) -> list:
+    """Compile every source whose library is missing, one `nvcc` per
+    source, all started together; returns the libraries' paths."""
     global build_seconds
-    path = library_path()
-    if os.path.exists(path):
-        return path
+    paths = [library_path(src) for src in sources()]
+    todo = [(src, path) for src, path in zip(sources(), paths)
+            if not os.path.exists(path)]
+    if not todo:
+        return paths
     os.makedirs(build_dir(), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir())
-    os.close(fd)
-    cmd = [_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) \
-        + ["-o", tmp] + sources()
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = []
+    for src, path in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir())
+        os.close(fd)
+        cmd = [nvcc] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) \
+            + ["-o", tmp, src]
+        procs.append((path, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for path, tmp, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(out)
+            continue
+        if verbose:
+            print(out)
+        os.replace(tmp, path)
     build_seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, path)
-    return path
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return paths
 
 
-def lib() -> ctypes.CDLL:
+class _Libraries:
+    """The loaded libraries, one per source; an entry point is looked up
+    in each."""
+
+    def __init__(self, libs):
+        self._libs = libs
+
+    def __getattr__(self, name):
+        for so in self._libs:
+            try:
+                return getattr(so, name)
+            except AttributeError:
+                pass
+        raise AttributeError(name)
+
+
+def lib() -> _Libraries:
     global _LIB
     if _LIB is None:
-        so = ctypes.CDLL(build())
+        so = _Libraries([ctypes.CDLL(path) for path in build()])
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(so, name)
             fn.argtypes = argtypes
@@ -470,3 +502,29 @@ def dropout_mask(seed: torch.Tensor, rate: float, bh: int, nq: int,
     _call("ec_dropout_mask", _seed_ptr(seed, thresh), thresh, bh, nq, nk,
           keep.data_ptr(), _stream())
     return keep.bool()
+
+
+def mm_chain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, reps: int,
+             segs: int, seg_rows: int) -> torch.Tensor:
+    """The whole chain of `reps` steps x = bf16(f32(x) + bf16(x @ w1) @ w2)
+    in one launch. x: contiguous bf16 [segs * seg_rows, C] (any leading
+    shape); row tiles are cut inside each segment of `seg_rows` rows.
+    w1 [C, F], w2 [F, C] contiguous bf16, C in (128, 256, 384), F a
+    multiple of 64."""
+    _cuda(x, w1, w2)
+    c, f = w1.shape
+    if any(t.dtype != torch.bfloat16 or not t.is_contiguous()
+           for t in (x, w1, w2)):
+        raise TypeError("mm_chain takes contiguous bfloat16 tensors")
+    if x.shape[-1] != c or tuple(w2.shape) != (f, c) \
+            or x.numel() != segs * seg_rows * c:
+        raise ValueError(f"mm_chain shapes: x {tuple(x.shape)}, w1 "
+                         f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}, "
+                         f"{segs} segments of {seg_rows} rows")
+    if c not in (128, 256, 384) or f % 64 != 0:
+        raise ValueError(f"mm_chain takes C in (128, 256, 384) and F a "
+                         f"multiple of 64, got C={c}, F={f}")
+    out = torch.empty_like(x)
+    _call("ec_mm_chain", x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+          out.data_ptr(), segs, seg_rows, c, f, int(reps), _stream())
+    return out

@@ -285,6 +285,11 @@ class Trainer:
             masking_ratio=masking, drop_last=True,
             num_workers=cfg.train.num_workers, seed=cfg.train.seed)
 
+        tb = None
+        if getattr(cfg.train, "tensorboard", False):
+            from ..utils.tb_writer import SummaryWriter
+            tb = SummaryWriter(os.path.join(cfg.work_dir, "tf_logs"))
+
         for epoch in range(self.start_epoch, cfg.train.total_epochs):
             t0 = time.time()
             agg, n_agg, n_it = {}, 0, 0
@@ -300,6 +305,11 @@ class Trainer:
                              f"{self.steps_per_epoch} "
                              + " ".join(f"{k}={v:.4f}"
                                         for k, v in sorted(metrics.items())))
+                    if tb is not None:
+                        for k, v in metrics.items():
+                            tb.add_scalar(f"train/{k}", v, self.step)
+                        tb.add_scalar("train/lr",
+                                      float(self.sched(self.step)), self.step)
             # after the epoch: reshuffle the episode pairs
             self.train_ds.resample_episodes()
 
@@ -312,6 +322,8 @@ class Trainer:
                     (epoch + 1) % cfg.train.eval_interval == 0:
                 pck = self._evaluate()
                 entry["val_pck"] = pck
+                if tb is not None:
+                    tb.add_scalar("val/PCK", pck, self.step)
                 if pck > self.best_pck:
                     self.best_pck = pck
                     self._save(f"best_PCK_epoch_{epoch + 1}", epoch)
@@ -322,3 +334,7 @@ class Trainer:
                 self._save(f"epoch_{epoch + 1}", epoch)
             with open(log_path, "a") as f:
                 f.write(json.dumps(entry) + "\n")
+            if tb is not None:
+                tb.flush()
+        if tb is not None:
+            tb.close()

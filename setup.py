@@ -28,7 +28,9 @@ setup(
     packages=find_packages(include=["edgecape_tpu", "edgecape_tpu.*",
                                     "edgecape_tpu_torch",
                                     "edgecape_tpu_torch.*"]),
-    package_data={"edgecape_tpu_torch": ["csrc/*.cu"]},
+    package_data={"edgecape_tpu_torch": ["csrc/*.cu", "csrc/*.cc",
+                                        "configs/train/*.py",
+                                        "configs/test/*.py"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "orbax-checkpoint", "numpy"],
     extras_require={"data": ["opencv-python"], "viz": ["matplotlib"],

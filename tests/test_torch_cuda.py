@@ -430,3 +430,31 @@ def test_decoder_stack_weight_cache_follows_the_parameters(dev):
         third, _ = FD.fused_decoder_stack(*args, dec, **kw)
         ref, _ = FD.fused_decoder_stack_plain(*args, dec, **kw)
         assert (third - ref).abs().max().item() <= 2e-3
+
+
+@pytest.mark.parametrize("b,g,n,c,f,reps", [(6, 3, 70, 256, 192, 3),
+                                            (4, 2, 264, 384, 128, 2),
+                                            (8, 4, 13, 128, 64, 1)])
+def test_mm_chain_matches_plain_and_fold_equals_loop(dev, b, g, n, c, f, reps):
+    """Ragged row tiles (n not a multiple of 64) at the three widths: the
+    kernel against the plain version within 2^-6 of the output's largest
+    magnitude (bf16 roundings that flip and carry through the steps), loop
+    and fold bit-equal, one launch counted per call."""
+    from edgecape_tpu_torch.ops import mm_chain as MC
+    bf = torch.bfloat16
+    x = _rn(dev, b, n, c, seed=1).to(bf)
+    w1 = _rn(dev, c, f, s=0.05, seed=2).to(bf)
+    w2 = _rn(dev, f, c, s=0.05, seed=3).to(bf)
+    n0 = MC.launches
+    loop = MC.mm_chain(x, w1, w2, reps, g, False)
+    fold = MC.mm_chain(x, w1, w2, reps, g, True)
+    torch.cuda.synchronize()
+    assert MC.launches == n0 + 2
+    assert torch.equal(loop, fold)
+    ref = MC.mm_chain_plain(x, w1, w2, reps, g, True).float()
+    d = (fold.float() - ref).abs()
+    assert bool(torch.isfinite(fold.float()).all())
+    assert d.max().item() <= 2 ** -6 * ref.abs().max().item()
+    assert torch.equal(MC.mm_chain(x, w1, w2, 0, g, True), x)
+    with pytest.raises(ValueError):
+        MC.mm_chain(x[..., :64].contiguous(), w1[:64], w2[:, :64], 1, g, True)

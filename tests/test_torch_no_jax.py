@@ -5,7 +5,10 @@ modules included), checks that none of them pulled in the JAX package,
 and runs a tiny cached forward and two training steps of the trainer on
 the CPU, on both the strict and the kernel-op path; a second interpreter
 does the same for the variant switches, the uncached and debug forwards,
-the bench tool's chains and the chip smoke's module."""
+the bench tool's chains and the chip smoke's module; a third drives the
+disk path: the synthetic stand-in, every config of the port's grid, the
+loader, `cli.train`, `cli.test`, `cli.run --help` and the probe tool on
+the CPU."""
 
 import os
 import subprocess
@@ -27,7 +30,13 @@ for name in names:
     importlib.import_module(name)
 for needed in ("config", "train.state", "train.loop", "train.checkpoint",
                "train.curriculum", "ops.kernel_config", "ops.fused_mlp",
-               "ops.fused_attn_block", "tools.bench_attn_variants"):
+               "ops.fused_attn_block", "tools.bench_attn_variants",
+               "ops.mm_chain", "ops.warp", "ops.affine", "ops.heatmap",
+               "tools.probe_m_fold", "data.coco", "data.pipeline",
+               "data.native", "data.mp100", "data.compose", "data.loader",
+               "data.synthetic", "eval.metrics", "utils.tb_writer",
+               "models.convert", "configs._base", "cli.test", "cli.train",
+               "cli.run"):
     assert "edgecape_tpu_torch." + needed in names, needed
 pulled = [m for m in sys.modules if m.split(".")[0] == "edgecape_tpu"]
 assert not pulled, pulled
@@ -174,3 +183,59 @@ def test_variant_and_uncached_paths_run_without_jax():
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().startswith("OK")
+
+
+CLI_SCRIPT = r"""
+import glob, os, sys, tempfile
+BLOCKED = ("jax", "flax", "optax", "orbax", "cv2", "edgecape_tpu")
+for m in BLOCKED:
+    sys.modules[m] = None
+import numpy as np
+import torch
+from edgecape_tpu_torch.cli import run as cli_run
+from edgecape_tpu_torch.cli import test as cli_test
+from edgecape_tpu_torch.cli import train as cli_train
+from edgecape_tpu_torch.config import Config
+from edgecape_tpu_torch.tools import probe_m_fold
+root = os.path.join("edgecape_tpu_torch", "configs")
+grid = sorted(glob.glob(os.path.join(root, "t*", "*.py")))
+assert len(grid) == 20, grid
+for path in grid:
+    cfg = Config.from_file(path)
+    assert cfg.model.max_kpt == 100 and cfg.train.batch_size == 16
+with tempfile.TemporaryDirectory() as tmp:
+    os.environ["SYNTH_ROOT"] = os.path.join(tmp, "data")
+    synth = os.path.join(root, "synthetic.py")
+    small = ["train.total_epochs=1", "train.batch_size=24",
+             "train.num_workers=2", "val_data.num_episodes=1",
+             "test_data.num_episodes=1"]
+    work = os.path.join(tmp, "work")
+    tr = cli_train.main(["--config", synth, "--work-dir", work, "--device",
+                         "cpu", "--cfg-options"] + small)
+    assert tr.step == 3 and glob.glob(os.path.join(work, "tf_logs", "*"))
+    res = cli_test.main([synth, os.path.join(work, "epoch_1"), "--work-dir",
+                         work, "--device", "cpu", "--cfg-options"] + small)
+    assert np.isfinite(res["NME"]) and 0.0 <= res["PCK"] <= 1.0
+    assert os.path.exists(os.path.join(work, "testing_log.txt"))
+    try:
+        cli_run.main(["--help"])
+    except SystemExit as e:
+        assert e.code == 0
+out = probe_m_fold.main(["--device", "cpu", "--case", "4,2,8,16,32,2",
+                         "--iters", "1", "--runs", "1"])
+assert out[0]["bitsame"]
+loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED
+          and sys.modules[m] is not None]
+assert not loaded, loaded
+print("OK")
+"""
+
+
+def test_disk_path_clis_and_probe_run_without_jax_and_cv2():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", CLI_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().endswith("OK")
