@@ -19,7 +19,13 @@ Phases (any failure exits non-zero before the last line):
    (flash_mha_train) is checked at its three call-site shapes: forward and dq, dk, dv, dbias at rate 0 against autograd
    through the plain version; at rate 0.1 against the plain version fed
    the kernels' own keep mask; the mask's keep share; same seed, same
-   output; another seed, another mask;
+   output; another seed, another mask. Then the two attention forward
+   kernels at every shape the paths give them (ViT, joint encoder,
+   decoder self- and cross-attention, skeleton refine, the training
+   sites with and without dropout), one `[op] attention` line each from
+   tools/bench_attention.py: kernel against plain within the same
+   tolerance, device time (profiler), wrapper time, bound, SDPA on the
+   same shape with the mask it needs, and the launch plan used;
 3. the main path: a stage-3 PoseEstimator (learned skeleton + Markov
    bias, K=100, 224 px, 1 shot, bf16 compute and head dtype, full
    ViT-S/14 width and depth, weights drawn from a seed with the
@@ -807,6 +813,24 @@ def train_op_checks(dev, entries):
                        "plain_ms": r[5], "bound_ms": r[6][0],
                        "library_ms": r[7], "ms_with_dropout": r[8]}
                       for r in rows[direction]]}
+
+
+def attention_checks(dev, entries, power):
+    """The `[op] attention` lines: ops/kernels.py attention and
+    flash_mha_train's forward at every shape of the eval and training
+    paths (tools/bench_attention.py SHAPES), each held against its plain
+    version; the rows go into the flash_mha entry of the kernels line."""
+    from edgecape_tpu_torch.tools import bench_attention as BA
+    if (BA.ATOL, BA.RTOL, BA.MEAN_TOL) != (ATOL, RTOL, MEAN_TOL):
+        fail("tools/bench_attention.py holds another tolerance")
+    rows = []
+    for spec in BA.SHAPES:
+        rows.append(BA.run_case(spec, dev, power))
+        torch.cuda.empty_cache()
+    bad = [r["name"] for r in rows if not r["ok"]]
+    if bad:
+        fail(f"attention kernels disagree with their plain versions: {bad}")
+    entries["flash_mha"]["attention_shapes"] = rows
 
 
 # ------------------------------------------------------------ phase 4
@@ -1928,6 +1952,7 @@ def main() -> None:
     entries = {}
     op_checks(dev, entries)
     train_op_checks(dev, entries)
+    attention_checks(dev, entries, power)
     torch.cuda.empty_cache()
     est, data, preds, weights = main_path(dev, entries, power)
     torch.cuda.empty_cache()

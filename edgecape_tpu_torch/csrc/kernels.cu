@@ -13,13 +13,14 @@
 //                   fp32 LayerScale residual, bf16 or fp32 store);
 //   * ec_layernorm  row LayerNorm with fp32 statistics and an optional
 //                   residual input, fp32 and/or bf16 outputs;
-//   * ec_attention  short-sequence attention: one block per (batch, head)
-//                   with all its keys and values resident in shared
-//                   memory, additive per-key mask and optional
-//                   [B, H, Nq, Nk] bias (read, or formed in the kernel
-//                   from the bf16 hop stack by the Markov bias MLP),
-//                   fp32 softmax, P rounded to bf16 before P.V, output
-//                   rounded to bf16;
+//   * ec_attention  short-sequence attention on mma.sync tensor-core
+//                   tiles with every score kept in registers: a warp per
+//                   16-row query tile, query tiles split over blocks,
+//                   cp.async keys and values, the bool key mask read in
+//                   the kernel, optional [B, H, Nq, Nk] bias (read, or
+//                   formed in the kernel from the bf16 hop stack by the
+//                   Markov bias MLP), fp32 softmax, P rounded to bf16
+//                   before P.V, output rounded to bf16;
 //   * ec_add_pos    src = bf16(bf16(x) + pos) for the joint encoder;
 //   * ec_sine_feats / ec_coord_update  the decoder stack's glue between
 //                   layers (ops/fused_decoder.py fused_decoder_stack):
@@ -438,177 +439,435 @@ extern "C" int ec_add_pos(const void* x, int x_dt, const void* pos, void* out,
 }
 
 // ------------------------------------------------------------- attention
-// out[b, i, h*D:(h+1)*D] = softmax(q.k^T * scale + kb[b] + bias[b, h, i])
-// . v, with q/k/v read (bf16 or fp32, rounded to bf16) at element offset
-// b*s?b + n*s?n + h*D. One block per (batch, head): the head's keys and
-// values are loaded into shared memory once and every warp of the block
-// takes 16-row query tiles. Each tile makes two passes over 32-key
-// chunks: the first finds each row's max and exp-sum in fp32, the second
-// recomputes the scores, forms p = exp(s - max) / sum rounded to bf16 (the
-// rounding point of the TPU kernels) and accumulates P.V on tensor cores.
-// Keys beyond Nk are -inf. A row with every key masked gives 0 (the TPU
-// kernels give NaN; the model never masks a whole row).
+// attn_kernel replaces the attention step of every TPU eval kernel
+// (edgecape_tpu/ops/flash_attention.py flash_mha, and the attention inside
+// fused_vit_block, fused_encoder, fused_decoder, fused_attn_block):
+//   out[b, i, h*D:(h+1)*D] = bf16(P . v),
+//   P = bf16(softmax(q.k^T * scale + key mask[b] + bias[b, h, i])),
+// with q/k/v read (bf16, or fp32 rounded to bf16 at the load) at element
+// offset b*s?b + n*s?n + h*D of the fused projections, fp32 softmax, and
+// a fully masked row giving 0 (the TPU kernels give NaN; the model never
+// masks a whole row). train_fwd_kernel replaces _flash_train_fwd of the
+// same JAX file: the same scores, p kept fp32 through the dropout and
+// rounded to bf16 only as the operand of p.v, fp32 output, and each row's
+// max and reciprocal exp-sum saved for the backward.
+//
+// What bounds them on this card: at the path's shapes (100..356 tokens,
+// head dim 32 or 64) the operands of a call are read once from device
+// memory in 4..120 microseconds and the two products take less than that
+// on the tensor cores, so the least time is set by bytes; what a kernel
+// actually spends is latency and issue slots: shared-memory round trips,
+// the wait for a head's keys before the first product, too few warps in
+// flight, and the softmax's scalar arithmetic, which at head dim 32 or 64
+// outweighs the products. The design therefore keeps every score in
+// registers:
+//   * both products are mma.sync m16n8k16 (bf16 in, fp32 accumulate) fed
+//     by ldmatrix; its accumulator layout is fixed, so the scores of a
+//     16-row query tile become the A operand of P.V by a pack in
+//     registers. No score or probability is written to shared or device
+//     memory, and no warp synchronises inside the key loop.
+//   * one warp owns a 16-row query tile. Where the key row fits in
+//     registers (at most ATT_ROW16 * 16 = 128 keys: K = 100 everywhere
+//     the model attends over keypoints) the scores are formed once, the
+//     softmax runs on the registers, and the bias (read, or formed from
+//     the hop stack by the Markov bias MLP) and key mask are touched once.
+//     Longer rows (257, 356, 256 keys) would need 128..192 registers a
+//     thread for the scores alone, so they take two passes over 32-key
+//     chunks, both from registers: the first keeps a per-lane running max
+//     and exp-sum (no shuffles in the loop), the second recomputes the
+//     scores and normalises by the row's final max and sum before the
+//     rounding to bf16, which keeps the TPU kernels' rounding point (an
+//     online softmax that rounds exp(s - running max) would not). Measured
+//     on an H100 (tools/bench_attention.py modes): at 100 keys one pass
+//     takes 0.0115 ms where two passes take 0.0120 (34 x 8 heads), and
+//     1.05 against 1.79 ms with the bias MLP (510 x 8 heads), which two
+//     passes run twice; chunks of 32 keys beat chunks of 64 (ViT 0.56
+//     against 0.84 ms, encoder 0.82 against 1.17) because 80..96 registers
+//     a thread let two blocks share an SM where 128 let one. Splitting a
+//     row's keys over warps to make long rows one pass is not done.
+//   * the query tiles of a (batch, head) are split over the blocks of
+//     gridDim.y as well as over a block's warps (the plan is made by
+//     ops/kernels.py attention_plan from the shapes alone), so that small
+//     batches still fill the card and several blocks share an SM; the
+//     second block's keys and values come from L2. A block takes 4 tiles
+//     in one pass and up to 12 (head dim 32) or 9 (head dim 64) in two:
+//     fewer, larger blocks measured faster wherever keys and values are
+//     long (ViT 9 x 2 blocks 0.56 ms, 6 x 3 0.68), because each block
+//     copies the head's keys and values again. Cross-attention (100
+//     queries, 256 keys, head dim 64) has 7 tiles a head and 90 KB of
+//     shared memory a block: 14 warps an SM, the one path shape under 16.
+//   * keys and the query tile arrive by cp.async in one group, values in a
+//     second: the scores start when the keys have landed and the values
+//     land under them. fp32 operands take a converting load instead.
+//   * the bool key mask [B, Nk] is read by the kernel (one byte a key,
+//     once a block, into an additive row in shared memory that also holds
+//     -inf for the padded keys), so a call is one launch.
+// Hazards: keys are padded to a multiple of 16 with -inf scores and zero
+// value rows (never uninitialised shared memory: 0 x NaN); hop rows are
+// 2 * Nk bytes apart (200 at K = 100), so a lane's four keys are one
+// 8-byte load when Nk is a multiple of 4, else four element loads;
+// the output may be a strided view of a caller's buffer, so 16-byte
+// stores are used only when its base and strides allow them; dropout
+// bits depend on (row, column / 4, batch * H + head) alone, whatever the
+// tiling, so the backward regenerates the forward's mask. The exponentials
+// are single ex2 instructions on scores kept in base 2, and p is
+// normalised by a multiplication with the row's reciprocal sum (that
+// alone took the ViT shape from 1.62 to 0.84 ms). The bias MLP's fp32
+// arithmetic (7.8e9 multiply-adds a call at 510 rows) bounds the
+// in-kernel-bias form; its kernel is held to 128 registers so that four
+// blocks share an SM.
 
-#define ATT_KC 32          // keys per chunk
+#define ATT_KC 32          // keys per chunk of the training backward
 #define ATT_MAX_NK 512     // keys a block holds in shared memory
 #define ATT_MAX_WARPS 16
+#define ATT_ROW16 8        // 16-key tiles of a row held in registers (one pass)
+#define ATT_CH16 2         // 16-key tiles per chunk of the two-pass form
+#define ATT_SMEM_LIMIT (227 * 1024)
 #define ALIGN128(n) (((n) + 127) & ~(size_t)127)
-
-struct AttnArgs {
-  const void* q; const void* k; const void* v; int in_dt;
-  long sqb, sqn, skb, skn, svb, svn;
-  int H, Nq, Nk, NKP;
-  const float* kb; long skbb;
-  const float* bias;
-  float scale;
-  void* out; int out_dt; long sob, son;
-  // Markov bias formed in the kernel (attn_kernel<D, NHOP > 0>): hops
-  // [B, nhop, Nq, Nk] bf16, w1 [nhop, hid], b1 [hid], w2 [hid, H], b2 [H]
-  const bf16* hops; int nhop, hid;
-  const float* w1; const float* b1; const float* w2; const float* b2;
-};
 
 #define HOP_MAX 8          // hop planes the in-kernel bias MLP takes
 #define HOP_MAX_HID 32     // its hidden width
 #define HOP_ROW 12         // floats per hidden unit in shared memory
 #define HOP_MLP_FLOATS (HOP_MAX_HID * HOP_ROW + 4)
 
-// Markov bias of 16 neighbouring keys [j0, j0 + 16) of one query row for
-// one head: relu(hops . w1 + b1) . w2[:, h] + b2[h] in fp32, from the bf16
-// hop planes at hrow (plane stride `plane`). mlp (shared memory): per
-// hidden unit m a row of HOP_ROW floats, w1[0..7][m] (zero beyond nhop) |
-// b1[m] | w2[m, h] | 0 | 0, read as three 16-byte loads; then b2[h]. NHOP
-// is the number of planes the loops are unrolled for (nhop <= NHOP).
-// Eight keys at a time, so one hidden unit's weights are read once per
-// eight keys. Keys at or beyond Nk get no bias (their score is -inf).
-template <int NHOP>
-__device__ __forceinline__ void hop_bias16(const bf16* hrow, long plane, int nhop,
-                                           int hid, const float* mlp, int j0, int Nk,
-                                           float* bv) {
-  const float b2 = mlp[hid * HOP_ROW];
-#pragma unroll
-  for (int g = 0; g < 2; ++g) {
-    const int jg = j0 + g * 8;
-    if (jg >= Nk) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) bv[g * 8 + i] = 0.0f;
-      continue;
-    }
-    float hv[NHOP][8];
-#pragma unroll
-    for (int jh = 0; jh < NHOP; ++jh) {
-      const bf16* src = hrow + jh * plane + jg;
-      if (jh < nhop && jg + 8 <= Nk && (reinterpret_cast<uintptr_t>(src) & 7) == 0) {
-        const uint2 lo = *reinterpret_cast<const uint2*>(src);
-        const uint2 hi = *reinterpret_cast<const uint2*>(src + 4);
-        const unsigned w[4] = {lo.x, lo.y, hi.x, hi.y};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {      // a bf16 is the top half of a float
-          hv[jh][2 * i] = __uint_as_float(w[i] << 16);
-          hv[jh][2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          hv[jh][i] = (jh < nhop && jg + i < Nk) ? __bfloat162float(src[i]) : 0.0f;
-      }
-    }
-    float acc[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] = b2;
-#pragma unroll 2
-    for (int m = 0; m < hid; ++m) {
-      const float4 wa = *reinterpret_cast<const float4*>(mlp + m * HOP_ROW);
-      const float4 wb = *reinterpret_cast<const float4*>(mlp + m * HOP_ROW + 4);
-      const float4 wc = *reinterpret_cast<const float4*>(mlp + m * HOP_ROW + 8);
-      const float w1[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float a = wc.x;
-#pragma unroll
-        for (int jh = 0; jh < NHOP; ++jh) a += hv[jh][i] * w1[jh];
-        acc[i] += fmaxf(a, 0.0f) * wc.y;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) bv[g * 8 + i] = acc[i];
-  }
-}
-
-// Shared-memory layout: K and V [NKP][KLD] bf16, then per warp a query
-// tile [16][KLD] bf16, a score / output staging tile [16][SLD] fp32 and a
-// probability tile [16][PLD] bf16.
-template <int D>
-struct AttnSmem {
-  static constexpr int KLD = D + 8;
-  static constexpr int SLD = (ATT_KC > D ? ATT_KC : D) + 4;
-  static constexpr int PLD = ATT_KC + 8;
-  static constexpr size_t Q_BYTES = ALIGN128((size_t)16 * KLD * 2);
-  static constexpr size_t S_BYTES = ALIGN128((size_t)16 * SLD * 4);
-  static constexpr size_t P_BYTES = ALIGN128((size_t)16 * PLD * 2);
-  static constexpr size_t WARP_BYTES = Q_BYTES + S_BYTES + P_BYTES;
-  static __host__ __device__ size_t kv_bytes(int nkp) {
-    return ALIGN128((size_t)2 * nkp * KLD * 2);
-  }
-  // per warp, with the bias formed in the kernel: its tile [16][nkp + 4]
-  // fp32, written in the first pass over the keys and read in the second
-  static __host__ __device__ size_t bias_bytes(int nkp) {
-    return ALIGN128((size_t)16 * (nkp + 4) * 4);
-  }
+struct AttnArgs {
+  const void* q; const void* k; const void* v; int in_dt;
+  long sqb, sqn, skb, skn, svb, svn;
+  int H, Nq, Nk, NK16;               // NK16: 16-key tiles (keys padded to NK16 * 16)
+  const unsigned char* kvalid; long skvb;   // bool [B, Nk], 1 = attend; or null
+  const float* bias;                 // [B, H, Nq, Nk] or null
+  float scale;
+  void* out; int out_dt; long sob, son;
+  // Markov bias formed in the kernel (NHOP > 0): hops [B, nhop, Nq, Nk]
+  // bf16, w1 [nhop, hid], b1 [hid], w2 [hid, H], b2 [H]
+  const bf16* hops; int nhop, hid;
+  const float* w1; const float* b1; const float* w2; const float* b2;
+  // training forward
+  const unsigned long long* seed;    // one value on the device; read when thresh > 0
+  unsigned thresh; float inv_keep;   // thresh 0: no dropout
+  float* stats;                      // [B * H, Nq, 2]: row max, 1 / exp-sum
 };
 
-// Scores of a 16-row query tile against keys [c0, c0 + 32), fp32 into Ss.
-template <int D>
-__device__ __forceinline__ void score_chunk(
-    const wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>* qa,
-    const bf16* Ks, int c0, float* Ss) {
-  constexpr int KLD = AttnSmem<D>::KLD, SLD = AttnSmem<D>::SLD;
-#pragma unroll
-  for (int nt = 0; nt < ATT_KC / 16; ++nt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-    wmma::fill_fragment(s, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-      wmma::load_matrix_sync(kf, Ks + (size_t)(c0 + nt * 16) * KLD + kk * 16, KLD);
-      wmma::mma_sync(s, qa[kk], kf, s);
-    }
-    wmma::store_matrix_sync(Ss + nt * 16, s, SLD, wmma::mem_row_major);
+// The launch plan, made by ops/kernels.py attention_plan.
+struct AttnPlan { int qsplit, warps, chunk16; long smem; };
+
+__device__ __forceinline__ void ldsm_x4(const bf16* ptr, unsigned& r0, unsigned& r1,
+                                        unsigned& r2, unsigned& r3) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(const bf16* ptr, unsigned& r0, unsigned& r1,
+                                          unsigned& r2, unsigned& r3) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(a));
+}
+
+// c += a . b for one m16n8k16 tile: bf16 operands, fp32 accumulator. Lane
+// (g = lane / 4, t = lane % 4) holds c[0..1] = rows g, columns 2t, 2t + 1
+// and c[2..3] = row g + 8, the same columns.
+__device__ __forceinline__ void mma16816(float* c, const unsigned* a, unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 in one register, `lo` in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// 8 values of a q / k / v row into shared memory: cp.async for a whole,
+// aligned bf16 source, a converting load for fp32, zeros when !valid.
+__device__ __forceinline__ void stage8(bf16* dst, const void* base, int dt, long off,
+                                       bool valid) {
+  if (dt == DT_BF16) {
+    copy8(dst, static_cast<const bf16*>(base) + off, valid ? 8 : 0);
+  } else {
+    load8_any(dst, base, dt, off, valid ? 8 : 0);
   }
 }
 
-// NHOP: 0 without the in-kernel bias, else the hop planes to unroll for.
-template <int D, int NHOP>
-__global__ void __launch_bounds__(ATT_MAX_WARPS * 32) attn_kernel(AttnArgs p) {
-  using L = AttnSmem<D>;
+// The bias MLP on NS scores at once: acc[i] = relu(hv[.][i] . w1 + b1) .
+// w2[:, h] + b2[h] in fp32. mlp (shared memory): per hidden unit m a row
+// of HOP_ROW floats, w1[0..7][m] (zero beyond nhop) | b1[m] | w2[m, h] |
+// 0 | 0, read as three 16-byte loads; then b2[h]. One hidden unit's
+// weights are read once per NS scores.
+template <int NHOP, int NS>
+__device__ __forceinline__ void hop_mlp(const float (&hv)[NHOP][NS], int hid,
+                                        const float* mlp, float* acc) {
+  const float b2 = mlp[hid * HOP_ROW];
+#pragma unroll
+  for (int i = 0; i < NS; ++i) acc[i] = b2;
+#pragma unroll 2
+  for (int m = 0; m < hid; ++m) {
+    const float4 wa = *reinterpret_cast<const float4*>(mlp + m * HOP_ROW);
+    const float4 wb = *reinterpret_cast<const float4*>(mlp + m * HOP_ROW + 4);
+    const float4 wc = *reinterpret_cast<const float4*>(mlp + m * HOP_ROW + 8);
+    const float w1[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      float a = wc.x;
+#pragma unroll
+      for (int jh = 0; jh < NHOP; ++jh) a += hv[jh][i] * w1[jh];
+      acc[i] += fmaxf(a, 0.0f) * wc.y;
+    }
+  }
+}
+
+#define LOG2E_F 1.4426950408889634f
+#define LN2_F 0.6931471805599453f
+
+// 2^x on the special-function unit (one instruction; 2^-inf = 0, relative
+// error 2^-22, far below the bf16 rounding of the probabilities). The
+// softmax runs in base 2: scores are scaled by log2(e) where they are
+// finished.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Score columns are permuted inside each block of 16 keys so that a lane
+// holds four neighbouring keys of a row: column n of the block's 8-key
+// tile jj stands for key 4 * (n / 2) + 2 * jj + n % 2. The K rows that
+// ldmatrix reads for q.k^T and the V rows it reads for P.V follow the
+// same permutation, so both products are unchanged, and a lane's mask,
+// bias, hop values and dropout bits of a row are one 16-byte or 8-byte
+// load or one Philox group. Lane (g, t) holds keys 4t .. 4t + 3 of the
+// block as s[j][0], s[j][1], s[j + 1][0], s[j + 1][1] (row g) and
+// s[j][2], s[j][3], s[j + 1][2], s[j + 1][3] (row g + 8).
+#define ATT_S(s, j, rs, e) (s)[(j) + ((e) >> 1)][(rs) * 2 + ((e) & 1)]
+
+// row[k0 .. k0 + 3] in fp32 (0 at or beyond n): one 16-byte load when
+// `vec` says the rows allow it.
+__device__ __forceinline__ void load4_f32(const float* row, int k0, int n, bool vec,
+                                          float* o) {
+  if (vec && k0 + 3 < n) {
+    const float4 v = *reinterpret_cast<const float4*>(row + k0);
+    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[e] = k0 + e < n ? row[k0 + e] : 0.0f;
+  }
+}
+
+// The same from bf16: one 8-byte load when `vec`.
+__device__ __forceinline__ void load4_bf16(const bf16* row, int k0, int n, bool vec,
+                                           float* o) {
+  if (vec && k0 + 3 < n) {
+    const uint2 w = *reinterpret_cast<const uint2*>(row + k0);
+    o[0] = __uint_as_float(w.x << 16);        // a bf16 is the top half of a float
+    o[1] = __uint_as_float(w.x & 0xffff0000u);
+    o[2] = __uint_as_float(w.y << 16);
+    o[3] = __uint_as_float(w.y & 0xffff0000u);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[e] = k0 + e < n ? __bfloat162float(row[k0 + e]) : 0.0f;
+  }
+}
+
+// What a lane needs to finish the scores of its two query rows.
+struct AttnRows {
+  const float* brow[2];      // bias rows, or null
+  const bf16* hrow[2];       // hop rows (plane 0), or null
+  long hop_plane;
+  bool bias_vec, hop_vec;    // rows take 16-byte / 8-byte loads
+};
+
+// Finished scores log2(e) * (q.k^T * scale + key mask + bias) of a 16-row
+// query tile against the NT 8-key tiles that start at key n0, in the
+// accumulator layout of mma16816 with the key permutation above. Tiles at
+// or beyond NKP keys are -inf.
+template <int D, int NHOP, int NT>
+__device__ __forceinline__ void attn_scores(float (&s)[NT][4],
+                                            const unsigned (&qa)[D / 16][4],
+                                            const bf16* Ks, const float* kbs,
+                                            const float* mlp_s, int n0, int NKP,
+                                            const AttnArgs& p, const AttnRows& rw,
+                                            int lane) {
+  constexpr int KLD = D + 8;
+  const float sc2 = p.scale * LOG2E_F;
+  const int kperm = 4 * ((lane & 7) >> 1) + (lane & 1);
+#pragma unroll
+  for (int j = 0; j < NT; j += 2) {        // two score tiles: a block of 16 keys
+    const int nb = n0 + j * 8;
+    if (nb >= NKP) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = s[j + 1][e] = -INFINITY;
+      continue;
+    }
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      float* c = s[j + jj];
+      c[0] = c[1] = c[2] = c[3] = 0.0f;
+#pragma unroll
+      for (int kq = 0; kq < D / 32; ++kq) {
+        unsigned b0, b1, b2, b3;
+        ldsm_x4(Ks + (size_t)(nb + kperm + 2 * jj) * KLD + kq * 32 + (lane >> 3) * 8,
+                b0, b1, b2, b3);
+        mma16816(c, qa[2 * kq], b0, b1);
+        mma16816(c, qa[2 * kq + 1], b2, b3);
+      }
+    }
+    const int k0 = nb + 4 * (lane & 3);
+    const float4 kb = *reinterpret_cast<const float4*>(kbs + k0);
+    float add[2][4] = {{kb.x, kb.y, kb.z, kb.w}, {kb.x, kb.y, kb.z, kb.w}};
+#pragma unroll
+    for (int rs = 0; rs < 2; ++rs) {
+      if (rw.brow[rs]) {
+        float bv[4];
+        load4_f32(rw.brow[rs], k0, p.Nk, rw.bias_vec, bv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) add[rs][e] = fmaf(bv[e], LOG2E_F, add[rs][e]);
+      }
+    }
+    if constexpr (NHOP > 0) {
+      // a row's four keys at a time: the MLP's operands stay few registers
+#pragma unroll
+      for (int rs = 0; rs < 2; ++rs) {
+        float hv[NHOP][4];
+#pragma unroll
+        for (int jh = 0; jh < NHOP; ++jh) {
+          if (rw.hrow[rs] && jh < p.nhop) {
+            load4_bf16(rw.hrow[rs] + jh * rw.hop_plane, k0, p.Nk, rw.hop_vec, hv[jh]);
+          } else {
+            hv[jh][0] = hv[jh][1] = hv[jh][2] = hv[jh][3] = 0.0f;
+          }
+        }
+        float acc[4];
+        hop_mlp<NHOP, 4>(hv, p.hid, mlp_s, acc);
+        if (rw.hrow[rs]) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) add[rs][e] = fmaf(acc[e], LOG2E_F, add[rs][e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int rs = 0; rs < 2; ++rs) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ATT_S(s, j, rs, e) = fmaf(ATT_S(s, j, rs, e), sc2, add[rs][e]);
+    }
+  }
+}
+
+// Philox-4x32-10: the counter-based generator of the dropout bits.
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    k.x += 0x9E3779B9u;
+    k.y += 0xBB67AE85u;
+  }
+  return c;
+}
+
+// Random bits of key columns [4 * cg, 4 * cg + 4) of query row `row` of
+// (batch, head) `bh`, as bits[0..3].
+__device__ __forceinline__ void dropout_bits(unsigned long long seed, unsigned bh,
+                                             unsigned row, unsigned cg, unsigned* bits) {
+  const uint4 r = philox4x32_10(make_uint4(cg, row, bh, 0u),
+                                make_uint2((unsigned)seed, (unsigned)(seed >> 32)));
+  bits[0] = r.x; bits[1] = r.y; bits[2] = r.z; bits[3] = r.w;
+}
+
+// O += P . V for the 16-key blocks of `s` (probabilities, in place of the
+// scores) that start at block kt0; V rows in the key permutation.
+template <int D, int NT>
+__device__ __forceinline__ void attn_pv(float (&o)[D / 8][4], const float (&s)[NT][4],
+                                        const bf16* Vs, int kt0, int NK16, int lane) {
+  constexpr int KLD = D + 8;
+  const int vperm = 4 * ((lane & 7) >> 1) + 2 * ((lane >> 3) & 1) + (lane & 1);
+#pragma unroll
+  for (int kt = 0; kt < NT / 2; ++kt) {
+    if (kt0 + kt >= NK16) continue;
+    const unsigned a[4] = {pack_bf16(s[2 * kt][0], s[2 * kt][1]),
+                           pack_bf16(s[2 * kt][2], s[2 * kt][3]),
+                           pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
+                           pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
+    const bf16* vrow = Vs + (size_t)((kt0 + kt) * 16 + vperm) * KLD + (lane >> 4) * 8;
+#pragma unroll
+    for (int dd = 0; dd < D / 16; ++dd) {
+      unsigned b0, b1, b2, b3;
+      ldsm_x4_t(vrow + dd * 16, b0, b1, b2, b3);
+      mma16816(o[2 * dd], a, b0, b1);
+      mma16816(o[2 * dd + 1], a, b2, b3);
+    }
+  }
+}
+
+// CH16: 16-key tiles held in registers at a time. ATT_ROW16: the whole key
+// row, one pass; ATT_CH16: two passes over chunks of that many tiles. NHOP: 0
+// without the in-kernel bias, else the hop planes to unroll for. TRAIN:
+// dropout, fp32 output and saved row statistics.
+template <int D, int NHOP, bool TRAIN, int CH16>
+__device__ __forceinline__ void attn_body(const AttnArgs& p) {
   constexpr bool HOPS = NHOP > 0;
-  __shared__ __align__(16) float mlp_s[HOPS ? HOP_MLP_FLOATS : 4];
-  constexpr int KLD = L::KLD, SLD = L::SLD, PLD = L::PLD;
+  constexpr bool ONE = CH16 == ATT_ROW16;
+  constexpr int KLD = D + 8;
+  constexpr int NT = 2 * CH16;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int NKP = p.NKP;
+  const int NKP = p.NK16 * 16;
   const int nwarps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const unsigned full = 0xffffffffu;
+  const int g = lane >> 2, t = lane & 3;
 
+  // K and V [NKP][KLD] bf16, a query tile [16][KLD] per warp (reused to
+  // stage a bf16 output), the additive key mask [NKP], the bias MLP
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + (size_t)NKP * KLD;
-  const size_t warp_bytes = L::WARP_BYTES + (HOPS ? L::bias_bytes(NKP) : 0);
-  unsigned char* wbase = smem + L::kv_bytes(NKP) + warp * warp_bytes;
-  bf16* Qs = reinterpret_cast<bf16*>(wbase);
-  float* Ss = reinterpret_cast<float*>(wbase + L::Q_BYTES);
-  bf16* Ps = reinterpret_cast<bf16*>(wbase + L::Q_BYTES + L::S_BYTES);
-  float* Bt = reinterpret_cast<float*>(wbase + L::WARP_BYTES);   // HOPS only
-  const int BLD = NKP + 4;
+  bf16* Qs = Vs + (size_t)NKP * KLD + (size_t)warp * 16 * KLD;
+  float* kbs = reinterpret_cast<float*>(Vs + (size_t)NKP * KLD + (size_t)nwarps * 16 * KLD);
+  float* mlp_s = kbs + NKP;
 
   const long bh = blockIdx.x;
   const long b = bh / p.H;
   const int h = (int)(bh % p.H);
+  const int tile = blockIdx.y * nwarps + warp;
+  const bool active = tile * 16 < p.Nq;
+  const int q0 = tile * 16;
 
+  if (active) {
+    for (int c = lane; c < 16 * (D / 8); c += 32) {
+      const int rr = c / (D / 8), d8 = (c % (D / 8)) * 8;
+      stage8(&Qs[rr * KLD + d8], p.q, p.in_dt,
+             b * p.sqb + (long)(q0 + rr) * p.sqn + h * D + d8, q0 + rr < p.Nq);
+    }
+  }
   for (int c = threadIdx.x; c < NKP * (D / 8); c += blockDim.x) {
     const int n = c / (D / 8), d8 = (c % (D / 8)) * 8;
-    const int valid = n < p.Nk ? 8 : 0;
-    load8_any(&Ks[n * KLD + d8], p.k, p.in_dt, b * p.skb + (long)n * p.skn + h * D + d8, valid);
-    load8_any(&Vs[n * KLD + d8], p.v, p.in_dt, b * p.svb + (long)n * p.svn + h * D + d8, valid);
+    stage8(&Ks[n * KLD + d8], p.k, p.in_dt, b * p.skb + (long)n * p.skn + h * D + d8,
+           n < p.Nk);
+  }
+  cp_async_commit();
+  for (int c = threadIdx.x; c < NKP * (D / 8); c += blockDim.x) {
+    const int n = c / (D / 8), d8 = (c % (D / 8)) * 8;
+    stage8(&Vs[n * KLD + d8], p.v, p.in_dt, b * p.svb + (long)n * p.svn + h * D + d8,
+           n < p.Nk);
+  }
+  cp_async_commit();
+  for (int j = threadIdx.x; j < NKP; j += blockDim.x) {
+    const bool on = j < p.Nk && (p.kvalid == nullptr || p.kvalid[b * p.skvb + j] != 0);
+    kbs[j] = on ? 0.0f : -INFINITY;
   }
   if constexpr (HOPS) {
     for (int i = threadIdx.x; i < p.hid * HOP_ROW; i += blockDim.x) {
@@ -621,180 +880,319 @@ __global__ void __launch_bounds__(ATT_MAX_WARPS * 32) attn_kernel(AttnArgs p) {
     }
     if (threadIdx.x == 0) mlp_s[p.hid * HOP_ROW] = p.b2[h];
   }
+  cp_async_wait<1>();          // the query tiles and the keys have landed
   __syncthreads();
 
-  const float* kbrow = p.kb ? p.kb + b * p.skbb : nullptr;
-  const long hop_plane = (long)p.Nq * p.Nk;
-  const int r = lane >> 1, half = lane & 1;   // this lane: row r, 16 columns
-  const int ntiles = (p.Nq + 15) / 16;
-  for (int tile = warp; tile < ntiles; tile += nwarps) {
-    const int q0 = tile * 16;
+  const int r0 = q0 + g, r1 = q0 + g + 8;
+  unsigned qa[D / 16][4];
+  AttnRows rw;
+  rw.brow[0] = rw.brow[1] = nullptr;
+  rw.hrow[0] = rw.hrow[1] = nullptr;
+  rw.hop_plane = (long)p.Nq * p.Nk;
+  rw.bias_vec = p.Nk % 4 == 0 && (reinterpret_cast<uintptr_t>(p.bias) & 15) == 0;
+  rw.hop_vec = p.Nk % 4 == 0 && (reinterpret_cast<uintptr_t>(p.hops) & 7) == 0;
+  float s[NT][4];
+  // running max (base 2) and exp-sum of the lane's two rows
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+  if (active) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ldsm_x4(Qs + (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) * KLD + kk * 16
+                  + (lane >> 4) * 8,
+              qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3]);
+    if (p.bias) {
+      if (r0 < p.Nq) rw.brow[0] = p.bias + ((size_t)bh * p.Nq + r0) * p.Nk;
+      if (r1 < p.Nq) rw.brow[1] = p.bias + ((size_t)bh * p.Nq + r1) * p.Nk;
+    }
+    if constexpr (HOPS) {
+      if (r0 < p.Nq) rw.hrow[0] = p.hops + (b * p.nhop * p.Nq + r0) * (long)p.Nk;
+      if (r1 < p.Nq) rw.hrow[1] = p.hops + (b * p.nhop * p.Nq + r1) * (long)p.Nk;
+    }
+    if constexpr (ONE) {
+      attn_scores<D, NHOP, NT>(s, qa, Ks, kbs, mlp_s, 0, NKP, p, rw, lane);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+        m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+      }
+      m0 = quad_max(m0);
+      m1 = quad_max(m1);
+      // a fully masked row has max -inf: subtract 0, so every 2^-inf is 0
+      const float z0 = m0 == -INFINITY ? 0.0f : m0, z1 = m1 == -INFINITY ? 0.0f : m1;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[j][0] = ex2(s[j][0] - z0);
+        s[j][1] = ex2(s[j][1] - z0);
+        s[j][2] = ex2(s[j][2] - z1);
+        s[j][3] = ex2(s[j][3] - z1);
+        l0 += s[j][0] + s[j][1];
+        l1 += s[j][2] + s[j][3];
+      }
+      l0 = quad_sum(l0);
+      l1 = quad_sum(l1);
+    } else {
+      // pass 1: per-lane running max and exp-sum, joined over the quad
+      for (int n0 = 0; n0 < NKP; n0 += NT * 8) {
+        attn_scores<D, NHOP, NT>(s, qa, Ks, kbs, mlp_s, n0, NKP, p, rw, lane);
+        float c0 = m0, c1 = m1;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          c0 = fmaxf(c0, fmaxf(s[j][0], s[j][1]));
+          c1 = fmaxf(c1, fmaxf(s[j][2], s[j][3]));
+        }
+        const float z0 = c0 == -INFINITY ? 0.0f : c0, z1 = c1 == -INFINITY ? 0.0f : c1;
+        float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          a0 += ex2(s[j][0] - z0) + ex2(s[j][1] - z0);
+          a1 += ex2(s[j][2] - z1) + ex2(s[j][3] - z1);
+        }
+        l0 = l0 * ex2(m0 - z0) + a0;
+        l1 = l1 * ex2(m1 - z1) + a1;
+        m0 = c0;
+        m1 = c1;
+      }
+      const float f0 = quad_max(m0), f1 = quad_max(m1);
+      l0 = quad_sum(l0 * ex2(m0 - (f0 == -INFINITY ? 0.0f : f0)));
+      l1 = quad_sum(l1 * ex2(m1 - (f1 == -INFINITY ? 0.0f : f1)));
+      m0 = f0;
+      m1 = f1;
+    }
+  }
+  cp_async_wait<0>();          // the values have landed
+  __syncthreads();
+  if (!active) return;
+
+  const float z0 = m0 == -INFINITY ? 0.0f : m0, z1 = m1 == -INFINITY ? 0.0f : m1;
+  const float inv0 = l0 > 0.0f ? 1.0f / l0 : 0.0f, inv1 = l1 > 0.0f ? 1.0f / l1 : 0.0f;
+  unsigned long long seed = 0ull;
+  if constexpr (TRAIN) {
+    if (p.thresh) seed = *p.seed;
+    if (t == 0) {                // the row max goes back to base e
+      if (r0 < p.Nq) {
+        p.stats[((size_t)bh * p.Nq + r0) * 2] = m0 * LN2_F;
+        p.stats[((size_t)bh * p.Nq + r0) * 2 + 1] = inv0;
+      }
+      if (r1 < p.Nq) {
+        p.stats[((size_t)bh * p.Nq + r1) * 2] = m1 * LN2_F;
+        p.stats[((size_t)bh * p.Nq + r1) * 2 + 1] = inv1;
+      }
+    }
+  }
+  float o[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.0f;
+
+  for (int n0 = 0; n0 < NKP; n0 += NT * 8) {   // one round when ONE
+    if constexpr (!ONE) {
+      attn_scores<D, NHOP, NT>(s, qa, Ks, kbs, mlp_s, n0, NKP, p, rw, lane);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[j][0] = ex2(s[j][0] - z0);
+        s[j][1] = ex2(s[j][1] - z0);
+        s[j][2] = ex2(s[j][2] - z1);
+        s[j][3] = ex2(s[j][3] - z1);
+      }
+    }
+    // s holds 2^(score - row max): normalise by the row's final sum (the
+    // rounding to bf16 follows in attn_pv), drop, multiply by V
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      const int nb = n0 + j * 8;
+      if (nb >= NKP) continue;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        s[j + jj][0] *= inv0; s[j + jj][1] *= inv0;
+        s[j + jj][2] *= inv1; s[j + jj][3] *= inv1;
+      }
+      if constexpr (TRAIN) {
+        if (p.thresh) {
+#pragma unroll
+          for (int rs = 0; rs < 2; ++rs) {
+            unsigned bits[4];
+            dropout_bits(seed, (unsigned)bh, (unsigned)(rs ? r1 : r0),
+                         (unsigned)(nb / 4 + t), bits);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              ATT_S(s, j, rs, e) = bits[e] >= p.thresh ? ATT_S(s, j, rs, e) * p.inv_keep
+                                                       : 0.0f;
+          }
+        }
+      }
+    }
+    attn_pv<D, NT>(o, s, Vs, n0 / 16, p.NK16, lane);
+  }
+
+  // the output: fp32 as accumulated (training), else rounded to bf16
+  const long obase = b * p.sob + h * D;
+  const size_t esz = p.out_dt == DT_F32 ? 4 : 2;
+  const uintptr_t oalign = reinterpret_cast<uintptr_t>(p.out) | (size_t)p.sob * esz
+                           | (size_t)p.son * esz | (size_t)(D * esz);
+  if (!TRAIN && p.out_dt == DT_BF16 && (oalign & 15) == 0) {
+    // through the warp's query tile, so that a lane stores 16 bytes
+    __syncwarp();
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      *reinterpret_cast<unsigned*>(&Qs[g * KLD + dt * 8 + 2 * t]) =
+          pack_bf16(o[dt][0], o[dt][1]);
+      *reinterpret_cast<unsigned*>(&Qs[(g + 8) * KLD + dt * 8 + 2 * t]) =
+          pack_bf16(o[dt][2], o[dt][3]);
+    }
+    __syncwarp();
+    bf16* out = static_cast<bf16*>(p.out);
     for (int c = lane; c < 16 * (D / 8); c += 32) {
       const int rr = c / (D / 8), d8 = (c % (D / 8)) * 8;
-      const int row = q0 + rr;
-      load8_any(&Qs[rr * KLD + d8], p.q, p.in_dt, b * p.sqb + (long)row * p.sqn + h * D + d8,
-                row < p.Nq ? 8 : 0);
+      if (q0 + rr < p.Nq)
+        *reinterpret_cast<uint4*>(out + obase + (long)(q0 + rr) * p.son + d8) =
+            *reinterpret_cast<const uint4*>(&Qs[rr * KLD + d8]);
     }
-    __syncwarp();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[D / 16];
+    return;
+  }
+  const bool pair_ok = p.out_dt == DT_F32 && (oalign & 7) == 0;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wmma::load_matrix_sync(qa[kk], Qs + kk * 16, KLD);
-
-    const int row = q0 + r;
-    const float* brow = (p.bias && row < p.Nq)
-                            ? p.bias + ((size_t)bh * p.Nq + row) * p.Nk
-                            : nullptr;
-    const bf16* hrow = nullptr;
-    if constexpr (HOPS) {
-      if (row < p.Nq) hrow = p.hops + (b * p.nhop * p.Nq + row) * (long)p.Nk;
-    }
-    // pass 1: row max and exp-sum (and, with HOPS, the row tile's bias)
-    float m = -INFINITY, l = 0.0f;
-    for (int c0 = 0; c0 < NKP; c0 += ATT_KC) {
-      score_chunk<D>(qa, Ks, c0, Ss);
-      __syncwarp();
-      float bv[HOPS ? 16 : 1];
-      if constexpr (HOPS) {
-        if (hrow) {
-          hop_bias16<NHOP>(hrow, hop_plane, p.nhop, p.hid, mlp_s, c0 + half * 16, p.Nk, bv);
+  for (int dt = 0; dt < D / 8; ++dt) {
 #pragma unroll
-          for (int i = 0; i < 16; i += 4)
-            *reinterpret_cast<float4*>(&Bt[r * BLD + c0 + half * 16 + i]) =
-                make_float4(bv[i], bv[i + 1], bv[i + 2], bv[i + 3]);
-        }
+    for (int rs = 0; rs < 2; ++rs) {
+      const int row = rs ? r1 : r0;
+      if (row >= p.Nq) continue;
+      float v0 = o[dt][rs * 2], v1 = o[dt][rs * 2 + 1];
+      if constexpr (!TRAIN) {
+        v0 = __bfloat162float(__float2bfloat16(v0));
+        v1 = __bfloat162float(__float2bfloat16(v1));
       }
-      float sv[16];
-      float cm = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int j = c0 + half * 16 + i;
-        float s = -INFINITY;
-        if (j < p.Nk) {
-          s = Ss[r * SLD + half * 16 + i] * p.scale;
-          if (kbrow) s += kbrow[j];
-          if (brow) s += brow[j];
-          if constexpr (HOPS) {
-            if (hrow) s += bv[i];
-          }
-        }
-        sv[i] = s;
-        cm = fmaxf(cm, s);
-      }
-      cm = fmaxf(cm, __shfl_xor_sync(full, cm, 1));
-      const float mn = fmaxf(m, cm);
-      float part = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) part += sv[i] == -INFINITY ? 0.0f : expf(sv[i] - mn);
-      part += __shfl_xor_sync(full, part, 1);
-      l = (m == -INFINITY ? 0.0f : l * expf(m - mn)) + part;
-      m = mn;
-      __syncwarp();
-    }
-    // pass 2: P = bf16(exp(s - m) / l), O += P.V
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[D / 16];
-#pragma unroll
-    for (int t = 0; t < D / 16; ++t) wmma::fill_fragment(o[t], 0.0f);
-    for (int c0 = 0; c0 < NKP; c0 += ATT_KC) {
-      score_chunk<D>(qa, Ks, c0, Ss);
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int j = c0 + half * 16 + i;
-        float pv = 0.0f;
-        if (j < p.Nk) {
-          float s = Ss[r * SLD + half * 16 + i] * p.scale;
-          if (kbrow) s += kbrow[j];
-          if (brow) s += brow[j];
-          if constexpr (HOPS) {
-            if (hrow) s += Bt[r * BLD + j];
-          }
-          pv = s == -INFINITY ? 0.0f : expf(s - m) / l;
-        }
-        Ps[r * PLD + half * 16 + i] = __float2bfloat16(pv);
-      }
-      __syncwarp();
-#pragma unroll
-      for (int kt = 0; kt < ATT_KC / 16; ++kt) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-        wmma::load_matrix_sync(pa, Ps + kt * 16, PLD);
-#pragma unroll
-        for (int t = 0; t < D / 16; ++t) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-          wmma::load_matrix_sync(vb, Vs + (size_t)(c0 + kt * 16) * KLD + t * 16, KLD);
-          wmma::mma_sync(o[t], pa, vb, o[t]);
-        }
-      }
-      __syncwarp();
-    }
-#pragma unroll
-    for (int t = 0; t < D / 16; ++t)
-      wmma::store_matrix_sync(Ss + t * 16, o[t], SLD, wmma::mem_row_major);
-    __syncwarp();
-    for (int c = lane; c < 16 * D; c += 32) {
-      const int rr = c / D, d = c % D;
-      const int orow = q0 + rr;
-      if (orow < p.Nq) {
-        const float ov = __bfloat162float(__float2bfloat16(Ss[rr * SLD + d]));
-        st_val(p.out, p.out_dt, b * p.sob + (long)orow * p.son + h * D + d, ov);
+      const long idx = obase + (long)row * p.son + dt * 8 + 2 * t;
+      if (pair_ok) {
+        *reinterpret_cast<float2*>(static_cast<float*>(p.out) + idx) = make_float2(v0, v1);
+      } else {
+        st_val(p.out, p.out_dt, idx, v0);
+        st_val(p.out, p.out_dt, idx + 1, v1);
       }
     }
-    __syncwarp();
   }
 }
 
-template <int D, int NHOP>
-static int launch_attn(const AttnArgs& p, int B, cudaStream_t s) {
-  using L = AttnSmem<D>;
-  constexpr bool HOPS = NHOP > 0;
-  // the block's dynamic shared memory, less the static bias-MLP weights
-  const size_t limit = 227 * 1024 - (HOPS ? ALIGN128(HOP_MLP_FLOATS * 4) : 0);
-  const size_t kv = L::kv_bytes(p.NKP);
-  const size_t warp_bytes = L::WARP_BYTES + (HOPS ? L::bias_bytes(p.NKP) : 0);
-  if (kv + warp_bytes > limit) return (int)cudaErrorInvalidValue;
-  int max_warps = (int)((limit - kv) / warp_bytes);
-  if (max_warps > ATT_MAX_WARPS) max_warps = ATT_MAX_WARPS;
-  // as few rounds of query tiles as the warps allow, spread evenly
-  const int ntiles = (p.Nq + 15) / 16;
-  const int rounds = (ntiles + max_warps - 1) / max_warps;
-  const int nw = (ntiles + rounds - 1) / rounds;
-  const size_t smem = kv + nw * warp_bytes;
-  cudaError_t e = cudaFuncSetAttribute(attn_kernel<D, NHOP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  attn_kernel<D, NHOP><<<(unsigned)((long)B * p.H), nw * 32, smem, s>>>(p);
+// Threads a block may have and blocks an SM should hold, which set the
+// registers a thread gets: one pass 8 warps (up to 255 registers; 128 with
+// the bias MLP, whose arithmetic wants more warps in flight); two passes
+// two blocks of 12 warps (head dim 32: 85 registers) or 9 warps (head dim
+// 64: 113 registers), as many as two heads' keys and values leave room
+// for in an SM's shared memory.
+constexpr int att_max_threads(int d, int ch16) {
+  return ch16 == ATT_ROW16 ? 256 : d == 32 ? 384 : 288;
+}
+constexpr int att_min_blocks(int ch16, int nhop) {
+  return ch16 == ATT_ROW16 && nhop == 0 ? 1 : 2;
+}
+
+template <int D, int NHOP, int CH16>
+__global__ void __launch_bounds__(att_max_threads(D, CH16), att_min_blocks(CH16, NHOP))
+    attn_kernel(AttnArgs p) {
+  attn_body<D, NHOP, false, CH16>(p);
+}
+
+template <int D, int CH16>
+__global__ void __launch_bounds__(att_max_threads(D, CH16), att_min_blocks(CH16, 0))
+    train_fwd_kernel(AttnArgs p) {
+  attn_body<D, 0, true, CH16>(p);
+}
+
+// Shared memory the layout in attn_body needs.
+static size_t attn_smem_need(int D, int nk16, int warps, bool hops) {
+  const size_t kld = D + 8, nkp = (size_t)nk16 * 16;
+  return 4 * nkp * kld + 32 * (size_t)warps * kld + 4 * nkp
+         + (hops ? HOP_MLP_FLOATS * 4 : 0);
+}
+
+// Checks the plan against the shape and the card's limits and launches.
+// `configured`: the instantiation's dynamic shared-memory limit was raised.
+template <typename Kern>
+static int launch_attn_plan(Kern kern, bool& configured, const AttnArgs& p, int B, int D,
+                            bool hops, const AttnPlan& pl, cudaStream_t s) {
+  if (pl.warps < 1 || pl.warps * 32 > att_max_threads(D, pl.chunk16) || pl.qsplit < 1 ||
+      pl.qsplit > 65535 || (long)pl.qsplit * pl.warps * 16 < p.Nq ||
+      (pl.chunk16 == ATT_ROW16 && p.NK16 > ATT_ROW16) ||
+      pl.smem < (long)attn_smem_need(D, p.NK16, pl.warps, hops) || pl.smem > ATT_SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         ATT_SMEM_LIMIT);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  kern<<<dim3((unsigned)((long)B * p.H), (unsigned)pl.qsplit), pl.warps * 32,
+         (size_t)pl.smem, s>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int D, int NHOP>
+static int launch_attn(const AttnArgs& p, int B, const AttnPlan& pl, cudaStream_t s) {
+  static bool configured[2] = {false, false};
+  if (pl.chunk16 == ATT_ROW16)
+    return launch_attn_plan(attn_kernel<D, NHOP, ATT_ROW16>, configured[0], p, B, D,
+                            NHOP > 0, pl, s);
+  if (pl.chunk16 == ATT_CH16)
+    return launch_attn_plan(attn_kernel<D, NHOP, ATT_CH16>, configured[1], p, B, D,
+                            NHOP > 0, pl, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+static int launch_train_fwd(const AttnArgs& p, int B, const AttnPlan& pl, cudaStream_t s) {
+  static bool configured[2] = {false, false};
+  if (pl.chunk16 == ATT_ROW16)
+    return launch_attn_plan(train_fwd_kernel<D, ATT_ROW16>, configured[0], p, B, D, false,
+                            pl, s);
+  if (pl.chunk16 == ATT_CH16)
+    return launch_attn_plan(train_fwd_kernel<D, ATT_CH16>, configured[1], p, B, D, false,
+                            pl, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+static bool attn_args(AttnArgs& p, const void* q, const void* k, const void* v, int in_dt,
+                      long sqb, long sqn, long skb, long skn, long svb, long svn,
+                      int B, int H, int Nq, int Nk, const void* kvalid, long skvb,
+                      const void* bias, float scale) {
+  const int nk16 = (Nk + 15) / 16;
+  if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || nk16 * 16 > ATT_MAX_NK) return false;
+  p.q = q; p.k = k; p.v = v; p.in_dt = in_dt;
+  p.sqb = sqb; p.sqn = sqn; p.skb = skb; p.skn = skn; p.svb = svb; p.svn = svn;
+  p.H = H; p.Nq = Nq; p.Nk = Nk; p.NK16 = nk16;
+  p.kvalid = static_cast<const unsigned char*>(kvalid); p.skvb = skvb;
+  p.bias = static_cast<const float*>(bias);
+  p.scale = scale;
+  p.out = nullptr; p.out_dt = DT_F32; p.sob = 0; p.son = 0;
+  p.hops = nullptr; p.nhop = 0; p.hid = 0;
+  p.w1 = p.b1 = p.w2 = p.b2 = nullptr;
+  p.seed = nullptr; p.thresh = 0; p.inv_keep = 1.0f; p.stats = nullptr;
+  return true;
 }
 
 extern "C" int ec_attention(const void* q, const void* k, const void* v, int in_dt,
                             long sqb, long sqn, long skb, long skn, long svb, long svn,
                             int B, int H, int D, int Nq, int Nk,
-                            const void* kb, long skbb, const void* bias, float scale,
+                            const void* kvalid, long skvb, const void* bias, float scale,
                             void* out, int out_dt, long sob, long son,
                             const void* hops, int nhop, int hid, const void* w1,
                             const void* b1, const void* w2, const void* b2,
+                            int qsplit, int warps, int chunk16, long smem,
                             void* stream) {
-  const int nkp = (Nk + ATT_KC - 1) / ATT_KC * ATT_KC;
-  if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || nkp > ATT_MAX_NK)
+  AttnArgs p;
+  if (!attn_args(p, q, k, v, in_dt, sqb, sqn, skb, skn, svb, svn, B, H, Nq, Nk, kvalid,
+                 skvb, bias, scale))
     return (int)cudaErrorInvalidValue;
   if (hops && (bias || D != 32 || nhop <= 0 || nhop > HOP_MAX || hid <= 0 ||
                hid > HOP_MAX_HID || !w1 || !b1 || !w2 || !b2))
     return (int)cudaErrorInvalidValue;
-  AttnArgs p;
-  p.q = q; p.k = k; p.v = v; p.in_dt = in_dt;
-  p.sqb = sqb; p.sqn = sqn; p.skb = skb; p.skn = skn; p.svb = svb; p.svn = svn;
-  p.H = H; p.Nq = Nq; p.Nk = Nk; p.NKP = nkp;
-  p.kb = static_cast<const float*>(kb); p.skbb = skbb;
-  p.bias = static_cast<const float*>(bias);
-  p.scale = scale;
   p.out = out; p.out_dt = out_dt; p.sob = sob; p.son = son;
   p.hops = static_cast<const bf16*>(hops); p.nhop = nhop; p.hid = hid;
   p.w1 = static_cast<const float*>(w1); p.b1 = static_cast<const float*>(b1);
   p.w2 = static_cast<const float*>(w2); p.b2 = static_cast<const float*>(b2);
+  const AttnPlan pl = {qsplit, warps, chunk16, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hops) return nhop <= 5 ? launch_attn<32, 5>(p, B, s) : launch_attn<32, HOP_MAX>(p, B, s);
-  if (D == 32) return launch_attn<32, 0>(p, B, s);
-  if (D == 64) return launch_attn<64, 0>(p, B, s);
+  if (hops)
+    return nhop <= 5 ? launch_attn<32, 5>(p, B, pl, s) : launch_attn<32, HOP_MAX>(p, B, pl, s);
+  if (D == 32) return launch_attn<32, 0>(p, B, pl, s);
+  if (D == 64) return launch_attn<64, 0>(p, B, pl, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -859,15 +1257,13 @@ extern "C" int ec_coord_update(const void* ct, const void* dd, void* pts, void* 
 }
 
 // ---------------------------------------------------- training attention
-// Differentiable attention of the training step (ops/flash_attention.py
-// flash_mha_train): out = dropout(softmax(q.k^T * scale + kb[b] +
-// bias[b, h])) . v and its gradients dq, dk, dv, dbias. Same block shape
-// as the eval kernel above (one block per (batch, head), keys and values
-// resident in shared memory, warps on 16-row tiles, 32-wide chunks), with
-// the rounding points of the TPU training kernels: p stays fp32 through
-// the dropout and is rounded to bf16 only as the operand of p.v; the
-// output is stored fp32; in the backward `do` and ds are rounded to bf16
-// as matmul operands and every gradient is stored fp32.
+// Backward of the training attention (ops/flash_attention.py
+// flash_mha_train; the forward is train_fwd_kernel above): dq, dk, dv and
+// dbias of out = dropout(softmax(q.k^T * scale + kb[b] + bias[b, h])) . v.
+// One block per (batch, head) with keys and values resident in shared
+// memory, warps on 16-row tiles and 32-wide chunks (WMMA), with the
+// rounding points of the TPU training kernels: `do` and ds are rounded to
+// bf16 as matmul operands and every gradient is stored fp32.
 //
 // Dropout bits come from Philox-4x32-10 keyed by a 64-bit seed (read from
 // device memory, so drawing it never waits for the device) and
@@ -877,27 +1273,6 @@ extern "C" int ec_coord_update(const void* ct, const void* dd, void* pts, void* 
 //
 // The forward saves each row's max and reciprocal exp-sum; the backward
 // reads them instead of making a statistics pass of its own.
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += 0x9E3779B9u;
-    k.y += 0xBB67AE85u;
-  }
-  return c;
-}
-
-// Random bits of key columns [4 * cg, 4 * cg + 4) of query row `row` of
-// (batch, head) `bh`, as bits[0..3].
-__device__ __forceinline__ void dropout_bits(unsigned long long seed, unsigned bh,
-                                             unsigned row, unsigned cg, unsigned* bits) {
-  const uint4 r = philox4x32_10(make_uint4(cg, row, bh, 0u),
-                                make_uint2((unsigned)seed, (unsigned)(seed >> 32)));
-  bits[0] = r.x; bits[1] = r.y; bits[2] = r.z; bits[3] = r.w;
-}
 
 __global__ void dropout_mask_kernel(const unsigned long long* seed_ptr, unsigned thresh,
                                     long BH, int Nq, int Nk, unsigned char* keep) {
@@ -944,153 +1319,13 @@ struct TrainArgs {
   const unsigned long long* seed;    // one value on the device; read when thresh > 0
   unsigned thresh; float inv_keep;   // thresh 0: no dropout
   float* stats;                      // [B * H, Nq, 2]: row max, 1 / exp-sum
-  float* out; long sob, son;         // forward: fp32 [B, Nq, H * D]
   const void* dout; int do_dt; long sdb, sdn;
   float* dq; float* dk; float* dv;   // backward: fp32 [B, N, H * D], contiguous
   float* dbias;                      // [B, H, Nq, Nk] or null
 };
 
-template <int D>
-__global__ void __launch_bounds__(ATT_MAX_WARPS * 32) train_fwd_kernel(TrainArgs p) {
-  using L = AttnSmem<D>;
-  constexpr int KLD = L::KLD, SLD = L::SLD, PLD = L::PLD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int NKP = p.NKP;
-  const int nwarps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const unsigned full = 0xffffffffu;
-
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + (size_t)NKP * KLD;
-  unsigned char* wbase = smem + L::kv_bytes(NKP) + warp * L::WARP_BYTES;
-  bf16* Qs = reinterpret_cast<bf16*>(wbase);
-  float* Ss = reinterpret_cast<float*>(wbase + L::Q_BYTES);
-  bf16* Ps = reinterpret_cast<bf16*>(wbase + L::Q_BYTES + L::S_BYTES);
-
-  const long bh = blockIdx.x;
-  const long b = bh / p.H;
-  const int h = (int)(bh % p.H);
-  const unsigned long long seed = p.thresh ? *p.seed : 0ull;
-
-  for (int c = threadIdx.x; c < NKP * (D / 8); c += blockDim.x) {
-    const int n = c / (D / 8), d8 = (c % (D / 8)) * 8;
-    const int valid = n < p.Nk ? 8 : 0;
-    load8_any(&Ks[n * KLD + d8], p.k, p.in_dt, b * p.skb + (long)n * p.skn + h * D + d8, valid);
-    load8_any(&Vs[n * KLD + d8], p.v, p.in_dt, b * p.svb + (long)n * p.svn + h * D + d8, valid);
-  }
-  __syncthreads();
-
-  const float* kbrow = p.kb ? p.kb + b * p.skbb : nullptr;
-  const int r = lane >> 1, half = lane & 1;   // this lane: row r, 16 columns
-  const int ntiles = (p.Nq + 15) / 16;
-  for (int tile = warp; tile < ntiles; tile += nwarps) {
-    const int q0 = tile * 16;
-    for (int c = lane; c < 16 * (D / 8); c += 32) {
-      const int rr = c / (D / 8), d8 = (c % (D / 8)) * 8;
-      const int row = q0 + rr;
-      load8_any(&Qs[rr * KLD + d8], p.q, p.in_dt, b * p.sqb + (long)row * p.sqn + h * D + d8,
-                row < p.Nq ? 8 : 0);
-    }
-    __syncwarp();
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[D / 16];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) wmma::load_matrix_sync(qa[kk], Qs + kk * 16, KLD);
-
-    const int row = q0 + r;
-    const float* brow = (p.bias && row < p.Nq)
-                            ? p.bias + ((size_t)bh * p.Nq + row) * p.Nk
-                            : nullptr;
-    // pass 1: row max and exp-sum
-    float m = -INFINITY, l = 0.0f;
-    for (int c0 = 0; c0 < NKP; c0 += ATT_KC) {
-      score_chunk<D>(qa, Ks, c0, Ss);
-      __syncwarp();
-      float sv[16];
-      float cm = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int j = c0 + half * 16 + i;
-        float s = -INFINITY;
-        if (j < p.Nk) {
-          s = Ss[r * SLD + half * 16 + i] * p.scale;
-          if (kbrow) s += kbrow[j];
-          if (brow) s += brow[j];
-        }
-        sv[i] = s;
-        cm = fmaxf(cm, s);
-      }
-      cm = fmaxf(cm, __shfl_xor_sync(full, cm, 1));
-      const float mn = fmaxf(m, cm);
-      float part = 0.0f;
-#pragma unroll
-      for (int i = 0; i < 16; ++i) part += sv[i] == -INFINITY ? 0.0f : expf(sv[i] - mn);
-      part += __shfl_xor_sync(full, part, 1);
-      l = (m == -INFINITY ? 0.0f : l * expf(m - mn)) + part;
-      m = mn;
-      __syncwarp();
-    }
-    const float inv_l = l > 0.0f ? 1.0f / l : 0.0f;
-    if (half == 0 && row < p.Nq) {
-      p.stats[((size_t)bh * p.Nq + row) * 2] = m;
-      p.stats[((size_t)bh * p.Nq + row) * 2 + 1] = inv_l;
-    }
-    // pass 2: p = exp(s - m) / l in fp32, dropout, O += bf16(p_dropped).V
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[D / 16];
-#pragma unroll
-    for (int t = 0; t < D / 16; ++t) wmma::fill_fragment(o[t], 0.0f);
-    for (int c0 = 0; c0 < NKP; c0 += ATT_KC) {
-      score_chunk<D>(qa, Ks, c0, Ss);
-      __syncwarp();
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        unsigned bits[4] = {0xffffffffu, 0xffffffffu, 0xffffffffu, 0xffffffffu};
-        if (p.thresh)
-          dropout_bits(seed, (unsigned)bh, (unsigned)row,
-                       (unsigned)((c0 + half * 16) / 4 + g), bits);
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          const int i = g * 4 + a;
-          const int j = c0 + half * 16 + i;
-          float pv = 0.0f;
-          if (j < p.Nk) {
-            float s = Ss[r * SLD + half * 16 + i] * p.scale;
-            if (kbrow) s += kbrow[j];
-            if (brow) s += brow[j];
-            pv = s == -INFINITY ? 0.0f : expf(s - m) * inv_l;
-            pv = bits[a] >= p.thresh ? pv * p.inv_keep : 0.0f;
-          }
-          Ps[r * PLD + half * 16 + i] = __float2bfloat16(pv);
-        }
-      }
-      __syncwarp();
-#pragma unroll
-      for (int kt = 0; kt < ATT_KC / 16; ++kt) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-        wmma::load_matrix_sync(pa, Ps + kt * 16, PLD);
-#pragma unroll
-        for (int t = 0; t < D / 16; ++t) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-          wmma::load_matrix_sync(vb, Vs + (size_t)(c0 + kt * 16) * KLD + t * 16, KLD);
-          wmma::mma_sync(o[t], pa, vb, o[t]);
-        }
-      }
-      __syncwarp();
-    }
-#pragma unroll
-    for (int t = 0; t < D / 16; ++t)
-      wmma::store_matrix_sync(Ss + t * 16, o[t], SLD, wmma::mem_row_major);
-    __syncwarp();
-    for (int c = lane; c < 16 * D; c += 32) {
-      const int rr = c / D, d = c % D;
-      const int orow = q0 + rr;
-      if (orow < p.Nq) p.out[b * p.sob + (long)orow * p.son + h * D + d] = Ss[rr * SLD + d];
-    }
-    __syncwarp();
-  }
-}
-
-// Backward. Phase A: warps own 16-row query tiles with K and V resident,
-// exactly as the forward: a first pass over the key chunks sums
+// Backward. Phase A: warps own 16-row query tiles with K and V resident
+// in shared memory: a first pass over the key chunks sums
 // delta = rowsum(dp * p), a second forms ds = p * (dp - delta), stores it
 // as dbias and accumulates dq = bf16(ds) . k. Phase B: the block swaps
 // its resident operands for Q and dO, and warps own 16-row KEY tiles:
@@ -1114,6 +1349,26 @@ struct TrainBwdSmem {
     return ALIGN128((size_t)3 * nqp * 4);
   }
 };
+
+// Scores of a 16-row query tile against keys [c0, c0 + 32), fp32 into Ss.
+template <int D>
+__device__ __forceinline__ void score_chunk(
+    const wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>* qa,
+    const bf16* Ks, int c0, float* Ss) {
+  constexpr int KLD = TrainBwdSmem<D>::KLD, SLD = TrainBwdSmem<D>::SLD;
+#pragma unroll
+  for (int nt = 0; nt < ATT_KC / 16; ++nt) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
+    wmma::fill_fragment(s, 0.0f);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
+      wmma::load_matrix_sync(kf, Ks + (size_t)(c0 + nt * 16) * KLD + kk * 16, KLD);
+      wmma::mma_sync(s, qa[kk], kf, s);
+    }
+    wmma::store_matrix_sync(Ss + nt * 16, s, SLD, wmma::mem_row_major);
+  }
+}
 
 template <int D>
 __global__ void __launch_bounds__(ATT_MAX_WARPS * 32) train_bwd_kernel(TrainArgs p) {
@@ -1390,21 +1645,6 @@ static int train_warps(size_t fixed, size_t warp_bytes, int ntiles) {
 }
 
 template <int D>
-static int launch_train_fwd(const TrainArgs& p, int B, cudaStream_t s) {
-  using L = AttnSmem<D>;
-  const size_t kv = L::kv_bytes(p.NKP);
-  const int nw = train_warps(kv, L::WARP_BYTES, (p.Nq + 15) / 16);
-  if (nw == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = kv + nw * L::WARP_BYTES;
-  cudaError_t e = cudaFuncSetAttribute(train_fwd_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  train_fwd_kernel<D><<<(unsigned)((long)B * p.H), nw * 32, smem, s>>>(p);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
 static int launch_train_bwd(const TrainArgs& p, int B, cudaStream_t s) {
   using L = TrainBwdSmem<D>;
   const int np = p.NKP > p.NQP ? p.NKP : p.NQP;
@@ -1440,7 +1680,6 @@ static bool train_args(TrainArgs& p, const void* q, const void* k, const void* v
   p.seed = static_cast<const unsigned long long*>(seed);
   p.thresh = thresh; p.inv_keep = inv_keep;
   p.stats = static_cast<float*>(stats);
-  p.out = nullptr; p.sob = 0; p.son = 0;
   p.dout = nullptr; p.do_dt = 0; p.sdb = 0; p.sdn = 0;
   p.dq = nullptr; p.dk = nullptr; p.dv = nullptr; p.dbias = nullptr;
   return true;
@@ -1449,17 +1688,23 @@ static bool train_args(TrainArgs& p, const void* q, const void* k, const void* v
 extern "C" int ec_attn_train_fwd(const void* q, const void* k, const void* v, int in_dt,
                                  long sqb, long sqn, long skb, long skn, long svb, long svn,
                                  int B, int H, int D, int Nq, int Nk,
-                                 const void* kb, long skbb, const void* bias, float scale,
-                                 const void* seed, unsigned thresh, float inv_keep,
-                                 void* out, long sob, long son, void* stats, void* stream) {
-  TrainArgs p;
-  if (!train_args(p, q, k, v, in_dt, sqb, sqn, skb, skn, svb, svn, B, H, Nq, Nk, kb, skbb,
-                  bias, scale, seed, thresh, inv_keep, stats))
+                                 const void* kvalid, long skvb, const void* bias,
+                                 float scale, const void* seed, unsigned thresh,
+                                 float inv_keep, void* out, long sob, long son, void* stats,
+                                 int qsplit, int warps, int chunk16, long smem,
+                                 void* stream) {
+  AttnArgs p;
+  if (!attn_args(p, q, k, v, in_dt, sqb, sqn, skb, skn, svb, svn, B, H, Nq, Nk, kvalid,
+                 skvb, bias, scale) || (thresh && !seed) || !stats)
     return (int)cudaErrorInvalidValue;
-  p.out = static_cast<float*>(out); p.sob = sob; p.son = son;
+  p.seed = static_cast<const unsigned long long*>(seed);
+  p.thresh = thresh; p.inv_keep = inv_keep;
+  p.stats = static_cast<float*>(stats);
+  p.out = out; p.out_dt = DT_F32; p.sob = sob; p.son = son;
+  const AttnPlan pl = {qsplit, warps, chunk16, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 32) return launch_train_fwd<32>(p, B, s);
-  if (D == 64) return launch_train_fwd<64>(p, B, s);
+  if (D == 32) return launch_train_fwd<32>(p, B, pl, s);
+  if (D == 64) return launch_train_fwd<64>(p, B, pl, s);
   return (int)cudaErrorInvalidValue;
 }
 

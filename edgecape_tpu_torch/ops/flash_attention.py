@@ -8,12 +8,19 @@ softmax, probabilities rounded to bf16 before P.V, the output rounded to
 bf16 and returned in the caller's dtype.
 
 On the H100 the eval path calls it on the skeleton refine layers'
-keypoint self-attention ([34 x 8 heads, 100 x 100, D=32]): a tiny,
-latency-bound problem. The design gives each (row, head) one block that
-reads q/k/v straight from the [B, N, H*D] projections (no head transpose
-or bf16 cast pass), keeps all keys and values in shared memory, and runs
-both products on tensor cores (WMMA); the scores never reach device
-memory.
+keypoint self-attention ([34 x 8 heads, 100 x 100, D=32]), and the same
+kernel (`attn_kernel` in csrc/kernels.cu) is the attention step of every
+fused op of the eval path. At these shapes the operands are a few
+microseconds of memory traffic and less of tensor-core time, so what the
+kernel spends is latency and issue slots; the design (see the note in
+csrc/kernels.cu) keeps every score in registers: mma.sync tiles whose
+accumulators become the operand of P.V by a pack, a warp per 16-row query
+tile, the key row in one pass where it fits in registers (up to 128 keys)
+and in two register passes over 32-key chunks above, query tiles split
+over blocks by `ops/kernels.attention_plan`, keys and values copied in by
+cp.async, and the bool key mask read by the kernel. q/k/v are read
+straight from the [B, N, H*D] projections (no head transpose or cast
+pass), and a call is one launch.
 
 The wrapper runs the kernel for CUDA tensors and the plain PyTorch
 version for CPU tensors; `launches` counts kernel runs.
@@ -24,13 +31,15 @@ same JAX file: softmax(q k^T / sqrt(D) + key mask + bias) with dropout on
 the probabilities, times v, with bf16 matmul operands and fp32 softmax,
 dropout, output and gradients (dq, dk, dv and dbias for the Markov bias).
 Two CUDA kernels (ops/kernels.attention_train_fwd / _bwd) behind a
-`torch.autograd.Function`: the forward keeps each row's max and exp-sum,
-the backward recomputes the probabilities from them and regenerates the
-dropout mask from the same Philox seed, so neither scores, probabilities
-nor mask reach device memory. At the training shapes ([16 x 8 heads,
-100..356 tokens, D=32]) the work is a few microseconds of tensor-core
-time and the launch dominates; one block per (batch, head) keeps the
-whole head in shared memory. `launches_fwd` / `launches_bwd` count
+`torch.autograd.Function`: the forward (`train_fwd_kernel`, the same
+register-resident design with p kept fp32 through the dropout) keeps each
+row's max and reciprocal exp-sum, the backward recomputes the
+probabilities from them and regenerates the dropout mask from the same
+Philox seed, so neither scores, probabilities nor mask reach device
+memory. At the training shapes ([16 x 8 heads, 100..356 tokens, D=32])
+the forward is 0.01-0.05 ms of device time and the host's launch work
+dominates the op. The backward still takes an additive fp32 key mask and
+holds one (batch, head) per block. `launches_fwd` / `launches_bwd` count
 kernel runs.
 """
 
@@ -68,10 +77,9 @@ def flash_mha(q, k, v, key_valid=None):
     from . import kernels as K
     b, nq, h, d = q.shape
     nk = k.shape[1]
-    kb = None if key_valid is None else plain.key_bias(key_valid)
     out = K.attention(q.reshape(b, nq, h * d), k.reshape(b, nk, h * d),
                       v.reshape(b, nk, h * d), num_heads=h,
-                      scale=1.0 / math.sqrt(d), key_bias=kb,
+                      scale=1.0 / math.sqrt(d), key_valid=key_valid,
                       out_dtype=q.dtype)
     launches += 1
     return out.reshape(b, nq, h, d)
@@ -141,11 +149,10 @@ class _FlashTrain(torch.autograd.Function):
         global launches_fwd
         from . import kernels as K
         b, nq, h, d = q.shape
-        kb = None if key_valid is None else plain.key_bias(key_valid)
         out, stats = K.attention_train_fwd(
             _flat(q), _flat(k), _flat(v), num_heads=h,
-            scale=1.0 / math.sqrt(d), key_bias=kb, bias=bias, seed=seed,
-            rate=rate)
+            scale=1.0 / math.sqrt(d), key_valid=key_valid, bias=bias,
+            seed=seed, rate=rate)
         launches_fwd += 1
         ctx.save_for_backward(q, k, v, key_valid, bias, stats, seed)
         ctx.rate = rate

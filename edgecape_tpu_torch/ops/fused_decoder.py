@@ -134,7 +134,7 @@ def _fused_decoder_layer_cuda(x, query_pos, img_tokens, img_pos, kp_valid,
     qkv = K.gemm(xb, wqkv, b_nk=True, bias=bqkv).view(b, k, 3 * c)
     att = K.attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
                       num_heads=num_heads, scale=d ** -0.5,
-                      key_bias=plain.key_bias(kp_valid), bias=bias)
+                      key_valid=kp_valid, bias=bias)
     a = K.gemm(att.view(b * k, c), w16(sa.out_proj.weight), b_nk=True,
                bias=sa.out_proj.bias, out_dtype=f32)
     x1, x1b = K.layernorm(xb, layer.norm1.weight, layer.norm1.bias, eps,
@@ -353,7 +353,6 @@ def _fused_decoder_stack_cuda(x, initial_coords, img_tokens, img_pos,
     img = img_tokens.to(bf).contiguous()
     ipos = img_pos.to(bf).contiguous()
     adjb = adj.to(bf).contiguous()
-    kb = plain.key_bias(kp_valid)
     hops = hop_stack.to(bf).permute(0, 3, 1, 2).contiguous() \
         if has_bias else None
     kpos = K.gemm(ipos, w["wck_pos"], b_nk=True, bias=w["bck"],
@@ -376,7 +375,8 @@ def _fused_decoder_stack_cuda(x, initial_coords, img_tokens, img_pos,
         qkv = K.gemm(xb, lw["wqkv"], b_nk=True,
                      bias=lw["bqkv"]).view(b, k, 3 * c)
         att = K.attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
-                          num_heads=num_heads, scale=d ** -0.5, key_bias=kb,
+                          num_heads=num_heads, scale=d ** -0.5,
+                          key_valid=kp_valid,
                           hops=hops, hop_mlp=lw.get("hop_mlp"))
         a = K.gemm(att.view(r, c), lw["wso"], b_nk=True, bias=lw["bso"],
                    out_dtype=f32)

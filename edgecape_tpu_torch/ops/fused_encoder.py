@@ -75,7 +75,7 @@ def _fused_encoder_layer_cuda(tokens, pos, key_valid, layer, *, num_heads,
     qkv = K.gemm(src, wqkv, b_nk=True, bias=bqkv).view(b, n, 3 * c)
     att = K.attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
                       num_heads=num_heads, scale=1.0 / math.sqrt(d),
-                      key_bias=plain.key_bias(key_valid))
+                      key_valid=key_valid)
     a = K.gemm(att.view(b * n, c), w16(op.weight), b_nk=True, bias=op.bias,
                out_dtype=torch.float32)
     x, xb = K.layernorm(src, n1.weight, n1.bias, eps, r=a, out_bf16=True)

@@ -20,6 +20,7 @@ accept (device, dtype, strides) and launch on
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -48,10 +49,14 @@ _L = ctypes.c_long
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U32 = ctypes.c_uint
-# q, k, v, dtype, six strides, B, H, D, Nq, Nk, key bias + stride, bias,
-# scale, seed (device pointer), keep threshold, 1 / (1 - rate)
+# q, k, v, dtype, six strides, B, H, D, Nq, Nk, key mask + stride (bool
+# for the forward kernels, additive fp32 for the backward), bias, scale,
+# seed (device pointer), keep threshold, 1 / (1 - rate)
 _TRAIN_HEAD = [_P, _P, _P, _I, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _I,
                _P, _L, _P, _F, _P, _U32, _F]
+# the launch plan of the attention forward kernels (attention_plan): query
+# split, warps, key tiles per chunk, shared-memory bytes
+_PLAN = [_I, _I, _I, _L]
 _SIGNATURES = {
     "ec_gemm": [_P, _L, _L, _P, _L, _L, _I, _P, _L, _L, _I, _I, _I, _I, _I,
                 _P, _P, _I, _L, _L, _I, _P, _I, _L, _L, _P, _P],
@@ -60,10 +65,10 @@ _SIGNATURES = {
     "ec_add_pos": [_P, _I, _P, _P, _L, _L, _P],
     "ec_attention": [_P, _P, _P, _I, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I,
                      _I, _P, _L, _P, _F, _P, _I, _L, _L, _P, _I, _I, _P, _P,
-                     _P, _P, _P],
+                     _P, _P] + _PLAN + [_P],
     "ec_sine_feats": [_P, _P, _P, _L, _I, _P],
     "ec_coord_update": [_P, _P, _P, _P, _L, _F, _P],
-    "ec_attn_train_fwd": _TRAIN_HEAD + [_P, _L, _L, _P, _P],
+    "ec_attn_train_fwd": _TRAIN_HEAD + [_P, _L, _L, _P] + _PLAN + [_P],
     "ec_attn_train_bwd": _TRAIN_HEAD + [_P, _I, _L, _L, _P, _P, _P, _P, _P,
                                         _P],
     "ec_dropout_mask": [_P, _U32, _L, _I, _I, _P, _P],
@@ -309,18 +314,120 @@ def add_pos(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def attention(q, k, v, *, num_heads: int, scale: float, key_bias=None,
+# Limits of the attention forward kernels (csrc/kernels.cu): keys a block
+# holds in shared memory, 16-key tiles of a row that fit in registers (one
+# pass), 16-key tiles per chunk of the two-pass form, shared memory a block
+# may use, the in-kernel bias MLP's weights in shared memory.
+ATT_MAX_KEYS, ATT_ROW16, ATT_CH16 = 512, 8, 2
+ATT_SMEM_LIMIT, ATT_HOP_MLP_BYTES = 227 * 1024, (32 * 12 + 4) * 4
+
+
+def _max_warps(d: int, chunk_tiles: int) -> int:
+    """Warps (16-row query tiles) a block may have. One pass: a block's
+    keys are few (at most 128, 20 KB of shared memory with the values), so
+    four warps a block let many blocks share an SM and split small batches
+    finely. Two passes: the keys and values of a head take 59..147 KB,
+    read again by each block of the split, so a block takes as many tiles
+    as let two blocks share an SM's registers."""
+    if chunk_tiles == ATT_ROW16:
+        return 4
+    return 12 if d == 32 else 9
+
+
+@functools.lru_cache(maxsize=None)
+def _attention_plan(nq, nk, d, hops, train, chunk_tiles):
+    if d not in (32, 64):
+        raise ValueError(f"attention takes head dim 32 or 64, got {d}")
+    if nq < 1 or not 1 <= nk <= ATT_MAX_KEYS:
+        raise ValueError(f"attention takes 1..{ATT_MAX_KEYS} keys and at "
+                         f"least one query, got Nq={nq}, Nk={nk}")
+    if hops and (d != 32 or train):
+        raise ValueError("the in-kernel Markov bias takes head dim 32 and "
+                         "the eval kernel")
+    key_tiles = -(-nk // 16)
+    fits = key_tiles <= ATT_ROW16
+    if chunk_tiles is None:
+        chunk_tiles = ATT_ROW16 if fits else ATT_CH16
+    elif chunk_tiles not in (ATT_ROW16, ATT_CH16):
+        raise ValueError(f"chunks of {ATT_ROW16} or {ATT_CH16} key tiles, "
+                         f"got {chunk_tiles}")
+    elif chunk_tiles == ATT_ROW16 and not fits:
+        raise ValueError(f"{nk} keys do not fit one pass "
+                         f"({ATT_ROW16 * 16} at most)")
+    tiles = -(-nq // 16)
+    q_split = -(-tiles // _max_warps(d, chunk_tiles))
+    warps = -(-tiles // q_split)
+    kld, nkp = d + 8, key_tiles * 16
+    smem = 4 * nkp * kld + 32 * warps * kld + 4 * nkp \
+        + (ATT_HOP_MLP_BYTES if hops else 0)
+    if smem > ATT_SMEM_LIMIT or q_split > 65535:
+        raise ValueError(f"attention plan does not fit: {smem} bytes of "
+                         f"shared memory, query split {q_split}")
+    return (("q_split", q_split), ("warps", warps),
+            ("one_pass", chunk_tiles == ATT_ROW16), ("smem_bytes", smem),
+            ("key_tiles", key_tiles), ("chunk_tiles", chunk_tiles))
+
+
+def attention_plan(nq: int, nk: int, d: int, hops: bool = False,
+                   train: bool = False, chunk_tiles=None) -> dict:
+    """The launch plan of the attention forward kernels for Nq queries, Nk
+    keys and head dim d (with the in-kernel Markov bias; for the training
+    forward), from the shapes alone, so equal shapes always run the same
+    way:
+
+    * q_split, warps: a warp owns one 16-row query tile; block y of the
+      q_split blocks of a (batch, head) takes tiles [y * warps,
+      (y + 1) * warps);
+    * one_pass: the key row (key_tiles 16-key tiles) fits in registers, so
+      scores are formed once; else two passes over chunks of chunk_tiles
+      tiles. `chunk_tiles=2` forces two passes where one would do (for
+      measurements);
+    * smem_bytes: keys and values [key_tiles * 16, d + 8] bf16, a query
+      tile per warp, the additive key mask, the bias MLP's weights.
+
+    Raises for what the kernels do not take: d not 32 or 64, more than
+    512 keys, hops with d 64 or in training."""
+    return dict(_attention_plan(int(nq), int(nk), int(d), bool(hops),
+                                bool(train), chunk_tiles))
+
+
+def _plan_args(plan: dict) -> list:
+    return [plan["q_split"], plan["warps"], plan["chunk_tiles"],
+            plan["smem_bytes"]]
+
+
+def _key_mask(key_valid, b: int, nk: int):
+    """The bool key mask [B, Nk] as the kernels read it (one byte a key,
+    unit last stride): (tensor kept alive, pointer, batch stride)."""
+    if key_valid is None:
+        return None, None, 0
+    if key_valid.dtype != torch.bool or tuple(key_valid.shape) != (b, nk):
+        raise ValueError(f"key mask must be bool [{b}, {nk}], got "
+                         f"{key_valid.dtype} {tuple(key_valid.shape)}")
+    if key_valid.stride(-1) != 1:
+        key_valid = key_valid.contiguous()
+    return key_valid, key_valid.data_ptr(), key_valid.stride(0)
+
+
+def _f32_contiguous(t):
+    if t.dtype != torch.float32 or not t.is_contiguous():
+        t = t.to(torch.float32).contiguous()
+    return t
+
+
+def attention(q, k, v, *, num_heads: int, scale: float, key_valid=None,
               bias=None, hops=None, hop_mlp=None, out_dtype=torch.bfloat16,
-              out=None) -> torch.Tensor:
+              out=None, plan=None) -> torch.Tensor:
     """Multi-head attention on [B, N, H*D] views (unit last stride):
-    softmax(q k^T * scale + key_bias[b] + bias[b, h]) v per head, output
+    softmax(q k^T * scale + key mask[b] + bias[b, h]) v per head, output
     [B, Nq, H*D] rounded to bf16 (stored as out_dtype, or into `out`).
-    key_bias: [B, Nk] fp32 (0 or -inf); bias: [B, H, Nq, Nk] fp32. In its
-    place, `hops` [B, n_hop, Nq, Nk] bf16 with hop_mlp = (w1 [n_hop, hid],
-    b1 [hid], w2 [hid, H], b2 [H]) fp32 has the kernel form the Markov bias
-    relu(hops . w1 + b1) . w2 + b2 itself, so that it never lies in device
-    memory (head dim 32 only)."""
-    _cuda(q, k, v, key_bias, bias, hops, out)
+    key_valid: [B, Nk] bool, False keys are masked (read by the kernel);
+    bias: [B, H, Nq, Nk] fp32. In its place, `hops` [B, n_hop, Nq, Nk]
+    bf16 with hop_mlp = (w1 [n_hop, hid], b1 [hid], w2 [hid, H], b2 [H])
+    fp32 has the kernel form the Markov bias relu(hops . w1 + b1) . w2 + b2
+    itself, so that it never lies in device memory (head dim 32 only).
+    One launch; `plan` overrides attention_plan (for measurements)."""
+    _cuda(q, k, v, key_valid, bias, hops, out)
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("q, k, v dtypes differ")
     b, nq, c = q.shape
@@ -329,10 +436,9 @@ def attention(q, k, v, *, num_heads: int, scale: float, key_bias=None,
     for t in (q, k, v):
         if t.stride(-1) != 1:
             raise ValueError("attention operands need a unit last stride")
-    if key_bias is not None:
-        key_bias = key_bias.to(torch.float32).contiguous()
+    key_valid, kv_ptr, kv_stride = _key_mask(key_valid, b, nk)
     if bias is not None:
-        bias = bias.to(torch.float32).contiguous()
+        bias = _f32_contiguous(bias)
         if tuple(bias.shape) != (b, num_heads, nq, nk):
             raise ValueError(f"bias shape {tuple(bias.shape)}")
     nhop = hid = 0
@@ -350,17 +456,18 @@ def attention(q, k, v, *, num_heads: int, scale: float, key_bias=None,
             raise ValueError("in-kernel Markov bias takes a contiguous bf16 "
                              "hop stack [B, n_hop, Nq, Nk], fp32 MLP weights "
                              "and no other bias")
+    if plan is None:
+        plan = attention_plan(nq, nk, d, hops=hops is not None)
     if out is None:
         out = torch.empty((b, nq, c), dtype=out_dtype, device=q.device)
     elif tuple(out.shape) != (b, nq, c) or out.stride(-1) != 1:
         raise ValueError(f"attention out {tuple(out.shape)}")
     _call("ec_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), _dt(q),
           q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-          v.stride(1), b, num_heads, d, nq, nk, _ptr(key_bias),
-          key_bias.stride(0) if key_bias is not None else 0, _ptr(bias),
-          float(scale), out.data_ptr(), _dt(out), out.stride(0),
+          v.stride(1), b, num_heads, d, nq, nk, kv_ptr, kv_stride,
+          _ptr(bias), float(scale), out.data_ptr(), _dt(out), out.stride(0),
           out.stride(1), _ptr(hops), nhop, hid, _ptr(w1), _ptr(b1),
-          _ptr(w2), _ptr(b2), _stream())
+          _ptr(w2), _ptr(b2), *_plan_args(plan), _stream())
     return out
 
 
@@ -417,11 +524,13 @@ def _seed_ptr(seed, thresh):
     return seed.data_ptr()
 
 
-def _train_head(q, k, v, num_heads, scale, key_bias, bias, seed, rate):
+def _train_head(q, k, v, num_heads, scale, key_mask, bias, seed, rate,
+                bool_mask):
     """Checks and the leading arguments shared by the two training
-    attention entry points; returns (args, key_bias, bias) with the
-    fp32 contiguous tensors kept alive by the caller."""
-    _cuda(q, k, v, key_bias, bias)
+    attention entry points; returns (args, tensors kept alive by the
+    caller). The key mask is the bool [B, Nk] tensor for the forward
+    (bool_mask) and the additive fp32 one for the backward."""
+    _cuda(q, k, v, key_mask, bias)
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("q, k, v dtypes differ")
     b, nq, c = q.shape
@@ -433,37 +542,44 @@ def _train_head(q, k, v, num_heads, scale, key_bias, bias, seed, rate):
     for t in (q, k, v):
         if t.stride(-1) != 1:
             raise ValueError("attention operands need a unit last stride")
-    if key_bias is not None:
-        key_bias = key_bias.to(torch.float32).contiguous()
+    if bool_mask:
+        key_mask, km_ptr, km_stride = _key_mask(key_mask, b, nk)
+    else:
+        if key_mask is not None:
+            key_mask = _f32_contiguous(key_mask)
+        km_ptr = _ptr(key_mask)
+        km_stride = key_mask.stride(0) if key_mask is not None else 0
     if bias is not None:
-        bias = bias.to(torch.float32).contiguous()
+        bias = _f32_contiguous(bias)
         if tuple(bias.shape) != (b, num_heads, nq, nk):
             raise ValueError(f"bias shape {tuple(bias.shape)}")
     thresh, inv_keep = dropout_threshold(rate)
     args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), _dt(q), q.stride(0),
             q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            b, num_heads, d, nq, nk, _ptr(key_bias),
-            key_bias.stride(0) if key_bias is not None else 0, _ptr(bias),
+            b, num_heads, d, nq, nk, km_ptr, km_stride, _ptr(bias),
             float(scale), _seed_ptr(seed, thresh), thresh, inv_keep]
-    return args, key_bias, bias
+    return args, (key_mask, bias)
 
 
 def attention_train_fwd(q, k, v, *, num_heads: int, scale: float,
-                        key_bias=None, bias=None, seed=None,
-                        rate: float = 0.0):
+                        key_valid=None, bias=None, seed=None,
+                        rate: float = 0.0, plan=None):
     """Training attention forward on [B, N, H*D] views: returns
     (out fp32 [B, Nq, H*D], stats fp32 [B*H, Nq, 2] = row max and
-    reciprocal exp-sum, for the backward). Dropout at `rate` on the
-    probabilities from Philox keyed by `seed`, a one-element int64 CUDA
-    tensor."""
-    args, key_bias, bias = _train_head(q, k, v, num_heads, scale, key_bias,
-                                       bias, seed, rate)
+    reciprocal exp-sum, for the backward). key_valid: [B, Nk] bool, read
+    by the kernel. Dropout at `rate` on the probabilities from Philox
+    keyed by `seed`, a one-element int64 CUDA tensor. One launch."""
+    args, keep_alive = _train_head(q, k, v, num_heads, scale, key_valid,
+                                   bias, seed, rate, bool_mask=True)
     b, nq, c = q.shape
+    if plan is None:
+        plan = attention_plan(nq, k.shape[1], c // num_heads, train=True)
     out = torch.empty((b, nq, c), dtype=torch.float32, device=q.device)
     stats = torch.empty((b * num_heads, nq, 2), dtype=torch.float32,
                         device=q.device)
     _call("ec_attn_train_fwd", *args, out.data_ptr(), out.stride(0),
-          out.stride(1), stats.data_ptr(), _stream())
+          out.stride(1), stats.data_ptr(), *_plan_args(plan), _stream())
+    del keep_alive
     return out, stats
 
 
@@ -474,8 +590,9 @@ def attention_train_bwd(q, k, v, dout, stats, *, num_heads: int,
     """Training attention backward: (dq, dk, dv fp32 [B, N, H*D], dbias
     fp32 [B, H, Nq, Nk] or None when there is no bias or it is not
     needed), with the dropout mask regenerated from `seed`."""
-    args, key_bias, bias = _train_head(q, k, v, num_heads, scale, key_bias,
-                                       bias, seed, rate)
+    args, keep_alive = _train_head(q, k, v, num_heads, scale, key_bias,
+                                   bias, seed, rate, bool_mask=False)
+    bias = keep_alive[1]
     _cuda(dout, stats)
     b, nq, c = q.shape
     nk = k.shape[1]

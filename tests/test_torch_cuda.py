@@ -311,17 +311,206 @@ def test_attention_forms_the_markov_bias_from_the_hop_stack(dev):
                       .manual_seed(4)).to(dev).to(torch.bfloat16)
     w1, b1 = _rn(dev, nhop, hid, seed=5), _rn(dev, hid, seed=6)
     w2, b2 = _rn(dev, hid, h, seed=7), _rn(dev, h, seed=8)
-    kb = torch.zeros(b, n, device=dev)
-    kb[:, -5:] = -math.inf
+    kv = torch.ones(b, n, dtype=torch.bool, device=dev)
+    kv[:, -5:] = False
     hf = hops.float().permute(0, 2, 3, 1)                  # [B, N, N, hop]
     bias = (torch.relu(hf @ w1 + b1) @ w2 + b2).permute(0, 3, 1, 2)
-    ref = K.attention(q, k, v, num_heads=h, scale=d ** -0.5, key_bias=kb,
+    ref = K.attention(q, k, v, num_heads=h, scale=d ** -0.5, key_valid=kv,
                       bias=bias.contiguous())
-    out = K.attention(q, k, v, num_heads=h, scale=d ** -0.5, key_bias=kb,
+    out = K.attention(q, k, v, num_heads=h, scale=d ** -0.5, key_valid=kv,
                       hops=hops, hop_mlp=(w1, b1, w2, b2))
     d_ = (out.float() - ref.float()).abs()
     # the two sum the MLP in another order: at most a bf16 ulp of an output
     assert d_.max().item() <= 2 ** -7 and d_.mean().item() <= 1e-4
+
+
+# The attention forward kernels at the shapes the eval and training paths
+# give them (tools/bench_attention.py SHAPES), at a batch cut to 3: name,
+# Nq, Nk, heads, head dim, key mask, bias.
+ATTN_SHAPES = [("vit", 257, 257, 6, 64, False, False),
+               ("encoder", 356, 356, 8, 32, True, False),
+               ("decoder self", 100, 100, 8, 32, True, True),
+               ("decoder cross", 100, 256, 8, 64, False, False),
+               ("skeleton", 100, 100, 8, 32, True, False)]
+
+
+def _attn_operands(dev, b, nq, nk, h, d, dtype, mask, bias, seed=0):
+    """q, k, v as strided views of fused projections, a bool key mask with
+    one fully valid first key, an fp32 bias."""
+    g = torch.Generator().manual_seed(seed)
+    c = h * d
+    if nq == nk:
+        qkv = torch.randn(b, nq, 3 * c, generator=g).to(dev).to(dtype)
+        q, k, v = (qkv[..., i * c:(i + 1) * c] for i in range(3))
+    else:
+        q = torch.randn(b, nq, c, generator=g).to(dev).to(dtype)
+        kv = torch.randn(b, nk, 2 * c, generator=g).to(dev).to(dtype)
+        k, v = kv[..., :c], kv[..., c:]
+    valid = None
+    if mask:
+        valid = (torch.rand(b, nk, generator=g) > 0.3).to(dev)
+        valid[:, 0] = True
+    bt = torch.randn(b, h, nq, nk, generator=g).to(dev) if bias else None
+    return q, k, v, valid, bt
+
+
+def _plain_attention(q, k, v, valid, bias, h, d):
+    from edgecape_tpu_torch.ops import plain
+    kb = None if valid is None else plain.key_bias(valid)
+    return plain.attention(q, k, v, num_heads=h, scale=d ** -0.5, kb=kb,
+                           bias=bias)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", ATTN_SHAPES, ids=lambda s: s[0])
+def test_attention_matches_plain_at_path_shapes(dev, shape, dtype):
+    """bf16 and fp32 operands, strided QKV views, a new output and a
+    caller's strided `out=` buffer of either dtype."""
+    from edgecape_tpu_torch.ops import kernels as K
+    _, nq, nk, h, d, mask, bias = shape
+    q, k, v, valid, bt = _attn_operands(dev, 3, nq, nk, h, d, dtype, mask,
+                                        bias)
+    ref = _plain_attention(q, k, v, valid, bt, h, d)
+    out = K.attention(q, k, v, num_heads=h, scale=d ** -0.5, key_valid=valid,
+                      bias=bt)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    _close(out, ref)
+    for odt in (torch.bfloat16, torch.float32):
+        buf = torch.zeros(3, nq, 2 * h * d + 8, dtype=odt, device=dev)
+        view = buf[..., 8:8 + h * d]
+        got = K.attention(q, k, v, num_heads=h, scale=d ** -0.5,
+                          key_valid=valid, bias=bt, out=view)
+        assert got.data_ptr() == view.data_ptr()
+        assert torch.equal(view.float(), out.float())
+        assert not buf[..., :8].any() and not buf[..., 8 + h * d:].any()
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("nk", [1, 7, 100, 257, 356, 512])
+def test_attention_key_counts_and_forced_two_pass(dev, nk, d):
+    """Ragged key counts on both sides of the one-pass limit; the two-pass
+    form, forced where one pass is the default, also matches the plain
+    version."""
+    from edgecape_tpu_torch.ops import kernels as K
+    h, nq = 2, 45
+    q, k, v, valid, bt = _attn_operands(dev, 2, nq, nk, h, d, torch.bfloat16,
+                                        True, True, seed=nk)
+    ref = _plain_attention(q, k, v, valid, bt, h, d)
+    out = K.attention(q, k, v, num_heads=h, scale=d ** -0.5, key_valid=valid,
+                      bias=bt)
+    _close(out, ref)
+    plan = K.attention_plan(nq, nk, d)
+    if plan["one_pass"]:
+        two = K.attention(q, k, v, num_heads=h, scale=d ** -0.5,
+                          key_valid=valid, bias=bt,
+                          plan=K.attention_plan(nq, nk, d, chunk_tiles=2))
+        _close(two, ref)
+
+
+def test_attention_fully_masked_row_gives_zero(dev):
+    from edgecape_tpu_torch.ops import flash_attention as FA
+    from edgecape_tpu_torch.ops import kernels as K
+    for nk, d in ((100, 32), (257, 64)):
+        q, k, v, _, _ = _attn_operands(dev, 2, 33, nk, 2, d, torch.bfloat16,
+                                       False, False)
+        valid = torch.ones(2, nk, dtype=torch.bool, device=dev)
+        valid[1] = False
+        out = K.attention(q, k, v, num_heads=2, scale=d ** -0.5,
+                          key_valid=valid)
+        assert bool(torch.isfinite(out).all()) and not out[1].any()
+        assert out[0].any()
+        qf, kf, vf = (t.float().reshape(2, -1, 2, d) for t in (q, k, v))
+        tr = FA.flash_mha_train(qf, kf, vf, valid)
+        assert bool(torch.isfinite(tr).all()) and not tr[1].any()
+
+
+def test_attention_refuses_a_plan_that_does_not_cover_the_shape(dev):
+    from edgecape_tpu_torch.ops import kernels as K
+    q, k, v, _, _ = _attn_operands(dev, 2, 100, 100, 2, 32, torch.bfloat16,
+                                   False, False)
+    plan = K.attention_plan(100, 100, 32)
+    for bad in (dict(plan, q_split=1), dict(plan, smem_bytes=1024),
+                dict(plan, warps=32), dict(plan, smem_bytes=300 * 1024),
+                dict(plan, warps=12, smem_bytes=64 * 1024),
+                dict(plan, chunk_tiles=4)):
+        with pytest.raises(RuntimeError):
+            K.attention(q, k, v, num_heads=2, scale=1.0, plan=bad)
+    with pytest.raises(ValueError):
+        K.attention(q, k, v, num_heads=2, scale=1.0,
+                    key_valid=torch.zeros(2, 100, device=dev))
+
+
+@pytest.mark.parametrize("n,bias", [(100, True), (356, False)])
+def test_flash_mha_train_dropout_is_repeatable_and_differentiable(dev, n,
+                                                                  bias):
+    """Rate 0.1: one seed gives bit-equal outputs across two calls, and the
+    output and gradients (the backward regenerates the forward's mask)
+    match the plain version fed dropout_mask(seed)."""
+    from edgecape_tpu_torch.ops import flash_attention as FA
+    from edgecape_tpu_torch.ops import kernels as K
+    b, h, d, rate = 2, 8, 32, 0.1
+    g = torch.Generator().manual_seed(3)
+    q, k, v, go = (torch.randn(b, n, h, d, generator=g).to(dev)
+                   for _ in range(4))
+    valid = (torch.rand(b, n, generator=g) > 0.2).to(dev)
+    valid[:, 0] = True
+    bt = torch.randn(b, h, n, n, generator=g).to(dev) if bias else None
+
+    def run(fn, **kw):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        bl = None if bt is None else bt.clone().requires_grad_(True)
+        out = fn(*leaves, valid, bl, **kw)
+        grads = torch.autograd.grad(
+            out, leaves + ([bl] if bl is not None else []), go)
+        return out.detach(), grads
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(11)
+
+    out, grads = run(FA.flash_mha_train, dropout_rate=rate, generator=gen())
+    again, _ = run(FA.flash_mha_train, dropout_rate=rate, generator=gen())
+    assert torch.equal(out, again)
+    keep = K.dropout_mask(FA.dropout_seed(gen(), dev), rate, b * h, n,
+                          n).reshape(b, h, n, n)
+    assert abs(keep.float().mean().item() - (1 - rate)) < 0.01
+    ref, rgrads = run(FA.flash_mha_train_plain, dropout_rate=rate, keep=keep)
+    _close(out, ref)
+    for a, r in zip(grads, rgrads):
+        rel = ((a - r).norm() / r.norm()).item()
+        assert rel <= 1e-3, rel
+
+
+def _kernel_names(fn):
+    """Names of the device kernels one call of fn() launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def test_attention_ops_are_one_launch_and_count_it(dev):
+    """One call raises its launch counter by one and launches one kernel:
+    the bool mask is read in the kernel, no torch.where pass."""
+    from edgecape_tpu_torch.ops import flash_attention as FA
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(2, 100, 8, 32, generator=g).to(dev)
+               for _ in range(3))
+    valid = (torch.rand(2, 100, generator=g) > 0.3).to(dev)
+    valid[:, 0] = True
+    n0 = FA.launches
+    names = _kernel_names(lambda: FA.flash_mha(q, k, v, valid))
+    assert FA.launches == n0 + 2          # the warm-up call and the traced
+    assert len(names) == 1 and "attn_kernel" in names[0], names
+    n0 = FA.launches_fwd
+    with torch.no_grad():
+        names = _kernel_names(lambda: FA.flash_mha_train(q, k, v, valid))
+    assert FA.launches_fwd == n0 + 2
+    assert len(names) == 1 and "train_fwd_kernel" in names[0], names
 
 
 def test_sine_feats_and_coord_update_match_pytorch(dev):
