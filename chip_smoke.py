@@ -25,14 +25,24 @@ Phases (any failure exits non-zero before the last line):
    sites with and without dropout), one `[op] attention` line each from
    tools/bench_attention.py: kernel against plain within the same
    tolerance, device time (profiler), wrapper time, bound, SDPA on the
-   same shape with the mask it needs, and the launch plan used;
+   same shape with the mask it needs, and the launch plan used; the
+   training shapes also get a backward line (gradients against autograd
+   through the plain version, two runs bit-equal, the two backward kernels'
+   device time and nothing else launched, wrapper time, bound, SDPA's
+   backward). Then the GEMM behind the fused ops at the paths' shapes, one
+   `[op] gemm` line each from tools/bench_gemm.py: the TMA + wgmma
+   mainloop and the thread-copy one against a float64 reference, their
+   times, TFLOP/s, bound, torch.matmul, and which mainloop the dispatch
+   takes. Every [op] line of a fused op counts its GEMMs by mainloop;
 3. the main path: a stage-3 PoseEstimator (learned skeleton + Markov
    bias, K=100, 224 px, 1 shot, bf16 compute and head dtype, full
    ViT-S/14 width and depth, weights drawn from a seed with the
    zero-initialised parts redrawn) runs the port's depth-2 cached eval
    loop over 3 chunks of 34 episode groups x 15 queries built in memory;
    predictions are decoded on the host and scored (PCK); the launch
-   counters must show every kernel op ran as often as the path implies;
+   counters must show every kernel op ran as often as the path implies,
+   and every GEMM of it the TMA + wgmma mainloop but the decoder's
+   adjacency products (rows of 100 values, which no tensor map takes);
    one chunk is compared with the same weights on the plain (no kernel)
    path on the card; one more chunk of the kernel path runs under
    torch.profiler, which gives device time by kernel and the device's
@@ -259,18 +269,29 @@ def randomize(module, rn, dev):
 
 
 def check_op(entries, bad, name, replaces, op_src, out, ref, kern, plain,
-             bnd, library=None, counter=None, extra=""):
+             bnd, library=None, counter=None, extra="", copy_gemms=None):
     """One [op] line and one entry of the kernels line: the kernel's
     output `out` against the plain version's `ref` within ATOL + RTOL *
     |ref| (mean within MEAN_TOL), the times of kern() and plain() and of
     the library call, the bound `bnd`. counter: (module, attribute) of the
-    op's launch counter, which one call of kern() must raise by one."""
-    per_call = ""
+    op's launch counter, which one call of kern() must raise by one. The
+    line also says how many GEMMs of one call took the TMA + wgmma
+    mainloop and how many the thread-copy loader; copy_gemms: how many
+    may take the latter (operands a tensor map cannot describe)."""
+    from edgecape_tpu_torch.ops import kernels as KN
+    before = dict(KN.gemm_launches)
+    kern()
+    gemms = {k: KN.gemm_launches[k] - before[k] for k in before}
+    per_call = (f"; GEMMs per call: {gemms['tma']} TMA + wgmma, "
+                f"{gemms['copy']} thread-copy")
+    if copy_gemms is not None and gemms["copy"] != copy_gemms:
+        bad.append(f"{name}: {gemms['copy']} GEMMs took the thread-copy "
+                   f"loader, {copy_gemms} may")
     if counter is not None:
         n0 = getattr(*counter)
         kern()
         n = getattr(*counter) - n0
-        per_call = f"; {n} launch counted per call"
+        per_call += f"; {n} launch counted per call"
         if n != 1:
             bad.append(f"{name}: {n} counted launches for one call")
     torch.cuda.synchronize()
@@ -294,7 +315,7 @@ def check_op(entries, bad, name, replaces, op_src, out, ref, kern, plain,
                      "op": op_src, "replaces": replaces, "launches": 0,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bnd[0], "bound_by": bnd[1],
-                     "library_ms": lib_ms}
+                     "library_ms": lib_ms, "gemms_per_call": gemms}
 
 
 def main_path_config():
@@ -416,10 +437,15 @@ def op_checks(dev, entries):
     ]
     bad = []
     with torch.no_grad():
+        # every GEMM of these ops must take the TMA + wgmma mainloop but
+        # the decoder layer's two adjacency products, whose rows of K = 100
+        # bf16 values (200 bytes) no tensor map describes
+        copy_gemms = {"fused_decoder_layer": 2}
         for name, replaces, op_src, kern, plain, pairs in cases:
             out, ref = pairs() if pairs else (kern(), plain())
             check_op(entries, bad, name, replaces, op_src, out, ref, kern,
-                     plain, bounds[name], library=library.get(name))
+                     plain, bounds[name], library=library.get(name),
+                     copy_gemms=copy_gemms.get(name, 0))
         # the training step runs fused_vit_block on its support and query
         # images together, another row count than the eval chunk's (other
         # GEMM tile counts and partial tiles): held at that shape too
@@ -493,6 +519,7 @@ def main_path(dev, entries, power):
     from edgecape_tpu_torch.models.convert import (init_params,
                                                    redraw_zero_inits)
     from edgecape_tpu_torch.ops import affine
+    from edgecape_tpu_torch.ops import kernels as KN
     import edgecape_tpu_torch.ops.fused_decoder as FD
     import edgecape_tpu_torch.ops.fused_encoder as FE
     import edgecape_tpu_torch.ops.fused_vit_block as FV
@@ -520,11 +547,13 @@ def main_path(dev, entries, power):
                 (FD, "launches"), (FA, "launches")]
     for mod, attr in counters:
         setattr(mod, attr, 0)
+    KN.gemm_launches.update(tma=0, copy=0)
     t0 = time.perf_counter()
     timings = run_cached(est, [(i, GROUPS) for i in range(CHUNKS)],
                          lambda i: data[i], on_chunk)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    gemms = dict(KN.gemm_launches)
     counts = {"fused_vit_block": FV.launches,
               "fused_encoder_stack": FE.stack_launches,
               "fused_encoder_layer": FE.launches,
@@ -535,12 +564,20 @@ def main_path(dev, entries, power):
               "fused_encoder_layer": 3 * CHUNKS,
               "fused_decoder_layer": 3 * CHUNKS,
               "flash_mha": 3 * CHUNKS}
-    print(f"[path] launches {counts} expected {expect}", flush=True)
+    # 24 x 4 GEMMs of the ViT blocks, 3 x 4 of the encoder layers, 3 x 13
+    # of the decoder layers, of which the 2 adjacency products a layer
+    # (K = 100) are all that may take the thread-copy loader
+    expect_gemms = {"tma": (24 * 4 + 3 * 4 + 3 * 11) * CHUNKS,
+                    "copy": 3 * 2 * CHUNKS}
+    print(f"[path] launches {counts} expected {expect}; GEMM launches by "
+          f"mainloop {gemms} expected {expect_gemms}", flush=True)
     for name in ("fused_vit_block", "fused_encoder_stack",
                  "fused_decoder_layer", "flash_mha"):
         entries[name]["launches"] = counts[name]
     if counts != expect:
         fail("launch counts differ from what the main path implies")
+    if gemms != expect_gemms:
+        fail("a GEMM of the main path did not take the mainloop it should")
 
     nq = GROUPS * QUERIES
     bad = []
@@ -586,6 +623,34 @@ def main_path(dev, entries, power):
     print(f"[path] plain path (no kernels), same {CHUNKS} chunks: "
           f"{plain_wall:.3f} s, {CHUNKS * nq / plain_wall:.1f} img/s on "
           f"{power} (information only)", flush=True)
+    # the image copies: through the estimator's pinned buffers (as above)
+    # against plain copies from pageable memory, the same chunks in turns
+    def chunks_wall():
+        t0 = time.perf_counter()
+        run_cached(est, [(i, GROUPS) for i in range(CHUNKS)],
+                   lambda i: data[i], lambda *a: None)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    walls = {"pinned": [], "pageable": []}
+    staged_before = est._stage.staged
+    min_bytes = est._stage.min_bytes
+    for _ in range(2):
+        walls["pinned"].append(chunks_wall())
+        est._stage.min_bytes = float("inf")
+        walls["pageable"].append(chunks_wall())
+        est._stage.min_bytes = min_bytes
+    staged = est._stage.staged - staged_before
+    print(f"[path] host-to-device copies of the same {CHUNKS} chunks, best "
+          f"of 2 in turns: through pinned buffers "
+          f"{CHUNKS * nq / min(walls['pinned']):.1f} img/s ({staged} staged "
+          f"copies in 2 runs), from pageable memory "
+          f"{CHUNKS * nq / min(walls['pageable']):.1f} img/s on {power} "
+          f"(information only)", flush=True)
+    # per chunk: the query images, the support images and the adjacency
+    # stack (1.4 MB) are large enough to be staged
+    if staged != 2 * 3 * CHUNKS:
+        fail("the chunk's images did not go through the pinned buffers")
     profile(lambda: est.forward_cached(data[1][0], data[1][1]),
             "one chunk of the kernel path", power)
     return est, data, preds, (bb, head)
@@ -823,14 +888,46 @@ def attention_checks(dev, entries, power):
     from edgecape_tpu_torch.tools import bench_attention as BA
     if (BA.ATOL, BA.RTOL, BA.MEAN_TOL) != (ATOL, RTOL, MEAN_TOL):
         fail("tools/bench_attention.py holds another tolerance")
-    rows = []
+    rows, bwd_rows = [], []
     for spec in BA.SHAPES:
         rows.append(BA.run_case(spec, dev, power))
+        if spec[-1] is not None:
+            bwd_rows.append(BA.run_bwd_case(spec, dev, power))
+        torch.cuda.empty_cache()
+    bad = [r["name"] for r in rows + bwd_rows if not r["ok"]]
+    if bad:
+        fail(f"attention kernels disagree with their plain versions: {bad}")
+    # a backward is its two kernels and nothing else: no mask pass, no copy
+    # (nan: the trace had no device events and the time is CUDA events')
+    extra = [r["name"] for r in bwd_rows
+             if r["kernels_per_call"] == r["kernels_per_call"]
+             and r["kernels_per_call"] != 2]
+    if extra:
+        fail(f"the attention backward is not two kernels a call: {extra}")
+    entries["flash_mha"]["attention_shapes"] = rows
+    entries["flash_mha_train_bwd"]["attention_shapes"] = bwd_rows
+
+
+def gemm_checks(dev, entries, power):
+    """The `[op] gemm` lines: the GEMM behind the fused ops at the paths'
+    shapes (tools/bench_gemm.py SHAPES), both mainloops against a float64
+    reference, with their times, the bound and torch.matmul beside them;
+    the rows go into the fused_vit_block entry of the kernels line."""
+    from edgecape_tpu_torch.tools import bench_gemm as BG
+    rows = []
+    for spec in BG.SHAPES:
+        rows.append(BG.run_case(spec, dev, power))
         torch.cuda.empty_cache()
     bad = [r["name"] for r in rows if not r["ok"]]
     if bad:
-        fail(f"attention kernels disagree with their plain versions: {bad}")
-    entries["flash_mha"]["attention_shapes"] = rows
+        fail(f"the GEMM disagrees with the float64 reference: {bad}")
+    wrong = [r["name"] for r in rows
+             if (r["mainloop"] == "tma") != (r["shape"][2] >= 32
+                                             and r["shape"][3] % 8 == 0)]
+    if wrong:
+        fail(f"the GEMM's dispatch took another mainloop than the operands "
+             f"imply: {wrong}")
+    entries["fused_vit_block"]["gemm_shapes"] = rows
 
 
 # ------------------------------------------------------------ phase 4
@@ -1953,6 +2050,7 @@ def main() -> None:
     op_checks(dev, entries)
     train_op_checks(dev, entries)
     attention_checks(dev, entries, power)
+    gemm_checks(dev, entries, power)
     torch.cuda.empty_cache()
     est, data, preds, weights = main_path(dev, entries, power)
     torch.cuda.empty_cache()

@@ -40,6 +40,7 @@ from .models.convert import init_params
 from .models.edgecape import EdgeCape, SupportContext
 from .ops import heatmap
 from .ops.affine import transform_preds_batch
+from .staging import HostStager
 
 # ImageNet statistics, as in edgecape_tpu/ops/warp.py
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
@@ -109,6 +110,8 @@ class PoseEstimator:
                  device="cuda",
                  backbone_cfg: dinov2.DinoV2Config = dinov2.VIT_S14):
         self.device = resolve_device(device)
+        # host arrays reach the device through pinned buffers (CUDA only)
+        self._stage = HostStager(self.device)
         flash = cfg.model.use_flash
         self.use_flash = bool(self.device.type == "cuda" if flash is None
                               else flash)
@@ -200,31 +203,24 @@ class PoseEstimator:
         img_q [Nq, ...], group [Nq]. Returns (pred_norm [Nq, K, 2] fp32,
         raw_adj [Nq, K, K]) on the estimator's device; the work is queued
         on the device and not waited for."""
-        dev = self.device
-
-        def t(a):
-            return torch.as_tensor(a).to(dev, non_blocking=True)
-
+        t = self._stage
         with torch.no_grad(), self._precision():
-            ctx = self.support_context(t(support["img_s"]),
-                                       t(support["joints_s"]),
-                                       t(support["vis_s"]),
-                                       t(support["binary_adj"]))
-            group = t(query["group"]).long()
+            ctx = self.support_context(t(support["img_s"], "img_s"),
+                                       t(support["joints_s"], "joints_s"),
+                                       t(support["vis_s"], "vis_s"),
+                                       t(support["binary_adj"], "binary_adj"))
+            group = t(query["group"], "group").long()
             ctx_rows = SupportContext(*(None if a is None else a[group]
                                         for a in ctx))
-            pred = self.query_rows(ctx_rows, t(query["img_q"]))
+            pred = self.query_rows(ctx_rows, t(query["img_q"], "img_q"))
         return pred, ctx_rows.raw_adj
 
     # ---------------------------------------------------- uncached paths
     def _batch_tensors(self, batch):
-        dev = self.device
-
-        def t(a):
-            return torch.as_tensor(a).to(dev, non_blocking=True)
-
-        return (t(batch.img_s), t(batch.img_q), t(batch.target_s),
-                t(batch.weight_s), t(batch.binary_adj))
+        t = self._stage
+        return (t(batch.img_s, "img_s"), t(batch.img_q, "img_q"),
+                t(batch.target_s, "target_s"), t(batch.weight_s, "weight_s"),
+                t(batch.binary_adj, "binary_adj"))
 
     def _encode_batch(self, img_s, img_q, target_s, weight_s, binary_adj,
                       *, backbone, use_flash: bool):

@@ -6,11 +6,15 @@
 //
 // Each TPU kernel of the JAX package becomes a short chain of these
 // launches, with the TPU kernel's rounding points kept:
-//   * ec_gemm       tiled bf16 GEMM, fp32 accumulation (WMMA 16x16x16,
-//                   128x128 tiles, cp.async double buffering),
-//                   strided-batched, with a fused epilogue
-//                   (bias, pre-activation add, exact-erf GELU / ReLU,
-//                   fp32 LayerScale residual, bf16 or fp32 store);
+//   * ec_gemm       tiled bf16 GEMM, fp32 accumulation, strided-batched,
+//                   with a fused epilogue (bias, pre-activation add,
+//                   exact-erf GELU / ReLU, fp32 LayerScale residual, bf16
+//                   or fp32 store). Two mainloops: 128x128x64 tiles loaded
+//                   by TMA into swizzled shared memory and multiplied by
+//                   wgmma with the epilogue applied to the accumulator
+//                   registers, and, for operands a tensor map cannot
+//                   describe, tiles copied by the threads (cp.async) and
+//                   multiplied by WMMA;
 //   * ec_layernorm  row LayerNorm with fp32 statistics and an optional
 //                   residual input, fp32 and/or bf16 outputs;
 //   * ec_attention  short-sequence attention on mma.sync tensor-core
@@ -37,6 +41,7 @@
 // Nothing allocates or synchronises: the Python wrappers own the buffers
 // and the stream.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -90,6 +95,12 @@ __device__ __forceinline__ void load8_any(bf16* dst, const void* base, int dt,
   }
 }
 
+// Two floats rounded to bf16 in one register, `lo` in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -111,6 +122,13 @@ __device__ __forceinline__ float warp_max(float v) {
 // epilogue: y = acc + bias[n] + pre[m, n]; y = act(y);
 //           y = res[m, n] + ls[n] * y (when res is given; ls may be null);
 //           C[m, n] = y as fp32 or bf16.
+//
+// Two mainloops compute it. gemm_kernel (below) copies its tiles with
+// every thread's cp.async and multiplies them with WMMA; it takes any
+// operand. gemm_tma_kernel (further down) is the one the paths' large
+// GEMMs run; it needs operands that a tensor map can describe. The
+// caller names the mainloop (ops/kernels.py gemm_mainloop) and ec_gemm
+// refuses the TMA one for operands it cannot take.
 
 #define GBM 128
 #define GBN 128
@@ -317,6 +335,599 @@ __global__ void __launch_bounds__(GTHREADS) gemm_kernel(GemmArgs p) {
   }
 }
 
+// ------------------------------------------------- GEMM: TMA + wgmma mainloop
+// What bounds the paths' GEMMs on this card: at K = 256..384 and N up to
+// 1536 a GEMM of the eval chunk reads and writes about as many bytes as
+// the tensor cores need time for its products (M = 131070, N = 1152,
+// K = 384: 0.12 ms of traffic, 0.12 ms of products), so neither the loads
+// nor the stores may cost the threads anything. The thread-copied
+// mainloop above spends its instruction slots on address arithmetic, bounds
+// checks and a round trip of the accumulators through shared memory. The
+// design here:
+//   * one producer warp asks the Tensor Memory Accelerator for whole
+//     128 x 64 tiles of A and B (cp.async.bulk.tensor, three-dimensional
+//     maps: k or n, row, batch) into 128-byte-swizzled shared memory, three
+//     stages deep, each stage with a "full" mbarrier that the copy
+//     completes and an "empty" one that the consumers release. Rows and
+//     columns beyond M, N or K are zero-filled by the hardware, so ragged
+//     edges cost nothing in the loop.
+//   * two consumer warpgroups (64 rows each) multiply with
+//     wgmma.mma_async m64n128k16 straight from shared memory through
+//     matrix descriptors (B as [N, K] is K-major; B as [K, N] is loaded
+//     as two 64-column boxes and read MN-major through the descriptor's
+//     transpose bit), one group of wgmma in flight while the next stage is
+//     awaited, fp32 accumulators in 64 registers a thread.
+//   * the epilogue runs on the accumulator registers in wgmma's own
+//     layout (thread (warp w, lane 4g + t) holds rows 16w + g and + 8,
+//     column pairs 8j + 2t): bias, pre, activation, residual and
+//     LayerScale are applied there and the pairs stored straight to C.
+//   * 288 threads and 97 KB of shared memory a block: two blocks share an
+//     SM (112 registers a thread, no setmaxnreg needed at this tile
+//     size), so one block's epilogue runs under the other's mainloop. The
+//     grid is persistent (two blocks an SM walk the tiles, N fastest, so
+//     an A tile is read from L2 by its neighbours), which saves the launch
+//     of 9000 blocks a call and lets the producer load the next tile under
+//     the epilogue.
+// Measured on an H100 (tools/bench_gemm.py): two other schedules of the
+// same mainloop, one block an SM with the warpgroups taking tiles in turn
+// (6 stages) and one block an SM with a 256 x 128 tile (4 stages), came
+// within 3% of this one at the eval shapes and were slower at small M.
+// The maps are encoded per call on the host (cuTensorMapEncodeTiled,
+// fetched through the runtime, so nothing links against libcuda
+// itself) and passed as __grid_constant__ parameters.
+
+#define TG_BM 128
+#define TG_BN 128
+#define TG_BK 64
+#define TG_STAGES 3
+#define TG_THREADS 288      // two consumer warpgroups and the producer warp
+#define TG_A_BYTES (TG_BM * TG_BK * 2)
+#define TG_B_BYTES (TG_BN * TG_BK * 2)
+#define TG_STAGE_BYTES (TG_A_BYTES + TG_B_BYTES)
+// the stages (aligned to 1024 bytes in the kernel), then the barriers
+#define TG_SMEM (TG_STAGES * TG_STAGE_BYTES + 1024 + 2 * TG_STAGES * 8)
+#define TG_MIN_N 32         // narrower outputs take the thread-copy loader
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Spins until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned addr = smem_u32(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One box of a three-dimensional tensor map into shared memory; the copy
+// completes `bar` with the box's bytes.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Matrix descriptors of wgmma for 128-byte-swizzled tiles whose rows are
+// 128 bytes (64 bf16) and whose 8-row groups are 1024 bytes apart.
+// K-major (rows are m or n, k runs along a row): the leading offset is
+// unused, the stride offset is the 8-row group. MN-major (rows are k, n
+// runs along a row, 64 columns a box): the stride offset is the group of
+// 8 k, the leading offset the distance to the next 64 columns (one box).
+__device__ __forceinline__ uint64_t wg_desc(unsigned addr, unsigned lead_bytes) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(lead_bytes >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (+)= a . b for one m64n128k16 tile, a and b in shared memory. TB: b
+// is MN-major. `accumulate` 0 overwrites d.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+// Two neighbouring values of an epilogue operand (fp32 or bf16) at element
+// offset `off`, through the read-only path (so that the compiler may
+// start the epilogue's loads ahead of its stores): one load when `vec`
+// says base and strides keep the pair aligned; `two`: the second value
+// exists.
+__device__ __forceinline__ void ld_pair(const void* p, int dt, long off, bool vec, bool two,
+                                        float& a, float& b) {
+  if (dt == DT_F32) {
+    const float* f = static_cast<const float*>(p) + off;
+    if (vec && two) {
+      const float2 v = __ldg(reinterpret_cast<const float2*>(f));
+      a = v.x; b = v.y;
+    } else {
+      a = __ldg(f);
+      b = two ? __ldg(f + 1) : 0.0f;
+    }
+  } else {
+    const bf16* h = static_cast<const bf16*>(p) + off;
+    if (vec && two) {
+      const unsigned v = __ldg(reinterpret_cast<const unsigned*>(h));
+      a = __uint_as_float(v << 16);          // a bf16 is the top half of a float
+      b = __uint_as_float(v & 0xffff0000u);
+    } else {
+      const unsigned short* u = reinterpret_cast<const unsigned short*>(h);
+      a = __uint_as_float((unsigned)__ldg(u) << 16);
+      b = two ? __uint_as_float((unsigned)__ldg(u + 1) << 16) : 0.0f;
+    }
+  }
+}
+
+// Is a pair at an even element offset from `p` aligned, whatever the row
+// and the batch? (2 bf16 = 4 bytes, 2 fp32 = 8 bytes)
+__device__ __forceinline__ bool pair_aligned(const void* p, int dt, long ld, long sz) {
+  const uintptr_t bytes = dt == DT_F32 ? 8 : 4;
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0 && ld % 2 == 0 && sz % 2 == 0;
+}
+
+// The epilogue of a tile that lies whole inside N, with every operand
+// pair-aligned: straight-line code, so the loads of a step are started
+// eight pairs at a time and nothing waits on a bounds check. Rows beyond M
+// load row M - 1 (and are not stored).
+template <bool F32>
+__device__ __forceinline__ void epi_add_rows(float (&acc)[64], const void* base, long off0,
+                                             long off1) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const long off = half ? off1 : off0;
+#pragma unroll
+    for (int jb = 0; jb < TG_BN / 8; jb += 8) {
+      float2 v[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if constexpr (F32) {
+          v[j] = __ldg(reinterpret_cast<const float2*>(static_cast<const float*>(base) + off
+                                                       + 8 * (jb + j)));
+        } else {
+          const unsigned u = __ldg(reinterpret_cast<const unsigned*>(
+              static_cast<const bf16*>(base) + off + 8 * (jb + j)));
+          v[j] = make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[4 * (jb + j) + 2 * half] += v[j].x;
+        acc[4 * (jb + j) + 2 * half + 1] += v[j].y;
+      }
+    }
+  }
+}
+
+// acc (+ or *)= vec[col] for a per-column fp32 vector, both rows.
+template <bool MUL>
+__device__ __forceinline__ void epi_columns(float (&acc)[64], const float* vec) {
+#pragma unroll
+  for (int jb = 0; jb < TG_BN / 8; jb += 8) {
+    float2 v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = __ldg(reinterpret_cast<const float2*>(vec + 8 * (jb + j)));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float* a = &acc[4 * (jb + j)];
+      if constexpr (MUL) {
+        a[0] *= v[j].x; a[1] *= v[j].y; a[2] *= v[j].x; a[3] *= v[j].y;
+      } else {
+        a[0] += v[j].x; a[1] += v[j].y; a[2] += v[j].x; a[3] += v[j].y;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void epi_activation(float (&acc)[64], int act) {
+  if (act == ACT_GELU) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      acc[i] = 0.5f * acc[i] * (1.0f + erff(acc[i] * 0.70710678118654752f));
+  } else if (act == ACT_RELU) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = fmaxf(acc[i], 0.0f);
+  }
+}
+
+__device__ __forceinline__ void gemm_epilogue_full(float (&acc)[64], const GemmArgs& p, int z,
+                                                   int row0, int col0) {
+  const int r0 = min(row0, p.M - 1), r1 = min(row0 + 8, p.M - 1);
+  if (p.bias) epi_columns<false>(acc, p.bias + col0);
+  if (p.pre) {
+    const long b = (long)z * p.sPre + col0;
+    if (p.pre_dt == DT_F32)
+      epi_add_rows<true>(acc, p.pre, b + (long)r0 * p.ldpre, b + (long)r1 * p.ldpre);
+    else
+      epi_add_rows<false>(acc, p.pre, b + (long)r0 * p.ldpre, b + (long)r1 * p.ldpre);
+  }
+  epi_activation(acc, p.act);
+  if (p.res) {
+    if (p.ls) epi_columns<true>(acc, p.ls + col0);
+    const long b = (long)z * p.sRes + col0;
+    if (p.res_dt == DT_F32)
+      epi_add_rows<true>(acc, p.res, b + (long)r0 * p.ldres, b + (long)r1 * p.ldres);
+    else
+      epi_add_rows<false>(acc, p.res, b + (long)r0 * p.ldres, b + (long)r1 * p.ldres);
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (row0 + 8 * half >= p.M) continue;
+    const long off = (long)z * p.sC + (long)(row0 + 8 * half) * p.ldc + col0;
+    if (p.c_dt == DT_BF16) {
+      unsigned* c = reinterpret_cast<unsigned*>(static_cast<bf16*>(p.C) + off);
+#pragma unroll
+      for (int j = 0; j < TG_BN / 8; ++j)
+        c[4 * j] = pack_bf16(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    } else {
+      float2* c = reinterpret_cast<float2*>(static_cast<float*>(p.C) + off);
+#pragma unroll
+      for (int j = 0; j < TG_BN / 8; ++j)
+        c[4 * j] = make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// The epilogue of any tile: every column and pair is checked.
+__device__ __forceinline__ void gemm_epilogue_edge(float (&acc)[64], const GemmArgs& p, int z,
+                                                   int row0, int col0) {
+  const bool vec_n = (reinterpret_cast<uintptr_t>(p.bias) & 7) == 0 &&
+                     (reinterpret_cast<uintptr_t>(p.ls) & 7) == 0;
+  if (p.bias) {
+#pragma unroll
+    for (int j = 0; j < TG_BN / 8; ++j) {
+      const int gn = col0 + 8 * j;
+      if (gn >= p.N) continue;
+      float a, b;
+      ld_pair(p.bias, DT_F32, gn, vec_n, gn + 1 < p.N, a, b);
+      acc[4 * j] += a; acc[4 * j + 1] += b;
+      acc[4 * j + 2] += a; acc[4 * j + 3] += b;
+    }
+  }
+  if (p.pre) {
+    const bool vec = pair_aligned(p.pre, p.pre_dt, p.ldpre, p.sPre);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int gm = row0 + 8 * half;
+      if (gm >= p.M) continue;
+      const long row = (long)z * p.sPre + (long)gm * p.ldpre;
+#pragma unroll
+      for (int j = 0; j < TG_BN / 8; ++j) {
+        const int gn = col0 + 8 * j;
+        if (gn >= p.N) continue;
+        float a, b;
+        ld_pair(p.pre, p.pre_dt, row + gn, vec, gn + 1 < p.N, a, b);
+        acc[4 * j + 2 * half] += a; acc[4 * j + 2 * half + 1] += b;
+      }
+    }
+  }
+  epi_activation(acc, p.act);
+  if (p.res) {
+    if (p.ls) {
+#pragma unroll
+      for (int j = 0; j < TG_BN / 8; ++j) {
+        const int gn = col0 + 8 * j;
+        if (gn >= p.N) continue;
+        float a, b;
+        ld_pair(p.ls, DT_F32, gn, vec_n, gn + 1 < p.N, a, b);
+        acc[4 * j] *= a; acc[4 * j + 1] *= b;
+        acc[4 * j + 2] *= a; acc[4 * j + 3] *= b;
+      }
+    }
+    const bool vec = pair_aligned(p.res, p.res_dt, p.ldres, p.sRes);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int gm = row0 + 8 * half;
+      if (gm >= p.M) continue;
+      const long row = (long)z * p.sRes + (long)gm * p.ldres;
+#pragma unroll
+      for (int j = 0; j < TG_BN / 8; ++j) {
+        const int gn = col0 + 8 * j;
+        if (gn >= p.N) continue;
+        float a, b;
+        ld_pair(p.res, p.res_dt, row + gn, vec, gn + 1 < p.N, a, b);
+        acc[4 * j + 2 * half] += a; acc[4 * j + 2 * half + 1] += b;
+      }
+    }
+  }
+  const bool c_vec = pair_aligned(p.C, p.c_dt, p.ldc, p.sC);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int gm = row0 + 8 * half;
+    if (gm >= p.M) continue;
+    const long row = (long)z * p.sC + (long)gm * p.ldc;
+#pragma unroll
+    for (int j = 0; j < TG_BN / 8; ++j) {
+      const int gn = col0 + 8 * j;
+      if (gn >= p.N) continue;
+      const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+      if (c_vec && gn + 1 < p.N) {
+        if (p.c_dt == DT_BF16) {
+          *reinterpret_cast<unsigned*>(static_cast<bf16*>(p.C) + row + gn) =
+              pack_bf16(v0, v1);
+        } else {
+          *reinterpret_cast<float2*>(static_cast<float*>(p.C) + row + gn) =
+              make_float2(v0, v1);
+        }
+      } else {
+        st_val(p.C, p.c_dt, row + gn, v0);
+        if (gn + 1 < p.N) st_val(p.C, p.c_dt, row + gn + 1, v1);
+      }
+    }
+  }
+}
+
+// A persistent grid: block x takes the output tiles x, x + gridDim.x, ...,
+// numbered with N fastest, then M, then the batch. The k-tile count `it`
+// runs on across a block's tiles, so the stages and their barriers' phases
+// carry over and the producer loads the next tile under the epilogue.
+template <bool B_NK>
+__global__ void __launch_bounds__(TG_THREADS, 2)
+    gemm_tma_kernel(const __grid_constant__ CUtensorMap map_a,
+                    const __grid_constant__ CUtensorMap map_b, GemmArgs p, int batch) {
+  extern __shared__ unsigned char tg_raw[];
+  unsigned char* tiles = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(tg_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + TG_STAGES * TG_STAGE_BYTES);
+  uint64_t* empty = full + TG_STAGES;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nk = (p.K + TG_BK - 1) / TG_BK;
+  const int tiles_n = (p.N + TG_BN - 1) / TG_BN, tiles_m = (p.M + TG_BM - 1) / TG_BM;
+  const long total = (long)tiles_n * tiles_m * batch;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < TG_STAGES; ++s) {
+      mbar_init(&full[s], 1);      // the producer's arrive; the copies add bytes
+      mbar_init(&empty[s], 8);     // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {
+    // ---- producer: one lane keeps TG_STAGES tiles of copies in flight
+    if (lane == 0) {
+      unsigned it = 0;
+      for (long tile = blockIdx.x; tile < total; tile += gridDim.x) {
+        const int n0 = (int)(tile % tiles_n) * TG_BN;
+        const int m0 = (int)(tile / tiles_n % tiles_m) * TG_BM;
+        const int z = (int)(tile / tiles_n / tiles_m);
+        const int za = p.sA ? z : 0, zb = p.sB ? z : 0;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const unsigned s = it % TG_STAGES;
+          if (it >= TG_STAGES) mbar_wait(&empty[s], ((it / TG_STAGES) - 1) & 1);
+          unsigned char* As = tiles + s * TG_STAGE_BYTES;
+          unsigned char* Bs = As + TG_A_BYTES;
+          mbar_expect_tx(&full[s], TG_STAGE_BYTES);
+          tma_load_3d(As, &map_a, &full[s], kt * TG_BK, m0, za);
+          if constexpr (B_NK) {
+            tma_load_3d(Bs, &map_b, &full[s], kt * TG_BK, n0, zb);
+          } else {
+            tma_load_3d(Bs, &map_b, &full[s], n0, kt * TG_BK, zb);
+            tma_load_3d(Bs + TG_B_BYTES / 2, &map_b, &full[s], n0 + 64, kt * TG_BK, zb);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile
+  const int wg = warp >> 2;
+  const int g = lane >> 2, t = lane & 3;
+  // the straight-line epilogue needs every operand's pairs aligned
+  const bool aligned = pair_aligned(p.C, p.c_dt, p.ldc, p.sC) &&
+                       (reinterpret_cast<uintptr_t>(p.bias) & 7) == 0 &&
+                       (reinterpret_cast<uintptr_t>(p.ls) & 7) == 0 &&
+                       (!p.pre || pair_aligned(p.pre, p.pre_dt, p.ldpre, p.sPre)) &&
+                       (!p.res || pair_aligned(p.res, p.res_dt, p.ldres, p.sRes));
+  unsigned it = 0;
+  for (long tile = blockIdx.x; tile < total; tile += gridDim.x) {
+    const int n0 = (int)(tile % tiles_n) * TG_BN;
+    const int m0 = (int)(tile / tiles_n % tiles_m) * TG_BM;
+    const int z = (int)(tile / tiles_n / tiles_m);
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    for (int kt = 0; kt < nk; ++kt, ++it) {
+      const unsigned s = it % TG_STAGES;
+      mbar_wait(&full[s], (it / TG_STAGES) & 1);
+      const unsigned a_base = smem_u32(tiles + s * TG_STAGE_BYTES) + wg * 64 * 128;
+      const unsigned b_base = smem_u32(tiles + s * TG_STAGE_BYTES + TG_A_BYTES);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < TG_BK / 16; ++kk) {
+        const uint64_t da = wg_desc(a_base + kk * 32, 16);
+        if constexpr (B_NK) {
+          wgmma_m64n128k16<0>(acc, da, wg_desc(b_base + kk * 32, 16), 1);
+        } else {
+          wgmma_m64n128k16<1>(acc, da, wg_desc(b_base + kk * 2048, TG_B_BYTES / 2), 1);
+        }
+      }
+      wg_commit();
+      wg_wait<0>();              // the stage is read: hand it back to the producer
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+
+    // the epilogue on the accumulator registers: this thread's rows row0
+    // and row0 + 8, column pairs col0 + 8 j
+    const int row0 = m0 + wg * 64 + (warp & 3) * 16 + g;
+    const int col0 = n0 + 2 * t;
+    if (aligned && n0 + TG_BN <= p.N) {
+      gemm_epilogue_full(acc, p, z, row0, col0);
+    } else {
+      gemm_epilogue_edge(acc, p, z, row0, col0);
+    }
+  }
+}
+
+typedef CUresult (*TensorMapEncodeFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                      const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                      const cuuint32_t*, CUtensorMapInterleave,
+                                      CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                      CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the installed libcuda, through the runtime.
+static TensorMapEncodeFn tensor_map_encoder() {
+  static TensorMapEncodeFn fn = nullptr;
+  static bool tried = false;
+  if (!tried) {
+    tried = true;
+    void* sym = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &sym, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &sym, cudaEnableDefault,
+                                            &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<TensorMapEncodeFn>(sym);
+  }
+  return fn;
+}
+
+// Can a tensor map describe a bf16 operand with this base, row stride and
+// batch stride (both in elements)? 16-byte alignment of all three.
+static bool tma_operand_ok(const void* ptr, long ld, long sz, int batch) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0 && ld > 0 && ld % 8 == 0 &&
+         (batch == 1 || (sz >= 0 && sz % 8 == 0));
+}
+
+// A [rows, inner] bf16 matrix with row stride ld, repeated `batch` times
+// sz elements apart (0: shared), as a map of boxes [1, box_rows, 64].
+static bool encode_map(CUtensorMap* map, const void* ptr, long inner, long rows, long ld,
+                       long sz, int batch, unsigned box_rows) {
+  TensorMapEncodeFn encode = tensor_map_encoder();
+  if (!encode) return false;
+  const bool shared = batch == 1 || sz == 0;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                              (cuuint64_t)(shared ? 1 : batch)};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2,
+                                 (cuuint64_t)(shared ? rows * ld : sz) * 2};
+  const cuuint32_t box[3] = {64, box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <bool B_NK>
+static int launch_gemm_tma(const GemmArgs& p, int batch, cudaStream_t s) {
+  static bool configured = false;
+  if (p.N < TG_MIN_N || !tma_operand_ok(p.A, p.lda, p.sA, batch) ||
+      !tma_operand_ok(p.B, p.ldb, p.sB, batch))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_a, map_b;
+  if (!encode_map(&map_a, p.A, p.K, p.M, p.lda, p.sA, batch, TG_BM))
+    return (int)cudaErrorInvalidValue;
+  if (!(B_NK ? encode_map(&map_b, p.B, p.K, p.N, p.ldb, p.sB, batch, TG_BN)
+             : encode_map(&map_b, p.B, p.N, p.K, p.ldb, p.sB, batch, TG_BK)))
+    return (int)cudaErrorInvalidValue;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(gemm_tma_kernel<B_NK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, TG_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  static int slots = 0;       // blocks the card holds at once, two an SM
+  if (!slots) {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return (int)cudaGetLastError();
+    slots = 2 * sms;
+  }
+  const long total = (long)((p.N + TG_BN - 1) / TG_BN) * ((p.M + TG_BM - 1) / TG_BM) * batch;
+  const unsigned grid = (unsigned)(total < slots ? total : slots);
+  gemm_tma_kernel<B_NK><<<grid, TG_THREADS, TG_SMEM, s>>>(map_a, map_b, p, batch);
+  return (int)cudaGetLastError();
+}
+
+template <bool B_NK>
+static int launch_gemm_copy(const GemmArgs& p, int batch, cudaStream_t s) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(gemm_kernel<B_NK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, GEMM_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  dim3 grid((p.N + GBN - 1) / GBN, (p.M + GBM - 1) / GBM, batch);
+  gemm_kernel<B_NK><<<grid, GTHREADS, GEMM_SMEM, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// mainloop: 0 the thread-copy loader with WMMA, 1 TMA with wgmma (refused
+// with cudaErrorInvalidValue for operands a tensor map cannot describe).
 extern "C" int ec_gemm(const void* A, long lda, long sA,
                        const void* B, long ldb, long sB, int b_nk,
                        void* C, long ldc, long sC, int c_dt,
@@ -325,9 +936,9 @@ extern "C" int ec_gemm(const void* A, long lda, long sA,
                        const void* pre, int pre_dt, long ldpre, long sPre,
                        int act,
                        const void* res, int res_dt, long ldres, long sRes,
-                       const void* ls, void* stream) {
+                       const void* ls, int mainloop, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || batch <= 0 || (M + GBM - 1) / GBM > 65535 ||
-      batch > 65535)
+      batch > 65535 || mainloop < 0 || mainloop > 1)
     return (int)cudaErrorInvalidValue;
   GemmArgs p;
   p.A = static_cast<const bf16*>(A); p.lda = lda; p.sA = sA;
@@ -339,18 +950,10 @@ extern "C" int ec_gemm(const void* A, long lda, long sA,
   p.act = act;
   p.res = res; p.res_dt = res_dt; p.ldres = ldres; p.sRes = sRes;
   p.ls = static_cast<const float*>(ls);
-  dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* kernel = b_nk ? (const void*)gemm_kernel<true> : (const void*)gemm_kernel<false>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       GEMM_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  if (b_nk) {
-    gemm_kernel<true><<<grid, GTHREADS, GEMM_SMEM, s>>>(p);
-  } else {
-    gemm_kernel<false><<<grid, GTHREADS, GEMM_SMEM, s>>>(p);
-  }
-  return (int)cudaGetLastError();
+  if (mainloop == 1)
+    return b_nk ? launch_gemm_tma<true>(p, batch, s) : launch_gemm_tma<false>(p, batch, s);
+  return b_nk ? launch_gemm_copy<true>(p, batch, s) : launch_gemm_copy<false>(p, batch, s);
 }
 
 // ------------------------------------------------------------- LayerNorm
@@ -517,13 +1120,10 @@ extern "C" int ec_add_pos(const void* x, int x_dt, const void* pos, void* out,
 // in-kernel-bias form; its kernel is held to 128 registers so that four
 // blocks share an SM.
 
-#define ATT_KC 32          // keys per chunk of the training backward
 #define ATT_MAX_NK 512     // keys a block holds in shared memory
-#define ATT_MAX_WARPS 16
 #define ATT_ROW16 8        // 16-key tiles of a row held in registers (one pass)
 #define ATT_CH16 2         // 16-key tiles per chunk of the two-pass form
 #define ATT_SMEM_LIMIT (227 * 1024)
-#define ALIGN128(n) (((n) + 127) & ~(size_t)127)
 
 #define HOP_MAX 8          // hop planes the in-kernel bias MLP takes
 #define HOP_MAX_HID 32     // its hidden width
@@ -575,12 +1175,6 @@ __device__ __forceinline__ void mma16816(float* c, const unsigned* a, unsigned b
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats rounded to bf16 in one register, `lo` in the low half.
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -1259,20 +1853,58 @@ extern "C" int ec_coord_update(const void* ct, const void* dd, void* pts, void* 
 // ---------------------------------------------------- training attention
 // Backward of the training attention (ops/flash_attention.py
 // flash_mha_train; the forward is train_fwd_kernel above): dq, dk, dv and
-// dbias of out = dropout(softmax(q.k^T * scale + kb[b] + bias[b, h])) . v.
-// One block per (batch, head) with keys and values resident in shared
-// memory, warps on 16-row tiles and 32-wide chunks (WMMA), with the
-// rounding points of the TPU training kernels: `do` and ds are rounded to
-// bf16 as matmul operands and every gradient is stored fp32.
+// dbias of out = dropout(softmax(q.k^T * scale + key mask[b] + bias[b, h]))
+// . v, replacing _flash_train_bwd / _train_bwd_kernel of
+// edgecape_tpu/ops/flash_attention.py with its rounding points: `do`, the
+// dropped probabilities pd and ds are rounded to bf16 as matmul operands,
+// every gradient is accumulated and stored in fp32.
 //
 // Dropout bits come from Philox-4x32-10 keyed by a 64-bit seed (read from
 // device memory, so drawing it never waits for the device) and
 // counted by (column / 4, row, batch * H + head): one call gives the bits
 // of four neighbouring key columns of one query row, whatever the tiling,
 // so the backward regenerates the forward's mask. keep = bits >= thresh.
-//
 // The forward saves each row's max and reciprocal exp-sum; the backward
-// reads them instead of making a statistics pass of its own.
+// reads them instead of making a statistics pass of its own, and turns
+// the max to base 2 once per row so that a probability is one ex2.
+//
+// What bounds it on this card: a call moves 2..12 MB once (0.002..0.012 ms)
+// and its five products are less still, so, as in the forward, the time
+// goes to instruction slots and latency: recomputing p, the Philox rounds, and
+// getting tiles in and out of the tensor cores. The design keeps s, p, dp
+// and ds in mma.sync accumulator registers and splits the sequence over
+// the grid, in two launches that need no atomics and sum in a fixed order:
+//   * train_bwd_q_kernel, query-major: a warp owns a 16-row query tile,
+//     blocks split the query tiles of a (batch, head) over gridDim.y, keys
+//     and values lie in shared memory (cp.async). s = q.k^T and
+//     dp = do.v^T are formed in the accumulator layout with the forward's
+//     key permutation, so a lane's mask, bias, dbias and Philox group are
+//     the same four neighbouring keys. Up to 128 keys the row stays in
+//     registers and is formed once (3 products an element); longer rows
+//     take a first pass over 32-key chunks for delta = rowsum(dp * p) and
+//     a second that recomputes s and dp, forms ds = p * (dp - delta),
+//     stores it as dbias and feeds dq += bf16(ds) . k by a pack in
+//     registers (5 products). delta goes to device memory, 4 bytes a row.
+//   * train_bwd_k_kernel, key-major: a warp owns a 16-key tile, blocks
+//     split the key tiles over gridDim.y, queries and do lie in shared
+//     memory with each row's (max, 1 / sum, delta). It forms the
+//     transposed tiles s^T = k.q^T and dp^T = v.do^T, whose accumulators
+//     are again A operands: dv += bf16(pd^T) . do and dk += bf16(ds^T) . q
+//     (4 products). The tile's key rows are permuted so that a lane's two
+//     keys share a Philox group with its neighbour lane's two; the pair
+//     draws one group each for its two query columns and exchanges the
+//     keep bits by a shuffle, so a group is still drawn once.
+// Computing delta in the key-major kernel instead would cost every key
+// block a full score pass (2 products an element per block of the split);
+// delta = rowsum(do * o) would save the first pass (7 products instead of
+// 9) but sums bf16(pd) where the TPU kernel and the plain version sum
+// fp32 p, so it is not taken. One launch would need either one block per
+// (batch, head) (no split: what this replaces) or blocks that wait for
+// each other.
+// Hazards: padded keys carry -inf in the mask row and zero K and V rows,
+// padded queries zero q and do rows and zero statistics, so every padded
+// p, pd and ds is exactly 0; a fully masked row has max -inf and
+// reciprocal sum 0 and gives zero gradients.
 
 __global__ void dropout_mask_kernel(const unsigned long long* seed_ptr, unsigned thresh,
                                     long BH, int Nq, int Nk, unsigned char* keep) {
@@ -1309,380 +1941,464 @@ extern "C" int ec_dropout_mask(const void* seed, unsigned thresh, long BH, int N
   return (int)cudaGetLastError();
 }
 
-struct TrainArgs {
-  const void* q; const void* k; const void* v; int in_dt;
-  long sqb, sqn, skb, skn, svb, svn;
-  int H, Nq, Nk, NKP, NQP;
-  const float* kb; long skbb;        // [B, Nk] additive key mask or null
-  const float* bias;                 // [B, H, Nq, Nk] or null
-  float scale;
-  const unsigned long long* seed;    // one value on the device; read when thresh > 0
-  unsigned thresh; float inv_keep;   // thresh 0: no dropout
-  float* stats;                      // [B * H, Nq, 2]: row max, 1 / exp-sum
+#define BWD_MAX_WARPS 8
+#define BWD_KCH 4          // 8-query tiles per chunk of the key-major kernel
+
+// What the backward kernels take beside the forward's AttnArgs.
+struct BwdArgs {
   const void* dout; int do_dt; long sdb, sdn;
-  float* dq; float* dk; float* dv;   // backward: fp32 [B, N, H * D], contiguous
+  float* dq; float* dk; float* dv;   // fp32 [B, N, H * D], contiguous
   float* dbias;                      // [B, H, Nq, Nk] or null
+  float* delta;                      // [B * H, Nq]: rowsum(dp * p), between the launches
+  int NQ16;                          // 16-query tiles (queries padded to NQ16 * 16)
 };
 
-// Backward. Phase A: warps own 16-row query tiles with K and V resident
-// in shared memory: a first pass over the key chunks sums
-// delta = rowsum(dp * p), a second forms ds = p * (dp - delta), stores it
-// as dbias and accumulates dq = bf16(ds) . k. Phase B: the block swaps
-// its resident operands for Q and dO, and warps own 16-row KEY tiles:
-// for each chunk of 32 queries they recompute p^T and dp^T from the saved
-// row statistics and delta, and accumulate dv = bf16(pd)^T . do and
-// dk = bf16(ds)^T . q. One block owns a head, so dk and dv need no
-// atomics and the sums have a fixed order.
-template <int D>
-struct TrainBwdSmem {
-  static constexpr int KLD = D + 8;
-  static constexpr int SLD = (ATT_KC > D ? ATT_KC : D) + 4;
-  static constexpr int PLD = ATT_KC + 8;
-  static constexpr size_t T_BYTES = ALIGN128((size_t)16 * KLD * 2);
-  static constexpr size_t S_BYTES = ALIGN128((size_t)16 * SLD * 4);
-  static constexpr size_t P_BYTES = ALIGN128((size_t)16 * PLD * 2);
-  static constexpr size_t WARP_BYTES = 2 * (T_BYTES + S_BYTES + P_BYTES);
-  static __host__ __device__ size_t big_bytes(int np) {
-    return ALIGN128((size_t)2 * np * KLD * 2);
-  }
-  static __host__ __device__ size_t stat_bytes(int nqp) {
-    return ALIGN128((size_t)3 * nqp * 4);
-  }
-};
+// The launch plan, made by ops/kernels.py attention_bwd_plan.
+struct BwdPlan { int qsplit, qwarps, chunk16; long qsmem; int ksplit, kwarps; long ksmem; };
 
-// Scores of a 16-row query tile against keys [c0, c0 + 32), fp32 into Ss.
+// c += a . rows^T for the 8 shared-memory rows whose lane addresses are
+// `lane_row` (row lane % 8 of the tile, plus 8 * (lane / 8) columns): a
+// 16 x 8 tile of a product over D.
 template <int D>
-__device__ __forceinline__ void score_chunk(
-    const wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>* qa,
-    const bf16* Ks, int c0, float* Ss) {
-  constexpr int KLD = TrainBwdSmem<D>::KLD, SLD = TrainBwdSmem<D>::SLD;
+__device__ __forceinline__ void mma_rows8(float* c, const unsigned (&a)[D / 16][4],
+                                          const bf16* lane_row) {
 #pragma unroll
-  for (int nt = 0; nt < ATT_KC / 16; ++nt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-    wmma::fill_fragment(s, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-      wmma::load_matrix_sync(kf, Ks + (size_t)(c0 + nt * 16) * KLD + kk * 16, KLD);
-      wmma::mma_sync(s, qa[kk], kf, s);
-    }
-    wmma::store_matrix_sync(Ss + nt * 16, s, SLD, wmma::mem_row_major);
+  for (int kq = 0; kq < D / 32; ++kq) {
+    unsigned b0, b1, b2, b3;
+    ldsm_x4(lane_row + kq * 32, b0, b1, b2, b3);
+    mma16816(c, a[2 * kq], b0, b1);
+    mma16816(c, a[2 * kq + 1], b2, b3);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(ATT_MAX_WARPS * 32) train_bwd_kernel(TrainArgs p) {
-  using L = TrainBwdSmem<D>;
-  constexpr int KLD = L::KLD, SLD = L::SLD, PLD = L::PLD;
+// p (in s) and the dropped, rescaled dp (in dpv) of a 16-row query tile
+// against the NT 8-key tiles from key n0, in the forward's layout.
+template <int D, int NT>
+__device__ __forceinline__ void bwd_q_chunk(float (&s)[NT][4], float (&dpv)[NT][4],
+                                            const unsigned (&qa)[D / 16][4],
+                                            const unsigned (&da)[D / 16][4], const bf16* Ks,
+                                            const bf16* Vs, const float* kbs, int n0, int NKP,
+                                            const AttnArgs& p, const AttnRows& rw, int lane,
+                                            float z0, float z1, float inv0, float inv1,
+                                            unsigned long long seed, unsigned bh, int r0,
+                                            int r1) {
+  constexpr int KLD = D + 8;
+  const int kperm = 4 * ((lane & 7) >> 1) + (lane & 1);
+  const int t = lane & 3;
+  attn_scores<D, 0, NT>(s, qa, Ks, kbs, nullptr, n0, NKP, p, rw, lane);
+#pragma unroll
+  for (int j = 0; j < NT; j += 2) {
+    const int nb = n0 + j * 8;
+    if (nb >= NKP) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = s[j + 1][e] = dpv[j][e] = dpv[j + 1][e] = 0.0f;
+      continue;
+    }
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      float* c = dpv[j + jj];
+      c[0] = c[1] = c[2] = c[3] = 0.0f;
+      mma_rows8<D>(c, da, Vs + (size_t)(nb + kperm + 2 * jj) * KLD + (lane >> 3) * 8);
+      float* sp = s[j + jj];
+      sp[0] = ex2(sp[0] - z0) * inv0;
+      sp[1] = ex2(sp[1] - z0) * inv0;
+      sp[2] = ex2(sp[2] - z1) * inv1;
+      sp[3] = ex2(sp[3] - z1) * inv1;
+    }
+    if (p.thresh) {
+#pragma unroll
+      for (int rs = 0; rs < 2; ++rs) {
+        unsigned bits[4];
+        dropout_bits(seed, bh, (unsigned)(rs ? r1 : r0), (unsigned)(nb / 4 + t), bits);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ATT_S(dpv, j, rs, e) = bits[e] >= p.thresh ? ATT_S(dpv, j, rs, e) * p.inv_keep
+                                                     : 0.0f;
+      }
+    }
+  }
+}
+
+// CH16 as in attn_body: ATT_ROW16 the whole key row in registers, one
+// pass; ATT_CH16 two passes over chunks of that many 16-key tiles.
+template <int D, int CH16>
+__global__ void __launch_bounds__(BWD_MAX_WARPS * 32, CH16 == ATT_ROW16 ? 1 : 2)
+    train_bwd_q_kernel(AttnArgs p, BwdArgs w) {
+  constexpr bool ONE = CH16 == ATT_ROW16;
+  constexpr int KLD = D + 8;
+  constexpr int NT = 2 * CH16;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int NKP = p.NKP, NQP = p.NQP;
-  const int NP = NKP > NQP ? NKP : NQP;
+  const int NKP = p.NK16 * 16;
   const int nwarps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const unsigned full = 0xffffffffu;
+  const int g = lane >> 2, t = lane & 3;
 
-  bf16* Big0 = reinterpret_cast<bf16*>(smem);          // K, then Q
-  bf16* Big1 = Big0 + (size_t)NP * KLD;                // V, then dO
-  float* Ms = reinterpret_cast<float*>(smem + L::big_bytes(NP));
-  float* Ls = Ms + NQP;
-  float* Dl = Ls + NQP;
-  unsigned char* wbase = smem + L::big_bytes(NP) + L::stat_bytes(NQP) + warp * L::WARP_BYTES;
-  bf16* T0 = reinterpret_cast<bf16*>(wbase);
-  bf16* T1 = reinterpret_cast<bf16*>(wbase + L::T_BYTES);
-  float* S0 = reinterpret_cast<float*>(wbase + 2 * L::T_BYTES);
-  float* S1 = reinterpret_cast<float*>(wbase + 2 * L::T_BYTES + L::S_BYTES);
-  bf16* P0 = reinterpret_cast<bf16*>(wbase + 2 * L::T_BYTES + 2 * L::S_BYTES);
-  bf16* P1 = reinterpret_cast<bf16*>(wbase + 2 * L::T_BYTES + 2 * L::S_BYTES + L::P_BYTES);
+  // K and V [NKP][KLD], a query tile and a do tile [16][KLD] per warp,
+  // the additive key mask [NKP]
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + (size_t)NKP * KLD;
+  bf16* Qs = Vs + (size_t)NKP * KLD + (size_t)warp * 32 * KLD;
+  bf16* Gs = Qs + 16 * KLD;
+  float* kbs = reinterpret_cast<float*>(Vs + (size_t)NKP * KLD + (size_t)nwarps * 32 * KLD);
 
   const long bh = blockIdx.x;
   const long b = bh / p.H;
   const int h = (int)(bh % p.H);
-  const unsigned long long seed = p.thresh ? *p.seed : 0ull;
-  const float* kbrow = p.kb ? p.kb + b * p.skbb : nullptr;
+  const int tile = blockIdx.y * nwarps + warp;
+  const bool active = tile * 16 < p.Nq;
+  const int q0 = tile * 16;
 
+  if (active) {
+    for (int c = lane; c < 16 * (D / 8); c += 32) {
+      const int rr = c / (D / 8), d8 = (c % (D / 8)) * 8;
+      const bool in = q0 + rr < p.Nq;
+      stage8(&Qs[rr * KLD + d8], p.q, p.in_dt,
+             b * p.sqb + (long)(q0 + rr) * p.sqn + h * D + d8, in);
+      stage8(&Gs[rr * KLD + d8], w.dout, w.do_dt,
+             b * w.sdb + (long)(q0 + rr) * w.sdn + h * D + d8, in);
+    }
+  }
   for (int c = threadIdx.x; c < NKP * (D / 8); c += blockDim.x) {
     const int n = c / (D / 8), d8 = (c % (D / 8)) * 8;
-    const int valid = n < p.Nk ? 8 : 0;
-    load8_any(&Big0[n * KLD + d8], p.k, p.in_dt, b * p.skb + (long)n * p.skn + h * D + d8, valid);
-    load8_any(&Big1[n * KLD + d8], p.v, p.in_dt, b * p.svb + (long)n * p.svn + h * D + d8, valid);
+    stage8(&Ks[n * KLD + d8], p.k, p.in_dt, b * p.skb + (long)n * p.skn + h * D + d8,
+           n < p.Nk);
+    stage8(&Vs[n * KLD + d8], p.v, p.in_dt, b * p.svb + (long)n * p.svn + h * D + d8,
+           n < p.Nk);
   }
-  for (int i = threadIdx.x; i < NQP; i += blockDim.x) {
-    const bool in = i < p.Nq;
-    Ms[i] = in ? p.stats[((size_t)bh * p.Nq + i) * 2] : 0.0f;
-    Ls[i] = in ? p.stats[((size_t)bh * p.Nq + i) * 2 + 1] : 0.0f;
-    Dl[i] = 0.0f;
+  cp_async_commit();
+  for (int j = threadIdx.x; j < NKP; j += blockDim.x) {
+    const bool on = j < p.Nk && (p.kvalid == nullptr || p.kvalid[b * p.skvb + j] != 0);
+    kbs[j] = on ? 0.0f : -INFINITY;
   }
+  cp_async_wait<0>();
   __syncthreads();
+  if (!active) return;
 
-  // ---- phase A: dq, dbias, delta
-  {
-    const int r = lane >> 1, half = lane & 1;   // this lane: row r, 16 columns
-    const int ntiles = (p.Nq + 15) / 16;
-    for (int tile = warp; tile < ntiles; tile += nwarps) {
-      const int q0 = tile * 16;
-      for (int c = lane; c < 16 * (D / 8); c += 32) {
-        const int rr = c / (D / 8), d8 = (c % (D / 8)) * 8;
-        const int row = q0 + rr;
-        const int valid = row < p.Nq ? 8 : 0;
-        load8_any(&T0[rr * KLD + d8], p.q, p.in_dt,
-                  b * p.sqb + (long)row * p.sqn + h * D + d8, valid);
-        load8_any(&T1[rr * KLD + d8], p.dout, p.do_dt,
-                  b * p.sdb + (long)row * p.sdn + h * D + d8, valid);
+  const int r0 = q0 + g, r1 = q0 + g + 8;
+  unsigned qa[D / 16][4], da[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const size_t off = (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) * KLD + kk * 16
+                       + (lane >> 4) * 8;
+    ldsm_x4(Qs + off, qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3]);
+    ldsm_x4(Gs + off, da[kk][0], da[kk][1], da[kk][2], da[kk][3]);
+  }
+  AttnRows rw;
+  rw.brow[0] = rw.brow[1] = nullptr;
+  rw.hrow[0] = rw.hrow[1] = nullptr;
+  rw.hop_plane = 0;
+  rw.bias_vec = p.Nk % 4 == 0 && (reinterpret_cast<uintptr_t>(p.bias) & 15) == 0;
+  rw.hop_vec = false;
+  float* dbrow[2] = {nullptr, nullptr};
+  // the row's max in base 2 (0 for a fully masked row) and 1 / exp-sum
+  float z0 = 0.0f, z1 = 0.0f, inv0 = 0.0f, inv1 = 0.0f;
+  if (r0 < p.Nq) {
+    const size_t row = (size_t)bh * p.Nq + r0;
+    if (p.bias) rw.brow[0] = p.bias + row * p.Nk;
+    if (w.dbias) dbrow[0] = w.dbias + row * p.Nk;
+    const float m = p.stats[row * 2] * LOG2E_F;
+    z0 = m == -INFINITY ? 0.0f : m;
+    inv0 = p.stats[row * 2 + 1];
+  }
+  if (r1 < p.Nq) {
+    const size_t row = (size_t)bh * p.Nq + r1;
+    if (p.bias) rw.brow[1] = p.bias + row * p.Nk;
+    if (w.dbias) dbrow[1] = w.dbias + row * p.Nk;
+    const float m = p.stats[row * 2] * LOG2E_F;
+    z1 = m == -INFINITY ? 0.0f : m;
+    inv1 = p.stats[row * 2 + 1];
+  }
+  const bool db_vec = p.Nk % 4 == 0 && (reinterpret_cast<uintptr_t>(w.dbias) & 15) == 0;
+  const unsigned long long seed = p.thresh ? *p.seed : 0ull;
+
+  float s[NT][4], dpv[NT][4];
+  float delta0 = 0.0f, delta1 = 0.0f;
+  if constexpr (!ONE) {
+    for (int n0 = 0; n0 < NKP; n0 += NT * 8) {
+      bwd_q_chunk<D, NT>(s, dpv, qa, da, Ks, Vs, kbs, n0, NKP, p, rw, lane, z0, z1, inv0,
+                         inv1, seed, (unsigned)bh, r0, r1);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        delta0 += s[j][0] * dpv[j][0] + s[j][1] * dpv[j][1];
+        delta1 += s[j][2] * dpv[j][2] + s[j][3] * dpv[j][3];
       }
-      __syncwarp();
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[D / 16], da[D / 16];
+    }
+    delta0 = quad_sum(delta0);
+    delta1 = quad_sum(delta1);
+  }
+  float dq[D / 8][4];
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::load_matrix_sync(qa[kk], T0 + kk * 16, KLD);
-        wmma::load_matrix_sync(da[kk], T1 + kk * 16, KLD);
+  for (int dt = 0; dt < D / 8; ++dt) dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.0f;
+  for (int n0 = 0; n0 < NKP; n0 += NT * 8) {     // one round when ONE
+    bwd_q_chunk<D, NT>(s, dpv, qa, da, Ks, Vs, kbs, n0, NKP, p, rw, lane, z0, z1, inv0, inv1,
+                       seed, (unsigned)bh, r0, r1);
+    if constexpr (ONE) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        delta0 += s[j][0] * dpv[j][0] + s[j][1] * dpv[j][1];
+        delta1 += s[j][2] * dpv[j][2] + s[j][3] * dpv[j][3];
       }
-      const int row = q0 + r;
-      const float* brow = (p.bias && row < p.Nq)
-                              ? p.bias + ((size_t)bh * p.Nq + row) * p.Nk
-                              : nullptr;
-      float* dbrow = (p.dbias && row < p.Nq)
-                         ? p.dbias + ((size_t)bh * p.Nq + row) * p.Nk
-                         : nullptr;
-      const float m = Ms[q0 + r], inv_l = Ls[q0 + r];
-      float delta = 0.0f;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> dq[D / 16];
+      delta0 = quad_sum(delta0);
+      delta1 = quad_sum(delta1);
+    }
 #pragma unroll
-      for (int t = 0; t < D / 16; ++t) wmma::fill_fragment(dq[t], 0.0f);
-      for (int pass = 0; pass < 2; ++pass) {
-        for (int c0 = 0; c0 < NKP; c0 += ATT_KC) {
-          score_chunk<D>(qa, Big0, c0, S0);     // q . k^T
-          score_chunk<D>(da, Big1, c0, S1);     // do . v^T
-          __syncwarp();
-          float part = 0.0f;
+    for (int j = 0; j < NT; ++j) {               // ds = p * (dp - delta), in place of p
+      s[j][0] *= dpv[j][0] - delta0;
+      s[j][1] *= dpv[j][1] - delta0;
+      s[j][2] *= dpv[j][2] - delta1;
+      s[j][3] *= dpv[j][3] - delta1;
+    }
+    if (w.dbias) {
 #pragma unroll
-          for (int g = 0; g < 4; ++g) {
-            unsigned bits[4] = {0xffffffffu, 0xffffffffu, 0xffffffffu, 0xffffffffu};
-            if (p.thresh)
-              dropout_bits(seed, (unsigned)bh, (unsigned)row,
-                           (unsigned)((c0 + half * 16) / 4 + g), bits);
+      for (int j = 0; j < NT; j += 2) {
+        const int k0 = n0 + j * 8 + 4 * t;
 #pragma unroll
-            for (int a = 0; a < 4; ++a) {
-              const int i = g * 4 + a;
-              const int j = c0 + half * 16 + i;
-              float ds = 0.0f;
-              if (j < p.Nk && row < p.Nq) {
-                float s = S0[r * SLD + half * 16 + i] * p.scale;
-                if (kbrow) s += kbrow[j];
-                if (brow) s += brow[j];
-                const float pr = s == -INFINITY ? 0.0f : expf(s - m) * inv_l;
-                const float dp = bits[a] >= p.thresh
-                                     ? S1[r * SLD + half * 16 + i] * p.inv_keep
-                                     : 0.0f;
-                if (pass == 0) {
-                  part += dp * pr;
-                } else {
-                  ds = pr * (dp - delta);
-                  if (dbrow) dbrow[j] = ds;
-                }
-              }
-              if (pass == 1) P0[r * PLD + half * 16 + i] = __float2bfloat16(ds);
-            }
-          }
-          if (pass == 0) {
-            part += __shfl_xor_sync(full, part, 1);
-            delta += part;
+        for (int rs = 0; rs < 2; ++rs) {
+          if (!dbrow[rs] || k0 >= p.Nk) continue;
+          if (db_vec) {                          // Nk % 4 == 0: the four keys exist
+            *reinterpret_cast<float4*>(dbrow[rs] + k0) =
+                make_float4(ATT_S(s, j, rs, 0), ATT_S(s, j, rs, 1), ATT_S(s, j, rs, 2),
+                            ATT_S(s, j, rs, 3));
           } else {
-            __syncwarp();
 #pragma unroll
-            for (int kt = 0; kt < ATT_KC / 16; ++kt) {
-              wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-              wmma::load_matrix_sync(pa, P0 + kt * 16, PLD);
-#pragma unroll
-              for (int t = 0; t < D / 16; ++t) {
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> kf;
-                wmma::load_matrix_sync(kf, Big0 + (size_t)(c0 + kt * 16) * KLD + t * 16, KLD);
-                wmma::mma_sync(dq[t], pa, kf, dq[t]);
-              }
-            }
+            for (int e = 0; e < 4; ++e)
+              if (k0 + e < p.Nk) dbrow[rs][k0 + e] = ATT_S(s, j, rs, e);
           }
-          __syncwarp();
         }
       }
-      if (half == 0) Dl[q0 + r] = delta;
+    }
+    attn_pv<D, NT>(dq, s, Ks, n0 / 16, p.NK16, lane);   // dq += bf16(ds) . k
+  }
+
+  if (t == 0) {
+    if (r0 < p.Nq) w.delta[(size_t)bh * p.Nq + r0] = delta0;
+    if (r1 < p.Nq) w.delta[(size_t)bh * p.Nq + r1] = delta1;
+  }
+  const long HD = (long)p.H * D;
 #pragma unroll
-      for (int t = 0; t < D / 16; ++t)
-        wmma::store_matrix_sync(S0 + t * 16, dq[t], SLD, wmma::mem_row_major);
-      __syncwarp();
-      for (int c = lane; c < 16 * D; c += 32) {
-        const int rr = c / D, d = c % D;
-        const int orow = q0 + rr;
-        if (orow < p.Nq)
-          p.dq[((size_t)b * p.Nq + orow) * p.H * D + h * D + d] = S0[rr * SLD + d] * p.scale;
-      }
-      __syncwarp();
+  for (int dt = 0; dt < D / 8; ++dt) {
+#pragma unroll
+    for (int rs = 0; rs < 2; ++rs) {
+      const int row = rs ? r1 : r0;
+      if (row >= p.Nq) continue;
+      *reinterpret_cast<float2*>(w.dq + (b * p.Nq + row) * HD + h * D + dt * 8 + 2 * t) =
+          make_float2(dq[dt][rs * 2] * p.scale, dq[dt][rs * 2 + 1] * p.scale);
     }
   }
-  __syncthreads();      // every warp is done with K and V; delta is complete
-
-  // ---- phase B: dk, dv
-  for (int c = threadIdx.x; c < NQP * (D / 8); c += blockDim.x) {
-    const int n = c / (D / 8), d8 = (c % (D / 8)) * 8;
-    const int valid = n < p.Nq ? 8 : 0;
-    load8_any(&Big0[n * KLD + d8], p.q, p.in_dt, b * p.sqb + (long)n * p.sqn + h * D + d8, valid);
-    load8_any(&Big1[n * KLD + d8], p.dout, p.do_dt, b * p.sdb + (long)n * p.sdn + h * D + d8,
-              valid);
-  }
-  __syncthreads();
-  {
-    const int kg = lane & 3, qg = lane >> 2;   // this lane: 4 keys x 4 queries
-    const int ntiles = (p.Nk + 15) / 16;
-    for (int tile = warp; tile < ntiles; tile += nwarps) {
-      const int k0 = tile * 16;
-      for (int c = lane; c < 16 * (D / 8); c += 32) {
-        const int rr = c / (D / 8), d8 = (c % (D / 8)) * 8;
-        const int n = k0 + rr;
-        const int valid = n < p.Nk ? 8 : 0;
-        load8_any(&T0[rr * KLD + d8], p.k, p.in_dt, b * p.skb + (long)n * p.skn + h * D + d8,
-                  valid);
-        load8_any(&T1[rr * KLD + d8], p.v, p.in_dt, b * p.svb + (long)n * p.svn + h * D + d8,
-                  valid);
-      }
-      __syncwarp();
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ka[D / 16], va[D / 16];
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::load_matrix_sync(ka[kk], T0 + kk * 16, KLD);
-        wmma::load_matrix_sync(va[kk], T1 + kk * 16, KLD);
-      }
-      float kbv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int key = k0 + kg * 4 + a;
-        kbv[a] = key < p.Nk ? (kbrow ? kbrow[key] : 0.0f) : -INFINITY;
-      }
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> dv[D / 16], dk[D / 16];
-#pragma unroll
-      for (int t = 0; t < D / 16; ++t) {
-        wmma::fill_fragment(dv[t], 0.0f);
-        wmma::fill_fragment(dk[t], 0.0f);
-      }
-      for (int q0 = 0; q0 < NQP; q0 += ATT_KC) {
-        score_chunk<D>(ka, Big0, q0, S0);     // k . q^T  = s^T
-        score_chunk<D>(va, Big1, q0, S1);     // v . do^T = dpd^T
-        __syncwarp();
-#pragma unroll
-        for (int bq = 0; bq < 4; ++bq) {
-          const int qc = qg * 4 + bq;
-          const int qi = q0 + qc;
-          unsigned bits[4] = {0xffffffffu, 0xffffffffu, 0xffffffffu, 0xffffffffu};
-          float m = 0.0f, inv_l = 0.0f, delta = 0.0f;
-          const float* brow = nullptr;
-          if (qi < p.Nq) {
-            m = Ms[qi]; inv_l = Ls[qi]; delta = Dl[qi];
-            if (p.bias) brow = p.bias + ((size_t)bh * p.Nq + qi) * p.Nk;
-            if (p.thresh)
-              dropout_bits(seed, (unsigned)bh, (unsigned)qi, (unsigned)(k0 / 4 + kg), bits);
-          }
-#pragma unroll
-          for (int a = 0; a < 4; ++a) {
-            const int kr = kg * 4 + a;
-            const int key = k0 + kr;
-            float pd = 0.0f, ds = 0.0f;
-            if (qi < p.Nq && key < p.Nk) {
-              float s = S0[kr * SLD + qc] * p.scale + kbv[a];
-              if (brow) s += brow[key];
-              const float pr = s == -INFINITY ? 0.0f : expf(s - m) * inv_l;
-              const bool keep = bits[a] >= p.thresh;
-              pd = keep ? pr * p.inv_keep : 0.0f;
-              const float dp = keep ? S1[kr * SLD + qc] * p.inv_keep : 0.0f;
-              ds = pr * (dp - delta);
-            }
-            P0[kr * PLD + qc] = __float2bfloat16(pd);
-            P1[kr * PLD + qc] = __float2bfloat16(ds);
-          }
-        }
-        __syncwarp();
-#pragma unroll
-        for (int kt = 0; kt < ATT_KC / 16; ++kt) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa, sa;
-          wmma::load_matrix_sync(pa, P0 + kt * 16, PLD);
-          wmma::load_matrix_sync(sa, P1 + kt * 16, PLD);
-#pragma unroll
-          for (int t = 0; t < D / 16; ++t) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> of, qf;
-            wmma::load_matrix_sync(of, Big1 + (size_t)(q0 + kt * 16) * KLD + t * 16, KLD);
-            wmma::load_matrix_sync(qf, Big0 + (size_t)(q0 + kt * 16) * KLD + t * 16, KLD);
-            wmma::mma_sync(dv[t], pa, of, dv[t]);
-            wmma::mma_sync(dk[t], sa, qf, dk[t]);
-          }
-        }
-        __syncwarp();
-      }
-#pragma unroll
-      for (int t = 0; t < D / 16; ++t) {
-        wmma::store_matrix_sync(S0 + t * 16, dv[t], SLD, wmma::mem_row_major);
-        wmma::store_matrix_sync(S1 + t * 16, dk[t], SLD, wmma::mem_row_major);
-      }
-      __syncwarp();
-      for (int c = lane; c < 16 * D; c += 32) {
-        const int rr = c / D, d = c % D;
-        const int n = k0 + rr;
-        if (n < p.Nk) {
-          const size_t o = ((size_t)b * p.Nk + n) * p.H * D + h * D + d;
-          p.dv[o] = S0[rr * SLD + d];
-          p.dk[o] = S1[rr * SLD + d] * p.scale;
-        }
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// Warps per block: as few rounds of `ntiles` tiles as the shared memory
-// left beside `fixed` bytes allows, spread evenly; 0 when not one fits.
-static int train_warps(size_t fixed, size_t warp_bytes, int ntiles) {
-  const size_t limit = 227 * 1024;
-  if (fixed + warp_bytes > limit) return 0;
-  int max_warps = (int)((limit - fixed) / warp_bytes);
-  if (max_warps > ATT_MAX_WARPS) max_warps = ATT_MAX_WARPS;
-  const int rounds = (ntiles + max_warps - 1) / max_warps;
-  return (ntiles + rounds - 1) / rounds;
 }
 
 template <int D>
-static int launch_train_bwd(const TrainArgs& p, int B, cudaStream_t s) {
-  using L = TrainBwdSmem<D>;
-  const int np = p.NKP > p.NQP ? p.NKP : p.NQP;
-  const size_t fixed = L::big_bytes(np) + L::stat_bytes(p.NQP);
-  const int nt = (p.Nq > p.Nk ? p.Nq : p.Nk) + 15;
-  const int nw = train_warps(fixed, L::WARP_BYTES, nt / 16);
-  if (nw == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = fixed + nw * L::WARP_BYTES;
-  cudaError_t e = cudaFuncSetAttribute(train_bwd_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  train_bwd_kernel<D><<<(unsigned)((long)B * p.H), nw * 32, smem, s>>>(p);
+__global__ void __launch_bounds__(BWD_MAX_WARPS * 32, 2)
+    train_bwd_k_kernel(AttnArgs p, BwdArgs w) {
+  constexpr int KLD = D + 8;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int NQP = w.NQ16 * 16;
+  const int nwarps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  // Q and do [NQP][KLD], each query's (max in base 2, 1 / sum, delta, 0),
+  // a key tile and a value tile [16][KLD] per warp
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Gs = Qs + (size_t)NQP * KLD;
+  float4* sts = reinterpret_cast<float4*>(Gs + (size_t)NQP * KLD);
+  bf16* Kt = reinterpret_cast<bf16*>(sts + NQP) + (size_t)warp * 32 * KLD;
+  bf16* Vt = Kt + 16 * KLD;
+
+  const long bh = blockIdx.x;
+  const long b = bh / p.H;
+  const int h = (int)(bh % p.H);
+  const int tile = blockIdx.y * nwarps + warp;
+  const bool active = tile * 16 < p.Nk;
+  const int k0 = tile * 16;
+
+  if (active) {
+    for (int c = lane; c < 16 * (D / 8); c += 32) {
+      const int rr = c / (D / 8), d8 = (c % (D / 8)) * 8;
+      const bool in = k0 + rr < p.Nk;
+      stage8(&Kt[rr * KLD + d8], p.k, p.in_dt,
+             b * p.skb + (long)(k0 + rr) * p.skn + h * D + d8, in);
+      stage8(&Vt[rr * KLD + d8], p.v, p.in_dt,
+             b * p.svb + (long)(k0 + rr) * p.svn + h * D + d8, in);
+    }
+  }
+  for (int c = threadIdx.x; c < NQP * (D / 8); c += blockDim.x) {
+    const int n = c / (D / 8), d8 = (c % (D / 8)) * 8;
+    stage8(&Qs[n * KLD + d8], p.q, p.in_dt, b * p.sqb + (long)n * p.sqn + h * D + d8,
+           n < p.Nq);
+    stage8(&Gs[n * KLD + d8], w.dout, w.do_dt, b * w.sdb + (long)n * w.sdn + h * D + d8,
+           n < p.Nq);
+  }
+  cp_async_commit();
+  for (int i = threadIdx.x; i < NQP; i += blockDim.x) {
+    float4 st = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (i < p.Nq) {
+      const size_t row = (size_t)bh * p.Nq + i;
+      const float m = p.stats[row * 2] * LOG2E_F;
+      st.x = m == -INFINITY ? 0.0f : m;
+      st.y = p.stats[row * 2 + 1];
+      st.z = w.delta[row];
+    }
+    sts[i] = st;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!active) return;
+
+  // A-operand row r of the tile stands for key 4 * (r % 8 / 2) + r % 2
+  // + 2 * (r / 8): a lane's rows g and g + 8 are keys of one Philox group
+  const int arow = 4 * ((lane & 7) >> 1) + (lane & 1) + 2 * ((lane >> 3) & 1);
+  unsigned ka[D / 16][4], va[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const size_t off = (size_t)arow * KLD + kk * 16 + (lane >> 4) * 8;
+    ldsm_x4(Kt + off, ka[kk][0], ka[kk][1], ka[kk][2], ka[kk][3]);
+    ldsm_x4(Vt + off, va[kk][0], va[kk][1], va[kk][2], va[kk][3]);
+  }
+  const int par = g & 1;
+  const int key[2] = {k0 + 4 * (g >> 1) + par, k0 + 4 * (g >> 1) + par + 2};
+  float kadd[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const bool on = key[hf] < p.Nk &&
+                    (p.kvalid == nullptr || p.kvalid[b * p.skvb + key[hf]] != 0);
+    kadd[hf] = on ? 0.0f : -INFINITY;
+  }
+  const float* bias = p.bias ? p.bias + (size_t)bh * p.Nq * p.Nk : nullptr;
+  const float sc2 = p.scale * LOG2E_F;
+  const unsigned long long seed = p.thresh ? *p.seed : 0ull;
+  const unsigned cg = (unsigned)(k0 / 4 + (g >> 1));
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    dk[dt][0] = dk[dt][1] = dk[dt][2] = dk[dt][3] = 0.0f;
+    dv[dt][0] = dv[dt][1] = dv[dt][2] = dv[dt][3] = 0.0f;
+  }
+  for (int q0 = 0; q0 < NQP; q0 += BWD_KCH * 8) {
+    float pd[BWD_KCH][4], ds[BWD_KCH][4];     // pd^T and ds^T: keys x queries
+#pragma unroll
+    for (int j = 0; j < BWD_KCH; ++j) {
+      const int qb = q0 + 8 * j;
+      pd[j][0] = pd[j][1] = pd[j][2] = pd[j][3] = 0.0f;
+      ds[j][0] = ds[j][1] = ds[j][2] = ds[j][3] = 0.0f;
+      if (qb >= NQP) continue;
+      const size_t lane_row = (size_t)(qb + (lane & 7)) * KLD + (lane >> 3) * 8;
+      mma_rows8<D>(pd[j], ka, Qs + lane_row);     // s^T = k . q^T
+      mma_rows8<D>(ds[j], va, Gs + lane_row);     // dp^T = v . do^T
+      // keep bits of the lane's two query columns: own group, neighbour's
+      unsigned kq[2] = {0xfu, 0xfu};
+      if (p.thresh) {
+        unsigned bits[4];
+        dropout_bits(seed, (unsigned)bh, (unsigned)(qb + 2 * t + par), cg, bits);
+        const unsigned own = (bits[0] >= p.thresh ? 1u : 0u) | (bits[1] >= p.thresh ? 2u : 0u) |
+                             (bits[2] >= p.thresh ? 4u : 0u) | (bits[3] >= p.thresh ? 8u : 0u);
+        const unsigned other = __shfl_xor_sync(0xffffffffu, own, 4);
+        kq[0] = par ? other : own;
+        kq[1] = par ? own : other;
+      }
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        const int qi = qb + 2 * t + cc;
+        const float4 st = sts[qi];
+        const float* brow = bias && qi < p.Nq ? bias + (size_t)qi * p.Nk : nullptr;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int e = hf * 2 + cc;
+          float s2 = fmaf(pd[j][e], sc2, kadd[hf]);
+          if (brow && key[hf] < p.Nk) s2 = fmaf(brow[key[hf]], LOG2E_F, s2);
+          const float pr = ex2(s2 - st.x) * st.y;
+          const bool keep = (kq[cc] >> (par + 2 * hf)) & 1u;
+          const float dpm = keep ? ds[j][e] * p.inv_keep : 0.0f;
+          pd[j][e] = keep ? pr * p.inv_keep : 0.0f;
+          ds[j][e] = pr * (dpm - st.z);
+        }
+      }
+    }
+#pragma unroll
+    for (int kt = 0; kt < BWD_KCH / 2; ++kt) {
+      if (q0 + 16 * kt >= NQP) continue;
+      const unsigned ap[4] = {pack_bf16(pd[2 * kt][0], pd[2 * kt][1]),
+                              pack_bf16(pd[2 * kt][2], pd[2 * kt][3]),
+                              pack_bf16(pd[2 * kt + 1][0], pd[2 * kt + 1][1]),
+                              pack_bf16(pd[2 * kt + 1][2], pd[2 * kt + 1][3])};
+      const unsigned as[4] = {pack_bf16(ds[2 * kt][0], ds[2 * kt][1]),
+                              pack_bf16(ds[2 * kt][2], ds[2 * kt][3]),
+                              pack_bf16(ds[2 * kt + 1][0], ds[2 * kt + 1][1]),
+                              pack_bf16(ds[2 * kt + 1][2], ds[2 * kt + 1][3])};
+      const size_t off = (size_t)(q0 + 16 * kt + (lane & 7) + 8 * ((lane >> 3) & 1)) * KLD
+                         + (lane >> 4) * 8;
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        unsigned b0, b1, b2, b3;
+        ldsm_x4_t(Gs + off + dd * 16, b0, b1, b2, b3);
+        mma16816(dv[2 * dd], ap, b0, b1);
+        mma16816(dv[2 * dd + 1], ap, b2, b3);
+        ldsm_x4_t(Qs + off + dd * 16, b0, b1, b2, b3);
+        mma16816(dk[2 * dd], as, b0, b1);
+        mma16816(dk[2 * dd + 1], as, b2, b3);
+      }
+    }
+  }
+
+  const long HD = (long)p.H * D;
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      if (key[hf] >= p.Nk) continue;
+      const long o = (b * p.Nk + key[hf]) * HD + h * D + dt * 8 + 2 * t;
+      *reinterpret_cast<float2*>(w.dv + o) = make_float2(dv[dt][hf * 2], dv[dt][hf * 2 + 1]);
+      *reinterpret_cast<float2*>(w.dk + o) =
+          make_float2(dk[dt][hf * 2] * p.scale, dk[dt][hf * 2 + 1] * p.scale);
+    }
+  }
+}
+
+// Shared memory the two layouts need.
+static size_t bwd_q_smem_need(int D, int nk16, int warps) {
+  const size_t kld = D + 8, nkp = (size_t)nk16 * 16;
+  return 4 * nkp * kld + 64 * (size_t)warps * kld + 4 * nkp;
+}
+static size_t bwd_k_smem_need(int D, int nq16, int warps) {
+  const size_t kld = D + 8, nqp = (size_t)nq16 * 16;
+  return 4 * nqp * kld + 16 * nqp + 64 * (size_t)warps * kld;
+}
+
+template <typename Kern>
+static int launch_bwd_part(Kern kern, bool& configured, const AttnArgs& p, const BwdArgs& w,
+                           int B, int split, int warps, long smem, cudaStream_t s) {
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         ATT_SMEM_LIMIT);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  kern<<<dim3((unsigned)((long)B * p.H), (unsigned)split), warps * 32, (size_t)smem, s>>>(p, w);
   return (int)cudaGetLastError();
 }
 
-static bool train_args(TrainArgs& p, const void* q, const void* k, const void* v, int in_dt,
-                       long sqb, long sqn, long skb, long skn, long svb, long svn,
-                       int B, int H, int Nq, int Nk, const void* kb, long skbb,
-                       const void* bias, float scale, const void* seed,
-                       unsigned thresh, float inv_keep, void* stats) {
-  const int nkp = (Nk + ATT_KC - 1) / ATT_KC * ATT_KC;
-  const int nqp = (Nq + ATT_KC - 1) / ATT_KC * ATT_KC;
-  if (B <= 0 || H <= 0 || Nq <= 0 || Nk <= 0 || nkp > ATT_MAX_NK || nqp > ATT_MAX_NK)
-    return false;
-  p.q = q; p.k = k; p.v = v; p.in_dt = in_dt;
-  p.sqb = sqb; p.sqn = sqn; p.skb = skb; p.skn = skn; p.svb = svb; p.svn = svn;
-  p.H = H; p.Nq = Nq; p.Nk = Nk; p.NKP = nkp; p.NQP = nqp;
-  p.kb = static_cast<const float*>(kb); p.skbb = skbb;
-  p.bias = static_cast<const float*>(bias);
-  p.scale = scale;
-  if (thresh && !seed) return false;
-  p.seed = static_cast<const unsigned long long*>(seed);
-  p.thresh = thresh; p.inv_keep = inv_keep;
-  p.stats = static_cast<float*>(stats);
-  p.dout = nullptr; p.do_dt = 0; p.sdb = 0; p.sdn = 0;
-  p.dq = nullptr; p.dk = nullptr; p.dv = nullptr; p.dbias = nullptr;
-  return true;
+// Checks the plan against the shape and the card's limits, then launches
+// the query-major kernel and the key-major one behind it.
+template <int D>
+static int launch_train_bwd(const AttnArgs& p, const BwdArgs& w, int B, const BwdPlan& pl,
+                            cudaStream_t s) {
+  static bool configured[3] = {false, false, false};
+  const bool one = pl.chunk16 == ATT_ROW16;
+  if ((!one && pl.chunk16 != ATT_CH16) || (one && p.NK16 > ATT_ROW16) || pl.qwarps < 1 ||
+      pl.qwarps > BWD_MAX_WARPS || pl.kwarps < 1 || pl.kwarps > BWD_MAX_WARPS ||
+      pl.qsplit < 1 || pl.qsplit > 65535 || pl.ksplit < 1 || pl.ksplit > 65535 ||
+      (long)pl.qsplit * pl.qwarps * 16 < p.Nq || (long)pl.ksplit * pl.kwarps * 16 < p.Nk ||
+      pl.qsmem < (long)bwd_q_smem_need(D, p.NK16, pl.qwarps) || pl.qsmem > ATT_SMEM_LIMIT ||
+      pl.ksmem < (long)bwd_k_smem_need(D, w.NQ16, pl.kwarps) || pl.ksmem > ATT_SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  const int rc = one ? launch_bwd_part(train_bwd_q_kernel<D, ATT_ROW16>, configured[0], p, w,
+                                       B, pl.qsplit, pl.qwarps, pl.qsmem, s)
+                     : launch_bwd_part(train_bwd_q_kernel<D, ATT_CH16>, configured[1], p, w,
+                                       B, pl.qsplit, pl.qwarps, pl.qsmem, s);
+  if (rc != 0) return rc;
+  return launch_bwd_part(train_bwd_k_kernel<D>, configured[2], p, w, B, pl.ksplit, pl.kwarps,
+                         pl.ksmem, s);
 }
 
 extern "C" int ec_attn_train_fwd(const void* q, const void* k, const void* v, int in_dt,
@@ -1708,24 +2424,37 @@ extern "C" int ec_attn_train_fwd(const void* q, const void* k, const void* v, in
   return (int)cudaErrorInvalidValue;
 }
 
+// dq, dk, dv: fp32 [B, N, H * D], contiguous; dbias [B, H, Nq, Nk] or
+// null; delta: fp32 scratch [B * H, Nq]; kvalid: the forward's bool mask.
 extern "C" int ec_attn_train_bwd(const void* q, const void* k, const void* v, int in_dt,
                                  long sqb, long sqn, long skb, long skn, long svb, long svn,
                                  int B, int H, int D, int Nq, int Nk,
-                                 const void* kb, long skbb, const void* bias, float scale,
+                                 const void* kvalid, long skvb, const void* bias, float scale,
                                  const void* seed, unsigned thresh, float inv_keep,
                                  const void* dout, int do_dt, long sdb, long sdn,
                                  const void* stats, void* dq, void* dk, void* dv, void* dbias,
-                                 void* stream) {
-  TrainArgs p;
-  if (!train_args(p, q, k, v, in_dt, sqb, sqn, skb, skn, svb, svn, B, H, Nq, Nk, kb, skbb,
-                  bias, scale, seed, thresh, inv_keep, const_cast<void*>(stats)))
+                                 void* delta,
+                                 int qsplit, int qwarps, int chunk16, long qsmem,
+                                 int ksplit, int kwarps, long ksmem, void* stream) {
+  AttnArgs p;
+  const int nq16 = (Nq + 15) / 16;
+  if (!attn_args(p, q, k, v, in_dt, sqb, sqn, skb, skn, svb, svn, B, H, Nq, Nk, kvalid,
+                 skvb, bias, scale) || (thresh && !seed) || !stats || !dout || !dq || !dk ||
+      !dv || !delta || nq16 * 16 > ATT_MAX_NK)
     return (int)cudaErrorInvalidValue;
-  p.dout = dout; p.do_dt = do_dt; p.sdb = sdb; p.sdn = sdn;
-  p.dq = static_cast<float*>(dq); p.dk = static_cast<float*>(dk);
-  p.dv = static_cast<float*>(dv); p.dbias = static_cast<float*>(dbias);
+  p.seed = static_cast<const unsigned long long*>(seed);
+  p.thresh = thresh; p.inv_keep = inv_keep;
+  p.stats = static_cast<float*>(const_cast<void*>(stats));
+  BwdArgs w;
+  w.dout = dout; w.do_dt = do_dt; w.sdb = sdb; w.sdn = sdn;
+  w.dq = static_cast<float*>(dq); w.dk = static_cast<float*>(dk);
+  w.dv = static_cast<float*>(dv); w.dbias = static_cast<float*>(dbias);
+  w.delta = static_cast<float*>(delta);
+  w.NQ16 = nq16;
+  const BwdPlan pl = {qsplit, qwarps, chunk16, qsmem, ksplit, kwarps, ksmem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 32) return launch_train_bwd<32>(p, B, s);
-  if (D == 64) return launch_train_bwd<64>(p, B, s);
+  if (D == 32) return launch_train_bwd<32>(p, w, B, pl, s);
+  if (D == 64) return launch_train_bwd<64>(p, w, B, pl, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -30,17 +30,21 @@ and replaces the TPU pair `_flash_train_fwd` / `_flash_train_bwd` of the
 same JAX file: softmax(q k^T / sqrt(D) + key mask + bias) with dropout on
 the probabilities, times v, with bf16 matmul operands and fp32 softmax,
 dropout, output and gradients (dq, dk, dv and dbias for the Markov bias).
-Two CUDA kernels (ops/kernels.attention_train_fwd / _bwd) behind a
+CUDA kernels (ops/kernels.attention_train_fwd / _bwd) behind a
 `torch.autograd.Function`: the forward (`train_fwd_kernel`, the same
 register-resident design with p kept fp32 through the dropout) keeps each
 row's max and reciprocal exp-sum, the backward recomputes the
 probabilities from them and regenerates the dropout mask from the same
 Philox seed, so neither scores, probabilities nor mask reach device
-memory. At the training shapes ([16 x 8 heads, 100..356 tokens, D=32])
-the forward is 0.01-0.05 ms of device time and the host's launch work
-dominates the op. The backward still takes an additive fp32 key mask and
-holds one (batch, head) per block. `launches_fwd` / `launches_bwd` count
-kernel runs.
+memory. The backward is register-resident too: a query-major kernel
+(`train_bwd_q_kernel`: delta, dbias, dq) and a key-major one
+(`train_bwd_k_kernel`: dk, dv on transposed score tiles), both with the
+sequence split over the grid by `ops/kernels.attention_bwd_plan`, the bool
+key mask read in the kernels, no atomics and sums in a fixed order. At the
+training shapes ([16 x 8 heads, 100..356 tokens, D=32]) the device time is
+a few hundredths of a millisecond and the host's launch work dominates
+the op. `launches_fwd` / `launches_bwd` count the forward's and the
+backward's runs.
 """
 
 from __future__ import annotations
@@ -164,10 +168,9 @@ class _FlashTrain(torch.autograd.Function):
         from . import kernels as K
         q, k, v, key_valid, bias, stats, seed = ctx.saved_tensors
         b, nq, h, d = q.shape
-        kb = None if key_valid is None else plain.key_bias(key_valid)
         dq, dk, dv, dbias = K.attention_train_bwd(
             _flat(q), _flat(k), _flat(v), _flat(g), stats, num_heads=h,
-            scale=1.0 / math.sqrt(d), key_bias=kb, bias=bias,
+            scale=1.0 / math.sqrt(d), key_valid=key_valid, bias=bias,
             seed=seed, rate=ctx.rate,
             need_dbias=ctx.needs_input_grad[4])
         launches_bwd += 1

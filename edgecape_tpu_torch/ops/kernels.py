@@ -49,17 +49,20 @@ _L = ctypes.c_long
 _I = ctypes.c_int
 _F = ctypes.c_float
 _U32 = ctypes.c_uint
-# q, k, v, dtype, six strides, B, H, D, Nq, Nk, key mask + stride (bool
-# for the forward kernels, additive fp32 for the backward), bias, scale,
-# seed (device pointer), keep threshold, 1 / (1 - rate)
+# q, k, v, dtype, six strides, B, H, D, Nq, Nk, bool key mask + stride,
+# bias, scale, seed (device pointer), keep threshold, 1 / (1 - rate)
 _TRAIN_HEAD = [_P, _P, _P, _I, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _I,
                _P, _L, _P, _F, _P, _U32, _F]
 # the launch plan of the attention forward kernels (attention_plan): query
 # split, warps, key tiles per chunk, shared-memory bytes
 _PLAN = [_I, _I, _I, _L]
+# the backward's plan (attention_bwd_plan): the query-major kernel's split,
+# warps, key tiles per chunk and shared memory, then the key-major one's
+# split, warps and shared memory
+_BWD_PLAN = [_I, _I, _I, _L, _I, _I, _L]
 _SIGNATURES = {
     "ec_gemm": [_P, _L, _L, _P, _L, _L, _I, _P, _L, _L, _I, _I, _I, _I, _I,
-                _P, _P, _I, _L, _L, _I, _P, _I, _L, _L, _P, _P],
+                _P, _P, _I, _L, _L, _I, _P, _I, _L, _L, _P, _I, _P],
     "ec_layernorm": [_P, _I, _L, _P, _I, _L, _P, _P, _F, _P, _L, _P, _L,
                      _I, _I, _P],
     "ec_add_pos": [_P, _I, _P, _P, _L, _L, _P],
@@ -70,7 +73,7 @@ _SIGNATURES = {
     "ec_coord_update": [_P, _P, _P, _P, _L, _F, _P],
     "ec_attn_train_fwd": _TRAIN_HEAD + [_P, _L, _L, _P] + _PLAN + [_P],
     "ec_attn_train_bwd": _TRAIN_HEAD + [_P, _I, _L, _L, _P, _P, _P, _P, _P,
-                                        _P],
+                                        _P] + _BWD_PLAN + [_P],
     "ec_dropout_mask": [_P, _U32, _L, _I, _I, _P, _P],
     "ec_mm_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -208,9 +211,37 @@ def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return t.detach().to(torch.float32).contiguous()
 
 
+# The GEMM's two mainloops (csrc/kernels.cu): tiles copied by the threads
+# and multiplied by WMMA, which takes any operand, and TMA-fed wgmma, which
+# needs operands a tensor map can describe.
+GEMM_COPY, GEMM_TMA = 0, 1
+GEMM_TMA_MIN_N = 32
+gemm_launches = {"tma": 0, "copy": 0}     # launches per mainloop
+
+
+def tma_operand_ok(ptr: int, ld: int, batch_stride: int, batch: int) -> bool:
+    """Can a tensor map describe a bf16 operand with this base address,
+    row stride and batch stride (in elements)? Base, rows and batches must
+    start on 16 bytes; a batch stride of 0 shares the operand."""
+    return ptr % 16 == 0 and ld > 0 and ld % 8 == 0 \
+        and (batch == 1 or (batch_stride >= 0 and batch_stride % 8 == 0))
+
+
+def gemm_mainloop(n: int, batch: int, a, b) -> int:
+    """The mainloop a GEMM with N output columns takes: GEMM_TMA when both
+    operands, given as (address, row stride, batch stride), qualify for a
+    tensor map and the output is at least GEMM_TMA_MIN_N wide (a narrower
+    one would use a sliver of a 128-wide tile), else GEMM_COPY. The choice
+    depends on the operands alone."""
+    if n >= GEMM_TMA_MIN_N and tma_operand_ok(*a, batch) \
+            and tma_operand_ok(*b, batch):
+        return GEMM_TMA
+    return GEMM_COPY
+
+
 def gemm(a: torch.Tensor, b: torch.Tensor, *, b_nk: bool,
          out_dtype=torch.bfloat16, bias=None, pre=None, act: int = ACT_NONE,
-         res=None, ls=None, out=None) -> torch.Tensor:
+         res=None, ls=None, out=None, mainloop=None) -> torch.Tensor:
     """out = epilogue(a @ (b^T if b_nk else b)).
 
     a: [M, K] or batched [Z, M, K] bf16 with unit last stride. b: [N, K]
@@ -219,7 +250,9 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, b_nk: bool,
     [M, N] or [Z, M, N] fp32 or bf16 (a 2-D one is shared across the
     batch). Epilogue: y = acc + bias + pre; act; y = res + ls * y.
     `out`: a tensor of the result's shape to write into (its dtype is the
-    output dtype), for callers that keep their activation buffers."""
+    output dtype), for callers that keep their activation buffers.
+    `mainloop`: GEMM_TMA or GEMM_COPY instead of gemm_mainloop's choice
+    (for measurements; GEMM_TMA raises for operands it cannot take)."""
     _cuda(a, b, bias, pre, res, ls, out)
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise TypeError("gemm operands must be bfloat16")
@@ -258,10 +291,14 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, b_nk: bool,
     pp, ldp, sp = mat(pre)
     pr, ldr, sr = mat(res)
     bias, ls = _f32(bias), _f32(ls)
+    if mainloop is None:
+        mainloop = gemm_mainloop(n, z, (pa, lda, sa), (pb, ldb, sb))
     _call("ec_gemm", pa, lda, sa, pb, ldb, sb, int(b_nk), pc, ldc, sc,
           _dt(out), m, n, k, z, _ptr(bias), pp,
           _dt(pre) if pre is not None else 0, ldp, sp, act, pr,
-          _dt(res) if res is not None else 0, ldr, sr, _ptr(ls), _stream())
+          _dt(res) if res is not None else 0, ldr, sr, _ptr(ls),
+          int(mainloop), _stream())
+    gemm_launches["tma" if mainloop == GEMM_TMA else "copy"] += 1
     return out
 
 
@@ -396,6 +433,80 @@ def _plan_args(plan: dict) -> list:
             plan["smem_bytes"]]
 
 
+BWD_MAX_WARPS = 8          # 16-row tiles a block of the backward takes
+
+
+def _bwd_split(tiles: int, resident_tiles: int):
+    """(split, warps) of `tiles` 16-row tiles over blocks: blocks of at
+    most 4 warps where the resident operand is short (up to 128 rows: cheap
+    to copy again, and small batches then still fill the card), else of at
+    most BWD_MAX_WARPS."""
+    cap = 4 if resident_tiles <= ATT_ROW16 else BWD_MAX_WARPS
+    split = -(-tiles // cap)
+    return split, -(-tiles // split)
+
+
+@functools.lru_cache(maxsize=None)
+def _attention_bwd_plan(nq, nk, d, chunk_tiles):
+    if d not in (32, 64):
+        raise ValueError(f"attention takes head dim 32 or 64, got {d}")
+    if not 1 <= nq <= ATT_MAX_KEYS or not 1 <= nk <= ATT_MAX_KEYS:
+        raise ValueError(f"the attention backward takes 1..{ATT_MAX_KEYS} "
+                         f"queries and keys, got Nq={nq}, Nk={nk}")
+    q_tiles, key_tiles = -(-nq // 16), -(-nk // 16)
+    fits = key_tiles <= ATT_ROW16
+    if chunk_tiles is None:
+        chunk_tiles = ATT_ROW16 if fits else ATT_CH16
+    elif chunk_tiles not in (ATT_ROW16, ATT_CH16):
+        raise ValueError(f"chunks of {ATT_ROW16} or {ATT_CH16} key tiles, "
+                         f"got {chunk_tiles}")
+    elif chunk_tiles == ATT_ROW16 and not fits:
+        raise ValueError(f"{nk} keys do not fit one pass "
+                         f"({ATT_ROW16 * 16} at most)")
+    kld = d + 8
+    q_split, q_warps = _bwd_split(q_tiles, key_tiles)
+    k_split, k_warps = _bwd_split(key_tiles, q_tiles)
+    q_smem = 4 * key_tiles * 16 * kld + 64 * q_warps * kld \
+        + 4 * key_tiles * 16
+    k_smem = 4 * q_tiles * 16 * kld + 16 * q_tiles * 16 + 64 * k_warps * kld
+    if max(q_smem, k_smem) > ATT_SMEM_LIMIT:
+        raise ValueError(f"attention backward plan does not fit: {q_smem} "
+                         f"and {k_smem} bytes of shared memory")
+    return (("q_split", q_split), ("q_warps", q_warps),
+            ("one_pass", chunk_tiles == ATT_ROW16),
+            ("chunk_tiles", chunk_tiles), ("q_smem_bytes", q_smem),
+            ("k_split", k_split), ("k_warps", k_warps),
+            ("k_smem_bytes", k_smem), ("q_tiles", q_tiles),
+            ("key_tiles", key_tiles))
+
+
+def attention_bwd_plan(nq: int, nk: int, d: int, chunk_tiles=None) -> dict:
+    """The launch plan of the training attention's backward, from the
+    shapes alone. Two kernels, each with a warp per 16-row tile and the
+    tiles of a (batch, head) split over gridDim.y:
+
+    * query-major (dq, dbias, delta): block y of q_split takes query tiles
+      [y * q_warps, (y + 1) * q_warps); keys and values ([key_tiles * 16,
+      d + 8] bf16 each), a query and a do tile per warp and the additive
+      key mask lie in q_smem_bytes of shared memory; one_pass: the key row
+      fits in registers, else two passes over chunks of chunk_tiles tiles
+      (`chunk_tiles=2` forces them, for measurements);
+    * key-major (dk, dv): block y of k_split takes key tiles [y * k_warps,
+      (y + 1) * k_warps); queries and do ([q_tiles * 16, d + 8] each), 16
+      bytes of statistics a query and a key and a value tile per warp lie
+      in k_smem_bytes.
+
+    Raises for what the kernels do not take: d not 32 or 64, more than
+    512 queries or keys."""
+    return dict(_attention_bwd_plan(int(nq), int(nk), int(d), chunk_tiles))
+
+
+def _bwd_plan_args(plan: dict) -> list:
+    return [plan["q_split"], plan["q_warps"], plan["chunk_tiles"],
+            plan["q_smem_bytes"], plan["k_split"], plan["k_warps"],
+            plan["k_smem_bytes"]]
+
+
 def _key_mask(key_valid, b: int, nk: int):
     """The bool key mask [B, Nk] as the kernels read it (one byte a key,
     unit last stride): (tensor kept alive, pointer, batch stride)."""
@@ -524,13 +635,11 @@ def _seed_ptr(seed, thresh):
     return seed.data_ptr()
 
 
-def _train_head(q, k, v, num_heads, scale, key_mask, bias, seed, rate,
-                bool_mask):
+def _train_head(q, k, v, num_heads, scale, key_valid, bias, seed, rate):
     """Checks and the leading arguments shared by the two training
     attention entry points; returns (args, tensors kept alive by the
-    caller). The key mask is the bool [B, Nk] tensor for the forward
-    (bool_mask) and the additive fp32 one for the backward."""
-    _cuda(q, k, v, key_mask, bias)
+    caller)."""
+    _cuda(q, k, v, key_valid, bias)
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("q, k, v dtypes differ")
     b, nq, c = q.shape
@@ -542,13 +651,7 @@ def _train_head(q, k, v, num_heads, scale, key_mask, bias, seed, rate,
     for t in (q, k, v):
         if t.stride(-1) != 1:
             raise ValueError("attention operands need a unit last stride")
-    if bool_mask:
-        key_mask, km_ptr, km_stride = _key_mask(key_mask, b, nk)
-    else:
-        if key_mask is not None:
-            key_mask = _f32_contiguous(key_mask)
-        km_ptr = _ptr(key_mask)
-        km_stride = key_mask.stride(0) if key_mask is not None else 0
+    key_valid, km_ptr, km_stride = _key_mask(key_valid, b, nk)
     if bias is not None:
         bias = _f32_contiguous(bias)
         if tuple(bias.shape) != (b, num_heads, nq, nk):
@@ -558,7 +661,7 @@ def _train_head(q, k, v, num_heads, scale, key_mask, bias, seed, rate,
             q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             b, num_heads, d, nq, nk, km_ptr, km_stride, _ptr(bias),
             float(scale), _seed_ptr(seed, thresh), thresh, inv_keep]
-    return args, (key_mask, bias)
+    return args, (key_valid, bias)
 
 
 def attention_train_fwd(q, k, v, *, num_heads: int, scale: float,
@@ -570,7 +673,7 @@ def attention_train_fwd(q, k, v, *, num_heads: int, scale: float,
     by the kernel. Dropout at `rate` on the probabilities from Philox
     keyed by `seed`, a one-element int64 CUDA tensor. One launch."""
     args, keep_alive = _train_head(q, k, v, num_heads, scale, key_valid,
-                                   bias, seed, rate, bool_mask=True)
+                                   bias, seed, rate)
     b, nq, c = q.shape
     if plan is None:
         plan = attention_plan(nq, k.shape[1], c // num_heads, train=True)
@@ -584,29 +687,43 @@ def attention_train_fwd(q, k, v, *, num_heads: int, scale: float,
 
 
 def attention_train_bwd(q, k, v, dout, stats, *, num_heads: int,
-                        scale: float, key_bias=None, bias=None,
+                        scale: float, key_valid=None, bias=None,
                         seed=None, rate: float = 0.0,
-                        need_dbias: bool = True):
+                        need_dbias: bool = True, plan=None):
     """Training attention backward: (dq, dk, dv fp32 [B, N, H*D], dbias
     fp32 [B, H, Nq, Nk] or None when there is no bias or it is not
-    needed), with the dropout mask regenerated from `seed`."""
-    args, keep_alive = _train_head(q, k, v, num_heads, scale, key_bias,
-                                   bias, seed, rate, bool_mask=False)
+    needed), with the dropout mask regenerated from `seed`. key_valid:
+    the forward's [B, Nk] bool mask, read by the kernels; dout: [B, Nq,
+    H*D] fp32 or bf16 with a unit last stride. Two launches (query-major,
+    then key-major); dq, dk and dv are views of one allocation. `plan`
+    overrides attention_bwd_plan (for measurements)."""
+    args, keep_alive = _train_head(q, k, v, num_heads, scale, key_valid,
+                                   bias, seed, rate)
     bias = keep_alive[1]
     _cuda(dout, stats)
     b, nq, c = q.shape
     nk = k.shape[1]
-    dout = dout.contiguous()
     if tuple(dout.shape) != (b, nq, c):
         raise ValueError(f"dout shape {tuple(dout.shape)}")
-    dq = torch.empty((b, nq, c), dtype=torch.float32, device=q.device)
-    dk = torch.empty((b, nk, c), dtype=torch.float32, device=q.device)
-    dv = torch.empty((b, nk, c), dtype=torch.float32, device=q.device)
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    if plan is None:
+        plan = attention_bwd_plan(nq, nk, c // num_heads)
+    # dq | dk | dv | delta (the row sums the first kernel hands the second)
+    nq_el, nk_el = b * nq * c, b * nk * c
+    buf = torch.empty(nq_el + 2 * nk_el + b * num_heads * nq,
+                      dtype=torch.float32, device=q.device)
+    dq = buf[:nq_el].view(b, nq, c)
+    dk = buf[nq_el:nq_el + nk_el].view(b, nk, c)
+    dv = buf[nq_el + nk_el:nq_el + 2 * nk_el].view(b, nk, c)
+    delta = buf[nq_el + 2 * nk_el:]
     dbias = None if bias is None or not need_dbias else torch.empty(
         (b, num_heads, nq, nk), dtype=torch.float32, device=q.device)
     _call("ec_attn_train_bwd", *args, dout.data_ptr(), _dt(dout),
           dout.stride(0), dout.stride(1), stats.data_ptr(), dq.data_ptr(),
-          dk.data_ptr(), dv.data_ptr(), _ptr(dbias), _stream())
+          dk.data_ptr(), dv.data_ptr(), _ptr(dbias), delta.data_ptr(),
+          *_bwd_plan_args(plan), _stream())
+    del keep_alive
     return dq, dk, dv, dbias
 
 

@@ -2,9 +2,12 @@
 them, on the GPU: kernel against plain, device time, wrapper time, the
 card's bound and one PyTorch call (SDPA) on the same shape.
 
-    python -m edgecape_tpu_torch.tools.bench_attention [modes]
+    python -m edgecape_tpu_torch.tools.bench_attention [modes] [bwd]
 
-One line per shape. `device` is the time of the kernels one call launches
+One line per shape; with `bwd`, only the backward's lines: the training
+shapes' gradients (dq, dk, dv, dbias through `flash_mha_train`) against
+autograd through the plain version, the backward's device and wrapper time,
+its bound and SDPA's backward beside it. `device` is the time of the kernels one call launches
 (torch.profiler, mean over REPS calls), so a second kernel (a mask pass)
 would show in it and in the kernel count; `wrapper` is the CUDA-event
 median around one call of the Python wrapper, which adds the host's share
@@ -291,16 +294,152 @@ def run_case(spec, dev, power, modes=False) -> dict:
     return row
 
 
+class BwdCase(Case):
+    """A training shape's backward: the gradients of
+    sum(flash_mha_train(q, k, v, mask, bias) * g) through the kernels,
+    through the plain version and through SDPA."""
+
+    def __init__(self, spec, dev, seed=0):
+        super().__init__(spec, dev, seed)
+        gen = torch.Generator().manual_seed(seed + 1)
+        self.g = torch.randn(self.b, self.nq, self.h, self.d,
+                             generator=gen).to(dev)
+
+    def _leaves(self):
+        ts = [self.heads(t).detach().clone().requires_grad_(True)
+              for t in (self.q, self.k, self.v)]
+        if self.bias is not None:
+            ts.append(self.bias.detach().clone().requires_grad_(True))
+        return ts
+
+    def _graph(self, fn, **kw):
+        leaves = self._leaves()
+        bias = leaves[3] if self.bias is not None else None
+        out = fn(*leaves[:3], self.valid, bias, dropout_rate=self.rate, **kw)
+        return out, leaves
+
+    def kernel_backward(self, plan=None):
+        """A function that runs the backward kernels once (the forward ran
+        beforehand and its graph is kept)."""
+        gen = torch.Generator(device=self.q.device).manual_seed(5)
+        out, leaves = self._graph(FA.flash_mha_train, generator=gen)
+        if plan is None:
+            return lambda: torch.autograd.grad(out, leaves, self.g,
+                                               retain_graph=True)
+        _, stats = K.attention_train_fwd(
+            self.q, self.k, self.v, num_heads=self.h, scale=self.d ** -0.5,
+            key_valid=self.valid, bias=self.bias, rate=0.0)
+        g = self.g.reshape(self.b, self.nq, self.h * self.d)
+        return lambda: K.attention_train_bwd(
+            self.q, self.k, self.v, g, stats, num_heads=self.h,
+            scale=self.d ** -0.5, key_valid=self.valid, bias=self.bias,
+            rate=0.0, plan=plan)
+
+    def plain_grads(self):
+        keep = None
+        if self.rate > 0:
+            gen = torch.Generator(device=self.q.device).manual_seed(5)
+            seed = FA.dropout_seed(gen, self.q.device)
+            keep = K.dropout_mask(seed, self.rate, self.b * self.h, self.nq,
+                                  self.nk).reshape(self.b, self.h, self.nq,
+                                                   self.nk)
+        out, leaves = self._graph(FA.flash_mha_train_plain, keep=keep)
+        return torch.autograd.grad(out, leaves, self.g)
+
+    def sdpa_backward(self):
+        """SDPA's backward on the same shape: bf16 [B, H, N, D] leaves and
+        a ready additive mask that takes no gradient."""
+        bf = torch.bfloat16
+        q, k, v = (self.heads(t).transpose(1, 2).to(bf).contiguous()
+                   .requires_grad_(True) for t in (self.q, self.k, self.v))
+        mask = plain.key_bias(self.valid)[:, None, None, :]
+        if self.bias is not None:
+            mask = mask + self.bias
+        mask = mask.to(bf).expand(self.b, self.h, self.nq, self.nk)
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        g = self.g.transpose(1, 2).to(bf).contiguous()
+        return lambda: torch.autograd.grad(out, (q, k, v), g,
+                                           retain_graph=True)
+
+    def bound_ms(self):
+        """q, k, v, do, the statistics, mask and bias read once, dq, dk, dv
+        and dbias written once, over the memory rate; or the five products
+        (s, dp, dq, dk, dv) over the bf16 rate."""
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in (self.q, self.k, self.v, self.g, self.valid,
+                                self.bias) if t is not None)
+        n_bytes += self.b * self.h * self.nq * 8
+        n_bytes += 4 * (self.q.numel() + self.k.numel() + self.v.numel())
+        if self.bias is not None:
+            n_bytes += self.bias.numel() * 4
+        flops = 10.0 * self.b * self.h * self.nq * self.nk * self.d
+        t_b, t_o = n_bytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS
+        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def run_bwd_case(spec, dev, power, modes=False) -> dict:
+    """Checks and times the backward of one training shape; returns its
+    numbers and prints its line."""
+    case = BwdCase(spec, dev)
+    run = case.kernel_backward()
+    grads = run()
+    ref = case.plain_grads()
+    torch.cuda.synchronize()
+    err, excess, finite = 0.0, -1.0, True
+    for a, r in zip(grads, ref):
+        diff = (a.float() - r.float()).abs()
+        err = max(err, diff.max().item())
+        excess = max(excess, (diff - (ATOL + RTOL * r.float().abs())).max()
+                     .item())
+        finite = finite and bool(torch.isfinite(a).all())
+    again = run()
+    same = all(torch.equal(a, b) for a, b in zip(grads, again))
+    ok = excess <= 0 and finite and same
+    dev_ms, n_kern = device_ms(run)
+    wrap_ms = time_ms(run)
+    sdpa = case.sdpa_backward()
+    sdpa_dev_ms, _ = device_ms(sdpa)
+    sdpa_ms = time_ms(sdpa)
+    bnd, by = case.bound_ms()
+    plan, other = K.attention_bwd_plan(case.nq, case.nk, case.d), ""
+    if modes and plan["one_pass"]:
+        alt = K.attention_bwd_plan(case.nq, case.nk, case.d,
+                                   chunk_tiles=K.ATT_CH16)
+        alt_ms, _ = device_ms(case.kernel_backward(plan=alt))
+        one_ms, _ = device_ms(case.kernel_backward(plan=plan))
+        other = (f" (kernels alone at rate 0: one pass {one_ms:.4f} ms, two "
+                 f"passes {alt_ms:.4f} ms)")
+    row = {"name": case.name + ", backward",
+           "shape": [case.b, case.nq, case.nk, case.h, case.d],
+           "ok": ok, "max_abs_err": err, "device_ms": dev_ms,
+           "kernels_per_call": n_kern, "wrapper_ms": wrap_ms,
+           "bound_ms": bnd, "bound_by": by, "sdpa_ms": sdpa_ms,
+           "sdpa_device_ms": sdpa_dev_ms, "plan": plan, "bit_equal": same}
+    print(f"[op] attention {row['name']}: [B {case.b}, Nq {case.nq}, Nk "
+          f"{case.nk}, H {case.h}, D {case.d}] max_abs_err {err:.4g} (tol "
+          f"{ATOL} + {RTOL:.4g}*|ref|; worst excess {excess:.3g}; two runs "
+          f"bit-equal {same}) device {dev_ms:.4f} ms in {n_kern:g} kernel(s) "
+          f"per call, wrapper {wrap_ms:.4f} ms, bound {bnd:.4f} ms ({by}), "
+          f"SDPA backward {sdpa_ms:.4f} ms (device {sdpa_dev_ms:.4f} ms), plan "
+          f"{json.dumps(plan)}{other} on {power} {'OK' if ok else 'FAIL'}",
+          flush=True)
+    return row
+
+
 def main(argv=None) -> list:
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["modes"]):
-        raise SystemExit("usage: bench_attention [modes]")
+    if not set(argv) <= {"modes", "bwd"}:
+        raise SystemExit("usage: bench_attention [modes] [bwd]")
     if not torch.cuda.is_available():
         raise SystemExit("bench_attention needs a CUDA device")
     dev, power = torch.device("cuda", 0), card()
+    modes = "modes" in argv
     rows = []
     for spec in SHAPES:
-        rows.append(run_case(spec, dev, power, modes=bool(argv)))
+        if "bwd" not in argv:
+            rows.append(run_case(spec, dev, power, modes=modes))
+        if spec[-1] is not None:
+            rows.append(run_bwd_case(spec, dev, power, modes=modes))
         torch.cuda.empty_cache()
     bad = [r["name"] for r in rows if not r["ok"]]
     if bad:

@@ -36,6 +36,7 @@ from ..models.convert import init_params
 from ..models.edgecape import EdgeCape
 from ..models.head import keypoint_losses, pck_accuracy
 from ..ops import heatmap
+from ..staging import HostStager
 from . import checkpoint as ckpt_lib
 from .state import apply_lr, clip_by_global_norm, make_optimizer
 
@@ -45,13 +46,14 @@ BATCH_KEYS = ("img_s", "img_q", "joints_s", "vis_s", "target_q",
               "weight_q", "joints_q", "binary_adj", "rand_mask")
 
 
-def batch_to_tensors(batch, device) -> dict:
+def batch_to_tensors(batch, device, stager=None) -> dict:
     """The BATCH_KEYS arrays of a loader batch (attributes or dict
-    entries) as tensors on `device`."""
+    entries) as tensors on `device`, through `stager` (a HostStager for
+    that device, which a caller of many steps keeps) when one is given."""
     get = batch.__getitem__ if isinstance(batch, dict) else \
         (lambda k: getattr(batch, k))
-    return {k: torch.as_tensor(get(k)).to(device, non_blocking=True)
-            for k in BATCH_KEYS}
+    stage = stager or HostStager(device)
+    return {k: stage(get(k), k) for k in BATCH_KEYS}
 
 
 def make_loss_fn(model: EdgeCape, backbone: dinov2.DinoViT, cfg):
@@ -171,6 +173,7 @@ class Trainer:
                  log_fn=print,
                  backbone_cfg: dinov2.DinoV2Config = dinov2.VIT_S14):
         self.device = resolve_device(device)
+        self._stage = HostStager(self.device)
         flash = cfg.model.use_flash
         use_flash = bool(self.device.type == "cuda" if flash is None
                          else flash)
@@ -235,7 +238,8 @@ class Trainer:
     def train_step(self, batch) -> dict:
         """One update on a loader batch (or a dict of BATCH_KEYS arrays);
         returns the metrics as 0-d tensors on the device."""
-        metrics = self._step_fn(batch_to_tensors(batch, self.device),
+        metrics = self._step_fn(batch_to_tensors(batch, self.device,
+                                                 self._stage),
                                 self.generator, self.step)
         self.step += 1
         return metrics

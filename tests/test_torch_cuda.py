@@ -233,6 +233,235 @@ def test_flash_mha_train_refuses_unsupported_shapes(dev):
         FA.flash_mha_train(*(_rn(dev, 1, 513, 1, 32) for _ in range(3)))
 
 
+# call sites of a training step (batch cut to 2), mask / bias / both
+BWD_SITES = [(2, 356, 8, 32), (2, 100, 8, 32)]
+
+
+@pytest.mark.parametrize("shape", BWD_SITES)
+@pytest.mark.parametrize("form", ["mask", "bias", "both"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_train_backward_matches_plain_at_call_site_shapes(dev, shape, form,
+                                                          rate):
+    """dq, dk, dv, dbias of the two backward kernels against autograd
+    through the plain version fed the kernels' own keep mask, and two runs
+    at one seed bit for bit."""
+    from edgecape_tpu_torch.ops import flash_attention as FA
+    from edgecape_tpu_torch.ops import kernels as K
+    b, n, h, d = shape
+    case = _train_case(dev, *shape, form != "bias", form != "mask")
+    gen = lambda: torch.Generator(device=dev).manual_seed(7)  # noqa: E731
+    kw, pkw = {}, {}
+    if rate:
+        seed = FA.dropout_seed(gen(), dev)
+        keep = K.dropout_mask(seed, rate, b * h, n, n).reshape(b, h, n, n)
+        kw = {"dropout_rate": rate, "generator": gen()}
+        pkw = {"dropout_rate": rate, "keep": keep}
+    out, grads = _grads(FA.flash_mha_train, *case, **kw)
+    ref, rgrads = _grads(FA.flash_mha_train_plain, *case, **pkw)
+    _close(out, ref)
+    assert len(grads) == (4 if form != "mask" else 3)
+    for a, r in zip(grads, rgrads):
+        _close(a, r)
+    if rate:
+        kw["generator"] = gen()
+    _, again = _grads(FA.flash_mha_train, *case, **kw)
+    assert all(torch.equal(a, b_) for a, b_ in zip(grads, again))
+
+
+@pytest.mark.parametrize("nk", [1, 7, 100, 257, 356, 512])
+@pytest.mark.parametrize("d", [32, 64])
+def test_train_backward_key_counts(dev, nk, d):
+    """Ragged and long key rows (one pass up to 128 keys, two above), with
+    another query count than key count, mask, bias and dropout."""
+    from edgecape_tpu_torch.ops import flash_attention as FA
+    from edgecape_tpu_torch.ops import kernels as K
+    b, nq, h, rate = 2, 45, 2, 0.25
+    q, g = _rn(dev, b, nq, h, d, seed=30), _rn(dev, b, nq, h, d, seed=31)
+    k, v = _rn(dev, b, nk, h, d, seed=32), _rn(dev, b, nk, h, d, seed=33)
+    valid = _rn(dev, b, nk, seed=34) > -0.3
+    valid[:, 0] = True
+    bias = _rn(dev, b, h, nq, nk, seed=35)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    seed = FA.dropout_seed(torch.Generator(device=dev).manual_seed(9), dev)
+    keep = K.dropout_mask(seed, rate, b * h, nq, nk).reshape(b, h, nq, nk)
+    out, grads = _grads(FA.flash_mha_train, q, k, v, g, valid, bias,
+                        dropout_rate=rate, generator=gen)
+    ref, rgrads = _grads(FA.flash_mha_train_plain, q, k, v, g, valid, bias,
+                         dropout_rate=rate, keep=keep)
+    _close(out, ref)
+    for a, r in zip(grads, rgrads):
+        _close(a, r)
+
+
+def test_train_backward_forced_two_pass_equals_plain(dev):
+    """The two-pass query-major kernel where one pass would do."""
+    from edgecape_tpu_torch.ops import flash_attention as FA
+    from edgecape_tpu_torch.ops import kernels as K
+    b, n, h, d = 2, 100, 8, 32
+    q, k, v, g, valid, bias = _train_case(dev, b, n, h, d, True, True)
+    flat = lambda t: t.reshape(b, n, h * d)  # noqa: E731
+    _, stats = K.attention_train_fwd(flat(q), flat(k), flat(v), num_heads=h,
+                                     scale=d ** -0.5, key_valid=valid,
+                                     bias=bias)
+    got = {}
+    for tiles in (K.ATT_ROW16, K.ATT_CH16):
+        plan = K.attention_bwd_plan(n, n, d, chunk_tiles=tiles)
+        got[tiles] = K.attention_train_bwd(
+            flat(q), flat(k), flat(v), flat(g), stats, num_heads=h,
+            scale=d ** -0.5, key_valid=valid, bias=bias, plan=plan)
+    _, rgrads = _grads(FA.flash_mha_train_plain, q, k, v, g, valid, bias)
+    for tiles, grads in got.items():
+        for a, r in zip(grads, rgrads):
+            _close(a.reshape(r.shape), r)
+
+
+def test_train_backward_without_dbias_and_with_masked_rows(dev):
+    """A bias that needs no gradient gets none, and the other gradients do
+    not change; rows with every key masked give zero gradients with
+    dropout on."""
+    from edgecape_tpu_torch.ops import flash_attention as FA
+    q, k, v, g, valid, bias = _train_case(dev, 2, 19, 2, 32, True, True)
+    _, with_db = _grads(FA.flash_mha_train, q, k, v, g, valid, bias)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = FA.flash_mha_train(*leaves, valid, bias)
+    without = torch.autograd.grad(out, leaves, g)
+    assert all(torch.equal(a, b) for a, b in zip(without, with_db[:3]))
+    valid[1] = False
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out, grads = _grads(FA.flash_mha_train, q, k, v, g, valid, bias,
+                        dropout_rate=0.1, generator=gen)
+    assert bool((out[1] == 0).all())
+    assert all(bool(torch.isfinite(t).all()) and bool((t[1] == 0).all())
+               for t in grads)
+
+
+def test_train_backward_refuses_a_plan_that_does_not_cover_the_shape(dev):
+    from edgecape_tpu_torch.ops import kernels as K
+    b, n, h, d = 1, 100, 2, 32
+    q = _rn(dev, b, n, h * d)
+    _, stats = K.attention_train_fwd(q, q, q, num_heads=h, scale=1.0)
+    good = K.attention_bwd_plan(n, n, d)
+    for key, value in (("q_split", 1), ("k_split", 1), ("q_warps", 9),
+                       ("q_smem_bytes", 1024), ("k_smem_bytes", 1024),
+                       ("chunk_tiles", 3)):
+        plan = dict(good, **{key: value})
+        with pytest.raises(RuntimeError):
+            K.attention_train_bwd(q, q, q, q, stats, num_heads=h, scale=1.0,
+                                  plan=plan)
+    short = K.attention_bwd_plan(300, 300, d)
+    with pytest.raises(RuntimeError):
+        K.attention_train_bwd(
+            *(_rn(dev, 1, 300, h * d) for _ in range(4)),
+            K.attention_train_fwd(*(_rn(dev, 1, 300, h * d)
+                                    for _ in range(3)), num_heads=h,
+                                  scale=1.0)[1],
+            num_heads=h, scale=1.0,
+            plan=dict(short, chunk_tiles=K.ATT_ROW16))
+
+
+# ------------------------------------------------------------- the GEMM
+def _gemm_case(dev, spec, rows=1310):
+    """A bench shape with M cut to `rows` (ragged against both tile
+    heights), its operands and its float64 reference."""
+    from edgecape_tpu_torch.tools import bench_gemm as BG
+    name, z, m, n, k, b_nk, epi, dtype = spec
+    spec = (name, None if z is None else 3, min(m, rows), n, k, b_nk, epi,
+            dtype)
+    a, b, kw = BG.make_case(spec, dev)
+    ref = BG.reference(a, b, b_nk, kw["bias"], kw["pre"], kw["act"],
+                       kw["res"], kw["ls"])
+    return spec, a, b, kw, ref
+
+
+def _gemm_specs():
+    from edgecape_tpu_torch.tools import bench_gemm as BG
+    return BG.SHAPES
+
+
+@pytest.mark.parametrize("index", range(14))
+def test_gemm_at_path_shapes_both_mainloops(dev, index):
+    """Every path shape of tools/bench_gemm.py (M cut to 1310 rows): the
+    mainloop the dispatch picks and, where the operands allow TMA, the
+    other one too, against the float64 product of the bf16 operands."""
+    from edgecape_tpu_torch.ops import kernels as K
+    from edgecape_tpu_torch.tools import bench_gemm as BG
+    specs = _gemm_specs()
+    assert len(specs) == 14
+    spec, a, b, kw, ref = _gemm_case(dev, specs[index])
+    b_nk, dtype = spec[5], spec[7]
+    n0 = dict(K.gemm_launches)
+    out = K.gemm(a, b, b_nk=b_nk, out_dtype=dtype, **kw)
+    picked = "tma" if K.gemm_launches["tma"] > n0["tma"] else "copy"
+    assert BG.check(out, ref)[1], (spec[0], picked)
+    other = K.gemm(a, b, b_nk=b_nk, out_dtype=dtype, mainloop=K.GEMM_COPY,
+                   **kw)
+    assert BG.check(other, ref)[1], (spec[0], "copy")
+    if picked == "copy":
+        with pytest.raises(RuntimeError):
+            K.gemm(a, b, b_nk=b_nk, out_dtype=dtype, mainloop=K.GEMM_TMA,
+                   **kw)
+
+
+@pytest.mark.parametrize("m,n,k", [(300, 33, 40), (129, 160, 72),
+                                   (1, 128, 64), (257, 250, 200),
+                                   (640, 384, 8)])
+@pytest.mark.parametrize("b_nk", [True, False])
+@pytest.mark.parametrize("epi", ["bias", "gelu", "relu", "pre", "res_ls",
+                                 "none"])
+def test_gemm_ragged_edges_each_epilogue(dev, m, n, k, b_nk, epi):
+    """Ragged M, N and K (tiles cut by the tensor map's zero fill, the
+    epilogue's checked form), both forms of B, every epilogue, fp32 and
+    bf16 outputs; the TMA mainloop wherever the row strides allow it."""
+    from edgecape_tpu_torch.ops import kernels as K
+    from edgecape_tpu_torch.tools import bench_gemm as BG
+    if not b_nk and n % 8:
+        n += 8 - n % 8          # rows of B as [K, N] on 16 bytes
+    for dtype in (torch.float32, torch.bfloat16):
+        spec = ("ragged", None, m, n, k, b_nk, epi, dtype)
+        a, b, kw = BG.make_case(spec, dev)
+        ref = BG.reference(a, b, b_nk, kw["bias"], kw["pre"], kw["act"],
+                           kw["res"], kw["ls"])
+        n0 = K.gemm_launches["tma"]
+        out = K.gemm(a, b, b_nk=b_nk, out_dtype=dtype, **kw)
+        assert K.gemm_launches["tma"] == n0 + 1
+        assert BG.check(out, ref)[1]
+        copy = K.gemm(a, b, b_nk=b_nk, out_dtype=dtype,
+                      mainloop=K.GEMM_COPY, **kw)
+        assert BG.check(copy, ref)[1]
+
+
+def test_gemm_strided_out_shared_batch_operand_and_odd_views(dev):
+    from edgecape_tpu_torch.ops import kernels as K
+    from edgecape_tpu_torch.tools import bench_gemm as BG
+    bf = torch.bfloat16
+    a = _rn(dev, 5, 200, 96).to(bf)                   # batched A
+    w = (_rn(dev, 160, 96, seed=1) / 10).to(bf)       # shared [N, K]
+    pre = _rn(dev, 200, 160, seed=2)                  # shared across batch
+    ref = BG.reference(a, w, True, None, pre, K.ACT_NONE, None, None)
+    big = torch.full((5, 200, 512), 7.0, device=dev)
+    out = K.gemm(a, w, b_nk=True, pre=pre, out=big[..., 64:224])
+    assert out.data_ptr() == big[..., 64:224].data_ptr()
+    assert BG.check(big[..., 64:224], ref)[1]
+    assert bool((big[..., :64] == 7).all()) and bool(
+        (big[..., 224:] == 7).all())
+    # an odd column offset: the pairs of the output are not aligned, the
+    # epilogue stores element by element
+    odd = torch.full((5, 200, 512), 7.0, device=dev, dtype=bf)
+    K.gemm(a, w, b_nk=True, pre=pre, out=odd[..., 3:163])
+    assert BG.check(odd[..., 3:163], ref)[1]
+    assert bool((odd[..., :3] == 7).all()) and bool((odd[..., 163:] == 7).all())
+    # operands as views: A a column slice of a wider buffer (TMA), and one
+    # whose base is off 16 bytes (the thread-copy loader)
+    wide = _rn(dev, 200, 256, seed=3).to(bf)
+    for lo, loop in ((64, "tma"), (4, "copy")):
+        n0 = dict(K.gemm_launches)
+        got = K.gemm(wide[:, lo:lo + 96], w, b_nk=True,
+                     out_dtype=torch.float32)
+        assert K.gemm_launches[loop] == n0[loop] + 1
+        assert BG.check(got, BG.reference(wide[:, lo:lo + 96], w, True, None,
+                                          None, K.ACT_NONE, None, None))[1]
+
+
 # ------------------------------------------------- kernel-variant ops
 def _half_args(dev, c, f, seed=3):
     g = torch.Generator().manual_seed(seed)

@@ -108,10 +108,25 @@ print("OK", len(names))
 """
 
 
-def test_port_imports_and_runs_without_jax_flax_optax_cv2():
+# The test suite runs several of these interpreters at once. Each would
+# take every core for torch's thread pool, and the loader's C++ core
+# `os.cpu_count()` more, so together they would time out: a child gets two
+# threads of each kind.
+FEW_THREADS = "import os\nos.cpu_count = lambda: 2\n"
+
+
+def _child_env():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+    for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
+        env[var] = "2"
+    return env
+
+
+def test_port_imports_and_runs_without_jax_flax_optax_cv2():
+    env = _child_env()
+    proc = subprocess.run([sys.executable, "-c", FEW_THREADS + SCRIPT],
+                          cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().startswith("OK")
@@ -176,9 +191,9 @@ print("OK")
 
 
 def test_variant_and_uncached_paths_run_without_jax():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-c", VARIANT_SCRIPT], cwd=REPO,
+    env = _child_env()
+    proc = subprocess.run([sys.executable, "-c",
+                           FEW_THREADS + VARIANT_SCRIPT], cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -232,9 +247,9 @@ print("OK")
 
 
 def test_disk_path_clis_and_probe_run_without_jax_and_cv2():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    proc = subprocess.run([sys.executable, "-c", CLI_SCRIPT], cwd=REPO,
+    env = _child_env()
+    proc = subprocess.run([sys.executable, "-c", FEW_THREADS + CLI_SCRIPT],
+                          cwd=REPO,
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
