@@ -34,6 +34,10 @@ Phases (any failure exits non-zero before the last line):
    mainloop and the thread-copy one against a float64 reference, their
    times, TFLOP/s, bound, torch.matmul, and which mainloop the dispatch
    takes. Every [op] line of a fused op counts its GEMMs by mainloop;
+   the encoder stack's and the decoder layer's lines add their device
+   time, kernels per call (at most 10 and 8) and ms by kernel, and the
+   encoder's
+   library time is that of nn.TransformerEncoderLayer;
 3. the main path: a stage-3 PoseEstimator (learned skeleton + Markov
    bias, K=100, 224 px, 1 shot, bf16 compute and head dtype, full
    ViT-S/14 width and depth, weights drawn from a seed with the
@@ -41,8 +45,8 @@ Phases (any failure exits non-zero before the last line):
    loop over 3 chunks of 34 episode groups x 15 queries built in memory;
    predictions are decoded on the host and scored (PCK); the launch
    counters must show every kernel op ran as often as the path implies,
-   and every GEMM of it the TMA + wgmma mainloop but the decoder's
-   adjacency products (rows of 100 values, which no tensor map takes);
+   every GEMM of it the TMA + wgmma mainloop and each layer of the
+   encoder and the decoder its post-attention kernels once;
    one chunk is compared with the same weights on the plain (no kernel)
    path on the card; one more chunk of the kernel path runs under
    torch.profiler, which gives device time by kernel and the device's
@@ -329,6 +333,41 @@ def main_path_config():
 
 
 # ------------------------------------------------------------ phase 2
+def library_encoder(layers, c, ffn, dev):
+    """nn.TransformerEncoderLayer copies of the port's encoder layers in
+    bf16, eval mode: the one PyTorch call that computes a post-norm ReLU
+    layer with a key padding mask."""
+    out = []
+    with torch.no_grad():
+        for layer in layers:
+            at = layer.self_attn
+            lib = torch.nn.TransformerEncoderLayer(
+                c, 8, ffn, dropout=0.0, batch_first=True)
+            lib.self_attn.in_proj_weight.copy_(torch.cat(
+                [at.q_proj.weight, at.k_proj.weight, at.v_proj.weight]))
+            lib.self_attn.in_proj_bias.copy_(torch.cat(
+                [at.q_proj.bias, at.k_proj.bias, at.v_proj.bias]))
+            for dst, src in ((lib.self_attn.out_proj, at.out_proj),
+                             (lib.linear1, layer.linear1),
+                             (lib.linear2, layer.linear2),
+                             (lib.norm1, layer.norm1),
+                             (lib.norm2, layer.norm2)):
+                dst.weight.copy_(src.weight)
+                dst.bias.copy_(src.bias)
+            out.append(lib.to(dev, torch.bfloat16).eval())
+    return out
+
+
+def fast_path_taken(fn) -> bool:
+    """Did fn() go through torch._transformer_encoder_layer_fwd?"""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    with torch_profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return any("_transformer_encoder_layer_fwd" in e.key
+               for e in prof.key_averages())
+
+
 def op_checks(dev, entries):
     import edgecape_tpu_torch.ops.fused_decoder as FD
     import edgecape_tpu_torch.ops.fused_encoder as FE
@@ -337,18 +376,19 @@ def op_checks(dev, entries):
     from edgecape_tpu_torch.models.dinov2 import VIT_S14, Block
     from edgecape_tpu_torch.models.transformer import (DecoderLayer,
                                                        EncoderLayer)
+    from edgecape_tpu_torch.tools import bench_attention as BA
 
     g, rn = seeded_randn(SEED, dev)
-    nq, hw, c = GROUPS * QUERIES, 256, 256
+    nq, hw, c, ffn = GROUPS * QUERIES, 256, 256, 384
     bf = torch.bfloat16
     blk = randomize(Block(VIT_S14), rn, dev)
     x = rn(nq, 257, 384).to(bf)
-    enc = [randomize(EncoderLayer(c, 8, 384), rn, dev) for _ in range(3)]
+    enc = [randomize(EncoderLayer(c, 8, ffn), rn, dev) for _ in range(3)]
     tok = rn(nq, hw + K, c).to(bf)
     pos = rn(hw + K, c).to(bf)
     valid = torch.rand(nq, hw + K, generator=g).to(dev) > 0.2
     valid[:, :hw] = True
-    dec = randomize(DecoderLayer(c, 8, 384, attn_bias=True), rn, dev)
+    dec = randomize(DecoderLayer(c, 8, ffn, attn_bias=True), rn, dev)
     kx, qpos = rn(nq, K, c).to(bf), rn(nq, K, c).to(bf)
     img, ipos = rn(nq, hw, c).to(bf), rn(hw, c).to(bf)
     kvalid = torch.rand(nq, K, generator=g).to(dev) > 0.3
@@ -382,7 +422,7 @@ def op_checks(dev, entries):
     # least work of each op: bytes = operands and parameters read once +
     # output written once; operations = its matrix products (2 per
     # multiply-add)
-    n_tok, c_vit, c_hd, ffn = 257, 384, c, 384
+    n_tok, c_vit, c_hd = 257, 384, c
     bounds = {
         "fused_vit_block": bound(
             2 * nbytes(x) + param_bytes(blk),
@@ -408,8 +448,21 @@ def op_checks(dev, entries):
     sq, sk, sv = (t.transpose(1, 2).to(bf) for t in (fq, fk, fv))
     smask = torch.zeros(GROUPS, 1, 1, K, device=dev, dtype=bf).masked_fill(
         ~fvalid[:, None, None, :], -math.inf)
+    lib_enc = library_encoder(enc, c, ffn, dev)
+    pad = ~valid
+
+    def library_stack():
+        """The same post-norm ReLU layers on src = tokens + pos (added once,
+        where the op adds it per layer) through nn.TransformerEncoderLayer."""
+        with torch.inference_mode():
+            x = tok + pos
+            for layer in lib_enc:
+                x = layer(x, src_key_padding_mask=pad)
+        return x
+
     library = {"flash_mha": lambda: F.scaled_dot_product_attention(
-        sq, sk, sv, attn_mask=smask)}
+        sq, sk, sv, attn_mask=smask),
+        "fused_encoder_stack": library_stack}
 
     # (name, TPU kernel's pallas_call, op module, kernel, plain,
     #  (kernel output, plain output) to compare)
@@ -437,15 +490,40 @@ def op_checks(dev, entries):
     ]
     bad = []
     with torch.no_grad():
-        # every GEMM of these ops must take the TMA + wgmma mainloop but
-        # the decoder layer's two adjacency products, whose rows of K = 100
-        # bf16 values (200 bytes) no tensor map describes
-        copy_gemms = {"fused_decoder_layer": 2}
+        fast = fast_path_taken(library_stack)
+        # kernels and copies one call may put on the device: the stack's
+        # add_pos and 3 per layer (qkv GEMM, attention, enc_post_kernel),
+        # the decoder layer's 8 (qkv, attention, dec_post_self_kernel,
+        # kpos, k, v GEMMs, attention, dec_post_cross_kernel)
+        launch_cap = {"fused_encoder_stack": 1 + 3 * len(enc),
+                      "fused_decoder_layer": 8}
         for name, replaces, op_src, kern, plain, pairs in cases:
             out, ref = pairs() if pairs else (kern(), plain())
+            extra, cap = "", launch_cap.get(name)
+            if cap is not None:
+                # nan: three traces lost device events; the time is then
+                # CUDA events' and the count not measured
+                dev_ms, per_call = BA.device_ms(kern)
+                by_kernel = ", ".join(
+                    f"{k.split('(')[0].replace('void ', '')} {ms:.4f}"
+                    for k, ms in sorted(BA.kernel_ms(kern).items(),
+                                        key=lambda kv: -kv[1]))
+                extra = (f"; device {dev_ms:.4f} ms in {per_call:g} kernels "
+                         f"per call (at most {cap}; ms a call by kernel: "
+                         f"{by_kernel or 'not measured'})")
+                if per_call > cap:
+                    bad.append(f"{name}: {per_call} kernels per call")
+            if name == "fused_encoder_stack":
+                extra += (f"; library: {len(enc)} x nn.TransformerEncoderLayer"
+                          f" (bf16, eval, inference mode), fast path "
+                          f"{'taken' if fast else 'NOT taken'}")
+            # every GEMM of these ops takes the TMA + wgmma mainloop
             check_op(entries, bad, name, replaces, op_src, out, ref, kern,
                      plain, bounds[name], library=library.get(name),
-                     copy_gemms=copy_gemms.get(name, 0))
+                     copy_gemms=0, extra=extra)
+            if cap is not None:
+                entries[name].update(device_ms=dev_ms,
+                                     kernels_per_call=per_call)
         # the training step runs fused_vit_block on its support and query
         # images together, another row count than the eval chunk's (other
         # GEMM tile counts and partial tiles): held at that shape too
@@ -548,6 +626,7 @@ def main_path(dev, entries, power):
     for mod, attr in counters:
         setattr(mod, attr, 0)
     KN.gemm_launches.update(tma=0, copy=0)
+    KN.post_launches.update(enc_post=0, dec_post_self=0, dec_post_cross=0)
     t0 = time.perf_counter()
     timings = run_cached(est, [(i, GROUPS) for i in range(CHUNKS)],
                          lambda i: data[i], on_chunk)
@@ -564,13 +643,16 @@ def main_path(dev, entries, power):
               "fused_encoder_layer": 3 * CHUNKS,
               "fused_decoder_layer": 3 * CHUNKS,
               "flash_mha": 3 * CHUNKS}
-    # 24 x 4 GEMMs of the ViT blocks, 3 x 4 of the encoder layers, 3 x 13
-    # of the decoder layers, of which the 2 adjacency products a layer
-    # (K = 100) are all that may take the thread-copy loader
-    expect_gemms = {"tma": (24 * 4 + 3 * 4 + 3 * 11) * CHUNKS,
-                    "copy": 3 * 2 * CHUNKS}
+    # 24 x 4 GEMMs of the ViT blocks, 3 x 1 of the encoder layers (qkv),
+    # 3 x 4 of the decoder layers (qkv, kpos, k, v), all on the TMA +
+    # wgmma mainloop; one post-attention kernel of each kind a layer
+    expect_gemms = {"tma": (24 * 4 + 3 * 1 + 3 * 4) * CHUNKS, "copy": 0}
+    post = dict(KN.post_launches)
+    expect_post = {"enc_post": 3 * CHUNKS, "dec_post_self": 3 * CHUNKS,
+                   "dec_post_cross": 3 * CHUNKS}
     print(f"[path] launches {counts} expected {expect}; GEMM launches by "
-          f"mainloop {gemms} expected {expect_gemms}", flush=True)
+          f"mainloop {gemms} expected {expect_gemms}; post-attention "
+          f"kernels {post} expected {expect_post}", flush=True)
     for name in ("fused_vit_block", "fused_encoder_stack",
                  "fused_decoder_layer", "flash_mha"):
         entries[name]["launches"] = counts[name]
@@ -578,6 +660,8 @@ def main_path(dev, entries, power):
         fail("launch counts differ from what the main path implies")
     if gemms != expect_gemms:
         fail("a GEMM of the main path did not take the mainloop it should")
+    if post != expect_post:
+        fail("the post-attention kernels did not run once a layer")
 
     nq = GROUPS * QUERIES
     bad = []

@@ -2458,6 +2458,991 @@ extern "C" int ec_attn_train_bwd(const void* q, const void* k, const void* v, in
   return (int)cudaErrorInvalidValue;
 }
 
+// ------------------------------------------ post-attention layer kernels
+// A layer's work after its attention as one kernel: enc_post_kernel for the
+// joint encoder (ops/fused_encoder.py), dec_post_self_kernel and
+// dec_post_cross_kernel for the graph decoder (ops/fused_decoder.py
+// fused_decoder_layer). They replace the GEMM / LayerNorm chains that ran
+// there, with the TPU kernels' rounding points
+// (edgecape_tpu/ops/fused_encoder.py _layer_body, fused_decoder.py
+// _kernel): bf16 operands, fp32 accumulation and LayerNorm statistics.
+//
+// What bounds them on this card: at the eval chunk's shapes each moves
+// about as many bytes through device memory as its products take on the
+// tensor cores (the encoder's at [181560 rows, 256], F 384: 95 GFLOP and
+// 280-370 MB, about 0.1 ms either way), while the chains they replace
+// carried fp32 [rows, 256] intermediates through device memory between
+// 5-12 launches. C = 256 and F = 384 are small, so the design keeps whole
+// rows on chip:
+//   * 384 threads: a producer warpgroup, one thread of which issues every
+//     TMA copy, and two consumer warpgroups of 64 rows each; setmaxnreg
+//     moves registers from the producer (24 a thread) to the consumers
+//     (240). Without it ptxas holds every thread of a 384-thread block to
+//     168 registers, and a 288-thread block (a producer warp) got the same
+//     168 and spilled 1-2 KB a thread;
+//   * a tile's input rows arrive by TMA in 128-byte-swizzled slabs of
+//     [128 rows x 64] bf16 (an "in" barrier pair, released by the
+//     consumers once the rows are read); the weights stream through a ring
+//     of 16 KB slots (a [128 x 64] box or two [64 x 64]) in the order the
+//     consumers use them, the same for every tile, so they come from L2;
+//   * products on wgmma from shared memory, one group kept in flight while
+//     the next slot is awaited, into fp32 accumulators that hold
+//     whole 256-channel rows (two 128-column halves, 128 registers a
+//     thread): bias, residual and LayerNorm run on them, a row's 64 values
+//     a thread summed over the quad by shuffles;
+//   * an intermediate that feeds another product (bf16(x), one F chunk of
+//     the hidden, o2, y) is rounded to bf16 and written by the threads into
+//     a swizzled slab in the layout wgmma reads, then a proxy fence and a
+//     barrier of the warpgroup (of both where both read it);
+//   * a tile's residual rows are prefetched into L2 when the tile starts,
+//     so the epilogue's loads of them wait on L2 and not on device memory;
+//   * the FFN's second product accumulates onto the LayerNorm output x
+//     that its residual adds (x + sum h w2 + b2, where the TPU kernel forms
+//     x + (sum h w2 + b2)): this saves the 128 registers of a separate
+//     accumulator and moves one fp32 summation point.
+// The grid is persistent, one block an SM (224 KB of shared memory each).
+
+#define PA_C 256              // channels of a row
+#define PA_ROWS 128           // rows of a tile
+#define PA_THREADS 384        // the producer warpgroup + two consumer warpgroups
+#define PA_SLAB 16384         // a swizzled [128 rows x 64] bf16 slab
+#define PA_UNIT 16384         // a ring slot
+#define EP_STAGES 8           // ring slots: encoder, decoder self, decoder cross
+#define DS_STAGES 6
+#define DC_STAGES 4
+// the slabs and the slots (aligned to 1024 bytes in the kernel), then the
+// barriers: full and empty per slot, in_full and in_empty
+#define PA_SMEM(slabs, stages) (1024 + ((slabs) + (stages)) * PA_SLAB + (2 * (stages) + 2) * 8)
+#define EP_SMEM PA_SMEM(6, EP_STAGES)
+#define DS_SMEM PA_SMEM(8, DS_STAGES)
+#define DC_SMEM PA_SMEM(10, DC_STAGES)
+static_assert(EP_SMEM <= 232448 && DS_SMEM <= 232448 && DC_SMEM <= 232448,
+              "a post-attention kernel exceeds the shared memory of a block");
+
+// d (+)= a . b for one m64n64k16 tile, a and b in shared memory. TB: b is
+// MN-major.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, %35;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous products that use it.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(a[i])::"memory");
+}
+
+// acc += A . B^T over one 64-deep k slab: A the warpgroup's 64 rows of a
+// K-major slab at shared address a, B 128 (mma_n128) or 64 (mma_n64)
+// K-major rows at b.
+__device__ __forceinline__ void mma_n128(float (&acc)[64], unsigned a, unsigned b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n128k16<0>(acc, wg_desc(a + kk * 32, 16), wg_desc(b + kk * 32, 16), 1);
+}
+
+__device__ __forceinline__ void mma_n64(float (&acc)[32], unsigned a, unsigned b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_m64n64k16<0>(acc, wg_desc(a + kk * 32, 16), wg_desc(b + kk * 32, 16));
+}
+
+__device__ __forceinline__ void fence_view_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier of the 128 threads of consumer warpgroup wg, or of both (256).
+__device__ __forceinline__ void bar_wg(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
+__device__ __forceinline__ void bar_consumers() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// Byte offset of element (r, c) in consecutive swizzled slabs of
+// [128 rows x 64] bf16 (column c in slab c / 64): rows of 128 bytes whose
+// 16-byte chunks are XORed with the row's three low bits, the layout of
+// the TMA's and wgmma's 128-byte swizzle. A K-major operand has its rows
+// as m or n; an MN-major one (the decoder's y) its rows as k.
+__device__ __forceinline__ unsigned sw_off(int r, int c) {
+  return (unsigned)((c >> 6) * PA_SLAB + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) +
+                    ((c & 7) << 1));
+}
+
+// The weight ring: slot i % S of S, a "full" barrier that the copies
+// complete and an "empty" one that the 8 consumer warps release.
+template <int S>
+struct PaRing {
+  unsigned char* slots;
+  uint64_t* full;
+  uint64_t* empty;
+  unsigned it;     // the next slot to fill (producer) or to take (consumers)
+  unsigned done;   // consumers: the next slot to hand back
+
+  // producer: wait until the next slot is free and arm it for `bytes`
+  __device__ __forceinline__ uint64_t* arm(unsigned bytes) {
+    const unsigned s = it % S;
+    if (it >= S) mbar_wait(&empty[s], ((it / S) - 1) & 1);
+    mbar_expect_tx(&full[s], bytes);
+    return &full[s];
+  }
+  // producer: one [128 x 64] box at (column c, row r) into the next slot
+  __device__ __forceinline__ void load(const CUtensorMap* map, int c, int r) {
+    uint64_t* bar = arm(PA_UNIT);
+    tma_load_3d(slots + (it % S) * PA_UNIT, map, bar, c, r, 0);
+    ++it;
+  }
+  // producer: two [64 x 64] boxes (columns c and c + 64, row r)
+  __device__ __forceinline__ void load2(const CUtensorMap* map, int c, int r) {
+    uint64_t* bar = arm(PA_UNIT);
+    unsigned char* dst = slots + (it % S) * PA_UNIT;
+    tma_load_3d(dst, map, bar, c, r, 0);
+    tma_load_3d(dst + PA_UNIT / 2, map, bar, c + 64, r, 0);
+    ++it;
+  }
+  // consumers: wait for the next slot; its shared address, ready for
+  // products (wgmma.fence issued)
+  __device__ __forceinline__ unsigned next() {
+    const unsigned s = it % S;
+    mbar_wait(&full[s], (it / S) & 1);
+    ++it;
+    wg_fence();
+    return smem_u32(slots + s * PA_UNIT);
+  }
+  // consumers, after issuing a slot's products: commit them as a group
+  // and hand back the slot before it, whose group is then complete
+  // (`first`: there is none in this run of slots)
+  __device__ __forceinline__ void issued(int lane, bool first) {
+    wg_commit();
+    if (!first) {
+      wg_wait<1>();
+      give(lane);
+    }
+  }
+  // consumers, after a run of slots: wait for its last group
+  __device__ __forceinline__ void drain(int lane) {
+    wg_wait<0>();
+    give(lane);
+  }
+  __device__ __forceinline__ void give(int lane) {
+    if (lane == 0) mbar_arrive(&empty[done % S]);
+    ++done;
+  }
+};
+
+// Lays out the dynamic shared memory (`slabs` slabs, then the ring, then
+// the barriers) and initialises the barriers; returns the first slab.
+template <int S>
+__device__ __forceinline__ unsigned char* pa_init(unsigned char* raw, int slabs, PaRing<S>& ring,
+                                                  uint64_t*& in_full, uint64_t*& in_empty) {
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  ring.slots = base + slabs * PA_SLAB;
+  ring.full = reinterpret_cast<uint64_t*>(ring.slots + S * PA_UNIT);
+  ring.empty = ring.full + S;
+  ring.it = ring.done = 0;
+  in_full = ring.empty + S;
+  in_empty = in_full + 1;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&ring.full[s], 1);
+      mbar_init(&ring.empty[s], 8);
+    }
+    mbar_init(in_full, 1);
+    mbar_init(in_empty, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return base;
+}
+
+__device__ __forceinline__ void regs_producer() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+}
+__device__ __forceinline__ void regs_consumer() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+}
+
+// Starts rows r0 and r1 (skipped when < 0) of a [*, 256] matrix of
+// el_bytes-wide elements on their way into L2: the quad's four threads
+// take every fourth 128-byte line.
+__device__ __forceinline__ void prefetch_rows(const void* m, int el_bytes, long r0, long r1,
+                                              int t) {
+  const long row_bytes = (long)PA_C * el_bytes;
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const long r = rh ? r1 : r0;
+    if (r < 0) continue;
+    const char* row = static_cast<const char*>(m) + r * row_bytes;
+    for (long off = 128 * t; off < row_bytes; off += 512)
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(row + off));
+  }
+}
+
+// Row helpers on a warpgroup's 64 x 256 tile v[2][64] in wgmma's
+// accumulator layout: half h holds columns 128 h + 8 j + 2 t + e in
+// v[h][4 j + 2 rh + e] of rows lr + 8 rh (lane = 4 g + t).
+
+// v += vec[column] for a per-column fp32 vector
+__device__ __forceinline__ void rows_add_cols(float (&v)[2][64], const float* vec, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 b = __ldg(reinterpret_cast<const float2*>(vec + 128 * h + 8 * j + 2 * t));
+      v[h][4 * j] += b.x; v[h][4 * j + 1] += b.y;
+      v[h][4 * j + 2] += b.x; v[h][4 * j + 3] += b.y;
+    }
+  }
+}
+
+// v += rows r0 and r1 (a row < 0 adds nothing) of a [*, 256] bf16 matrix
+__device__ __forceinline__ void rows_add(float (&v)[2][64], const bf16* m, long r0, long r1,
+                                         int t) {
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const long r = rh ? r1 : r0;
+    if (r < 0) continue;
+    const bf16* row = m + r * PA_C + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int jb = 0; jb < 16; jb += 8) {
+        unsigned u[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          u[j] = __ldg(reinterpret_cast<const unsigned*>(row + 128 * h + 8 * (jb + j)));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          v[h][4 * (jb + j) + 2 * rh] += __uint_as_float(u[j] << 16);
+          v[h][4 * (jb + j) + 2 * rh + 1] += __uint_as_float(u[j] & 0xffff0000u);
+        }
+      }
+    }
+  }
+}
+
+// the same for a [*, 256] fp32 matrix
+__device__ __forceinline__ void rows_add(float (&v)[2][64], const float* m, long r0, long r1,
+                                         int t) {
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const long r = rh ? r1 : r0;
+    if (r < 0) continue;
+    const float* row = m + r * PA_C + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int jb = 0; jb < 16; jb += 8) {
+        float2 u[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          u[j] = __ldg(reinterpret_cast<const float2*>(row + 128 * h + 8 * (jb + j)));
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          v[h][4 * (jb + j) + 2 * rh] += u[j].x;
+          v[h][4 * (jb + j) + 2 * rh + 1] += u[j].y;
+        }
+      }
+    }
+  }
+}
+
+// LayerNorm of each row with fp32 statistics and the two-pass variance:
+// (v - mean) * rsqrt(var + eps) * gamma + beta.
+__device__ __forceinline__ void rows_layernorm(float (&v)[2][64], const float* gamma,
+                                               const float* beta, float eps, int t) {
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    float s = 0.0f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) s += v[h][4 * j + 2 * rh] + v[h][4 * j + 2 * rh + 1];
+    const float mean = quad_sum(s) * (1.0f / PA_C);
+    float q = 0.0f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float d0 = v[h][4 * j + 2 * rh] - mean, d1 = v[h][4 * j + 2 * rh + 1] - mean;
+        q += d0 * d0 + d1 * d1;
+      }
+    const float inv = rsqrtf(quad_sum(q) * (1.0f / PA_C) + eps);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        v[h][4 * j + 2 * rh] = (v[h][4 * j + 2 * rh] - mean) * inv;
+        v[h][4 * j + 2 * rh + 1] = (v[h][4 * j + 2 * rh + 1] - mean) * inv;
+      }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int c = 128 * h + 8 * j + 2 * t;
+      const float2 g = __ldg(reinterpret_cast<const float2*>(gamma + c));
+      const float2 b = __ldg(reinterpret_cast<const float2*>(beta + c));
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        v[h][4 * j + 2 * rh] = v[h][4 * j + 2 * rh] * g.x + b.x;
+        v[h][4 * j + 2 * rh + 1] = v[h][4 * j + 2 * rh + 1] * g.y + b.y;
+      }
+    }
+  }
+}
+
+// rows r0, r1 (skipped when < 0) of v into a bf16 or fp32 matrix with row
+// stride ld
+__device__ __forceinline__ void rows_store(const float (&v)[2][64], void* out, int dt, long ld,
+                                           long r0, long r1, int t) {
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const long r = rh ? r1 : r0;
+    if (r < 0) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const long off = r * ld + 128 * h + 8 * j + 2 * t;
+        const float a = v[h][4 * j + 2 * rh], b = v[h][4 * j + 2 * rh + 1];
+        if (dt == DT_BF16)
+          *reinterpret_cast<unsigned*>(static_cast<bf16*>(out) + off) = pack_bf16(a, b);
+        else
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + off) = make_float2(a, b);
+      }
+    }
+  }
+}
+
+// bf16 of v's rows lr, lr + 8 into swizzled slabs (256 columns: 4 slabs)
+__device__ __forceinline__ void rows_to_slabs(const float (&v)[2][64], unsigned char* slabs,
+                                              int lr, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh)
+        *reinterpret_cast<unsigned*>(slabs + sw_off(lr + 8 * rh, 128 * h + 8 * j + 2 * t)) =
+            pack_bf16(v[h][4 * j + 2 * rh], v[h][4 * j + 2 * rh + 1]);
+}
+
+// An accumulator of N / 2 columns (N = 64: 128 columns, N = 32: 64):
+// + bias[column], optional ReLU, then bf16 into swizzled slabs.
+template <int N>
+__device__ __forceinline__ void acc_to_slabs(float (&a)[N], const float* bias, bool relu,
+                                             unsigned char* slabs, int lr, int t) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    float2 b = make_float2(0.0f, 0.0f);
+    if (bias) b = __ldg(reinterpret_cast<const float2*>(bias + 8 * j + 2 * t));
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      float x = a[4 * j + 2 * rh] + b.x, y = a[4 * j + 2 * rh + 1] + b.y;
+      if (relu) {
+        x = fmaxf(x, 0.0f);
+        y = fmaxf(y, 0.0f);
+      }
+      *reinterpret_cast<unsigned*>(slabs + sw_off(lr + 8 * rh, 8 * j + 2 * t)) = pack_bf16(x, y);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void acc_zero(float (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) a[i] = 0.0f;
+}
+
+// ---- joint encoder: a = att . Wo^T + bo; x = LN1(src + a);
+// y = LN2(x + relu(bf16(x) . W1^T + b1) . W2^T + b2) with the hidden in F
+// chunks of 128; y written in the tokens' type and / or the next layer's
+// src = bf16(bf16(y) + pos[row % n_tok]).
+struct EncPostArgs {
+  const bf16* src;
+  const float *bo, *g1, *be1, *b1, *b2, *g2, *be2;
+  const bf16* pos;
+  void* out; int out_dt;
+  bf16* nxt;
+  int R, F, n_tok;
+  float eps;
+};
+
+__global__ void __launch_bounds__(PA_THREADS, 1)
+    enc_post_kernel(const __grid_constant__ CUtensorMap map_att,
+                    const __grid_constant__ CUtensorMap map_wo,
+                    const __grid_constant__ CUtensorMap map_w1,
+                    const __grid_constant__ CUtensorMap map_w2, EncPostArgs p) {
+  extern __shared__ unsigned char pa_raw[];
+  PaRing<EP_STAGES> ring;
+  uint64_t *in_full, *in_empty;
+  unsigned char* xs = pa_init(pa_raw, 6, ring, in_full, in_empty);  // att, then bf16(x)
+  unsigned char* hs = xs + 4 * PA_SLAB;                               // one chunk of the hidden
+  const int tiles = (p.R + PA_ROWS - 1) / PA_ROWS, chunks = p.F / 128;
+
+  if (threadIdx.x < 128) {
+    regs_producer();
+    if (threadIdx.x == 0) {
+      unsigned n = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
+        if (n) mbar_wait(in_empty, (n - 1) & 1);
+        mbar_expect_tx(in_full, 4 * PA_SLAB);
+        for (int ks = 0; ks < 4; ++ks)
+          tma_load_3d(xs + ks * PA_SLAB, &map_att, in_full, 64 * ks, tile * PA_ROWS, 0);
+        for (int ks = 0; ks < 4; ++ks)
+          for (int h = 0; h < 2; ++h) ring.load(&map_wo, 64 * ks, 128 * h);
+        for (int j = 0; j < chunks; ++j) {
+          for (int ks = 0; ks < 4; ++ks) ring.load(&map_w1, 64 * ks, 128 * j);
+          for (int ks = 0; ks < 2; ++ks)
+            for (int h = 0; h < 2; ++h) ring.load(&map_w2, 128 * j + 64 * ks, 128 * h);
+        }
+      }
+    }
+    return;
+  }
+
+  regs_consumer();
+  const int wg = (threadIdx.x >> 7) - 1;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int lr = wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  const unsigned xa = smem_u32(xs) + wg * 64 * 128, ha = smem_u32(hs) + wg * 64 * 128;
+  unsigned n = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
+    const long r0 = (long)tile * PA_ROWS + lr, r1 = r0 + 8;
+    const long s0 = r0 < p.R ? r0 : -1, s1 = r1 < p.R ? r1 : -1;
+    prefetch_rows(p.src, 2, s0, s1, t);
+    if (p.nxt) prefetch_rows(p.pos, 2, s0 < 0 ? -1 : s0 % p.n_tok, s1 < 0 ? -1 : s1 % p.n_tok, t);
+    float x[2][64];
+    acc_zero(x[0]);
+    acc_zero(x[1]);
+    reg_fence(x[0]);
+    reg_fence(x[1]);
+    mbar_wait(in_full, n & 1);
+    // a = att . Wo^T: slot i holds k slab i / 2 of column half i % 2
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const unsigned b = ring.next();
+      if (i & 1) mma_n128(x[1], xa + (i >> 1) * PA_SLAB, b);
+      else mma_n128(x[0], xa + (i >> 1) * PA_SLAB, b);
+      ring.issued(lane, i == 0);
+    }
+    ring.drain(lane);
+    reg_fence(x[0]);
+    reg_fence(x[1]);
+    // x = LN1(src + a + bo); rows past R read row R - 1 and are not stored
+    rows_add_cols(x, p.bo, t);
+    rows_add(x, p.src, s0 < 0 ? p.R - 1 : r0, s1 < 0 ? p.R - 1 : r1, t);
+    rows_layernorm(x, p.g1, p.be1, p.eps, t);
+    bar_wg(wg);
+    rows_to_slabs(x, xs, lr, t);      // over this warpgroup's att rows
+    fence_view_async();
+    bar_wg(wg);
+    for (int j = 0; j < chunks; ++j) {
+      float f[64];
+      acc_zero(f);
+      reg_fence(f);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned b = ring.next();
+        mma_n128(f, xa + i * PA_SLAB, b);
+        ring.issued(lane, i == 0);
+      }
+      ring.drain(lane);
+      reg_fence(f);
+      if (j == chunks - 1 && lane == 0) mbar_arrive(in_empty);   // xs may take the next tile
+      bar_wg(wg);
+      acc_to_slabs(f, p.b1 + 128 * j, true, hs, lr, t);
+      fence_view_async();
+      bar_wg(wg);
+      reg_fence(x[0]);
+      reg_fence(x[1]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {     // k slab i / 2 of the chunk, column half i % 2
+        const unsigned b = ring.next();
+        if (i & 1) mma_n128(x[1], ha + (i >> 1) * PA_SLAB, b);
+        else mma_n128(x[0], ha + (i >> 1) * PA_SLAB, b);
+        ring.issued(lane, i == 0);
+      }
+      ring.drain(lane);
+      reg_fence(x[0]);
+      reg_fence(x[1]);
+    }
+    rows_add_cols(x, p.b2, t);
+    rows_layernorm(x, p.g2, p.be2, p.eps, t);
+    if (p.out) rows_store(x, p.out, p.out_dt, PA_C, s0, s1, t);
+    if (p.nxt) {
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const long r = rh ? s1 : s0;
+        if (r < 0) continue;
+        const bf16* pr = p.pos + (r % p.n_tok) * PA_C + 2 * t;
+        bf16* o = p.nxt + r * PA_C + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const unsigned u = __ldg(reinterpret_cast<const unsigned*>(pr + 128 * h + 8 * j));
+            const float a = __bfloat162float(__float2bfloat16(x[h][4 * j + 2 * rh]));
+            const float b = __bfloat162float(__float2bfloat16(x[h][4 * j + 2 * rh + 1]));
+            *reinterpret_cast<unsigned*>(o + 128 * h + 8 * j) =
+                pack_bf16(a + __uint_as_float(u << 16), b + __uint_as_float(u & 0xffff0000u));
+          }
+      }
+    }
+  }
+}
+
+// ---- decoder, after the self-attention: x1 = LN1(xb + att . Wso^T +
+// bso), written in fp32; q2 = bf16(bf16(x1) . Wcq_x^T + qpos . Wcq_p^T +
+// bcq) for the cross-attention, its 512 columns in two halves.
+struct DecSelfArgs {
+  const bf16* xb;
+  const float *bso, *g1, *be1, *bcq;
+  float* x1;
+  bf16* q2;
+  int R;
+  float eps;
+};
+
+__global__ void __launch_bounds__(PA_THREADS, 1)
+    dec_post_self_kernel(const __grid_constant__ CUtensorMap map_att,
+                         const __grid_constant__ CUtensorMap map_qp,
+                         const __grid_constant__ CUtensorMap map_wso,
+                         const __grid_constant__ CUtensorMap map_wcqx,
+                         const __grid_constant__ CUtensorMap map_wcqp, DecSelfArgs p) {
+  extern __shared__ unsigned char pa_raw[];
+  PaRing<DS_STAGES> ring;
+  uint64_t *in_full, *in_empty;
+  unsigned char* xs = pa_init(pa_raw, 8, ring, in_full, in_empty);  // att, then bf16(x1)
+  unsigned char* qs = xs + 4 * PA_SLAB;                               // qpos
+  const int tiles = (p.R + PA_ROWS - 1) / PA_ROWS;
+
+  if (threadIdx.x < 128) {
+    regs_producer();
+    if (threadIdx.x == 0) {
+      unsigned n = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
+        if (n) mbar_wait(in_empty, (n - 1) & 1);
+        mbar_expect_tx(in_full, 8 * PA_SLAB);
+        for (int ks = 0; ks < 4; ++ks) {
+          tma_load_3d(xs + ks * PA_SLAB, &map_att, in_full, 64 * ks, tile * PA_ROWS, 0);
+          tma_load_3d(qs + ks * PA_SLAB, &map_qp, in_full, 64 * ks, tile * PA_ROWS, 0);
+        }
+        for (int ks = 0; ks < 4; ++ks)
+          for (int h = 0; h < 2; ++h) ring.load(&map_wso, 64 * ks, 128 * h);
+        for (int q = 0; q < 2; ++q) {
+          for (int ks = 0; ks < 4; ++ks)
+            for (int h = 0; h < 2; ++h) ring.load(&map_wcqx, 64 * ks, 256 * q + 128 * h);
+          for (int ks = 0; ks < 4; ++ks)
+            for (int h = 0; h < 2; ++h) ring.load(&map_wcqp, 64 * ks, 256 * q + 128 * h);
+        }
+      }
+    }
+    return;
+  }
+
+  regs_consumer();
+  const int wg = (threadIdx.x >> 7) - 1;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int lr = wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  const unsigned xa = smem_u32(xs) + wg * 64 * 128, qa = smem_u32(qs) + wg * 64 * 128;
+  unsigned n = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
+    const long r0 = (long)tile * PA_ROWS + lr, r1 = r0 + 8;
+    const long s0 = r0 < p.R ? r0 : -1, s1 = r1 < p.R ? r1 : -1;
+    prefetch_rows(p.xb, 2, s0, s1, t);
+    float x[2][64];
+    acc_zero(x[0]);
+    acc_zero(x[1]);
+    reg_fence(x[0]);
+    reg_fence(x[1]);
+    mbar_wait(in_full, n & 1);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {       // k slab i / 2, column half i % 2
+      const unsigned b = ring.next();
+      if (i & 1) mma_n128(x[1], xa + (i >> 1) * PA_SLAB, b);
+      else mma_n128(x[0], xa + (i >> 1) * PA_SLAB, b);
+      ring.issued(lane, i == 0);
+    }
+    ring.drain(lane);
+    reg_fence(x[0]);
+    reg_fence(x[1]);
+    rows_add_cols(x, p.bso, t);
+    rows_add(x, p.xb, s0 < 0 ? p.R - 1 : r0, s1 < 0 ? p.R - 1 : r1, t);
+    rows_layernorm(x, p.g1, p.be1, p.eps, t);
+    rows_store(x, p.x1, DT_F32, PA_C, s0, s1, t);
+    bar_wg(wg);
+    rows_to_slabs(x, xs, lr, t);
+    fence_view_async();
+    bar_wg(wg);
+    for (int q = 0; q < 2; ++q) {
+      acc_zero(x[0]);
+      acc_zero(x[1]);
+      reg_fence(x[0]);
+      reg_fence(x[1]);
+      // bf16(x1) . Wcq_x^T, then qpos . Wcq_p^T: slot i holds k slab
+      // (i / 2) % 4 of column half i % 2
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const unsigned b = ring.next();
+        const unsigned a = (i < 8 ? xa : qa) + ((i >> 1) & 3) * PA_SLAB;
+        if (i & 1) mma_n128(x[1], a, b);
+        else mma_n128(x[0], a, b);
+        ring.issued(lane, i == 0);
+      }
+      ring.drain(lane);
+      reg_fence(x[0]);
+      reg_fence(x[1]);
+      if (q == 1 && lane == 0) mbar_arrive(in_empty);
+      rows_add_cols(x, p.bcq + 256 * q, t);
+      rows_store(x, p.q2 + 256 * q, DT_BF16, 2 * PA_C, s0, s1, t);
+    }
+  }
+}
+
+// ---- decoder, after the cross-attention, one batch row of K <= 128
+// keypoints a tile (rows past K: zero att2 rows from the TMA, zero
+// adjacency rows and columns): o2 = bf16(att2 . Wco^T + bco) in 64-column
+// pieces, each multiplied into the choker at once; x2 = LN2(x1 + a2 +
+// bch); per F chunk of 64: y_s = bf16(bf16(x2) . Wg_s^T + bg_s) for the
+// two slices s, m = adj0 . y0 + adj1 . y1, f2 += bf16(relu(m)) . Wf^T;
+// out = LN3(x2 + f2 + bf).
+struct DecCrossArgs {
+  const float *bco, *bch, *g2, *be2, *bg, *bf, *g3, *be3;
+  const float* x1;
+  const void* adj; int adj_dt;
+  void* out; int out_dt;
+  int B, K, F;
+  float eps;
+};
+
+__global__ void __launch_bounds__(PA_THREADS, 1)
+    dec_post_cross_kernel(const __grid_constant__ CUtensorMap map_att2,
+                          const __grid_constant__ CUtensorMap map_wco,
+                          const __grid_constant__ CUtensorMap map_wch,
+                          const __grid_constant__ CUtensorMap map_wg,
+                          const __grid_constant__ CUtensorMap map_wf, DecCrossArgs p) {
+  extern __shared__ unsigned char pa_raw[];
+  PaRing<DC_STAGES> ring;
+  uint64_t *in_full, *in_empty;
+  // 8 slabs of att2; then bf16(x2) over the first four, the adjacency's two
+  // slices over the last four
+  unsigned char* as = pa_init(pa_raw, 10, ring, in_full, in_empty);
+  unsigned char* adjs = as + 4 * PA_SLAB;
+  // y0 | y1 of one F chunk (rows = keypoints, the B operand); the y0 slab
+  // also holds a warpgroup's own rows of an o2 piece and of the hidden
+  // chunk (A operands), which only its own y0 rows ever overlay
+  unsigned char* ys = as + 8 * PA_SLAB;
+  const int chunks = p.F / 64;
+
+  if (threadIdx.x < 128) {
+    regs_producer();
+    if (threadIdx.x == 0) {
+      unsigned n = 0;
+      for (int b = blockIdx.x; b < p.B; b += gridDim.x, ++n) {
+        if (n) mbar_wait(in_empty, (n - 1) & 1);
+        mbar_expect_tx(in_full, 8 * PA_SLAB);
+        for (int ks = 0; ks < 8; ++ks)
+          tma_load_3d(as + ks * PA_SLAB, &map_att2, in_full, 64 * ks, 0, b);
+        for (int pc = 0; pc < 8; ++pc) {
+          for (int u = 0; u < 4; ++u) ring.load2(&map_wco, 128 * u, 64 * pc);
+          for (int h = 0; h < 2; ++h) ring.load(&map_wch, 64 * pc, 128 * h);
+        }
+        for (int j = 0; j < chunks; ++j) {
+          for (int s = 0; s < 2; ++s)
+            for (int u = 0; u < 2; ++u) ring.load2(&map_wg, 128 * u, s * p.F + 64 * j);
+          for (int h = 0; h < 2; ++h) ring.load(&map_wf, 64 * j, 128 * h);
+        }
+      }
+    }
+    return;
+  }
+
+  regs_consumer();
+  const int wg = (threadIdx.x >> 7) - 1;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int lr = wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  const unsigned aa = smem_u32(as) + wg * 64 * 128, oa = smem_u32(ys) + wg * 64 * 128;
+  const unsigned adja = smem_u32(adjs) + wg * 64 * 128, ya = smem_u32(ys);
+  unsigned n = 0;
+  for (int b = blockIdx.x; b < p.B; b += gridDim.x, ++n) {
+    const long r0 = lr < p.K ? (long)b * p.K + lr : -1;
+    const long r1 = lr + 8 < p.K ? (long)b * p.K + lr + 8 : -1;
+    prefetch_rows(p.x1, 4, r0, r1, t);
+    float x[2][64];
+    acc_zero(x[0]);
+    acc_zero(x[1]);
+    mbar_wait(in_full, n & 1);
+    for (int pc = 0; pc < 8; ++pc) {
+      float o[32];
+      acc_zero(o);
+      reg_fence(o);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {     // k slabs 2 u and 2 u + 1 of att2
+        const unsigned w = ring.next();
+        mma_n64(o, aa + 2 * u * PA_SLAB, w);
+        mma_n64(o, aa + (2 * u + 1) * PA_SLAB, w + PA_UNIT / 2);
+        ring.issued(lane, u == 0);
+      }
+      ring.drain(lane);
+      reg_fence(o);
+      bar_wg(wg);
+      acc_to_slabs(o, p.bco + 64 * pc, false, ys, lr, t);
+      fence_view_async();
+      bar_wg(wg);
+      reg_fence(x[0]);
+      reg_fence(x[1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const unsigned w = ring.next();
+        if (h) mma_n128(x[1], oa, w);
+        else mma_n128(x[0], oa, w);
+        ring.issued(lane, h == 0);
+      }
+      ring.drain(lane);
+      reg_fence(x[0]);
+      reg_fence(x[1]);
+    }
+    // x2 = LN2(x1 + a2 + bch); rows past K add no x1
+    rows_add_cols(x, p.bch, t);
+    rows_add(x, p.x1, r0, r1, t);
+    rows_layernorm(x, p.g2, p.be2, p.eps, t);
+    bar_wg(wg);
+    rows_to_slabs(x, as, lr, t);
+    {
+      // this warpgroup's 64 rows of both adjacency slices, bf16, zero past K
+      const int tw = threadIdx.x & 127;
+      const long base = (long)b * 2 * p.K * p.K;
+      for (int i = tw; i < 2 * 64 * 64; i += 128) {
+        const int s = i >> 12, r = 64 * wg + ((i >> 6) & 63), c = 2 * (i & 63);
+        float v0 = 0.0f, v1 = 0.0f;
+        if (r < p.K) {
+          const long off = base + ((long)s * p.K + r) * p.K + c;
+          if (c < p.K) v0 = ld_val(p.adj, p.adj_dt, off);
+          if (c + 1 < p.K) v1 = ld_val(p.adj, p.adj_dt, off + 1);
+        }
+        *reinterpret_cast<unsigned*>(adjs + s * 2 * PA_SLAB + sw_off(r, c)) = pack_bf16(v0, v1);
+      }
+    }
+    fence_view_async();
+    bar_wg(wg);
+    for (int j = 0; j < chunks; ++j) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        float y[32];
+        acc_zero(y);
+        reg_fence(y);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {   // k slabs 2 u and 2 u + 1 of bf16(x2)
+          const unsigned w = ring.next();
+          mma_n64(y, aa + 2 * u * PA_SLAB, w);
+          mma_n64(y, aa + (2 * u + 1) * PA_SLAB, w + PA_UNIT / 2);
+          ring.issued(lane, u == 0);
+        }
+        ring.drain(lane);
+        reg_fence(y);
+        // own keypoint rows of y_s: this warpgroup's hidden rows of the last
+        // chunk in the y0 slab are read (its own products waited for)
+        bar_wg(wg);
+        acc_to_slabs(y, p.bg + s * p.F + 64 * j, false, ys + s * PA_SLAB, lr, t);
+      }
+      fence_view_async();
+      bar_consumers();                  // y0 and y1 whole
+      float m[32];
+      acc_zero(m);
+      reg_fence(m);
+      wg_fence();
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          wgmma_m64n64k16<1>(m,
+                             wg_desc(adja + s * 2 * PA_SLAB + (kk >> 2) * PA_SLAB + (kk & 3) * 32, 16),
+                             wg_desc(ya + s * PA_SLAB + kk * 2048, PA_SLAB));
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(m);
+      if (j == chunks - 1 && lane == 0) mbar_arrive(in_empty);   // att2 slabs free
+      bar_consumers();                  // both warpgroups are done with y0, y1
+      acc_to_slabs(m, nullptr, true, ys, lr, t);
+      fence_view_async();
+      bar_wg(wg);
+      reg_fence(x[0]);
+      reg_fence(x[1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const unsigned w = ring.next();
+        if (h) mma_n128(x[1], oa, w);
+        else mma_n128(x[0], oa, w);
+        ring.issued(lane, h == 0);
+      }
+      ring.drain(lane);
+      reg_fence(x[0]);
+      reg_fence(x[1]);
+    }
+    rows_add_cols(x, p.bf, t);
+    rows_layernorm(x, p.g3, p.be3, p.eps, t);
+    rows_store(x, p.out, p.out_dt, PA_C, r0, r1, t);
+  }
+}
+
+// The persistent grid for `work` tiles: one block an SM at most.
+static int pa_grid(long work, int& grid) {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) {
+      sms = 0;
+      return (int)e;
+    }
+  }
+  grid = (int)(work < sms ? work : sms);
+  return 0;
+}
+
+template <typename Kern>
+static int pa_configure(Kern kern, bool& done, int bytes) {
+  if (done) return 0;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  done = true;
+  return 0;
+}
+
+static bool pa_aligned(const void* p) { return p && (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// Contiguous bf16 operands: att, src [R, 256]; wo [256, 256]; w1 [F, 256];
+// w2 [256, F]; pos [n_tok, 256]. fp32 vectors; out [R, 256] (out_dt) and
+// nxt [R, 256] bf16, either may be null.
+extern "C" int ec_enc_post(const void* att, const void* src, const void* wo, const void* bo,
+                           const void* g1, const void* be1, const void* w1, const void* b1,
+                           const void* w2, const void* b2, const void* g2, const void* be2,
+                           const void* pos, int n_tok, void* out, int out_dt, void* nxt, int R,
+                           int F, float eps, void* stream) {
+  static bool configured = false;
+  if (R <= 0 || F <= 0 || F % 128 || (!out && !nxt) || (nxt && (!pos || n_tok <= 0)) ||
+      !pa_aligned(att) || !pa_aligned(wo) || !pa_aligned(w1) || !pa_aligned(w2))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m_att, m_wo, m_w1, m_w2;
+  if (!encode_map(&m_att, att, PA_C, R, PA_C, 0, 1, 128) ||
+      !encode_map(&m_wo, wo, PA_C, PA_C, PA_C, 0, 1, 128) ||
+      !encode_map(&m_w1, w1, PA_C, F, PA_C, 0, 1, 128) ||
+      !encode_map(&m_w2, w2, F, PA_C, F, 0, 1, 128))
+    return (int)cudaErrorInvalidValue;
+  int e = pa_configure(enc_post_kernel, configured, EP_SMEM);
+  if (e) return e;
+  int grid = 0;
+  if ((e = pa_grid((R + PA_ROWS - 1) / PA_ROWS, grid))) return e;
+  EncPostArgs p;
+  p.src = static_cast<const bf16*>(src);
+  p.bo = static_cast<const float*>(bo); p.g1 = static_cast<const float*>(g1);
+  p.be1 = static_cast<const float*>(be1); p.b1 = static_cast<const float*>(b1);
+  p.b2 = static_cast<const float*>(b2); p.g2 = static_cast<const float*>(g2);
+  p.be2 = static_cast<const float*>(be2);
+  p.pos = static_cast<const bf16*>(pos);
+  p.out = out; p.out_dt = out_dt;
+  p.nxt = static_cast<bf16*>(nxt);
+  p.R = R; p.F = F; p.n_tok = n_tok; p.eps = eps;
+  enc_post_kernel<<<grid, PA_THREADS, EP_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      m_att, m_wo, m_w1, m_w2, p);
+  return (int)cudaGetLastError();
+}
+
+// Contiguous bf16 operands: att, xb, qpos [R, 256]; wso [256, 256]; wcqx,
+// wcqp [512, 256] (the x and qpos halves of the cross-attention's query
+// weight). fp32 vectors; x1 fp32 [R, 256] and q2 bf16 [R, 512] written.
+extern "C" int ec_dec_post_self(const void* att, const void* xb, const void* qpos,
+                                const void* wso, const void* bso, const void* g1, const void* be1,
+                                const void* wcqx, const void* wcqp, const void* bcq, void* x1,
+                                void* q2, int R, float eps, void* stream) {
+  static bool configured = false;
+  if (R <= 0 || !pa_aligned(att) || !pa_aligned(qpos) || !pa_aligned(wso) ||
+      !pa_aligned(wcqx) || !pa_aligned(wcqp))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m_att, m_qp, m_wso, m_wcqx, m_wcqp;
+  if (!encode_map(&m_att, att, PA_C, R, PA_C, 0, 1, 128) ||
+      !encode_map(&m_qp, qpos, PA_C, R, PA_C, 0, 1, 128) ||
+      !encode_map(&m_wso, wso, PA_C, PA_C, PA_C, 0, 1, 128) ||
+      !encode_map(&m_wcqx, wcqx, PA_C, 2 * PA_C, PA_C, 0, 1, 128) ||
+      !encode_map(&m_wcqp, wcqp, PA_C, 2 * PA_C, PA_C, 0, 1, 128))
+    return (int)cudaErrorInvalidValue;
+  int e = pa_configure(dec_post_self_kernel, configured, DS_SMEM);
+  if (e) return e;
+  int grid = 0;
+  if ((e = pa_grid((R + PA_ROWS - 1) / PA_ROWS, grid))) return e;
+  DecSelfArgs p;
+  p.xb = static_cast<const bf16*>(xb);
+  p.bso = static_cast<const float*>(bso); p.g1 = static_cast<const float*>(g1);
+  p.be1 = static_cast<const float*>(be1); p.bcq = static_cast<const float*>(bcq);
+  p.x1 = static_cast<float*>(x1); p.q2 = static_cast<bf16*>(q2);
+  p.R = R; p.eps = eps;
+  dec_post_self_kernel<<<grid, PA_THREADS, DS_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      m_att, m_qp, m_wso, m_wcqx, m_wcqp, p);
+  return (int)cudaGetLastError();
+}
+
+// Contiguous operands: att2 bf16 [B, K, 512]; wco [512, 512], wch [256,
+// 512], wg [2F, 256], wf [256, F] bf16; x1 fp32 [B K, 256]; adj [B, 2, K,
+// K] fp32 or bf16 (adj_dt); fp32 vectors; out [B K, 256] (out_dt).
+extern "C" int ec_dec_post_cross(const void* att2, const void* wco, const void* bco,
+                                 const void* wch, const void* bch, const void* x1,
+                                 const void* g2, const void* be2, const void* wg, const void* bg,
+                                 const void* adj, int adj_dt, const void* wf, const void* bf,
+                                 const void* g3, const void* be3, void* out, int out_dt, int B,
+                                 int K, int F, float eps, void* stream) {
+  static bool configured = false;
+  if (B <= 0 || K <= 0 || K > PA_ROWS || F <= 0 || F % 64 || !pa_aligned(att2) ||
+      !pa_aligned(wco) || !pa_aligned(wch) || !pa_aligned(wg) || !pa_aligned(wf))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m_att2, m_wco, m_wch, m_wg, m_wf;
+  if (!encode_map(&m_att2, att2, 2 * PA_C, K, 2 * PA_C, (long)K * 2 * PA_C, B, 128) ||
+      !encode_map(&m_wco, wco, 2 * PA_C, 2 * PA_C, 2 * PA_C, 0, 1, 64) ||
+      !encode_map(&m_wch, wch, 2 * PA_C, PA_C, 2 * PA_C, 0, 1, 128) ||
+      !encode_map(&m_wg, wg, PA_C, 2 * F, PA_C, 0, 1, 64) ||
+      !encode_map(&m_wf, wf, F, PA_C, F, 0, 1, 128))
+    return (int)cudaErrorInvalidValue;
+  int e = pa_configure(dec_post_cross_kernel, configured, DC_SMEM);
+  if (e) return e;
+  int grid = 0;
+  if ((e = pa_grid(B, grid))) return e;
+  DecCrossArgs p;
+  p.bco = static_cast<const float*>(bco); p.bch = static_cast<const float*>(bch);
+  p.g2 = static_cast<const float*>(g2); p.be2 = static_cast<const float*>(be2);
+  p.bg = static_cast<const float*>(bg); p.bf = static_cast<const float*>(bf);
+  p.g3 = static_cast<const float*>(g3); p.be3 = static_cast<const float*>(be3);
+  p.x1 = static_cast<const float*>(x1);
+  p.adj = adj; p.adj_dt = adj_dt;
+  p.out = out; p.out_dt = out_dt;
+  p.B = B; p.K = K; p.F = F; p.eps = eps;
+  dec_post_cross_kernel<<<grid, PA_THREADS, DC_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      m_att2, m_wco, m_wch, m_wg, m_wf, p);
+  return (int)cudaGetLastError();
+}
+
 extern "C" const char* ec_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

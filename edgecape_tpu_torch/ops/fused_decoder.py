@@ -14,15 +14,22 @@ Rounding points follow the TPU kernel: bf16 matmul operands with fp32
 accumulation, fp32 LN statistics and softmax, bf16 q/k/v and attention
 outputs, the adjacency rounded to bf16 for its contraction.
 
-On the H100, at [510 rows, K=100, 256 image tokens, C=256], the layer is
-bound by the cross-attention's key/value projections (2 x [510*256, 512]
-outputs) and by launch count: the per-row tensors are small. The design
-never materialises the concatenations: [x; qpos] @ Wq is two GEMMs whose
-second adds the first in its epilogue, and the img_pos half of the key
-projection is computed once per call ([256, 512]) and added to every row
-in the key GEMM's epilogue. The adjacency contraction is a strided
-batched GEMM over rows on tensor cores with the second slice accumulating
-onto the first and ReLU fused. A single launch per layer is later work.
+On the H100 a layer is eight launches: the self-attention's q, k, v
+GEMM and attention (the Markov bias read), dec_post_self_kernel
+(ops/kernels.py dec_post_self: out projection, residual and LN1, written
+in fp32, and the cross-attention's query from [x1; qpos] as one
+accumulation over both halves of its weight, so the concatenation is
+never formed), the img_pos half of the key projection once per call
+([HW, 2C], added in the key GEMM's epilogue), the key and value GEMMs
+over the image tokens, the cross-attention, and dec_post_cross_kernel
+(ops/kernels.py dec_post_cross), which runs the rest for one batch row
+of K <= 128 keypoints a tile: out_proj in 64-column pieces each fed to
+the choker at once, LN2, then per chunk of 64 GCN features both slices'
+linear, the adjacency contraction on tensor cores with the adjacency in
+shared memory (rows and columns past K zero), ReLU and ffn2, then LN3.
+Its adjacency rows of K bf16 values (200 bytes at K = 100) are no TMA
+box, so the threads copy them. The weights are made once per layer
+module and kept until a parameter changes.
 
 `fused_decoder_stack` replaces the TPU kernel `fused_decoder_stack`
 (`_stack_kernel` through `_stack_chunk`) of the same file: all decoder
@@ -116,66 +123,68 @@ def fused_decoder_layer_plain(x, query_pos, img_tokens, img_pos, kp_valid,
                             eps).to(x.dtype)
 
 
+def _prepare(layer) -> dict:
+    """The layer's weights as the kernels take them."""
+    sa, ca = layer.self_attn, layer.cross_attn
+    w16 = lambda w: w.detach().to(torch.bfloat16).contiguous()  # noqa: E731
+    v32 = lambda v: v.detach().to(torch.float32).contiguous()  # noqa: E731
+    c = layer.norm1.weight.shape[0]
+    wq, wk = ca.q_proj.weight, ca.k_proj.weight
+    return {
+        "wqkv": w16(torch.cat([sa.q_proj.weight, sa.k_proj.weight,
+                               sa.v_proj.weight])),
+        "bqkv": v32(torch.cat([sa.q_proj.bias, sa.k_proj.bias,
+                               sa.v_proj.bias])),
+        "wso": w16(sa.out_proj.weight), "bso": v32(sa.out_proj.bias),
+        "g1": v32(layer.norm1.weight), "be1": v32(layer.norm1.bias),
+        "wcq_x": w16(wq[:, :c]), "wcq_p": w16(wq[:, c:]),
+        "bcq": v32(ca.q_proj.bias),
+        "wck_img": w16(wk[:, :c]), "wck_pos": w16(wk[:, c:]),
+        "bck": v32(ca.k_proj.bias),
+        "wcv": w16(ca.v_proj.weight), "bcv": v32(ca.v_proj.bias),
+        "wco": w16(ca.out_proj.weight), "bco": v32(ca.out_proj.bias),
+        "wch": w16(layer.choker.weight), "bch": v32(layer.choker.bias),
+        "g2": v32(layer.norm2.weight), "be2": v32(layer.norm2.bias),
+        "wg": w16(layer.gcn.conv.weight), "bg": v32(layer.gcn.conv.bias),
+        "wf": w16(layer.ffn2.weight), "bf": v32(layer.ffn2.bias),
+        "g3": v32(layer.norm3.weight), "be3": v32(layer.norm3.bias)}
+
+
 def _fused_decoder_layer_cuda(x, query_pos, img_tokens, img_pos, kp_valid,
                               bias, adj, layer, *, num_heads, eps):
     from . import kernels as K
-    sa, ca = layer.self_attn, layer.cross_attn
-    w16 = lambda w: w.detach().to(torch.bfloat16)  # noqa: E731
-    f32 = torch.float32
+    bf = torch.bfloat16
+    w = K.module_weights(layer, "_kernel_weights", _prepare)
     b, k, c = x.shape
-    hw = img_tokens.shape[1]
+    r = b * k
     d, d2 = c // num_heads, 2 * c // num_heads
 
-    # (1) biased, key-masked self-attention + LN1
-    xb = x.to(torch.bfloat16).reshape(b * k, c).contiguous()
-    wqkv = torch.cat([w16(sa.q_proj.weight), w16(sa.k_proj.weight),
-                      w16(sa.v_proj.weight)])
-    bqkv = torch.cat([sa.q_proj.bias, sa.k_proj.bias, sa.v_proj.bias])
-    qkv = K.gemm(xb, wqkv, b_nk=True, bias=bqkv).view(b, k, 3 * c)
+    # (1) biased, key-masked self-attention; out_proj, LN1 and the
+    # cross-attention's query in one kernel
+    xb = x.to(bf).reshape(r, c).contiguous()
+    qkv = K.gemm(xb, w["wqkv"], b_nk=True, bias=w["bqkv"]).view(b, k, 3 * c)
     att = K.attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
                       num_heads=num_heads, scale=d ** -0.5,
                       key_valid=kp_valid, bias=bias)
-    a = K.gemm(att.view(b * k, c), w16(sa.out_proj.weight), b_nk=True,
-               bias=sa.out_proj.bias, out_dtype=f32)
-    x1, x1b = K.layernorm(xb, layer.norm1.weight, layer.norm1.bias, eps,
-                          r=a, out_bf16=True)
+    qp = query_pos.to(bf).reshape(r, c).contiguous()
+    x1, q2 = K.dec_post_self(att.view(r, c), xb, qp, w, eps=eps)
 
-    # (2) concat-position cross-attention, out_proj, choker, LN2
-    img = img_tokens.to(torch.bfloat16).contiguous()
-    qp = query_pos.to(torch.bfloat16).reshape(b * k, c).contiguous()
-    ipos = img_pos.to(torch.bfloat16).contiguous()
-    wq, wk = w16(ca.q_proj.weight), w16(ca.k_proj.weight)
-    tq = K.gemm(x1b, wq[:, :c], b_nk=True, out_dtype=f32)
-    q2 = K.gemm(qp, wq[:, c:], b_nk=True, bias=ca.q_proj.bias, pre=tq)
-    kpos = K.gemm(ipos, wk[:, c:], b_nk=True, bias=ca.k_proj.bias,
-                  out_dtype=f32)                               # [HW, 2C]
-    k2 = K.gemm(img, wk[:, :c], b_nk=True, pre=kpos)           # [B, HW, 2C]
-    v2 = K.gemm(img.view(b * hw, c), w16(ca.v_proj.weight), b_nk=True,
-                bias=ca.v_proj.bias).view(b, hw, 2 * c)
+    # (2) concat-position cross-attention: keys [img; img_pos] . Wk^T as
+    # the image half per row plus the position half once per call
+    img = img_tokens.to(bf)
+    if img.stride(-1) != 1:
+        img = img.contiguous()
+    ipos = img_pos.to(bf).contiguous()
+    kpos = K.gemm(ipos, w["wck_pos"], b_nk=True, bias=w["bck"],
+                  out_dtype=torch.float32)                     # [HW, 2C]
+    k2 = K.gemm(img, w["wck_img"], b_nk=True, pre=kpos)        # [B, HW, 2C]
+    v2 = K.gemm(img, w["wcv"], b_nk=True, bias=w["bcv"])       # [B, HW, 2C]
     att2 = K.attention(q2.view(b, k, 2 * c), k2, v2, num_heads=num_heads,
                        scale=d2 ** -0.5)
-    o2 = K.gemm(att2.view(b * k, 2 * c), w16(ca.out_proj.weight), b_nk=True,
-                bias=ca.out_proj.bias)
-    a2 = K.gemm(o2, w16(layer.choker.weight), b_nk=True,
-                bias=layer.choker.bias, out_dtype=f32)
-    x2, x2b = K.layernorm(x1, layer.norm2.weight, layer.norm2.bias, eps,
-                          r=a2, out_bf16=True)
 
-    # (3) GCN over the 2-slice adjacency, ffn2, LN3
-    y = K.gemm(x2b, w16(layer.gcn.conv.weight), b_nk=True,
-               bias=layer.gcn.conv.bias)
-    f_dim = y.shape[-1] // 2
-    y = y.view(b, k, 2 * f_dim)
-    adjb = adj.to(torch.bfloat16).contiguous()
-    m0 = K.gemm(adjb[:, 0], y[..., :f_dim], b_nk=False, out_dtype=f32)
-    f = K.gemm(adjb[:, 1], y[..., f_dim:], b_nk=False, pre=m0,
-               act=K.ACT_RELU)
-    f2 = K.gemm(f.view(b * k, f_dim), w16(layer.ffn2.weight), b_nk=True,
-                bias=layer.ffn2.bias, out_dtype=f32)
-    out_f32 = x.dtype == torch.float32
-    of, ob = K.layernorm(x2, layer.norm3.weight, layer.norm3.bias, eps, r=f2,
-                         out_f32=out_f32, out_bf16=not out_f32)
-    return (of if out_f32 else ob).view(b, k, c).to(x.dtype)
+    # (3) out_proj, choker, LN2, GCN, ffn2, LN3 in one kernel
+    return K.dec_post_cross(att2, x1, adj, w, eps=eps,
+                            out_dtype=x.dtype).view(b, k, c)
 
 
 def fused_decoder_layer(x, query_pos, img_tokens, img_pos, kp_valid, bias,
@@ -274,12 +283,14 @@ def fused_decoder_stack_plain(x, initial_coords, img_tokens, img_pos,
 def _stack_weights(decoder, num_feats: int, has_bias: bool) -> dict:
     """The stack's weights in the form its launches take, built once per
     decoder module and kept until a parameter is replaced or written."""
-    params = list(decoder.parameters())
-    key = (num_feats, has_bias) + tuple(
-        (p.data_ptr(), p._version, p.dtype) for p in params)
-    cached = getattr(decoder, "_stack_cache", None)
-    if cached is not None and cached[0] == key:
-        return cached[1]
+    from .kernels import module_weights
+    return module_weights(
+        decoder, "_stack_cache",
+        lambda m: _build_stack_weights(m, num_feats, has_bias),
+        num_feats, has_bias)
+
+
+def _build_stack_weights(decoder, num_feats: int, has_bias: bool) -> dict:
     bf, f32 = torch.bfloat16, torch.float32
     w16 = lambda w: w.detach().to(bf).contiguous()  # noqa: E731
     v32 = lambda v: v.detach().to(f32).contiguous()  # noqa: E731
@@ -315,7 +326,7 @@ def _stack_weights(decoder, num_feats: int, has_bias: bool) -> dict:
         layers.append(w)
     cas = [layer.cross_attn for layer in decoder.layers]
     wk = [w16(ca.k_proj.weight) for ca in cas]                 # [2C, 2C]
-    weights = {
+    return {
         "layers": layers,
         "rdt": _rdt(num_feats, norm.weight.device),
         "fc1p": w16(permute_fc1(rph.fc1.weight.detach().to(f32), num_feats)),
@@ -329,8 +340,6 @@ def _stack_weights(decoder, num_feats: int, has_bias: bool) -> dict:
         "wcv": w16(torch.cat([ca.v_proj.weight for ca in cas])),
         "bcv": v32(torch.cat([ca.v_proj.bias for ca in cas])),
     }
-    decoder._stack_cache = (key, weights)
-    return weights
 
 
 def _fused_decoder_stack_cuda(x, initial_coords, img_tokens, img_pos,

@@ -8,19 +8,22 @@ stack is this layer run once per layer with the bf16 rounding between
 layers that the TPU stack performs in-register, so its output is the
 TPU stack's.
 
-On the H100, at [510 rows, 356 tokens, 256 channels] per layer, the layer
-is bound by memory traffic more than by its ~95 GFLOP: each launch
-boundary moves a [510*356, 256..768] activation through device memory.
-The design folds bias, ReLU and the fp32 residual into GEMM epilogues,
-adds the residual inside the LayerNorm kernel, computes q, k and v in one
-GEMM against the concatenated weight, and runs attention with all 356
-keys and values of a head in shared memory so the [356, 356] scores never
-leave the SM. One launch per layer (and the token block resident across
-layers) is later work.
+On the H100 a layer is three launches: the q, k, v GEMM against the
+concatenated weight, attention with all keys and values of a head in
+shared memory (the [N, N] scores never leave the SM), and
+enc_post_kernel (ops/kernels.py enc_post), which runs everything after
+the attention on tiles of 128 token rows kept on chip: out projection,
+residual and LN1, the ReLU FFN with its hidden in shared memory one
+chunk of 128 at a time, LN2 (see csrc/kernels.cu for its design). The
+stack adds the position once; each layer's kernel writes the next
+layer's src = bf16(bf16(y) + pos) beside (or, before the last layer,
+instead of) its output, so the stack is 1 + 3 L launches. The bf16 and
+concatenated weights are made once per layer module and kept until a
+parameter changes.
 
 The wrappers run the kernels for CUDA tensors and the plain PyTorch
-versions for CPU tensors; `launches` counts layer-kernel runs and
-`stack_launches` stack runs.
+versions for CPU tensors; `launches` counts layer runs on the card (in
+the stack too) and `stack_launches` stack runs.
 """
 
 from __future__ import annotations
@@ -62,44 +65,55 @@ def fused_encoder_layer_plain(tokens, pos, key_valid, layer, *,
     return plain.layer_norm(x + f2, n2.weight, n2.bias, eps).to(tokens.dtype)
 
 
-def _fused_encoder_layer_cuda(tokens, pos, key_valid, layer, *, num_heads,
-                              eps):
+def _prepare(layer) -> dict:
+    """The layer's weights as the kernels take them."""
+    at = layer.self_attn
+    w16 = lambda w: w.detach().to(torch.bfloat16).contiguous()  # noqa: E731
+    v32 = lambda v: v.detach().to(torch.float32).contiguous()  # noqa: E731
+    return {
+        "wqkv": w16(torch.cat([at.q_proj.weight, at.k_proj.weight,
+                               at.v_proj.weight])),
+        "bqkv": v32(torch.cat([at.q_proj.bias, at.k_proj.bias,
+                               at.v_proj.bias])),
+        "wo": w16(at.out_proj.weight), "bo": v32(at.out_proj.bias),
+        "g1": v32(layer.norm1.weight), "be1": v32(layer.norm1.bias),
+        "w1": w16(layer.linear1.weight), "b1": v32(layer.linear1.bias),
+        "w2": w16(layer.linear2.weight), "b2": v32(layer.linear2.bias),
+        "g2": v32(layer.norm2.weight), "be2": v32(layer.norm2.bias)}
+
+
+def _layer_cuda(src, b, n, key_valid, layer, *, num_heads, eps, out_dtype,
+                pos):
+    """One layer on the card from its src [B N, C] bf16 (position added):
+    three launches. Returns enc_post's (y or None, next src or None)."""
+    global launches
     from . import kernels as K
-    qp, kp, vp, op, n1, l1, l2, n2 = _weights(layer)
-    w16 = lambda w: w.detach().to(torch.bfloat16)  # noqa: E731
-    b, n, c = tokens.shape
-    d = c // num_heads
-    src = K.add_pos(tokens, pos).view(b * n, c)
-    wqkv = torch.cat([w16(qp.weight), w16(kp.weight), w16(vp.weight)])
-    bqkv = torch.cat([qp.bias, kp.bias, vp.bias])
-    qkv = K.gemm(src, wqkv, b_nk=True, bias=bqkv).view(b, n, 3 * c)
+    w = K.module_weights(layer, "_kernel_weights", _prepare)
+    c = src.shape[-1]
+    qkv = K.gemm(src, w["wqkv"], b_nk=True, bias=w["bqkv"]).view(b, n, 3 * c)
     att = K.attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
-                      num_heads=num_heads, scale=1.0 / math.sqrt(d),
+                      num_heads=num_heads,
+                      scale=1.0 / math.sqrt(c // num_heads),
                       key_valid=key_valid)
-    a = K.gemm(att.view(b * n, c), w16(op.weight), b_nk=True, bias=op.bias,
-               out_dtype=torch.float32)
-    x, xb = K.layernorm(src, n1.weight, n1.bias, eps, r=a, out_bf16=True)
-    f = K.gemm(xb, w16(l1.weight), b_nk=True, bias=l1.bias, act=K.ACT_RELU)
-    f2 = K.gemm(f, w16(l2.weight), b_nk=True, bias=l2.bias,
-                out_dtype=torch.float32)
-    out_f32 = tokens.dtype == torch.float32
-    yf, yb = K.layernorm(x, n2.weight, n2.bias, eps, r=f2, out_f32=out_f32,
-                         out_bf16=not out_f32)
-    return (yf if out_f32 else yb).view(b, n, c).to(tokens.dtype)
+    out = K.enc_post(att.view(b * n, c), src, w, eps=eps, out_dtype=out_dtype,
+                     pos=pos)
+    launches += 1
+    return out
 
 
 def fused_encoder_layer(tokens, pos, key_valid, layer, *, num_heads: int,
                         eps: float = 1e-5):
     """Post-norm encoder layer, position into q/k/v and the residual.
     layer: a models.transformer.EncoderLayer."""
-    global launches
     if not tokens.is_cuda:
         return fused_encoder_layer_plain(tokens, pos, key_valid, layer,
                                          num_heads=num_heads, eps=eps)
-    out = _fused_encoder_layer_cuda(tokens, pos, key_valid, layer,
-                                    num_heads=num_heads, eps=eps)
-    launches += 1
-    return out
+    from . import kernels as K
+    b, n, c = tokens.shape
+    src = K.add_pos(tokens, pos).view(b * n, c)
+    out, _ = _layer_cuda(src, b, n, key_valid, layer, num_heads=num_heads,
+                         eps=eps, out_dtype=tokens.dtype, pos=None)
+    return out.view(b, n, c)
 
 
 def fused_encoder_stack(tokens, pos, key_valid, layers, *, num_heads: int,
@@ -107,10 +121,21 @@ def fused_encoder_stack(tokens, pos, key_valid, layers, *, num_heads: int,
     """The whole encoder: each layer's output, in tokens.dtype, feeds the
     next (bf16-rounded when tokens are bf16, as in the TPU stack)."""
     global stack_launches
-    x = tokens
-    for layer in layers:
-        x = fused_encoder_layer(x, pos, key_valid, layer,
-                                num_heads=num_heads, eps=eps)
-    if tokens.is_cuda:
-        stack_launches += 1
-    return x
+    if not tokens.is_cuda or not layers:
+        x = tokens
+        for layer in layers:
+            x = fused_encoder_layer(x, pos, key_valid, layer,
+                                    num_heads=num_heads, eps=eps)
+        return x
+    from . import kernels as K
+    b, n, c = tokens.shape
+    src = K.add_pos(tokens, pos).view(b * n, c)
+    posb = pos.to(torch.bfloat16).contiguous()
+    for i, layer in enumerate(layers):
+        last = i == len(layers) - 1
+        out, src = _layer_cuda(src, b, n, key_valid, layer,
+                               num_heads=num_heads, eps=eps,
+                               out_dtype=tokens.dtype if last else None,
+                               pos=None if last else posb)
+    stack_launches += 1
+    return out.view(b, n, c)

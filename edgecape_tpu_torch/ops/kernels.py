@@ -76,6 +76,10 @@ _SIGNATURES = {
                                         _P] + _BWD_PLAN + [_P],
     "ec_dropout_mask": [_P, _U32, _L, _I, _I, _P, _P],
     "ec_mm_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ec_enc_post": [_P] * 13 + [_I, _P, _I, _P, _I, _I, _F, _P],
+    "ec_dec_post_self": [_P] * 12 + [_I, _F, _P],
+    "ec_dec_post_cross": [_P] * 11 + [_I] + [_P] * 5 + [_I, _I, _I, _I, _F,
+                                                         _P],
 }
 
 
@@ -736,6 +740,160 @@ def dropout_mask(seed: torch.Tensor, rate: float, bh: int, nq: int,
     _call("ec_dropout_mask", _seed_ptr(seed, thresh), thresh, bh, nq, nk,
           keep.data_ptr(), _stream())
     return keep.bool()
+
+
+def module_weights(module, attr: str, build, *extra):
+    """build(module): a module's weights in the form its kernels take (bf16
+    matrices, concatenations, fp32 vectors), made once and kept in
+    `module.<attr>` until a parameter is replaced, written in place or
+    cast, or `extra` changes."""
+    key = extra + tuple((p.data_ptr(), p._version, p.dtype)
+                        for p in module.parameters())
+    cached = getattr(module, attr, None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    weights = build(module)
+    setattr(module, attr, (key, weights))
+    return weights
+
+
+# The post-attention layer kernels (csrc/kernels.cu enc_post_kernel,
+# dec_post_self_kernel, dec_post_cross_kernel): rows of POST_C channels in
+# tiles of POST_TILE rows; the encoder's FFN hidden in chunks of ENC_CHUNK
+# columns, the decoder's GCN width in chunks of DEC_CHUNK.
+POST_C, POST_TILE, ENC_CHUNK, DEC_CHUNK = 256, 128, 128, 64
+post_launches = {"enc_post": 0, "dec_post_self": 0, "dec_post_cross": 0}
+
+
+def post_plan(rows: int, c: int, f: int, *, chunk: int = ENC_CHUNK,
+              keypoints: Optional[int] = None) -> dict:
+    """How a post-attention kernel covers `rows` token rows of c channels
+    with a hidden of width f: `tiles` of POST_TILE rows, whose `pad_rows`
+    missing rows (the last tile's) the TMA fills with zeros and the kernel
+    does not store, and `chunks` of the hidden. With `keypoints` (the
+    decoder's cross kernel): a tile is one batch row of K keypoints, padded
+    to POST_TILE rows with zero rows and zero adjacency columns. Raises
+    for what the kernels do not take."""
+    if c != POST_C:
+        raise ValueError(f"the post-attention kernels take {POST_C} "
+                         f"channels, got {c}")
+    if f <= 0 or f % chunk:
+        raise ValueError(f"hidden width {f} is not a positive multiple of "
+                         f"{chunk}")
+    if rows <= 0:
+        raise ValueError(f"no rows ({rows})")
+    if keypoints is None:
+        tiles = -(-rows // POST_TILE)
+        return {"tiles": tiles, "chunks": f // chunk,
+                "pad_rows": tiles * POST_TILE - rows}
+    if not 1 <= keypoints <= POST_TILE or rows % keypoints:
+        raise ValueError(f"{rows} rows are no batch of rows of 1..{POST_TILE}"
+                         f" keypoints (K={keypoints})")
+    return {"tiles": rows // keypoints, "chunks": f // chunk,
+            "pad_rows": POST_TILE - keypoints}
+
+
+def _operand(t: torch.Tensor, shape, dtype=torch.bfloat16) -> int:
+    """Address of a kernel operand that must be a contiguous, 16-byte
+    aligned CUDA tensor of this shape and type."""
+    _cuda(t)
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"kernel operand: need contiguous aligned {dtype} "
+                         f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
+    return t.data_ptr()
+
+
+def _vectors(w: dict, *names) -> list:
+    return [_operand(w[n], (w[n].numel(),), torch.float32) for n in names]
+
+
+def enc_post(att: torch.Tensor, src: torch.Tensor, w: dict, *, eps: float,
+             out_dtype=None, pos=None):
+    """The joint encoder layer after its attention, one launch:
+    x = LN1(src + att . wo^T + bo); y = LN2(x + relu(bf16(x) . w1^T + b1)
+    . w2^T + b2), the hidden in chunks and the second product accumulated
+    onto x. att, src: contiguous bf16 [R, 256]; w: the layer's weights
+    (wo, bo, g1, be1, w1, b1, w2, b2, g2, be2; ops/fused_encoder.py).
+    Returns (y [R, 256] in out_dtype, or None when out_dtype is None;
+    with pos [N, 256] bf16, the next layer's src = bf16(bf16(y) +
+    pos[row % N]) bf16 [R, 256], else None)."""
+    r, c = att.shape
+    f = w["w1"].shape[0]
+    post_plan(r, c, f)
+    if out_dtype is None and pos is None:
+        raise ValueError("enc_post writes y, the next src or both")
+    ptrs = [_operand(att, (r, c)), _operand(src, (r, c)),
+            _operand(w["wo"], (c, c))] + _vectors(w, "bo", "g1", "be1") + [
+        _operand(w["w1"], (f, c))] + _vectors(w, "b1") + [
+        _operand(w["w2"], (c, f))] + _vectors(w, "b2", "g2", "be2")
+    out = None if out_dtype is None else torch.empty(
+        (r, c), dtype=out_dtype, device=att.device)
+    nxt = n_tok = None
+    if pos is not None:
+        n_tok = pos.shape[0]
+        _operand(pos, (n_tok, c))
+        nxt = torch.empty((r, c), dtype=torch.bfloat16, device=att.device)
+    _call("ec_enc_post", *ptrs, _ptr(pos), n_tok or 0, _ptr(out),
+          _dt(out) if out is not None else 0, _ptr(nxt), r, f, float(eps),
+          _stream())
+    post_launches["enc_post"] += 1
+    return out, nxt
+
+
+def dec_post_self(att: torch.Tensor, xb: torch.Tensor, qpos: torch.Tensor,
+                  w: dict, *, eps: float):
+    """The decoder layer after its self-attention, one launch:
+    x1 = LN1(xb + att . wso^T + bso) and the cross-attention's query
+    q2 = bf16(bf16(x1) . wcq_x^T + qpos . wcq_p^T + bcq). att, xb, qpos:
+    contiguous bf16 [R, 256]; w: the layer's weights (ops/fused_decoder.py).
+    Returns (x1 fp32 [R, 256], q2 bf16 [R, 512])."""
+    r, c = att.shape
+    post_plan(r, c, ENC_CHUNK)
+    ptrs = [_operand(att, (r, c)), _operand(xb, (r, c)),
+            _operand(qpos, (r, c)), _operand(w["wso"], (c, c))] + _vectors(
+        w, "bso", "g1", "be1") + [_operand(w["wcq_x"], (2 * c, c)),
+                                  _operand(w["wcq_p"], (2 * c, c))] + \
+        _vectors(w, "bcq")
+    x1 = torch.empty((r, c), dtype=torch.float32, device=att.device)
+    q2 = torch.empty((r, 2 * c), dtype=torch.bfloat16, device=att.device)
+    _call("ec_dec_post_self", *ptrs, x1.data_ptr(), q2.data_ptr(), r,
+          float(eps), _stream())
+    post_launches["dec_post_self"] += 1
+    return x1, q2
+
+
+def dec_post_cross(att2: torch.Tensor, x1: torch.Tensor, adj: torch.Tensor,
+                   w: dict, *, eps: float, out_dtype) -> torch.Tensor:
+    """The decoder layer after its cross-attention, one launch per call,
+    one batch row of K keypoints per tile: o2 = bf16(att2 . wco^T + bco),
+    x2 = LN2(x1 + o2 . wch^T + bch), per F chunk y_s = bf16(bf16(x2) .
+    wg_s^T + bg_s) and m = adj0 . y0 + adj1 . y1, then out = LN3(x2 +
+    bf16(relu(m)) . wf^T + bf). att2: contiguous bf16 [B, K, 512]; x1:
+    fp32 [B K, 256]; adj: [B, 2, K, K] fp32 or bf16 (rounded to bf16 in
+    the kernel). Returns [B K, 256] in out_dtype."""
+    b, k, c2 = att2.shape
+    c = c2 // 2
+    f = w["wf"].shape[1]
+    post_plan(b * k, c, f, chunk=DEC_CHUNK, keypoints=k)
+    if adj.dtype not in (torch.float32, torch.bfloat16):
+        adj = adj.to(torch.float32)
+    adj = adj.contiguous()
+    ptrs = [_operand(att2, (b, k, c2)), _operand(w["wco"], (c2, c2))] + \
+        _vectors(w, "bco") + [_operand(w["wch"], (c, c2))] + \
+        _vectors(w, "bch") + [_operand(x1, (b * k, c), torch.float32)] + \
+        _vectors(w, "g2", "be2") + [_operand(w["wg"], (2 * f, c))] + \
+        _vectors(w, "bg")
+    _cuda(adj)
+    if tuple(adj.shape) != (b, 2, k, k):
+        raise ValueError(f"adjacency {tuple(adj.shape)} is not "
+                         f"{(b, 2, k, k)}")
+    out = torch.empty((b * k, c), dtype=out_dtype, device=att2.device)
+    _call("ec_dec_post_cross", *ptrs, adj.data_ptr(), _dt(adj),
+          _operand(w["wf"], (c, f)), *_vectors(w, "bf", "g3", "be3"),
+          out.data_ptr(), _dt(out), b, k, f, float(eps), _stream())
+    post_launches["dec_post_cross"] += 1
+    return out
 
 
 def mm_chain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, reps: int,

@@ -83,8 +83,8 @@ def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
 
 
 def _kernel_durations(fn, reps: int) -> list:
-    """Durations (us) of the device kernels in a profiler trace of `reps`
-    calls of fn."""
+    """(name, duration in us) of each device kernel in a profiler trace of
+    `reps` calls of fn."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -96,21 +96,34 @@ def _kernel_durations(fn, reps: int) -> list:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    return [float(e["dur"]) for e in events
+    return [(e["name"], float(e["dur"])) for e in events
             if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+
+def kernel_ms(fn, reps: int = REPS) -> dict:
+    """{kernel name: ms of device time per call of fn} from one profiler
+    trace of `reps` warm calls (empty when the trace has no device
+    events)."""
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for name, dur in _kernel_durations(fn, reps):
+        out[name] = out.get(name, 0.0) + dur / reps / 1e3
+    return out
 
 
 def device_ms(fn, reps: int = REPS):
     """(ms of device time per call of fn, kernels per call): the kernels'
     own durations in a profiler trace of `reps` warm calls. A trace now
-    and then comes back without device events: it is taken again, and
-    after three empty ones the time is CUDA events around the `reps`
+    and then comes back without device events, or without some of them
+    (a count that is no whole number a call): it is taken again, and
+    after three such traces the time is CUDA events around the `reps`
     calls, which holds the host's gaps too (kernels per call: nan)."""
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        durs = _kernel_durations(fn, reps)
-        if durs:
+        durs = [d for _, d in _kernel_durations(fn, reps)]
+        if durs and len(durs) % reps == 0:
             return sum(durs) / reps / 1e3, len(durs) / reps
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)

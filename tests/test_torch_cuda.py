@@ -94,41 +94,198 @@ def test_fused_vit_block_matches_plain(dev):
 def test_fused_encoder_layers_and_stack_match_plain(dev):
     """Each layer of the stack against the plain layer on the kernel's own
     input (a near-tie in one layer's softmax would otherwise be amplified
-    by the next), then the stack against the chain of layer launches."""
+    by the next), then the stack against the chain of layer launches. At
+    the model's width (the post-attention kernel takes C = 256), 171 rows:
+    one whole tile and a ragged one."""
     from edgecape_tpu_torch.ops import fused_encoder as FE
     _, _, _, EncoderLayer = _modules()
     with torch.no_grad():
-        enc = [_randomize(EncoderLayer(64, 2, 96), dev, seed=s)
+        enc = [_randomize(EncoderLayer(256, 8, 384), dev, seed=s)
                for s in (1, 2)]
-        tok = _rn(dev, 3, 41, 64).to(torch.bfloat16)
-        pos = _rn(dev, 41, 64, seed=5)
-        valid = _rn(dev, 3, 41, seed=6) > -0.5
+        tok = _rn(dev, 3, 57, 256).to(torch.bfloat16)
+        pos = _rn(dev, 57, 256, seed=5)
+        valid = _rn(dev, 3, 57, seed=6) > -0.5
         valid[:, 0] = True
         x = tok
         for layer in enc:
-            y = FE.fused_encoder_layer(x, pos, valid, layer, num_heads=2)
+            y = FE.fused_encoder_layer(x, pos, valid, layer, num_heads=8)
             _close(y, FE.fused_encoder_layer_plain(x, pos, valid, layer,
-                                                   num_heads=2))
+                                                   num_heads=8))
             x = y
         assert torch.equal(FE.fused_encoder_stack(tok, pos, valid, enc,
-                                                  num_heads=2), x)
+                                                  num_heads=8), x)
 
 
 def test_fused_decoder_layer_matches_plain(dev):
     from edgecape_tpu_torch.ops import fused_decoder as FD
     _, _, DecoderLayer, _ = _modules()
     with torch.no_grad():
-        dec = _randomize(DecoderLayer(64, 2, 96), dev)
-        kx = _rn(dev, 3, 13, 64).to(torch.bfloat16)
-        qpos, img = _rn(dev, 3, 13, 64, seed=7), _rn(dev, 3, 20, 64, seed=8)
-        ipos = _rn(dev, 20, 64, seed=9)
+        dec = _randomize(DecoderLayer(256, 8, 384), dev)
+        kx = _rn(dev, 3, 13, 256).to(torch.bfloat16)
+        qpos, img = _rn(dev, 3, 13, 256, seed=7), _rn(dev, 3, 20, 256, seed=8)
+        ipos = _rn(dev, 20, 256, seed=9)
         kvalid = _rn(dev, 3, 13, seed=10) > -0.5
         kvalid[:, 0] = True
-        bias = _rn(dev, 3, 2, 13, 13, seed=11)
+        bias = _rn(dev, 3, 8, 13, 13, seed=11)
         adj = _rn(dev, 3, 2, 13, 13, seed=12).abs() / 13
         args = (kx, qpos, img, ipos, kvalid, bias, adj, dec)
-        _close(FD.fused_decoder_layer(*args, num_heads=2),
-               FD.fused_decoder_layer_plain(*args, num_heads=2))
+        _close(FD.fused_decoder_layer(*args, num_heads=8),
+               FD.fused_decoder_layer_plain(*args, num_heads=8))
+
+
+def _post_weights(dev, c, f, seed):
+    """Seeded weights of the three post-attention kernels, as the ops
+    prepare them."""
+    g = torch.Generator().manual_seed(seed)
+
+    def mat(o, i):
+        return (torch.randn(o, i, generator=g) / math.sqrt(i)).to(
+            dev, torch.bfloat16)
+
+    def vec(n, base=0.0):
+        return (base + 0.1 * torch.randn(n, generator=g)).to(dev)
+
+    return {"wo": mat(c, c), "bo": vec(c), "g1": vec(c, 1.0),
+            "be1": vec(c), "w1": mat(f, c), "b1": vec(f), "w2": mat(c, f),
+            "b2": vec(c), "g2": vec(c, 1.0), "be2": vec(c),
+            "wso": mat(c, c), "bso": vec(c), "wcq_x": mat(2 * c, c),
+            "wcq_p": mat(2 * c, c), "bcq": vec(2 * c),
+            "wco": mat(2 * c, 2 * c), "bco": vec(2 * c),
+            "wch": mat(c, 2 * c), "bch": vec(c), "wg": mat(2 * f, c),
+            "bg": vec(2 * f), "wf": mat(c, f), "bf": vec(c),
+            "g3": vec(c, 1.0), "be3": vec(c)}
+
+
+def _ln(x, w, g, b):
+    from edgecape_tpu_torch.ops import plain
+    return plain.layer_norm(x, w[g], w[b], 1e-5)
+
+
+# rows of the post-attention kernels: the eval chunk's encoder (510 x 356)
+# and decoder (510 x 100) rows, ragged tile counts, fewer rows than a tile
+POST_ROWS = [510 * 356, 510 * 100, 300, 129, 1]
+
+
+@pytest.mark.parametrize("rows", POST_ROWS)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_enc_post_matches_plain(dev, rows, out_dtype):
+    """enc_post against the plain formulas (tests/test_torch_fused_post.py
+    holds its order of operations against the TPU kernel's): y in either
+    type and the next layer's src = bf16(bf16(y) + pos)."""
+    from edgecape_tpu_torch.ops import kernels as K
+    from edgecape_tpu_torch.ops import plain
+    c, f, n_tok = 256, 384, 356
+    w = _post_weights(dev, c, f, seed=30)
+    att = _rn(dev, rows, c, seed=31).to(torch.bfloat16)
+    src = _rn(dev, rows, c, seed=32).to(torch.bfloat16)
+    pos = _rn(dev, n_tok, c, seed=33).to(torch.bfloat16)
+    n0 = K.post_launches["enc_post"]
+    y, nxt = K.enc_post(att, src, w, eps=1e-5, out_dtype=out_dtype, pos=pos)
+    assert K.post_launches["enc_post"] == n0 + 1
+    x = _ln(src.float() + plain.linear(att, w["wo"], w["bo"]), w, "g1", "be1")
+    h = torch.relu(plain.linear(x, w["w1"], w["b1"]))
+    ref = _ln(x + plain.linear(h, w["w2"], w["b2"]), w, "g2", "be2")
+    assert y.dtype == out_dtype
+    _close(y, ref)
+    want = (y.to(torch.bfloat16).float()
+            + pos.float().repeat(-(-rows // n_tok), 1)[:rows]).to(
+        torch.bfloat16)
+    assert torch.equal(nxt, want)
+
+
+@pytest.mark.parametrize("rows", POST_ROWS[1:])
+def test_dec_post_self_matches_plain(dev, rows):
+    from edgecape_tpu_torch.ops import kernels as K
+    from edgecape_tpu_torch.ops import plain
+    c = 256
+    w = _post_weights(dev, c, 384, seed=40)
+    att, xb, qpos = (_rn(dev, rows, c, seed=41 + i).to(torch.bfloat16)
+                     for i in range(3))
+    x1, q2 = K.dec_post_self(att, xb, qpos, w, eps=1e-5)
+    ref = _ln(xb.float() + plain.linear(att, w["wso"], w["bso"]), w, "g1",
+              "be1")
+    _close(x1, ref)
+    qref = plain.linear(torch.cat([x1, qpos.float()], -1),
+                        torch.cat([w["wcq_x"], w["wcq_p"]], -1), w["bcq"])
+    assert q2.dtype == torch.bfloat16 and q2.shape == (rows, 2 * c)
+    _close(q2, qref)
+
+
+@pytest.mark.parametrize("b,k", [(510, 100), (3, 100), (2, 13), (1, 128),
+                                 (133, 1)])
+@pytest.mark.parametrize("adj_dtype", [torch.float32, torch.bfloat16])
+def test_dec_post_cross_matches_plain(dev, b, k, adj_dtype):
+    """One batch row of K keypoints a tile, padded to 128 rows: the
+    adjacency's padding must contribute nothing."""
+    from edgecape_tpu_torch.ops import kernels as K
+    from edgecape_tpu_torch.ops import plain
+    c, f = 256, 384
+    w = _post_weights(dev, c, f, seed=50)
+    att2 = _rn(dev, b, k, 2 * c, seed=51).to(torch.bfloat16)
+    x1 = _rn(dev, b * k, c, seed=52)
+    adj = (_rn(dev, b, 2, k, k, seed=53).abs() / k).to(adj_dtype)
+    out = K.dec_post_cross(att2, x1, adj, w, eps=1e-5,
+                           out_dtype=torch.bfloat16)
+    o2 = plain.bf16(plain.linear(att2, w["wco"], w["bco"]))
+    x2 = _ln(x1.view(b, k, c) + plain.linear(o2, w["wch"], w["bch"]), w,
+             "g2", "be2")
+    y = plain.bf16(plain.linear(x2, w["wg"], w["bg"]))
+    a = plain.bf16(adj.float())
+    m = torch.matmul(a[:, 0], y[..., :f]) + torch.matmul(a[:, 1], y[..., f:])
+    ref = _ln(x2 + plain.linear(torch.relu(m), w["wf"], w["bf"]), w, "g3",
+              "be3")
+    _close(out.view(b, k, c), ref)
+
+
+def test_post_kernels_refuse_what_they_do_not_take(dev):
+    from edgecape_tpu_torch.ops import kernels as K
+    w = _post_weights(dev, 256, 384, seed=60)
+    att = _rn(dev, 10, 256).to(torch.bfloat16)
+    with pytest.raises(ValueError):                  # fp32 operand
+        K.enc_post(att.float(), att, w, eps=1e-5, out_dtype=torch.float32)
+    with pytest.raises(ValueError):                  # 129 keypoints
+        K.dec_post_cross(_rn(dev, 1, 129, 512).to(torch.bfloat16),
+                         _rn(dev, 129, 256), _rn(dev, 1, 2, 129, 129), w,
+                         eps=1e-5, out_dtype=torch.float32)
+    with pytest.raises(ValueError):                  # strided src
+        K.dec_post_self(att, _rn(dev, 10, 512).to(torch.bfloat16)[:, :256],
+                        att, w, eps=1e-5)
+
+
+def test_encoder_stack_and_decoder_layer_launches(dev):
+    """The stack of three layers in 1 + 3 x 3 kernels (add_pos, then qkv
+    GEMM, attention, enc_post_kernel a layer), one decoder layer in 8, no
+    weight cast per call, no GEMM on the thread-copy mainloop."""
+    from edgecape_tpu_torch.ops import fused_decoder as FD
+    from edgecape_tpu_torch.ops import fused_encoder as FE
+    from edgecape_tpu_torch.ops import kernels as K
+    _, _, DecoderLayer, EncoderLayer = _modules()
+    bf = torch.bfloat16
+    with torch.no_grad():
+        enc = [_randomize(EncoderLayer(256, 8, 384), dev, seed=s)
+               for s in (1, 2, 3)]
+        tok = _rn(dev, 4, 70, 256).to(bf)
+        pos = _rn(dev, 70, 256, seed=5).to(bf)
+        valid = _rn(dev, 4, 70, seed=6) > -0.5
+        names = _kernel_names(lambda: FE.fused_encoder_stack(
+            tok, pos, valid, enc, num_heads=8))
+        assert len(names) == 10, names
+        assert sum("enc_post_kernel" in n for n in names) == 3, names
+        dec = _randomize(DecoderLayer(256, 8, 384), dev)
+        kx, qpos = _rn(dev, 4, 100, 256).to(bf), _rn(dev, 4, 100, 256).to(bf)
+        img = _rn(dev, 4, 356, 256, seed=7).to(bf)[:, :256]   # a slice
+        ipos = _rn(dev, 256, 256, seed=8).to(bf)
+        kvalid = _rn(dev, 4, 100, seed=9) > -0.5
+        kvalid[:, 0] = True
+        bias = _rn(dev, 4, 8, 100, 100, seed=10)
+        adj = _rn(dev, 4, 2, 100, 100, seed=11).abs() / 100
+        n0 = dict(K.gemm_launches)
+        names = _kernel_names(lambda: FD.fused_decoder_layer(
+            kx, qpos, img, ipos, kvalid, bias, adj, dec, num_heads=8))
+        assert K.gemm_launches["copy"] == n0["copy"]
+        assert K.gemm_launches["tma"] == n0["tma"] + 2 * 4
+        assert len(names) == 8, names
+        assert sum("dec_post" in n for n in names) == 2, names
 
 
 def test_flash_mha_matches_plain(dev):
@@ -768,10 +925,11 @@ def test_sine_feats_and_coord_update_match_pytorch(dev):
                                atol=1e-6)
 
 
-def _small_decoder(dev, layers, bias, seed=1):
+def _small_decoder(dev, layers, bias, seed=1, c=64, heads=2, ffn=96, nf=32):
     from edgecape_tpu_torch.models.transformer import Decoder
-    dec = _randomize(Decoder(64, 2, 96, layers, attn_bias=bias, max_hops=4,
-                             num_feats=32, use_flash=True), dev, seed)
+    dec = _randomize(Decoder(c, heads, ffn, layers, attn_bias=bias,
+                             max_hops=4, num_feats=nf, use_flash=True), dev,
+                     seed)
     with torch.no_grad():
         for br in dec.kpt_branches:          # small delta heads
             br.out.weight.mul_(0.1)
@@ -797,12 +955,14 @@ def test_fused_decoder_stack_matches_plain(dev, bias):
     2e-3 max, 2e-4 mean, a few bf16 ulps of a token through delta heads of
     about 0.01), then two layers against the layer chain."""
     from edgecape_tpu_torch.ops import fused_decoder as FD
-    args = list(_small_decoder_inputs(dev))
+    # the model's width: the layer chain's kernels take C = 256
+    width = dict(c=256, heads=8, ffn=384, nf=128)
+    args = list(_small_decoder_inputs(dev, c=256))
     if not bias:
         args[5] = None
-    kw = dict(num_heads=2, num_feats=32)
+    kw = dict(num_heads=8, num_feats=128)
     with torch.no_grad():
-        one = _small_decoder(dev, 1, bias)
+        one = _small_decoder(dev, 1, bias, **width)
         n0 = FD.stack_launches
         o, p = FD.fused_decoder_stack(*args, one, **kw)
         assert FD.stack_launches == n0 + 1
@@ -812,7 +972,7 @@ def test_fused_decoder_stack_matches_plain(dev, bias):
             d = (a - r).abs()
             assert bool(torch.isfinite(a).all())
             assert d.max().item() <= 2e-3 and d.mean().item() <= 2e-4
-        two = _small_decoder(dev, 2, bias, seed=2)
+        two = _small_decoder(dev, 2, bias, seed=2, **width)
         x, ct, img, ipos, valid, hops, adj = args
         outs, pts = two.decode_stacked(
             x, img, kp_valid=valid, img_pos=ipos[None].expand(3, -1, -1),

@@ -1,0 +1,436 @@
+"""The order of operations of the port's post-attention kernels
+(csrc/kernels.cu enc_post_kernel, dec_post_self_kernel,
+dec_post_cross_kernel), emulated tile by tile in plain PyTorch on the CPU:
+tiles of 128 rows whose missing rows the TMA fills with zeros, the FFN
+hidden in chunks (128 wide in the encoder, 64 in the decoder) with the
+second product accumulated onto the LayerNorm output it is added to, the
+cross-attention query as one accumulation over [x1; qpos], o2 in
+64-column pieces each fed to the choker, one batch row of K keypoints a
+tile padded to 128 rows with zero adjacency rows and columns. Held
+against the ops' plain versions and, for whole layers, against the JAX
+Pallas kernels in interpret mode. Also: the tile plan of
+ops/kernels.py post_plan, the weight cache of kernels.module_weights and
+the wrappers' refusal of CPU operands.
+
+Tolerances. Emulation against the plain version: the same bf16 rounding
+points and the same weights, only the fp32 sums are grouped otherwise, so
+the two agree to fp32 noise carried through LayerNorm, except where that
+noise flips a bf16 rounding of an intermediate (one ulp, 2^-8 relative,
+on a few elements): max within ULP_MAX, mean within NOISE_MEAN. Against
+the JAX kernels, the bounds of tests/test_torch_fused_ops.py (BF16_MAX,
+BF16_MEAN), for the reasons given there."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from edgecape_tpu.ops import fused_decoder as jdec
+from edgecape_tpu.ops import fused_encoder as jenc
+from edgecape_tpu_torch.models.convert import state_from_flax
+from edgecape_tpu_torch.models.transformer import DecoderLayer, EncoderLayer
+from edgecape_tpu_torch.ops import fused_decoder as tdec
+from edgecape_tpu_torch.ops import fused_encoder as tenc
+from edgecape_tpu_torch.ops import kernels as K
+from edgecape_tpu_torch.ops import plain
+
+ULP_MAX, NOISE_MEAN = 2.0 ** -6, 1e-4
+BF16_MAX, BF16_MEAN = 0.0625, 0.004
+TILE = K.POST_TILE
+C, F, HEADS = 256, 384, 8
+
+
+def _ln(x, w, g, b, eps=1e-5):
+    return plain.layer_norm(x, w[g], w[b], eps)
+
+
+def _tiles(t, pad_value=None):
+    """t [R, ...] cut into tiles of TILE rows; the last one's missing rows
+    zero (the TMA's fill) or, with pad_value="last", row R - 1."""
+    r = t.shape[0]
+    pad = (-r) % TILE
+    fill = t[-1:].expand(pad, *t.shape[1:]) if pad_value == "last" \
+        else t.new_zeros((pad,) + t.shape[1:])
+    return torch.cat([t, fill]).split(TILE)
+
+
+# ------------------------------------------------------------- emulations
+def enc_post_tiled(att, src, w, eps=1e-5, chunk=K.ENC_CHUNK):
+    """enc_post_kernel's order on att, src [R, C]: fp32 [R, C]."""
+    r = att.shape[0]
+    f = w["w1"].shape[0]
+    out = []
+    for a_t, s_t in zip(_tiles(att), _tiles(src, "last")):
+        x = _ln(plain.linear(a_t, w["wo"]) + w["bo"] + plain.bf16(s_t), w,
+                "g1", "be1")
+        xb = plain.bf16(x)
+        for j in range(0, f, chunk):
+            h = plain.bf16(torch.relu(plain.linear(xb, w["w1"][j:j + chunk])
+                                      + w["b1"][j:j + chunk]))
+            x = x + plain.linear(h, w["w2"][:, j:j + chunk])
+        out.append(_ln(x + w["b2"], w, "g2", "be2"))
+    return torch.cat(out)[:r]
+
+
+def dec_post_self_tiled(att, xb, qpos, w, eps=1e-5):
+    """dec_post_self_kernel's order: (x1 fp32 [R, C], q2 [R, 2C] holding
+    bf16 values)."""
+    r, c = att.shape
+    x1s, q2s = [], []
+    for a_t, x_t, q_t in zip(_tiles(att), _tiles(xb, "last"), _tiles(qpos)):
+        x1 = _ln(plain.linear(a_t, w["wso"]) + w["bso"] + plain.bf16(x_t), w,
+                 "g1", "be1")
+        halves = [plain.linear(x1, w["wcq_x"][h:h + c])
+                  + plain.linear(q_t, w["wcq_p"][h:h + c]) + w["bcq"][h:h + c]
+                  for h in (0, c)]
+        x1s.append(x1)
+        q2s.append(plain.bf16(torch.cat(halves, -1)))
+    return torch.cat(x1s)[:r], torch.cat(q2s)[:r]
+
+
+def dec_post_cross_tiled(att2, x1, adj, w, eps=1e-5, chunk=K.DEC_CHUNK):
+    """dec_post_cross_kernel's order, one batch row of K keypoints a tile
+    padded to TILE rows: att2 [B, K, 2C], x1 [B K, C], adj [B, 2, K, K]
+    -> fp32 [B K, C]."""
+    b, k, c2 = att2.shape
+    c = c2 // 2
+    f = w["wf"].shape[1]
+    out = []
+    for bi in range(b):
+        a_t = att2.new_zeros(TILE, c2)
+        a_t[:k] = att2[bi]
+        x1_t = x1.new_zeros(TILE, c)
+        x1_t[:k] = x1[bi * k:(bi + 1) * k]
+        adj_t = torch.zeros(2, TILE, TILE)
+        adj_t[:, :k, :k] = plain.bf16(adj[bi].float())
+        acc = torch.zeros(TILE, c)
+        for p in range(0, c2, 64):
+            o = plain.bf16(plain.linear(a_t, w["wco"][p:p + 64])
+                           + w["bco"][p:p + 64])
+            acc = acc + plain.linear(o, w["wch"][:, p:p + 64])
+        x = _ln(acc + w["bch"] + x1_t, w, "g2", "be2")
+        xb = plain.bf16(x)
+        for j in range(0, f, chunk):
+            y0, y1 = (plain.bf16(plain.linear(xb, w["wg"][s + j:s + j + chunk])
+                                 + w["bg"][s + j:s + j + chunk])
+                      for s in (0, f))
+            m = adj_t[0] @ y0 + adj_t[1] @ y1
+            x = x + plain.linear(plain.bf16(torch.relu(m)),
+                                 w["wf"][:, j:j + chunk])
+        out.append(_ln(x + w["bf"], w, "g3", "be3")[:k])
+    return torch.cat(out)
+
+
+def encoder_layer_tiled(tokens, pos, valid, layer, *, num_heads=HEADS,
+                        eps=1e-5):
+    """A whole encoder layer as the card runs it: the op's prepared
+    weights, the q, k, v product and attention as the plain version forms
+    them, then the post-attention kernel's order."""
+    w = tenc._prepare(layer)
+    b, n, c = tokens.shape
+    src = plain.bf16(plain.bf16(tokens) + plain.bf16(pos)[None])
+    qkv = plain.linear(src, w["wqkv"], w["bqkv"])
+    att = plain.attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
+                          num_heads=num_heads,
+                          scale=1.0 / math.sqrt(c // num_heads),
+                          kb=plain.key_bias(valid))
+    y = enc_post_tiled(att.reshape(b * n, c), src.reshape(b * n, c), w, eps)
+    return y.view(b, n, c).to(tokens.dtype)
+
+
+def decoder_layer_tiled(x, qpos, img, ipos, valid, bias, adj, layer, *,
+                        num_heads=HEADS, eps=1e-5):
+    """A whole decoder layer as the card runs it (see
+    ops/fused_decoder.py)."""
+    w = tdec._prepare(layer)
+    b, k, c = x.shape
+    r = b * k
+    xb = plain.bf16(x)
+    qkv = plain.linear(xb, w["wqkv"], w["bqkv"])
+    att = plain.attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
+                          num_heads=num_heads, scale=(c // num_heads) ** -0.5,
+                          kb=plain.key_bias(valid), bias=bias)
+    x1, q2 = dec_post_self_tiled(att.reshape(r, c), xb.reshape(r, c),
+                                 plain.bf16(qpos).reshape(r, c), w, eps)
+    imgb = plain.bf16(img)
+    kpos = plain.linear(plain.bf16(ipos), w["wck_pos"], w["bck"])
+    k2 = plain.linear(imgb, w["wck_img"]) + kpos
+    v2 = plain.linear(imgb, w["wcv"], w["bcv"])
+    att2 = plain.attention(q2.view(b, k, 2 * c), k2, v2,
+                           num_heads=num_heads,
+                           scale=(2 * c // num_heads) ** -0.5)
+    return dec_post_cross_tiled(att2, x1, adj, w, eps).view(
+        b, k, c).to(x.dtype)
+
+
+# ------------------------------------------------------------- inputs
+def _dense(rng, i, o):
+    return {"kernel": (rng.normal(size=(i, o)) / math.sqrt(i)).astype(
+        np.float32), "bias": (rng.normal(size=o) * 0.1).astype(np.float32)}
+
+
+def _norm(rng, c):
+    return {"scale": (1 + 0.1 * rng.normal(size=c)).astype(np.float32),
+            "bias": (0.1 * rng.normal(size=c)).astype(np.float32)}
+
+
+def _mha(rng, e, q_dim, v_dim):
+    return {"q_proj": _dense(rng, q_dim, e), "k_proj": _dense(rng, q_dim, e),
+            "v_proj": _dense(rng, v_dim, e), "out_proj": _dense(rng, e, e)}
+
+
+def _encoder(rng):
+    tree = {"self_attn": _mha(rng, C, C, C), "norm1": _norm(rng, C),
+            "linear1": _dense(rng, C, F), "linear2": _dense(rng, F, C),
+            "norm2": _norm(rng, C)}
+    layer = EncoderLayer(C, HEADS, F)
+    layer.load_state_dict(state_from_flax(tree))
+    return tree, layer.eval()
+
+
+def _decoder(rng):
+    tree = {"self_attn": _mha(rng, C, C, C), "norm1": _norm(rng, C),
+            "cross_attn": _mha(rng, 2 * C, 2 * C, C),
+            "choker": _dense(rng, 2 * C, C), "norm2": _norm(rng, C),
+            "gcn": {"conv": _dense(rng, C, 2 * F)},
+            "ffn2": _dense(rng, F, C), "norm3": _norm(rng, C)}
+    layer = DecoderLayer(C, HEADS, F)
+    layer.load_state_dict(state_from_flax(tree))
+    return tree, layer.eval()
+
+
+def _encoder_args(tree):
+    at = tree["self_attn"]
+    return tuple(x for name in ("q_proj", "k_proj", "v_proj", "out_proj")
+                 for x in (at[name]["kernel"], at[name]["bias"])) + (
+        tree["norm1"]["scale"], tree["norm1"]["bias"],
+        tree["linear1"]["kernel"], tree["linear1"]["bias"],
+        tree["linear2"]["kernel"], tree["linear2"]["bias"],
+        tree["norm2"]["scale"], tree["norm2"]["bias"])
+
+
+def _decoder_inputs(rng, b, k, hw):
+    x, qpos = (rng.normal(size=(b, k, C)).astype(np.float32)
+               for _ in range(2))
+    img = rng.normal(size=(b, hw, C)).astype(np.float32)
+    ipos = rng.normal(size=(hw, C)).astype(np.float32)
+    valid = rng.uniform(size=(b, k)) > 0.3
+    valid[:, 0] = True
+    bias = rng.normal(size=(b, HEADS, k, k)).astype(np.float32)
+    adj = rng.uniform(size=(b, 2, k, k)).astype(np.float32) / k
+    return x, qpos, img, ipos, valid, bias, adj
+
+
+def _np(t):
+    return np.asarray(t.float().numpy() if torch.is_tensor(t) else t,
+                      np.float32)
+
+
+def _close(out, ref, max_tol=ULP_MAX, mean_tol=NOISE_MEAN):
+    d = np.abs(_np(out) - _np(ref))
+    assert np.isfinite(d).all()
+    assert d.max() <= max_tol, d.max()
+    assert d.mean() <= mean_tol, d.mean()
+
+
+# ------------------------------------------------------------- tests
+@pytest.mark.parametrize("b,n", [(3, 50), (1, 128), (2, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encoder_emulation_matches_the_plain_layer(b, n, dtype):
+    """150 rows (a whole tile and a ragged one), exactly one tile, fewer
+    rows than a tile."""
+    rng = np.random.default_rng(10)
+    _, layer = _encoder(rng)
+    tokens = torch.from_numpy(rng.normal(size=(b, n, C)).astype(
+        np.float32)).to(dtype)
+    pos = torch.from_numpy(rng.normal(size=(n, C)).astype(np.float32))
+    valid = torch.from_numpy(rng.uniform(size=(b, n)) > 0.3)
+    valid[:, 0] = True
+    with torch.no_grad():
+        out = encoder_layer_tiled(tokens, pos, valid, layer)
+        ref = tenc.fused_encoder_layer_plain(tokens, pos, valid, layer,
+                                             num_heads=HEADS)
+    assert out.dtype == dtype
+    _close(out, ref)
+
+
+def test_encoder_stack_emulation_matches_the_plain_stack():
+    """The stack adds the position once and each layer's kernel forms the
+    next src = bf16(bf16(y) + pos): the same values as the chain of
+    layers, each adding the position to the last one's output."""
+    rng = np.random.default_rng(11)
+    layers = [_encoder(rng)[1] for _ in range(2)]
+    tokens = torch.from_numpy(rng.normal(size=(2, 70, C)).astype(
+        np.float32)).to(torch.bfloat16)
+    pos = torch.from_numpy(rng.normal(size=(70, C)).astype(np.float32))
+    valid = torch.ones(2, 70, dtype=torch.bool)
+    with torch.no_grad():
+        x = tokens
+        for layer in layers:
+            x = encoder_layer_tiled(x, pos, valid, layer)
+        ref = tenc.fused_encoder_stack(tokens, pos, valid, layers,
+                                       num_heads=HEADS)
+    # the second layer carries the first one's bf16 flips on: ten times
+    # the one layer's mean bound
+    _close(x, ref, mean_tol=10 * NOISE_MEAN)
+
+
+@pytest.mark.parametrize("b,k,hw", [(2, 100, 24), (3, 13, 20), (1, 128, 16)])
+def test_decoder_emulation_matches_the_plain_layer(b, k, hw):
+    """K = 100 (the path's, padded by 28 rows), a small K, K = 128 (no
+    padding)."""
+    rng = np.random.default_rng(12)
+    _, layer = _decoder(rng)
+    x, qpos, img, ipos, valid, bias, adj = (
+        torch.from_numpy(a) for a in _decoder_inputs(rng, b, k, hw))
+    x, qpos, img, ipos = (t.to(torch.bfloat16) for t in (x, qpos, img, ipos))
+    with torch.no_grad():
+        out = decoder_layer_tiled(x, qpos, img, ipos, valid, bias, adj, layer)
+        ref = tdec.fused_decoder_layer_plain(x, qpos, img, ipos, valid, bias,
+                                             adj, layer, num_heads=HEADS)
+    assert out.dtype == torch.bfloat16
+    _close(out, ref)
+
+
+def test_cross_tile_padding_contributes_nothing():
+    """Rows past K hold values (LayerNorm of the padded zero rows), yet
+    the zero adjacency columns keep them out of the K rows: filling the
+    padded rows' inputs otherwise changes no kept row."""
+    rng = np.random.default_rng(13)
+    _, layer = _decoder(rng)
+    w = tdec._prepare(layer)
+    b, k = 2, 37
+    att2 = plain.bf16(torch.from_numpy(rng.normal(size=(b, k, 2 * C)).astype(
+        np.float32)))
+    x1 = torch.from_numpy(rng.normal(size=(b * k, C)).astype(np.float32))
+    adj = torch.from_numpy(rng.uniform(size=(b, 2, k, k)).astype(
+        np.float32)) / k
+    with torch.no_grad():
+        out = dec_post_cross_tiled(att2, x1, adj, w)
+        # the same rows as the first K of a batch row of K + 5 keypoints
+        # whose extra keypoints no adjacency entry reaches
+        k5 = k + 5
+        att2b = torch.cat([att2, torch.ones(b, 5, 2 * C)], 1)
+        x1b = torch.cat([x1.view(b, k, C), torch.ones(b, 5, C)], 1)
+        adjb = torch.zeros(b, 2, k5, k5)
+        adjb[:, :, :k, :k] = adj
+        big = dec_post_cross_tiled(att2b, x1b.reshape(b * k5, C), adjb, w)
+    assert torch.equal(out.view(b, k, C), big.view(b, k5, C)[:, :k])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encoder_emulation_matches_jax_kernel(dtype):
+    rng = np.random.default_rng(14)
+    tree, layer = _encoder(rng)
+    b, n = 2, 30
+    tokens = rng.normal(size=(b, n, C)).astype(np.float32)
+    pos = rng.normal(size=(n, C)).astype(np.float32)
+    valid = rng.uniform(size=(b, n)) > 0.3
+    valid[:, 0] = True
+    ref = jenc.fused_encoder_layer(
+        jnp.asarray(tokens).astype(dtype), jnp.asarray(pos),
+        jnp.asarray(valid), *_encoder_args(tree), num_heads=HEADS, eps=1e-5,
+        interpret=True)
+    with torch.no_grad():
+        out = encoder_layer_tiled(
+            torch.from_numpy(tokens).to(getattr(torch, dtype)),
+            torch.from_numpy(pos), torch.from_numpy(valid), layer)
+    _close(out, ref.astype(jnp.float32), BF16_MAX, BF16_MEAN)
+
+
+def test_decoder_emulation_matches_jax_kernel():
+    rng = np.random.default_rng(15)
+    tree, layer = _decoder(rng)
+    x, qpos, img, ipos, valid, bias, adj = _decoder_inputs(rng, 2, 12, 16)
+    ref = jdec.fused_decoder_layer(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (x, qpos, img, ipos)),
+        jnp.asarray(valid), jnp.asarray(bias), jnp.asarray(adj), tree,
+        num_heads=HEADS, eps=1e-5, interpret=True)
+    tx = [torch.from_numpy(a).to(torch.bfloat16)
+          for a in (x, qpos, img, ipos)]
+    with torch.no_grad():
+        out = decoder_layer_tiled(*tx, torch.from_numpy(valid),
+                                  torch.from_numpy(bias),
+                                  torch.from_numpy(adj), layer)
+    _close(out, ref.astype(jnp.float32), BF16_MAX, BF16_MEAN)
+
+
+# rows, hidden, chunk, keypoints -> tiles, chunks, padded rows: the eval
+# chunk's encoder (510 x 356 rows), decoder self (510 x 100) and cross
+# (510 batch rows of K = 100) kernels, and edges
+PLANS = [((181560, 384, 128, None), (1419, 3, 72)),
+         ((51000, 128, 128, None), (399, 1, 72)),
+         ((51000, 384, 64, 100), (510, 6, 28)),
+         ((128, 128, 128, None), (1, 1, 0)),
+         ((1, 128, 128, None), (1, 1, 127)),
+         ((128, 64, 64, 128), (1, 1, 0)),
+         ((7, 64, 64, 1), (7, 1, 127))]
+
+
+@pytest.mark.parametrize("args,want", PLANS)
+def test_post_plan_tiles_and_padding(args, want):
+    rows, f, chunk, k = args
+    plan = K.post_plan(rows, K.POST_C, f, chunk=chunk, keypoints=k)
+    assert (plan["tiles"], plan["chunks"], plan["pad_rows"]) == want
+
+
+@pytest.mark.parametrize("args,kw", [
+    ((100, 64, 96), {}),                       # C = 64
+    ((100, 256, 96), {}),                      # F not in chunks of 128
+    ((100, 256, 384), {"chunk": 64, "keypoints": 129}),
+    ((150, 256, 384), {"chunk": 64, "keypoints": 100}),  # no whole rows
+    ((0, 256, 384), {})])
+def test_post_plan_refuses_what_the_kernels_do_not_take(args, kw):
+    with pytest.raises(ValueError):
+        K.post_plan(*args, **kw)
+
+
+def test_weight_cache_follows_a_parameter_write():
+    """The prepared weights are made once; a write into a parameter, a
+    load_state_dict or a cast makes them anew."""
+    rng = np.random.default_rng(16)
+    _, layer = _encoder(rng)
+    _, other = _encoder(rng)
+    builds = []
+
+    def build(m):
+        builds.append(1)
+        return tenc._prepare(m)
+
+    first = K.module_weights(layer, "_kernel_weights", build)
+    assert K.module_weights(layer, "_kernel_weights", build) is first
+    b1 = layer.linear1.bias.detach().clone()
+    with torch.no_grad():
+        layer.linear1.bias.add_(1.0)
+    second = K.module_weights(layer, "_kernel_weights", build)
+    assert second is not first and len(builds) == 2
+    assert torch.equal(second["b1"], b1 + 1.0)
+    layer.load_state_dict(other.state_dict())
+    third = K.module_weights(layer, "_kernel_weights", build)
+    assert torch.equal(third["wo"], tenc._prepare(other)["wo"])
+    layer.to(torch.bfloat16)
+    assert K.module_weights(layer, "_kernel_weights", build) is not third
+    assert len(builds) == 4
+    assert first["wqkv"].dtype == torch.bfloat16 and first["wqkv"].shape == (
+        3 * C, C)
+
+
+def test_post_kernels_refuse_cpu_operands_and_count_nothing():
+    rng = np.random.default_rng(17)
+    _, enc = _encoder(rng)
+    _, dec = _decoder(rng)
+    we, wd = tenc._prepare(enc), tdec._prepare(dec)
+    att = torch.zeros(10, C, dtype=torch.bfloat16)
+    before = dict(K.post_launches)
+    with pytest.raises(ValueError):
+        K.enc_post(att, att, we, eps=1e-5, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        K.dec_post_self(att, att, att, wd, eps=1e-5)
+    with pytest.raises(ValueError):
+        K.dec_post_cross(torch.zeros(1, 10, 2 * C, dtype=torch.bfloat16),
+                         torch.zeros(10, C), torch.zeros(1, 2, 10, 10), wd,
+                         eps=1e-5, out_dtype=torch.float32)
+    assert K.post_launches == before
