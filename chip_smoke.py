@@ -68,10 +68,13 @@ Phases (any failure exits non-zero before the last line):
    chunk's shapes: fused_ln_mlp and fused_attn_block at [510, 257, 384];
    fused_vit_block2 bit-equal to two fused_vit_block calls (bf16 and fp32
    input) and each of its blocks against the plain block;
+   the decoder stack's own kernels, the bias attention and the keypoint
+   head, each against its plain version at 510 rows, K=100;
    fused_decoder_stack (510 rows, K=100, 256 image tokens, C=256, 3
    layers, Markov bias) layer by layer on the same inputs, then the whole
    stack against the chain of fused_decoder_layer with the glue in
-   PyTorch;
+   PyTorch; its line adds device time, kernels per call (at most 30, none
+   of them a thread-copy GEMM) and ms by kernel;
 6. the variant path: forward_cached at full width with the decoder_stack
    and vit_pair_blocks switches on (launch counts per chunk asserted,
    predictions against the default path), the throughput of the default
@@ -160,6 +163,15 @@ PEAK_BYTES_S, PEAK_BF16_FLOPS, PEAK_F32_FLOPS = 3.35e12, 989e12, 67e12
 # the JAX package's bounds for that pair, and not bit-equal.
 STACK_LAYER_MAX, STACK_LAYER_MEAN = 2e-3, 1e-4
 STACK_CHAIN_MEDIAN, STACK_CHAIN_P95 = 1e-3, 5e-3
+# The keypoint head alone against its plain version: coordinates in [0, 1]
+# through delta heads of 0.02, where a flipped bf16 rounding of a hidden
+# value moves a coordinate by about 1e-5.
+KPT_MAX, KPT_MEAN = 2e-4, 1e-5
+# Kernels and copies one call of the stack may launch: the k, v, kpos
+# GEMMs, then per layer sine_feats, two ref_point_head GEMMs, the qkv
+# GEMM, the bias attention, dec_post_self, the cross-attention,
+# dec_post_cross and the keypoint head.
+STACK_KERNELS = 3 + 9 * 3
 # Uncached and 5-shot episodes: groups, queries per group, batch size.
 EVAL_GROUPS, EVAL_QUERIES, EVAL_BATCH = 8, 4, 16
 # Strict fp32 on the card against the CPU: fp32 on both sides, summed in
@@ -1411,6 +1423,8 @@ def variant_op_checks(dev, entries, power):
     from edgecape_tpu_torch.models.transformer import (Decoder,
                                                        ensure_some_valid,
                                                        inverse_sigmoid)
+    from edgecape_tpu_torch.ops import kernels as KN
+    from edgecape_tpu_torch.tools import bench_attention as BA
 
     g, rn = seeded_randn(SEED + 5, dev)
     bf = torch.bfloat16
@@ -1508,6 +1522,66 @@ def variant_op_checks(dev, entries, power):
         adj = (torch.rand(nq, 2, K, K, generator=g).to(dev) / K).to(bf)
         args = (kx, coords, img, ipos, kvalid, hops, adj)
         kw = dict(num_heads=heads, num_feats=nf)
+
+        # the stack's own kernels at its shapes, on its first layer's
+        # prepared weights
+        sw = FD._build_stack_weights(dec, nf, True)
+        lw0 = sw["layers"][0]
+        qkv = rn(nq, K, 3 * c).to(bf)
+        hid = nhop - 1 + heads
+        check_op(entries, bad, "bias_attention",
+                 "edgecape_tpu/ops/fused_decoder.py:531",
+                 "edgecape_tpu_torch/ops/kernels.py",
+                 KN.bias_attention(qkv, kvalid, hops, lw0["hop_mlp"],
+                                   num_heads=heads),
+                 FD.bias_attention_plain(qkv, kvalid, hops, lw0["hop_mlp"],
+                                         num_heads=heads),
+                 lambda: KN.bias_attention(qkv, kvalid, hops, lw0["hop_mlp"],
+                                           num_heads=heads),
+                 lambda: FD.bias_attention_plain(qkv, kvalid, hops,
+                                                 lw0["hop_mlp"],
+                                                 num_heads=heads),
+                 bound(nbytes(qkv, kvalid, hops, *lw0["hop_mlp"])
+                       + nq * K * c * 2, 4 * nq * heads * K * K * (c // heads),
+                       2 * nq * K * K * (nhop * hid + hid * heads)),
+                 copy_gemms=0,
+                 extra=f"; [B {nq}, K {K}, H {heads}, D {c // heads}], "
+                       f"n_hop {nhop}, hidden {hid}; plan "
+                       f"{json.dumps(KN.bias_attention_plan(nq, K, heads, 32))}")
+        r = nq * K
+        xk = rn(r, c).to(bf)
+        ctk = torch.rand(r, 2, generator=g).to(dev)
+        pts_k, outs_k = torch.empty_like(ctk), torch.empty_like(ctk)
+
+        def kpt_kernel():
+            KN.kpt_head(xk, ctk, sw["fn"], lw0["kpt"], lw0["kow"],
+                        lw0["kob"], pts_k, outs_k, eps=1e-5)
+            return torch.stack([pts_k, outs_k])
+
+        def kpt_plain():
+            return torch.stack(FD.kpt_head_plain(
+                xk, ctk, sw["fn"], lw0["kpt"], lw0["kow"], lw0["kob"],
+                eps=1e-5))
+
+        got, want = kpt_kernel().clone(), kpt_plain()
+        dk = (got - want).abs()
+        kpt_ok = dk.max().item() <= KPT_MAX and dk.mean().item() <= KPT_MEAN
+        check_op(entries, bad, "kpt_head",
+                 "edgecape_tpu/ops/fused_decoder.py:531",
+                 "edgecape_tpu_torch/ops/kernels.py", got, want, kpt_kernel,
+                 kpt_plain,
+                 bound(nbytes(xk, ctk, pts_k, outs_k, *sw["fn"], lw0["kow"],
+                              lw0["kob"], *(t for pair in lw0["kpt"]
+                                            for t in pair)),
+                       2 * 2 * r * (3 * c * c + 2 * c)),
+                 copy_gemms=0,
+                 extra=f"; [R {r}, C {c}] pts and outs; coordinates max "
+                       f"{dk.max().item():.3g} mean {dk.mean().item():.3g} "
+                       f"(tol {KPT_MAX}, mean {KPT_MEAN}) "
+                       f"{'OK' if kpt_ok else 'FAIL'}")
+        if not kpt_ok:
+            bad.append("kpt_head coordinates")
+        del qkv, xk, ctk, pts_k, outs_k, got, want, dk
         worst = 0.0
         for i in range(layers):
             sub = Decoder(c, heads, ffn, 1, attn_bias=True, max_hops=nhop - 1,
@@ -1586,15 +1660,39 @@ def variant_op_checks(dev, entries, power):
                                                                 **kw), reps=3)
         bnd = bound(nbytes(*args) + param_bytes(dec) + outs_bytes,
                     layers * (layer_flops + glue_flops), layers * bias_flops)
+        # device time and kernels of one call; nan: three traces lost
+        # device events, the count is then not measured
+        stack_call = lambda: FD.fused_decoder_stack(*args, dec, **kw)  # noqa: E731
+        c0 = KN.gemm_launches["copy"]
+        dev_ms, per_call = BA.device_ms(stack_call)
+        copy_gemms = KN.gemm_launches["copy"] - c0
+        by_name = BA.kernel_ms(stack_call)
+        by_kernel = ", ".join(
+            f"{k.split('(')[0].replace('void ', '')} {v:.4f}"
+            for k, v in sorted(by_name.items(), key=lambda kv: -kv[1]))
         print(f"[op] fused_decoder_stack: {layers} layers, rows {nq}, K {K}, "
-              f"HW {hw}, C {c}, Markov bias from the hop stack in the "
-              f"kernel: {one_call} launch count per call, whole stack vs "
-              f"plain max_abs_err {err:.4g} (information: ulp differences "
+              f"HW {hw}, C {c}, Markov bias from the hop stack, formed once "
+              f"for all heads: {one_call} launch count per call, whole stack "
+              f"vs plain max_abs_err {err:.4g} (information: ulp differences "
               f"grow through the layers; the bound is on each layer alone, "
               f"worst {worst:.4g}, tol {STACK_LAYER_MAX}) kernel {ms:.3f} ms "
               f"plain {plain_ms:.3f} ms chain of fused_decoder_layer with "
               f"PyTorch glue {chain_ms:.3f} ms bound {bnd[0]:.4f} ms "
-              f"({bnd[1]}) library none", flush=True)
+              f"({bnd[1]}) library none; device {dev_ms:.4f} ms in "
+              f"{per_call:g} kernels per call (at most {STACK_KERNELS}), "
+              f"{copy_gemms} thread-copy GEMMs in {BA.REPS + 1} calls; ms a "
+              f"call by kernel: {by_kernel or 'not measured'}", flush=True)
+        if per_call > STACK_KERNELS:
+            bad.append(f"fused_decoder_stack: {per_call} kernels per call")
+        if copy_gemms or any("gemm_kernel<" in k or "attn_kernel<32, 5" in k
+                             for k in by_name):
+            bad.append("fused_decoder_stack: a thread-copy GEMM or the old "
+                       "hop-stack attention ran")
+        if by_name and not all(any(n in k for k in by_name) for n in (
+                "bias_attn_kernel", "kpt_head_kernel", "dec_post_self_kernel",
+                "dec_post_cross_kernel")):
+            bad.append("fused_decoder_stack: a kernel of the stack is missing "
+                       "from its trace")
         entries["fused_decoder_stack"] = {
             "name": "fused_decoder_stack", "route": "cuda",
             "source": "edgecape_tpu_torch/csrc/kernels.cu",
@@ -1602,7 +1700,8 @@ def variant_op_checks(dev, entries, power):
             "replaces": "edgecape_tpu/ops/fused_decoder.py:531",
             "launches": 0, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-            "library_ms": None, "chain_ms": chain_ms}
+            "library_ms": None, "chain_ms": chain_ms, "device_ms": dev_ms,
+            "kernels_per_call": per_call}
         if not bad:
             profile(lambda: FD.fused_decoder_stack(*args, dec, **kw),
                     "one fused_decoder_stack call at the chunk's shape",
@@ -1617,6 +1716,7 @@ def variant_path(dev, entries, power, est, data, default_preds, tuned_out):
     launch counts, agreement with the default path, and the A/B ratios."""
     from edgecape_tpu_torch.eval.runner import run_cached
     from edgecape_tpu_torch.ops import kernel_config as KC
+    from edgecape_tpu_torch.ops import kernels as KN
     import edgecape_tpu_torch.ops.fused_decoder as FD
     import edgecape_tpu_torch.ops.fused_vit_block as FV
 
@@ -1628,6 +1728,7 @@ def variant_path(dev, entries, power, est, data, default_preds, tuned_out):
         KC.set_vit_pair_blocks(pair)
         preds = []
         FV.launches = FV.launches2 = FD.launches = FD.stack_launches = 0
+        KN.stack_kernel_launches.update(bias_attention=0, kpt_head=0)
         t0 = time.perf_counter()
         run_cached(est, chunks, lambda i: data[i],
                    lambda pred, *a: preds.append(pred))
@@ -1636,21 +1737,25 @@ def variant_path(dev, entries, power, est, data, default_preds, tuned_out):
         counts = {"fused_vit_block": FV.launches,
                   "fused_vit_block2": FV.launches2,
                   "fused_decoder_layer": FD.launches,
-                  "fused_decoder_stack": FD.stack_launches}
+                  "fused_decoder_stack": FD.stack_launches,
+                  **KN.stack_kernel_launches}
         return preds, wall, counts
 
     try:
         run(True, True)                      # warm-up of the variant ops
         preds, wall, counts = run(True, True)
         expect = {"fused_vit_block": 0, "fused_vit_block2": 12 * CHUNKS,
-                  "fused_decoder_layer": 0, "fused_decoder_stack": CHUNKS}
+                  "fused_decoder_layer": 0, "fused_decoder_stack": CHUNKS,
+                  "bias_attention": 3 * CHUNKS, "kpt_head": 3 * CHUNKS}
         print(f"[variant] both switches on: launches {counts} expected "
               f"{expect} ({CHUNKS} chunks: per chunk 12 fused_vit_block2 "
-              f"over the two backbone passes and 1 fused_decoder_stack)",
-              flush=True)
+              f"over the two backbone passes and 1 fused_decoder_stack, whose "
+              f"3 layers launch the bias attention and the keypoint head "
+              f"once each)", flush=True)
         if counts != expect:
             fail("variant path launch counts differ from what it implies")
-        for name in ("fused_vit_block2", "fused_decoder_stack"):
+        for name in ("fused_vit_block2", "fused_decoder_stack",
+                     "bias_attention", "kpt_head"):
             entries[name]["launches"] = counts[name]
         d = np.abs(np.stack(preds) - np.stack(default_preds))
         ok = np.isfinite(np.stack(preds)).all() and d.max() > 0 \
@@ -2021,7 +2126,9 @@ def disk_path(dev, entries, power):
             steps = trainer.step
             print(f"[disk] cli.train: {steps} steps of batch {TRAIN_B} in "
                   f"{DISK_EPOCHS} epochs; launches {got}", flush=True)
-            if steps < 4 or got["fused_vit_block"] != 12 * steps or \
+            # 12 blocks a step, two to a launch with vit_pair_blocks on
+            blocks = got["fused_vit_block"] + 2 * got["fused_vit_block2"]
+            if steps < 4 or blocks != 12 * steps or \
                     min(got["flash_mha_train_fwd"],
                         got["flash_mha_train_bwd"]) < steps:
                 fail("cli.train did not run through the training kernels")

@@ -21,15 +21,16 @@
 //                   tiles with every score kept in registers: a warp per
 //                   16-row query tile, query tiles split over blocks,
 //                   cp.async keys and values, the bool key mask read in
-//                   the kernel, optional [B, H, Nq, Nk] bias (read, or
-//                   formed in the kernel from the bf16 hop stack by the
-//                   Markov bias MLP), fp32 softmax, P rounded to bf16
-//                   before P.V, output rounded to bf16;
+//                   the kernel, optional [B, H, Nq, Nk] fp32 bias read,
+//                   fp32 softmax, P rounded to bf16 before P.V, output
+//                   rounded to bf16;
 //   * ec_add_pos    src = bf16(bf16(x) + pos) for the joint encoder;
-//   * ec_sine_feats / ec_coord_update  the decoder stack's glue between
-//                   layers (ops/fused_decoder.py fused_decoder_stack):
-//                   coordinates to bf16 sine features, and the fp32
-//                   sigmoid coordinate update of both kpt_branch passes;
+//   * ec_sine_feats, ec_bias_attention, ec_kpt_head  the decoder stack's
+//                   own kernels (ops/fused_decoder.py fused_decoder_stack):
+//                   coordinates to bf16 sine features; the self-attention
+//                   with the Markov bias formed once for all heads from
+//                   the bf16 hop stack; the final norm, both kpt_branch
+//                   passes and the sigmoid coordinate update as one kernel;
 //   * ec_attn_train_fwd / ec_attn_train_bwd  the differentiable attention
 //                   of the training step with key mask, [B, H, Nq, Nk]
 //                   bias and Philox dropout on the probabilities (see
@@ -1072,8 +1073,8 @@ extern "C" int ec_add_pos(const void* x, int x_dt, const void* pos, void* out,
 //   * one warp owns a 16-row query tile. Where the key row fits in
 //     registers (at most ATT_ROW16 * 16 = 128 keys: K = 100 everywhere
 //     the model attends over keypoints) the scores are formed once, the
-//     softmax runs on the registers, and the bias (read, or formed from
-//     the hop stack by the Markov bias MLP) and key mask are touched once.
+//     softmax runs on the registers, and the bias and key mask are
+//     touched once.
 //     Longer rows (257, 356, 256 keys) would need 128..192 registers a
 //     thread for the scores alone, so they take two passes over 32-key
 //     chunks, both from registers: the first keeps a per-lane running max
@@ -1082,9 +1083,8 @@ extern "C" int ec_add_pos(const void* x, int x_dt, const void* pos, void* out,
 //     rounding to bf16, which keeps the TPU kernels' rounding point (an
 //     online softmax that rounds exp(s - running max) would not). Measured
 //     on an H100 (tools/bench_attention.py modes): at 100 keys one pass
-//     takes 0.0115 ms where two passes take 0.0120 (34 x 8 heads), and
-//     1.05 against 1.79 ms with the bias MLP (510 x 8 heads), which two
-//     passes run twice; chunks of 32 keys beat chunks of 64 (ViT 0.56
+//     takes 0.0115 ms where two passes take 0.0120 (34 x 8 heads);
+//     chunks of 32 keys beat chunks of 64 (ViT 0.56
 //     against 0.84 ms, encoder 0.82 against 1.17) because 80..96 registers
 //     a thread let two blocks share an SM where 128 let one. Splitting a
 //     row's keys over warps to make long rows one pass is not done.
@@ -1106,29 +1106,18 @@ extern "C" int ec_add_pos(const void* x, int x_dt, const void* pos, void* out,
 //     once a block, into an additive row in shared memory that also holds
 //     -inf for the padded keys), so a call is one launch.
 // Hazards: keys are padded to a multiple of 16 with -inf scores and zero
-// value rows (never uninitialised shared memory: 0 x NaN); hop rows are
-// 2 * Nk bytes apart (200 at K = 100), so a lane's four keys are one
-// 8-byte load when Nk is a multiple of 4, else four element loads;
-// the output may be a strided view of a caller's buffer, so 16-byte
+// value rows (never uninitialised shared memory: 0 x NaN); the output may be a strided view of a caller's buffer, so 16-byte
 // stores are used only when its base and strides allow them; dropout
 // bits depend on (row, column / 4, batch * H + head) alone, whatever the
 // tiling, so the backward regenerates the forward's mask. The exponentials
 // are single ex2 instructions on scores kept in base 2, and p is
 // normalised by a multiplication with the row's reciprocal sum (that
-// alone took the ViT shape from 1.62 to 0.84 ms). The bias MLP's fp32
-// arithmetic (7.8e9 multiply-adds a call at 510 rows) bounds the
-// in-kernel-bias form; its kernel is held to 128 registers so that four
-// blocks share an SM.
+// alone took the ViT shape from 1.62 to 0.84 ms).
 
 #define ATT_MAX_NK 512     // keys a block holds in shared memory
 #define ATT_ROW16 8        // 16-key tiles of a row held in registers (one pass)
 #define ATT_CH16 2         // 16-key tiles per chunk of the two-pass form
 #define ATT_SMEM_LIMIT (227 * 1024)
-
-#define HOP_MAX 8          // hop planes the in-kernel bias MLP takes
-#define HOP_MAX_HID 32     // its hidden width
-#define HOP_ROW 12         // floats per hidden unit in shared memory
-#define HOP_MLP_FLOATS (HOP_MAX_HID * HOP_ROW + 4)
 
 struct AttnArgs {
   const void* q; const void* k; const void* v; int in_dt;
@@ -1138,10 +1127,6 @@ struct AttnArgs {
   const float* bias;                 // [B, H, Nq, Nk] or null
   float scale;
   void* out; int out_dt; long sob, son;
-  // Markov bias formed in the kernel (NHOP > 0): hops [B, nhop, Nq, Nk]
-  // bf16, w1 [nhop, hid], b1 [hid], w2 [hid, H], b2 [H]
-  const bf16* hops; int nhop, hid;
-  const float* w1; const float* b1; const float* w2; const float* b2;
   // training forward
   const unsigned long long* seed;    // one value on the device; read when thresh > 0
   unsigned thresh; float inv_keep;   // thresh 0: no dropout
@@ -1198,33 +1183,6 @@ __device__ __forceinline__ void stage8(bf16* dst, const void* base, int dt, long
   }
 }
 
-// The bias MLP on NS scores at once: acc[i] = relu(hv[.][i] . w1 + b1) .
-// w2[:, h] + b2[h] in fp32. mlp (shared memory): per hidden unit m a row
-// of HOP_ROW floats, w1[0..7][m] (zero beyond nhop) | b1[m] | w2[m, h] |
-// 0 | 0, read as three 16-byte loads; then b2[h]. One hidden unit's
-// weights are read once per NS scores.
-template <int NHOP, int NS>
-__device__ __forceinline__ void hop_mlp(const float (&hv)[NHOP][NS], int hid,
-                                        const float* mlp, float* acc) {
-  const float b2 = mlp[hid * HOP_ROW];
-#pragma unroll
-  for (int i = 0; i < NS; ++i) acc[i] = b2;
-#pragma unroll 2
-  for (int m = 0; m < hid; ++m) {
-    const float4 wa = *reinterpret_cast<const float4*>(mlp + m * HOP_ROW);
-    const float4 wb = *reinterpret_cast<const float4*>(mlp + m * HOP_ROW + 4);
-    const float4 wc = *reinterpret_cast<const float4*>(mlp + m * HOP_ROW + 8);
-    const float w1[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-    for (int i = 0; i < NS; ++i) {
-      float a = wc.x;
-#pragma unroll
-      for (int jh = 0; jh < NHOP; ++jh) a += hv[jh][i] * w1[jh];
-      acc[i] += fmaxf(a, 0.0f) * wc.y;
-    }
-  }
-}
-
 #define LOG2E_F 1.4426950408889634f
 #define LN2_F 0.6931471805599453f
 
@@ -1243,8 +1201,8 @@ __device__ __forceinline__ float ex2(float x) {
 // tile jj stands for key 4 * (n / 2) + 2 * jj + n % 2. The K rows that
 // ldmatrix reads for q.k^T and the V rows it reads for P.V follow the
 // same permutation, so both products are unchanged, and a lane's mask,
-// bias, hop values and dropout bits of a row are one 16-byte or 8-byte
-// load or one Philox group. Lane (g, t) holds keys 4t .. 4t + 3 of the
+// bias and dropout bits of a row are one 16-byte load or one Philox
+// group. Lane (g, t) holds keys 4t .. 4t + 3 of the
 // block as s[j][0], s[j][1], s[j + 1][0], s[j + 1][1] (row g) and
 // s[j][2], s[j][3], s[j + 1][2], s[j + 1][3] (row g + 8).
 #define ATT_S(s, j, rs, e) (s)[(j) + ((e) >> 1)][(rs) * 2 + ((e) & 1)]
@@ -1262,41 +1220,22 @@ __device__ __forceinline__ void load4_f32(const float* row, int k0, int n, bool 
   }
 }
 
-// The same from bf16: one 8-byte load when `vec`.
-__device__ __forceinline__ void load4_bf16(const bf16* row, int k0, int n, bool vec,
-                                           float* o) {
-  if (vec && k0 + 3 < n) {
-    const uint2 w = *reinterpret_cast<const uint2*>(row + k0);
-    o[0] = __uint_as_float(w.x << 16);        // a bf16 is the top half of a float
-    o[1] = __uint_as_float(w.x & 0xffff0000u);
-    o[2] = __uint_as_float(w.y << 16);
-    o[3] = __uint_as_float(w.y & 0xffff0000u);
-  } else {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[e] = k0 + e < n ? __bfloat162float(row[k0 + e]) : 0.0f;
-  }
-}
-
 // What a lane needs to finish the scores of its two query rows.
 struct AttnRows {
-  const float* brow[2];      // bias rows, or null
-  const bf16* hrow[2];       // hop rows (plane 0), or null
-  long hop_plane;
-  bool bias_vec, hop_vec;    // rows take 16-byte / 8-byte loads
+  const float* brow[2];      // bias rows (device or shared memory), or null
+  bool bias_vec;             // rows take 16-byte loads
 };
 
 // Finished scores log2(e) * (q.k^T * scale + key mask + bias) of a 16-row
 // query tile against the NT 8-key tiles that start at key n0, in the
 // accumulator layout of mma16816 with the key permutation above. Tiles at
-// or beyond NKP keys are -inf.
-template <int D, int NHOP, int NT>
+// or beyond NKP keys are -inf. KLD: the row stride of Ks in elements.
+template <int D, int NT, int KLD = D + 8>
 __device__ __forceinline__ void attn_scores(float (&s)[NT][4],
                                             const unsigned (&qa)[D / 16][4],
-                                            const bf16* Ks, const float* kbs,
-                                            const float* mlp_s, int n0, int NKP,
-                                            const AttnArgs& p, const AttnRows& rw,
+                                            const bf16* Ks, const float* kbs, int n0,
+                                            int NKP, const AttnArgs& p, const AttnRows& rw,
                                             int lane) {
-  constexpr int KLD = D + 8;
   const float sc2 = p.scale * LOG2E_F;
   const int kperm = 4 * ((lane & 7) >> 1) + (lane & 1);
 #pragma unroll
@@ -1332,27 +1271,6 @@ __device__ __forceinline__ void attn_scores(float (&s)[NT][4],
         for (int e = 0; e < 4; ++e) add[rs][e] = fmaf(bv[e], LOG2E_F, add[rs][e]);
       }
     }
-    if constexpr (NHOP > 0) {
-      // a row's four keys at a time: the MLP's operands stay few registers
-#pragma unroll
-      for (int rs = 0; rs < 2; ++rs) {
-        float hv[NHOP][4];
-#pragma unroll
-        for (int jh = 0; jh < NHOP; ++jh) {
-          if (rw.hrow[rs] && jh < p.nhop) {
-            load4_bf16(rw.hrow[rs] + jh * rw.hop_plane, k0, p.Nk, rw.hop_vec, hv[jh]);
-          } else {
-            hv[jh][0] = hv[jh][1] = hv[jh][2] = hv[jh][3] = 0.0f;
-          }
-        }
-        float acc[4];
-        hop_mlp<NHOP, 4>(hv, p.hid, mlp_s, acc);
-        if (rw.hrow[rs]) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) add[rs][e] = fmaf(acc[e], LOG2E_F, add[rs][e]);
-        }
-      }
-    }
 #pragma unroll
     for (int rs = 0; rs < 2; ++rs) {
 #pragma unroll
@@ -1386,10 +1304,9 @@ __device__ __forceinline__ void dropout_bits(unsigned long long seed, unsigned b
 
 // O += P . V for the 16-key blocks of `s` (probabilities, in place of the
 // scores) that start at block kt0; V rows in the key permutation.
-template <int D, int NT>
+template <int D, int NT, int KLD = D + 8>
 __device__ __forceinline__ void attn_pv(float (&o)[D / 8][4], const float (&s)[NT][4],
                                         const bf16* Vs, int kt0, int NK16, int lane) {
-  constexpr int KLD = D + 8;
   const int vperm = 4 * ((lane & 7) >> 1) + 2 * ((lane >> 3) & 1) + (lane & 1);
 #pragma unroll
   for (int kt = 0; kt < NT / 2; ++kt) {
@@ -1410,12 +1327,10 @@ __device__ __forceinline__ void attn_pv(float (&o)[D / 8][4], const float (&s)[N
 }
 
 // CH16: 16-key tiles held in registers at a time. ATT_ROW16: the whole key
-// row, one pass; ATT_CH16: two passes over chunks of that many tiles. NHOP: 0
-// without the in-kernel bias, else the hop planes to unroll for. TRAIN:
+// row, one pass; ATT_CH16: two passes over chunks of that many tiles. TRAIN:
 // dropout, fp32 output and saved row statistics.
-template <int D, int NHOP, bool TRAIN, int CH16>
+template <int D, bool TRAIN, int CH16>
 __device__ __forceinline__ void attn_body(const AttnArgs& p) {
-  constexpr bool HOPS = NHOP > 0;
   constexpr bool ONE = CH16 == ATT_ROW16;
   constexpr int KLD = D + 8;
   constexpr int NT = 2 * CH16;
@@ -1426,12 +1341,11 @@ __device__ __forceinline__ void attn_body(const AttnArgs& p) {
   const int g = lane >> 2, t = lane & 3;
 
   // K and V [NKP][KLD] bf16, a query tile [16][KLD] per warp (reused to
-  // stage a bf16 output), the additive key mask [NKP], the bias MLP
+  // stage a bf16 output), the additive key mask [NKP]
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + (size_t)NKP * KLD;
   bf16* Qs = Vs + (size_t)NKP * KLD + (size_t)warp * 16 * KLD;
   float* kbs = reinterpret_cast<float*>(Vs + (size_t)NKP * KLD + (size_t)nwarps * 16 * KLD);
-  float* mlp_s = kbs + NKP;
 
   const long bh = blockIdx.x;
   const long b = bh / p.H;
@@ -1463,17 +1377,6 @@ __device__ __forceinline__ void attn_body(const AttnArgs& p) {
     const bool on = j < p.Nk && (p.kvalid == nullptr || p.kvalid[b * p.skvb + j] != 0);
     kbs[j] = on ? 0.0f : -INFINITY;
   }
-  if constexpr (HOPS) {
-    for (int i = threadIdx.x; i < p.hid * HOP_ROW; i += blockDim.x) {
-      const int m = i / HOP_ROW, f = i % HOP_ROW;
-      float v = 0.0f;
-      if (f < p.nhop) v = p.w1[f * p.hid + m];
-      else if (f == 8) v = p.b1[m];
-      else if (f == 9) v = p.w2[m * p.H + h];
-      mlp_s[i] = v;
-    }
-    if (threadIdx.x == 0) mlp_s[p.hid * HOP_ROW] = p.b2[h];
-  }
   cp_async_wait<1>();          // the query tiles and the keys have landed
   __syncthreads();
 
@@ -1481,10 +1384,7 @@ __device__ __forceinline__ void attn_body(const AttnArgs& p) {
   unsigned qa[D / 16][4];
   AttnRows rw;
   rw.brow[0] = rw.brow[1] = nullptr;
-  rw.hrow[0] = rw.hrow[1] = nullptr;
-  rw.hop_plane = (long)p.Nq * p.Nk;
   rw.bias_vec = p.Nk % 4 == 0 && (reinterpret_cast<uintptr_t>(p.bias) & 15) == 0;
-  rw.hop_vec = p.Nk % 4 == 0 && (reinterpret_cast<uintptr_t>(p.hops) & 7) == 0;
   float s[NT][4];
   // running max (base 2) and exp-sum of the lane's two rows
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
@@ -1498,12 +1398,8 @@ __device__ __forceinline__ void attn_body(const AttnArgs& p) {
       if (r0 < p.Nq) rw.brow[0] = p.bias + ((size_t)bh * p.Nq + r0) * p.Nk;
       if (r1 < p.Nq) rw.brow[1] = p.bias + ((size_t)bh * p.Nq + r1) * p.Nk;
     }
-    if constexpr (HOPS) {
-      if (r0 < p.Nq) rw.hrow[0] = p.hops + (b * p.nhop * p.Nq + r0) * (long)p.Nk;
-      if (r1 < p.Nq) rw.hrow[1] = p.hops + (b * p.nhop * p.Nq + r1) * (long)p.Nk;
-    }
     if constexpr (ONE) {
-      attn_scores<D, NHOP, NT>(s, qa, Ks, kbs, mlp_s, 0, NKP, p, rw, lane);
+      attn_scores<D, NT>(s, qa, Ks, kbs, 0, NKP, p, rw, lane);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
@@ -1527,7 +1423,7 @@ __device__ __forceinline__ void attn_body(const AttnArgs& p) {
     } else {
       // pass 1: per-lane running max and exp-sum, joined over the quad
       for (int n0 = 0; n0 < NKP; n0 += NT * 8) {
-        attn_scores<D, NHOP, NT>(s, qa, Ks, kbs, mlp_s, n0, NKP, p, rw, lane);
+        attn_scores<D, NT>(s, qa, Ks, kbs, n0, NKP, p, rw, lane);
         float c0 = m0, c1 = m1;
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
@@ -1579,7 +1475,7 @@ __device__ __forceinline__ void attn_body(const AttnArgs& p) {
 
   for (int n0 = 0; n0 < NKP; n0 += NT * 8) {   // one round when ONE
     if constexpr (!ONE) {
-      attn_scores<D, NHOP, NT>(s, qa, Ks, kbs, mlp_s, n0, NKP, p, rw, lane);
+      attn_scores<D, NT>(s, qa, Ks, kbs, n0, NKP, p, rw, lane);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         s[j][0] = ex2(s[j][0] - z0);
@@ -1666,46 +1562,42 @@ __device__ __forceinline__ void attn_body(const AttnArgs& p) {
 }
 
 // Threads a block may have and blocks an SM should hold, which set the
-// registers a thread gets: one pass 8 warps (up to 255 registers; 128 with
-// the bias MLP, whose arithmetic wants more warps in flight); two passes
-// two blocks of 12 warps (head dim 32: 85 registers) or 9 warps (head dim
-// 64: 113 registers), as many as two heads' keys and values leave room
-// for in an SM's shared memory.
+// registers a thread gets: one pass 8 warps (up to 255 registers); two
+// passes two blocks of 12 warps (head dim 32: 85 registers) or 9 warps
+// (head dim 64: 113 registers), as many as two heads' keys and values
+// leave room for in an SM's shared memory.
 constexpr int att_max_threads(int d, int ch16) {
   return ch16 == ATT_ROW16 ? 256 : d == 32 ? 384 : 288;
 }
-constexpr int att_min_blocks(int ch16, int nhop) {
-  return ch16 == ATT_ROW16 && nhop == 0 ? 1 : 2;
-}
+constexpr int att_min_blocks(int ch16) { return ch16 == ATT_ROW16 ? 1 : 2; }
 
-template <int D, int NHOP, int CH16>
-__global__ void __launch_bounds__(att_max_threads(D, CH16), att_min_blocks(CH16, NHOP))
+template <int D, int CH16>
+__global__ void __launch_bounds__(att_max_threads(D, CH16), att_min_blocks(CH16))
     attn_kernel(AttnArgs p) {
-  attn_body<D, NHOP, false, CH16>(p);
+  attn_body<D, false, CH16>(p);
 }
 
 template <int D, int CH16>
-__global__ void __launch_bounds__(att_max_threads(D, CH16), att_min_blocks(CH16, 0))
+__global__ void __launch_bounds__(att_max_threads(D, CH16), att_min_blocks(CH16))
     train_fwd_kernel(AttnArgs p) {
-  attn_body<D, 0, true, CH16>(p);
+  attn_body<D, true, CH16>(p);
 }
 
 // Shared memory the layout in attn_body needs.
-static size_t attn_smem_need(int D, int nk16, int warps, bool hops) {
+static size_t attn_smem_need(int D, int nk16, int warps) {
   const size_t kld = D + 8, nkp = (size_t)nk16 * 16;
-  return 4 * nkp * kld + 32 * (size_t)warps * kld + 4 * nkp
-         + (hops ? HOP_MLP_FLOATS * 4 : 0);
+  return 4 * nkp * kld + 32 * (size_t)warps * kld + 4 * nkp;
 }
 
 // Checks the plan against the shape and the card's limits and launches.
 // `configured`: the instantiation's dynamic shared-memory limit was raised.
 template <typename Kern>
 static int launch_attn_plan(Kern kern, bool& configured, const AttnArgs& p, int B, int D,
-                            bool hops, const AttnPlan& pl, cudaStream_t s) {
+                            const AttnPlan& pl, cudaStream_t s) {
   if (pl.warps < 1 || pl.warps * 32 > att_max_threads(D, pl.chunk16) || pl.qsplit < 1 ||
       pl.qsplit > 65535 || (long)pl.qsplit * pl.warps * 16 < p.Nq ||
       (pl.chunk16 == ATT_ROW16 && p.NK16 > ATT_ROW16) ||
-      pl.smem < (long)attn_smem_need(D, p.NK16, pl.warps, hops) || pl.smem > ATT_SMEM_LIMIT)
+      pl.smem < (long)attn_smem_need(D, p.NK16, pl.warps) || pl.smem > ATT_SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1718,15 +1610,13 @@ static int launch_attn_plan(Kern kern, bool& configured, const AttnArgs& p, int 
   return (int)cudaGetLastError();
 }
 
-template <int D, int NHOP>
+template <int D>
 static int launch_attn(const AttnArgs& p, int B, const AttnPlan& pl, cudaStream_t s) {
   static bool configured[2] = {false, false};
   if (pl.chunk16 == ATT_ROW16)
-    return launch_attn_plan(attn_kernel<D, NHOP, ATT_ROW16>, configured[0], p, B, D,
-                            NHOP > 0, pl, s);
+    return launch_attn_plan(attn_kernel<D, ATT_ROW16>, configured[0], p, B, D, pl, s);
   if (pl.chunk16 == ATT_CH16)
-    return launch_attn_plan(attn_kernel<D, NHOP, ATT_CH16>, configured[1], p, B, D,
-                            NHOP > 0, pl, s);
+    return launch_attn_plan(attn_kernel<D, ATT_CH16>, configured[1], p, B, D, pl, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1734,11 +1624,9 @@ template <int D>
 static int launch_train_fwd(const AttnArgs& p, int B, const AttnPlan& pl, cudaStream_t s) {
   static bool configured[2] = {false, false};
   if (pl.chunk16 == ATT_ROW16)
-    return launch_attn_plan(train_fwd_kernel<D, ATT_ROW16>, configured[0], p, B, D, false,
-                            pl, s);
+    return launch_attn_plan(train_fwd_kernel<D, ATT_ROW16>, configured[0], p, B, D, pl, s);
   if (pl.chunk16 == ATT_CH16)
-    return launch_attn_plan(train_fwd_kernel<D, ATT_CH16>, configured[1], p, B, D, false,
-                            pl, s);
+    return launch_attn_plan(train_fwd_kernel<D, ATT_CH16>, configured[1], p, B, D, pl, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1755,8 +1643,6 @@ static bool attn_args(AttnArgs& p, const void* q, const void* k, const void* v, 
   p.bias = static_cast<const float*>(bias);
   p.scale = scale;
   p.out = nullptr; p.out_dt = DT_F32; p.sob = 0; p.son = 0;
-  p.hops = nullptr; p.nhop = 0; p.hid = 0;
-  p.w1 = p.b1 = p.w2 = p.b2 = nullptr;
   p.seed = nullptr; p.thresh = 0; p.inv_keep = 1.0f; p.stats = nullptr;
   return true;
 }
@@ -1766,27 +1652,17 @@ extern "C" int ec_attention(const void* q, const void* k, const void* v, int in_
                             int B, int H, int D, int Nq, int Nk,
                             const void* kvalid, long skvb, const void* bias, float scale,
                             void* out, int out_dt, long sob, long son,
-                            const void* hops, int nhop, int hid, const void* w1,
-                            const void* b1, const void* w2, const void* b2,
                             int qsplit, int warps, int chunk16, long smem,
                             void* stream) {
   AttnArgs p;
   if (!attn_args(p, q, k, v, in_dt, sqb, sqn, skb, skn, svb, svn, B, H, Nq, Nk, kvalid,
                  skvb, bias, scale))
     return (int)cudaErrorInvalidValue;
-  if (hops && (bias || D != 32 || nhop <= 0 || nhop > HOP_MAX || hid <= 0 ||
-               hid > HOP_MAX_HID || !w1 || !b1 || !w2 || !b2))
-    return (int)cudaErrorInvalidValue;
   p.out = out; p.out_dt = out_dt; p.sob = sob; p.son = son;
-  p.hops = static_cast<const bf16*>(hops); p.nhop = nhop; p.hid = hid;
-  p.w1 = static_cast<const float*>(w1); p.b1 = static_cast<const float*>(b1);
-  p.w2 = static_cast<const float*>(w2); p.b2 = static_cast<const float*>(b2);
   const AttnPlan pl = {qsplit, warps, chunk16, smem};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hops)
-    return nhop <= 5 ? launch_attn<32, 5>(p, B, pl, s) : launch_attn<32, HOP_MAX>(p, B, pl, s);
-  if (D == 32) return launch_attn<32, 0>(p, B, pl, s);
-  if (D == 64) return launch_attn<64, 0>(p, B, pl, s);
+  if (D == 32) return launch_attn<32>(p, B, pl, s);
+  if (D == 64) return launch_attn<64>(p, B, pl, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1823,31 +1699,307 @@ extern "C" int ec_sine_feats(const void* ct, const void* rdt, void* out, long ro
   return (int)cudaGetLastError();
 }
 
-// pts = sigmoid(inverse_sigmoid(ct) + dd[:n]), outs = sigmoid(
-// inverse_sigmoid(ct) + dd[n:]) over n = rows * 2 fp32 coordinates:
-// dd holds the kpt_branch deltas of the raw tokens, then those of the
-// final-normed tokens. inverse_sigmoid clips its argument and both odds
-// terms at eps.
-__global__ void coord_update_kernel(const float* ct, const float* dd, float* pts,
-                                    float* outs, long n, float eps) {
-  for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (long)gridDim.x * blockDim.x) {
-    const float c = fminf(fmaxf(ct[i], 0.0f), 1.0f);
-    const float inv = logf(fmaxf(c, eps) / fmaxf(1.0f - c, eps));
-    pts[i] = 1.0f / (1.0f + expf(-(inv + dd[i])));
-    outs[i] = 1.0f / (1.0f + expf(-(inv + dd[n + i])));
+// --------------------------------- decoder-stack self-attention, bias once
+// bias_attn_kernel replaces the Markov-biased self-attention of the TPU
+// kernel edgecape_tpu/ops/fused_decoder.py _stack_kernel (:363-407) for the
+// 8 heads of d 32 of the fused projection qkv [B, K, 768] (q | k | v):
+//   bias[h, i, j] = b2[h] + sum_m relu(b1[m] + sum_n hops[b, i, j, n]
+//                   w1[n, m]) w2[m, h],
+//   out[b, i, 32 h:32 h + 32] = bf16(bf16(softmax(q.k^T / sqrt(32) + key
+//                   mask + bias)) . v).
+// Like the TPU kernel it forms the MLP's hidden layer once per (query,
+// key) and derives all heads' biases from it (5 x 12 + 12 x 8 multiply-adds
+// at n_hop 5, hidden 12), where a per-head attention would form it 8 times
+// and read the hop stack 8 times. One block per (batch row, run of 16-query
+// tiles), a warp per head:
+//   * the row's keys and values of all heads arrive once by cp.async
+//     ([NKP][264] bf16 each: 118 KB at K = 100), while the first tile's
+//     bias is formed;
+//   * phase 1, per tile: a thread takes (query, 4 keys), reads their
+//     4 x n_hop hop values (8 x n_hop contiguous bytes of the stack in its
+//     own [B, K, K, n_hop] layout), forms the hidden units once and writes
+//     the 8 heads' fp32 biases into shared memory [8][16][NKP] (57 KB);
+//   * phase 2: warp h forms its head's scores on mma.sync (attn_scores,
+//     the register-resident form of attn_kernel, whole key row in one
+//     pass) and adds the bias from shared memory in the key permutation,
+//     softmax and P.V in registers, and stores through its columns of the
+//     tile's query rows.
+// The bias is summed in the order of the attention kernel's former
+// in-kernel MLP (b1, the hop terms ascending, ReLU, then b2 and the hidden
+// terms ascending, fp32 fused multiply-adds).
+// What bounds it on this card: at [510, K 100] a call moves 155 MB (hops
+// 51, qkv 78, output 26 MB: 0.046 ms) and does 1.6 GFLOP of fp32 MLP
+// (0.024 ms); with 185 KB of shared memory a block, one block an SM, its
+// time is latency: the key / value copy is hidden under the first tile's
+// bias, the rest is the 8 warps' dependent arithmetic.
+
+#define BA_H 8                 // heads
+#define BA_D 32                // head dim
+#define BA_C (BA_H * BA_D)     // channels of q, k, v
+#define BA_LD (BA_C + 8)       // row stride of K, V and the query tile
+#define BA_HOP_MAX 8           // hop planes
+#define BA_HID_MAX 32          // hidden units of the bias MLP
+// w1 [hid][8] | w2 [hid][8] | b1 [hid] | b2 [8], zero past nhop / hid
+#define BA_MLP_FLOATS (2 * BA_HID_MAX * 8 + BA_HID_MAX + BA_H)
+
+struct BiasArgs {
+  const bf16* hops;            // [B, N, N, nhop]
+  const float *w1, *b1, *w2, *b2;
+  int nhop, hid, tiles_per_block;
+};
+
+// The hop values of keys k0 .. k0 + 3 of one query row (src: the first of
+// them, nhop planes a key), as hv[plane][key]; 0 past n keys or nhop
+// planes. vec: NHOP == nhop and the run of 8 x NHOP bytes is aligned.
+template <int NHOP>
+__device__ __forceinline__ void load_hops(const bf16* src, int k0, int n, int nhop, bool vec,
+                                          float (&hv)[NHOP][4]) {
+  if (vec && k0 + 3 < n) {
+    unsigned u[2 * NHOP];
+#pragma unroll
+    for (int i = 0; i < NHOP; ++i) {
+      const uint2 v = *reinterpret_cast<const uint2*>(src + 4 * i);
+      u[2 * i] = v.x;
+      u[2 * i + 1] = v.y;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int j = 0; j < NHOP; ++j) {
+        const int i = e * NHOP + j;
+        hv[j][e] = (i & 1) ? __uint_as_float(u[i >> 1] & 0xffff0000u)
+                           : __uint_as_float(u[i >> 1] << 16);
+      }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int j = 0; j < NHOP; ++j)
+        hv[j][e] = k0 + e < n && j < nhop ? __bfloat162float(src[e * nhop + j]) : 0.0f;
   }
 }
 
-extern "C" int ec_coord_update(const void* ct, const void* dd, void* pts, void* outs,
-                               long n, float eps, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  long blocks = (n + 255) / 256;
-  if (blocks > 65535L * 16) blocks = 65535L * 16;
-  coord_update_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(ct), static_cast<const float*>(dd),
-      static_cast<float*>(pts), static_cast<float*>(outs), n, eps);
+template <int NHOP>
+__global__ void __launch_bounds__(BA_H * 32, 1) bias_attn_kernel(AttnArgs p, BiasArgs w) {
+  constexpr int D = BA_D, LD = BA_LD, NT = 2 * ATT_ROW16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int NKP = p.NK16 * 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+
+  // K and V [NKP][LD], the tile's queries [16][LD] (reused to stage the
+  // output), the bias [H][16][NKP], the additive key mask, the MLP
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + (size_t)NKP * LD;
+  bf16* Qs = Vs + (size_t)NKP * LD;
+  float* bs = reinterpret_cast<float*>(Qs + 16 * LD);
+  float* kbs = bs + (size_t)BA_H * 16 * NKP;
+  float* w1s = kbs + NKP;
+  float* w2s = w1s + BA_HID_MAX * 8;
+  float* b1s = w2s + BA_HID_MAX * 8;
+  float* b2s = b1s + BA_HID_MAX;
+
+  const long b = blockIdx.x;
+  const bf16* qkv = static_cast<const bf16*>(p.q) + b * p.sqb;
+  for (int c = threadIdx.x; c < NKP * (BA_C / 8); c += blockDim.x) {
+    const int n = c / (BA_C / 8), d8 = (c % (BA_C / 8)) * 8;
+    copy8(&Ks[n * LD + d8], qkv + (long)n * p.sqn + BA_C + d8, n < p.Nk ? 8 : 0);
+  }
+  cp_async_commit();
+  for (int c = threadIdx.x; c < NKP * (BA_C / 8); c += blockDim.x) {
+    const int n = c / (BA_C / 8), d8 = (c % (BA_C / 8)) * 8;
+    copy8(&Vs[n * LD + d8], qkv + (long)n * p.sqn + 2 * BA_C + d8, n < p.Nk ? 8 : 0);
+  }
+  cp_async_commit();
+  for (int j = threadIdx.x; j < NKP; j += blockDim.x) {
+    const bool on = j < p.Nk && (p.kvalid == nullptr || p.kvalid[b * p.skvb + j] != 0);
+    kbs[j] = on ? 0.0f : -INFINITY;
+  }
+  for (int i = threadIdx.x; i < BA_HID_MAX * 8; i += blockDim.x) {
+    const int m = i >> 3, j = i & 7;
+    w1s[i] = m < w.hid && j < w.nhop ? w.w1[j * w.hid + m] : 0.0f;
+    w2s[i] = m < w.hid ? w.w2[m * BA_H + j] : 0.0f;
+  }
+  for (int i = threadIdx.x; i < BA_HID_MAX; i += blockDim.x)
+    b1s[i] = i < w.hid ? w.b1[i] : 0.0f;
+  if (threadIdx.x < BA_H) b2s[threadIdx.x] = w.b2[threadIdx.x];
+  __syncthreads();
+
+  const int tiles = (p.Nq + 15) / 16;
+  const int t_end = min(tiles, (int)(blockIdx.y + 1) * w.tiles_per_block);
+  const int nq4 = (p.Nk + 3) / 4;
+  const bool hvec = w.nhop == NHOP && p.Nk % 4 == 0 &&
+                    (reinterpret_cast<uintptr_t>(w.hops) & 7) == 0;
+  for (int tile = blockIdx.y * w.tiles_per_block; tile < t_end; ++tile) {
+    const int q0 = tile * 16;
+    for (int c = threadIdx.x; c < 16 * (BA_C / 8); c += blockDim.x) {
+      const int rr = c / (BA_C / 8), d8 = (c % (BA_C / 8)) * 8;
+      copy8(&Qs[rr * LD + d8], qkv + (long)(q0 + rr) * p.sqn + d8, q0 + rr < p.Nq ? 8 : 0);
+    }
+    cp_async_commit();
+
+    // phase 1: the tile's bias for every head, the hidden layer once
+    for (int i = threadIdx.x; i < 16 * nq4; i += blockDim.x) {
+      const int rr = i / nq4, k0 = 4 * (i % nq4), q = q0 + rr;
+      if (q >= p.Nq) continue;
+      float hv[NHOP][4];
+      load_hops<NHOP>(w.hops + ((b * p.Nq + q) * (long)p.Nk + k0) * w.nhop, k0, p.Nk, w.nhop,
+                      hvec, hv);
+      float acc[BA_H][4];
+#pragma unroll
+      for (int h = 0; h < BA_H; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[h][e] = b2s[h];
+      for (int m = 0; m < w.hid; ++m) {
+        const float4 wa = *reinterpret_cast<const float4*>(w1s + 8 * m);
+        const float4 wb = *reinterpret_cast<const float4*>(w1s + 8 * m + 4);
+        const float4 va = *reinterpret_cast<const float4*>(w2s + 8 * m);
+        const float4 vb = *reinterpret_cast<const float4*>(w2s + 8 * m + 4);
+        const float w1m[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+        const float w2m[8] = {va.x, va.y, va.z, va.w, vb.x, vb.y, vb.z, vb.w};
+        const float b1m = b1s[m];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float a = b1m;
+#pragma unroll
+          for (int j = 0; j < NHOP; ++j) a = fmaf(hv[j][e], w1m[j], a);
+          a = fmaxf(a, 0.0f);
+#pragma unroll
+          for (int h = 0; h < BA_H; ++h) acc[h][e] = fmaf(a, w2m[h], acc[h][e]);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < BA_H; ++h)
+        *reinterpret_cast<float4*>(bs + ((size_t)h * 16 + rr) * NKP + k0) =
+            make_float4(acc[h][0], acc[h][1], acc[h][2], acc[h][3]);
+    }
+    cp_async_wait<0>();          // keys, values (first tile) and queries
+    __syncthreads();
+
+    // phase 2: warp h, head h, the whole key row in registers
+    const int h = warp;
+    const int r0 = q0 + g, r1 = q0 + g + 8;
+    unsigned qa[D / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      ldsm_x4(Qs + (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) * LD + h * D + kk * 16
+                  + (lane >> 4) * 8,
+              qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3]);
+    AttnRows rw;
+    rw.brow[0] = r0 < p.Nq ? bs + ((size_t)h * 16 + g) * NKP : nullptr;
+    rw.brow[1] = r1 < p.Nq ? bs + ((size_t)h * 16 + g + 8) * NKP : nullptr;
+    rw.bias_vec = p.Nk % 4 == 0;
+    float s[NT][4];
+    attn_scores<D, NT, LD>(s, qa, Ks + h * D, kbs, 0, NKP, p, rw, lane);
+    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+      m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+    }
+    m0 = quad_max(m0);
+    m1 = quad_max(m1);
+    const float z0 = m0 == -INFINITY ? 0.0f : m0, z1 = m1 == -INFINITY ? 0.0f : m1;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      s[j][0] = ex2(s[j][0] - z0);
+      s[j][1] = ex2(s[j][1] - z0);
+      s[j][2] = ex2(s[j][2] - z1);
+      s[j][3] = ex2(s[j][3] - z1);
+      l0 += s[j][0] + s[j][1];
+      l1 += s[j][2] + s[j][3];
+    }
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    const float inv0 = l0 > 0.0f ? 1.0f / l0 : 0.0f, inv1 = l1 > 0.0f ? 1.0f / l1 : 0.0f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      s[j][0] *= inv0; s[j][1] *= inv0;
+      s[j][2] *= inv1; s[j][3] *= inv1;
+    }
+    float o[D / 8][4];
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.0f;
+    attn_pv<D, NT, LD>(o, s, Vs + h * D, 0, p.NK16, lane);
+
+    // the output through this head's columns of the query tile: 16-byte
+    // stores of whole rows
+    const int t = lane & 3;
+    __syncwarp();
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      *reinterpret_cast<unsigned*>(&Qs[g * LD + h * D + dt * 8 + 2 * t]) =
+          pack_bf16(o[dt][0], o[dt][1]);
+      *reinterpret_cast<unsigned*>(&Qs[(g + 8) * LD + h * D + dt * 8 + 2 * t]) =
+          pack_bf16(o[dt][2], o[dt][3]);
+    }
+    __syncwarp();
+    bf16* out = static_cast<bf16*>(p.out) + b * p.sob + h * D;
+    for (int c = lane; c < 16 * (D / 8); c += 32) {
+      const int rr = c / (D / 8), d8 = (c % (D / 8)) * 8;
+      if (q0 + rr < p.Nq)
+        *reinterpret_cast<uint4*>(out + (long)(q0 + rr) * p.son + d8) =
+            *reinterpret_cast<const uint4*>(&Qs[rr * LD + h * D + d8]);
+    }
+    __syncthreads();             // the query tile and the bias are free again
+  }
+}
+
+// Shared memory of bias_attn_kernel for nk16 16-key tiles.
+static size_t bias_attn_smem_need(int nk16) {
+  const size_t nkp = (size_t)nk16 * 16;
+  return 2 * nkp * BA_LD * 2 + 16 * BA_LD * 2 + (size_t)BA_H * 16 * nkp * 4 + nkp * 4 +
+         BA_MLP_FLOATS * 4;
+}
+
+template <int NHOP>
+static int launch_bias_attn(const AttnArgs& p, const BiasArgs& w, int B, int qsplit, long smem,
+                            cudaStream_t s) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(bias_attn_kernel<NHOP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         ATT_SMEM_LIMIT);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  bias_attn_kernel<NHOP><<<dim3((unsigned)B, (unsigned)qsplit), BA_H * 32, (size_t)smem, s>>>(
+      p, w);
   return (int)cudaGetLastError();
+}
+
+// qkv: contiguous bf16 [B, N, 768], 16-byte aligned; kvalid: bool [B, N]
+// (row stride skvb) or null; hops: contiguous bf16 [B, N, N, nhop]; w1
+// [nhop, hid], b1 [hid], w2 [hid, 8], b2 [8] fp32; out: contiguous bf16
+// [B, N, 256]. The plan (ops/kernels.py bias_attention_plan): qsplit
+// blocks a batch row of tiles_per_block 16-query tiles each, smem bytes.
+extern "C" int ec_bias_attention(const void* qkv, int B, int N, const void* kvalid, long skvb,
+                                 const void* hops, int nhop, int hid, const void* w1,
+                                 const void* b1, const void* w2, const void* b2, float scale,
+                                 void* out, int qsplit, int tiles_per_block, long smem,
+                                 void* stream) {
+  const int nk16 = (N + 15) / 16;
+  if (B <= 0 || N <= 0 || nk16 > ATT_ROW16 || nhop <= 0 || nhop > BA_HOP_MAX || hid <= 0 ||
+      hid > BA_HID_MAX || !qkv || !hops || !w1 || !b1 || !w2 || !b2 || !out ||
+      (reinterpret_cast<uintptr_t>(qkv) & 15) || (reinterpret_cast<uintptr_t>(out) & 15) ||
+      qsplit < 1 || qsplit > 65535 || tiles_per_block < 1 ||
+      (long)qsplit * tiles_per_block * 16 < N || smem < (long)bias_attn_smem_need(nk16) ||
+      smem > ATT_SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  AttnArgs p;
+  if (!attn_args(p, qkv, qkv, qkv, DT_BF16, (long)N * 3 * BA_C, 3 * BA_C, (long)N * 3 * BA_C,
+                 3 * BA_C, (long)N * 3 * BA_C, 3 * BA_C, B, BA_H, N, N, kvalid, skvb, nullptr,
+                 scale))
+    return (int)cudaErrorInvalidValue;
+  p.out = out; p.out_dt = DT_BF16; p.sob = (long)N * BA_C; p.son = BA_C;
+  BiasArgs w;
+  w.hops = static_cast<const bf16*>(hops);
+  w.w1 = static_cast<const float*>(w1); w.b1 = static_cast<const float*>(b1);
+  w.w2 = static_cast<const float*>(w2); w.b2 = static_cast<const float*>(b2);
+  w.nhop = nhop; w.hid = hid; w.tiles_per_block = tiles_per_block;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return nhop == 5 ? launch_bias_attn<5>(p, w, B, qsplit, smem, s)
+                   : launch_bias_attn<BA_HOP_MAX>(p, w, B, qsplit, smem, s);
 }
 
 // ---------------------------------------------------- training attention
@@ -1985,7 +2137,7 @@ __device__ __forceinline__ void bwd_q_chunk(float (&s)[NT][4], float (&dpv)[NT][
   constexpr int KLD = D + 8;
   const int kperm = 4 * ((lane & 7) >> 1) + (lane & 1);
   const int t = lane & 3;
-  attn_scores<D, 0, NT>(s, qa, Ks, kbs, nullptr, n0, NKP, p, rw, lane);
+  attn_scores<D, NT>(s, qa, Ks, kbs, n0, NKP, p, rw, lane);
 #pragma unroll
   for (int j = 0; j < NT; j += 2) {
     const int nb = n0 + j * 8;
@@ -2085,10 +2237,7 @@ __global__ void __launch_bounds__(BWD_MAX_WARPS * 32, CH16 == ATT_ROW16 ? 1 : 2)
   }
   AttnRows rw;
   rw.brow[0] = rw.brow[1] = nullptr;
-  rw.hrow[0] = rw.hrow[1] = nullptr;
-  rw.hop_plane = 0;
   rw.bias_vec = p.Nk % 4 == 0 && (reinterpret_cast<uintptr_t>(p.bias) & 15) == 0;
-  rw.hop_vec = false;
   float* dbrow[2] = {nullptr, nullptr};
   // the row's max in base 2 (0 for a fully masked row) and 1 / exp-sum
   float z0 = 0.0f, z1 = 0.0f, inv0 = 0.0f, inv1 = 0.0f;
@@ -3308,6 +3457,179 @@ __global__ void __launch_bounds__(PA_THREADS, 1)
   }
 }
 
+// ---- decoder stack, a layer's keypoint head: the final norm, both
+// kpt_branch passes and the coordinate update of the TPU kernel
+// edgecape_tpu/ops/fused_decoder.py _stack_kernel (:456-475) as one
+// kernel. Per tile of 64 keypoint rows of the layer's bf16 output x,
+// warpgroup 0 takes the rows as they are (the TMA's, slab rows 0-63) and
+// warpgroup 1 the same rows under the final norm (LayerNorm in fp32,
+// rounded to bf16 into slab rows 64-127); each runs h = bf16(gelu(h .
+// W_i^T + b_i)) for the three 256 x 256 products (W_i streamed through the
+// ring, h in shared memory between them), then dd = h . Wo^T + bo (N = 2)
+// on the CUDA cores from its accumulators (a row's 256 values lie over a
+// quad: one shuffle sum) and writes sigmoid(inverse_sigmoid(ct) + dd):
+// warpgroup 0 the trajectory `pts`, warpgroup 1 the head recompute
+// `outs`. Nothing of the 2 x 256-wide hidden reaches device memory.
+// Bound at [51000 rows]: 40 GFLOP (0.04 ms); each tile streams the 384 KB
+// of W_0..W_2 from L2.
+#define KH_ROWS 64
+#define KH_STAGES 6
+#define KH_SMEM PA_SMEM(8, KH_STAGES)
+static_assert(KH_SMEM <= 232448, "the keypoint head exceeds the shared memory of a block");
+
+// Exact-erf GELU with the TPU kernel's own erf (Abramowitz & Stegun
+// 7.1.26, edgecape_tpu/ops/fused_decoder.py _erf: within 1.5e-7 of erf):
+// a reciprocal, five multiply-adds and one exponential, about half the
+// instructions of erff, on the 3 x 128 values a thread rounds a tile.
+__device__ __forceinline__ float gelu_as(float x) {
+  const float z = x * 0.70710678118654752f, az = fabsf(z);
+  const float t = __fdividef(1.0f, fmaf(0.3275911f, az, 1.0f));
+  const float poly =
+      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f), 1.421413741f),
+                       -0.284496736f), 0.254829592f);
+  return 0.5f * x * (1.0f + copysignf(1.0f - poly * __expf(-az * az), z));
+}
+
+struct KptHeadArgs {
+  const bf16* x;
+  const float *g, *be, *b0, *b1, *b2, *bo;
+  const bf16* wo;              // [2, 256]
+  const float* ct;             // [R, 2]
+  float *pts, *outs;           // [R, 2]
+  int R;
+  float eps, ieps;
+};
+
+__global__ void __launch_bounds__(PA_THREADS, 1)
+    kpt_head_kernel(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_w0,
+                    const __grid_constant__ CUtensorMap map_w1,
+                    const __grid_constant__ CUtensorMap map_w2, KptHeadArgs p) {
+  extern __shared__ unsigned char pa_raw[];
+  PaRing<KH_STAGES> ring;
+  uint64_t *in_full, *in_empty;
+  // four slabs of the tile's input rows (raw, then normed), four of the
+  // hidden, each warpgroup its own 64 rows
+  unsigned char* xs = pa_init(pa_raw, 8, ring, in_full, in_empty);
+  unsigned char* hs = xs + 4 * PA_SLAB;
+  const int tiles = (p.R + KH_ROWS - 1) / KH_ROWS;
+
+  if (threadIdx.x < 128) {
+    regs_producer();
+    if (threadIdx.x == 0) {
+      const CUtensorMap* maps[3] = {&map_w0, &map_w1, &map_w2};
+      unsigned n = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
+        if (n) mbar_wait(in_empty, (n - 1) & 1);
+        mbar_expect_tx(in_full, 4 * KH_ROWS * 128);
+        for (int ks = 0; ks < 4; ++ks)
+          tma_load_3d(xs + ks * PA_SLAB, &map_x, in_full, 64 * ks, tile * KH_ROWS, 0);
+        for (int i = 0; i < 3; ++i)
+          for (int ks = 0; ks < 4; ++ks)
+            for (int h = 0; h < 2; ++h) ring.load(maps[i], 64 * ks, 128 * h);
+      }
+    }
+    return;
+  }
+
+  regs_consumer();
+  const int wg = (threadIdx.x >> 7) - 1;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int kr = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);   // row in the tile
+  const int lr = wg * 64 + kr;                                   // row in the slabs
+  const unsigned xa = smem_u32(xs) + wg * 64 * 128, ha = smem_u32(hs) + wg * 64 * 128;
+  const float* bias[3] = {p.b0, p.b1, p.b2};
+  float* dst = wg ? p.outs : p.pts;
+  unsigned n = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
+    const long r0 = (long)tile * KH_ROWS + kr, r1 = r0 + 8;
+    const long s0 = r0 < p.R ? r0 : -1, s1 = r1 < p.R ? r1 : -1;
+    float x[2][64];
+    if (wg == 1) {
+      // the final norm of the tile's rows (rows past R: LayerNorm of 0)
+      acc_zero(x[0]);
+      acc_zero(x[1]);
+      rows_add(x, p.x, s0, s1, t);
+      rows_layernorm(x, p.g, p.be, p.eps, t);
+      rows_to_slabs(x, xs, lr, t);
+      fence_view_async();
+      bar_wg(wg);
+    }
+    mbar_wait(in_full, n & 1);
+    for (int i = 0; i < 3; ++i) {
+      acc_zero(x[0]);
+      acc_zero(x[1]);
+      reg_fence(x[0]);
+      reg_fence(x[1]);
+      const unsigned a = i == 0 ? xa : ha;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {     // k slab j / 2, column half j % 2
+        const unsigned b = ring.next();
+        if (j & 1) mma_n128(x[1], a + (j >> 1) * PA_SLAB, b);
+        else mma_n128(x[0], a + (j >> 1) * PA_SLAB, b);
+        ring.issued(lane, j == 0);
+      }
+      ring.drain(lane);
+      reg_fence(x[0]);
+      reg_fence(x[1]);
+      if (i == 0 && lane == 0) mbar_arrive(in_empty);     // xs may take the next tile
+      rows_add_cols(x, bias[i], t);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int e = 0; e < 64; ++e)
+          x[hh][e] = gelu_as(x[hh][e]);
+      if (i < 2) {
+        bar_wg(wg);
+        rows_to_slabs(x, hs, lr, t);
+        fence_view_async();
+        bar_wg(wg);
+      }
+    }
+    // dd = bf16(h) . Wo^T + bo: this thread's 64 columns of rows r0, r1,
+    // summed over the quad
+    float dd[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = 128 * hh + 8 * j + 2 * t;
+        float wv[2][2];
+#pragma unroll
+        for (int o = 0; o < 2; ++o) {
+          const unsigned u = __ldg(reinterpret_cast<const unsigned*>(p.wo + o * PA_C + c));
+          wv[o][0] = __uint_as_float(u << 16);
+          wv[o][1] = __uint_as_float(u & 0xffff0000u);
+        }
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const float v0 = __bfloat162float(__float2bfloat16(x[hh][4 * j + 2 * rh]));
+          const float v1 = __bfloat162float(__float2bfloat16(x[hh][4 * j + 2 * rh + 1]));
+#pragma unroll
+          for (int o = 0; o < 2; ++o)
+            dd[rh][o] = fmaf(v1, wv[o][1], fmaf(v0, wv[o][0], dd[rh][o]));
+        }
+      }
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh)
+#pragma unroll
+      for (int o = 0; o < 2; ++o) dd[rh][o] = quad_sum(dd[rh][o]);
+    if (t == 0) {
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const long r = rh ? s1 : s0;
+        if (r < 0) continue;
+#pragma unroll
+        for (int o = 0; o < 2; ++o) {
+          const float c = fminf(fmaxf(p.ct[2 * r + o], 0.0f), 1.0f);
+          const float inv = logf(fmaxf(c, p.ieps) / fmaxf(1.0f - c, p.ieps));
+          dst[2 * r + o] = 1.0f / (1.0f + expf(-(inv + (dd[rh][o] + p.bo[o]))));
+        }
+      }
+    }
+  }
+}
+
 // The persistent grid for `work` tiles: one block an SM at most.
 static int pa_grid(long work, int& grid) {
   static int sms = 0;
@@ -3440,6 +3762,41 @@ extern "C" int ec_dec_post_cross(const void* att2, const void* wco, const void* 
   p.B = B; p.K = K; p.F = F; p.eps = eps;
   dec_post_cross_kernel<<<grid, PA_THREADS, DC_SMEM, static_cast<cudaStream_t>(stream)>>>(
       m_att2, m_wco, m_wch, m_wg, m_wf, p);
+  return (int)cudaGetLastError();
+}
+
+// Contiguous operands: x bf16 [R, 256]; w0, w1, w2 bf16 [256, 256]
+// (torch Linear weights), wo bf16 [2, 256]; ct, pts, outs fp32 [R, 2];
+// fp32 vectors g, be, b0, b1, b2 [256], bo [2].
+extern "C" int ec_kpt_head(const void* x, const void* g, const void* be, const void* w0,
+                           const void* b0, const void* w1, const void* b1, const void* w2,
+                           const void* b2, const void* wo, const void* bo, const void* ct,
+                           void* pts, void* outs, int R, float eps, float ieps, void* stream) {
+  static bool configured = false;
+  if (R <= 0 || !pa_aligned(x) || !pa_aligned(w0) || !pa_aligned(w1) || !pa_aligned(w2) ||
+      !pa_aligned(wo) || !g || !be || !b0 || !b1 || !b2 || !bo || !ct || !pts || !outs)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m_x, m_w0, m_w1, m_w2;
+  if (!encode_map(&m_x, x, PA_C, R, PA_C, 0, 1, KH_ROWS) ||
+      !encode_map(&m_w0, w0, PA_C, PA_C, PA_C, 0, 1, 128) ||
+      !encode_map(&m_w1, w1, PA_C, PA_C, PA_C, 0, 1, 128) ||
+      !encode_map(&m_w2, w2, PA_C, PA_C, PA_C, 0, 1, 128))
+    return (int)cudaErrorInvalidValue;
+  int e = pa_configure(kpt_head_kernel, configured, KH_SMEM);
+  if (e) return e;
+  int grid = 0;
+  if ((e = pa_grid((R + KH_ROWS - 1) / KH_ROWS, grid))) return e;
+  KptHeadArgs p;
+  p.x = static_cast<const bf16*>(x);
+  p.g = static_cast<const float*>(g); p.be = static_cast<const float*>(be);
+  p.b0 = static_cast<const float*>(b0); p.b1 = static_cast<const float*>(b1);
+  p.b2 = static_cast<const float*>(b2); p.bo = static_cast<const float*>(bo);
+  p.wo = static_cast<const bf16*>(wo);
+  p.ct = static_cast<const float*>(ct);
+  p.pts = static_cast<float*>(pts); p.outs = static_cast<float*>(outs);
+  p.R = R; p.eps = eps; p.ieps = ieps;
+  kpt_head_kernel<<<grid, PA_THREADS, KH_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      m_x, m_w0, m_w1, m_w2, p);
   return (int)cudaGetLastError();
 }
 

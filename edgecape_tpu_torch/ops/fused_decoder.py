@@ -33,34 +33,43 @@ module and kept until a parameter changes.
 
 `fused_decoder_stack` replaces the TPU kernel `fused_decoder_stack`
 (`_stack_kernel` through `_stack_chunk`) of the same file: all decoder
-layers plus what the layer chain leaves to the framework between them:
-* the Markov bias MLP (n_hop -> hid -> H, ReLU) over the hop stack,
-  rounded to bf16 once and laid out [B, n_hop, K, K]. The self-attention
-  kernel forms the bias from it for its own (row, head, key) tile in
-  fp32, with the few hundred MLP weights in shared memory, so the
-  [B, H, K, K] fp32 bias (163 MB per layer at 510 rows, K = 100) is never
-  written to or read from device memory; the 51 MB hop stack is read
-  instead;
-* the sine embedding of the current points (a kernel that writes
+layers plus what the layer chain leaves to the framework between them.
+On the H100 a call is 3 + 9 L launches: the cross-attention key and value
+projections of all L layers as one GEMM each over [B HW, C] x [C, L 2C]
+(the image tokens do not change across layers) and the img_pos half of
+the keys once; then per layer
+* the sine embedding of the current points (sine_feats_kernel writes
   [sin_y | cos_y | sin_x | cos_x] bf16 features; `permute_fc1` folds the
   embedding's sin / cos interleave into ref_point_head's first weight)
-  and ref_point_head as two GEMMs with the GELU epilogue;
-* the final norm and both kpt_branch evaluations (trajectory delta from
-  the raw tokens, head-recompute delta from the final-normed tokens) as
-  one pass over 2 B K stacked rows, its last GEMM with N = 2;
-* a kernel for sigmoid(inverse_sigmoid(ct) + delta) that writes the
-  layer's `points` and `outputs` in fp32; the next layer reads its
-  coordinates from `points`.
-No PyTorch op runs between the layers. The rounding points are the TPU
+  and ref_point_head as two GEMMs with the GELU epilogue: qpos;
+* the self-attention's q, k, v GEMM;
+* the self-attention with the Markov bias (ops/kernels.py
+  bias_attention): the bias MLP (n_hop -> hid -> H, ReLU) over the bf16
+  hop stack is formed in the kernel once per (query, key) for all heads,
+  into shared memory, so the [B, H, K, K] fp32 bias (163 MB a layer at 510
+  rows, K = 100) is never in device memory and the hop stack is read once;
+* dec_post_self_kernel and, after the cross-attention on the layer's
+  slice of the stacked keys and values, dec_post_cross_kernel: the layer
+  body of fused_decoder_layer above, on the layer module's own prepared
+  weights; the layer's output is bf16;
+* the keypoint head (ops/kernels.py kpt_head): the final norm and both
+  kpt_branch evaluations (trajectory delta from the raw tokens,
+  head-recompute delta from the final-normed tokens) and the fp32
+  sigmoid(inverse_sigmoid(ct) + delta) of the layer's `points` and
+  `outputs`, one kernel; the next layer reads its coordinates from
+  `points`.
+No PyTorch op runs between the launches. The rounding points are the TPU
 kernel's: bf16 hop stack and adjacency, bf16 ref_point_head / kpt_branch
 weights and activations, fp32 coordinates; its polynomial erf is the
-exact `erff` here (they differ by less than 1.5e-7). The image tokens do
-not change across layers, so the cross-attention key and value
-projections of all layers are one GEMM each over [B HW, C] x [C, L 2C].
-The bf16 weights, the fused qkv weight, the permuted fc1 and the stacked
-cross-attention weights are prepared once per decoder module and kept
-until a parameter changes. K is not padded and nothing is chunked: the
-weights live in device memory, not in a scratchpad.
+exact `erff` in the ref_point_head GEMM and the same polynomial in the
+keypoint head (the two differ by less than 1.5e-7); dec_post_cross adds
+ffn2 onto the LN2 output it is added to (ops/kernels.py dec_post_cross).
+The kernels of the layer body and the keypoint head take the model's
+width C = 256 and the bias attention 8 heads of 32; another shape raises
+on the card. The stack's own weights (the permuted fc1, the stacked
+cross-attention weights, kpt_branch, the bias MLPs) are prepared once per
+decoder module and the layers' once per layer module, each kept until a
+parameter changes.
 
 The wrappers run the kernels for a CUDA tensor and the plain PyTorch
 version for a CPU tensor; `launches` counts kernel runs of the layer op
@@ -280,9 +289,41 @@ def fused_decoder_stack_plain(x, initial_coords, img_tokens, img_pos,
     return torch.stack(outs, dim=0), torch.stack(pts, dim=0)
 
 
+@torch.no_grad()
+def bias_attention_plain(qkv, key_valid, hops, hop_mlp, *,
+                         num_heads: int) -> torch.Tensor:
+    """Plain version of ops/kernels.py bias_attention: qkv [B, K, 3C];
+    key_valid [B, K] bool; hops [B, K, K, n_hop]; hop_mlp (w1 [n_hop,
+    hid], b1, w2 [hid, H], b2). Returns [B, K, C] fp32 holding bf16
+    values."""
+    c = qkv.shape[-1] // 3
+    w1, b1, w2, b2 = (t.to(torch.float32) for t in hop_mlp)
+    bias = (torch.relu(plain.bf16(hops) @ w1 + b1) @ w2 + b2).permute(
+        0, 3, 1, 2)
+    return plain.attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
+                           num_heads=num_heads, scale=(c // num_heads) ** -0.5,
+                           kb=plain.key_bias(key_valid), bias=bias)
+
+
+@torch.no_grad()
+def kpt_head_plain(x, ct, fn, kpt, kow, kob, *, eps: float):
+    """Plain version of ops/kernels.py kpt_head, the TPU kernel's final
+    norm, dual kpt_branch and coordinate update: x [R, C] (bf16 values);
+    ct [R, 2]; fn (gamma, beta); kpt three (weight, bias); kow, kob the
+    delta head. Returns (pts, outs) fp32 [R, 2]."""
+    r = x.shape[0]
+    kh = torch.cat([x.to(torch.float32), plain.layer_norm(x, *fn, eps)])
+    for w, b in kpt:
+        kh = plain.gelu(plain.linear(kh, w, b))
+    dd = plain.linear(kh, kow, kob)
+    inv = inverse_sigmoid(ct.to(torch.float32))
+    return torch.sigmoid(inv + dd[:r]), torch.sigmoid(inv + dd[r:])
+
+
 def _stack_weights(decoder, num_feats: int, has_bias: bool) -> dict:
-    """The stack's weights in the form its launches take, built once per
-    decoder module and kept until a parameter is replaced or written."""
+    """What the stack adds to its layers' weights, in the form its
+    launches take, built once per decoder module and kept until a
+    parameter is replaced or written."""
     from .kernels import module_weights
     return module_weights(
         decoder, "_stack_cache",
@@ -298,27 +339,9 @@ def _build_stack_weights(decoder, num_feats: int, has_bias: bool) -> dict:
     c = norm.weight.shape[0]
     layers = []
     for layer, branch in zip(decoder.layers, decoder.kpt_branches):
-        sa, ca = layer.self_attn, layer.cross_attn
-        wq = w16(ca.q_proj.weight)
-        w = {
-            "wqkv": w16(torch.cat([sa.q_proj.weight, sa.k_proj.weight,
-                                   sa.v_proj.weight])),
-            "bqkv": v32(torch.cat([sa.q_proj.bias, sa.k_proj.bias,
-                                   sa.v_proj.bias])),
-            "wso": w16(sa.out_proj.weight), "bso": v32(sa.out_proj.bias),
-            "ln1": (v32(layer.norm1.weight), v32(layer.norm1.bias)),
-            "wcq_x": wq[:, :c].contiguous(), "wcq_p": wq[:, c:].contiguous(),
-            "bcq": v32(ca.q_proj.bias),
-            "wco": w16(ca.out_proj.weight), "bco": v32(ca.out_proj.bias),
-            "wch": w16(layer.choker.weight), "bch": v32(layer.choker.bias),
-            "ln2": (v32(layer.norm2.weight), v32(layer.norm2.bias)),
-            "wg": w16(layer.gcn.conv.weight), "bg": v32(layer.gcn.conv.bias),
-            "wf": w16(layer.ffn2.weight), "bf": v32(layer.ffn2.bias),
-            "ln3": (v32(layer.norm3.weight), v32(layer.norm3.bias)),
-            "kpt": [(w16(fc.weight), v32(fc.bias))
-                    for fc in (branch.fc0, branch.fc1, branch.fc2)],
-            "kow": w16(branch.out.weight), "kob": v32(branch.out.bias),
-        }
+        w = {"kpt": [(w16(fc.weight), v32(fc.bias))
+                     for fc in (branch.fc0, branch.fc1, branch.fc2)],
+             "kow": w16(branch.out.weight), "kob": v32(branch.out.bias)}
         if has_bias:
             mlp = layer.bias_mlp
             w["hop_mlp"] = (v32(mlp.fc1.weight.t()), v32(mlp.fc1.bias),
@@ -361,9 +384,7 @@ def _fused_decoder_stack_cuda(x, initial_coords, img_tokens, img_pos,
     ct = initial_coords.to(f32).reshape(r, 2).contiguous()
     img = img_tokens.to(bf).contiguous()
     ipos = img_pos.to(bf).contiguous()
-    adjb = adj.to(bf).contiguous()
-    hops = hop_stack.to(bf).permute(0, 3, 1, 2).contiguous() \
-        if has_bias else None
+    hops = hop_stack.to(bf).contiguous() if has_bias else None
     kpos = K.gemm(ipos, w["wck_pos"], b_nk=True, bias=w["bck"],
                   out_dtype=f32)                             # [HW, L 2C]
     k_all = K.gemm(img, w["wck_img"], b_nk=True, pre=kpos)   # [B, HW, L 2C]
@@ -372,56 +393,37 @@ def _fused_decoder_stack_cuda(x, initial_coords, img_tokens, img_pos,
 
     outs = torch.empty((n_layers, b, k, 2), dtype=f32, device=x.device)
     pts = torch.empty((n_layers, b, k, 2), dtype=f32, device=x.device)
-    kin = torch.empty((2 * r, c), dtype=bf, device=x.device)
-    for li, lw in enumerate(w["layers"]):
+    for li, (layer, sw) in enumerate(zip(decoder.layers, w["layers"])):
+        lw = K.module_weights(layer, "_kernel_weights", _prepare)
         # query positions from the current points
         feats = K.sine_feats(ct, w["rdt"])
         h = K.gemm(feats, w["fc1p"], b_nk=True, bias=w["rb1"],
                    act=K.ACT_GELU)
         qpos = K.gemm(h, w["fc2"], b_nk=True, bias=w["rb2"])
 
-        # (1) self-attention with the Markov bias formed in the kernel
+        # (1) self-attention, the Markov bias formed once for all heads;
+        # out_proj, LN1 and the cross-attention's query in one kernel
         qkv = K.gemm(xb, lw["wqkv"], b_nk=True,
                      bias=lw["bqkv"]).view(b, k, 3 * c)
-        att = K.attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
-                          num_heads=num_heads, scale=d ** -0.5,
-                          key_valid=kp_valid,
-                          hops=hops, hop_mlp=lw.get("hop_mlp"))
-        a = K.gemm(att.view(r, c), lw["wso"], b_nk=True, bias=lw["bso"],
-                   out_dtype=f32)
-        x1, x1b = K.layernorm(xb, *lw["ln1"], eps, r=a, out_bf16=True)
+        if has_bias:
+            att = K.bias_attention(qkv, kp_valid, hops, sw["hop_mlp"],
+                                   num_heads=num_heads)
+        else:
+            att = K.attention(qkv[..., :c], qkv[..., c:2 * c],
+                              qkv[..., 2 * c:], num_heads=num_heads,
+                              scale=d ** -0.5, key_valid=kp_valid)
+        x1, q2 = K.dec_post_self(att.view(r, c), xb, qpos, lw, eps=eps)
 
-        # (2) concat-position cross-attention, out_proj, choker
-        tq = K.gemm(x1b, lw["wcq_x"], b_nk=True, out_dtype=f32)
-        q2 = K.gemm(qpos, lw["wcq_p"], b_nk=True, bias=lw["bcq"], pre=tq)
+        # (2) cross-attention on this layer's keys and values; out_proj,
+        # choker, LN2, GCN, ffn2, LN3 in one kernel
         sl = slice(li * c2, (li + 1) * c2)
         att2 = K.attention(q2.view(b, k, c2), k_all[..., sl], v_all[..., sl],
                            num_heads=num_heads, scale=d2 ** -0.5)
-        o2 = K.gemm(att2.view(r, c2), lw["wco"], b_nk=True, bias=lw["bco"])
-        a2 = K.gemm(o2, lw["wch"], b_nk=True, bias=lw["bch"], out_dtype=f32)
-        x2, x2b = K.layernorm(x1, *lw["ln2"], eps, r=a2, out_bf16=True)
+        xb = K.dec_post_cross(att2, x1, adj, lw, eps=eps, out_dtype=bf)
 
-        # (3) GCN over the 2-slice adjacency, ffn2
-        y = K.gemm(x2b, lw["wg"], b_nk=True, bias=lw["bg"])
-        f_dim = y.shape[-1] // 2
-        y = y.view(b, k, 2 * f_dim)
-        m0 = K.gemm(adjb[:, 0], y[..., :f_dim], b_nk=False, out_dtype=f32)
-        f = K.gemm(adjb[:, 1], y[..., f_dim:], b_nk=False, pre=m0,
-                   act=K.ACT_RELU)
-        f2 = K.gemm(f.view(r, f_dim), lw["wf"], b_nk=True, bias=lw["bf"],
-                    out_dtype=f32)
-
-        # LN3 into the first half of kin, the final norm of it into the
-        # second: kpt_branch runs once over both
-        K.layernorm(x2, *lw["ln3"], eps, r=f2, out_f32=False,
-                    out_bf16=kin[:r])
-        xb = kin[:r]
-        K.layernorm(xb, *w["fn"], eps, out_f32=False, out_bf16=kin[r:])
-        kh = kin
-        for kw_, kb_ in lw["kpt"]:
-            kh = K.gemm(kh, kw_, b_nk=True, bias=kb_, act=K.ACT_GELU)
-        dd = K.gemm(kh, lw["kow"], b_nk=True, bias=lw["kob"], out_dtype=f32)
-        K.coord_update(ct, dd, pts[li], outs[li])
+        # (3) final norm, both kpt_branch passes, the coordinate update
+        K.kpt_head(xb, ct, w["fn"], sw["kpt"], sw["kow"], sw["kob"],
+                   pts[li].view(r, 2), outs[li].view(r, 2), eps=eps)
         ct = pts[li].view(r, 2)
     return outs, pts
 

@@ -1,6 +1,6 @@
 """Build, load and call the hand-written CUDA kernels (`csrc/*.cu`):
-in `kernels.cu` the building blocks of the eval ops, the glue kernels of
-the decoder stack and the training attention's forward / backward pair,
+in `kernels.cu` the building blocks of the eval ops, the decoder stack's
+own kernels and the training attention's forward / backward pair,
 in `mm_chain.cu` the matmul chain of the probe tool.
 
 Each source is compiled with `nvcc` for `sm_90a` into a shared library
@@ -67,10 +67,13 @@ _SIGNATURES = {
                      _I, _I, _P],
     "ec_add_pos": [_P, _I, _P, _P, _L, _L, _P],
     "ec_attention": [_P, _P, _P, _I, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I,
-                     _I, _P, _L, _P, _F, _P, _I, _L, _L, _P, _I, _I, _P, _P,
-                     _P, _P] + _PLAN + [_P],
+                     _I, _P, _L, _P, _F, _P, _I, _L, _L] + _PLAN + [_P],
     "ec_sine_feats": [_P, _P, _P, _L, _I, _P],
-    "ec_coord_update": [_P, _P, _P, _P, _L, _F, _P],
+    # qkv, B, N, key mask + stride, hops, n_hop, hidden, the MLP's four
+    # tensors, scale, out, then the plan: query split, tiles a block, smem
+    "ec_bias_attention": [_P, _I, _I, _P, _L, _P, _I, _I, _P, _P, _P, _P, _F,
+                          _P, _I, _I, _L, _P],
+    "ec_kpt_head": [_P] * 14 + [_I, _F, _F, _P],
     "ec_attn_train_fwd": _TRAIN_HEAD + [_P, _L, _L, _P] + _PLAN + [_P],
     "ec_attn_train_bwd": _TRAIN_HEAD + [_P, _I, _L, _L, _P, _P, _P, _P, _P,
                                         _P] + _BWD_PLAN + [_P],
@@ -358,9 +361,9 @@ def add_pos(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 # Limits of the attention forward kernels (csrc/kernels.cu): keys a block
 # holds in shared memory, 16-key tiles of a row that fit in registers (one
 # pass), 16-key tiles per chunk of the two-pass form, shared memory a block
-# may use, the in-kernel bias MLP's weights in shared memory.
+# may use.
 ATT_MAX_KEYS, ATT_ROW16, ATT_CH16 = 512, 8, 2
-ATT_SMEM_LIMIT, ATT_HOP_MLP_BYTES = 227 * 1024, (32 * 12 + 4) * 4
+ATT_SMEM_LIMIT = 227 * 1024
 
 
 def _max_warps(d: int, chunk_tiles: int) -> int:
@@ -376,15 +379,12 @@ def _max_warps(d: int, chunk_tiles: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _attention_plan(nq, nk, d, hops, train, chunk_tiles):
+def _attention_plan(nq, nk, d, train, chunk_tiles):
     if d not in (32, 64):
         raise ValueError(f"attention takes head dim 32 or 64, got {d}")
     if nq < 1 or not 1 <= nk <= ATT_MAX_KEYS:
         raise ValueError(f"attention takes 1..{ATT_MAX_KEYS} keys and at "
                          f"least one query, got Nq={nq}, Nk={nk}")
-    if hops and (d != 32 or train):
-        raise ValueError("the in-kernel Markov bias takes head dim 32 and "
-                         "the eval kernel")
     key_tiles = -(-nk // 16)
     fits = key_tiles <= ATT_ROW16
     if chunk_tiles is None:
@@ -399,8 +399,7 @@ def _attention_plan(nq, nk, d, hops, train, chunk_tiles):
     q_split = -(-tiles // _max_warps(d, chunk_tiles))
     warps = -(-tiles // q_split)
     kld, nkp = d + 8, key_tiles * 16
-    smem = 4 * nkp * kld + 32 * warps * kld + 4 * nkp \
-        + (ATT_HOP_MLP_BYTES if hops else 0)
+    smem = 4 * nkp * kld + 32 * warps * kld + 4 * nkp
     if smem > ATT_SMEM_LIMIT or q_split > 65535:
         raise ValueError(f"attention plan does not fit: {smem} bytes of "
                          f"shared memory, query split {q_split}")
@@ -409,12 +408,11 @@ def _attention_plan(nq, nk, d, hops, train, chunk_tiles):
             ("key_tiles", key_tiles), ("chunk_tiles", chunk_tiles))
 
 
-def attention_plan(nq: int, nk: int, d: int, hops: bool = False,
-                   train: bool = False, chunk_tiles=None) -> dict:
+def attention_plan(nq: int, nk: int, d: int, train: bool = False,
+                   chunk_tiles=None) -> dict:
     """The launch plan of the attention forward kernels for Nq queries, Nk
-    keys and head dim d (with the in-kernel Markov bias; for the training
-    forward), from the shapes alone, so equal shapes always run the same
-    way:
+    keys and head dim d (for the training forward), from the shapes alone,
+    so equal shapes always run the same way:
 
     * q_split, warps: a warp owns one 16-row query tile; block y of the
       q_split blocks of a (batch, head) takes tiles [y * warps,
@@ -424,12 +422,12 @@ def attention_plan(nq: int, nk: int, d: int, hops: bool = False,
       tiles. `chunk_tiles=2` forces two passes where one would do (for
       measurements);
     * smem_bytes: keys and values [key_tiles * 16, d + 8] bf16, a query
-      tile per warp, the additive key mask, the bias MLP's weights.
+      tile per warp, the additive key mask.
 
     Raises for what the kernels do not take: d not 32 or 64, more than
-    512 keys, hops with d 64 or in training."""
-    return dict(_attention_plan(int(nq), int(nk), int(d), bool(hops),
-                                bool(train), chunk_tiles))
+    512 keys."""
+    return dict(_attention_plan(int(nq), int(nk), int(d), bool(train),
+                                chunk_tiles))
 
 
 def _plan_args(plan: dict) -> list:
@@ -531,18 +529,15 @@ def _f32_contiguous(t):
 
 
 def attention(q, k, v, *, num_heads: int, scale: float, key_valid=None,
-              bias=None, hops=None, hop_mlp=None, out_dtype=torch.bfloat16,
-              out=None, plan=None) -> torch.Tensor:
+              bias=None, out_dtype=torch.bfloat16, out=None,
+              plan=None) -> torch.Tensor:
     """Multi-head attention on [B, N, H*D] views (unit last stride):
     softmax(q k^T * scale + key mask[b] + bias[b, h]) v per head, output
     [B, Nq, H*D] rounded to bf16 (stored as out_dtype, or into `out`).
     key_valid: [B, Nk] bool, False keys are masked (read by the kernel);
-    bias: [B, H, Nq, Nk] fp32. In its place, `hops` [B, n_hop, Nq, Nk]
-    bf16 with hop_mlp = (w1 [n_hop, hid], b1 [hid], w2 [hid, H], b2 [H])
-    fp32 has the kernel form the Markov bias relu(hops . w1 + b1) . w2 + b2
-    itself, so that it never lies in device memory (head dim 32 only).
-    One launch; `plan` overrides attention_plan (for measurements)."""
-    _cuda(q, k, v, key_valid, bias, hops, out)
+    bias: [B, H, Nq, Nk] fp32. One launch; `plan` overrides attention_plan
+    (for measurements)."""
+    _cuda(q, k, v, key_valid, bias, out)
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("q, k, v dtypes differ")
     b, nq, c = q.shape
@@ -556,23 +551,8 @@ def attention(q, k, v, *, num_heads: int, scale: float, key_valid=None,
         bias = _f32_contiguous(bias)
         if tuple(bias.shape) != (b, num_heads, nq, nk):
             raise ValueError(f"bias shape {tuple(bias.shape)}")
-    nhop = hid = 0
-    w1 = b1 = w2 = b2 = None
-    if hops is not None:
-        w1, b1, w2, b2 = hop_mlp
-        _cuda(w1, b1, w2, b2)
-        nhop, hid = w1.shape
-        if bias is not None or hops.dtype != torch.bfloat16 \
-                or not hops.is_contiguous() \
-                or tuple(hops.shape) != (b, nhop, nq, nk) \
-                or tuple(w2.shape) != (hid, num_heads) \
-                or any(t.dtype != torch.float32 or not t.is_contiguous()
-                       for t in (w1, b1, w2, b2)):
-            raise ValueError("in-kernel Markov bias takes a contiguous bf16 "
-                             "hop stack [B, n_hop, Nq, Nk], fp32 MLP weights "
-                             "and no other bias")
     if plan is None:
-        plan = attention_plan(nq, nk, d, hops=hops is not None)
+        plan = attention_plan(nq, nk, d)
     if out is None:
         out = torch.empty((b, nq, c), dtype=out_dtype, device=q.device)
     elif tuple(out.shape) != (b, nq, c) or out.stride(-1) != 1:
@@ -581,8 +561,7 @@ def attention(q, k, v, *, num_heads: int, scale: float, key_valid=None,
           q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
           v.stride(1), b, num_heads, d, nq, nk, kv_ptr, kv_stride,
           _ptr(bias), float(scale), out.data_ptr(), _dt(out), out.stride(0),
-          out.stride(1), _ptr(hops), nhop, hid, _ptr(w1), _ptr(b1),
-          _ptr(w2), _ptr(b2), *_plan_args(plan), _stream())
+          out.stride(1), *_plan_args(plan), _stream())
     return out
 
 
@@ -600,22 +579,6 @@ def sine_feats(ct: torch.Tensor, rdt: torch.Tensor) -> torch.Tensor:
     _call("ec_sine_feats", ct.data_ptr(), rdt.data_ptr(), out.data_ptr(),
           rows, f, _stream())
     return out
-
-
-def coord_update(ct: torch.Tensor, dd: torch.Tensor, pts: torch.Tensor,
-                 outs: torch.Tensor, eps: float = 1e-3) -> None:
-    """pts = sigmoid(inverse_sigmoid(ct) + dd[:R]), outs = sigmoid(
-    inverse_sigmoid(ct) + dd[R:]) for ct [R, 2] and dd [2R, 2], all fp32
-    and contiguous; pts and outs [R, 2] are written in place."""
-    _cuda(ct, dd, pts, outs)
-    n = ct.numel()
-    for t, size in ((ct, n), (dd, 2 * n), (pts, n), (outs, n)):
-        if t.dtype != torch.float32 or not t.is_contiguous() \
-                or t.numel() != size:
-            raise ValueError("coord_update takes contiguous fp32 tensors "
-                             "[R, 2], [2R, 2], [R, 2], [R, 2]")
-    _call("ec_coord_update", ct.data_ptr(), dd.data_ptr(), pts.data_ptr(),
-          outs.data_ptr(), n, float(eps), _stream())
 
 
 def dropout_threshold(rate: float):
@@ -793,12 +756,13 @@ def post_plan(rows: int, c: int, f: int, *, chunk: int = ENC_CHUNK,
             "pad_rows": POST_TILE - keypoints}
 
 
-def _operand(t: torch.Tensor, shape, dtype=torch.bfloat16) -> int:
-    """Address of a kernel operand that must be a contiguous, 16-byte
-    aligned CUDA tensor of this shape and type."""
+def _operand(t: torch.Tensor, shape, dtype=torch.bfloat16,
+             align: int = 16) -> int:
+    """Address of a kernel operand that must be a contiguous CUDA tensor
+    of this shape and type, aligned to `align` bytes."""
     _cuda(t)
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or not t.is_contiguous() or t.data_ptr() % 16:
+            or not t.is_contiguous() or t.data_ptr() % align:
         raise ValueError(f"kernel operand: need contiguous aligned {dtype} "
                          f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
     return t.data_ptr()
@@ -894,6 +858,106 @@ def dec_post_cross(att2: torch.Tensor, x1: torch.Tensor, adj: torch.Tensor,
           out.data_ptr(), _dt(out), b, k, f, float(eps), _stream())
     post_launches["dec_post_cross"] += 1
     return out
+
+
+# The decoder stack's own kernels (csrc/kernels.cu bias_attn_kernel,
+# kpt_head_kernel): the self-attention with the Markov bias formed once for
+# all BA_HEADS heads of head dim BA_D, its hop planes and hidden units at
+# most BA_HOP_MAX and BA_HID_MAX; the keypoint head.
+BA_HEADS, BA_D, BA_HOP_MAX, BA_HID_MAX = 8, 32, 8, 32
+BA_MLP_BYTES = (2 * BA_HID_MAX * 8 + BA_HID_MAX + BA_HEADS) * 4
+# blocks a call should have at least: two rounds of an H100's 132 SMs at
+# one block an SM; fewer batch rows split their query tiles over blocks
+BA_MIN_BLOCKS = 264
+stack_kernel_launches = {"bias_attention": 0, "kpt_head": 0}
+
+
+@functools.lru_cache(maxsize=None)
+def _bias_attention_plan(b, n, heads, d):
+    if heads != BA_HEADS or d != BA_D:
+        raise ValueError(f"the bias attention takes {BA_HEADS} heads of "
+                         f"{BA_D}, got {heads} of {d}")
+    if b < 1 or not 1 <= n <= ATT_ROW16 * 16:
+        raise ValueError(f"the bias attention takes 1..{ATT_ROW16 * 16} "
+                         f"keypoints and a batch, got B={b}, K={n}")
+    tiles = -(-n // 16)
+    q_split = min(tiles, -(-BA_MIN_BLOCKS // b))
+    per_block = -(-tiles // q_split)
+    q_split = -(-tiles // per_block)
+    nkp, ld = tiles * 16, heads * d + 8
+    smem = 2 * nkp * ld * 2 + 16 * ld * 2 + heads * 16 * nkp * 4 + nkp * 4 \
+        + BA_MLP_BYTES
+    if smem > ATT_SMEM_LIMIT:
+        raise ValueError(f"bias attention plan does not fit: {smem} bytes")
+    return (("q_split", q_split), ("tiles_per_block", per_block),
+            ("key_tiles", tiles), ("smem_bytes", smem))
+
+
+def bias_attention_plan(b: int, n: int, heads: int, d: int) -> dict:
+    """The launch plan of the bias attention for B batch rows of N
+    keypoints, from the shapes alone: block (row, y) of the q_split blocks
+    of a batch row takes the 16-query tiles [y * tiles_per_block,
+    (y + 1) * tiles_per_block); key_tiles 16-key tiles hold the row;
+    smem_bytes: keys and values [key_tiles * 16, 264] bf16, a query tile,
+    the bias of a tile [heads, 16, key_tiles * 16] fp32, the key mask and
+    the MLP's weights. Raises for what the kernel does not take: other
+    than 8 heads of 32, more than 128 keypoints."""
+    return dict(_bias_attention_plan(int(b), int(n), int(heads), int(d)))
+
+
+def bias_attention(qkv: torch.Tensor, key_valid, hops: torch.Tensor,
+                   hop_mlp, *, num_heads: int) -> torch.Tensor:
+    """The decoder's self-attention with its Markov bias, one launch:
+    softmax(q k^T / sqrt(d) + key mask + bias) v per head, with bias[h, i,
+    j] = relu(hops[b, i, j] . w1 + b1) . w2[:, h] + b2[h] formed in the
+    kernel once for all heads. qkv: contiguous bf16 [B, K, 3 C] (q | k |
+    v); key_valid: bool [B, K] or None; hops: contiguous bf16 [B, K, K,
+    n_hop] (the hop stack's own layout); hop_mlp: fp32 (w1 [n_hop, hid],
+    b1 [hid], w2 [hid, H], b2 [H]). Returns bf16 [B, K, C]."""
+    w1, b1, w2, b2 = hop_mlp
+    _cuda(qkv, key_valid, hops, w1, b1, w2, b2)
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    plan = bias_attention_plan(b, n, num_heads, c // num_heads)
+    nhop, hid = w1.shape
+    if not (1 <= nhop <= BA_HOP_MAX and 1 <= hid <= BA_HID_MAX):
+        raise ValueError(f"the bias MLP takes 1..{BA_HOP_MAX} hop planes and "
+                         f"1..{BA_HID_MAX} hidden units, got {nhop}, {hid}")
+    ptrs = [_operand(qkv, (b, n, c3)), _operand(hops, (b, n, n, nhop),
+                                                align=2)]
+    ptrs += [_operand(t, shape, torch.float32, 4) for t, shape in (
+        (w1, (nhop, hid)), (b1, (hid,)), (w2, (hid, num_heads)),
+        (b2, (num_heads,)))]
+    key_valid, kv_ptr, kv_stride = _key_mask(key_valid, b, n)
+    out = torch.empty((b, n, c), dtype=torch.bfloat16, device=qkv.device)
+    _call("ec_bias_attention", ptrs[0], b, n, kv_ptr, kv_stride, ptrs[1],
+          nhop, hid, *ptrs[2:], float((c // num_heads) ** -0.5),
+          out.data_ptr(), plan["q_split"], plan["tiles_per_block"],
+          plan["smem_bytes"], _stream())
+    stack_kernel_launches["bias_attention"] += 1
+    return out
+
+
+def kpt_head(x: torch.Tensor, ct: torch.Tensor, fn, kpt, kow, kob,
+             pts: torch.Tensor, outs: torch.Tensor, *, eps: float) -> None:
+    """A decoder layer's keypoint head, one launch: with n = LN(x) (fn =
+    (gamma, beta)), h = bf16(gelu(h . w_i^T + b_i)) for (w_i, b_i) in kpt
+    from h = x and from h = n, dd = h . kow^T + kob, and pts =
+    sigmoid(inverse_sigmoid(ct) + dd of x), outs = the same of n (the
+    log-odds clipped at 1e-3, pos_enc.inverse_sigmoid's), written in
+    place. x: contiguous bf16 [R, 256]; kpt: three (bf16 [256, 256],
+    fp32 [256]); kow bf16 [2, 256], kob fp32 [2]; ct, pts, outs:
+    contiguous fp32 [R, 2]."""
+    r = x.shape[0]
+    ptrs = [_operand(x, (r, POST_C))] + [
+        _operand(v, (POST_C,), torch.float32) for v in fn]
+    for w, bb in kpt:
+        ptrs += [_operand(w, (POST_C, POST_C)),
+                 _operand(bb, (POST_C,), torch.float32)]
+    ptrs += [_operand(kow, (2, POST_C)), _operand(kob, (2,), torch.float32)]
+    ptrs += [_operand(t, (r, 2), torch.float32, 4) for t in (ct, pts, outs)]
+    _call("ec_kpt_head", *ptrs, r, float(eps), 1e-3, _stream())
+    stack_kernel_launches["kpt_head"] += 1
 
 
 def mm_chain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, reps: int,

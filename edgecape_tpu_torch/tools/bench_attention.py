@@ -45,8 +45,9 @@ ATOL, RTOL, MEAN_TOL = 1e-2, 2.0 ** -6, 2e-3
 PEAK_BYTES_S, PEAK_BF16_FLOPS = 3.35e12, 989e12
 
 # name, batch, queries, keys, heads, head dim, key mask, bias ("read": an
-# fp32 [B, H, Nq, Nk] tensor, "hops": formed in the kernel from the bf16
-# hop stack), training dropout rate (None: the eval kernel)
+# fp32 [B, H, Nq, Nk] tensor, "hops": formed from the bf16 hop stack by the
+# decoder stack's bias attention, ops/kernels.py bias_attention), training
+# dropout rate (None: the eval kernel)
 SHAPES = [
     ("vit eval", 510, 257, 257, 6, 64, False, None, None),
     ("vit training", 32, 257, 257, 6, 64, False, None, None),
@@ -63,7 +64,7 @@ SHAPES = [
     ("train decoder, bias, rate 0.1", 16, 100, 100, 8, 32, True, "read",
      0.1),
 ]
-N_HOP, HOP_HID = 5, 32
+N_HOP, HOP_HID = 5, 12            # the model's: max_hops + 1, max_hops + 8
 
 
 def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
@@ -84,20 +85,30 @@ def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
 
 def _kernel_durations(fn, reps: int) -> list:
     """(name, duration in us) of each device kernel in a profiler trace of
-    `reps` calls of fn."""
-    from torch.profiler import ProfilerActivity, profile
+    `reps` calls of fn. One more call runs first inside the trace and is
+    not counted: a trace can lose the device events of its first launches
+    (seen with the 30-launch decoder stack), so only kernels that start
+    inside the annotated span of the `reps` calls are taken."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+        fn()
         torch.cuda.synchronize()
+        with record_function("timed calls"):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
+    start = min((float(e["ts"]) for e in events
+                 if e.get("name") == "timed calls"
+                 and e.get("cat") == "user_annotation"), default=None)
     return [(e["name"], float(e["dur"])) for e in events
-            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+            if e.get("ph") == "X" and e.get("cat") == "kernel"
+            and (start is None or float(e["ts"]) >= start)]
 
 
 def kernel_ms(fn, reps: int = REPS) -> dict:
@@ -151,8 +162,8 @@ class Case:
             return torch.randn(*shape, generator=g).to(dev)
 
         if nq == nk:
-            qkv = rn(b, nq, 3 * c).to(dt)
-            self.q, self.k, self.v = (qkv[..., i * c:(i + 1) * c]
+            self.qkv = rn(b, nq, 3 * c).to(dt)
+            self.q, self.k, self.v = (self.qkv[..., i * c:(i + 1) * c]
                                       for i in range(3))
         else:
             self.q = rn(b, nq, c).to(dt)
@@ -166,7 +177,7 @@ class Case:
         if bias == "read":
             self.bias = rn(b, h, nq, nk)
         elif bias == "hops":
-            self.hops = (torch.rand(b, N_HOP, nq, nk, generator=g) / 4).to(
+            self.hops = (torch.rand(b, nq, nk, N_HOP, generator=g) / 4).to(
                 dev).to(torch.bfloat16)
             self.hop_mlp = (rn(N_HOP, HOP_HID), rn(HOP_HID) * 0.1,
                             rn(HOP_HID, h) / math.sqrt(HOP_HID), rn(h) * 0.1)
@@ -178,10 +189,8 @@ class Case:
         if self.hops is None:
             return self.bias
         w1, b1, w2, b2 = self.hop_mlp
-        hid = torch.relu(torch.einsum("bjqk,jm->bqkm", self.hops.float(), w1)
-                         + b1)
-        return (torch.einsum("bqkm,mh->bhqk", hid, w2)
-                + b2[None, :, None, None])
+        hid = torch.relu(self.hops.float() @ w1 + b1)
+        return (hid @ w2 + b2).permute(0, 3, 1, 2)
 
     def kernel(self, plan=None):
         if self.rate is not None and plan is not None:
@@ -198,10 +207,12 @@ class Case:
             return FA.flash_mha_train(
                 self.heads(self.q), self.heads(self.k), self.heads(self.v),
                 self.valid, self.bias, dropout_rate=self.rate, generator=gen)
+        if self.hops is not None:
+            return K.bias_attention(self.qkv, self.valid, self.hops,
+                                    self.hop_mlp, num_heads=self.h)
         return K.attention(self.q, self.k, self.v, num_heads=self.h,
                            scale=self.d ** -0.5, key_valid=self.valid,
-                           bias=self.bias, hops=self.hops,
-                           hop_mlp=self.hop_mlp, plan=plan)
+                           bias=self.bias, plan=plan)
 
     def plain(self):
         if self.rate is not None:
@@ -272,17 +283,18 @@ def run_case(spec, dev, power, modes=False) -> dict:
         sdpa_dev_ms, _ = device_ms(sdpa)
         sdpa_ms = time_ms(sdpa)
         bnd, by = case.bound_ms()
-        plan = K.attention_plan(case.nq, case.nk, case.d,
-                                hops=case.hops is not None,
-                                train=case.rate is not None)
+        if case.hops is not None:
+            plan = K.bias_attention_plan(case.b, case.nq, case.h, case.d)
+        else:
+            plan = K.attention_plan(case.nq, case.nk, case.d,
+                                    train=case.rate is not None)
         other = ""
-        if modes:
+        if modes and case.hops is None:
             for tiles in (K.ATT_ROW16, K.ATT_CH16):
                 if tiles == plan["chunk_tiles"] or (
                         tiles == K.ATT_ROW16 and case.nk > 128):
                     continue
                 alt = K.attention_plan(case.nq, case.nk, case.d,
-                                       hops=case.hops is not None,
                                        train=case.rate is not None,
                                        chunk_tiles=tiles)
                 alt_ms, _ = device_ms(lambda: case.kernel(plan=alt))

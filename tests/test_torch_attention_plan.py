@@ -1,6 +1,7 @@
 """The launch plan of the port's attention forward kernels
-(ops/kernels.py attention_plan), their ctypes bindings and the bool key
-mask route, on the CPU; and the plain versions of flash_mha and
+(ops/kernels.py attention_plan) and of the decoder stack's bias attention
+(bias_attention_plan), their ctypes bindings and the bool key mask route,
+on the CPU; and the plain versions of flash_mha and
 flash_mha_train against the JAX kernels (interpret mode) at the ragged
 sizes the card sees.
 
@@ -29,15 +30,14 @@ SMEM_LIMIT = 232448          # bytes of shared memory a block may use
 MAX_THREADS = 1024
 
 # every shape the eval and training paths give the kernels:
-# name, Nq, Nk, head dim, in-kernel Markov bias, training forward
-PATH_SHAPES = [("vit", 257, 257, 64, False, False),
-               ("joint encoder", 356, 356, 32, False, False),
-               ("decoder self, bias read", 100, 100, 32, False, False),
-               ("decoder self, bias from hops", 100, 100, 32, True, False),
-               ("decoder cross", 100, 256, 64, False, False),
-               ("skeleton refine", 100, 100, 32, False, False),
-               ("train 356", 356, 356, 32, False, True),
-               ("train 100", 100, 100, 32, False, True)]
+# name, Nq, Nk, head dim, training forward
+PATH_SHAPES = [("vit", 257, 257, 64, False),
+               ("joint encoder", 356, 356, 32, False),
+               ("decoder self, bias read", 100, 100, 32, False),
+               ("decoder cross", 100, 256, 64, False),
+               ("skeleton refine", 100, 100, 32, False),
+               ("train 356", 356, 356, 32, True),
+               ("train 100", 100, 100, 32, True)]
 
 
 def _covered_rows(plan, nq):
@@ -61,7 +61,7 @@ def _covered_keys(plan, nk):
     return keys
 
 
-def _check_plan(plan, nq, nk, d, hops):
+def _check_plan(plan, nq, nk, d):
     assert plan["smem_bytes"] <= SMEM_LIMIT
     assert 1 <= plan["warps"] * 32 <= MAX_THREADS
     # threads the kernel of this chunk size is compiled for
@@ -69,8 +69,7 @@ def _check_plan(plan, nq, nk, d, hops):
         plan["chunk_tiles"]]
     assert plan["one_pass"] == (plan["chunk_tiles"] == K.ATT_ROW16)
     kld, nkp = d + 8, plan["key_tiles"] * 16
-    need = 4 * nkp * kld + 32 * plan["warps"] * kld + 4 * nkp \
-        + (K.ATT_HOP_MLP_BYTES if hops else 0)
+    need = 4 * nkp * kld + 32 * plan["warps"] * kld + 4 * nkp
     assert plan["smem_bytes"] >= need
     assert nk <= nkp < nk + 16
     if plan["one_pass"]:          # the whole row is one chunk
@@ -83,9 +82,9 @@ def _check_plan(plan, nq, nk, d, hops):
 
 @pytest.mark.parametrize("shape", PATH_SHAPES, ids=lambda s: s[0])
 def test_plan_at_path_shapes(shape):
-    _, nq, nk, d, hops, train = shape
-    plan = K.attention_plan(nq, nk, d, hops=hops, train=train)
-    _check_plan(plan, nq, nk, d, hops)
+    _, nq, nk, d, train = shape
+    plan = K.attention_plan(nq, nk, d, train=train)
+    _check_plan(plan, nq, nk, d)
     assert _covered_rows(plan, nq) == list(range(nq))
     assert _covered_keys(plan, nk) == list(range(nk))
     assert plan["one_pass"] == (nk <= 128)
@@ -94,26 +93,22 @@ def test_plan_at_path_shapes(shape):
     assert plan["q_split"] * plan["warps"] - (-(-nq // 16)) < plan["q_split"]
     # from the shapes alone: the same answer again, whatever came between
     K.attention_plan(nk, nq, d)
-    assert K.attention_plan(nq, nk, d, hops=hops, train=train) == plan
+    assert K.attention_plan(nq, nk, d, train=train) == plan
 
 
 @pytest.mark.parametrize("d", [32, 64])
-@pytest.mark.parametrize("kind", ["eval", "hops", "train", "two passes"])
+@pytest.mark.parametrize("kind", ["eval", "train", "two passes"])
 def test_plan_sweep(kind, d):
     """(Nq, Nk) over 1..512: shared memory and threads within the card's
     limits, every query row and key covered exactly once."""
-    if kind == "hops" and d == 64:
-        with pytest.raises(ValueError):
-            K.attention_plan(100, 100, 64, hops=True)
-        return
-    kw = {"hops": kind == "hops", "train": kind == "train"}
+    kw = {"train": kind == "train"}
     if kind == "two passes":
         kw["chunk_tiles"] = K.ATT_CH16
     nqs = sorted(set(range(1, 513, 5)) | {15, 16, 17, 100, 257, 356, 512})
     for nk in range(1, 513):
         for nq in nqs:
             plan = K.attention_plan(nq, nk, d, **kw)
-            _check_plan(plan, nq, nk, d, kw["hops"])
+            _check_plan(plan, nq, nk, d)
             if kind == "two passes":
                 assert not plan["one_pass"]
         plan = K.attention_plan(nk, nk, d, **kw)
@@ -123,13 +118,64 @@ def test_plan_sweep(kind, d):
 
 @pytest.mark.parametrize("args,kw", [
     ((100, 100, 48), {}), ((100, 100, 128), {}), ((100, 513, 32), {}),
-    ((100, 0, 32), {}), ((0, 100, 32), {}), ((100, 100, 64), {"hops": True}),
-    ((100, 100, 32), {"hops": True, "train": True}),
+    ((100, 0, 32), {}), ((0, 100, 32), {}),
     ((100, 129, 32), {"chunk_tiles": 8}),
     ((100, 100, 32), {"chunk_tiles": 4})])
 def test_plan_refuses_unsupported_shapes(args, kw):
     with pytest.raises(ValueError):
         K.attention_plan(*args, **kw)
+
+
+# ------------------------------------------ the decoder stack's bias attention
+def _check_bias_plan(plan, b, n):
+    """Shared memory within the card's limit and as the kernel lays it
+    out; every query tile of a row in exactly one block; the key row in
+    one pass."""
+    nkp, ld = plan["key_tiles"] * 16, 8 * 32 + 8
+    need = 2 * nkp * ld * 2 + 16 * ld * 2 + 8 * 16 * nkp * 4 + nkp * 4 \
+        + K.BA_MLP_BYTES
+    assert need <= plan["smem_bytes"] <= SMEM_LIMIT
+    assert n <= nkp < n + 16 and plan["key_tiles"] <= K.ATT_ROW16
+    tiles = -(-n // 16)
+    covered = [t for y in range(plan["q_split"])
+               for t in range(y * plan["tiles_per_block"],
+                              min((y + 1) * plan["tiles_per_block"], tiles))]
+    assert covered == list(range(tiles))
+    assert (plan["q_split"] - 1) * plan["tiles_per_block"] < tiles
+    assert 1 <= plan["q_split"] <= 65535
+
+
+# batch rows the stack gives it: the eval chunk (34 x 15), a training-size
+# batch, a few rows, one row
+@pytest.mark.parametrize("b", [510, 34, 16, 3, 1])
+def test_bias_plan_at_path_shape(b):
+    plan = K.bias_attention_plan(b, 100, 8, 32)
+    _check_bias_plan(plan, b, 100)
+    # enough blocks for two rounds of the card's SMs where the rows allow,
+    # one block a row (keys and values copied once) where they suffice
+    tiles = 7
+    if b >= K.BA_MIN_BLOCKS:
+        assert plan["q_split"] == 1
+    else:
+        assert b * plan["q_split"] >= min(K.BA_MIN_BLOCKS, b * tiles) \
+            or plan["q_split"] == tiles
+    assert K.bias_attention_plan(b, 100, 8, 32) == plan
+
+
+@pytest.mark.parametrize("bs", [(1, 2, 7, 33, 264), (265, 510, 1000)])
+def test_bias_plan_sweep(bs):
+    """K over 1..128 and batch sizes on both sides of BA_MIN_BLOCKS."""
+    for b in bs:
+        for n in range(1, 129):
+            _check_bias_plan(K.bias_attention_plan(b, n, 8, 32), b, n)
+
+
+@pytest.mark.parametrize("args", [(510, 100, 4, 32), (510, 100, 8, 64),
+                                  (510, 129, 8, 32), (0, 100, 8, 32),
+                                  (510, 0, 8, 32)])
+def test_bias_plan_refuses_unsupported_shapes(args):
+    with pytest.raises(ValueError):
+        K.bias_attention_plan(*args)
 
 
 def _c_signature(name):
@@ -193,6 +239,14 @@ def test_cuda_route_refuses_cpu_operands():
         K.attention(q, q, q, num_heads=2, scale=1.0)
     with pytest.raises(ValueError):
         K.attention_train_fwd(q, q, q, num_heads=2, scale=1.0)
+    n0 = dict(K.stack_kernel_launches)
+    mlp = (torch.zeros(5, 12), torch.zeros(12), torch.zeros(12, 8),
+           torch.zeros(8))
+    with pytest.raises(ValueError):
+        K.bias_attention(torch.zeros(1, 16, 768, dtype=torch.bfloat16), None,
+                         torch.zeros(1, 16, 16, 5, dtype=torch.bfloat16), mlp,
+                         num_heads=8)
+    assert K.stack_kernel_launches == n0
 
 
 # ------------------------------------------- plain versions at ragged sizes

@@ -686,28 +686,73 @@ def test_gemm_two_output_columns(dev):
                                rtol=1e-4, atol=1e-4)
 
 
-def test_attention_forms_the_markov_bias_from_the_hop_stack(dev):
-    """The bias formed in the kernel from the bf16 hop stack against the
-    same bias computed by PyTorch and handed in as a tensor."""
+def _bias_attention_operands(dev, b, n, nhop, hid, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(b, n, 3 * 256, generator=g).to(dev).to(torch.bfloat16)
+    hops = torch.rand(b, n, n, nhop, generator=g).to(dev).to(torch.bfloat16)
+    mlp = (torch.randn(nhop, hid, generator=g).to(dev),
+           (torch.randn(hid, generator=g) * 0.1).to(dev),
+           (torch.randn(hid, 8, generator=g) / math.sqrt(hid)).to(dev),
+           (torch.randn(8, generator=g) * 0.1).to(dev))
+    valid = (torch.rand(b, n, generator=g) > 0.3).to(dev)
+    valid[:, 0] = True
+    return qkv, valid, hops, mlp
+
+
+@pytest.mark.parametrize("b,n,nhop,hid", [(3, 100, 5, 12), (2, 37, 5, 12),
+                                          (300, 100, 5, 12), (1, 128, 8, 32),
+                                          (2, 13, 3, 7)])
+def test_bias_attention_matches_plain(dev, b, n, nhop, hid):
+    """The Markov bias formed once for all heads in the kernel against the
+    plain version (the bias by PyTorch, then plain attention): ragged K,
+    a split of query tiles over blocks (small B) and none (B 300), the
+    vector and element hop loads, a key mask; one launch counted."""
+    from edgecape_tpu_torch.ops import fused_decoder as FD
     from edgecape_tpu_torch.ops import kernels as K
-    b, n, h, d, nhop, hid = 3, 37, 4, 32, 5, 9
-    q, k, v = (_rn(dev, b, n, h * d, seed=s).to(torch.bfloat16)
-               for s in (1, 2, 3))
-    hops = torch.rand(b, nhop, n, n, generator=torch.Generator()
-                      .manual_seed(4)).to(dev).to(torch.bfloat16)
-    w1, b1 = _rn(dev, nhop, hid, seed=5), _rn(dev, hid, seed=6)
-    w2, b2 = _rn(dev, hid, h, seed=7), _rn(dev, h, seed=8)
-    kv = torch.ones(b, n, dtype=torch.bool, device=dev)
-    kv[:, -5:] = False
-    hf = hops.float().permute(0, 2, 3, 1)                  # [B, N, N, hop]
-    bias = (torch.relu(hf @ w1 + b1) @ w2 + b2).permute(0, 3, 1, 2)
-    ref = K.attention(q, k, v, num_heads=h, scale=d ** -0.5, key_valid=kv,
-                      bias=bias.contiguous())
-    out = K.attention(q, k, v, num_heads=h, scale=d ** -0.5, key_valid=kv,
-                      hops=hops, hop_mlp=(w1, b1, w2, b2))
-    d_ = (out.float() - ref.float()).abs()
+    qkv, valid, hops, mlp = _bias_attention_operands(dev, b, n, nhop, hid)
+    n0 = K.stack_kernel_launches["bias_attention"]
+    out = K.bias_attention(qkv, valid, hops, mlp, num_heads=8)
+    assert K.stack_kernel_launches["bias_attention"] == n0 + 1
+    ref = FD.bias_attention_plain(qkv, valid, hops, mlp, num_heads=8)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, n, 256)
+    _close(out, ref)
     # the two sum the MLP in another order: at most a bf16 ulp of an output
+    d_ = (out.float() - ref).abs()
     assert d_.max().item() <= 2 ** -7 and d_.mean().item() <= 1e-4
+    with pytest.raises(ValueError):
+        K.bias_attention(qkv[..., :384].contiguous(), valid, hops, mlp,
+                         num_heads=4)
+
+
+def test_kpt_head_matches_plain(dev):
+    """The final norm, three GELU products, the N = 2 head and the
+    coordinate update in one kernel against the plain version, over
+    ragged row counts (a partial 64-row tile) and clipped coordinates."""
+    from edgecape_tpu_torch.ops import fused_decoder as FD
+    from edgecape_tpu_torch.ops import kernels as K
+    g = torch.Generator().manual_seed(4)
+
+    def rn(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to(dev)
+    fn = (1.0 + rn(256, s=0.1), rn(256, s=0.1))
+    kpt = [(rn(256, 256, s=1 / 16).to(torch.bfloat16), rn(256, s=0.1))
+           for _ in range(3)]
+    kow, kob = rn(2, 256, s=0.02).to(torch.bfloat16), rn(2, s=0.02)
+    for r in (39, 64, 5100):
+        x = rn(r, 256).to(torch.bfloat16)
+        ct = torch.rand(r, 2, generator=g).to(dev)
+        ct[0] = torch.tensor([0.0, 1.0])
+        pts, outs = torch.empty_like(ct), torch.empty_like(ct)
+        n0 = K.stack_kernel_launches["kpt_head"]
+        K.kpt_head(x, ct, fn, kpt, kow, kob, pts, outs, eps=1e-5)
+        assert K.stack_kernel_launches["kpt_head"] == n0 + 1
+        rp, ro = FD.kpt_head_plain(x, ct, fn, kpt, kow, kob, eps=1e-5)
+        for a, ref in ((pts, rp), (outs, ro)):
+            d = (a - ref).abs()
+            assert bool(torch.isfinite(a).all())
+            # coordinates in [0, 1], delta heads of 0.02: bf16 flips of the
+            # hidden move them by about 1e-5
+            assert d.max().item() <= 2e-4 and d.mean().item() <= 1e-5
 
 
 # The attention forward kernels at the shapes the eval and training paths
@@ -899,13 +944,11 @@ def test_attention_ops_are_one_launch_and_count_it(dev):
     assert len(names) == 1 and "train_fwd_kernel" in names[0], names
 
 
-def test_sine_feats_and_coord_update_match_pytorch(dev):
+def test_sine_feats_match_pytorch(dev):
     from edgecape_tpu_torch.ops import kernels as K
     from edgecape_tpu_torch.ops.fused_decoder import _rdt
-    from edgecape_tpu_torch.ops.pos_enc import inverse_sigmoid
     g = torch.Generator().manual_seed(9)
     ct = torch.rand(77, 2, generator=g).to(dev)
-    ct[0] = torch.tensor([0.0, 1.0])          # the clipped ends
     rdt = _rdt(16, dev)
     feats = K.sine_feats(ct, rdt)
     ax = (ct[:, 0:1] * 6.283185307179586) * rdt
@@ -915,14 +958,6 @@ def test_sine_feats_and_coord_update_match_pytorch(dev):
     assert feats.shape == (77, 64) and feats.dtype == torch.bfloat16
     # one bf16 ulp of values up to 1
     assert (feats.float() - ref).abs().max().item() <= 2 ** -8
-    dd = torch.randn(154, 2, generator=g).to(dev)
-    pts, outs = torch.empty_like(ct), torch.empty_like(ct)
-    K.coord_update(ct, dd, pts, outs)
-    inv = inverse_sigmoid(ct)
-    torch.testing.assert_close(pts, torch.sigmoid(inv + dd[:77]), rtol=0,
-                               atol=1e-6)
-    torch.testing.assert_close(outs, torch.sigmoid(inv + dd[77:]), rtol=0,
-                               atol=1e-6)
 
 
 def _small_decoder(dev, layers, bias, seed=1, c=64, heads=2, ffn=96, nf=32):
@@ -987,22 +1022,27 @@ def test_fused_decoder_stack_matches_plain(dev, bias):
 
 
 def test_decoder_stack_weight_cache_follows_the_parameters(dev):
-    """The prepared weights are rebuilt when a parameter is written (a
-    load_state_dict) or replaced (a cast of the module)."""
+    """The prepared weights, the stack's own and each layer's, are rebuilt
+    when a parameter is written (a load_state_dict) or replaced (a cast of
+    the module)."""
     from edgecape_tpu_torch.ops import fused_decoder as FD
-    args = _small_decoder_inputs(dev)
-    kw = dict(num_heads=2, num_feats=32)
+    width = dict(c=256, heads=8, ffn=384, nf=128)
+    args = _small_decoder_inputs(dev, c=256)
+    kw = dict(num_heads=8, num_feats=128)
     with torch.no_grad():
-        dec = _small_decoder(dev, 1, True)
+        dec = _small_decoder(dev, 1, True, **width)
         first, _ = FD.fused_decoder_stack(*args, dec, **kw)
         cached = dec._stack_cache[1]
+        layer_cached = dec.layers[0]._kernel_weights[1]
         FD.fused_decoder_stack(*args, dec, **kw)
         assert dec._stack_cache[1] is cached          # reused
-        other = _small_decoder(dev, 1, True, seed=5)
+        assert dec.layers[0]._kernel_weights[1] is layer_cached
+        other = _small_decoder(dev, 1, True, seed=5, **width)
         dec.load_state_dict(other.state_dict())
         second, _ = FD.fused_decoder_stack(*args, dec, **kw)
         want, _ = FD.fused_decoder_stack(*args, other, **kw)
         assert dec._stack_cache[1] is not cached
+        assert dec.layers[0]._kernel_weights[1] is not layer_cached
         assert torch.equal(second, want) and not torch.equal(second, first)
         dec.to(torch.bfloat16)
         third, _ = FD.fused_decoder_stack(*args, dec, **kw)
@@ -1036,3 +1076,30 @@ def test_mm_chain_matches_plain_and_fold_equals_loop(dev, b, g, n, c, f, reps):
     assert torch.equal(MC.mm_chain(x, w1, w2, 0, g, True), x)
     with pytest.raises(ValueError):
         MC.mm_chain(x[..., :64].contiguous(), w1[:64], w2[:, :64], 1, g, True)
+
+
+def test_decoder_stack_launches(dev):
+    """One call of the three-layer stack is 3 + 9 x 3 kernels: the k / v
+    / kpos GEMMs, then per layer sine_feats, the two ref_point_head GEMMs,
+    the qkv GEMM, the bias attention, dec_post_self, the cross-attention,
+    dec_post_cross and the keypoint head; no GEMM on the thread-copy
+    mainloop and no other attention form."""
+    from edgecape_tpu_torch.ops import fused_decoder as FD
+    from edgecape_tpu_torch.ops import kernels as K
+    dec = _small_decoder(dev, 3, True, c=256, heads=8, ffn=384, nf=128)
+    args = [t.to(torch.bfloat16) if t.is_floating_point() and i != 1 else t
+            for i, t in enumerate(_small_decoder_inputs(dev, c=256))]
+    kw = dict(num_heads=8, num_feats=128)
+    with torch.no_grad():
+        n0 = dict(K.stack_kernel_launches)
+        c0 = K.gemm_launches["copy"]
+        names = _kernel_names(lambda: FD.fused_decoder_stack(*args, dec, **kw))
+        assert K.gemm_launches["copy"] == c0
+        assert K.stack_kernel_launches == {k: v + 2 * 3 for k, v in n0.items()}
+    assert len(names) == 3 + 9 * 3, names
+    assert sum("bias_attn_kernel" in n for n in names) == 3
+    assert sum("kpt_head_kernel" in n for n in names) == 3
+    assert sum("dec_post_self_kernel" in n for n in names) == 3
+    assert sum("dec_post_cross_kernel" in n for n in names) == 3
+    assert not any("gemm_kernel<" in n for n in names)
+
