@@ -34,9 +34,9 @@ Phases (any failure exits non-zero before the last line):
    mainloop and the thread-copy one against a float64 reference, their
    times, TFLOP/s, bound, torch.matmul, and which mainloop the dispatch
    takes. Every [op] line of a fused op counts its GEMMs by mainloop;
-   the encoder stack's and the decoder layer's lines add their device
-   time, kernels per call (at most 10 and 8) and ms by kernel, and the
-   encoder's
+   the ViT block's, the encoder stack's and the decoder layer's lines add
+   their device time, kernels per call (at most 5, 10 and 8) and ms by
+   kernel, and the encoder's
    library time is that of nn.TransformerEncoderLayer;
 3. the main path: a stage-3 PoseEstimator (learned skeleton + Markov
    bias, K=100, 224 px, 1 shot, bf16 compute and head dtype, full
@@ -45,8 +45,9 @@ Phases (any failure exits non-zero before the last line):
    loop over 3 chunks of 34 episode groups x 15 queries built in memory;
    predictions are decoded on the host and scored (PCK); the launch
    counters must show every kernel op ran as often as the path implies,
-   every GEMM of it the TMA + wgmma mainloop and each layer of the
-   encoder and the decoder its post-attention kernels once;
+   every GEMM of it the TMA + wgmma mainloop, each layer of the
+   encoder and the decoder its post-attention kernels once and each ViT
+   block vit_mlp_kernel (its MLP half) once;
    one chunk is compared with the same weights on the plain (no kernel)
    path on the card; one more chunk of the kernel path runs under
    torch.profiler, which gives device time by kernel and the device's
@@ -65,9 +66,12 @@ Phases (any failure exits non-zero before the last line):
    (use_flash=False). Prints ms/step of both paths and profiles one warm
    step;
 5. the kernel-variant ops against their plain versions at the eval
-   chunk's shapes: fused_ln_mlp and fused_attn_block at [510, 257, 384];
-   fused_vit_block2 bit-equal to two fused_vit_block calls (bf16 and fp32
-   input) and each of its blocks against the plain block;
+   chunk's shapes: fused_ln_mlp (one vit_mlp_kernel launch, no GEMM) and
+   fused_attn_block at [510, 257, 384]; vit_mlp_kernel at every shape the
+   paths give it against the three launches it replaced
+   (tools/bench_vit_mlp.py); fused_vit_block2 bit-equal to two
+   fused_vit_block calls (bf16 and fp32 input), each of its blocks
+   against the plain block, nine kernels a call;
    the decoder stack's own kernels, the bias attention and the keypoint
    head, each against its plain version at 510 rows, K=100;
    fused_decoder_stack (510 rows, K=100, 256 image tokens, C=256, 3
@@ -246,6 +250,18 @@ def bound(n_bytes: float, flops: float, f32_flops: float = 0.0):
         else "operations"
 
 
+def finite(obj):
+    """obj with every nan or infinite float replaced by None (a measurement
+    that was not taken), so that the kernels line is strict JSON."""
+    if isinstance(obj, float) and not math.isfinite(obj):
+        return None
+    if isinstance(obj, dict):
+        return {k: finite(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [finite(v) for v in obj]
+    return obj
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -285,7 +301,8 @@ def randomize(module, rn, dev):
 
 
 def check_op(entries, bad, name, replaces, op_src, out, ref, kern, plain,
-             bnd, library=None, counter=None, extra="", copy_gemms=None):
+             bnd, library=None, counter=None, extra="", copy_gemms=None,
+             tma_gemms=None):
     """One [op] line and one entry of the kernels line: the kernel's
     output `out` against the plain version's `ref` within ATOL + RTOL *
     |ref| (mean within MEAN_TOL), the times of kern() and plain() and of
@@ -293,7 +310,8 @@ def check_op(entries, bad, name, replaces, op_src, out, ref, kern, plain,
     op's launch counter, which one call of kern() must raise by one. The
     line also says how many GEMMs of one call took the TMA + wgmma
     mainloop and how many the thread-copy loader; copy_gemms: how many
-    may take the latter (operands a tensor map cannot describe)."""
+    may take the latter (operands a tensor map cannot describe);
+    tma_gemms: how many must take the former."""
     from edgecape_tpu_torch.ops import kernels as KN
     before = dict(KN.gemm_launches)
     kern()
@@ -303,6 +321,9 @@ def check_op(entries, bad, name, replaces, op_src, out, ref, kern, plain,
     if copy_gemms is not None and gemms["copy"] != copy_gemms:
         bad.append(f"{name}: {gemms['copy']} GEMMs took the thread-copy "
                    f"loader, {copy_gemms} may")
+    if tma_gemms is not None and gemms["tma"] != tma_gemms:
+        bad.append(f"{name}: {gemms['tma']} TMA GEMMs per call, "
+                   f"{tma_gemms} expected")
     if counter is not None:
         n0 = getattr(*counter)
         kern()
@@ -332,6 +353,28 @@ def check_op(entries, bad, name, replaces, op_src, out, ref, kern, plain,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bnd[0], "bound_by": bnd[1],
                      "library_ms": lib_ms, "gemms_per_call": gemms}
+
+
+def device_extra(name, kern, cap, bad, must_run=()):
+    """The [op] line's device part: device time and kernels per call of
+    kern() (profiler; nan: three traces lost device events, the count is
+    then not measured) and ms a call by kernel. Fails the op when a call
+    launches more than `cap` kernels or a kernel named in must_run is
+    missing from a trace that has device events. Returns (text, device
+    ms, kernels per call)."""
+    from edgecape_tpu_torch.tools import bench_attention as BA
+    dev_ms, per_call = BA.device_ms(kern)
+    by_name = BA.kernel_ms(kern)
+    by_kernel = ", ".join(
+        f"{k.split('(')[0].replace('void ', '')} {ms:.4f}"
+        for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1]))
+    if per_call > cap:
+        bad.append(f"{name}: {per_call} kernels per call")
+    if by_name and not all(any(n in k for k in by_name) for n in must_run):
+        bad.append(f"{name}: a kernel of {must_run} is missing from its trace")
+    return (f"; device {dev_ms:.4f} ms in {per_call:g} kernels per call (at "
+            f"most {cap}; ms a call by kernel: {by_kernel or 'not measured'})",
+            dev_ms, per_call)
 
 
 def main_path_config():
@@ -388,7 +431,6 @@ def op_checks(dev, entries):
     from edgecape_tpu_torch.models.dinov2 import VIT_S14, Block
     from edgecape_tpu_torch.models.transformer import (DecoderLayer,
                                                        EncoderLayer)
-    from edgecape_tpu_torch.tools import bench_attention as BA
 
     g, rn = seeded_randn(SEED, dev)
     nq, hw, c, ffn = GROUPS * QUERIES, 256, 256, 384
@@ -503,28 +545,24 @@ def op_checks(dev, entries):
     bad = []
     with torch.no_grad():
         fast = fast_path_taken(library_stack)
-        # kernels and copies one call may put on the device: the stack's
-        # add_pos and 3 per layer (qkv GEMM, attention, enc_post_kernel),
-        # the decoder layer's 8 (qkv, attention, dec_post_self_kernel,
-        # kpos, k, v GEMMs, attention, dec_post_cross_kernel)
-        launch_cap = {"fused_encoder_stack": 1 + 3 * len(enc),
+        # kernels and copies one call may put on the device: the ViT
+        # block's 5 (LN1, qkv GEMM, attention, proj GEMM, vit_mlp_kernel),
+        # the stack's add_pos and 3 per layer (qkv GEMM, attention,
+        # enc_post_kernel), the decoder layer's 8 (qkv, attention,
+        # dec_post_self_kernel, kpos, k, v GEMMs, attention,
+        # dec_post_cross_kernel); and the GEMMs of a ViT block (qkv, proj:
+        # no fc1, no fc2)
+        launch_cap = {"fused_vit_block": 5,
+                      "fused_encoder_stack": 1 + 3 * len(enc),
                       "fused_decoder_layer": 8}
+        must_run = {"fused_vit_block": ("vit_mlp_kernel",)}
+        tma_gemms = {"fused_vit_block": 2}
         for name, replaces, op_src, kern, plain, pairs in cases:
             out, ref = pairs() if pairs else (kern(), plain())
             extra, cap = "", launch_cap.get(name)
             if cap is not None:
-                # nan: three traces lost device events; the time is then
-                # CUDA events' and the count not measured
-                dev_ms, per_call = BA.device_ms(kern)
-                by_kernel = ", ".join(
-                    f"{k.split('(')[0].replace('void ', '')} {ms:.4f}"
-                    for k, ms in sorted(BA.kernel_ms(kern).items(),
-                                        key=lambda kv: -kv[1]))
-                extra = (f"; device {dev_ms:.4f} ms in {per_call:g} kernels "
-                         f"per call (at most {cap}; ms a call by kernel: "
-                         f"{by_kernel or 'not measured'})")
-                if per_call > cap:
-                    bad.append(f"{name}: {per_call} kernels per call")
+                extra, dev_ms, per_call = device_extra(
+                    name, kern, cap, bad, must_run.get(name, ()))
             if name == "fused_encoder_stack":
                 extra += (f"; library: {len(enc)} x nn.TransformerEncoderLayer"
                           f" (bf16, eval, inference mode), fast path "
@@ -532,7 +570,8 @@ def op_checks(dev, entries):
             # every GEMM of these ops takes the TMA + wgmma mainloop
             check_op(entries, bad, name, replaces, op_src, out, ref, kern,
                      plain, bounds[name], library=library.get(name),
-                     copy_gemms=0, extra=extra)
+                     copy_gemms=0, tma_gemms=tma_gemms.get(name),
+                     extra=extra)
             if cap is not None:
                 entries[name].update(device_ms=dev_ms,
                                      kernels_per_call=per_call)
@@ -639,6 +678,7 @@ def main_path(dev, entries, power):
         setattr(mod, attr, 0)
     KN.gemm_launches.update(tma=0, copy=0)
     KN.post_launches.update(enc_post=0, dec_post_self=0, dec_post_cross=0)
+    KN.mlp_launches.update(vit_mlp=0)
     t0 = time.perf_counter()
     timings = run_cached(est, [(i, GROUPS) for i in range(CHUNKS)],
                          lambda i: data[i], on_chunk)
@@ -655,25 +695,28 @@ def main_path(dev, entries, power):
               "fused_encoder_layer": 3 * CHUNKS,
               "fused_decoder_layer": 3 * CHUNKS,
               "flash_mha": 3 * CHUNKS}
-    # 24 x 4 GEMMs of the ViT blocks, 3 x 1 of the encoder layers (qkv),
-    # 3 x 4 of the decoder layers (qkv, kpos, k, v), all on the TMA +
-    # wgmma mainloop; one post-attention kernel of each kind a layer
-    expect_gemms = {"tma": (24 * 4 + 3 * 1 + 3 * 4) * CHUNKS, "copy": 0}
-    post = dict(KN.post_launches)
+    # 24 x 2 GEMMs of the ViT blocks (qkv, proj), 3 x 1 of the encoder
+    # layers (qkv), 3 x 4 of the decoder layers (qkv, kpos, k, v), all on
+    # the TMA + wgmma mainloop; one post-attention kernel of each kind a
+    # layer; one vit_mlp_kernel a ViT block (its MLP half)
+    expect_gemms = {"tma": (24 * 2 + 3 * 1 + 3 * 4) * CHUNKS, "copy": 0}
+    post = dict(KN.post_launches, **KN.mlp_launches)
     expect_post = {"enc_post": 3 * CHUNKS, "dec_post_self": 3 * CHUNKS,
-                   "dec_post_cross": 3 * CHUNKS}
+                   "dec_post_cross": 3 * CHUNKS, "vit_mlp": 24 * CHUNKS}
     print(f"[path] launches {counts} expected {expect}; GEMM launches by "
-          f"mainloop {gemms} expected {expect_gemms}; post-attention "
-          f"kernels {post} expected {expect_post}", flush=True)
+          f"mainloop {gemms} expected {expect_gemms}; post-attention and "
+          f"MLP kernels {post} expected {expect_post}", flush=True)
     for name in ("fused_vit_block", "fused_encoder_stack",
                  "fused_decoder_layer", "flash_mha"):
         entries[name]["launches"] = counts[name]
+    entries["fused_vit_block"]["vit_mlp_kernel_launches"] = post["vit_mlp"]
     if counts != expect:
         fail("launch counts differ from what the main path implies")
     if gemms != expect_gemms:
         fail("a GEMM of the main path did not take the mainloop it should")
     if post != expect_post:
-        fail("the post-attention kernels did not run once a layer")
+        fail("the post-attention kernels did not run once a layer or the "
+             "MLP kernel once a ViT block")
 
     nq = GROUPS * QUERIES
     bad = []
@@ -1448,16 +1491,28 @@ def variant_op_checks(dev, entries, power):
                     blk_a.mlp_fc2.weight.t().contiguous(), blk_a.mlp_fc2.bias,
                     blk_a.ls2)
         xb = 2 * nbytes(x)
+        # one vit_mlp_kernel a call, no GEMM
+        mlp_call = lambda: FM.fused_ln_mlp(x, *mlp_args)  # noqa: E731
+        mlp_out = mlp_call()
+        extra, dev_ms, per_call = device_extra(
+            "fused_ln_mlp", mlp_call, 1, bad, ("vit_mlp_kernel",))
         check_op(entries, bad, "fused_ln_mlp",
                  "edgecape_tpu/ops/fused_mlp.py:67",
-                 "edgecape_tpu_torch/ops/fused_mlp.py",
-                 FM.fused_ln_mlp(x, *mlp_args),
-                 FM.fused_ln_mlp_plain(x, *mlp_args),
-                 lambda: FM.fused_ln_mlp(x, *mlp_args),
+                 "edgecape_tpu_torch/ops/fused_mlp.py", mlp_out,
+                 FM.fused_ln_mlp_plain(x, *mlp_args), mlp_call,
                  lambda: FM.fused_ln_mlp_plain(x, *mlp_args),
                  bound(xb + nbytes(*mlp_args),
                        2 * nq * n_tok * 8 * c_vit ** 2),
-                 counter=(FM, "launches"))
+                 counter=(FM, "launches"), copy_gemms=0, tma_gemms=0,
+                 extra=extra)
+        entries["fused_ln_mlp"].update(device_ms=dev_ms,
+                                       kernels_per_call=per_call)
+        # vit_mlp_kernel at every shape the paths give it, beside the chain
+        # of three launches it replaced (tools/bench_vit_mlp.py)
+        from edgecape_tpu_torch.tools import bench_vit_mlp as BVM
+        rows = [BVM.run_case(spec, dev, power) for spec in BVM.SHAPES]
+        bad += [f"vit_mlp {r['shape']}" for r in rows if not r["ok"]]
+        entries["fused_ln_mlp"]["vit_mlp_shapes"] = rows
         check_op(entries, bad, "fused_attn_block",
                  "edgecape_tpu/ops/fused_attn_block.py:100",
                  "edgecape_tpu_torch/ops/fused_attn_block.py",
@@ -1492,18 +1547,26 @@ def variant_op_checks(dev, entries, power):
                                              eps=1e-6)])
         one_ms = time_ms(lambda: FV.fused_vit_block(x, blk_a, num_heads=6,
                                                     eps=1e-6))
+        # nine kernels a call: LN1, then per block the qkv GEMM, attention,
+        # the proj GEMM and vit_mlp_kernel (the first block's writes the
+        # second block's LN1)
+        pair_call = lambda: FV.fused_vit_block2(  # noqa: E731
+            x, blk_a, blk_b, num_heads=6, eps=1e-6)
+        extra, dev_ms, per_call = device_extra(
+            "fused_vit_block2", pair_call, 9, bad, ("vit_mlp_kernel",))
         check_op(entries, bad, "fused_vit_block2",
                  "edgecape_tpu/ops/fused_vit_block.py:248",
                  "edgecape_tpu_torch/ops/fused_vit_block.py", outs, refs,
-                 lambda: FV.fused_vit_block2(x, blk_a, blk_b, num_heads=6,
-                                             eps=1e-6),
+                 pair_call,
                  lambda: FV.fused_vit_block2_plain(x, blk_a, blk_b,
                                                    num_heads=6, eps=1e-6),
                  bound(xb + param_bytes(blk_a, blk_b),
                        2 * (2 * nq * n_tok * 12 * c_vit ** 2
                             + 4 * nq * n_tok ** 2 * c_vit)),
-                 counter=(FV, "launches2"),
-                 extra=f"; one fused_vit_block {one_ms:.3f} ms")
+                 counter=(FV, "launches2"), copy_gemms=0, tma_gemms=4,
+                 extra=f"; one fused_vit_block {one_ms:.3f} ms{extra}")
+        entries["fused_vit_block2"].update(device_ms=dev_ms,
+                                           kernels_per_call=per_call)
 
         # fused_decoder_stack at the chunk's decoder shape
         hw, c, heads, ffn, layers, nf, nhop = 256, 256, 8, 384, 3, 128, 5
@@ -1729,6 +1792,7 @@ def variant_path(dev, entries, power, est, data, default_preds, tuned_out):
         preds = []
         FV.launches = FV.launches2 = FD.launches = FD.stack_launches = 0
         KN.stack_kernel_launches.update(bias_attention=0, kpt_head=0)
+        KN.mlp_launches.update(vit_mlp=0)
         t0 = time.perf_counter()
         run_cached(est, chunks, lambda i: data[i],
                    lambda pred, *a: preds.append(pred))
@@ -1738,7 +1802,7 @@ def variant_path(dev, entries, power, est, data, default_preds, tuned_out):
                   "fused_vit_block2": FV.launches2,
                   "fused_decoder_layer": FD.launches,
                   "fused_decoder_stack": FD.stack_launches,
-                  **KN.stack_kernel_launches}
+                  **KN.stack_kernel_launches, **KN.mlp_launches}
         return preds, wall, counts
 
     try:
@@ -1746,12 +1810,14 @@ def variant_path(dev, entries, power, est, data, default_preds, tuned_out):
         preds, wall, counts = run(True, True)
         expect = {"fused_vit_block": 0, "fused_vit_block2": 12 * CHUNKS,
                   "fused_decoder_layer": 0, "fused_decoder_stack": CHUNKS,
-                  "bias_attention": 3 * CHUNKS, "kpt_head": 3 * CHUNKS}
+                  "bias_attention": 3 * CHUNKS, "kpt_head": 3 * CHUNKS,
+                  "vit_mlp": 24 * CHUNKS}
         print(f"[variant] both switches on: launches {counts} expected "
               f"{expect} ({CHUNKS} chunks: per chunk 12 fused_vit_block2 "
-              f"over the two backbone passes and 1 fused_decoder_stack, whose "
-              f"3 layers launch the bias attention and the keypoint head "
-              f"once each)", flush=True)
+              f"over the two backbone passes, each with two vit_mlp_kernel "
+              f"launches, and 1 fused_decoder_stack, whose 3 layers launch "
+              f"the bias attention and the keypoint head once each)",
+              flush=True)
         if counts != expect:
             fail("variant path launch counts differ from what it implies")
         for name in ("fused_vit_block2", "fused_decoder_stack",
@@ -2259,7 +2325,7 @@ def main() -> None:
     probe_tool(entries, power)
     torch.cuda.empty_cache()
     disk_path(dev, entries, power)
-    print(json.dumps({"kernels": list(entries.values())}), flush=True)
+    print(json.dumps({"kernels": finite(list(entries.values()))}), flush=True)
     print(power, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

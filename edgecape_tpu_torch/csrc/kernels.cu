@@ -16,7 +16,11 @@
 //                   describe, tiles copied by the threads (cp.async) and
 //                   multiplied by WMMA;
 //   * ec_layernorm  row LayerNorm with fp32 statistics and an optional
-//                   residual input, fp32 and/or bf16 outputs;
+//                   residual input, fp32 and/or bf16 outputs, its sums in
+//                   the order vit_mlp_kernel's epilogue shares;
+//   * ec_vit_mlp    the ViT MLP half as one kernel: y = x + ls * (bf16(
+//                   gelu(bf16(LN(x)) . W1 + b1)) . W2 + b2), the hidden on
+//                   chip, optionally the next block's bf16 LN(bf16(y));
 //   * ec_attention  short-sequence attention on mma.sync tensor-core
 //                   tiles with every score kept in registers: a warp per
 //                   16-row query tile, query tiles split over blocks,
@@ -960,8 +964,30 @@ extern "C" int ec_gemm(const void* A, long lda, long sA,
 // ------------------------------------------------------------- LayerNorm
 // One warp per row of C <= 512 values: y = LN(x + r) * gamma + beta with
 // fp32 mean and (two-pass) variance; writes fp32 and/or bf16 rows.
+//
+// One summation order, shared with vit_mlp_kernel's epilogue (a quad of
+// threads a row there) so that the two give the same bits: lane l = 4 v +
+// t holds the columns 64 k + 2 l + e (k ascending, then e < 2) and sums
+// them in that order; the 32 partial sums meet in the butterfly of lanes
+// 16, 8, 4, 2 and 1 apart (warp_sum). Every step is rounded on its own
+// (the _rn intrinsics), so that the compiler contracts nothing
+// differently in the two kernels.
 
 #define LN_MAXV 16
+
+__device__ __forceinline__ float ln_mean(float sum, int C) { return __fdiv_rn(sum, (float)C); }
+__device__ __forceinline__ float ln_inv(float sq, int C, float eps) {
+  return rsqrtf(__fadd_rn(__fdiv_rn(sq, (float)C), eps));
+}
+// q + (v - mean)^2
+__device__ __forceinline__ float ln_sq(float q, float v, float mean) {
+  const float d = __fsub_rn(v, mean);
+  return __fmaf_rn(d, d, q);
+}
+// (v - mean) * inv * g + b
+__device__ __forceinline__ float ln_apply(float v, float mean, float inv, float g, float b) {
+  return __fmaf_rn(__fmul_rn(__fsub_rn(v, mean), inv), g, b);
+}
 
 __global__ void layernorm_kernel(const void* x, int x_dt, long ldx,
                                  const void* r, int r_dt, long ldr,
@@ -975,31 +1001,28 @@ __global__ void layernorm_kernel(const void* x, int x_dt, long ldx,
   float s = 0.0f;
 #pragma unroll
   for (int i = 0; i < LN_MAXV; ++i) {
-    const int c = lane + 32 * i;
+    const int c = 64 * (i >> 1) + 2 * lane + (i & 1);
     v[i] = 0.0f;
     if (c < C) {
       float t = ld_val(x, x_dt, row * ldx + c);
-      if (r) t += ld_val(r, r_dt, row * ldr + c);
+      if (r) t = __fadd_rn(t, ld_val(r, r_dt, row * ldr + c));
       v[i] = t;
-      s += t;
+      s = __fadd_rn(s, t);
     }
   }
-  const float mean = warp_sum(s) / C;
+  const float mean = ln_mean(warp_sum(s), C);
   float q = 0.0f;
 #pragma unroll
   for (int i = 0; i < LN_MAXV; ++i) {
-    const int c = lane + 32 * i;
-    if (c < C) {
-      const float d = v[i] - mean;
-      q += d * d;
-    }
+    const int c = 64 * (i >> 1) + 2 * lane + (i & 1);
+    if (c < C) q = ln_sq(q, v[i], mean);
   }
-  const float inv = rsqrtf(warp_sum(q) / C + eps);
+  const float inv = ln_inv(warp_sum(q), C, eps);
 #pragma unroll
   for (int i = 0; i < LN_MAXV; ++i) {
-    const int c = lane + 32 * i;
+    const int c = 64 * (i >> 1) + 2 * lane + (i & 1);
     if (c < C) {
-      const float y = (v[i] - mean) * inv * gamma[c] + beta[c];
+      const float y = ln_apply(v[i], mean, inv, gamma[c], beta[c]);
       if (of) of[row * ldof + c] = y;
       if (ob) ob[row * ldob + c] = __float2bfloat16(y);
     }
@@ -2768,6 +2791,14 @@ struct PaRing {
     tma_load_3d(dst + PA_UNIT / 2, map, bar, c + 64, r, 0);
     ++it;
   }
+  // producer: two [64 x 64] boxes (column c, rows r and r + 64)
+  __device__ __forceinline__ void load2_rows(const CUtensorMap* map, int c, int r) {
+    uint64_t* bar = arm(PA_UNIT);
+    unsigned char* dst = slots + (it % S) * PA_UNIT;
+    tma_load_3d(dst, map, bar, c, r, 0);
+    tma_load_3d(dst + PA_UNIT / 2, map, bar, c, r + 64, 0);
+    ++it;
+  }
   // consumers: wait for the next slot; its shared address, ready for
   // products (wgmma.fence issued)
   __device__ __forceinline__ unsigned next() {
@@ -3479,15 +3510,20 @@ static_assert(KH_SMEM <= 232448, "the keypoint head exceeds the shared memory of
 
 // Exact-erf GELU with the TPU kernel's own erf (Abramowitz & Stegun
 // 7.1.26, edgecape_tpu/ops/fused_decoder.py _erf: within 1.5e-7 of erf):
-// a reciprocal, five multiply-adds and one exponential, about half the
-// instructions of erff, on the 3 x 128 values a thread rounds a tile.
+// an approximate reciprocal, five multiply-adds and an approximate
+// exponential, written out (__fdividef and __expf add range checks):
+// about 16 instructions and two MUFU operations a value, under half the
+// instructions of erff.
 __device__ __forceinline__ float gelu_as(float x) {
-  const float z = x * 0.70710678118654752f, az = fabsf(z);
-  const float t = __fdividef(1.0f, fmaf(0.3275911f, az, 1.0f));
+  float t, e;
+  const float az = fabsf(x) * 0.70710678118654752f;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(fmaf(0.3275911f, az, 1.0f)));
   const float poly =
       t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f), 1.421413741f),
                        -0.284496736f), 0.254829592f);
-  return 0.5f * x * (1.0f + copysignf(1.0f - poly * __expf(-az * az), z));
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(az * az * -1.4426950408889634f));
+  const float hx = 0.5f * x;
+  return fmaf(hx, copysignf(fmaf(-poly, e, 1.0f), x), hx);
 }
 
 struct KptHeadArgs {
@@ -3626,6 +3662,466 @@ __global__ void __launch_bounds__(PA_THREADS, 1)
           dst[2 * r + o] = 1.0f / (1.0f + expf(-(inv + (dd[rh][o] + p.bo[o]))));
         }
       }
+    }
+  }
+}
+
+// ---- the ViT block's MLP half (ops/fused_mlp.py fused_ln_mlp, #9, and
+// the second half of ops/fused_vit_block.py, #1 / #2) as one kernel:
+// y = x + ls * (bf16(gelu(bf16(LN(x)) . W1 + b1)) . W2 + b2) with the
+// rounding points of the TPU kernels edgecape_tpu/ops/fused_mlp.py
+// _kernel and fused_vit_block.py _block_body (fp32 LayerNorm statistics
+// of x as given, h rounded to bf16, the hidden rounded to bf16 after the
+// exact-erf GELU, the residual from x unrounded), y stored as out_dt; and
+// optionally h_next = bf16(LN'(bf16(y))), the next block's LN1.
+//
+// Bound at [131070 rows, 384], F 1536: 309 GFLOP, 0.31 ms at the bf16
+// peak, against 0.2-0.3 GB of rows in and out. The chain it replaces
+// (LayerNorm, fc1 with GELU, fc2 with the residual) wrote the [R, 1536]
+// bf16 hidden (403 MB) and read it back, and made LN2 a launch of its
+// own. Design:
+//   * 256 threads: two consumer warpgroups of 64 rows of a 128-row tile
+//     each, and no producer warps, so that a thread may hold 255
+//     registers (with a producer warpgroup, setmaxnreg leaves 240, and
+//     ptxas spilled the loop's state around the 192 output registers);
+//   * W1 and W2 stream by TMA through a ring of 8 slots of 16 KB in the
+//     order the warpgroups use them, the same for every tile (so from L2),
+//     each block starting at its own chunk (when all blocks asked for the
+//     same lines at once, the query pass took longer); each of the 8
+//     warps counts its release of a slot in shared memory, and the warp
+//     whose release is the eighth issues the slot's next load at once:
+//     nobody waits for a slot to be freed;
+//   * the LayerNorm prologue: a warp takes 16 rows from device memory
+//     (fp32 or bf16), a lane the columns 64 k + 2 l + e, and writes bf16 h
+//     into 6 swizzled [128 x 64] slabs (96 KB); an fp32 tile (192 KB)
+//     would not fit beside the ring;
+//   * a warpgroup's 64 x 384 fp32 output stays in registers (3 x m64n128,
+//     192 a thread); the hidden goes in chunks of 64 columns: fc1 as
+//     wgmma m64n64 from shared memory into 32 registers, bias and GELU
+//     (gelu_as) on them, packed to bf16 as the A fragments of fc2, whose
+//     wgmma takes A from registers (the layout of an m64n64 accumulator is
+//     that of four k16 A fragments). No hidden value reaches shared or
+//     device memory;
+//   * each warpgroup's GELU and epilogue run under the other's products
+//     as far as the shared ring lets them drift apart (8 slots);
+//   * W1 and W2 are read as torch Linear weights (K-major: [F, C], [C, F])
+//     or as the JAX function takes them (MN-major: [C, F], [F, C]), by the
+//     transpose bit of wgmma: no transposed copy;
+//   * the epilogue re-reads x (L2-hot since the prologue) and, with the
+//     next LayerNorm, sums bf16(y) in layernorm_kernel's order.
+// The grid is persistent, one block an SM (225 KB of shared memory).
+#define VM_C 384              // channels
+#define VM_ROWS 128           // rows of a tile
+#define VM_CHUNK 64           // hidden columns of a chunk
+#define VM_THREADS 256        // two consumer warpgroups
+#define VM_STAGES 8
+// the slabs and the slots (aligned to 1024 bytes in the kernel), then a
+// full barrier and a release counter per slot
+#define VM_SMEM (1024 + (6 + VM_STAGES) * PA_SLAB + VM_STAGES * (8 + 4))
+static_assert(VM_SMEM <= 232448, "vit_mlp_kernel exceeds the shared memory of a block");
+
+// d += a . b for one m64n128k16 tile, a in registers (four bf16 pairs a
+// thread, the m16n8k16 A fragment of the thread's warp), b in shared
+// memory. TB: b is MN-major.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const unsigned (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+// fc1 of a chunk from one slot: the warpgroup's 64 rows (h slabs 2 s and
+// 2 s + 1, descriptor hd of the first slab's first byte) times the
+// chunk's 64 hidden columns (the slot w). An A descriptor is hd plus the
+// offset >> 4 (shared addresses stay below 2^18, so the 14-bit address
+// field does not carry).
+template <bool KMAJ>
+__device__ __forceinline__ void vm_fc1_slot(float (&f)[32], uint64_t hd, unsigned w, int s) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = hd + (((2 * s + ks) * PA_SLAB + kk * 32) >> 4);
+      // K-major: a [64 n x 64 k] box; MN-major: a [64 k x 64 n] box
+      if (KMAJ)
+        wgmma_m64n64k16<0>(f, da, wg_desc(w + ks * (PA_UNIT / 2) + kk * 32, 16));
+      else
+        wgmma_m64n64k16<1>(f, da, wg_desc(w + ks * (PA_UNIT / 2) + kk * 2048, PA_UNIT / 2));
+    }
+}
+
+struct VitMlpArgs {
+  const void* x; int x_dt;       // [R, 384]
+  const float *g, *be, *b1, *b2, *ls;
+  void* out; int out_dt;         // [R, 384]
+  const float *gn, *ben;         // the next LayerNorm, with hn
+  bf16* hn;                      // [R, 384] or null
+  int R, F;
+  float eps;
+};
+
+// The prologue: LayerNorm of tile rows lrow0 .. lrow0 + 15 by one warp,
+// lane l the columns 64 k + 2 l + e (layernorm_kernel's order), bf16 into
+// the swizzled slabs; rows past R are zeros.
+__device__ __forceinline__ void vm_prologue(const VitMlpArgs& p, unsigned char* hs, long row0,
+                                            int lrow0, int lane) {
+  float2 g[6], b[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    g[k] = __ldg(reinterpret_cast<const float2*>(p.g + 64 * k + 2 * lane));
+    b[k] = __ldg(reinterpret_cast<const float2*>(p.be + 64 * k + 2 * lane));
+  }
+#pragma unroll 4
+  for (int i = 0; i < 16; ++i) {
+    const int lrow = lrow0 + i;
+    const long r = row0 + lrow;
+    unsigned hv[6];
+    if (r < p.R) {
+      float v[12];
+      if (p.x_dt == DT_F32) {
+        const float* xr = static_cast<const float*>(p.x) + r * VM_C + 2 * lane;
+#pragma unroll
+        for (int k = 0; k < 6; ++k) {
+          const float2 u = __ldg(reinterpret_cast<const float2*>(xr + 64 * k));
+          v[2 * k] = u.x;
+          v[2 * k + 1] = u.y;
+        }
+      } else {
+        const bf16* xr = static_cast<const bf16*>(p.x) + r * VM_C + 2 * lane;
+#pragma unroll
+        for (int k = 0; k < 6; ++k) {
+          const unsigned u = __ldg(reinterpret_cast<const unsigned*>(xr + 64 * k));
+          v[2 * k] = __uint_as_float(u << 16);
+          v[2 * k + 1] = __uint_as_float(u & 0xffff0000u);
+        }
+      }
+      float s = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 12; ++e) s = __fadd_rn(s, v[e]);
+      const float mean = ln_mean(warp_sum(s), VM_C);
+      float q = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 12; ++e) q = ln_sq(q, v[e], mean);
+      const float inv = ln_inv(warp_sum(q), VM_C, p.eps);
+#pragma unroll
+      for (int k = 0; k < 6; ++k)
+        hv[k] = pack_bf16(ln_apply(v[2 * k], mean, inv, g[k].x, b[k].x),
+                          ln_apply(v[2 * k + 1], mean, inv, g[k].y, b[k].y));
+    } else {
+#pragma unroll
+      for (int k = 0; k < 6; ++k) hv[k] = 0u;
+    }
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      *reinterpret_cast<unsigned*>(hs + sw_off(lrow, 64 * k + 2 * lane)) = hv[k];
+  }
+}
+
+// The sum over a row of a warpgroup's 64 x 384 tile in accumulator layout
+// (a[h][4 j + 2 rh + e]: column 128 h + 8 j + 2 t + e of row half rh), in
+// layernorm_kernel's order: this thread t of the quad holds the columns of
+// the lanes 4 v + t, v < 8 (v = j % 8, k = 2 h + j / 8); it sums each
+// v's in that lane's order, forms the butterfly's steps 16, 8 and 4 apart
+// in registers and then 2 and 1 apart by shuffles. SQ: the sum of squared
+// deviations from `mean` instead.
+template <bool SQ>
+__device__ __forceinline__ float vm_row_sum(const float (&a)[3][64], int rh, float mean) {
+  float pv[8];
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    float s = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x = a[k >> 1][4 * (8 * (k & 1) + v) + 2 * rh + e];
+        s = SQ ? ln_sq(s, x, mean) : __fadd_rn(s, x);
+      }
+    pv[v] = s;
+  }
+  const float q0 = __fadd_rn(pv[0], pv[4]), q1 = __fadd_rn(pv[1], pv[5]);
+  const float q2 = __fadd_rn(pv[2], pv[6]), q3 = __fadd_rn(pv[3], pv[7]);
+  float s = __fadd_rn(__fadd_rn(q0, q2), __fadd_rn(q1, q3));
+  s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 2));
+  return __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 1));
+}
+
+// Starts the warpgroup's 64 rows of the tile at row0 (rows lrow0 ..) on
+// their way into L2, a 128-byte line a thread at a time, so that the
+// prologue's loads of them wait on L2 and not on device memory.
+__device__ __forceinline__ void vm_prefetch(const VitMlpArgs& p, long row0, int lrow0, int tid) {
+  const int row_bytes = VM_C * (p.x_dt == DT_F32 ? 4 : 2), lines = row_bytes / 128;
+  for (int i = tid; i < 64 * lines; i += 128) {
+    const long r = row0 + lrow0 + i / lines;
+    if (r < p.R)
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(static_cast<const char*>(p.x) +
+                                                      r * row_bytes + (i % lines) * 128));
+  }
+}
+
+// The weight ring of vit_mlp_kernel: slot i % VM_STAGES holds load i of
+// the block's sequence (a tile's chunks in turn, each the three fc1 slots
+// then the three fc2 slots, the same for every tile of the block; block b
+// starts at chunk b % chunks, so that the blocks do not all ask L2 for the
+// same lines at the same time), a full barrier per
+// slot that the copies complete, and a release counter per slot that each
+// of the 8 warps raises once the products that read the slot are
+// complete; the warp whose release is the eighth issues the slot's next
+// load at once, so nobody waits for a slot to be freed.
+template <bool KMAJ>
+struct VmRing {
+  unsigned char* slots;
+  uint64_t* full;
+  unsigned* used;
+  const CUtensorMap *w1, *w2;
+  unsigned it;      // the next slot to take
+  unsigned done;    // the next slot to hand back
+  unsigned total;   // loads of this block
+  int chunks;
+  int rot;          // the block's first chunk
+
+  // load i into its slot: fc1 slot r < 3 holds the k slabs 2 r, 2 r + 1
+  // of the chunk's 64 columns, fc2 slot r - 3 the output columns
+  // 128 (r - 3) .. + 127
+  __device__ __forceinline__ void load(unsigned i) {
+    uint64_t* bar = &full[i % VM_STAGES];
+    unsigned char* dst = slots + (i % VM_STAGES) * PA_UNIT;
+    const int r = (int)(i % 6), f0 = VM_CHUNK * (int)((i / 6 + rot) % chunks);
+    mbar_expect_tx(bar, PA_UNIT);
+    if (r < 3) {
+      if (KMAJ) {
+        tma_load_3d(dst, w1, bar, 128 * r, f0, 0);
+        tma_load_3d(dst + PA_UNIT / 2, w1, bar, 128 * r + 64, f0, 0);
+      } else {
+        tma_load_3d(dst, w1, bar, f0, 128 * r, 0);
+        tma_load_3d(dst + PA_UNIT / 2, w1, bar, f0, 128 * r + 64, 0);
+      }
+    } else if (KMAJ) {
+      tma_load_3d(dst, w2, bar, f0, 128 * (r - 3), 0);
+    } else {
+      tma_load_3d(dst, w2, bar, 128 * (r - 3), f0, 0);
+      tma_load_3d(dst + PA_UNIT / 2, w2, bar, 128 * (r - 3) + 64, f0, 0);
+    }
+  }
+  // wait for the next slot; its shared address, ready for products
+  __device__ __forceinline__ unsigned next() {
+    const unsigned s = it % VM_STAGES;
+    mbar_wait(&full[s], (it / VM_STAGES) & 1);
+    ++it;
+    wg_fence();
+    return smem_u32(slots + s * PA_UNIT);
+  }
+  // after a slot's products: commit them and hand back the slot before
+  // (`first`: there is none in this run)
+  __device__ __forceinline__ void issued(int lane, bool first) {
+    wg_commit();
+    if (!first) {
+      wg_wait<1>();
+      give(lane);
+    }
+  }
+  __device__ __forceinline__ void drain(int lane) {
+    wg_wait<0>();
+    give(lane);
+  }
+  // this warp is done with the slot; the eighth warp to say so refills it
+  __device__ __forceinline__ void give(int lane) {
+    if (lane == 0) {
+      unsigned old;
+      asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n"
+                   : "=r"(old) : "r"(smem_u32(&used[done % VM_STAGES])) : "memory");
+      if (old % 8 == 7 && done + VM_STAGES < total) load(done + VM_STAGES);
+    }
+    ++done;
+  }
+};
+
+// KMAJ: w1 [F, 384] and w2 [384, F] (torch Linear weights); else w1
+// [384, F] and w2 [F, 384].
+template <bool KMAJ>
+__global__ void __launch_bounds__(VM_THREADS, 1)
+    vit_mlp_kernel(const __grid_constant__ CUtensorMap map_w1,
+                   const __grid_constant__ CUtensorMap map_w2, VitMlpArgs p) {
+  extern __shared__ unsigned char pa_raw[];
+  unsigned char* hs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(pa_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int tiles = (p.R + VM_ROWS - 1) / VM_ROWS, chunks = p.F / VM_CHUNK;
+  constexpr int TB = KMAJ ? 0 : 1;
+  VmRing<KMAJ> ring;
+  ring.slots = hs + 6 * PA_SLAB;
+  ring.full = reinterpret_cast<uint64_t*>(ring.slots + VM_STAGES * PA_UNIT);
+  ring.used = reinterpret_cast<unsigned*>(ring.full + VM_STAGES);
+  ring.w1 = &map_w1;
+  ring.w2 = &map_w2;
+  ring.it = ring.done = 0;
+  ring.chunks = chunks;
+  ring.rot = (int)(blockIdx.x % (unsigned)chunks);
+  ring.total = (unsigned)((tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x) *
+               chunks * 6;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < VM_STAGES; ++s) {
+      mbar_init(&ring.full[s], 1);
+      ring.used[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (unsigned i = 0; i < VM_STAGES && i < ring.total; ++i) ring.load(i);
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int lr = wg * 64 + warp * 16 + (lane >> 2);    // the thread's first row in the tile
+  const unsigned ha = smem_u32(hs) + wg * 64 * 128;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long row0 = (long)tile * VM_ROWS;
+    bar_wg(wg);                           // the last tile's products have read the slabs
+    vm_prologue(p, hs, row0, wg * 64 + warp * 16, lane);
+    fence_view_async();
+    bar_wg(wg);
+    if (tile + (int)gridDim.x < tiles)
+      vm_prefetch(p, row0 + (long)gridDim.x * VM_ROWS, wg * 64, threadIdx.x & 127);
+    float acc[3][64];
+#pragma unroll
+    for (int h = 0; h < 3; ++h) {
+      acc_zero(acc[h]);
+      reg_fence(acc[h]);
+    }
+    for (int j = 0; j < chunks; ++j) {
+      // fc1 into an m64n64 accumulator, bias, GELU, bf16: its registers
+      // become the four k16 A fragments of fc2
+      float f[32];
+      acc_zero(f);
+      reg_fence(f);
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        vm_fc1_slot<KMAJ>(f, wg_desc(ha, 16), ring.next(), s);
+        ring.issued(lane, s == 0);
+      }
+      ring.drain(lane);
+      reg_fence(f);
+      unsigned a[4][4];
+      const float* b1 = p.b1 + VM_CHUNK * ((j + ring.rot) % chunks) + 2 * t;
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8) {
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(b1 + 8 * n8));
+        const float y0 = gelu_as(f[4 * n8] + bb.x), y1 = gelu_as(f[4 * n8 + 1] + bb.y);
+        const float y2 = gelu_as(f[4 * n8 + 2] + bb.x);
+        const float y3 = gelu_as(f[4 * n8 + 3] + bb.y);
+        a[n8 >> 1][2 * (n8 & 1)] = pack_bf16(y0, y1);        // row g
+        a[n8 >> 1][2 * (n8 & 1) + 1] = pack_bf16(y2, y3);    // row g + 8
+      }
+#pragma unroll
+      for (int h = 0; h < 3; ++h) reg_fence(acc[h]);
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        const unsigned b = ring.next();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_m64n128k16<TB>(acc[s], a[kk],
+                                  KMAJ ? wg_desc(b + kk * 32, 16)
+                                       : wg_desc(b + kk * 2048, PA_UNIT / 2));
+        ring.issued(lane, s == 0);
+      }
+      ring.drain(lane);
+#pragma unroll
+      for (int h = 0; h < 3; ++h) reg_fence(acc[h]);
+    }
+
+    // a batch's residual values are loaded before its arithmetic (one
+    // wait on L2 a batch); rows past R read row R - 1 and are not stored
+    const long r0 = row0 + lr, r1 = r0 + 8;
+    const bool ok0 = r0 < p.R, ok1 = r1 < p.R;
+    const long o0 = (ok0 ? r0 : p.R - 1) * VM_C, o1 = (ok1 ? r1 : p.R - 1) * VM_C;
+#pragma unroll
+    for (int h = 0; h < 3; ++h)
+#pragma unroll
+      for (int jb = 0; jb < 16; jb += 8) {
+        const int c0 = 128 * h + 8 * jb + 2 * t;
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const long o = rh ? o1 : o0;
+          float2 xv[8];
+          if (p.x_dt == DT_F32) {
+            const float* xr = static_cast<const float*>(p.x) + o + c0;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) xv[j] = __ldg(reinterpret_cast<const float2*>(xr + 8 * j));
+          } else {
+            const bf16* xr = static_cast<const bf16*>(p.x) + o + c0;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const unsigned u = __ldg(reinterpret_cast<const unsigned*>(xr + 8 * j));
+              xv[j] = make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = c0 + 8 * j, i = 4 * (jb + j) + 2 * rh;
+            const float2 bb = __ldg(reinterpret_cast<const float2*>(p.b2 + c));
+            const float2 l = __ldg(reinterpret_cast<const float2*>(p.ls + c));
+            const float y0 = __fmaf_rn(l.x, __fadd_rn(acc[h][i], bb.x), xv[j].x);
+            const float y1 = __fmaf_rn(l.y, __fadd_rn(acc[h][i + 1], bb.y), xv[j].y);
+            if (rh ? ok1 : ok0) {
+              const long off = (rh ? r1 : r0) * VM_C + c;
+              if (p.out_dt == DT_BF16)
+                *reinterpret_cast<unsigned*>(static_cast<bf16*>(p.out) + off) = pack_bf16(y0, y1);
+              else
+                *reinterpret_cast<float2*>(static_cast<float*>(p.out) + off) = make_float2(y0, y1);
+            }
+            acc[h][i] = __bfloat162float(__float2bfloat16(y0));
+            acc[h][i + 1] = __bfloat162float(__float2bfloat16(y1));
+          }
+        }
+      }
+    if (p.hn) {
+      float mean[2], inv[2];
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        mean[rh] = ln_mean(vm_row_sum<false>(acc, rh, 0.0f), VM_C);
+        inv[rh] = ln_inv(vm_row_sum<true>(acc, rh, mean[rh]), VM_C, p.eps);
+      }
+#pragma unroll
+      for (int h = 0; h < 3; ++h)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = 128 * h + 8 * j + 2 * t;
+          const float2 gg = __ldg(reinterpret_cast<const float2*>(p.gn + c));
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(p.ben + c));
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const long r = rh ? r1 : r0;
+            if (r >= p.R) continue;
+            const int i = 4 * j + 2 * rh;
+            *reinterpret_cast<unsigned*>(p.hn + r * VM_C + c) =
+                pack_bf16(ln_apply(acc[h][i], mean[rh], inv[rh], gg.x, bb.x),
+                          ln_apply(acc[h][i + 1], mean[rh], inv[rh], gg.y, bb.y));
+          }
+        }
     }
   }
 }
@@ -3798,6 +4294,48 @@ extern "C" int ec_kpt_head(const void* x, const void* g, const void* be, const v
   kpt_head_kernel<<<grid, PA_THREADS, KH_SMEM, static_cast<cudaStream_t>(stream)>>>(
       m_x, m_w0, m_w1, m_w2, p);
   return (int)cudaGetLastError();
+}
+
+// Contiguous operands: x [R, 384] (x_dt), out [R, 384] (out_dt); w1, w2
+// bf16, [F, 384] and [384, F] when kmajor, else [384, F] and [F, 384];
+// fp32 vectors g, be, b2, ls [384], b1 [F]; with hn (bf16 [R, 384]) the
+// next LayerNorm's gn, ben [384].
+template <bool KMAJ>
+static int launch_vit_mlp(const VitMlpArgs& p, const void* w1, const void* w2, cudaStream_t s) {
+  static bool configured = false;
+  CUtensorMap m_w1, m_w2;
+  const bool ok = KMAJ ? encode_map(&m_w1, w1, VM_C, p.F, VM_C, 0, 1, 64) &&
+                             encode_map(&m_w2, w2, p.F, VM_C, p.F, 0, 1, 128)
+                       : encode_map(&m_w1, w1, p.F, VM_C, p.F, 0, 1, 64) &&
+                             encode_map(&m_w2, w2, VM_C, p.F, VM_C, 0, 1, 64);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  int e = pa_configure(vit_mlp_kernel<KMAJ>, configured, VM_SMEM);
+  if (e) return e;
+  int grid = 0;
+  if ((e = pa_grid((p.R + VM_ROWS - 1) / VM_ROWS, grid))) return e;
+  vit_mlp_kernel<KMAJ><<<grid, VM_THREADS, VM_SMEM, s>>>(m_w1, m_w2, p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ec_vit_mlp(const void* x, int x_dt, const void* g, const void* be,
+                          const void* w1, const void* b1, const void* w2, const void* b2,
+                          const void* ls, int kmajor, void* out, int out_dt, const void* gn,
+                          const void* ben, void* hn, int R, int F, float eps, void* stream) {
+  if (R <= 0 || F <= 0 || F % VM_CHUNK || !pa_aligned(x) || !pa_aligned(out) ||
+      !pa_aligned(w1) || !pa_aligned(w2) || !g || !be || !b1 || !b2 || !ls ||
+      (hn && (!pa_aligned(hn) || !gn || !ben)))
+    return (int)cudaErrorInvalidValue;
+  VitMlpArgs p;
+  p.x = x; p.x_dt = x_dt;
+  p.g = static_cast<const float*>(g); p.be = static_cast<const float*>(be);
+  p.b1 = static_cast<const float*>(b1); p.b2 = static_cast<const float*>(b2);
+  p.ls = static_cast<const float*>(ls);
+  p.out = out; p.out_dt = out_dt;
+  p.gn = static_cast<const float*>(gn); p.ben = static_cast<const float*>(ben);
+  p.hn = static_cast<bf16*>(hn);
+  p.R = R; p.F = F; p.eps = eps;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return kmajor ? launch_vit_mlp<true>(p, w1, w2, s) : launch_vit_mlp<false>(p, w1, w2, s);
 }
 
 extern "C" const char* ec_error_string(int code) {

@@ -1,5 +1,5 @@
 """LayerNorm + MLP + LayerScale residual, the second half of a ViT block,
-as a chain of hand-written CUDA launches.
+as one hand-written CUDA launch.
 
 Replaces the TPU kernel `edgecape_tpu/ops/fused_mlp.py:fused_ln_mlp`
 (`_kernel`): y = x + ls * (gelu(LN(x) W1 + b1) W2 + b2), bf16 matmul
@@ -13,13 +13,14 @@ because Mosaic has no erf; the reference function beside it uses erf).
 
 On the H100 the op is bound by its two matmuls (at [510, 257, 384] with
 F = 1536: 309 GFLOP, 0.31 ms at the bf16 peak, against 0.2 GB of x in
-and out); the [rows, F] hidden activations go through device memory once
-between the two GEMMs. The design puts bias and GELU into the first
-GEMM's epilogue and bias, LayerScale and the residual into the second's,
-so the chain is LayerNorm, GEMM, GEMM.
+and out). It is one launch of vit_mlp_kernel (ops/kernels.py vit_mlp,
+csrc/kernels.cu), which runs LayerNorm, fc1, GELU and fc2 on tiles of
+128 rows with the [rows, F] hidden kept on chip in chunks of 64 columns.
 
-Weights are laid out as the JAX function takes them: w1 [C, F], w2
-[F, C]. The wrapper runs the kernels for a CUDA tensor and the plain
+Weights are laid out as the JAX function takes them, w1 [C, F] and w2
+[F, C], and read so by the kernel (no transposed copy). Weights that are
+not bf16 are cast once and the cast kept while the source tensor is
+unchanged. The wrapper runs the kernel for a CUDA tensor and the plain
 PyTorch version for a CPU tensor; `launches` counts kernel runs.
 """
 
@@ -30,6 +31,8 @@ import torch
 from . import plain
 
 launches = 0
+_CAST_KEEP = 8
+_casts: dict = {}       # id(source) -> (source, its version, bf16 copy)
 
 
 def fused_ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, layerscale, *,
@@ -42,17 +45,32 @@ def fused_ln_mlp_plain(x, ln_scale, ln_bias, w1, b1, w2, b2, layerscale, *,
     return (xf + layerscale.to(torch.float32) * g).to(x.dtype)
 
 
+def _bf16(w: torch.Tensor) -> torch.Tensor:
+    """w as a contiguous bf16 matrix: w itself when it is one, else a cast
+    made once and kept (for the last _CAST_KEEP sources) until w is
+    written in place."""
+    if w.dtype == torch.bfloat16 and w.is_contiguous():
+        return w.detach()
+    hit = _casts.get(id(w))
+    if hit is not None and hit[0] is w and hit[1] == w._version:
+        return hit[2]
+    cast = w.detach().to(torch.bfloat16).contiguous()
+    if len(_casts) >= _CAST_KEEP:
+        _casts.pop(next(iter(_casts)))
+    _casts[id(w)] = (w, w._version, cast)
+    return cast
+
+
 def _fused_ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, layerscale, *,
                        eps):
     from . import kernels as K
-    bf = torch.bfloat16
     c = x.shape[-1]
-    xt = x.reshape(-1, c).contiguous()
-    _, h = K.layernorm(xt, ln_scale, ln_bias, eps, out_f32=False,
-                       out_bf16=True)
-    f = K.gemm(h, w1.detach().to(bf), b_nk=False, bias=b1, act=K.ACT_GELU)
-    y = K.gemm(f, w2.detach().to(bf), b_nk=False, bias=b2, res=xt,
-               ls=layerscale, out_dtype=x.dtype)
+    w = {"g": ln_scale, "be": ln_bias, "w1": _bf16(w1), "b1": b1,
+         "w2": _bf16(w2), "b2": b2, "ls": layerscale}
+    w = {k: K._f32(v) if v.dim() == 1 else v for k, v in w.items()}
+    w["kmajor"] = False
+    y, _ = K.vit_mlp(x.reshape(-1, c).contiguous(), w, eps=eps,
+                     out_dtype=x.dtype)
     return y.view(x.shape)
 
 

@@ -12,23 +12,23 @@ approximation because Mosaic has no erf).
 
 On the H100 the block is bound by its matmuls: at the query pass's
 [510, 257, 384], 464 GFLOP of qkv/proj/fc1/fc2 and 52 GFLOP of attention
-products per call; the activation round trips between launches (x, qkv,
-att, x1, h2 and the 1536-wide MLP hidden all go through device memory)
-come second. The design keeps each product on tensor cores (WMMA bf16 tiles,
-ops/kernels.gemm), fuses bias, GELU and the LayerScale residual into the
-GEMM epilogues so no separate elementwise pass exists, and keeps all 257
-keys and values of a head resident in shared memory for the attention.
-Fusing the block into one launch (wgmma + TMA, the MLP hidden kept on
-chip) is later work.
+products per call. A block is five launches: LN1, the qkv GEMM (TMA +
+wgmma, bias in its epilogue), attention with all 257 keys and values of
+a head in shared memory, the proj GEMM with the LayerScale residual in
+its epilogue (the fp32 x1), and vit_mlp_kernel (ops/kernels.py vit_mlp),
+which runs LN2, fc1, GELU and fc2 with the LayerScale residual on tiles
+of 128 rows with the 1536-wide hidden kept on chip. The bf16 and fp32
+forms of a block's weights are made once per block module and kept until
+a parameter changes.
 
 `fused_vit_block2` replaces the TPU kernel `fused_vit_block2`
 (`_kernel2`) of the same file: two consecutive blocks in one op, the
 intermediate rounded to bf16 between them, bit-equal to two calls of
 fused_vit_block. On the TPU the gain was a token block that stayed in
-VMEM across both blocks; here the two blocks' launches are enqueued back
-to back over one set of activation buffers (normed tokens, qkv,
-attention output, fp32 residual, MLP hidden), so the pair allocates once
-and its second block finds its buffers where the first left them. The
+VMEM across both blocks; here the first block's vit_mlp_kernel writes
+the bf16 intermediate and, from the same registers, the second block's
+LN1 (in the summation order of the LayerNorm kernel, so the bits are
+those of two calls): the pair is 9 launches where two blocks are 10. The
 bound is twice the single block's.
 
 The wrappers run the kernels for a CUDA tensor and the plain PyTorch
@@ -75,47 +75,46 @@ def fused_vit_block_plain(x: torch.Tensor, blk, *, num_heads: int,
     return y.to(x.dtype)
 
 
-def _buffers(b, n, c, f_dim, device):
-    """One set of activation buffers of a block: normed tokens, qkv,
-    attention output, fp32 residual, MLP hidden."""
-    bf = torch.bfloat16
-    r = b * n
-    return {"h": torch.empty((r, c), dtype=bf, device=device),
-            "qkv": torch.empty((r, 3 * c), dtype=bf, device=device),
-            "att": torch.empty((b, n, c), dtype=bf, device=device),
-            "x1": torch.empty((r, c), dtype=torch.float32, device=device),
-            "f": torch.empty((r, f_dim), dtype=bf, device=device)}
-
-
-def _fused_vit_block_cuda(x, blk, *, num_heads, eps, out_dtype=None,
-                          bufs=None):
-    """The launches of one block; the result is stored as out_dtype
-    (x.dtype by default). bufs: a set of activation buffers to work in
-    (_buffers), else each launch allocates its own output."""
-    from . import kernels as K
+def _prepare(blk) -> dict:
+    """The block's weights as the kernels take them: bf16 matrices (torch
+    Linear layout, so vit_mlp reads w1, w2 K-major), fp32 vectors."""
     (n1w, n1b, wqkv, bqkv, wp, bp, ls1, n2w, n2b, w1, b1, w2, b2,
      ls2) = _weights(blk)
-    w16 = lambda w: w.detach().to(torch.bfloat16)  # noqa: E731
+    w16 = lambda w: w.detach().to(torch.bfloat16).contiguous()  # noqa: E731
+    v32 = lambda v: v.detach().to(torch.float32).contiguous()  # noqa: E731
+    return {"n1w": v32(n1w), "n1b": v32(n1b), "wqkv": w16(wqkv),
+            "bqkv": v32(bqkv), "wp": w16(wp), "bp": v32(bp), "ls1": v32(ls1),
+            "g": v32(n2w), "be": v32(n2b), "w1": w16(w1), "b1": v32(b1),
+            "w2": w16(w2), "b2": v32(b2), "ls": v32(ls2), "kmajor": True}
+
+
+def _fused_vit_block_cuda(x, blk, *, num_heads, eps, out_dtype=None, h=None,
+                          next_blk=None):
+    """The launches of one block; the result is stored as out_dtype
+    (x.dtype by default). h: the block's LN1 output when the previous
+    block's kernel wrote it (then LN1 is not launched). next_blk: the
+    following block, whose LN1 vit_mlp then writes beside the result.
+    Returns (y [B, N, C], the next block's h or None)."""
+    from . import kernels as K
+    w = K.module_weights(blk, "_kernel_weights", _prepare)
     b, n, c = x.shape
     d = c // num_heads
-    buf = (bufs or {}).get
     xb = x.to(torch.bfloat16).reshape(b * n, c).contiguous()
-    _, h = K.layernorm(xb, n1w, n1b, eps, out_f32=False,
-                       out_bf16=True if bufs is None else bufs["h"])
-    qkv = K.gemm(h, w16(wqkv), b_nk=True, bias=bqkv,
-                 out=buf("qkv")).view(b, n, 3 * c)
+    if h is None:
+        _, h = K.layernorm(xb, w["n1w"], w["n1b"], eps, out_f32=False,
+                           out_bf16=True)
+    qkv = K.gemm(h, w["wqkv"], b_nk=True, bias=w["bqkv"]).view(b, n, 3 * c)
     att = K.attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
-                      num_heads=num_heads, scale=1.0 / math.sqrt(d),
-                      out=buf("att"))
-    x1 = K.gemm(att.view(b * n, c), w16(wp), b_nk=True, bias=bp, res=xb,
-                ls=ls1, out_dtype=torch.float32, out=buf("x1"))
-    _, h2 = K.layernorm(x1, n2w, n2b, eps, out_f32=False,
-                        out_bf16=True if bufs is None else bufs["h"])
-    f = K.gemm(h2, w16(w1), b_nk=True, bias=b1, act=K.ACT_GELU,
-               out=buf("f"))
-    y = K.gemm(f, w16(w2), b_nk=True, bias=b2, res=x1, ls=ls2,
-               out_dtype=out_dtype or x.dtype)
-    return y.view(b, n, c)
+                      num_heads=num_heads, scale=1.0 / math.sqrt(d))
+    x1 = K.gemm(att.view(b * n, c), w["wp"], b_nk=True, bias=w["bp"],
+                res=xb, ls=w["ls1"], out_dtype=torch.float32)
+    next_ln = None
+    if next_blk is not None:
+        wn = K.module_weights(next_blk, "_kernel_weights", _prepare)
+        next_ln = (wn["n1w"], wn["n1b"])
+    y, h_next = K.vit_mlp(x1, w, eps=eps, out_dtype=out_dtype or x.dtype,
+                          next_ln=next_ln)
+    return y.view(b, n, c), h_next
 
 
 def fused_vit_block(x: torch.Tensor, blk, *, num_heads: int,
@@ -125,7 +124,7 @@ def fused_vit_block(x: torch.Tensor, blk, *, num_heads: int,
     global launches
     if not x.is_cuda:
         return fused_vit_block_plain(x, blk, num_heads=num_heads, eps=eps)
-    out = _fused_vit_block_cuda(x, blk, num_heads=num_heads, eps=eps)
+    out, _ = _fused_vit_block_cuda(x, blk, num_heads=num_heads, eps=eps)
     launches += 1
     return out
 
@@ -147,11 +146,9 @@ def fused_vit_block2(x: torch.Tensor, blk_a, blk_b, *, num_heads: int,
     if not x.is_cuda:
         return fused_vit_block2_plain(x, blk_a, blk_b, num_heads=num_heads,
                                       eps=eps)
-    b, n, c = x.shape
-    bufs = _buffers(b, n, c, blk_a.mlp_fc1.weight.shape[0], x.device)
-    mid = _fused_vit_block_cuda(x, blk_a, num_heads=num_heads, eps=eps,
-                                out_dtype=torch.bfloat16, bufs=bufs)
-    out = _fused_vit_block_cuda(mid, blk_b, num_heads=num_heads, eps=eps,
-                                out_dtype=x.dtype, bufs=bufs)
+    mid, h = _fused_vit_block_cuda(x, blk_a, num_heads=num_heads, eps=eps,
+                                   out_dtype=torch.bfloat16, next_blk=blk_b)
+    out, _ = _fused_vit_block_cuda(mid, blk_b, num_heads=num_heads, eps=eps,
+                                   out_dtype=x.dtype, h=h)
     launches2 += 1
     return out

@@ -1,6 +1,7 @@
 """Build, load and call the hand-written CUDA kernels (`csrc/*.cu`):
-in `kernels.cu` the building blocks of the eval ops, the decoder stack's
-own kernels and the training attention's forward / backward pair,
+in `kernels.cu` the building blocks of the eval ops, the ViT MLP half,
+the decoder stack's own kernels and the training attention's forward /
+backward pair,
 in `mm_chain.cu` the matmul chain of the probe tool.
 
 Each source is compiled with `nvcc` for `sm_90a` into a shared library
@@ -83,6 +84,10 @@ _SIGNATURES = {
     "ec_dec_post_self": [_P] * 12 + [_I, _F, _P],
     "ec_dec_post_cross": [_P] * 11 + [_I] + [_P] * 5 + [_I, _I, _I, _I, _F,
                                                          _P],
+    # x, its dtype, g, be, w1, b1, w2, b2, ls, K-major weights, out, its
+    # dtype, the next norm's g, be and output, R, F, eps
+    "ec_vit_mlp": [_P, _I] + [_P] * 7 + [_I, _P, _I, _P, _P, _P, _I, _I, _F,
+                                          _P],
 }
 
 
@@ -858,6 +863,61 @@ def dec_post_cross(att2: torch.Tensor, x1: torch.Tensor, adj: torch.Tensor,
           out.data_ptr(), _dt(out), b, k, f, float(eps), _stream())
     post_launches["dec_post_cross"] += 1
     return out
+
+
+# The ViT MLP half (csrc/kernels.cu vit_mlp_kernel): rows of VIT_C
+# channels in tiles of VIT_TILE rows, the hidden in chunks of VIT_CHUNK
+# columns that never leave the SM.
+VIT_C, VIT_TILE, VIT_CHUNK = 384, 128, 64
+mlp_launches = {"vit_mlp": 0}
+
+
+def vit_mlp_plan(rows: int, c: int, f: int) -> dict:
+    """How vit_mlp_kernel covers `rows` rows of c channels with a hidden of
+    width f: `tiles` of VIT_TILE rows (a persistent grid of at most one
+    block an SM walks them), whose `pad_rows` missing rows (the last
+    tile's) the prologue fills with zeros and the epilogue does not store,
+    and `chunks` of VIT_CHUNK hidden columns. Raises for what the kernel
+    does not take."""
+    if c != VIT_C:
+        raise ValueError(f"the ViT MLP kernel takes {VIT_C} channels, got {c}")
+    if f <= 0 or f % VIT_CHUNK:
+        raise ValueError(f"hidden width {f} is not a positive multiple of "
+                         f"{VIT_CHUNK}")
+    if rows <= 0:
+        raise ValueError(f"no rows ({rows})")
+    tiles = -(-rows // VIT_TILE)
+    return {"tiles": tiles, "pad_rows": tiles * VIT_TILE - rows,
+            "chunks": f // VIT_CHUNK}
+
+
+def vit_mlp(x: torch.Tensor, w: dict, *, eps: float, out_dtype,
+            next_ln=None):
+    """The ViT block's MLP half, one launch: y = x + ls * (bf16(gelu(
+    bf16(LN(x)) . W1 + b1)) . W2 + b2), the hidden kept on chip. x:
+    contiguous fp32 or bf16 [R, 384]; w: g, be (the LayerNorm), w1, b1, w2,
+    b2, ls and `kmajor`: w1 [F, 384] and w2 [384, F] bf16 (torch Linear
+    weights) when true, else w1 [384, F] and w2 [F, 384] (as the JAX
+    function takes them). With next_ln = (gamma, beta) also the next
+    block's h = bf16(LN'(bf16(y))) in layernorm's summation order. Returns
+    (y [R, 384] in out_dtype, h bf16 [R, 384] or None)."""
+    _cuda(x)
+    r, c = x.shape
+    f = w["b1"].numel()
+    vit_mlp_plan(r, c, f)
+    shapes = ((f, c), (c, f)) if w["kmajor"] else ((c, f), (f, c))
+    ptrs = [_operand(x, (r, c), x.dtype), _dt(x)] + _vectors(w, "g", "be") + [
+        _operand(w["w1"], shapes[0])] + _vectors(w, "b1") + [
+        _operand(w["w2"], shapes[1])] + _vectors(w, "b2", "ls")
+    out = torch.empty((r, c), dtype=out_dtype, device=x.device)
+    hn, nxt = None, [None, None]
+    if next_ln is not None:
+        nxt = [_operand(v, (c,), torch.float32) for v in next_ln]
+        hn = torch.empty((r, c), dtype=torch.bfloat16, device=x.device)
+    _call("ec_vit_mlp", *ptrs, int(bool(w["kmajor"])), out.data_ptr(),
+          _dt(out), *nxt, _ptr(hn), r, f, float(eps), _stream())
+    mlp_launches["vit_mlp"] += 1
+    return out, hn
 
 
 # The decoder stack's own kernels (csrc/kernels.cu bias_attn_kernel,

@@ -23,11 +23,11 @@ from __future__ import annotations
 
 import subprocess
 import sys
-import types
 
 import numpy as np
 import torch
 
+from ..models.dinov2 import Block, DinoV2Config
 from ..ops.fused_attn_block import fused_attn_block
 from ..ops.fused_mlp import fused_ln_mlp
 from ..ops.fused_vit_block import fused_vit_block
@@ -57,20 +57,23 @@ def params(rng, c: int = C, device="cuda") -> dict:
 
 
 def as_block(p: dict):
-    """The same weights as the object fused_vit_block reads (the
-    attributes of a models.dinov2.Block, torch Linear layout)."""
-    ns = types.SimpleNamespace
-
-    def lin(w, b):
-        return ns(weight=w.t().contiguous(), bias=b)
-
-    return ns(norm1=ns(weight=p["lns"], bias=p["lnb"]),
-              attn=ns(qkv=lin(torch.cat([p["wq"], p["wk"], p["wv"]], dim=1),
-                              torch.cat([p["bq"], p["bk"], p["bv"]])),
-                      proj=lin(p["wp"], p["bp"])),
-              ls1=p["ls"], norm2=ns(weight=p["n2s"], bias=p["n2b"]),
-              mlp_fc1=lin(p["w1"], p["b1"]), mlp_fc2=lin(p["w2"], p["b2"]),
-              ls2=p["ls2"])
+    """A models.dinov2.Block holding the same weights (torch Linear
+    layout), the module fused_vit_block reads."""
+    c = p["lns"].numel()
+    blk = Block(DinoV2Config(embed_dim=c)).to(p["lns"].device)
+    named = {"norm1.weight": p["lns"], "norm1.bias": p["lnb"],
+             "attn.qkv.weight": torch.cat([p["wq"], p["wk"], p["wv"]],
+                                          dim=1).t(),
+             "attn.qkv.bias": torch.cat([p["bq"], p["bk"], p["bv"]]),
+             "attn.proj.weight": p["wp"].t(), "attn.proj.bias": p["bp"],
+             "ls1": p["ls"], "norm2.weight": p["n2s"], "norm2.bias": p["n2b"],
+             "mlp_fc1.weight": p["w1"].t(), "mlp_fc1.bias": p["b1"],
+             "mlp_fc2.weight": p["w2"].t(), "mlp_fc2.bias": p["b2"],
+             "ls2": p["ls2"]}
+    with torch.no_grad():
+        for name, t in blk.named_parameters():
+            t.copy_(named[name])
+    return blk.eval()
 
 
 def attn_half(x, p, heads: int = H):

@@ -81,14 +81,14 @@ def _modules():
 
 
 def test_fused_vit_block_matches_plain(dev):
+    """At the model's width (vit_mlp_kernel takes C = 384), 111 rows."""
     from edgecape_tpu_torch.ops import fused_vit_block as FV
     Block, DinoV2Config, _, _ = _modules()
     with torch.no_grad():
-        blk = _randomize(Block(DinoV2Config(embed_dim=128, num_heads=2)),
-                         dev)
-        x = _rn(dev, 3, 37, 128).to(torch.bfloat16)
-        _close(FV.fused_vit_block(x, blk, num_heads=2),
-               FV.fused_vit_block_plain(x, blk, num_heads=2))
+        blk = _randomize(Block(DinoV2Config()), dev)
+        x = _rn(dev, 3, 37, 384).to(torch.bfloat16)
+        _close(FV.fused_vit_block(x, blk, num_heads=6),
+               FV.fused_vit_block_plain(x, blk, num_heads=6))
 
 
 def test_fused_encoder_layers_and_stack_match_plain(dev):
@@ -638,9 +638,10 @@ def _half_args(dev, c, f, seed=3):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_ln_mlp_matches_plain(dev, dtype):
+    """At the width vit_mlp_kernel takes (C 384, F 1536), 111 rows."""
     from edgecape_tpu_torch.ops import fused_mlp as FM
-    _, mlp = _half_args(dev, 128, 200)
-    x = _rn(dev, 3, 37, 128).to(dtype)
+    _, mlp = _half_args(dev, 384, 1536)
+    x = _rn(dev, 3, 37, 384).to(dtype)
     n0 = FM.launches
     out = FM.fused_ln_mlp(x, *mlp)
     assert out.dtype == dtype and FM.launches == n0 + 1
@@ -662,15 +663,15 @@ def test_fused_attn_block_matches_plain(dev, dtype):
 def test_fused_vit_block2_bit_equal_to_two_blocks(dev, dtype):
     from edgecape_tpu_torch.ops import fused_vit_block as FV
     Block, DinoV2Config, _, _ = _modules()
-    cfg = DinoV2Config(embed_dim=128, num_heads=2)
+    cfg = DinoV2Config()
     with torch.no_grad():
         a, b = _randomize(Block(cfg), dev, 1), _randomize(Block(cfg), dev, 2)
-        x = _rn(dev, 3, 37, 128).to(dtype)
+        x = _rn(dev, 3, 37, 384).to(dtype)
         n1, n2 = FV.launches, FV.launches2
-        pair = FV.fused_vit_block2(x, a, b, num_heads=2)
+        pair = FV.fused_vit_block2(x, a, b, num_heads=6)
         assert (FV.launches, FV.launches2) == (n1, n2 + 1)
-        two = FV.fused_vit_block(FV.fused_vit_block(x, a, num_heads=2), b,
-                                 num_heads=2)
+        two = FV.fused_vit_block(FV.fused_vit_block(x, a, num_heads=6), b,
+                                 num_heads=6)
         assert pair.dtype == dtype and torch.equal(pair, two)
 
 
@@ -1103,3 +1104,121 @@ def test_decoder_stack_launches(dev):
     assert sum("dec_post_cross_kernel" in n for n in names) == 3
     assert not any("gemm_kernel<" in n for n in names)
 
+
+
+# ------------------------------------------------------- ViT MLP kernel
+# rows of vit_mlp_kernel: the eval chunk's query and support passes, the
+# training step's (2 x 16 images), ragged tile counts, fewer than a tile
+VIT_ROWS = [510 * 257, 34 * 257, 32 * 257, 300, 129, 1]
+
+
+def _vit_mlp_weights(dev, kmajor, seed=40):
+    """vit_mlp's weight dict (C 384, F 1536): bf16 matrices in torch
+    Linear layout (kmajor) or as the JAX function takes them, fp32
+    vectors; LayerScale 1 so that every step shows."""
+    g = torch.Generator().manual_seed(seed)
+    c, f = 384, 1536
+
+    def rn(*shape, s=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=g) * s + shift).to(dev)
+
+    w1, w2 = rn(f, c, s=c ** -0.5), rn(c, f, s=f ** -0.5)   # [out, in]
+    bf = torch.bfloat16
+    w = {"g": rn(c, s=0.1, shift=1.0), "be": rn(c, s=0.1),
+         "b1": rn(f, s=0.1), "b2": rn(c, s=0.1),
+         "ls": torch.ones(c, device=dev), "kmajor": kmajor}
+    if kmajor:
+        w.update(w1=w1.to(bf).contiguous(), w2=w2.to(bf).contiguous())
+    else:
+        w.update(w1=w1.t().to(bf).contiguous(), w2=w2.t().to(bf).contiguous())
+    return w
+
+
+def _vit_mlp_ref(x, w, eps):
+    from edgecape_tpu_torch.ops import plain
+    w1, w2 = (w["w1"], w["w2"]) if w["kmajor"] else (w["w1"].t(), w["w2"].t())
+    xf = x.float()
+    h = plain.layer_norm(xf, w["g"], w["be"], eps)
+    f = plain.gelu(plain.linear(h, w1, w["b1"]))
+    return xf + w["ls"] * plain.linear(f, w2, w["b2"])
+
+
+@pytest.mark.parametrize("rows", VIT_ROWS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kmajor", [True, False])
+def test_vit_mlp_matches_plain(dev, rows, dtype, kmajor):
+    """vit_mlp against the plain formulas (tests/test_torch_vit_mlp.py
+    holds its order of operations against the TPU kernel's), x fp32 or
+    bf16, weights in either layout, one counted launch."""
+    from edgecape_tpu_torch.ops import kernels as K
+    w = _vit_mlp_weights(dev, kmajor)
+    x = _rn(dev, rows, 384, seed=41).to(dtype)
+    n0 = K.mlp_launches["vit_mlp"]
+    y, hn = K.vit_mlp(x, w, eps=1e-6, out_dtype=dtype)
+    assert K.mlp_launches["vit_mlp"] == n0 + 1 and hn is None
+    assert y.dtype == dtype and y.shape == (rows, 384)
+    _close(y, _vit_mlp_ref(x, w, 1e-6).to(dtype))
+
+
+@pytest.mark.parametrize("rows", [510 * 257, 300, 1])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_vit_mlp_next_ln_bit_equal_to_layernorm_kernel(dev, rows, x_dtype):
+    """The next block's LN1 written in vit_mlp's epilogue equals
+    layernorm_kernel on the same bf16 rows bit for bit; y stored as bf16
+    is the intermediate the pair hands on."""
+    from edgecape_tpu_torch.ops import kernels as K
+    w = _vit_mlp_weights(dev, True, seed=42)
+    x = _rn(dev, rows, 384, seed=43).to(x_dtype)
+    g, be = _rn(dev, 384, seed=44) * 0.1 + 1.0, _rn(dev, 384, seed=45) * 0.1
+    y, hn = K.vit_mlp(x, w, eps=1e-6, out_dtype=torch.bfloat16,
+                      next_ln=(g, be))
+    _, want = K.layernorm(y, g, be, 1e-6, out_f32=False, out_bf16=True)
+    assert hn.dtype == torch.bfloat16 and torch.equal(hn, want)
+    y32, _ = K.vit_mlp(x, w, eps=1e-6, out_dtype=torch.float32)
+    assert torch.equal(y32.to(torch.bfloat16), y)
+
+
+def test_vit_mlp_refuses_what_it_does_not_take(dev):
+    from edgecape_tpu_torch.ops import kernels as K
+    w = _vit_mlp_weights(dev, True)
+    before = dict(K.mlp_launches)
+    with pytest.raises(ValueError):          # 256 channels
+        K.vit_mlp(_rn(dev, 10, 256), w, eps=1e-6, out_dtype=torch.float32)
+    with pytest.raises(ValueError):          # weights in the other layout
+        K.vit_mlp(_rn(dev, 10, 384), dict(w, kmajor=False), eps=1e-6,
+                  out_dtype=torch.float32)
+    with pytest.raises(ValueError):          # not contiguous
+        K.vit_mlp(_rn(dev, 384, 20).t(), w, eps=1e-6,
+                  out_dtype=torch.float32)
+    assert K.mlp_launches == before
+
+
+def test_vit_ops_launches(dev):
+    """Kernels a call puts on the device: #9 one vit_mlp_kernel; #1 five
+    (LN1, the qkv and proj GEMMs on the TMA mainloop, attention,
+    vit_mlp_kernel); #2 nine (its second block's LN1 comes from the
+    first's vit_mlp_kernel). No fc1 GEMM and no thread-copy GEMM."""
+    from edgecape_tpu_torch.ops import fused_mlp as FM
+    from edgecape_tpu_torch.ops import fused_vit_block as FV
+    from edgecape_tpu_torch.ops import kernels as K
+    Block, DinoV2Config, _, _ = _modules()
+    bf = torch.bfloat16
+    with torch.no_grad():
+        a = _randomize(Block(DinoV2Config()), dev, 1)
+        b = _randomize(Block(DinoV2Config()), dev, 2)
+        x = _rn(dev, 4, 257, 384).to(bf)
+        _, mlp = _half_args(dev, 384, 1536)
+        FM.fused_ln_mlp(x, *mlp)
+        FV.fused_vit_block2(x, a, b, num_heads=6)   # weights cached
+        cases = [(lambda: FM.fused_ln_mlp(x, *mlp), 1, 0, 1),
+                 (lambda: FV.fused_vit_block(x, a, num_heads=6), 5, 2, 1),
+                 (lambda: FV.fused_vit_block2(x, a, b, num_heads=6), 9, 4, 2)]
+        for fn, kernels, gemms, mlps in cases:
+            g0, m0 = dict(K.gemm_launches), K.mlp_launches["vit_mlp"]
+            fn()
+            assert K.gemm_launches["tma"] == g0["tma"] + gemms
+            assert K.gemm_launches["copy"] == g0["copy"]
+            assert K.mlp_launches["vit_mlp"] == m0 + mlps
+            names = _kernel_names(fn)
+            assert len(names) == kernels, names
+            assert sum("vit_mlp_kernel" in n for n in names) == mlps, names
