@@ -35,8 +35,9 @@ Phases (any failure exits non-zero before the last line):
    times, TFLOP/s, bound, torch.matmul, and which mainloop the dispatch
    takes. Every [op] line of a fused op counts its GEMMs by mainloop;
    the ViT block's, the encoder stack's and the decoder layer's lines add
-   their device time, kernels per call (at most 5, 10 and 8) and ms by
-   kernel, and the encoder's
+   their device time, kernels per call (at most 3, 10 and 8; the ViT
+   block's are vit_qkv_kernel, vit_attn_kernel and vit_mlp_kernel, no
+   GEMM) and ms by kernel, and the encoder's
    library time is that of nn.TransformerEncoderLayer;
 3. the main path: a stage-3 PoseEstimator (learned skeleton + Markov
    bias, K=100, 224 px, 1 shot, bf16 compute and head dtype, full
@@ -47,7 +48,8 @@ Phases (any failure exits non-zero before the last line):
    counters must show every kernel op ran as often as the path implies,
    every GEMM of it the TMA + wgmma mainloop, each layer of the
    encoder and the decoder its post-attention kernels once and each ViT
-   block vit_mlp_kernel (its MLP half) once;
+   block vit_qkv_kernel and vit_attn_kernel (its attention half) and
+   vit_mlp_kernel (its MLP half) once;
    one chunk is compared with the same weights on the plain (no kernel)
    path on the card; one more chunk of the kernel path runs under
    torch.profiler, which gives device time by kernel and the device's
@@ -67,11 +69,15 @@ Phases (any failure exits non-zero before the last line):
    step;
 5. the kernel-variant ops against their plain versions at the eval
    chunk's shapes: fused_ln_mlp (one vit_mlp_kernel launch, no GEMM) and
-   fused_attn_block at [510, 257, 384]; vit_mlp_kernel at every shape the
-   paths give it against the three launches it replaced
-   (tools/bench_vit_mlp.py); fused_vit_block2 bit-equal to two
+   fused_attn_block (vit_qkv_kernel then vit_attn_kernel, no GEMM) at
+   [510, 257, 384], each with device time, kernels per call and ms by
+   kernel; vit_mlp_kernel at every shape the paths give it against the
+   three launches it replaced (tools/bench_vit_mlp.py), and vit_qkv_kernel
+   and vit_attn_kernel, each against its plain version, beside the four
+   launches they replaced and SDPA with a torch.matmul projection
+   (tools/bench_vit_attn.py); fused_vit_block2 bit-equal to two
    fused_vit_block calls (bf16 and fp32 input), each of its blocks
-   against the plain block, nine kernels a call;
+   against the plain block, six kernels a call;
    the decoder stack's own kernels, the bias attention and the keypoint
    head, each against its plain version at 510 rows, K=100;
    fused_decoder_stack (510 rows, K=100, 256 image tokens, C=256, 3
@@ -182,6 +188,9 @@ EVAL_GROUPS, EVAL_QUERIES, EVAL_BATCH = 8, 4, 16
 # another order through 12 trunk blocks and the head; TF32 (10 mantissa
 # bits) would show as 1e-3 on the trunk's features.
 STRICT_MEDIAN, STRICT_P99 = 1e-4, 2e-3
+# The ViT block's kernels (ops/kernels.py vit_qkv, vit_attn, vit_mlp): the
+# first two are the attention half, and #10 fused_attn_block's call.
+VIT_KERNELS = ("vit_qkv_kernel", "vit_attn_kernel", "vit_mlp_kernel")
 
 # Training phase: batch, steps of the stage-3 fit (the first is warm-up),
 # steps of the plain-path and stage-2 trainers, dropout, the keep share's
@@ -546,17 +555,16 @@ def op_checks(dev, entries):
     with torch.no_grad():
         fast = fast_path_taken(library_stack)
         # kernels and copies one call may put on the device: the ViT
-        # block's 5 (LN1, qkv GEMM, attention, proj GEMM, vit_mlp_kernel),
-        # the stack's add_pos and 3 per layer (qkv GEMM, attention,
+        # block's 3 (vit_qkv_kernel, vit_attn_kernel, vit_mlp_kernel), the
+        # stack's add_pos and 3 per layer (qkv GEMM, attention,
         # enc_post_kernel), the decoder layer's 8 (qkv, attention,
         # dec_post_self_kernel, kpos, k, v GEMMs, attention,
-        # dec_post_cross_kernel); and the GEMMs of a ViT block (qkv, proj:
-        # no fc1, no fc2)
-        launch_cap = {"fused_vit_block": 5,
+        # dec_post_cross_kernel); and the GEMMs of a ViT block (none)
+        launch_cap = {"fused_vit_block": 3,
                       "fused_encoder_stack": 1 + 3 * len(enc),
                       "fused_decoder_layer": 8}
-        must_run = {"fused_vit_block": ("vit_mlp_kernel",)}
-        tma_gemms = {"fused_vit_block": 2}
+        must_run = {"fused_vit_block": VIT_KERNELS}
+        tma_gemms = {"fused_vit_block": 0}
         for name, replaces, op_src, kern, plain, pairs in cases:
             out, ref = pairs() if pairs else (kern(), plain())
             extra, cap = "", launch_cap.get(name)
@@ -679,6 +687,7 @@ def main_path(dev, entries, power):
     KN.gemm_launches.update(tma=0, copy=0)
     KN.post_launches.update(enc_post=0, dec_post_self=0, dec_post_cross=0)
     KN.mlp_launches.update(vit_mlp=0)
+    KN.attn_half_launches.update(vit_qkv=0, vit_attn=0)
     t0 = time.perf_counter()
     timings = run_cached(est, [(i, GROUPS) for i in range(CHUNKS)],
                          lambda i: data[i], on_chunk)
@@ -695,28 +704,32 @@ def main_path(dev, entries, power):
               "fused_encoder_layer": 3 * CHUNKS,
               "fused_decoder_layer": 3 * CHUNKS,
               "flash_mha": 3 * CHUNKS}
-    # 24 x 2 GEMMs of the ViT blocks (qkv, proj), 3 x 1 of the encoder
-    # layers (qkv), 3 x 4 of the decoder layers (qkv, kpos, k, v), all on
-    # the TMA + wgmma mainloop; one post-attention kernel of each kind a
-    # layer; one vit_mlp_kernel a ViT block (its MLP half)
-    expect_gemms = {"tma": (24 * 2 + 3 * 1 + 3 * 4) * CHUNKS, "copy": 0}
-    post = dict(KN.post_launches, **KN.mlp_launches)
+    # 3 x 1 GEMMs of the encoder layers (qkv), 3 x 4 of the decoder layers
+    # (qkv, kpos, k, v), all on the TMA + wgmma mainloop, none in the ViT
+    # blocks; one post-attention kernel of each kind a layer; one
+    # vit_qkv_kernel and one vit_attn_kernel (the attention half) and one
+    # vit_mlp_kernel (the MLP half) a ViT block
+    expect_gemms = {"tma": (3 * 1 + 3 * 4) * CHUNKS, "copy": 0}
+    post = dict(KN.post_launches, **KN.mlp_launches,
+                **KN.attn_half_launches)
     expect_post = {"enc_post": 3 * CHUNKS, "dec_post_self": 3 * CHUNKS,
-                   "dec_post_cross": 3 * CHUNKS, "vit_mlp": 24 * CHUNKS}
+                   "dec_post_cross": 3 * CHUNKS, "vit_mlp": 24 * CHUNKS,
+                   "vit_qkv": 24 * CHUNKS, "vit_attn": 24 * CHUNKS}
     print(f"[path] launches {counts} expected {expect}; GEMM launches by "
           f"mainloop {gemms} expected {expect_gemms}; post-attention and "
           f"MLP kernels {post} expected {expect_post}", flush=True)
     for name in ("fused_vit_block", "fused_encoder_stack",
                  "fused_decoder_layer", "flash_mha"):
         entries[name]["launches"] = counts[name]
-    entries["fused_vit_block"]["vit_mlp_kernel_launches"] = post["vit_mlp"]
+    for k in ("vit_qkv", "vit_attn", "vit_mlp"):
+        entries["fused_vit_block"][f"{k}_kernel_launches"] = post[k]
     if counts != expect:
         fail("launch counts differ from what the main path implies")
     if gemms != expect_gemms:
         fail("a GEMM of the main path did not take the mainloop it should")
     if post != expect_post:
         fail("the post-attention kernels did not run once a layer or the "
-             "MLP kernel once a ViT block")
+             "ViT kernels once a ViT block")
 
     nq = GROUPS * QUERIES
     bad = []
@@ -1513,17 +1526,32 @@ def variant_op_checks(dev, entries, power):
         rows = [BVM.run_case(spec, dev, power) for spec in BVM.SHAPES]
         bad += [f"vit_mlp {r['shape']}" for r in rows if not r["ok"]]
         entries["fused_ln_mlp"]["vit_mlp_shapes"] = rows
+        # two kernels a call (vit_qkv_kernel, vit_attn_kernel), no GEMM
+        attn_call = lambda: FB.fused_attn_block(  # noqa: E731
+            x, *attn_args, num_heads=6)
+        attn_out = attn_call()
+        extra, dev_ms, per_call = device_extra(
+            "fused_attn_block", attn_call, 2, bad, VIT_KERNELS[:2])
         check_op(entries, bad, "fused_attn_block",
                  "edgecape_tpu/ops/fused_attn_block.py:100",
-                 "edgecape_tpu_torch/ops/fused_attn_block.py",
-                 FB.fused_attn_block(x, *attn_args, num_heads=6),
+                 "edgecape_tpu_torch/ops/fused_attn_block.py", attn_out,
                  FB.fused_attn_block_plain(x, *attn_args, num_heads=6),
-                 lambda: FB.fused_attn_block(x, *attn_args, num_heads=6),
+                 attn_call,
                  lambda: FB.fused_attn_block_plain(x, *attn_args, num_heads=6),
                  bound(xb + nbytes(*attn_args),
                        2 * nq * n_tok * 4 * c_vit ** 2
                        + 4 * nq * n_tok ** 2 * c_vit),
-                 counter=(FB, "launches"))
+                 counter=(FB, "launches"), copy_gemms=0, tma_gemms=0,
+                 extra=extra)
+        entries["fused_attn_block"].update(device_ms=dev_ms,
+                                           kernels_per_call=per_call)
+        # vit_qkv_kernel and vit_attn_kernel at every shape the paths give
+        # them, beside the four launches they replaced
+        # (tools/bench_vit_attn.py)
+        from edgecape_tpu_torch.tools import bench_vit_attn as BVA
+        rows = [BVA.run_case(spec, dev, power) for spec in BVA.SHAPES]
+        bad += [f"vit_attn {r['shape']}" for r in rows if not r["ok"]]
+        entries["fused_attn_block"]["vit_attn_shapes"] = rows
 
         # fused_vit_block2: bit-equal to two calls of fused_vit_block for
         # bf16 and for fp32 input; each block against the plain block on
@@ -1547,13 +1575,12 @@ def variant_op_checks(dev, entries, power):
                                              eps=1e-6)])
         one_ms = time_ms(lambda: FV.fused_vit_block(x, blk_a, num_heads=6,
                                                     eps=1e-6))
-        # nine kernels a call: LN1, then per block the qkv GEMM, attention,
-        # the proj GEMM and vit_mlp_kernel (the first block's writes the
-        # second block's LN1)
+        # six kernels a call: per block vit_qkv_kernel, vit_attn_kernel
+        # and vit_mlp_kernel (the first block's result stored as bf16)
         pair_call = lambda: FV.fused_vit_block2(  # noqa: E731
             x, blk_a, blk_b, num_heads=6, eps=1e-6)
         extra, dev_ms, per_call = device_extra(
-            "fused_vit_block2", pair_call, 9, bad, ("vit_mlp_kernel",))
+            "fused_vit_block2", pair_call, 6, bad, VIT_KERNELS)
         check_op(entries, bad, "fused_vit_block2",
                  "edgecape_tpu/ops/fused_vit_block.py:248",
                  "edgecape_tpu_torch/ops/fused_vit_block.py", outs, refs,
@@ -1563,7 +1590,7 @@ def variant_op_checks(dev, entries, power):
                  bound(xb + param_bytes(blk_a, blk_b),
                        2 * (2 * nq * n_tok * 12 * c_vit ** 2
                             + 4 * nq * n_tok ** 2 * c_vit)),
-                 counter=(FV, "launches2"), copy_gemms=0, tma_gemms=4,
+                 counter=(FV, "launches2"), copy_gemms=0, tma_gemms=0,
                  extra=f"; one fused_vit_block {one_ms:.3f} ms{extra}")
         entries["fused_vit_block2"].update(device_ms=dev_ms,
                                            kernels_per_call=per_call)
@@ -1793,6 +1820,7 @@ def variant_path(dev, entries, power, est, data, default_preds, tuned_out):
         FV.launches = FV.launches2 = FD.launches = FD.stack_launches = 0
         KN.stack_kernel_launches.update(bias_attention=0, kpt_head=0)
         KN.mlp_launches.update(vit_mlp=0)
+        KN.attn_half_launches.update(vit_qkv=0, vit_attn=0)
         t0 = time.perf_counter()
         run_cached(est, chunks, lambda i: data[i],
                    lambda pred, *a: preds.append(pred))
@@ -1802,7 +1830,8 @@ def variant_path(dev, entries, power, est, data, default_preds, tuned_out):
                   "fused_vit_block2": FV.launches2,
                   "fused_decoder_layer": FD.launches,
                   "fused_decoder_stack": FD.stack_launches,
-                  **KN.stack_kernel_launches, **KN.mlp_launches}
+                  **KN.stack_kernel_launches, **KN.mlp_launches,
+                  **KN.attn_half_launches}
         return preds, wall, counts
 
     try:
@@ -1811,12 +1840,13 @@ def variant_path(dev, entries, power, est, data, default_preds, tuned_out):
         expect = {"fused_vit_block": 0, "fused_vit_block2": 12 * CHUNKS,
                   "fused_decoder_layer": 0, "fused_decoder_stack": CHUNKS,
                   "bias_attention": 3 * CHUNKS, "kpt_head": 3 * CHUNKS,
-                  "vit_mlp": 24 * CHUNKS}
+                  "vit_mlp": 24 * CHUNKS, "vit_qkv": 24 * CHUNKS,
+                  "vit_attn": 24 * CHUNKS}
         print(f"[variant] both switches on: launches {counts} expected "
               f"{expect} ({CHUNKS} chunks: per chunk 12 fused_vit_block2 "
-              f"over the two backbone passes, each with two vit_mlp_kernel "
-              f"launches, and 1 fused_decoder_stack, whose 3 layers launch "
-              f"the bias attention and the keypoint head once each)",
+              f"over the two backbone passes, each with two launches of "
+              f"each ViT kernel, and 1 fused_decoder_stack, whose 3 layers "
+              f"launch the bias attention and the keypoint head once each)",
               flush=True)
         if counts != expect:
             fail("variant path launch counts differ from what it implies")

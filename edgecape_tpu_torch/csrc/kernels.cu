@@ -21,6 +21,11 @@
 //   * ec_vit_mlp    the ViT MLP half as one kernel: y = x + ls * (bf16(
 //                   gelu(bf16(LN(x)) . W1 + b1)) . W2 + b2), the hidden on
 //                   chip, optionally the next block's bf16 LN(bf16(y));
+//   * ec_vit_qkv, ec_vit_attn  the ViT attention half as two kernels:
+//                   q | k | v = bf16(bf16(LN(bf16(x))) . Wqkv^T + b), then
+//                   attention over all keys of a row in one pass, the
+//                   projection and the LayerScale residual, h and the
+//                   attention output kept on chip;
 //   * ec_attention  short-sequence attention on mma.sync tensor-core
 //                   tiles with every score kept in registers: a warp per
 //                   16-row query tile, query tiles split over blocks,
@@ -98,6 +103,11 @@ __device__ __forceinline__ void load8_any(bf16* dst, const void* base, int dt,
       dst[i] = __float2bfloat16(i < valid ? s[i] : 0.0f);
     }
   }
+}
+
+// v rounded to bf16, in fp32.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
 }
 
 // Two floats rounded to bf16 in one register, `lo` in the low half.
@@ -438,6 +448,23 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// One box from shared memory to a three-dimensional tensor map (rows and
+// columns past the tensor's edges are not written), as a bulk group of
+// the issuing thread; tma_store_wait: that thread's groups have read
+// their shared memory.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void tma_store_wait() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // Matrix descriptors of wgmma for 128-byte-swizzled tiles whose rows are
@@ -867,21 +894,23 @@ static bool tma_operand_ok(const void* ptr, long ld, long sz, int batch) {
 }
 
 // A [rows, inner] bf16 matrix with row stride ld, repeated `batch` times
-// sz elements apart (0: shared), as a map of boxes [1, box_rows, 64].
+// sz elements apart (0: shared), as a map of boxes [1, box_rows, 64]; f32:
+// an fp32 matrix in boxes [1, box_rows, 32]. A box row is 128 bytes.
 static bool encode_map(CUtensorMap* map, const void* ptr, long inner, long rows, long ld,
-                       long sz, int batch, unsigned box_rows) {
+                       long sz, int batch, unsigned box_rows, bool f32 = false) {
   TensorMapEncodeFn encode = tensor_map_encoder();
   if (!encode) return false;
   const bool shared = batch == 1 || sz == 0;
+  const int el = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
                               (cuuint64_t)(shared ? 1 : batch)};
-  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2,
-                                 (cuuint64_t)(shared ? rows * ld : sz) * 2};
-  const cuuint32_t box[3] = {64, box_rows, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * el,
+                                 (cuuint64_t)(shared ? rows * ld : sz) * el};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / el), box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -3785,10 +3814,21 @@ struct VitMlpArgs {
   float eps;
 };
 
+// The rows a LayerNorm prologue reads: x [R, 384] fp32 or bf16 and the
+// norm's scale and shift.
+struct LnRows {
+  const void* x; int x_dt;
+  const float *g, *be;
+  int R;
+  float eps;
+};
+
 // The prologue: LayerNorm of tile rows lrow0 .. lrow0 + 15 by one warp,
-// lane l the columns 64 k + 2 l + e (layernorm_kernel's order), bf16 into
-// the swizzled slabs; rows past R are zeros.
-__device__ __forceinline__ void vm_prologue(const VitMlpArgs& p, unsigned char* hs, long row0,
+// BATCH rows' loads in flight at a time, lane l the columns 64 k + 2 l + e
+// (layernorm_kernel's order), bf16 into the swizzled slabs; rows past R
+// are zeros. ROUND: fp32 x is rounded to bf16 before the statistics.
+template <bool ROUND, int BATCH>
+__device__ __forceinline__ void vm_prologue(const LnRows& p, unsigned char* hs, long row0,
                                             int lrow0, int lane) {
   float2 g[6], b[6];
 #pragma unroll
@@ -3796,49 +3836,58 @@ __device__ __forceinline__ void vm_prologue(const VitMlpArgs& p, unsigned char* 
     g[k] = __ldg(reinterpret_cast<const float2*>(p.g + 64 * k + 2 * lane));
     b[k] = __ldg(reinterpret_cast<const float2*>(p.be + 64 * k + 2 * lane));
   }
-#pragma unroll 4
-  for (int i = 0; i < 16; ++i) {
-    const int lrow = lrow0 + i;
-    const long r = row0 + lrow;
-    unsigned hv[6];
-    if (r < p.R) {
-      float v[12];
+#pragma unroll 1
+  for (int i0 = 0; i0 < 16; i0 += BATCH) {
+    float v[BATCH][12];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const long r = row0 + lrow0 + i0 + i;
+#pragma unroll
+      for (int e = 0; e < 12; ++e) v[i][e] = 0.0f;
+      if (r >= p.R) continue;
       if (p.x_dt == DT_F32) {
         const float* xr = static_cast<const float*>(p.x) + r * VM_C + 2 * lane;
 #pragma unroll
         for (int k = 0; k < 6; ++k) {
           const float2 u = __ldg(reinterpret_cast<const float2*>(xr + 64 * k));
-          v[2 * k] = u.x;
-          v[2 * k + 1] = u.y;
+          v[i][2 * k] = ROUND ? round_bf16(u.x) : u.x;
+          v[i][2 * k + 1] = ROUND ? round_bf16(u.y) : u.y;
         }
       } else {
         const bf16* xr = static_cast<const bf16*>(p.x) + r * VM_C + 2 * lane;
 #pragma unroll
         for (int k = 0; k < 6; ++k) {
           const unsigned u = __ldg(reinterpret_cast<const unsigned*>(xr + 64 * k));
-          v[2 * k] = __uint_as_float(u << 16);
-          v[2 * k + 1] = __uint_as_float(u & 0xffff0000u);
+          v[i][2 * k] = __uint_as_float(u << 16);
+          v[i][2 * k + 1] = __uint_as_float(u & 0xffff0000u);
         }
       }
-      float s = 0.0f;
-#pragma unroll
-      for (int e = 0; e < 12; ++e) s = __fadd_rn(s, v[e]);
-      const float mean = ln_mean(warp_sum(s), VM_C);
-      float q = 0.0f;
-#pragma unroll
-      for (int e = 0; e < 12; ++e) q = ln_sq(q, v[e], mean);
-      const float inv = ln_inv(warp_sum(q), VM_C, p.eps);
-#pragma unroll
-      for (int k = 0; k < 6; ++k)
-        hv[k] = pack_bf16(ln_apply(v[2 * k], mean, inv, g[k].x, b[k].x),
-                          ln_apply(v[2 * k + 1], mean, inv, g[k].y, b[k].y));
-    } else {
-#pragma unroll
-      for (int k = 0; k < 6; ++k) hv[k] = 0u;
     }
 #pragma unroll
-    for (int k = 0; k < 6; ++k)
-      *reinterpret_cast<unsigned*>(hs + sw_off(lrow, 64 * k + 2 * lane)) = hv[k];
+    for (int i = 0; i < BATCH; ++i) {
+      const int lrow = lrow0 + i0 + i;
+      unsigned hv[6];
+      if (row0 + lrow < p.R) {
+        float s = 0.0f;
+#pragma unroll
+        for (int e = 0; e < 12; ++e) s = __fadd_rn(s, v[i][e]);
+        const float mean = ln_mean(warp_sum(s), VM_C);
+        float q = 0.0f;
+#pragma unroll
+        for (int e = 0; e < 12; ++e) q = ln_sq(q, v[i][e], mean);
+        const float inv = ln_inv(warp_sum(q), VM_C, p.eps);
+#pragma unroll
+        for (int k = 0; k < 6; ++k)
+          hv[k] = pack_bf16(ln_apply(v[i][2 * k], mean, inv, g[k].x, b[k].x),
+                            ln_apply(v[i][2 * k + 1], mean, inv, g[k].y, b[k].y));
+      } else {
+#pragma unroll
+        for (int k = 0; k < 6; ++k) hv[k] = 0u;
+      }
+#pragma unroll
+      for (int k = 0; k < 6; ++k)
+        *reinterpret_cast<unsigned*>(hs + sw_off(lrow, 64 * k + 2 * lane)) = hv[k];
+    }
   }
 }
 
@@ -3874,67 +3923,72 @@ __device__ __forceinline__ float vm_row_sum(const float (&a)[3][64], int rh, flo
 // Starts the warpgroup's 64 rows of the tile at row0 (rows lrow0 ..) on
 // their way into L2, a 128-byte line a thread at a time, so that the
 // prologue's loads of them wait on L2 and not on device memory.
-__device__ __forceinline__ void vm_prefetch(const VitMlpArgs& p, long row0, int lrow0, int tid) {
-  const int row_bytes = VM_C * (p.x_dt == DT_F32 ? 4 : 2), lines = row_bytes / 128;
+__device__ __forceinline__ void vm_prefetch(const void* x, int x_dt, int R, long row0,
+                                            int lrow0, int tid) {
+  const int row_bytes = VM_C * (x_dt == DT_F32 ? 4 : 2), lines = row_bytes / 128;
   for (int i = tid; i < 64 * lines; i += 128) {
     const long r = row0 + lrow0 + i / lines;
-    if (r < p.R)
-      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(static_cast<const char*>(p.x) +
+    if (r < R)
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(static_cast<const char*>(x) +
                                                       r * row_bytes + (i % lines) * 128));
   }
 }
 
-// The weight ring of vit_mlp_kernel: slot i % VM_STAGES holds load i of
-// the block's sequence (a tile's chunks in turn, each the three fc1 slots
-// then the three fc2 slots, the same for every tile of the block; block b
-// starts at chunk b % chunks, so that the blocks do not all ask L2 for the
-// same lines at the same time), a full barrier per
-// slot that the copies complete, and a release counter per slot that each
-// of the 8 warps raises once the products that read the slot are
-// complete; the warp whose release is the eighth issues the slot's next
-// load at once, so nobody waits for a slot to be freed.
-template <bool KMAJ>
-struct VmRing {
+// A ring of S slots of Loader::kBytes each in shared memory, filled by TMA
+// in the block's load order: slot i % S holds load i (issued by the
+// Loader, which arms the slot's full barrier with its bytes), and a
+// release counter per slot that each of the block's 8 warps raises once
+// the products that read the slot are complete; the warp whose release is
+// the eighth issues the slot's next load at once, so nobody waits for a
+// slot to be freed.
+template <int S, class Loader>
+struct CountRing {
   unsigned char* slots;
   uint64_t* full;
   unsigned* used;
-  const CUtensorMap *w1, *w2;
+  Loader ld;
   unsigned it;      // the next slot to take
   unsigned done;    // the next slot to hand back
   unsigned total;   // loads of this block
-  int chunks;
-  int rot;          // the block's first chunk
 
-  // load i into its slot: fc1 slot r < 3 holds the k slabs 2 r, 2 r + 1
-  // of the chunk's 64 columns, fc2 slot r - 3 the output columns
-  // 128 (r - 3) .. + 127
-  __device__ __forceinline__ void load(unsigned i) {
-    uint64_t* bar = &full[i % VM_STAGES];
-    unsigned char* dst = slots + (i % VM_STAGES) * PA_UNIT;
-    const int r = (int)(i % 6), f0 = VM_CHUNK * (int)((i / 6 + rot) % chunks);
-    mbar_expect_tx(bar, PA_UNIT);
-    if (r < 3) {
-      if (KMAJ) {
-        tma_load_3d(dst, w1, bar, 128 * r, f0, 0);
-        tma_load_3d(dst + PA_UNIT / 2, w1, bar, 128 * r + 64, f0, 0);
-      } else {
-        tma_load_3d(dst, w1, bar, f0, 128 * r, 0);
-        tma_load_3d(dst + PA_UNIT / 2, w1, bar, f0, 128 * r + 64, 0);
-      }
-    } else if (KMAJ) {
-      tma_load_3d(dst, w2, bar, f0, 128 * (r - 3), 0);
-    } else {
-      tma_load_3d(dst, w2, bar, 128 * (r - 3), f0, 0);
-      tma_load_3d(dst + PA_UNIT / 2, w2, bar, 128 * (r - 3) + 64, f0, 0);
+  // the slots at `at`, the full barriers and the counters at `bars`, for
+  // `n` loads; returns the next 8-byte-aligned byte after the counters
+  __device__ __forceinline__ unsigned char* place(unsigned char* at, unsigned char* bars,
+                                                  unsigned n) {
+    slots = at;
+    full = reinterpret_cast<uint64_t*>(bars);
+    used = reinterpret_cast<unsigned*>(full + S);
+    it = done = 0;
+    total = n;
+    return bars + ((S * 12 + 7) & ~7);
+  }
+  // one thread, before the block's first barrier: the barriers' state
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      used[s] = 0;
     }
   }
-  // wait for the next slot; its shared address, ready for products
-  __device__ __forceinline__ unsigned next() {
-    const unsigned s = it % VM_STAGES;
-    mbar_wait(&full[s], (it / VM_STAGES) & 1);
+  // one thread, after it: the first S loads
+  __device__ __forceinline__ void prime() {
+    for (unsigned i = 0; i < S && i < total; ++i) load(i);
+  }
+  __device__ __forceinline__ void load(unsigned i) {
+    ld(i, slots + (i % S) * Loader::kBytes, &full[i % S]);
+  }
+  // wait for the next slot; its shared address
+  __device__ __forceinline__ unsigned wait() {
+    const unsigned s = it % S;
+    mbar_wait(&full[s], (it / S) & 1);
     ++it;
+    return smem_u32(slots + s * Loader::kBytes);
+  }
+  // the same, ready for products
+  __device__ __forceinline__ unsigned next() {
+    const unsigned a = wait();
     wg_fence();
-    return smem_u32(slots + s * PA_UNIT);
+    return a;
   }
   // after a slot's products: commit them and hand back the slot before
   // (`first`: there is none in this run)
@@ -3954,10 +4008,44 @@ struct VmRing {
     if (lane == 0) {
       unsigned old;
       asm volatile("atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n"
-                   : "=r"(old) : "r"(smem_u32(&used[done % VM_STAGES])) : "memory");
-      if (old % 8 == 7 && done + VM_STAGES < total) load(done + VM_STAGES);
+                   : "=r"(old) : "r"(smem_u32(&used[done % S])) : "memory");
+      if (old % 8 == 7 && done + S < total) load(done + S);
     }
     ++done;
+  }
+};
+
+// The loads of vit_mlp_kernel's ring: a tile's chunks in turn, each the
+// three fc1 slots then the three fc2 slots, the same for every tile of the
+// block; block b starts at chunk b % chunks, so that the blocks do not all
+// ask L2 for the same lines at the same time. fc1 slot r < 3 holds the k
+// slabs 2 r, 2 r + 1 of the chunk's 64 columns, fc2 slot r - 3 the output
+// columns 128 (r - 3) .. + 127.
+template <bool KMAJ>
+struct VmLoader {
+  static constexpr unsigned kBytes = PA_UNIT;
+  const CUtensorMap *w1, *w2;
+  int chunks;
+  int rot;          // the block's first chunk
+
+  __device__ __forceinline__ void operator()(unsigned i, unsigned char* dst,
+                                             uint64_t* bar) const {
+    const int r = (int)(i % 6), f0 = VM_CHUNK * (int)((i / 6 + rot) % chunks);
+    mbar_expect_tx(bar, PA_UNIT);
+    if (r < 3) {
+      if (KMAJ) {
+        tma_load_3d(dst, w1, bar, 128 * r, f0, 0);
+        tma_load_3d(dst + PA_UNIT / 2, w1, bar, 128 * r + 64, f0, 0);
+      } else {
+        tma_load_3d(dst, w1, bar, f0, 128 * r, 0);
+        tma_load_3d(dst + PA_UNIT / 2, w1, bar, f0, 128 * r + 64, 0);
+      }
+    } else if (KMAJ) {
+      tma_load_3d(dst, w2, bar, f0, 128 * (r - 3), 0);
+    } else {
+      tma_load_3d(dst, w2, bar, 128 * (r - 3), f0, 0);
+      tma_load_3d(dst + PA_UNIT / 2, w2, bar, 128 * (r - 3) + 64, f0, 0);
+    }
   }
 };
 
@@ -3972,40 +4060,35 @@ __global__ void __launch_bounds__(VM_THREADS, 1)
       (reinterpret_cast<uintptr_t>(pa_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   const int tiles = (p.R + VM_ROWS - 1) / VM_ROWS, chunks = p.F / VM_CHUNK;
   constexpr int TB = KMAJ ? 0 : 1;
-  VmRing<KMAJ> ring;
-  ring.slots = hs + 6 * PA_SLAB;
-  ring.full = reinterpret_cast<uint64_t*>(ring.slots + VM_STAGES * PA_UNIT);
-  ring.used = reinterpret_cast<unsigned*>(ring.full + VM_STAGES);
-  ring.w1 = &map_w1;
-  ring.w2 = &map_w2;
-  ring.it = ring.done = 0;
-  ring.chunks = chunks;
-  ring.rot = (int)(blockIdx.x % (unsigned)chunks);
-  ring.total = (unsigned)((tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x) *
-               chunks * 6;
+  CountRing<VM_STAGES, VmLoader<KMAJ>> ring;
+  ring.place(hs + 6 * PA_SLAB, hs + (6 + VM_STAGES) * PA_SLAB,
+             (unsigned)((tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x) *
+                 chunks * 6);
+  ring.ld.w1 = &map_w1;
+  ring.ld.w2 = &map_w2;
+  ring.ld.chunks = chunks;
+  ring.ld.rot = (int)(blockIdx.x % (unsigned)chunks);
   if (threadIdx.x == 0) {
-    for (int s = 0; s < VM_STAGES; ++s) {
-      mbar_init(&ring.full[s], 1);
-      ring.used[s] = 0;
-    }
+    ring.init();
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (threadIdx.x == 0)
-    for (unsigned i = 0; i < VM_STAGES && i < ring.total; ++i) ring.load(i);
+  if (threadIdx.x == 0) ring.prime();
 
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31, t = lane & 3;
   const int lr = wg * 64 + warp * 16 + (lane >> 2);    // the thread's first row in the tile
   const unsigned ha = smem_u32(hs) + wg * 64 * 128;
+  const LnRows ln = {p.x, p.x_dt, p.g, p.be, p.R, p.eps};
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long row0 = (long)tile * VM_ROWS;
     bar_wg(wg);                           // the last tile's products have read the slabs
-    vm_prologue(p, hs, row0, wg * 64 + warp * 16, lane);
+    vm_prologue<false, 4>(ln, hs, row0, wg * 64 + warp * 16, lane);
     fence_view_async();
     bar_wg(wg);
     if (tile + (int)gridDim.x < tiles)
-      vm_prefetch(p, row0 + (long)gridDim.x * VM_ROWS, wg * 64, threadIdx.x & 127);
+      vm_prefetch(p.x, p.x_dt, p.R, row0 + (long)gridDim.x * VM_ROWS, wg * 64,
+                  threadIdx.x & 127);
     float acc[3][64];
 #pragma unroll
     for (int h = 0; h < 3; ++h) {
@@ -4026,7 +4109,7 @@ __global__ void __launch_bounds__(VM_THREADS, 1)
       ring.drain(lane);
       reg_fence(f);
       unsigned a[4][4];
-      const float* b1 = p.b1 + VM_CHUNK * ((j + ring.rot) % chunks) + 2 * t;
+      const float* b1 = p.b1 + VM_CHUNK * ((j + ring.ld.rot) % chunks) + 2 * t;
 #pragma unroll
       for (int n8 = 0; n8 < 8; ++n8) {
         const float2 bb = __ldg(reinterpret_cast<const float2*>(b1 + 8 * n8));
@@ -4122,6 +4205,607 @@ __global__ void __launch_bounds__(VM_THREADS, 1)
                           ln_apply(acc[h][i + 1], mean[rh], inv[rh], gg.y, bb.y));
           }
         }
+    }
+  }
+}
+
+// ---- the ViT block's attention half (ops/fused_attn_block.py
+// fused_attn_block, #10, and the first half of ops/fused_vit_block.py,
+// #1 / #2) as two kernels: y = x + ls * (att . Wp^T + bp), att the
+// multi-head attention over q | k | v = bf16(bf16(LN(bf16(x))) . Wqkv^T +
+// bqkv), with the rounding points of the TPU kernels
+// edgecape_tpu/ops/fused_attn_block.py _kernel and fused_vit_block.py
+// _block_body: x rounded to bf16 on entry, fp32 LayerNorm statistics, h,
+// q, k and v rounded to bf16, fp32 scores with the keys at or beyond N
+// masked, p = bf16(e / sum e) (normalised before the rounding), o_h =
+// bf16(p . v_h) per head, the projection accumulated in fp32 and the
+// residual taken from bf16(x); y stored as out_dt.
+//
+// Bound at [510 images, 257 tokens, 384], 6 heads of 64: 155 GFLOP of
+// projections and 52 GFLOP of attention products, 0.21 ms at the bf16
+// peak. The chain it replaces (LayerNorm, the qkv GEMM, attention in two
+// register passes, the proj GEMM) wrote h and att (100.7 MB each) to
+// device memory and read them back; here only q, k and v cross it. Both
+// kernels are latency-bound per SM (one block of 8 warps an SM): every
+// operand and result moves by TMA, so that no thread waits on a global
+// load or spends instructions on a scattered store.
+//   * vit_qkv_kernel (A) is vit_mlp_kernel's prologue and weight ring
+//     without the MLP: the LayerNorm of a 128-row tile into six swizzled
+//     bf16 slabs, Wqkv [1152, 384] streamed by TMA through a ring of 6
+//     slots of [128 x 64], 9 chunks of 128 output columns on wgmma
+//     m64n128 (64 accumulator registers a thread: the 16 KB slot and the
+//     product of the GEMM and vit_mlp_kernel, whose shared-memory operand
+//     rate, 96 bytes a clock at the tensor cores' peak, is within the
+//     SM's 128); the bias and the bf16 rounding on the accumulators, then
+//     each warpgroup's [64 x 128] chunk through a staging tile in shared
+//     memory to qkv [R, 1152] by TMA stores (stored by the threads, 4
+//     bytes at a time, they were the kernel's largest cost);
+//   * vit_attn_kernel (B): a block takes items of 128 query rows of one
+//     image (an image of N tokens has ceil(N / 128) of them), a warpgroup
+//     64 of them. For each head, K_h and V_h ([272 keys x 64] bf16 in two
+//     TMA boxes of 136 rows, since a box holds at most 256) land in shared
+//     memory once for both warpgroups, and each warpgroup's Q_h has landed
+//     in slab h of its att tile. One wgmma pass forms the whole score row
+//     (two m64n136 halves, 136 registers a thread); the row max and sum go
+//     over the quad; p, normalised, is packed to bf16 as the A fragments of
+//     P . V, whose B operand V is read MN-major through the descriptor's
+//     transpose bit; o_h, rounded to bf16, overwrites Q_h in slab h.
+//     K_{h+1} is loaded as soon as both warpgroups have formed their
+//     scores, V_{h+1} as soon as both have multiplied by V_h, so each load
+//     runs under the other half of a head's work. After the sixth head the
+//     att tile (64 x 384 bf16 a warpgroup) is the A operand of the
+//     projection: Wproj streams through a ring of 3 slots of [128 x 64],
+//     and each chunk of 128 output columns is summed in 64 fp32 registers
+//     (a whole 64 x 384 accumulator, 192 registers beside the kernel's
+//     state, spilled and serialised the products) before its epilogue adds
+//     bp and ls (from shared memory) and bf16(x). The residual tiles come
+//     by TMA through the V buffer, free after the last head (its load
+//     sequence is an item's six heads, then x of the three chunks), while
+//     the K buffer already takes the next item's K_0. Read by the threads
+//     as global loads, x was the kernel's largest cost.
+// B's shared memory: two att tiles 96 KB, K and V 68 KB, the ring 48 KB
+// (a fourth slot would not fit), bp and ls 3 KB; one block an SM, 256
+// threads and no producer warps, so that a thread may hold 255 registers:
+// every copy is issued by the warp whose release frees its buffer
+// (CountRing), so the loaders divide by no run-time value (the residual's
+// type is a template parameter, va_div). A warpgroup whose 64 rows lie
+// past N (the last item of a 257-token image holds one row, in warpgroup
+// 0) waits and releases with the other and multiplies nothing; its own
+// branch, since products and their registers in branches of their own
+// are serialised by ptxas. Tried and dropped: one ring of seven 18 KB
+// buffers for the K_h / V_h halves, the Wproj slots and the residual
+// (loads further ahead, but more of them, each on a warp's release path:
+// slower).
+#define VA_HEADS 6
+#define VA_D 64
+#define VA_HALF 136                 // keys of a score half (wgmma m64n136)
+#define VA_KEYS (2 * VA_HALF)       // keys a score row holds in registers
+#define VA_SLAB 8192                // a swizzled [64 rows x 64] bf16 slab
+#define VA_KV_BYTES (VA_KEYS * 128)
+#define VA_STAGES 3                 // Wproj ring slots
+#define VA_WP_LOADS 18              // [128 x 64] slots of Wproj
+#define VQ_STAGES 6                 // Wqkv ring slots
+#define VQ_CHUNKS 9                 // 128-column chunks of the 1152 outputs
+// A: the h slabs, the slots and a staging tile per warpgroup (aligned to
+// 1024 bytes in the kernel), then a full barrier and a release counter per
+// slot. B: the att tiles, K, V and the slots, then the barriers and
+// counters, bp and ls.
+#define VQ_SMEM (1024 + (6 + VQ_STAGES + 2) * PA_SLAB + VQ_STAGES * 12)
+#define VB_SMEM (1024 + 12 * VA_SLAB + 2 * VA_KV_BYTES + VA_STAGES * PA_UNIT + 128 + 8 * VM_C)
+static_assert(VQ_SMEM <= 232448 && VB_SMEM <= 232448,
+              "a ViT attention kernel exceeds the shared memory of a block");
+
+// d (+)= a . b for one m64n136k16 tile into d[OFF .. OFF + 67], a and b in
+// shared memory, b K-major.
+template <int OFF>
+__device__ __forceinline__ void wgmma_m64n136k16(float (&d)[2 * 68], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67},"
+      " %68, %69, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]),
+        "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]), "+f"(d[OFF + 8]), "+f"(d[OFF + 9]),
+        "+f"(d[OFF + 10]), "+f"(d[OFF + 11]), "+f"(d[OFF + 12]), "+f"(d[OFF + 13]),
+        "+f"(d[OFF + 14]), "+f"(d[OFF + 15]), "+f"(d[OFF + 16]), "+f"(d[OFF + 17]),
+        "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]), "+f"(d[OFF + 21]),
+        "+f"(d[OFF + 22]), "+f"(d[OFF + 23]), "+f"(d[OFF + 24]), "+f"(d[OFF + 25]),
+        "+f"(d[OFF + 26]), "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]),
+        "+f"(d[OFF + 30]), "+f"(d[OFF + 31]), "+f"(d[OFF + 32]), "+f"(d[OFF + 33]),
+        "+f"(d[OFF + 34]), "+f"(d[OFF + 35]), "+f"(d[OFF + 36]), "+f"(d[OFF + 37]),
+        "+f"(d[OFF + 38]), "+f"(d[OFF + 39]), "+f"(d[OFF + 40]), "+f"(d[OFF + 41]),
+        "+f"(d[OFF + 42]), "+f"(d[OFF + 43]), "+f"(d[OFF + 44]), "+f"(d[OFF + 45]),
+        "+f"(d[OFF + 46]), "+f"(d[OFF + 47]), "+f"(d[OFF + 48]), "+f"(d[OFF + 49]),
+        "+f"(d[OFF + 50]), "+f"(d[OFF + 51]), "+f"(d[OFF + 52]), "+f"(d[OFF + 53]),
+        "+f"(d[OFF + 54]), "+f"(d[OFF + 55]), "+f"(d[OFF + 56]), "+f"(d[OFF + 57]),
+        "+f"(d[OFF + 58]), "+f"(d[OFF + 59]), "+f"(d[OFF + 60]), "+f"(d[OFF + 61]),
+        "+f"(d[OFF + 62]), "+f"(d[OFF + 63]), "+f"(d[OFF + 64]), "+f"(d[OFF + 65]),
+        "+f"(d[OFF + 66]), "+f"(d[OFF + 67])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d += a . b for one m64n64k16 tile, a in registers (the m16n8k16 A
+// fragment of the thread's warp), b in shared memory. TB: b is MN-major.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32], const unsigned (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+struct VitQkvArgs {
+  LnRows ln;            // x [R, 384] and LN1
+  const float* bias;    // [1152]
+};
+
+// The loads of vit_qkv_kernel's ring: a tile's 9 chunks of 128 output
+// columns in turn, each its 6 k slabs of 64, the same for every tile of
+// the block; block b starts at chunk b % 9 (as vit_mlp_kernel's blocks
+// start at their own chunk).
+struct VqLoader {
+  static constexpr unsigned kBytes = PA_UNIT;
+  const CUtensorMap* w;
+  int rot;
+
+  __device__ __forceinline__ void operator()(unsigned i, unsigned char* dst,
+                                             uint64_t* bar) const {
+    const int r = (int)(i % (6 * VQ_CHUNKS));
+    mbar_expect_tx(bar, PA_UNIT);
+    tma_load_3d(dst, w, bar, 64 * (r % 6), 128 * ((r / 6 + rot) % VQ_CHUNKS), 0);
+  }
+};
+
+// map_w: Wqkv [1152, 384] bf16 (torch Linear layout, K-major); map_qkv:
+// the output [R, 1152] bf16 in boxes of [64 rows x 64].
+__global__ void __launch_bounds__(VM_THREADS, 1)
+    vit_qkv_kernel(const __grid_constant__ CUtensorMap map_w,
+                   const __grid_constant__ CUtensorMap map_qkv, VitQkvArgs p) {
+  extern __shared__ unsigned char pa_raw[];
+  unsigned char* hs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(pa_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int R = p.ln.R, tiles = (R + VM_ROWS - 1) / VM_ROWS;
+  CountRing<VQ_STAGES, VqLoader> ring;
+  ring.place(hs + 6 * PA_SLAB, hs + (6 + VQ_STAGES + 2) * PA_SLAB,
+             (unsigned)((tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x) * 6 *
+                 VQ_CHUNKS);
+  ring.ld.w = &map_w;
+  ring.ld.rot = (int)(blockIdx.x % VQ_CHUNKS);
+  if (threadIdx.x == 0) {
+    ring.init();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) ring.prime();
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int lr = warp * 16 + (lane >> 2);    // the thread's first row of the warpgroup's 64
+  const unsigned ha = smem_u32(hs) + wg * 64 * 128;
+  // the warpgroup's staging tile: a chunk's [64 x 128] bf16 outputs in two
+  // swizzled [64 x 64] boxes, written to device memory by TMA
+  unsigned char* stage = hs + (6 + VQ_STAGES + wg) * PA_SLAB;
+  const bool storer = (threadIdx.x & 127) == 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long row0 = (long)tile * VM_ROWS;
+    bar_wg(wg);                           // the last tile's products have read the slabs
+    vm_prologue<true, 8>(p.ln, hs, row0, wg * 64 + warp * 16, lane);
+    fence_view_async();
+    bar_wg(wg);
+#pragma unroll 1
+    for (int cc = 0; cc < VQ_CHUNKS; ++cc) {
+      // the next tile's rows on their way into L2, late enough to be
+      // there, and not evicted, when its prologue reads them
+      if (cc == VQ_CHUNKS - 3 && tile + (int)gridDim.x < tiles)
+        vm_prefetch(p.ln.x, p.ln.x_dt, R, row0 + (long)gridDim.x * VM_ROWS, wg * 64,
+                    threadIdx.x & 127);
+      float acc[64];
+      acc_zero(acc);
+      reg_fence(acc);
+#pragma unroll
+      for (int ks = 0; ks < 6; ++ks) {
+        mma_n128(acc, ha + ks * PA_SLAB, ring.next());
+        ring.issued(lane, ks == 0);
+      }
+      ring.drain(lane);
+      reg_fence(acc);
+      const int c0 = 128 * ((cc + ring.ld.rot) % VQ_CHUNKS);
+      if (storer) tma_store_wait();       // the last chunk's stores have read the stage
+      bar_wg(wg);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(p.bias + c0 + 8 * j + 2 * t));
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const int r = lr + 8 * rh;
+          *reinterpret_cast<unsigned*>(stage + (j >> 3) * VA_SLAB + r * 128 +
+                                       (((j & 7) ^ (r & 7)) << 4) + 4 * t) =
+              pack_bf16(acc[4 * j + 2 * rh] + bb.x, acc[4 * j + 2 * rh + 1] + bb.y);
+        }
+      }
+      fence_view_async();
+      bar_wg(wg);
+      if (storer) {                       // rows past R are not written
+        tma_store_3d(&map_qkv, stage, c0, (int)row0 + 64 * wg, 0);
+        tma_store_3d(&map_qkv, stage + VA_SLAB, c0 + 64, (int)row0 + 64 * wg, 0);
+      }
+    }
+  }
+  if (storer) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// item / ipi for the 1, 2 or 3 items of an image, without a division by a
+// run-time value (the loaders run on the path of a buffer's release).
+__device__ __forceinline__ int va_div(int item, int ipi) {
+  return ipi == 3 ? item / 3 : ipi == 2 ? item >> 1 : item;
+}
+
+struct VitAttnArgs {
+  void* out; int out_dt;      // [B N, 384]
+  const float *bp, *ls;       // [384]
+  int N;                      // tokens an image
+  int ipi;                    // items an image: ceil(N / 128)
+  int items;                  // B * ipi
+  float sl2;                  // the score scale times log2(e)
+};
+
+// The loads of vit_attn_kernel's K and V buffers. K: an item's K_h of the
+// heads 0 .. 5. V: its V_h, then the residual x of the projection chunks
+// 0, 1, 2 (both warpgroups' 64 rows of the chunk's 128 columns: one load
+// of 32 KB for bf16 x, two of 32 KB for fp32 x, warpgroup 0's first), so
+// that the K buffer takes the next item's K_0 while the projection runs.
+// K_h and V_h: [272 keys x 64] from the [B, N, 1152] map in two boxes of
+// 136 rows; where N <= 136 the second box repeats rows 0 .. 135 (rows
+// past N only meet masked scores and zero probabilities, and must hold
+// finite values). x: boxes of 64 rows of 128 bytes (64 bf16 or 32 fp32
+// columns), a warpgroup's 16 KB (bf16) or 32 KB (fp32) apart; none for a
+// warpgroup whose rows all lie past N.
+// PER: loads an item; X_F32: x is fp32 (else bf16).
+template <int PER, bool X_F32>
+struct VaKvLoader {
+  static constexpr unsigned kBytes = VA_KV_BYTES;
+  const CUtensorMap *m, *mx;
+  int col0;       // 384: the keys, 768: the values
+  int N, ipi, rot;
+
+  __device__ __forceinline__ void operator()(unsigned i, unsigned char* dst,
+                                             uint64_t* bar) const {
+    constexpr bool x_f32 = X_F32;
+    const int item = (int)blockIdx.x + (int)(i / PER) * (int)gridDim.x;
+    const int r = (int)(i % PER), b = va_div(item, ipi);
+    if (r < VA_HEADS) {
+      const int c = col0 + VA_D * r;
+      mbar_expect_tx(bar, VA_KV_BYTES);
+      tma_load_3d(dst, m, bar, c, 0, b);
+      tma_load_3d(dst + VA_HALF * 128, m, bar, c, N > VA_HALF ? VA_HALF : 0, b);
+      return;
+    }
+    // bf16: chunk r - 6 for both warpgroups; fp32: chunk (r - 6) / 2 for
+    // warpgroup (r - 6) % 2
+    const int j = r - VA_HEADS, chunk = x_f32 ? j / 2 : j, cols = x_f32 ? 32 : 64;
+    const int c = 128 * ((chunk + rot) % 3), q = (item - b * ipi) * VM_ROWS;
+    int bytes = 0;
+    for (int w = x_f32 ? j % 2 : 0; w < (x_f32 ? j % 2 + 1 : 2); ++w)
+      if (q + 64 * w < N) bytes += 128 / cols * VA_SLAB;
+    mbar_expect_tx(bar, bytes);
+    for (int w = x_f32 ? j % 2 : 0; w < (x_f32 ? j % 2 + 1 : 2); ++w) {
+      if (q + 64 * w >= N) continue;
+      unsigned char* to = dst + (x_f32 ? 0 : w * 2 * VA_SLAB);
+      for (int k = 0; k < 128 / cols; ++k)
+        tma_load_3d(to + k * VA_SLAB, mx, bar, c + k * cols, q + 64 * w, b);
+    }
+  }
+};
+
+// Wproj [384 out, 384 in] in slots of [128 x 64]: load i holds the output
+// columns 128 ((i % 18 / 6 + rot) % 3) .. + 127 of the k slab i % 6, the
+// same 18 loads for every item; block b starts at column chunk b % 3.
+struct VaWpLoader {
+  static constexpr unsigned kBytes = PA_UNIT;
+  const CUtensorMap* w;
+  int rot;
+
+  __device__ __forceinline__ void operator()(unsigned i, unsigned char* dst,
+                                             uint64_t* bar) const {
+    const int r = (int)(i % VA_WP_LOADS);
+    mbar_expect_tx(bar, PA_UNIT);
+    tma_load_3d(dst, w, bar, 64 * (r % 6), 128 * ((r / 6 + rot) % 3), 0);
+  }
+};
+
+// One thread: the Q_h tiles of all heads of rows q0 .. q0 + 63 of image b
+// into a warpgroup's six att slabs.
+__device__ __forceinline__ void va_load_q(const CUtensorMap* m, unsigned char* slabs,
+                                          uint64_t* bar, int b, int q0) {
+  mbar_expect_tx(bar, VA_HEADS * VA_SLAB);
+#pragma unroll
+  for (int h = 0; h < VA_HEADS; ++h) tma_load_3d(slabs + h * VA_SLAB, m, bar, VA_D * h, q0, b);
+}
+
+// The softmax of a warpgroup's score tile, in place of the scores: s holds
+// the thread's rows g and g + 8 of its warp's 16 against VA_KEYS keys (key
+// 8 J + 2 t + e % 2 at s[4 J + e], row g for e < 2, else g + 8). Keys at
+// or beyond n are masked, the rest scaled by sl2 = scale * log2(e) and
+// exponentiated in base 2 against the row max (over the quad); each row is
+// normalised by its sum, then rounded to bf16 into the A fragments of
+// P . V (pf[kk]: keys 16 kk .. 16 kk + 15).
+__device__ __forceinline__ void va_softmax(float (&s)[2 * 68], unsigned (&pf)[VA_KEYS / 16][4],
+                                           int n, float sl2, int t) {
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int J = 0; J < VA_KEYS / 8; ++J)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = 8 * J + 2 * t + (e & 1) < n ? s[4 * J + e] * sl2 : -INFINITY;
+      s[4 * J + e] = v;
+      if (e < 2)
+        m0 = fmaxf(m0, v);
+      else
+        m1 = fmaxf(m1, v);
+    }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  float l0 = 0.0f, l1 = 0.0f;
+#pragma unroll
+  for (int J = 0; J < VA_KEYS / 8; ++J)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = ex2(s[4 * J + e] - (e < 2 ? m0 : m1));
+      s[4 * J + e] = v;
+      if (e < 2)
+        l0 += v;
+      else
+        l1 += v;
+    }
+  const float i0 = 1.0f / quad_sum(l0), i1 = 1.0f / quad_sum(l1);
+#pragma unroll
+  for (int J = 0; J < VA_KEYS / 8; ++J) {
+    pf[J >> 1][2 * (J & 1)] = pack_bf16(s[4 * J] * i0, s[4 * J + 1] * i0);
+    pf[J >> 1][2 * (J & 1) + 1] = pack_bf16(s[4 * J + 2] * i1, s[4 * J + 3] * i1);
+  }
+}
+
+// bf16(x) at row r of a warpgroup's residual tile xs (its 64 rows of a
+// projection chunk, VaKvLoader's boxes), columns 8 j + 2 t and + 1 of the
+// chunk's 128.
+__device__ __forceinline__ float2 va_x_pair(const unsigned char* xs, bool f32, int j, int r,
+                                            int t) {
+  if (f32) {
+    const float2 u = *reinterpret_cast<const float2*>(
+        xs + (j >> 2) * VA_SLAB + r * 128 + (((2 * (j & 3) + (t >> 1)) ^ (r & 7)) << 4) +
+        8 * (t & 1));
+    return make_float2(round_bf16(u.x), round_bf16(u.y));
+  }
+  const unsigned u = *reinterpret_cast<const unsigned*>(
+      xs + (j >> 3) * VA_SLAB + r * 128 + (((j & 7) ^ (r & 7)) << 4) + 4 * t);
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+// map_q, map_kv: qkv [B, N, 1152] bf16 in boxes of [64 rows x 64] and
+// [136 rows x 64]; map_x: x [B, N, 384] (fp32 or bf16) in boxes of [64
+// rows x 128 bytes]; map_wp: Wproj [384, 384] bf16 (torch Linear layout).
+template <bool X_F32>
+__global__ void __launch_bounds__(VM_THREADS, 1)
+    vit_attn_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_kv,
+                    const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_wp, VitAttnArgs p) {
+  extern __shared__ unsigned char pa_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(pa_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int nitems = (p.items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  unsigned char* kv = base + 2 * VA_HEADS * VA_SLAB;
+  unsigned char* bars = kv + 2 * VA_KV_BYTES + VA_STAGES * PA_UNIT;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(bars);     // one a warpgroup
+  float* vec_s = reinterpret_cast<float*>(bars + 128);     // bp, then ls
+  // the V buffer's loads an item: the heads, then x (VaKvLoader)
+  constexpr int v_loads = VA_HEADS + (X_F32 ? 6 : 3);
+  CountRing<1, VaKvLoader<VA_HEADS, X_F32>> kr;
+  CountRing<1, VaKvLoader<v_loads, X_F32>> vr;
+  CountRing<VA_STAGES, VaWpLoader> wr;
+  unsigned char* nb = kr.place(kv, bars + 16, (unsigned)nitems * VA_HEADS);
+  nb = vr.place(kv + VA_KV_BYTES, nb, (unsigned)nitems * v_loads);
+  wr.place(kv + 2 * VA_KV_BYTES, nb, (unsigned)nitems * VA_WP_LOADS);
+  wr.ld.w = &map_wp;
+  wr.ld.rot = (int)(blockIdx.x % 3);
+  kr.ld.m = vr.ld.m = &map_kv;
+  kr.ld.mx = vr.ld.mx = &map_x;
+  kr.ld.col0 = VM_C;
+  vr.ld.col0 = 2 * VM_C;
+  kr.ld.N = vr.ld.N = p.N;
+  kr.ld.ipi = vr.ld.ipi = p.ipi;
+  kr.ld.rot = vr.ld.rot = wr.ld.rot;
+  for (int i = threadIdx.x; i < 2 * VM_C; i += blockDim.x)
+    vec_s[i] = i < VM_C ? p.bp[i] : p.ls[i - VM_C];
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full[0], 1);
+    mbar_init(&q_full[1], 1);
+    kr.init();
+    vr.init();
+    wr.init();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    kr.prime();
+    vr.prime();
+    wr.prime();
+    for (int w = 0; w < 2; ++w) {         // the first item's query tiles
+      const int b0 = va_div((int)blockIdx.x, p.ipi);
+      const int q0 = ((int)blockIdx.x - b0 * p.ipi) * VM_ROWS + 64 * w;
+      if (q0 < p.N) va_load_q(&map_q, base + w * VA_HEADS * VA_SLAB, &q_full[w], b0, q0);
+    }
+  }
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int lr = warp * 16 + (lane >> 2);   // the thread's first row of the warpgroup's 64
+  unsigned char* att = base + wg * VA_HEADS * VA_SLAB;
+  const unsigned att_u = smem_u32(att);
+  unsigned qpar = 0;
+#pragma unroll 1
+  for (int n = 0; n < nitems; ++n) {
+    const int item = (int)blockIdx.x + n * (int)gridDim.x;
+    const int b = va_div(item, p.ipi), q0 = (item - b * p.ipi) * VM_ROWS + 64 * wg;
+    // once every warp's products have read the att tile: the next item's
+    // query tiles into it
+    auto next_q = [&]() {
+      bar_wg(wg);
+      if ((threadIdx.x & 127) == 0 && n + 1 < nitems) {
+        const int nx = item + (int)gridDim.x, nb = va_div(nx, p.ipi);
+        const int nq0 = (nx - nb * p.ipi) * VM_ROWS + 64 * wg;
+        if (nq0 < p.N) va_load_q(&map_q, att, &q_full[wg], nb, nq0);
+      }
+    };
+    if (q0 >= p.N) {
+      // a warpgroup past N: its share of the waits and releases only
+      for (int h = 0; h < VA_HEADS; ++h) {
+        kr.wait();
+        kr.give(lane);
+        vr.wait();
+        vr.give(lane);
+      }
+      for (int c = 0; c < 3; ++c) {
+        for (int i = 0; i < 6; ++i) {
+          wr.wait();
+          wr.give(lane);
+        }
+        if (c == 2) next_q();
+        for (int k = 0; k < (X_F32 ? 2 : 1); ++k) {
+          vr.wait();
+          vr.give(lane);
+        }
+      }
+      continue;
+    }
+    mbar_wait(&q_full[wg], qpar);
+    qpar ^= 1;
+#pragma unroll 1
+    for (int h = 0; h < VA_HEADS; ++h) {
+      float s[2 * 68];
+      const unsigned qa = att_u + h * VA_SLAB;
+      const unsigned kb = kr.wait();
+      acc_zero(s);
+      reg_fence(s);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_m64n136k16<0>(s, wg_desc(qa + kk * 32, 16), wg_desc(kb + kk * 32, 16));
+        wgmma_m64n136k16<68>(s, wg_desc(qa + kk * 32, 16),
+                             wg_desc(kb + VA_HALF * 128 + kk * 32, 16));
+      }
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(s);
+      kr.give(lane);
+      unsigned pf[VA_KEYS / 16][4];
+      va_softmax(s, pf, p.N, p.sl2, t);
+      float o[32];
+      acc_zero(o);
+      const unsigned vb = vr.wait();
+      reg_fence(o);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < VA_KEYS / 16; ++kk)
+        wgmma_rs_m64n64k16<1>(o, pf[kk], wg_desc(vb + kk * 2048, VA_SLAB));
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(o);
+      vr.give(lane);
+      // o_h, rounded to bf16, over Q_h in slab h
+      unsigned char* slab = att + h * VA_SLAB;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const int r = lr + 8 * rh;
+          *reinterpret_cast<unsigned*>(slab + r * 128 + ((j ^ (r & 7)) << 4) + 4 * t) =
+              pack_bf16(o[4 * j + 2 * rh], o[4 * j + 2 * rh + 1]);
+        }
+    }
+    fence_view_async();
+    bar_wg(wg);                           // the warpgroup's att tile is whole
+
+    // the projection in three chunks of 128 output columns (chunk nci:
+    // 128 ((nci + rot) % 3) .. + 127), each summed over the k slabs (the
+    // heads) 0 .. 5 in turn into 64 registers, then its epilogue: y =
+    // bf16(x) + ls * (acc + bp), the residual tile from the K or V buffer
+    // (VaKvLoader), bp and ls from shared memory; rows past N are not
+    // stored
+    const long row0 = (long)b * p.N + q0;     // the warpgroup's first row
+    const bool ok0 = q0 + lr < p.N, ok1 = q0 + lr + 8 < p.N;
+    const long e0 = (row0 + lr) * VM_C, e1 = e0 + 8 * VM_C;
+#pragma unroll 1
+    for (int nci = 0; nci < 3; ++nci) {
+      const int cb = 128 * ((nci + wr.ld.rot) % 3) + 2 * t;
+      float acc[64];
+      acc_zero(acc);
+      reg_fence(acc);
+#pragma unroll
+      for (int ks = 0; ks < 6; ++ks) {
+        mma_n128(acc, att_u + ks * VA_SLAB, wr.next());
+        wr.issued(lane, ks == 0);
+      }
+      wr.drain(lane);
+      reg_fence(acc);
+      if (nci == 2) next_q();
+      // the chunk's residual tile in the V buffer: both warpgroups' in one
+      // load (bf16), or warpgroup 0's, then 1's (fp32; the other one's is
+      // handed back at once)
+      if (X_F32 && wg) {
+        vr.wait();
+        vr.give(lane);
+      }
+      vr.wait();
+      const unsigned char* xs = vr.slots + (X_F32 ? 0 : wg * 2 * VA_SLAB);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = cb + 8 * j;
+        const float2 bb = *reinterpret_cast<const float2*>(vec_s + c);
+        const float2 l = *reinterpret_cast<const float2*>(vec_s + VM_C + c);
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          if (!(rh ? ok1 : ok0)) continue;
+          const long off = (rh ? e1 : e0) + c;
+          const float2 xv = va_x_pair(xs, X_F32, j, lr + 8 * rh, t);
+          const float y0 = __fmaf_rn(l.x, __fadd_rn(acc[4 * j + 2 * rh], bb.x), xv.x);
+          const float y1 = __fmaf_rn(l.y, __fadd_rn(acc[4 * j + 2 * rh + 1], bb.y), xv.y);
+          if (p.out_dt == DT_BF16)
+            *reinterpret_cast<unsigned*>(static_cast<bf16*>(p.out) + off) = pack_bf16(y0, y1);
+          else
+            *reinterpret_cast<float2*>(static_cast<float*>(p.out) + off) = make_float2(y0, y1);
+        }
+      }
+      vr.give(lane);
+      if (X_F32 && !wg) {
+        vr.wait();
+        vr.give(lane);
+      }
     }
   }
 }
@@ -4336,6 +5020,70 @@ extern "C" int ec_vit_mlp(const void* x, int x_dt, const void* g, const void* be
   p.R = R; p.F = F; p.eps = eps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return kmajor ? launch_vit_mlp<true>(p, w1, w2, s) : launch_vit_mlp<false>(p, w1, w2, s);
+}
+
+// Contiguous operands: x [R, 384] (x_dt), w bf16 [1152, 384] (torch Linear
+// layout), fp32 g, be [384] and bias [1152]; qkv bf16 [R, 1152] written.
+extern "C" int ec_vit_qkv(const void* x, int x_dt, const void* g, const void* be, const void* w,
+                          const void* bias, void* qkv, int R, float eps, void* stream) {
+  static bool configured = false;
+  if (R <= 0 || !pa_aligned(x) || !pa_aligned(w) || !pa_aligned(qkv) || !g || !be || !bias)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m_w, m_qkv;
+  if (!encode_map(&m_w, w, VM_C, 3 * VM_C, VM_C, 0, 1, 128) ||
+      !encode_map(&m_qkv, qkv, 3 * VM_C, R, 3 * VM_C, 0, 1, 64))
+    return (int)cudaErrorInvalidValue;
+  int e = pa_configure(vit_qkv_kernel, configured, VQ_SMEM);
+  if (e) return e;
+  int grid = 0;
+  if ((e = pa_grid((R + VM_ROWS - 1) / VM_ROWS, grid))) return e;
+  VitQkvArgs p;
+  p.ln.x = x; p.ln.x_dt = x_dt;
+  p.ln.g = static_cast<const float*>(g); p.ln.be = static_cast<const float*>(be);
+  p.ln.R = R; p.ln.eps = eps;
+  p.bias = static_cast<const float*>(bias);
+  vit_qkv_kernel<<<grid, VM_THREADS, VQ_SMEM, static_cast<cudaStream_t>(stream)>>>(m_w, m_qkv,
+                                                                                    p);
+  return (int)cudaGetLastError();
+}
+
+// Contiguous operands: qkv bf16 [B, N, 1152] (q | k | v, each 6 heads of
+// 64), x [B, N, 384] (x_dt), wp bf16 [384, 384] (torch Linear layout), fp32
+// bp, ls [384]; out [B, N, 384] (out_dt) written. smem: the shared memory
+// of ops/kernels.py vit_attn_plan, which must be the kernel's.
+extern "C" int ec_vit_attn(const void* qkv, const void* x, int x_dt, const void* wp,
+                           const void* bp, const void* ls, void* out, int out_dt, int B, int N,
+                           float scale, long smem, void* stream) {
+  static bool configured[2] = {false, false};
+  if (B <= 0 || N <= 0 || N > VA_KEYS || smem != VB_SMEM || !pa_aligned(qkv) ||
+      !pa_aligned(x) || !pa_aligned(wp) || !pa_aligned(out) || !bp || !ls)
+    return (int)cudaErrorInvalidValue;
+  const long ld = 3 * VM_C;
+  CUtensorMap m_q, m_kv, m_x, m_wp;
+  if (!encode_map(&m_q, qkv, ld, N, ld, N * ld, B, 64) ||
+      !encode_map(&m_kv, qkv, ld, N, ld, N * ld, B, VA_HALF) ||
+      !encode_map(&m_x, x, VM_C, N, VM_C, (long)N * VM_C, B, 64, x_dt == DT_F32) ||
+      !encode_map(&m_wp, wp, VM_C, VM_C, VM_C, 0, 1, 128))
+    return (int)cudaErrorInvalidValue;
+  const bool x_f32 = x_dt == DT_F32;
+  int e = x_f32 ? pa_configure(vit_attn_kernel<true>, configured[1], VB_SMEM)
+                : pa_configure(vit_attn_kernel<false>, configured[0], VB_SMEM);
+  if (e) return e;
+  VitAttnArgs p;
+  p.bp = static_cast<const float*>(bp); p.ls = static_cast<const float*>(ls);
+  p.out = out; p.out_dt = out_dt;
+  p.N = N;
+  p.ipi = (N + VM_ROWS - 1) / VM_ROWS;
+  p.items = B * p.ipi;
+  p.sl2 = scale * LOG2E_F;
+  int grid = 0;
+  if ((e = pa_grid(p.items, grid))) return e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (x_f32)
+    vit_attn_kernel<true><<<grid, VM_THREADS, VB_SMEM, st>>>(m_q, m_kv, m_x, m_wp, p);
+  else
+    vit_attn_kernel<false><<<grid, VM_THREADS, VB_SMEM, st>>>(m_q, m_kv, m_x, m_wp, p);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* ec_error_string(int code) {

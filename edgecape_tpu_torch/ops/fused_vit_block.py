@@ -12,24 +12,26 @@ approximation because Mosaic has no erf).
 
 On the H100 the block is bound by its matmuls: at the query pass's
 [510, 257, 384], 464 GFLOP of qkv/proj/fc1/fc2 and 52 GFLOP of attention
-products per call. A block is five launches: LN1, the qkv GEMM (TMA +
-wgmma, bias in its epilogue), attention with all 257 keys and values of
-a head in shared memory, the proj GEMM with the LayerScale residual in
-its epilogue (the fp32 x1), and vit_mlp_kernel (ops/kernels.py vit_mlp),
-which runs LN2, fc1, GELU and fc2 with the LayerScale residual on tiles
-of 128 rows with the 1536-wide hidden kept on chip. The bf16 and fp32
-forms of a block's weights are made once per block module and kept until
-a parameter changes.
+products per call. A block is three launches: vit_qkv_kernel (LN1 and
+the q / k / v projection, h kept on chip), vit_attn_kernel (each head's
+attention over all 257 keys in one register pass, the head outputs kept
+on chip as the operand of the projection, the LayerScale residual in its
+epilogue: the fp32 x1) and vit_mlp_kernel (LN2, fc1, GELU and fc2 with
+the LayerScale residual on tiles of 128 rows, the 1536-wide hidden kept
+on chip); ops/kernels.py vit_qkv, vit_attn and vit_mlp. Only q / k / v
+and x1 pass through device memory. The bf16 and fp32 forms of a block's
+weights are made once per block module and kept until a parameter
+changes.
 
 `fused_vit_block2` replaces the TPU kernel `fused_vit_block2`
 (`_kernel2`) of the same file: two consecutive blocks in one op, the
 intermediate rounded to bf16 between them, bit-equal to two calls of
 fused_vit_block. On the TPU the gain was a token block that stayed in
-VMEM across both blocks; here the first block's vit_mlp_kernel writes
-the bf16 intermediate and, from the same registers, the second block's
-LN1 (in the summation order of the LayerNorm kernel, so the bits are
-those of two calls): the pair is 9 launches where two blocks are 10. The
-bound is twice the single block's.
+VMEM across both blocks; here the pair is the two blocks' launches with
+the intermediate stored as bf16 (6 launches): every kernel of the second
+block reads it through bf16(x) as it would read the first block's
+output, so the bits are those of two calls. The bound is twice the
+single block's.
 
 The wrappers run the kernels for a CUDA tensor and the plain PyTorch
 version for a CPU tensor; `launches` and `launches2` count kernel runs
@@ -38,10 +40,9 @@ of the two ops.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
+from . import fused_attn_block as FA
 from . import plain
 
 launches = 0
@@ -61,14 +62,11 @@ def fused_vit_block_plain(x: torch.Tensor, blk, *, num_heads: int,
     """Plain PyTorch version: x [B, N, C] -> [B, N, C] in x.dtype."""
     (n1w, n1b, wqkv, bqkv, wp, bp, ls1, n2w, n2b, w1, b1, w2, b2,
      ls2) = _weights(blk)
-    c = x.shape[-1]
-    d = c // num_heads
-    xf = plain.bf16(x)
-    h = plain.layer_norm(xf, n1w, n1b, eps)
-    qkv = plain.bf16(plain.linear(h, wqkv, bqkv))
-    att = plain.attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
-                          num_heads=num_heads, scale=1.0 / math.sqrt(d))
-    x1 = xf + ls1.float() * plain.linear(att, wp, bp)
+    w = {"n1w": n1w, "n1b": n1b, "wqkv": wqkv, "bqkv": bqkv, "wp": wp,
+         "bp": bp, "ls1": ls1}
+    qkv = FA.vit_qkv_plain(x, w, eps=eps)
+    x1 = FA.vit_attn_plain(qkv, x, w, num_heads=num_heads,
+                           out_dtype=torch.float32)
     h2 = plain.layer_norm(x1, n2w, n2b, eps)
     f = plain.gelu(plain.linear(h2, w1, b1))
     y = x1 + ls2.float() * plain.linear(f, w2, b2)
@@ -88,33 +86,19 @@ def _prepare(blk) -> dict:
             "w2": w16(w2), "b2": v32(b2), "ls": v32(ls2), "kmajor": True}
 
 
-def _fused_vit_block_cuda(x, blk, *, num_heads, eps, out_dtype=None, h=None,
-                          next_blk=None):
-    """The launches of one block; the result is stored as out_dtype
-    (x.dtype by default). h: the block's LN1 output when the previous
-    block's kernel wrote it (then LN1 is not launched). next_blk: the
-    following block, whose LN1 vit_mlp then writes beside the result.
-    Returns (y [B, N, C], the next block's h or None)."""
+def _fused_vit_block_cuda(x, blk, *, num_heads, eps, out_dtype=None):
+    """The three launches of one block; the result is stored as
+    out_dtype (x.dtype by default)."""
     from . import kernels as K
     w = K.module_weights(blk, "_kernel_weights", _prepare)
     b, n, c = x.shape
-    d = c // num_heads
-    xb = x.to(torch.bfloat16).reshape(b * n, c).contiguous()
-    if h is None:
-        _, h = K.layernorm(xb, w["n1w"], w["n1b"], eps, out_f32=False,
-                           out_bf16=True)
-    qkv = K.gemm(h, w["wqkv"], b_nk=True, bias=w["bqkv"]).view(b, n, 3 * c)
-    att = K.attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
-                      num_heads=num_heads, scale=1.0 / math.sqrt(d))
-    x1 = K.gemm(att.view(b * n, c), w["wp"], b_nk=True, bias=w["bp"],
-                res=xb, ls=w["ls1"], out_dtype=torch.float32)
-    next_ln = None
-    if next_blk is not None:
-        wn = K.module_weights(next_blk, "_kernel_weights", _prepare)
-        next_ln = (wn["n1w"], wn["n1b"])
-    y, h_next = K.vit_mlp(x1, w, eps=eps, out_dtype=out_dtype or x.dtype,
-                          next_ln=next_ln)
-    return y.view(b, n, c), h_next
+    K.vit_attn_plan(b, n, c, num_heads)
+    x = x.contiguous()
+    qkv = K.vit_qkv(x.view(b * n, c), w, eps=eps)
+    x1 = K.vit_attn(qkv.view(b, n, 3 * c), x, w, out_dtype=torch.float32)
+    y, _ = K.vit_mlp(x1.view(b * n, c), w, eps=eps,
+                     out_dtype=out_dtype or x.dtype)
+    return y.view(b, n, c)
 
 
 def fused_vit_block(x: torch.Tensor, blk, *, num_heads: int,
@@ -124,7 +108,7 @@ def fused_vit_block(x: torch.Tensor, blk, *, num_heads: int,
     global launches
     if not x.is_cuda:
         return fused_vit_block_plain(x, blk, num_heads=num_heads, eps=eps)
-    out, _ = _fused_vit_block_cuda(x, blk, num_heads=num_heads, eps=eps)
+    out = _fused_vit_block_cuda(x, blk, num_heads=num_heads, eps=eps)
     launches += 1
     return out
 
@@ -146,9 +130,9 @@ def fused_vit_block2(x: torch.Tensor, blk_a, blk_b, *, num_heads: int,
     if not x.is_cuda:
         return fused_vit_block2_plain(x, blk_a, blk_b, num_heads=num_heads,
                                       eps=eps)
-    mid, h = _fused_vit_block_cuda(x, blk_a, num_heads=num_heads, eps=eps,
-                                   out_dtype=torch.bfloat16, next_blk=blk_b)
-    out, _ = _fused_vit_block_cuda(mid, blk_b, num_heads=num_heads, eps=eps,
-                                   out_dtype=x.dtype, h=h)
+    mid = _fused_vit_block_cuda(x, blk_a, num_heads=num_heads, eps=eps,
+                                out_dtype=torch.bfloat16)
+    out = _fused_vit_block_cuda(mid, blk_b, num_heads=num_heads, eps=eps,
+                                out_dtype=x.dtype)
     launches2 += 1
     return out

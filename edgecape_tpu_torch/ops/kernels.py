@@ -1,5 +1,6 @@
 """Build, load and call the hand-written CUDA kernels (`csrc/*.cu`):
-in `kernels.cu` the building blocks of the eval ops, the ViT MLP half,
+in `kernels.cu` the building blocks of the eval ops, the ViT attention
+and MLP halves,
 the decoder stack's own kernels and the training attention's forward /
 backward pair,
 in `mm_chain.cu` the matmul chain of the probe tool.
@@ -88,6 +89,10 @@ _SIGNATURES = {
     # dtype, the next norm's g, be and output, R, F, eps
     "ec_vit_mlp": [_P, _I] + [_P] * 7 + [_I, _P, _I, _P, _P, _P, _I, _I, _F,
                                           _P],
+    # x, its dtype, LN1's g and be, Wqkv, its bias, qkv, R, eps
+    "ec_vit_qkv": [_P, _I, _P, _P, _P, _P, _P, _I, _F, _P],
+    # qkv, x, its dtype, Wproj, bp, ls, out, its dtype, B, N, scale, smem
+    "ec_vit_attn": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _L, _P],
 }
 
 
@@ -918,6 +923,86 @@ def vit_mlp(x: torch.Tensor, w: dict, *, eps: float, out_dtype,
           _dt(out), *nxt, _ptr(hn), r, f, float(eps), _stream())
     mlp_launches["vit_mlp"] += 1
     return out, hn
+
+
+# The ViT attention half (csrc/kernels.cu vit_qkv_kernel, vit_attn_kernel):
+# VIT_HEADS heads of VIT_D channels; a score row holds VIT_KEYS keys in
+# registers (two wgmma m64n136 halves); vit_attn_kernel takes items of
+# VIT_TILE query rows of one image, a warpgroup 64 of them, in
+# VIT_ATTN_SMEM bytes of shared memory (two att tiles of 64 x 384 bf16, K
+# and V of a head, three 16 KB weight slots, barriers, bp and ls).
+VIT_HEADS, VIT_D, VIT_KEYS = 6, 64, 272
+VIT_ATTN_SMEM = 1024 + 2 * VIT_HEADS * 8192 + 2 * VIT_KEYS * 128 + 3 * 16384 \
+    + 128 + 8 * VIT_C
+attn_half_launches = {"vit_qkv": 0, "vit_attn": 0}
+
+
+def vit_attn_plan(b: int, n: int, c: int, heads: int) -> dict:
+    """How the two kernels of the ViT attention half cover B images of N
+    tokens of c channels: vit_qkv_kernel's `qkv_tiles` of VIT_TILE rows
+    (a persistent grid of at most one block an SM walks them);
+    vit_attn_kernel's `items`, `items_per_image` of VIT_TILE query rows
+    each, of which `query_tiles` 64-row tiles an image hold real rows (a
+    warpgroup whose 64 rows all lie past N multiplies nothing) and
+    `pad_rows` rows an image are padding; every score row spans `key_pad`
+    keys (those past N masked) and a block holds `smem_bytes` of shared
+    memory. Raises for what the kernels do not take: other than 384
+    channels in 6 heads, more than VIT_KEYS tokens."""
+    if c != VIT_C or heads != VIT_HEADS:
+        raise ValueError(f"the ViT attention kernels take {VIT_HEADS} heads "
+                         f"of {VIT_D} ({VIT_C} channels), got {heads} heads "
+                         f"and {c} channels")
+    if b < 1 or not 1 <= n <= VIT_KEYS:
+        raise ValueError(f"the ViT attention kernels take 1..{VIT_KEYS} "
+                         f"tokens and a batch, got B={b}, N={n}")
+    per_image = -(-n // VIT_TILE)
+    return {"qkv_tiles": -(-(b * n) // VIT_TILE), "items": b * per_image,
+            "items_per_image": per_image, "query_tiles": -(-n // 64),
+            "pad_rows": per_image * VIT_TILE - n, "key_pad": VIT_KEYS,
+            "smem_bytes": VIT_ATTN_SMEM}
+
+
+def vit_qkv(x: torch.Tensor, w: dict, *, eps: float) -> torch.Tensor:
+    """The ViT block's LN1 and q | k | v projection, one launch:
+    bf16(bf16(LN(bf16(x))) . Wqkv^T + bqkv), h kept on chip. x: contiguous
+    fp32 or bf16 [R, 384]; w: n1w, n1b (LN1), wqkv bf16 [1152, 384] (torch
+    Linear layout) and bqkv fp32 [1152]. Returns qkv bf16 [R, 1152]."""
+    _cuda(x)
+    if x.dim() != 2 or x.shape[1] != VIT_C:
+        raise ValueError(f"vit_qkv takes [R, {VIT_C}] rows, got "
+                         f"{tuple(x.shape)}")
+    r, c = x.shape
+    ptrs = [_operand(x, (r, c), x.dtype), _dt(x)] + _vectors(
+        w, "n1w", "n1b") + [_operand(w["wqkv"], (3 * c, c))] + _vectors(
+        w, "bqkv")
+    out = torch.empty((r, 3 * c), dtype=torch.bfloat16, device=x.device)
+    _call("ec_vit_qkv", *ptrs, out.data_ptr(), r, float(eps), _stream())
+    attn_half_launches["vit_qkv"] += 1
+    return out
+
+
+def vit_attn(qkv: torch.Tensor, x: torch.Tensor, w: dict, *,
+             out_dtype) -> torch.Tensor:
+    """The rest of the ViT block's attention half, one launch: y = bf16(x)
+    + ls1 * (att . Wp^T + bp), att = bf16(bf16(softmax(q k^T / 8)) v) per
+    head over all keys of a row, att kept on chip. qkv: contiguous bf16
+    [B, N, 1152] (vit_qkv's); x: contiguous fp32 or bf16 [B, N, 384] (the
+    residual); w: wp bf16 [384, 384] (torch Linear layout), bp and ls1
+    fp32. Returns [B, N, 384] in out_dtype."""
+    _cuda(qkv, x)
+    if qkv.dim() != 3 or qkv.shape[2] % 3:
+        raise ValueError(f"vit_attn takes qkv [B, N, 3 C], got "
+                         f"{tuple(qkv.shape)}")
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    plan = vit_attn_plan(b, n, c, VIT_HEADS)
+    ptrs = [_operand(qkv, (b, n, c3)), _operand(x, (b, n, c), x.dtype),
+            _dt(x), _operand(w["wp"], (c, c))] + _vectors(w, "bp", "ls1")
+    out = torch.empty((b, n, c), dtype=out_dtype, device=qkv.device)
+    _call("ec_vit_attn", *ptrs, out.data_ptr(), _dt(out), b, n,
+          float(VIT_D ** -0.5), plan["smem_bytes"], _stream())
+    attn_half_launches["vit_attn"] += 1
+    return out
 
 
 # The decoder stack's own kernels (csrc/kernels.cu bias_attn_kernel,

@@ -650,13 +650,15 @@ def test_fused_ln_mlp_matches_plain(dev, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_attn_block_matches_plain(dev, dtype):
+    """At the model's width (the ViT attention kernels take C = 384 in 6
+    heads), 111 rows."""
     from edgecape_tpu_torch.ops import fused_attn_block as FB
-    attn, _ = _half_args(dev, 128, 200)
-    x = _rn(dev, 3, 37, 128).to(dtype)
+    attn, _ = _half_args(dev, 384, 1536)
+    x = _rn(dev, 3, 37, 384).to(dtype)
     n0 = FB.launches
-    out = FB.fused_attn_block(x, *attn, num_heads=2)
+    out = FB.fused_attn_block(x, *attn, num_heads=6)
     assert out.dtype == dtype and FB.launches == n0 + 1
-    _close(out, FB.fused_attn_block_plain(x, *attn, num_heads=2))
+    _close(out, FB.fused_attn_block_plain(x, *attn, num_heads=6))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1194,10 +1196,11 @@ def test_vit_mlp_refuses_what_it_does_not_take(dev):
 
 
 def test_vit_ops_launches(dev):
-    """Kernels a call puts on the device: #9 one vit_mlp_kernel; #1 five
-    (LN1, the qkv and proj GEMMs on the TMA mainloop, attention,
-    vit_mlp_kernel); #2 nine (its second block's LN1 comes from the
-    first's vit_mlp_kernel). No fc1 GEMM and no thread-copy GEMM."""
+    """Kernels a call puts on the device: #9 one vit_mlp_kernel; #1 three
+    (vit_qkv_kernel, vit_attn_kernel, vit_mlp_kernel); #2 six (the same
+    for each block); #10 two (vit_qkv_kernel, vit_attn_kernel, its
+    weights laid out once). No GEMM."""
+    from edgecape_tpu_torch.ops import fused_attn_block as FB
     from edgecape_tpu_torch.ops import fused_mlp as FM
     from edgecape_tpu_torch.ops import fused_vit_block as FV
     from edgecape_tpu_torch.ops import kernels as K
@@ -1207,18 +1210,109 @@ def test_vit_ops_launches(dev):
         a = _randomize(Block(DinoV2Config()), dev, 1)
         b = _randomize(Block(DinoV2Config()), dev, 2)
         x = _rn(dev, 4, 257, 384).to(bf)
-        _, mlp = _half_args(dev, 384, 1536)
+        attn, mlp = _half_args(dev, 384, 1536)
         FM.fused_ln_mlp(x, *mlp)
+        FB.fused_attn_block(x, *attn, num_heads=6)
         FV.fused_vit_block2(x, a, b, num_heads=6)   # weights cached
         cases = [(lambda: FM.fused_ln_mlp(x, *mlp), 1, 0, 1),
-                 (lambda: FV.fused_vit_block(x, a, num_heads=6), 5, 2, 1),
-                 (lambda: FV.fused_vit_block2(x, a, b, num_heads=6), 9, 4, 2)]
-        for fn, kernels, gemms, mlps in cases:
+                 (lambda: FV.fused_vit_block(x, a, num_heads=6), 3, 1, 1),
+                 (lambda: FV.fused_vit_block2(x, a, b, num_heads=6), 6, 2, 2),
+                 (lambda: FB.fused_attn_block(x, *attn, num_heads=6), 2, 1,
+                  0)]
+        for fn, kernels, halves, mlps in cases:
             g0, m0 = dict(K.gemm_launches), K.mlp_launches["vit_mlp"]
+            a0 = dict(K.attn_half_launches)
             fn()
-            assert K.gemm_launches["tma"] == g0["tma"] + gemms
-            assert K.gemm_launches["copy"] == g0["copy"]
+            assert K.gemm_launches == g0
             assert K.mlp_launches["vit_mlp"] == m0 + mlps
+            assert K.attn_half_launches == {k: v + halves
+                                            for k, v in a0.items()}
             names = _kernel_names(fn)
             assert len(names) == kernels, names
             assert sum("vit_mlp_kernel" in n for n in names) == mlps, names
+            for k in ("vit_qkv_kernel", "vit_attn_kernel"):
+                assert sum(k in n for n in names) == halves, names
+
+
+# ------------------------------------------------- ViT attention kernels
+# (images, tokens) of vit_qkv_kernel / vit_attn_kernel: the eval chunk's
+# query and support passes, the training step's frozen backbone (2 x 16
+# images), the CUDA tests' 37 tokens, and ragged token counts around the
+# 136-key box and the 128-row item
+VIT_ATTN_SHAPES = [(510, 257), (34, 257), (32, 257), (3, 37), (1, 136),
+                   (2, 137), (5, 129), (1, 272)]
+
+
+def _vit_attn_weights(dev, seed=50):
+    """The kernels' weight dict: bf16 matrices in torch Linear layout at
+    1 / sqrt(fan-in), fp32 vectors, LayerScale 1."""
+    g = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, s=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=g) * s + shift).to(dev)
+
+    c = 384
+    return {"n1w": rn(c, s=0.1, shift=1.0), "n1b": rn(c, s=0.1),
+            "wqkv": rn(3 * c, c, s=c ** -0.5).to(torch.bfloat16),
+            "bqkv": rn(3 * c, s=0.1),
+            "wp": rn(c, c, s=c ** -0.5).to(torch.bfloat16), "bp": rn(c, s=0.1),
+            "ls1": torch.ones(c, device=dev)}
+
+
+@pytest.mark.parametrize("b,n", VIT_ATTN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_qkv_and_vit_attn_match_plain(dev, b, n, dtype):
+    """Each kernel against its plain version (tests/test_torch_vit_attn.py
+    holds their order of operations against the TPU kernel's): vit_qkv on
+    x fp32 or bf16, vit_attn on vit_qkv's output with fp32 output (#1's
+    x1) and x.dtype (#10's), one counted launch each."""
+    from edgecape_tpu_torch.ops import fused_attn_block as FA
+    from edgecape_tpu_torch.ops import kernels as K
+    w = _vit_attn_weights(dev)
+    x = _rn(dev, b, n, 384, seed=51).to(dtype)
+    a0 = dict(K.attn_half_launches)
+    qkv = K.vit_qkv(x.view(b * n, 384), w, eps=1e-6)
+    assert qkv.dtype == torch.bfloat16 and qkv.shape == (b * n, 1152)
+    _close(qkv, FA.vit_qkv_plain(x.view(b * n, 384), w, eps=1e-6))
+    qkv = qkv.view(b, n, 1152)
+    for odt in (torch.float32, dtype):
+        y = K.vit_attn(qkv, x, w, out_dtype=odt)
+        assert y.dtype == odt and y.shape == x.shape
+        _close(y, FA.vit_attn_plain(qkv, x, w, num_heads=6, out_dtype=odt))
+    assert K.attn_half_launches == {"vit_qkv": a0["vit_qkv"] + 1,
+                                    "vit_attn": a0["vit_attn"] + 2}
+
+
+def test_vit_attn_kernels_refuse_what_they_do_not_take(dev):
+    from edgecape_tpu_torch.ops import kernels as K
+    w = _vit_attn_weights(dev)
+    bf = torch.bfloat16
+    before = dict(K.attn_half_launches)
+    with pytest.raises(ValueError):          # 256 channels
+        K.vit_qkv(_rn(dev, 10, 256), w, eps=1e-6)
+    with pytest.raises(ValueError):          # not contiguous
+        K.vit_qkv(_rn(dev, 384, 20).t(), w, eps=1e-6)
+    with pytest.raises(ValueError):          # more keys than a row holds
+        K.vit_attn(_rn(dev, 1, 273, 1152).to(bf), _rn(dev, 1, 273, 384), w,
+                   out_dtype=torch.float32)
+    with pytest.raises(ValueError):          # qkv of another width
+        K.vit_attn(_rn(dev, 2, 37, 768).to(bf), _rn(dev, 2, 37, 256), w,
+                   out_dtype=torch.float32)
+    with pytest.raises(ValueError):          # x of another shape
+        K.vit_attn(_rn(dev, 2, 37, 1152).to(bf), _rn(dev, 2, 36, 384), w,
+                   out_dtype=torch.float32)
+    with pytest.raises(ValueError):          # a CPU residual
+        K.vit_attn(_rn(dev, 2, 37, 1152).to(bf), torch.zeros(2, 37, 384), w,
+                   out_dtype=torch.float32)
+    assert K.attn_half_launches == before
+
+
+def test_fused_attn_block_refuses_other_widths(dev):
+    """The kernels take the model's C 384 in 6 heads; another width raises
+    on the card (the CPU takes the plain version)."""
+    from edgecape_tpu_torch.ops import fused_attn_block as FB
+    attn, _ = _half_args(dev, 128, 200)
+    n0 = FB.launches
+    with pytest.raises(ValueError):
+        FB.fused_attn_block(_rn(dev, 3, 37, 128), *attn, num_heads=2)
+    assert FB.launches == n0
