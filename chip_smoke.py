@@ -37,7 +37,9 @@ Phases (any failure exits non-zero before the last line):
    the ViT block's, the encoder stack's and the decoder layer's lines add
    their device time, kernels per call (at most 3, 10 and 8; the ViT
    block's are vit_qkv_kernel, vit_attn_kernel and vit_mlp_kernel, no
-   GEMM) and ms by kernel, and the encoder's
+   GEMM) and ms by kernel (where the traces lose their device events, the
+   count comes from the wrappers' launch counters and the time reads "not
+   measured"; an op with no count fails), and the encoder's
    library time is that of nn.TransformerEncoderLayer;
 3. the main path: a stage-3 PoseEstimator (learned skeleton + Markov
    bias, K=100, 224 px, 1 shot, bf16 compute and head dtype, full
@@ -53,7 +55,11 @@ Phases (any failure exits non-zero before the last line):
    one chunk is compared with the same weights on the plain (no kernel)
    path on the card; one more chunk of the kernel path runs under
    torch.profiler, which gives device time by kernel and the device's
-   busy share of that chunk's wall time;
+   busy share of that chunk's wall time. Then a head of d_model 128 in 4
+   heads over a two-block ViT-S/14, asked for on the card with the
+   kernels on, must be refused when it is built, naming the ops whose
+   kernels do not take 128 channels, with no kernel launched
+   (`[widths]`);
 4. the training path: the port's Trainer (stage 3: learned skeleton,
    Markov bias, masked supervision, skeleton frozen; full ViT-S/14,
    K=100, 224 px, 64x64 heatmaps, batch 16, dropout 0.1, fp32 head over
@@ -101,7 +107,10 @@ Phases (any failure exits non-zero before the last line):
 9. the matmul chain of the probe tool (ops/mm_chain.py) against its
    plain version at a small shape and at the tool's three cases, row tiles
    cut per image (`loop`) and per group (`fold`), the two bit-equal over
-   the whole output; then the tool itself
+   the whole output, each with its share of the bound and of useful rows
+   in its tiles, beside a chain of 2 x reps cuBLAS calls (a yardstick the
+   port never calls) and ptxas's registers and spills of the kernel; then
+   the tool itself
    (python -m edgecape_tpu_torch.tools.probe_m_fold), its three lines;
 10. the disk path: the port's generator writes a synthetic MP-100 stand-in
    (PPM images, COCO json) to a temporary directory; the full-width
@@ -191,6 +200,10 @@ STRICT_MEDIAN, STRICT_P99 = 1e-4, 2e-3
 # The ViT block's kernels (ops/kernels.py vit_qkv, vit_attn, vit_mlp): the
 # first two are the attention half, and #10 fused_attn_block's call.
 VIT_KERNELS = ("vit_qkv_kernel", "vit_attn_kernel", "vit_mlp_kernel")
+# the GEMM's kernels by mainloop (TMA + wgmma, thread-copy), and those the
+# variant path counts (ops/kernels.py launches)
+GEMMS = ("gemm_tma_kernel", "gemm_kernel")
+VARIANT_KERNELS = ("bias_attn_kernel", "kpt_head_kernel") + VIT_KERNELS
 
 # Training phase: batch, steps of the stage-3 fit (the first is warm-up),
 # steps of the plain-path and stage-2 trainers, dropout, the keep share's
@@ -322,16 +335,16 @@ def check_op(entries, bad, name, replaces, op_src, out, ref, kern, plain,
     may take the latter (operands a tensor map cannot describe);
     tma_gemms: how many must take the former."""
     from edgecape_tpu_torch.ops import kernels as KN
-    before = dict(KN.gemm_launches)
+    before = dict(KN.launches)
     kern()
-    gemms = {k: KN.gemm_launches[k] - before[k] for k in before}
-    per_call = (f"; GEMMs per call: {gemms['tma']} TMA + wgmma, "
-                f"{gemms['copy']} thread-copy")
-    if copy_gemms is not None and gemms["copy"] != copy_gemms:
-        bad.append(f"{name}: {gemms['copy']} GEMMs took the thread-copy "
+    gemms = {k: KN.launches[k] - before[k] for k in GEMMS}
+    tma, copy = gemms["gemm_tma_kernel"], gemms["gemm_kernel"]
+    per_call = f"; GEMMs per call: {tma} TMA + wgmma, {copy} thread-copy"
+    if copy_gemms is not None and copy != copy_gemms:
+        bad.append(f"{name}: {copy} GEMMs took the thread-copy "
                    f"loader, {copy_gemms} may")
-    if tma_gemms is not None and gemms["tma"] != tma_gemms:
-        bad.append(f"{name}: {gemms['tma']} TMA GEMMs per call, "
+    if tma_gemms is not None and tma != tma_gemms:
+        bad.append(f"{name}: {tma} TMA GEMMs per call, "
                    f"{tma_gemms} expected")
     if counter is not None:
         n0 = getattr(*counter)
@@ -366,24 +379,33 @@ def check_op(entries, bad, name, replaces, op_src, out, ref, kern, plain,
 
 def device_extra(name, kern, cap, bad, must_run=()):
     """The [op] line's device part: device time and kernels per call of
-    kern() (profiler; nan: three traces lost device events, the count is
-    then not measured) and ms a call by kernel. Fails the op when a call
-    launches more than `cap` kernels or a kernel named in must_run is
-    missing from a trace that has device events. Returns (text, device
-    ms, kernels per call)."""
+    kern() (profiler) and ms a call by kernel. Where the traces lose their
+    device events (tools/bench_attention.py device_ms), the count comes
+    from the wrappers' exact launch counters (ops/kernels.py
+    launch_counts) and the time is "not measured" beside the CUDA-event
+    wall time. Fails the op when a call launches more than `cap` kernels,
+    when a kernel named in must_run ran neither in the trace nor by the
+    counters, or when neither source gives a count: a missing count is
+    never a pass. Returns (text, device ms or None, kernels per call or
+    None, {kernel: ms a call} of the trace)."""
     from edgecape_tpu_torch.tools import bench_attention as BA
-    dev_ms, per_call = BA.device_ms(kern)
+    dev_ms, per_call, wall_ms, count_from = BA.per_call(kern)
     by_name = BA.kernel_ms(kern)
+    ran = set(by_name) | set(BA.launched(kern))
     by_kernel = ", ".join(
         f"{k.split('(')[0].replace('void ', '')} {ms:.4f}"
         for k, ms in sorted(by_name.items(), key=lambda kv: -kv[1]))
-    if per_call > cap:
+    if per_call is None:
+        bad.append(f"{name}: no kernel count (the traces lost their device "
+                   f"events and no launch counter moved)")
+    elif per_call > cap:
         bad.append(f"{name}: {per_call} kernels per call")
-    if by_name and not all(any(n in k for k in by_name) for n in must_run):
-        bad.append(f"{name}: a kernel of {must_run} is missing from its trace")
-    return (f"; device {dev_ms:.4f} ms in {per_call:g} kernels per call (at "
-            f"most {cap}; ms a call by kernel: {by_kernel or 'not measured'})",
-            dev_ms, per_call)
+    missing = [n for n in must_run if not any(n in k for k in ran)]
+    if missing:
+        bad.append(f"{name}: {missing} did not run")
+    return (f"; {BA.ms_text(dev_ms, wall_ms)} in {per_call} kernels per "
+            f"call by {count_from} (at most {cap}; ms a call by kernel: "
+            f"{by_kernel or 'not measured'})", dev_ms, per_call, by_name)
 
 
 def main_path_config():
@@ -569,7 +591,7 @@ def op_checks(dev, entries):
             out, ref = pairs() if pairs else (kern(), plain())
             extra, cap = "", launch_cap.get(name)
             if cap is not None:
-                extra, dev_ms, per_call = device_extra(
+                extra, dev_ms, per_call, _ = device_extra(
                     name, kern, cap, bad, must_run.get(name, ()))
             if name == "fused_encoder_stack":
                 extra += (f"; library: {len(enc)} x nn.TransformerEncoderLayer"
@@ -684,16 +706,13 @@ def main_path(dev, entries, power):
                 (FD, "launches"), (FA, "launches")]
     for mod, attr in counters:
         setattr(mod, attr, 0)
-    KN.gemm_launches.update(tma=0, copy=0)
-    KN.post_launches.update(enc_post=0, dec_post_self=0, dec_post_cross=0)
-    KN.mlp_launches.update(vit_mlp=0)
-    KN.attn_half_launches.update(vit_qkv=0, vit_attn=0)
+    KN.launches.update(dict.fromkeys(KN.launches, 0))
     t0 = time.perf_counter()
     timings = run_cached(est, [(i, GROUPS) for i in range(CHUNKS)],
                          lambda i: data[i], on_chunk)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    gemms = dict(KN.gemm_launches)
+    gemms = {k: KN.launches[k] for k in GEMMS}
     counts = {"fused_vit_block": FV.launches,
               "fused_encoder_stack": FE.stack_launches,
               "fused_encoder_layer": FE.launches,
@@ -709,20 +728,23 @@ def main_path(dev, entries, power):
     # blocks; one post-attention kernel of each kind a layer; one
     # vit_qkv_kernel and one vit_attn_kernel (the attention half) and one
     # vit_mlp_kernel (the MLP half) a ViT block
-    expect_gemms = {"tma": (3 * 1 + 3 * 4) * CHUNKS, "copy": 0}
-    post = dict(KN.post_launches, **KN.mlp_launches,
-                **KN.attn_half_launches)
-    expect_post = {"enc_post": 3 * CHUNKS, "dec_post_self": 3 * CHUNKS,
-                   "dec_post_cross": 3 * CHUNKS, "vit_mlp": 24 * CHUNKS,
-                   "vit_qkv": 24 * CHUNKS, "vit_attn": 24 * CHUNKS}
+    expect_gemms = {"gemm_tma_kernel": (3 * 1 + 3 * 4) * CHUNKS,
+                    "gemm_kernel": 0}
+    expect_post = {"enc_post_kernel": 3 * CHUNKS,
+                   "dec_post_self_kernel": 3 * CHUNKS,
+                   "dec_post_cross_kernel": 3 * CHUNKS,
+                   "vit_mlp_kernel": 24 * CHUNKS,
+                   "vit_qkv_kernel": 24 * CHUNKS,
+                   "vit_attn_kernel": 24 * CHUNKS}
+    post = {k: KN.launches[k] for k in expect_post}
     print(f"[path] launches {counts} expected {expect}; GEMM launches by "
           f"mainloop {gemms} expected {expect_gemms}; post-attention and "
           f"MLP kernels {post} expected {expect_post}", flush=True)
     for name in ("fused_vit_block", "fused_encoder_stack",
                  "fused_decoder_layer", "flash_mha"):
         entries[name]["launches"] = counts[name]
-    for k in ("vit_qkv", "vit_attn", "vit_mlp"):
-        entries["fused_vit_block"][f"{k}_kernel_launches"] = post[k]
+    for k in ("vit_qkv_kernel", "vit_attn_kernel", "vit_mlp_kernel"):
+        entries["fused_vit_block"][f"{k}_launches"] = post[k]
     if counts != expect:
         fail("launch counts differ from what the main path implies")
     if gemms != expect_gemms:
@@ -1050,10 +1072,9 @@ def attention_checks(dev, entries, power):
     if bad:
         fail(f"attention kernels disagree with their plain versions: {bad}")
     # a backward is its two kernels and nothing else: no mask pass, no copy
-    # (nan: the trace had no device events and the time is CUDA events')
-    extra = [r["name"] for r in bwd_rows
-             if r["kernels_per_call"] == r["kernels_per_call"]
-             and r["kernels_per_call"] != 2]
+    # (the count from the launch counters where the traces lost their
+    # device events; none at all fails)
+    extra = [r["name"] for r in bwd_rows if r["kernels_per_call"] != 2]
     if extra:
         fail(f"the attention backward is not two kernels a call: {extra}")
     entries["flash_mha"]["attention_shapes"] = rows
@@ -1080,6 +1101,48 @@ def gemm_checks(dev, entries, power):
         fail(f"the GEMM's dispatch took another mainloop than the operands "
              f"imply: {wrong}")
     entries["fused_vit_block"]["gemm_shapes"] = rows
+
+
+def width_check(dev, power):
+    """A head of d_model 128 in 4 heads (num_feats 64) over a two-block
+    ViT-S/14, asked for on the card with use_flash on: the post-attention
+    kernels take 256 channels, so building the estimator raises ValueError
+    (ops/kernel_config.py require_widths) naming the encoder stack, the
+    decoder layer and the decoder stack with the width, before anything
+    is built or launched: no forward pass raises half way. The main path's
+    stage-3 widths were built without raising."""
+    from edgecape_tpu_torch.api import PoseEstimator
+    from edgecape_tpu_torch.config import Config, ModelConfig
+    from edgecape_tpu_torch.models.dinov2 import DinoV2Config
+    from edgecape_tpu_torch.tools import bench_attention as BA
+
+    cfg = Config(model=ModelConfig(
+        image_size=SIZE, max_kpt=K, learn_skeleton=True, attn_bias=True,
+        max_hops=4, compute_dtype="bfloat16", head_dtype="bfloat16",
+        use_flash=True, d_model=128, nhead=4, num_feats=64,
+        similarity_proj_dim=128))
+    err = []
+
+    def build():
+        try:
+            PoseEstimator(cfg, generator=torch.Generator().manual_seed(SEED),
+                          device=dev, backbone_cfg=DinoV2Config(depth=2))
+        except ValueError as e:
+            err.append(str(e))
+
+    ran = BA.launched(build)
+    msg = err[0] if err else ""
+    named = [op for op in ("fused_encoder_stack", "fused_decoder_layer",
+                           "fused_decoder_stack") if op in msg]
+    ok = len(named) == 3 and "256 channels, got 128" in msg and not ran
+    print(f"[widths] d_model 128, 4 heads, num_feats 64, use_flash on the "
+          f"card: the build raised {bool(err)} naming {named} "
+          f"({msg or 'no error'}); hand-written launches {sum(ran.values())}"
+          f"; the main path's stage-3 widths built on {power} "
+          f"{'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("a model of other widths was not refused when it was built")
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ phase 4
@@ -1507,7 +1570,7 @@ def variant_op_checks(dev, entries, power):
         # one vit_mlp_kernel a call, no GEMM
         mlp_call = lambda: FM.fused_ln_mlp(x, *mlp_args)  # noqa: E731
         mlp_out = mlp_call()
-        extra, dev_ms, per_call = device_extra(
+        extra, dev_ms, per_call, _ = device_extra(
             "fused_ln_mlp", mlp_call, 1, bad, ("vit_mlp_kernel",))
         check_op(entries, bad, "fused_ln_mlp",
                  "edgecape_tpu/ops/fused_mlp.py:67",
@@ -1530,7 +1593,7 @@ def variant_op_checks(dev, entries, power):
         attn_call = lambda: FB.fused_attn_block(  # noqa: E731
             x, *attn_args, num_heads=6)
         attn_out = attn_call()
-        extra, dev_ms, per_call = device_extra(
+        extra, dev_ms, per_call, _ = device_extra(
             "fused_attn_block", attn_call, 2, bad, VIT_KERNELS[:2])
         check_op(entries, bad, "fused_attn_block",
                  "edgecape_tpu/ops/fused_attn_block.py:100",
@@ -1579,7 +1642,7 @@ def variant_op_checks(dev, entries, power):
         # and vit_mlp_kernel (the first block's result stored as bf16)
         pair_call = lambda: FV.fused_vit_block2(  # noqa: E731
             x, blk_a, blk_b, num_heads=6, eps=1e-6)
-        extra, dev_ms, per_call = device_extra(
+        extra, dev_ms, per_call, _ = device_extra(
             "fused_vit_block2", pair_call, 6, bad, VIT_KERNELS)
         check_op(entries, bad, "fused_vit_block2",
                  "edgecape_tpu/ops/fused_vit_block.py:248",
@@ -1750,16 +1813,14 @@ def variant_op_checks(dev, entries, power):
                                                                 **kw), reps=3)
         bnd = bound(nbytes(*args) + param_bytes(dec) + outs_bytes,
                     layers * (layer_flops + glue_flops), layers * bias_flops)
-        # device time and kernels of one call; nan: three traces lost
-        # device events, the count is then not measured
+        # device time and kernels of one call (device_extra: the count
+        # from the launch counters where the traces lost their events)
         stack_call = lambda: FD.fused_decoder_stack(*args, dec, **kw)  # noqa: E731
-        c0 = KN.gemm_launches["copy"]
-        dev_ms, per_call = BA.device_ms(stack_call)
-        copy_gemms = KN.gemm_launches["copy"] - c0
-        by_name = BA.kernel_ms(stack_call)
-        by_kernel = ", ".join(
-            f"{k.split('(')[0].replace('void ', '')} {v:.4f}"
-            for k, v in sorted(by_name.items(), key=lambda kv: -kv[1]))
+        copy_gemms = BA.launched(stack_call).get("gemm_kernel", 0)
+        dev_text, dev_ms, per_call, by_name = device_extra(
+            "fused_decoder_stack", stack_call, STACK_KERNELS, bad,
+            ("bias_attn_kernel", "kpt_head_kernel", "dec_post_self_kernel",
+             "dec_post_cross_kernel"))
         print(f"[op] fused_decoder_stack: {layers} layers, rows {nq}, K {K}, "
               f"HW {hw}, C {c}, Markov bias from the hop stack, formed once "
               f"for all heads: {one_call} launch count per call, whole stack "
@@ -1768,21 +1829,12 @@ def variant_op_checks(dev, entries, power):
               f"worst {worst:.4g}, tol {STACK_LAYER_MAX}) kernel {ms:.3f} ms "
               f"plain {plain_ms:.3f} ms chain of fused_decoder_layer with "
               f"PyTorch glue {chain_ms:.3f} ms bound {bnd[0]:.4f} ms "
-              f"({bnd[1]}) library none; device {dev_ms:.4f} ms in "
-              f"{per_call:g} kernels per call (at most {STACK_KERNELS}), "
-              f"{copy_gemms} thread-copy GEMMs in {BA.REPS + 1} calls; ms a "
-              f"call by kernel: {by_kernel or 'not measured'}", flush=True)
-        if per_call > STACK_KERNELS:
-            bad.append(f"fused_decoder_stack: {per_call} kernels per call")
+              f"({bnd[1]}) library none; {copy_gemms} thread-copy GEMMs a "
+              f"call{dev_text}", flush=True)
         if copy_gemms or any("gemm_kernel<" in k or "attn_kernel<32, 5" in k
                              for k in by_name):
             bad.append("fused_decoder_stack: a thread-copy GEMM or the old "
                        "hop-stack attention ran")
-        if by_name and not all(any(n in k for k in by_name) for n in (
-                "bias_attn_kernel", "kpt_head_kernel", "dec_post_self_kernel",
-                "dec_post_cross_kernel")):
-            bad.append("fused_decoder_stack: a kernel of the stack is missing "
-                       "from its trace")
         entries["fused_decoder_stack"] = {
             "name": "fused_decoder_stack", "route": "cuda",
             "source": "edgecape_tpu_torch/csrc/kernels.cu",
@@ -1818,9 +1870,7 @@ def variant_path(dev, entries, power, est, data, default_preds, tuned_out):
         KC.set_vit_pair_blocks(pair)
         preds = []
         FV.launches = FV.launches2 = FD.launches = FD.stack_launches = 0
-        KN.stack_kernel_launches.update(bias_attention=0, kpt_head=0)
-        KN.mlp_launches.update(vit_mlp=0)
-        KN.attn_half_launches.update(vit_qkv=0, vit_attn=0)
+        KN.launches.update(dict.fromkeys(KN.launches, 0))
         t0 = time.perf_counter()
         run_cached(est, chunks, lambda i: data[i],
                    lambda pred, *a: preds.append(pred))
@@ -1830,8 +1880,7 @@ def variant_path(dev, entries, power, est, data, default_preds, tuned_out):
                   "fused_vit_block2": FV.launches2,
                   "fused_decoder_layer": FD.launches,
                   "fused_decoder_stack": FD.stack_launches,
-                  **KN.stack_kernel_launches, **KN.mlp_launches,
-                  **KN.attn_half_launches}
+                  **{k: KN.launches[k] for k in VARIANT_KERNELS}}
         return preds, wall, counts
 
     try:
@@ -1839,9 +1888,11 @@ def variant_path(dev, entries, power, est, data, default_preds, tuned_out):
         preds, wall, counts = run(True, True)
         expect = {"fused_vit_block": 0, "fused_vit_block2": 12 * CHUNKS,
                   "fused_decoder_layer": 0, "fused_decoder_stack": CHUNKS,
-                  "bias_attention": 3 * CHUNKS, "kpt_head": 3 * CHUNKS,
-                  "vit_mlp": 24 * CHUNKS, "vit_qkv": 24 * CHUNKS,
-                  "vit_attn": 24 * CHUNKS}
+                  "bias_attn_kernel": 3 * CHUNKS,
+                  "kpt_head_kernel": 3 * CHUNKS,
+                  "vit_mlp_kernel": 24 * CHUNKS,
+                  "vit_qkv_kernel": 24 * CHUNKS,
+                  "vit_attn_kernel": 24 * CHUNKS}
         print(f"[variant] both switches on: launches {counts} expected "
               f"{expect} ({CHUNKS} chunks: per chunk 12 fused_vit_block2 "
               f"over the two backbone passes, each with two launches of "
@@ -1850,9 +1901,11 @@ def variant_path(dev, entries, power, est, data, default_preds, tuned_out):
               flush=True)
         if counts != expect:
             fail("variant path launch counts differ from what it implies")
-        for name in ("fused_vit_block2", "fused_decoder_stack",
-                     "bias_attention", "kpt_head"):
-            entries[name]["launches"] = counts[name]
+        for name, key in (("fused_vit_block2",) * 2,
+                          ("fused_decoder_stack",) * 2,
+                          ("bias_attention", "bias_attn_kernel"),
+                          ("kpt_head", "kpt_head_kernel")):
+            entries[name]["launches"] = counts[key]
         d = np.abs(np.stack(preds) - np.stack(default_preds))
         ok = np.isfinite(np.stack(preds)).all() and d.max() > 0 \
             and np.median(d) <= STACK_CHAIN_MEDIAN \
@@ -2060,12 +2113,32 @@ def bench_tool(entries, power):
 
 
 # ------------------------------------------------------------ phase 9
+def cublas_chain(x, w1, w2, reps):
+    """The chain as 2 x reps cuBLAS calls on bf16 (a yardstick the port
+    never calls): h = x @ w1, then x = addmm(x, h, w2), whose epilogue adds
+    x in fp32 and rounds once, the chain's own rounding points."""
+    rows = x.reshape(-1, x.shape[-1])
+    for _ in range(reps):
+        rows = torch.addmm(rows, torch.mm(rows, w1), w2)
+    return rows.view(x.shape)
+
+
 def mm_chain_checks(dev, entries, power):
     """ops.mm_chain against mm_chain_plain at a small shape and the probe
-    tool's three cases, `loop` and `fold`."""
+    tool's three cases, `loop` and `fold`; beside the times the share of
+    useful rows in each cut's tiles (ops/kernels.py mm_chain_plan), the
+    share of the bound, the cuBLAS chain on the same inputs, and ptxas's
+    registers and spills of the kernel."""
     import edgecape_tpu_torch.ops.mm_chain as MC
+    from edgecape_tpu_torch.ops import kernels as KN
     from edgecape_tpu_torch.tools import probe_m_fold as P
 
+    regs = "; ".join(
+        f"C {64 * int(name.split('ILi')[1].split('E')[0])}: {r} registers, "
+        f"{st} / {ld} bytes spilled (stores / loads)"
+        for name, r, st, ld in KN.ptxas_usage("mm_chain_kernel")) or \
+        "not built in this process"
+    print(f"[op] mm_chain ptxas: {regs}", flush=True)
     bad = []
     for ci, (label, b, g, n, c, f, reps) in enumerate([MM_SMALL] + P.CASES):
         x, w1, w2 = P.inputs(b, n, c, f, dev)
@@ -2086,18 +2159,29 @@ def mm_chain_checks(dev, entries, power):
               for fold in (False, True)}
         plain_ms = time_ms(lambda: MC.mm_chain_plain(x, w1, w2, reps, g,
                                                      True), reps=3, warmup=1)
+        lib_ms = time_ms(lambda: cublas_chain(x, w1, w2, reps))
+        lib_err = (cublas_chain(x, w1, w2, reps).float() - ref).abs().max()
         flops = 4.0 * b * n * c * f * reps
         bnd = bound(nbytes(x, x, w1, w2), flops)
+        share = {fold: KN.mm_chain_plan(*((b // g, g * n) if fold else (b, n)),
+                                        c, f)["useful_share"]
+                 for fold in (False, True)}
         print(f"[op] mm_chain {label}: shape {tuple(ref.shape)} max_abs_err "
               f"{err:.4g} (tol {MM_MAX_REL:.4g} * max|ref| = "
               f"{MM_MAX_REL * top:.4g}) mean_abs_err {mean:.4g} (tol "
               f"{MM_MEAN_REL} * mean|ref| = {MM_MEAN_REL * mean_mag:.4g}) "
               f"loop == fold bit for bit: {bitsame}; kernel loop "
-              f"{ms[False]:.3f} ms ({flops / ms[False] / 1e9:.1f} TFLOP/s) "
-              f"fold {ms[True]:.3f} ms ({flops / ms[True] / 1e9:.1f} "
-              f"TFLOP/s) plain {plain_ms:.3f} ms bound {bnd[0]:.4f} ms "
-              f"({bnd[1]}) library none; {counted} launches counted for two "
-              f"calls on {power} {'OK' if ok else 'FAIL'}", flush=True)
+              f"{ms[False]:.3f} ms ({flops / ms[False] / 1e9:.1f} TFLOP/s, "
+              f"{100 * bnd[0] / ms[False]:.1f}% of bound, useful rows "
+              f"{100 * share[False]:.1f}% of its tiles) fold {ms[True]:.3f} "
+              f"ms ({flops / ms[True] / 1e9:.1f} TFLOP/s, "
+              f"{100 * bnd[0] / ms[True]:.1f}% of bound, useful rows "
+              f"{100 * share[True]:.1f}%) plain {plain_ms:.3f} ms bound "
+              f"{bnd[0]:.4f} ms ({bnd[1]}) library none (one call); cuBLAS "
+              f"chain of {2 * reps} calls {lib_ms:.3f} ms (max_abs_err "
+              f"{lib_err.item():.4g} against plain, information); {counted} "
+              f"launches counted for two calls on {power} "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
         if not ok:
             bad.append(label)
         if ci == 1:       # the table's row: the backbone case, g = 2, fold
@@ -2108,7 +2192,8 @@ def mm_chain_checks(dev, entries, power):
                 "replaces": "scripts/probe_m_fold.py:73", "launches": 0,
                 "max_abs_err": err, "ms": ms[True], "loop_ms": ms[False],
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-                "library_ms": None}
+                "library_ms": None, "cublas_chain_ms": lib_ms,
+                "useful_share": {"loop": share[False], "fold": share[True]}}
     if bad:
         fail("mm_chain disagrees with its plain version: " + ", ".join(bad))
 
@@ -2340,6 +2425,7 @@ def main() -> None:
     gemm_checks(dev, entries, power)
     torch.cuda.empty_cache()
     est, data, preds, weights = main_path(dev, entries, power)
+    width_check(dev, power)
     torch.cuda.empty_cache()
     train_path(dev, entries, power)
     torch.cuda.empty_cache()

@@ -22,9 +22,11 @@ fused_vit_block2 per pair of blocks), the skeleton's keypoint
 self-attention through flash_mha, the joint encoder through
 fused_encoder_stack and the decoder through fused_decoder_layer per layer
 (or fused_decoder_stack as a whole); ops/kernel_config.py holds the two
-variant switches. An explicit use_flash=False with float32 compute and
-head dtype is the strict path: plain modules, and on a CUDA device TF32
-switched off for its matmuls and convolutions."""
+variant switches. Built for a CUDA device with the kernels on, a model
+whose widths the kernels do not take raises before anything is built
+(kernel_config.require_widths). An explicit use_flash=False with float32
+compute and head dtype is the strict path: plain modules, and on a CUDA
+device TF32 switched off for its matmuls and convolutions."""
 
 from __future__ import annotations
 
@@ -37,9 +39,10 @@ import torch
 
 from .models import dinov2
 from .models.convert import init_params
-from .models.edgecape import EdgeCape, SupportContext
+from .models.edgecape import HEAD_OPS, EdgeCape, SupportContext
 from .ops import heatmap
 from .ops.affine import transform_preds_batch
+from .ops.kernel_config import require_widths
 from .staging import HostStager
 
 # ImageNet statistics, as in edgecape_tpu/ops/warp.py
@@ -115,6 +118,9 @@ class PoseEstimator:
         flash = cfg.model.use_flash
         self.use_flash = bool(self.device.type == "cuda" if flash is None
                               else flash)
+        if self.use_flash:
+            misfits = dinov2.width_misfits(cfg.model, backbone_cfg)
+            require_widths(dinov2.FUSED_OPS + HEAD_OPS, misfits, self.device)
         self.cfg = cfg
         self.backbone_cfg = backbone_cfg
         if backbone_state is None or head_state is None:
@@ -132,7 +138,8 @@ class PoseEstimator:
         # runs in the compute dtype
         bb_dtype = torch.float32 if self.use_flash else self.compute_dtype
         self.backbone.to(self.device, bb_dtype).eval()
-        self.head = EdgeCape(cfg.model, use_flash=self.use_flash)
+        self.head = EdgeCape(cfg.model, use_flash=self.use_flash,
+                             device=self.device)
         self.head.load_state_dict(head_state)
         self.head.to(self.device).eval()
         self.query_head = self.head if self.head_dtype == torch.float32 \

@@ -4,233 +4,237 @@
 //     h = bf16(x @ w1);  y = h @ w2 (fp32);  x = bf16(f32(x) + y)
 // per row, x [rows, C] bf16, w1 [C, F], w2 [F, C] bf16, fp32 accumulation.
 //
-// Bound on this card: operations (4 * rows * C * F * reps against
-// 2 * rows * C * 2 bytes of activations and the weights once: hundreds of
-// operations per byte). The TPU kernel keeps a whole image group and both
-// weights in VMEM; an SM has 227 KB, so here one block owns a tile of 64
-// rows for the whole chain:
-//   * the x tile [64, C] stays in shared memory from the first step to the
-//     last, so x is read once and written once;
-//   * F is walked in chunks of 64: h_chunk = bf16(x_tile @ w1[:, chunk])
-//     goes to shared memory and is consumed at once by
-//     y += h_chunk @ w2[chunk, :], so h never reaches device memory;
-//   * y [64, C] fp32 lives in the WMMA accumulators of the 8 warps
-//     (2 row halves x 4 column quarters, 2 x C/64 fragments each);
-//   * the weight chunks stream from L2 with cp.async: w2's chunk lands
-//     while the first product runs, the next w1 chunk while the second.
-// The row tiles are cut either inside each image (`loop`: segment = n rows)
-// or from the flat rows of a group of images (`fold`: segment = g * n).
-// A row's sums over C and over F run in the same order wherever the row
-// sits in a tile, so both cuts give the same bits; padded rows are zero.
+// Bound on this card: operations (4 * rows * C * F * reps against x in and
+// out and the weights once: hundreds of operations per byte). The TPU
+// kernel keeps a whole image group and both weights in VMEM; an SM has
+// 227 KB, so here one block owns a tile of 128 rows for the whole chain:
+//   * 256 threads, two warpgroups of 64 rows each and no producer warps,
+//     so that a thread may hold 255 registers (y alone takes 192 at
+//     C 384);
+//   * the x tile [128, C] bf16 lands by TMA in C / 64 swizzled slabs
+//     (96 KB at C 384) and stays there for every step: it is the shared
+//     memory A operand of x @ w1, the residual, and, written back by each
+//     warpgroup into its own rows after a step (then a proxy fence and a
+//     warpgroup barrier before the next step's products read it), the
+//     next step's x; a 3-D tensor map [segments, rows, C] zero-fills rows
+//     past a segment's end, and the result leaves by TMA stores that
+//     write no row past it;
+//   * F is walked in chunks of 64: h_chunk = x_tile @ w1[:, chunk] as
+//     wgmma m64n64 into 32 fp32 registers, rounded to bf16 and packed in
+//     place as the register A fragments of y += h_chunk @ w2[chunk, :]
+//     (wgmma m64n128 from registers), so h never leaves the registers;
+//   * y [64, C] fp32 per warpgroup stays in registers over all chunks;
+//   * w1 and w2 stream by TMA through a ring of 16 KB slots (CountRing:
+//     the warp whose release of a slot is the eighth issues its next
+//     load), per chunk C / 128 slots of w1 then C / 128 of w2, both read
+//     MN-major by the transpose bit of wgmma, in the same order for every
+//     block and step from chunk 0: a row's sums over C and over F run in
+//     the same order wherever the row sits, so both cuts of the rows give
+//     the same bits (a block that started at another chunk would sum y in
+//     another order);
+//   * a 128-row tile reads the weights from L2 once per step: at C 384,
+//     F 1536 that is 2.36 MB for 302 MFLOP, 128 flop a byte.
+// The row tiles are cut either inside each image (`loop`: segment = n
+// rows) or from the flat rows of a group of images (`fold`: segment =
+// g * n); one block per tile, one block an SM (225 KB of shared memory).
 //
 // Plain C interface; the entry point returns cudaGetLastError() (or
 // cudaErrorInvalidValue for a refused shape), allocates nothing and does
 // not synchronise.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int TM = 64;         // rows per block
-constexpr int FC = 64;         // columns of w1 / rows of w2 per chunk
-constexpr int THREADS = 256;   // 8 warps
-constexpr int W1_LD = FC + 8;
-constexpr int H_LD = FC + 8;
-constexpr int HS_LD = FC + 4;  // fp32 staging of one h chunk
+constexpr int MC_ROWS = 128;     // rows of a tile
+constexpr int MC_CHUNK = 64;     // columns of w1 / rows of w2 per chunk
+constexpr int MC_THREADS = 256;  // two warpgroups
+constexpr int SMEM_LIMIT = 232448;
 
-template <int NT>              // C = 64 * NT
-struct Layout {
-  static constexpr int C = 64 * NT;
-  static constexpr int X_LD = C + 8;
-  static constexpr int W2_LD = C + 8;
-  static constexpr int Y_LD = C + 4;
-  static constexpr size_t xs = 0;
-  static constexpr size_t hs = xs + (size_t)TM * X_LD * 2;
-  static constexpr size_t hstage = hs + (size_t)TM * H_LD * 2;
-  static constexpr size_t w1s = hstage + (size_t)TM * HS_LD * 4;
-  static constexpr size_t w2s = w1s + (size_t)C * W1_LD * 2;
-  static constexpr size_t total = w2s + (size_t)FC * W2_LD * 2;
-  // after the last chunk of a step the fp32 y tile is staged over the
-  // weight buffers
-  static_assert((size_t)TM * Y_LD * 4 <= total - w1s, "y staging does not fit");
-  static_assert(xs % 128 == 0 && hs % 128 == 0 && hstage % 128 == 0 &&
-                w1s % 128 == 0 && w2s % 128 == 0, "buffers must stay aligned");
+// Shared memory for C = 64 NT (from a 1024-byte-aligned base): the x tile
+// (NT slabs), the ring's slots, the x barrier, then the ring's full
+// barriers and release counters; as many slots as fit, at most 12.
+template <int NT>
+struct McLayout {
+  static constexpr int STAGES =
+      (SMEM_LIMIT - 1024 - NT * SW_SLAB - 64) / (SW_SLAB + 12) < 12
+          ? (SMEM_LIMIT - 1024 - NT * SW_SLAB - 64) / (SW_SLAB + 12)
+          : 12;
+  static constexpr int bars = (NT + STAGES) * SW_SLAB;
+  static constexpr int total = 1024 + bars + 8 + ((STAGES * 12 + 7) & ~7);
+  static_assert(total <= SMEM_LIMIT, "mm_chain_kernel exceeds the shared memory of a block");
 };
 
-// 8 bf16 values into shared memory: an asynchronous 16-byte copy, or
-// zeros for a padded row.
-__device__ __forceinline__ void copy8(bf16* dst, const bf16* src, bool valid) {
-  if (valid) {
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-  } else {
-    *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+// The ring's loads: a step's chunks in turn from chunk 0, each KS slots of
+// w1 (slot r: its k rows 128 r .. + 127 of the chunk's 64 columns) then KS
+// slots of w2 (slot r: the chunk's 64 rows, output columns 128 r .. +
+// 127), each as two boxes of [64 x 64].
+template <int KS>
+struct McLoader {
+  static constexpr unsigned kBytes = SW_SLAB;
+  const CUtensorMap *w1, *w2;
+  unsigned chunks;
+
+  __device__ __forceinline__ void operator()(unsigned i, unsigned char* dst,
+                                             uint64_t* bar) const {
+    const int r = (int)(i % (2 * KS));
+    const int f0 = MC_CHUNK * (int)((i / (2 * KS)) % chunks);
+    mbar_expect_tx(bar, SW_SLAB);
+    if (r < KS) {
+      tma_load_3d(dst, w1, bar, f0, 128 * r, 0);
+      tma_load_3d(dst + SW_SLAB / 2, w1, bar, f0, 128 * r + 64, 0);
+    } else {
+      tma_load_3d(dst, w2, bar, 128 * (r - KS), f0, 0);
+      tma_load_3d(dst + SW_SLAB / 2, w2, bar, 128 * (r - KS) + 64, f0, 0);
+    }
   }
-}
+};
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+// h chunk += the warpgroup's rows of x (slabs 2 s, 2 s + 1 from the A
+// descriptor xd) times one w1 slot w, MN-major.
+__device__ __forceinline__ void mc_fc1_slot(float (&f)[32], uint64_t xd, unsigned w, int s) {
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16<1>(f, xd + (((2 * s + ks) * SW_SLAB + kk * 32) >> 4),
+                         wg_desc(w + ks * (SW_SLAB / 2) + kk * 2048, SW_SLAB / 2));
 }
 
 template <int NT>
-__global__ void __launch_bounds__(THREADS)
-mm_chain_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                const bf16* __restrict__ w2, bf16* __restrict__ out, int seg_rows,
-                int tiles_per_seg, int F, int reps) {
-  using L = Layout<NT>;
-  constexpr int C = L::C;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem + L::xs);
-  bf16* hs = reinterpret_cast<bf16*>(smem + L::hs);
-  float* hstage = reinterpret_cast<float*>(smem + L::hstage);
-  bf16* w1s = reinterpret_cast<bf16*>(smem + L::w1s);
-  bf16* w2s = reinterpret_cast<bf16*>(smem + L::w2s);
-  float* ystage = reinterpret_cast<float*>(smem + L::w1s);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp & 1;     // rows 32 * wm .. + 32
-  const int wn = warp >> 1;    // columns 16 * NT * wn .. + 16 * NT (second product)
-  const int seg = blockIdx.x / tiles_per_seg;
-  const int row0 = (blockIdx.x % tiles_per_seg) * TM;
-  const int valid = min(TM, seg_rows - row0);
-  const long base = ((long)seg * seg_rows + row0) * C;
-  const int nchunks = F / FC;
-
-  auto load_w1 = [&](int j) {          // w1[:, j*FC .. +FC] -> w1s [C, FC]
-    for (int i = tid; i < C * (FC / 8); i += THREADS) {
-      const int r = i / (FC / 8), c8 = (i % (FC / 8)) * 8;
-      copy8(&w1s[r * W1_LD + c8], w1 + (long)r * F + j * FC + c8, true);
-    }
-  };
-  auto load_w2 = [&](int j) {          // w2[j*FC .. +FC, :] -> w2s [FC, C]
-    for (int i = tid; i < FC * (C / 8); i += THREADS) {
-      const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
-      copy8(&w2s[r * L::W2_LD + c8], w2 + (long)(j * FC + r) * C + c8, true);
-    }
-  };
-
-  for (int i = tid; i < TM * (C / 8); i += THREADS) {
-    const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
-    copy8(&xs[r * L::X_LD + c8], x + base + (long)r * C + c8, r < valid);
+__global__ void __launch_bounds__(MC_THREADS, 1)
+    mm_chain_kernel(const __grid_constant__ CUtensorMap map_x,
+                    const __grid_constant__ CUtensorMap map_w1,
+                    const __grid_constant__ CUtensorMap map_w2,
+                    const __grid_constant__ CUtensorMap map_out, int tiles_per_seg, int chunks,
+                    int reps) {
+  constexpr int KS = NT / 2;
+  using L = McLayout<NT>;
+  extern __shared__ unsigned char mc_raw[];
+  unsigned char* xs = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(mc_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(xs + L::bars);
+  CountRing<L::STAGES, McLoader<KS>> ring;
+  ring.place(xs + NT * SW_SLAB, xs + L::bars + 8, (unsigned)(reps * chunks * 2 * KS));
+  ring.ld.w1 = &map_w1;
+  ring.ld.w2 = &map_w2;
+  ring.ld.chunks = (unsigned)chunks;
+  const int seg = (int)blockIdx.x / tiles_per_seg;
+  const int row0 = ((int)blockIdx.x % tiles_per_seg) * MC_ROWS;
+  if (threadIdx.x == 0) {
+    ring.init();
+    mbar_init(xbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-
-  for (int rep = 0; rep < reps; ++rep) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][NT];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-    load_w1(0);
-    cp_async_commit();
-    for (int j = 0; j < nchunks; ++j) {
-      load_w2(j);
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();                 // w1 chunk j (and the x tile) landed
-
-      // h chunk [64, 64] = x tile @ w1 chunk: this warp's rows, columns 16 * wn
-      {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> hc[2];
-        wmma::fill_fragment(hc[0], 0.0f);
-        wmma::fill_fragment(hc[1], 0.0f);
-#pragma unroll 4
-        for (int kk = 0; kk < C; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(a[0], &xs[(wm * 32) * L::X_LD + kk], L::X_LD);
-          wmma::load_matrix_sync(a[1], &xs[(wm * 32 + 16) * L::X_LD + kk], L::X_LD);
-          wmma::load_matrix_sync(b, &w1s[kk * W1_LD + wn * 16], W1_LD);
-          wmma::mma_sync(hc[0], a[0], b, hc[0]);
-          wmma::mma_sync(hc[1], a[1], b, hc[1]);
-        }
-        wmma::store_matrix_sync(&hstage[(wm * 32) * HS_LD + wn * 16], hc[0], HS_LD,
-                                wmma::mem_row_major);
-        wmma::store_matrix_sync(&hstage[(wm * 32 + 16) * HS_LD + wn * 16], hc[1], HS_LD,
-                                wmma::mem_row_major);
-      }
-      __syncthreads();                 // w1s is free, the fp32 h chunk is whole
-      if (j + 1 < nchunks) load_w1(j + 1);
-      cp_async_commit();
-      for (int i = tid; i < TM * (FC / 4); i += THREADS) {
-        const int r = i / (FC / 4), c4 = (i % (FC / 4)) * 4;
-        const float4 v = *reinterpret_cast<const float4*>(&hstage[r * HS_LD + c4]);
-        __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(&hs[r * H_LD + c4]);
-        d[0] = __floats2bfloat162_rn(v.x, v.y);
-        d[1] = __floats2bfloat162_rn(v.z, v.w);
-      }
-      cp_async_wait<1>();
-      __syncthreads();                 // w2 chunk j landed, the bf16 h chunk is whole
-
-      // y += h chunk @ w2 chunk
-#pragma unroll
-      for (int kk = 0; kk < FC; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-        wmma::load_matrix_sync(a[0], &hs[(wm * 32) * H_LD + kk], H_LD);
-        wmma::load_matrix_sync(a[1], &hs[(wm * 32 + 16) * H_LD + kk], H_LD);
-#pragma unroll
-        for (int jn = 0; jn < NT; ++jn) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, &w2s[kk * L::W2_LD + (wn * NT + jn) * 16], L::W2_LD);
-          wmma::mma_sync(acc[0][jn], a[0], b, acc[0][jn]);
-          wmma::mma_sync(acc[1][jn], a[1], b, acc[1][jn]);
-        }
-      }
-      __syncthreads();                 // w2s and hs are free
-    }
-    cp_async_wait<0>();
-
-    // x tile = bf16(f32(x tile) + y), through the fp32 staging
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int jn = 0; jn < NT; ++jn)
-        wmma::store_matrix_sync(&ystage[(wm * 32 + i * 16) * L::Y_LD + (wn * NT + jn) * 16],
-                                acc[i][jn], L::Y_LD, wmma::mem_row_major);
-    __syncthreads();
-    for (int i = tid; i < TM * (C / 2); i += THREADS) {
-      const int r = i / (C / 2), c2 = (i % (C / 2)) * 2;
-      __nv_bfloat162* px = reinterpret_cast<__nv_bfloat162*>(&xs[r * L::X_LD + c2]);
-      const float2 xv = __bfloat1622float2(*px);
-      const float2 yv = *reinterpret_cast<const float2*>(&ystage[r * L::Y_LD + c2]);
-      *px = __floats2bfloat162_rn(xv.x + yv.x, xv.y + yv.y);
-    }
-    __syncthreads();                   // the staging is free for the next step's w1
-  }
-
-  cp_async_wait<0>();                  // reps == 0: the x tile's own copies
   __syncthreads();
-  for (int i = tid; i < valid * (C / 8); i += THREADS) {
-    const int r = i / (C / 8), c8 = (i % (C / 8)) * 8;
-    *reinterpret_cast<uint4*>(out + base + (long)r * C + c8) =
-        *reinterpret_cast<const uint4*>(&xs[r * L::X_LD + c8]);
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(xbar, NT * SW_SLAB);
+#pragma unroll
+    for (int s = 0; s < NT; ++s)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        tma_load_3d(xs + s * SW_SLAB + h * (SW_SLAB / 2), &map_x, xbar, 64 * s, row0 + 64 * h,
+                    seg);
+    ring.prime();
+  }
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int lr = wg * 64 + warp * 16 + (lane >> 2);    // the thread's first row in the tile
+  const uint64_t xd = wg_desc(smem_u32(xs) + wg * 64 * 128, 16);
+  mbar_wait(xbar, 0);
+  for (int rep = 0; rep < reps; ++rep) {
+    float acc[KS][64];
+#pragma unroll
+    for (int h = 0; h < KS; ++h) {
+      acc_zero(acc[h]);
+      reg_fence(acc[h]);
+    }
+    for (int j = 0; j < chunks; ++j) {
+      // h chunk = x @ w1 chunk in an m64n64 accumulator; rounded to bf16,
+      // its registers become the four k16 A fragments of y's product
+      float f[32];
+      acc_zero(f);
+      reg_fence(f);
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        mc_fc1_slot(f, xd, ring.next(), s);
+        ring.issued(lane, s == 0);
+      }
+      ring.drain(lane);
+      reg_fence(f);
+      unsigned a[4][4];
+#pragma unroll
+      for (int n8 = 0; n8 < 8; ++n8) {
+        a[n8 >> 1][2 * (n8 & 1)] = pack_bf16(f[4 * n8], f[4 * n8 + 1]);          // row g
+        a[n8 >> 1][2 * (n8 & 1) + 1] = pack_bf16(f[4 * n8 + 2], f[4 * n8 + 3]);  // row g + 8
+      }
+#pragma unroll
+      for (int h = 0; h < KS; ++h) reg_fence(acc[h]);
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        const unsigned b = ring.next();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs_m64n128k16<1>(acc[s], a[kk], wg_desc(b + kk * 2048, SW_SLAB / 2));
+        ring.issued(lane, s == 0);
+      }
+      ring.drain(lane);
+#pragma unroll
+      for (int h = 0; h < KS; ++h) reg_fence(acc[h]);
+    }
+    // x = bf16(f32(x) + y) in place: acc[h][4 j + 2 rh + e] is column
+    // 128 h + 8 j + 2 t + e of row lr + 8 rh
+#pragma unroll
+    for (int h = 0; h < KS; ++h)
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          unsigned* px =
+              reinterpret_cast<unsigned*>(xs + sw_off(lr + 8 * rh, 128 * h + 8 * j + 2 * t));
+          const unsigned u = *px;
+          const int i = 4 * j + 2 * rh;
+          *px = pack_bf16(__fadd_rn(__uint_as_float(u << 16), acc[h][i]),
+                          __fadd_rn(__uint_as_float(u & 0xffff0000u), acc[h][i + 1]));
+        }
+    fence_view_async();
+    bar_wg(wg);
+  }
+  // the warpgroup's 64 rows out, in NT boxes; rows past the segment's end
+  // are not written
+  if ((threadIdx.x & 127) == 0) {
+#pragma unroll
+    for (int s = 0; s < NT; ++s)
+      tma_store_3d(&map_out, xs + s * SW_SLAB + wg * (SW_SLAB / 2), 64 * s, row0 + 64 * wg, seg);
+    tma_store_wait();
   }
 }
 
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 template <int NT>
-int launch(const bf16* x, const bf16* w1, const bf16* w2, bf16* out, int segs, int seg_rows,
+int launch(const void* x, const void* w1, const void* w2, void* out, int segs, int seg_rows,
            int F, int reps, cudaStream_t s) {
-  const int tiles = (seg_rows + TM - 1) / TM;
+  constexpr int C = 64 * NT;
+  static bool configured = false;
+  const int tiles = (seg_rows + MC_ROWS - 1) / MC_ROWS;
   const long blocks = (long)segs * tiles;
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(mm_chain_kernel<NT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)Layout<NT>::total);
-  if (e != cudaSuccess) return (int)e;
-  mm_chain_kernel<NT><<<(unsigned)blocks, THREADS, Layout<NT>::total, s>>>(
-      x, w1, w2, out, seg_rows, tiles, F, reps);
+  CUtensorMap m_x, m_w1, m_w2, m_out;
+  if (!encode_map(&m_x, x, C, seg_rows, C, (long)seg_rows * C, segs, 64) ||
+      !encode_map(&m_w1, w1, F, C, F, 0, 1, 64) || !encode_map(&m_w2, w2, C, F, C, 0, 1, 64) ||
+      !encode_map(&m_out, out, C, seg_rows, C, (long)seg_rows * C, segs, 64))
+    return (int)cudaErrorInvalidValue;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(mm_chain_kernel<NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         McLayout<NT>::total);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  mm_chain_kernel<NT><<<(unsigned)blocks, MC_THREADS, McLayout<NT>::total, s>>>(
+      m_x, m_w1, m_w2, m_out, tiles, F / MC_CHUNK, reps);
   return (int)cudaGetLastError();
 }
 
@@ -238,20 +242,18 @@ int launch(const bf16* x, const bf16* w1, const bf16* w2, bf16* out, int segs, i
 
 // x, out: [segs * seg_rows, C] contiguous bf16 (out may not alias x: a
 // block reads only its own rows, but the call keeps its input); w1 [C, F],
-// w2 [F, C] contiguous bf16. C is 128, 256 or 384 and F a multiple of 64.
+// w2 [F, C] contiguous bf16; every base on 16 bytes. C is 128, 256 or 384
+// and F a multiple of 64.
 extern "C" int ec_mm_chain(const void* x, const void* w1, const void* w2, void* out,
                            int segs, int seg_rows, int C, int F, int reps, void* stream) {
-  if (segs <= 0 || seg_rows <= 0 || F <= 0 || F % FC != 0 || reps < 0)
+  if (segs <= 0 || seg_rows <= 0 || F <= 0 || F % MC_CHUNK != 0 || reps < 0 ||
+      !aligned16(x) || !aligned16(w1) || !aligned16(w2) || !aligned16(out))
     return (int)cudaErrorInvalidValue;
-  const bf16* px = static_cast<const bf16*>(x);
-  const bf16* p1 = static_cast<const bf16*>(w1);
-  const bf16* p2 = static_cast<const bf16*>(w2);
-  bf16* po = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 128: return launch<2>(px, p1, p2, po, segs, seg_rows, F, reps, s);
-    case 256: return launch<4>(px, p1, p2, po, segs, seg_rows, F, reps, s);
-    case 384: return launch<6>(px, p1, p2, po, segs, seg_rows, F, reps, s);
+    case 128: return launch<2>(x, w1, w2, out, segs, seg_rows, F, reps, s);
+    case 256: return launch<4>(x, w1, w2, out, segs, seg_rows, F, reps, s);
+    case 384: return launch<6>(x, w1, w2, out, segs, seg_rows, F, reps, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

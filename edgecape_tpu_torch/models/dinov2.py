@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import kernels
 from ..ops.flash_attention import flash_mha
 from ..ops.kernel_config import vit_pair_blocks_default
 
@@ -76,6 +77,18 @@ class Block(nn.Module):
         x = x + self.ls1 * self.attn(self.norm1(x))
         h = F.gelu(self.mlp_fc1(self.norm2(x)), approximate="none")
         return x + self.ls2 * self.mlp_fc2(h)
+
+
+# The trunk's fused ops, whose widths are checked when it is built for the card
+FUSED_OPS = ("fused_vit_block", "flash_mha (ViT)")
+
+
+def width_misfits(model_cfg, cfg: DinoV2Config = VIT_S14) -> dict:
+    """ops/kernels.py width_misfits of a head configuration over this
+    trunk (its width, heads, patch and MLP hidden)."""
+    return kernels.width_misfits(
+        model_cfg, vit_dim=cfg.embed_dim, vit_heads=cfg.num_heads,
+        patch=cfg.patch_size, vit_hidden=int(cfg.embed_dim * cfg.mlp_ratio))
 
 
 def _patches(images: torch.Tensor, p: int):

@@ -20,7 +20,8 @@ import torch.nn as nn
 
 from ..ops import pos_enc
 from ..ops.fused_encoder import fused_encoder_stack
-from ..ops.kernel_config import decoder_stack_default
+from ..ops.kernel_config import decoder_stack_default, require_widths
+from ..ops.kernels import width_misfits
 from .head import pool_support_keypoints
 from .skeleton import SkeletonPredictor
 from .transformer import (Decoder, EncoderLayer, ProposalGenerator,
@@ -57,16 +58,27 @@ class ModelOutput(NamedTuple):
     encode: EncodeOutput
 
 
+# The head's fused ops, whose widths are checked when it is built for the card
+HEAD_OPS = ("flash_mha (encoder)", "flash_mha (keypoints)",
+            "fused_encoder_stack", "fused_decoder_layer",
+            "fused_decoder_stack")
+
+
 class EdgeCape(nn.Module):
-    def __init__(self, cfg, use_flash: bool = False):
+    def __init__(self, cfg, use_flash: bool = False, device=None):
         """cfg: a model configuration with the fields of
         edgecape_tpu.config.ModelConfig (read by attribute). use_flash
         routes eval through the hand-written fused ops and training
-        self-attention through flash_mha_train."""
+        self-attention through flash_mha_train. device: where the model
+        will run; on a CUDA device with use_flash, widths the kernels do
+        not take raise ValueError here (ops/kernel_config.py
+        require_widths)."""
         super().__init__()
         c = cfg
         self.cfg = cfg
         self.use_flash = flash = bool(use_flash)
+        if flash:
+            require_widths(HEAD_OPS, width_misfits(c), device)
         drop = float(c.dropout)
         self.input_proj = nn.Linear(c.backbone_dim, c.d_model)
         self.query_proj = nn.Linear(c.backbone_dim, c.d_model)

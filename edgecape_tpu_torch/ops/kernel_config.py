@@ -24,7 +24,15 @@ Precedence, the same as the JAX package's:
 4. False: the per-layer and per-block forms.
 
 The switches are read when a forward is called, not when a module is
-imported, so they can be flipped between two calls. There is no
+imported, so they can be flipped between two calls.
+
+Widths are checked once, when a model is built for a CUDA device with
+its fused ops on (`require_widths`): where the hand-written kernels do
+not take the model's widths (ops/kernels.py width_misfits: another
+d_model, nhead, ViT width, key count), the build raises, naming each op
+and the width, so that no forward pass raises half way. use_flash=False
+builds the plain modules, which take any width. On the CPU an op takes
+its plain version, so nothing is checked there. There is no
 interpret switch (a CUDA kernel has nothing to interpret: on a CPU
 tensor an op takes its plain version), and no `encoder_stack` switch:
 the port has one form of the encoder stack, fused_encoder_stack, which
@@ -35,7 +43,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, Iterable, Optional
 
 THRESHOLD = 1.02      # a variant is switched on when its A/B ratio exceeds it
 
@@ -104,3 +112,19 @@ def vit_pair_blocks_default() -> bool:
     """True when the fused backbone runs fused_vit_block2 over pairs of
     blocks. Env: EDGECAPE_VIT_PAIR."""
     return _switch("vit_pair_blocks", "EDGECAPE_VIT_PAIR")
+
+
+def require_widths(ops: Iterable[str], misfits: dict, device,
+                   switch: str = "use_flash=False") -> None:
+    """Raises ValueError when a model built for `device` with its fused
+    ops on has widths their kernels do not take: on a CUDA device, each op
+    of `ops` whose entry in `misfits` (ops/kernels.py width_misfits) is not
+    None, named with the reason, and the `switch` that builds the plain
+    modules instead. Nothing is checked for the CPU."""
+    if device is None or not str(device).startswith("cuda"):
+        return
+    bad = [f"{op} ({misfits[op]})" for op in ops if misfits.get(op)]
+    if bad:
+        raise ValueError(
+            "the hand-written kernels do not take this model's widths: "
+            + "; ".join(bad) + f"; {switch} builds the plain modules")

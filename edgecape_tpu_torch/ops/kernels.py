@@ -26,6 +26,7 @@ import functools
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -45,6 +46,17 @@ ACT_NONE, ACT_GELU, ACT_RELU = 0, 1, 2
 
 _LIB = None                               # the loaded libraries
 build_seconds: Optional[float] = None     # wall time of the last build
+build_logs: dict = {}                     # nvcc's output by source, this process
+# Launches of every kernel of kernels.cu, by the kernel's name as a profiler
+# trace shows it (a substring of it), each counted where its wrapper
+# launches it; mm_chain_kernel's count is ops/mm_chain.py `launches`.
+launches = dict.fromkeys((
+    "gemm_tma_kernel", "gemm_kernel", "layernorm_kernel", "add_pos_kernel",
+    "attn_kernel", "sine_feats_kernel", "train_fwd_kernel",
+    "train_bwd_q_kernel", "train_bwd_k_kernel", "dropout_mask_kernel",
+    "enc_post_kernel", "dec_post_self_kernel", "dec_post_cross_kernel",
+    "vit_mlp_kernel", "vit_qkv_kernel", "vit_attn_kernel",
+    "bias_attn_kernel", "kpt_head_kernel"), 0)
 
 _P = ctypes.c_void_p
 _L = ctypes.c_long
@@ -115,11 +127,17 @@ def build_dir() -> str:
                           os.path.join(_PKG, "_build"))
 
 
+def headers() -> list:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def library_path(src: str) -> str:
-    """The library of one source, named by a hash of it and the flags."""
+    """The library of one source, named by a hash of it, the headers it
+    may include and the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(src, "rb") as f:
-        h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    for path in [src] + headers():
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
     stem = os.path.splitext(os.path.basename(src))[0]
     return os.path.join(build_dir(),
                         f"libedgecape_{stem}_{h.hexdigest()[:16]}.so")
@@ -127,7 +145,9 @@ def library_path(src: str) -> str:
 
 def build(verbose: bool = False) -> list:
     """Compile every source whose library is missing, one `nvcc` per
-    source, all started together; returns the libraries' paths."""
+    source, all started together; returns the libraries' paths. ptxas's
+    report (registers, spills) of each source built lands in build_logs
+    and, with verbose, on stdout."""
     global build_seconds
     paths = [library_path(src) for src in sources()]
     todo = [(src, path) for src, path in zip(sources(), paths)
@@ -141,17 +161,17 @@ def build(verbose: bool = False) -> list:
     for src, path in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir())
         os.close(fd)
-        cmd = [nvcc] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) \
-            + ["-o", tmp, src]
-        procs.append((path, tmp, subprocess.Popen(
+        cmd = [nvcc] + NVCC_FLAGS + ["-Xptxas", "-v", "-o", tmp, src]
+        procs.append((src, path, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
-    for path, tmp, proc in procs:
+    for src, path, tmp, proc in procs:
         out, _ = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
             failed.append(out)
             continue
+        build_logs[os.path.basename(src)] = out
         if verbose:
             print(out)
         os.replace(tmp, path)
@@ -159,6 +179,26 @@ def build(verbose: bool = False) -> list:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return paths
+
+
+def ptxas_usage(kernel: str) -> list:
+    """[(entry function, registers, spill store bytes, spill load bytes)]
+    of each instantiation of `kernel` in the ptxas reports of this
+    process's build (empty when the libraries were built before it)."""
+    rows, name, spills = [], None, (0, 0)
+    for log in build_logs.values():
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+                spills = (0, 0)
+            elif name and (m := re.search(
+                    r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+                spills = (int(m.group(1)), int(m.group(2)))
+            elif name and (m := re.search(r"Used (\d+) registers", line)):
+                if kernel in name:
+                    rows.append((name, int(m.group(1))) + spills)
+                name = None
+    return rows
 
 
 class _Libraries:
@@ -233,7 +273,6 @@ def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 # needs operands a tensor map can describe.
 GEMM_COPY, GEMM_TMA = 0, 1
 GEMM_TMA_MIN_N = 32
-gemm_launches = {"tma": 0, "copy": 0}     # launches per mainloop
 
 
 def tma_operand_ok(ptr: int, ld: int, batch_stride: int, batch: int) -> bool:
@@ -315,7 +354,8 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, b_nk: bool,
           _dt(pre) if pre is not None else 0, ldp, sp, act, pr,
           _dt(res) if res is not None else 0, ldr, sr, _ptr(ls),
           int(mainloop), _stream())
-    gemm_launches["tma" if mainloop == GEMM_TMA else "copy"] += 1
+    launches["gemm_tma_kernel" if mainloop == GEMM_TMA
+             else "gemm_kernel"] += 1
     return out
 
 
@@ -352,6 +392,7 @@ def layernorm(x: torch.Tensor, gamma, beta, eps: float, *, r=None,
           _dt(r) if r is not None else 0, c, gamma.data_ptr(),
           beta.data_ptr(), float(eps), _ptr(of), c, _ptr(ob), c, rows, c,
           _stream())
+    launches["layernorm_kernel"] += 1
     return of, ob
 
 
@@ -365,6 +406,7 @@ def add_pos(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
     _call("ec_add_pos", x.data_ptr(), _dt(x), pos.data_ptr(),
           out.data_ptr(), pos.numel(), x.numel(), _stream())
+    launches["add_pos_kernel"] += 1
     return out
 
 
@@ -572,6 +614,7 @@ def attention(q, k, v, *, num_heads: int, scale: float, key_valid=None,
           v.stride(1), b, num_heads, d, nq, nk, kv_ptr, kv_stride,
           _ptr(bias), float(scale), out.data_ptr(), _dt(out), out.stride(0),
           out.stride(1), *_plan_args(plan), _stream())
+    launches["attn_kernel"] += 1
     return out
 
 
@@ -588,6 +631,7 @@ def sine_feats(ct: torch.Tensor, rdt: torch.Tensor) -> torch.Tensor:
     out = torch.empty((rows, 4 * f), dtype=torch.bfloat16, device=ct.device)
     _call("ec_sine_feats", ct.data_ptr(), rdt.data_ptr(), out.data_ptr(),
           rows, f, _stream())
+    launches["sine_feats_kernel"] += 1
     return out
 
 
@@ -659,6 +703,7 @@ def attention_train_fwd(q, k, v, *, num_heads: int, scale: float,
                         device=q.device)
     _call("ec_attn_train_fwd", *args, out.data_ptr(), out.stride(0),
           out.stride(1), stats.data_ptr(), *_plan_args(plan), _stream())
+    launches["train_fwd_kernel"] += 1
     del keep_alive
     return out, stats
 
@@ -700,6 +745,8 @@ def attention_train_bwd(q, k, v, dout, stats, *, num_heads: int,
           dout.stride(0), dout.stride(1), stats.data_ptr(), dq.data_ptr(),
           dk.data_ptr(), dv.data_ptr(), _ptr(dbias), delta.data_ptr(),
           *_bwd_plan_args(plan), _stream())
+    launches["train_bwd_q_kernel"] += 1
+    launches["train_bwd_k_kernel"] += 1
     del keep_alive
     return dq, dk, dv, dbias
 
@@ -712,6 +759,7 @@ def dropout_mask(seed: torch.Tensor, rate: float, bh: int, nq: int,
     keep = torch.empty((bh, nq, nk), dtype=torch.uint8, device=seed.device)
     _call("ec_dropout_mask", _seed_ptr(seed, thresh), thresh, bh, nq, nk,
           keep.data_ptr(), _stream())
+    launches["dropout_mask_kernel"] += 1
     return keep.bool()
 
 
@@ -735,7 +783,6 @@ def module_weights(module, attr: str, build, *extra):
 # tiles of POST_TILE rows; the encoder's FFN hidden in chunks of ENC_CHUNK
 # columns, the decoder's GCN width in chunks of DEC_CHUNK.
 POST_C, POST_TILE, ENC_CHUNK, DEC_CHUNK = 256, 128, 128, 64
-post_launches = {"enc_post": 0, "dec_post_self": 0, "dec_post_cross": 0}
 
 
 def post_plan(rows: int, c: int, f: int, *, chunk: int = ENC_CHUNK,
@@ -811,7 +858,7 @@ def enc_post(att: torch.Tensor, src: torch.Tensor, w: dict, *, eps: float,
     _call("ec_enc_post", *ptrs, _ptr(pos), n_tok or 0, _ptr(out),
           _dt(out) if out is not None else 0, _ptr(nxt), r, f, float(eps),
           _stream())
-    post_launches["enc_post"] += 1
+    launches["enc_post_kernel"] += 1
     return out, nxt
 
 
@@ -833,7 +880,7 @@ def dec_post_self(att: torch.Tensor, xb: torch.Tensor, qpos: torch.Tensor,
     q2 = torch.empty((r, 2 * c), dtype=torch.bfloat16, device=att.device)
     _call("ec_dec_post_self", *ptrs, x1.data_ptr(), q2.data_ptr(), r,
           float(eps), _stream())
-    post_launches["dec_post_self"] += 1
+    launches["dec_post_self_kernel"] += 1
     return x1, q2
 
 
@@ -866,7 +913,7 @@ def dec_post_cross(att2: torch.Tensor, x1: torch.Tensor, adj: torch.Tensor,
     _call("ec_dec_post_cross", *ptrs, adj.data_ptr(), _dt(adj),
           _operand(w["wf"], (c, f)), *_vectors(w, "bf", "g3", "be3"),
           out.data_ptr(), _dt(out), b, k, f, float(eps), _stream())
-    post_launches["dec_post_cross"] += 1
+    launches["dec_post_cross_kernel"] += 1
     return out
 
 
@@ -874,7 +921,6 @@ def dec_post_cross(att2: torch.Tensor, x1: torch.Tensor, adj: torch.Tensor,
 # channels in tiles of VIT_TILE rows, the hidden in chunks of VIT_CHUNK
 # columns that never leave the SM.
 VIT_C, VIT_TILE, VIT_CHUNK = 384, 128, 64
-mlp_launches = {"vit_mlp": 0}
 
 
 def vit_mlp_plan(rows: int, c: int, f: int) -> dict:
@@ -921,7 +967,7 @@ def vit_mlp(x: torch.Tensor, w: dict, *, eps: float, out_dtype,
         hn = torch.empty((r, c), dtype=torch.bfloat16, device=x.device)
     _call("ec_vit_mlp", *ptrs, int(bool(w["kmajor"])), out.data_ptr(),
           _dt(out), *nxt, _ptr(hn), r, f, float(eps), _stream())
-    mlp_launches["vit_mlp"] += 1
+    launches["vit_mlp_kernel"] += 1
     return out, hn
 
 
@@ -934,7 +980,6 @@ def vit_mlp(x: torch.Tensor, w: dict, *, eps: float, out_dtype,
 VIT_HEADS, VIT_D, VIT_KEYS = 6, 64, 272
 VIT_ATTN_SMEM = 1024 + 2 * VIT_HEADS * 8192 + 2 * VIT_KEYS * 128 + 3 * 16384 \
     + 128 + 8 * VIT_C
-attn_half_launches = {"vit_qkv": 0, "vit_attn": 0}
 
 
 def vit_attn_plan(b: int, n: int, c: int, heads: int) -> dict:
@@ -977,7 +1022,7 @@ def vit_qkv(x: torch.Tensor, w: dict, *, eps: float) -> torch.Tensor:
         w, "bqkv")
     out = torch.empty((r, 3 * c), dtype=torch.bfloat16, device=x.device)
     _call("ec_vit_qkv", *ptrs, out.data_ptr(), r, float(eps), _stream())
-    attn_half_launches["vit_qkv"] += 1
+    launches["vit_qkv_kernel"] += 1
     return out
 
 
@@ -1001,7 +1046,7 @@ def vit_attn(qkv: torch.Tensor, x: torch.Tensor, w: dict, *,
     out = torch.empty((b, n, c), dtype=out_dtype, device=qkv.device)
     _call("ec_vit_attn", *ptrs, out.data_ptr(), _dt(out), b, n,
           float(VIT_D ** -0.5), plan["smem_bytes"], _stream())
-    attn_half_launches["vit_attn"] += 1
+    launches["vit_attn_kernel"] += 1
     return out
 
 
@@ -1014,7 +1059,6 @@ BA_MLP_BYTES = (2 * BA_HID_MAX * 8 + BA_HID_MAX + BA_HEADS) * 4
 # blocks a call should have at least: two rounds of an H100's 132 SMs at
 # one block an SM; fewer batch rows split their query tiles over blocks
 BA_MIN_BLOCKS = 264
-stack_kernel_launches = {"bias_attention": 0, "kpt_head": 0}
 
 
 @functools.lru_cache(maxsize=None)
@@ -1079,7 +1123,7 @@ def bias_attention(qkv: torch.Tensor, key_valid, hops: torch.Tensor,
           nhop, hid, *ptrs[2:], float((c // num_heads) ** -0.5),
           out.data_ptr(), plan["q_split"], plan["tiles_per_block"],
           plan["smem_bytes"], _stream())
-    stack_kernel_launches["bias_attention"] += 1
+    launches["bias_attn_kernel"] += 1
     return out
 
 
@@ -1102,7 +1146,47 @@ def kpt_head(x: torch.Tensor, ct: torch.Tensor, fn, kpt, kow, kob,
     ptrs += [_operand(kow, (2, POST_C)), _operand(kob, (2,), torch.float32)]
     ptrs += [_operand(t, (r, 2), torch.float32, 4) for t in (ct, pts, outs)]
     _call("ec_kpt_head", *ptrs, r, float(eps), 1e-3, _stream())
-    stack_kernel_launches["kpt_head"] += 1
+    launches["kpt_head_kernel"] += 1
+
+
+# The matmul chain of the probe tool (csrc/mm_chain.cu mm_chain_kernel):
+# tiles of MM_TILE rows cut inside segments, one block each; w1 / w2 in
+# chunks of MM_CHUNK hidden columns through a ring of 16 KB slots beside
+# the resident x tile, as many as fit a block's shared memory (at most 12).
+MM_TILE, MM_CHUNK, MM_SLOT, MM_SMEM_LIMIT = 128, 64, 16384, 232448
+
+
+def mm_chain_plan(segs: int, seg_rows: int, c: int, f: int) -> dict:
+    """How mm_chain_kernel covers `segs` segments of `seg_rows` rows of c
+    channels with a hidden of width f: `tiles` of MM_TILE rows (one block
+    each, `tiles_per_seg` a segment), of whose rows `useful_rows` hold data
+    (the rest the TMA fills with zeros and the stores skip); `chunks` of
+    MM_CHUNK hidden columns, each c / 128 slots of w1 then c / 128 of w2;
+    `stages` ring slots beside the x tile; `smem_bytes` a block. Raises for
+    what the kernel does not take: C not 128, 256 or 384, F not a positive
+    multiple of 64, no rows, more blocks than a grid holds."""
+    if c not in (128, 256, 384):
+        raise ValueError(f"mm_chain takes C in (128, 256, 384), got C={c}")
+    if f <= 0 or f % MM_CHUNK:
+        raise ValueError(f"mm_chain takes F a positive multiple of "
+                         f"{MM_CHUNK}, got F={f}")
+    if segs <= 0 or seg_rows <= 0:
+        raise ValueError(f"mm_chain: no rows ({segs} segments of "
+                         f"{seg_rows})")
+    per_seg = -(-seg_rows // MM_TILE)
+    tiles = segs * per_seg
+    if tiles > 2 ** 31 - 1:
+        raise ValueError(f"mm_chain: {tiles} tiles exceed a grid")
+    nt = c // 64
+    stages = min(12, (MM_SMEM_LIMIT - 1024 - nt * MM_SLOT - 64)
+                 // (MM_SLOT + 12))
+    smem = 1024 + (nt + stages) * MM_SLOT + 8 + ((stages * 12 + 7) & ~7)
+    return {"tiles": tiles, "tiles_per_seg": per_seg,
+            "useful_rows": segs * seg_rows,
+            "pad_rows": tiles * MM_TILE - segs * seg_rows,
+            "useful_share": segs * seg_rows / (tiles * MM_TILE),
+            "chunks": f // MM_CHUNK, "slots_per_chunk": 2 * (c // 128),
+            "stages": stages, "smem_bytes": smem}
 
 
 def mm_chain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, reps: int,
@@ -1110,8 +1194,8 @@ def mm_chain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, reps: int,
     """The whole chain of `reps` steps x = bf16(f32(x) + bf16(x @ w1) @ w2)
     in one launch. x: contiguous bf16 [segs * seg_rows, C] (any leading
     shape); row tiles are cut inside each segment of `seg_rows` rows.
-    w1 [C, F], w2 [F, C] contiguous bf16, C in (128, 256, 384), F a
-    multiple of 64."""
+    w1 [C, F], w2 [F, C] contiguous bf16 (mm_chain_plan says which C and F
+    the kernel takes); every operand starts on 16 bytes."""
     _cuda(x, w1, w2)
     c, f = w1.shape
     if any(t.dtype != torch.bfloat16 or not t.is_contiguous()
@@ -1122,10 +1206,100 @@ def mm_chain(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, reps: int,
         raise ValueError(f"mm_chain shapes: x {tuple(x.shape)}, w1 "
                          f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}, "
                          f"{segs} segments of {seg_rows} rows")
-    if c not in (128, 256, 384) or f % 64 != 0:
-        raise ValueError(f"mm_chain takes C in (128, 256, 384) and F a "
-                         f"multiple of 64, got C={c}, F={f}")
+    mm_chain_plan(segs, seg_rows, c, f)
+    if any(t.data_ptr() % 16 for t in (x, w1, w2)):
+        raise ValueError("mm_chain operands must start on 16 bytes")
+    if reps < 0:
+        raise ValueError(f"mm_chain takes reps >= 0, got {reps}")
     out = torch.empty_like(x)
     _call("ec_mm_chain", x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
           out.data_ptr(), segs, seg_rows, c, f, int(reps), _stream())
     return out
+
+
+def launch_counts() -> dict:
+    """Launches of every hand-written kernel so far, by the kernel's name
+    as a profiler trace shows it (a substring of it), from the wrappers'
+    counters: exact, but blind to PyTorch's own kernels (copies, casts)
+    that a trace also shows."""
+    from . import mm_chain as _mm
+    return dict(launches, mm_chain_kernel=_mm.launches)
+
+
+def _why(*plans) -> Optional[str]:
+    """None when every plan accepts its shapes, else the first refusal."""
+    try:
+        for plan in plans:
+            plan()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def width_misfits(cfg, vit_dim: Optional[int] = None,
+                  vit_heads: int = VIT_HEADS, patch: int = 14,
+                  vit_hidden: Optional[int] = None) -> dict:
+    """For each fused op of a model: None when its hand-written kernels take
+    the model's widths, else why not (the refusal of the plan that would
+    raise at launch). cfg: a ModelConfig (d_model, nhead, dim_feedforward,
+    max_kpt, image_size, attn_bias, backbone_dim); the ViT trunk is
+    vit_dim channels (backbone_dim by default) in vit_heads heads over
+    patch-size patches, with an MLP hidden of vit_hidden (4 x the width by
+    default). Pure Python, from the shapes the plans see at run time:
+
+    * fused_vit_block (and fused_vit_block2): 384 channels in 6 heads, at
+      most VIT_KEYS tokens;
+    * flash_mha (ViT / encoder / keypoints): the attention kernels' head
+      dims (32, 64) and keys (ATT_MAX_KEYS) at the trunk's tokens, the
+      joint encoder's image + keypoint tokens, the keypoint tokens (the
+      skeleton's and the decoder's self-attention); eval and training;
+    * fused_encoder_stack: the post-attention kernel's POST_C channels and
+      a hidden in chunks of ENC_CHUNK, and the encoder's attention;
+    * fused_decoder_layer: POST_C channels, a GCN width in chunks of
+      DEC_CHUNK, at most POST_TILE keypoints, the self- and the
+      cross-attention;
+    * fused_decoder_stack: the layer's, the bias attention's 8 heads of 32
+      (with the Markov bias) and the keypoint head's POST_C channels."""
+    c, h, f = int(cfg.d_model), int(cfg.nhead), int(cfg.dim_feedforward)
+    k = int(cfg.max_kpt)
+    vc = int(cfg.backbone_dim if vit_dim is None else vit_dim)
+    hw = (int(cfg.image_size) // patch) ** 2
+    tokens = hw + 1
+    d, d2 = c // h, 2 * c // h
+    vit_hidden = 4 * vc if vit_hidden is None else vit_hidden
+
+    def heads(width, n_heads):
+        def check():
+            if width % n_heads:
+                raise ValueError(f"{width} channels do not split into "
+                                 f"{n_heads} heads")
+        return check
+
+    def att(nq, nk, hd):
+        return lambda: (attention_plan(nq, nk, hd),
+                        attention_plan(nq, nk, hd, train=True))
+
+    def post_c():
+        if c != POST_C:
+            raise ValueError(f"the post-attention kernels take {POST_C} "
+                             f"channels, got {c}")
+
+    enc_att = att(hw + k, hw + k, d)
+    layer = (heads(c, h), lambda: post_plan(1, c, ENC_CHUNK),
+             lambda: post_plan(k, c, f, chunk=DEC_CHUNK, keypoints=k),
+             att(k, k, d), att(k, hw, d2))
+    stack = layer + ((lambda: bias_attention_plan(1, k, h, d),)
+                     if cfg.attn_bias else ()) + (post_c,)
+    return {
+        "fused_vit_block": _why(
+            lambda: vit_attn_plan(1, tokens, vc, vit_heads),
+            lambda: vit_mlp_plan(1, vc, vit_hidden)),
+        "flash_mha (ViT)": _why(heads(vc, vit_heads),
+                                att(tokens, tokens, vc // vit_heads)),
+        "flash_mha (encoder)": _why(heads(c, h), enc_att),
+        "flash_mha (keypoints)": _why(heads(c, h), att(k, k, d)),
+        "fused_encoder_stack": _why(heads(c, h),
+                                    lambda: post_plan(1, c, f), enc_att),
+        "fused_decoder_layer": _why(*layer),
+        "fused_decoder_stack": _why(*stack),
+    }

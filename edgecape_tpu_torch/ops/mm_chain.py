@@ -11,12 +11,14 @@ with bf16 operands and fp32 accumulation. The TPU kernel holds a group of
 over the folded [group * n, c] rows (`fold`) beats `group` products over
 [n, c] (`loop`). On the H100 the op is bound by operations
 (4 * b * n * c * f * reps against x in and out and the weights once), and
-what `fold` changes is where the 64-row tiles are cut: inside each image's
-n rows (n = 264 leaves a tile with 8 valid rows of 64), or from the group's
-flat group * n rows. One thread block keeps its row tile in shared memory
-for the whole chain and streams the weights in 64-wide chunks of f, so h
-never reaches device memory (`csrc/mm_chain.cu`). Both cuts give the same
-bits: a row's accumulation order does not depend on its place in a tile.
+what `fold` changes is where the 128-row tiles are cut: inside each
+image's n rows (n = 264 fills 264 of 384 tile rows), or from the group's
+flat group * n rows (528 of 640 at group 2; ops/kernels.py mm_chain_plan
+counts them). One thread block keeps its row tile in shared memory for
+the whole chain and streams the weights by TMA in 64-wide chunks of f;
+h stays in registers between its two products (`csrc/mm_chain.cu`). Both
+cuts give the same bits: a row's accumulation order does not depend on
+its place in a tile or on its block.
 
 The wrapper launches the kernel for a CUDA tensor and takes the plain
 PyTorch version for a CPU tensor; `launches` counts kernel runs.

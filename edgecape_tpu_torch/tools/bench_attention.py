@@ -7,10 +7,14 @@ card's bound and one PyTorch call (SDPA) on the same shape.
 One line per shape; with `bwd`, only the backward's lines: the training
 shapes' gradients (dq, dk, dv, dbias through `flash_mha_train`) against
 autograd through the plain version, the backward's device and wrapper time,
-its bound and SDPA's backward beside it. `device` is the time of the kernels one call launches
-(torch.profiler, mean over REPS calls), so a second kernel (a mask pass)
-would show in it and in the kernel count; `wrapper` is the CUDA-event
-median around one call of the Python wrapper, which adds the host's share
+its bound and SDPA's backward beside it. `device` is the time of the
+kernels one call launches (torch.profiler, mean over REPS calls, the
+kernels matched to the calls by correlation id), so a second kernel (a
+mask pass) would show in it and in the kernel count; where no trace has
+whole device events the line says "device not measured" beside the
+CUDA-event wall time, and the count comes from the wrappers' launch
+counters; `wrapper` is the CUDA-event median around one call of the
+Python wrapper, which adds the host's share
 when the device is faster than the host can launch. SDPA gets pre-transposed
 bf16 operands and a ready additive mask, and is used by nothing in the
 package. With `modes`, the shapes whose key row fits in registers are
@@ -27,6 +31,7 @@ import math
 import os
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -38,6 +43,8 @@ from ..ops import plain
 from .bench_attn_variants import card
 
 REPS = 10
+TRACE_TRIES = 6     # traces taken before device events are given up
+PRIMER = 16         # kernels that open a trace, before the calls it times
 # |kernel - plain| <= ATOL + RTOL * |plain|, mean within MEAN_TOL: the
 # bound chip_smoke.py holds every kernel op to (same bf16 rounding points,
 # another summation order).
@@ -83,15 +90,55 @@ def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
-def _kernel_durations(fn, reps: int) -> list:
-    """(name, duration in us) of each device kernel in a profiler trace of
-    `reps` calls of fn. One more call runs first inside the trace and is
-    not counted: a trace can lose the device events of its first launches
-    (seen with the 30-launch decoder stack), so only kernels that start
-    inside the annotated span of the `reps` calls are taken."""
+# what a trace shows of the device's work, and the host's calls that start it
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CALLS = ("cuda_runtime", "cuda_driver")
+
+
+def span_work(events: list):
+    """(name, duration in us, category) of the device work (kernels and
+    copies) started inside the "timed calls" span of a profiler trace's
+    events, or None when the trace lacks the span or the device event of
+    a kernel launched inside it. Work is matched to the host's runtime
+    calls by their correlation id, and a call belongs to the span by its
+    host timestamp: the device's timestamps, converted to the host's
+    clock, were seen to lie milliseconds off (tools/trace_skew.py), so
+    where a kernel starts says nothing of which call launched it."""
+    span = [e for e in events if e.get("name") == "timed calls"
+            and e.get("cat") == "user_annotation"]
+    if not span:
+        return None
+    t0 = float(span[0]["ts"])
+    t1 = t0 + float(span[0]["dur"])
+
+    def corr(e):
+        return e.get("args", {}).get("correlation")
+
+    calls = {corr(e): e["name"] for e in events
+             if e.get("cat") in HOST_CALLS and corr(e) is not None
+             and t0 <= float(e["ts"]) <= t1}
+    work = [e for e in events if e.get("ph") == "X"
+            and e.get("cat") in DEVICE_WORK and corr(e) in calls]
+    seen = {corr(e) for e in work}
+    if any("Launch" in name and c not in seen for c, name in calls.items()):
+        return None
+    return [(e["name"], float(e["dur"]), e["cat"]) for e in work]
+
+
+def trace_events(fn, reps: int) -> list:
+    """The events of a profiler trace (chrome trace format) of `reps`
+    calls of fn inside a "timed calls" span. Before the span the trace
+    holds PRIMER one-element adds and one more call of fn: a trace was
+    seen to lack the device events of its first two or three kernels
+    (the warm call's and the first timed calls'), and those kernels take
+    that loss."""
     from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        pad = torch.zeros(1, device="cuda")
+        for _ in range(PRIMER):
+            pad.add_(1)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
         with record_function("timed calls"):
@@ -102,40 +149,83 @@ def _kernel_durations(fn, reps: int) -> list:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    start = min((float(e["ts"]) for e in events
-                 if e.get("name") == "timed calls"
-                 and e.get("cat") == "user_annotation"), default=None)
-    return [(e["name"], float(e["dur"])) for e in events
-            if e.get("ph") == "X" and e.get("cat") == "kernel"
-            and (start is None or float(e["ts"]) >= start)]
+            return json.load(f)["traceEvents"]
+
+
+def traced(fn, reps: int = 1):
+    """span_work of a trace of fn (trace_events), taken again (after a
+    synchronize and a short pause) up to TRACE_TRIES times while a trace
+    lacks a kernel's device event or its kernel count is no positive whole
+    number a call; None when no trace had them."""
+    for attempt in range(TRACE_TRIES):
+        if attempt:
+            torch.cuda.synchronize()
+            time.sleep(0.2)
+        events = trace_events(fn, reps)
+        work = span_work(events)
+        n = sum(cat == "kernel" for _, _, cat in work or ())
+        if n and n % reps == 0:
+            return work
+    print(f"[trace] no whole trace of {reps} calls in {TRACE_TRIES}; the "
+          f"last: {trace_summary(events)}", file=sys.stderr, flush=True)
+    return None
+
+
+def trace_summary(events: list) -> str:
+    """What a trace holds, to tell why span_work refused it: the span, the
+    runtime calls inside it (launches and others, by name), how many of
+    the launches have their kernel, and the kernels in the whole trace
+    with their correlation ids."""
+    span = [e for e in events if e.get("name") == "timed calls"
+            and e.get("cat") == "user_annotation"]
+    if not span:
+        return "no span"
+    t0 = float(span[0]["ts"])
+    t1 = t0 + float(span[0]["dur"])
+
+    def corr(e):
+        return e.get("args", {}).get("correlation")
+
+    calls = [e for e in events if e.get("cat") in HOST_CALLS
+             and t0 <= float(e["ts"]) <= t1]
+    kernels = [e for e in events if e.get("ph") == "X"
+               and e.get("cat") == "kernel"]
+    have = {corr(e) for e in kernels}
+    names = {}
+    for e in calls:
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    launches = [corr(e) for e in calls if "Launch" in e["name"]]
+    return (f"span {t1 - t0:.1f} us, runtime calls {names}, launches "
+            f"{launches}, {sum(c in have for c in launches)} with their "
+            f"kernel; {len(kernels)} kernels in the trace, correlation "
+            f"{sorted(c for c in have if c is not None)}")
 
 
 def kernel_ms(fn, reps: int = REPS) -> dict:
-    """{kernel name: ms of device time per call of fn} from one profiler
-    trace of `reps` warm calls (empty when the trace has no device
+    """{kernel name: ms of device time per call of fn} from a profiler
+    trace of `reps` warm calls (empty when no trace had whole device
     events)."""
     fn()
     torch.cuda.synchronize()
     out = {}
-    for name, dur in _kernel_durations(fn, reps):
-        out[name] = out.get(name, 0.0) + dur / reps / 1e3
+    for name, dur, cat in traced(fn, reps) or ():
+        if cat == "kernel":
+            out[name] = out.get(name, 0.0) + dur / reps / 1e3
     return out
 
 
 def device_ms(fn, reps: int = REPS):
-    """(ms of device time per call of fn, kernels per call): the kernels'
-    own durations in a profiler trace of `reps` warm calls. A trace now
-    and then comes back without device events, or without some of them
-    (a count that is no whole number a call): it is taken again, and
-    after three such traces the time is CUDA events around the `reps`
-    calls, which holds the host's gaps too (kernels per call: nan)."""
+    """(device ms per call, kernels per call, wall ms per call) of fn: the
+    kernels' own durations in a profiler trace of `reps` warm calls
+    (`traced`), as (device ms, kernels, None); when no trace had whole
+    device events, (None, None, the CUDA-event time of `reps` calls,
+    host gaps included): never a wall time in the device time's place."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        durs = [d for _, d in _kernel_durations(fn, reps)]
-        if durs and len(durs) % reps == 0:
-            return sum(durs) / reps / 1e3, len(durs) / reps
+    work = traced(fn, reps)
+    if work is not None:
+        durs = [d for _, d, cat in work if cat == "kernel"]
+        return sum(durs) / reps / 1e3, len(durs) // reps, None
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
     a.record()
@@ -143,7 +233,41 @@ def device_ms(fn, reps: int = REPS):
         fn()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps, float("nan")
+    return None, None, a.elapsed_time(b) / reps
+
+
+def launched(fn) -> dict:
+    """{kernel name: launches} of one call of fn, from the wrappers' exact
+    counters (ops/kernels.py launch_counts); PyTorch's own kernels are not
+    counted."""
+    before = K.launch_counts()
+    fn()
+    after = K.launch_counts()
+    return {k: n - before[k] for k, n in after.items() if n != before[k]}
+
+
+# a count from the wrappers' counters sees no kernel of PyTorch's own
+COUNTERS = "launch counters (PyTorch's own kernels unchecked)"
+
+
+def per_call(fn, reps: int = REPS):
+    """device_ms with the kernel count taken from the launch counters
+    when the traces lost their events: (device ms or None, kernels per
+    call or None, wall ms or None, where the count came from: "trace",
+    COUNTERS or None)."""
+    dev, n, wall = device_ms(fn, reps)
+    if n is not None and math.isfinite(n) and n == int(n):
+        return dev, int(n), wall, "trace"
+    n = sum(launched(fn).values()) or None
+    return None, n, wall, None if n is None else COUNTERS
+
+
+def ms_text(dev, wall) -> str:
+    """A device time, or that it was not measured (and the wall time)."""
+    if dev is not None:
+        return f"device {dev:.4f} ms"
+    return "device not measured" + (
+        "" if wall is None else f"; wall {wall:.4f} ms (CUDA events)")
 
 
 class Case:
@@ -277,10 +401,10 @@ def run_case(spec, dev, power, modes=False) -> dict:
         err, mean = diff.max().item(), diff.mean().item()
         ok = excess <= 0 and mean <= MEAN_TOL and bool(
             torch.isfinite(out).all())
-        dev_ms, n_kern = device_ms(case.kernel)
+        dev_ms, n_kern, wall_ms, count_from = per_call(case.kernel)
         wrap_ms = time_ms(case.kernel)
         sdpa = case.sdpa()
-        sdpa_dev_ms, _ = device_ms(sdpa)
+        sdpa_dev_ms, _, sdpa_wall = device_ms(sdpa)
         sdpa_ms = time_ms(sdpa)
         bnd, by = case.bound_ms()
         if case.hops is not None:
@@ -297,24 +421,27 @@ def run_case(spec, dev, power, modes=False) -> dict:
                 alt = K.attention_plan(case.nq, case.nk, case.d,
                                        train=case.rate is not None,
                                        chunk_tiles=tiles)
-                alt_ms, _ = device_ms(lambda: case.kernel(plan=alt))
+                alt_ms, _, alt_wall = device_ms(
+                    lambda: case.kernel(plan=alt))
                 other += (f" (chunks of {tiles} key tiles, {alt['warps']} "
-                          f"warps x {alt['q_split']}: device {alt_ms:.4f} "
-                          f"ms)")
+                          f"warps x {alt['q_split']}: "
+                          f"{ms_text(alt_ms, alt_wall)})")
     del out, ref, diff
     row = {"name": case.name,
            "shape": [case.b, case.nq, case.nk, case.h, case.d],
            "ok": ok, "max_abs_err": err, "device_ms": dev_ms,
-           "kernels_per_call": n_kern, "wrapper_ms": wrap_ms,
+           "wall_ms": wall_ms, "kernels_per_call": n_kern,
+           "count_from": count_from, "wrapper_ms": wrap_ms,
            "bound_ms": bnd, "bound_by": by, "sdpa_ms": sdpa_ms,
            "sdpa_device_ms": sdpa_dev_ms, "plan": plan}
     print(f"[op] attention {case.name}: [B {case.b}, Nq {case.nq}, Nk "
           f"{case.nk}, H {case.h}, D {case.d}] max_abs_err {err:.4g} "
           f"mean_abs_err {mean:.3g} (tol {ATOL} + {RTOL:.4g}*|ref|, mean "
-          f"{MEAN_TOL}; worst excess {excess:.3g}) device {dev_ms:.4f} ms in "
-          f"{n_kern:g} kernel(s) per call, wrapper {wrap_ms:.4f} ms, bound "
-          f"{bnd:.4f} ms ({by}), SDPA {sdpa_ms:.4f} ms (device "
-          f"{sdpa_dev_ms:.4f} ms), plan {json.dumps(plan)}{other} on {power} "
+          f"{MEAN_TOL}; worst excess {excess:.3g}) {ms_text(dev_ms, wall_ms)}"
+          f" in {n_kern} kernel(s) per call (by {count_from}), wrapper "
+          f"{wrap_ms:.4f} ms, bound {bnd:.4f} ms ({by}), SDPA {sdpa_ms:.4f} "
+          f"ms ({ms_text(sdpa_dev_ms, sdpa_wall)}), plan "
+          f"{json.dumps(plan)}{other} on {power} "
           f"{'OK' if ok else 'FAIL'}", flush=True)
     return row
 
@@ -420,33 +547,36 @@ def run_bwd_case(spec, dev, power, modes=False) -> dict:
     again = run()
     same = all(torch.equal(a, b) for a, b in zip(grads, again))
     ok = excess <= 0 and finite and same
-    dev_ms, n_kern = device_ms(run)
+    dev_ms, n_kern, wall_ms, count_from = per_call(run)
     wrap_ms = time_ms(run)
     sdpa = case.sdpa_backward()
-    sdpa_dev_ms, _ = device_ms(sdpa)
+    sdpa_dev_ms, _, sdpa_wall = device_ms(sdpa)
     sdpa_ms = time_ms(sdpa)
     bnd, by = case.bound_ms()
     plan, other = K.attention_bwd_plan(case.nq, case.nk, case.d), ""
     if modes and plan["one_pass"]:
         alt = K.attention_bwd_plan(case.nq, case.nk, case.d,
                                    chunk_tiles=K.ATT_CH16)
-        alt_ms, _ = device_ms(case.kernel_backward(plan=alt))
-        one_ms, _ = device_ms(case.kernel_backward(plan=plan))
-        other = (f" (kernels alone at rate 0: one pass {one_ms:.4f} ms, two "
-                 f"passes {alt_ms:.4f} ms)")
+        two_t = device_ms(case.kernel_backward(plan=alt))
+        one_t = device_ms(case.kernel_backward(plan=plan))
+        other = (f" (kernels alone at rate 0: one pass "
+                 f"{ms_text(one_t[0], one_t[2])}, two passes "
+                 f"{ms_text(two_t[0], two_t[2])})")
     row = {"name": case.name + ", backward",
            "shape": [case.b, case.nq, case.nk, case.h, case.d],
            "ok": ok, "max_abs_err": err, "device_ms": dev_ms,
-           "kernels_per_call": n_kern, "wrapper_ms": wrap_ms,
+           "wall_ms": wall_ms, "kernels_per_call": n_kern,
+           "count_from": count_from, "wrapper_ms": wrap_ms,
            "bound_ms": bnd, "bound_by": by, "sdpa_ms": sdpa_ms,
            "sdpa_device_ms": sdpa_dev_ms, "plan": plan, "bit_equal": same}
     print(f"[op] attention {row['name']}: [B {case.b}, Nq {case.nq}, Nk "
           f"{case.nk}, H {case.h}, D {case.d}] max_abs_err {err:.4g} (tol "
           f"{ATOL} + {RTOL:.4g}*|ref|; worst excess {excess:.3g}; two runs "
-          f"bit-equal {same}) device {dev_ms:.4f} ms in {n_kern:g} kernel(s) "
-          f"per call, wrapper {wrap_ms:.4f} ms, bound {bnd:.4f} ms ({by}), "
-          f"SDPA backward {sdpa_ms:.4f} ms (device {sdpa_dev_ms:.4f} ms), plan "
-          f"{json.dumps(plan)}{other} on {power} {'OK' if ok else 'FAIL'}",
+          f"bit-equal {same}) {ms_text(dev_ms, wall_ms)} in {n_kern} "
+          f"kernel(s) per call (by {count_from}), wrapper {wrap_ms:.4f} ms, "
+          f"bound {bnd:.4f} ms ({by}), SDPA backward {sdpa_ms:.4f} ms "
+          f"({ms_text(sdpa_dev_ms, sdpa_wall)}), plan {json.dumps(plan)}"
+          f"{other} on {power} {'OK' if ok else 'FAIL'}",
           flush=True)
     return row
 

@@ -12,9 +12,9 @@ made outside the timing).
 
 One `[op] vit_attn` line per shape. `device` is the time of the kernels
 one call launches (torch.profiler, mean over REPS calls; tools/
-bench_attention device_ms: where the traces lose device events, CUDA
-events around the calls, host gaps included, with "nan" kernels per
-call).
+bench_attention device_ms: where the traces lose device events, "not
+measured" beside the CUDA-event wall time, host gaps included, and the
+kernel count from the wrappers' launch counters).
 
 Needs a CUDA device: the ops launch the hand-written kernels.
 """
@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from ..ops import fused_attn_block as FA
 from ..ops import kernels as K
 from .bench_attention import ATOL, MEAN_TOL, PEAK_BF16_FLOPS, PEAK_BYTES_S, \
-    RTOL, device_ms
+    RTOL, device_ms, ms_text, per_call
 from .bench_attn_variants import card
 
 C, H, EPS = K.VIT_C, K.VIT_HEADS, 1e-6
@@ -95,16 +95,16 @@ def run_case(spec, dev, power):
     err_a, ok_a = _check(qkv, FA.vit_qkv_plain(xr, w, eps=EPS))
     err_b, ok_b = _check(y, FA.vit_attn_plain(qkv.view(b, n, 3 * C), x, w,
                                               num_heads=H, out_dtype=odt))
-    ms_a, per_a = device_ms(lambda: K.vit_qkv(xr, w, eps=EPS))
-    ms_b, per_b = device_ms(lambda: K.vit_attn(qkv.view(b, n, 3 * C), x, w,
-                                               out_dtype=odt))
-    ms, per = device_ms(lambda: K.vit_attn(
+    ms_a, per_a, wall_a, _ = per_call(lambda: K.vit_qkv(xr, w, eps=EPS))
+    ms_b, per_b, wall_b, _ = per_call(lambda: K.vit_attn(
+        qkv.view(b, n, 3 * C), x, w, out_dtype=odt))
+    ms, per, wall, _ = per_call(lambda: K.vit_attn(
         K.vit_qkv(xr, w, eps=EPS).view(b, n, 3 * C), x, w, out_dtype=odt))
-    chain_ms, chain_k = device_ms(lambda: chain(x, w, odt))
+    chain_ms, chain_k, chain_wall = device_ms(lambda: chain(x, w, odt))
     q, k, v = (qkv.view(b, n, 3, H, C // H)[:, :, i].transpose(1, 2)
                for i in range(3))
     wpt = w["wp"].t()
-    lib_ms, _ = device_ms(lambda: torch.matmul(
+    lib_ms, _, lib_wall = device_ms(lambda: torch.matmul(
         F.scaled_dot_product_attention(q, k, v).transpose(1, 2).reshape(
             b * n, C), wpt))
     rows = b * n
@@ -116,14 +116,16 @@ def run_case(spec, dev, power):
     ok = ok_a and ok_b
     print(f"[op] vit_attn {name}: [{b}, {n}, {C}], {H} heads, x "
           f"{str(xdt).split('.')[-1]} -> {str(odt).split('.')[-1]}, "
-          f"{K.vit_attn_plan(b, n, C, H)}: device {ms:.4f} ms in {per:g} "
-          f"kernels (vit_qkv {ms_a:.4f} in {per_a:g}, vit_attn {ms_b:.4f} "
-          f"in {per_b:g}), "
-          f"{flops / ms / 1e9:.1f} TFLOP/s, bound {bound_ms:.4f} ms "
+          f"{K.vit_attn_plan(b, n, C, H)}: {ms_text(ms, wall)} in {per} "
+          f"kernels (vit_qkv {ms_text(ms_a, wall_a)} in {per_a}, vit_attn "
+          f"{ms_text(ms_b, wall_b)} in {per_b}), "
+          f"{'%.1f' % (flops / ms / 1e9) if ms else 'not measured'} "
+          f"TFLOP/s, bound {bound_ms:.4f} ms "
           f"({'bytes' if t_bytes > t_ops else 'operations'}); the chain it "
           f"replaced (layernorm, qkv GEMM, attention, proj GEMM + residual) "
-          f"device {chain_ms:.4f} ms in {chain_k:g} kernels; yardstick SDPA "
-          f"+ torch.matmul proj {lib_ms:.4f} ms; max_abs_err vit_qkv "
+          f"{ms_text(chain_ms, chain_wall)} in {chain_k} kernels; yardstick "
+          f"SDPA + torch.matmul proj {ms_text(lib_ms, lib_wall)}; max_abs_err "
+          f"vit_qkv "
           f"{err_a:.4g}, vit_attn {err_b:.4g} (tol {ATOL} + {RTOL:.4g}*|ref|,"
           f" mean {MEAN_TOL}) {'OK' if ok else 'FAIL'} on {power}",
           flush=True)

@@ -9,7 +9,7 @@ LayerScale residual) on the same operands.
 
 One `[op] vit_mlp` line per shape. `device` is the time of the kernels one
 call launches (torch.profiler, mean over REPS calls; tools/bench_attention
-device_ms).
+device_ms; "not measured" where the traces lost their device events).
 
 Needs a CUDA device: the op launches the hand-written kernel.
 """
@@ -23,7 +23,7 @@ import torch
 from ..ops import kernels as K
 from ..ops import plain
 from .bench_attention import ATOL, MEAN_TOL, PEAK_BF16_FLOPS, PEAK_BYTES_S, \
-    RTOL, device_ms
+    RTOL, device_ms, ms_text, per_call
 from .bench_attn_variants import card
 
 C, F, EPS = K.VIT_C, 4 * K.VIT_C, 1e-6
@@ -83,8 +83,9 @@ def run_case(spec, dev, power):
     excess = float((d - (ATOL + RTOL * ref.abs())).max())
     ok = excess <= 0 and float(d.mean()) <= MEAN_TOL and bool(
         torch.isfinite(y.float()).all())
-    ms, per = device_ms(lambda: K.vit_mlp(x, w, eps=EPS, out_dtype=odt))
-    chain_ms, chain_k = device_ms(lambda: chain(x, w, odt))
+    ms, per, wall, _ = per_call(lambda: K.vit_mlp(x, w, eps=EPS,
+                                                  out_dtype=odt))
+    chain_ms, chain_k, chain_wall = device_ms(lambda: chain(x, w, odt))
     flops = 2 * rows * 2 * C * F
     n_bytes = rows * C * (x.element_size() + torch.finfo(odt).bits // 8) \
         + 2 * 2 * C * F + 4 * (4 * C + F)
@@ -92,12 +93,15 @@ def run_case(spec, dev, power):
     print(f"[op] vit_mlp {name}: rows {rows}, C {C}, F {F}, x "
           f"{str(xdt).split('.')[-1]} -> {str(odt).split('.')[-1]}, "
           f"{'K' if kmajor else 'MN'}-major weights, "
-          f"{K.vit_mlp_plan(rows, C, F)}: device {ms:.4f} ms in {per:g} "
-          f"kernels, {flops / ms / 1e9:.1f} TFLOP/s, bound "
+          f"{K.vit_mlp_plan(rows, C, F)}: {ms_text(ms, wall)} in {per} "
+          f"kernels, "
+          f"{'%.1f' % (flops / ms / 1e9) if ms else 'not measured'} "
+          f"TFLOP/s, bound "
           f"{max(t_bytes, t_ops) * 1e3:.4f} ms "
           f"({'bytes' if t_bytes > t_ops else 'operations'}); the chain it "
           f"replaced (layernorm, fc1 GEMM + GELU, fc2 GEMM + residual) "
-          f"device {chain_ms:.4f} ms in {chain_k:g} kernels; max_abs_err "
+          f"{ms_text(chain_ms, chain_wall)} in {chain_k} kernels; "
+          f"max_abs_err "
           f"{float(d.max()):.4g} mean {float(d.mean()):.3g} (tol {ATOL} + "
           f"{RTOL:.4g}*|ref|, mean {MEAN_TOL}) {'OK' if ok else 'FAIL'} on "
           f"{power}", flush=True)

@@ -4,9 +4,9 @@ counterpart of scripts/probe_m_fold.py.
 
 On the TPU the question was the matrix unit's fill and drain at M = n
 against M = g * n. On the GPU it is tile quantisation: `ops.mm_chain`
-works on tiles of 64 rows, and n = 264 leaves every image a tile with 8
-valid rows of 64 (n = 104 one with 40), which the folded rows of a group
-avoid. Both cuts do the same useful operations and must give the same
+works on tiles of 128 rows, and n = 264 leaves every image a tile with 8
+valid rows of 128 (n = 104 one of 104), which the folded rows of a group
+mostly avoid. Both cuts do the same useful operations and must give the same
 bits; the tool compares the whole [b, n, c] output.
 
 For each of the three cases of the JAX script (the backbone's MLP shape at

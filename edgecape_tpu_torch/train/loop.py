@@ -36,6 +36,7 @@ from ..models.convert import init_params
 from ..models.edgecape import EdgeCape
 from ..models.head import keypoint_losses, pck_accuracy
 from ..ops import heatmap
+from ..ops.kernel_config import require_widths
 from ..staging import HostStager
 from . import checkpoint as ckpt_lib
 from .state import apply_lr, clip_by_global_norm, make_optimizer
@@ -179,6 +180,10 @@ class Trainer:
                          else flash)
         cfg = config_lib.replace(cfg, model=config_lib.replace(
             cfg.model, use_flash=use_flash))
+        if cfg.model.train_backbone_fast:
+            require_widths(("fused_vit_block",),
+                           dinov2.width_misfits(cfg.model, backbone_cfg),
+                           self.device, "model.train_backbone_fast=False")
         self.cfg = cfg
         self.train_ds = train_ds
         self.val_ds = val_ds
@@ -206,7 +211,8 @@ class Trainer:
         if fast:
             self.log("train step: fused bf16 backbone active "
                      "(model.train_backbone_fast=false for the plain trunk)")
-        self.model = EdgeCape(cfg.model, use_flash=use_flash)
+        self.model = EdgeCape(cfg.model, use_flash=use_flash,
+                              device=self.device)
         self.model.load_state_dict(head_state)
         self.model.to(self.device)
 

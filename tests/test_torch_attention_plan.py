@@ -239,14 +239,14 @@ def test_cuda_route_refuses_cpu_operands():
         K.attention(q, q, q, num_heads=2, scale=1.0)
     with pytest.raises(ValueError):
         K.attention_train_fwd(q, q, q, num_heads=2, scale=1.0)
-    n0 = dict(K.stack_kernel_launches)
+    n0 = dict(K.launches)
     mlp = (torch.zeros(5, 12), torch.zeros(12), torch.zeros(12, 8),
            torch.zeros(8))
     with pytest.raises(ValueError):
         K.bias_attention(torch.zeros(1, 16, 768, dtype=torch.bfloat16), None,
                          torch.zeros(1, 16, 16, 5, dtype=torch.bfloat16), mlp,
                          num_heads=8)
-    assert K.stack_kernel_launches == n0
+    assert K.launches == n0
 
 
 # ------------------------------------------- plain versions at ragged sizes

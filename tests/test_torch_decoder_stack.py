@@ -366,7 +366,7 @@ def test_stack_weights_hold_only_what_the_stack_adds():
 
 
 def test_stack_kernels_refuse_cpu_operands_and_count_nothing():
-    n0 = dict(K.stack_kernel_launches)
+    n0 = dict(K.launches)
     c = 256
     x, ct = torch.zeros(10, c, dtype=torch.bfloat16), torch.zeros(10, 2)
     vec = (torch.zeros(c), torch.zeros(c))
@@ -382,7 +382,7 @@ def test_stack_kernels_refuse_cpu_operands_and_count_nothing():
                          None, torch.zeros(2, 10, 10, 5,
                                            dtype=torch.bfloat16),
                          mlp, num_heads=8)
-    assert K.stack_kernel_launches == n0
+    assert K.launches == n0
 
 
 def test_cpu_stack_takes_the_plain_version():
@@ -390,10 +390,10 @@ def test_cpu_stack_takes_the_plain_version():
     rng = np.random.default_rng(24)
     dec = decoder(decoder_tree(rng, 64, 2, 96, 1), 64, 2, 96, 1, 32)
     args = _args(decoder_inputs(rng, 2, 12, 16, 64))
-    n0, k0 = tdec.stack_launches, dict(K.stack_kernel_launches)
+    n0, k0 = tdec.stack_launches, dict(K.launches)
     with torch.no_grad():
         got = tdec.fused_decoder_stack(*args, dec, num_heads=2, num_feats=32)
         ref = tdec.fused_decoder_stack_plain(*args, dec, num_heads=2,
                                              num_feats=32)
     assert all(torch.equal(a, r) for a, r in zip(got, ref))
-    assert tdec.stack_launches == n0 and K.stack_kernel_launches == k0
+    assert tdec.stack_launches == n0 and K.launches == k0

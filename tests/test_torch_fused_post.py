@@ -424,7 +424,7 @@ def test_post_kernels_refuse_cpu_operands_and_count_nothing():
     _, dec = _decoder(rng)
     we, wd = tenc._prepare(enc), tdec._prepare(dec)
     att = torch.zeros(10, C, dtype=torch.bfloat16)
-    before = dict(K.post_launches)
+    before = dict(K.launches)
     with pytest.raises(ValueError):
         K.enc_post(att, att, we, eps=1e-5, out_dtype=torch.bfloat16)
     with pytest.raises(ValueError):
@@ -433,4 +433,4 @@ def test_post_kernels_refuse_cpu_operands_and_count_nothing():
         K.dec_post_cross(torch.zeros(1, 10, 2 * C, dtype=torch.bfloat16),
                          torch.zeros(10, C), torch.zeros(1, 2, 10, 10), wd,
                          eps=1e-5, out_dtype=torch.float32)
-    assert K.post_launches == before
+    assert K.launches == before

@@ -318,18 +318,18 @@ def test_wrappers_refuse_cpu_operands_and_count_nothing():
     args = _attn_args(1, 20)
     w = _kernel_weights(args)
     x = torch.from_numpy(args[0])
-    before = dict(K.attn_half_launches)
+    before = dict(K.launches)
     with pytest.raises(ValueError):
         K.vit_qkv(x.reshape(-1, C), w, eps=EPS)
     with pytest.raises(ValueError):
         K.vit_attn(torch.zeros(1, 20, 3 * C, dtype=torch.bfloat16), x, w,
                    out_dtype=torch.float32)
-    assert K.attn_half_launches == before
+    assert K.launches == before
     n0 = tattn.launches
     out = tattn.fused_attn_block(x, *map(torch.from_numpy, args[1:]),
                                  num_heads=H)
     assert out.shape == x.shape and tattn.launches == n0
-    assert K.attn_half_launches == before
+    assert K.launches == before
 
 
 def test_fused_attn_block_weights_are_kept_until_written():

@@ -323,18 +323,18 @@ def test_vit_mlp_refuses_cpu_operands_and_counts_nothing():
     w = {k: v.to(torch.bfloat16) if v.dim() == 2 else v for k, v in
          w.items()}
     w["kmajor"] = True
-    before = dict(K.mlp_launches)
+    before = dict(K.launches)
     with pytest.raises(ValueError):
         K.vit_mlp(torch.from_numpy(args[0]), w, eps=EPS,
                   out_dtype=torch.float32)
     with pytest.raises(ValueError):
         K.vit_mlp(torch.from_numpy(args[0]).to(torch.bfloat16), w, eps=EPS,
                   out_dtype=torch.bfloat16, next_ln=(w["g"], w["be"]))
-    assert K.mlp_launches == before
+    assert K.launches == before
     n0 = tmlp.launches
     tmlp.fused_ln_mlp(torch.from_numpy(args[0]),
                       *map(torch.from_numpy, args[1:]))
-    assert tmlp.launches == n0 and K.mlp_launches == before
+    assert tmlp.launches == n0 and K.launches == before
 
 
 def test_fused_ln_mlp_weight_cast_is_kept_until_written():

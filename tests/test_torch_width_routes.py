@@ -1,0 +1,120 @@
+"""Widths checked when a model is built (ops/kernels.py width_misfits,
+ops/kernel_config.py require_widths): a model built for the card with its
+fused ops on raises ValueError at build time, naming each op whose
+kernels do not take its widths and the width, so that no forward pass
+raises half way; use_flash=False builds the plain modules. On the CPU
+nothing is checked (an op takes its plain version, which takes any
+width). The head is only built here, never moved to a card.
+
+A port model at d_model 128 (4 heads, num_feats 64) matches the JAX model
+on the same weights in fp32 on the CPU, to the strict path's tolerance of
+tests/test_torch_slice.py (1e-4 on normalised coordinates), with that
+file's toy trunk and configuration."""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from edgecape_tpu.api import PoseEstimator as JaxEstimator
+from edgecape_tpu.models import dinov2 as jdinov2
+from edgecape_tpu_torch.config import ModelConfig
+from edgecape_tpu_torch.models.edgecape import EdgeCape
+from edgecape_tpu_torch.ops import kernel_config as KC
+from edgecape_tpu_torch.ops import kernels as K
+from test_torch_slice import (COORD_TOL, K as KPT, SIZE, TRUNK, _cfg,
+                              _episodes, _jax_estimator, _perturb,
+                              _torch_estimator)
+
+NARROW = dict(d_model=128, nhead=4, num_feats=64, similarity_proj_dim=128)
+POST_OPS = {"fused_encoder_stack", "fused_decoder_layer",
+            "fused_decoder_stack"}
+STAGE3 = dict(learn_skeleton=True, attn_bias=True, use_flash=True)
+
+
+@pytest.mark.parametrize("kw,misfit", [
+    ({}, set()),
+    (NARROW, POST_OPS),
+    (dict(d_model=192, nhead=8, num_feats=96, similarity_proj_dim=192),
+     POST_OPS | {"flash_mha (encoder)", "flash_mha (keypoints)"}),
+    (dict(nhead=2), POST_OPS | {"flash_mha (encoder)",
+                                "flash_mha (keypoints)"}),
+], ids=["256/8", "128/4", "192/8", "256/2"])
+def test_width_predicate(kw, misfit):
+    """All fused at the stage-3 widths; at the others exactly the ops whose
+    kernels refuse them, each with the plan's reason."""
+    out = K.width_misfits(ModelConfig(**STAGE3, **kw))
+    assert {op for op, why in out.items() if why is not None} == misfit
+    assert out["fused_vit_block"] is None and out["flash_mha (ViT)"] is None
+    for op in misfit:
+        assert "256 channels" in out[op] or "head dim" in out[op], out[op]
+
+
+def test_the_vit_route_follows_the_trunk():
+    """Another trunk width or more tokens than the ViT kernels hold."""
+    cfg = ModelConfig(**STAGE3)
+    assert K.width_misfits(cfg, vit_dim=768, vit_heads=12)[
+        "fused_vit_block"] is not None
+    big = K.width_misfits(dataclasses.replace(cfg, image_size=256))
+    assert "325" in big["fused_vit_block"]
+    assert big["flash_mha (ViT)"] is None and big["fused_encoder_stack"] \
+        is None
+
+
+def test_a_head_built_for_the_card_refuses_other_widths():
+    """At d_model 128 the three post-attention ops refuse, in one error
+    raised before any module is built; the attention kernels take 4
+    heads of 32, so those ops are not named."""
+    cfg = ModelConfig(**STAGE3, **NARROW)
+    with pytest.raises(ValueError) as err:
+        EdgeCape(cfg, use_flash=True, device="cuda")
+    msg = str(err.value)
+    for op in POST_OPS:
+        assert f"{op} (the post-attention kernels take 256 channels, " \
+            f"got 128)" in msg, msg
+    assert "flash_mha" not in msg and "use_flash=False" in msg
+    with pytest.raises(ValueError, match="train_backbone_fast"):
+        KC.require_widths(("fused_vit_block",),
+                          K.width_misfits(cfg, vit_dim=768, vit_heads=12),
+                          torch.device("cuda", 0),
+                          "model.train_backbone_fast=False")
+
+
+@pytest.mark.parametrize("kw,flash,device", [
+    ({}, True, "cuda"), ({}, True, torch.device("cuda", 0)),
+    (NARROW, True, "cpu"), (NARROW, True, None), (NARROW, False, "cuda"),
+], ids=["256-cuda", "256-cuda:0", "128-cpu", "128-nodevice", "128-plain"])
+def test_a_head_builds_where_its_ops_take_its_widths(kw, flash, device):
+    """The stage-3 widths on the card, any width for the CPU (or with no
+    device named), and any width with use_flash off: built, the fused
+    route as asked."""
+    head = EdgeCape(ModelConfig(**STAGE3, **kw), use_flash=flash,
+                    device=device)
+    assert head.use_flash is flash
+    assert head.encoder_layers[0].self_attn.use_flash is flash
+    assert head.decoder.use_flash is flash
+
+
+@pytest.fixture(scope="module")
+def narrow_weights():
+    """(flax backbone tree, flax head tree) of the d_model 128 head."""
+    bb = jdinov2.init_params(jax.random.PRNGKey(0), SIZE, TRUNK)
+    est = JaxEstimator(_cfg(**NARROW), backbone_params=bb,
+                       rng=jax.random.PRNGKey(0))
+    return _perturb(bb, est.head_params)
+
+
+def test_forward_cached_d_model_128_matches_jax_strict(narrow_weights):
+    cfg = _cfg(**NARROW)
+    support, query = _episodes()
+    jpred, jadj = _jax_estimator(cfg, narrow_weights).forward_cached(
+        support, query)
+    tpred, tadj = _torch_estimator(cfg, narrow_weights).forward_cached(
+        support, query)
+    assert tpred.shape == (6, KPT, 2)
+    np.testing.assert_allclose(tpred.numpy(), np.asarray(jpred),
+                               atol=COORD_TOL, rtol=0)
+    np.testing.assert_allclose(tadj.numpy(), np.asarray(jadj), atol=1e-5,
+                               rtol=0)
