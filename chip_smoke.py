@@ -123,8 +123,40 @@ Phases (any failure exits non-zero before the last line):
    same PCK from both eval loops; prints the disk eval's img/s beside its
    host collate, dispatch and device-wait seconds, and ms per training
    step with the loader;
-11. prints {"kernels": [...]} on its own line, then the result line
-   {"ok": true, "device": {...}} last.
+11. the serving path (`[serve]`, edgecape_tpu_torch/cli/serve.py): first
+   the kernel ops it and the demo launch, at their shapes and fp32 in and
+   out, against their plain versions (`[op]` lines: flash_mha on the fp32
+   ViT at 224 px and 256 px and on one group's keypoints;
+   fused_encoder_stack and fused_decoder_stack at 1 and 16 rows); then
+   the port's PoseService (stage-3 model, 224 px, K=100, fp32, seeded
+   weights, the variant switches of the measured-defaults file) behind a
+   ThreadingHTTPServer on 127.0.0.1 in this process: a 1-shot and a
+   5-shot /support, 20 sequential /predict (p50, p95 ms), 16 concurrent
+   /predict on one context (fewer dispatches than requests), 64 from 8
+   threads (requests/s, mean batch fill), a /predict_batch of 16 and
+   /healthz; the answers against a service on the strict path
+   (use_flash=False) with the same weights on the same requests, the
+   batch and the coalesced answers against the single ones, the launch
+   counters of every kernel op of the path above 0 (and none on the
+   strict path); /reload of a checkpoint of other seeded head weights
+   (contexts dropped, answers equal to a service built with them); one
+   bucket-16 dispatch under the profiler;
+12. the router (`[router]`, cli/router.py): two services on the card, each
+   behind its own HTTP server, behind the port's router: sticky
+   /predict, a rolling /reload, one replica's server shut down (503
+   "context lost" for its contexts) and rejoining once it is up again;
+13. the demo (`[demo]`, cli/demo.py infer) at its default 256 px on a
+   support / query pair with an annotation dict: launch counters, the
+   predictions against the strict path, the figure where matplotlib
+   imports; the same model in bf16 at 256 px refused when it is built
+   (the fused ViT block does not hold 325 tokens);
+14. prints {"kernels": [...]} on its own line, then the result line
+   {"ok": true, "device": {...}} last. The kernels line holds, besides
+   each kernel op's entry, the serving shapes' entries (`flash_mha (ViT
+   fp32, 224 px)` and the rest); an op's `launches` is its count on the
+   main path (phase 3), its `serve_launches`, `router_launches` and
+   `demo_launches` those on phases 11-13, and a serving shape's
+   `launches` its op's count on the path of that shape.
 Nothing here imports jax or the JAX package.
 """
 
@@ -419,9 +451,9 @@ def main_path_config():
 
 
 # ------------------------------------------------------------ phase 2
-def library_encoder(layers, c, ffn, dev):
+def library_encoder(layers, c, ffn, dev, dtype=torch.bfloat16):
     """nn.TransformerEncoderLayer copies of the port's encoder layers in
-    bf16, eval mode: the one PyTorch call that computes a post-norm ReLU
+    `dtype`, eval mode: the one PyTorch call that computes a post-norm ReLU
     layer with a key padding mask."""
     out = []
     with torch.no_grad():
@@ -440,7 +472,7 @@ def library_encoder(layers, c, ffn, dev):
                              (lib.norm2, layer.norm2)):
                 dst.weight.copy_(src.weight)
                 dst.bias.copy_(src.bias)
-            out.append(lib.to(dev, torch.bfloat16).eval())
+            out.append(lib.to(dev, dtype).eval())
     return out
 
 
@@ -2387,6 +2419,730 @@ def disk_path(dev, entries, power):
         kernel_config.set_vit_pair_blocks(False)
 
 
+# ------------------------------------------------------ phases 11-13
+# Serving, router and demo (edgecape_tpu_torch/cli/serve.py, router.py,
+# demo.py): the stage-3 model of cli/demo.py stage3_estimator (learned
+# skeleton, Markov bias, the bias attention module, K=100, fp32 compute
+# and head dtype, full ViT-S/14), seeded weights, the variant switches as
+# the measured-defaults file has them.
+SERVE_SIZE, DEMO_SIZE, SERVE_KPTS = 224, 256, 24
+# The fp32 head's kernels against their plain versions keep ATOL / RTOL;
+# the decoder stack's layers STACK_LAYER_MAX / MEAN (bf16 operands inside
+# both, fp32 tokens outside).
+# Answers of the kernel path against the strict fp32 path (use_flash=False)
+# on the card, on normalised coordinates: the main path's bounds (bf16
+# operands in the kernels, and the local soft-argmax can move a keypoint
+# by a feature cell on a near tie); learned edge weights (about 1.4 in
+# size) within EDGE_TOL: the skeleton's refine attention runs bf16
+# operands, which the plain versions' emulation of the kernels' rounding
+# points on the CPU puts at 4.4e-5 against fp32.
+EDGE_TOL = 2e-3
+# The same image answered in another batch (another bucket, another row):
+# the fp32 trunk's matmuls are cuBLAS calls, which choose their algorithm,
+# and so their order of summation, by the row count; the kernels' bf16
+# rounding points downstream carry such a last-bit difference as far as a
+# bf16 ulp, as against the strict path (on an H100: a median of 1.4e-4,
+# 98.4% of coordinates within a cell). A row-position fault moves most
+# keypoints by cells: median about 0.1.
+ROW_MEDIAN, ROW_SHARE = 2e-3, PATH_WITHIN_SHARE
+# Reloaded weights against a service built with them: the same kernels
+# on the same inputs (no atomics); RELOAD_TOL leaves room for nothing more
+# than the order of a reduction.
+RELOAD_TOL = 1e-5
+
+# (name, module, attribute) of every op-level launch counter
+OP_COUNTERS = (
+    ("flash_mha", "flash_attention", "launches"),
+    ("fused_vit_block", "fused_vit_block", "launches"),
+    ("fused_vit_block2", "fused_vit_block", "launches2"),
+    ("fused_encoder_stack", "fused_encoder", "stack_launches"),
+    ("fused_encoder_layer", "fused_encoder", "launches"),
+    ("fused_decoder_layer", "fused_decoder", "launches"),
+    ("fused_decoder_stack", "fused_decoder", "stack_launches"))
+
+
+def _ops_module(name):
+    import importlib
+    return importlib.import_module("edgecape_tpu_torch.ops." + name)
+
+
+def zero_counts():
+    """Every launch counter to 0: the ops' and each kernel's."""
+    from edgecape_tpu_torch.ops import kernels as KN
+    from edgecape_tpu_torch.ops import mm_chain
+    for _, mod, attr in OP_COUNTERS:
+        setattr(_ops_module(mod), attr, 0)
+    KN.launches.update(dict.fromkeys(KN.launches, 0))
+    mm_chain.launches = 0
+
+
+def read_counts():
+    """(op counts, non-zero kernel counts)."""
+    from edgecape_tpu_torch.ops import kernels as KN
+    ops = {name: getattr(_ops_module(mod), attr)
+           for name, mod, attr in OP_COUNTERS}
+    return ops, {k: v for k, v in KN.launch_counts().items() if v}
+
+
+def path_ops(stack):
+    """The kernel ops a stage-3 fp32 forward launches: flash_mha (the
+    ViT's attention and the skeleton's refine layers), the encoder stack,
+    the decoder as one stack op or one op per layer."""
+    return ("flash_mha", "fused_encoder_stack",
+            "fused_decoder_stack" if stack else "fused_decoder_layer")
+
+
+def check_path_counts(what, stack, power):
+    """Reads the counters after a path's run: each op of path_ops above 0,
+    no bf16 ViT kernel (the trunk is fp32). Returns the op counts."""
+    ops, kernels = read_counts()
+    need = path_ops(stack)
+    vit = {k: kernels.get(k, 0) for k in VIT_KERNELS}
+    ok = all(ops[n] > 0 for n in need) and not any(vit.values())
+    print(f"[{what}] launches of the kernel ops {ops}; kernels "
+          f"{kernels}; expected above 0: {list(need)}, the bf16 ViT "
+          f"kernels at 0 ({vit}) on {power} {'OK' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail(f"the {what} path did not launch the kernels it runs")
+    return ops
+
+
+def ppm_b64(img):
+    """Binary PPM of an RGB uint8 image, base64: the card's machine has no
+    cv2, so requests carry PPM."""
+    import base64
+    h, w = img.shape[:2]
+    return base64.b64encode(b"P6\n%d %d\n255\n" % (w, h)
+                            + np.ascontiguousarray(img).tobytes()).decode()
+
+
+def stage3_weights(size, seed):
+    """Seeded (backbone, head) state dicts of the stage-3 model, the
+    zero-initialised parts redrawn."""
+    from edgecape_tpu_torch.cli.demo import stage3_config
+    from edgecape_tpu_torch.models.convert import (init_params,
+                                                   redraw_zero_inits)
+    gen = torch.Generator().manual_seed(seed)
+    bb, head = init_params(gen, stage3_config(size).model)
+    redraw_zero_inits(bb, head, gen)
+    return bb, head
+
+
+def coord_gap(a, b):
+    """(median, max, share within one feature cell) of |a - b|."""
+    d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    return float(np.median(d)), float(d.max()), float(np.mean(d <= PATH_CELL))
+
+
+def serve_op_checks(dev, entries):
+    """The kernel ops of the serving and demo paths at their shapes, fp32
+    in and out: flash_mha on the fp32 ViT's attention (a bucket of 16
+    images at 224 px, the demo's support and query at 256 px: 325 keys)
+    and on one support group's keypoints; fused_encoder_stack and
+    fused_decoder_stack on fp32 tokens of 1 and 16 rows (the serving
+    buckets' ends; the eval chunk gives them 510)."""
+    import edgecape_tpu_torch.ops.flash_attention as FA
+    import edgecape_tpu_torch.ops.fused_decoder as FD
+    import edgecape_tpu_torch.ops.fused_encoder as FE
+    from edgecape_tpu_torch.models.transformer import (Decoder, EncoderLayer,
+                                                       ensure_some_valid)
+    from edgecape_tpu_torch.ops import kernels as KN
+
+    g, rn = seeded_randn(SEED + 11, dev)
+    bad = []
+    c, ffn, heads, layers, nf, nhop = 256, 384, 8, 3, 128, 5
+    hw = (SERVE_SIZE // 14) ** 2
+    with torch.no_grad():
+        for b, n, h, d, what in (
+                (16, 257, 6, 64, "ViT fp32, 224 px"),
+                (2, 325, 6, 64, "ViT fp32, 256 px"),
+                (1, K, 8, 32, "keypoints fp32, 1 group")):
+            q, k, v = (rn(b, n, h, d) for _ in range(3))
+            valid = None
+            if what.startswith("keypoints"):
+                valid = torch.rand(b, n, generator=g).to(dev) > 0.3
+                valid[:, 0] = True
+            sq, sk, sv = (t.transpose(1, 2) for t in (q, k, v))
+            smask = None if valid is None else torch.zeros(
+                b, 1, 1, n, device=dev).masked_fill(
+                    ~valid[:, None, None, :], -math.inf)
+            check_op(
+                entries, bad, f"flash_mha ({what})",
+                "edgecape_tpu/ops/flash_attention.py:132",
+                "edgecape_tpu_torch/ops/flash_attention.py",
+                FA.flash_mha(q, k, v, valid), FA.flash_mha_plain(q, k, v,
+                                                                 valid),
+                lambda: FA.flash_mha(q, k, v, valid),
+                lambda: FA.flash_mha_plain(q, k, v, valid),
+                bound(2 * nbytes(q) + nbytes(k, v, valid),
+                      4 * b * h * n * n * d),
+                library=lambda: F.scaled_dot_product_attention(
+                    sq, sk, sv, attn_mask=smask),
+                counter=(FA, "launches"), copy_gemms=0,
+                extra=f"; [B {b}, N {n}, H {h}, D {d}] fp32 in and out; "
+                      f"plan {json.dumps(KN.attention_plan(n, n, d))}")
+
+        enc = [randomize(EncoderLayer(c, heads, ffn), rn, dev)
+               for _ in range(layers)]
+        lib_enc = library_encoder(enc, c, ffn, dev, dtype=torch.float32)
+        dec = randomize(Decoder(c, heads, ffn, layers, attn_bias=True,
+                                max_hops=nhop - 1, num_feats=nf,
+                                use_flash=True), rn, dev)
+        for rows in (1, 16):
+            tok, pos = rn(rows, hw + K, c), rn(hw + K, c)
+            valid = torch.rand(rows, hw + K, generator=g).to(dev) > 0.2
+            valid[:, :hw] = True
+            outs, refs, x = [], [], tok
+            for layer in enc:
+                refs.append(FE.fused_encoder_layer_plain(
+                    x, pos, valid, layer, num_heads=heads))
+                x = FE.fused_encoder_layer(x, pos, valid, layer,
+                                           num_heads=heads)
+                outs.append(x)
+            whole = FE.fused_encoder_stack(tok, pos, valid, enc,
+                                           num_heads=heads)
+            chain_gap = (whole - x).abs().max().item()
+            if whole.dtype != torch.float32 or not torch.equal(whole, x):
+                bad.append(f"fused_encoder_stack ({rows} rows): the stack "
+                           f"is not its chain of layers ({chain_gap:.3g})")
+            pad = ~valid
+
+            def library_stack():
+                with torch.inference_mode():
+                    y = tok + pos
+                    for lib in lib_enc:
+                        y = lib(y, src_key_padding_mask=pad)
+                return y
+
+            def plain_stack():
+                y = tok
+                for layer in enc:
+                    y = FE.fused_encoder_layer_plain(y, pos, valid, layer,
+                                                     num_heads=heads)
+                return y
+
+            check_op(
+                entries, bad, f"fused_encoder_stack (fp32, {rows} rows)",
+                "edgecape_tpu/ops/fused_encoder.py:188",
+                "edgecape_tpu_torch/ops/fused_encoder.py",
+                torch.stack(outs), torch.stack(refs),
+                lambda: FE.fused_encoder_stack(tok, pos, valid, enc,
+                                               num_heads=heads),
+                plain_stack,
+                bound(2 * nbytes(tok) + nbytes(pos, valid)
+                      + param_bytes(*enc),
+                      layers * (2 * rows * (hw + K) * (4 * c ** 2
+                                                       + 2 * c * ffn)
+                                + 4 * rows * (hw + K) ** 2 * c)),
+                library=library_stack,
+                extra=f"; each layer against the plain layer on the "
+                      f"kernel's input, fp32 tokens, stack vs its chain of "
+                      f"layers {chain_gap:.3g}; post plan "
+                      f"{json.dumps(KN.post_plan(rows * (hw + K), c, ffn))}")
+
+            kx = rn(rows, K, c, s=0.5)
+            coords = torch.rand(rows, K, 2, generator=g).to(dev) * 0.8 + 0.1
+            img, ipos = rn(rows, hw, c, s=0.5), rn(hw, c, s=0.5)
+            kvalid = torch.rand(rows, K, generator=g).to(dev) > 0.3
+            kvalid[:, 0] = True
+            kvalid = ensure_some_valid(kvalid)
+            hops = torch.rand(rows, K, K, nhop, generator=g).to(dev)
+            adj = torch.rand(rows, 2, K, K, generator=g).to(dev) / K
+            args = (kx, coords, img, ipos, kvalid, hops, adj)
+            kw = dict(num_heads=heads, num_feats=nf)
+            worst, mean = 0.0, 0.0
+            for i in range(layers):
+                sub = Decoder(c, heads, ffn, 1, attn_bias=True,
+                              max_hops=nhop - 1, num_feats=nf)
+                sub.layers[0], sub.kpt_branches[0] = dec.layers[i], \
+                    dec.kpt_branches[i]
+                sub.ref_point_head, sub.norm = dec.ref_point_head, dec.norm
+                sub.to(dev).eval()
+                o, p_ = FD.fused_decoder_stack(*args, sub, **kw)
+                ro, rp = FD.fused_decoder_stack_plain(*args, sub, **kw)
+                dd = torch.cat([(o - ro).abs().flatten(),
+                                (p_ - rp).abs().flatten()])
+                worst = max(worst, dd.max().item())
+                mean = max(mean, dd.mean().item())
+                if not (torch.isfinite(o).all() and torch.isfinite(p_).all()):
+                    bad.append(f"fused_decoder_stack ({rows} rows) layer {i} "
+                               f"not finite")
+            name = f"fused_decoder_stack (fp32, {rows} rows)"
+            ok = worst <= STACK_LAYER_MAX and mean <= STACK_LAYER_MEAN
+            whole = FD.fused_decoder_stack(*args, dec, **kw)
+            whole_ref = FD.fused_decoder_stack_plain(*args, dec, **kw)
+            err = max((a - b).abs().max().item()
+                      for a, b in zip(whole, whole_ref))
+            ms = time_ms(lambda: FD.fused_decoder_stack(*args, dec, **kw))
+            plain_ms = time_ms(lambda: FD.fused_decoder_stack_plain(
+                *args, dec, **kw), reps=3)
+            r = rows * K
+            flops = layers * (
+                2 * r * 4 * c ** 2 + 4 * rows * K * K * c
+                + 2 * r * (4 + 4 + 2) * c ** 2 + 2 * rows * hw * 4 * c ** 2
+                + 4 * rows * K * hw * 2 * c + 2 * r * 3 * c * ffn
+                + 2 * rows * 2 * K * K * ffn + 2 * r * (4 * nf * c + c * c)
+                + 4 * r * (3 * c * c + 2 * c))
+            hid = nhop - 1 + heads
+            bnd = bound(nbytes(*args) + param_bytes(dec)
+                        + 2 * layers * r * 2 * 4, flops,
+                        layers * 2 * rows * K * K * (nhop * hid + hid * heads))
+            print(f"[op] {name}: each layer alone against the plain layer "
+                  f"max {worst:.4g} mean {mean:.3g} (tol {STACK_LAYER_MAX}, "
+                  f"mean {STACK_LAYER_MEAN}); whole stack vs plain "
+                  f"{err:.4g} (information); plan "
+                  f"{json.dumps(KN.bias_attention_plan(rows, K, heads, 32))}"
+                  f"; kernel {ms:.3f} ms plain {plain_ms:.3f} ms bound "
+                  f"{bnd[0]:.4f} ms ({bnd[1]}) library none "
+                  f"{'OK' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                bad.append(name)
+            entries[name] = {
+                "name": name, "route": "cuda",
+                "source": "edgecape_tpu_torch/csrc/kernels.cu",
+                "op": "edgecape_tpu_torch/ops/fused_decoder.py",
+                "replaces": "edgecape_tpu/ops/fused_decoder.py:531",
+                "launches": 0, "max_abs_err": worst, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": None}
+    if bad:
+        fail(f"the serving path's kernel ops disagree with their plain "
+             f"versions: {bad}")
+
+
+def serve_requests(rng, n, size=(240, 320)):
+    """n seeded RGB images of a camera's 4:3 shape (square-padded and
+    resized by the server), as PPM base64."""
+    return [ppm_b64(rng.integers(0, 256, size + (3,), dtype=np.uint8))
+            for _ in range(n)]
+
+
+def start_http(handler, port=0):
+    """A ThreadingHTTPServer on 127.0.0.1 serving in a daemon thread."""
+    import threading
+    from http.server import ThreadingHTTPServer
+    server = ThreadingHTTPServer(("127.0.0.1", port), handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server
+
+
+def call_http(addr, path, payload=None):
+    """(status, JSON reply) of a GET (payload None) or a POST."""
+    import http.client
+    conn = http.client.HTTPConnection(*addr, timeout=300)
+    try:
+        if payload is None:
+            conn.request("GET", path)
+        else:
+            conn.request("POST", path, json.dumps(payload),
+                         {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def ok_reply(status, out, what):
+    if status != 200:
+        fail(f"{what}: status {status}: {out}")
+    return out
+
+
+def serve_path(dev, entries, power):
+    """The port's PoseService behind a ThreadingHTTPServer in this
+    process: supports, sequential and concurrent /predict, /predict_batch,
+    /healthz and /reload, against a service on the strict path; one
+    bucket-16 dispatch under the profiler. Returns what the router phase
+    reuses."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from edgecape_tpu_torch.cli import serve as S
+    from edgecape_tpu_torch.ops import kernel_config
+    from edgecape_tpu_torch.train import checkpoint as ck
+
+    kernel_config.set_decoder_stack(None)
+    kernel_config.set_vit_pair_blocks(None)
+    stack = kernel_config.decoder_stack_default()
+    bb, head = stage3_weights(SERVE_SIZE, SEED + 21)
+    svc = S.PoseService(size=SERVE_SIZE, device=dev, backbone_state=bb,
+                        head_state=head)
+    ref = S.PoseService(size=SERVE_SIZE, device=dev, backbone_state=bb,
+                        head_state=head, use_flash=False)
+    if not svc.est.use_flash or ref.est.use_flash or not ref.est.strict:
+        fail("the serving estimators did not take the kernel and the "
+             "strict path")
+    svc.enable_batching()                   # the CLI's 8 ms window
+    server = start_http(S.make_handler(svc))
+    addr = server.server_address
+    rng = np.random.default_rng(SEED + 22)
+    scale = SERVE_SIZE / 320.0              # 240 x 320 images
+    kpts = rng.uniform(8, 230, (SERVE_KPTS, 2)).round(1).tolist()
+    skel = [[i, i + 1] for i in range(SERVE_KPTS - 1)] + [[0, 12], [5, 20]]
+    shots = {1: serve_requests(rng, 1), 5: serve_requests(rng, 5)}
+    queries = serve_requests(rng, 20)
+    burst = serve_requests(rng, 64)
+
+    def norm(out):
+        return np.asarray(out["keypoints"])[:, :2] * scale / SERVE_SIZE
+
+    # warm-up: one support and a query per bucket (allocator, library
+    # handles, the kernels' first launches); not counted
+    cid = ok_reply(*call_http(addr, "/support", {
+        "images": shots[1], "keypoints": kpts, "skeleton": skel}),
+        "support")["context_id"]
+    for b in (1, 2, 4, 8, 16):
+        ok_reply(*call_http(addr, "/predict_batch", {
+            "context_id": cid, "images": queries[:b]}), "warm-up")
+
+    zero_counts()
+    t0 = time.perf_counter()
+    cids = {}
+    for s, imgs in shots.items():
+        cids[s] = ok_reply(*call_http(addr, "/support", {
+            "images": imgs, "keypoints": kpts, "skeleton": skel}),
+            f"{s}-shot support")["context_id"]
+    sup_s = time.perf_counter() - t0
+    lat, singles = [], []
+    for q in queries:
+        t1 = time.perf_counter()
+        singles.append(ok_reply(*call_http(addr, "/predict", {
+            "context_id": cids[1], "image": q}), "/predict"))
+        lat.append((time.perf_counter() - t1) * 1e3)
+    before = dict(svc.stats)
+    with ThreadPoolExecutor(16) as pool:
+        conc = list(pool.map(lambda q: ok_reply(*call_http(
+            addr, "/predict", {"context_id": cids[1], "image": q}),
+            "/predict"), queries[:16]))
+    mid = dict(svc.stats)
+    coalesced = mid["dispatches"] - before["dispatches"]
+    ok = coalesced < 16 and mid["max_batch"] <= 16 and \
+        mid["queries"] - before["queries"] == 16
+    print(f"[serve] 16 concurrent /predict on one context: {coalesced} "
+          f"dispatches (fewer than 16), max batch {mid['max_batch']} "
+          f"(at most 16) {'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("concurrent /predict requests did not coalesce")
+
+    def client(i):
+        return [ok_reply(*call_http(addr, "/predict", {
+            "context_id": cids[5], "image": q}), "/predict")
+            for q in burst[i::8]]
+
+    t1 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(client, range(8)))
+    burst_s = time.perf_counter() - t1
+    after = dict(svc.stats)
+    fill = (after["queries"] - mid["queries"]) / max(
+        after["dispatches"] - mid["dispatches"], 1)
+    batch = ok_reply(*call_http(addr, "/predict_batch", {
+        "context_id": cids[1], "images": queries[:16]}), "/predict_batch")
+    hz = ok_reply(*call_http(addr, "/healthz"), "/healthz")
+    ops = check_path_counts("serve", stack, power)
+    for name in path_ops(stack):
+        entries[name]["serve_launches"] = ops[name]
+    for name in ("flash_mha (ViT fp32, 224 px)",
+                 "flash_mha (keypoints fp32, 1 group)"):
+        entries[name]["launches"] = ops["flash_mha"]
+    for rows in (1, 16):
+        entries[f"fused_encoder_stack (fp32, {rows} rows)"]["launches"] = \
+            ops["fused_encoder_stack"]
+        entries[f"fused_decoder_stack (fp32, {rows} rows)"]["launches"] = \
+            ops["fused_decoder_stack"]
+    print(f"[serve] {SERVE_SIZE} px, K {K}, {SERVE_KPTS} annotated keypoints, "
+          f"240 x 320 PPM requests, batching window 8 ms, decoder_stack "
+          f"{stack}, on {power}: supports (1 and 5 shots) {sup_s * 1e3:.1f} "
+          f"ms; 20 sequential /predict p50 {np.percentile(lat, 50):.2f} ms "
+          f"p95 {np.percentile(lat, 95):.2f} ms; 64 /predict from 8 "
+          f"threads {64 / burst_s:.1f} requests/s, mean batch fill "
+          f"{fill:.2f}; /healthz {hz['stats']}", flush=True)
+
+    k5 = ok_reply(*call_http(addr, "/predict_batch", {
+        "context_id": cids[5], "images": burst[:16]}), "/predict_batch")
+    # the same requests on the strict path, without HTTP
+    zero_counts()
+    rc = {s: ref.register_support({"images": imgs, "keypoints": kpts,
+                                   "skeleton": skel})
+          for s, imgs in shots.items()}
+    rsingle = [ref.predict({"context_id": rc[1], "image": q})
+               for q in queries]
+    r5 = ref.predict_batch({"context_id": rc[5], "images": burst[:16]})
+    r16 = ref.predict_batch({"context_id": rc[1], "images": queries[:16]})
+    plain_launches = sum(read_counts()[1].values())
+    got = np.stack([norm(o) for o in singles + k5["results"]])
+    want = np.stack([norm(o) for o in rsingle + r5["results"]])
+    med, mx, within = coord_gap(got, want)
+    edges = np.abs(np.asarray(singles[0]["edge_weights"])[:, 2]
+                   - np.asarray(rsingle[0]["edge_weights"])[:, 2]).max()
+    edges5 = np.abs(np.asarray(k5["edge_weights"])[:, 2]
+                    - np.asarray(r5["edge_weights"])[:, 2]).max()
+    ok = (med <= PATH_MEDIAN_TOL and within >= PATH_WITHIN_SHARE
+          and max(edges, edges5) <= EDGE_TOL and plain_launches == 0
+          and np.isfinite(got).all())
+    print(f"[serve] answers vs the strict path (use_flash=False, same "
+          f"weights, same requests, 1 and 5 shots): median |d| {med:.4g} "
+          f"(tol {PATH_MEDIAN_TOL}), max {mx:.4g}, share within "
+          f"{PATH_CELL:.4g}: {within:.4f} (tol >= {PATH_WITHIN_SHARE}); edge "
+          f"weights max |d| {max(edges, edges5):.3g} (tol {EDGE_TOL}); "
+          f"hand-written launches on the strict path {plain_launches} "
+          f"{'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the served answers disagree with the strict path")
+    rows = {}
+    for what, outs in (("/predict_batch of 16", batch["results"]),
+                       ("16 concurrent /predict", conc)):
+        rows[what] = coord_gap([norm(o) for o in outs],
+                               [norm(o) for o in singles[:16]])
+    strict_rows = coord_gap([norm(o) for o in r16["results"]],
+                            [norm(o) for o in rsingle[:16]])
+    ok = all(m <= ROW_MEDIAN and w >= ROW_SHARE for m, _, w in rows.values())
+    print(f"[serve] the same 16 images against their sequential single "
+          f"/predict answers (bucket 1): " + "; ".join(
+              f"{k}: median {m:.3g} max {x:.3g} share within a cell "
+              f"{w:.4f}" for k, (m, x, w) in rows.items())
+          + f" (tol median {ROW_MEDIAN}, share >= {ROW_SHARE}); on the "
+          f"strict path a bucket of 16 against single answers: median "
+          f"{strict_rows[0]:.3g} max {strict_rows[1]:.3g} (information: "
+          f"cuBLAS's order of summation by row count) "
+          f"{'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("an answer depends on its batch or its row")
+
+    # /reload: a checkpoint of other seeded head weights
+    _, other = stage3_weights(SERVE_SIZE, SEED + 23)
+    tmp = tempfile.TemporaryDirectory()
+    ckpt = os.path.join(tmp.name, "other_head")
+    ck.save_checkpoint(ckpt, {"model": other})
+    n_ctx = len(svc.contexts)
+    out = ok_reply(*call_http(addr, "/reload", {"checkpoint": ckpt}),
+                   "/reload")
+    stale, _ = call_http(addr, "/predict", {"context_id": cids[1],
+                                            "image": queries[0]})
+    cid = ok_reply(*call_http(addr, "/support", {
+        "images": shots[1], "keypoints": kpts, "skeleton": skel}),
+        "support")["context_id"]
+    new = ok_reply(*call_http(addr, "/predict_batch", {
+        "context_id": cid, "images": queries[:4]}), "/predict_batch")
+    fresh = S.PoseService(size=SERVE_SIZE, device=dev, backbone_state=bb,
+                          head_state=other)
+    fc = fresh.register_support({"images": shots[1], "keypoints": kpts,
+                                 "skeleton": skel})
+    want = fresh.predict_batch({"context_id": fc, "images": queries[:4]})
+    gap = np.abs(np.stack([norm(o) for o in new["results"]])
+                 - np.stack([norm(o) for o in want["results"]])).max()
+    moved = np.abs(np.stack([norm(o) for o in new["results"]])
+                   - np.stack([norm(o) for o in singles[:4]])).max()
+    ok = (out["contexts_dropped"] == n_ctx >= 3 and stale == 400
+          and gap <= RELOAD_TOL and moved > 1e-3)
+    print(f"[serve] /reload of other seeded head weights: "
+          f"{out['contexts_dropped']} contexts dropped (of {n_ctx}), an old "
+          f"context_id answered {stale}; new answers vs a service built "
+          f"with those weights max |d| {gap:.3g} (tol {RELOAD_TOL}), moved "
+          f"{moved:.3g} from the old weights' {'OK' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("/reload did not swap the weights")
+
+    imgs16 = np.stack([svc._prep(svc._decode_image(q))[0]
+                       for q in queries[:16]])
+    walls = []
+    for _ in range(7):
+        t1 = time.perf_counter()
+        svc._dispatch(cid, imgs16)
+        walls.append((time.perf_counter() - t1) * 1e3)
+    one = []
+    for _ in range(7):
+        t1 = time.perf_counter()
+        svc._dispatch(cid, imgs16[:1])
+        one.append((time.perf_counter() - t1) * 1e3)
+    print(f"[serve] a dispatch called directly (no HTTP, no batcher, images "
+          f"prepared), median of 7 on {power}: bucket 16 "
+          f"{np.median(walls):.2f} ms ({16e3 / np.median(walls):.1f} img/s), "
+          f"bucket 1 {np.median(one):.2f} ms", flush=True)
+    profile(lambda: svc._dispatch(cid, imgs16),
+            "one bucket-16 dispatch of the server (16 images, 224 px, fp32)",
+            power, rows=16)
+    server.shutdown()
+    server.server_close()
+    svc.batcher.stop()
+    svc.batcher = None
+    del ref
+    torch.cuda.empty_cache()
+    return svc, fresh, ckpt, tmp, shots[1], kpts, skel, queries[:2]
+
+
+def router_path(dev, entries, power, served):
+    """Two services on the one card behind the port's router, each behind
+    its own HTTP server: sticky /predict, a rolling /reload, one
+    replica's server shut down (503 "context lost", supports routed to the
+    other) and rejoining once it answers again."""
+    from edgecape_tpu_torch.cli import router as R
+    from edgecape_tpu_torch.cli import serve as S
+    from edgecape_tpu_torch.ops import kernel_config
+
+    svc_a, svc_b, ckpt, tmp, shot, kpts, skel, queries = served
+    t0 = time.perf_counter()
+    servers = [start_http(S.make_handler(s)) for s in (svc_a, svc_b)]
+    ports = [s.server_address[1] for s in servers]
+    router = R.Router([f"http://127.0.0.1:{p}" for p in ports],
+                      probe_interval=0)
+    front = start_http(R.make_handler(router))
+    addr = front.server_address
+    sup = {"images": shot, "keypoints": kpts, "skeleton": skel}
+    zero_counts()
+    cids = [ok_reply(*call_http(addr, "/support", sup), "router /support")[
+        "context_id"] for _ in range(2)]
+    homes = [router.routes[c] for c in cids]
+    q0 = [s.stats["queries"] for s in (svc_a, svc_b)]
+    for cid in cids * 3:
+        ok_reply(*call_http(addr, "/predict", {"context_id": cid,
+                                               "image": queries[0]}),
+                 "router /predict")
+    served_q = [s.stats["queries"] - q for s, q in zip((svc_a, svc_b), q0)]
+    sticky = homes[0] is not homes[1] and served_q == [3, 3]
+    gens = [s.generation for s in (svc_a, svc_b)]
+    n_ctx = len(svc_a.contexts) + len(svc_b.contexts)
+    out = ok_reply(*call_http(addr, "/reload", {"checkpoint": ckpt}),
+                   "router /reload")
+    lost, _ = call_http(addr, "/predict", {"context_id": cids[0],
+                                           "image": queries[0]})
+    rolled = (out["ok"] and out["contexts_dropped"] == n_ctx and lost == 503
+              and [s.generation for s in (svc_a, svc_b)]
+              == [g + 1 for g in gens])
+    cids = [ok_reply(*call_http(addr, "/support", sup), "router /support")[
+        "context_id"] for _ in range(2)]
+    down = router.routes[cids[0]]
+    i_down = [r.url for r in router.replicas].index(down.url)
+    servers[i_down].shutdown()
+    servers[i_down].server_close()
+    st_lost, body = call_http(addr, "/predict", {"context_id": cids[0],
+                                                 "image": queries[0]})
+    st_other, _ = call_http(addr, "/predict", {"context_id": cids[1],
+                                               "image": queries[0]})
+    elsewhere = ok_reply(*call_http(addr, "/support", sup), "router /support")
+    failover = (st_lost == 503 and "context lost" in body["error"]
+                and st_other == 200 and not down.alive
+                and router.routes[elsewhere["context_id"]] is not down)
+    servers[i_down] = start_http(S.make_handler((svc_a, svc_b)[i_down]),
+                                 port=ports[i_down])
+    router._probe_one(down)
+    back = ok_reply(*call_http(addr, "/support", sup), "router /support")
+    rejoined = down.alive and router.routes[back["context_id"]] is down
+    ok_reply(*call_http(addr, "/predict", {
+        "context_id": back["context_id"], "image": queries[1]}),
+        "router /predict after the rejoin")
+    stack = kernel_config.decoder_stack_default()
+    ops = check_path_counts("router", stack, power)
+    for name in path_ops(stack):
+        entries[name]["router_launches"] = ops[name]
+    ok = sticky and rolled and failover and rejoined
+    print(f"[router] 2 replicas on {power}: sticky /predict {served_q} "
+          f"({'OK' if sticky else 'FAIL'}); rolling /reload "
+          f"{out['contexts_dropped']} contexts dropped (of {n_ctx}), old "
+          f"context {lost} "
+          f"({'OK' if rolled else 'FAIL'}); replica {i_down} shut down: its "
+          f"context {st_lost} ({body.get('error')}), the other's "
+          f"{st_other}, new support elsewhere "
+          f"({'OK' if failover else 'FAIL'}); rejoined once up again "
+          f"({'OK' if rejoined else 'FAIL'}); "
+          f"{time.perf_counter() - t0:.2f} s; router stats "
+          f"{router.healthz()['stats']}", flush=True)
+    for s in servers + [front]:
+        s.shutdown()
+        s.server_close()
+    router.close()
+    tmp.cleanup()
+    if not ok:
+        fail("the router did not route, roll or fail over")
+
+
+def demo_path(dev, entries, power):
+    """The demo's inference (cli/demo.py infer) at its default 256 px
+    (325 ViT tokens, which flash_mha takes and the bf16 fused block does
+    not) on one support / query pair with an annotation dict: launch
+    counters, predictions against the strict path on the card, the
+    figure; a bf16 model at 256 px is refused when it is built."""
+    from edgecape_tpu_torch.api import PoseEstimator
+    from edgecape_tpu_torch.cli import demo as D
+    from edgecape_tpu_torch.ops import kernel_config
+    from edgecape_tpu_torch.tools import bench_attention as BA
+
+    bb, head = stage3_weights(DEMO_SIZE, SEED + 31)
+    est = D.stage3_estimator(DEMO_SIZE, backbone_state=bb, head_state=head,
+                             device=dev)
+    ref = D.stage3_estimator(DEMO_SIZE, backbone_state=bb, head_state=head,
+                             device=dev, use_flash=False)
+    rng = np.random.default_rng(SEED + 32)
+    sup = rng.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    qry = rng.integers(0, 256, (400, 300, 3), dtype=np.uint8)
+    ann = {"keypoints": rng.uniform(10, 470, (60, 2)).round(1).tolist(),
+           "skeleton": [[i, i + 1] for i in range(59)]}
+    D.infer(est, sup, qry, ann)                     # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = D.infer(est, sup, qry, ann)
+    wall = time.perf_counter() - t0
+    stack = kernel_config.decoder_stack_default()
+    ops = check_path_counts("demo", stack, power)
+    for name in path_ops(stack):
+        entries[name]["demo_launches"] = ops[name]
+    entries["flash_mha (ViT fp32, 256 px)"]["launches"] = ops["flash_mha"]
+    want = D.infer(ref, sup, qry, ann)
+    med, mx, within = coord_gap(res["pred_px"] / DEMO_SIZE,
+                                want["pred_px"] / DEMO_SIZE)
+    adj = np.abs(res["raw_adj"] - want["raw_adj"]).max()
+    ok = (med <= PATH_MEDIAN_TOL and within >= PATH_WITHIN_SHARE
+          and adj <= EDGE_TOL and np.isfinite(res["pred_px"]).all())
+    print(f"[demo] infer at {DEMO_SIZE} px (fp32, 325 ViT tokens), 60 "
+          f"keypoints, on {power}: {wall * 1e3:.1f} ms; vs the strict path "
+          f"median |d| {med:.4g} (tol {PATH_MEDIAN_TOL}), max {mx:.4g}, share "
+          f"within {PATH_CELL:.4g}: {within:.4f} (tol >= "
+          f"{PATH_WITHIN_SHARE}); learned adjacency max |d| {adj:.3g} (tol "
+          f"{EDGE_TOL}) {'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the demo's predictions disagree with the strict path")
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError as e:
+        print(f"[demo] figure not written: matplotlib does not import "
+              f"({e})", flush=True)
+    else:
+        from edgecape_tpu_torch.utils.visualization import plot_results
+        with tempfile.TemporaryDirectory() as out_dir:
+            path = plot_results(res["support"], res["query"], res["joints"],
+                                res["visible"], res["pred_px"],
+                                res["skeleton"], res["raw_adj"], out_dir)
+            size = os.path.getsize(path)
+        print(f"[demo] figure written: {os.path.basename(path)}, {size} "
+              f"bytes", flush=True)
+        if size < 1000:
+            fail("the demo's figure is empty")
+    cfg = D.stage3_config(DEMO_SIZE)
+    cfg.model.compute_dtype = cfg.model.head_dtype = "bfloat16"
+    err = []
+
+    def build():
+        try:
+            PoseEstimator(cfg, bb, head, device=dev)
+        except ValueError as e:
+            err.append(str(e))
+
+    ran = BA.launched(build)
+    msg = err[0] if err else ""
+    ok = "fused_vit_block (" in msg and "flash_mha" not in msg and not ran
+    print(f"[demo] the same model in bf16 at {DEMO_SIZE} px, built for the "
+          f"card: refused {bool(err)} ({msg or 'no error'}); hand-written "
+          f"launches {sum(ran.values())} {'OK' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("a bf16 model at 256 px was not refused when it was built")
+    del est, ref
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     tuned_out = None
     if len(sys.argv) == 3 and sys.argv[1] == "--write-tuned":
@@ -2441,6 +3197,12 @@ def main() -> None:
     probe_tool(entries, power)
     torch.cuda.empty_cache()
     disk_path(dev, entries, power)
+    torch.cuda.empty_cache()
+    serve_op_checks(dev, entries)
+    served = serve_path(dev, entries, power)
+    router_path(dev, entries, power, served)
+    del served
+    demo_path(dev, entries, power)
     print(json.dumps({"kernels": finite(list(entries.values()))}), flush=True)
     print(power, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,8 @@ Entry points:
 
 With `use_flash` (resolved to True on a CUDA device) the eval path runs
 the hand-written kernels: the bf16 backbone through fused_vit_block (or
-fused_vit_block2 per pair of blocks), the skeleton's keypoint
+fused_vit_block2 per pair of blocks), an fp32 backbone's attention
+through flash_mha, the skeleton's keypoint
 self-attention through flash_mha, the joint encoder through
 fused_encoder_stack and the decoder through fused_decoder_layer per layer
 (or fused_decoder_stack as a whole); ops/kernel_config.py holds the two
@@ -120,7 +121,8 @@ class PoseEstimator:
                               else flash)
         if self.use_flash:
             misfits = dinov2.width_misfits(cfg.model, backbone_cfg)
-            require_widths(dinov2.FUSED_OPS + HEAD_OPS, misfits, self.device)
+            require_widths(dinov2.fused_ops(cfg.model) + HEAD_OPS, misfits,
+                           self.device)
         self.cfg = cfg
         self.backbone_cfg = backbone_cfg
         if backbone_state is None or head_state is None:
@@ -138,12 +140,7 @@ class PoseEstimator:
         # runs in the compute dtype
         bb_dtype = torch.float32 if self.use_flash else self.compute_dtype
         self.backbone.to(self.device, bb_dtype).eval()
-        self.head = EdgeCape(cfg.model, use_flash=self.use_flash,
-                             device=self.device)
-        self.head.load_state_dict(head_state)
-        self.head.to(self.device).eval()
-        self.query_head = self.head if self.head_dtype == torch.float32 \
-            else copy.deepcopy(self.head).to(self.head_dtype)
+        self.head, self.query_head = self.make_heads(head_state)
         self.strict = (not self.use_flash
                        and self.compute_dtype == torch.float32
                        and self.head_dtype == torch.float32)
@@ -151,6 +148,19 @@ class PoseEstimator:
     def _precision(self):
         """The context a forward runs in: strict_fp32 on the strict path."""
         return strict_fp32() if self.strict else contextlib.nullcontext()
+
+    def make_heads(self, head_state: dict):
+        """(head, query_head): new head modules on the estimator's device
+        holding head_state, the second in the head dtype (the first itself
+        at fp32). The live ones are not touched: a server builds a
+        reloaded head aside and swaps it in whole."""
+        head = EdgeCape(self.cfg.model, use_flash=self.use_flash,
+                        device=self.device)
+        head.load_state_dict(head_state)
+        head.to(self.device).eval()
+        query_head = head if self.head_dtype == torch.float32 \
+            else copy.deepcopy(head).to(self.head_dtype)
+        return head, query_head
 
     def load_head_state(self, head_state: dict) -> None:
         """Swap other head weights in (the trainer's eval hook does so

@@ -15,6 +15,7 @@ rounding (at most 4/255, median 1/255).
 from __future__ import annotations
 
 import dataclasses
+import io
 import os
 from typing import Optional
 
@@ -38,29 +39,70 @@ class Sample:
     rotation: float
 
 
-def _read_ppm(path: str) -> np.ndarray:
-    """Binary PPM (P6, 8 bits per channel) with numpy alone."""
-    with open(path, "rb") as f:
-        data = f.read()
-    fields, pos = [], 0
+def _parse_ppm(data: bytes, name: str) -> np.ndarray:
+    """Binary PPM (P6, 8 bits per channel) bytes with numpy alone; a
+    malformed or truncated header raises ValueError."""
+    fields, pos, n = [], 0, len(data)
     while len(fields) < 4:                  # magic, width, height, maxval
-        while data[pos:pos + 1].isspace():
+        while pos < n and data[pos:pos + 1].isspace():
             pos += 1
         if data[pos:pos + 1] == b"#":       # comment to the end of the line
             pos = data.index(b"\n", pos) + 1
             continue
         end = pos
-        while not data[end:end + 1].isspace():
+        while end < n and not data[end:end + 1].isspace():
             end += 1
+        if end == pos:
+            raise ValueError(f"{name}: truncated PPM header")
         fields.append(data[pos:end])
         pos = end
     pos += 1                                # the one whitespace byte
     if fields[0] != b"P6" or int(fields[3]) != 255:
-        raise ValueError(f"{path}: only binary 8-bit PPM (P6, maxval 255) "
+        raise ValueError(f"{name}: only binary 8-bit PPM (P6, maxval 255) "
                          "is read without an image library")
     w, h = int(fields[1]), int(fields[2])
     return np.frombuffer(data, np.uint8, count=h * w * 3,
                          offset=pos).reshape(h, w, 3).copy()
+
+
+def _read_ppm(path: str) -> np.ndarray:
+    with open(path, "rb") as f:
+        return _parse_ppm(f.read(), path)
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """RGB uint8 image [H, W, 3] from an encoded file's bytes (an upload
+    to the server; serve.py's _decode_image). Binary PPM is read with
+    numpy alone; PNG, JPEG and the rest go through cv2, or PIL where cv2
+    does not import. Raises ValueError for bytes that do not decode, and
+    for a format that needs a library when neither imports."""
+    if not data:
+        raise ValueError("could not decode image (no bytes)")
+    if data[:2] == b"P6":
+        return _parse_ppm(data, "image")
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        img = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        if img is None:
+            raise ValueError("could not decode image")
+        return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    fmt = ("PNG" if data[:8] == b"\x89PNG\r\n\x1a\n"
+           else "JPEG" if data[:3] == b"\xff\xd8\xff" else "this")
+    try:
+        from PIL import Image, UnidentifiedImageError
+    except ImportError:
+        raise ValueError(
+            f"decoding a {fmt} image needs cv2 (opencv-python) or PIL "
+            "(pillow), and neither can be imported; binary PPM (P6) is "
+            "read without them") from None
+    try:
+        with Image.open(io.BytesIO(data)) as im:
+            return np.asarray(im.convert("RGB"))
+    except (UnidentifiedImageError, OSError) as e:
+        raise ValueError(f"could not decode image ({e})") from None
 
 
 def load_image(path: str) -> np.ndarray:

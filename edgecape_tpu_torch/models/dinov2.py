@@ -79,8 +79,14 @@ class Block(nn.Module):
         return x + self.ls2 * self.mlp_fc2(h)
 
 
-# The trunk's fused ops, whose widths are checked when it is built for the card
-FUSED_OPS = ("fused_vit_block", "flash_mha (ViT)")
+def fused_ops(model_cfg) -> tuple:
+    """The trunk's fused ops that a model of this configuration launches,
+    whose widths are checked when it is built for the card: the fused
+    block (extract_features' bf16 path) at bf16 compute, flash_mha in the
+    blocks' attention at fp32."""
+    if model_cfg.compute_dtype == "bfloat16":
+        return ("fused_vit_block",)
+    return ("flash_mha (ViT)",)
 
 
 def width_misfits(model_cfg, cfg: DinoV2Config = VIT_S14) -> dict:

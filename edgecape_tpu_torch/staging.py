@@ -10,9 +10,16 @@ written again only after the event recorded behind its last transfer has
 completed, and the second is made only when the first is still being read
 at the next call. Small arrays and every array bound for the CPU take the
 plain `Tensor.to`: `device="cpu"` never touches a pinned buffer.
+
+A stager may be called from several threads (a server's request threads
+and its batching worker share one estimator): choosing a slot, writing
+its buffer and recording its event happen under one lock, so no two
+calls ever write one buffer at a time.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -44,6 +51,7 @@ class HostStager:
             shape, dtype=dtype, pin_memory=True))
         self._new_event = new_event or torch.cuda.Event
         self._slots = {}         # (name, shape, dtype) -> its slots, oldest first
+        self._lock = threading.Lock()
         self.staged = 0
         self.direct = 0
 
@@ -54,20 +62,21 @@ class HostStager:
             self.direct += 1
             return src.to(self.device, non_blocking=True)
         key = (name, tuple(src.shape), src.dtype)
-        ring = self._slots.setdefault(key, [])
-        slot = next((sl for sl in ring if sl.event.query()), None)
-        if slot is None and len(ring) < SLOTS:
-            slot = _Slot(self._alloc(tuple(src.shape), src.dtype),
-                         self._new_event())
-        elif slot is None:
-            slot = ring[0]
-            slot.event.synchronize()   # its last transfer has read it
-        if slot in ring:
-            ring.remove(slot)
-        ring.append(slot)
-        slot.buffer.copy_(src)
-        out = torch.empty(src.shape, dtype=src.dtype, device=self.device)
-        out.copy_(slot.buffer, non_blocking=True)
-        slot.event.record()
-        self.staged += 1
+        with self._lock:
+            ring = self._slots.setdefault(key, [])
+            slot = next((sl for sl in ring if sl.event.query()), None)
+            if slot is None and len(ring) < SLOTS:
+                slot = _Slot(self._alloc(tuple(src.shape), src.dtype),
+                             self._new_event())
+            elif slot is None:
+                slot = ring[0]
+                slot.event.synchronize()   # its last transfer has read it
+            if slot in ring:
+                ring.remove(slot)
+            ring.append(slot)
+            slot.buffer.copy_(src)
+            out = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+            out.copy_(slot.buffer, non_blocking=True)
+            slot.event.record()
+            self.staged += 1
         return out

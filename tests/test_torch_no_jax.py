@@ -7,8 +7,8 @@ the CPU, on both the strict and the kernel-op path; a second interpreter
 does the same for the variant switches, the uncached and debug forwards,
 the bench tool's chains and the chip smoke's module; a third drives the
 disk path: the synthetic stand-in, every config of the port's grid, the
-loader, `cli.train`, `cli.test`, `cli.run --help` and the probe tool on
-the CPU."""
+loader, `cli.train`, `cli.test`, `cli.run --help`, the server on a PPM
+request, the demo's inference and the probe tool on the CPU."""
 
 import os
 import subprocess
@@ -36,7 +36,8 @@ for needed in ("config", "train.state", "train.loop", "train.checkpoint",
                "data.native", "data.mp100", "data.compose", "data.loader",
                "data.synthetic", "eval.metrics", "utils.tb_writer",
                "models.convert", "configs._base", "cli.test", "cli.train",
-               "cli.run"):
+               "cli.run", "cli.serve", "cli.router", "cli.demo", "cli.app",
+               "utils.visualization"):
     assert "edgecape_tpu_torch." + needed in names, needed
 pulled = [m for m in sys.modules if m.split(".")[0] == "edgecape_tpu"]
 assert not pulled, pulled
@@ -236,6 +237,19 @@ with tempfile.TemporaryDirectory() as tmp:
         cli_run.main(["--help"])
     except SystemExit as e:
         assert e.code == 0
+import base64
+from edgecape_tpu_torch.cli import demo as cli_demo
+from edgecape_tpu_torch.cli import serve as cli_serve
+rng = np.random.default_rng(0)
+img = rng.integers(0, 256, (40, 30, 3), dtype=np.uint8)
+ppm = base64.b64encode(b"P6\n30 40\n255\n" + img.tobytes()).decode()
+svc = cli_serve.PoseService(size=28, max_kpt=4, device="cpu")
+cid = svc.register_support({"images": [ppm], "keypoints": [[3, 4], [20, 30]],
+                            "skeleton": [[0, 1]]})
+out = svc.predict({"context_id": cid, "image": ppm})
+assert len(out["keypoints"]) == 2 and len(out["edge_weights"]) == 1
+res = cli_demo.infer(svc.est, img, img, {"keypoints": [[3, 4], [20, 30]]})
+assert res["pred_px"].shape == (2, 2) and np.isfinite(res["pred_px"]).all()
 out = probe_m_fold.main(["--device", "cpu", "--case", "4,2,8,16,32,2",
                          "--iters", "1", "--runs", "1"])
 assert out[0]["bitsame"]

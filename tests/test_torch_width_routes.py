@@ -97,6 +97,33 @@ def test_a_head_builds_where_its_ops_take_its_widths(kw, flash, device):
     assert head.decoder.use_flash is flash
 
 
+@pytest.mark.parametrize("size,dtype,refused", [
+    (256, "float32", None), (256, "bfloat16", "fused_vit_block"),
+    (224, "float32", None), (224, "bfloat16", None),
+])
+def test_the_trunk_check_follows_the_compute_dtype(size, dtype, refused):
+    """The estimator checks the trunk op its compute dtype launches: the
+    fused block at bf16, whose kernels hold at most 272 tokens, so 256 px
+    (325 tokens) is refused there; flash_mha at fp32, which takes 325
+    keys. require_widths for "cuda" needs no card."""
+    from edgecape_tpu_torch.models import dinov2 as tdinov2
+    from edgecape_tpu_torch.models.edgecape import HEAD_OPS
+    cfg = ModelConfig(**STAGE3, image_size=size, compute_dtype=dtype,
+                      head_dtype=dtype)
+    ops = tdinov2.fused_ops(cfg) + HEAD_OPS
+    assert ops[0] == ("fused_vit_block" if dtype == "bfloat16"
+                      else "flash_mha (ViT)")
+    misfits = tdinov2.width_misfits(cfg)
+    if refused is None:
+        KC.require_widths(ops, misfits, "cuda")
+        return
+    with pytest.raises(ValueError) as err:
+        KC.require_widths(ops, misfits, "cuda")
+    msg = str(err.value)
+    assert f"{refused} (" in msg and "325" in msg, msg
+    assert "flash_mha" not in msg, msg
+
+
 @pytest.fixture(scope="module")
 def narrow_weights():
     """(flax backbone tree, flax head tree) of the d_model 128 head."""
