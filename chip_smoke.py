@@ -150,13 +150,39 @@ Phases (any failure exits non-zero before the last line):
    predictions against the strict path, the figure where matplotlib
    imports; the same model in bf16 at 256 px refused when it is built
    (the fused ViT block does not hold 325 tokens);
-14. prints {"kernels": [...]} on its own line, then the result line
+14. multi-process training and eval (`[dist]`, parallel/, eval/runner.py
+   and train/loop.py in a process group): prints
+   torch.cuda.device_count(), then
+   two ranks (subprocesses of this script, a file:// rendezvous) of the
+   full-width stage-3 model share the card through gloo: each takes 2
+   Trainer steps (dropout 0, kernels on) of its 8 rows of a global batch
+   of 16, then a cached run_eval of its 2 of 4 episode groups x 15
+   queries, gathered. Gates: the reduced gradient of step 1 and its loss
+   dict against one process's step on the 16 rows (in this process), the
+   parameters after step 2 bit-equal across ranks, the gathered records
+   and metrics against one process's eval; the same kernel-path
+   gradients and records against one process on the plain path
+   (use_flash=False: no kernel in the head) on the same weights, rows and
+   chunks, with the plain path's own 16-rows-vs-8+8 gap printed beside
+   the kernel path's, and which of the shared trunk's stages gives an
+   image other bits in a call on 32 images than on 16; and each rank's
+   launch counters (#1, #7, #8 in training; #1, #3, #6, #4 in eval). With two
+   cards or more the same runs with NCCL, a card a rank; with one card
+   it says "NCCL not measured". The ranks' step ms are information only
+   (they share one card: no scaling figure);
+15. the eval chunk's stages (`[stages]`,
+   tools/profile_eval_stages.py at its full case): device ms of the
+   backbone, support and query phases, the head, the query encoder, the
+   encoder and decoder kernels alone and the whole chunk; support +
+   query beside the chunk; the chunk's eager aten::addmm by call site;
+16. prints {"kernels": [...]} on its own line, then the result line
    {"ok": true, "device": {...}} last. The kernels line holds, besides
    each kernel op's entry, the serving shapes' entries (`flash_mha (ViT
    fp32, 224 px)` and the rest); an op's `launches` is its count on the
    main path (phase 3), its `serve_launches`, `router_launches` and
-   `demo_launches` those on phases 11-13, and a serving shape's
-   `launches` its op's count on the path of that shape.
+   `demo_launches` those on phases 11-13, `dist_launches` rank 0's on
+   phase 14 (gloo), and a serving shape's `launches` its op's count on
+   the path of that shape.
 Nothing here imports jax or the JAX package.
 """
 
@@ -1482,19 +1508,10 @@ def train_path(dev, entries, power):
                             if p.grad is not None}
             if not flash:
                 plain_trainer = t2
-        num = sum(((grads[True][n] - g) ** 2).sum() for n, g in
-                  grads[False].items()).sqrt().item()
-        den = sum((g ** 2).sum() for g in grads[False].values()).sqrt().item()
-        top = max(g.norm().item() for g in grads[False].values())
-        worst, worst_name = 0.0, ""
-        for n, g in grads[False].items():
-            if g.norm().item() >= 1e-3 * top:
-                rel = ((grads[True][n] - g).norm() / g.norm()).item()
-                if rel > worst:
-                    worst, worst_name = rel, n
-        ok = num / den <= GRAD_REL_L2 and worst <= GRAD_TENSOR_REL_L2
+        rel_l2, worst, worst_name, _ = grad_gap(grads[True], grads[False])
+        ok = rel_l2 <= GRAD_REL_L2 and worst <= GRAD_TENSOR_REL_L2
         print(f"[train] one step's gradients, kernel path vs plain path "
-              f"(dropout 0): relative L2 over all {num / den:.4g} (tol "
+              f"(dropout 0): relative L2 over all {rel_l2:.4g} (tol "
               f"{GRAD_REL_L2}), worst tensor {worst:.4g} {worst_name} (tol "
               f"{GRAD_TENSOR_REL_L2}) {'OK' if ok else 'FAIL'}", flush=True)
         if not ok:
@@ -3143,6 +3160,561 @@ def demo_path(dev, entries, power):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase 14
+# [dist]: ranks of the process group, the per-rank rows of the global
+# training batch of TRAIN_B, training steps, cached eval episode groups
+# (of QUERIES queries; two a chunk, so one process and each rank evaluate
+# chunks of the same groups) and a rank's time limit in seconds.
+DIST_RANKS, DIST_STEPS, DIST_GROUPS, DIST_TIMEOUT = 2, 2, 4, 600
+DIST_EVAL_BATCH = 2 * QUERIES
+# The reduced gradient of step 1 (8 + 8 rows, averaged over the ranks)
+# against one process's gradients of the same two 8-row blocks,
+# averaged: the same kernels on the same shapes, so equal but for the
+# order of one fp32 sum (DIST_EXACT relative L2; a missing or summed
+# reduce is off by 0.5-1). Against one process's step on all 16 rows:
+# the frozen trunk that both paths share gives an image other bits in a
+# call on 32 images than on 16 (#1's vit_mlp_kernel: a row's result
+# depends on where it sits in its 128-row tile; on an H100 118 of 3.2
+# million elements after one block, 12% of the features after twelve),
+# which moves the head's gradients by about 0.03 relative L2 on the
+# kernel path and on the plain path alike (measured 0.029 / 0.026, worst
+# tensor 0.067 / 0.054; trunk_row_invariance prints where), so the
+# training path's bounds for kernel against plain hold
+# (GRAD_REL_L2, GRAD_TENSOR_REL_L2); the losses within DIST_LOSS_REL
+# relative (measured 8.1e-5), the PCK probe within one keypoint of one
+# sample (1 / (0.9 K) / TRAIN_B = 7e-4). The same bounds hold the reduced
+# kernel-path gradient against the plain path (use_flash=False) at 8 and
+# at 16 rows, so the kernels are checked at the ranks' own shapes. Eval:
+# the same chunks through the same kernels, so keypoints within 1e-3 px
+# and metrics within 1e-6; against the plain path's chunks, the main
+# path's bounds for that pair (PATH_MEDIAN_TOL, PATH_WITHIN_SHARE).
+DIST_EXACT, DIST_LOSS_REL, DIST_ACC = 1e-6, 1e-3, 1e-3
+DIST_PX, DIST_METRIC = 1e-3, 1e-6
+
+
+def dist_config(work_dir):
+    """The [dist] ranks' training configuration: the stage-3 training
+    path's at dropout 0, one epoch of DIST_STEPS steps, a checkpoint at
+    its end."""
+    from edgecape_tpu_torch import config as C
+    cfg = C.stage3_config(train_config(work_dir))
+    cfg.model = C.replace(cfg.model, dropout=0.0)
+    return cfg
+
+
+def dist_weights():
+    """(backbone, head) of the training ranks and (backbone, head) of the
+    eval ranks: seeded, the zero-initialised parts redrawn."""
+    from edgecape_tpu_torch.models.convert import (init_params,
+                                                   redraw_zero_inits)
+    out = []
+    for seed, cfg in ((SEED + 50, dist_config(".").model),
+                      (SEED + 60, main_path_config().model)):
+        gen = torch.Generator().manual_seed(seed)
+        bb, head = init_params(gen, cfg)
+        redraw_zero_inits(bb, head, gen)
+        out += [bb, head]
+    return out
+
+
+class DistBatch:
+    """The global training batch of TRAIN_B rows, re-fed every step; a
+    rank's loader yields its contiguous row block (the factory's
+    `shard=(rank, world)`), one process's the whole batch."""
+    num_shots = 1
+
+    def __init__(self):
+        self.batch = RefedBatch(1, np.random.default_rng(SEED + 51)).batch
+        self.rows = slice(None)
+
+    def __len__(self):
+        return DIST_STEPS * TRAIN_B
+
+    def resample_episodes(self):
+        pass
+
+    def loader(self, ds, bs, shard=None, **kw):
+        if shard is not None:
+            rank, world = shard
+            per = TRAIN_B // world
+            self.rows = slice(rank * per, (rank + 1) * per)
+        return self
+
+    def epoch(self):
+        for _ in range(DIST_STEPS):
+            yield {k: v[self.rows] for k, v in self.batch.items()}
+
+
+def rank_device(backend, rank):
+    """A rank's card: its own under NCCL, the first one (shared) under
+    gloo."""
+    return torch.device("cuda", rank if backend == "nccl" else 0)
+
+
+def dist_rank(argv):
+    """One rank of the [dist] phase (a subprocess of the smoke): joins the
+    process group, trains DIST_STEPS steps of its row block through the
+    kernels, then evaluates its share of DIST_GROUPS episode groups; writes
+    its launch counts, step times, metrics, a hash of its parameters
+    after the last step and (rank 0) the reduced gradients of step 1."""
+    import argparse
+    import hashlib
+    from edgecape_tpu_torch.api import PoseEstimator
+    from edgecape_tpu_torch.eval.runner import run_eval
+    from edgecape_tpu_torch.ops import kernel_config
+    from edgecape_tpu_torch.parallel import multihost
+    from edgecape_tpu_torch.train import checkpoint as ck
+    from edgecape_tpu_torch.train.loop import Trainer
+    import edgecape_tpu_torch.ops.flash_attention as FA
+
+    p = argparse.ArgumentParser()
+    for flag in ("--dist-rank", "--dist-world"):
+        p.add_argument(flag, type=int, required=True)
+    for flag in ("--dist-init", "--dist-backend", "--dist-out"):
+        p.add_argument(flag, required=True)
+    a = p.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dev = rank_device(a.dist_backend, a.dist_rank)
+    multihost.initialize(a.dist_init, a.dist_world, a.dist_rank,
+                         backend=a.dist_backend, device=dev)
+    kernel_config.set_decoder_stack(False)
+    kernel_config.set_vit_pair_blocks(False)
+    bb, head, ebb, ehead = dist_weights()
+    cfg = dist_config(os.path.join(a.dist_out, "train"))
+    cfg.load_from = os.path.join(a.dist_out, "seeded")
+    data = DistBatch()
+    tr = Trainer(cfg, data, data.loader, backbone_state=bb, device=dev,
+                 log_fn=lambda *msg: None)
+    out = {"rank": a.dist_rank, "device": str(dev),
+           "name": torch.cuda.get_device_name(dev), "steps": []}
+    inner = tr._step_fn
+
+    def spy(batch, generator, step):
+        t0 = time.perf_counter()
+        metrics = inner(batch, generator, step)
+        torch.cuda.synchronize()
+        out["steps"].append({"ms": (time.perf_counter() - t0) * 1e3,
+                             "rows": int(batch["img_q"].shape[0]),
+                             **{k: float(v) for k, v in metrics.items()}})
+        if step == 0 and a.dist_rank == 0:
+            torch.save({n: q.grad.float().cpu() for n, q in
+                        tr.model.named_parameters() if q.grad is not None},
+                       os.path.join(a.dist_out, "grads.pt"))
+        return metrics
+
+    tr._step_fn = spy
+    zero_counts()
+    FA.launches_fwd = FA.launches_bwd = 0
+    tr.fit()
+    torch.cuda.synchronize()
+    ops, kern = read_counts()
+    out["train_launches"] = {"fused_vit_block": ops["fused_vit_block"],
+                             "flash_mha_train_fwd": FA.launches_fwd,
+                             "flash_mha_train_bwd": FA.launches_bwd,
+                             "kernels": kern}
+    digest = hashlib.sha256()
+    for name, t in sorted(tr.model.state_dict().items()):
+        digest.update(name.encode())
+        digest.update(t.detach().cpu().contiguous().numpy().tobytes())
+    out["params_sha256"] = digest.hexdigest()
+    out["checkpoint"] = ck.latest_checkpoint(cfg.work_dir) is not None
+    del tr
+    est = PoseEstimator(main_path_config(), ebb, ehead, device=dev)
+    val = EvalEpisodes(np.random.default_rng(SEED + 61), groups=DIST_GROUPS,
+                       queries=QUERIES)
+    zero_counts()
+    res = run_eval(val, est, batch_size=DIST_EVAL_BATCH,
+                   res_folder=os.path.join(a.dist_out, f"eval{a.dist_rank}"),
+                   progress=False, cache_supports=True)
+    torch.cuda.synchronize()
+    ops, kern = read_counts()
+    out["eval_launches"] = {**ops, "kernels": kern}
+    out["eval"] = {k: v for k, v in res.items() if not k.endswith(
+        ("_seconds", "per_sec"))}
+    with open(os.path.join(a.dist_out, f"rank{a.dist_rank}.json"),
+              "w") as f:
+        json.dump(out, f)
+    multihost.shutdown()
+
+
+def dist_run(backend, tmp, power):
+    """Starts the DIST_RANKS ranks (subprocesses of this script), waits
+    for them (each within DIST_TIMEOUT) and returns their outputs; a rank
+    that fails or times out fails the smoke."""
+    out = os.path.join(tmp, backend)
+    os.makedirs(out)
+    torch.save({"model": dist_weights()[1]}, os.path.join(out, "seeded"))
+    procs = []
+    for r in range(DIST_RANKS):
+        log = open(os.path.join(out, f"log{r}.txt"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dist-rank", str(r),
+             "--dist-world", str(DIST_RANKS), "--dist-init",
+             "file://" + os.path.join(out, "rendezvous"), "--dist-backend",
+             backend, "--dist-out", out], stdout=log,
+            stderr=subprocess.STDOUT), log))
+    t0 = time.perf_counter()
+    rcs = []
+    try:
+        for proc, _ in procs:
+            left = max(1.0, DIST_TIMEOUT - (time.perf_counter() - t0))
+            try:
+                rcs.append(proc.wait(timeout=left))
+            except subprocess.TimeoutExpired:
+                rcs.append("timeout")
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    wall = time.perf_counter() - t0
+    if rcs != [0] * DIST_RANKS:
+        for r in range(DIST_RANKS):
+            with open(os.path.join(out, f"log{r}.txt")) as f:
+                print(f"[dist] rank {r} log (tail):\n{f.read()[-4000:]}",
+                      flush=True)
+        fail(f"[dist] {backend} ranks ended with {rcs}")
+    ranks = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    print(f"[dist] {backend}: {DIST_RANKS} ranks on "
+          f"{[x['device'] + ' ' + x['name'] for x in ranks]} ran in "
+          f"{wall:.1f} s on {power}", flush=True)
+    return out, ranks
+
+
+def dist_reference(dev, tmp):
+    """One process on `dev`, with the ranks' starting weights, on the
+    kernel path and on the plain path (use_flash=False), keyed by
+    use_flash: the step-1 metrics and gradients (no update) of all
+    TRAIN_B rows and of each rank's row block; the cached eval of all
+    DIST_GROUPS groups in the ranks' chunks (metrics, records)."""
+    from edgecape_tpu_torch import config as C
+    from edgecape_tpu_torch.api import PoseEstimator
+    from edgecape_tpu_torch.eval.runner import run_eval
+    from edgecape_tpu_torch.train.loop import (Trainer, batch_to_tensors,
+                                               make_loss_fn)
+    bb, head, ebb, ehead = dist_weights()
+    torch.save({"model": head}, os.path.join(tmp, "one_seeded"))
+    data = DistBatch()
+    per = TRAIN_B // DIST_RANKS
+    out = {}
+    for flash in (True, False):
+        cfg = dist_config(os.path.join(tmp, f"one{flash}"))
+        cfg.model = C.replace(cfg.model, use_flash=flash)
+        cfg.load_from = os.path.join(tmp, "one_seeded")
+        tr = Trainer(cfg, data, data.loader, backbone_state=bb, device=dev,
+                     log_fn=lambda *a: None)
+        loss_fn = make_loss_fn(tr.model, tr.backbone, tr.cfg)
+        if flash:
+            batch = batch_to_tensors(data.batch, dev)
+            imgs = torch.cat([batch["img_s"].flatten(0, 1), batch["img_q"]])
+            parts = trunk_row_invariance(tr.backbone, imgs)
+            print(f"[dist] the training step's trunk on {imgs.shape[0]} "
+                  f"images in one call vs two calls of half as many, "
+                  f"differing elements in the first / second half of all "
+                  f"(max |d| over max |out|): " + ", ".join(
+                      f"{name} {n0} / {n1} of {m} ({r:.3g})"
+                      for name, n0, n1, m, r in parts), flush=True)
+        steps = {}
+        for name, rows in [("all", slice(None))] + [
+                (r, slice(r * per, (r + 1) * per)) for r in range(DIST_RANKS)]:
+            tr.model.train()
+            tr.model.zero_grad(set_to_none=True)
+            total, metrics = loss_fn(batch_to_tensors(
+                {k: v[rows] for k, v in data.batch.items()}, dev),
+                tr.generator)
+            total.backward()
+            steps[name] = ({k: float(v) for k, v in metrics.items()},
+                           {n: q.grad.float().cpu() for n, q in
+                            tr.model.named_parameters() if q.grad is not None})
+        del tr
+        ecfg = main_path_config()
+        ecfg.model.use_flash = flash
+        est = PoseEstimator(ecfg, ebb, ehead, device=dev)
+        val = EvalEpisodes(np.random.default_rng(SEED + 61),
+                           groups=DIST_GROUPS, queries=QUERIES)
+        folder = os.path.join(tmp, f"one_eval{flash}")
+        res = run_eval(val, est, batch_size=DIST_EVAL_BATCH,
+                       res_folder=folder, progress=False, cache_supports=True)
+        with open(os.path.join(folder, "result_keypoints.json")) as f:
+            records = json.load(f)
+        del est
+        torch.cuda.empty_cache()
+        out[flash] = (steps, {k: v for k, v in res.items() if not k.endswith(
+            ("_seconds", "per_sec"))}, records)
+    return out
+
+
+def trunk_row_invariance(backbone, images):
+    """Whether the frozen trunk of the training step (dinov2.fast_forward:
+    the bf16 patch embedding, then #1's three kernels per block) gives an
+    image the same bits in one call on all `images` as in calls on each
+    half: [(stage, differing elements in the first half's images, in the
+    second half's, all elements, largest |d| over the largest |output|)]
+    for the patch embedding, each kernel of the first block on the same
+    inputs, and the whole trunk. The second half's rows sit at another
+    offset in the kernels' 128-row tiles in the one call; the first
+    half's at the same."""
+    import torch.nn.functional as F
+    from edgecape_tpu_torch.models import dinov2
+    from edgecape_tpu_torch.ops import kernels as K
+    from edgecape_tpu_torch.ops.fused_vit_block import _prepare
+    c, bf = backbone.cfg, torch.bfloat16
+    half = images.shape[0] // 2
+    w = K.module_weights(backbone.blocks[0], "_kernel_weights", _prepare)
+
+    def embed(imgs):
+        return F.linear(dinov2._patches(imgs.to(bf), c.patch_size)[0],
+                        backbone.patch_embed.weight.to(bf),
+                        backbone.patch_embed.bias.to(bf))
+
+    def qkv(x):
+        b, n, d = x.shape
+        return K.vit_qkv(x.reshape(b * n, d), w, eps=c.ln_eps).view(b, n, -1)
+
+    def attn(q, x):
+        return K.vit_attn(q, x, w, out_dtype=torch.float32)
+
+    def mlp(x1):
+        b, n, d = x1.shape
+        return K.vit_mlp(x1.reshape(b * n, d), w, eps=c.ln_eps,
+                         out_dtype=bf)[0].view(b, n, d)
+
+    out = []
+    with torch.no_grad():
+        tokens = torch.cat([backbone.cls_token.to(bf).expand(
+            images.shape[0], 1, c.embed_dim), embed(images)], dim=1) \
+            + backbone.pos_embed.to(bf)
+        q = qkv(tokens)
+        x1 = attn(q, tokens)
+        for name, fn, args in (
+                ("patch embedding", embed, (images,)),
+                ("vit_qkv_kernel", qkv, (tokens,)),
+                ("vit_attn_kernel", attn, (q, tokens)),
+                ("vit_mlp_kernel", mlp, (x1,)),
+                ("whole trunk", lambda x: dinov2.fast_forward(backbone, x),
+                 (images,))):
+            a = fn(*args)
+            b = torch.cat([fn(*(t[:half] for t in args)),
+                           fn(*(t[half:] for t in args))])
+            diff = (a != b).reshape(a.shape[0], -1).sum(dim=1)
+            out.append((name, int(diff[:half].sum()), int(diff[half:].sum()),
+                        a.numel(), ((a.float() - b.float()).abs().max()
+                                    / a.float().abs().max()).item()))
+    return out
+
+
+def grad_gap(got, want):
+    """(relative L2 error over all gradients, the worst relative L2 error
+    of a tensor of at least a thousandth of the largest norm, its name,
+    the largest absolute error on a key-projection bias: those have no
+    gradient in exact arithmetic, so their norms stay below the
+    thousandth and they are compared absolutely)."""
+    names = sorted(want)
+    num = math.sqrt(sum(((got[n] - want[n]) ** 2).sum().item()
+                        for n in names))
+    den = math.sqrt(sum((want[n] ** 2).sum().item() for n in names))
+    top = max(want[n].norm().item() for n in names)
+    worst, worst_name = 0.0, ""
+    for n in names:
+        if want[n].norm().item() >= 1e-3 * top:
+            rel = ((got[n] - want[n]).norm() / want[n].norm()).item()
+            if rel > worst:
+                worst, worst_name = rel, n
+    kb = max(((got[n] - want[n]).abs().max().item() for n in names
+              if "k_proj.bias" in n), default=0.0)
+    return num / den, worst, worst_name, kb
+
+
+def dist_gates(backend, out, ranks, ref, entries, power):
+    """The gates of one [dist] run against the one-process reference, on
+    the kernel path and on the plain path (dist_reference)."""
+    steps, eval_res, records = ref[True]
+    plain_steps, _, plain_records = ref[False]
+    bad = []
+    got = torch.load(os.path.join(out, "grads.pt"))
+    metrics, grads = steps["all"]
+
+    def mean_of_blocks(by_rows):
+        return {n: sum(by_rows[r][1][n] for r in range(DIST_RANKS))
+                / DIST_RANKS for n in by_rows["all"][1]}
+
+    mean = mean_of_blocks(steps)
+    plain, plain_mean = plain_steps["all"][1], mean_of_blocks(plain_steps)
+    if not set(got) == set(grads) == set(mean) == set(plain):
+        bad.append("the ranks' gradients cover other parameters")
+    exact = grad_gap(got, mean)
+    whole = grad_gap(got, grads)
+    own = grad_gap(mean, grads)
+    # the kernels at the ranks' 8 rows against the plain path at 8 and at
+    # 16 rows; the plain path's own 16-rows-vs-blocks gap, beside the
+    # kernel path's (own), shows whether the kernels of the head add to it
+    vs_plain = grad_gap(got, plain_mean)
+    vs_plain16 = grad_gap(got, plain)
+    plain_own = grad_gap(plain_mean, plain)
+    if exact[0] > DIST_EXACT or whole[0] > GRAD_REL_L2 \
+            or whole[1] > GRAD_TENSOR_REL_L2:
+        bad.append("the reduced gradient disagrees with one process's")
+    if any(g[0] > GRAD_REL_L2 or g[1] > GRAD_TENSOR_REL_L2
+           for g in (vs_plain, vs_plain16)):
+        bad.append("the reduced kernel-path gradient disagrees with the "
+                   "plain path's")
+    step1 = ranks[0]["steps"][0]
+    loss_gap = max(abs(step1[k] - v) / max(1.0, abs(v))
+                   for k, v in metrics.items() if k != "acc_pose")
+    half_gap = max(abs(step1[k] - np.mean([steps[r][0][k]
+                                           for r in range(DIST_RANKS)]))
+                   / max(1.0, abs(v))
+                   for k, v in metrics.items() if k != "acc_pose")
+    acc_gap = abs(step1["acc_pose"] - metrics["acc_pose"])
+    if loss_gap > DIST_LOSS_REL or half_gap > DIST_EXACT \
+            or acc_gap > DIST_ACC:
+        bad.append("the step's loss dict disagrees with one process's")
+    if any(r["steps"][i] != ranks[0]["steps"][i] | {"ms": r["steps"][i]["ms"]}
+           for r in ranks for i in range(DIST_STEPS)):
+        bad.append("the ranks logged different metrics")
+    hashes = {r["params_sha256"] for r in ranks}
+    if len(hashes) != 1:
+        bad.append("the parameters after the last step differ between ranks")
+    if not ranks[0]["checkpoint"]:
+        bad.append("no checkpoint was written")
+    rows = [s["rows"] for r in ranks for s in r["steps"]]
+    if rows != [TRAIN_B // DIST_RANKS] * (DIST_RANKS * DIST_STEPS):
+        bad.append(f"the ranks stepped on {rows} rows")
+    print(f"[dist] {backend} training, {DIST_STEPS} steps of "
+          f"{TRAIN_B // DIST_RANKS} rows a rank (global batch {TRAIN_B}, "
+          f"dropout 0, kernels on): step-1 reduced gradient vs the mean of "
+          f"one process's gradients of the same row blocks: relative L2 "
+          f"{exact[0]:.3g} (tol {DIST_EXACT}), worst tensor {exact[1]:.3g}, "
+          f"losses {half_gap:.3g}; vs one process's step on the {TRAIN_B} "
+          f"rows: relative L2 {whole[0]:.3g} (tol {GRAD_REL_L2}), worst "
+          f"tensor {whole[1]:.3g} {whole[2]} (tol {GRAD_TENSOR_REL_L2}), "
+          f"key-projection biases max |d| {whole[3]:.3g}, losses max "
+          f"relative gap {loss_gap:.3g} (tol {DIST_LOSS_REL}), acc_pose "
+          f"{step1['acc_pose']:.4f} vs {metrics['acc_pose']:.4f} (tol "
+          f"{DIST_ACC}); one process alone, its {TRAIN_B} rows vs the mean "
+          f"of its row blocks: relative L2 {own[0]:.3g}, worst tensor "
+          f"{own[1]:.3g} (the row count's share); parameters after step "
+          f"{DIST_STEPS} {'bit-equal' if len(hashes) == 1 else 'DIFFERENT'} "
+          f"across ranks", flush=True)
+    print(f"[dist] {backend} reduced kernel-path gradient vs the plain path "
+          f"(use_flash=False, one process, same weights and rows): vs the "
+          f"mean of its {TRAIN_B // DIST_RANKS}-row blocks relative L2 "
+          f"{vs_plain[0]:.3g}, worst tensor {vs_plain[1]:.3g} {vs_plain[2]}; "
+          f"vs its {TRAIN_B} rows {vs_plain16[0]:.3g}, worst tensor "
+          f"{vs_plain16[1]:.3g} (tol {GRAD_REL_L2} / {GRAD_TENSOR_REL_L2}); "
+          f"witness, the plain path's {TRAIN_B} rows vs the mean of its "
+          f"row blocks: relative L2 {plain_own[0]:.3g}, worst tensor "
+          f"{plain_own[1]:.3g} (the kernel path's: {own[0]:.3g})",
+          flush=True)
+    for r in ranks:
+        print(f"[dist] {backend} rank {r['rank']} step ms "
+              f"{[round(s['ms'], 3) for s in r['steps']]} (the first a "
+              f"warm-up; ranks share {'one card' if backend == 'gloo' else 'nothing'}: "
+              f"information only, no scaling figure) on {power}", flush=True)
+    # eval: the records of the gather against one process's
+    with open(os.path.join(out, "eval0", "result_keypoints.json")) as f:
+        gathered = json.load(f)
+    same_ids = [r["bbox_id"] for r in gathered] == \
+        [r["bbox_id"] for r in records]
+    px = max((np.abs(np.asarray(a["keypoints"]) - np.asarray(b["keypoints"]))
+              .max() for a, b in zip(gathered, records)), default=math.inf)
+    mgap = max(abs(ranks[0]["eval"][k] - v) for k, v in eval_res.items())
+    if not (same_ids and len(gathered) == DIST_GROUPS * QUERIES
+            and px <= DIST_PX and mgap <= DIST_METRIC):
+        bad.append("the gathered eval disagrees with one process's")
+    if any(r["eval"] != ranks[0]["eval"] for r in ranks):
+        bad.append("the ranks computed different eval metrics")
+    # the gathered kernel-path records against the plain path's, by the
+    # main path's bounds for that pair (coordinates over the image size)
+    d = np.concatenate([
+        (np.abs(np.asarray(a["keypoints"])[:, :2]
+                - np.asarray(b["keypoints"])[:, :2]) / SIZE).ravel()
+        for a, b in zip(gathered, plain_records)]) if gathered else \
+        np.asarray([math.inf])
+    plain_ids = [r["bbox_id"] for r in gathered] == \
+        [r["bbox_id"] for r in plain_records]
+    med, within = float(np.median(d)), float(np.mean(d <= PATH_CELL))
+    if not (plain_ids and med <= PATH_MEDIAN_TOL
+            and within >= PATH_WITHIN_SHARE):
+        bad.append("the gathered eval disagrees with the plain path's")
+    if os.path.exists(os.path.join(out, "eval1", "result_keypoints.json")):
+        bad.append("a rank other than 0 wrote the result file")
+    print(f"[dist] {backend} cached eval of {DIST_GROUPS} groups x {QUERIES} "
+          f"queries ({DIST_GROUPS // DIST_RANKS} a rank): gathered "
+          f"{len(gathered)} records, bbox_ids {'equal' if same_ids else 'DIFFER'}"
+          f", keypoints max |d| {px:.3g} px (tol {DIST_PX}), metrics max "
+          f"|d| {mgap:.3g} (tol {DIST_METRIC}); PCK {eval_res['PCK']:.4f}; "
+          f"vs the plain path (use_flash=False, one process, the same "
+          f"chunks): bbox_ids {'equal' if plain_ids else 'DIFFER'}, median "
+          f"|d| {med:.4g} (tol {PATH_MEDIAN_TOL}), max {d.max():.4g}, share "
+          f"within {PATH_CELL:.4g}: {within:.4f} (tol >= "
+          f"{PATH_WITHIN_SHARE})", flush=True)
+    train_need = ("fused_vit_block", "flash_mha_train_fwd",
+                  "flash_mha_train_bwd")
+    eval_need = ("fused_vit_block", "fused_encoder_stack", "flash_mha",
+                 "fused_decoder_layer")
+    for r in ranks:
+        tl, el = r["train_launches"], r["eval_launches"]
+        ok = all(tl[k] > 0 for k in train_need) and all(
+            el[k] > 0 for k in eval_need)
+        print(f"[dist] {backend} rank {r['rank']} launches: training "
+              f"{ {k: tl[k] for k in train_need} } (#1, #7, #8), eval "
+              f"{ {k: el[k] for k in eval_need} } (#1, #3, #6, #4) "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append(f"rank {r['rank']} did not launch every kernel of the "
+                       "path")
+    if backend == "gloo":
+        for k in train_need:
+            entries[k]["dist_launches"] = ranks[0]["train_launches"][k]
+        for k in eval_need[1:]:
+            entries[k]["dist_launches"] = ranks[0]["eval_launches"][k]
+        entries["fused_vit_block"]["dist_launches"] += \
+            ranks[0]["eval_launches"]["fused_vit_block"]
+    if bad:
+        fail(f"[dist] {backend}: " + "; ".join(bad))
+
+
+def dist_path(dev, entries, power):
+    """[dist]: DIST_RANKS ranks of the full-width stage-3 model, two
+    training steps of the global batch and a sharded cached eval, against
+    one process; gloo with both ranks on one card, then NCCL with a card
+    a rank where the machine has that many cards."""
+    from edgecape_tpu_torch.ops import kernel_config
+    n_dev = torch.cuda.device_count()
+    print(f"[dist] torch.cuda.device_count() = {n_dev}", flush=True)
+    # the ranks' form (the serving phases follow the measured defaults)
+    kernel_config.set_decoder_stack(False)
+    kernel_config.set_vit_pair_blocks(False)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = dist_reference(dev, tmp)
+        out, ranks = dist_run("gloo", tmp, power)
+        dist_gates("gloo", out, ranks, ref, entries, power)
+        if n_dev >= DIST_RANKS:
+            out, ranks = dist_run("nccl", tmp, power)
+            dist_gates("nccl", out, ranks, ref, entries, power)
+        else:
+            print(f"[dist] NCCL not measured: {n_dev} device", flush=True)
+
+
+def stages_path(power):
+    """[stages]: tools/profile_eval_stages.py at its full case, every
+    stage's device ms; the support and query stages beside the chunk."""
+    from edgecape_tpu_torch.tools import profile_eval_stages as PS
+    out = PS.main([])
+    lost = [r["stage"] for r in out["stages"] if r["clock"] != "device"]
+    if lost or out["clock"] != "device" or not out["addmm"]:
+        fail(f"[stages] no device time for {lost or 'the addmm sites'}")
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     tuned_out = None
     if len(sys.argv) == 3 and sys.argv[1] == "--write-tuned":
@@ -3203,6 +3775,8 @@ def main() -> None:
     router_path(dev, entries, power, served)
     del served
     demo_path(dev, entries, power)
+    dist_path(dev, entries, power)
+    stages_path(power)
     print(json.dumps({"kernels": finite(list(entries.values()))}), flush=True)
     print(power, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3211,4 +3785,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-rank"]:
+        dist_rank(sys.argv[1:])
+    else:
+        main()

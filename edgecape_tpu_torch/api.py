@@ -1,5 +1,9 @@
 """High-level estimator: backbone + head; counterpart of
-edgecape_tpu/api.py:PoseEstimator (single device).
+edgecape_tpu/api.py:PoseEstimator on one device. It takes no mesh: a
+torch process drives one card, so the JAX estimator's in-process mesh
+branches (batches padded and sharded over local devices) have no
+counterpart; several cards evaluate as one process each, the episodes
+sharded and the records gathered by eval/runner.py (parallel/).
 
 Entry points:
 * `forward_cached`: the support context is computed once per episode

@@ -9,12 +9,17 @@ testing_log.txt), with the stages driven in one process.
     python -m edgecape_tpu_torch.cli.run --config CONFIG --work_dir D
 
 Runs on the CUDA device and raises without one; `--device cpu` is the
-only way onto the CPU.
+only way onto the CPU. run.py meshes all local devices in one process;
+the port reaches the same with one process per device through the
+`--dist-*` flags (cli/dist_flags.py): every stage trains data-parallel
+and the final evaluation is sharded and gathered.
 """
 
 from __future__ import annotations
 
 import argparse
+
+from . import dist_flags
 
 
 def parse_args(argv=None):
@@ -36,13 +41,13 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--cfg-options", nargs="+", default=[])
+    dist_flags.add_flags(p)
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
 
-    from ..api import resolve_device
     from ..config import Config
     from ..data.compose import build_train_dataset
     from ..data.loader import Prefetcher
@@ -50,7 +55,7 @@ def main(argv=None):
     from ..models.convert import load_backbone
     from ..train.curriculum import run_curriculum
 
-    device = resolve_device(args.device)
+    device = dist_flags.setup(args)
     cfg = Config.from_file(args.config).override(args.cfg_options)
     backbone = load_backbone(args.backbone_ckpt, cfg.model.image_size)
     train_ds = build_train_dataset(cfg.train_data)

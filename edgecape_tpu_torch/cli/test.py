@@ -7,8 +7,10 @@ line appended to `testing_log.txt` in the work directory.
     python -m edgecape_tpu_torch.cli.test CONFIG [CHECKPOINT] [--work-dir D]
 
 Runs on the CUDA device and raises without one; `--device cpu` is the
-only way onto the CPU. The multi-process flags of test.py (`--dist-*`)
-are not ported yet.
+only way onto the CPU. Multi-process (`--dist-coordinator`,
+`--dist-num-processes`, `--dist-process-id`; cli/dist_flags.py): one
+process per device, each evaluates its share of the episodes, the
+records are gathered and only process 0 prints and writes files.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import os
 import random
 
 import numpy as np
+
+from . import dist_flags
 
 
 def parse_args(argv=None):
@@ -43,6 +47,7 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--cfg-options", nargs="+", default=[])
+    dist_flags.add_flags(p)
     return p.parse_args(argv)
 
 
@@ -52,14 +57,15 @@ def main(argv=None):
     np.random.seed(0)
 
     from .. import config as config_lib
-    from ..api import PoseEstimator, resolve_device
+    from ..api import PoseEstimator
     from ..config import Config
     from ..data.mp100 import MP100Dataset
     from ..eval.runner import append_testing_log, run_eval
     from ..models.convert import load_backbone
+    from ..parallel import multihost
     from ..train import checkpoint as ck
 
-    device = resolve_device(args.device)
+    device = dist_flags.setup(args)
     cfg = Config.from_file(args.config).override(args.cfg_options)
     if args.strict_parity:
         cfg = config_lib.replace(cfg, model=config_lib.replace(
@@ -82,8 +88,9 @@ def main(argv=None):
     results = run_eval(ds, est, batch_size=args.batch_size,
                        res_folder=work_dir,
                        cache_supports=not args.no_cache_supports)
-    for k, v in results.items():
-        print(f"{k}: {v}")
+    if multihost.is_primary():
+        for k, v in results.items():
+            print(f"{k}: {v}")
     append_testing_log(work_dir, os.path.basename(args.config),
                        args.checkpoint or "<random>", results)
     return results

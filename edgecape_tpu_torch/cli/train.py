@@ -7,8 +7,10 @@ dump into the work directory.
     python -m edgecape_tpu_torch.cli.train --config CONFIG [--work-dir D]
 
 Runs on the CUDA device and raises without one; `--device cpu` is the
-only way onto the CPU. One process, one device: the multi-process flags
-of train.py (`--dist-*`) are not ported yet.
+only way onto the CPU. Multi-process (`--dist-coordinator`,
+`--dist-num-processes`, `--dist-process-id`; cli/dist_flags.py): one
+process per device, data-parallel over the processes with the gradients
+reduced every step (train/loop.py); only process 0 writes files.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import os
 import random
 
 import numpy as np
+
+from . import dist_flags
 
 
 def parse_args(argv=None):
@@ -34,11 +38,13 @@ def parse_args(argv=None):
                    help="torch-hub DINOv2 .pth (converted on the fly), or "
                    "a backbone state dict saved by this package")
     p.add_argument("--autoscale-lr", action="store_true",
-                   help="linearly scale lr by #devices/8")
+                   help="linearly scale lr by #devices/8 (one device "
+                   "per process)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--cfg-options", nargs="+", default=[],
                    help="dotted overrides, e.g. model.learn_skeleton=true")
+    dist_flags.add_flags(p)
     return p.parse_args(argv)
 
 
@@ -47,18 +53,16 @@ def main(argv=None):
     random.seed(args.seed)
     np.random.seed(args.seed)
 
-    import torch
-
     from .. import config as config_lib
-    from ..api import resolve_device
     from ..config import Config
     from ..data.compose import build_train_dataset
     from ..data.loader import Prefetcher
     from ..data.mp100 import MP100Dataset
     from ..models.convert import load_backbone
+    from ..parallel import multihost
     from ..train.loop import Trainer
 
-    device = resolve_device(args.device)
+    device = dist_flags.setup(args)
     cfg = Config.from_file(args.config).override(args.cfg_options)
     if args.work_dir:
         cfg = config_lib.replace(cfg, work_dir=args.work_dir)
@@ -67,12 +71,13 @@ def main(argv=None):
     if args.load_from:
         cfg = config_lib.replace(cfg, load_from=args.load_from)
     if args.autoscale_lr:
-        n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
+        n_dev = multihost.process_count()
         cfg = config_lib.replace(cfg, train=config_lib.replace(
             cfg.train, lr=cfg.train.lr * n_dev / 8.0))
 
     os.makedirs(cfg.work_dir, exist_ok=True)
-    cfg.dump(os.path.join(cfg.work_dir, "config.json"))
+    if multihost.is_primary():
+        cfg.dump(os.path.join(cfg.work_dir, "config.json"))
 
     train_ds = build_train_dataset(cfg.train_data)
     val_ds = (MP100Dataset(cfg.val_data, mode="val")

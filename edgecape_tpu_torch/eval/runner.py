@@ -1,5 +1,4 @@
-"""Episodic evaluation, single process; counterpart of
-edgecape_tpu/eval/runner.py:run_eval.
+"""Episodic evaluation; counterpart of edgecape_tpu/eval/runner.py:run_eval.
 
 Cached (`cache_supports=True`): episode groups (one support set, its
 queries) are evaluated in chunks of a fixed group count. The loop is
@@ -13,9 +12,18 @@ _report_metric (PCK@thresholds, mPCK, NME, AUC, EPE, thresholds
 normalised by the query bbox's longer side, visibility = query AND all
 supports).
 
+Multi-process (a process group joined by parallel/multihost.initialize):
+each process evaluates its contiguous share of the episode groups
+(cached) or of the rows (uncached), `multihost.shard_range`; the records
+meet in `_allgather_records`, fixed-shape gathers of every field; every
+process computes the same metrics from them, and only the primary
+writes files. A process with no share still joins every gather, with
+zero records.
+
 The loops take any dataset with the MP100Dataset interface
 (`support_groups`, `collate_group`, `batches`, `paired_samples`, `db`,
-`name2id`, `img_prefix`, `cfg.pck_threshold_list`).
+`name2id`, `img_prefix`, `cfg.pck_threshold_list`; `collate` for the
+uncached loop of more than one process).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from ..ops.affine import transform_preds_batch
+from ..parallel import multihost
 from . import metrics
 
 
@@ -113,9 +122,10 @@ def run_eval(dataset, estimator, batch_size: int = 32,
              metric_list=("PCK", "NME", "AUC", "EPE"),
              progress: bool = True,
              cache_supports: bool = False) -> OrderedDict:
-    """1-process eval over every episode of `dataset`, cached by episode
-    group or one episode per row; writes result_keypoints.json and
-    returns the metrics."""
+    """Eval over every episode of `dataset`, cached by episode group or
+    one episode per row, this process's share of it when there are more
+    (the records gathered from all); writes result_keypoints.json (the
+    primary) and returns the metrics."""
     os.makedirs(res_folder, exist_ok=True)
     size = estimator.cfg.model.image_size
     records = []
@@ -129,8 +139,11 @@ def run_eval(dataset, estimator, batch_size: int = 32,
                   flush=True)
 
     timings = {}
+    nproc = multihost.process_count()
     if cache_supports:
         groups = dataset.support_groups()
+        if nproc > 1:
+            groups = [groups[i] for i in multihost.shard_range(len(groups))]
         n_total = sum(len(rows) for _, rows in groups)
 
         def on_chunk(pred_host, query, meta, real):
@@ -147,8 +160,16 @@ def run_eval(dataset, estimator, batch_size: int = 32,
         timings = run_cached(estimator, make_chunks(groups, batch_size),
                              dataset.collate_group, on_chunk)
     else:
-        n_total = len(dataset)
-        for batch in dataset.batches(batch_size, masking_ratio=0.0):
+        if nproc > 1:
+            rows = list(multihost.shard_range(len(dataset)))
+            n_total = len(rows)
+            batch_iter = (dataset.collate(rows[i:i + batch_size], rng=None,
+                                          masking_ratio=0.0)
+                          for i in range(0, len(rows), batch_size))
+        else:
+            n_total = len(dataset)
+            batch_iter = dataset.batches(batch_size, masking_ratio=0.0)
+        for batch in batch_iter:
             pred_norm, _, _ = estimator.forward_batch(batch)
             out = estimator.decode_batch(pred_norm, batch)
             records.extend(records_from(
@@ -161,6 +182,8 @@ def run_eval(dataset, estimator, batch_size: int = 32,
             report(n_total)
     if progress:
         print()
+    if nproc > 1:
+        records = _allgather_records(records)
     # dedup by bbox_id like the reference _sort_and_unique_bboxes
     records.sort(key=lambda r: r["bbox_id"])
     uniq, seen = [], set()
@@ -168,8 +191,10 @@ def run_eval(dataset, estimator, batch_size: int = 32,
         if r["bbox_id"] not in seen:
             uniq.append(r)
             seen.add(r["bbox_id"])
-    with open(os.path.join(res_folder, "result_keypoints.json"), "w") as f:
-        json.dump(uniq, f, sort_keys=True, indent=4)
+    if multihost.is_primary():
+        with open(os.path.join(res_folder, "result_keypoints.json"),
+                  "w") as f:
+            json.dump(uniq, f, sort_keys=True, indent=4)
     results = compute_metrics(dataset, uniq, metric_list)
     elapsed = time.perf_counter() - t0
     results["eval_seconds"] = round(elapsed, 3)
@@ -177,6 +202,56 @@ def run_eval(dataset, estimator, batch_size: int = 32,
     for k, v in timings.items():
         results[k.replace("_s", "_seconds")] = round(v, 3)
     return results
+
+
+def _allgather_records(records):
+    """The eval records of every process, in process order, as
+    fixed-shape gathers: the record counts first, then each process's
+    widest keypoint list (K may differ between records), then every field
+    zero-padded to the largest count (keypoints also to the largest K);
+    the padding is dropped on rebuild. Floats travel as float64 and ids
+    as int64, so every value (ids above 2^32 too) comes back as it was
+    (the JAX package ships float32 and splits its ids into int32
+    halves, because jax truncates 64-bit values)."""
+    counts = multihost.allgather(np.asarray([len(records)], np.int64))
+    counts = counts.reshape(-1)
+    maxn = int(counts.max())
+    k = max((len(r["keypoints"]) for r in records), default=1)
+    k = int(multihost.allgather(np.asarray([k], np.int64)).max())
+
+    def field(shape, dtype, get):
+        arr = np.zeros((maxn,) + shape, dtype)
+        for i, r in enumerate(records):
+            arr[i] = get(r)
+        return multihost.allgather(arr)                 # [P, maxn, ...]
+
+    def kp_padded(r):
+        a = np.asarray(r["keypoints"], np.float64)
+        out = np.zeros((k, 3), np.float64)
+        out[:a.shape[0]] = a
+        return out
+
+    kp = field((k, 3), np.float64, kp_padded)
+    kdim = field((), np.int64, lambda r: len(r["keypoints"]))
+    center = field((2,), np.float64, lambda r: r["center"])
+    scale = field((2,), np.float64, lambda r: r["scale"])
+    area = field((), np.float64, lambda r: r["area"])
+    score = field((), np.float64, lambda r: r["score"])
+    image_id = field((), np.int64, lambda r: r["image_id"])
+    bbox_id = field((), np.int64, lambda r: r["bbox_id"])
+    out = []
+    for p in range(len(counts)):
+        for i in range(int(counts[p])):
+            out.append({
+                "keypoints": kp[p, i, :int(kdim[p, i])].tolist(),
+                "center": center[p, i].tolist(),
+                "scale": scale[p, i].tolist(),
+                "area": float(area[p, i]),
+                "score": float(score[p, i]),
+                "image_id": int(image_id[p, i]),
+                "bbox_id": int(bbox_id[p, i]),
+            })
+    return out
 
 
 def _gather_eval_arrays(dataset, records):
@@ -299,7 +374,10 @@ def compute_metrics_reference(dataset, records, metric_list) -> OrderedDict:
 
 def append_testing_log(work_dir: str, config_name: str, ckpt: str,
                        results: dict) -> None:
-    """One line per evaluated checkpoint in work_dir/testing_log.txt."""
+    """One line per evaluated checkpoint in work_dir/testing_log.txt
+    (written by the primary process only)."""
+    if not multihost.is_primary():
+        return
     os.makedirs(work_dir, exist_ok=True)
     with open(os.path.join(work_dir, "testing_log.txt"), "a") as f:
         f.write(f"config: {config_name} ckpt: {ckpt} ")

@@ -18,6 +18,16 @@ part of it.
 `load_backbone` reads backbone weights from disk: a torch-hub DINOv2
 state dict (`.pth`), converted like the JAX package's
 `dinov2.convert_torch_state_dict`, or a checkpoint file of the port.
+
+`convert_head` / `convert_full` read the reference's own checkpoints
+(EdgeCape on mmpose: the head under `keypoint_head_module.*`, the
+torch-hub DINOv2 under `encoder_query.*`): the head's names are mapped
+as the JAX package's edgecape_tpu/models/convert.py maps them (this is
+its copy, kept equal by tests), onto a flax-shaped tree that
+`state_from_flax` turns into the port's state dict. Both layouts of
+torch.nn.MultiheadAttention (a fused in_proj_weight, separate
+q/k/v_proj_weight for kdim/vdim) and the fairseq-style split q/k/v of
+the reference's BiasedMultiheadAttention are read.
 """
 
 from __future__ import annotations
@@ -78,6 +88,183 @@ def state_from_flax(tree: dict) -> dict:
 def from_jax_params(backbone_np: dict, head_np: dict):
     """(backbone state dict for DinoViT, head state dict for EdgeCape)."""
     return state_from_flax(backbone_np), state_from_flax(head_np)
+
+
+def _np(v) -> np.ndarray:
+    if hasattr(v, "detach"):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v, dtype=np.float32)
+
+
+class _SD:
+    """Accessor over a flat reference state dict (flax-shaped leaves)."""
+
+    def __init__(self, sd: dict):
+        self.sd = sd
+
+    def has(self, key: str) -> bool:
+        return key in self.sd
+
+    def get(self, key: str) -> np.ndarray:
+        return _np(self.sd[key])
+
+    def linear(self, prefix: str) -> dict:
+        return {"kernel": self.get(prefix + ".weight").T,
+                "bias": self.get(prefix + ".bias")}
+
+    def ln(self, prefix: str) -> dict:
+        return {"scale": self.get(prefix + ".weight"),
+                "bias": self.get(prefix + ".bias")}
+
+    def conv1x1(self, prefix: str) -> dict:
+        """Conv2d / Conv1d of kernel 1 -> Dense."""
+        w = self.get(prefix + ".weight")
+        w = w.reshape(w.shape[0], w.shape[1])                 # [out, in]
+        return {"kernel": w.T, "bias": self.get(prefix + ".bias")}
+
+    def mha(self, prefix: str, embed_dim: int) -> dict:
+        """torch.nn.MultiheadAttention (fused or separate projections) or
+        fairseq-style split projections -> q/k/v/out projections."""
+        d = embed_dim
+        if self.has(prefix + ".in_proj_weight"):
+            w = self.get(prefix + ".in_proj_weight")
+            b = self.get(prefix + ".in_proj_bias")
+            qw, kw, vw = w[:d], w[d:2 * d], w[2 * d:]
+            qb, kb, vb = b[:d], b[d:2 * d], b[2 * d:]
+        elif self.has(prefix + ".q_proj_weight"):
+            qw = self.get(prefix + ".q_proj_weight")
+            kw = self.get(prefix + ".k_proj_weight")
+            vw = self.get(prefix + ".v_proj_weight")
+            b = self.get(prefix + ".in_proj_bias")
+            qb, kb, vb = b[:d], b[d:2 * d], b[2 * d:]
+        else:
+            qw, qb = (self.get(prefix + ".q_proj.weight"),
+                      self.get(prefix + ".q_proj.bias"))
+            kw, kb = (self.get(prefix + ".k_proj.weight"),
+                      self.get(prefix + ".k_proj.bias"))
+            vw, vb = (self.get(prefix + ".v_proj.weight"),
+                      self.get(prefix + ".v_proj.bias"))
+        return {"q_proj": {"kernel": qw.T, "bias": qb},
+                "k_proj": {"kernel": kw.T, "bias": kb},
+                "v_proj": {"kernel": vw.T, "bias": vb},
+                "out_proj": self.linear(prefix + ".out_proj")}
+
+
+def _decoder_layer(sd: _SD, p: str, cfg, *, two_way: bool,
+                   with_bias_mlp: bool) -> dict:
+    d = cfg.d_model
+    out = {
+        "self_attn": sd.mha(p + "self_attn", d),
+        "cross_attn": sd.mha(p + "multihead_attn", 2 * d),
+        "choker": sd.linear(p + "choker"),
+        "gcn": {"conv": sd.conv1x1(p + "ffn1.conv")},
+        "ffn2": sd.linear(p + "ffn2"),
+        "norm1": sd.ln(p + "norm1"),
+        "norm2": sd.ln(p + "norm2"),
+        "norm3": sd.ln(p + "norm3"),
+    }
+    if two_way:
+        out["two_way_attn"] = sd.mha(p + "cross_attn_image_to_token", 2 * d)
+        out["two_way_choker"] = sd.linear(
+            p + "cross_attn_image_to_token_choker")
+        out["norm4"] = sd.ln(p + "norm4")
+    if with_bias_mlp and sd.has(
+            p + "self_attn.markov_structural_mlp.0.weight"):
+        # torchvision MLP: [Linear, ReLU, Dropout, Linear, Dropout]
+        out["bias_mlp"] = {
+            "fc1": sd.linear(p + "self_attn.markov_structural_mlp.0"),
+            "fc2": sd.linear(p + "self_attn.markov_structural_mlp.3"),
+        }
+    return out
+
+
+def _head_tree(sd_raw: dict, cfg) -> dict:
+    """Reference `keypoint_head_module.*` -> the head's flax-shaped tree
+    (the JAX package's convert_head)."""
+    kh = "keypoint_head_module."
+    sd = _SD({k[len(kh):]: v for k, v in sd_raw.items()
+              if k.startswith(kh)})
+    t = "transformer."
+    params: dict = {
+        "input_proj": sd.conv1x1("input_proj"),
+        "query_proj": sd.linear("query_proj"),
+        "mask_token": sd.get(t + "mask_token"),
+    }
+    for i in range(cfg.num_encoder_layers):
+        p = f"{t}encoder.layers.{i}."
+        params[f"enc{i}"] = {
+            "self_attn": sd.mha(p + "self_attn", cfg.d_model),
+            "linear1": sd.linear(p + "linear1"),
+            "linear2": sd.linear(p + "linear2"),
+            "norm1": sd.ln(p + "norm1"),
+            "norm2": sd.ln(p + "norm2"),
+        }
+    pg = t + "proposal_generator."
+    params["proposal_gen"] = {
+        "support_proj": sd.linear(pg + "support_proj"),
+        "query_proj": sd.linear(pg + "query_proj"),
+        "dynamic_fc1": sd.linear(pg + "dynamic_proj.0"),
+        "dynamic_fc2": sd.linear(pg + "dynamic_proj.2"),
+    }
+    dec: dict = {
+        "norm": sd.ln(t + "decoder.norm"),
+        "ref_point_head": {
+            "fc1": sd.linear(t + "decoder.ref_point_head.layers.0"),
+            "fc2": sd.linear(t + "decoder.ref_point_head.layers.1"),
+        },
+    }
+    for i in range(cfg.num_decoder_layers):
+        dec[f"layer{i}"] = _decoder_layer(
+            sd, f"{t}decoder.layers.{i}.", cfg, two_way=False,
+            with_bias_mlp=cfg.attn_bias)
+        # kpt branch: Sequential [L, G, L, G, L, G, L] -> indices 0, 2, 4, 6
+        kb = f"kpt_branch.{i}.mlp."
+        dec[f"kpt_branch{i}"] = {
+            "fc0": sd.linear(kb + "0"), "fc1": sd.linear(kb + "2"),
+            "fc2": sd.linear(kb + "4"), "out": sd.linear(kb + "6"),
+        }
+    params["decoder"] = dec
+    sk: dict = {}
+    if sd.has("skeleton_head.image_project.weight"):
+        sk["image_project"] = sd.conv1x1("skeleton_head.image_project")
+    for i in range(cfg.skeleton_num_layers):
+        p = f"skeleton_head.skeleton_predictor.{i}."
+        if sd.has(p + "choker.weight"):
+            sk[f"refine{i}"] = _decoder_layer(sd, p, cfg, two_way=True,
+                                              with_bias_mlp=False)
+    if sd.has("skeleton_head.zero_conv.weight"):
+        sk["zero_conv_w"] = sd.get(
+            "skeleton_head.zero_conv.weight").reshape(1)
+        sk["zero_conv_b"] = sd.get("skeleton_head.zero_conv.bias")
+    if sk:
+        params["skeleton"] = sk
+    return params
+
+
+def convert_head(sd_raw: dict, cfg) -> dict:
+    """The reference's state dict (its `keypoint_head_module.*` entries)
+    -> the state dict of the port's EdgeCape for `cfg` (a ModelConfig of
+    the checkpoint's curriculum stage)."""
+    return state_from_flax(_head_tree(sd_raw, cfg))
+
+
+def convert_full(sd_raw: dict, cfg, image_size: Optional[int] = None,
+                 backbone_cfg: DinoV2Config = VIT_S14):
+    """A full reference checkpoint (optionally under "state_dict") ->
+    (backbone state dict for DinoViT at image_size, or None when it holds
+    no backbone; head state dict for EdgeCape)."""
+    if "state_dict" in sd_raw:
+        sd_raw = sd_raw["state_dict"]
+    head = convert_head(sd_raw, cfg)
+    backbone = None
+    for prefix in ("encoder_query.", "encoder_sample."):
+        bb = {k[len(prefix):]: v for k, v in sd_raw.items()
+              if k.startswith(prefix)}
+        if bb:
+            backbone = convert_hub_state_dict(
+                bb, image_size or cfg.image_size, backbone_cfg)
+            break
+    return backbone, head
 
 
 def init_params(generator: torch.Generator, cfg,

@@ -108,20 +108,37 @@ def heatmap_mse_loss(similarity, target_heatmap, weight,
     return (l2.sum(dim=-1) / normalizer).mean() * loss_weight
 
 
-def pck_accuracy(pred, target, weight, norm_sizes,
-                 thr: float = 0.2) -> torch.Tensor:
-    """Train-time PCK probe: the share of visible joints whose normalised
-    distance is below thr, averaged over joints, then over the samples
-    with at least one visible joint. pred/target [B, K, 2] pixels; weight
-    [B, K]; norm_sizes [B, 2]."""
+def pck_counts(pred, target, weight, norm_sizes,
+               thr: float = 0.2) -> torch.Tensor:
+    """The two sums of the train-time PCK probe, [2] fp32: the per-sample
+    share of visible joints whose normalised distance is below thr,
+    summed over the samples with at least one visible joint, and the
+    number of those samples. The probe is their quotient, so processes
+    that each hold a part of the batch add their sums before dividing.
+    pred/target [B, K, 2] pixels; weight [B, K]; norm_sizes [B, 2]."""
     dist = torch.linalg.norm((pred - target) / norm_sizes[:, None, :],
                              dim=-1)
     hit = (dist < thr) & (weight > 0)
     per_sample_n = weight.sum(dim=-1)
     acc = hit.sum(dim=-1) / per_sample_n.clamp(min=1.0)
     has = per_sample_n > 0
-    mean = (acc * has).sum() / has.sum().clamp(min=1)
-    return torch.where(has.any(), mean, torch.zeros_like(mean))
+    return torch.stack([(acc * has).sum(), has.sum().to(acc.dtype)])
+
+
+def pck_from_counts(counts: torch.Tensor) -> torch.Tensor:
+    """The probe from pck_counts' sums: 0 when no sample has a visible
+    joint."""
+    mean = counts[0] / counts[1].clamp(min=1)
+    return torch.where(counts[1] > 0, mean, torch.zeros_like(mean))
+
+
+def pck_accuracy(pred, target, weight, norm_sizes,
+                 thr: float = 0.2) -> torch.Tensor:
+    """Train-time PCK probe: the share of visible joints whose normalised
+    distance is below thr, averaged over joints, then over the samples
+    with at least one visible joint. pred/target [B, K, 2] pixels; weight
+    [B, K]; norm_sizes [B, 2]."""
+    return pck_from_counts(pck_counts(pred, target, weight, norm_sizes, thr))
 
 
 def keypoint_losses(outputs, targets_norm, weight, *,

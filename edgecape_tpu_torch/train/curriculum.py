@@ -8,6 +8,10 @@ stage's final (or best) checkpoint, then an evaluation of the last
 stage's latest and best checkpoints. Same artifact layout as the JAX
 package (base/, base_skeleton/, base_skeleton_bias/, dumped stage
 configs). The datasets and the loader factory are passed in as objects.
+In a process group of more than one process (parallel/multihost.py)
+every stage trains data-parallel over it, and the final evaluation is
+sharded over the processes and gathered (eval/runner.py); only process
+0 writes the stage configs.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Optional
 from .. import config as config_lib
 from ..config import stage2_config, stage3_config
 from ..models import dinov2
+from ..parallel import multihost
 from . import checkpoint as ck
 from .loop import Trainer
 
@@ -70,8 +75,9 @@ def run_curriculum(cfg, work_dir: str, train_ds, loader_factory,
             continue
         scfg = _stage_cfg(cfg, stage, sdir, prev_ckpt, ft_epochs,
                           masking_ratio, lamda_masking)
-        config_lib.dump(scfg, os.path.join(work_dir,
-                                           STAGE_CONFIG_FILES[stage]))
+        if multihost.is_primary():
+            config_lib.dump(scfg, os.path.join(work_dir,
+                                               STAGE_CONFIG_FILES[stage]))
         log_fn(f"=== curriculum stage: {stage} ===")
         trainer = Trainer(scfg, train_ds, loader_factory, val_ds,
                           backbone_state=backbone_state, device=device,

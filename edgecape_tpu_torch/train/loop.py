@@ -1,6 +1,4 @@
-"""Training step and epoch loop on one device; counterpart of
-edgecape_tpu/train/loop.py (its mesh / multi-process branches are not
-ported yet).
+"""Training step and epoch loop; counterpart of edgecape_tpu/train/loop.py.
 
 One step: the frozen backbone under no_grad (on a CUDA device through
 the hand-written fused_vit_block op, on the CPU the plain trunk), the
@@ -17,6 +15,25 @@ The trainer takes its data as objects: a dataset with `__len__`,
 drop_last=True, num_workers=..., seed=...)` whose result's `epoch()`
 yields batches carrying the `BATCH_KEYS` arrays (as attributes or as a
 dict). It imports no loader itself.
+
+Multi-process (a process group joined by parallel/multihost.initialize
+before the trainer is built, one process per device; the trainer reads
+multihost.process_count / process_index, as the eval runner does):
+every process starts from process 0's weights,
+collates only its row block of each global batch (the loader factory is
+given `shard=(rank, world)`), and after the backward pass the gradients
+of all processes are averaged in one all-reduce of a flat buffer, before
+the clip and Adam, so that every process applies the global batch's
+update (JAX's psum; a parameter without a gradient counts as zero and
+keeps no gradient where no process has one). Every loss term is a batch
+mean of per-sample terms, so the mean over equal shards is the global
+batch's loss; the logged losses are averaged the same way, and the PCK
+probe is formed from the summed numerator and denominator. The dropout
+generator of process r is seeded with `train.seed + r`, so the shards
+draw different masks. Only process 0 writes checkpoints, the log and
+TensorBoard, and every process waits for a checkpoint to be complete
+before it goes on. The eval hook runs on every process over its share of
+the episodes (eval/runner.py gathers the records).
 """
 
 from __future__ import annotations
@@ -34,9 +51,10 @@ from ..api import resolve_device
 from ..models import dinov2
 from ..models.convert import init_params
 from ..models.edgecape import EdgeCape
-from ..models.head import keypoint_losses, pck_accuracy
+from ..models.head import keypoint_losses, pck_counts, pck_from_counts
 from ..ops import heatmap
 from ..ops.kernel_config import require_widths
+from ..parallel import multihost
 from ..staging import HostStager
 from . import checkpoint as ckpt_lib
 from .state import apply_lr, clip_by_global_norm, make_optimizer
@@ -57,11 +75,13 @@ def batch_to_tensors(batch, device, stager=None) -> dict:
     return {k: stage(get(k), k) for k in BATCH_KEYS}
 
 
-def make_loss_fn(model: EdgeCape, backbone: dinov2.DinoViT, cfg):
+def make_loss_fn(model: EdgeCape, backbone: dinov2.DinoViT, cfg,
+                 with_pck_counts: bool = False):
     """loss_fn(batch, generator) -> (total loss, metrics dict of 0-d
-    tensors). `batch`: the BATCH_KEYS tensors on the model's device,
-    images ImageNet-normalised floats; `generator` feeds every dropout
-    draw of the step."""
+    tensors), and the PCK probe's two sums (models/head.py pck_counts) as
+    a third item with `with_pck_counts`. `batch`: the BATCH_KEYS tensors
+    on the model's device, images ImageNet-normalised floats; `generator`
+    feeds every dropout draw of the step."""
     mcfg = cfg.model
     size = float(mcfg.image_size)
     bb_dtype = _DTYPES[mcfg.compute_dtype]
@@ -129,15 +149,47 @@ def make_loss_fn(model: EdgeCape, backbone: dinov2.DinoViT, cfg):
             heatmap_loss_weight=mcfg.heatmap_loss_weight)
         total = sum(losses.values())
         with torch.no_grad():
-            acc = pck_accuracy(outputs[-1] * size, batch["joints_q"], weight,
-                               torch.full((b, 2), size,
-                                          device=weight.device))
+            counts = pck_counts(outputs[-1] * size, batch["joints_q"],
+                                weight, torch.full((b, 2), size,
+                                                   device=weight.device))
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss"] = total.detach()
-        metrics["acc_pose"] = acc
+        metrics["acc_pose"] = pck_from_counts(counts)
+        if with_pck_counts:
+            return total, metrics, counts
         return total, metrics
 
     return loss_fn
+
+
+def reduce_across_processes(params, metrics: dict,
+                            counts: torch.Tensor) -> dict:
+    """Averages the gradients of `params` and the loss metrics over the
+    processes in one all-reduce, in place for the gradients; returns the
+    metrics of the global batch (the PCK probe from the summed counts).
+    A gradient that is None on a process counts as zero there; a
+    parameter that no process gave a gradient keeps None."""
+    world = multihost.process_count()
+    names = [k for k in metrics if k != "acc_pose"]
+    dev = counts.device
+    has = torch.tensor([float(p.grad is not None) for p in params],
+                       device=dev)
+    flat = torch.cat(
+        [has, torch.stack([metrics[k].float() for k in names]),
+         counts.float()]
+        + [(p.grad if p.grad is not None else torch.zeros_like(p))
+           .reshape(-1).float() for p in params])
+    flat = multihost.allreduce_sum(flat)
+    n, m = len(params), len(names)
+    out = {k: flat[n + i] / world for i, k in enumerate(names)}
+    out["acc_pose"] = pck_from_counts(flat[n + m:n + m + 2])
+    off = n + m + 2
+    for p, any_grad in zip(params, flat[:n].tolist()):
+        size = p.numel()
+        if any_grad > 0:
+            p.grad = (flat[off:off + size] / world).view_as(p).to(p.dtype)
+        off += size
+    return {k: out[k] for k in metrics}
 
 
 def make_train_step(model: EdgeCape, backbone: dinov2.DinoViT, optimizer,
@@ -145,16 +197,21 @@ def make_train_step(model: EdgeCape, backbone: dinov2.DinoViT, optimizer,
     """train_step(batch, generator, step) -> metrics: one update of the
     trainable parameters in place, at the rate of `sched(step)` (the step
     count before the update). The gradients stay in `.grad` until the
-    next step."""
-    loss_fn = make_loss_fn(model, backbone, cfg)
+    next step. With more than one process, `batch` is this
+    process's row block and the gradients and metrics are those of the
+    global batch (reduce_across_processes)."""
+    multiprocess = multihost.process_count() > 1
+    loss_fn = make_loss_fn(model, backbone, cfg, with_pck_counts=True)
     params = [p for group in optimizer.param_groups for p in group["params"]]
     grad_clip = cfg.train.grad_clip
 
     def train_step(batch, generator, step: int):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        total, metrics = loss_fn(batch, generator)
+        total, metrics, counts = loss_fn(batch, generator)
         total.backward()
+        if multiprocess:
+            metrics = reduce_across_processes(params, metrics, counts)
         if grad_clip is not None:
             clip_by_global_norm(params, grad_clip)
         apply_lr(optimizer, sched(step))
@@ -167,13 +224,18 @@ def make_train_step(model: EdgeCape, backbone: dinov2.DinoViT, optimizer,
 class Trainer:
     """Epoch-based trainer with an eval hook, best-PCK tracking,
     checkpoints and resume. Runs on the CUDA device unless `device` says
-    otherwise."""
+    otherwise. In a process group (multihost.initialize, before the
+    trainer is built): data-parallel over its processes, each on its own
+    `device` (see the module docstring)."""
 
     def __init__(self, cfg, train_ds, loader_factory, val_ds=None,
                  backbone_state: Optional[dict] = None, device="cuda",
                  log_fn=print,
                  backbone_cfg: dinov2.DinoV2Config = dinov2.VIT_S14):
         self.device = resolve_device(device)
+        self.world = multihost.process_count()
+        self.rank = multihost.process_index()
+        self.primary = self.rank == 0
         self._stage = HostStager(self.device)
         flash = cfg.model.use_flash
         use_flash = bool(self.device.type == "cuda" if flash is None
@@ -201,6 +263,11 @@ class Trainer:
             head_state = ckpt_lib.merge_params(head_state,
                                                loaded.get("model", loaded))
             self.log(f"warm-started from {cfg.load_from}")
+        if self.world > 1:
+            # every process starts from process 0's weights
+            head_state = multihost.replicate_global(head_state)
+            self.backbone_state = multihost.replicate_global(
+                self.backbone_state)
 
         fast = cfg.model.train_backbone_fast and self.device.type == "cuda"
         self.backbone = dinov2.DinoViT(backbone_cfg, cfg.model.image_size)
@@ -223,8 +290,9 @@ class Trainer:
         self.step = 0
         self.start_epoch = 0
         self.best_pck = -1.0
+        # offset by the rank: each shard draws its own dropout masks
         self.generator = torch.Generator(device=self.device).manual_seed(
-            cfg.train.seed)
+            cfg.train.seed + self.rank)
         self._eval_estimator = None
 
         # auto-resume from the work directory's latest checkpoint
@@ -252,6 +320,13 @@ class Trainer:
 
     # -------------------------------------------------------------- save
     def _save(self, name: str, epoch: int) -> None:
+        """Process 0 writes; every process returns once the file, its
+        sidecar and latest.json are complete."""
+        if self.primary:
+            self._write(name, epoch)
+        multihost.barrier()
+
+    def _write(self, name: str, epoch: int) -> None:
         os.makedirs(self.cfg.work_dir, exist_ok=True)
         ckpt_lib.save_checkpoint(
             os.path.join(self.cfg.work_dir, name),
@@ -290,13 +365,17 @@ class Trainer:
                    if cfg.model.masked_supervision else 0.0)
         os.makedirs(cfg.work_dir, exist_ok=True)
         log_path = os.path.join(cfg.work_dir, "train_log.jsonl")
+        # each process collates its row block of identically planned
+        # batches (the plans draw from the loader's own seeded rng)
+        shard = {"shard": (self.rank, self.world)} if self.world > 1 \
+            else {}
         loader = self.loader_factory(
             self.train_ds, cfg.train.batch_size, shuffle=True,
             masking_ratio=masking, drop_last=True,
-            num_workers=cfg.train.num_workers, seed=cfg.train.seed)
+            num_workers=cfg.train.num_workers, seed=cfg.train.seed, **shard)
 
         tb = None
-        if getattr(cfg.train, "tensorboard", False):
+        if getattr(cfg.train, "tensorboard", False) and self.primary:
             from ..utils.tb_writer import SummaryWriter
             tb = SummaryWriter(os.path.join(cfg.work_dir, "tf_logs"))
 
@@ -342,8 +421,9 @@ class Trainer:
             if (epoch + 1) % cfg.train.ckpt_interval == 0 or \
                     epoch + 1 == cfg.train.total_epochs:
                 self._save(f"epoch_{epoch + 1}", epoch)
-            with open(log_path, "a") as f:
-                f.write(json.dumps(entry) + "\n")
+            if self.primary:
+                with open(log_path, "a") as f:
+                    f.write(json.dumps(entry) + "\n")
             if tb is not None:
                 tb.flush()
         if tb is not None:

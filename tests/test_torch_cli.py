@@ -76,7 +76,7 @@ def test_help_exits_cleanly(cli, capsys):
     assert e.value.code == 0
     out = capsys.readouterr().out
     assert "--device" in out and "--cfg-options" in out
-    assert "--dist" not in out               # not ported yet
+    assert "--dist-coordinator" in out and "--dist-process-id" in out
 
 
 @pytest.mark.parametrize("cli,argv", [

@@ -8,7 +8,9 @@ does the same for the variant switches, the uncached and debug forwards,
 the bench tool's chains and the chip smoke's module; a third drives the
 disk path: the synthetic stand-in, every config of the port's grid, the
 loader, `cli.train`, `cli.test`, `cli.run --help`, the server on a PPM
-request, the demo's inference and the probe tool on the CPU."""
+request, the demo's inference and the probe tool on the CPU; and two
+more, two ranks of a gloo process group, evaluate an in-memory episode
+set sharded and gathered."""
 
 import os
 import subprocess
@@ -37,7 +39,9 @@ for needed in ("config", "train.state", "train.loop", "train.checkpoint",
                "data.synthetic", "eval.metrics", "utils.tb_writer",
                "models.convert", "configs._base", "cli.test", "cli.train",
                "cli.run", "cli.serve", "cli.router", "cli.demo", "cli.app",
-               "utils.visualization"):
+               "utils.visualization", "parallel.mesh", "parallel.multihost",
+               "utils.profiling", "tools.convert_checkpoint",
+               "tools.profile_eval_stages", "cli.dist_flags"):
     assert "edgecape_tpu_torch." + needed in names, needed
 pulled = [m for m in sys.modules if m.split(".")[0] == "edgecape_tpu"]
 assert not pulled, pulled
@@ -268,3 +272,127 @@ def test_disk_path_clis_and_probe_run_without_jax_and_cv2():
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().endswith("OK")
+
+
+DIST_SCRIPT = r"""
+import json, os, sys
+BLOCKED = ("jax", "flax", "optax", "orbax", "cv2", "edgecape_tpu")
+for m in BLOCKED:
+    sys.modules[m] = None
+import numpy as np
+import torch
+from edgecape_tpu_torch.api import PoseEstimator
+from edgecape_tpu_torch.config import (Config, DataConfig, ModelConfig,
+                                       stage3_config)
+from edgecape_tpu_torch.eval.runner import run_eval
+from edgecape_tpu_torch.models.dinov2 import DinoV2Config
+from edgecape_tpu_torch.parallel import multihost
+rank, world, init, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                          sys.argv[4])
+multihost.initialize(init, world, rank, backend="gloo",
+                     device=torch.device("cpu"))
+k, size, queries = 6, 28, 2
+
+
+class Episodes:
+    # 3 episode groups of 2 queries in memory
+    img_prefix = "."
+    name2id = {}
+
+    def __init__(self):
+        rng = np.random.default_rng(0)
+        self.cfg = DataConfig(image_size=size, max_kpt=k)
+        self.db, self.paired_samples, self.groups = [], [], []
+        for _ in range(3):
+            base = len(self.db)
+            for _ in range(1 + queries):
+                self.db.append({
+                    "joints_3d": np.concatenate(
+                        [rng.uniform(2, size - 2, (k, 2)), np.zeros((k, 1))],
+                        1).astype(np.float32),
+                    "joints_3d_visible": np.ones((k, 3), np.float32),
+                    "bbox": np.array([0, 0, size, size], np.float32),
+                    "image": rng.integers(0, 256, (size, size, 3),
+                                          dtype=np.uint8)})
+            rows = []
+            for q in range(queries):
+                rows.append(len(self.paired_samples))
+                self.paired_samples.append([base, base + 1 + q])
+            self.groups.append(((base,), rows))
+
+    def __len__(self):
+        return len(self.paired_samples)
+
+    def support_groups(self):
+        return self.groups
+
+    def collate_group(self, chunk):
+        rows = [r for _, rs in chunk for r in rs]
+        g = len(chunk)
+        db = self.db
+        support = {
+            "img_s": np.stack([[db[s]["image"] for s in sids]
+                               for sids, _ in chunk]),
+            "joints_s": np.stack([[db[s]["joints_3d"][:, :2] for s in sids]
+                                  for sids, _ in chunk]),
+            "vis_s": np.ones((g, 1, k), np.float32),
+            "binary_adj": np.ones((g, k, k), np.float32)}
+        query = {"img_q": np.stack([db[self.paired_samples[r][-1]]["image"]
+                                    for r in rows]),
+                 "group": np.repeat(np.arange(g, dtype=np.int32), queries)}
+        meta = {"query_image_file": [f"./q{r}.png" for r in rows],
+                "query_center": np.full((len(rows), 2), size / 2,
+                                        np.float32),
+                "query_scale": np.full((len(rows), 2), size / 200.0,
+                                       np.float32),
+                "bbox_id": rows}
+        return support, query, meta
+
+
+cfg = stage3_config(Config(model=ModelConfig(
+    max_kpt=k, image_size=size, heatmap_size=8, backbone_dim=32, d_model=32,
+    num_feats=16, similarity_proj_dim=32, dim_feedforward=48,
+    dynamic_proj_dim=16, nhead=2)))
+est = PoseEstimator(cfg, generator=torch.Generator().manual_seed(0),
+                    device="cpu",
+                    backbone_cfg=DinoV2Config(depth=1, embed_dim=32,
+                                              num_heads=1))
+res = run_eval(Episodes(), est, batch_size=4, res_folder=out,
+               progress=False, cache_supports=True)
+written = os.path.exists(os.path.join(out, "result_keypoints.json"))
+assert written == (rank == 0), (rank, written)
+if rank == 0:
+    recs = json.load(open(os.path.join(out, "result_keypoints.json")))
+    assert [r["bbox_id"] for r in recs] == list(range(6))
+assert np.isfinite(res["NME"]) and 0.0 <= res["PCK"] <= 1.0
+multihost.shutdown()
+loaded = [m for m in sys.modules if m.split(".")[0] in BLOCKED
+          and sys.modules[m] is not None]
+assert not loaded, loaded
+print("OK", res["PCK"], res["NME"])
+"""
+
+
+def test_two_rank_gloo_eval_runs_without_jax(tmp_path):
+    env = _child_env()
+    procs = []
+    for rank in range(2):
+        out = tmp_path / f"r{rank}"
+        out.mkdir()
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", FEW_THREADS + DIST_SCRIPT, str(rank), "2",
+             "file://" + str(tmp_path / "rdv"), str(out)], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=300))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for proc, (stdout, stderr) in zip(procs, outs):
+        assert proc.returncode == 0, stdout + stderr
+    lines = [stdout.strip().splitlines()[-1] for stdout, _ in outs]
+    assert lines[0].startswith("OK") and lines[0] == lines[1]
