@@ -164,8 +164,9 @@ Phases (any failure exits non-zero before the last line):
    gradients and records against one process on the plain path
    (use_flash=False: no kernel in the head) on the same weights, rows and
    chunks, with the plain path's own 16-rows-vs-8+8 gap printed beside
-   the kernel path's, and which of the shared trunk's stages gives an
-   image other bits in a call on 32 images than on 16; and each rank's
+   the kernel path's; the shared trunk's stages on 32 images in one call
+   against two calls on 16, vit_mlp_kernel and the whole trunk bit-equal
+   (0 differing elements); and each rank's
    launch counters (#1, #7, #8 in training; #1, #3, #6, #4 in eval). With two
    cards or more the same runs with NCCL, a card a rank; with one card
    it says "NCCL not measured". The ranks' step ms are information only
@@ -175,7 +176,16 @@ Phases (any failure exits non-zero before the last line):
    backbone, support and query phases, the head, the query encoder, the
    encoder and decoder kernels alone and the whole chunk; support +
    query beside the chunk; the chunk's eager aten::addmm by call site;
-16. prints {"kernels": [...]} on its own line, then the result line
+16. the port's bench (`[benchrun]`, tools/bench.py) in a subprocess, every
+   phase of bench.py at full width, shortened (--iters=2 --warmup=1
+   --budget-s=300), one attempt a phase (--max-attempts=1): rc 0, no
+   "errors", no failed attempt and no DEGRADED mode on its stderr, every
+   key of bench.py's full run, the switches of hopper_tuned.json, and each
+   phase's launch counters on their route (with both switches on: the
+   eval phases #2, #3, #5, #6, the training phases #2, #7, #8; the strict
+   fp32 eval no kernel); its figures beside the smoke's own for the same
+   paths;
+17. prints {"kernels": [...]} on its own line, then the result line
    {"ok": true, "device": {...}} last. The kernels line holds, besides
    each kernel op's entry, the serving shapes' entries (`flash_mha (ViT
    fp32, 224 px)` and the rest); an op's `launches` is its count on the
@@ -730,7 +740,7 @@ def episodes(rng):
     return out
 
 
-def main_path(dev, entries, power):
+def main_path(dev, entries, power, figures):
     from edgecape_tpu_torch.api import PoseEstimator
     from edgecape_tpu_torch.eval.runner import pck_accuracy, run_cached
     from edgecape_tpu_torch.models.convert import (init_params,
@@ -829,8 +839,11 @@ def main_path(dev, entries, power):
           f"{CHUNKS * nq / wall:.1f} img/s on {power} (information only; "
           f"host collate {timings['host_collate_s']:.3f} s, dispatch "
           f"{timings['dispatch_s']:.3f} s, device wait "
-          f"{timings['device_wait_s']:.3f} s); PCK@0.2 on random weights "
+          f"{timings['device_wait_s']:.3f} s, the first chunk's dispatch "
+          f"and wait {timings['first_call_s']:.3f} s); PCK@0.2 on random "
+          f"weights "
           f"{float(np.mean(pck_hits)):.4f}", flush=True)
+    figures["path"] = CHUNKS * nq / wall
     if bad:
         fail("; ".join(bad))
 
@@ -1383,7 +1396,7 @@ def loss_without_dropout(trainer, batch):
     return float(total)
 
 
-def train_path(dev, entries, power):
+def train_path(dev, entries, power, figures):
     from edgecape_tpu_torch import config as C
     from edgecape_tpu_torch.models.convert import (init_params,
                                                    redraw_zero_inits)
@@ -1488,6 +1501,7 @@ def train_path(dev, entries, power):
         if moved < 0.9 * n_train:
             fail("trainable parameters did not move")
         step_ms = np.diff(stamps[-(TRAIN_STEPS - 1):]) * 1e3
+        figures["train"] = float(np.median(step_ms))
         print(f"[train] kernel path: median {np.median(step_ms):.3f} ms/step "
               f"over {len(step_ms)} steps after warm-up on {power} "
               f"(information only)", flush=True)
@@ -1902,7 +1916,8 @@ def variant_op_checks(dev, entries, power):
 
 
 # ------------------------------------------------------------ phase 6
-def variant_path(dev, entries, power, est, data, default_preds, tuned_out):
+def variant_path(dev, entries, power, est, data, default_preds, tuned_out,
+                 figures):
     """forward_cached with the decoder_stack and vit_pair_blocks switches:
     launch counts, agreement with the default path, and the A/B ratios."""
     from edgecape_tpu_torch.eval.runner import run_cached
@@ -1983,6 +1998,7 @@ def variant_path(dev, entries, power, est, data, default_preds, tuned_out):
                 walls[name].append(run(stack, pair)[1])
         best = {k: min(v) for k, v in walls.items()}
         rate = {k: CHUNKS * nq / v for k, v in best.items()}
+        figures["variant"] = rate["both"]
         ratios = {k: best["default"] / best[k]
                   for k in ("both", "vit_pair_blocks", "decoder_stack")}
         print(f"[variant] {CHUNKS} chunks x {nq} queries, best of 3 in turns "
@@ -2290,7 +2306,7 @@ config = stage3_config(Config(
 """
 
 
-def disk_path(dev, entries, power):
+def disk_path(dev, entries, power, figures):
     """cli.train then cli.test on files on disk, at full width."""
     from edgecape_tpu_torch.cli import test as cli_test
     from edgecape_tpu_torch.cli import train as cli_train
@@ -2422,13 +2438,15 @@ def disk_path(dev, entries, power):
                   f"{c['images_per_sec']} img/s (host collate "
                   f"{c['host_collate_seconds']} s, dispatch "
                   f"{c['dispatch_seconds']} s, device wait "
-                  f"{c['device_wait_seconds']} s of {c['eval_seconds']} s), "
+                  f"{c['device_wait_seconds']} s, first chunk "
+                  f"{c['first_call_seconds']} s, of {c['eval_seconds']} s), "
                   f"uncached {u['images_per_sec']} img/s on {power} "
                   f"(information only); PCK@0.2 cached {c['PCK']:.4f} "
                   f"uncached {u['PCK']:.4f}, mPCK {c['mPCK']:.4f} / "
                   f"{u['mPCK']:.4f}, NME {c['NME']:.4f} / {u['NME']:.4f}; "
                   f"largest PCK difference {worst:.4g} (tol {DISK_PCK_TOL}) "
                   f"{'OK' if ok else 'FAIL'}", flush=True)
+            figures["disk"] = c["images_per_sec"]
             if not ok:
                 fail("the cached and the uncached disk eval disagree")
     finally:
@@ -2467,38 +2485,18 @@ ROW_MEDIAN, ROW_SHARE = 2e-3, PATH_WITHIN_SHARE
 # than the order of a reduction.
 RELOAD_TOL = 1e-5
 
-# (name, module, attribute) of every op-level launch counter
-OP_COUNTERS = (
-    ("flash_mha", "flash_attention", "launches"),
-    ("fused_vit_block", "fused_vit_block", "launches"),
-    ("fused_vit_block2", "fused_vit_block", "launches2"),
-    ("fused_encoder_stack", "fused_encoder", "stack_launches"),
-    ("fused_encoder_layer", "fused_encoder", "launches"),
-    ("fused_decoder_layer", "fused_decoder", "launches"),
-    ("fused_decoder_stack", "fused_decoder", "stack_launches"))
-
-
-def _ops_module(name):
-    import importlib
-    return importlib.import_module("edgecape_tpu_torch.ops." + name)
-
-
 def zero_counts():
-    """Every launch counter to 0: the ops' and each kernel's."""
-    from edgecape_tpu_torch.ops import kernels as KN
-    from edgecape_tpu_torch.ops import mm_chain
-    for _, mod, attr in OP_COUNTERS:
-        setattr(_ops_module(mod), attr, 0)
-    KN.launches.update(dict.fromkeys(KN.launches, 0))
-    mm_chain.launches = 0
+    """Every launch counter to 0: the ops' and each kernel's
+    (ops/counters.py)."""
+    from edgecape_tpu_torch.ops import counters
+    counters.zero_counts()
 
 
 def read_counts():
     """(op counts, non-zero kernel counts)."""
-    from edgecape_tpu_torch.ops import kernels as KN
-    ops = {name: getattr(_ops_module(mod), attr)
-           for name, mod, attr in OP_COUNTERS}
-    return ops, {k: v for k, v in KN.launch_counts().items() if v}
+    from edgecape_tpu_torch.ops import counters
+    counts = counters.launch_counts()
+    return counts["ops"], counts["kernels"]
 
 
 def path_ops(stack):
@@ -3172,24 +3170,30 @@ DIST_EVAL_BATCH = 2 * QUERIES
 # averaged: the same kernels on the same shapes, so equal but for the
 # order of one fp32 sum (DIST_EXACT relative L2; a missing or summed
 # reduce is off by 0.5-1). Against one process's step on all 16 rows:
-# the frozen trunk that both paths share gives an image other bits in a
-# call on 32 images than on 16 (#1's vit_mlp_kernel: a row's result
-# depends on where it sits in its 128-row tile; on an H100 118 of 3.2
-# million elements after one block, 12% of the features after twelve),
-# which moves the head's gradients by about 0.03 relative L2 on the
-# kernel path and on the plain path alike (measured 0.029 / 0.026, worst
-# tensor 0.067 / 0.054; trunk_row_invariance prints where), so the
-# training path's bounds for kernel against plain hold
-# (GRAD_REL_L2, GRAD_TENSOR_REL_L2); the losses within DIST_LOSS_REL
-# relative (measured 8.1e-5), the PCK probe within one keypoint of one
-# sample (1 / (0.9 K) / TRAIN_B = 7e-4). The same bounds hold the reduced
+# the frozen trunk that both paths share must give an image the same bits
+# in a call on 32 images as in a call on 16 (ROW_GATED: vit_mlp_kernel
+# and the whole trunk, 0 differing elements; trunk_row_invariance). It
+# did not while vit_mlp_kernel's blocks each started the fc2 sum over the
+# hidden chunks at their own chunk: a row's order followed its tile's
+# block, 384598 of 3145728 features differed after twelve blocks, and the
+# head's gradients moved by 0.029 / 0.026 relative L2 (kernel / plain
+# path) with the row count. What is left is the head's own summation
+# order at 8 against 16 rows (on an H100: 5.96e-5 relative L2, worst
+# tensor 6.0e-4 on the kernel path, 1.2e-6 / 1.5e-5 on the plain path;
+# the losses 6e-8 relative): both paths' gaps within DIST_ROWS relative
+# L2 and DIST_ROWS_TENSOR for the worst tensor, the losses within
+# DIST_LOSS_REL relative, the PCK probe within one keypoint of one sample
+# (1 / (0.9 K) / TRAIN_B = 7e-4). The training path's bounds for kernel
+# against plain (GRAD_REL_L2, GRAD_TENSOR_REL_L2) hold the reduced
 # kernel-path gradient against the plain path (use_flash=False) at 8 and
 # at 16 rows, so the kernels are checked at the ranks' own shapes. Eval:
 # the same chunks through the same kernels, so keypoints within 1e-3 px
 # and metrics within 1e-6; against the plain path's chunks, the main
 # path's bounds for that pair (PATH_MEDIAN_TOL, PATH_WITHIN_SHARE).
-DIST_EXACT, DIST_LOSS_REL, DIST_ACC = 1e-6, 1e-3, 1e-3
+DIST_EXACT, DIST_LOSS_REL, DIST_ACC = 1e-6, 1e-5, 1e-3
+DIST_ROWS, DIST_ROWS_TENSOR = 1e-3, 1e-2
 DIST_PX, DIST_METRIC = 1e-3, 1e-6
+ROW_GATED = ("vit_mlp_kernel", "whole trunk")
 
 
 def dist_config(work_dir):
@@ -3265,7 +3269,6 @@ def dist_rank(argv):
     from edgecape_tpu_torch.parallel import multihost
     from edgecape_tpu_torch.train import checkpoint as ck
     from edgecape_tpu_torch.train.loop import Trainer
-    import edgecape_tpu_torch.ops.flash_attention as FA
 
     p = argparse.ArgumentParser()
     for flag in ("--dist-rank", "--dist-world"):
@@ -3306,14 +3309,12 @@ def dist_rank(argv):
 
     tr._step_fn = spy
     zero_counts()
-    FA.launches_fwd = FA.launches_bwd = 0
     tr.fit()
     torch.cuda.synchronize()
     ops, kern = read_counts()
-    out["train_launches"] = {"fused_vit_block": ops["fused_vit_block"],
-                             "flash_mha_train_fwd": FA.launches_fwd,
-                             "flash_mha_train_bwd": FA.launches_bwd,
-                             "kernels": kern}
+    out["train_launches"] = {k: ops[k] for k in (
+        "fused_vit_block", "flash_mha_train_fwd", "flash_mha_train_bwd")}
+    out["train_launches"]["kernels"] = kern
     digest = hashlib.sha256()
     for name, t in sorted(tr.model.state_dict().items()):
         digest.update(name.encode())
@@ -3414,12 +3415,19 @@ def dist_reference(dev, tmp):
             batch = batch_to_tensors(data.batch, dev)
             imgs = torch.cat([batch["img_s"].flatten(0, 1), batch["img_q"]])
             parts = trunk_row_invariance(tr.backbone, imgs)
+            moved = [name for name, n0, n1, _, _ in parts
+                     if name in ROW_GATED and n0 + n1]
             print(f"[dist] the training step's trunk on {imgs.shape[0]} "
                   f"images in one call vs two calls of half as many, "
                   f"differing elements in the first / second half of all "
                   f"(max |d| over max |out|): " + ", ".join(
                       f"{name} {n0} / {n1} of {m} ({r:.3g})"
-                      for name, n0, n1, m, r in parts), flush=True)
+                      for name, n0, n1, m, r in parts)
+                  + f"; 0 required of {list(ROW_GATED)} "
+                  f"{'FAIL' if moved else 'OK'}", flush=True)
+            if moved:
+                fail(f"[dist] an image's bits depend on the call it lands "
+                     f"in: {moved}")
         steps = {}
         for name, rows in [("all", slice(None))] + [
                 (r, slice(r * per, (r + 1) * per)) for r in range(DIST_RANKS)]:
@@ -3458,8 +3466,9 @@ def trunk_row_invariance(backbone, images):
     second half's, all elements, largest |d| over the largest |output|)]
     for the patch embedding, each kernel of the first block on the same
     inputs, and the whole trunk. The second half's rows sit at another
-    offset in the kernels' 128-row tiles in the one call; the first
-    half's at the same."""
+    offset in the kernels' 128-row tiles, and on other blocks of their
+    persistent grids, in the one call; the first half's at the same
+    offset."""
     import torch.nn.functional as F
     from edgecape_tpu_torch.models import dinov2
     from edgecape_tpu_torch.ops import kernels as K
@@ -3557,9 +3566,12 @@ def dist_gates(backend, out, ranks, ref, entries, power):
     vs_plain = grad_gap(got, plain_mean)
     vs_plain16 = grad_gap(got, plain)
     plain_own = grad_gap(plain_mean, plain)
-    if exact[0] > DIST_EXACT or whole[0] > GRAD_REL_L2 \
-            or whole[1] > GRAD_TENSOR_REL_L2:
+    if exact[0] > DIST_EXACT or whole[0] > DIST_ROWS \
+            or whole[1] > DIST_ROWS_TENSOR:
         bad.append("the reduced gradient disagrees with one process's")
+    if any(g[0] > DIST_ROWS or g[1] > DIST_ROWS_TENSOR
+           for g in (own, plain_own)):
+        bad.append("one process's gradients depend on the batch's row count")
     if any(g[0] > GRAD_REL_L2 or g[1] > GRAD_TENSOR_REL_L2
            for g in (vs_plain, vs_plain16)):
         bad.append("the reduced kernel-path gradient disagrees with the "
@@ -3592,14 +3604,15 @@ def dist_gates(backend, out, ranks, ref, entries, power):
           f"one process's gradients of the same row blocks: relative L2 "
           f"{exact[0]:.3g} (tol {DIST_EXACT}), worst tensor {exact[1]:.3g}, "
           f"losses {half_gap:.3g}; vs one process's step on the {TRAIN_B} "
-          f"rows: relative L2 {whole[0]:.3g} (tol {GRAD_REL_L2}), worst "
-          f"tensor {whole[1]:.3g} {whole[2]} (tol {GRAD_TENSOR_REL_L2}), "
+          f"rows: relative L2 {whole[0]:.3g} (tol {DIST_ROWS}), worst "
+          f"tensor {whole[1]:.3g} {whole[2]} (tol {DIST_ROWS_TENSOR}), "
           f"key-projection biases max |d| {whole[3]:.3g}, losses max "
           f"relative gap {loss_gap:.3g} (tol {DIST_LOSS_REL}), acc_pose "
           f"{step1['acc_pose']:.4f} vs {metrics['acc_pose']:.4f} (tol "
           f"{DIST_ACC}); one process alone, its {TRAIN_B} rows vs the mean "
           f"of its row blocks: relative L2 {own[0]:.3g}, worst tensor "
-          f"{own[1]:.3g} (the row count's share); parameters after step "
+          f"{own[1]:.3g} (tol {DIST_ROWS} / {DIST_ROWS_TENSOR}); parameters "
+          f"after step "
           f"{DIST_STEPS} {'bit-equal' if len(hashes) == 1 else 'DIFFERENT'} "
           f"across ranks", flush=True)
     print(f"[dist] {backend} reduced kernel-path gradient vs the plain path "
@@ -3610,7 +3623,8 @@ def dist_gates(backend, out, ranks, ref, entries, power):
           f"{vs_plain16[1]:.3g} (tol {GRAD_REL_L2} / {GRAD_TENSOR_REL_L2}); "
           f"witness, the plain path's {TRAIN_B} rows vs the mean of its "
           f"row blocks: relative L2 {plain_own[0]:.3g}, worst tensor "
-          f"{plain_own[1]:.3g} (the kernel path's: {own[0]:.3g})",
+          f"{plain_own[1]:.3g} (tol {DIST_ROWS} / {DIST_ROWS_TENSOR}; the "
+          f"kernel path's: {own[0]:.3g})",
           flush=True)
     for r in ranks:
         print(f"[dist] {backend} rank {r['rank']} step ms "
@@ -3715,6 +3729,108 @@ def stages_path(power):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------ phase 16
+# [benchrun]: the port's bench (tools/bench.py) as a user runs it, every
+# phase at full width, shortened, within its own budget. The switches it
+# reports (kernel_switches) must be hopper_tuned.json's, and each phase's
+# child must have launched the kernel ops of that route (bench_needs). One
+# attempt a phase: the bench's retries exist for a user's flaky device,
+# and here a phase that failed or hung once (rc -9) must fail the smoke,
+# so any failed attempt or DEGRADED line on its stderr fails it too.
+BENCH_ARGS = ("--iters=2", "--warmup=1", "--budget-s=300",
+              "--max-attempts=1")
+BENCH_RETRY_LINE = (r"\[bench\] (phase \S+ attempt \d+/\d+|retrying )"
+                    r"|.*DEGRADED")
+BENCH_TIMEOUT = 420
+# every key of bench.py's full run
+BENCH_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "value_5shot", "value_fp32",
+    "value_disk", "value_disk_split",
+    "train_ms_per_step_fp32", "train_episodes_per_sec_fp32",
+    "train_ms_per_step_bf16", "train_episodes_per_sec_bf16",
+    "train_ms_per_step_fp32_5shot", "train_episodes_per_sec_fp32_5shot",
+    "train_ms_per_step_bf16_5shot", "train_episodes_per_sec_bf16_5shot")
+
+
+def bench_needs(switches):
+    """{phase label: the kernel ops it must launch} on the route of the
+    variant switches: the eval phases the trunk's op (#2 with
+    vit_pair_blocks, else #1), #3, the decoder's (#5 with decoder_stack,
+    else #4) and #6; the training phases the frozen trunk's op, #7 and
+    #8; the strict fp32 eval none at all."""
+    trunk = "fused_vit_block2" if switches.get("vit_pair_blocks") \
+        else "fused_vit_block"
+    dec = "fused_decoder_stack" if switches.get("decoder_stack") \
+        else "fused_decoder_layer"
+    ev = (trunk, "fused_encoder_stack", dec, "flash_mha")
+    tr = (trunk, "flash_mha_train_fwd", "flash_mha_train_bwd")
+    return {"eval": ev, "eval5": ev, "disk_eval": ev, "train_fp32": tr,
+            "train_bf16": tr, "train_fp32_5shot": tr,
+            "train_bf16_5shot": tr, "eval_fp32": ()}
+
+
+def bench_run(power, figures):
+    """[benchrun]: python -m edgecape_tpu_torch.tools.bench with BENCH_ARGS
+    in a subprocess; its last JSON line, each phase's launch counters and
+    its figures beside the smoke's own for the same paths."""
+    import re
+    from edgecape_tpu_torch.ops import kernel_config
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "edgecape_tpu_torch.tools.bench",
+         *BENCH_ARGS], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        timeout=BENCH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    out = json.loads(lines[-1]) if lines else {}
+    print(f"[benchrun] python -m edgecape_tpu_torch.tools.bench "
+          f"{' '.join(BENCH_ARGS)}: rc {proc.returncode} in {wall:.1f} s; "
+          f"last line {json.dumps(out)}", flush=True)
+    counts = {m.group(1): json.loads(m.group(2)) for m in re.finditer(
+        r"^\[bench\] phase (\S+) launches (\{.*\})$", proc.stderr, re.M)}
+    switches = out.get("kernel_switches", {})
+    tuned = {k: kernel_config._tuned().get(k, False)
+             for k in ("decoder_stack", "vit_pair_blocks")}
+    bad = [] if {k: switches.get(k) for k in tuned} == tuned else \
+        [f"switches {switches} (hopper_tuned.json: {tuned})"]
+    for label, need in bench_needs(switches).items():
+        c = counts.get(label)
+        if c is None:
+            ok = False
+        elif need:
+            ok = all(c["ops"][op] > 0 for op in need)
+        else:
+            ok = not any(c["ops"].values()) and not c["kernels"]
+        print(f"[benchrun] phase {label} launches "
+              f"{json.dumps(c['ops'] if c else None)}, kernels "
+              f"{json.dumps(c['kernels'] if c else None)}; needs "
+              f"{list(need) or 'no kernel'} "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append(label)
+    missing = [k for k in BENCH_KEYS if k not in out]
+    retried = [ln for ln in proc.stderr.splitlines()
+               if re.match(BENCH_RETRY_LINE, ln)]
+    if retried:
+        print(f"[benchrun] failed attempts or DEGRADED mode: {retried} FAIL",
+              flush=True)
+        bad.append("a failed attempt")
+    print(f"[benchrun] on {power} (information only; the bench runs both "
+          f"switches on, {BENCH_ARGS[0]}): eval {out.get('value')} img/s "
+          f"beside [path] {figures.get('path', math.nan):.1f} (switches "
+          f"off) and [variant] both {figures.get('variant', math.nan):.1f}; "
+          f"train_ms_per_step_fp32 {out.get('train_ms_per_step_fp32')} "
+          f"beside [train] {figures.get('train', math.nan):.3f} ms/step; "
+          f"value_disk {out.get('value_disk')} img/s beside [disk] cached "
+          f"{figures.get('disk', math.nan)} img/s", flush=True)
+    if proc.returncode != 0 or "errors" in out or missing or bad:
+        print(proc.stderr[-3000:], flush=True)
+        fail(f"[benchrun] rc {proc.returncode}, errors "
+             f"{out.get('errors')}, missing keys {missing}, failed gates "
+             f"{bad}")
+
+
 def main() -> None:
     tuned_out = None
     if len(sys.argv) == 3 and sys.argv[1] == "--write-tuned":
@@ -3747,19 +3863,20 @@ def main() -> None:
     kernel_config.set_vit_pair_blocks(False)
     dev = torch.device("cuda", 0)
     entries = {}
+    figures = {}      # the smoke's own figures of the bench's paths
     op_checks(dev, entries)
     train_op_checks(dev, entries)
     attention_checks(dev, entries, power)
     gemm_checks(dev, entries, power)
     torch.cuda.empty_cache()
-    est, data, preds, weights = main_path(dev, entries, power)
+    est, data, preds, weights = main_path(dev, entries, power, figures)
     width_check(dev, power)
     torch.cuda.empty_cache()
-    train_path(dev, entries, power)
+    train_path(dev, entries, power, figures)
     torch.cuda.empty_cache()
     variant_op_checks(dev, entries, power)
     torch.cuda.empty_cache()
-    variant_path(dev, entries, power, est, data, preds, tuned_out)
+    variant_path(dev, entries, power, est, data, preds, tuned_out, figures)
     uncached_path(dev, power, est, weights)
     del est
     torch.cuda.empty_cache()
@@ -3768,7 +3885,7 @@ def main() -> None:
     mm_chain_checks(dev, entries, power)
     probe_tool(entries, power)
     torch.cuda.empty_cache()
-    disk_path(dev, entries, power)
+    disk_path(dev, entries, power, figures)
     torch.cuda.empty_cache()
     serve_op_checks(dev, entries)
     served = serve_path(dev, entries, power)
@@ -3777,6 +3894,7 @@ def main() -> None:
     demo_path(dev, entries, power)
     dist_path(dev, entries, power)
     stages_path(power)
+    bench_run(power, figures)
     print(json.dumps({"kernels": finite(list(entries.values()))}), flush=True)
     print(power, flush=True)
     print(json.dumps({"ok": True, "device": {

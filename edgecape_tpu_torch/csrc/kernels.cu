@@ -3516,9 +3516,15 @@ __global__ void __launch_bounds__(PA_THREADS, 1)
 //     registers (with a producer warpgroup, setmaxnreg leaves 240, and
 //     ptxas spilled the loop's state around the 192 output registers);
 //   * W1 and W2 stream by TMA through a ring of 8 slots of 16 KB in the
-//     order the warpgroups use them, the same for every tile (so from L2),
-//     each block starting at its own chunk (when all blocks asked for the
-//     same lines at once, the query pass took longer); each of the 8
+//     order the warpgroups use them, chunk 0 first, the same for every
+//     tile of every block (so from L2): fc2 sums the hidden chunks into
+//     fp32 registers in that order, so a row's bits do not depend on the
+//     block, the tile or the call it lands in. Where the blocks walk more
+//     than one tile each, they start in four groups about a chunk's time
+//     apart (5 us), so that they do not all ask L2 for the same lines at
+//     once (on an H100 the query pass took 1.070 ms in lockstep, 1.030
+//     so staggered, 0.998 when each block started at its own chunk and
+//     summed in its own order); each of the 8
 //     warps counts its release of a slot in shared memory, and the warp
 //     whose release is the eighth issues the slot's next load at once:
 //     nobody waits for a slot to be freed;
@@ -3701,22 +3707,22 @@ __device__ __forceinline__ void vm_prefetch(const void* x, int x_dt, int R, long
   }
 }
 
-// The loads of vit_mlp_kernel's ring: a tile's chunks in turn, each the
-// three fc1 slots then the three fc2 slots, the same for every tile of the
-// block; block b starts at chunk b % chunks, so that the blocks do not all
-// ask L2 for the same lines at the same time. fc1 slot r < 3 holds the k
-// slabs 2 r, 2 r + 1 of the chunk's 64 columns, fc2 slot r - 3 the output
-// columns 128 (r - 3) .. + 127.
+// The loads of vit_mlp_kernel's ring: a tile's chunks 0, 1, .. in turn,
+// each the three fc1 slots then the three fc2 slots, the same for every
+// tile of every block. fc2 reduces over the chunks in this order, so no
+// block may start at another chunk: a row's sum order would then follow
+// the block its tile lands on. fc1 slot r < 3 holds the k slabs 2 r,
+// 2 r + 1 of the chunk's 64 columns, fc2 slot r - 3 the output columns
+// 128 (r - 3) .. + 127.
 template <bool KMAJ>
 struct VmLoader {
   static constexpr unsigned kBytes = PA_UNIT;
   const CUtensorMap *w1, *w2;
   int chunks;
-  int rot;          // the block's first chunk
 
   __device__ __forceinline__ void operator()(unsigned i, unsigned char* dst,
                                              uint64_t* bar) const {
-    const int r = (int)(i % 6), f0 = VM_CHUNK * (int)((i / 6 + rot) % chunks);
+    const int r = (int)(i % 6), f0 = VM_CHUNK * (int)(i / 6 % chunks);
     mbar_expect_tx(bar, PA_UNIT);
     if (r < 3) {
       if (KMAJ) {
@@ -3753,13 +3759,15 @@ __global__ void __launch_bounds__(VM_THREADS, 1)
   ring.ld.w1 = &map_w1;
   ring.ld.w2 = &map_w2;
   ring.ld.chunks = chunks;
-  ring.ld.rot = (int)(blockIdx.x % (unsigned)chunks);
   if (threadIdx.x == 0) {
     ring.init();
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (threadIdx.x == 0) ring.prime();
+  if (threadIdx.x == 0) {
+    if (tiles > (int)gridDim.x) __nanosleep((blockIdx.x % 4u) * 5000u);   // the stagger
+    ring.prime();
+  }
 
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31, t = lane & 3;
@@ -3795,7 +3803,7 @@ __global__ void __launch_bounds__(VM_THREADS, 1)
       ring.drain(lane);
       reg_fence(f);
       unsigned a[4][4];
-      const float* b1 = p.b1 + VM_CHUNK * ((j + ring.ld.rot) % chunks) + 2 * t;
+      const float* b1 = p.b1 + VM_CHUNK * j + 2 * t;
 #pragma unroll
       for (int n8 = 0; n8 < 8; ++n8) {
         const float2 bb = __ldg(reinterpret_cast<const float2*>(b1 + 8 * n8));
@@ -4052,8 +4060,10 @@ struct VitQkvArgs {
 
 // The loads of vit_qkv_kernel's ring: a tile's 9 chunks of 128 output
 // columns in turn, each its 6 k slabs of 64, the same for every tile of
-// the block; block b starts at chunk b % 9 (as vit_mlp_kernel's blocks
-// start at their own chunk).
+// the block; block b starts at chunk b % 9, so that the blocks do not all
+// ask L2 for the same lines at the same time. The chunks are output
+// columns, each summed over its k slabs 0 .. 5 in turn, so the rotation
+// leaves every element's sum order as it is.
 struct VqLoader {
   static constexpr unsigned kBytes = PA_UNIT;
   const CUtensorMap* w;
@@ -4210,7 +4220,9 @@ struct VaKvLoader {
 
 // Wproj [384 out, 384 in] in slots of [128 x 64]: load i holds the output
 // columns 128 ((i % 18 / 6 + rot) % 3) .. + 127 of the k slab i % 6, the
-// same 18 loads for every item; block b starts at column chunk b % 3.
+// same 18 loads for every item; block b starts at column chunk b % 3
+// (output columns: each element still sums the k slabs 0 .. 5 in turn,
+// whatever the block).
 struct VaWpLoader {
   static constexpr unsigned kBytes = PA_UNIT;
   const CUtensorMap* w;

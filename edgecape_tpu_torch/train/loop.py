@@ -221,6 +221,38 @@ def make_train_step(model: EdgeCape, backbone: dinov2.DinoViT, optimizer,
     return train_step
 
 
+def build_train_modules(cfg, device: torch.device, backbone_state: dict,
+                        head_state: dict, steps_per_epoch: int,
+                        backbone_cfg: dinov2.DinoV2Config = dinov2.VIT_S14,
+                        log_fn: Optional[Callable] = None):
+    """(backbone, model, optimizer, sched) of a training run on `device`:
+    the frozen trunk (on a CUDA device with model.train_backbone_fast the
+    fused bf16 blocks over fp32 parameters, whose widths it checks; else
+    the plain trunk at the compute dtype), the head with
+    `cfg.model.use_flash` (resolved by the caller), Adam and its schedule
+    (train/state.make_optimizer)."""
+    mcfg = cfg.model
+    if mcfg.train_backbone_fast:
+        require_widths(("fused_vit_block",),
+                       dinov2.width_misfits(mcfg, backbone_cfg), device,
+                       "model.train_backbone_fast=False")
+    fast = mcfg.train_backbone_fast and device.type == "cuda"
+    backbone = dinov2.DinoViT(backbone_cfg, mcfg.image_size)
+    backbone.load_state_dict(backbone_state)
+    backbone.to(device, torch.float32 if fast else
+                _DTYPES[mcfg.compute_dtype]).eval()
+    backbone.requires_grad_(False)
+    if fast and log_fn is not None:
+        log_fn("train step: fused bf16 backbone active "
+               "(model.train_backbone_fast=false for the plain trunk)")
+    model = EdgeCape(mcfg, use_flash=mcfg.use_flash, device=device)
+    model.load_state_dict(head_state)
+    model.to(device)
+    optimizer, sched = make_optimizer(cfg.train, steps_per_epoch, model,
+                                      mcfg.model_freeze)
+    return backbone, model, optimizer, sched
+
+
 class Trainer:
     """Epoch-based trainer with an eval hook, best-PCK tracking,
     checkpoints and resume. Runs on the CUDA device unless `device` says
@@ -242,10 +274,6 @@ class Trainer:
                          else flash)
         cfg = config_lib.replace(cfg, model=config_lib.replace(
             cfg.model, use_flash=use_flash))
-        if cfg.model.train_backbone_fast:
-            require_widths(("fused_vit_block",),
-                           dinov2.width_misfits(cfg.model, backbone_cfg),
-                           self.device, "model.train_backbone_fast=False")
         self.cfg = cfg
         self.train_ds = train_ds
         self.val_ds = val_ds
@@ -269,24 +297,11 @@ class Trainer:
             self.backbone_state = multihost.replicate_global(
                 self.backbone_state)
 
-        fast = cfg.model.train_backbone_fast and self.device.type == "cuda"
-        self.backbone = dinov2.DinoViT(backbone_cfg, cfg.model.image_size)
-        self.backbone.load_state_dict(self.backbone_state)
-        self.backbone.to(self.device, torch.float32 if fast else
-                         _DTYPES[cfg.model.compute_dtype]).eval()
-        self.backbone.requires_grad_(False)
-        if fast:
-            self.log("train step: fused bf16 backbone active "
-                     "(model.train_backbone_fast=false for the plain trunk)")
-        self.model = EdgeCape(cfg.model, use_flash=use_flash,
-                              device=self.device)
-        self.model.load_state_dict(head_state)
-        self.model.to(self.device)
-
         self.steps_per_epoch = max(len(train_ds) // cfg.train.batch_size, 1)
-        self.optimizer, self.sched = make_optimizer(
-            cfg.train, self.steps_per_epoch, self.model,
-            cfg.model.model_freeze)
+        self.backbone, self.model, self.optimizer, self.sched = \
+            build_train_modules(cfg, self.device, self.backbone_state,
+                                head_state, self.steps_per_epoch,
+                                backbone_cfg, self.log)
         self.step = 0
         self.start_epoch = 0
         self.best_pck = -1.0

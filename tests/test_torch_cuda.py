@@ -1210,6 +1210,28 @@ def test_vit_mlp_next_ln_bit_equal_to_layernorm_kernel(dev, rows, x_dtype):
     assert torch.equal(y32.to(torch.bfloat16), y)
 
 
+@pytest.mark.parametrize("rows", [16 * 257, 510 * 257])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_vit_mlp_rows_do_not_depend_on_the_call(dev, rows, x_dtype):
+    """A row gets the same bits in one call on 2 x rows as in a call on
+    its half: the second half's rows sit at another place in the 128-row
+    tiles and on other blocks of the persistent grid in the one call
+    (rows: the training step's 16 images of 257 tokens, the query pass's
+    510), so the fc2 sum over the hidden chunks must run in one order for
+    every block."""
+    from edgecape_tpu_torch.ops import kernels as K
+    w = _vit_mlp_weights(dev, True, seed=46)
+    x = _rn(dev, 2 * rows, 384, seed=47).to(x_dtype)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        whole, _ = K.vit_mlp(x, w, eps=1e-6, out_dtype=out_dtype)
+        halves = torch.cat([K.vit_mlp(x[:rows], w, eps=1e-6,
+                                      out_dtype=out_dtype)[0],
+                            K.vit_mlp(x[rows:], w, eps=1e-6,
+                                      out_dtype=out_dtype)[0]])
+        assert torch.equal(whole, halves), \
+            int((whole != halves).sum())
+
+
 def test_vit_mlp_refuses_what_it_does_not_take(dev):
     from edgecape_tpu_torch.ops import kernels as K
     w = _vit_mlp_weights(dev, True)

@@ -52,7 +52,8 @@ TRUNK_WIDTH = dict(depth=1, embed_dim=32, num_heads=1)
 # same batches
 EVAL_BATCH = 9
 TIMING_KEYS = ("eval_seconds", "images_per_sec", "host_collate_seconds",
-               "device_wait_seconds", "dispatch_seconds")
+               "device_wait_seconds", "dispatch_seconds",
+               "first_call_seconds")
 
 CONFIG = '''from edgecape_tpu_torch.config import (Config, DataConfig, ModelConfig,
                                        TrainConfig)

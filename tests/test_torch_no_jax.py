@@ -41,7 +41,8 @@ for needed in ("config", "train.state", "train.loop", "train.checkpoint",
                "cli.run", "cli.serve", "cli.router", "cli.demo", "cli.app",
                "utils.visualization", "parallel.mesh", "parallel.multihost",
                "utils.profiling", "tools.convert_checkpoint",
-               "tools.profile_eval_stages", "cli.dist_flags"):
+               "tools.profile_eval_stages", "cli.dist_flags", "tools.bench",
+               "ops.counters"):
     assert "edgecape_tpu_torch." + needed in names, needed
 pulled = [m for m in sys.modules if m.split(".")[0] == "edgecape_tpu"]
 assert not pulled, pulled

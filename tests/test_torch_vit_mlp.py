@@ -5,10 +5,9 @@ shares with layernorm_kernel (lane l of a warp sums the columns 64 k + 2 l
 + e in that order, the 32 partials meet in the butterfly 16, 8, 4, 2, 1
 lanes apart), tiles of 128 rows whose missing rows are zeros, the hidden
 in chunks of 64 columns through the Abramowitz & Stegun erf of the kernel
-(gelu_as) and rounded to bf16, fc2 accumulated chunk by chunk starting
-at the block's own chunk (block b starts at chunk b mod the chunk count;
-tile t runs on block t mod the grid), the
-LayerScale residual from x unrounded, and the next block's LayerNorm of
+(gelu_as) and rounded to bf16, fc2 accumulated chunk by chunk from chunk 0
+in every tile of every block (so a row's bits do not depend on the tile
+or the call it lands in), the LayerScale residual from x unrounded, and the next block's LayerNorm of
 bf16(y) in the epilogue, summed by a quad of threads a row. Held against
 the plain versions of fused_ln_mlp and fused_vit_block and against the
 JAX fused_ln_mlp (Pallas in interpret mode) and its reference function.
@@ -105,13 +104,10 @@ def gelu_as(x):
                                            z))
 
 
-def vit_mlp_tiled(x, w, *, eps=EPS, out_dtype=None, next_ln=None,
-                  grid=None):
+def vit_mlp_tiled(x, w, *, eps=EPS, out_dtype=None, next_ln=None):
     """vit_mlp_kernel's order on x [R, C] (fp32 or bf16): (y [R, C] in
     out_dtype, h_next fp32 holding bf16 values or None). w: torch Linear
-    layout (w1 [F, C], w2 [C, F]) and fp32 vectors. grid: the blocks of
-    the persistent grid (the card's SM count caps it; default one block
-    a tile)."""
+    layout (w1 [F, C], w2 [C, F]) and fp32 vectors."""
     r = x.shape[0]
     xf = x.float()
     h = plain.bf16(ln_rows(xf, w["g"], w["be"], eps))
@@ -119,13 +115,11 @@ def vit_mlp_tiled(x, w, *, eps=EPS, out_dtype=None, next_ln=None,
     h = torch.cat([h, h.new_zeros(pad, C)])
     w1, w2 = plain.bf16(w["w1"]), plain.bf16(w["w2"])
     chunks = w1.shape[0] // CHUNK
-    tiles = h.shape[0] // TILE
-    grid = tiles if grid is None else min(grid, tiles)
     out = []
-    for t, h_t in enumerate(h.split(TILE)):
+    for h_t in h.split(TILE):
         acc = torch.zeros(TILE, C)
         for k in range(chunks):
-            j = CHUNK * ((k + (t % grid) % chunks) % chunks)
+            j = CHUNK * k
             f = plain.bf16(gelu_as(h_t @ w1[j:j + CHUNK].t()
                                    + w["b1"][j:j + CHUNK]))
             acc = acc + f @ w2[:, j:j + CHUNK].t()
@@ -191,15 +185,14 @@ def test_epilogue_quad_order_gives_layernorm_kernel_bits(seed):
                                rtol=1e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("rows,grid", [(300, None), (128, None), (300, 2)])
+@pytest.mark.parametrize("rows", [300, 128, 44])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_vit_mlp_emulation_matches_fused_ln_mlp_plain(rows, grid, dtype):
+def test_vit_mlp_emulation_matches_fused_ln_mlp_plain(rows, dtype):
     """#9's order on the card against its plain version: a ragged last
-    tile (300 rows: 2 tiles + 44), one whole tile, and two blocks for
-    three tiles (the first block's second tile starts at its chunk)."""
+    tile (300 rows: 2 tiles + 44), one whole tile, and one ragged tile."""
     args = _mlp_args(rows, seed=rows)
     x = torch.from_numpy(args[0]).to(dtype)
-    y, hn = vit_mlp_tiled(x, _kernel_weights(args), grid=grid)
+    y, hn = vit_mlp_tiled(x, _kernel_weights(args))
     ref = tmlp.fused_ln_mlp_plain(x, *map(torch.from_numpy, args[1:]),
                                   eps=EPS)
     assert y.dtype == dtype and hn is None
