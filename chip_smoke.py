@@ -55,10 +55,14 @@ Phases (any failure exits non-zero before the last line):
    one chunk is compared with the same weights on the plain (no kernel)
    path on the card; one more chunk of the kernel path runs under
    torch.profiler, which gives device time by kernel and the device's
-   busy share of that chunk's wall time. Then a head of d_model 128 in 4
-   heads over a two-block ViT-S/14, asked for on the card with the
+   busy share of that chunk's wall time. The `[path]` line also prints
+   every kernel the path launched with its count beside MAIN_PATH_KERNELS
+   (what the path launched before the streaming kernels existed) and
+   fails if they differ or a streaming kernel ran. Then a head of d_model 128
+   in 4 heads over a two-block ViT-S/14, asked for on the card with the
    kernels on, must be refused when it is built, naming the ops whose
-   kernels do not take 128 channels, with no kernel launched
+   kernels do not take 128 channels, with no kernel launched, and the
+   stage-3 widths in bf16 must be taken at 224, 256 and 518 px
    (`[widths]`);
 4. the training path: the port's Trainer (stage 3: learned skeleton,
    Markov bias, masked supervision, skeleton frozen; full ViT-S/14,
@@ -148,8 +152,9 @@ Phases (any failure exits non-zero before the last line):
 13. the demo (`[demo]`, cli/demo.py infer) at its default 256 px on a
    support / query pair with an annotation dict: launch counters, the
    predictions against the strict path, the figure where matplotlib
-   imports; the same model in bf16 at 256 px refused when it is built
-   (the fused ViT block does not hold 325 tokens);
+   imports; the same model in bf16 at 256 px built and run (its fused ViT
+   block streams the attention's keys past 272 tokens), its predictions
+   against the strict path;
 14. multi-process training and eval (`[dist]`, parallel/, eval/runner.py
    and train/loop.py in a process group): prints
    torch.cuda.device_count(), then
@@ -185,14 +190,32 @@ Phases (any failure exits non-zero before the last line):
    eval phases #2, #3, #5, #6, the training phases #2, #7, #8; the strict
    fp32 eval no kernel); its figures beside the smoke's own for the same
    paths;
-17. prints {"kernels": [...]} on its own line, then the result line
+17. the streaming attention kernels (`[long]`, csrc/attn_long.cu) and the
+   stage-3 model at DINOv2's own 518 px: each kernel against its plain
+   version at the 518 px shapes, past the caps and at a ragged count
+   (`[op] attention` lines of tools/bench_attention.py LONG_SHAPES:
+   device, wrapper, plain, bound and SDPA ms; each backward kernel's own
+   device ms, bound and gradients' worst difference); the streaming forward
+   forced at the 224 px path's 356- and 256-key shapes, bit-equal to
+   attn_kernel, both device times; the attention of the 510-image query
+   pass beside SDPA; a cached eval of 8 groups x 15 queries at 518 px in
+   bf16 with both variant switches on, then off, against the plain path,
+   the streaming kernel counted on its route; 2 stage-3 Trainer steps at
+   518 px on 8 rows (dropout 0), one step's loss and gradients against
+   the plain path, beside the same step at 280 px (500 keys: the resident
+   kernels), the streaming kernels counted; one training forward at
+   rate 0.1 against the plain version fed dropout_mask(seed); device ms,
+   idle share and peak memory of a chunk and of a step;
+18. prints {"kernels": [...]} on its own line, then the result line
    {"ok": true, "device": {...}} last. The kernels line holds, besides
    each kernel op's entry, the serving shapes' entries (`flash_mha (ViT
    fp32, 224 px)` and the rest); an op's `launches` is its count on the
    main path (phase 3), its `serve_launches`, `router_launches` and
    `demo_launches` those on phases 11-13, `dist_launches` rank 0's on
-   phase 14 (gloo), and a serving shape's `launches` its op's count on
-   the path of that shape.
+   phase 14 (gloo), a serving shape's `launches` its op's count on
+   the path of that shape, and a streaming kernel's `launches` (also
+   `long_launches`) its count on the 518 px eval (attn_long_kernel,
+   switches off) or training run of phase 17.
 Nothing here imports jax or the JAX package.
 """
 
@@ -476,12 +499,13 @@ def device_extra(name, kern, cap, bad, must_run=()):
             f"{by_kernel or 'not measured'})", dev_ms, per_call, by_name)
 
 
-def main_path_config():
+def main_path_config(size=SIZE):
     """The stage-3 eval configuration of the main path: learned skeleton
-    and Markov bias, K=100, 224 px, bf16 compute and head dtype."""
+    and Markov bias, K=100, 224 px (or `size`), bf16 compute and head
+    dtype."""
     from edgecape_tpu_torch.config import Config, ModelConfig
     return Config(model=ModelConfig(
-        image_size=SIZE, max_kpt=K, learn_skeleton=True, attn_bias=True,
+        image_size=size, max_kpt=K, learn_skeleton=True, attn_bias=True,
         max_hops=4, compute_dtype="bfloat16", head_dtype="bfloat16",
         use_flash=True))
 
@@ -706,36 +730,50 @@ def op_checks(dev, entries):
 
 
 # ------------------------------------------------------------ phase 3
-def episodes(rng):
-    """CHUNKS chunks of GROUPS groups x QUERIES queries, in memory:
-    uint8 images, support joints, query ground-truth joints, a chain
-    skeleton with a few chords, some keypoints invisible."""
+# Every kernel the main path (3 chunks, switches off) launched, and how
+# often, before the streaming kernels existed: a chunk is 24
+# ViT blocks of 3 kernels, the encoder's add-pos and 3 layers of a GEMM,
+# attn_kernel and enc_post_kernel, 3 decoder layers of 4 GEMMs, 2
+# attn_kernel and the two post-attention kernels, and the skeleton's 3
+# attn_kernel. The 224 px path keeps them: its rows fit the resident
+# kernels.
+MAIN_PATH_KERNELS = {
+    "gemm_tma_kernel": 45, "add_pos_kernel": 3, "attn_kernel": 36,
+    "enc_post_kernel": 9, "dec_post_self_kernel": 9,
+    "dec_post_cross_kernel": 9, "vit_mlp_kernel": 72,
+    "vit_qkv_kernel": 72, "vit_attn_kernel": 72}
+
+
+def episodes(rng, groups=GROUPS, size=SIZE, chunks=CHUNKS):
+    """`chunks` chunks of `groups` groups x QUERIES queries of `size` px,
+    in memory: uint8 images, support joints, query ground-truth joints, a
+    chain skeleton with a few chords, some keypoints invisible."""
     adj = np.zeros((K, K), np.float32)
     for i in range(K - 1):
         adj[i, i + 1] = adj[i + 1, i] = 1.0
     for i, j in rng.integers(0, K, size=(10, 2)):
         if i != j:
             adj[i, j] = adj[j, i] = 1.0
-    nq = GROUPS * QUERIES
+    nq = groups * QUERIES
     out = []
-    for _ in range(CHUNKS):
-        vis = (rng.uniform(size=(GROUPS, 1, K)) > 0.1).astype(np.float32)
+    for _ in range(chunks):
+        vis = (rng.uniform(size=(groups, 1, K)) > 0.1).astype(np.float32)
         support = {
-            "img_s": rng.integers(0, 256, (GROUPS, 1, SIZE, SIZE, 3),
+            "img_s": rng.integers(0, 256, (groups, 1, size, size, 3),
                                   dtype=np.uint8),
-            "joints_s": rng.uniform(8, SIZE - 8, (GROUPS, 1, K, 2)).astype(
+            "joints_s": rng.uniform(8, size - 8, (groups, 1, K, 2)).astype(
                 np.float32),
             "vis_s": vis,
-            "binary_adj": np.tile(adj, (GROUPS, 1, 1))}
-        group = np.repeat(np.arange(GROUPS, dtype=np.int32), QUERIES)
-        query = {"img_q": rng.integers(0, 256, (nq, SIZE, SIZE, 3),
+            "binary_adj": np.tile(adj, (groups, 1, 1))}
+        group = np.repeat(np.arange(groups, dtype=np.int32), QUERIES)
+        query = {"img_q": rng.integers(0, 256, (nq, size, size, 3),
                                        dtype=np.uint8),
                  "group": group,
-                 "joints_q": rng.uniform(8, SIZE - 8, (nq, K, 2)).astype(
+                 "joints_q": rng.uniform(8, size - 8, (nq, K, 2)).astype(
                      np.float32),
                  "weight_q": vis[group, 0]}
-        meta = {"query_center": np.full((nq, 2), SIZE / 2, np.float32),
-                "query_scale": np.full((nq, 2), SIZE / 200.0, np.float32)}
+        meta = {"query_center": np.full((nq, 2), size / 2, np.float32),
+                "query_scale": np.full((nq, 2), size / 200.0, np.float32)}
         out.append((support, query, meta))
     return out
 
@@ -747,6 +785,7 @@ def main_path(dev, entries, power, figures):
                                                    redraw_zero_inits)
     from edgecape_tpu_torch.ops import affine
     from edgecape_tpu_torch.ops import kernels as KN
+    from edgecape_tpu_torch.ops.counters import LONG_KERNELS
     import edgecape_tpu_torch.ops.fused_decoder as FD
     import edgecape_tpu_torch.ops.fused_encoder as FE
     import edgecape_tpu_torch.ops.fused_vit_block as FV
@@ -808,6 +847,15 @@ def main_path(dev, entries, power, figures):
     print(f"[path] launches {counts} expected {expect}; GEMM launches by "
           f"mainloop {gemms} expected {expect_gemms}; post-attention and "
           f"MLP kernels {post} expected {expect_post}", flush=True)
+    launched = {k: n for k, n in KN.launch_counts().items() if n}
+    streamed = {k: KN.launches[k] for k in LONG_KERNELS}
+    same = launched == MAIN_PATH_KERNELS and not any(streamed.values())
+    print(f"[path] kernels of the main path and their launches {launched}; "
+          f"before the streaming kernels existed {MAIN_PATH_KERNELS}; the "
+          f"streaming kernels {streamed} "
+          f"{'OK' if same else 'FAIL'}", flush=True)
+    if not same:
+        fail("the 224 px main path's kernels or launch counts changed")
     for name in ("fused_vit_block", "fused_encoder_stack",
                  "fused_decoder_layer", "flash_mha"):
         entries[name]["launches"] = counts[name]
@@ -1206,23 +1254,39 @@ def width_check(dev, power):
     named = [op for op in ("fused_encoder_stack", "fused_decoder_layer",
                            "fused_decoder_stack") if op in msg]
     ok = len(named) == 3 and "256 channels, got 128" in msg and not ran
+    # the stage-3 widths at the image sizes the paths use: the build's
+    # check (the trunk's fused op at bf16 and the head's) takes each
+    from edgecape_tpu_torch.models import dinov2
+    from edgecape_tpu_torch.models.edgecape import HEAD_OPS
+    from edgecape_tpu_torch.ops.kernel_config import require_widths
+    taken = []
+    for size in (SIZE, DEMO_SIZE, LONG_SIZE):
+        model = main_path_config(size).model
+        try:
+            require_widths(dinov2.fused_ops(model) + HEAD_OPS,
+                           dinov2.width_misfits(model), dev)
+            taken.append(size)
+        except ValueError as e:
+            print(f"[widths] {size} px refused: {e}", flush=True)
+    ok = ok and taken == [SIZE, DEMO_SIZE, LONG_SIZE]
     print(f"[widths] d_model 128, 4 heads, num_feats 64, use_flash on the "
           f"card: the build raised {bool(err)} naming {named} "
           f"({msg or 'no error'}); hand-written launches {sum(ran.values())}"
-          f"; the main path's stage-3 widths built on {power} "
+          f"; the stage-3 widths in bf16 taken at {taken} px on {power} "
           f"{'OK' if ok else 'FAIL'}", flush=True)
     if not ok:
-        fail("a model of other widths was not refused when it was built")
+        fail("a model of other widths was not refused when it was built, "
+             "or the stage-3 model was refused at 224, 256 or 518 px")
     torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ phase 4
-def train_config(work_dir):
+def train_config(work_dir, size=SIZE):
     """Stage-1 ('base') training configuration at full width; the stage-2
     and stage-3 configurations are derived from it by the port's
     stage2_config / stage3_config."""
     from edgecape_tpu_torch import config as C
-    cfg = main_path_config()
+    cfg = main_path_config(size)
     # the head trains in fp32
     cfg.model = C.replace(cfg.model, compute_dtype="float32",
                           head_dtype="float32", learn_skeleton=False,
@@ -1242,8 +1306,8 @@ class RefedBatch:
     keypoints masked for the reconstruction branch)."""
     num_shots = 1
 
-    def __init__(self, steps, rng):
-        self.steps = steps
+    def __init__(self, steps, rng, size=SIZE, b=TRAIN_B):
+        self.steps, self.b = steps, b
         f32 = np.float32
         adj = np.zeros((K, K), f32)
         for i in range(K - 1):
@@ -1251,21 +1315,20 @@ class RefedBatch:
         for i, j in rng.integers(0, K, size=(10, 2)):
             if i != j:
                 adj[i, j] = adj[j, i] = 1.0
-        b = TRAIN_B
         vis = (rng.uniform(size=(b, 1, K)) > 0.1).astype(f32)
         self.batch = {
-            "img_s": rng.normal(size=(b, 1, SIZE, SIZE, 3)).astype(f32),
-            "img_q": rng.normal(size=(b, SIZE, SIZE, 3)).astype(f32),
-            "joints_s": rng.uniform(8, SIZE - 8, (b, 1, K, 2)).astype(f32),
+            "img_s": rng.normal(size=(b, 1, size, size, 3)).astype(f32),
+            "img_q": rng.normal(size=(b, size, size, 3)).astype(f32),
+            "joints_s": rng.uniform(8, size - 8, (b, 1, K, 2)).astype(f32),
             "vis_s": vis,
             "target_q": np.zeros((b, K, 64, 64), f32),
             "weight_q": (rng.uniform(size=(b, K)) > 0.1).astype(f32),
-            "joints_q": rng.uniform(8, SIZE - 8, (b, K, 2)).astype(f32),
+            "joints_q": rng.uniform(8, size - 8, (b, K, 2)).astype(f32),
             "binary_adj": np.tile(adj, (b, 1, 1)),
             "rand_mask": (rng.uniform(size=(b, K)) > 0.5).astype(f32)}
 
     def __len__(self):
-        return self.steps * TRAIN_B
+        return self.steps * self.b
 
     def resample_episodes(self):
         pass
@@ -3075,14 +3138,14 @@ def router_path(dev, entries, power, served):
 
 def demo_path(dev, entries, power):
     """The demo's inference (cli/demo.py infer) at its default 256 px
-    (325 ViT tokens, which flash_mha takes and the bf16 fused block does
-    not) on one support / query pair with an annotation dict: launch
-    counters, predictions against the strict path on the card, the
-    figure; a bf16 model at 256 px is refused when it is built."""
+    (325 ViT tokens) on one support / query pair with an annotation dict:
+    launch counters, predictions against the strict path on the card, the
+    figure; the same model in bf16, whose fused ViT block streams the
+    attention's keys (attn_long_kernel), built and held against the strict
+    path too."""
     from edgecape_tpu_torch.api import PoseEstimator
     from edgecape_tpu_torch.cli import demo as D
     from edgecape_tpu_torch.ops import kernel_config
-    from edgecape_tpu_torch.tools import bench_attention as BA
 
     bb, head = stage3_weights(DEMO_SIZE, SEED + 31)
     est = D.stage3_estimator(DEMO_SIZE, backbone_state=bb, head_state=head,
@@ -3135,26 +3198,34 @@ def demo_path(dev, entries, power):
               f"bytes", flush=True)
         if size < 1000:
             fail("the demo's figure is empty")
+    # the same model in bf16: its 325 ViT tokens go through the fused
+    # block, whose attention streams its keys past 272 (attn_long_kernel)
     cfg = D.stage3_config(DEMO_SIZE)
     cfg.model.compute_dtype = cfg.model.head_dtype = "bfloat16"
-    err = []
-
-    def build():
-        try:
-            PoseEstimator(cfg, bb, head, device=dev)
-        except ValueError as e:
-            err.append(str(e))
-
-    ran = BA.launched(build)
-    msg = err[0] if err else ""
-    ok = "fused_vit_block (" in msg and "flash_mha" not in msg and not ran
-    print(f"[demo] the same model in bf16 at {DEMO_SIZE} px, built for the "
-          f"card: refused {bool(err)} ({msg or 'no error'}); hand-written "
-          f"launches {sum(ran.values())} {'OK' if ok else 'FAIL'}",
-          flush=True)
+    bf = PoseEstimator(cfg, bb, head, device=dev)
+    D.infer(bf, sup, qry, ann)                      # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    res = D.infer(bf, sup, qry, ann)
+    wall = time.perf_counter() - t0
+    ops, kern = read_counts()
+    med, mx, within = coord_gap(res["pred_px"] / DEMO_SIZE,
+                                want["pred_px"] / DEMO_SIZE)
+    ok = (med <= PATH_MEDIAN_TOL and within >= PATH_WITHIN_SHARE
+          and np.isfinite(res["pred_px"]).all()
+          and kern.get("attn_long_kernel", 0) > 0
+          and ops["fused_vit_block"] + ops["fused_vit_block2"] > 0)
+    print(f"[demo] the same model in bf16 at {DEMO_SIZE} px (the fused ViT "
+          f"block over 325 tokens) on {power}: {wall * 1e3:.1f} ms; launches "
+          f"{kern}; vs the fp32 strict path median |d| {med:.4g} (tol "
+          f"{PATH_MEDIAN_TOL}), max {mx:.4g}, share within {PATH_CELL:.4g}: "
+          f"{within:.4f} (tol >= {PATH_WITHIN_SHARE}) "
+          f"{'OK' if ok else 'FAIL'}", flush=True)
     if not ok:
-        fail("a bf16 model at 256 px was not refused when it was built")
-    del est, ref
+        fail("the bf16 demo model at 256 px disagrees with the strict path "
+             "or did not stream its ViT attention")
+    del est, ref, bf
     torch.cuda.empty_cache()
 
 
@@ -3831,6 +3902,424 @@ def bench_run(power, figures):
              f"{bad}")
 
 
+# ------------------------------------------------------------ phase 17
+# [long]: the stage-3 model at DINOv2's own 518 px (37 x 37 patches: 1370
+# ViT tokens, 1369 + K keys in the joint encoder, 1369 in the decoder's
+# cross-attention), whose rows the resident attention kernels do not hold:
+# the streaming kernels (csrc/attn_long.cu). Image size, eval groups (of
+# QUERIES queries, two chunks of half of them), training rows and steps,
+# the dropout rate of the mask check.
+LONG_SIZE, LONG_GROUPS, LONG_ROWS, LONG_STEPS, LONG_RATE = 518, 8, 8, 2, 0.1
+# the streaming kernel a chunk of the 518 px eval launches: one per ViT
+# block and pass (support, query), one per encoder layer and one per
+# decoder layer's cross-attention
+LONG_CHUNK_LAUNCHES = 2 * 12 + 3 + 3
+# training: loss of one step, kernel path against the plain path
+# (relative; the gradients keep GRAD_REL_L2 / GRAD_TENSOR_REL_L2)
+LONG_LOSS_REL = 1e-2
+# the largest image whose joint encoder (20 x 20 patches + K keys: 500)
+# stays within the resident kernels' 512 keys, where the JAX module also
+# trains its attention with its bf16 kernel: the yardstick of the 518 px
+# step's gradient gap
+LONG_NEAR_CAP = 280
+LONG_SOURCE = "edgecape_tpu_torch/csrc/attn_long.cu"
+
+
+# the backward pair's kernels: the gradients each writes, and its part of
+# tools/bench_attention.py BwdCase.bound_ms
+LONG_BWD_PARTS = {"train_bwd_q_long_kernel": (("dq", "dbias"), "q"),
+                  "train_bwd_k_long_kernel": (("dk", "dv"), "k")}
+
+
+def kernel_device_ms(row, name):
+    """A kernel's own device ms a call from an [op] row's trace, or None
+    where the trace lost its events."""
+    by = row.get("by_kernel") or {}
+    return sum(ms for k, ms in by.items() if name in k) or None
+
+
+def long_entry(name, row, replaces, launches, what):
+    """A kernels-line entry of a streaming kernel from its [op] row. A
+    kernel of the backward pair (whose wrapper launches both) gets its
+    own device time as `ms`, its own bound and the worst difference of
+    the gradients it writes; the pair's wrapper, plain and SDPA-backward
+    figures go under `pair`, and its `plain_ms` is the pair's, so
+    labelled: no plain version or library call computes one kernel's
+    gradients alone."""
+    dev_ms = kernel_device_ms(row, name)
+    entry = {"name": name, "route": "cuda", "source": LONG_SOURCE,
+             "replaces": replaces, "launches": launches,
+             "long_launches": launches, "max_abs_err": row["max_abs_err"],
+             "ms": row["wrapper_ms"], "device_ms": dev_ms,
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["sdpa_ms"],
+             "shape": row["shape"], "what": what}
+    if name in LONG_BWD_PARTS:
+        grads, part = LONG_BWD_PARTS[name]
+        bnd, by = row["part_bounds"][part]
+        entry.update(
+            max_abs_err=max(row["errs"].get(g, 0.0) for g in grads),
+            gradients=list(grads), ms=dev_ms,
+            ms_is="this kernel's own device time a call (its wrapper "
+                  "launches the pair)",
+            bound_ms=bnd, bound_by=by, library_ms=None,
+            plain_ms_is="the pair's: dq, dk, dv through autograd of "
+                        "flash_mha_train_plain",
+            pair={"kernels": list(LONG_BWD_PARTS), "ms": row["wrapper_ms"],
+                  "device_ms": row["device_ms"],
+                  "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                  "bound_by": row["bound_by"], "library_ms": row["sdpa_ms"],
+                  "library_device_ms": row["sdpa_device_ms"],
+                  "library": "SDPA backward"})
+    return entry
+
+
+def long_path(dev, entries, power, figures):
+    """[long] (the streaming attention kernels): each kernel against its
+    plain version at the 518 px shapes, just past the caps and at a ragged
+    count (tools/bench_attention.py LONG_SHAPES); the streaming forward
+    forced at the 224 px path's 356- and 256-key shapes beside attn_kernel
+    (the same bits, their device times); the attention at the 510-image
+    query pass; a cached eval of LONG_GROUPS x QUERIES queries at 518 px in
+    bf16 with both variant switches on, then off, against the plain path
+    (use_flash=False) on the same weights; LONG_STEPS stage-3 Trainer steps
+    at 518 px on LONG_ROWS rows (dropout 0), one step's loss and gradients
+    against the plain path, and the same at LONG_NEAR_CAP px, whose keys
+    the resident kernels hold; one training forward at rate LONG_RATE against
+    the plain version fed dropout_mask(seed); device ms, idle share and
+    peak memory of a chunk and of a step."""
+    from edgecape_tpu_torch import config as C
+    from edgecape_tpu_torch.api import PoseEstimator
+    from edgecape_tpu_torch.eval.runner import run_cached
+    from edgecape_tpu_torch.models.convert import (init_params,
+                                                   redraw_zero_inits)
+    from edgecape_tpu_torch.ops import counters, kernel_config
+    from edgecape_tpu_torch.ops import flash_attention as FA
+    from edgecape_tpu_torch.ops import kernels as KN
+    from edgecape_tpu_torch.tools import bench_attention as BA
+    from edgecape_tpu_torch.train import checkpoint as ck
+    from edgecape_tpu_torch.train.loop import (Trainer, batch_to_tensors,
+                                               make_loss_fn)
+    t_phase = time.perf_counter()
+    long_names = counters.LONG_KERNELS
+
+    # --- each streaming kernel against its plain version
+    rows = {}
+    for spec, forced in BA.LONG_SHAPES:
+        rows[spec[0]] = BA.run_case(spec, dev, power, long=forced, full=True)
+        if spec[-1] is not None:
+            rows[spec[0] + ", backward"] = BA.run_bwd_case(spec, dev, power,
+                                                           full=True)
+        torch.cuda.empty_cache()
+    for name, row in rows.items():
+        if "part_bounds" not in row:
+            continue
+        parts = []
+        for kern, (grads, part) in LONG_BWD_PARTS.items():
+            bnd, by = row["part_bounds"][part]
+            parts.append(
+                f"{kern} {BA.ms_text(kernel_device_ms(row, kern), None)}, "
+                f"bound {bnd:.4f} ms ({by}), max_abs_err "
+                + ", ".join(f"{g} {row['errs'][g]:.4g}" for g in grads
+                            if g in row["errs"]))
+        print(f"[long] {name}, each kernel of the pair: {'; '.join(parts)} "
+              f"on {power} (information only)", flush=True)
+    bad = [n for n, r in rows.items() if not r["ok"]]
+    bad += [f"{n}: not streamed" for n, r in rows.items()
+            if not r["plan"].get("long")]
+    if bad:
+        fail(f"the streaming kernels disagree with their plain versions: "
+             f"{bad}")
+
+    # --- forced at the 224 px path's shapes, beside the resident kernel
+    resident_vs_long = {}
+    for spec in (BA.SHAPES[2], BA.SHAPES[5]):
+        case = BA.Case(spec, dev)
+        outs, times = {}, {}
+        for label, kw in (("attn_kernel", {}), ("attn_long_kernel",
+                                                {"long": True})):
+            plan = KN.attention_plan(case.nq, case.nk, case.d, **kw)
+            with torch.no_grad():
+                outs[label] = case.kernel(plan=plan)
+                times[label] = BA.device_ms(lambda: case.kernel(plan=plan))
+        same = torch.equal(outs["attn_kernel"], outs["attn_long_kernel"])
+        text = {n: BA.ms_text(ms, wall) for n, (ms, _, wall) in times.items()}
+        resident_vs_long[case.name] = {n: ms for n, (ms, _, _) in
+                                       times.items()}
+        print(f"[long] {case.name} [B {case.b}, Nq {case.nq}, Nk {case.nk}, "
+              f"H {case.h}, D {case.d}]: attn_kernel {text['attn_kernel']}, "
+              f"attn_long_kernel forced {text['attn_long_kernel']}; outputs "
+              f"bit-equal {same} on {power} {'OK' if same else 'FAIL'}",
+              flush=True)
+        if not same:
+            fail("the streaming forward does not give the two-pass form's "
+                 "bits")
+        del case, outs
+        torch.cuda.empty_cache()
+
+    # --- the 510-image query pass's attention, operands drawn on the card
+    # (kernel and SDPA only: the plain version's fp32 scores would take
+    # tens of GB)
+    query_pass = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 45)
+    for what, b, n, h, d, masked in (
+            ("vit 518 px, query pass", 510, 1370, 6, 64, False),
+            ("joint encoder 518 px, query pass", 510, 1469, 8, 32, True)):
+        c = h * d
+        qkv = torch.randn(b, n, 3 * c, device=dev, generator=g,
+                          dtype=torch.bfloat16)
+        q, k, v = (qkv[..., i * c:(i + 1) * c] for i in range(3))
+        valid = None
+        if masked:
+            valid = torch.rand(b, n, device=dev, generator=g) > 0.1
+            valid[:, 0] = True
+        heads = [t.reshape(b, n, h, d).transpose(1, 2).contiguous()
+                 for t in (q, k, v)]
+        mask = None if valid is None else torch.where(
+            valid, 0.0, -math.inf)[:, None, None, :].to(torch.bfloat16)
+        with torch.no_grad():
+            k_dev, _, k_wall = BA.device_ms(lambda: KN.attention(
+                q, k, v, num_heads=h, scale=d ** -0.5, key_valid=valid))
+            s_dev, _, s_wall = BA.device_ms(
+                lambda: F.scaled_dot_product_attention(*heads,
+                                                       attn_mask=mask))
+        n_bytes = 2 * (4 * b * n * c) + (0 if valid is None else b * n)
+        bnd, by = bound(n_bytes, 4.0 * b * h * n * n * d)
+        query_pass[what] = {"device_ms": k_dev, "sdpa_device_ms": s_dev,
+                            "bound_ms": bnd, "bound_by": by}
+        print(f"[long] {what} [B {b}, N {n}, H {h}, D {d}]: attn_long_kernel "
+              f"{BA.ms_text(k_dev, k_wall)}, bound {bnd:.4f} ms ({by}), SDPA "
+              f"{BA.ms_text(s_dev, s_wall)} on {power} (information only)",
+              flush=True)
+        del qkv, q, k, v, heads, valid, mask
+        torch.cuda.empty_cache()
+
+    # --- a cached eval at 518 px: both switches on, then off, then plain
+    cfg = main_path_config(LONG_SIZE)
+    gen = torch.Generator().manual_seed(SEED + 40)
+    bb, head = init_params(gen, cfg.model)
+    redraw_zero_inits(bb, head, gen)
+    half = LONG_GROUPS // 2
+    data = episodes(np.random.default_rng(SEED + 41), groups=half,
+                    size=LONG_SIZE, chunks=2)
+    preds, eval_long = {}, {}
+    for on in (True, False):
+        kernel_config.set_decoder_stack(on)
+        kernel_config.set_vit_pair_blocks(on)
+        est = PoseEstimator(cfg, bb, head, device=dev)
+        est.forward_cached(data[0][0], data[0][1])      # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        out = []
+        t0 = time.perf_counter()
+        run_cached(est, [(i, half) for i in range(2)], lambda i: data[i],
+                   lambda pred, *a: out.append(pred))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _, kern = read_counts()
+        preds[on] = np.concatenate(out)
+        eval_long[on] = {k: kern.get(k, 0) for k in long_names}
+        ok = (kern.get("attn_long_kernel", 0) == 2 * LONG_CHUNK_LAUNCHES
+              and not kern.get("vit_attn_kernel"))
+        print(f"[long] eval at {LONG_SIZE} px, {LONG_GROUPS} groups x "
+              f"{QUERIES} queries in 2 chunks, switches {'on' if on else 'off'}"
+              f": {wall:.3f} s ({LONG_GROUPS * QUERIES / wall:.1f} img/s) on "
+              f"{power}; launches {kern} (attn_long_kernel expected "
+              f"{2 * LONG_CHUNK_LAUNCHES}, vit_attn_kernel 0) "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail("the 518 px eval did not go through the streaming kernels")
+        if on:
+            torch.cuda.reset_peak_memory_stats()
+            profile(lambda: est.forward_cached(data[1][0], data[1][1]),
+                    f"one {LONG_SIZE} px chunk ({half} groups x {QUERIES} "
+                    f"queries, both switches on)", power)
+            print(f"[long] peak device memory of a {LONG_SIZE} px chunk: "
+                  f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB on "
+                  f"{power}", flush=True)
+        del est
+        torch.cuda.empty_cache()
+    kernel_config.set_decoder_stack(False)
+    kernel_config.set_vit_pair_blocks(False)
+    cfg.model.use_flash = False
+    plain = PoseEstimator(cfg, bb, head, device=dev)
+    ref = np.concatenate([plain.forward_cached(s, q)[0].cpu().numpy()
+                          for s, q, _ in data])
+    del plain
+    torch.cuda.empty_cache()
+    for on in (True, False):
+        d = np.abs(preds[on] - ref)
+        med, within = float(np.median(d)), float(np.mean(d <= PATH_CELL))
+        ok = (med <= PATH_MEDIAN_TOL and within >= PATH_WITHIN_SHARE
+              and np.isfinite(preds[on]).all())
+        print(f"[long] eval at {LONG_SIZE} px, switches "
+              f"{'on' if on else 'off'}, vs the plain path: median |d| "
+              f"{med:.4g} (tol {PATH_MEDIAN_TOL}), max {d.max():.4g}, share "
+              f"within {PATH_CELL:.4g}: {within:.4f} (tol >= "
+              f"{PATH_WITHIN_SHARE}) {'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail("the 518 px eval disagrees with the plain path")
+
+    # --- training at 518 px
+    def stage3_at(tmp, size):
+        """The stage-3 training configuration at `size` px (dropout 0,
+        LONG_ROWS rows, seeded head), its backbone state and its batch."""
+        base = train_config(tmp, size)
+        stage3 = C.replace(C.stage3_config(base), work_dir=f"{tmp}/{size}")
+        stage3.model = C.replace(stage3.model, dropout=0.0)
+        stage3.train = C.replace(stage3.train, batch_size=LONG_ROWS)
+        gen = torch.Generator().manual_seed(SEED + 42)
+        bb, head = init_params(gen, stage3.model)
+        redraw_zero_inits(bb, head, gen)
+        ck.save_checkpoint(f"{tmp}/seeded{size}", {"model": head})
+        stage3.load_from = f"{tmp}/seeded{size}"
+        data = RefedBatch(LONG_STEPS, np.random.default_rng(SEED + 43),
+                          size=size, b=LONG_ROWS)
+        return stage3, bb, data
+
+    def one_step_gap(tmp, size):
+        """One step's loss and gradients at `size` px, kernel path against
+        the plain path (fp32 attention in the fp32 head); prints and gates
+        them; returns the stage-3 configuration, backbone state, batch and
+        the gradients' relative L2."""
+        stage3, bb, data = stage3_at(tmp, size)
+        grads, losses = {}, {}
+        for flash in (True, False):
+            gcfg = C.replace(stage3, work_dir=f"{tmp}/grads{size}{flash}",
+                             model=C.replace(stage3.model, use_flash=flash))
+            t2 = Trainer(gcfg, data, lambda ds, bs, **kw: ds,
+                         backbone_state=bb, device=dev,
+                         log_fn=lambda *a: None)
+            total, _ = make_loss_fn(t2.model, t2.backbone, gcfg)(
+                batch_to_tensors(data.batch, dev))
+            total.backward()
+            losses[flash] = float(total)
+            grads[flash] = {n: p.grad.float() for n, p in
+                            t2.model.named_parameters()
+                            if p.grad is not None}
+            del t2
+            torch.cuda.empty_cache()
+        rel_l2, worst, worst_name, _ = grad_gap(grads[True], grads[False])
+        loss_rel = abs(losses[True] - losses[False]) / abs(losses[False])
+        ok = (rel_l2 <= GRAD_REL_L2 and worst <= GRAD_TENSOR_REL_L2
+              and loss_rel <= LONG_LOSS_REL and np.isfinite(losses[True]))
+        keys = (size // 14) ** 2 + K
+        route = ("the streaming kernels; the JAX module runs its fp32 plain "
+                 "path above 512" if keys > KN.ATT_MAX_KEYS else
+                 "the resident kernels, as the JAX module's bf16 kernel")
+        print(f"[long] training at {size} px ({keys} encoder keys: {route}),"
+              f" {LONG_ROWS} rows, dropout 0, one step, kernel path vs fp32 "
+              f"plain path: loss {losses[True]:.6f} / {losses[False]:.6f} "
+              f"(relative {loss_rel:.3g}, tol {LONG_LOSS_REL}), gradients "
+              f"relative L2 over all {rel_l2:.4g} (tol {GRAD_REL_L2}), worst "
+              f"tensor {worst:.4g} {worst_name} (tol {GRAD_TENSOR_REL_L2}) on "
+              f"{power} {'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"the {size} px training step disagrees with the plain path")
+        return stage3, bb, data, rel_l2
+
+    with tempfile.TemporaryDirectory() as tmp:
+        *_, near_gap = one_step_gap(tmp, LONG_NEAR_CAP)
+        stage3, bb, data, long_gap = one_step_gap(tmp, LONG_SIZE)
+        print(f"[long] the 518 px training attention in bf16 (streaming "
+              f"kernels) where the JAX module computes it in fp32: gradient "
+              f"gap to the fp32 plain path {long_gap:.4g} at {LONG_SIZE} px "
+              f"against {near_gap:.4g} at {LONG_NEAR_CAP} px, where the JAX "
+              f"module also runs bf16 kernels (information only)", flush=True)
+        stamps = []
+        tr = Trainer(stage3, data, lambda ds, bs, **kw: ds,
+                     backbone_state=bb, device=dev,
+                     log_fn=lambda *a: stamps.append(time.perf_counter()))
+        zero_counts()
+        tr.fit()
+        torch.cuda.synchronize()
+        _, kern = read_counts()
+        enc = stage3.model.num_encoder_layers
+        want = {"train_fwd_long_kernel": LONG_STEPS * enc,
+                "train_bwd_q_long_kernel": LONG_STEPS * enc,
+                "train_bwd_k_long_kernel": LONG_STEPS * enc,
+                "attn_long_kernel": LONG_STEPS * 12}
+        train_long = {k: kern.get(k, 0) for k in long_names}
+        ok = train_long == want and tr.step == LONG_STEPS
+        print(f"[long] {LONG_STEPS} stage-3 Trainer steps at {LONG_SIZE} px "
+              f"of {LONG_ROWS} rows: launches {kern}; streaming kernels "
+              f"{train_long} expected {want} {'OK' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail("the 518 px training steps did not go through the "
+                 "streaming kernels")
+        torch.cuda.reset_peak_memory_stats()
+        profile(lambda: tr.train_step(data.batch),
+                f"one stage-3 training step at {LONG_SIZE} px ({LONG_ROWS} "
+                f"rows)", power)
+        print(f"[long] peak device memory of a {LONG_SIZE} px step: "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB on "
+              f"{power}", flush=True)
+        del tr
+        torch.cuda.empty_cache()
+
+    # --- the training forward's dropout at LONG_RATE
+    b, n, h, d = LONG_ROWS, LONG_SIZE ** 2 // 14 ** 2 + K, 8, 32
+    g = torch.Generator().manual_seed(SEED + 44)
+    q, k, v = (torch.randn(b, n, h, d, generator=g).to(dev)
+               for _ in range(3))
+    valid = (torch.rand(b, n, generator=g) > 0.1).to(dev)
+    valid[:, 0] = True
+    seed = FA.dropout_seed(torch.Generator(device=dev).manual_seed(5), dev)
+    out, _ = KN.attention_train_fwd(*(t.reshape(b, n, h * d)
+                                      for t in (q, k, v)),
+                                    num_heads=h, scale=d ** -0.5,
+                                    key_valid=valid, seed=seed,
+                                    rate=LONG_RATE)
+    keep = KN.dropout_mask(seed, LONG_RATE, b * h, n, n)
+    share = keep.float().mean().item()
+    ref = FA.flash_mha_train_plain(q, k, v, valid, dropout_rate=LONG_RATE,
+                                   keep=keep.reshape(b, h, n, n))
+    diff = (out.reshape(ref.shape) - ref).abs()
+    excess = (diff - (ATOL + RTOL * ref.abs())).max().item()
+    ok = (excess <= 0 and diff.mean().item() <= MEAN_TOL
+          and abs(share - (1 - LONG_RATE)) <= KEEP_BAND)
+    print(f"[long] training forward at rate {LONG_RATE}, [B {b}, N {n}, H "
+          f"{h}, D {d}]: keep share of dropout_mask(seed) {share:.5f} (band "
+          f"{1 - LONG_RATE} +- {KEEP_BAND}); against the plain version fed "
+          f"that mask max_abs_err {diff.max().item():.4g} (worst excess "
+          f"{excess:.3g}) {'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the streaming forward's dropout is not dropout_mask(seed)'s")
+    del q, k, v, keep, ref, out, diff
+    torch.cuda.empty_cache()
+
+    pass_rows = {"attn_long_kernel": rows["vit 518 px"],
+                 "train_fwd_long_kernel":
+                     rows["train encoder 518 px, rate 0.1"],
+                 "train_bwd_q_long_kernel":
+                     rows["train encoder 518 px, rate 0.1, backward"],
+                 "train_bwd_k_long_kernel":
+                     rows["train encoder 518 px, rate 0.1, backward"]}
+    replaces = {
+        "attn_long_kernel": "edgecape_tpu/ops/flash_attention.py:132",
+        "train_fwd_long_kernel": "edgecape_tpu/ops/flash_attention.py:321",
+        "train_bwd_q_long_kernel": "edgecape_tpu/ops/flash_attention.py:361",
+        "train_bwd_k_long_kernel":
+            "edgecape_tpu/ops/flash_attention.py:361"}
+    for name in long_names:
+        launches = (eval_long[False][name] if name == "attn_long_kernel"
+                    else train_long[name])
+        entries[name] = long_entry(
+            name, pass_rows[name], replaces[name], launches,
+            "the rows longer than the resident kernels hold (518 px)")
+        entries[name]["eval_launches"] = {"switches on": eval_long[True][name],
+                                          "switches off":
+                                              eval_long[False][name]}
+        entries[name]["train_launches"] = train_long[name]
+    entries["attn_long_kernel"]["query_pass"] = query_pass
+    entries["attn_long_kernel"]["forced_at_224_px"] = resident_vs_long
+    entries["attn_long_kernel"]["attention_shapes"] = list(rows.values())
+    took = time.perf_counter() - t_phase
+    figures["long_phase_s"] = took
+    print(f"[long] phase done in {took:.1f} s", flush=True)
+
+
 def main() -> None:
     tuned_out = None
     if len(sys.argv) == 3 and sys.argv[1] == "--write-tuned":
@@ -3895,6 +4384,8 @@ def main() -> None:
     dist_path(dev, entries, power)
     stages_path(power)
     bench_run(power, figures)
+    torch.cuda.empty_cache()
+    long_path(dev, entries, power, figures)
     print(json.dumps({"kernels": finite(list(entries.values()))}), flush=True)
     print(power, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,15 @@ OP_COUNTERS = (
     ("fused_attn_block", "fused_attn_block", "launches"))            # 10
 
 
+# The streaming attention kernels (csrc/attn_long.cu), which the paths
+# launch where a row is longer than the resident kernels hold (ViT above
+# 272 tokens, any attention above 512 keys): counted in kernels.launches
+# like the rest, named here for the paths that must (518 px) or must not
+# (224 px) launch them.
+LONG_KERNELS = ("attn_long_kernel", "train_fwd_long_kernel",
+                "train_bwd_q_long_kernel", "train_bwd_k_long_kernel")
+
+
 def _module(name: str):
     return importlib.import_module("edgecape_tpu_torch.ops." + name)
 

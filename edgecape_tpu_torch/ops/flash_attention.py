@@ -18,7 +18,10 @@ accumulators become the operand of P.V by a pack, a warp per 16-row query
 tile, the key row in one pass where it fits in registers (up to 128 keys)
 and in two register passes over 32-key chunks above, query tiles split
 over blocks by `ops/kernels.attention_plan`, keys and values copied in by
-cp.async, and the bool key mask read by the kernel. q/k/v are read
+cp.async, and the bool key mask read by the kernel. Above 512 keys, which
+a block's shared memory does not hold, attn_long_kernel (csrc/
+attn_long.cu) runs the same two passes with the keys streamed in tiles;
+the training pair has streaming forms as well. q/k/v are read
 straight from the [B, N, H*D] projections (no head transpose or cast
 pass), and a call is one launch.
 
@@ -195,8 +198,8 @@ def flash_mha_train(q, k, v, key_valid=None, bias=None, *,
     logits [B, H, Nq, Nk] or None (receives a gradient). dropout_rate
     drops probabilities inside the kernel, seeded from `generator`
     (required when the rate is > 0); the backward regenerates the same
-    mask. CUDA tensors go to the kernels (D 32 or 64, at most 512
-    tokens, else an error), CPU tensors to the plain version."""
+    mask. CUDA tensors go to the kernels (D 32 or 64, else an error; above
+    512 tokens the streaming ones), CPU tensors to the plain version."""
     if dropout_rate > 0.0 and generator is None:
         raise ValueError("dropout needs a generator")
     if not q.is_cuda:

@@ -18,7 +18,8 @@ query rows of an image at a time the attention of each head over all
 its keys in one register pass, the head outputs kept on chip as the
 operand of the projection, and bias, LayerScale and the residual in its
 epilogue. Only q, k and v pass through device memory. The same two
-kernels are the first half of fused_vit_block.
+kernels are the first half of fused_vit_block; above 272 tokens the
+second is attn_long_kernel and the GEMM (ops/kernels.py vit_attn).
 
 Weights are laid out as the JAX function takes them: wq, wk, wv, wproj
 [C, C] applied as `h @ w`; their bf16 [out, in] forms (the three

@@ -19,7 +19,12 @@ on chip as the operand of the projection, the LayerScale residual in its
 epilogue: the fp32 x1) and vit_mlp_kernel (LN2, fc1, GELU and fc2 with
 the LayerScale residual on tiles of 128 rows, the 1536-wide hidden kept
 on chip); ops/kernels.py vit_qkv, vit_attn and vit_mlp. Only q / k / v
-and x1 pass through device memory. The bf16 and fp32 forms of a block's
+and x1 pass through device memory. Above 272 tokens (a 256 px image has
+325, 518 px 1370), which vit_attn_kernel's score row does not hold, the
+attention half after vit_qkv_kernel is attn_long_kernel on the q, k, v
+columns (its keys streamed through shared memory, csrc/attn_long.cu)
+and the GEMM with the projection's bias and the LayerScale residual in
+its epilogue: four launches a block. The bf16 and fp32 forms of a block's
 weights are made once per block module and kept until a parameter
 changes.
 

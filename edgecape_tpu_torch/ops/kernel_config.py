@@ -33,9 +33,10 @@ width_misfits: another d_model, nhead, ViT width, key count), the build
 raises, naming each op and the width, so that no forward pass raises
 half way. Which ops a model launches follows its configuration: the
 trunk runs fused_vit_block at bf16 compute and flash_mha at fp32
-(models/dinov2.py fused_ops), so a 256 px model, whose 325 tokens the
-fused block does not hold, is built in fp32 and refused in bf16.
-use_flash=False builds the plain modules, which take any width. On the CPU an op takes
+(models/dinov2.py fused_ops). Any image size is taken (the key count
+follows it; long rows go to the streaming attention kernels): what is
+refused is a channel or head width. use_flash=False builds the plain
+modules, which take any width. On the CPU an op takes
 its plain version, so nothing is checked there. There is no
 interpret switch (a CUDA kernel has nothing to interpret: on a CPU
 tensor an op takes its plain version), and no `encoder_stack` switch:

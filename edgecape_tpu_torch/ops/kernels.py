@@ -2,8 +2,9 @@
 in `kernels.cu` the building blocks of the eval ops, the ViT attention
 and MLP halves,
 the decoder stack's own kernels and the training attention's forward /
-backward pair,
-in `mm_chain.cu` the matmul chain of the probe tool.
+backward pair, in `attn_long.cu` the same attention kernels with the keys
+streamed, for rows longer than a block holds, in `mm_chain.cu` the
+matmul chain of the probe tool.
 
 Each source is compiled with `nvcc` for `sm_90a` into a shared library
 with a plain C interface at first use (one compiler process per source,
@@ -56,7 +57,9 @@ launches = dict.fromkeys((
     "train_bwd_q_kernel", "train_bwd_k_kernel", "dropout_mask_kernel",
     "enc_post_kernel", "dec_post_self_kernel", "dec_post_cross_kernel",
     "vit_mlp_kernel", "vit_qkv_kernel", "vit_attn_kernel",
-    "bias_attn_kernel", "kpt_head_kernel"), 0)
+    "bias_attn_kernel", "kpt_head_kernel", "attn_long_kernel",
+    "train_fwd_long_kernel", "train_bwd_q_long_kernel",
+    "train_bwd_k_long_kernel"), 0)
 
 _P = ctypes.c_void_p
 _L = ctypes.c_long
@@ -74,6 +77,9 @@ _PLAN = [_I, _I, _I, _L]
 # warps, key tiles per chunk and shared memory, then the key-major one's
 # split, warps and shared memory
 _BWD_PLAN = [_I, _I, _I, _L, _I, _I, _L]
+# the streaming kernels' plans: split, warps, shared memory (the backward's
+# for its query-major kernel, then its key-major one)
+_LONG_PLAN = [_I, _I, _L]
 _SIGNATURES = {
     "ec_gemm": [_P, _L, _L, _P, _L, _L, _I, _P, _L, _L, _I, _I, _I, _I, _I,
                 _P, _P, _I, _L, _L, _I, _P, _I, _L, _L, _P, _I, _P],
@@ -91,6 +97,13 @@ _SIGNATURES = {
     "ec_attn_train_fwd": _TRAIN_HEAD + [_P, _L, _L, _P] + _PLAN + [_P],
     "ec_attn_train_bwd": _TRAIN_HEAD + [_P, _I, _L, _L, _P, _P, _P, _P, _P,
                                         _P] + _BWD_PLAN + [_P],
+    "ec_attention_long": [_P, _P, _P, _I, _L, _L, _L, _L, _L, _L, _I, _I, _I,
+                          _I, _I, _P, _L, _P, _F, _P, _I, _L, _L] + _LONG_PLAN
+    + [_P],
+    "ec_attn_train_fwd_long": _TRAIN_HEAD + [_P, _L, _L, _P] + _LONG_PLAN
+    + [_P],
+    "ec_attn_train_bwd_long": _TRAIN_HEAD + [_P, _I, _L, _L, _P, _P, _P, _P,
+                                             _P, _P] + 2 * _LONG_PLAN + [_P],
     "ec_dropout_mask": [_P, _U32, _L, _I, _I, _P, _P],
     "ec_mm_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ec_enc_post": [_P] * 13 + [_I, _P, _I, _P, _I, _I, _F, _P],
@@ -416,6 +429,28 @@ def add_pos(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 # may use.
 ATT_MAX_KEYS, ATT_ROW16, ATT_CH16 = 512, 8, 2
 ATT_SMEM_LIMIT = 227 * 1024
+# The streaming kernels (csrc/attn_long.cu), which take rows longer than
+# ATT_MAX_KEYS: keys (the key-major backward's queries) in tiles of
+# ATT_LONG_TILE through a ring of ATT_LONG_STAGES stages, blocks of at most
+# ATT_LONG_WARPS 16-row tiles.
+ATT_LONG_TILE, ATT_LONG_STAGES, ATT_LONG_WARPS = 64, 2, 8
+
+
+def _long_split(tiles: int):
+    """(split, warps) of `tiles` 16-row tiles over blocks of at most
+    ATT_LONG_WARPS."""
+    split = -(-tiles // ATT_LONG_WARPS)
+    return split, -(-tiles // split)
+
+
+def _long_smem(d: int, warps: int, per_warp: int, query_stage: bool) -> int:
+    """Shared memory of a streaming block: the ring (q and do with 16
+    bytes of statistics a query, or k and v with the 4-byte key mask, per
+    row of a tile) and `per_warp` 16-row tiles a warp beside it."""
+    kld = d + 8
+    stage = 4 * ATT_LONG_TILE * kld + (16 if query_stage else 4) \
+        * ATT_LONG_TILE
+    return ATT_LONG_STAGES * stage + 32 * per_warp * warps * kld
 
 
 def _max_warps(d: int, chunk_tiles: int) -> int:
@@ -430,14 +465,36 @@ def _max_warps(d: int, chunk_tiles: int) -> int:
     return 12 if d == 32 else 9
 
 
+def _streams(nk: int, chunk_tiles, long: bool) -> bool:
+    """Whether a row of nk keys takes the streaming kernels: above
+    ATT_MAX_KEYS, or when `long` forces them; chunk_tiles forces the
+    resident ones, which hold at most ATT_MAX_KEYS."""
+    if chunk_tiles is None:
+        return long or nk > ATT_MAX_KEYS
+    if long or nk > ATT_MAX_KEYS:
+        raise ValueError(f"chunk_tiles picks the resident kernels, which "
+                         f"hold at most {ATT_MAX_KEYS} keys (Nk={nk}, "
+                         f"long={long})")
+    return False
+
+
 @functools.lru_cache(maxsize=None)
-def _attention_plan(nq, nk, d, train, chunk_tiles):
+def _attention_plan(nq, nk, d, train, chunk_tiles, long):
     if d not in (32, 64):
         raise ValueError(f"attention takes head dim 32 or 64, got {d}")
-    if nq < 1 or not 1 <= nk <= ATT_MAX_KEYS:
-        raise ValueError(f"attention takes 1..{ATT_MAX_KEYS} keys and at "
-                         f"least one query, got Nq={nq}, Nk={nk}")
+    if nq < 1 or nk < 1:
+        raise ValueError(f"attention takes at least one query and one key, "
+                         f"got Nq={nq}, Nk={nk}")
     key_tiles = -(-nk // 16)
+    if _streams(nk, chunk_tiles, long):
+        q_split, warps = _long_split(-(-nq // 16))
+        if q_split > 65535:
+            raise ValueError(f"attention plan does not fit: query split "
+                             f"{q_split}")
+        return (("long", True), ("q_split", q_split), ("warps", warps),
+                ("one_pass", False), ("smem_bytes", _long_smem(d, warps, 1,
+                                                               False)),
+                ("key_tiles", key_tiles), ("chunk_tiles", ATT_CH16))
     fits = key_tiles <= ATT_ROW16
     if chunk_tiles is None:
         chunk_tiles = ATT_ROW16 if fits else ATT_CH16
@@ -461,7 +518,7 @@ def _attention_plan(nq, nk, d, train, chunk_tiles):
 
 
 def attention_plan(nq: int, nk: int, d: int, train: bool = False,
-                   chunk_tiles=None) -> dict:
+                   chunk_tiles=None, long: bool = False) -> dict:
     """The launch plan of the attention forward kernels for Nq queries, Nk
     keys and head dim d (for the training forward), from the shapes alone,
     so equal shapes always run the same way:
@@ -476,13 +533,23 @@ def attention_plan(nq: int, nk: int, d: int, train: bool = False,
     * smem_bytes: keys and values [key_tiles * 16, d + 8] bf16, a query
       tile per warp, the additive key mask.
 
-    Raises for what the kernels do not take: d not 32 or 64, more than
-    512 keys."""
+    Above ATT_MAX_KEYS keys (or with `long=True`, for measurements) the
+    plan is the streaming kernels' (attn_long_kernel,
+    train_fwd_long_kernel) and holds `long`: True, q_split and warps as
+    above (at most ATT_LONG_WARPS), two passes over chunks of chunk_tiles
+    key tiles as in the resident two-pass form, and smem_bytes for the
+    ring of ATT_LONG_STAGES key tiles and a query tile per warp. Every
+    shape up to ATT_MAX_KEYS gets the resident kernels' plan.
+
+    Raises for what the kernels do not take: d not 32 or 64, no query or
+    key, chunk_tiles with more than ATT_MAX_KEYS keys or `long`."""
     return dict(_attention_plan(int(nq), int(nk), int(d), bool(train),
-                                chunk_tiles))
+                                chunk_tiles, bool(long)))
 
 
 def _plan_args(plan: dict) -> list:
+    if plan.get("long"):
+        return [plan["q_split"], plan["warps"], plan["smem_bytes"]]
     return [plan["q_split"], plan["warps"], plan["chunk_tiles"],
             plan["smem_bytes"]]
 
@@ -501,13 +568,25 @@ def _bwd_split(tiles: int, resident_tiles: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _attention_bwd_plan(nq, nk, d, chunk_tiles):
+def _attention_bwd_plan(nq, nk, d, chunk_tiles, long):
     if d not in (32, 64):
         raise ValueError(f"attention takes head dim 32 or 64, got {d}")
-    if not 1 <= nq <= ATT_MAX_KEYS or not 1 <= nk <= ATT_MAX_KEYS:
-        raise ValueError(f"the attention backward takes 1..{ATT_MAX_KEYS} "
-                         f"queries and keys, got Nq={nq}, Nk={nk}")
+    if nq < 1 or nk < 1:
+        raise ValueError(f"the attention backward takes at least one query "
+                         f"and one key, got Nq={nq}, Nk={nk}")
     q_tiles, key_tiles = -(-nq // 16), -(-nk // 16)
+    if _streams(max(nq, nk), chunk_tiles, long):
+        q_split, q_warps = _long_split(q_tiles)
+        k_split, k_warps = _long_split(key_tiles)
+        if max(q_split, k_split) > 65535:
+            raise ValueError(f"attention backward plan does not fit: splits "
+                             f"{q_split}, {k_split}")
+        return (("long", True), ("q_split", q_split), ("q_warps", q_warps),
+                ("one_pass", False), ("chunk_tiles", ATT_CH16),
+                ("q_smem_bytes", _long_smem(d, q_warps, 2, False)),
+                ("k_split", k_split), ("k_warps", k_warps),
+                ("k_smem_bytes", _long_smem(d, k_warps, 2, True)),
+                ("q_tiles", q_tiles), ("key_tiles", key_tiles))
     fits = key_tiles <= ATT_ROW16
     if chunk_tiles is None:
         chunk_tiles = ATT_ROW16 if fits else ATT_CH16
@@ -534,7 +613,8 @@ def _attention_bwd_plan(nq, nk, d, chunk_tiles):
             ("key_tiles", key_tiles))
 
 
-def attention_bwd_plan(nq: int, nk: int, d: int, chunk_tiles=None) -> dict:
+def attention_bwd_plan(nq: int, nk: int, d: int, chunk_tiles=None,
+                       long: bool = False) -> dict:
     """The launch plan of the training attention's backward, from the
     shapes alone. Two kernels, each with a warp per 16-row tile and the
     tiles of a (batch, head) split over gridDim.y:
@@ -550,12 +630,24 @@ def attention_bwd_plan(nq: int, nk: int, d: int, chunk_tiles=None) -> dict:
       bytes of statistics a query and a key and a value tile per warp lie
       in k_smem_bytes.
 
-    Raises for what the kernels do not take: d not 32 or 64, more than
-    512 queries or keys."""
-    return dict(_attention_bwd_plan(int(nq), int(nk), int(d), chunk_tiles))
+    Above ATT_MAX_KEYS queries or keys (or with `long=True`, for
+    measurements) the plan is the streaming pair's
+    (train_bwd_q_long_kernel with keys and values streamed,
+    train_bwd_k_long_kernel with queries and do streamed) and holds
+    `long`: True, the same splits (blocks of at most ATT_LONG_WARPS tiles)
+    and each kernel's shared memory for its ring and two 16-row tiles a
+    warp.
+
+    Raises for what the kernels do not take: d not 32 or 64, no query or
+    key, chunk_tiles with more than ATT_MAX_KEYS of either or `long`."""
+    return dict(_attention_bwd_plan(int(nq), int(nk), int(d), chunk_tiles,
+                                    bool(long)))
 
 
 def _bwd_plan_args(plan: dict) -> list:
+    if plan.get("long"):
+        return [plan["q_split"], plan["q_warps"], plan["q_smem_bytes"],
+                plan["k_split"], plan["k_warps"], plan["k_smem_bytes"]]
     return [plan["q_split"], plan["q_warps"], plan["chunk_tiles"],
             plan["q_smem_bytes"], plan["k_split"], plan["k_warps"],
             plan["k_smem_bytes"]]
@@ -587,8 +679,9 @@ def attention(q, k, v, *, num_heads: int, scale: float, key_valid=None,
     softmax(q k^T * scale + key mask[b] + bias[b, h]) v per head, output
     [B, Nq, H*D] rounded to bf16 (stored as out_dtype, or into `out`).
     key_valid: [B, Nk] bool, False keys are masked (read by the kernel);
-    bias: [B, H, Nq, Nk] fp32. One launch; `plan` overrides attention_plan
-    (for measurements)."""
+    bias: [B, H, Nq, Nk] fp32. One launch of attn_kernel, or of
+    attn_long_kernel where the plan streams the keys; `plan` overrides
+    attention_plan (for measurements)."""
     _cuda(q, k, v, key_valid, bias, out)
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("q, k, v dtypes differ")
@@ -609,12 +702,14 @@ def attention(q, k, v, *, num_heads: int, scale: float, key_valid=None,
         out = torch.empty((b, nq, c), dtype=out_dtype, device=q.device)
     elif tuple(out.shape) != (b, nq, c) or out.stride(-1) != 1:
         raise ValueError(f"attention out {tuple(out.shape)}")
-    _call("ec_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), _dt(q),
-          q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-          v.stride(1), b, num_heads, d, nq, nk, kv_ptr, kv_stride,
-          _ptr(bias), float(scale), out.data_ptr(), _dt(out), out.stride(0),
-          out.stride(1), *_plan_args(plan), _stream())
-    launches["attn_kernel"] += 1
+    long = bool(plan.get("long"))
+    _call("ec_attention_long" if long else "ec_attention", q.data_ptr(),
+          k.data_ptr(), v.data_ptr(), _dt(q), q.stride(0), q.stride(1),
+          k.stride(0), k.stride(1), v.stride(0), v.stride(1), b, num_heads,
+          d, nq, nk, kv_ptr, kv_stride, _ptr(bias), float(scale),
+          out.data_ptr(), _dt(out), out.stride(0), out.stride(1),
+          *_plan_args(plan), _stream())
+    launches["attn_long_kernel" if long else "attn_kernel"] += 1
     return out
 
 
@@ -666,9 +761,9 @@ def _train_head(q, k, v, num_heads, scale, key_valid, bias, seed, rate):
     b, nq, c = q.shape
     nk = k.shape[1]
     d = c // num_heads
-    if d not in (32, 64) or max(nq, nk) > 512:
-        raise ValueError(f"training attention takes head dim 32 or 64 and at "
-                         f"most 512 tokens, got D={d}, Nq={nq}, Nk={nk}")
+    if d not in (32, 64):
+        raise ValueError(f"training attention takes head dim 32 or 64, got "
+                         f"D={d}")
     for t in (q, k, v):
         if t.stride(-1) != 1:
             raise ValueError("attention operands need a unit last stride")
@@ -692,7 +787,9 @@ def attention_train_fwd(q, k, v, *, num_heads: int, scale: float,
     (out fp32 [B, Nq, H*D], stats fp32 [B*H, Nq, 2] = row max and
     reciprocal exp-sum, for the backward). key_valid: [B, Nk] bool, read
     by the kernel. Dropout at `rate` on the probabilities from Philox
-    keyed by `seed`, a one-element int64 CUDA tensor. One launch."""
+    keyed by `seed`, a one-element int64 CUDA tensor. One launch of
+    train_fwd_kernel, or of train_fwd_long_kernel where the plan streams
+    the keys."""
     args, keep_alive = _train_head(q, k, v, num_heads, scale, key_valid,
                                    bias, seed, rate)
     b, nq, c = q.shape
@@ -701,9 +798,11 @@ def attention_train_fwd(q, k, v, *, num_heads: int, scale: float,
     out = torch.empty((b, nq, c), dtype=torch.float32, device=q.device)
     stats = torch.empty((b * num_heads, nq, 2), dtype=torch.float32,
                         device=q.device)
-    _call("ec_attn_train_fwd", *args, out.data_ptr(), out.stride(0),
-          out.stride(1), stats.data_ptr(), *_plan_args(plan), _stream())
-    launches["train_fwd_kernel"] += 1
+    long = bool(plan.get("long"))
+    _call("ec_attn_train_fwd_long" if long else "ec_attn_train_fwd", *args,
+          out.data_ptr(), out.stride(0), out.stride(1), stats.data_ptr(),
+          *_plan_args(plan), _stream())
+    launches["train_fwd_long_kernel" if long else "train_fwd_kernel"] += 1
     del keep_alive
     return out, stats
 
@@ -717,8 +816,9 @@ def attention_train_bwd(q, k, v, dout, stats, *, num_heads: int,
     needed), with the dropout mask regenerated from `seed`. key_valid:
     the forward's [B, Nk] bool mask, read by the kernels; dout: [B, Nq,
     H*D] fp32 or bf16 with a unit last stride. Two launches (query-major,
-    then key-major); dq, dk and dv are views of one allocation. `plan`
-    overrides attention_bwd_plan (for measurements)."""
+    then key-major: train_bwd_q_kernel and train_bwd_k_kernel, or their
+    streaming forms where the plan is long); dq, dk and dv are views of one
+    allocation. `plan` overrides attention_bwd_plan (for measurements)."""
     args, keep_alive = _train_head(q, k, v, num_heads, scale, key_valid,
                                    bias, seed, rate)
     bias = keep_alive[1]
@@ -741,12 +841,13 @@ def attention_train_bwd(q, k, v, dout, stats, *, num_heads: int,
     delta = buf[nq_el + 2 * nk_el:]
     dbias = None if bias is None or not need_dbias else torch.empty(
         (b, num_heads, nq, nk), dtype=torch.float32, device=q.device)
-    _call("ec_attn_train_bwd", *args, dout.data_ptr(), _dt(dout),
+    form = "_long" if plan.get("long") else ""
+    _call("ec_attn_train_bwd" + form, *args, dout.data_ptr(), _dt(dout),
           dout.stride(0), dout.stride(1), stats.data_ptr(), dq.data_ptr(),
           dk.data_ptr(), dv.data_ptr(), _ptr(dbias), delta.data_ptr(),
           *_bwd_plan_args(plan), _stream())
-    launches["train_bwd_q_kernel"] += 1
-    launches["train_bwd_k_kernel"] += 1
+    launches[f"train_bwd_q{form}_kernel"] += 1
+    launches[f"train_bwd_k{form}_kernel"] += 1
     del keep_alive
     return dq, dk, dv, dbias
 
@@ -983,25 +1084,36 @@ VIT_ATTN_SMEM = 1024 + 2 * VIT_HEADS * 8192 + 2 * VIT_KEYS * 128 + 3 * 16384 \
 
 
 def vit_attn_plan(b: int, n: int, c: int, heads: int) -> dict:
-    """How the two kernels of the ViT attention half cover B images of N
-    tokens of c channels: vit_qkv_kernel's `qkv_tiles` of VIT_TILE rows
-    (a persistent grid of at most one block an SM walks them);
-    vit_attn_kernel's `items`, `items_per_image` of VIT_TILE query rows
-    each, of which `query_tiles` 64-row tiles an image hold real rows (a
-    warpgroup whose 64 rows all lie past N multiplies nothing) and
-    `pad_rows` rows an image are padding; every score row spans `key_pad`
-    keys (those past N masked) and a block holds `smem_bytes` of shared
-    memory. Raises for what the kernels do not take: other than 384
-    channels in 6 heads, more than VIT_KEYS tokens."""
+    """How the kernels of the ViT attention half cover B images of N tokens
+    of c channels: vit_qkv_kernel's `qkv_tiles` of VIT_TILE rows (a
+    persistent grid of at most one block an SM walks them; it works row by
+    row, whatever N); vit_attn_kernel's `items`, `items_per_image` of
+    VIT_TILE query rows each, of which `query_tiles` 64-row tiles an image
+    hold real rows (a warpgroup whose 64 rows all lie past N multiplies
+    nothing) and `pad_rows` rows an image are padding; every score row
+    spans `key_pad` keys (those past N masked) and a block holds
+    `smem_bytes` of shared memory.
+
+    Above VIT_KEYS tokens, which vit_attn_kernel's score row does not
+    hold, the half after vit_qkv_kernel is attn_long_kernel on the q, k
+    and v columns of its output, then the GEMM with the projection's bias
+    and the LayerScale residual in its epilogue: the plan holds `long`:
+    True, `qkv_tiles` and the attention's plan as `attention`. Raises for
+    what the kernels do not take: other than 384 channels in 6 heads, no
+    image or token."""
     if c != VIT_C or heads != VIT_HEADS:
         raise ValueError(f"the ViT attention kernels take {VIT_HEADS} heads "
                          f"of {VIT_D} ({VIT_C} channels), got {heads} heads "
                          f"and {c} channels")
-    if b < 1 or not 1 <= n <= VIT_KEYS:
-        raise ValueError(f"the ViT attention kernels take 1..{VIT_KEYS} "
-                         f"tokens and a batch, got B={b}, N={n}")
+    if b < 1 or n < 1:
+        raise ValueError(f"the ViT attention kernels take an image and a "
+                         f"token, got B={b}, N={n}")
+    qkv_tiles = -(-(b * n) // VIT_TILE)
+    if n > VIT_KEYS:
+        return {"qkv_tiles": qkv_tiles, "long": True,
+                "attention": attention_plan(n, n, VIT_D, long=True)}
     per_image = -(-n // VIT_TILE)
-    return {"qkv_tiles": -(-(b * n) // VIT_TILE), "items": b * per_image,
+    return {"qkv_tiles": qkv_tiles, "items": b * per_image,
             "items_per_image": per_image, "query_tiles": -(-n // 64),
             "pad_rows": per_image * VIT_TILE - n, "key_pad": VIT_KEYS,
             "smem_bytes": VIT_ATTN_SMEM}
@@ -1028,12 +1140,14 @@ def vit_qkv(x: torch.Tensor, w: dict, *, eps: float) -> torch.Tensor:
 
 def vit_attn(qkv: torch.Tensor, x: torch.Tensor, w: dict, *,
              out_dtype) -> torch.Tensor:
-    """The rest of the ViT block's attention half, one launch: y = bf16(x)
-    + ls1 * (att . Wp^T + bp), att = bf16(bf16(softmax(q k^T / 8)) v) per
-    head over all keys of a row, att kept on chip. qkv: contiguous bf16
-    [B, N, 1152] (vit_qkv's); x: contiguous fp32 or bf16 [B, N, 384] (the
-    residual); w: wp bf16 [384, 384] (torch Linear layout), bp and ls1
-    fp32. Returns [B, N, 384] in out_dtype."""
+    """The rest of the ViT block's attention half: y = bf16(x) + ls1 *
+    (att . Wp^T + bp), att = bf16(bf16(softmax(q k^T / 8)) v) per head
+    over all keys of a row. qkv: contiguous bf16 [B, N, 1152] (vit_qkv's);
+    x: contiguous fp32 or bf16 [B, N, 384] (the residual); w: wp bf16
+    [384, 384] (torch Linear layout), bp and ls1 fp32. Returns [B, N, 384]
+    in out_dtype. One launch of vit_attn_kernel, att kept on chip; where
+    vit_attn_plan is long (above VIT_KEYS tokens), attn_long_kernel writes
+    att and the GEMM adds the projection and the residual."""
     _cuda(qkv, x)
     if qkv.dim() != 3 or qkv.shape[2] % 3:
         raise ValueError(f"vit_attn takes qkv [B, N, 3 C], got "
@@ -1043,6 +1157,14 @@ def vit_attn(qkv: torch.Tensor, x: torch.Tensor, w: dict, *,
     plan = vit_attn_plan(b, n, c, VIT_HEADS)
     ptrs = [_operand(qkv, (b, n, c3)), _operand(x, (b, n, c), x.dtype),
             _dt(x), _operand(w["wp"], (c, c))] + _vectors(w, "bp", "ls1")
+    if plan.get("long"):
+        att = attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
+                        num_heads=VIT_HEADS, scale=VIT_D ** -0.5,
+                        plan=plan["attention"])
+        res = x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)
+        return gemm(att.view(b * n, c), w["wp"], b_nk=True,
+                    out_dtype=out_dtype, bias=w["bp"],
+                    res=res.view(b * n, c), ls=w["ls1"]).view(b, n, c)
     out = torch.empty((b, n, c), dtype=out_dtype, device=qkv.device)
     _call("ec_vit_attn", *ptrs, out.data_ptr(), _dt(out), b, n,
           float(VIT_D ** -0.5), plan["smem_bytes"], _stream())
@@ -1247,12 +1369,13 @@ def width_misfits(cfg, vit_dim: Optional[int] = None,
     patch-size patches, with an MLP hidden of vit_hidden (4 x the width by
     default). Pure Python, from the shapes the plans see at run time:
 
-    * fused_vit_block (and fused_vit_block2): 384 channels in 6 heads, at
-      most VIT_KEYS tokens;
+    * fused_vit_block (and fused_vit_block2): 384 channels in 6 heads (any
+      token count: above VIT_KEYS the attention streams its keys);
     * flash_mha (ViT / encoder / keypoints): the attention kernels' head
-      dims (32, 64) and keys (ATT_MAX_KEYS) at the trunk's tokens, the
-      joint encoder's image + keypoint tokens, the keypoint tokens (the
-      skeleton's and the decoder's self-attention); eval and training;
+      dims (32, 64) at the trunk's tokens, the joint encoder's image +
+      keypoint tokens, the keypoint tokens (the skeleton's and the
+      decoder's self-attention), eval and training; any key count (above
+      ATT_MAX_KEYS the streaming kernels);
     * fused_encoder_stack: the post-attention kernel's POST_C channels and
       a hidden in chunks of ENC_CHUNK, and the encoder's attention;
     * fused_decoder_layer: POST_C channels, a GCN width in chunks of

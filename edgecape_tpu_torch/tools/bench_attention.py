@@ -1,10 +1,13 @@
 """The attention kernels at every shape the eval and training paths give
 them, on the GPU: kernel against plain, device time, wrapper time, the
-card's bound and one PyTorch call (SDPA) on the same shape.
+card's bound and one PyTorch call (SDPA) on the same shape; with `long`,
+also the plain version's time and each kernel's own device time.
 
-    python -m edgecape_tpu_torch.tools.bench_attention [modes] [bwd]
+    python -m edgecape_tpu_torch.tools.bench_attention [modes] [bwd] [long]
 
-One line per shape; with `bwd`, only the backward's lines: the training
+One line per shape; with `long`, the streaming kernels' shapes
+(LONG_SHAPES: the 518 px path's rows, just past the caps, a ragged
+count); with `bwd`, only the backward's lines: the training
 shapes' gradients (dq, dk, dv, dbias through `flash_mha_train`) against
 autograd through the plain version, the backward's device and wrapper time,
 its bound and SDPA's backward beside it. `device` is the time of the
@@ -72,6 +75,31 @@ SHAPES = [
      0.1),
 ]
 N_HOP, HOP_HID = 5, 12            # the model's: max_hops + 1, max_hops + 8
+# The streaming kernels (csrc/attn_long.cu): the 518 px path's rows (ViT
+# 1370 tokens, joint encoder 1369 + 100 keys, decoder cross-attention 100 x
+# 1369; the training encoder) at batches whose plain version (fp32
+# [B, H, Nq, Nk] scores) fits the card, rows just past the caps (513 keys;
+# the ViT at 273 and 325 tokens, which its own kernel no longer holds) and
+# a ragged count. The last field: the plan is forced long (the ViT's
+# route streams its keys past 272 tokens, where attention_plan would pick
+# the resident two-pass form).
+LONG_SHAPES = [
+    (("vit 518 px", 16, 1370, 1370, 6, 64, False, None, None), False),
+    (("joint encoder 518 px", 16, 1469, 1469, 8, 32, True, None, None),
+     False),
+    (("decoder cross 518 px", 64, 100, 1369, 8, 64, False, None, None),
+     False),
+    (("past 512 keys", 16, 513, 513, 8, 32, True, None, None), False),
+    (("vit 273 tokens", 64, 273, 273, 6, 64, False, None, None), True),
+    (("vit 325 tokens", 64, 325, 325, 6, 64, False, None, None), True),
+    (("ragged 1025", 8, 1025, 1025, 8, 32, True, None, None), False),
+    (("train encoder 518 px, rate 0", 8, 1469, 1469, 8, 32, True, None,
+      0.0), False),
+    (("train encoder 518 px, rate 0.1", 8, 1469, 1469, 8, 32, True, None,
+      0.1), False),
+    (("train past 512, bias, rate 0", 4, 513, 513, 8, 32, True, "read",
+      0.0), False),
+]
 
 
 def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
@@ -262,6 +290,11 @@ def per_call(fn, reps: int = REPS):
     return None, n, wall, None if n is None else COUNTERS
 
 
+def plain_text(ms) -> str:
+    """The plain version's time where it was taken."""
+    return "" if ms is None else f"plain {ms:.4f} ms, "
+
+
 def ms_text(dev, wall) -> str:
     """A device time, or that it was not measured (and the wall time)."""
     if dev is not None:
@@ -388,12 +421,21 @@ class Case:
         return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
-def run_case(spec, dev, power, modes=False) -> dict:
+def run_case(spec, dev, power, modes=False, long=False,
+             full=False) -> dict:
     """Checks and times one shape; returns its numbers (ok: within the
-    tolerance) and prints its line."""
+    tolerance) and prints its line. long: the plan forced to the
+    streaming kernels; full: also the plain version's time and each
+    kernel's device time (`by_kernel`), else None and {}."""
     case = Case(spec, dev)
+    forced = None
+    if long:
+        forced = K.attention_plan(case.nq, case.nk, case.d,
+                                  train=case.rate is not None, long=True)
+    kernel = case.kernel if forced is None else (
+        lambda: case.kernel(plan=forced))
     with torch.no_grad():
-        out = case.kernel().float()
+        out = kernel().float()
         ref = case.plain().float().reshape(out.shape)
         torch.cuda.synchronize()
         diff = (out - ref).abs()
@@ -401,8 +443,9 @@ def run_case(spec, dev, power, modes=False) -> dict:
         err, mean = diff.max().item(), diff.mean().item()
         ok = excess <= 0 and mean <= MEAN_TOL and bool(
             torch.isfinite(out).all())
-        dev_ms, n_kern, wall_ms, count_from = per_call(case.kernel)
-        wrap_ms = time_ms(case.kernel)
+        dev_ms, n_kern, wall_ms, count_from = per_call(kernel)
+        wrap_ms = time_ms(kernel)
+        plain_ms = time_ms(case.plain, reps=3, warmup=1) if full else None
         sdpa = case.sdpa()
         sdpa_dev_ms, _, sdpa_wall = device_ms(sdpa)
         sdpa_ms = time_ms(sdpa)
@@ -410,8 +453,8 @@ def run_case(spec, dev, power, modes=False) -> dict:
         if case.hops is not None:
             plan = K.bias_attention_plan(case.b, case.nq, case.h, case.d)
         else:
-            plan = K.attention_plan(case.nq, case.nk, case.d,
-                                    train=case.rate is not None)
+            plan = forced or K.attention_plan(case.nq, case.nk, case.d,
+                                              train=case.rate is not None)
         other = ""
         if modes and case.hops is None:
             for tiles in (K.ATT_ROW16, K.ATT_CH16):
@@ -432,14 +475,16 @@ def run_case(spec, dev, power, modes=False) -> dict:
            "ok": ok, "max_abs_err": err, "device_ms": dev_ms,
            "wall_ms": wall_ms, "kernels_per_call": n_kern,
            "count_from": count_from, "wrapper_ms": wrap_ms,
-           "bound_ms": bnd, "bound_by": by, "sdpa_ms": sdpa_ms,
-           "sdpa_device_ms": sdpa_dev_ms, "plan": plan}
+           "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+           "sdpa_ms": sdpa_ms, "sdpa_device_ms": sdpa_dev_ms, "plan": plan,
+           "by_kernel": kernel_ms(kernel) if full else {}}
     print(f"[op] attention {case.name}: [B {case.b}, Nq {case.nq}, Nk "
           f"{case.nk}, H {case.h}, D {case.d}] max_abs_err {err:.4g} "
           f"mean_abs_err {mean:.3g} (tol {ATOL} + {RTOL:.4g}*|ref|, mean "
           f"{MEAN_TOL}; worst excess {excess:.3g}) {ms_text(dev_ms, wall_ms)}"
           f" in {n_kern} kernel(s) per call (by {count_from}), wrapper "
-          f"{wrap_ms:.4f} ms, bound {bnd:.4f} ms ({by}), SDPA {sdpa_ms:.4f} "
+          f"{wrap_ms:.4f} ms, {plain_text(plain_ms)}bound {bnd:.4f} ms "
+          f"({by}), SDPA {sdpa_ms:.4f} "
           f"ms ({ms_text(sdpa_dev_ms, sdpa_wall)}), plan "
           f"{json.dumps(plan)}{other} on {power} "
           f"{'OK' if ok else 'FAIL'}", flush=True)
@@ -513,42 +558,55 @@ class BwdCase(Case):
         return lambda: torch.autograd.grad(out, (q, k, v), g,
                                            retain_graph=True)
 
-    def bound_ms(self):
-        """q, k, v, do, the statistics, mask and bias read once, dq, dk, dv
-        and dbias written once, over the memory rate; or the five products
-        (s, dp, dq, dk, dv) over the bf16 rate."""
+    def bound_ms(self, part=None):
+        """Least time for the backward: q, k, v, do, the statistics, mask
+        and bias read once, dq, dk, dv and dbias written once, over the
+        memory rate; or the five products (s, dp, dq, dk, dv) over the
+        bf16 rate. part "q": the query-major kernel's function alone (the
+        same reads; dq, delta and dbias written; s, dp and dq), "k": the
+        key-major kernel's (the same reads and delta; dk and dv written;
+        s, dp, dk and dv)."""
         n_bytes = sum(t.numel() * t.element_size()
                       for t in (self.q, self.k, self.v, self.g, self.valid,
                                 self.bias) if t is not None)
         n_bytes += self.b * self.h * self.nq * 8
-        n_bytes += 4 * (self.q.numel() + self.k.numel() + self.v.numel())
-        if self.bias is not None:
-            n_bytes += self.bias.numel() * 4
-        flops = 10.0 * self.b * self.h * self.nq * self.nk * self.d
+        delta = self.b * self.h * self.nq * 4
+        dbias = 0 if self.bias is None else self.bias.numel() * 4
+        products = {None: 5, "q": 3, "k": 4}[part]
+        n_bytes += {None: 4 * (self.q.numel() + self.k.numel()
+                               + self.v.numel()) + dbias,
+                    "q": 4 * self.q.numel() + delta + dbias,
+                    "k": delta + 4 * (self.k.numel() + self.v.numel())}[part]
+        flops = 2.0 * products * self.b * self.h * self.nq * self.nk * self.d
         t_b, t_o = n_bytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS
         return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
-def run_bwd_case(spec, dev, power, modes=False) -> dict:
+def run_bwd_case(spec, dev, power, modes=False, full=False) -> dict:
     """Checks and times the backward of one training shape; returns its
-    numbers and prints its line."""
+    numbers and prints its line. full: also the plain version's time, each
+    kernel's device time (`by_kernel`), each gradient's worst difference
+    (`errs`) and each kernel's own bound (`part_bounds`)."""
     case = BwdCase(spec, dev)
     run = case.kernel_backward()
     grads = run()
     ref = case.plain_grads()
     torch.cuda.synchronize()
-    err, excess, finite = 0.0, -1.0, True
-    for a, r in zip(grads, ref):
+    errs, excess, finite = {}, -1.0, True
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), grads, ref):
         diff = (a.float() - r.float()).abs()
-        err = max(err, diff.max().item())
+        errs[name] = diff.max().item()
         excess = max(excess, (diff - (ATOL + RTOL * r.float().abs())).max()
                      .item())
         finite = finite and bool(torch.isfinite(a).all())
+    err = max(errs.values())
     again = run()
     same = all(torch.equal(a, b) for a, b in zip(grads, again))
     ok = excess <= 0 and finite and same
     dev_ms, n_kern, wall_ms, count_from = per_call(run)
     wrap_ms = time_ms(run)
+    plain_ms = (time_ms(case.plain_grads, reps=3, warmup=1) if full
+                else None)
     sdpa = case.sdpa_backward()
     sdpa_dev_ms, _, sdpa_wall = device_ms(sdpa)
     sdpa_ms = time_ms(sdpa)
@@ -567,14 +625,19 @@ def run_bwd_case(spec, dev, power, modes=False) -> dict:
            "ok": ok, "max_abs_err": err, "device_ms": dev_ms,
            "wall_ms": wall_ms, "kernels_per_call": n_kern,
            "count_from": count_from, "wrapper_ms": wrap_ms,
-           "bound_ms": bnd, "bound_by": by, "sdpa_ms": sdpa_ms,
-           "sdpa_device_ms": sdpa_dev_ms, "plan": plan, "bit_equal": same}
+           "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+           "sdpa_ms": sdpa_ms, "sdpa_device_ms": sdpa_dev_ms, "plan": plan,
+           "bit_equal": same}
+    if full:
+        row.update(by_kernel=kernel_ms(run), errs=errs,
+                   part_bounds={p: case.bound_ms(p) for p in ("q", "k")})
     print(f"[op] attention {row['name']}: [B {case.b}, Nq {case.nq}, Nk "
           f"{case.nk}, H {case.h}, D {case.d}] max_abs_err {err:.4g} (tol "
           f"{ATOL} + {RTOL:.4g}*|ref|; worst excess {excess:.3g}; two runs "
           f"bit-equal {same}) {ms_text(dev_ms, wall_ms)} in {n_kern} "
           f"kernel(s) per call (by {count_from}), wrapper {wrap_ms:.4f} ms, "
-          f"bound {bnd:.4f} ms ({by}), SDPA backward {sdpa_ms:.4f} ms "
+          f"{plain_text(plain_ms)}bound {bnd:.4f} ms ({by}), SDPA "
+          f"backward {sdpa_ms:.4f} ms "
           f"({ms_text(sdpa_dev_ms, sdpa_wall)}), plan {json.dumps(plan)}"
           f"{other} on {power} {'OK' if ok else 'FAIL'}",
           flush=True)
@@ -583,18 +646,21 @@ def run_bwd_case(spec, dev, power, modes=False) -> dict:
 
 def main(argv=None) -> list:
     argv = sys.argv[1:] if argv is None else argv
-    if not set(argv) <= {"modes", "bwd"}:
-        raise SystemExit("usage: bench_attention [modes] [bwd]")
+    if not set(argv) <= {"modes", "bwd", "long"}:
+        raise SystemExit("usage: bench_attention [modes] [bwd] [long]")
     if not torch.cuda.is_available():
         raise SystemExit("bench_attention needs a CUDA device")
     dev, power = torch.device("cuda", 0), card()
-    modes = "modes" in argv
+    modes, full = "modes" in argv, "long" in argv
+    shapes = LONG_SHAPES if full else [(s, False) for s in SHAPES]
     rows = []
-    for spec in SHAPES:
+    for spec, forced in shapes:
         if "bwd" not in argv:
-            rows.append(run_case(spec, dev, power, modes=modes))
+            rows.append(run_case(spec, dev, power, modes=modes, long=forced,
+                                 full=full))
         if spec[-1] is not None:
-            rows.append(run_bwd_case(spec, dev, power, modes=modes))
+            rows.append(run_bwd_case(spec, dev, power, modes=modes,
+                                     full=full))
         torch.cuda.empty_cache()
     bad = [r["name"] for r in rows if not r["ok"]]
     if bad:

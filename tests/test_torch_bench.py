@@ -20,6 +20,7 @@ import importlib.util
 import io
 import json
 import os
+import select
 import signal
 import subprocess
 import sys
@@ -35,13 +36,11 @@ import bench as jbench  # noqa: E402  (the root-level bench.py)
 
 sys.path.remove(REPO)
 
+import torch_threads  # caps torch's threads per worker
 from edgecape_tpu_torch import config as C  # noqa: E402
 from edgecape_tpu_torch.ops import counters  # noqa: E402
 from edgecape_tpu_torch.tools import bench as tbench  # noqa: E402
 
-# a child interpreter's thread caps (the tier-1 command runs 6 workers)
-FEW_THREADS = {v: "2" for v in ("OMP_NUM_THREADS", "MKL_NUM_THREADS",
-                                "OPENBLAS_NUM_THREADS")}
 TOY = dict(image_size=28, max_kpt=8, heatmap_size=8)
 # the toy calls' head widths (the ViT-S/14 trunk stays)
 NARROW = dict(d_model=32, num_feats=16, nhead=2, dim_feedforward=48,
@@ -55,14 +54,6 @@ def smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
-
-
-@pytest.fixture
-def few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _run_main(module, monkeypatch, capsys, preflight_err=None, **kw):
@@ -317,14 +308,23 @@ def test_sigterm_midrun_flushes_the_snapshot():
     """SIGTERM during the second phase: the last line holds the first
     phase's result and errors.killed; exit code 1."""
     proc = subprocess.Popen([sys.executable, "-c", SIGTERM_SCRIPT], cwd=REPO,
-                            env=dict(os.environ, **FEW_THREADS),
+                            env=torch_threads.child_env(),
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
     try:
-        first = proc.stdout.readline()      # the snapshot after "eval"
+        # the snapshot after "eval", within the child's time limit
+        ready, _, _ = select.select([proc.stdout], [], [],
+                                    torch_threads.CHILD_TIMEOUT)
+        if not ready:
+            proc.kill()
+            pytest.fail(f"the bench child printed no snapshot within "
+                        f"{torch_threads.CHILD_TIMEOUT} s:\n"
+                        f"{proc.communicate()[1][-3000:]}")
+        first = proc.stdout.readline()
         assert json.loads(first)["value"] == 1.0
         proc.send_signal(signal.SIGTERM)
-        out, err = proc.communicate(timeout=60)
+        (_, out, err), = torch_threads.wait_children(
+            [("the bench child after SIGTERM", proc, None)], 60)
     finally:
         proc.kill()
     snap = json.loads(out.splitlines()[-1])
@@ -371,7 +371,7 @@ def test_without_a_card_nothing_is_measured(monkeypatch, capsys):
     assert "DEGRADED" in printed.err
 
 
-def test_bench_eval_toy_on_cpu(few_threads):
+def test_bench_eval_toy_on_cpu():
     """bench_eval on the CPU at a toy size: a finite positive rate, no
     kernel launched (a kernel op takes its plain version on the CPU)."""
     before = counters.launch_counts()
@@ -381,7 +381,7 @@ def test_bench_eval_toy_on_cpu(few_threads):
     assert counters.launch_counts() == before
 
 
-def test_bench_train_toy_on_cpu(few_threads):
+def test_bench_train_toy_on_cpu():
     mcfg = C.replace(tbench._model_cfg("bfloat16"), **TOY, **NARROW)
     ms, eps = tbench.bench_train(mcfg, iters=1, warmup=0, batch_size=2,
                                  device="cpu")

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu import config as jcfg
 from edgecape_tpu.data import loader as jloader
 from edgecape_tpu.data import mp100 as jmp

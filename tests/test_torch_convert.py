@@ -22,6 +22,7 @@ import torch
 import jax
 from test_convert import _to_reference_sd
 
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu.config import ModelConfig as JModelConfig
 from edgecape_tpu.models import convert as jconvert
 from edgecape_tpu.models.edgecape import init_model
@@ -35,16 +36,6 @@ STAGES = [dict(),
           dict(learn_skeleton=True, attn_bias=True,
                use_bias_attn_module=True)]
 SIZE = 56
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    """Two torch threads while this file runs: the suite runs several
-    files at once, and each worker's thread pool would take every core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _hub_state(rng) -> dict:

@@ -12,6 +12,7 @@ import os
 
 import pytest
 
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu_torch.ops import kernels as K
 from edgecape_tpu_torch.tools import bench_attention as BA
 

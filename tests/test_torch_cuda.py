@@ -16,6 +16,7 @@ import math
 
 import pytest
 import torch
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 
 pytestmark = pytest.mark.cuda
 
@@ -383,11 +384,13 @@ def test_flash_mha_train_fully_masked_row_is_zero(dev):
 
 
 def test_flash_mha_train_refuses_unsupported_shapes(dev):
+    """Head dims other than 32 and 64 (any token count is taken: above
+    512 the streaming kernels)."""
     from edgecape_tpu_torch.ops import flash_attention as FA
     with pytest.raises(ValueError):
         FA.flash_mha_train(*(_rn(dev, 1, 8, 2, 16) for _ in range(3)))
     with pytest.raises(ValueError):
-        FA.flash_mha_train(*(_rn(dev, 1, 513, 1, 32) for _ in range(3)))
+        FA.flash_mha_train(*(_rn(dev, 1, 513, 1, 128) for _ in range(3)))
 
 
 # call sites of a training step (batch cut to 2), mask / bias / both
@@ -1344,9 +1347,9 @@ def test_vit_attn_kernels_refuse_what_they_do_not_take(dev):
         K.vit_qkv(_rn(dev, 10, 256), w, eps=1e-6)
     with pytest.raises(ValueError):          # not contiguous
         K.vit_qkv(_rn(dev, 384, 20).t(), w, eps=1e-6)
-    with pytest.raises(ValueError):          # more keys than a row holds
-        K.vit_attn(_rn(dev, 1, 273, 1152).to(bf), _rn(dev, 1, 273, 384), w,
-                   out_dtype=torch.float32)
+    with pytest.raises(ValueError):          # fp32 qkv, on the streaming
+        K.vit_attn(_rn(dev, 1, 273, 1152), _rn(dev, 1, 273, 384), w,
+                   out_dtype=torch.float32)     # route (273 tokens)
     with pytest.raises(ValueError):          # qkv of another width
         K.vit_attn(_rn(dev, 2, 37, 768).to(bf), _rn(dev, 2, 37, 256), w,
                    out_dtype=torch.float32)
@@ -1368,3 +1371,138 @@ def test_fused_attn_block_refuses_other_widths(dev):
     with pytest.raises(ValueError):
         FB.fused_attn_block(_rn(dev, 3, 37, 128), *attn, num_heads=2)
     assert FB.launches == n0
+
+
+# ------------------------------------------- the streaming kernels (long rows)
+# name, batch, Nq, Nk, heads, head dim, key mask, bias: the 518 px shapes
+# (ViT 1370 tokens, joint encoder 1469, decoder cross-attention 100 x
+# 1369), just past the caps and a ragged count.
+LONG_SHAPES = [("vit 518", 2, 1370, 1370, 6, 64, False, False),
+               ("encoder 518", 2, 1469, 1469, 8, 32, True, False),
+               ("cross 518", 2, 100, 1369, 8, 64, False, False),
+               ("past 512", 2, 513, 513, 8, 32, True, True),
+               ("ragged 1025", 1, 1025, 1025, 4, 64, True, False)]
+
+
+@pytest.mark.parametrize("shape", LONG_SHAPES, ids=lambda s: s[0])
+def test_long_attention_matches_plain(dev, shape):
+    """attn_long_kernel against the plain version, one launch a call."""
+    from edgecape_tpu_torch.ops import kernels as K
+    _, b, nq, nk, h, d, mask, bias = shape
+    q, k, v, valid, bt = _attn_operands(dev, b, nq, nk, h, d, torch.bfloat16,
+                                        mask, bias)
+    before = dict(K.launches)
+    out = K.attention(q, k, v, num_heads=h, scale=d ** -0.5, key_valid=valid,
+                      bias=bt)
+    assert K.launches["attn_long_kernel"] == before["attn_long_kernel"] + 1
+    assert K.launches["attn_kernel"] == before["attn_kernel"]
+    _close(out, _plain_attention(q, k, v, valid, bt, h, d))
+
+
+@pytest.mark.parametrize("nk,d,mask,bias", [(356, 32, True, False),
+                                            (257, 64, False, False),
+                                            (100, 32, True, True),
+                                            (7, 64, True, False)])
+def test_long_attention_is_the_two_pass_form_bit_for_bit(dev, nk, d, mask,
+                                                         bias):
+    """Forced at a shape the resident kernels take, the streaming forward
+    gives the bits of their two-pass form (the same chunks in the same
+    order); the training pair too, statistics and gradients included."""
+    from edgecape_tpu_torch.ops import kernels as K
+    h, nq = 4, nk
+    q, k, v, valid, bt = _attn_operands(dev, 2, nq, nk, h, d, torch.bfloat16,
+                                        mask, bias, seed=nk)
+    outs = []
+    for kw in ({"chunk_tiles": K.ATT_CH16}, {"long": True}):
+        outs.append(K.attention(q, k, v, num_heads=h, scale=d ** -0.5,
+                                key_valid=valid, bias=bt,
+                                plan=K.attention_plan(nq, nk, d, **kw)))
+    assert torch.equal(outs[0], outs[1])
+    g = _rn(dev, 2, nq, h * d, seed=3)
+    res = []
+    for kw in ({"chunk_tiles": K.ATT_CH16}, {"long": True}):
+        o, st = K.attention_train_fwd(
+            q, k, v, num_heads=h, scale=d ** -0.5, key_valid=valid, bias=bt,
+            plan=K.attention_plan(nq, nk, d, train=True, **kw))
+        grads = K.attention_train_bwd(
+            q, k, v, g, st, num_heads=h, scale=d ** -0.5, key_valid=valid,
+            bias=bt, plan=K.attention_bwd_plan(nq, nk, d, **kw))
+        res.append([o, st] + [x for x in grads if x is not None])
+    for a, b in zip(*res):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,h,d,masked,with_bias", [
+    (1469, 8, 32, True, False), (600, 4, 32, True, True),
+    (513, 2, 64, False, True), (1025, 2, 64, True, False)])
+def test_long_train_matches_plain(dev, n, h, d, masked, with_bias):
+    """train_fwd_long_kernel and the streaming backward pair against
+    autograd through the plain version at rate 0; both long kernels ran."""
+    from edgecape_tpu_torch.ops import flash_attention as FA
+    from edgecape_tpu_torch.ops import kernels as K
+    q, k, v, g, valid, bias = _train_case(dev, 1, n, h, d, masked, with_bias)
+    before = dict(K.launches)
+    out, grads = _grads(FA.flash_mha_train, q, k, v, g, valid, bias)
+    ran = {name: K.launches[name] - before[name] for name in K.launches}
+    assert ran["train_fwd_long_kernel"] == 1
+    assert ran["train_bwd_q_long_kernel"] == ran["train_bwd_k_long_kernel"] \
+        == 1
+    assert ran["train_fwd_kernel"] == ran["train_bwd_q_kernel"] == 0
+    ref, rgrads = _grads(FA.flash_mha_train_plain, q, k, v, g, valid, bias)
+    _close(out, ref)
+    for a, r in zip(grads, rgrads):
+        d_ = (a - r).abs()
+        assert bool(torch.isfinite(a).all())
+        assert d_.max().item() <= 5e-3 + 2 ** -6 * r.abs().max().item()
+
+
+def test_long_train_dropout_mask_is_the_mask_of_its_seed(dev):
+    """At rate 0.1 the streaming forward drops what dropout_mask(seed)
+    keeps out: the plain version fed that mask gives the same output."""
+    from edgecape_tpu_torch.ops import flash_attention as FA
+    from edgecape_tpu_torch.ops import kernels as K
+    b, n, h, d = 1, 700, 2, 32
+    q, k, v, _, valid, _ = _train_case(dev, b, n, h, d, True, False)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    seed = FA.dropout_seed(gen, dev)
+    out, _ = K.attention_train_fwd(
+        *(t.reshape(b, n, h * d) for t in (q, k, v)), num_heads=h,
+        scale=d ** -0.5, key_valid=valid, seed=seed, rate=0.1)
+    keep = K.dropout_mask(seed, 0.1, b * h, n, n).reshape(b, h, n, n)
+    ref = FA.flash_mha_train_plain(q, k, v, valid, dropout_rate=0.1,
+                                   keep=keep)
+    _close(out, ref.reshape(out.shape))
+
+
+@pytest.mark.parametrize("n", [273, 325, 1370])
+def test_long_vit_half_matches_plain(dev, n):
+    """fused_vit_block above 272 tokens: vit_qkv_kernel, attn_long_kernel,
+    the GEMM with the LayerScale residual and vit_mlp_kernel, against the
+    plain block; vit_attn_kernel does not run."""
+    from edgecape_tpu_torch.ops import fused_vit_block as FV
+    from edgecape_tpu_torch.ops import kernels as K
+    Block, DinoV2Config, _, _ = _modules()
+    with torch.no_grad():
+        blk = _randomize(Block(DinoV2Config()), dev)
+    x = _rn(dev, 2, n, 384, seed=n).to(torch.bfloat16)
+    before = dict(K.launches)
+    with torch.no_grad():
+        out = FV.fused_vit_block(x, blk, num_heads=6)
+        ref = FV.fused_vit_block_plain(x, blk, num_heads=6)
+    ran = {name: K.launches[name] - before[name] for name in K.launches
+           if K.launches[name] != before[name]}
+    assert ran == {"vit_qkv_kernel": 1, "attn_long_kernel": 1,
+                   "gemm_tma_kernel": 1, "vit_mlp_kernel": 1}, ran
+    _close(out, ref)
+
+
+def test_main_path_plans_do_not_stream(dev):
+    """The 224 px path's shapes keep the resident kernels."""
+    from edgecape_tpu_torch.ops import kernels as K
+    for nq, nk, d in ((257, 257, 64), (356, 356, 32), (100, 100, 32),
+                      (100, 256, 64)):
+        assert "long" not in K.attention_plan(nq, nk, d)
+        assert "long" not in K.attention_plan(nq, nk, d, train=True)
+    assert "long" not in K.attention_bwd_plan(356, 356, 32)
+    for b in (510, 34, 32):
+        assert "long" not in K.vit_attn_plan(b, 257, 384, 6)

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu import config as jcfg
 from edgecape_tpu.data import compose as jcompose
 from edgecape_tpu.data import loader as jloader

@@ -41,6 +41,7 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu.ops import fused_decoder as jdec
 from edgecape_tpu_torch.models.convert import state_from_flax
 from edgecape_tpu_torch.models.transformer import Decoder

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import demo
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu.api import PoseEstimator as JaxEstimator
 from edgecape_tpu.config import Config, ModelConfig
 from edgecape_tpu_torch.cli import app as tapp

@@ -38,6 +38,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch_threads  # caps torch's threads per worker; child limits
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANK_TIMEOUT = 300
@@ -222,34 +223,16 @@ def _env():
 
 
 def _start(world, rank, out, config, gather_init, init=None):
+    """(name, process, log path) of one process of the job."""
     cmd = [sys.executable, os.path.abspath(__file__), "--rank", str(rank),
            "--world", str(world), "--out", out, "--config", config,
            "--gather-init", gather_init]
     cmd += ["--init", init] if init else []
-    log = open(os.path.join(out, f"log_w{world}r{rank}.txt"), "w")
-    return subprocess.Popen(cmd, cwd=REPO, env=_env(), stdout=log,
-                            stderr=subprocess.STDOUT), log
-
-
-def _wait(procs):
-    """Waits for every process (each within RANK_TIMEOUT); kills the rest
-    when one fails or times out. Returns the return codes."""
-    rcs = []
-    try:
-        for proc, log in procs:
-            try:
-                rcs.append(proc.wait(timeout=RANK_TIMEOUT))
-            except subprocess.TimeoutExpired:
-                rcs.append("timeout")
-            if rcs[-1] != 0:
-                break
-    finally:
-        for proc, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-    return rcs
+    path = os.path.join(out, f"log_w{world}r{rank}.txt")
+    with open(path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=REPO, env=_env(), stdout=log,
+                                stderr=subprocess.STDOUT)
+    return f"rank {rank} of {world}", proc, path
 
 
 @pytest.fixture(scope="module")
@@ -272,7 +255,8 @@ def jobs(tmp_path_factory):
                     init="file://" + str(base / "rdv_main"))
              for r in range(2)]
     procs.append(_start(1, 0, out, config, gather_init))
-    rcs = _wait(procs)
+    rcs = [rc for rc, _, _ in torch_threads.wait_children(procs,
+                                                          RANK_TIMEOUT)]
     logs = ""
     if rcs != [0] * len(procs):
         for name in sorted(os.listdir(out)):

@@ -22,6 +22,7 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu.ops import fused_decoder as jdec
 from edgecape_tpu.ops import fused_encoder as jenc
 from edgecape_tpu.ops import fused_vit_block as jvit

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu_torch.ops import kernels as K
 from edgecape_tpu_torch.ops import mm_chain as MC
 from edgecape_tpu_torch.tools import probe_m_fold as P

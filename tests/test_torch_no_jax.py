@@ -16,6 +16,8 @@ import os
 import subprocess
 import sys
 
+import torch_threads  # caps torch's threads per worker; child limits
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
@@ -131,9 +133,9 @@ def _child_env():
 
 def test_port_imports_and_runs_without_jax_flax_optax_cv2():
     env = _child_env()
-    proc = subprocess.run([sys.executable, "-c", FEW_THREADS + SCRIPT],
-                          cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
+    proc = torch_threads.run_child(
+        [sys.executable, "-c", FEW_THREADS + SCRIPT], "the no-jax interpreter", cwd=REPO,
+        env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().startswith("OK")
 
@@ -198,10 +200,9 @@ print("OK")
 
 def test_variant_and_uncached_paths_run_without_jax():
     env = _child_env()
-    proc = subprocess.run([sys.executable, "-c",
-                           FEW_THREADS + VARIANT_SCRIPT], cwd=REPO,
-                          env=env, capture_output=True, text=True,
-                          timeout=300)
+    proc = torch_threads.run_child(
+        [sys.executable, "-c", FEW_THREADS + VARIANT_SCRIPT], "the variant-path interpreter", cwd=REPO,
+        env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().startswith("OK")
 
@@ -267,10 +268,9 @@ print("OK")
 
 def test_disk_path_clis_and_probe_run_without_jax_and_cv2():
     env = _child_env()
-    proc = subprocess.run([sys.executable, "-c", FEW_THREADS + CLI_SCRIPT],
-                          cwd=REPO,
-                          env=env, capture_output=True, text=True,
-                          timeout=300)
+    proc = torch_threads.run_child(
+        [sys.executable, "-c", FEW_THREADS + CLI_SCRIPT], "the disk-path interpreter", cwd=REPO,
+        env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().endswith("OK")
 
@@ -384,16 +384,10 @@ def test_two_rank_gloo_eval_runs_without_jax(tmp_path):
             [sys.executable, "-c", FEW_THREADS + DIST_SCRIPT, str(rank), "2",
              "file://" + str(tmp_path / "rdv"), str(out)], cwd=REPO, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    outs = []
-    try:
-        for proc in procs:
-            outs.append(proc.communicate(timeout=300))
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    for proc, (stdout, stderr) in zip(procs, outs):
-        assert proc.returncode == 0, stdout + stderr
-    lines = [stdout.strip().splitlines()[-1] for stdout, _ in outs]
+    done = torch_threads.wait_children(
+        [(f"gloo rank {rank}", proc, None) for rank, proc in enumerate(procs)])
+    for rc, stdout, stderr in done:
+        assert rc == 0, stdout + stderr
+    assert len(done) == len(procs)
+    lines = [stdout.strip().splitlines()[-1] for _, stdout, _ in done]
     assert lines[0].startswith("OK") and lines[0] == lines[1]

@@ -11,6 +11,7 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu.models import head as jhead
 from edgecape_tpu.ops import affine as jaffine
 from edgecape_tpu.ops import graph as jgraph

@@ -11,17 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu_torch.utils import profiling
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    """Two torch threads while this file runs: the suite runs several
-    files at once, and each worker's thread pool would take every core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_synced_time_is_the_best_of_its_calls():

@@ -15,6 +15,7 @@ from http.server import ThreadingHTTPServer
 import pytest
 
 import router as jrouter
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu_torch.cli import router as trouter
 from test_router import FakeReplica, _post, _Revive
 

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import serve
+import torch_threads  # caps torch's threads per worker; waits
 from edgecape_tpu_torch.cli import serve as tserve
 from edgecape_tpu_torch.models.convert import from_jax_params
 from edgecape_tpu_torch.train import checkpoint as tck
@@ -186,12 +187,11 @@ def test_concurrent_predicts_coalesce_and_match_batch(server, services):
         results[i] = _post(server, "/predict",
                            {"context_id": cid, "image": imgs[i]})
 
-    threads = [threading.Thread(target=hit, args=(i,)) for i in range(4)]
+    threads = [threading.Thread(target=hit, args=(i,), daemon=True)
+               for i in range(4)]
     for t in threads:
         t.start()
-    for t in threads:
-        t.join(timeout=120)
-    assert not any(t.is_alive() for t in threads)
+    torch_threads.join_threads(threads, "four /predict clients", 120)
     for i in range(4):
         status, pred = results[i]
         assert status == 200, pred

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 import serve
+import torch_threads  # caps torch's threads per worker; waits
 from edgecape_tpu_torch.cli import serve as tserve
 
 MODULES = pytest.mark.parametrize("mod", [tserve, serve],
@@ -53,12 +54,11 @@ def test_concurrent_same_context_coalesce(mod):
     def worker(v):
         results[v] = batcher.submit("ctx-a", _img(v), scale=1.0)
 
-    threads = [threading.Thread(target=worker, args=(v,))
+    threads = [threading.Thread(target=worker, args=(v,), daemon=True)
                for v in range(5)]
     for t in threads:
         t.start()
-    for t in threads:
-        t.join(timeout=30)
+    torch_threads.join_threads(threads, "the batcher's callers")
     batcher.stop()
 
     # all five answered, routed to their own rows
@@ -82,14 +82,12 @@ def test_mixed_contexts_split_dispatches(mod):
         results[key] = batcher.submit(cid, _img(v), scale=1.0)
 
     threads = [
-        threading.Thread(target=worker, args=("a0", "ctx-a", 1)),
-        threading.Thread(target=worker, args=("b0", "ctx-b", 2)),
-        threading.Thread(target=worker, args=("a1", "ctx-a", 3)),
+        threading.Thread(target=worker, args=a, daemon=True)
+        for a in (("a0", "ctx-a", 1), ("b0", "ctx-b", 2), ("a1", "ctx-a", 3))
     ]
     for t in threads:
         t.start()
-    for t in threads:
-        t.join(timeout=30)
+    torch_threads.join_threads(threads, "the batcher's callers")
     batcher.stop()
 
     assert results["a0"]["pred"][0, 0] == 1.0
@@ -113,12 +111,11 @@ def test_dispatch_error_fans_out_to_all_waiters(mod):
         except RuntimeError as e:
             errors[v] = str(e)
 
-    threads = [threading.Thread(target=worker, args=(v,))
+    threads = [threading.Thread(target=worker, args=(v,), daemon=True)
                for v in range(3)]
     for t in threads:
         t.start()
-    for t in threads:
-        t.join(timeout=30)
+    torch_threads.join_threads(threads, "the batcher's callers")
     batcher.stop()
 
     assert set(errors) == {0, 1, 2}
@@ -130,12 +127,11 @@ def test_max_batch_respected(mod):
     svc = _FakeService()
     batcher = mod._MicroBatcher(svc, window_s=0.05, max_batch=2)
     threads = [threading.Thread(
-        target=lambda v=v: batcher.submit("c", _img(v), scale=1.0))
-        for v in range(5)]
+        target=lambda v=v: batcher.submit("c", _img(v), scale=1.0),
+        daemon=True) for v in range(5)]
     for t in threads:
         t.start()
-    for t in threads:
-        t.join(timeout=30)
+    torch_threads.join_threads(threads, "the batcher's callers")
     batcher.stop()
     assert max(n for _, n in svc.calls) <= 2
     assert sum(n for _, n in svc.calls) == 5

@@ -19,6 +19,7 @@ import torch
 
 import jax
 
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu.api import PoseEstimator as JaxEstimator
 from edgecape_tpu.config import Config, DataConfig, ModelConfig, stage3_config
 from edgecape_tpu.data import synthetic

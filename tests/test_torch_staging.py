@@ -9,6 +9,7 @@ import threading
 import numpy as np
 import torch
 
+import torch_threads  # caps torch's threads per worker; waits
 from edgecape_tpu_torch import staging
 
 
@@ -62,12 +63,11 @@ def test_two_threads_never_share_a_buffer():
     def stage(i):
         outs[i] = st(arrays[i], "img_q")
 
-    threads = [threading.Thread(target=stage, args=(i,)) for i in range(2)]
+    threads = [threading.Thread(target=stage, args=(i,), daemon=True)
+               for i in range(2)]
     for t in threads:
         t.start()
-    for t in threads:
-        t.join(timeout=30)
-    assert not any(t.is_alive() for t in threads)
+    torch_threads.join_threads(threads, "the two staging threads")
     assert not overwritten, "a buffer was written while in flight"
     assert len(made) == 2 and st.staged == 3
     for a, out in zip(arrays, outs):

@@ -36,6 +36,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu.config import (Config, DataConfig, ModelConfig,
                                  TrainConfig, stage2_config, stage3_config)
 from edgecape_tpu.data import synthetic

@@ -17,6 +17,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu.config import TrainConfig
 from edgecape_tpu.models import head as jhead
 from edgecape_tpu.ops import flash_attention as jfa

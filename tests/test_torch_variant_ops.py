@@ -16,6 +16,7 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu.ops import fused_attn_block as jattn
 from edgecape_tpu.ops import fused_decoder as jdec
 from edgecape_tpu.ops import fused_mlp as jmlp

@@ -44,6 +44,7 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu.ops import fused_attn_block as jattn
 from edgecape_tpu_torch.models.dinov2 import Block, DinoV2Config
 from edgecape_tpu_torch.ops import fused_attn_block as tattn
@@ -308,7 +309,9 @@ def test_vit_attn_plan():
         "pad_rows": 91, "key_pad": 272, "smem_bytes": K.VIT_ATTN_SMEM}
     assert K.vit_attn_plan(1, KEYS, C, H)["items_per_image"] == 3
     assert K.VIT_ATTN_SMEM <= 232448
-    for b, n, c, h in ((1, 273, C, H), (1, 0, C, H), (0, 10, C, H),
+    # past the score row's 272 keys the attention streams its keys
+    assert K.vit_attn_plan(1, 273, C, H)["long"]
+    for b, n, c, h in ((1, 0, C, H), (0, 10, C, H),
                        (2, 37, 256, H), (2, 37, 128, 2), (2, 37, C, 8)):
         with pytest.raises(ValueError):
             K.vit_attn_plan(b, n, c, h)

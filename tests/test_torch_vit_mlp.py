@@ -34,6 +34,7 @@ import torch
 
 import jax.numpy as jnp
 
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu.ops import fused_mlp as jmlp
 from edgecape_tpu_torch.models.dinov2 import Block, DinoV2Config
 from edgecape_tpu_torch.ops import fused_mlp as tmlp

@@ -9,7 +9,9 @@ width). The head is only built here, never moved to a card.
 A port model at d_model 128 (4 heads, num_feats 64) matches the JAX model
 on the same weights in fp32 on the CPU, to the strict path's tolerance of
 tests/test_torch_slice.py (1e-4 on normalised coordinates), with that
-file's toy trunk and configuration."""
+file's toy trunk and configuration; so does the same model at DINOv2's own
+518 px (1370 ViT tokens, 1369 + K joint-encoder keys: the rows the
+streaming attention kernels take on the card)."""
 
 import dataclasses
 
@@ -18,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu.api import PoseEstimator as JaxEstimator
 from edgecape_tpu.models import dinov2 as jdinov2
 from edgecape_tpu_torch.config import ModelConfig
@@ -53,12 +56,14 @@ def test_width_predicate(kw, misfit):
 
 
 def test_the_vit_route_follows_the_trunk():
-    """Another trunk width or more tokens than the ViT kernels hold."""
+    """Another trunk width is refused; more tokens than vit_attn_kernel's
+    score row holds (325 at 256 px) are taken, the attention streaming its
+    keys."""
     cfg = ModelConfig(**STAGE3)
     assert K.width_misfits(cfg, vit_dim=768, vit_heads=12)[
         "fused_vit_block"] is not None
     big = K.width_misfits(dataclasses.replace(cfg, image_size=256))
-    assert "325" in big["fused_vit_block"]
+    assert big["fused_vit_block"] is None
     assert big["flash_mha (ViT)"] is None and big["fused_encoder_stack"] \
         is None
 
@@ -98,14 +103,16 @@ def test_a_head_builds_where_its_ops_take_its_widths(kw, flash, device):
 
 
 @pytest.mark.parametrize("size,dtype,refused", [
-    (256, "float32", None), (256, "bfloat16", "fused_vit_block"),
+    (256, "float32", None), (256, "bfloat16", None),
     (224, "float32", None), (224, "bfloat16", None),
+    (224, "bfloat16", "fused_vit_block"),
 ])
 def test_the_trunk_check_follows_the_compute_dtype(size, dtype, refused):
     """The estimator checks the trunk op its compute dtype launches: the
-    fused block at bf16, whose kernels hold at most 272 tokens, so 256 px
-    (325 tokens) is refused there; flash_mha at fp32, which takes 325
-    keys. require_widths for "cuda" needs no card."""
+    fused block at bf16, flash_mha at fp32; both take 256 px (325 tokens:
+    the fused block's attention streams its keys past 272). A trunk of 12
+    heads (768 channels) is refused by the fused block, not by flash_mha.
+    require_widths for "cuda" needs no card."""
     from edgecape_tpu_torch.models import dinov2 as tdinov2
     from edgecape_tpu_torch.models.edgecape import HEAD_OPS
     cfg = ModelConfig(**STAGE3, image_size=size, compute_dtype=dtype,
@@ -113,14 +120,14 @@ def test_the_trunk_check_follows_the_compute_dtype(size, dtype, refused):
     ops = tdinov2.fused_ops(cfg) + HEAD_OPS
     assert ops[0] == ("fused_vit_block" if dtype == "bfloat16"
                       else "flash_mha (ViT)")
-    misfits = tdinov2.width_misfits(cfg)
     if refused is None:
-        KC.require_widths(ops, misfits, "cuda")
+        KC.require_widths(ops, tdinov2.width_misfits(cfg), "cuda")
         return
+    wide = tdinov2.DinoV2Config(embed_dim=768, num_heads=12)
     with pytest.raises(ValueError) as err:
-        KC.require_widths(ops, misfits, "cuda")
+        KC.require_widths(ops, tdinov2.width_misfits(cfg, wide), "cuda")
     msg = str(err.value)
-    assert f"{refused} (" in msg and "325" in msg, msg
+    assert f"{refused} (" in msg and "768 channels" in msg, msg
     assert "flash_mha" not in msg, msg
 
 
@@ -141,6 +148,39 @@ def test_forward_cached_d_model_128_matches_jax_strict(narrow_weights):
     tpred, tadj = _torch_estimator(cfg, narrow_weights).forward_cached(
         support, query)
     assert tpred.shape == (6, KPT, 2)
+    np.testing.assert_allclose(tpred.numpy(), np.asarray(jpred),
+                               atol=COORD_TOL, rtol=0)
+    np.testing.assert_allclose(tadj.numpy(), np.asarray(jadj), atol=1e-5,
+                               rtol=0)
+
+
+def test_forward_cached_at_518px_matches_jax_strict(narrow_weights):
+    """The slice at 518 px: the port's PoseEstimator (plain path) against
+    the JAX PoseEstimator, the trunk's position grid at 37 x 37 (the
+    pretraining grid, used as it is), seeded the same for both."""
+    bb, head = narrow_weights
+    bb = dict(bb, pos_embed=(0.02 * np.random.default_rng(9).normal(
+        size=(1, 1 + 37 * 37, TRUNK.embed_dim))).astype(np.float32))
+    base = _cfg(**NARROW)
+    cfg = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, image_size=518))
+    rng = np.random.default_rng(10)
+    adj = np.zeros((1, KPT, KPT), np.float32)
+    for i in range(KPT - 1):
+        adj[:, i, i + 1] = adj[:, i + 1, i] = 1.0
+    support = {"img_s": rng.integers(0, 256, (1, 1, 518, 518, 3),
+                                     dtype=np.uint8),
+               "joints_s": rng.uniform(20, 498, (1, 1, KPT, 2)).astype(
+                   np.float32),
+               "vis_s": np.ones((1, 1, KPT), np.float32),
+               "binary_adj": adj}
+    query = {"img_q": rng.integers(0, 256, (2, 518, 518, 3), dtype=np.uint8),
+             "group": np.zeros(2, np.int32)}
+    jpred, jadj = _jax_estimator(cfg, (bb, head)).forward_cached(support,
+                                                                 query)
+    tpred, tadj = _torch_estimator(cfg, (bb, head)).forward_cached(support,
+                                                                   query)
+    assert tpred.shape == (2, KPT, 2)
     np.testing.assert_allclose(tpred.numpy(), np.asarray(jpred),
                                atol=COORD_TOL, rtol=0)
     np.testing.assert_allclose(tadj.numpy(), np.asarray(jadj), atol=1e-5,
