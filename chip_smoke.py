@@ -195,17 +195,25 @@ Phases (any failure exits non-zero before the last line):
    version at the 518 px shapes, past the caps and at a ragged count
    (`[op] attention` lines of tools/bench_attention.py LONG_SHAPES:
    device, wrapper, plain, bound and SDPA ms; each backward kernel's own
-   device ms, bound and gradients' worst difference); the streaming forward
-   forced at the 224 px path's 356- and 256-key shapes, bit-equal to
-   attn_kernel, both device times; the attention of the 510-image query
-   pass beside SDPA; a cached eval of 8 groups x 15 queries at 518 px in
-   bf16 with both variant switches on, then off, against the plain path,
-   the streaming kernel counted on its route; 2 stage-3 Trainer steps at
-   518 px on 8 rows (dropout 0), one step's loss and gradients against
-   the plain path, beside the same step at 280 px (500 keys: the resident
-   kernels), the streaming kernels counted; one training forward at
-   rate 0.1 against the plain version fed dropout_mask(seed); device ms,
-   idle share and peak memory of a chunk and of a step;
+   device ms, bound and gradients' worst difference); attn_long_kernel's
+   ptxas registers and spills; its rows bit-equal across batch
+   positions and query splits (a batch of 16 against its 8-image halves,
+   a permuted batch, the queries from 37 on); the eval forward forced at
+   the 224 px path's 356- and 256-key shapes beside attn_kernel, both
+   against plain, both device times (information); the attention of the
+   510-image query pass beside SDPA, with its floors (bytes, tensor
+   cores, exponentials); a cached eval of 8 groups x 15 queries at 518 px
+   in bf16 with both variant switches on, then off, against the plain
+   path, the streaming kernel counted on its route; 2 stage-3 Trainer
+   steps at 518 px on 8 rows (dropout 0), whose encoder rows (1469 keys)
+   take the fp32 plain path as the JAX module's do (0 launches of the
+   training streaming kernels, the trunk's attn_long_kernel counted), one
+   step's loss and gradients against the plain path, beside the same step
+   at 280 px (500 keys: the resident kernels); a direct flash_mha_train
+   call at the encoder's 518 px shape, forward and backward, the path of
+   the training streaming kernels, counted; one training forward at rate
+   0.1 against the plain version fed dropout_mask(seed); device ms, idle
+   share and peak memory of a chunk and of a step;
 18. prints {"kernels": [...]} on its own line, then the result line
    {"ok": true, "device": {...}} last. The kernels line holds, besides
    each kernel op's entry, the serving shapes' entries (`flash_mha (ViT
@@ -215,7 +223,8 @@ Phases (any failure exits non-zero before the last line):
    phase 14 (gloo), a serving shape's `launches` its op's count on
    the path of that shape, and a streaming kernel's `launches` (also
    `long_launches`) its count on the 518 px eval (attn_long_kernel,
-   switches off) or training run of phase 17.
+   switches off) or on phase 17's direct flash_mha_train call (the
+   training kernels).
 Nothing here imports jax or the JAX package.
 """
 
@@ -266,6 +275,9 @@ GRAD_ATOL, DBIAS_ATOL, TENSOR_REL_L2 = 5e-3, 1e-4, 1e-3
 # written once) over the first and its operations over the peak rate of
 # their type.
 PEAK_BYTES_S, PEAK_BF16_FLOPS, PEAK_F32_FLOPS = 3.35e12, 989e12, 67e12
+# base-2 exponentials a second (tools/bench_attention.py PEAK_EX2_S: 132
+# SMs x 16 a clock at 1.83 GHz): an attention's third floor, one a score
+PEAK_EX2_S = 132 * 16 * 1.83e9
 # fused_decoder_stack: one layer on the same inputs, kernel against plain,
 # on coordinates in [0, 1] (the delta heads are drawn with weights of
 # 0.02, so one bf16 ulp of a token moves a coordinate by about 1e-5 and a
@@ -354,11 +366,15 @@ def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
 
 
 # ------------------------------------------------------------ config
-def bound(n_bytes: float, flops: float, f32_flops: float = 0.0):
+def bound(n_bytes: float, flops: float, f32_flops: float = 0.0,
+          exps: float = 0.0):
     """(bound_ms, bound_by) of a kernel that must move n_bytes and do
-    flops bf16 tensor-core operations and f32_flops fp32 ones."""
+    flops bf16 tensor-core operations and f32_flops fp32 ones, or exps
+    exponentials on the special-function units (an attention's one a
+    score), whichever takes longest."""
     t_bytes = n_bytes / PEAK_BYTES_S
-    t_ops = flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS
+    t_ops = max(flops / PEAK_BF16_FLOPS + f32_flops / PEAK_F32_FLOPS,
+                exps / PEAK_EX2_S)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops \
         else "operations"
 
@@ -619,7 +635,8 @@ def op_checks(dev, entries):
             + 2 * nq * K * (2 * c_hd * ffn + ffn * c_hd)
             + 2 * nq * 2 * K * K * ffn),
         "flash_mha": bound(nbytes(fq, fk, fv, fvalid) + nbytes(fq),
-                           4 * GROUPS * 8 * K * K * 32),
+                           4 * GROUPS * 8 * K * K * 32,
+                           exps=GROUPS * 8 * K * K),
     }
     # the one PyTorch call that computes flash_mha: SDPA with a key mask
     sq, sk, sv = (t.transpose(1, 2).to(bf) for t in (fq, fk, fv))
@@ -1125,9 +1142,10 @@ def train_op_checks(dev, entries):
         stats_b = bsz * h * n * 2 * 4
         in_b = nbytes(q, k, v, valid, bias)
         prod = 2.0 * bsz * h * n * n * d
-        fb = bound(in_b + nbytes(q) + stats_b, 2 * prod)
+        fb = bound(in_b + nbytes(q) + stats_b, 2 * prod,
+                   exps=bsz * h * n * n)
         bb = bound(in_b + nbytes(go) + stats_b + nbytes(q, k, v, bias),
-                   5 * prod)
+                   5 * prod, exps=bsz * h * n * n)
         print(f"[op] flash_mha_train, {site}: q/k/v [{bsz}, {n}, {h}, {d}]"
               f"{' + bias' if with_bias else ''}: max_abs_err "
               + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in errs.items())
@@ -4030,31 +4048,93 @@ def long_path(dev, entries, power, figures):
     if bad:
         fail(f"the streaming kernels disagree with their plain versions: "
              f"{bad}")
+    ptxas = [{"function": fn, "registers": regs, "spill_store_bytes": st,
+              "spill_load_bytes": ld}
+             for fn, regs, st, ld in KN.ptxas_usage("attn_long_kernel")]
+    serialised = [line.split("info    :")[-1].strip() for line in
+                  KN.build_logs.get("attn_long.cu", "").splitlines()
+                  if "serialized" in line]
+    print("[long] attn_long_kernel ptxas: "
+          + ("; ".join(f"{u['function']}: {u['registers']} registers, "
+                       f"spills {u['spill_store_bytes']} B stored / "
+                       f"{u['spill_load_bytes']} B loaded" for u in ptxas)
+             or "no report (the library was built before this process)")
+          + f"; wgmma serialisation notes: {serialised or 'none'}",
+          flush=True)
+
+    # --- attn_long_kernel's rows depend on their own query alone: the
+    # same bits in a batch of 16 as in its two 8-image halves, in a
+    # permuted batch and with the first 37 queries cut off
+    g = torch.Generator(device=dev).manual_seed(SEED + 46)
+    rows_same = {}
+    for what, b, n, h, d, masked in (("vit 518 px", 16, 1370, 6, 64, False),
+                                     ("joint encoder 518 px", 16, 1469, 8,
+                                      32, True)):
+        c = h * d
+        qkv = torch.randn(b, n, 3 * c, device=dev, generator=g,
+                          dtype=torch.bfloat16)
+        q, k, v = (qkv[..., i * c:(i + 1) * c] for i in range(3))
+        valid = None
+        if masked:
+            valid = torch.rand(b, n, device=dev, generator=g) > 0.1
+            valid[:, 0] = True
+        perm = torch.randperm(b, device=dev, generator=g)
+
+        def att(sel=slice(None), qsel=slice(None)):
+            return KN.attention(q[sel][:, qsel], k[sel], v[sel], num_heads=h,
+                                scale=d ** -0.5, key_valid=None
+                                if valid is None else valid[sel])
+
+        with torch.no_grad():
+            whole = att()
+            same = {"8-image halves": torch.equal(
+                        torch.cat([att(slice(0, 8)), att(slice(8, 16))]),
+                        whole),
+                    "permuted batch": torch.equal(att(perm), whole[perm]),
+                    "queries 37 on": torch.equal(att(qsel=slice(37, None)),
+                                                 whole[:, 37:])}
+        rows_same[what] = same
+        ok = all(same.values())
+        print(f"[long] attn_long_kernel rows at {what} [B {b}, N {n}, H {h}"
+              f", D {d}]: bit-equal to the batch of {b}: {same} "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail("attn_long_kernel's rows depend on their neighbours")
+        del qkv, q, k, v, valid, whole
+        torch.cuda.empty_cache()
 
     # --- forced at the 224 px path's shapes, beside the resident kernel
+    # (information: the 224 px path keeps attn_kernel), each against the
+    # plain version
     resident_vs_long = {}
     for spec in (BA.SHAPES[2], BA.SHAPES[5]):
         case = BA.Case(spec, dev)
-        outs, times = {}, {}
-        for label, kw in (("attn_kernel", {}), ("attn_long_kernel",
-                                                {"long": True})):
-            plan = KN.attention_plan(case.nq, case.nk, case.d, **kw)
-            with torch.no_grad():
-                outs[label] = case.kernel(plan=plan)
+        times, errs = {}, {}
+        with torch.no_grad():
+            ref = case.plain().float()
+            for label, kw in (("attn_kernel", {}), ("attn_long_kernel",
+                                                    {"long": True})):
+                plan = KN.attention_plan(case.nq, case.nk, case.d, **kw)
+                diff = (case.kernel(plan=plan).float() - ref).abs()
+                errs[label] = ((diff - (ATOL + RTOL * ref.abs())).max().item(),
+                               diff.max().item(), diff.mean().item())
                 times[label] = BA.device_ms(lambda: case.kernel(plan=plan))
-        same = torch.equal(outs["attn_kernel"], outs["attn_long_kernel"])
+        ok = all(ex <= 0 and mean <= MEAN_TOL for ex, _, mean in
+                 errs.values())
         text = {n: BA.ms_text(ms, wall) for n, (ms, _, wall) in times.items()}
         resident_vs_long[case.name] = {n: ms for n, (ms, _, _) in
                                        times.items()}
         print(f"[long] {case.name} [B {case.b}, Nq {case.nq}, Nk {case.nk}, "
               f"H {case.h}, D {case.d}]: attn_kernel {text['attn_kernel']}, "
-              f"attn_long_kernel forced {text['attn_long_kernel']}; outputs "
-              f"bit-equal {same} on {power} {'OK' if same else 'FAIL'}",
-              flush=True)
-        if not same:
-            fail("the streaming forward does not give the two-pass form's "
-                 "bits")
-        del case, outs
+              f"attn_long_kernel forced {text['attn_long_kernel']} "
+              f"(information only: the 224 px path keeps attn_kernel); "
+              f"max_abs_err against plain "
+              + ", ".join(f"{n} {e[1]:.4g}" for n, e in errs.items())
+              + f" (tol {ATOL} + {RTOL:.4g}*|ref|, mean {MEAN_TOL}) on "
+              f"{power} {'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail("a forward kernel disagrees with plain at a 224 px shape")
+        del case, ref
         torch.cuda.empty_cache()
 
     # --- the 510-image query pass's attention, operands drawn on the card
@@ -4084,13 +4164,17 @@ def long_path(dev, entries, power, figures):
                 lambda: F.scaled_dot_product_attention(*heads,
                                                        attn_mask=mask))
         n_bytes = 2 * (4 * b * n * c) + (0 if valid is None else b * n)
-        bnd, by = bound(n_bytes, 4.0 * b * h * n * n * d)
-        query_pass[what] = {"device_ms": k_dev, "sdpa_device_ms": s_dev,
-                            "bound_ms": bnd, "bound_by": by}
+        floors = BA.floors_ms(n_bytes, 4.0 * b * h * n * n * d,
+                              float(b * h * n * n))
+        bnd, by = BA.bound_of(floors)
+        query_pass[what] = {"device_ms": k_dev, "wall_ms": k_wall,
+                            "sdpa_device_ms": s_dev, "sdpa_wall_ms": s_wall,
+                            "bound_ms": bnd, "bound_by": by,
+                            "floors_ms": floors}
         print(f"[long] {what} [B {b}, N {n}, H {h}, D {d}]: attn_long_kernel "
-              f"{BA.ms_text(k_dev, k_wall)}, bound {bnd:.4f} ms ({by}), SDPA "
-              f"{BA.ms_text(s_dev, s_wall)} on {power} (information only)",
-              flush=True)
+              f"{BA.ms_text(k_dev, k_wall)}, bound {bnd:.4f} ms ({by}; "
+              f"{BA.floors_text(floors)}), SDPA {BA.ms_text(s_dev, s_wall)} "
+              f"on {power} (information only)", flush=True)
         del qkv, q, k, v, heads, valid, mask
         torch.cuda.empty_cache()
 
@@ -4204,8 +4288,8 @@ def long_path(dev, entries, power, figures):
         ok = (rel_l2 <= GRAD_REL_L2 and worst <= GRAD_TENSOR_REL_L2
               and loss_rel <= LONG_LOSS_REL and np.isfinite(losses[True]))
         keys = (size // 14) ** 2 + K
-        route = ("the streaming kernels; the JAX module runs its fp32 plain "
-                 "path above 512" if keys > KN.ATT_MAX_KEYS else
+        route = ("the fp32 plain path, as the JAX module"
+                 if keys > KN.ATT_MAX_KEYS else
                  "the resident kernels, as the JAX module's bf16 kernel")
         print(f"[long] training at {size} px ({keys} encoder keys: {route}),"
               f" {LONG_ROWS} rows, dropout 0, one step, kernel path vs fp32 "
@@ -4221,11 +4305,13 @@ def long_path(dev, entries, power, figures):
     with tempfile.TemporaryDirectory() as tmp:
         *_, near_gap = one_step_gap(tmp, LONG_NEAR_CAP)
         stage3, bb, data, long_gap = one_step_gap(tmp, LONG_SIZE)
-        print(f"[long] the 518 px training attention in bf16 (streaming "
-              f"kernels) where the JAX module computes it in fp32: gradient "
-              f"gap to the fp32 plain path {long_gap:.4g} at {LONG_SIZE} px "
-              f"against {near_gap:.4g} at {LONG_NEAR_CAP} px, where the JAX "
-              f"module also runs bf16 kernels (information only)", flush=True)
+        print(f"[long] the 518 px training attention on the fp32 plain "
+              f"path, as the JAX module: gradient gap of the kernel path "
+              f"(the rest of the head on its kernels) to the fp32 plain path "
+              f"{long_gap:.4g} at {LONG_SIZE} px (0.02451 on an H100 when "
+              f"these rows took the bf16 streaming kernels) against "
+              f"{near_gap:.4g} at {LONG_NEAR_CAP} px, where the JAX module "
+              f"also runs bf16 kernels (information only)", flush=True)
         stamps = []
         tr = Trainer(stage3, data, lambda ds, bs, **kw: ds,
                      backbone_state=bb, device=dev,
@@ -4235,9 +4321,10 @@ def long_path(dev, entries, power, figures):
         torch.cuda.synchronize()
         _, kern = read_counts()
         enc = stage3.model.num_encoder_layers
-        want = {"train_fwd_long_kernel": LONG_STEPS * enc,
-                "train_bwd_q_long_kernel": LONG_STEPS * enc,
-                "train_bwd_k_long_kernel": LONG_STEPS * enc,
+        # the encoder's training rows (1469 keys) take the fp32 plain
+        # path; the frozen trunk's ViT blocks stream their keys
+        want = {"train_fwd_long_kernel": 0, "train_bwd_q_long_kernel": 0,
+                "train_bwd_k_long_kernel": 0,
                 "attn_long_kernel": LONG_STEPS * 12}
         train_long = {k: kern.get(k, 0) for k in long_names}
         ok = train_long == want and tr.step == LONG_STEPS
@@ -4246,8 +4333,8 @@ def long_path(dev, entries, power, figures):
               f"{train_long} expected {want} {'OK' if ok else 'FAIL'}",
               flush=True)
         if not ok:
-            fail("the 518 px training steps did not go through the "
-                 "streaming kernels")
+            fail("the 518 px training steps did not route as the JAX "
+                 "module (fp32 plain path above 512 keys)")
         torch.cuda.reset_peak_memory_stats()
         profile(lambda: tr.train_step(data.batch),
                 f"one stage-3 training step at {LONG_SIZE} px ({LONG_ROWS} "
@@ -4257,6 +4344,36 @@ def long_path(dev, entries, power, figures):
               f"{power}", flush=True)
         del tr
         torch.cuda.empty_cache()
+
+    # --- the training kernels' path since the model trains rows above 512
+    # keys on its fp32 plain path: a direct call of flash_mha_train, forward
+    # and backward, at the 518 px encoder's training shape
+    b, n, h, d = LONG_ROWS, LONG_SIZE ** 2 // 14 ** 2 + K, 8, 32
+    g = torch.Generator().manual_seed(SEED + 47)
+    q, k, v, go = (torch.randn(b, n, h, d, generator=g).to(dev)
+                   .requires_grad_(i < 3) for i in range(4))
+    valid = (torch.rand(b, n, generator=g) > 0.1).to(dev)
+    valid[:, 0] = True
+    zero_counts()
+    out = FA.flash_mha_train(q, k, v, valid, dropout_rate=LONG_RATE,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(6))
+    torch.autograd.grad(out, (q, k, v), go)
+    torch.cuda.synchronize()
+    _, kern = read_counts()
+    direct = {name: kern.get(name, 0) for name in long_names
+              if name != "attn_long_kernel"}
+    ok = all(count == 1 for count in direct.values())
+    print(f"[long] a direct flash_mha_train call, forward and backward, [B "
+          f"{b}, N {n}, H {h}, D {d}] at rate {LONG_RATE}: launches {direct}"
+          f" (1 each expected; no model path launches them since the "
+          f"routing follows the JAX module) {'OK' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("a direct flash_mha_train call above 512 keys did not go "
+             "through the streaming training kernels")
+    del q, k, v, go, out
+    torch.cuda.empty_cache()
 
     # --- the training forward's dropout at LONG_RATE
     b, n, h, d = LONG_ROWS, LONG_SIZE ** 2 // 14 ** 2 + K, 8, 32
@@ -4303,17 +4420,28 @@ def long_path(dev, entries, power, figures):
         "train_bwd_k_long_kernel":
             "edgecape_tpu/ops/flash_attention.py:361"}
     for name in long_names:
-        launches = (eval_long[False][name] if name == "attn_long_kernel"
-                    else train_long[name])
+        eval_path = name == "attn_long_kernel"
+        launches = eval_long[False][name] if eval_path else direct[name]
         entries[name] = long_entry(
             name, pass_rows[name], replaces[name], launches,
-            "the rows longer than the resident kernels hold (518 px)")
+            "the rows longer than the resident kernels hold (518 px)"
+            if eval_path else "direct calls of flash_mha_train above 512 "
+            "keys (no model path: the model trains those rows on its fp32 "
+            "plain path, as the JAX module)")
         entries[name]["eval_launches"] = {"switches on": eval_long[True][name],
                                           "switches off":
                                               eval_long[False][name]}
         entries[name]["train_launches"] = train_long[name]
+        entries[name]["floors_ms"] = pass_rows[name].get("floors_ms")
+        if not eval_path:
+            entries[name]["launches_from"] = (
+                f"a direct flash_mha_train call, forward and backward, at "
+                f"[{b}, {n}, {h}, {d}]")
     entries["attn_long_kernel"]["query_pass"] = query_pass
     entries["attn_long_kernel"]["forced_at_224_px"] = resident_vs_long
+    entries["attn_long_kernel"]["rows_bit_equal"] = rows_same
+    entries["attn_long_kernel"]["ptxas"] = ptxas
+    entries["attn_long_kernel"]["wgmma_serialised"] = serialised
     entries["attn_long_kernel"]["attention_shapes"] = list(rows.values())
     took = time.perf_counter() - t_phase
     figures["long_phase_s"] = took

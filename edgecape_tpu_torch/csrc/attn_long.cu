@@ -21,35 +21,100 @@
 // hold them against: ops/plain.py attention (attn_long_kernel),
 // ops/flash_attention.py flash_mha_train_plain fed dropout_mask(seed)
 // (train_fwd_long_kernel) and autograd through it (the backward pair).
-//
-// The arithmetic is that of kernels.cu's two-pass form, chunk for chunk
-// (the helpers of attention.cuh): the scores of a warp's 16-row query
-// tile are formed in registers over 32-key chunks, pass 1 keeps a per-lane
-// running max and exp-sum in fp32 and joins them over the quad, pass 2
-// recomputes the scores, normalises by the final sum before the rounding
-// to bf16 and accumulates P.V in fp32. The rounding points are
-// flash_attention.py:132's, and a row's output does not depend on how the
-// keys arrive: at a shape the resident kernels also take, these give the
-// same bits as their two-pass form. No online rescale of the output (one
-// pass) is used: it would round exp(s - running max) to bf16 where the TPU
-// kernel rounds exp(s - row max) / sum. Dropout bits depend on (row,
-// key / 4, batch * H + head) alone, so the mask is dropout_mask(seed)'s
-// whatever the tiling.
+// The model trains rows above 512 tokens on its fp32 plain path, as the
+// JAX module does, so the training kernels run on direct calls of
+// flash_mha_train alone.
 //
 // What bounds them on this card: at 518 px the ViT's [B, 1370, 6 x 64]
 // and the joint encoder's [B, 1469, 8 x 32] make 4 * Nq * Nk * D
-// operations a head against 8 * N * D bytes, some 340 operations a byte:
-// the tensor cores bound them, not memory. The design is the first, simple
-// one: a block of up to LONG_MAX_WARPS warps (a 16-row tile each) walks
-// the keys in tiles of LONG_TILE through a ring of LONG_STAGES stages
-// filled by cp.async, the next tile landing under the current one's
-// products; every warp of the block reads the tile from shared memory, so
-// a key is fetched from L2 once per block and pass. Pass 1 fetches K
-// alone; the ring runs on from pass 1 into pass 2 without a pause. The
-// products are mma.sync m16n8k16 tiles as in kernels.cu, not wgmma.
-// Hazards: keys past Nk are zero K and V rows with a -inf mask; 16-key
-// blocks past the padded length are skipped; a warp past Nq loads and
-// waits with the block but multiplies nothing.
+// operations a head against 8 * N * D bytes, some 340 operations a byte,
+// and one 2^x a score on the special-function unit (16 a clock an SM,
+// against 4 * D tensor-core operations a score at 1024 a clock an SM):
+// at D 64 the exponentials take as long as the products, at D 32 twice as
+// long. Memory does not bound them.
+//
+// attn_long_kernel (the eval forward) is one pass over the keys, the
+// FlashAttention-2/3 form: each row keeps a running max (base 2, log2(e)
+// * scale folded into the scores) and a running sum in fp32; a key tile's
+// p = 2^(s - running max) is rounded to bf16 as the A operand of P.V, the
+// output accumulator is multiplied by 2^(old max - new max) when the max
+// grows, and divided by the sum once at the end, before the single bf16
+// rounding of the output. So each score is formed once and exponentiated
+// once (the two-pass form did both twice). It gives up the TPU kernel's
+// rounding point (flash_attention.py:50: the normalised p rounded to
+// bf16): here the unnormalised p is rounded, and the sum is of the fp32
+// p. A probability's rounding error is the same relative 2^-9 either way,
+// but different probabilities round the other way, so the output differs
+// from the plain version by about a bf16 ulp of its largest values (the
+// card's check: 1e-2 + 2^-6 |ref|, the bound of every kernel op; the CPU
+// tests hold an emulation of this order to one bf16 ulp of the largest
+// output against the plain version and JAX). Design:
+//   * a block is persistent (one an SM) and walks items of 128 query rows
+//     of one (batch, head), block x taking items x, x + gridDim.x, ...: the
+//     items in flight together are a few heads', whose K and V come from
+//     L2; 384 threads: consumer warpgroups 0 and 1 (64 rows each), the
+//     producer warpgroup 2, whose one working warp issues every TMA copy;
+//     setmaxnreg gives the consumers 232 registers and the producer 40;
+//   * Q (once an item, two slots so the next item's lands early) and the
+//     K and V tiles of 128 keys (a ring of AL_STAGES stages with full and
+//     empty mbarriers) arrive by TMA from maps over the [B, N, H * D] views
+//     with their own strides (boxes of [1, 128 rows, D]), 128-byte
+//     swizzled at D 64 and 64-byte swizzled at D 32, whose rows are 64
+//     bytes; rows past N read as zeros. For a tile with a key mask, or
+//     with keys past Nk, the producer warp writes the tile's additive mask
+//     (0 or -inf) beside it;
+//   * S = Q K^T is wgmma m64n128k16 from shared memory (K [keys][D] is
+//     K-major, as B wants it); p, packed to bf16 in registers, is the A
+//     operand of O += P V (wgmma m64nDk16, V MN-major through the
+//     descriptor's transpose bit): the m64n128 accumulator's fragment is
+//     the A fragment of the next product, so p never reaches shared
+//     memory. 64 registers a thread for S, 32 (D 64) or 16 for O, 32 for P;
+//   * the exponentials overlap the products within a warpgroup: S_j is
+//     issued, then O += P_{j-1} V_{j-1} behind it, and the softmax of S_j
+//     runs while the second product does; the first tile's S is issued
+//     alone, outside the loop, since ptxas serialises products that sit
+//     in branches of their own. The O rescale waits for that product. The
+//     warp scheduler interleaves the two warpgroups besides: an explicit
+//     ping-pong on named barriers (FlashAttention-3's) was tried and
+//     dropped (measured on the H100: 3.562 against 3.599 ms at the ViT's
+//     query pass, 6.438 against 6.301 at the joint encoder's). So was the
+//     other overlap, S_{j+1} issued before the softmax of S_j into a
+//     second score buffer: its 64 copies a tile and spills cost more than
+//     it hid (4.160 against 3.632 ms, 6.456 against 6.301);
+//   * the softmax is a branch-free run over a tile's 64 values a thread
+//     in one of four forms, chosen once a tile (key mask or ragged tile,
+//     bias, both, neither): with the key-mask and bias tests inside the
+//     loop it cost twice the products (7.10 ms at the ViT's query pass,
+//     3.59 branch-free). Unmasked tiles take the max on the raw products
+//     and p = 2^(fma(s, log2(e) scale, -max)); the scale must be positive;
+//   * a row's output depends on its own query, the keys and the mask
+//     alone: the keys are met in one fixed order, each row keeps its own
+//     max and sum (the quad's four lanes join them by shuffles), and a
+//     row's products do not depend on where in a tile it sits, so neither
+//     its batch position, the 128-row split nor Nq change its bits.
+// ptxas gives it 168 registers (the cap of a 384-thread block, before
+// setmaxnreg) and no spills; kernels.ptxas_usage("attn_long_kernel") reads
+// them, chip_smoke.py's [long] phase prints them. A barrier wait that
+// never completes traps (al_wait) rather than hang the card.
+//
+// The training kernels are the first, simple design: the two-pass form of
+// kernels.cu, chunk for chunk (the helpers of attention.cuh): the scores
+// of a warp's 16-row query tile are formed in registers over 32-key
+// chunks, pass 1 keeps a per-lane running max and exp-sum in fp32 and
+// joins them over the quad, pass 2 recomputes the scores, normalises by
+// the final sum before the rounding to bf16 and accumulates P.V in fp32:
+// flash_attention.py:132's rounding points, so at a shape the resident
+// kernels also take these give the same bits. Dropout bits depend on
+// (row, key / 4, batch * H + head) alone, so the mask is
+// dropout_mask(seed)'s whatever the tiling. A block of up to
+// LONG_MAX_WARPS warps (a 16-row tile each) walks the keys in tiles of
+// LONG_TILE through a ring of LONG_STAGES stages filled by cp.async, the
+// next tile landing under the current one's products; every warp of the
+// block reads the tile from shared memory, so a key is fetched from L2
+// once per block and pass. The products are mma.sync m16n8k16 tiles as in
+// kernels.cu. Hazards: keys past Nk are zero K and V rows with a -inf
+// mask; 16-key blocks past the padded length are skipped; a warp past Nq
+// loads and waits with the block but multiplies nothing.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -217,13 +282,367 @@ __device__ __forceinline__ void attn_long_body(const AttnArgs& p) {
 
 // 256 threads and two blocks an SM: up to 128 registers a thread.
 template <int D>
-__global__ void __launch_bounds__(LONG_MAX_WARPS * 32, 2) attn_long_kernel(AttnArgs p) {
-  attn_long_body<D, false>(p);
-}
-
-template <int D>
 __global__ void __launch_bounds__(LONG_MAX_WARPS * 32, 2) train_fwd_long_kernel(AttnArgs p) {
   attn_long_body<D, true>(p);
+}
+
+// ------------------------------------------------------- the eval forward
+// attn_long_kernel: one pass over the keys with the online softmax, TMA
+// loads on mbarriers and wgmma for both products (the design note is at
+// the top of this file).
+#define AL_ROWS 128        // query rows of an item: two consumer warpgroups of 64
+#define AL_KEYS 128        // keys of a streamed tile
+#define AL_STAGES 4        // key / value tiles in the ring
+#define AL_THREADS 384     // consumer warpgroups 0 and 1, the producer warpgroup 2
+
+// Shared memory of a block: two query slots, the ring (K, V and the
+// additive key mask of a tile), the barriers; rows of 2 * D bytes, 128-
+// (D 64) or 64-byte (D 32) swizzled, every tile on 1024 bytes.
+template <int D>
+struct AlTile {
+  static constexpr int ROW = 2 * D;
+  static constexpr int Q = AL_ROWS * ROW;
+  static constexpr int KV = AL_KEYS * ROW;
+  static constexpr int STAGE = 2 * KV + 1024;
+  static constexpr int SMEM = 1024 + 2 * Q + AL_STAGES * STAGE + 128;
+};
+static_assert(AlTile<64>::SMEM <= ATT_SMEM_LIMIT, "attn_long_kernel's tiles exceed a block");
+
+struct AlArgs {
+  const unsigned char* kvalid; long skvb;   // bool [B, Nk], or null
+  const float* bias;                        // [B, H, Nq, Nk], or null
+  float scale;
+  void* out; int out_dt; long sob, son;
+  int H, Nq, Nk, qtiles, ktiles, items;
+  int bq, bk, bv;                           // 1: the operand's map has a batch axis
+};
+
+// A wgmma descriptor of a tile whose rows are 2 * D bytes (the 8-row
+// groups 16 * D bytes apart) in the swizzle TMA wrote it with: 128 bytes
+// (layout 1) for D 64, 64 bytes (layout 2) for D 32. K-major (Q, K): the
+// leading offset is unused; MN-major (V, rows are keys): the leading
+// offset would be the next D columns, which no product reaches.
+template <int D>
+__device__ __forceinline__ uint64_t al_desc(unsigned addr, unsigned lead) {
+  constexpr uint64_t sbo = 16 * D, layout = D == 64 ? 1 : 2;
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(lead >> 4) << 16) |
+         ((sbo >> 4) << 32) | (layout << 62);
+}
+
+// O += P . V_tile: the 8 16-key steps of a tile, P in registers.
+template <int D>
+__device__ __forceinline__ void al_pv(float (&o)[D / 2], const unsigned (&pf)[AL_KEYS / 16][4],
+                                      unsigned vb) {
+#pragma unroll
+  for (int kk = 0; kk < AL_KEYS / 16; ++kk) {
+    if constexpr (D == 64)
+      wgmma_rs_m64n64k16<1>(o, pf[kk], al_desc<D>(vb + kk * 16 * 2 * D, AlTile<D>::KV));
+    else
+      wgmma_rs_m64n32k16<1>(o, pf[kk], al_desc<D>(vb + kk * 16 * 2 * D, AlTile<D>::KV));
+  }
+}
+
+// S = Q . K_tile^T (m64n128, overwriting s): the D / 16 16-column steps.
+template <int D>
+__device__ __forceinline__ void al_scores(float (&s)[64], unsigned qa, unsigned kb) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_m64n128k16<0>(s, al_desc<D>(qa + kk * 32, 16), al_desc<D>(kb + kk * 32, 16), kk > 0);
+}
+
+// The bias of a row at keys k and k + 1 (0 past Nk).
+__device__ __forceinline__ float2 al_bias2(const float* row, int k, int nk, bool vec) {
+  if (vec && k + 1 < nk) return *reinterpret_cast<const float2*>(row + k);
+  return make_float2(k < nk ? row[k] : 0.0f, k + 1 < nk ? row[k + 1] : 0.0f);
+}
+
+// One key tile's scores s (the wgmma accumulator of m64n128: s[4 J + 2 rh
+// + e] is row g + 8 rh, key k0 + 8 J + 2 t + e) turned into 2^(score in
+// base 2 - running max) in place: the running max m and sum l of the
+// thread's two rows move on, and a[rh] is the factor that brings the
+// output so far to the new max. MASK: the stage's additive key mask kbs
+// applies (a key mask, or keys past Nk in the tile); BIAS: the rows' bias
+// does. Each form is a branch-free run over the 64 values (a branch
+// inside it cut the run into blocks the compiler could not interleave).
+// With neither (every tile of an unmasked row but its last), the max is
+// taken on the raw products (sc2 > 0) and each p is one fma and one 2^x.
+template <bool MASK, bool BIAS>
+__device__ __forceinline__ void al_softmax(float (&s)[64], float (&m)[2], float (&l)[2],
+                                           float (&a)[2], float sc2, const float* kbs,
+                                           const float* const (&brow)[2], bool bvec, int k0,
+                                           int nk, int t) {
+  constexpr bool ADD = MASK || BIAS;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int J = 0; J < AL_KEYS / 8; ++J) {
+    const int c = 8 * J + 2 * t;
+    float2 add = make_float2(0.0f, 0.0f);
+    if constexpr (MASK) add = *reinterpret_cast<const float2*>(kbs + c);
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      float v0 = s[4 * J + 2 * rh], v1 = s[4 * J + 2 * rh + 1];
+      if constexpr (ADD) {
+        float2 ad = add;
+        if constexpr (BIAS) {
+          if (brow[rh]) {
+            const float2 bv = al_bias2(brow[rh], k0 + c, nk, bvec);
+            ad.x = fmaf(bv.x, LOG2E_F, ad.x);
+            ad.y = fmaf(bv.y, LOG2E_F, ad.y);
+          }
+        }
+        v0 = fmaf(v0, sc2, ad.x);
+        v1 = fmaf(v1, sc2, ad.y);
+        s[4 * J + 2 * rh] = v0;
+        s[4 * J + 2 * rh + 1] = v1;
+      }
+      mx[rh] = fmaxf(mx[rh], fmaxf(v0, v1));
+    }
+  }
+  float z[2];
+#pragma unroll
+  for (int rh = 0; rh < 2; ++rh) {
+    const float tm = ADD ? quad_max(mx[rh]) : quad_max(mx[rh]) * sc2;
+    const float mn = fmaxf(m[rh], tm);
+    z[rh] = mn == -INFINITY ? 0.0f : mn;      // a row masked so far: every 2^-inf is 0
+    a[rh] = ex2(m[rh] - z[rh]);
+    m[rh] = mn;
+  }
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int J = 0; J < AL_KEYS / 8; ++J)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = ADD ? s[4 * J + e] - z[e >> 1] : fmaf(s[4 * J + e], sc2, -z[e >> 1]);
+      const float v = ex2(x);
+      s[4 * J + e] = v;
+      sum[e >> 1] += v;
+    }
+  l[0] = l[0] * a[0] + sum[0];
+  l[1] = l[1] * a[1] + sum[1];
+}
+
+// mbar_wait that gives up: a block whose copies never land (a map the
+// hardware refused at run time) traps, so the launch fails and does not
+// hang the card.
+__device__ __forceinline__ void al_wait(uint64_t* bar, unsigned parity) {
+  const unsigned addr = smem_u32(bar);
+  for (unsigned i = 0;; ++i) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i == (1u << 28)) __trap();
+  }
+}
+
+// map_q / map_k / map_v: the [B, N, H * D] bf16 views in boxes of
+// [1, 128 rows, D]. Items: (batch * H + head) * qtiles + query tile, block
+// x taking items x, x + gridDim.x, ...
+template <int D>
+__global__ void __launch_bounds__(AL_THREADS, 1)
+    attn_long_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v, AlArgs p) {
+  using T = AlTile<D>;
+  extern __shared__ unsigned char al_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(al_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* ring = base + 2 * T::Q;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + AL_STAGES * T::STAGE);
+  uint64_t* empty = full + AL_STAGES;
+  uint64_t* q_full = empty + AL_STAGES;
+  uint64_t* q_empty = q_full + 2;
+  const int nitems = (p.items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < AL_STAGES; ++s) {
+      mbar_init(&full[s], 32);      // the producer warp's lanes (lane 0's with the bytes)
+      mbar_init(&empty[s], 8);      // one arrive per consumer warp
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&q_full[s], 1);
+      mbar_init(&q_empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+
+  if (wg == 2) {
+    // the producer: one warp issues every copy and writes the key mask
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp != 0) return;
+    unsigned it = 0;
+    for (int n = 0; n < nitems; ++n) {
+      const int item = (int)blockIdx.x + n * (int)gridDim.x;
+      const int bh = item / p.qtiles, q0 = (item - bh * p.qtiles) * AL_ROWS;
+      const int b = bh / p.H, h = bh - b * p.H;
+      const int slot = n & 1;
+      al_wait(&q_empty[slot], ((n >> 1) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(&q_full[slot], T::Q);
+        tma_load_3d(base + slot * T::Q, &map_q, &q_full[slot], h * D, q0, b * p.bq);
+      }
+      for (int j = 0; j < p.ktiles; ++j, ++it) {
+        const int s = it % AL_STAGES;
+        al_wait(&empty[s], ((it / AL_STAGES) & 1) ^ 1);
+        unsigned char* st = ring + s * T::STAGE;
+        if (p.kvalid || (j + 1) * AL_KEYS > p.Nk) {
+          float* kbs = reinterpret_cast<float*>(st + 2 * T::KV);
+#pragma unroll
+          for (int e = 0; e < AL_KEYS / 32; ++e) {
+            const int key = j * AL_KEYS + lane * (AL_KEYS / 32) + e;
+            const bool on = key < p.Nk && (!p.kvalid || p.kvalid[b * p.skvb + key] != 0);
+            kbs[lane * (AL_KEYS / 32) + e] = on ? 0.0f : -INFINITY;
+          }
+        }
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], 2 * T::KV);
+          tma_load_3d(st, &map_k, &full[s], h * D, j * AL_KEYS, b * p.bk);
+          tma_load_3d(st + T::KV, &map_v, &full[s], h * D, j * AL_KEYS, b * p.bv);
+        } else {
+          mbar_arrive(&full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg takes rows 64 wg .. 64 wg + 63 of an item
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int g = lane >> 2, t = lane & 3;
+  const bool bvec = p.Nk % 2 == 0 && (reinterpret_cast<uintptr_t>(p.bias) & 7) == 0;
+  const float sc2 = p.scale * LOG2E_F;
+  const bool pair = p.out_dt == DT_BF16 &&
+                    ((reinterpret_cast<uintptr_t>(p.out) | (uintptr_t)(p.sob * 2) |
+                      (uintptr_t)(p.son * 2)) & 3) == 0;
+  unsigned it = 0;
+#pragma unroll 1
+  for (int n = 0; n < nitems; ++n) {
+    const int item = (int)blockIdx.x + n * (int)gridDim.x;
+    const int bh = item / p.qtiles, q0 = (item - bh * p.qtiles) * AL_ROWS;
+    const int b = bh / p.H, h = bh - b * p.H;
+    const int slot = n & 1;
+    const int r0 = q0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
+    const float* brow[2] = {nullptr, nullptr};
+    if (p.bias) {
+      if (r0 < p.Nq) brow[0] = p.bias + ((size_t)bh * p.Nq + r0) * p.Nk;
+      if (r1 < p.Nq) brow[1] = p.bias + ((size_t)bh * p.Nq + r1) * p.Nk;
+    }
+    al_wait(&q_full[slot], (n >> 1) & 1);
+    const unsigned qa = smem_u32(base + slot * T::Q + wg * 64 * T::ROW);
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, a[2];
+    float o[D / 2];
+    unsigned pf[AL_KEYS / 16][4];
+    // the next key tile of the ring: its stage, once it has landed
+    auto take = [&]() {
+      const int s_i = it % AL_STAGES;
+      al_wait(&full[s_i], (it / AL_STAGES) & 1);
+      ++it;
+      return s_i;
+    };
+    // S_j's softmax and p packed as the A fragments of P . V
+    auto soft = [&](float (&s)[64], int s_i, int j) {
+      reg_fence(s);
+      if (j == p.ktiles - 1 && lane == 0) mbar_arrive(&q_empty[slot]);   // Q read
+      const float* kbs = reinterpret_cast<const float*>(ring + s_i * T::STAGE + 2 * T::KV);
+      const int k0 = j * AL_KEYS;
+      if (p.kvalid || k0 + AL_KEYS > p.Nk) {
+        if (p.bias)
+          al_softmax<true, true>(s, m, l, a, sc2, kbs, brow, bvec, k0, p.Nk, t);
+        else
+          al_softmax<true, false>(s, m, l, a, sc2, kbs, brow, bvec, k0, p.Nk, t);
+      } else if (p.bias) {
+        al_softmax<false, true>(s, m, l, a, sc2, kbs, brow, bvec, k0, p.Nk, t);
+      } else {
+        al_softmax<false, false>(s, m, l, a, sc2, kbs, brow, bvec, k0, p.Nk, t);
+      }
+    };
+    auto pack = [&](const float (&s)[64]) {
+#pragma unroll
+      for (int kk = 0; kk < AL_KEYS / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pf[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    };
+    // tile 0: S_0 alone (no branch holds a product: ptxas serialises
+    // products in branches of their own)
+    int prev = take();
+    {
+      float s[64];
+      wg_fence();
+      al_scores<D>(s, qa, smem_u32(ring + prev * T::STAGE));
+      wg_commit();
+      wg_wait<0>();
+      soft(s, prev, 0);
+      acc_zero(o);
+      pack(s);
+    }
+#pragma unroll 1
+    for (int j = 1; j < p.ktiles; ++j) {
+      const int s_i = take();
+      float s[64];
+      reg_fence(o);
+      reg_fence(pf);
+      wg_fence();
+      // S_j = Q K_j^T, then O += P_{j-1} V_{j-1} behind it: the softmax of
+      // S_j runs while the second product does
+      al_scores<D>(s, qa, smem_u32(ring + s_i * T::STAGE));
+      wg_commit();
+      al_pv<D>(o, pf, smem_u32(ring + prev * T::STAGE + T::KV));
+      wg_commit();
+      wg_wait<1>();
+      soft(s, s_i, j);
+      wg_wait<0>();
+      reg_fence(o);
+      reg_fence(pf);
+      if (lane == 0) mbar_arrive(&empty[prev]);   // K_{j-1} and V_{j-1} read
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= a[(i >> 1) & 1];
+      pack(s);
+      prev = s_i;
+    }
+    reg_fence(o);
+    reg_fence(pf);
+    wg_fence();
+    al_pv<D>(o, pf, smem_u32(ring + prev * T::STAGE + T::KV));
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(o);
+    if (lane == 0) mbar_arrive(&empty[prev]);
+
+    // O / sum, rounded once to bf16 (0 for a fully masked row)
+    float inv[2];
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const float tot = quad_sum(l[rh]);
+      inv[rh] = tot > 0.0f ? 1.0f / tot : 0.0f;
+    }
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int r = rh ? r1 : r0;
+      if (r >= p.Nq) continue;
+      const long row = (long)b * p.sob + (long)r * p.son + h * D;
+#pragma unroll
+      for (int J = 0; J < D / 8; ++J) {
+        const float y0 = o[4 * J + 2 * rh] * inv[rh], y1 = o[4 * J + 2 * rh + 1] * inv[rh];
+        const long off = row + 8 * J + 2 * t;
+        if (pair) {
+          *reinterpret_cast<unsigned*>(static_cast<bf16*>(p.out) + off) = pack_bf16(y0, y1);
+        } else {
+          st_val(p.out, p.out_dt, off, __bfloat162float(__float2bfloat16(y0)));
+          st_val(p.out, p.out_dt, off + 1, __bfloat162float(__float2bfloat16(y1)));
+        }
+      }
+    }
+  }
 }
 
 // The query-major backward with the keys and values streamed: pass 1
@@ -431,17 +850,65 @@ static int launch_long(Kern kern, bool& configured, long blocks, int split, int 
   return (int)cudaGetLastError();
 }
 
-template <int D, bool TRAIN>
-static int launch_attn_long(const AttnArgs& p, int B, int split, int warps, long smem,
-                            cudaStream_t s) {
+template <int D>
+static int launch_train_fwd_long(const AttnArgs& p, int B, int split, int warps, long smem,
+                                 cudaStream_t s) {
   static bool configured = false;
   if (!long_plan_ok(split, warps, smem, p.Nq, long_smem_need(D, warps, 1, false)))
     return (int)cudaErrorInvalidValue;
-  if constexpr (TRAIN)
-    return launch_long(train_fwd_long_kernel<D>, configured, (long)B * p.H, split, warps,
-                       smem, s, p);
-  return launch_long(attn_long_kernel<D>, configured, (long)B * p.H, split, warps, smem, s,
-                     p);
+  return launch_long(train_fwd_long_kernel<D>, configured, (long)B * p.H, split, warps, smem,
+                     s, p);
+}
+
+// A [B, N, H * D] bf16 view (row stride ld, batch stride sb; 0: one
+// shared by the batch) as a map of boxes [1, AL_ROWS rows, D] in the
+// swizzle of attn_long_kernel's tiles; rows past N read as zeros. `has_b`:
+// the map has the batch axis (else the kernel asks for batch 0).
+static bool al_map(CUtensorMap* map, const void* ptr, int D, long inner, long rows, long ld,
+                   long sb, int batch, int& has_b) {
+  TensorMapEncodeFn encode = tensor_map_encoder();
+  has_b = batch > 1 && sb != 0;
+  if (!encode || (reinterpret_cast<uintptr_t>(ptr) & 15) || ld % 8 || (has_b && sb % 8))
+    return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
+                              (cuuint64_t)(has_b ? batch : 1)};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)(has_b ? sb : rows * ld) * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)D, AL_ROWS, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The persistent grid: one block an SM at most, over the items.
+static int al_grid(long items) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 0;
+  }
+  return sms > 0 ? (int)(items < sms ? items : sms) : 0;
+}
+
+template <int D>
+static int launch_attn_long(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+                            const AlArgs& a, cudaStream_t s) {
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(attn_long_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         AlTile<D>::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const int grid = al_grid(a.items);
+  if (grid <= 0) return (int)cudaErrorInvalidValue;
+  attn_long_kernel<D><<<grid, AL_THREADS, AlTile<D>::SMEM, s>>>(mq, mk, mv, a);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
@@ -464,15 +931,30 @@ extern "C" int ec_attention_long(const void* q, const void* k, const void* v, in
                                  const void* kvalid, long skvb, const void* bias, float scale,
                                  void* out, int out_dt, long sob, long son,
                                  int qsplit, int warps, long smem, void* stream) {
-  AttnArgs p;
-  if (!attn_args(p, q, k, v, in_dt, sqb, sqn, skb, skn, svb, svn, B, H, Nq, Nk, kvalid,
-                 skvb, bias, scale, 0))
+  // the plan (ops/kernels.py attention_plan, eval): 128-row query tiles,
+  // the block's warps and shared memory
+  const int qtiles = (Nq + AL_ROWS - 1) / AL_ROWS;
+  const long need = D == 64 ? AlTile<64>::SMEM : AlTile<32>::SMEM;
+  if ((D != 32 && D != 64) || in_dt != DT_BF16 || B < 1 || H < 1 || Nq < 1 || Nk < 1 ||
+      !q || !k || !v || !out || !(scale > 0.0f) || qsplit != qtiles ||
+      warps * 32 != AL_THREADS || smem != need)
     return (int)cudaErrorInvalidValue;
-  p.out = out; p.out_dt = out_dt; p.sob = sob; p.son = son;
+  AlArgs a;
+  a.kvalid = static_cast<const unsigned char*>(kvalid); a.skvb = skvb;
+  a.bias = static_cast<const float*>(bias); a.scale = scale;
+  a.out = out; a.out_dt = out_dt; a.sob = sob; a.son = son;
+  a.H = H; a.Nq = Nq; a.Nk = Nk; a.qtiles = qtiles;
+  a.ktiles = (Nk + AL_KEYS - 1) / AL_KEYS;
+  const long items = (long)B * H * qtiles;
+  if (items > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  a.items = (int)items;
+  CUtensorMap mq, mk, mv;
+  const long c = (long)H * D;
+  if (!al_map(&mq, q, D, c, Nq, sqn, sqb, B, a.bq) || !al_map(&mk, k, D, c, Nk, skn, skb, B, a.bk) ||
+      !al_map(&mv, v, D, c, Nk, svn, svb, B, a.bv))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 32) return launch_attn_long<32, false>(p, B, qsplit, warps, smem, s);
-  if (D == 64) return launch_attn_long<64, false>(p, B, qsplit, warps, smem, s);
-  return (int)cudaErrorInvalidValue;
+  return D == 64 ? launch_attn_long<64>(mq, mk, mv, a, s) : launch_attn_long<32>(mq, mk, mv, a, s);
 }
 
 extern "C" int ec_attn_train_fwd_long(const void* q, const void* k, const void* v, int in_dt,
@@ -492,8 +974,8 @@ extern "C" int ec_attn_train_fwd_long(const void* q, const void* k, const void* 
   p.stats = static_cast<float*>(stats);
   p.out = out; p.out_dt = DT_F32; p.sob = sob; p.son = son;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 32) return launch_attn_long<32, true>(p, B, qsplit, warps, smem, s);
-  if (D == 64) return launch_attn_long<64, true>(p, B, qsplit, warps, smem, s);
+  if (D == 32) return launch_train_fwd_long<32>(p, B, qsplit, warps, smem, s);
+  if (D == 64) return launch_train_fwd_long<64>(p, B, qsplit, warps, smem, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -56,9 +56,9 @@ class MultiHeadAttention(nn.Module):
     on the probabilities. With use_flash, self-attention shapes go to the
     hand-written kernels: flash_mha in eval mode (no bias), and
     flash_mha_train (bias, in-kernel dropout, gradients) in training
-    mode, at any length (the JAX module trains rows above 512 tokens on
-    its plain path, which its TPU kernel's VMEM set; the port's streaming
-    kernels take them)."""
+    mode up to 512 tokens, as the JAX module: longer training rows take
+    the fp32 plain path below (the JAX module's bound, which its TPU
+    kernel's VMEM set)."""
 
     def __init__(self, embed_dim: int, num_heads: int, q_dim: int = None,
                  k_dim: int = None, v_dim: int = None,
@@ -89,7 +89,7 @@ class MultiHeadAttention(nn.Module):
             out = flash_mha(q, k, v, key_valid).reshape(b, nq,
                                                          self.embed_dim)
             return self.out_proj(out)
-        if (self.use_flash and nq == nk and self.training
+        if (self.use_flash and nq == nk and nq <= 512 and self.training
                 and not return_probs):
             out = flash_mha_train(
                 q, k, v, key_valid, bias, dropout_rate=self.dropout,

@@ -430,10 +430,24 @@ def add_pos(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 ATT_MAX_KEYS, ATT_ROW16, ATT_CH16 = 512, 8, 2
 ATT_SMEM_LIMIT = 227 * 1024
 # The streaming kernels (csrc/attn_long.cu), which take rows longer than
-# ATT_MAX_KEYS: keys (the key-major backward's queries) in tiles of
-# ATT_LONG_TILE through a ring of ATT_LONG_STAGES stages, blocks of at most
-# ATT_LONG_WARPS 16-row tiles.
+# ATT_MAX_KEYS. The training ones: keys (the key-major backward's queries)
+# in tiles of ATT_LONG_TILE through a ring of ATT_LONG_STAGES stages,
+# blocks of at most ATT_LONG_WARPS 16-row tiles. attn_long_kernel (eval):
+# items of ATT_STREAM_ROWS query rows, key tiles of ATT_STREAM_KEYS through
+# a ring of ATT_STREAM_STAGES, blocks of ATT_STREAM_WARPS warps (two
+# consumer warpgroups and the producer's).
 ATT_LONG_TILE, ATT_LONG_STAGES, ATT_LONG_WARPS = 64, 2, 8
+ATT_STREAM_ROWS, ATT_STREAM_KEYS, ATT_STREAM_STAGES = 128, 128, 4
+ATT_STREAM_WARPS = 12
+
+
+def _stream_smem(d: int) -> int:
+    """Shared memory of an attn_long_kernel block: 1024 bytes of alignment
+    slack, two query slots [128 rows x d] bf16, the ring (k and v tiles
+    [128 x d] bf16 and 1024 bytes for the additive key mask a stage) and
+    128 bytes of barriers."""
+    tile = ATT_STREAM_ROWS * 2 * d
+    return 1024 + 2 * tile + ATT_STREAM_STAGES * (2 * tile + 1024) + 128
 
 
 def _long_split(tiles: int):
@@ -486,6 +500,12 @@ def _attention_plan(nq, nk, d, train, chunk_tiles, long):
         raise ValueError(f"attention takes at least one query and one key, "
                          f"got Nq={nq}, Nk={nk}")
     key_tiles = -(-nk // 16)
+    if _streams(nk, chunk_tiles, long) and not train:
+        return (("long", True), ("q_split", -(-nq // ATT_STREAM_ROWS)),
+                ("warps", ATT_STREAM_WARPS), ("one_pass", True),
+                ("smem_bytes", _stream_smem(d)),
+                ("key_tiles", -(-nk // ATT_STREAM_KEYS)),
+                ("stages", ATT_STREAM_STAGES))
     if _streams(nk, chunk_tiles, long):
         q_split, warps = _long_split(-(-nq // 16))
         if q_split > 65535:
@@ -534,12 +554,16 @@ def attention_plan(nq: int, nk: int, d: int, train: bool = False,
       tile per warp, the additive key mask.
 
     Above ATT_MAX_KEYS keys (or with `long=True`, for measurements) the
-    plan is the streaming kernels' (attn_long_kernel,
-    train_fwd_long_kernel) and holds `long`: True, q_split and warps as
-    above (at most ATT_LONG_WARPS), two passes over chunks of chunk_tiles
-    key tiles as in the resident two-pass form, and smem_bytes for the
-    ring of ATT_LONG_STAGES key tiles and a query tile per warp. Every
-    shape up to ATT_MAX_KEYS gets the resident kernels' plan.
+    plan is the streaming kernels' and holds `long`: True. The eval
+    forward's (attn_long_kernel): q_split items of ATT_STREAM_ROWS query
+    rows a (batch, head), blocks of `warps` = ATT_STREAM_WARPS, one pass
+    over key_tiles tiles of ATT_STREAM_KEYS keys through a ring of
+    `stages`, and smem_bytes (_stream_smem). The training forward's
+    (train_fwd_long_kernel): q_split and warps as above (at most
+    ATT_LONG_WARPS), two passes over chunks of chunk_tiles key tiles as in
+    the resident two-pass form, and smem_bytes for the ring of
+    ATT_LONG_STAGES key tiles and a query tile per warp. Every shape up to
+    ATT_MAX_KEYS gets the resident kernels' plan.
 
     Raises for what the kernels do not take: d not 32 or 64, no query or
     key, chunk_tiles with more than ATT_MAX_KEYS keys or `long`."""
@@ -672,6 +696,18 @@ def _f32_contiguous(t):
     return t
 
 
+def _stream_operand(t: torch.Tensor) -> torch.Tensor:
+    """An operand of attn_long_kernel, whose TMA maps read bf16 views with
+    16-byte-aligned base and strides: fp32 is rounded to bf16 here, as the
+    TPU kernel casts its operands at the call, and a view a map cannot
+    describe is copied."""
+    if t.dtype != torch.bfloat16:
+        return t.to(torch.bfloat16).contiguous()
+    if not tma_operand_ok(t.data_ptr(), t.stride(1), t.stride(0), t.shape[0]):
+        return t.contiguous()
+    return t
+
+
 def attention(q, k, v, *, num_heads: int, scale: float, key_valid=None,
               bias=None, out_dtype=torch.bfloat16, out=None,
               plan=None) -> torch.Tensor:
@@ -680,8 +716,9 @@ def attention(q, k, v, *, num_heads: int, scale: float, key_valid=None,
     [B, Nq, H*D] rounded to bf16 (stored as out_dtype, or into `out`).
     key_valid: [B, Nk] bool, False keys are masked (read by the kernel);
     bias: [B, H, Nq, Nk] fp32. One launch of attn_kernel, or of
-    attn_long_kernel where the plan streams the keys; `plan` overrides
-    attention_plan (for measurements)."""
+    attn_long_kernel where the plan streams the keys (its operands as
+    _stream_operand gives them; the scale must be positive); `plan`
+    overrides attention_plan (for measurements)."""
     _cuda(q, k, v, key_valid, bias, out)
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("q, k, v dtypes differ")
@@ -703,6 +740,8 @@ def attention(q, k, v, *, num_heads: int, scale: float, key_valid=None,
     elif tuple(out.shape) != (b, nq, c) or out.stride(-1) != 1:
         raise ValueError(f"attention out {tuple(out.shape)}")
     long = bool(plan.get("long"))
+    if long:
+        q, k, v = (_stream_operand(t) for t in (q, k, v))
     _call("ec_attention_long" if long else "ec_attention", q.data_ptr(),
           k.data_ptr(), v.data_ptr(), _dt(q), q.stride(0), q.stride(1),
           k.stride(0), k.stride(1), v.stride(0), v.stride(1), b, num_heads,

@@ -53,6 +53,28 @@ PRIMER = 16         # kernels that open a trace, before the calls it times
 # another summation order).
 ATOL, RTOL, MEAN_TOL = 1e-2, 2.0 ** -6, 2e-3
 PEAK_BYTES_S, PEAK_BF16_FLOPS = 3.35e12, 989e12
+# Base-2 exponentials a second on the special-function units: 132 SMs x 16
+# a clock (NVIDIA's CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0) at SM_CLOCK_HZ, the SM clock at
+# which the tensor cores give PEAK_BF16_FLOPS (989e12 / (132 x 4096)).
+SM_CLOCK_HZ = 1.83e9
+PEAK_EX2_S = 132 * 16 * SM_CLOCK_HZ
+
+
+def floors_ms(n_bytes: float, flops: float, exps: float) -> dict:
+    """The three floors of an attention call in ms: its bytes over the
+    memory rate, its tensor-core operations over the bf16 rate, its
+    exponentials (one a score) over the special-function units' rate."""
+    return {"bytes": n_bytes / PEAK_BYTES_S * 1e3,
+            "tensor": flops / PEAK_BF16_FLOPS * 1e3,
+            "exp": exps / PEAK_EX2_S * 1e3}
+
+
+def bound_of(floors: dict):
+    """(bound ms, "bytes" or "operations"): the largest of the floors; the
+    tensor cores' and the exponentials' are both operations."""
+    t = max(floors.values())
+    return t, "bytes" if floors["bytes"] >= t else "operations"
 
 # name, batch, queries, keys, heads, head dim, key mask, bias ("read": an
 # fp32 [B, H, Nq, Nk] tensor, "hops": formed from the bf16 hop stack by the
@@ -295,6 +317,12 @@ def plain_text(ms) -> str:
     return "" if ms is None else f"plain {ms:.4f} ms, "
 
 
+def floors_text(floors: dict) -> str:
+    return (f"floors: bytes {floors['bytes']:.4f}, tensor "
+            f"{floors['tensor']:.4f}, exp {floors['exp']:.4f} ms at "
+            f"{SM_CLOCK_HZ / 1e9:.2f} GHz")
+
+
 def ms_text(dev, wall) -> str:
     """A device time, or that it was not measured (and the wall time)."""
     if dev is not None:
@@ -405,10 +433,10 @@ class Case:
             mask = mask.to(bf)
         return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
-    def bound_ms(self):
-        """Least time for the call: q, k, v, mask and bias (or hops) read
-        once, the output (and the training statistics) written once, over
-        the memory rate; or its two matrix products over the bf16 rate."""
+    def floors_ms(self) -> dict:
+        """The call's floors (floors_ms): q, k, v, mask and bias (or hops)
+        read once, the output (and the training statistics) written once;
+        its two matrix products; one exponential a score."""
         n_bytes = sum(t.numel() * t.element_size()
                       for t in (self.q, self.k, self.v, self.valid, self.bias,
                                 self.hops) if t is not None)
@@ -416,9 +444,12 @@ class Case:
         n_bytes += self.q.numel() * out_size
         if self.rate is not None:
             n_bytes += self.b * self.h * self.nq * 8
-        flops = 4.0 * self.b * self.h * self.nq * self.nk * self.d
-        t_b, t_o = n_bytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS
-        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+        scores = float(self.b * self.h * self.nq * self.nk)
+        return floors_ms(n_bytes, 4.0 * scores * self.d, scores)
+
+    def bound_ms(self):
+        """Least time for the call: the largest of its floors."""
+        return bound_of(self.floors_ms())
 
 
 def run_case(spec, dev, power, modes=False, long=False,
@@ -450,6 +481,7 @@ def run_case(spec, dev, power, modes=False, long=False,
         sdpa_dev_ms, _, sdpa_wall = device_ms(sdpa)
         sdpa_ms = time_ms(sdpa)
         bnd, by = case.bound_ms()
+        floors = case.floors_ms()
         if case.hops is not None:
             plan = K.bias_attention_plan(case.b, case.nq, case.h, case.d)
         else:
@@ -476,7 +508,8 @@ def run_case(spec, dev, power, modes=False, long=False,
            "wall_ms": wall_ms, "kernels_per_call": n_kern,
            "count_from": count_from, "wrapper_ms": wrap_ms,
            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-           "sdpa_ms": sdpa_ms, "sdpa_device_ms": sdpa_dev_ms, "plan": plan,
+           "floors_ms": floors, "sdpa_ms": sdpa_ms,
+           "sdpa_device_ms": sdpa_dev_ms, "plan": plan,
            "by_kernel": kernel_ms(kernel) if full else {}}
     print(f"[op] attention {case.name}: [B {case.b}, Nq {case.nq}, Nk "
           f"{case.nk}, H {case.h}, D {case.d}] max_abs_err {err:.4g} "
@@ -484,7 +517,7 @@ def run_case(spec, dev, power, modes=False, long=False,
           f"{MEAN_TOL}; worst excess {excess:.3g}) {ms_text(dev_ms, wall_ms)}"
           f" in {n_kern} kernel(s) per call (by {count_from}), wrapper "
           f"{wrap_ms:.4f} ms, {plain_text(plain_ms)}bound {bnd:.4f} ms "
-          f"({by}), SDPA {sdpa_ms:.4f} "
+          f"({by}; {floors_text(floors)}), SDPA {sdpa_ms:.4f} "
           f"ms ({ms_text(sdpa_dev_ms, sdpa_wall)}), plan "
           f"{json.dumps(plan)}{other} on {power} "
           f"{'OK' if ok else 'FAIL'}", flush=True)
@@ -561,11 +594,12 @@ class BwdCase(Case):
     def bound_ms(self, part=None):
         """Least time for the backward: q, k, v, do, the statistics, mask
         and bias read once, dq, dk, dv and dbias written once, over the
-        memory rate; or the five products (s, dp, dq, dk, dv) over the
-        bf16 rate. part "q": the query-major kernel's function alone (the
-        same reads; dq, delta and dbias written; s, dp and dq), "k": the
-        key-major kernel's (the same reads and delta; dk and dv written;
-        s, dp, dk and dv)."""
+        memory rate; the five products (s, dp, dq, dk, dv) over the bf16
+        rate; or one exponential a score (p recomputed) over the
+        special-function units' rate. part "q": the query-major kernel's
+        function alone (the same reads; dq, delta and dbias written; s, dp
+        and dq), "k": the key-major kernel's (the same reads and delta; dk
+        and dv written; s, dp, dk and dv); each recomputes p."""
         n_bytes = sum(t.numel() * t.element_size()
                       for t in (self.q, self.k, self.v, self.g, self.valid,
                                 self.bias) if t is not None)
@@ -577,9 +611,9 @@ class BwdCase(Case):
                                + self.v.numel()) + dbias,
                     "q": 4 * self.q.numel() + delta + dbias,
                     "k": delta + 4 * (self.k.numel() + self.v.numel())}[part]
-        flops = 2.0 * products * self.b * self.h * self.nq * self.nk * self.d
-        t_b, t_o = n_bytes / PEAK_BYTES_S, flops / PEAK_BF16_FLOPS
-        return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+        scores = float(self.b * self.h * self.nq * self.nk)
+        return bound_of(floors_ms(n_bytes, 2.0 * products * scores * self.d,
+                                  scores))
 
 
 def run_bwd_case(spec, dev, power, modes=False, full=False) -> dict:

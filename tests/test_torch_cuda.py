@@ -1405,19 +1405,15 @@ def test_long_attention_matches_plain(dev, shape):
                                             (7, 64, True, False)])
 def test_long_attention_is_the_two_pass_form_bit_for_bit(dev, nk, d, mask,
                                                          bias):
-    """Forced at a shape the resident kernels take, the streaming forward
-    gives the bits of their two-pass form (the same chunks in the same
-    order); the training pair too, statistics and gradients included."""
+    """Forced at a shape the resident kernels take, the streaming training
+    pair gives the bits of their two-pass form (the same chunks in the
+    same order), statistics and gradients included. (attn_long_kernel is
+    one pass with the online softmax and rounds elsewhere: its checks are
+    the two tests below.)"""
     from edgecape_tpu_torch.ops import kernels as K
     h, nq = 4, nk
     q, k, v, valid, bt = _attn_operands(dev, 2, nq, nk, h, d, torch.bfloat16,
                                         mask, bias, seed=nk)
-    outs = []
-    for kw in ({"chunk_tiles": K.ATT_CH16}, {"long": True}):
-        outs.append(K.attention(q, k, v, num_heads=h, scale=d ** -0.5,
-                                key_valid=valid, bias=bt,
-                                plan=K.attention_plan(nq, nk, d, **kw)))
-    assert torch.equal(outs[0], outs[1])
     g = _rn(dev, 2, nq, h * d, seed=3)
     res = []
     for kw in ({"chunk_tiles": K.ATT_CH16}, {"long": True}):
@@ -1430,6 +1426,50 @@ def test_long_attention_is_the_two_pass_form_bit_for_bit(dev, nk, d, mask,
         res.append([o, st] + [x for x in grads if x is not None])
     for a, b in zip(*res):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("nk,d,mask,bias", [(356, 32, True, False),
+                                            (257, 64, False, False),
+                                            (100, 32, True, True),
+                                            (7, 64, True, False)])
+def test_long_attention_forced_matches_plain(dev, nk, d, mask, bias):
+    """attn_long_kernel forced at a shape the resident kernels take, and
+    attn_kernel there, both against the plain version at the smoke's
+    bound."""
+    from edgecape_tpu_torch.ops import kernels as K
+    h, nq = 4, nk
+    q, k, v, valid, bt = _attn_operands(dev, 2, nq, nk, h, d, torch.bfloat16,
+                                        mask, bias, seed=nk)
+    ref = _plain_attention(q, k, v, valid, bt, h, d)
+    for kw in ({}, {"long": True}):
+        _close(K.attention(q, k, v, num_heads=h, scale=d ** -0.5,
+                           key_valid=valid, bias=bt,
+                           plan=K.attention_plan(nq, nk, d, **kw)), ref)
+
+
+@pytest.mark.parametrize("shape", LONG_SHAPES[:3], ids=lambda s: s[0])
+def test_long_attention_rows_are_independent(dev, shape):
+    """attn_long_kernel's rows depend on their own query, the keys and the
+    mask alone: a batch of 16 gives the bits of its two 8-image halves and
+    of a permuted batch, and cutting the first 37 queries off changes no
+    other row."""
+    from edgecape_tpu_torch.ops import kernels as K
+    _, _, nq, nk, h, d, mask, bias = shape
+    b = 16
+    q, k, v, valid, _ = _attn_operands(dev, b, nq, nk, h, d, torch.bfloat16,
+                                       mask, False, seed=nq)
+
+    def att(sel=slice(None), qsel=slice(None)):
+        return K.attention(q[sel][:, qsel], k[sel], v[sel], num_heads=h,
+                           scale=d ** -0.5,
+                           key_valid=None if valid is None else valid[sel])
+
+    whole = att()
+    assert torch.equal(torch.cat([att(slice(0, 8)), att(slice(8, 16))]),
+                       whole)
+    perm = torch.randperm(b, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(att(perm.to(dev)), whole[perm.to(dev)])
+    assert torch.equal(att(qsel=slice(37, None)), whole[:, 37:])
 
 
 @pytest.mark.parametrize("n,h,d,masked,with_bias", [

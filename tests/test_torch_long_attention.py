@@ -1,11 +1,16 @@
 """The streaming attention kernels (csrc/attn_long.cu), which take rows
 longer than the resident kernels hold, on the CPU: their launch plans,
-the width check at the image sizes they open, an emulation of their tile
+the width check at the image sizes they open, emulations of their tile
 loops in torch against the plain versions and the JAX kernels in
-interpret mode. (The stage-3 slice at DINOv2's own 518 px against the
-JAX package is tests/test_torch_width_routes.py's, on that file's weights.)
+interpret mode, and the training route above 512 tokens against the JAX
+module. (The stage-3 slice at DINOv2's own 518 px against the JAX package
+is tests/test_torch_width_routes.py's, on that file's weights.)
 
-The emulations keep what the kernels do and in what order: 32-key chunks
+attn_long_kernel's emulation (emulate_forward_online) keeps its one pass:
+key tiles of 128 in order, each row's running max in base 2 and its
+quad's running sums, the unnormalised p rounded to bf16 for P.V, the
+output rescaled when the max grows and divided by the sum at the end.
+The training kernels' emulations keep the two-pass form: 32-key chunks
 of a warp's scores, per-lane running max and exp-sum over them (a lane
 holds four neighbouring keys of each 16-key block), joined over the
 quad; a second pass that normalises by the final sum before the bf16
@@ -13,19 +18,23 @@ rounding of the probabilities and adds P.V 16 keys at a time in fp32;
 keys arriving in tiles of LONG_TILE, queries of the key-major backward
 likewise. Tolerances:
 
-* emulation against the plain attention and against JAX flash_mha in
-  interpret mode (the same bf16 operands and rounding points, softmax
-  summed in another order): the probabilities before their rounding
-  within 1e-7 of torch's fp32 softmax (fp32 rounding of values <= 1;
-  measured 1.5e-8), the outputs within one bf16 ulp of the largest (a
-  probability whose fp32 value lies on a bf16 rounding boundary may round
-  the other way; measured a quarter of it) and 1e-5 on the mean
-  (measured 1.6e-7);
+* the one-pass emulation against the plain attention and JAX flash_mha
+  in interpret mode: see test_online_forward_emulation_matches_plain_and_jax
+  (another rounding point of p: one bf16 ulp of the largest output);
+* the two-pass emulation against the plain attention and against JAX
+  flash_mha in interpret mode (the same bf16 operands and rounding
+  points, softmax summed in another order): the probabilities before
+  their rounding within 1e-7 of torch's fp32 softmax (fp32 rounding of
+  values <= 1; measured 1.5e-8), the outputs within one bf16 ulp of the
+  largest (a probability whose fp32 value lies on a bf16 rounding
+  boundary may round the other way; measured a quarter of it) and 1e-5
+  on the mean (measured 1.6e-7);
 * the training forward's statistics against fp64: 1e-6 relative
   (measured 5e-7); its output and the backward's dq, dk, dv against the
   JAX pair in interpret mode: 5e-4 absolute on values of order 1 (the
   flipped roundings above; measured 1.7e-4), dbias (fp32, no rounding of
-  its own) 1e-5 (measured 6e-7).
+  its own) 1e-5 (measured 6e-7);
+* the training route: see test_training_rows_above_512_take_the_fp32_plain_path.
 """
 
 import dataclasses
@@ -35,13 +44,16 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu.models import dinov2 as jdinov2
+from edgecape_tpu.models import transformer as jtransformer
 from edgecape_tpu.ops import flash_attention as jflash
 from edgecape_tpu_torch.config import ModelConfig
 from edgecape_tpu_torch.models import convert as tconvert
+from edgecape_tpu_torch.models import transformer as ttransformer
 from edgecape_tpu_torch.ops import kernels as K
 from edgecape_tpu_torch.ops import plain
 
@@ -118,22 +130,39 @@ def _covers(split, warps, n):
     return (split - 1) * warps < tiles <= split * warps
 
 
+def _stream_smem(d):
+    """The shared memory attn_long_kernel lays out: 1024 bytes to align
+    the tiles on, two query slots of 128 rows, a ring of four stages of a
+    128-key K and V tile and 1024 bytes for the key mask, 128 bytes of
+    barriers."""
+    tile = 128 * 2 * d
+    return 1024 + 2 * tile + 4 * (2 * tile + 1024) + 128
+
+
 @pytest.mark.parametrize("nk", [513, 1025, 1369, 1469, 4096])
 @pytest.mark.parametrize("d", [32, 64])
 def test_long_plans_above_the_caps(nk, d):
-    """Above 512 keys the streaming plans: every query (key) tile in one
-    block of at most 8 warps, shared memory as the kernels lay it out and
-    within the card's limit; a cross-attention of 100 queries too."""
-    for nq in (1, 100, nk):
+    """Above 512 keys the streaming plans. The eval forward's
+    (attn_long_kernel): one pass, items of 128 query rows a (batch, head),
+    blocks of 12 warps (two consumer warpgroups and the producer's), key
+    tiles of 128 through a ring of 4, shared memory as the kernel lays it
+    out and within the card's limit. The training forward's: every query
+    tile in one block of at most 8 warps and two passes, as before; a
+    cross-attention of 100 queries too."""
+    for nq in (1, 100, 128, 129, nk):
         plan = K.attention_plan(nq, nk, d)
-        assert plan["long"] and not plan["one_pass"]
-        assert plan["chunk_tiles"] == K.ATT_CH16
-        assert plan["key_tiles"] == -(-nk // 16)
-        assert 1 <= plan["warps"] <= 8 and _covers(plan["q_split"],
-                                                   plan["warps"], nq)
-        assert plan["smem_bytes"] == _long_smem(d, plan["warps"], 1, False)
+        assert plan == {"long": True, "q_split": -(-nq // 128), "warps": 12,
+                        "one_pass": True, "smem_bytes": _stream_smem(d),
+                        "key_tiles": -(-nk // 128), "stages": 4}
         assert plan["smem_bytes"] <= SMEM_LIMIT
-        assert K.attention_plan(nq, nk, d, train=True) == plan
+        train = K.attention_plan(nq, nk, d, train=True)
+        assert train["long"] and not train["one_pass"]
+        assert train["chunk_tiles"] == K.ATT_CH16
+        assert train["key_tiles"] == -(-nk // 16)
+        assert 1 <= train["warps"] <= 8 and _covers(train["q_split"],
+                                                    train["warps"], nq)
+        assert train["smem_bytes"] == _long_smem(d, train["warps"], 1, False)
+        assert train["smem_bytes"] <= SMEM_LIMIT
     bwd = K.attention_bwd_plan(nk, nk, d)
     assert bwd["long"]
     for side, n in (("q", nk), ("k", nk)):
@@ -144,7 +173,10 @@ def test_long_plans_above_the_caps(nk, d):
         assert bwd[f"{side}_smem_bytes"] <= SMEM_LIMIT
     # the forcing argument runs them at a short shape; chunk_tiles forces
     # the resident kernels, which do not hold these rows
-    assert K.attention_plan(356, 356, d, long=True)["long"]
+    assert K.attention_plan(356, 356, d, long=True) == K.attention_plan(
+        356, nk, d) | {"q_split": 3, "key_tiles": 3}
+    assert not K.attention_plan(356, 356, d, train=True,
+                                long=True)["one_pass"]
     assert K.attention_bwd_plan(100, 100, d, long=True)["long"]
     with pytest.raises(ValueError):
         K.attention_plan(100, nk, d, chunk_tiles=K.ATT_CH16)
@@ -159,6 +191,10 @@ def test_vit_plan_above_272_tokens_streams(n):
     plan = K.vit_attn_plan(120, n, 384, 6)
     assert plan["long"] and plan["qkv_tiles"] == -(-(120 * n) // 128)
     assert plan["attention"] == K.attention_plan(n, n, 64, long=True)
+    assert plan["attention"] == {
+        "long": True, "q_split": -(-n // 128), "warps": 12, "one_pass": True,
+        "smem_bytes": _stream_smem(64), "key_tiles": -(-n // 128),
+        "stages": 4}
     with pytest.raises(ValueError):
         K.vit_attn_plan(1, n, 768, 12)
 
@@ -265,16 +301,111 @@ def _pv(p, v, tile):
 
 
 def emulate_forward(q, k, v, *, scale, kb, bias=None, tile=64):
-    """attn_long_kernel / train_fwd_long_kernel at rate 0 for one head:
+    """train_fwd_long_kernel at rate 0 for one head (the two-pass form):
     (probabilities before their bf16 rounding [Nq, Nk_padded], output
-    fp32 (the training form; the eval kernel rounds it to bf16), row max
-    in base e, reciprocal exp-sum)."""
+    fp32, row max in base e, reciprocal exp-sum)."""
     s2 = _scores2(q, k, scale, kb, bias)
     m, total = _pass1(s2, tile)
     z = torch.where(m == -math.inf, torch.zeros_like(m), m)
     inv = torch.where(total > 0, 1.0 / total, torch.zeros_like(total))
     p = torch.exp2(_pad_keys(s2) - z[:, None]) * inv[:, None]
     return p, _pv(p, v, tile), m * LN2, inv
+
+
+KEY_TILE = 128      # keys of attn_long_kernel's streamed tile
+
+
+def emulate_forward_online(q, k, v, *, scale, kb, bias=None):
+    """attn_long_kernel for one head: one pass over key tiles of KEY_TILE
+    in order; a row's running max (base 2) and its quad's four running
+    sums (lane t adds keys 8 J + 2 t and + 1 of a tile, J in order); p =
+    2^(s - running max), rounded to bf16 for P.V; the output and the sums
+    rescaled by 2^(old max - new max); the sums joined over the quad, the
+    output multiplied by the reciprocal and rounded to bf16 once (the
+    kernel fuses the scale into the exponent's fma on unmasked tiles: the
+    same up to fp32 rounding). Returns [Nq, D] fp32 holding bf16 values
+    (0 for a fully masked row)."""
+    s2 = _scores2(q, k, scale, kb, bias)
+    nq, nk = s2.shape
+    m = torch.full((nq,), -math.inf)
+    lanes = torch.zeros((nq, 4))
+    o = torch.zeros((nq, v.shape[1]))
+    for t0 in range(0, nk, KEY_TILE):
+        pad = KEY_TILE - min(KEY_TILE, nk - t0)
+        st = torch.nn.functional.pad(s2[:, t0:t0 + KEY_TILE], (0, pad),
+                                     value=-math.inf)
+        vt = torch.nn.functional.pad(v[t0:t0 + KEY_TILE], (0, 0, 0, pad))
+        mn = torch.maximum(m, st.amax(dim=1))
+        z = torch.where(mn == -math.inf, torch.zeros_like(mn), mn)
+        a = torch.exp2(m - z)
+        p = torch.exp2(st - z[:, None])
+        by_lane = p.reshape(nq, KEY_TILE // 8, 4, 2)     # J, lane, key
+        part = torch.zeros((nq, 4))
+        for j in range(KEY_TILE // 8):
+            part = part + by_lane[:, j, :, 0]
+            part = part + by_lane[:, j, :, 1]
+        lanes = lanes * a[:, None] + part
+        o = o * a[:, None] + _bf(p) @ vt
+        m = mn
+    total = (lanes[:, 0] + lanes[:, 1]) + (lanes[:, 2] + lanes[:, 3])
+    inv = torch.where(total > 0, 1.0 / total, torch.zeros_like(total))
+    return _bf(o * inv[:, None])
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("nk", [600, 1469])
+@pytest.mark.parametrize("d", [32, 64])
+def test_online_forward_emulation_matches_plain_and_jax(d, nk, masked):
+    """attn_long_kernel's one-pass order against the plain attention and
+    JAX flash_mha in interpret mode (both normalise p before its bf16
+    rounding, the kernel rounds the unnormalised p and divides at the
+    end): the outputs within one bf16 ulp of the largest (a probability
+    whose unnormalised and normalised values round differently moves an
+    output across a rounding boundary: measured exactly one such ulp,
+    from an output in the top binade) and 3e-4 on the mean (about a third
+    of the outputs round the other way, each by an ulp of its own size:
+    measured 1.5e-4)."""
+    nq, h = 40, 2
+    q, k, v, valid = _operands(nk + d + masked, nq, nk, h, d, masked)
+    kb = plain.key_bias(torch.from_numpy(valid))[0]
+    scale = 1.0 / math.sqrt(d)
+    emu = torch.stack([emulate_forward_online(
+        _head(q, i), _head(k, i), _head(v, i), scale=scale, kb=kb)
+        for i in range(h)], dim=1)[None]                   # [1, Nq, H, D]
+    flat = [torch.from_numpy(t).reshape(1, t.shape[1], h * d)
+            for t in (q, k, v)]
+    ref = plain.attention(*flat, num_heads=h, scale=scale,
+                          kb=plain.key_bias(torch.from_numpy(valid)))
+    jout = np.asarray(jflash.flash_mha(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), jnp.asarray(valid),
+                                       interpret=True), np.float32)
+    for want in (ref.reshape(emu.shape), torch.from_numpy(jout)):
+        diff = (emu - want).abs()
+        top = want.abs().max().item()
+        assert diff.max().item() <= 2.0 ** (math.floor(math.log2(top)) - 7)
+        assert diff.mean().item() <= 3e-4
+
+
+def test_online_forward_fully_masked_row_is_zero():
+    """A row whose keys are all masked: max -inf throughout, every p 0,
+    the sum 0, the output 0 (the kernel's reciprocal of a zero sum is 0);
+    its neighbours are untouched."""
+    nq, nk, d = 8, 300, 32
+    q, k, v, _ = _operands(11, nq, nk, 1, d, masked=False)
+    kb = torch.full((nk,), -math.inf)
+    out = emulate_forward_online(_head(q, 0), _head(k, 0), _head(v, 0),
+                                 scale=d ** -0.5, kb=kb)
+    assert torch.equal(out, torch.zeros_like(out))
+    bias = torch.zeros(nq, nk)
+    bias[3] = -math.inf                  # one row masked by its bias alone
+    open_kb = torch.zeros(nk)
+    out = emulate_forward_online(_head(q, 0), _head(k, 0), _head(v, 0),
+                                 scale=d ** -0.5, kb=open_kb, bias=bias)
+    assert torch.equal(out[3], torch.zeros(d))
+    want = emulate_forward_online(_head(q, 0), _head(k, 0), _head(v, 0),
+                                  scale=d ** -0.5, kb=open_kb)
+    rows = [r for r in range(nq) if r != 3]
+    assert torch.equal(out[rows], want[rows])
 
 
 def emulate_backward(q, k, v, do, m, inv, *, scale, kb, bias=None, tile=64):
@@ -404,3 +535,75 @@ def test_training_emulation_matches_jax_pair():
                                        **tol)
         np.testing.assert_allclose(ds.numpy(), jgrads[3][0, i], atol=1e-5,
                                    rtol=0, err_msg="dbias")
+
+
+# ---------------------------------------------------------------- routing
+@pytest.mark.parametrize("n", [512, 520])
+def test_training_rows_above_512_take_the_fp32_plain_path(n, monkeypatch):
+    """The port's MultiHeadAttention in training (use_flash, dropout 0)
+    routes as the JAX module (edgecape_tpu/models/transformer.py: the
+    kernel up to 512 tokens, the fp32 einsum / softmax path above):
+    flash_mha_train is taken at 512 and, patched to raise, never reached
+    at 520. Output and gradients (input and every weight) against the JAX
+    module with train=True: at 520 both are the fp32 plain path, held to
+    1e-5 relative and 2e-5 absolute (fp32 sums in another order, the
+    weights' gradients over 520 rows; measured 5.7e-6 absolute on values
+    of order 1-10); at 512 both take their bf16 kernel (the port's plain
+    version on the CPU, the Pallas kernel in interpret mode), held to the
+    JAX package's own bounds for it, 0.02 forward and 0.05 gradients."""
+    e, h = 64, 2
+    rng = np.random.default_rng(n)
+
+    def dense(i, o):
+        return {"kernel": (rng.normal(size=(i, o)) / math.sqrt(i)).astype(
+            np.float32), "bias": (0.1 * rng.normal(size=o)).astype(np.float32)}
+
+    tree = {name: dense(e, e) for name in ("q_proj", "k_proj", "v_proj",
+                                           "out_proj")}
+    x = rng.normal(size=(1, n, e)).astype(np.float32)
+    g = rng.normal(size=(1, n, e)).astype(np.float32)
+    valid = rng.uniform(size=(1, n)) > 0.2
+    valid[:, 0] = True
+
+    jm = jtransformer.MultiHeadAttention(embed_dim=e, num_heads=h,
+                                         dropout=0.0, use_flash=True)
+
+    def jloss(params, xj):
+        out = jm.apply({"params": params}, xj, xj, xj,
+                       key_valid=jnp.asarray(valid), train=True)
+        return jnp.sum(out * g), out
+
+    (_, jout), (jgp, jgx) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(
+        jax.tree.map(jnp.asarray, tree), jnp.asarray(x))
+
+    tm = ttransformer.MultiHeadAttention(e, h, use_flash=True, dropout=0.0)
+    tm.load_state_dict(tconvert.state_from_flax(tree))
+    tm.train()
+    taken = []
+    kernel = ttransformer.flash_mha_train
+
+    def spy(*args, **kw):
+        if n > 512:
+            raise AssertionError("flash_mha_train above 512 tokens")
+        taken.append(n)
+        return kernel(*args, **kw)
+
+    monkeypatch.setattr(ttransformer, "flash_mha_train", spy)
+    xt = torch.tensor(x, requires_grad=True)
+    out = tm(xt, xt, xt, key_valid=torch.from_numpy(valid))
+    (out * torch.from_numpy(g)).sum().backward()
+    assert taken == ([n] if n <= 512 else [])
+    tol = (dict(rtol=1e-5, atol=2e-5) if n > 512
+           else dict(rtol=0.02, atol=0.02))
+    gtol = tol if n > 512 else dict(rtol=0.05, atol=0.05)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), **tol)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgx), **gtol)
+    for name, mod in (("q_proj", tm.q_proj), ("k_proj", tm.k_proj),
+                      ("v_proj", tm.v_proj), ("out_proj", tm.out_proj)):
+        np.testing.assert_allclose(mod.weight.grad.numpy(),
+                                   np.asarray(jgp[name]["kernel"]).T,
+                                   err_msg=name, **gtol)
+        np.testing.assert_allclose(mod.bias.grad.numpy(),
+                                   np.asarray(jgp[name]["bias"]),
+                                   err_msg=name, **gtol)
