@@ -195,8 +195,14 @@ Phases (any failure exits non-zero before the last line):
    version at the 518 px shapes, past the caps and at a ragged count
    (`[op] attention` lines of tools/bench_attention.py LONG_SHAPES:
    device, wrapper, plain, bound and SDPA ms; each backward kernel's own
-   device ms, bound and gradients' worst difference); attn_long_kernel's
-   ptxas registers and spills; its rows bit-equal across batch
+   device ms, bound and gradients' worst difference; every gradient
+   also within 2e-3 on the mean and bit-equal on a second call); the
+   training kernels' own device ms at rate 0 and 0.1 beside their bounds
+   and SDPA's (information); the training forward and backward pair
+   forced at the 224 px training shape [16, 356, 8, 32], rate 0.1,
+   beside the resident kernels (#7, #8) and SDPA, each against plain
+   (their times information); the four streaming kernels' ptxas
+   registers and spills; attn_long_kernel's rows bit-equal across batch
    positions and query splits (a batch of 16 against its 8-image halves,
    a permuted batch, the queries from 37 on); the eval forward forced at
    the 224 px path's 356- and 256-key shapes beside attn_kernel, both
@@ -3956,6 +3962,14 @@ def kernel_device_ms(row, name):
     return sum(ms for k, ms in by.items() if name in k) or None
 
 
+def by_kernel_text(row):
+    """An [op] row's device ms by kernel, the kernels by their short names
+    ("train_fwd_long_kernel<32>"), or that the trace lost them."""
+    by = row.get("by_kernel") or {}
+    return ", ".join(f"{k.split('(')[0].split()[-1]} {ms:.4f}"
+                     for k, ms in by.items()) or "by kernel not measured"
+
+
 def long_entry(name, row, replaces, launches, what):
     """A kernels-line entry of a streaming kernel from its [op] row. A
     kernel of the backward pair (whose wrapper launches both) gets its
@@ -4042,24 +4056,86 @@ def long_path(dev, entries, power, figures):
                             if g in row["errs"]))
         print(f"[long] {name}, each kernel of the pair: {'; '.join(parts)} "
               f"on {power} (information only)", flush=True)
+    # --- the training kernels at rate 0 and at LONG_RATE, each kernel's
+    # own device time beside its bound and SDPA's (information only)
+    by_rate = {}
+    for rate in ("0", str(LONG_RATE)):
+        fw = rows[f"train encoder 518 px, rate {rate}"]
+        bw = rows[f"train encoder 518 px, rate {rate}, backward"]
+        ms = {"train_fwd_long_kernel":
+              kernel_device_ms(fw, "train_fwd_long_kernel")}
+        ms.update({k: kernel_device_ms(bw, k) for k in LONG_BWD_PARTS})
+        bounds = {"train_fwd_long_kernel": fw["bound_ms"]}
+        bounds.update({k: bw["part_bounds"][part][0]
+                       for k, (_, part) in LONG_BWD_PARTS.items()})
+        pair = (None if None in (ms["train_bwd_q_long_kernel"],
+                                 ms["train_bwd_k_long_kernel"])
+                else ms["train_bwd_q_long_kernel"]
+                + ms["train_bwd_k_long_kernel"])
+        by_rate[rate] = {"device_ms": ms, "bound_ms": bounds,
+                         "pair_device_ms": pair,
+                         "sdpa_device_ms": fw["sdpa_device_ms"],
+                         "sdpa_backward_device_ms": bw["sdpa_device_ms"]}
+        print(f"[long] the training kernels at [B {fw['shape'][0]}, N "
+              f"{fw['shape'][1]}, H {fw['shape'][3]}, D {fw['shape'][4]}], "
+              f"rate {rate}: "
+              + "; ".join(f"{k} {BA.ms_text(ms[k], None)} (bound "
+                          f"{bounds[k]:.4f} ms)" for k in ms)
+              + f"; the pair {BA.ms_text(pair, None)}; SDPA "
+              f"{BA.ms_text(fw['sdpa_device_ms'], fw['sdpa_ms'])}, SDPA "
+              f"backward {BA.ms_text(bw['sdpa_device_ms'], bw['sdpa_ms'])} on "
+              f"{power} (information only)", flush=True)
+
+    # --- the training kernels forced at the 224 px training shape, beside
+    # the resident kernels (#7, #8) and SDPA (information only: the 224 px
+    # path keeps the resident kernels), each against the plain version
+    spec = BA.SHAPES[8]
+    at224 = {"resident": BA.run_case(spec, dev, power, full=True),
+             "streaming": BA.run_case(spec, dev, power, long=True, full=True),
+             "resident, backward": BA.run_bwd_case(spec, dev, power,
+                                                   full=True),
+             "streaming, backward": BA.run_bwd_case(spec, dev, power,
+                                                    full=True, long=True)}
+    torch.cuda.empty_cache()
+    forced_224 = {}
+    for form, row in at224.items():
+        forced_224[form] = {"kernel_device_ms": row.get("by_kernel"),
+                            "device_ms": row["device_ms"],
+                            "wall_ms": row["wall_ms"],
+                            "sdpa_device_ms": row["sdpa_device_ms"],
+                            "sdpa_ms": row["sdpa_ms"], "ok": row["ok"]}
+    print(f"[long] {spec[0]} [B {spec[1]}, N {spec[2]}, H {spec[4]}, D "
+          f"{spec[5]}] forced to the streaming kernels: "
+          + "; ".join(f"{form} {BA.ms_text(r['device_ms'], r['wall_ms'])} "
+                      f"({by_kernel_text(r)})" for form, r in at224.items())
+          + f"; SDPA {BA.ms_text(at224['resident']['sdpa_device_ms'], None)}"
+          f", SDPA backward "
+          f"{BA.ms_text(at224['resident, backward']['sdpa_device_ms'], None)}"
+          f" on {power} (information only: the 224 px path keeps the "
+          f"resident kernels)", flush=True)
+
     bad = [n for n, r in rows.items() if not r["ok"]]
     bad += [f"{n}: not streamed" for n, r in rows.items()
             if not r["plan"].get("long")]
+    bad += [f"{spec[0]}, {form}" for form, r in at224.items() if not r["ok"]]
     if bad:
         fail(f"the streaming kernels disagree with their plain versions: "
              f"{bad}")
-    ptxas = [{"function": fn, "registers": regs, "spill_store_bytes": st,
-              "spill_load_bytes": ld}
-             for fn, regs, st, ld in KN.ptxas_usage("attn_long_kernel")]
+    ptxas = {name: [{"function": fn, "registers": regs,
+                     "spill_store_bytes": st, "spill_load_bytes": ld}
+                    for fn, regs, st, ld in KN.ptxas_usage(name)]
+             for name in long_names}
     serialised = [line.split("info    :")[-1].strip() for line in
                   KN.build_logs.get("attn_long.cu", "").splitlines()
                   if "serialized" in line]
-    print("[long] attn_long_kernel ptxas: "
-          + ("; ".join(f"{u['function']}: {u['registers']} registers, "
-                       f"spills {u['spill_store_bytes']} B stored / "
-                       f"{u['spill_load_bytes']} B loaded" for u in ptxas)
-             or "no report (the library was built before this process)")
-          + f"; wgmma serialisation notes: {serialised or 'none'}",
+    for name, usage in ptxas.items():
+        print(f"[long] {name} ptxas: "
+              + ("; ".join(f"{u['function']}: {u['registers']} registers, "
+                           f"spills {u['spill_store_bytes']} B stored / "
+                           f"{u['spill_load_bytes']} B loaded" for u in usage)
+                 or "no report (the library was built before this process)"),
+              flush=True)
+    print(f"[long] wgmma serialisation notes: {serialised or 'none'}",
           flush=True)
 
     # --- attn_long_kernel's rows depend on their own query alone: the
@@ -4433,14 +4509,22 @@ def long_path(dev, entries, power, figures):
                                               eval_long[False][name]}
         entries[name]["train_launches"] = train_long[name]
         entries[name]["floors_ms"] = pass_rows[name].get("floors_ms")
+        entries[name]["ptxas"] = ptxas[name]
         if not eval_path:
             entries[name]["launches_from"] = (
                 f"a direct flash_mha_train call, forward and backward, at "
                 f"[{b}, {n}, {h}, {d}]")
+            entries[name]["by_rate"] = {
+                rate: {"device_ms": r["device_ms"][name],
+                       "bound_ms": r["bound_ms"][name],
+                       "library_device_ms": r["sdpa_device_ms" if name ==
+                                              "train_fwd_long_kernel" else
+                                              "sdpa_backward_device_ms"]}
+                for rate, r in by_rate.items()}
+            entries[name]["forced_at_224_px"] = forced_224
     entries["attn_long_kernel"]["query_pass"] = query_pass
     entries["attn_long_kernel"]["forced_at_224_px"] = resident_vs_long
     entries["attn_long_kernel"]["rows_bit_equal"] = rows_same
-    entries["attn_long_kernel"]["ptxas"] = ptxas
     entries["attn_long_kernel"]["wgmma_serialised"] = serialised
     entries["attn_long_kernel"]["attention_shapes"] = list(rows.values())
     took = time.perf_counter() - t_phase

@@ -1,17 +1,16 @@
-// Attention over any number of keys (and queries): the kernels of
-// kernels.cu's attention with the keys, or in the key-major backward the
-// queries, streamed through shared memory in tiles instead of held whole.
-// They take what the TPU kernels take at any length
-// (edgecape_tpu/ops/flash_attention.py flash_mha, which pads Nk up with no
-// cap, and the training pair _flash_train_fwd / _flash_train_bwd; the
-// attention inside fused_vit_block, fused_encoder, fused_decoder and
-// fused_attn_block), where kernels.cu's hold a head's keys and values in
-// 4 * Nk * (D + 8) bytes of shared memory and so stop at 512 keys
-// (ATT_MAX_NK), and the ViT attention kernel keeps a 272-key score row in
-// registers:
+// Attention over any number of keys (and queries): the attention kernels
+// with the keys, or in the key-major backward the queries, streamed
+// through shared memory in tiles instead of held whole. They take what the
+// TPU kernels take at any length (edgecape_tpu/ops/flash_attention.py
+// flash_mha, which pads Nk up with no cap, and the training pair
+// _flash_train_fwd / _flash_train_bwd; the attention inside
+// fused_vit_block, fused_encoder, fused_decoder and fused_attn_block),
+// where kernels.cu's hold a head's keys and values in 4 * Nk * (D + 8)
+// bytes of shared memory and so stop at 512 keys (ATT_MAX_KEYS), and the
+// ViT attention kernel keeps a 272-key score row in registers:
 //   * attn_long_kernel: the eval forward, head dim 32 or 64, any Nq and
 //     Nk >= 1, with the key mask and an fp32 [B, H, Nq, Nk] bias;
-//   * train_fwd_long_kernel: the same with Philox dropout on the
+//   * train_fwd_long_kernel: the same body with Philox dropout on the
 //     probabilities, an fp32 output and each row's max and reciprocal
 //     exp-sum saved in the layout the backward reads;
 //   * train_bwd_q_long_kernel (delta, dbias, dq: keys and values streamed)
@@ -31,7 +30,10 @@
 // and one 2^x a score on the special-function unit (16 a clock an SM,
 // against 4 * D tensor-core operations a score at 1024 a clock an SM):
 // at D 64 the exponentials take as long as the products, at D 32 twice as
-// long. Memory does not bound them.
+// long. Memory does not bound them. The backward forms each score's
+// probability once in each of its two kernels (2 exponentials, 7 tile
+// products: S and dP in both, dq, dk, dv); dropout adds a Philox-4x32-10
+// call (ten rounds of two 32-bit multiplies) for every 4 scores a kernel.
 //
 // attn_long_kernel (the eval forward) is one pass over the keys, the
 // FlashAttention-2/3 form: each row keeps a running max (base 2, log2(e)
@@ -97,24 +99,69 @@
 // them, chip_smoke.py's [long] phase prints them. A barrier wait that
 // never completes traps (al_wait) rather than hang the card.
 //
-// The training kernels are the first, simple design: the two-pass form of
-// kernels.cu, chunk for chunk (the helpers of attention.cuh): the scores
-// of a warp's 16-row query tile are formed in registers over 32-key
-// chunks, pass 1 keeps a per-lane running max and exp-sum in fp32 and
-// joins them over the quad, pass 2 recomputes the scores, normalises by
-// the final sum before the rounding to bf16 and accumulates P.V in fp32:
-// flash_attention.py:132's rounding points, so at a shape the resident
-// kernels also take these give the same bits. Dropout bits depend on
-// (row, key / 4, batch * H + head) alone, so the mask is
-// dropout_mask(seed)'s whatever the tiling. A block of up to
-// LONG_MAX_WARPS warps (a 16-row tile each) walks the keys in tiles of
-// LONG_TILE through a ring of LONG_STAGES stages filled by cp.async, the
-// next tile landing under the current one's products; every warp of the
-// block reads the tile from shared memory, so a key is fetched from L2
-// once per block and pass. The products are mma.sync m16n8k16 tiles as in
-// kernels.cu. Hazards: keys past Nk are zero K and V rows with a -inf
-// mask; 16-key blocks past the padded length are skipped; a warp past Nq
-// loads and waits with the block but multiplies nothing.
+// train_fwd_long_kernel is attn_long_kernel's body (attn_long_body with
+// TRAIN) with three additions: dropout zeroes the dropped p of a tile
+// after its softmax and before the pack, so the running sum stays over the
+// undropped p and only P.V sees the mask; the output is stored in fp32,
+// times 1 / sum and 1 / (1 - rate) (the keep factor applied once, at the
+// end); and each row's final max (in base e) and 1 / sum go to `stats`.
+// Its rounding points are the eval kernel's (the unnormalised p rounded
+// to bf16 for P.V), not the resident two-pass kernels'.
+//
+// The backward is two deterministic kernels, each with the eval kernel's
+// shape (persistent 384-thread blocks, one producer warp issuing every
+// TMA copy through a full / empty mbarrier ring, two consumer warpgroups
+// of 64 rows, wgmma for every product) and no atomics: FlashAttention-3's
+// single kernel adds dq with fp32 atomics, whose order, and so whose
+// bits, change from call to call, and the checks hold two calls to the
+// same bits. Both recompute p = 2^(s log2(e) scale + mask + log2(e) bias
+// - max) / sum from the forward's statistics, so neither keeps a running
+// max, and neither walks its stream twice: delta = rowsum(dp * p) is
+// formed up front as rowsum(bf16(do) * O), O the forward's fp32 output
+// (FlashAttention-2/3's preprocessing; the two are equal in exact
+// arithmetic with dropout too, since O = sum p * keep / (1 - rate) * v):
+//   * train_bwd_q_long_kernel: items of 128 query rows; Q and do (bf16)
+//     arrive once an item, K and V tiles of 64 keys stream through the
+//     ring (with the additive key mask beside a masked or ragged tile). In
+//     its prologue a consumer forms its rows' delta from O and do in
+//     device memory and writes it to the scratch the key-major kernel
+//     reads. Per tile, S = Q K^T and dP = do V^T (wgmma m64n64k16 from
+//     shared memory), then ds = p (dp keep / (1 - rate) - delta), stored
+//     as dbias straight from registers (each quad writes 8 neighbouring
+//     keys of a row), and dq += bf16(ds) K with ds as the register A
+//     operand and K MN-major through the transpose bit; dq is scaled and
+//     stored once. The dq product of tile j runs behind the S and dP
+//     products of tile j + 1;
+//   * train_bwd_k_long_kernel: items of 128 keys; K and V arrive once an
+//     item, Q and do tiles of 64 queries stream with each query's (max in
+//     base 2, 1 / sum, delta), which the producer warp writes beside the
+//     tile (zeros past Nq, so those queries' p is 0). Per tile, S^T = K
+//     Q^T and dP^T = V do^T, then p^T and ds^T, and dV += bf16(keep p^T /
+//     (1 - rate)) do, dK += bf16(ds^T) Q with the accumulator fragments as
+//     the A operands (64-query tiles: S^T, dP^T, dK, dV and the two packed
+//     operands take some 160 registers a thread, where 128-query tiles
+//     would need 256); dK is multiplied by the scale once, at the store.
+// Rounding points: q, k, v and do are bf16 operands (do rounded once by
+// the wrapper, as the TPU kernel casts it), S, dP and the gradients fp32,
+// p keep / (1 - rate) and ds rounded to bf16 only as the A operands of
+// the dv, dk and dq products, as in the plain version. delta from O makes
+// ds differ from the plain version's (which sums dp p over fp32 p) by p
+// times the rounding of O's probabilities: where a row's probability sits
+// on a few keys, and many rows share them, the differences add up in
+// those keys' dk (measured, a CPU emulation at 1469 queries with 3 valid
+// keys: up to 0.0087 past the bound 1e-2 + 2^-6 |dk| of the checks; with
+// a quarter of the keys masked, 4e-4 of differences, far inside it). The
+// probability formula is one branch-free form a tile (or an item, in the
+// key-major kernel), as in the forward.
+// Dropout bits depend on (row, key / 4, batch * H + head) alone
+// (dropout_bits), so the mask is dropout_mask(seed)'s: in the wgmma
+// accumulator layout a lane holds keys 8 J + 2 t and + 1 of rows g and g
+// + 8, so lanes t and t ^ 1 need the same Philox call for a row; each
+// makes it for one of the two rows and the halves are swapped by a
+// shuffle (keep_rows: one call for 4 scores). In the key-major kernel a
+// lane holds keys g and g + 8 (rows of the accumulator) of queries 8 J +
+// 2 t and + 1, so the four lanes g = 4 a .. 4 a + 3 share each call; each
+// makes a quarter and three shuffles deal out the bits (keep_cols).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -125,171 +172,9 @@
 #include "hopper.cuh"
 #include "attention.cuh"
 
-#define LONG_TILE 64          // keys (or queries) of a streamed tile
-#define LONG_STAGES 2         // tiles in the ring
-#define LONG_MAX_WARPS 8      // 16-row tiles a block takes
-
-// Bytes of a ring stage: K and V [LONG_TILE][D + 8] bf16 and the additive
-// key mask; in the key-major backward q and do and each query's float4 of
-// statistics.
-template <int D>
-__host__ __device__ constexpr int long_key_stage() {
-  return 4 * LONG_TILE * (D + 8) + 4 * LONG_TILE;
-}
-template <int D>
-__host__ __device__ constexpr int long_query_stage() {
-  return 4 * LONG_TILE * (D + 8) + 16 * LONG_TILE;
-}
-
-// Keys [k0, k0 + LONG_TILE) of (batch b, head h) into a stage: K (and V
-// with V_TOO) by cp.async, zero rows past Nk, and the additive mask (-inf
-// past Nk or where the key mask is off).
-template <int D, bool V_TOO>
-__device__ __forceinline__ void long_load_keys(unsigned char* stage, const AttnArgs& p, long b,
-                                               int h, int k0) {
-  constexpr int KLD = D + 8;
-  bf16* Ks = reinterpret_cast<bf16*>(stage);
-  bf16* Vs = Ks + LONG_TILE * KLD;
-  float* kbs = reinterpret_cast<float*>(Vs + LONG_TILE * KLD);
-  for (int c = threadIdx.x; c < LONG_TILE * (D / 8); c += blockDim.x) {
-    const int n = c / (D / 8), d8 = (c % (D / 8)) * 8, key = k0 + n;
-    stage8(&Ks[n * KLD + d8], p.k, p.in_dt, b * p.skb + (long)key * p.skn + h * D + d8,
-           key < p.Nk);
-    if (V_TOO)
-      stage8(&Vs[n * KLD + d8], p.v, p.in_dt, b * p.svb + (long)key * p.svn + h * D + d8,
-             key < p.Nk);
-  }
-  for (int j = threadIdx.x; j < LONG_TILE; j += blockDim.x) {
-    const int key = k0 + j;
-    const bool on = key < p.Nk && (p.kvalid == nullptr || p.kvalid[b * p.skvb + key] != 0);
-    kbs[j] = on ? 0.0f : -INFINITY;
-  }
-}
-
-// The 16 rows from row r0 of a [.., N, H * D] operand into a warp's tile
-// (zero rows past n).
-template <int D>
-__device__ __forceinline__ void long_load_rows(bf16* dst, const void* src, int dt, long sb,
-                                               long sn, long b, int h, int r0, int n,
-                                               int lane) {
-  constexpr int KLD = D + 8;
-  for (int c = lane; c < 16 * (D / 8); c += 32) {
-    const int rr = c / (D / 8), d8 = (c % (D / 8)) * 8;
-    stage8(&dst[rr * KLD + d8], src, dt, b * sb + (long)(r0 + rr) * sn + h * D + d8,
-           r0 + rr < n);
-  }
-}
-
-// A 16-row tile of shared memory as the A operand of mma16816.
-template <int D>
-__device__ __forceinline__ void long_a_operand(unsigned (&a)[D / 16][4], const bf16* tile,
-                                               int lane) {
-  constexpr int KLD = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4(tile + (size_t)((lane & 7) + ((lane >> 3) & 1) * 8) * KLD + kk * 16
-                + (lane >> 4) * 8,
-            a[kk][0], a[kk][1], a[kk][2], a[kk][3]);
-}
-
-template <int D, bool TRAIN>
-__device__ __forceinline__ void attn_long_body(const AttnArgs& p) {
-  constexpr int KLD = D + 8;
-  constexpr int NT = 2 * ATT_CH16;            // 8-key score tiles of a 32-key chunk
-  constexpr int STAGE = long_key_stage<D>();
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int NKP = p.NK16 * 16;
-  const int tiles = (NKP + LONG_TILE - 1) / LONG_TILE;
-  const int nwarps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  // the ring, then a query tile [16][KLD] per warp (reused to stage a bf16
-  // output)
-  bf16* Qs = reinterpret_cast<bf16*>(smem + LONG_STAGES * STAGE) + (size_t)warp * 16 * KLD;
-
-  const long bh = blockIdx.x;
-  const long b = bh / p.H;
-  const int h = (int)(bh % p.H);
-  const int q0 = (blockIdx.y * nwarps + warp) * 16;
-  const bool active = q0 < p.Nq;
-  const int r0 = q0 + g, r1 = q0 + g + 8;
-
-  if (active) long_load_rows<D>(Qs, p.q, p.in_dt, p.sqb, p.sqn, b, h, q0, p.Nq, lane);
-  long_load_keys<D, false>(smem, p, b, h, 0);
-  cp_async_commit();
-
-  unsigned qa[D / 16][4];
-  AttnRows rw;
-  rw.brow[0] = rw.brow[1] = nullptr;
-  rw.bias_vec = p.Nk % 4 == 0 && (reinterpret_cast<uintptr_t>(p.bias) & 15) == 0;
-  if (p.bias) {
-    if (r0 < p.Nq) rw.brow[0] = p.bias + ((size_t)bh * p.Nq + r0) * p.Nk;
-    if (r1 < p.Nq) rw.brow[1] = p.bias + ((size_t)bh * p.Nq + r1) * p.Nk;
-  }
-  float s[NT][4];
-  // running max (base 2) and exp-sum of the lane's two rows, then the
-  // rows' max (0 for a fully masked row) and reciprocal sum
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
-  float z0 = 0.0f, z1 = 0.0f, inv0 = 0.0f, inv1 = 0.0f;
-  float o[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.0f;
-  unsigned long long seed = 0ull;
-  if constexpr (TRAIN) {
-    if (p.thresh) seed = *p.seed;
-  }
-
-  // step i < tiles: pass 1 over key tile i; then pass 2 over tile i - tiles
-  for (int i = 0; i < 2 * tiles; ++i) {
-    cp_async_wait<0>();
-    __syncthreads();              // step i's tile has landed; step i - 1's stage is free
-    if (i + 1 < 2 * tiles) {
-      unsigned char* next = smem + ((i + 1) % LONG_STAGES) * STAGE;
-      if (i + 1 < tiles)
-        long_load_keys<D, false>(next, p, b, h, (i + 1) * LONG_TILE);
-      else
-        long_load_keys<D, true>(next, p, b, h, (i + 1 - tiles) * LONG_TILE);
-    }
-    cp_async_commit();
-    if (!active) continue;
-    if (i == 0) long_a_operand<D>(qa, Qs, lane);
-    const bf16* Ks = reinterpret_cast<const bf16*>(smem + (i % LONG_STAGES) * STAGE);
-    const bf16* Vs = Ks + LONG_TILE * KLD;
-    const float* kbs = reinterpret_cast<const float*>(Vs + LONG_TILE * KLD);
-    const bool pass1 = i < tiles;
-    const int k0 = (pass1 ? i : i - tiles) * LONG_TILE;
-    for (int c = 0; c < LONG_TILE && k0 + c < NKP; c += NT * 8) {
-      attn_scores<D, NT>(s, qa, Ks, kbs, k0 + c, NKP, p, rw, lane, k0);
-      if (pass1) {
-        attn_stats_chunk<NT>(s, m0, m1, l0, l1);
-      } else {
-        attn_exp<NT>(s, z0, z1);
-        attn_probs<TRAIN, NT>(s, k0 + c, NKP, inv0, inv1, p, seed, (unsigned)bh, r0, r1, t);
-        attn_pv<D, NT>(o, s, Vs, c / 16, p.NK16 - k0 / 16, lane);
-      }
-    }
-    if (i == tiles - 1) {
-      attn_stats_join(m0, m1, l0, l1);
-      z0 = m0 == -INFINITY ? 0.0f : m0;
-      z1 = m1 == -INFINITY ? 0.0f : m1;
-      inv0 = l0 > 0.0f ? 1.0f / l0 : 0.0f;
-      inv1 = l1 > 0.0f ? 1.0f / l1 : 0.0f;
-      if constexpr (TRAIN) attn_save_stats(p, (size_t)bh, r0, r1, m0, m1, inv0, inv1, t);
-    }
-  }
-  if (active) attn_store<D, TRAIN>(o, p, Qs, b, h, q0, r0, r1, lane);
-}
-
-// 256 threads and two blocks an SM: up to 128 registers a thread.
-template <int D>
-__global__ void __launch_bounds__(LONG_MAX_WARPS * 32, 2) train_fwd_long_kernel(AttnArgs p) {
-  attn_long_body<D, true>(p);
-}
-
-// ------------------------------------------------------- the eval forward
-// attn_long_kernel: one pass over the keys with the online softmax, TMA
-// loads on mbarriers and wgmma for both products (the design note is at
-// the top of this file).
+// ------------------------------------------------------------ the forward
+// attn_long_kernel and train_fwd_long_kernel: one pass over the keys with
+// the online softmax, TMA loads on mbarriers and wgmma for both products.
 #define AL_ROWS 128        // query rows of an item: two consumer warpgroups of 64
 #define AL_KEYS 128        // keys of a streamed tile
 #define AL_STAGES 4        // key / value tiles in the ring
@@ -315,6 +200,9 @@ struct AlArgs {
   void* out; int out_dt; long sob, son;
   int H, Nq, Nk, qtiles, ktiles, items;
   int bq, bk, bv;                           // 1: the operand's map has a batch axis
+  // training: dropout (thresh 0: none) and the rows' statistics
+  const unsigned long long* seed; unsigned thresh; float inv_keep;
+  float* stats;                             // [B * H, Nq, 2]: max (base e), 1 / sum
 };
 
 // A wgmma descriptor of a tile whose rows are 2 * D bytes (the 8-row
@@ -329,16 +217,18 @@ __device__ __forceinline__ uint64_t al_desc(unsigned addr, unsigned lead) {
          ((sbo >> 4) << 32) | (layout << 62);
 }
 
-// O += P . V_tile: the 8 16-key steps of a tile, P in registers.
-template <int D>
-__device__ __forceinline__ void al_pv(float (&o)[D / 2], const unsigned (&pf)[AL_KEYS / 16][4],
-                                      unsigned vb) {
+// d += A . B for the NK / 16 16-row steps of an MN-major B tile in shared
+// memory (rows of 2 * D bytes from b), A in registers: O += P V, dq += ds
+// K, dV += p^T do, dK += ds^T Q.
+template <int D, int NK>
+__device__ __forceinline__ void al_rs(float (&d)[D / 2], const unsigned (&a)[NK / 16][4],
+                                      unsigned b) {
 #pragma unroll
-  for (int kk = 0; kk < AL_KEYS / 16; ++kk) {
+  for (int kk = 0; kk < NK / 16; ++kk) {
     if constexpr (D == 64)
-      wgmma_rs_m64n64k16<1>(o, pf[kk], al_desc<D>(vb + kk * 16 * 2 * D, AlTile<D>::KV));
+      wgmma_rs_m64n64k16<1>(d, a[kk], al_desc<D>(b + kk * 16 * 2 * D, NK * 2 * D));
     else
-      wgmma_rs_m64n32k16<1>(o, pf[kk], al_desc<D>(vb + kk * 16 * 2 * D, AlTile<D>::KV));
+      wgmma_rs_m64n32k16<1>(d, a[kk], al_desc<D>(b + kk * 16 * 2 * D, NK * 2 * D));
   }
 }
 
@@ -348,6 +238,24 @@ __device__ __forceinline__ void al_scores(float (&s)[64], unsigned qa, unsigned 
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
     wgmma_m64n128k16<0>(s, al_desc<D>(qa + kk * 32, 16), al_desc<D>(kb + kk * 32, 16), kk > 0);
+}
+
+// The same for a 64-column tile (m64n64): S, dP, S^T, dP^T of the backward.
+template <int D>
+__device__ __forceinline__ void al_scores64(float (&s)[32], unsigned a, unsigned b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_m64n64k16<0>(s, al_desc<D>(a + kk * 32, 16), al_desc<D>(b + kk * 32, 16), kk > 0);
+}
+
+// The packed bf16 A fragments of an m64nN accumulator (its fragment is the
+// A fragment of a product over its N columns).
+template <int N>
+__device__ __forceinline__ void al_pack(unsigned (&pf)[N / 16][4], const float (&s)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pf[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
 // The bias of a row at keys k and k + 1 (0 past Nk).
@@ -421,6 +329,66 @@ __device__ __forceinline__ void al_softmax(float (&s)[64], float (&m)[2], float 
   l[1] = l[1] * a[1] + sum[1];
 }
 
+// The 4 keep bits of one Philox call's 4 random words (bit e: word e >=
+// the threshold).
+__device__ __forceinline__ unsigned keep4(const unsigned (&bits)[4], unsigned thresh) {
+  return (bits[0] >= thresh ? 1u : 0u) | (bits[1] >= thresh ? 2u : 0u) |
+         (bits[2] >= thresh ? 4u : 0u) | (bits[3] >= thresh ? 8u : 0u);
+}
+
+// The dropout keep bits of the thread's two rows r0, r1 at the 64 keys
+// from k0 (a multiple of 4) in the accumulator layout: bit 4 J + e of
+// keep[rh] keeps key k0 + 8 J + 2 t + e of row rh (J < 8). Keys 8 J + 2 t
+// and + 1 are half of the Philox group (k0 + 8 J) / 4 + t / 2, whose other
+// half lane t ^ 1 holds: each of the two lanes makes the call for one of
+// the rows and a shuffle swaps them.
+__device__ __forceinline__ void keep_rows(unsigned (&keep)[2], unsigned long long seed,
+                                          unsigned thresh, unsigned bh, int r0, int r1, int k0,
+                                          int t) {
+  const int u = t & 1;
+  const unsigned row = (unsigned)(u ? r1 : r0);
+  const unsigned cg0 = (unsigned)(k0 / 4 + (t >> 1));
+  unsigned own = 0;
+#pragma unroll
+  for (int J = 0; J < 8; ++J) {
+    unsigned bits[4];
+    dropout_bits(seed, bh, row, cg0 + 2 * J, bits);
+    own |= keep4(bits, thresh) << (4 * J);
+  }
+  const unsigned other = __shfl_xor_sync(0xffffffffu, own, 1);
+  keep[0] = (u ? other : own) >> (2 * u);
+  keep[1] = (u ? own : other) >> (2 * u);
+}
+
+// The dropout keep bits of the key-major backward: the thread's keys kw +
+// g and kw + g + 8 (kw: its warp's first key, a multiple of 16; rows hf 0
+// and 1 of the accumulator) at the queries q0 + 8 J + 2 t + c (J < 8, c <
+// 2, the columns). Key kw + 8 hf + g is element g % 4 of the Philox group
+// (kw + 8 hf) / 4 + g / 4, which the lanes g = 4 (g / 4) .. + 3 of the
+// same t share: lane e = g % 4 makes the calls of the columns J = e and e
+// + 4, and each lane takes its element of every call from the four lanes'
+// words. Bit 4 ((J / 4 * 2 + hf) * 2 + c) of w[J % 4] keeps (hf, J, c).
+__device__ __forceinline__ void keep_cols(unsigned (&w)[4], unsigned long long seed,
+                                          unsigned thresh, unsigned bh, int kw, int q0,
+                                          int lane) {
+  const int g = lane >> 2, t = lane & 3, e = g & 3;
+  unsigned own = 0;
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        unsigned bits[4];
+        dropout_bits(seed, bh, (unsigned)(q0 + 8 * (e + 4 * jj) + 2 * t + c),
+                     (unsigned)((kw + 8 * hf) / 4 + (g >> 2)), bits);
+        own |= keep4(bits, thresh) << (4 * ((jj * 2 + hf) * 2 + c));
+      }
+#pragma unroll
+  for (int e2 = 0; e2 < 4; ++e2)
+    w[e2] = __shfl_sync(0xffffffffu, own, (lane & ~12) | (e2 << 2)) >> e;
+}
+
 // mbar_wait that gives up: a block whose copies never land (a map the
 // hardware refused at run time) traps, so the launch fails and does not
 // hang the card.
@@ -442,36 +410,45 @@ __device__ __forceinline__ void al_wait(uint64_t* bar, unsigned parity) {
   }
 }
 
+// The start of a persistent block's shared memory, on 1024 bytes.
+__device__ __forceinline__ unsigned char* al_base(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                          ~static_cast<uintptr_t>(1023));
+}
+
+// The barriers of a ring of `stages` and two item slots: full (the
+// producer warp's 32 lanes, lane 0's with the bytes) and empty (one arrive
+// per consumer warp); thread 0, before the block's first barrier.
+__device__ __forceinline__ void al_init(uint64_t* full, uint64_t* empty, uint64_t* i_full,
+                                        uint64_t* i_empty, int stages) {
+  for (int s = 0; s < stages; ++s) {
+    mbar_init(&full[s], 32);
+    mbar_init(&empty[s], 8);
+  }
+  for (int s = 0; s < 2; ++s) {
+    mbar_init(&i_full[s], 1);
+    mbar_init(&i_empty[s], 8);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
 // map_q / map_k / map_v: the [B, N, H * D] bf16 views in boxes of
 // [1, 128 rows, D]. Items: (batch * H + head) * qtiles + query tile, block
-// x taking items x, x + gridDim.x, ...
-template <int D>
-__global__ void __launch_bounds__(AL_THREADS, 1)
-    attn_long_kernel(const __grid_constant__ CUtensorMap map_q,
-                     const __grid_constant__ CUtensorMap map_k,
-                     const __grid_constant__ CUtensorMap map_v, AlArgs p) {
+// x taking items x, x + gridDim.x, ... TRAIN: train_fwd_long_kernel's
+// dropout, fp32 output and statistics.
+template <int D, bool TRAIN>
+__device__ __forceinline__ void attn_long_body(const CUtensorMap& map_q, const CUtensorMap& map_k,
+                                               const CUtensorMap& map_v, const AlArgs& p) {
   using T = AlTile<D>;
   extern __shared__ unsigned char al_raw[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(al_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  unsigned char* base = al_base(al_raw);
   unsigned char* ring = base + 2 * T::Q;
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + AL_STAGES * T::STAGE);
   uint64_t* empty = full + AL_STAGES;
   uint64_t* q_full = empty + AL_STAGES;
   uint64_t* q_empty = q_full + 2;
   const int nitems = (p.items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int s = 0; s < AL_STAGES; ++s) {
-      mbar_init(&full[s], 32);      // the producer warp's lanes (lane 0's with the bytes)
-      mbar_init(&empty[s], 8);      // one arrive per consumer warp
-    }
-    for (int s = 0; s < 2; ++s) {
-      mbar_init(&q_full[s], 1);
-      mbar_init(&q_empty[s], 8);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) al_init(full, empty, q_full, q_empty, AL_STAGES);
   __syncthreads();
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
 
@@ -520,9 +497,15 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
   const int g = lane >> 2, t = lane & 3;
   const bool bvec = p.Nk % 2 == 0 && (reinterpret_cast<uintptr_t>(p.bias) & 7) == 0;
   const float sc2 = p.scale * LOG2E_F;
-  const bool pair = p.out_dt == DT_BF16 &&
-                    ((reinterpret_cast<uintptr_t>(p.out) | (uintptr_t)(p.sob * 2) |
-                      (uintptr_t)(p.son * 2)) & 3) == 0;
+  const bool pair = TRAIN ? ((reinterpret_cast<uintptr_t>(p.out) | (uintptr_t)(p.sob * 4) |
+                              (uintptr_t)(p.son * 4)) & 7) == 0
+                          : p.out_dt == DT_BF16 &&
+                                ((reinterpret_cast<uintptr_t>(p.out) | (uintptr_t)(p.sob * 2) |
+                                  (uintptr_t)(p.son * 2)) & 3) == 0;
+  unsigned long long seed = 0ull;
+  if constexpr (TRAIN) {
+    if (p.thresh) seed = *p.seed;
+  }
   unsigned it = 0;
 #pragma unroll 1
   for (int n = 0; n < nitems; ++n) {
@@ -548,7 +531,8 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
       ++it;
       return s_i;
     };
-    // S_j's softmax and p packed as the A fragments of P . V
+    // S_j's softmax (and, in training, its dropout: the sum keeps the
+    // undropped p), p packed as the A fragments of P . V
     auto soft = [&](float (&s)[64], int s_i, int j) {
       reg_fence(s);
       if (j == p.ktiles - 1 && lane == 0) mbar_arrive(&q_empty[slot]);   // Q read
@@ -564,13 +548,22 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
       } else {
         al_softmax<false, false>(s, m, l, a, sc2, kbs, brow, bvec, k0, p.Nk, t);
       }
-    };
-    auto pack = [&](const float (&s)[64]) {
+      if constexpr (TRAIN) {
+        if (p.thresh) {
 #pragma unroll
-      for (int kk = 0; kk < AL_KEYS / 16; ++kk)
+          for (int hh = 0; hh < 2; ++hh) {
+            unsigned keep[2];
+            keep_rows(keep, seed, p.thresh, (unsigned)bh, r0, r1, k0 + 64 * hh, t);
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          pf[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+            for (int J = 0; J < 8; ++J)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int i = 4 * (8 * hh + J) + e;
+                s[i] = (keep[e >> 1] >> (4 * J + (e & 1))) & 1u ? s[i] : 0.0f;
+              }
+          }
+        }
+      }
     };
     // tile 0: S_0 alone (no branch holds a product: ptxas serialises
     // products in branches of their own)
@@ -583,7 +576,7 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
       wg_wait<0>();
       soft(s, prev, 0);
       acc_zero(o);
-      pack(s);
+      al_pack<AL_KEYS>(pf, s);
     }
 #pragma unroll 1
     for (int j = 1; j < p.ktiles; ++j) {
@@ -596,7 +589,7 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
       // S_j runs while the second product does
       al_scores<D>(s, qa, smem_u32(ring + s_i * T::STAGE));
       wg_commit();
-      al_pv<D>(o, pf, smem_u32(ring + prev * T::STAGE + T::KV));
+      al_rs<D, AL_KEYS>(o, pf, smem_u32(ring + prev * T::STAGE + T::KV));
       wg_commit();
       wg_wait<1>();
       soft(s, s_i, j);
@@ -606,19 +599,20 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
       if (lane == 0) mbar_arrive(&empty[prev]);   // K_{j-1} and V_{j-1} read
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] *= a[(i >> 1) & 1];
-      pack(s);
+      al_pack<AL_KEYS>(pf, s);
       prev = s_i;
     }
     reg_fence(o);
     reg_fence(pf);
     wg_fence();
-    al_pv<D>(o, pf, smem_u32(ring + prev * T::STAGE + T::KV));
+    al_rs<D, AL_KEYS>(o, pf, smem_u32(ring + prev * T::STAGE + T::KV));
     wg_commit();
     wg_wait<0>();
     reg_fence(o);
     if (lane == 0) mbar_arrive(&empty[prev]);
 
-    // O / sum, rounded once to bf16 (0 for a fully masked row)
+    // O / sum: rounded once to bf16 (0 for a fully masked row), or in
+    // training fp32 times 1 / (1 - rate), with the rows' statistics
     float inv[2];
 #pragma unroll
     for (int rh = 0; rh < 2; ++rh) {
@@ -630,242 +624,573 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
       const int r = rh ? r1 : r0;
       if (r >= p.Nq) continue;
       const long row = (long)b * p.sob + (long)r * p.son + h * D;
+      if constexpr (TRAIN) {
+        if (t == 0) {
+          p.stats[((size_t)bh * p.Nq + r) * 2] = m[rh] * LN2_F;
+          p.stats[((size_t)bh * p.Nq + r) * 2 + 1] = inv[rh];
+        }
+        const float f = inv[rh] * p.inv_keep;
+        float* out = static_cast<float*>(p.out);
 #pragma unroll
-      for (int J = 0; J < D / 8; ++J) {
-        const float y0 = o[4 * J + 2 * rh] * inv[rh], y1 = o[4 * J + 2 * rh + 1] * inv[rh];
-        const long off = row + 8 * J + 2 * t;
-        if (pair) {
-          *reinterpret_cast<unsigned*>(static_cast<bf16*>(p.out) + off) = pack_bf16(y0, y1);
-        } else {
-          st_val(p.out, p.out_dt, off, __bfloat162float(__float2bfloat16(y0)));
-          st_val(p.out, p.out_dt, off + 1, __bfloat162float(__float2bfloat16(y1)));
+        for (int J = 0; J < D / 8; ++J) {
+          const float y0 = o[4 * J + 2 * rh] * f, y1 = o[4 * J + 2 * rh + 1] * f;
+          const long off = row + 8 * J + 2 * t;
+          if (pair) {
+            *reinterpret_cast<float2*>(out + off) = make_float2(y0, y1);
+          } else {
+            out[off] = y0;
+            out[off + 1] = y1;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int J = 0; J < D / 8; ++J) {
+          const float y0 = o[4 * J + 2 * rh] * inv[rh], y1 = o[4 * J + 2 * rh + 1] * inv[rh];
+          const long off = row + 8 * J + 2 * t;
+          if (pair) {
+            *reinterpret_cast<unsigned*>(static_cast<bf16*>(p.out) + off) = pack_bf16(y0, y1);
+          } else {
+            st_val(p.out, p.out_dt, off, __bfloat162float(__float2bfloat16(y0)));
+            st_val(p.out, p.out_dt, off + 1, __bfloat162float(__float2bfloat16(y1)));
+          }
         }
       }
     }
   }
 }
 
-// The query-major backward with the keys and values streamed: pass 1
-// delta = rowsum(dp * p), pass 2 ds = p * (dp - delta), dbias and
-// dq += bf16(ds) . k, chunk for chunk kernels.cu's train_bwd_q_kernel in
-// its two-pass form.
 template <int D>
-__global__ void __launch_bounds__(LONG_MAX_WARPS * 32, 2)
-    train_bwd_q_long_kernel(AttnArgs p, BwdArgs w) {
-  constexpr int KLD = D + 8;
-  constexpr int NT = 2 * ATT_CH16;
-  constexpr int STAGE = long_key_stage<D>();
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int NKP = p.NK16 * 16;
-  const int tiles = (NKP + LONG_TILE - 1) / LONG_TILE;
-  const int nwarps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  // the ring, then a query tile and a do tile [16][KLD] per warp
-  bf16* Qs = reinterpret_cast<bf16*>(smem + LONG_STAGES * STAGE) + (size_t)warp * 32 * KLD;
-  bf16* Gs = Qs + 16 * KLD;
+__global__ void __launch_bounds__(AL_THREADS, 1)
+    attn_long_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v, AlArgs p) {
+  attn_long_body<D, false>(map_q, map_k, map_v, p);
+}
 
-  const long bh = blockIdx.x;
-  const long b = bh / p.H;
-  const int h = (int)(bh % p.H);
-  const int q0 = (blockIdx.y * nwarps + warp) * 16;
-  const bool active = q0 < p.Nq;
-  const int r0 = q0 + g, r1 = q0 + g + 8;
+template <int D>
+__global__ void __launch_bounds__(AL_THREADS, 1)
+    train_fwd_long_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v, AlArgs p) {
+  attn_long_body<D, true>(map_q, map_k, map_v, p);
+}
 
-  if (active) {
-    long_load_rows<D>(Qs, p.q, p.in_dt, p.sqb, p.sqn, b, h, q0, p.Nq, lane);
-    long_load_rows<D>(Gs, w.dout, w.do_dt, w.sdb, w.sdn, b, h, q0, p.Nq, lane);
-  }
-  long_load_keys<D, true>(smem, p, b, h, 0);
-  cp_async_commit();
+// ----------------------------------------------------------- the backward
+#define BW_TILE 64         // keys (query-major) or queries (key-major) of a streamed tile
+#define BW_STAGES 4        // streamed tiles in the ring
 
-  unsigned qa[D / 16][4], da[D / 16][4];
-  AttnRows rw;
-  float* dbrow[2];
-  float z0, z1, inv0, inv1;
-  bwd_q_rows(rw, dbrow, z0, z1, inv0, inv1, p, w, (size_t)bh, r0, r1);
-  const unsigned long long seed = p.thresh ? *p.seed : 0ull;
-  float s[NT][4], dpv[NT][4];
-  float delta0 = 0.0f, delta1 = 0.0f;
-  float dq[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.0f;
+// Shared memory of a backward block: two item slots of two 128-row
+// operands (Q and do, or K and V), the ring (two 64-row operands and 1024
+// bytes of side data a stage: the key mask, or each query's max, 1 / sum
+// and delta), the barriers; rows of 2 * D bytes swizzled as the
+// forward's, every tile on 1024 bytes.
+template <int D>
+struct BwTile {
+  static constexpr int ROW = 2 * D;
+  static constexpr int ITEM = AL_ROWS * ROW;
+  static constexpr int SLOT = 2 * ITEM;
+  static constexpr int TILE = BW_TILE * ROW;
+  static constexpr int STAGE = 2 * TILE + 1024;
+  static constexpr int SMEM = 1024 + 2 * SLOT + BW_STAGES * STAGE + 128;
+};
+static_assert(BwTile<64>::SMEM <= ATT_SMEM_LIMIT, "the backward's tiles exceed a block");
 
-  for (int i = 0; i < 2 * tiles; ++i) {
-    cp_async_wait<0>();
-    __syncthreads();
-    if (i + 1 < 2 * tiles)
-      long_load_keys<D, true>(smem + ((i + 1) % LONG_STAGES) * STAGE, p, b, h,
-                              ((i + 1) % tiles) * LONG_TILE);
-    cp_async_commit();
-    if (!active) continue;
-    if (i == 0) {
-      long_a_operand<D>(qa, Qs, lane);
-      long_a_operand<D>(da, Gs, lane);
+struct BwArgs {
+  const unsigned char* kvalid; long skvb;   // bool [B, Nk], or null
+  const float* bias;                        // [B, H, Nq, Nk], or null
+  float scale;
+  const unsigned long long* seed; unsigned thresh; float inv_keep;
+  const float* stats;                       // [B * H, Nq, 2]: max (base e), 1 / sum
+  const float* o; long sob, son;            // the forward's fp32 output
+  const bf16* dout; long sdb, sdn;          // bf16 do
+  float* dq; float* dk; float* dv;          // fp32 [B, N, H * D], contiguous
+  float* dbias;                             // [B, H, Nq, Nk], or null
+  float* delta;                             // [B * H, Nq]: rowsum(bf16(do) * O)
+  int H, Nq, Nk;
+  int itiles, stiles, items;   // this kernel's 128-row items a (batch, head), 64-row tiles, items
+  int bi0, bi1, bs0, bs1;      // 1: the item's / the streamed operands' maps have a batch axis
+};
+
+// The producer warp of a backward block: the item's two 128-row operands
+// (mi0, mi1) into its slot, then its 64-row tiles (ms0, ms1) through the
+// ring with their side data. KEYS_STREAM: the query-major kernel (keys
+// stream; the side data is a masked or ragged tile's additive key mask),
+// else the key-major one (queries stream; each query's max in base 2 (0
+// for a fully masked row), 1 / sum and delta, zeros past Nq).
+template <int D, bool KEYS_STREAM>
+__device__ __forceinline__ void bw_produce(const CUtensorMap* mi0, const CUtensorMap* mi1,
+                                           const CUtensorMap* ms0, const CUtensorMap* ms1,
+                                           const BwArgs& p, unsigned char* base,
+                                           unsigned char* ring, uint64_t* full, uint64_t* empty,
+                                           uint64_t* i_full, uint64_t* i_empty, int nitems,
+                                           int lane) {
+  using T = BwTile<D>;
+  unsigned it = 0;
+  for (int n = 0; n < nitems; ++n) {
+    const int item = (int)blockIdx.x + n * (int)gridDim.x;
+    const int bh = item / p.itiles, i0 = (item - bh * p.itiles) * AL_ROWS;
+    const int b = bh / p.H, h = bh - b * p.H;
+    const int slot = n & 1;
+    al_wait(&i_empty[slot], ((n >> 1) & 1) ^ 1);
+    if (lane == 0) {
+      mbar_expect_tx(&i_full[slot], T::SLOT);
+      tma_load_3d(base + slot * T::SLOT, mi0, &i_full[slot], h * D, i0, b * p.bi0);
+      tma_load_3d(base + slot * T::SLOT + T::ITEM, mi1, &i_full[slot], h * D, i0, b * p.bi1);
     }
-    const bf16* Ks = reinterpret_cast<const bf16*>(smem + (i % LONG_STAGES) * STAGE);
-    const bf16* Vs = Ks + LONG_TILE * KLD;
-    const float* kbs = reinterpret_cast<const float*>(Vs + LONG_TILE * KLD);
-    const bool pass1 = i < tiles;
-    const int k0 = (i % tiles) * LONG_TILE;
-    for (int c = 0; c < LONG_TILE && k0 + c < NKP; c += NT * 8) {
-      bwd_q_chunk<D, NT>(s, dpv, qa, da, Ks, Vs, kbs, k0 + c, NKP, p, rw, lane, z0, z1, inv0,
-                         inv1, seed, (unsigned)bh, r0, r1, k0);
-      if (pass1) {
-        bwd_q_delta<NT>(s, dpv, delta0, delta1);
+    for (int j = 0; j < p.stiles; ++j, ++it) {
+      const int s = it % BW_STAGES;
+      al_wait(&empty[s], ((it / BW_STAGES) & 1) ^ 1);
+      unsigned char* st = ring + s * T::STAGE;
+      float* side = reinterpret_cast<float*>(st + 2 * T::TILE);
+      if constexpr (KEYS_STREAM) {
+        if (p.kvalid || (j + 1) * BW_TILE > p.Nk) {
+#pragma unroll
+          for (int e = 0; e < BW_TILE / 32; ++e) {
+            const int key = j * BW_TILE + lane * (BW_TILE / 32) + e;
+            const bool on = key < p.Nk && (!p.kvalid || p.kvalid[b * p.skvb + key] != 0);
+            side[lane * (BW_TILE / 32) + e] = on ? 0.0f : -INFINITY;
+          }
+        }
       } else {
-        bwd_q_ds<NT>(s, dpv, delta0, delta1, k0 + c, dbrow, p, w, t);
-        attn_pv<D, NT>(dq, s, Ks, c / 16, p.NK16 - k0 / 16, lane);   // dq += bf16(ds) . k
+#pragma unroll
+        for (int e = 0; e < BW_TILE / 32; ++e) {
+          const int i = lane * (BW_TILE / 32) + e, q = j * BW_TILE + i;
+          float z = 0.0f, inv = 0.0f, dl = 0.0f;
+          if (q < p.Nq) {
+            const size_t row = (size_t)bh * p.Nq + q;
+            const float m = p.stats[row * 2] * LOG2E_F;
+            z = m == -INFINITY ? 0.0f : m;
+            inv = p.stats[row * 2 + 1];
+            dl = p.delta[row];
+          }
+          side[i] = z;
+          side[BW_TILE + i] = inv;
+          side[2 * BW_TILE + i] = dl;
+        }
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&full[s], 2 * T::TILE);
+        tma_load_3d(st, ms0, &full[s], h * D, j * BW_TILE, b * p.bs0);
+        tma_load_3d(st + T::TILE, ms1, &full[s], h * D, j * BW_TILE, b * p.bs1);
+      } else {
+        mbar_arrive(&full[s]);
       }
     }
-    if (i == tiles - 1) {
-      delta0 = quad_sum(delta0);
-      delta1 = quad_sum(delta1);
-    }
-  }
-  if (active) bwd_q_store<D>(dq, delta0, delta1, w, p, b, h, r0, r1, t);
-}
-
-// Each query's (max in base 2, 1 / sum, delta, 0) of queries [q0, q0 +
-// LONG_TILE) into a stage, zeros past Nq.
-__device__ __forceinline__ void long_load_stats(float4* sts, const AttnArgs& p,
-                                                const BwdArgs& w, size_t bh, int q0) {
-  for (int i = threadIdx.x; i < LONG_TILE; i += blockDim.x) {
-    float4 st = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (q0 + i < p.Nq) {
-      const size_t row = bh * p.Nq + q0 + i;
-      const float m = p.stats[row * 2] * LOG2E_F;
-      st.x = m == -INFINITY ? 0.0f : m;
-      st.y = p.stats[row * 2 + 1];
-      st.z = w.delta[row];
-    }
-    sts[i] = st;
   }
 }
 
-// The key-major backward with the queries, do and their statistics
-// streamed: kernels.cu's train_bwd_k_kernel over query tiles.
-template <int D>
-__global__ void __launch_bounds__(LONG_MAX_WARPS * 32, 2)
-    train_bwd_k_long_kernel(AttnArgs p, BwdArgs w) {
-  constexpr int KLD = D + 8;
-  constexpr int STAGE = long_query_stage<D>();
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int NQP = w.NQ16 * 16;
-  const int tiles = (NQP + LONG_TILE - 1) / LONG_TILE;
-  const int nwarps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int t = lane & 3;
-  // the ring, then a key tile and a value tile [16][KLD] per warp
-  bf16* Kt = reinterpret_cast<bf16*>(smem + LONG_STAGES * STAGE) + (size_t)warp * 32 * KLD;
-  bf16* Vt = Kt + 16 * KLD;
-
-  const long bh = blockIdx.x;
-  const long b = bh / p.H;
-  const int h = (int)(bh % p.H);
-  const int k0 = (blockIdx.y * nwarps + warp) * 16;
-  const bool active = k0 < p.Nk;
-
-  // a stage: q and do [LONG_TILE][KLD], then the statistics
-  auto load = [&](int i) {
-    unsigned char* st = smem + (i % LONG_STAGES) * STAGE;
-    bf16* Qs = reinterpret_cast<bf16*>(st);
-    bf16* Gs = Qs + LONG_TILE * KLD;
-    const int first = i * LONG_TILE;
-    for (int c = threadIdx.x; c < LONG_TILE * (D / 8); c += blockDim.x) {
-      const int n = c / (D / 8), d8 = (c % (D / 8)) * 8, q = first + n;
-      stage8(&Qs[n * KLD + d8], p.q, p.in_dt, b * p.sqb + (long)q * p.sqn + h * D + d8,
-             q < p.Nq);
-      stage8(&Gs[n * KLD + d8], w.dout, w.do_dt, b * w.sdb + (long)q * w.sdn + h * D + d8,
-             q < p.Nq);
-    }
-    long_load_stats(reinterpret_cast<float4*>(Gs + LONG_TILE * KLD), p, w, (size_t)bh, first);
-  };
-
-  if (active) {
-    long_load_rows<D>(Kt, p.k, p.in_dt, p.skb, p.skn, b, h, k0, p.Nk, lane);
-    long_load_rows<D>(Vt, p.v, p.in_dt, p.svb, p.svn, b, h, k0, p.Nk, lane);
-  }
-  load(0);
-  cp_async_commit();
-
-  unsigned ka[D / 16][4], va[D / 16][4], cg = 0;
-  int key[2] = {0, 0};
-  float kadd[2] = {0.0f, 0.0f};
-  const float* bias = p.bias ? p.bias + (size_t)bh * p.Nq * p.Nk : nullptr;
-  const unsigned long long seed = p.thresh ? *p.seed : 0ull;
-  float dk[D / 8][4], dv[D / 8][4];
+// A key tile of the query-major kernel: s (S = Q K^T of rows g, g + 8 at
+// keys k0 + 8 J + 2 t + e, as al_softmax's but m64n64) and dp (do V^T)
+// turned into ds = p (dp keep / (1 - rate) - delta) in place of s, p =
+// 2^(s log2(e) scale - z + mask + log2(e) bias) * inv from the forward's
+// statistics (z: max in base 2, 0 for a fully masked row). MASK: the
+// stage's additive key mask kbs applies; BIAS: the rows' bias; DROP:
+// dropout, keep holding the rows' keep bits (keep_rows).
+template <bool MASK, bool BIAS, bool DROP>
+__device__ __forceinline__ void bw_ds_rows(float (&s)[32], const float (&dp)[32], float sc2,
+                                           const float (&z)[2], const float (&inv)[2],
+                                           const float (&dl)[2], const float* kbs,
+                                           const float* const (&brow)[2], bool bvec, int k0,
+                                           int nk, int t, const unsigned (&keep)[2],
+                                           float inv_keep) {
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    dk[dt][0] = dk[dt][1] = dk[dt][2] = dk[dt][3] = 0.0f;
-    dv[dt][0] = dv[dt][1] = dv[dt][2] = dv[dt][3] = 0.0f;
+  for (int J = 0; J < BW_TILE / 8; ++J) {
+    const int c = 8 * J + 2 * t;
+    float2 add = make_float2(0.0f, 0.0f);
+    if constexpr (MASK) add = *reinterpret_cast<const float2*>(kbs + c);
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      float2 bv = make_float2(0.0f, 0.0f);
+      if constexpr (BIAS) {
+        if (brow[rh]) bv = al_bias2(brow[rh], k0 + c, nk, bvec);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * J + 2 * rh + e;
+        float x = fmaf(s[i], sc2, -z[rh]);
+        if constexpr (MASK) x += e ? add.y : add.x;
+        if constexpr (BIAS) x = fmaf(e ? bv.y : bv.x, LOG2E_F, x);
+        const float pr = ex2(x) * inv[rh];
+        float dpm = dp[i];
+        if constexpr (DROP) dpm = (keep[rh] >> (4 * J + e)) & 1u ? dpm * inv_keep : 0.0f;
+        s[i] = pr * (dpm - dl[rh]);
+      }
+    }
+  }
+}
+
+// bw_ds_rows in the form a tile takes: MASK for a key mask or a ragged
+// tile, BIAS with a bias, DROP with dropout (its keep bits made here).
+template <bool DROP>
+__device__ __forceinline__ void bw_ds_rows_tile(float (&s)[32], const float (&dp)[32],
+                                                const BwArgs& p, float sc2, const float (&z)[2],
+                                                const float (&inv)[2], const float (&dl)[2],
+                                                const float* kbs, const float* const (&brow)[2],
+                                                bool bvec, unsigned long long seed, int bh,
+                                                const int (&r)[2], int k0, int t) {
+  unsigned keep[2] = {~0u, ~0u};
+  if constexpr (DROP) keep_rows(keep, seed, p.thresh, (unsigned)bh, r[0], r[1], k0, t);
+  if (p.kvalid || k0 + BW_TILE > p.Nk) {
+    if (p.bias)
+      bw_ds_rows<true, true, DROP>(s, dp, sc2, z, inv, dl, kbs, brow, bvec, k0, p.Nk, t, keep,
+                                   p.inv_keep);
+    else
+      bw_ds_rows<true, false, DROP>(s, dp, sc2, z, inv, dl, kbs, brow, bvec, k0, p.Nk, t, keep,
+                                    p.inv_keep);
+  } else if (p.bias) {
+    bw_ds_rows<false, true, DROP>(s, dp, sc2, z, inv, dl, kbs, brow, bvec, k0, p.Nk, t, keep,
+                                  p.inv_keep);
+  } else {
+    bw_ds_rows<false, false, DROP>(s, dp, sc2, z, inv, dl, kbs, brow, bvec, k0, p.Nk, t, keep,
+                                   p.inv_keep);
+  }
+}
+
+// A query tile of the key-major kernel: sT (S^T = K Q^T of keys g, g + 8
+// at queries q0 + 8 J + 2 t + c) and dpT (V do^T) turned into keep p^T /
+// (1 - rate) (in place of sT) and ds^T (in place of dpT). side: the tile's queries' z,
+// inv and delta (bw_produce); kadd: the keys' additive mask (MASK); bias:
+// the (batch, head)'s [Nq, Nk] rows (BIAS); DROP: dropout, w holding
+// keep_cols' words.
+template <bool MASK, bool BIAS, bool DROP>
+__device__ __forceinline__ void bw_ds_cols(float (&sT)[32], float (&dpT)[32], float sc2,
+                                           const float* side, const float (&kadd)[2],
+                                           const float* bias, const int (&key)[2], int q0,
+                                           int nq, int nk, int t, const unsigned (&w)[4],
+                                           float inv_keep) {
+#pragma unroll
+  for (int J = 0; J < BW_TILE / 8; ++J) {
+    const int c = 8 * J + 2 * t;
+    const float2 z = *reinterpret_cast<const float2*>(side + c);
+    const float2 inv = *reinterpret_cast<const float2*>(side + BW_TILE + c);
+    const float2 dl = *reinterpret_cast<const float2*>(side + 2 * BW_TILE + c);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * J + 2 * hf + e;
+        float x = fmaf(sT[i], sc2, -(e ? z.y : z.x));
+        if constexpr (MASK) x += kadd[hf];
+        if constexpr (BIAS) {
+          const int q = q0 + c + e;
+          if (q < nq && key[hf] < nk) x = fmaf(bias[(size_t)q * nk + key[hf]], LOG2E_F, x);
+        }
+        const float pr = ex2(x) * (e ? inv.y : inv.x);
+        if constexpr (DROP) {
+          const bool kp = (w[J & 3] >> (4 * (((J >> 2) * 2 + hf) * 2 + e))) & 1u;
+          const float dpm = kp ? dpT[i] * inv_keep : 0.0f;
+          dpT[i] = pr * (dpm - (e ? dl.y : dl.x));
+          sT[i] = kp ? pr * inv_keep : 0.0f;
+        } else {
+          dpT[i] = pr * (dpT[i] - (e ? dl.y : dl.x));
+          sT[i] = pr;
+        }
+      }
+  }
+}
+
+// bw_ds_cols in the form an item takes (masked: a key mask, or keys past
+// Nk in the item) for a tile; DROP: its keep bits made here.
+template <bool DROP>
+__device__ __forceinline__ void bw_ds_cols_tile(float (&sT)[32], float (&dpT)[32],
+                                                const BwArgs& p, float sc2, const float* side,
+                                                const float (&kadd)[2], const float* bias,
+                                                const int (&key)[2], bool masked,
+                                                unsigned long long seed, int bh, int kw, int q0,
+                                                int lane) {
+  const int t = lane & 3;
+  unsigned w[4] = {~0u, ~0u, ~0u, ~0u};
+  if constexpr (DROP) keep_cols(w, seed, p.thresh, (unsigned)bh, kw, q0, lane);
+  if (masked) {
+    if (bias)
+      bw_ds_cols<true, true, DROP>(sT, dpT, sc2, side, kadd, bias, key, q0, p.Nq, p.Nk, t, w,
+                                   p.inv_keep);
+    else
+      bw_ds_cols<true, false, DROP>(sT, dpT, sc2, side, kadd, bias, key, q0, p.Nq, p.Nk, t, w,
+                                    p.inv_keep);
+  } else if (bias) {
+    bw_ds_cols<false, true, DROP>(sT, dpT, sc2, side, kadd, bias, key, q0, p.Nq, p.Nk, t, w,
+                                  p.inv_keep);
+  } else {
+    bw_ds_cols<false, false, DROP>(sT, dpT, sc2, side, kadd, bias, key, q0, p.Nq, p.Nk, t, w,
+                                   p.inv_keep);
+  }
+}
+
+// The query-major backward: items of 128 query rows of a (batch, head),
+// keys and values streamed in 64-key tiles; delta, dbias and dq. map_q /
+// map_do: boxes of [1, 128 rows, D]; map_k / map_v: [1, 64 rows, D].
+template <int D>
+__global__ void __launch_bounds__(AL_THREADS, 1)
+    train_bwd_q_long_kernel(const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_do,
+                            const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v, BwArgs p) {
+  using T = BwTile<D>;
+  extern __shared__ unsigned char bw_raw[];
+  unsigned char* base = al_base(bw_raw);
+  unsigned char* ring = base + 2 * T::SLOT;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + BW_STAGES * T::STAGE);
+  uint64_t* empty = full + BW_STAGES;
+  uint64_t* i_full = empty + BW_STAGES;
+  uint64_t* i_empty = i_full + 2;
+  const int nitems = (p.items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  if (threadIdx.x == 0) al_init(full, empty, i_full, i_empty, BW_STAGES);
+  __syncthreads();
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 0)
+      bw_produce<D, true>(&map_q, &map_do, &map_k, &map_v, p, base, ring, full, empty, i_full,
+                          i_empty, nitems, lane);
+    return;
   }
 
-  for (int i = 0; i < tiles; ++i) {
-    cp_async_wait<0>();
-    __syncthreads();
-    if (i + 1 < tiles) load(i + 1);
-    cp_async_commit();
-    if (!active) continue;
-    if (i == 0) bwd_k_tile<D>(ka, va, key, kadd, cg, Kt, Vt, p, b, k0, lane);
-    const bf16* Qs = reinterpret_cast<const bf16*>(smem + (i % LONG_STAGES) * STAGE);
-    const bf16* Gs = Qs + LONG_TILE * KLD;
-    const float4* sts = reinterpret_cast<const float4*>(Gs + LONG_TILE * KLD);
-    const int first = i * LONG_TILE;
-    for (int c = 0; c < LONG_TILE && first + c < NQP; c += BWD_KCH * 8)
-      bwd_k_chunk<D>(dk, dv, ka, va, Qs, Gs, sts, first + c, first, NQP, p, bias, key, kadd,
-                     seed, (unsigned)bh, cg, lane);
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int g = lane >> 2, t = lane & 3;
+  const float sc2 = p.scale * LOG2E_F;
+  const bool bvec = p.Nk % 2 == 0 && (reinterpret_cast<uintptr_t>(p.bias) & 7) == 0;
+  const bool dbvec = p.Nk % 2 == 0 && (reinterpret_cast<uintptr_t>(p.dbias) & 7) == 0;
+  const unsigned long long seed = p.thresh ? *p.seed : 0ull;
+  const long HD = (long)p.H * D;
+  unsigned it = 0;
+#pragma unroll 1
+  for (int n = 0; n < nitems; ++n) {
+    const int item = (int)blockIdx.x + n * (int)gridDim.x;
+    const int bh = item / p.itiles, q0 = (item - bh * p.itiles) * AL_ROWS;
+    const int b = bh / p.H, h = bh - b * p.H;
+    const int slot = n & 1;
+    const int r[2] = {q0 + 64 * wg + 16 * warp + g, q0 + 64 * wg + 16 * warp + g + 8};
+    // the rows' statistics, bias and dbias rows, and delta = rowsum(bf16(do)
+    // * O) from device memory (the quad's lanes hold D / 4 columns each)
+    float z[2], inv[2], dl[2];
+    const float* brow[2];
+    float* dbrow[2];
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      z[rh] = inv[rh] = 0.0f;
+      brow[rh] = nullptr;
+      dbrow[rh] = nullptr;
+      float acc = 0.0f;
+      if (r[rh] < p.Nq) {
+        const size_t row = (size_t)bh * p.Nq + r[rh];
+        const float m = p.stats[row * 2] * LOG2E_F;
+        z[rh] = m == -INFINITY ? 0.0f : m;
+        inv[rh] = p.stats[row * 2 + 1];
+        if (p.bias) brow[rh] = p.bias + row * p.Nk;
+        if (p.dbias) dbrow[rh] = p.dbias + row * p.Nk;
+        const float* orow = p.o + (long)b * p.sob + (long)r[rh] * p.son + h * D;
+        const bf16* drow = p.dout + (long)b * p.sdb + (long)r[rh] * p.sdn + h * D;
+#pragma unroll
+        for (int J = 0; J < D / 8; ++J) {
+          const float2 ov = *reinterpret_cast<const float2*>(orow + 8 * J + 2 * t);
+          const __nv_bfloat162 dv = *reinterpret_cast<const __nv_bfloat162*>(drow + 8 * J + 2 * t);
+          acc = fmaf(__low2float(dv), ov.x, acc);
+          acc = fmaf(__high2float(dv), ov.y, acc);
+        }
+      }
+      dl[rh] = quad_sum(acc);
+      if (t == 0 && r[rh] < p.Nq) p.delta[(size_t)bh * p.Nq + r[rh]] = dl[rh];
+    }
+    al_wait(&i_full[slot], (n >> 1) & 1);
+    const unsigned qa = smem_u32(base + slot * T::SLOT + wg * 64 * T::ROW);
+    const unsigned da = qa + T::ITEM;
+    float dq[D / 2];
+    acc_zero(dq);
+    unsigned pf[BW_TILE / 16][4];
+    int prev = 0;
+#pragma unroll 1
+    for (int j = 0; j < p.stiles; ++j) {
+      const int s_i = it % BW_STAGES;
+      al_wait(&full[s_i], (it / BW_STAGES) & 1);
+      ++it;
+      const unsigned kb = smem_u32(ring + s_i * T::STAGE), vb = kb + T::TILE;
+      float s[32], dp[32];
+      reg_fence(dq);
+      reg_fence(pf);
+      wg_fence();
+      // S_j and dP_j behind dq += ds_{j-1} K_{j-1}
+      al_scores64<D>(s, qa, kb);
+      al_scores64<D>(dp, da, vb);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(s);
+      reg_fence(dp);
+      reg_fence(dq);
+      if (lane == 0) {
+        if (j > 0) mbar_arrive(&empty[prev]);                  // K_{j-1} read
+        if (j == p.stiles - 1) mbar_arrive(&i_empty[slot]);    // Q and do read
+      }
+      const int k0 = j * BW_TILE;
+      const float* kbs = reinterpret_cast<const float*>(ring + s_i * T::STAGE + 2 * T::TILE);
+      if (p.thresh)
+        bw_ds_rows_tile<true>(s, dp, p, sc2, z, inv, dl, kbs, brow, bvec, seed, bh, r, k0, t);
+      else
+        bw_ds_rows_tile<false>(s, dp, p, sc2, z, inv, dl, kbs, brow, bvec, seed, bh, r, k0, t);
+      if (p.dbias) {
+#pragma unroll
+        for (int J = 0; J < BW_TILE / 8; ++J) {
+          const int k = k0 + 8 * J + 2 * t;
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            if (!dbrow[rh] || k >= p.Nk) continue;
+            const float v0 = s[4 * J + 2 * rh], v1 = s[4 * J + 2 * rh + 1];
+            if (dbvec) {                          // Nk even: k + 1 < Nk
+              *reinterpret_cast<float2*>(dbrow[rh] + k) = make_float2(v0, v1);
+            } else {
+              dbrow[rh][k] = v0;
+              if (k + 1 < p.Nk) dbrow[rh][k + 1] = v1;
+            }
+          }
+        }
+      }
+      al_pack<BW_TILE>(pf, s);
+      wg_fence();
+      al_rs<D, BW_TILE>(dq, pf, kb);    // dq += bf16(ds) K_j (K MN-major)
+      wg_commit();
+      prev = s_i;
+    }
+    wg_wait<0>();
+    reg_fence(dq);
+    if (lane == 0) mbar_arrive(&empty[prev]);
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      if (r[rh] >= p.Nq) continue;
+      float* out = p.dq + ((long)b * p.Nq + r[rh]) * HD + h * D;
+#pragma unroll
+      for (int J = 0; J < D / 8; ++J)
+        *reinterpret_cast<float2*>(out + 8 * J + 2 * t) =
+            make_float2(dq[4 * J + 2 * rh] * p.scale, dq[4 * J + 2 * rh + 1] * p.scale);
+    }
   }
-  if (active) bwd_k_store<D>(dk, dv, w, p, b, h, key, t);
+}
+
+// The key-major backward: items of 128 keys of a (batch, head), queries,
+// do and their statistics streamed in 64-query tiles; dk and dv. map_k /
+// map_v: boxes of [1, 128 rows, D]; map_q / map_do: [1, 64 rows, D].
+template <int D>
+__global__ void __launch_bounds__(AL_THREADS, 1)
+    train_bwd_k_long_kernel(const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v,
+                            const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_do, BwArgs p) {
+  using T = BwTile<D>;
+  extern __shared__ unsigned char bw_raw[];
+  unsigned char* base = al_base(bw_raw);
+  unsigned char* ring = base + 2 * T::SLOT;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + BW_STAGES * T::STAGE);
+  uint64_t* empty = full + BW_STAGES;
+  uint64_t* i_full = empty + BW_STAGES;
+  uint64_t* i_empty = i_full + 2;
+  const int nitems = (p.items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  if (threadIdx.x == 0) al_init(full, empty, i_full, i_empty, BW_STAGES);
+  __syncthreads();
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 0)
+      bw_produce<D, false>(&map_k, &map_v, &map_q, &map_do, p, base, ring, full, empty, i_full,
+                           i_empty, nitems, lane);
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int g = lane >> 2, t = lane & 3;
+  const float sc2 = p.scale * LOG2E_F;
+  const unsigned long long seed = p.thresh ? *p.seed : 0ull;
+  const long HD = (long)p.H * D;
+  unsigned it = 0;
+#pragma unroll 1
+  for (int n = 0; n < nitems; ++n) {
+    const int item = (int)blockIdx.x + n * (int)gridDim.x;
+    const int bh = item / p.itiles, k0 = (item - bh * p.itiles) * AL_ROWS;
+    const int b = bh / p.H, h = bh - b * p.H;
+    const int slot = n & 1;
+    const int kw = k0 + 64 * wg + 16 * warp;
+    const int key[2] = {kw + g, kw + g + 8};
+    float kadd[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const bool on = key[hf] < p.Nk && (!p.kvalid || p.kvalid[b * p.skvb + key[hf]] != 0);
+      kadd[hf] = on ? 0.0f : -INFINITY;
+    }
+    const bool masked = p.kvalid || k0 + AL_ROWS > p.Nk;
+    const float* bias = p.bias ? p.bias + (size_t)bh * p.Nq * p.Nk : nullptr;
+    al_wait(&i_full[slot], (n >> 1) & 1);
+    const unsigned ka = smem_u32(base + slot * T::SLOT + wg * 64 * T::ROW);
+    const unsigned va = ka + T::ITEM;
+    float dk[D / 2], dv[D / 2];
+    acc_zero(dk);
+    acc_zero(dv);
+    unsigned pp[BW_TILE / 16][4], pd[BW_TILE / 16][4];
+    int prev = 0;
+#pragma unroll 1
+    for (int i = 0; i < p.stiles; ++i) {
+      const int s_i = it % BW_STAGES;
+      al_wait(&full[s_i], (it / BW_STAGES) & 1);
+      ++it;
+      const unsigned qb = smem_u32(ring + s_i * T::STAGE), ob = qb + T::TILE;
+      float sT[32], dpT[32];
+      reg_fence(dk);
+      reg_fence(dv);
+      reg_fence(pp);
+      reg_fence(pd);
+      wg_fence();
+      // S^T_i and dP^T_i behind dV, dK += tile i - 1's products
+      al_scores64<D>(sT, ka, qb);
+      al_scores64<D>(dpT, va, ob);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(sT);
+      reg_fence(dpT);
+      reg_fence(dk);
+      reg_fence(dv);
+      if (lane == 0) {
+        if (i > 0) mbar_arrive(&empty[prev]);                  // Q, do_{i-1} read
+        if (i == p.stiles - 1) mbar_arrive(&i_empty[slot]);    // K and V read
+      }
+      const int q0 = i * BW_TILE;
+      const float* side = reinterpret_cast<const float*>(ring + s_i * T::STAGE + 2 * T::TILE);
+      if (p.thresh)
+        bw_ds_cols_tile<true>(sT, dpT, p, sc2, side, kadd, bias, key, masked, seed, bh, kw, q0,
+                              lane);
+      else
+        bw_ds_cols_tile<false>(sT, dpT, p, sc2, side, kadd, bias, key, masked, seed, bh, kw, q0,
+                               lane);
+      al_pack<BW_TILE>(pp, sT);
+      al_pack<BW_TILE>(pd, dpT);
+      wg_fence();
+      al_rs<D, BW_TILE>(dv, pp, ob);    // dV += bf16(keep p^T / (1 - rate)) do_i
+      al_rs<D, BW_TILE>(dk, pd, qb);    // dK += bf16(ds^T) Q_i
+      wg_commit();
+      prev = s_i;
+    }
+    wg_wait<0>();
+    reg_fence(dk);
+    reg_fence(dv);
+    if (lane == 0) mbar_arrive(&empty[prev]);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      if (key[hf] >= p.Nk) continue;
+      const long off = ((long)b * p.Nk + key[hf]) * HD + h * D + 2 * t;
+#pragma unroll
+      for (int J = 0; J < D / 8; ++J) {
+        *reinterpret_cast<float2*>(p.dv + off + 8 * J) =
+            make_float2(dv[4 * J + 2 * hf], dv[4 * J + 2 * hf + 1]);
+        *reinterpret_cast<float2*>(p.dk + off + 8 * J) =
+            make_float2(dk[4 * J + 2 * hf] * p.scale, dk[4 * J + 2 * hf + 1] * p.scale);
+      }
+    }
+  }
 }
 
 // ------------------------------------------------------------------ launch
-// The plan (ops/kernels.py attention_plan / attention_bwd_plan with
-// "long"): query (or key) tiles split over gridDim.y, warps a block, and
-// the shared memory a block gets, checked here against the shapes.
-// Shared memory a block needs: the ring, and beside it `per_warp` 16-row
-// tiles a warp (the forward's query tile; q and do, or k and v, in the
-// backward).
-static size_t long_smem_need(int D, int warps, int per_warp, bool query_stage) {
-  const size_t kld = D + 8;
-  const size_t stage = 4 * LONG_TILE * kld + (query_stage ? 16 : 4) * LONG_TILE;
-  return LONG_STAGES * stage + 32 * (size_t)per_warp * warps * kld;
-}
-
-static bool long_plan_ok(int split, int warps, long smem, long rows, size_t need) {
-  return warps >= 1 && warps <= LONG_MAX_WARPS && split >= 1 && split <= 65535 &&
-         (long)split * warps * 16 >= rows && smem >= (long)need && smem <= ATT_SMEM_LIMIT;
-}
-
-template <typename Kern, typename... Args>
-static int launch_long(Kern kern, bool& configured, long blocks, int split, int warps,
-                       long smem, cudaStream_t s, Args... args) {
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         ATT_SMEM_LIMIT);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
-  kern<<<dim3((unsigned)blocks, (unsigned)split), warps * 32, (size_t)smem, s>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-static int launch_train_fwd_long(const AttnArgs& p, int B, int split, int warps, long smem,
-                                 cudaStream_t s) {
-  static bool configured = false;
-  if (!long_plan_ok(split, warps, smem, p.Nq, long_smem_need(D, warps, 1, false)))
-    return (int)cudaErrorInvalidValue;
-  return launch_long(train_fwd_long_kernel<D>, configured, (long)B * p.H, split, warps, smem,
-                     s, p);
-}
-
 // A [B, N, H * D] bf16 view (row stride ld, batch stride sb; 0: one
-// shared by the batch) as a map of boxes [1, AL_ROWS rows, D] in the
-// swizzle of attn_long_kernel's tiles; rows past N read as zeros. `has_b`:
-// the map has the batch axis (else the kernel asks for batch 0).
+// shared by the batch) as a map of boxes [1, box_rows, D] in the swizzle of
+// the kernels' tiles; rows past N read as zeros. `has_b`: the map has the
+// batch axis (else the kernel asks for batch 0).
 static bool al_map(CUtensorMap* map, const void* ptr, int D, long inner, long rows, long ld,
-                   long sb, int batch, int& has_b) {
+                   long sb, int batch, int& has_b, unsigned box_rows = AL_ROWS) {
   TensorMapEncodeFn encode = tensor_map_encoder();
   has_b = batch > 1 && sb != 0;
   if (!encode || (reinterpret_cast<uintptr_t>(ptr) & 15) || ld % 8 || (has_b && sb % 8))
@@ -873,7 +1198,7 @@ static bool al_map(CUtensorMap* map, const void* ptr, int D, long inner, long ro
   const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
                               (cuuint64_t)(has_b ? batch : 1)};
   const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)(has_b ? sb : rows * ld) * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)D, AL_ROWS, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)D, box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -894,55 +1219,48 @@ static int al_grid(long items) {
   return sms > 0 ? (int)(items < sms ? items : sms) : 0;
 }
 
-template <int D>
-static int launch_attn_long(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
-                            const AlArgs& a, cudaStream_t s) {
-  static bool configured = false;
+// A persistent launch of `kern` over `items` (its shared memory allowed
+// once, at its first launch).
+template <typename Kern, typename... Args>
+static int al_launch(Kern kern, bool& configured, long smem, long items, cudaStream_t s,
+                     Args... args) {
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(attn_long_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         AlTile<D>::SMEM);
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const int grid = al_grid(a.items);
+  const int grid = al_grid(items);
   if (grid <= 0) return (int)cudaErrorInvalidValue;
-  attn_long_kernel<D><<<grid, AL_THREADS, AlTile<D>::SMEM, s>>>(mq, mk, mv, a);
+  kern<<<grid, AL_THREADS, (size_t)smem, s>>>(args...);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-static int launch_bwd_long(const AttnArgs& p, const BwdArgs& w, int B, int qsplit, int qwarps,
-                           long qsmem, int ksplit, int kwarps, long ksmem, cudaStream_t s) {
+static int launch_attn_long(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+                            const AlArgs& a, bool train, cudaStream_t s) {
   static bool configured[2] = {false, false};
-  if (!long_plan_ok(qsplit, qwarps, qsmem, p.Nq, long_smem_need(D, qwarps, 2, false)) ||
-      !long_plan_ok(ksplit, kwarps, ksmem, p.Nk, long_smem_need(D, kwarps, 2, true)))
-    return (int)cudaErrorInvalidValue;
-  const int rc = launch_long(train_bwd_q_long_kernel<D>, configured[0], (long)B * p.H, qsplit,
-                             qwarps, qsmem, s, p, w);
-  if (rc != 0) return rc;
-  return launch_long(train_bwd_k_long_kernel<D>, configured[1], (long)B * p.H, ksplit, kwarps,
-                     ksmem, s, p, w);
+  if (train)
+    return al_launch(train_fwd_long_kernel<D>, configured[1], AlTile<D>::SMEM, a.items, s, mq,
+                     mk, mv, a);
+  return al_launch(attn_long_kernel<D>, configured[0], AlTile<D>::SMEM, a.items, s, mq, mk, mv,
+                   a);
 }
 
-extern "C" int ec_attention_long(const void* q, const void* k, const void* v, int in_dt,
-                                 long sqb, long sqn, long skb, long skn, long svb, long svn,
-                                 int B, int H, int D, int Nq, int Nk,
-                                 const void* kvalid, long skvb, const void* bias, float scale,
-                                 void* out, int out_dt, long sob, long son,
-                                 int qsplit, int warps, long smem, void* stream) {
-  // the plan (ops/kernels.py attention_plan, eval): 128-row query tiles,
-  // the block's warps and shared memory
+// The forward's arguments, maps and launch (ops/kernels.py attention_plan
+// with "long": 128-row query items, 12 warps, the block's shared memory).
+static int al_forward(const void* q, const void* k, const void* v, int in_dt, long sqb, long sqn,
+                      long skb, long skn, long svb, long svn, int B, int H, int D, int Nq,
+                      int Nk, const void* kvalid, long skvb, const void* bias, float scale,
+                      AlArgs& a, int qsplit, int warps, long smem, bool train, void* stream) {
   const int qtiles = (Nq + AL_ROWS - 1) / AL_ROWS;
   const long need = D == 64 ? AlTile<64>::SMEM : AlTile<32>::SMEM;
   if ((D != 32 && D != 64) || in_dt != DT_BF16 || B < 1 || H < 1 || Nq < 1 || Nk < 1 ||
-      !q || !k || !v || !out || !(scale > 0.0f) || qsplit != qtiles ||
+      !q || !k || !v || !a.out || !(scale > 0.0f) || qsplit != qtiles ||
       warps * 32 != AL_THREADS || smem != need)
     return (int)cudaErrorInvalidValue;
-  AlArgs a;
   a.kvalid = static_cast<const unsigned char*>(kvalid); a.skvb = skvb;
   a.bias = static_cast<const float*>(bias); a.scale = scale;
-  a.out = out; a.out_dt = out_dt; a.sob = sob; a.son = son;
   a.H = H; a.Nq = Nq; a.Nk = Nk; a.qtiles = qtiles;
   a.ktiles = (Nk + AL_KEYS - 1) / AL_KEYS;
   const long items = (long)B * H * qtiles;
@@ -954,9 +1272,24 @@ extern "C" int ec_attention_long(const void* q, const void* k, const void* v, in
       !al_map(&mv, v, D, c, Nk, svn, svb, B, a.bv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch_attn_long<64>(mq, mk, mv, a, s) : launch_attn_long<32>(mq, mk, mv, a, s);
+  return D == 64 ? launch_attn_long<64>(mq, mk, mv, a, train, s)
+                 : launch_attn_long<32>(mq, mk, mv, a, train, s);
 }
 
+extern "C" int ec_attention_long(const void* q, const void* k, const void* v, int in_dt,
+                                 long sqb, long sqn, long skb, long skn, long svb, long svn,
+                                 int B, int H, int D, int Nq, int Nk,
+                                 const void* kvalid, long skvb, const void* bias, float scale,
+                                 void* out, int out_dt, long sob, long son,
+                                 int qsplit, int warps, long smem, void* stream) {
+  AlArgs a = {};
+  a.out = out; a.out_dt = out_dt; a.sob = sob; a.son = son;
+  return al_forward(q, k, v, in_dt, sqb, sqn, skb, skn, svb, svn, B, H, D, Nq, Nk, kvalid, skvb,
+                    bias, scale, a, qsplit, warps, smem, false, stream);
+}
+
+// out: fp32 [B, Nq, H * D] (row stride son, batch stride sob); stats: fp32
+// [B * H, Nq, 2]; q, k, v bf16 views a tensor map can describe.
 extern "C" int ec_attn_train_fwd_long(const void* q, const void* k, const void* v, int in_dt,
                                       long sqb, long sqn, long skb, long skn, long svb,
                                       long svn, int B, int H, int D, int Nq, int Nk,
@@ -965,50 +1298,86 @@ extern "C" int ec_attn_train_fwd_long(const void* q, const void* k, const void* 
                                       float inv_keep, void* out, long sob, long son,
                                       void* stats, int qsplit, int warps, long smem,
                                       void* stream) {
-  AttnArgs p;
-  if (!attn_args(p, q, k, v, in_dt, sqb, sqn, skb, skn, svb, svn, B, H, Nq, Nk, kvalid,
-                 skvb, bias, scale, 0) || (thresh && !seed) || !stats)
-    return (int)cudaErrorInvalidValue;
-  p.seed = static_cast<const unsigned long long*>(seed);
-  p.thresh = thresh; p.inv_keep = inv_keep;
-  p.stats = static_cast<float*>(stats);
-  p.out = out; p.out_dt = DT_F32; p.sob = sob; p.son = son;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 32) return launch_train_fwd_long<32>(p, B, qsplit, warps, smem, s);
-  if (D == 64) return launch_train_fwd_long<64>(p, B, qsplit, warps, smem, s);
-  return (int)cudaErrorInvalidValue;
+  if ((thresh && !seed) || !stats) return (int)cudaErrorInvalidValue;
+  AlArgs a = {};
+  a.out = out; a.out_dt = DT_F32; a.sob = sob; a.son = son;
+  a.seed = static_cast<const unsigned long long*>(seed);
+  a.thresh = thresh; a.inv_keep = inv_keep;
+  a.stats = static_cast<float*>(stats);
+  return al_forward(q, k, v, in_dt, sqb, sqn, skb, skn, svb, svn, B, H, D, Nq, Nk, kvalid, skvb,
+                    bias, scale, a, qsplit, warps, smem, true, stream);
 }
 
-// dq, dk, dv: fp32 [B, N, H * D], contiguous; dbias [B, H, Nq, Nk] or
-// null; delta: fp32 scratch [B * H, Nq]; kvalid: the forward's bool mask.
+template <int D>
+static int launch_bwd_long(const CUtensorMap (&mq)[2], const CUtensorMap (&mk)[2],
+                           const CUtensorMap (&mv)[2], const CUtensorMap (&md)[2],
+                           const BwArgs& qa, const BwArgs& ka, cudaStream_t s) {
+  static bool configured[2] = {false, false};
+  const int rc = al_launch(train_bwd_q_long_kernel<D>, configured[0], BwTile<D>::SMEM, qa.items,
+                           s, mq[0], md[0], mk[1], mv[1], qa);
+  if (rc != 0) return rc;
+  return al_launch(train_bwd_k_long_kernel<D>, configured[1], BwTile<D>::SMEM, ka.items, s,
+                   mk[0], mv[0], mq[1], md[1], ka);
+}
+
+// q, k, v, dout: bf16 views a tensor map can describe; stats: the
+// forward's [B * H, Nq, 2]; o: its fp32 output [B, Nq, H * D] (row stride
+// son, batch stride sob, both even); dq, dk, dv: fp32 [B, N, H * D],
+// contiguous; dbias [B, H, Nq, Nk] or null; delta: fp32 scratch [B * H,
+// Nq]; kvalid: the forward's bool mask. The plan (ops/kernels.py
+// attention_bwd_plan with "long"): each kernel's 128-row items a (batch,
+// head), 12 warps, the block's shared memory.
 extern "C" int ec_attn_train_bwd_long(const void* q, const void* k, const void* v, int in_dt,
                                       long sqb, long sqn, long skb, long skn, long svb,
                                       long svn, int B, int H, int D, int Nq, int Nk,
                                       const void* kvalid, long skvb, const void* bias,
                                       float scale, const void* seed, unsigned thresh,
                                       float inv_keep, const void* dout, int do_dt, long sdb,
-                                      long sdn, const void* stats, void* dq, void* dk,
-                                      void* dv, void* dbias, void* delta,
-                                      int qsplit, int qwarps, long qsmem,
+                                      long sdn, const void* stats, const void* o, long sob,
+                                      long son, void* dq, void* dk, void* dv, void* dbias,
+                                      void* delta, int qsplit, int qwarps, long qsmem,
                                       int ksplit, int kwarps, long ksmem, void* stream) {
-  AttnArgs p;
-  if (!attn_args(p, q, k, v, in_dt, sqb, sqn, skb, skn, svb, svn, B, H, Nq, Nk, kvalid,
-                 skvb, bias, scale, 0) || (thresh && !seed) || !stats || !dout || !dq ||
-      !dk || !dv || !delta)
+  const int qtiles = (Nq + AL_ROWS - 1) / AL_ROWS, ktiles = (Nk + AL_ROWS - 1) / AL_ROWS;
+  const long need = D == 64 ? BwTile<64>::SMEM : BwTile<32>::SMEM;
+  if ((D != 32 && D != 64) || in_dt != DT_BF16 || do_dt != DT_BF16 || B < 1 || H < 1 ||
+      Nq < 1 || Nk < 1 || !q || !k || !v || !dout || !stats || !o || !dq || !dk || !dv ||
+      !delta || (thresh && !seed) || !(scale > 0.0f) || qsplit != qtiles || ksplit != ktiles ||
+      qwarps * 32 != AL_THREADS || kwarps * 32 != AL_THREADS || qsmem != need || ksmem != need ||
+      ((reinterpret_cast<uintptr_t>(o) | (uintptr_t)(sob * 4) | (uintptr_t)(son * 4)) & 7))
     return (int)cudaErrorInvalidValue;
-  p.seed = static_cast<const unsigned long long*>(seed);
-  p.thresh = thresh; p.inv_keep = inv_keep;
-  p.stats = static_cast<float*>(const_cast<void*>(stats));
-  BwdArgs w;
-  w.dout = dout; w.do_dt = do_dt; w.sdb = sdb; w.sdn = sdn;
-  w.dq = static_cast<float*>(dq); w.dk = static_cast<float*>(dk);
-  w.dv = static_cast<float*>(dv); w.dbias = static_cast<float*>(dbias);
-  w.delta = static_cast<float*>(delta);
-  w.NQ16 = (Nq + 15) / 16;
+  const long qitems = (long)B * H * qtiles, kitems = (long)B * H * ktiles;
+  if (qitems > 0x7fffffffL || kitems > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  BwArgs a = {};
+  a.kvalid = static_cast<const unsigned char*>(kvalid); a.skvb = skvb;
+  a.bias = static_cast<const float*>(bias); a.scale = scale;
+  a.seed = static_cast<const unsigned long long*>(seed);
+  a.thresh = thresh; a.inv_keep = inv_keep;
+  a.stats = static_cast<const float*>(stats);
+  a.o = static_cast<const float*>(o); a.sob = sob; a.son = son;
+  a.dout = static_cast<const bf16*>(dout); a.sdb = sdb; a.sdn = sdn;
+  a.dq = static_cast<float*>(dq); a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv); a.dbias = static_cast<float*>(dbias);
+  a.delta = static_cast<float*>(delta);
+  a.H = H; a.Nq = Nq; a.Nk = Nk;
+  // each operand in 128-row boxes (as an item's) and 64-row ones (as a
+  // streamed tile's)
+  CUtensorMap mq[2], mk[2], mv[2], md[2];
+  int bq = 0, bk = 0, bv = 0, bd = 0;
+  const long c = (long)H * D;
+  for (int i = 0; i < 2; ++i) {
+    const unsigned rows = i ? BW_TILE : AL_ROWS;
+    if (!al_map(&mq[i], q, D, c, Nq, sqn, sqb, B, bq, rows) ||
+        !al_map(&mk[i], k, D, c, Nk, skn, skb, B, bk, rows) ||
+        !al_map(&mv[i], v, D, c, Nk, svn, svb, B, bv, rows) ||
+        !al_map(&md[i], dout, D, c, Nq, sdn, sdb, B, bd, rows))
+      return (int)cudaErrorInvalidValue;
+  }
+  BwArgs qa = a, ka = a;
+  qa.itiles = qtiles; qa.stiles = (Nk + BW_TILE - 1) / BW_TILE; qa.items = (int)qitems;
+  qa.bi0 = bq; qa.bi1 = bd; qa.bs0 = bk; qa.bs1 = bv;
+  ka.itiles = ktiles; ka.stiles = (Nq + BW_TILE - 1) / BW_TILE; ka.items = (int)kitems;
+  ka.bi0 = bk; ka.bi1 = bv; ka.bs0 = bq; ka.bs1 = bd;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 32)
-    return launch_bwd_long<32>(p, w, B, qsplit, qwarps, qsmem, ksplit, kwarps, ksmem, s);
-  if (D == 64)
-    return launch_bwd_long<64>(p, w, B, qsplit, qwarps, qsmem, ksplit, kwarps, ksmem, s);
-  return (int)cudaErrorInvalidValue;
+  return D == 64 ? launch_bwd_long<64>(mq, mk, mv, md, qa, ka, s)
+                 : launch_bwd_long<32>(mq, mk, mv, md, qa, ka, s);
 }

@@ -112,9 +112,10 @@ __device__ __forceinline__ void wg_wait() {
 }
 
 // d (+)= a . b for one m64n64k16 tile, a and b in shared memory. TB: b is
-// MN-major.
+// MN-major. `accumulate` 0 overwrites d.
 template <int TB>
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                int accumulate = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -132,7 +133,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uin
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1), "n"(TB));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
 }
 
 // d += a . b for one m64n128k16 tile, a in registers (four bf16 pairs a

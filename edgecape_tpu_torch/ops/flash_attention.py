@@ -20,8 +20,10 @@ and in two register passes over 32-key chunks above, query tiles split
 over blocks by `ops/kernels.attention_plan`, keys and values copied in by
 cp.async, and the bool key mask read by the kernel. Above 512 keys, which
 a block's shared memory does not hold, attn_long_kernel (csrc/
-attn_long.cu) runs the same two passes with the keys streamed in tiles;
-the training pair has streaming forms as well. q/k/v are read
+attn_long.cu) streams the keys in tiles through one pass with the online
+softmax; the training pair has streaming forms as well (one pass each,
+the backward's delta formed from the forward's fp32 output, which the
+autograd Function keeps for them). q/k/v are read
 straight from the [B, N, H*D] projections (no head transpose or cast
 pass), and a call is one launch.
 
@@ -161,7 +163,10 @@ class _FlashTrain(torch.autograd.Function):
             scale=1.0 / math.sqrt(d), key_valid=key_valid, bias=bias,
             seed=seed, rate=rate)
         launches_fwd += 1
-        ctx.save_for_backward(q, k, v, key_valid, bias, stats, seed)
+        # the streaming backward forms delta from the fp32 output
+        streams = K.attention_bwd_plan(nq, k.shape[1], d).get("long")
+        ctx.save_for_backward(q, k, v, key_valid, bias, stats, seed,
+                              out if streams else None)
         ctx.rate = rate
         return out.reshape(b, nq, h, d).to(q.dtype)
 
@@ -169,13 +174,13 @@ class _FlashTrain(torch.autograd.Function):
     def backward(ctx, g):
         global launches_bwd
         from . import kernels as K
-        q, k, v, key_valid, bias, stats, seed = ctx.saved_tensors
+        q, k, v, key_valid, bias, stats, seed, out = ctx.saved_tensors
         b, nq, h, d = q.shape
         dq, dk, dv, dbias = K.attention_train_bwd(
             _flat(q), _flat(k), _flat(v), _flat(g), stats, num_heads=h,
             scale=1.0 / math.sqrt(d), key_valid=key_valid, bias=bias,
             seed=seed, rate=ctx.rate,
-            need_dbias=ctx.needs_input_grad[4])
+            need_dbias=ctx.needs_input_grad[4], out=out)
         launches_bwd += 1
         return (dq.reshape(q.shape).to(q.dtype),
                 dk.reshape(k.shape).to(k.dtype),

@@ -102,8 +102,11 @@ _SIGNATURES = {
     + [_P],
     "ec_attn_train_fwd_long": _TRAIN_HEAD + [_P, _L, _L, _P] + _LONG_PLAN
     + [_P],
-    "ec_attn_train_bwd_long": _TRAIN_HEAD + [_P, _I, _L, _L, _P, _P, _P, _P,
-                                             _P, _P] + 2 * _LONG_PLAN + [_P],
+    # ... dout, its dtype and strides, stats, the forward's fp32 output and
+    # its strides, dq, dk, dv, dbias, delta, the two kernels' plans
+    "ec_attn_train_bwd_long": _TRAIN_HEAD + [_P, _I, _L, _L, _P, _P, _L, _L,
+                                             _P, _P, _P, _P, _P]
+    + 2 * _LONG_PLAN + [_P],
     "ec_dropout_mask": [_P, _U32, _L, _I, _I, _P, _P],
     "ec_mm_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ec_enc_post": [_P] * 13 + [_I, _P, _I, _P, _I, _I, _F, _P],
@@ -430,41 +433,36 @@ def add_pos(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 ATT_MAX_KEYS, ATT_ROW16, ATT_CH16 = 512, 8, 2
 ATT_SMEM_LIMIT = 227 * 1024
 # The streaming kernels (csrc/attn_long.cu), which take rows longer than
-# ATT_MAX_KEYS. The training ones: keys (the key-major backward's queries)
-# in tiles of ATT_LONG_TILE through a ring of ATT_LONG_STAGES stages,
-# blocks of at most ATT_LONG_WARPS 16-row tiles. attn_long_kernel (eval):
-# items of ATT_STREAM_ROWS query rows, key tiles of ATT_STREAM_KEYS through
-# a ring of ATT_STREAM_STAGES, blocks of ATT_STREAM_WARPS warps (two
-# consumer warpgroups and the producer's).
-ATT_LONG_TILE, ATT_LONG_STAGES, ATT_LONG_WARPS = 64, 2, 8
+# ATT_MAX_KEYS, all persistent blocks of ATT_STREAM_WARPS warps (two
+# consumer warpgroups and the producer's) walking items of ATT_STREAM_ROWS
+# rows. The forwards (attn_long_kernel, train_fwd_long_kernel): query
+# items, key tiles of ATT_STREAM_KEYS through a ring of ATT_STREAM_STAGES.
+# The backward pair: query items with key tiles (train_bwd_q_long_kernel)
+# and key items with query tiles (train_bwd_k_long_kernel) of
+# ATT_BWD_TILE through a ring of ATT_BWD_STAGES.
 ATT_STREAM_ROWS, ATT_STREAM_KEYS, ATT_STREAM_STAGES = 128, 128, 4
 ATT_STREAM_WARPS = 12
+ATT_BWD_TILE, ATT_BWD_STAGES = 64, 4
 
 
 def _stream_smem(d: int) -> int:
-    """Shared memory of an attn_long_kernel block: 1024 bytes of alignment
-    slack, two query slots [128 rows x d] bf16, the ring (k and v tiles
-    [128 x d] bf16 and 1024 bytes for the additive key mask a stage) and
-    128 bytes of barriers."""
+    """Shared memory of an attn_long_kernel (or train_fwd_long_kernel)
+    block: 1024 bytes of alignment slack, two query slots [128 rows x d]
+    bf16, the ring (k and v tiles [128 x d] bf16 and 1024 bytes for the
+    additive key mask a stage) and 128 bytes of barriers."""
     tile = ATT_STREAM_ROWS * 2 * d
     return 1024 + 2 * tile + ATT_STREAM_STAGES * (2 * tile + 1024) + 128
 
 
-def _long_split(tiles: int):
-    """(split, warps) of `tiles` 16-row tiles over blocks of at most
-    ATT_LONG_WARPS."""
-    split = -(-tiles // ATT_LONG_WARPS)
-    return split, -(-tiles // split)
-
-
-def _long_smem(d: int, warps: int, per_warp: int, query_stage: bool) -> int:
-    """Shared memory of a streaming block: the ring (q and do with 16
-    bytes of statistics a query, or k and v with the 4-byte key mask, per
-    row of a tile) and `per_warp` 16-row tiles a warp beside it."""
-    kld = d + 8
-    stage = 4 * ATT_LONG_TILE * kld + (16 if query_stage else 4) \
-        * ATT_LONG_TILE
-    return ATT_LONG_STAGES * stage + 32 * per_warp * warps * kld
+def _bwd_stream_smem(d: int) -> int:
+    """Shared memory of a block of the streaming backward pair: 1024
+    bytes of alignment slack, two item slots of two [128 rows x d] bf16
+    operands, the ring (two [64 x d] bf16 tiles and 1024 bytes of side data
+    a stage: the key mask, or each query's statistics and delta) and 128
+    bytes of barriers."""
+    row = 2 * d
+    return 1024 + 2 * 2 * ATT_STREAM_ROWS * row \
+        + ATT_BWD_STAGES * (2 * ATT_BWD_TILE * row + 1024) + 128
 
 
 def _max_warps(d: int, chunk_tiles: int) -> int:
@@ -500,21 +498,12 @@ def _attention_plan(nq, nk, d, train, chunk_tiles, long):
         raise ValueError(f"attention takes at least one query and one key, "
                          f"got Nq={nq}, Nk={nk}")
     key_tiles = -(-nk // 16)
-    if _streams(nk, chunk_tiles, long) and not train:
+    if _streams(nk, chunk_tiles, long):
         return (("long", True), ("q_split", -(-nq // ATT_STREAM_ROWS)),
                 ("warps", ATT_STREAM_WARPS), ("one_pass", True),
                 ("smem_bytes", _stream_smem(d)),
                 ("key_tiles", -(-nk // ATT_STREAM_KEYS)),
                 ("stages", ATT_STREAM_STAGES))
-    if _streams(nk, chunk_tiles, long):
-        q_split, warps = _long_split(-(-nq // 16))
-        if q_split > 65535:
-            raise ValueError(f"attention plan does not fit: query split "
-                             f"{q_split}")
-        return (("long", True), ("q_split", q_split), ("warps", warps),
-                ("one_pass", False), ("smem_bytes", _long_smem(d, warps, 1,
-                                                               False)),
-                ("key_tiles", key_tiles), ("chunk_tiles", ATT_CH16))
     fits = key_tiles <= ATT_ROW16
     if chunk_tiles is None:
         chunk_tiles = ATT_ROW16 if fits else ATT_CH16
@@ -554,16 +543,13 @@ def attention_plan(nq: int, nk: int, d: int, train: bool = False,
       tile per warp, the additive key mask.
 
     Above ATT_MAX_KEYS keys (or with `long=True`, for measurements) the
-    plan is the streaming kernels' and holds `long`: True. The eval
-    forward's (attn_long_kernel): q_split items of ATT_STREAM_ROWS query
-    rows a (batch, head), blocks of `warps` = ATT_STREAM_WARPS, one pass
-    over key_tiles tiles of ATT_STREAM_KEYS keys through a ring of
-    `stages`, and smem_bytes (_stream_smem). The training forward's
-    (train_fwd_long_kernel): q_split and warps as above (at most
-    ATT_LONG_WARPS), two passes over chunks of chunk_tiles key tiles as in
-    the resident two-pass form, and smem_bytes for the ring of
-    ATT_LONG_STAGES key tiles and a query tile per warp. Every shape up to
-    ATT_MAX_KEYS gets the resident kernels' plan.
+    plan is the streaming kernels' and holds `long`: True, the same for
+    the eval forward (attn_long_kernel) and the training one
+    (train_fwd_long_kernel): q_split items of ATT_STREAM_ROWS query rows a
+    (batch, head), blocks of `warps` = ATT_STREAM_WARPS, one pass over
+    key_tiles tiles of ATT_STREAM_KEYS keys through a ring of `stages`,
+    and smem_bytes (_stream_smem). Every shape up to ATT_MAX_KEYS gets the
+    resident kernels' plan.
 
     Raises for what the kernels do not take: d not 32 or 64, no query or
     key, chunk_tiles with more than ATT_MAX_KEYS keys or `long`."""
@@ -598,19 +584,17 @@ def _attention_bwd_plan(nq, nk, d, chunk_tiles, long):
     if nq < 1 or nk < 1:
         raise ValueError(f"the attention backward takes at least one query "
                          f"and one key, got Nq={nq}, Nk={nk}")
-    q_tiles, key_tiles = -(-nq // 16), -(-nk // 16)
     if _streams(max(nq, nk), chunk_tiles, long):
-        q_split, q_warps = _long_split(q_tiles)
-        k_split, k_warps = _long_split(key_tiles)
-        if max(q_split, k_split) > 65535:
-            raise ValueError(f"attention backward plan does not fit: splits "
-                             f"{q_split}, {k_split}")
-        return (("long", True), ("q_split", q_split), ("q_warps", q_warps),
-                ("one_pass", False), ("chunk_tiles", ATT_CH16),
-                ("q_smem_bytes", _long_smem(d, q_warps, 2, False)),
-                ("k_split", k_split), ("k_warps", k_warps),
-                ("k_smem_bytes", _long_smem(d, k_warps, 2, True)),
-                ("q_tiles", q_tiles), ("key_tiles", key_tiles))
+        smem = _bwd_stream_smem(d)
+        return (("long", True), ("q_split", -(-nq // ATT_STREAM_ROWS)),
+                ("q_warps", ATT_STREAM_WARPS), ("one_pass", True),
+                ("q_smem_bytes", smem),
+                ("k_split", -(-nk // ATT_STREAM_ROWS)),
+                ("k_warps", ATT_STREAM_WARPS), ("k_smem_bytes", smem),
+                ("q_tiles", -(-nq // ATT_BWD_TILE)),
+                ("key_tiles", -(-nk // ATT_BWD_TILE)),
+                ("stages", ATT_BWD_STAGES))
+    q_tiles, key_tiles = -(-nq // 16), -(-nk // 16)
     fits = key_tiles <= ATT_ROW16
     if chunk_tiles is None:
         chunk_tiles = ATT_ROW16 if fits else ATT_CH16
@@ -655,12 +639,14 @@ def attention_bwd_plan(nq: int, nk: int, d: int, chunk_tiles=None,
       in k_smem_bytes.
 
     Above ATT_MAX_KEYS queries or keys (or with `long=True`, for
-    measurements) the plan is the streaming pair's
-    (train_bwd_q_long_kernel with keys and values streamed,
-    train_bwd_k_long_kernel with queries and do streamed) and holds
-    `long`: True, the same splits (blocks of at most ATT_LONG_WARPS tiles)
-    and each kernel's shared memory for its ring and two 16-row tiles a
-    warp.
+    measurements) the plan is the streaming pair's and holds `long`: True:
+    train_bwd_q_long_kernel walks q_split items of ATT_STREAM_ROWS query
+    rows a (batch, head) with key_tiles tiles of ATT_BWD_TILE keys (and
+    values) streamed, train_bwd_k_long_kernel k_split items of
+    ATT_STREAM_ROWS keys with q_tiles tiles of ATT_BWD_TILE queries (and
+    do) streamed, both one pass through a ring of `stages`, in blocks of
+    q_warps = k_warps = ATT_STREAM_WARPS warps with q_smem_bytes =
+    k_smem_bytes (_bwd_stream_smem) of shared memory.
 
     Raises for what the kernels do not take: d not 32 or 64, no query or
     key, chunk_tiles with more than ATT_MAX_KEYS of either or `long`."""
@@ -828,16 +814,19 @@ def attention_train_fwd(q, k, v, *, num_heads: int, scale: float,
     by the kernel. Dropout at `rate` on the probabilities from Philox
     keyed by `seed`, a one-element int64 CUDA tensor. One launch of
     train_fwd_kernel, or of train_fwd_long_kernel where the plan streams
-    the keys."""
-    args, keep_alive = _train_head(q, k, v, num_heads, scale, key_valid,
-                                   bias, seed, rate)
+    the keys (its operands as _stream_operand gives them; the scale must
+    be positive)."""
     b, nq, c = q.shape
     if plan is None:
         plan = attention_plan(nq, k.shape[1], c // num_heads, train=True)
+    long = bool(plan.get("long"))
+    if long:
+        q, k, v = (_stream_operand(t) for t in (q, k, v))
+    args, keep_alive = _train_head(q, k, v, num_heads, scale, key_valid,
+                                   bias, seed, rate)
     out = torch.empty((b, nq, c), dtype=torch.float32, device=q.device)
     stats = torch.empty((b * num_heads, nq, 2), dtype=torch.float32,
                         device=q.device)
-    long = bool(plan.get("long"))
     _call("ec_attn_train_fwd_long" if long else "ec_attn_train_fwd", *args,
           out.data_ptr(), out.stride(0), out.stride(1), stats.data_ptr(),
           *_plan_args(plan), _stream())
@@ -849,7 +838,7 @@ def attention_train_fwd(q, k, v, *, num_heads: int, scale: float,
 def attention_train_bwd(q, k, v, dout, stats, *, num_heads: int,
                         scale: float, key_valid=None, bias=None,
                         seed=None, rate: float = 0.0,
-                        need_dbias: bool = True, plan=None):
+                        need_dbias: bool = True, plan=None, out=None):
     """Training attention backward: (dq, dk, dv fp32 [B, N, H*D], dbias
     fp32 [B, H, Nq, Nk] or None when there is no bias or it is not
     needed), with the dropout mask regenerated from `seed`. key_valid:
@@ -857,19 +846,30 @@ def attention_train_bwd(q, k, v, dout, stats, *, num_heads: int,
     H*D] fp32 or bf16 with a unit last stride. Two launches (query-major,
     then key-major: train_bwd_q_kernel and train_bwd_k_kernel, or their
     streaming forms where the plan is long); dq, dk and dv are views of one
-    allocation. `plan` overrides attention_bwd_plan (for measurements)."""
-    args, keep_alive = _train_head(q, k, v, num_heads, scale, key_valid,
-                                   bias, seed, rate)
-    bias = keep_alive[1]
-    _cuda(dout, stats)
+    allocation. `plan` overrides attention_bwd_plan (for measurements).
+    The streaming pair also takes `out`, the forward's fp32 output [B, Nq,
+    H*D] (delta = rowsum(bf16(dout) * out)), and its operands and dout as
+    _stream_operand gives them (dout rounded to bf16 once, as the TPU
+    kernel casts it); the scale must be positive."""
     b, nq, c = q.shape
     nk = k.shape[1]
+    if plan is None:
+        plan = attention_bwd_plan(nq, nk, c // num_heads)
+    long = bool(plan.get("long"))
+    _cuda(q, k, v, dout, stats, out)
     if tuple(dout.shape) != (b, nq, c):
         raise ValueError(f"dout shape {tuple(dout.shape)}")
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
-    if plan is None:
-        plan = attention_bwd_plan(nq, nk, c // num_heads)
+    if long:
+        if out is None or tuple(out.shape) != (b, nq, c) \
+                or out.dtype != torch.float32 or out.stride(-1) != 1:
+            raise ValueError("the streaming backward takes the forward's fp32 "
+                             f"output [{b}, {nq}, {c}] as `out`")
+        q, k, v, dout = (_stream_operand(t) for t in (q, k, v, dout))
+    args, keep_alive = _train_head(q, k, v, num_heads, scale, key_valid,
+                                   bias, seed, rate)
+    bias = keep_alive[1]
     # dq | dk | dv | delta (the row sums the first kernel hands the second)
     nq_el, nk_el = b * nq * c, b * nk * c
     buf = torch.empty(nq_el + 2 * nk_el + b * num_heads * nq,
@@ -880,11 +880,12 @@ def attention_train_bwd(q, k, v, dout, stats, *, num_heads: int,
     delta = buf[nq_el + 2 * nk_el:]
     dbias = None if bias is None or not need_dbias else torch.empty(
         (b, num_heads, nq, nk), dtype=torch.float32, device=q.device)
-    form = "_long" if plan.get("long") else ""
+    form = "_long" if long else ""
+    fwd_out = [out.data_ptr(), out.stride(0), out.stride(1)] if long else []
     _call("ec_attn_train_bwd" + form, *args, dout.data_ptr(), _dt(dout),
-          dout.stride(0), dout.stride(1), stats.data_ptr(), dq.data_ptr(),
-          dk.data_ptr(), dv.data_ptr(), _ptr(dbias), delta.data_ptr(),
-          *_bwd_plan_args(plan), _stream())
+          dout.stride(0), dout.stride(1), stats.data_ptr(), *fwd_out,
+          dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias),
+          delta.data_ptr(), *_bwd_plan_args(plan), _stream())
     launches[f"train_bwd_q{form}_kernel"] += 1
     launches[f"train_bwd_k{form}_kernel"] += 1
     del keep_alive

@@ -550,20 +550,32 @@ class BwdCase(Case):
 
     def kernel_backward(self, plan=None):
         """A function that runs the backward kernels once (the forward ran
-        beforehand and its graph is kept)."""
+        beforehand and its graph is kept) and returns the gradients of
+        q, k, v (and the bias). `plan`: the backward's plan, the kernels
+        called directly after a forward with the matching plan (the
+        streaming one where `plan` streams)."""
         gen = torch.Generator(device=self.q.device).manual_seed(5)
-        out, leaves = self._graph(FA.flash_mha_train, generator=gen)
         if plan is None:
+            out, leaves = self._graph(FA.flash_mha_train, generator=gen)
             return lambda: torch.autograd.grad(out, leaves, self.g,
                                                retain_graph=True)
-        _, stats = K.attention_train_fwd(
-            self.q, self.k, self.v, num_heads=self.h, scale=self.d ** -0.5,
-            key_valid=self.valid, bias=self.bias, rate=0.0)
+        seed = FA.dropout_seed(gen, self.q.device) if self.rate > 0 else None
+        kw = dict(num_heads=self.h, scale=self.d ** -0.5,
+                  key_valid=self.valid, bias=self.bias, seed=seed,
+                  rate=self.rate)
+        fplan = K.attention_plan(self.nq, self.nk, self.d, train=True,
+                                 long=bool(plan.get("long")))
+        out, stats = K.attention_train_fwd(self.q, self.k, self.v,
+                                           plan=fplan, **kw)
         g = self.g.reshape(self.b, self.nq, self.h * self.d)
-        return lambda: K.attention_train_bwd(
-            self.q, self.k, self.v, g, stats, num_heads=self.h,
-            scale=self.d ** -0.5, key_valid=self.valid, bias=self.bias,
-            rate=0.0, plan=plan)
+
+        def run():
+            grads = K.attention_train_bwd(self.q, self.k, self.v, g, stats,
+                                          plan=plan, out=out, **kw)
+            leaves = [self.heads(t) for t in (self.q, self.k, self.v)]
+            return [t.reshape(leaf.shape) for t, leaf in
+                    zip(grads, leaves + [self.bias]) if t is not None]
+        return run
 
     def plain_grads(self):
         keep = None
@@ -616,27 +628,34 @@ class BwdCase(Case):
                                   scores))
 
 
-def run_bwd_case(spec, dev, power, modes=False, full=False) -> dict:
+def run_bwd_case(spec, dev, power, modes=False, full=False,
+                 long=False) -> dict:
     """Checks and times the backward of one training shape; returns its
-    numbers and prints its line. full: also the plain version's time, each
-    kernel's device time (`by_kernel`), each gradient's worst difference
-    (`errs`) and each kernel's own bound (`part_bounds`)."""
+    numbers and prints its line: every gradient within ATOL + RTOL |plain|
+    and MEAN_TOL on the mean, finite, and the same bits from two calls.
+    full: also the plain version's time, each kernel's device time
+    (`by_kernel`), each gradient's worst difference (`errs`) and each
+    kernel's own bound (`part_bounds`). long: the streaming pair forced
+    (called directly, after the streaming forward)."""
     case = BwdCase(spec, dev)
-    run = case.kernel_backward()
+    forced = K.attention_bwd_plan(case.nq, case.nk, case.d, long=True) \
+        if long else None
+    run = case.kernel_backward(plan=forced)
     grads = run()
     ref = case.plain_grads()
     torch.cuda.synchronize()
-    errs, excess, finite = {}, -1.0, True
+    errs, means, excess, finite = {}, {}, -1.0, True
     for name, a, r in zip(("dq", "dk", "dv", "dbias"), grads, ref):
         diff = (a.float() - r.float()).abs()
         errs[name] = diff.max().item()
+        means[name] = diff.mean().item()
         excess = max(excess, (diff - (ATOL + RTOL * r.float().abs())).max()
                      .item())
         finite = finite and bool(torch.isfinite(a).all())
     err = max(errs.values())
     again = run()
     same = all(torch.equal(a, b) for a, b in zip(grads, again))
-    ok = excess <= 0 and finite and same
+    ok = excess <= 0 and max(means.values()) <= MEAN_TOL and finite and same
     dev_ms, n_kern, wall_ms, count_from = per_call(run)
     wrap_ms = time_ms(run)
     plain_ms = (time_ms(case.plain_grads, reps=3, warmup=1) if full
@@ -645,13 +664,14 @@ def run_bwd_case(spec, dev, power, modes=False, full=False) -> dict:
     sdpa_dev_ms, _, sdpa_wall = device_ms(sdpa)
     sdpa_ms = time_ms(sdpa)
     bnd, by = case.bound_ms()
-    plan, other = K.attention_bwd_plan(case.nq, case.nk, case.d), ""
-    if modes and plan["one_pass"]:
+    plan, other = forced or K.attention_bwd_plan(case.nq, case.nk,
+                                                 case.d), ""
+    if modes and plan["one_pass"] and not plan.get("long"):
         alt = K.attention_bwd_plan(case.nq, case.nk, case.d,
                                    chunk_tiles=K.ATT_CH16)
         two_t = device_ms(case.kernel_backward(plan=alt))
         one_t = device_ms(case.kernel_backward(plan=plan))
-        other = (f" (kernels alone at rate 0: one pass "
+        other = (f" (kernels alone: one pass "
                  f"{ms_text(one_t[0], one_t[2])}, two passes "
                  f"{ms_text(two_t[0], two_t[2])})")
     row = {"name": case.name + ", backward",
@@ -661,13 +681,14 @@ def run_bwd_case(spec, dev, power, modes=False, full=False) -> dict:
            "count_from": count_from, "wrapper_ms": wrap_ms,
            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
            "sdpa_ms": sdpa_ms, "sdpa_device_ms": sdpa_dev_ms, "plan": plan,
-           "bit_equal": same}
+           "bit_equal": same, "mean_abs_err": max(means.values())}
     if full:
         row.update(by_kernel=kernel_ms(run), errs=errs,
                    part_bounds={p: case.bound_ms(p) for p in ("q", "k")})
     print(f"[op] attention {row['name']}: [B {case.b}, Nq {case.nq}, Nk "
           f"{case.nk}, H {case.h}, D {case.d}] max_abs_err {err:.4g} (tol "
-          f"{ATOL} + {RTOL:.4g}*|ref|; worst excess {excess:.3g}; two runs "
+          f"{ATOL} + {RTOL:.4g}*|ref|; worst excess {excess:.3g}; mean "
+          f"{max(means.values()):.3g}, tol {MEAN_TOL}; two runs "
           f"bit-equal {same}) {ms_text(dev_ms, wall_ms)} in {n_kern} "
           f"kernel(s) per call (by {count_from}), wrapper {wrap_ms:.4f} ms, "
           f"{plain_text(plain_ms)}bound {bnd:.4f} ms ({by}), SDPA "

@@ -1405,27 +1405,65 @@ def test_long_attention_matches_plain(dev, shape):
                                             (7, 64, True, False)])
 def test_long_attention_is_the_two_pass_form_bit_for_bit(dev, nk, d, mask,
                                                          bias):
-    """Forced at a shape the resident kernels take, the streaming training
-    pair gives the bits of their two-pass form (the same chunks in the
-    same order), statistics and gradients included. (attn_long_kernel is
-    one pass with the online softmax and rounds elsewhere: its checks are
-    the two tests below.)"""
+    """The streaming training kernels forced at a shape the resident
+    kernels take. (Named for the two-pass form they had before their
+    one-pass redesign, whose bits were the resident kernels'; one pass
+    rounds p elsewhere, so this holds three other things.) The forward
+    and the gradients match autograd through the plain version to the
+    kernels' bound; two calls give the same bits; a row's output,
+    statistics and dq, and a key's dk and dv, keep their bits in either
+    half of the batch, and a query's output, statistics and dq with the
+    first queries cut off."""
+    from edgecape_tpu_torch.ops import flash_attention as FA
     from edgecape_tpu_torch.ops import kernels as K
     h, nq = 4, nk
     q, k, v, valid, bt = _attn_operands(dev, 2, nq, nk, h, d, torch.bfloat16,
                                         mask, bias, seed=nk)
     g = _rn(dev, 2, nq, h * d, seed=3)
-    res = []
-    for kw in ({"chunk_tiles": K.ATT_CH16}, {"long": True}):
+
+    def run(sel=slice(None), qsel=slice(None)):
+        qs, ks, vs, gs = q[sel][:, qsel], k[sel], v[sel], g[sel][:, qsel]
+        n = qs.shape[1]
+        kv = None if valid is None else valid[sel]
+        bs = None if bt is None else bt[sel][:, :, qsel]
+        kw = dict(num_heads=h, scale=d ** -0.5, key_valid=kv, bias=bs)
         o, st = K.attention_train_fwd(
-            q, k, v, num_heads=h, scale=d ** -0.5, key_valid=valid, bias=bt,
-            plan=K.attention_plan(nq, nk, d, train=True, **kw))
+            qs, ks, vs, plan=K.attention_plan(n, nk, d, train=True,
+                                              long=True), **kw)
         grads = K.attention_train_bwd(
-            q, k, v, g, st, num_heads=h, scale=d ** -0.5, key_valid=valid,
-            bias=bt, plan=K.attention_bwd_plan(nq, nk, d, **kw))
-        res.append([o, st] + [x for x in grads if x is not None])
-    for a, b in zip(*res):
-        assert torch.equal(a, b)
+            qs, ks, vs, gs, st, out=o,
+            plan=K.attention_bwd_plan(n, nk, d, long=True), **kw)
+        b = qs.shape[0]
+        return [o, st.reshape(b, h, n, 2)] + [x for x in grads
+                                              if x is not None]
+
+    before = dict(K.launches)
+    whole = run()
+    assert K.launches["train_fwd_long_kernel"] \
+        == before["train_fwd_long_kernel"] + 1
+    assert K.launches["train_bwd_q_long_kernel"] \
+        == before["train_bwd_q_long_kernel"] + 1
+    assert K.launches["train_bwd_k_long_kernel"] \
+        == before["train_bwd_k_long_kernel"] + 1
+    # against the plain version
+    heads = [t.reshape(2, -1, h, d) for t in (q, k, v, g)]
+    ref, rgrads = _grads(FA.flash_mha_train_plain, *heads, valid,
+                         None if bt is None else bt.float())
+    _close(whole[0], ref.reshape(whole[0].shape))
+    for a, r in zip(whole[2:], rgrads):
+        _close(a.reshape(r.shape), r)
+    # two calls, the same bits
+    assert all(torch.equal(a, b) for a, b in zip(run(), whole))
+    # each half of the batch alone: the same rows (dk, dv: the same keys)
+    for half in (slice(0, 1), slice(1, 2)):
+        for a, b in zip(run(half), whole):
+            assert torch.equal(a, b[half])
+    # the first queries cut off: the same output, statistics and dq rows
+    if nq > 5:
+        cut = run(qsel=slice(5, None))
+        assert torch.equal(cut[0], whole[0][:, 5:])
+        assert torch.equal(cut[1], whole[1][:, :, 5:])
+        assert torch.equal(cut[2], whole[2][:, 5:])
 
 
 @pytest.mark.parametrize("nk,d,mask,bias", [(356, 32, True, False),
@@ -1494,6 +1532,42 @@ def test_long_train_matches_plain(dev, n, h, d, masked, with_bias):
         d_ = (a - r).abs()
         assert bool(torch.isfinite(a).all())
         assert d_.max().item() <= 5e-3 + 2 ** -6 * r.abs().max().item()
+
+
+@pytest.mark.parametrize("nq,nk", [(600, 600), (1, 600), (600, 1)])
+def test_long_train_masked_rows_and_edge_counts(dev, nq, nk):
+    """The streaming training kernels forced (600 tokens stream anyway),
+    rate 0.1, with a bias: a batch whose keys are all masked gives a zero
+    output and zero, finite gradients; the other batch matches the plain
+    version fed dropout_mask(seed), down to one query or one key."""
+    from edgecape_tpu_torch.ops import flash_attention as FA
+    from edgecape_tpu_torch.ops import kernels as K
+    b, h, d, rate = 2, 2, 32, 0.1
+    q = _rn(dev, b, nq, h * d, seed=1)
+    k, v = _rn(dev, b, nk, h * d, seed=2), _rn(dev, b, nk, h * d, seed=3)
+    g = _rn(dev, b, nq, h * d, seed=4)
+    bias = _rn(dev, b, h, nq, nk, seed=5)
+    valid = torch.ones(b, nk, dtype=torch.bool, device=dev)
+    valid[1] = False
+    seed = FA.dropout_seed(torch.Generator(device=dev).manual_seed(5), dev)
+    kw = dict(num_heads=h, scale=d ** -0.5, key_valid=valid, bias=bias,
+              seed=seed, rate=rate)
+    o, st = K.attention_train_fwd(
+        q, k, v, plan=K.attention_plan(nq, nk, d, train=True, long=True),
+        **kw)
+    grads = K.attention_train_bwd(
+        q, k, v, g, st, out=o, plan=K.attention_bwd_plan(nq, nk, d,
+                                                         long=True), **kw)
+    assert bool((o[1] == 0).all())
+    for t in grads:
+        assert bool(torch.isfinite(t).all()) and bool((t[1] == 0).all())
+    keep = K.dropout_mask(seed, rate, b * h, nq, nk).reshape(b, h, nq, nk)
+    heads = [t.reshape(b, -1, h, d) for t in (q, k, v, g)]
+    ref, rgrads = _grads(FA.flash_mha_train_plain, *heads, valid, bias,
+                         dropout_rate=rate, keep=keep)
+    _close(o[0], ref[0].reshape(o[0].shape))
+    for a, r in zip(grads, rgrads):
+        _close(a[0].reshape(r[0].shape), r[0])
 
 
 def test_long_train_dropout_mask_is_the_mask_of_its_seed(dev):

@@ -10,17 +10,25 @@ attn_long_kernel's emulation (emulate_forward_online) keeps its one pass:
 key tiles of 128 in order, each row's running max in base 2 and its
 quad's running sums, the unnormalised p rounded to bf16 for P.V, the
 output rescaled when the max grows and divided by the sum at the end.
-The training kernels' emulations keep the two-pass form: 32-key chunks
-of a warp's scores, per-lane running max and exp-sum over them (a lane
-holds four neighbouring keys of each 16-key block), joined over the
-quad; a second pass that normalises by the final sum before the bf16
-rounding of the probabilities and adds P.V 16 keys at a time in fp32;
-keys arriving in tiles of LONG_TILE, queries of the key-major backward
-likewise. Tolerances:
+train_fwd_long_kernel is the same pass with an fp32 output and the rows'
+statistics (emulate_forward_online with `train`). The streaming backward
+pair's emulation (emulate_backward) keeps its order: delta =
+rowsum(bf16(do) * O) up front from the forward's fp32 output, then the
+query-major kernel's 64-key tiles (p from the statistics, ds = p (dp -
+delta), dq += bf16(ds) K a tile at a time in fp32) and the key-major
+kernel's 64-query tiles (dv += bf16(p)^T do, dk += bf16(ds)^T q). The
+resident kernels' two-pass form (emulate_forward: 32-key chunks of a
+warp's scores, per-lane running max and exp-sum over them, a lane holding
+four neighbouring keys of each 16-key block, joined over the quad; a
+second pass that normalises by the final sum before the bf16 rounding of
+the probabilities and adds P.V 16 keys at a time in fp32) is held at the
+lengths they take. Tolerances:
 
-* the one-pass emulation against the plain attention and JAX flash_mha
-  in interpret mode: see test_online_forward_emulation_matches_plain_and_jax
-  (another rounding point of p: one bf16 ulp of the largest output);
+* the one-pass emulations against the plain attention and JAX flash_mha /
+  _flash_train_fwd in interpret mode: see
+  test_online_forward_emulation_matches_plain_and_jax and
+  test_forward_emulation_matches_plain_and_jax (another rounding point of
+  p: one bf16 ulp of the largest output);
 * the two-pass emulation against the plain attention and against JAX
   flash_mha in interpret mode (the same bf16 operands and rounding
   points, softmax summed in another order): the probabilities before
@@ -30,10 +38,10 @@ likewise. Tolerances:
   boundary may round the other way; measured a quarter of it) and 1e-5
   on the mean (measured 1.6e-7);
 * the training forward's statistics against fp64: 1e-6 relative
-  (measured 5e-7); its output and the backward's dq, dk, dv against the
-  JAX pair in interpret mode: 5e-4 absolute on values of order 1 (the
-  flipped roundings above; measured 1.7e-4), dbias (fp32, no rounding of
-  its own) 1e-5 (measured 6e-7);
+  (measured 5e-7); the backward's dq, dk, dv and dbias against the plain
+  version's autograd and the JAX pair in interpret mode: 1e-2 + 2^-6
+  |ref|, the bound the card's checks hold the kernels to (another delta
+  and rounding point of p);
 * the training route: see test_training_rows_above_512_take_the_fp32_plain_path.
 """
 
@@ -54,6 +62,7 @@ from edgecape_tpu.ops import flash_attention as jflash
 from edgecape_tpu_torch.config import ModelConfig
 from edgecape_tpu_torch.models import convert as tconvert
 from edgecape_tpu_torch.models import transformer as ttransformer
+from edgecape_tpu_torch.ops import flash_attention as FA
 from edgecape_tpu_torch.ops import kernels as K
 from edgecape_tpu_torch.ops import plain
 
@@ -116,18 +125,13 @@ def test_plans_up_to_the_caps_are_unchanged(kind):
         assert "long" not in K.vit_attn_plan(2, n, 384, 6)
 
 
-def _long_smem(d, warps, per_warp, query_stage):
-    """The shared memory csrc/attn_long.cu lays out: a ring of two stages
-    of 64 rows (k and v with the key mask, or q and do with 16 bytes of
-    statistics) and `per_warp` 16-row tiles a warp."""
-    kld = d + 8
-    stage = 4 * 64 * kld + (16 if query_stage else 4) * 64
-    return 2 * stage + 32 * per_warp * warps * kld
-
-
-def _covers(split, warps, n):
-    tiles = -(-n // 16)
-    return (split - 1) * warps < tiles <= split * warps
+def _bwd_smem(d):
+    """The shared memory the streaming backward pair lays out: 1024 bytes
+    to align the tiles on, two item slots of two 128-row operands, a ring
+    of four stages of two 64-row tiles and 1024 bytes of side data (the
+    key mask, or the queries' statistics), 128 bytes of barriers."""
+    row = 2 * d
+    return 1024 + 2 * 2 * 128 * row + 4 * (2 * 64 * row + 1024) + 128
 
 
 def _stream_smem(d):
@@ -143,40 +147,39 @@ def _stream_smem(d):
 @pytest.mark.parametrize("d", [32, 64])
 def test_long_plans_above_the_caps(nk, d):
     """Above 512 keys the streaming plans. The eval forward's
-    (attn_long_kernel): one pass, items of 128 query rows a (batch, head),
+    (attn_long_kernel) and the training forward's (train_fwd_long_kernel,
+    the same body): one pass, items of 128 query rows a (batch, head),
     blocks of 12 warps (two consumer warpgroups and the producer's), key
     tiles of 128 through a ring of 4, shared memory as the kernel lays it
-    out and within the card's limit. The training forward's: every query
-    tile in one block of at most 8 warps and two passes, as before; a
-    cross-attention of 100 queries too."""
+    out and within the card's limit; a cross-attention of 100 queries
+    too. The backward pair's: items of 128 query rows (keys for the
+    key-major kernel) with 64-row tiles of the other side streamed
+    through a ring of 4, blocks of 12 warps."""
     for nq in (1, 100, 128, 129, nk):
         plan = K.attention_plan(nq, nk, d)
         assert plan == {"long": True, "q_split": -(-nq // 128), "warps": 12,
                         "one_pass": True, "smem_bytes": _stream_smem(d),
                         "key_tiles": -(-nk // 128), "stages": 4}
         assert plan["smem_bytes"] <= SMEM_LIMIT
-        train = K.attention_plan(nq, nk, d, train=True)
-        assert train["long"] and not train["one_pass"]
-        assert train["chunk_tiles"] == K.ATT_CH16
-        assert train["key_tiles"] == -(-nk // 16)
-        assert 1 <= train["warps"] <= 8 and _covers(train["q_split"],
-                                                    train["warps"], nq)
-        assert train["smem_bytes"] == _long_smem(d, train["warps"], 1, False)
-        assert train["smem_bytes"] <= SMEM_LIMIT
-    bwd = K.attention_bwd_plan(nk, nk, d)
-    assert bwd["long"]
-    for side, n in (("q", nk), ("k", nk)):
-        warps = bwd[f"{side}_warps"]
-        assert 1 <= warps <= 8 and _covers(bwd[f"{side}_split"], warps, n)
-        assert bwd[f"{side}_smem_bytes"] == _long_smem(d, warps, 2,
-                                                       side == "k")
-        assert bwd[f"{side}_smem_bytes"] <= SMEM_LIMIT
+        assert K.attention_plan(nq, nk, d, train=True) == plan
+        bwd = K.attention_bwd_plan(nq, nk, d)
+        assert bwd == {"long": True, "q_split": -(-nq // 128),
+                       "q_warps": 12, "one_pass": True,
+                       "q_smem_bytes": _bwd_smem(d),
+                       "k_split": -(-nk // 128), "k_warps": 12,
+                       "k_smem_bytes": _bwd_smem(d),
+                       "q_tiles": -(-nq // 64), "key_tiles": -(-nk // 64),
+                       "stages": 4}
+        assert bwd["q_smem_bytes"] <= SMEM_LIMIT
+    # the backward streams wherever either side is past the cap
+    assert K.attention_bwd_plan(nk, 100, d)["k_split"] == 1
     # the forcing argument runs them at a short shape; chunk_tiles forces
     # the resident kernels, which do not hold these rows
     assert K.attention_plan(356, 356, d, long=True) == K.attention_plan(
         356, nk, d) | {"q_split": 3, "key_tiles": 3}
-    assert not K.attention_plan(356, 356, d, train=True,
-                                long=True)["one_pass"]
+    assert K.attention_plan(356, 356, d, train=True,
+                            long=True) == K.attention_plan(356, 356, d,
+                                                           long=True)
     assert K.attention_bwd_plan(100, 100, d, long=True)["long"]
     with pytest.raises(ValueError):
         K.attention_plan(100, nk, d, chunk_tiles=K.ATT_CH16)
@@ -301,9 +304,10 @@ def _pv(p, v, tile):
 
 
 def emulate_forward(q, k, v, *, scale, kb, bias=None, tile=64):
-    """train_fwd_long_kernel at rate 0 for one head (the two-pass form):
-    (probabilities before their bf16 rounding [Nq, Nk_padded], output
-    fp32, row max in base e, reciprocal exp-sum)."""
+    """The resident training forward (train_fwd_kernel) at rate 0 for one
+    head in its two-pass form, its 32-key chunks met `tile` keys at a
+    time: (probabilities before their bf16 rounding [Nq, Nk_padded],
+    output fp32, row max in base e, reciprocal exp-sum)."""
     s2 = _scores2(q, k, scale, kb, bias)
     m, total = _pass1(s2, tile)
     z = torch.where(m == -math.inf, torch.zeros_like(m), m)
@@ -315,7 +319,7 @@ def emulate_forward(q, k, v, *, scale, kb, bias=None, tile=64):
 KEY_TILE = 128      # keys of attn_long_kernel's streamed tile
 
 
-def emulate_forward_online(q, k, v, *, scale, kb, bias=None):
+def emulate_forward_online(q, k, v, *, scale, kb, bias=None, train=False):
     """attn_long_kernel for one head: one pass over key tiles of KEY_TILE
     in order; a row's running max (base 2) and its quad's four running
     sums (lane t adds keys 8 J + 2 t and + 1 of a tile, J in order); p =
@@ -324,7 +328,9 @@ def emulate_forward_online(q, k, v, *, scale, kb, bias=None):
     output multiplied by the reciprocal and rounded to bf16 once (the
     kernel fuses the scale into the exponent's fma on unmasked tiles: the
     same up to fp32 rounding). Returns [Nq, D] fp32 holding bf16 values
-    (0 for a fully masked row)."""
+    (0 for a fully masked row). `train`: train_fwd_long_kernel at rate 0,
+    the same pass with the output kept in fp32: (output, row max in base
+    e, reciprocal sum)."""
     s2 = _scores2(q, k, scale, kb, bias)
     nq, nk = s2.shape
     m = torch.full((nq,), -math.inf)
@@ -349,6 +355,8 @@ def emulate_forward_online(q, k, v, *, scale, kb, bias=None):
         m = mn
     total = (lanes[:, 0] + lanes[:, 1]) + (lanes[:, 2] + lanes[:, 3])
     inv = torch.where(total > 0, 1.0 / total, torch.zeros_like(total))
+    if train:
+        return o * inv[:, None], m * LN2, inv
     return _bf(o * inv[:, None])
 
 
@@ -408,26 +416,35 @@ def test_online_forward_fully_masked_row_is_zero():
     assert torch.equal(out[rows], want[rows])
 
 
-def emulate_backward(q, k, v, do, m, inv, *, scale, kb, bias=None, tile=64):
+BWD_TILE = 64       # keys (queries) of the backward pair's streamed tiles
+
+
+def emulate_backward(q, k, v, do, o, m, inv, *, scale, kb, bias=None):
     """train_bwd_q_long_kernel then train_bwd_k_long_kernel at rate 0 for
-    one head: (dq, dk, dv, dbias). The query-major kernel streams the keys
-    (pass 1 delta, pass 2 ds, dbias, dq), the key-major one the queries."""
+    one head: (dq, dk, dv, dbias). do: bf16 values; o: the forward's fp32
+    output; m, inv: its statistics. delta = rowsum(do * o) up front; p =
+    2^(s log2(e) scale - max + mask + log2(e) bias) * inv from the
+    statistics (no running max), ds = p (dp - delta); the query-major
+    kernel adds dq += bf16(ds) K over 64-key tiles in order, the
+    key-major one dv += bf16(p)^T do and dk += bf16(ds)^T q over 64-query
+    tiles in order, all in fp32; dq and dk scaled once at the end."""
     nq, nk = q.shape[0], k.shape[0]
-    s2 = _scores2(q, k, scale, kb, bias)
+    delta = (do * o).sum(1)
     z = m * LOG2E
     z = torch.where(z == -math.inf, torch.zeros_like(z), z)
-    p = torch.exp2(s2 - z[:, None]) * inv[:, None]
-    dp = do @ v.T
-    delta = torch.zeros(nq)
-    for t0 in range(0, nk, tile):
-        delta = delta + (p[:, t0:t0 + tile] * dp[:, t0:t0 + tile]).sum(1)
-    ds = p * (dp - delta[:, None])
+    sc2 = torch.tensor(scale, dtype=torch.float32) * torch.tensor(
+        LOG2E, dtype=torch.float32)
+    x = (q @ k.T) * sc2 - z[:, None] + kb[None, :]
+    if bias is not None:
+        x = x + bias * LOG2E
+    p = torch.exp2(x) * inv[:, None]
+    ds = p * (do @ v.T - delta[:, None])
     dq = torch.zeros_like(q)
-    for t0 in range(0, nk, tile):
-        dq = dq + _bf(ds[:, t0:t0 + tile]) @ k[t0:t0 + tile]
+    for t0 in range(0, nk, BWD_TILE):
+        dq = dq + _bf(ds[:, t0:t0 + BWD_TILE]) @ k[t0:t0 + BWD_TILE]
     dk, dv = torch.zeros_like(k), torch.zeros_like(v)
-    for t0 in range(0, nq, tile):
-        rows = slice(t0, t0 + tile)
+    for t0 in range(0, nq, BWD_TILE):
+        rows = slice(t0, t0 + BWD_TILE)
         dv = dv + _bf(p[rows]).T @ do[rows]
         dk = dk + _bf(ds[rows]).T @ q[rows]
     return dq * scale, dk * scale, dv, ds
@@ -450,9 +467,66 @@ def _head(t, i):
     return _bf(torch.from_numpy(np.ascontiguousarray(t[0, :, i])))
 
 
+def _within_a_top_ulp(got, want):
+    """|got - want| within one bf16 ulp of want's largest value."""
+    top = want.abs().max().item()
+    diff = (got - want).abs()
+    assert diff.max().item() <= 2.0 ** (math.floor(math.log2(top)) - 7)
+    return diff
+
+
+def _gradient_close(got, want, what):
+    """The card's bound of every kernel op: 1e-2 + 2^-6 |want|."""
+    want = torch.as_tensor(np.asarray(want, np.float32))
+    excess = (got - want).abs() - (1e-2 + 2.0 ** -6 * want.abs())
+    assert excess.max().item() <= 0, what
+
+
 @pytest.mark.parametrize("nk", [600, 1469])
 @pytest.mark.parametrize("d", [32, 64])
 def test_forward_emulation_matches_plain_and_jax(nk, d):
+    """train_fwd_long_kernel's one pass at rate 0 (emulate_forward_online
+    with `train`: 128-key tiles, the unnormalised p rounded to bf16, an fp32
+    output) against the plain version (flash_mha_train_plain: p
+    normalised before its rounding) and JAX _flash_train_fwd in interpret
+    mode: the outputs within one bf16 ulp of the largest (as attn_long_
+    kernel's; measured 0.36-0.51 of it) and 3e-4 on the mean (measured
+    0.9-1.4e-4); the statistics (max in base e, 1 / sum) within 1e-6 of
+    fp64."""
+    nq, h = 40, 2
+    q, k, v, valid = _operands(nk + d, nq, nk, h, d)
+    kb = plain.key_bias(torch.from_numpy(valid))[0]
+    scale = 1.0 / math.sqrt(d)
+    outs = []
+    for i in range(h):
+        qi, ki, vi = _head(q, i), _head(k, i), _head(v, i)
+        o, m, inv = emulate_forward_online(qi, ki, vi, scale=scale, kb=kb,
+                                           train=True)
+        outs.append(o)
+        s = (qi.double() @ ki.double().T) * scale + kb.double()
+        m64 = s.amax(dim=1)
+        np.testing.assert_allclose(m.numpy(), m64.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(
+            inv.numpy(), (1.0 / torch.exp(s - m64[:, None]).sum(1)).numpy(),
+            rtol=1e-6)
+    emu = torch.stack(outs, dim=1)[None]                # [1, Nq, H, D]
+    ref = flash_train_plain(q, k, v, valid)[0].detach()
+    jout, _ = jflash._flash_train_fwd(
+        *(jnp.asarray(t) for t in (q, k, v)), jnp.asarray(valid), None,
+        jnp.zeros((1,), jnp.int32), 0.0, False, True)
+    for want in (ref, torch.from_numpy(np.asarray(jout, np.float32))):
+        diff = _within_a_top_ulp(emu, want)
+        assert diff.mean().item() <= 3e-4
+
+
+@pytest.mark.parametrize("nk", [356, 512])
+@pytest.mark.parametrize("d", [32, 64])
+def test_resident_two_pass_emulation_matches_plain_and_jax(nk, d):
+    """The resident kernels' two-pass form (emulate_forward) against the
+    plain attention, torch's softmax and JAX flash_mha in interpret mode,
+    at key counts they hold; its chunks met in tiles of 32, 64 or 128 keys
+    give the same bits."""
     nq, h = 40, 2
     q, k, v, valid = _operands(nk + d, nq, nk, h, d)
     kb = plain.key_bias(torch.from_numpy(valid))[0]
@@ -490,10 +564,33 @@ def test_forward_emulation_matches_plain_and_jax(nk, d):
         assert diff.mean().item() <= 1e-5
 
 
+def flash_train_plain(q, k, v, valid, bias=None, g=None):
+    """The plain version (flash_mha_train_plain) on [1, N, H, D] numpy
+    arrays: (output, and with `g` the gradients dq, dk, dv[, dbias] of
+    sum(output * g))."""
+    leaves = [torch.from_numpy(t).requires_grad_(g is not None)
+              for t in (q, k, v)]
+    bt = None if bias is None else torch.from_numpy(bias).requires_grad_(
+        g is not None)
+    out = FA.flash_mha_train_plain(*leaves, torch.from_numpy(valid), bt)
+    if g is None:
+        return out, None
+    grads = torch.autograd.grad(out, leaves + ([bt] if bt is not None
+                                               else []), torch.from_numpy(g))
+    return out.detach(), grads
+
+
 def test_training_emulation_matches_jax_pair():
-    """The training forward's statistics against fp64, its output and the
-    backward's gradients (with a bias) against _flash_train_fwd /
-    _flash_train_bwd in interpret mode, rate 0, 600 tokens."""
+    """The training pair's one-pass order (emulate_forward_online with
+    `train`, then emulate_backward: delta from the fp32 output, the
+    backward kernels' 64-row tiles) at rate 0, 600 tokens, with a bias:
+    the output within one bf16 ulp of the largest (measured 1.9e-3) and
+    the gradients dq, dk, dv and dbias within 1e-2 + 2^-6 |ref| of the
+    plain version's autograd and of _flash_train_fwd / _flash_train_bwd
+    in interpret mode, the card's bound (measured 1.3e-3 on dq and dk,
+    3.4e-4 on dv, 1.9e-4 on dbias: delta from the output and the
+    unnormalised p's rounding move them past the two-pass order's 5e-4);
+    the statistics within 1e-6 of fp64."""
     n, h, d = 600, 2, 32
     q, k, v, valid = _operands(3, n, n, h, d)
     rng = np.random.default_rng(4)
@@ -509,12 +606,13 @@ def test_training_emulation_matches_jax_pair():
     jgrads = jflash._flash_train_bwd(0.0, True, True, res, jnp.asarray(g))
     jgrads = [np.asarray(x, np.float32) for x in
               (jgrads[0], jgrads[1], jgrads[2], jgrads[4])]
-    tol = dict(atol=5e-4, rtol=0)
+    pout, pgrads = flash_train_plain(q, k, v, valid, bias, g)
+    pgrads = [x.numpy() for x in pgrads]
     for i in range(h):
         qi, ki, vi = _head(q, i), _head(k, i), _head(v, i)
         bi = torch.from_numpy(bias[0, i])
-        _, o, m, inv = emulate_forward(qi, ki, vi, scale=scale, kb=kb,
-                                       bias=bi)
+        o, m, inv = emulate_forward_online(qi, ki, vi, scale=scale, kb=kb,
+                                           bias=bi, train=True)
         # statistics: the row max (base e) and 1 / exp-sum in fp64
         s = (qi.double() @ ki.double().T) * scale + kb.double() \
             + bi.double()
@@ -523,18 +621,18 @@ def test_training_emulation_matches_jax_pair():
         np.testing.assert_allclose(m.numpy(), m64.numpy(), rtol=1e-6,
                                    atol=1e-6)
         np.testing.assert_allclose(inv.numpy(), inv64.numpy(), rtol=1e-6)
-        np.testing.assert_allclose(o.numpy(), np.asarray(jout)[0, :, i],
-                                   **tol)
+        for want in (pout[0, :, i],
+                     torch.from_numpy(np.asarray(jout, np.float32)[0, :, i])):
+            _within_a_top_ulp(o, want)
         doi = _bf(torch.from_numpy(np.ascontiguousarray(g[0, :, i])))
-        dq, dk, dv, ds = emulate_backward(qi, ki, vi, doi, m, inv,
+        dq, dk, dv, ds = emulate_backward(qi, ki, vi, doi, o, m, inv,
                                           scale=scale, kb=kb, bias=bi)
-        for name, got, want in (("dq", dq, jgrads[0][0, :, i]),
-                                ("dk", dk, jgrads[1][0, :, i]),
-                                ("dv", dv, jgrads[2][0, :, i])):
-            np.testing.assert_allclose(got.numpy(), want, err_msg=name,
-                                       **tol)
-        np.testing.assert_allclose(ds.numpy(), jgrads[3][0, i], atol=1e-5,
-                                   rtol=0, err_msg="dbias")
+        for ref, who in ((jgrads, "jax"), (pgrads, "plain")):
+            for name, got, want in (("dq", dq, ref[0][0, :, i]),
+                                    ("dk", dk, ref[1][0, :, i]),
+                                    ("dv", dv, ref[2][0, :, i]),
+                                    ("dbias", ds, ref[3][0, i])):
+                _gradient_close(got, want, f"{name} against {who}")
 
 
 # ---------------------------------------------------------------- routing
