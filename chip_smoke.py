@@ -58,12 +58,25 @@ Phases (any failure exits non-zero before the last line):
    busy share of that chunk's wall time. The `[path]` line also prints
    every kernel the path launched with its count beside MAIN_PATH_KERNELS
    (what the path launched before the streaming kernels existed) and
-   fails if they differ or a streaming kernel ran. Then a head of d_model 128
-   in 4 heads over a two-block ViT-S/14, asked for on the card with the
-   kernels on, must be refused when it is built, naming the ops whose
-   kernels do not take 128 channels, with no kernel launched, and the
-   stage-3 widths in bf16 must be taken at 224, 256 and 518 px
-   (`[widths]`);
+   fails if they differ or a streaming kernel ran. Then `[widths]`
+   (width_check): a ViT-B/14 trunk and a head of d_model 1024, asked for on
+   the card with the kernels on, must be refused when they are built,
+   naming the ops whose kernels do not take them, with no kernel launched,
+   and the stage-3 widths in bf16 must be taken at 224, 256 and 518 px;
+   the head_wide.cu kernels (enc_post_wide_kernel, dec_post_self_wide_kernel,
+   dec_post_cross_wide_kernel, kpt_head_wide_kernel, bias_attn_wide_kernel)
+   and the attention at padded head dims (25, 50) and at head dim 128,
+   eval and training, each against its plain version at the 200 / 8 /
+   300 and 512 / 8 / 1024 widths (`[op]` lines: device, plain, bound and
+   library ms; tools/bench_attention.py WIDTH_SHAPES); then the stage-3
+   model at 224 px, K 100, at six head widths (WIDTHS: d_model 128 to 512,
+   4 to 16 heads, head dims 16 to 128), the decoder stack off and on: one
+   cached chunk of 4 x 15 queries each, the head's kernels counted as the
+   path implies with no plain version and no thread-copy GEMM run, the
+   predictions against the plain path; 2 stage-3 Trainer steps of 8 rows,
+   one step's gradients against the training attention's plain version
+   (and, for information, against the fp32 plain path), the training
+   attention's launches counted; the phase's seconds;
 4. the training path: the port's Trainer (stage 3: learned skeleton,
    Markov bias, masked supervision, skeleton frozen; full ViT-S/14,
    K=100, 224 px, 64x64 heatmaps, batch 16, dropout 0.1, fp32 head over
@@ -230,12 +243,14 @@ Phases (any failure exits non-zero before the last line):
    the path of that shape, and a streaming kernel's `launches` (also
    `long_launches`) its count on the 518 px eval (attn_long_kernel,
    switches off) or on phase 17's direct flash_mha_train call (the
-   training kernels).
+   training kernels); a `[widths]` entry's `launches` its kernels' count
+   over that phase's model runs (`width_kernels`).
 Nothing here imports jax or the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import math
@@ -1246,43 +1261,466 @@ def gemm_checks(dev, entries, power):
     entries["fused_vit_block"]["gemm_shapes"] = rows
 
 
-def width_check(dev, power):
-    """A head of d_model 128 in 4 heads (num_feats 64) over a two-block
-    ViT-S/14, asked for on the card with use_flash on: the post-attention
-    kernels take 256 channels, so building the estimator raises ValueError
-    (ops/kernel_config.py require_widths) naming the encoder stack, the
-    decoder layer and the decoder stack with the width, before anything
-    is built or launched: no forward pass raises half way. The main path's
-    stage-3 widths were built without raising."""
-    from edgecape_tpu_torch.api import PoseEstimator
-    from edgecape_tpu_torch.config import Config, ModelConfig
-    from edgecape_tpu_torch.models.dinov2 import DinoV2Config
+# ------------------------------------------------------------ [widths]
+# The head widths (d_model, nhead, dim_feedforward) the [widths] phase runs
+# the stage-3 model at, each with num_feats = d_model / 2 and its head
+# dims (self-attention d_model / nhead, cross-attention twice that): 16 /
+# 32, 25 / 50 (every padding), 64 / 128, 48 / 96, 32 / 64 in 16 heads,
+# and 64 / 128 at 512 channels (no head of 512 channels has a
+# self-attention head dim of 128 within the range: its cross-attention's
+# would be 256).
+WIDTHS = [(128, 8, 256), (200, 8, 300), (256, 4, 512), (384, 8, 768),
+          (512, 16, 1024), (512, 8, 1024)]
+# the widths of the phase's kernel op lines
+WIDTH_OPS = [(200, 8, 300), (512, 8, 1024)]
+# an eval chunk of WIDTH_GROUPS x QUERIES queries; WIDTH_STEPS stage-3
+# Trainer steps of WIDTH_ROWS rows (dropout 0)
+WIDTH_GROUPS, WIDTH_ROWS, WIDTH_STEPS = 4, 8, 2
+WIDE_SOURCE = "edgecape_tpu_torch/csrc/head_wide.cu"
+# the ops' plain versions, none of which may run on the kernel path
+PLAIN_FNS = (("fused_encoder", "fused_encoder_layer_plain"),
+             ("fused_decoder", "fused_decoder_layer_plain"),
+             ("fused_decoder", "fused_decoder_stack_plain"),
+             ("fused_decoder", "bias_attention_plain"),
+             ("fused_decoder", "kpt_head_plain"),
+             ("flash_attention", "flash_mha_plain"),
+             ("flash_attention", "flash_mha_train_plain"))
+
+
+def width_model_kw(c, h, ffn):
+    return dict(d_model=c, nhead=h, dim_feedforward=ffn, num_feats=c // 2,
+                similarity_proj_dim=c)
+
+
+def padding_kernels(c, h):
+    """Kernels an op's call adds at width c / h beside its own: a padded
+    head dim (ops/kernels.py pad_heads) lays out q, k and v (a fill and a
+    copy each) and drops the output's padding (a copy), 7 an attention;
+    (self-attention, cross-attention) launches of them."""
+    def pad(d):
+        return 0 if d in (32, 64, 128) else 7
+    return pad(c // h), pad(2 * c // h)
+
+
+def width_path_kernels(c, h, stack):
+    """The head's kernels one cached chunk launches at width c / h (the
+    bf16 ViT's are the main path's), by name: the encoder's add_pos and 3
+    layers of a GEMM, an attention and the post-attention kernel; the
+    skeleton's 3 attentions; per decoder layer 4 GEMMs, 2 attentions and
+    the two post-attention kernels, or with the decoder stack 3 GEMMs for
+    all layers and per layer the sine features, 3 GEMMs, the bias
+    attention, 1 attention, the two post-attention kernels and the
+    keypoint head. The 256-channel kernels at 256 channels, their
+    head_wide.cu forms elsewhere; bias_attn_kernel at 8 heads of 32."""
+    w = "" if c == 256 else "_wide"
+    want = {"add_pos_kernel": 1, f"enc_post{w}_kernel": 3,
+            f"dec_post_self{w}_kernel": 3, f"dec_post_cross{w}_kernel": 3}
+    if stack:
+        ba = "" if (h, c // h) == (8, 32) else "_wide"
+        want.update({"gemm_tma_kernel": 3 + 3 + 9, "attn_kernel": 3 + 3 + 3,
+                     "sine_feats_kernel": 3, f"bias_attn{ba}_kernel": 3,
+                     f"kpt_head{w}_kernel": 3})
+    else:
+        want.update({"gemm_tma_kernel": 3 + 12, "attn_kernel": 3 + 3 + 6})
+    return want
+
+
+class PlainTrainingAttention:
+    """While entered, the model's training attention is flash_mha_train's
+    plain version (the kernels' rounding points: bf16 operands, fp32
+    softmax) in place of the kernels, so that a step's gradients on the
+    kernel path can be held against the same function."""
+
+    def __enter__(self):
+        import edgecape_tpu_torch.models.transformer as T
+        from edgecape_tpu_torch.ops.flash_attention import \
+            flash_mha_train_plain
+        self.saved = T.flash_mha_train
+
+        def plain(q, k, v, key_valid=None, bias=None, *, dropout_rate=0.0,
+                  generator=None):
+            return flash_mha_train_plain(q, k, v, key_valid, bias,
+                                         dropout_rate=dropout_rate,
+                                         generator=generator)
+        T.flash_mha_train = plain
+        return self
+
+    def __exit__(self, *exc):
+        import edgecape_tpu_torch.models.transformer as T
+        T.flash_mha_train = self.saved
+
+
+class PlainCalls:
+    """Counts, while entered, the calls of every op's plain version
+    (PLAIN_FNS): the kernel path must make none."""
+
+    def __enter__(self):
+        import importlib
+        self.n, self.saved = 0, []
+        for mod, fn in PLAIN_FNS:
+            m = importlib.import_module(f"edgecape_tpu_torch.ops.{mod}")
+            orig = getattr(m, fn)
+
+            def counted(*a, _orig=orig, **kw):
+                self.n += 1
+                return _orig(*a, **kw)
+            self.saved.append((m, fn, orig))
+            setattr(m, fn, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for m, fn, orig in self.saved:
+            setattr(m, fn, orig)
+
+
+def width_op_checks(dev, entries, power):
+    """[op] lines of the head_wide.cu kernels and of the attention at the
+    padded head dims and at head dim 128, at the WIDTH_OPS widths: the
+    encoder stack (each layer against the plain layer on its input), the
+    decoder layer, the bias attention and the keypoint head against their
+    plain versions, the whole decoder stack layer by layer; the attention
+    shapes of tools/bench_attention.py WIDTH_SHAPES (eval and training,
+    forward and backward). Each line: device ms, kernels a call, plain
+    ms, bound, library ms."""
+    import edgecape_tpu_torch.ops.fused_decoder as FD
+    import edgecape_tpu_torch.ops.fused_encoder as FE
+    from edgecape_tpu_torch.ops import kernels as KN
+    from edgecape_tpu_torch.models.transformer import (Decoder, DecoderLayer,
+                                                       EncoderLayer)
     from edgecape_tpu_torch.tools import bench_attention as BA
+    bad = []
+    bf = torch.bfloat16
+    nq, hw = WIDTH_GROUPS * QUERIES, 256
+    for c, h, ffn in WIDTH_OPS:
+        tag = f"{c}/{h}/{ffn}"
+        g, rn = seeded_randn(SEED + 70 + c + h, dev)
+        enc = [randomize(EncoderLayer(c, h, ffn), rn, dev) for _ in range(3)]
+        tok, pos = rn(nq, hw + K, c).to(bf), rn(hw + K, c).to(bf)
+        valid = torch.rand(nq, hw + K, generator=g).to(dev) > 0.2
+        valid[:, :hw] = True
+        dec = randomize(DecoderLayer(c, h, ffn, attn_bias=True), rn, dev)
+        kx, qpos = rn(nq, K, c).to(bf), rn(nq, K, c).to(bf)
+        img, ipos = rn(nq, hw, c).to(bf), rn(hw, c).to(bf)
+        kvalid = torch.rand(nq, K, generator=g).to(dev) > 0.3
+        kvalid[:, 0] = True
+        bias = rn(nq, h, K, K)
+        adj = torch.rand(nq, 2, K, K, generator=g).to(dev) / K
 
-    cfg = Config(model=ModelConfig(
-        image_size=SIZE, max_kpt=K, learn_skeleton=True, attn_bias=True,
-        max_hops=4, compute_dtype="bfloat16", head_dtype="bfloat16",
-        use_flash=True, d_model=128, nhead=4, num_feats=64,
-        similarity_proj_dim=128))
-    err = []
+        def stack_pairs():
+            x, outs, refs = tok, [], []
+            for layer in enc:
+                refs.append(FE.fused_encoder_layer_plain(x, pos, valid, layer,
+                                                         num_heads=h))
+                x = FE.fused_encoder_layer(x, pos, valid, layer, num_heads=h)
+                outs.append(x)
+            if not torch.equal(FE.fused_encoder_stack(tok, pos, valid, enc,
+                                                      num_heads=h), x):
+                fail(f"fused_encoder_stack ({tag}) differs from its chain of "
+                     f"layers")
+            return torch.stack(outs), torch.stack(refs)
 
-    def build():
-        try:
-            PoseEstimator(cfg, generator=torch.Generator().manual_seed(SEED),
-                          device=dev, backbone_cfg=DinoV2Config(depth=2))
-        except ValueError as e:
-            err.append(str(e))
+        def plain_stack():
+            x = tok
+            for layer in enc:
+                x = FE.fused_encoder_layer_plain(x, pos, valid, layer,
+                                                 num_heads=h)
+            return x
 
-    ran = BA.launched(build)
-    msg = err[0] if err else ""
-    named = [op for op in ("fused_encoder_stack", "fused_decoder_layer",
-                           "fused_decoder_stack") if op in msg]
-    ok = len(named) == 3 and "256 channels, got 128" in msg and not ran
-    # the stage-3 widths at the image sizes the paths use: the build's
-    # check (the trunk's fused op at bf16 and the head's) takes each
+        lib_enc = library_encoder(enc, c, ffn, dev)
+
+        def library_stack():
+            with torch.inference_mode():
+                x = tok + pos
+                for layer in lib_enc:
+                    x = layer(x, src_key_padding_mask=~valid)
+            return x
+
+        d = c // h
+        enc_flops = 3 * (2 * nq * (hw + K) * (4 * c ** 2 + 2 * c * ffn)
+                         + 4 * nq * (hw + K) ** 2 * c)
+        dec_flops = (2 * nq * K * 4 * c ** 2 + 4 * nq * K * K * c
+                     + 2 * nq * K * (4 + 4 + 2) * c ** 2
+                     + 2 * nq * hw * (2 + 2) * c ** 2
+                     + 4 * nq * K * hw * 2 * c
+                     + 2 * nq * K * (2 * c * ffn + ffn * c)
+                     + 2 * nq * 2 * K * K * ffn)
+        w = "" if c == 256 else "_wide"
+        pad_self, pad_cross = padding_kernels(c, h)
+        cases = [
+            (f"fused_encoder_stack ({tag})",
+             "edgecape_tpu/ops/fused_encoder.py:188",
+             "edgecape_tpu_torch/ops/fused_encoder.py",
+             lambda: FE.fused_encoder_stack(tok, pos, valid, enc,
+                                            num_heads=h),
+             plain_stack, stack_pairs,
+             bound(2 * nbytes(tok) + nbytes(pos, valid) + param_bytes(*enc),
+                   enc_flops), library_stack,
+             1 + 3 * len(enc) + len(enc) * pad_self,
+             (f"enc_post{w}_kernel",)),
+            (f"fused_decoder_layer ({tag})",
+             "edgecape_tpu/ops/fused_decoder.py:262",
+             "edgecape_tpu_torch/ops/fused_decoder.py",
+             lambda: FD.fused_decoder_layer(kx, qpos, img, ipos, kvalid, bias,
+                                            adj, dec, num_heads=h),
+             lambda: FD.fused_decoder_layer_plain(kx, qpos, img, ipos, kvalid,
+                                                  bias, adj, dec, num_heads=h),
+             None,
+             bound(2 * nbytes(kx) + nbytes(qpos, img, ipos, kvalid, bias, adj)
+                   + param_bytes(dec), dec_flops), None,
+             8 + pad_self + pad_cross,
+             (f"dec_post_self{w}_kernel", f"dec_post_cross{w}_kernel")),
+        ]
+        with torch.no_grad():
+            for name, replaces, op_src, kern, plain, pairs, bnd, lib, cap, \
+                    must in cases:
+                out, ref = pairs() if pairs else (kern(), plain())
+                extra, dev_ms, per_call, _ = device_extra(name, kern, cap, bad,
+                                                          must)
+                check_op(entries, bad, name, replaces, op_src, out, ref, kern,
+                         plain, bnd, library=lib, copy_gemms=0,
+                         extra=extra + f" on {power}")
+                entries[name].update(source=WIDE_SOURCE, device_ms=dev_ms,
+                                     kernels_per_call=per_call,
+                                     width_kernels=list(must))
+            del out, ref
+
+            # the decoder stack's own kernels and the stack, layer by layer
+            nf, nhop, layers = c // 2, 5, 3
+            sdec = randomize(Decoder(c, h, ffn, layers, attn_bias=True,
+                                     max_hops=nhop - 1, num_feats=nf,
+                                     use_flash=True), rn, dev).to(bf)
+            coords = torch.rand(nq, K, 2, generator=g).to(dev) * 0.8 + 0.1
+            hops = torch.rand(nq, K, K, nhop, generator=g).to(dev).to(bf)
+            sadj = (torch.rand(nq, 2, K, K, generator=g).to(dev) / K).to(bf)
+            args = (rn(nq, K, c, s=0.5).to(bf), coords,
+                    rn(nq, hw, c, s=0.5).to(bf), rn(hw, c, s=0.5).to(bf),
+                    kvalid, hops, sadj)
+            kw = dict(num_heads=h, num_feats=nf)
+            sw = FD._build_stack_weights(sdec, nf, True)
+            lw0 = sw["layers"][0]
+            qkv = rn(nq, K, 3 * c).to(bf)
+            hid = nhop - 1 + h
+            ba = "" if (h, d) == (8, 32) else "_wide"
+            name = f"bias_attention ({tag})"
+            check_op(entries, bad, name,
+                     "edgecape_tpu/ops/fused_decoder.py:531",
+                     "edgecape_tpu_torch/ops/kernels.py",
+                     KN.bias_attention(qkv, kvalid, hops, lw0["hop_mlp"],
+                                       num_heads=h),
+                     FD.bias_attention_plain(qkv, kvalid, hops,
+                                             lw0["hop_mlp"], num_heads=h),
+                     lambda: KN.bias_attention(qkv, kvalid, hops,
+                                               lw0["hop_mlp"], num_heads=h),
+                     lambda: FD.bias_attention_plain(qkv, kvalid, hops,
+                                                     lw0["hop_mlp"],
+                                                     num_heads=h),
+                     bound(nbytes(qkv, kvalid, hops, *lw0["hop_mlp"])
+                           + nq * K * c * 2, 4 * nq * h * K * K * d,
+                           2 * nq * K * K * (nhop * hid + hid * h)),
+                     copy_gemms=0,
+                     extra=device_extra(name, lambda: KN.bias_attention(
+                         qkv, kvalid, hops, lw0["hop_mlp"], num_heads=h), 1,
+                         bad, (f"bias_attn{ba}_kernel",))[0]
+                     + f"; [B {nq}, K {K}, H {h}, D {d}] on {power}")
+            entries[name].update(source=WIDE_SOURCE,
+                                 width_kernels=[f"bias_attn{ba}_kernel"])
+            r = nq * K
+            xk = rn(r, c).to(bf)
+            ctk = torch.rand(r, 2, generator=g).to(dev)
+            pts_k, outs_k = torch.empty_like(ctk), torch.empty_like(ctk)
+
+            def kpt_kernel():
+                KN.kpt_head(xk, ctk, sw["fn"], lw0["kpt"], lw0["kow"],
+                            lw0["kob"], pts_k, outs_k, eps=1e-5)
+                return torch.stack([pts_k, outs_k])
+
+            br = sdec.kpt_branches[0]     # the plain version's weights
+            kpt0 = [(fc.weight, fc.bias) for fc in (br.fc0, br.fc1, br.fc2)]
+
+            def kpt_plain():
+                return torch.stack(FD.kpt_head_plain(
+                    xk, ctk, sw["fn"], kpt0, lw0["kow"], lw0["kob"],
+                    eps=1e-5))
+
+            got, want = kpt_kernel().clone(), kpt_plain()
+            dk = (got - want).abs()
+            kpt_ok = dk.max().item() <= KPT_MAX and \
+                dk.mean().item() <= KPT_MEAN
+            name = f"kpt_head ({tag})"
+            check_op(entries, bad, name,
+                     "edgecape_tpu/ops/fused_decoder.py:531",
+                     "edgecape_tpu_torch/ops/kernels.py", got, want,
+                     kpt_kernel, kpt_plain,
+                     bound(nbytes(xk, ctk, pts_k, outs_k, *sw["fn"],
+                                  lw0["kow"], lw0["kob"],
+                                  *(t for pair in lw0["kpt"] for t in pair)),
+                           2 * 2 * r * (3 * c * c + 2 * c)),
+                     copy_gemms=0,
+                     extra=device_extra(name, kpt_kernel, 2, bad,
+                                        (f"kpt_head{w}_kernel",))[0]
+                     + f"; [R {r}, C {c}] coordinates max "
+                       f"{dk.max().item():.3g} mean {dk.mean().item():.3g} "
+                       f"(tol {KPT_MAX}, mean {KPT_MEAN}) "
+                       f"{'OK' if kpt_ok else 'FAIL'} on {power}")
+            entries[name].update(source=WIDE_SOURCE,
+                                 width_kernels=[f"kpt_head{w}_kernel"])
+            if not kpt_ok:
+                bad.append(f"{name} coordinates")
+            for i in range(layers):
+                sub = Decoder(c, h, ffn, 1, attn_bias=True,
+                              max_hops=nhop - 1, num_feats=nf)
+                sub.layers[0], sub.kpt_branches[0] = sdec.layers[i], \
+                    sdec.kpt_branches[i]
+                sub.ref_point_head, sub.norm = sdec.ref_point_head, sdec.norm
+                sub.to(dev).eval()
+                o, p_ = FD.fused_decoder_stack(*args, sub, **kw)
+                ro, rp = FD.fused_decoder_stack_plain(*args, sub, **kw)
+                torch.cuda.synchronize()
+                dd = torch.cat([(o - ro).abs().flatten(),
+                                (p_ - rp).abs().flatten()])
+                ok = dd.max().item() <= STACK_LAYER_MAX and \
+                    dd.mean().item() <= STACK_LAYER_MEAN and \
+                    bool(torch.isfinite(o).all() and torch.isfinite(p_).all())
+                print(f"[op] fused_decoder_stack ({tag}) layer {i} alone, "
+                      f"outputs and points {tuple(o.shape)}: max_abs_err "
+                      f"{dd.max().item():.4g} mean_abs_err "
+                      f"{dd.mean().item():.3g} (tol {STACK_LAYER_MAX}, mean "
+                      f"{STACK_LAYER_MEAN}) {'OK' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok:
+                    bad.append(f"fused_decoder_stack ({tag}) layer {i}")
+            stack_call = lambda: FD.fused_decoder_stack(*args, sdec, **kw)  # noqa: E731
+            text, dev_ms, per_call, _ = device_extra(
+                f"fused_decoder_stack ({tag})", stack_call,
+                STACK_KERNELS + layers * pad_cross, bad,
+                (f"bias_attn{ba}_kernel", f"kpt_head{w}_kernel",
+                 f"dec_post_self{w}_kernel", f"dec_post_cross{w}_kernel"))
+            ms = time_ms(stack_call)
+            plain_ms = time_ms(lambda: FD.fused_decoder_stack_plain(
+                *args, sdec, **kw), reps=3)
+            # as the variant path's stack: the layer's products, the glue's
+            # (ref_point_head, the keypoint head's two passes), the bias MLP
+            glue_flops = 2 * r * (4 * nf * c + c * c) \
+                + 2 * 2 * r * (3 * c * c + 2 * c)
+            bias_flops = 2 * nq * K * K * (nhop * hid + hid * h)
+            bnd = bound(nbytes(*args) + param_bytes(sdec)
+                        + 2 * layers * r * 2 * 4,
+                        layers * (dec_flops + glue_flops), layers * bias_flops)
+            print(f"[op] fused_decoder_stack ({tag}): {layers} layers, rows "
+                  f"{nq}, K {K}, HW {hw}: kernel {ms:.3f} ms plain "
+                  f"{plain_ms:.3f} ms bound {bnd[0]:.4f} ms ({bnd[1]})"
+                  f"{text} on {power}", flush=True)
+            entries[f"fused_decoder_stack ({tag})"] = {
+                "name": f"fused_decoder_stack ({tag})", "route": "cuda",
+                "source": WIDE_SOURCE,
+                "op": "edgecape_tpu_torch/ops/fused_decoder.py",
+                "replaces": "edgecape_tpu/ops/fused_decoder.py:531",
+                "launches": 0, "max_abs_err": float(dd.max().item()),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": None, "device_ms": dev_ms,
+                "kernels_per_call": per_call,
+                "width_kernels": [f"bias_attn{ba}_kernel",
+                                  f"kpt_head{w}_kernel",
+                                  f"dec_post_self{w}_kernel",
+                                  f"dec_post_cross{w}_kernel"]}
+        del enc, dec, sdec, tok, img, args, qkv, xk
+        torch.cuda.empty_cache()
+
+    # the attention at the padded head dims and at head dim 128
+    for spec in BA.WIDTH_SHAPES:
+        rows = [BA.run_case(spec, dev, power, full=True)]
+        if spec[-1] is not None:
+            rows.append(BA.run_bwd_case(spec, dev, power, full=True))
+        for row in rows:
+            bwd = row["name"].endswith("backward")
+            name = f"attention {row['name']}"
+            kern = (["train_bwd_q_kernel", "train_bwd_k_kernel"] if bwd else
+                    ["bias_attn_wide_kernel"] if "hops" in row["name"] else
+                    ["train_fwd_kernel"] if spec[-1] is not None else
+                    ["attn_kernel"])
+            if not row["ok"]:
+                bad.append(name)
+            entries[name] = {
+                "name": name, "route": "cuda",
+                "source": WIDE_SOURCE if "hops" in row["name"] else
+                "edgecape_tpu_torch/csrc/kernels.cu",
+                "replaces": "edgecape_tpu/ops/flash_attention.py:" + (
+                    "361" if bwd else "321" if spec[-1] is not None
+                    else "132"),
+                "width_kernels": kern, "shape": row["shape"], "launches": 0,
+                "max_abs_err": row["max_abs_err"], "ms": row["wrapper_ms"],
+                "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+                "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                "library_ms": row["sdpa_ms"],
+                "library_device_ms": row["sdpa_device_ms"],
+                "by_kernel": row.get("by_kernel"), "plan": row["plan"]}
+        torch.cuda.empty_cache()
+    if bad:
+        fail(f"kernels at the new widths disagree with their plain versions "
+             f"or did not run: {bad}")
+
+
+def width_check(dev, entries, power):
+    """[widths]: what stays refused, then the op lines (width_op_checks),
+    then the stage-3 model at 224 px, K 100, at every head width of
+    WIDTHS, with the decoder stack off and on: one cached chunk of
+    WIDTH_GROUPS x QUERIES queries (the head's kernels counted against
+    width_path_kernels, no thread-copy GEMM, no plain version run, the
+    predictions against the plain path on the same weights), and
+    WIDTH_STEPS stage-3 Trainer steps of WIDTH_ROWS rows (dropout 0; one
+    step's loss and gradients against the same step with the training
+    attention's plain version in place of its kernels, the gate, and
+    against the fp32 plain path (use_flash=False), information: at 8 rows
+    and narrow heads the bf16 operands of the kernels' function alone put
+    the latter past the 16-row main path's bound; the training attention's
+    launches counted). Each kernel-line entry of the phase
+    gets the launches of its kernels (`width_kernels`) over these runs."""
+    from edgecape_tpu_torch import config as C
+    from edgecape_tpu_torch.api import PoseEstimator
     from edgecape_tpu_torch.models import dinov2
+    from edgecape_tpu_torch.models.convert import (init_params,
+                                                   redraw_zero_inits)
+    from edgecape_tpu_torch.models.dinov2 import DinoV2Config
     from edgecape_tpu_torch.models.edgecape import HEAD_OPS
+    from edgecape_tpu_torch.ops import kernel_config
     from edgecape_tpu_torch.ops.kernel_config import require_widths
+    from edgecape_tpu_torch.tools import bench_attention as BA
+    from edgecape_tpu_torch.train import checkpoint as ck
+    from edgecape_tpu_torch.train.loop import (Trainer, batch_to_tensors,
+                                               make_loss_fn)
+    t_phase = time.perf_counter()
+
+    # --- what stays refused: a ViT-B/14 trunk, a head of 1024 channels
+    def refused(what, model_kw, bb_cfg, ops):
+        cfg = main_path_config()
+        cfg.model = C.replace(cfg.model, **model_kw)
+        err = []
+
+        def build():
+            try:
+                PoseEstimator(cfg, generator=torch.Generator().manual_seed(
+                    SEED), device=dev, backbone_cfg=bb_cfg)
+            except ValueError as e:
+                err.append(str(e))
+        ran = BA.launched(build)
+        msg = err[0] if err else ""
+        named = [op for op in ops if op in msg]
+        ok = named == list(ops) and not ran
+        print(f"[widths] {what}, use_flash on the card: the build raised "
+              f"{bool(err)} naming {named} ({msg or 'no error'}); hand-"
+              f"written launches {sum(ran.values())} "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{what} was not refused by name when it was built")
+
+    refused("a ViT-B/14 trunk (768 channels, 12 heads, 2 blocks)", {},
+            DinoV2Config(embed_dim=768, num_heads=12, depth=2),
+            ("fused_vit_block",))
+    refused("a head of d_model 1024 in 16 heads", width_model_kw(1024, 16,
+                                                                 2048),
+            DinoV2Config(depth=2), ("fused_encoder_stack",
+                                    "fused_decoder_layer",
+                                    "fused_decoder_stack"))
     taken = []
     for size in (SIZE, DEMO_SIZE, LONG_SIZE):
         model = main_path_config(size).model
@@ -1292,16 +1730,180 @@ def width_check(dev, power):
             taken.append(size)
         except ValueError as e:
             print(f"[widths] {size} px refused: {e}", flush=True)
-    ok = ok and taken == [SIZE, DEMO_SIZE, LONG_SIZE]
-    print(f"[widths] d_model 128, 4 heads, num_feats 64, use_flash on the "
-          f"card: the build raised {bool(err)} naming {named} "
-          f"({msg or 'no error'}); hand-written launches {sum(ran.values())}"
-          f"; the stage-3 widths in bf16 taken at {taken} px on {power} "
-          f"{'OK' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        fail("a model of other widths was not refused when it was built, "
-             "or the stage-3 model was refused at 224, 256 or 518 px")
+    if taken != [SIZE, DEMO_SIZE, LONG_SIZE]:
+        fail("the stage-3 model was refused at 224, 256 or 518 px")
+
+    # registers and spills of the new instances (ptxas, this process's
+    # build): the attention kernels at head dim 128, the head_wide.cu ones
+    from edgecape_tpu_torch.ops import kernels as KN
+    for kern in ("attn_kernel", "train_fwd_kernel", "train_bwd_q_kernel",
+                 "train_bwd_k_kernel", "_wide_kernel"):
+        for name, regs, st, ld in KN.ptxas_usage(kern):
+            if "_wide_kernel" in name or "Li128E" in name:
+                print(f"[widths] ptxas {name}: {regs} registers, spill "
+                      f"stores {st} B, loads {ld} B", flush=True)
+    width_op_checks(dev, entries, power)
     torch.cuda.empty_cache()
+
+    totals = {}
+    summary = []
+    for c, h, ffn in WIDTHS:
+        t_width = time.perf_counter()
+        tag = f"{c}/{h}/{ffn}"
+        model_kw = width_model_kw(c, h, ffn)
+        cfg = main_path_config()
+        cfg.model = C.replace(cfg.model, **model_kw)
+        if any(dinov2.width_misfits(cfg.model).values()):
+            fail(f"width {tag} is refused: {dinov2.width_misfits(cfg.model)}")
+        gen = torch.Generator().manual_seed(SEED + 80 + c + h)
+        bb, head = init_params(gen, cfg.model)
+        redraw_zero_inits(bb, head, gen)
+        support, query, _ = episodes(np.random.default_rng(SEED + 81),
+                                     groups=WIDTH_GROUPS, chunks=1)[0]
+        preds, chunk_s = {}, {}
+        est = PoseEstimator(cfg, bb, head, device=dev)
+        for stack in (False, True):
+            # the switch is read at each forward
+            kernel_config.set_decoder_stack(stack)
+            est.forward_cached(support, query)          # warm-up
+            torch.cuda.synchronize()
+            zero_counts()
+            with PlainCalls() as plain_calls:
+                t0 = time.perf_counter()
+                preds[stack] = est.forward_cached(support, query)[0].cpu() \
+                    .numpy()
+                chunk_s[stack] = time.perf_counter() - t0
+            _, kern = read_counts()
+            for k, n in kern.items():
+                totals[k] = totals.get(k, 0) + n
+            want = width_path_kernels(c, h, stack)
+            got = {k: kern.get(k, 0) for k in want}
+            vit = {k: kern.get(k, 0) for k in VIT_KERNELS}
+            ok = (got == want and plain_calls.n == 0
+                  and not kern.get("gemm_kernel")
+                  and vit == dict.fromkeys(VIT_KERNELS, 24))
+            print(f"[widths] {tag} (head dims {c // h} / {2 * c // h}), "
+                  f"decoder stack {'on' if stack else 'off'}: one chunk of "
+                  f"{WIDTH_GROUPS} x {QUERIES} queries {chunk_s[stack]:.3f} s "
+                  f"({WIDTH_GROUPS * QUERIES / chunk_s[stack]:.1f} img/s) on "
+                  f"{power}; head kernels {got} expected {want}, ViT "
+                  f"kernels {vit}, thread-copy GEMMs "
+                  f"{kern.get('gemm_kernel', 0)}, plain versions run "
+                  f"{plain_calls.n} {'OK' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"the {tag} eval did not run on its kernels as its path "
+                     f"implies")
+        del est
+        kernel_config.set_decoder_stack(False)
+        pcfg = C.replace(cfg, model=C.replace(cfg.model, use_flash=False))
+        ref = PoseEstimator(pcfg, bb, head, device=dev).forward_cached(
+            support, query)[0].cpu().numpy()
+        for stack in (False, True):
+            med, mx, within = coord_gap(preds[stack], ref)
+            ok = (med <= PATH_MEDIAN_TOL and within >= PATH_WITHIN_SHARE
+                  and np.isfinite(preds[stack]).all())
+            print(f"[widths] {tag}, decoder stack {'on' if stack else 'off'}"
+                  f", vs the plain path: median |d| {med:.4g} (tol "
+                  f"{PATH_MEDIAN_TOL}), max {mx:.4g}, share within "
+                  f"{PATH_CELL:.4g}: {within:.4f} (tol >= "
+                  f"{PATH_WITHIN_SHARE}) {'OK' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                fail(f"the {tag} eval disagrees with the plain path")
+        torch.cuda.empty_cache()
+
+        with tempfile.TemporaryDirectory() as tmp:
+            base = train_config(tmp)
+            base.model = C.replace(base.model, **model_kw)
+            stage3 = C.replace(C.stage3_config(base), work_dir=f"{tmp}/s3")
+            stage3.model = C.replace(stage3.model, dropout=0.0)
+            stage3.train = C.replace(stage3.train, batch_size=WIDTH_ROWS)
+            gen = torch.Generator().manual_seed(SEED + 82 + c + h)
+            bbt, headt = init_params(gen, stage3.model)
+            redraw_zero_inits(bbt, headt, gen)
+            ck.save_checkpoint(f"{tmp}/seeded", {"model": headt})
+            stage3.load_from = f"{tmp}/seeded"
+            data = RefedBatch(WIDTH_STEPS, np.random.default_rng(SEED + 83),
+                              b=WIDTH_ROWS)
+            grads, losses = {}, {}
+            fcfg = C.replace(stage3, work_dir=f"{tmp}/fp32",
+                             model=C.replace(stage3.model, use_flash=False))
+            # the kernel path's trainer computes its step's gradients, then
+            # the same step with the training attention's plain version,
+            # then fits; the fp32 plain path is a trainer of its own
+            tr = Trainer(stage3, data, lambda ds, bs, **kw: ds,
+                         backbone_state=bbt, device=dev,
+                         log_fn=lambda *a: None)
+            ref = Trainer(fcfg, data, lambda ds, bs, **kw: ds,
+                          backbone_state=bbt, device=dev,
+                          log_fn=lambda *a: None)
+            for route, t, ctx in (
+                    ("kernels", tr, contextlib.nullcontext()),
+                    ("plain versions", tr, PlainTrainingAttention()),
+                    ("fp32", ref, contextlib.nullcontext())):
+                with ctx:
+                    total, _ = make_loss_fn(t.model, t.backbone, t.cfg)(
+                        batch_to_tensors(data.batch, dev))
+                    total.backward()
+                losses[route] = float(total)
+                grads[route] = {n: p.grad.float() for n, p in
+                                t.model.named_parameters()
+                                if p.grad is not None}
+                t.model.zero_grad(set_to_none=True)
+            del ref
+            for ref, gate in (("plain versions", True), ("fp32", False)):
+                what = ("the training attention's plain version" if gate else
+                        "the fp32 plain path (use_flash=False)")
+                rel_l2, worst, worst_name, _ = grad_gap(grads["kernels"],
+                                                        grads[ref])
+                loss_rel = abs(losses["kernels"] - losses[ref]) \
+                    / abs(losses[ref])
+                ok = (rel_l2 <= GRAD_REL_L2 and worst <= GRAD_TENSOR_REL_L2
+                      and loss_rel <= LONG_LOSS_REL
+                      and np.isfinite(losses["kernels"]))
+                print(f"[widths] {tag} training, {WIDTH_ROWS} rows, dropout "
+                      f"0, one step, kernel path vs {what}: loss {losses['kernels']:.6f} / {losses[ref]:.6f} "
+                      f"(relative {loss_rel:.3g}, tol {LONG_LOSS_REL}), "
+                      f"gradients relative L2 over all {rel_l2:.4g} (tol "
+                      f"{GRAD_REL_L2}), worst tensor {worst:.4g} "
+                      f"{worst_name} (tol {GRAD_TENSOR_REL_L2}) "
+                      f"{('OK' if ok else 'FAIL') if gate else '(information)'}",
+                      flush=True)
+                if gate and not ok:
+                    fail(f"the {tag} training step disagrees with the plain "
+                         f"version of its kernels")
+            del grads
+            zero_counts()
+            with PlainCalls() as plain_calls:
+                t0 = time.perf_counter()
+                tr.fit()
+                torch.cuda.synchronize()
+                fit_s = time.perf_counter() - t0
+            _, kern = read_counts()
+            for k, n in kern.items():
+                totals[k] = totals.get(k, 0) + n
+            n = train_launches(stage3, WIDTH_STEPS)
+            want = {"train_fwd_kernel": n["flash_mha_train_fwd"],
+                    "train_bwd_q_kernel": n["flash_mha_train_bwd"],
+                    "train_bwd_k_kernel": n["flash_mha_train_bwd"]}
+            got = {k: kern.get(k, 0) for k in want}
+            ok = got == want and plain_calls.n == 0 and \
+                tr.step == WIDTH_STEPS
+            print(f"[widths] {tag}: {WIDTH_STEPS} stage-3 Trainer steps of "
+                  f"{WIDTH_ROWS} rows in {fit_s:.3f} s on {power}; training "
+                  f"attention launches {got} expected {want}, plain versions "
+                  f"run {plain_calls.n} {'OK' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"the {tag} training steps did not run on the kernels")
+            del tr
+        torch.cuda.empty_cache()
+        summary.append(f"{tag} {time.perf_counter() - t_width:.1f} s")
+    for entry in entries.values():
+        if "width_kernels" in entry:
+            entry["launches"] = sum(totals.get(k, 0)
+                                    for k in entry["width_kernels"])
+    print(f"[widths] every width taken on its kernels: {summary}; the phase "
+          f"took {time.perf_counter() - t_phase:.1f} s on {power}", flush=True)
 
 
 # ------------------------------------------------------------ phase 4
@@ -1483,6 +2085,24 @@ def loss_without_dropout(trainer, batch):
     return float(total)
 
 
+def train_launches(cfg, steps):
+    """flash_mha_train launches of `steps` training steps: one forward per
+    refine, encoder and decoder layer, the decoder's twice with the
+    reconstruction branch; one backward for each of them whose inputs
+    need a gradient (not the refine layers of a frozen skeleton); and the
+    fused trunk's blocks."""
+    from edgecape_tpu_torch.train.state import frozen_roots
+    m = cfg.model
+    refine = m.skeleton_num_layers if m.learn_skeleton else 0
+    dec = m.num_decoder_layers * (2 if m.masked_supervision else 1)
+    fwd = refine + m.num_encoder_layers + dec
+    bwd = fwd - (refine if "skeleton" in frozen_roots(m.model_freeze)
+                 else 0)
+    return {"flash_mha_train_fwd": steps * fwd,
+            "flash_mha_train_bwd": steps * bwd,
+            "fused_vit_block": steps * 12}
+
+
 def train_path(dev, entries, power, figures):
     from edgecape_tpu_torch import config as C
     from edgecape_tpu_torch.models.convert import (init_params,
@@ -1499,21 +2119,6 @@ def train_path(dev, entries, power, figures):
     def reset():
         FA.launches_fwd = FA.launches_bwd = FA.launches = 0
         FV.launches = FE.launches = FE.stack_launches = FD.launches = 0
-
-    def expected(cfg, steps):
-        """flash_mha_train launches of `steps` steps: one forward per
-        refine, encoder and decoder layer, the decoder's twice with the
-        reconstruction branch; one backward for each of them whose inputs
-        need a gradient (not the refine layers of a frozen skeleton)."""
-        m = cfg.model
-        refine = m.skeleton_num_layers if m.learn_skeleton else 0
-        dec = m.num_decoder_layers * (2 if m.masked_supervision else 1)
-        fwd = refine + m.num_encoder_layers + dec
-        bwd = fwd - (refine if "skeleton" in frozen_roots(m.model_freeze)
-                     else 0)
-        return {"flash_mha_train_fwd": steps * fwd,
-                "flash_mha_train_bwd": steps * bwd,
-                "fused_vit_block": steps * 12}
 
     def counts():
         return {"flash_mha_train_fwd": FA.launches_fwd,
@@ -1550,7 +2155,7 @@ def train_path(dev, entries, power, figures):
         reset()
         tr.fit()
         torch.cuda.synchronize()
-        got, want = counts(), expected(stage3, TRAIN_STEPS)
+        got, want = counts(), train_launches(stage3, TRAIN_STEPS)
         other = {"fused_encoder_stack": FE.stack_launches,
                  "fused_decoder_layer": FD.launches, "flash_mha": FA.launches}
         print(f"[train] stage 3, {TRAIN_STEPS} steps of batch {TRAIN_B}: "
@@ -1647,7 +2252,7 @@ def train_path(dev, entries, power, figures):
         reset()
         tr2.fit()
         torch.cuda.synchronize()
-        got, want = counts(), expected(stage2, 2)
+        got, want = counts(), train_launches(stage2, 2)
         # the eval hook's trunk is the fp32 module (its attention through
         # flash_mha), so it should add no fused_vit_block launch
         vit_eval = got.pop("fused_vit_block") - want.pop("fused_vit_block")
@@ -4571,7 +5176,7 @@ def main() -> None:
     gemm_checks(dev, entries, power)
     torch.cuda.empty_cache()
     est, data, preds, weights = main_path(dev, entries, power, figures)
-    width_check(dev, power)
+    width_check(dev, entries, power)
     torch.cuda.empty_cache()
     train_path(dev, entries, power, figures)
     torch.cuda.empty_cache()

@@ -1066,9 +1066,11 @@ __device__ __forceinline__ void attn_body(const AttnArgs& p) {
 // registers a thread gets: one pass 8 warps (up to 255 registers); two
 // passes two blocks of 12 warps (head dim 32: 85 registers) or 9 warps
 // (head dim 64: 113 registers), as many as two heads' keys and values
-// leave room for in an SM's shared memory.
+// leave room for in an SM's shared memory; head dim 128 (the padded form
+// of head dims 65..128) two blocks of 4 warps (255 registers: its query
+// fragments and output tile alone take 96).
 constexpr int att_max_threads(int d, int ch16) {
-  return ch16 == ATT_ROW16 ? 256 : d == 32 ? 384 : 288;
+  return ch16 == ATT_ROW16 ? 256 : d == 32 ? 384 : d == 64 ? 288 : 128;
 }
 constexpr int att_min_blocks(int ch16) { return ch16 == ATT_ROW16 ? 1 : 2; }
 
@@ -1147,6 +1149,7 @@ extern "C" int ec_attention(const void* q, const void* k, const void* v, int in_
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 32) return launch_attn<32>(p, B, pl, s);
   if (D == 64) return launch_attn<64>(p, B, pl, s);
+  if (D == 128) return launch_attn<128>(p, B, pl, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1579,8 +1582,10 @@ extern "C" int ec_dropout_mask(const void* seed, unsigned thresh, long BH, int N
 
 // CH16 as in attn_body: ATT_ROW16 the whole key row in registers, one
 // pass; ATT_CH16 two passes over chunks of that many 16-key tiles.
+// Head dim 128 holds one block an SM (255 registers a thread): its dq tile
+// and query and do fragments alone take 128.
 template <int D, int CH16>
-__global__ void __launch_bounds__(BWD_MAX_WARPS * 32, CH16 == ATT_ROW16 ? 1 : 2)
+__global__ void __launch_bounds__(BWD_MAX_WARPS * 32, CH16 == ATT_ROW16 || D > 64 ? 1 : 2)
     train_bwd_q_kernel(AttnArgs p, BwdArgs w) {
   constexpr bool ONE = CH16 == ATT_ROW16;
   constexpr int KLD = D + 8;
@@ -1677,7 +1682,7 @@ __global__ void __launch_bounds__(BWD_MAX_WARPS * 32, CH16 == ATT_ROW16 ? 1 : 2)
 }
 
 template <int D>
-__global__ void __launch_bounds__(BWD_MAX_WARPS * 32, 2)
+__global__ void __launch_bounds__(BWD_MAX_WARPS * 32, D > 64 ? 1 : 2)
     train_bwd_k_kernel(AttnArgs p, BwdArgs w) {
   constexpr int KLD = D + 8;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1819,6 +1824,7 @@ extern "C" int ec_attn_train_fwd(const void* q, const void* k, const void* v, in
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 32) return launch_train_fwd<32>(p, B, pl, s);
   if (D == 64) return launch_train_fwd<64>(p, B, pl, s);
+  if (D == 128) return launch_train_fwd<128>(p, B, pl, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1853,6 +1859,7 @@ extern "C" int ec_attn_train_bwd(const void* q, const void* k, const void* v, in
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 32) return launch_train_bwd<32>(p, w, B, pl, s);
   if (D == 64) return launch_train_bwd<64>(p, w, B, pl, s);
+  if (D == 128) return launch_train_bwd<128>(p, w, B, pl, s);
   return (int)cudaErrorInvalidValue;
 }
 

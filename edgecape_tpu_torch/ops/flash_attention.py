@@ -116,16 +116,18 @@ def _bf16_operand(x):
 
 def flash_mha_train_plain(q, k, v, key_valid=None, bias=None, *,
                           dropout_rate: float = 0.0, generator=None,
-                          keep=None):
+                          keep=None, scale=None):
     """Plain PyTorch version of flash_mha_train with the kernels' rounding
     points, differentiated by autograd. `keep` is an explicit dropout
     mask, bool [B, H, Nq, Nk]; without one and with dropout_rate > 0 it
     is drawn from `generator`. A row whose keys are all masked gives 0,
-    like the kernels."""
+    like the kernels. `scale`: 1 / sqrt(D) by default (a caller whose
+    heads are padded, ops/kernels.py pad_heads, gives the true one)."""
     b, nq, h, d = q.shape
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
     qf, kf, vf = (_bf16_operand(t).transpose(1, 2) for t in (q, k, v))
     s = _RoundGradBf16.apply(
-        torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / math.sqrt(d)))
+        torch.matmul(qf, kf.transpose(-1, -2)) * scale)
     if key_valid is not None:
         s = s + plain.key_bias(key_valid)[:, None, None, :]
     if bias is not None:

@@ -64,9 +64,14 @@ weights and activations, fp32 coordinates; its polynomial erf is the
 exact `erff` in the ref_point_head GEMM and the same polynomial in the
 keypoint head (the two differ by less than 1.5e-7); dec_post_cross adds
 ffn2 onto the LN2 output it is added to (ops/kernels.py dec_post_cross).
-The kernels of the layer body and the keypoint head take the model's
-width C = 256 and the bias attention 8 heads of 32; another shape raises
-on the card. The stack's own weights (the permuted fc1, the stacked
+The kernels of the layer body and the keypoint head are written for the
+model's width C = 256 and the bias attention for 8 heads of 32; every
+other width up to 512 channels, 1..16 heads of up to 128, takes their
+companions in csrc/head_wide.cu (dec_post_self_wide_kernel,
+dec_post_cross_wide_kernel, kpt_head_wide_kernel, bias_attn_wide_kernel:
+simple 16-row WMMA kernels; ops/kernels.py post_plan, kpt_head_plan,
+bias_attention_plan choose), one launch each where the 256-channel form
+has one, so a call keeps its 3 + 9 L launches. The stack's own weights (the permuted fc1, the stacked
 cross-attention weights, kpt_branch, the bias MLPs) are prepared once per
 decoder module and the layers' once per layer module, each kept until a
 parameter changes.
@@ -133,29 +138,45 @@ def fused_decoder_layer_plain(x, query_pos, img_tokens, img_pos, kp_valid,
 
 
 def _prepare(layer) -> dict:
-    """The layer's weights as the kernels take them."""
+    """The layer's weights as the kernels take them, in the layout of
+    ops/kernels.py post_plan: the GCN width padded to its chunks and, at a
+    width other than 256, the post-attention kernels' weights padded to
+    c_pad channels and 2C to a multiple of WIDE_K (zero rows and columns,
+    pad_gcn / pad_cols); the GEMMs' weights as they are."""
+    from . import kernels as K
     sa, ca = layer.self_attn, layer.cross_attn
     w16 = lambda w: w.detach().to(torch.bfloat16).contiguous()  # noqa: E731
     v32 = lambda v: v.detach().to(torch.float32).contiguous()  # noqa: E731
     c = layer.norm1.weight.shape[0]
+    f = layer.ffn2.in_features
+    plan = K.post_plan(1, c, f, chunk=K.DEC_CHUNK)
+    cp = plan.get("c_pad", c)
+    c2p = K._up(2 * c, K.WIDE_K) if plan.get("wide") else 2 * c
+    wg, bg, wf = K.pad_gcn(layer.gcn.conv.weight, layer.gcn.conv.bias,
+                           layer.ffn2.weight, plan.get("f_pad", f), cp)
+    pad = K.pad_cols
     wq, wk = ca.q_proj.weight, ca.k_proj.weight
     return {
         "wqkv": w16(torch.cat([sa.q_proj.weight, sa.k_proj.weight,
                                sa.v_proj.weight])),
         "bqkv": v32(torch.cat([sa.q_proj.bias, sa.k_proj.bias,
                                sa.v_proj.bias])),
-        "wso": w16(sa.out_proj.weight), "bso": v32(sa.out_proj.bias),
+        "wso": w16(pad(sa.out_proj.weight, cp, cp)),
+        "bso": v32(sa.out_proj.bias),
         "g1": v32(layer.norm1.weight), "be1": v32(layer.norm1.bias),
-        "wcq_x": w16(wq[:, :c]), "wcq_p": w16(wq[:, c:]),
+        "wcq_x": w16(pad(wq[:, :c], c2p, cp)),
+        "wcq_p": w16(pad(wq[:, c:], c2p, cp)),
         "bcq": v32(ca.q_proj.bias),
         "wck_img": w16(wk[:, :c]), "wck_pos": w16(wk[:, c:]),
         "bck": v32(ca.k_proj.bias),
         "wcv": w16(ca.v_proj.weight), "bcv": v32(ca.v_proj.bias),
-        "wco": w16(ca.out_proj.weight), "bco": v32(ca.out_proj.bias),
-        "wch": w16(layer.choker.weight), "bch": v32(layer.choker.bias),
+        "wco": w16(pad(ca.out_proj.weight, c2p, c2p)),
+        "bco": v32(ca.out_proj.bias),
+        "wch": w16(pad(layer.choker.weight, cp, c2p)),
+        "bch": v32(layer.choker.bias),
         "g2": v32(layer.norm2.weight), "be2": v32(layer.norm2.bias),
-        "wg": w16(layer.gcn.conv.weight), "bg": v32(layer.gcn.conv.bias),
-        "wf": w16(layer.ffn2.weight), "bf": v32(layer.ffn2.bias),
+        "wg": w16(wg), "bg": v32(bg), "wf": w16(wf),
+        "bf": v32(layer.ffn2.bias),
         "g3": v32(layer.norm3.weight), "be3": v32(layer.norm3.bias)}
 
 
@@ -335,11 +356,13 @@ def _build_stack_weights(decoder, num_feats: int, has_bias: bool) -> dict:
     bf, f32 = torch.bfloat16, torch.float32
     w16 = lambda w: w.detach().to(bf).contiguous()  # noqa: E731
     v32 = lambda v: v.detach().to(f32).contiguous()  # noqa: E731
+    from .kernels import kpt_head_plan, pad_cols
     rph, norm = decoder.ref_point_head, decoder.norm
     c = norm.weight.shape[0]
+    cp = kpt_head_plan(1, c).get("c_pad", c)
     layers = []
     for layer, branch in zip(decoder.layers, decoder.kpt_branches):
-        w = {"kpt": [(w16(fc.weight), v32(fc.bias))
+        w = {"kpt": [(w16(pad_cols(fc.weight, cp, cp)), v32(fc.bias))
                      for fc in (branch.fc0, branch.fc1, branch.fc2)],
              "kow": w16(branch.out.weight), "kob": v32(branch.out.bias)}
         if has_bias:

@@ -11,7 +11,8 @@ TPU stack's.
 On the H100 a layer is three launches: the q, k, v GEMM against the
 concatenated weight, attention with all keys and values of a head in
 shared memory (the [N, N] scores never leave the SM), and
-enc_post_kernel (ops/kernels.py enc_post), which runs everything after
+enc_post_kernel (ops/kernels.py enc_post; enc_post_wide_kernel at a
+width other than 256 channels), which runs everything after
 the attention on tiles of 128 token rows kept on chip: out projection,
 residual and LN1, the ReLU FFN with its hidden in shared memory one
 chunk of 128 at a time, LN2 (see csrc/kernels.cu for its design). The
@@ -66,19 +67,29 @@ def fused_encoder_layer_plain(tokens, pos, key_valid, layer, *,
 
 
 def _prepare(layer) -> dict:
-    """The layer's weights as the kernels take them."""
+    """The layer's weights as the kernels take them, in the layout of
+    ops/kernels.py post_plan: the FFN hidden padded to its chunks and, at
+    a width other than 256, wo, w1 and w2 padded to c_pad channels (zero
+    rows and columns, pad_ffn / pad_cols)."""
+    from . import kernels as K
     at = layer.self_attn
     w16 = lambda w: w.detach().to(torch.bfloat16).contiguous()  # noqa: E731
     v32 = lambda v: v.detach().to(torch.float32).contiguous()  # noqa: E731
+    c, f = layer.linear1.in_features, layer.linear1.out_features
+    plan = K.post_plan(1, c, f)
+    cp = plan.get("c_pad", c)
+    w1, b1, w2 = K.pad_ffn(layer.linear1.weight, layer.linear1.bias,
+                           layer.linear2.weight, plan.get("f_pad", f), cp)
     return {
         "wqkv": w16(torch.cat([at.q_proj.weight, at.k_proj.weight,
                                at.v_proj.weight])),
         "bqkv": v32(torch.cat([at.q_proj.bias, at.k_proj.bias,
                                at.v_proj.bias])),
-        "wo": w16(at.out_proj.weight), "bo": v32(at.out_proj.bias),
+        "wo": w16(K.pad_cols(at.out_proj.weight, cp, cp)),
+        "bo": v32(at.out_proj.bias),
         "g1": v32(layer.norm1.weight), "be1": v32(layer.norm1.bias),
-        "w1": w16(layer.linear1.weight), "b1": v32(layer.linear1.bias),
-        "w2": w16(layer.linear2.weight), "b2": v32(layer.linear2.bias),
+        "w1": w16(w1), "b1": v32(b1), "w2": w16(w2),
+        "b2": v32(layer.linear2.bias),
         "g2": v32(layer.norm2.weight), "be2": v32(layer.norm2.bias)}
 
 

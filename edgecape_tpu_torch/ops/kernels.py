@@ -3,7 +3,9 @@ in `kernels.cu` the building blocks of the eval ops, the ViT attention
 and MLP halves,
 the decoder stack's own kernels and the training attention's forward /
 backward pair, in `attn_long.cu` the same attention kernels with the keys
-streamed, for rows longer than a block holds, in `mm_chain.cu` the
+streamed, for rows longer than a block holds, in `head_wide.cu` the
+head's post-attention kernels, keypoint head and bias attention at every
+width other than 256 channels in 8 heads of 32, in `mm_chain.cu` the
 matmul chain of the probe tool.
 
 Each source is compiled with `nvcc` for `sm_90a` into a shared library
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from functools import partial
 import glob
 import hashlib
 import os
@@ -59,7 +62,9 @@ launches = dict.fromkeys((
     "vit_mlp_kernel", "vit_qkv_kernel", "vit_attn_kernel",
     "bias_attn_kernel", "kpt_head_kernel", "attn_long_kernel",
     "train_fwd_long_kernel", "train_bwd_q_long_kernel",
-    "train_bwd_k_long_kernel"), 0)
+    "train_bwd_k_long_kernel", "enc_post_wide_kernel",
+    "dec_post_self_wide_kernel", "dec_post_cross_wide_kernel",
+    "kpt_head_wide_kernel", "bias_attn_wide_kernel"), 0)
 
 _P = ctypes.c_void_p
 _L = ctypes.c_long
@@ -121,6 +126,16 @@ _SIGNATURES = {
     "ec_vit_qkv": [_P, _I, _P, _P, _P, _P, _P, _I, _F, _P],
     # qkv, x, its dtype, Wproj, bp, ls, out, its dtype, B, N, scale, smem
     "ec_vit_attn": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _L, _P],
+    # head_wide.cu: the operands, then R, C, the padded widths, eps
+    "ec_enc_post_wide": [_P] * 13 + [_I, _P, _I, _P, _L, _I, _I, _I, _F, _P],
+    "ec_dec_post_self_wide": [_P] * 12 + [_L, _I, _I, _I, _F, _P],
+    "ec_dec_post_cross_wide": [_P] * 11 + [_I] + [_P] * 7 + [_I] * 7
+    + [_F, _P],
+    "ec_kpt_head_wide": [_P] * 14 + [_L, _I, _I, _F, _F, _P],
+    # qkv, B, N, H, D, key mask + stride, hops, n_hop, hidden, the MLP's
+    # four tensors, scale, out
+    "ec_bias_attention_wide": [_P, _I, _I, _I, _I, _P, _L, _P, _I, _I, _P,
+                               _P, _P, _P, _F, _P, _P],
 }
 
 
@@ -443,6 +458,43 @@ ATT_SMEM_LIMIT = 227 * 1024
 ATT_STREAM_ROWS, ATT_STREAM_KEYS, ATT_STREAM_STAGES = 128, 128, 4
 ATT_STREAM_WARPS = 12
 ATT_BWD_TILE, ATT_BWD_STAGES = 64, 4
+# Head dims the kernels are instantiated at: the resident kernels (eval,
+# training forward and backward) at all three, the streaming ones at the
+# first two. A head dim d runs at the first of them at or above it, its q,
+# k and v laid out with zero columns (pad_heads), which leave every score
+# and output unchanged: the scale is the caller's, from the true d.
+ATT_HEAD_DIMS, ATT_STREAM_HEAD_DIMS = (32, 64, 128), (32, 64)
+
+
+def attention_head_dim(d: int) -> int:
+    """The head dim the kernels run a head of d at (ATT_HEAD_DIMS)."""
+    if not 1 <= d <= ATT_HEAD_DIMS[-1]:
+        raise ValueError(f"attention takes head dims 1..{ATT_HEAD_DIMS[-1]}, "
+                         f"got {d}")
+    return next(dp for dp in ATT_HEAD_DIMS if dp >= d)
+
+
+def pad_heads(t: torch.Tensor, num_heads: int, d_pad: int) -> torch.Tensor:
+    """[B, N, H*d] -> [B, N, H*d_pad]: each head's d columns, then zeros
+    (t itself where d == d_pad). The plain version of what the kernels of
+    a padded head dim read."""
+    b, n, c = t.shape
+    d = c // num_heads
+    if d == d_pad:
+        return t
+    out = t.new_zeros((b, n, num_heads, d_pad))
+    out[..., :d] = t.reshape(b, n, num_heads, d)
+    return out.view(b, n, num_heads * d_pad)
+
+
+def unpad_heads(t: torch.Tensor, num_heads: int, d: int) -> torch.Tensor:
+    """[B, N, H*d_pad] -> [B, N, H*d]: each head's first d columns (t
+    itself where d == d_pad)."""
+    b, n, cp = t.shape
+    dp = cp // num_heads
+    if dp == d:
+        return t
+    return t.view(b, n, num_heads, dp)[..., :d].reshape(b, n, num_heads * d)
 
 
 def _stream_smem(d: int) -> int:
@@ -469,12 +521,13 @@ def _max_warps(d: int, chunk_tiles: int) -> int:
     """Warps (16-row query tiles) a block may have. One pass: a block's
     keys are few (at most 128, 20 KB of shared memory with the values), so
     four warps a block let many blocks share an SM and split small batches
-    finely. Two passes: the keys and values of a head take 59..147 KB,
-    read again by each block of the split, so a block takes as many tiles
-    as let two blocks share an SM's registers."""
+    finely. Two passes: the keys and values of a head take 59..147 KB
+    (up to 227 KB at head dim 128), read again by each block of the
+    split, so a block takes as many tiles as let two blocks share an SM's
+    registers."""
     if chunk_tiles == ATT_ROW16:
         return 4
-    return 12 if d == 32 else 9
+    return {32: 12, 64: 9}.get(d, 4)
 
 
 def _streams(nk: int, chunk_tiles, long: bool) -> bool:
@@ -490,20 +543,32 @@ def _streams(nk: int, chunk_tiles, long: bool) -> bool:
     return False
 
 
+def _stream_head_dim(dp: int, d: int, rows: int) -> None:
+    if dp not in ATT_STREAM_HEAD_DIMS:
+        raise ValueError(f"the streaming attention kernels take head dims up "
+                         f"to {ATT_STREAM_HEAD_DIMS[-1]}, got {d} (rows of "
+                         f"{rows} keys or queries, above what a block holds "
+                         f"at head dim {dp})")
+
+
+def _padded(plan: tuple, dp: int, d: int) -> tuple:
+    return plan + ((("d_pad", dp),) if dp != d else ())
+
+
 @functools.lru_cache(maxsize=None)
 def _attention_plan(nq, nk, d, train, chunk_tiles, long):
-    if d not in (32, 64):
-        raise ValueError(f"attention takes head dim 32 or 64, got {d}")
+    dp = attention_head_dim(d)
     if nq < 1 or nk < 1:
         raise ValueError(f"attention takes at least one query and one key, "
                          f"got Nq={nq}, Nk={nk}")
     key_tiles = -(-nk // 16)
     if _streams(nk, chunk_tiles, long):
-        return (("long", True), ("q_split", -(-nq // ATT_STREAM_ROWS)),
-                ("warps", ATT_STREAM_WARPS), ("one_pass", True),
-                ("smem_bytes", _stream_smem(d)),
-                ("key_tiles", -(-nk // ATT_STREAM_KEYS)),
-                ("stages", ATT_STREAM_STAGES))
+        _stream_head_dim(dp, d, nk)
+        return _padded((("long", True), ("q_split", -(-nq // ATT_STREAM_ROWS)),
+                        ("warps", ATT_STREAM_WARPS), ("one_pass", True),
+                        ("smem_bytes", _stream_smem(dp)),
+                        ("key_tiles", -(-nk // ATT_STREAM_KEYS)),
+                        ("stages", ATT_STREAM_STAGES)), dp, d)
     fits = key_tiles <= ATT_ROW16
     if chunk_tiles is None:
         chunk_tiles = ATT_ROW16 if fits else ATT_CH16
@@ -514,16 +579,23 @@ def _attention_plan(nq, nk, d, train, chunk_tiles, long):
         raise ValueError(f"{nk} keys do not fit one pass "
                          f"({ATT_ROW16 * 16} at most)")
     tiles = -(-nq // 16)
-    q_split = -(-tiles // _max_warps(d, chunk_tiles))
-    warps = -(-tiles // q_split)
-    kld, nkp = d + 8, key_tiles * 16
-    smem = 4 * nkp * kld + 32 * warps * kld + 4 * nkp
+    kld, nkp = dp + 8, key_tiles * 16
+    # fewer warps a block where a head's keys and values leave no room
+    # for more query tiles (head dim 128 above 320 keys)
+    for cap in range(_max_warps(dp, chunk_tiles), 0, -1):
+        q_split = -(-tiles // cap)
+        warps = -(-tiles // q_split)
+        smem = 4 * nkp * kld + 32 * warps * kld + 4 * nkp
+        if smem <= ATT_SMEM_LIMIT:
+            break
     if smem > ATT_SMEM_LIMIT or q_split > 65535:
         raise ValueError(f"attention plan does not fit: {smem} bytes of "
-                         f"shared memory, query split {q_split}")
-    return (("q_split", q_split), ("warps", warps),
-            ("one_pass", chunk_tiles == ATT_ROW16), ("smem_bytes", smem),
-            ("key_tiles", key_tiles), ("chunk_tiles", chunk_tiles))
+                         f"shared memory, query split {q_split} (Nk={nk}, "
+                         f"head dim {d} run at {dp})")
+    return _padded((("q_split", q_split), ("warps", warps),
+                    ("one_pass", chunk_tiles == ATT_ROW16),
+                    ("smem_bytes", smem), ("key_tiles", key_tiles),
+                    ("chunk_tiles", chunk_tiles)), dp, d)
 
 
 def attention_plan(nq: int, nk: int, d: int, train: bool = False,
@@ -551,8 +623,14 @@ def attention_plan(nq: int, nk: int, d: int, train: bool = False,
     and smem_bytes (_stream_smem). Every shape up to ATT_MAX_KEYS gets the
     resident kernels' plan.
 
-    Raises for what the kernels do not take: d not 32 or 64, no query or
-    key, chunk_tiles with more than ATT_MAX_KEYS keys or `long`."""
+    A head dim other than 32, 64 or 128 runs at the next of them
+    (attention_head_dim): the plan then holds `d_pad`, the head dim the
+    kernel is launched at, over q, k, v laid out by pad_heads.
+
+    Raises for what the kernels do not take: d outside 1..128, a head
+    dim above 64 with more keys than the resident kernel holds (the
+    streaming kernels take 32 and 64), no query or key, chunk_tiles with
+    more than ATT_MAX_KEYS keys or `long`."""
     return dict(_attention_plan(int(nq), int(nk), int(d), bool(train),
                                 chunk_tiles, bool(long)))
 
@@ -567,33 +645,38 @@ def _plan_args(plan: dict) -> list:
 BWD_MAX_WARPS = 8          # 16-row tiles a block of the backward takes
 
 
-def _bwd_split(tiles: int, resident_tiles: int):
+def _bwd_split(tiles: int, resident_tiles: int, smem):
     """(split, warps) of `tiles` 16-row tiles over blocks: blocks of at
     most 4 warps where the resident operand is short (up to 128 rows: cheap
     to copy again, and small batches then still fill the card), else of at
-    most BWD_MAX_WARPS."""
+    most BWD_MAX_WARPS; fewer where smem(warps), a block's shared memory,
+    would exceed ATT_SMEM_LIMIT (head dim 128)."""
     cap = 4 if resident_tiles <= ATT_ROW16 else BWD_MAX_WARPS
-    split = -(-tiles // cap)
-    return split, -(-tiles // split)
+    while True:
+        split = -(-tiles // cap)
+        warps = -(-tiles // split)
+        if cap == 1 or smem(warps) <= ATT_SMEM_LIMIT:
+            return split, warps
+        cap -= 1
 
 
 @functools.lru_cache(maxsize=None)
 def _attention_bwd_plan(nq, nk, d, chunk_tiles, long):
-    if d not in (32, 64):
-        raise ValueError(f"attention takes head dim 32 or 64, got {d}")
+    dp = attention_head_dim(d)
     if nq < 1 or nk < 1:
         raise ValueError(f"the attention backward takes at least one query "
                          f"and one key, got Nq={nq}, Nk={nk}")
     if _streams(max(nq, nk), chunk_tiles, long):
-        smem = _bwd_stream_smem(d)
-        return (("long", True), ("q_split", -(-nq // ATT_STREAM_ROWS)),
-                ("q_warps", ATT_STREAM_WARPS), ("one_pass", True),
-                ("q_smem_bytes", smem),
-                ("k_split", -(-nk // ATT_STREAM_ROWS)),
-                ("k_warps", ATT_STREAM_WARPS), ("k_smem_bytes", smem),
-                ("q_tiles", -(-nq // ATT_BWD_TILE)),
-                ("key_tiles", -(-nk // ATT_BWD_TILE)),
-                ("stages", ATT_BWD_STAGES))
+        _stream_head_dim(dp, d, max(nq, nk))
+        smem = _bwd_stream_smem(dp)
+        return _padded((("long", True), ("q_split", -(-nq // ATT_STREAM_ROWS)),
+                        ("q_warps", ATT_STREAM_WARPS), ("one_pass", True),
+                        ("q_smem_bytes", smem),
+                        ("k_split", -(-nk // ATT_STREAM_ROWS)),
+                        ("k_warps", ATT_STREAM_WARPS), ("k_smem_bytes", smem),
+                        ("q_tiles", -(-nq // ATT_BWD_TILE)),
+                        ("key_tiles", -(-nk // ATT_BWD_TILE)),
+                        ("stages", ATT_BWD_STAGES)), dp, d)
     q_tiles, key_tiles = -(-nq // 16), -(-nk // 16)
     fits = key_tiles <= ATT_ROW16
     if chunk_tiles is None:
@@ -604,21 +687,27 @@ def _attention_bwd_plan(nq, nk, d, chunk_tiles, long):
     elif chunk_tiles == ATT_ROW16 and not fits:
         raise ValueError(f"{nk} keys do not fit one pass "
                          f"({ATT_ROW16 * 16} at most)")
-    kld = d + 8
-    q_split, q_warps = _bwd_split(q_tiles, key_tiles)
-    k_split, k_warps = _bwd_split(key_tiles, q_tiles)
-    q_smem = 4 * key_tiles * 16 * kld + 64 * q_warps * kld \
-        + 4 * key_tiles * 16
-    k_smem = 4 * q_tiles * 16 * kld + 16 * q_tiles * 16 + 64 * k_warps * kld
+    kld = dp + 8
+
+    def q_need(warps):
+        return 4 * key_tiles * 16 * kld + 64 * warps * kld + 4 * key_tiles * 16
+
+    def k_need(warps):
+        return 4 * q_tiles * 16 * kld + 16 * q_tiles * 16 + 64 * warps * kld
+
+    q_split, q_warps = _bwd_split(q_tiles, key_tiles, q_need)
+    k_split, k_warps = _bwd_split(key_tiles, q_tiles, k_need)
+    q_smem, k_smem = q_need(q_warps), k_need(k_warps)
     if max(q_smem, k_smem) > ATT_SMEM_LIMIT:
         raise ValueError(f"attention backward plan does not fit: {q_smem} "
-                         f"and {k_smem} bytes of shared memory")
-    return (("q_split", q_split), ("q_warps", q_warps),
-            ("one_pass", chunk_tiles == ATT_ROW16),
-            ("chunk_tiles", chunk_tiles), ("q_smem_bytes", q_smem),
-            ("k_split", k_split), ("k_warps", k_warps),
-            ("k_smem_bytes", k_smem), ("q_tiles", q_tiles),
-            ("key_tiles", key_tiles))
+                         f"and {k_smem} bytes of shared memory (Nq={nq}, "
+                         f"Nk={nk}, head dim {d} run at {dp})")
+    return _padded((("q_split", q_split), ("q_warps", q_warps),
+                    ("one_pass", chunk_tiles == ATT_ROW16),
+                    ("chunk_tiles", chunk_tiles), ("q_smem_bytes", q_smem),
+                    ("k_split", k_split), ("k_warps", k_warps),
+                    ("k_smem_bytes", k_smem), ("q_tiles", q_tiles),
+                    ("key_tiles", key_tiles)), dp, d)
 
 
 def attention_bwd_plan(nq: int, nk: int, d: int, chunk_tiles=None,
@@ -648,8 +737,12 @@ def attention_bwd_plan(nq: int, nk: int, d: int, chunk_tiles=None,
     q_warps = k_warps = ATT_STREAM_WARPS warps with q_smem_bytes =
     k_smem_bytes (_bwd_stream_smem) of shared memory.
 
-    Raises for what the kernels do not take: d not 32 or 64, no query or
-    key, chunk_tiles with more than ATT_MAX_KEYS of either or `long`."""
+    A head dim other than 32, 64 or 128 holds `d_pad` as attention_plan's.
+
+    Raises for what the kernels do not take: d outside 1..128, a head
+    dim above 64 with more queries or keys than the resident kernels hold,
+    no query or key, chunk_tiles with more than ATT_MAX_KEYS of either or
+    `long`."""
     return dict(_attention_bwd_plan(int(nq), int(nk), int(d), chunk_tiles,
                                     bool(long)))
 
@@ -704,7 +797,9 @@ def attention(q, k, v, *, num_heads: int, scale: float, key_valid=None,
     bias: [B, H, Nq, Nk] fp32. One launch of attn_kernel, or of
     attn_long_kernel where the plan streams the keys (its operands as
     _stream_operand gives them; the scale must be positive); `plan`
-    overrides attention_plan (for measurements)."""
+    overrides attention_plan (for measurements). Where the plan pads the
+    head dim (`d_pad`), q, k and v are laid out by pad_heads and the
+    result's padding columns dropped."""
     _cuda(q, k, v, key_valid, bias, out)
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("q, k, v dtypes differ")
@@ -721,20 +816,34 @@ def attention(q, k, v, *, num_heads: int, scale: float, key_valid=None,
             raise ValueError(f"bias shape {tuple(bias.shape)}")
     if plan is None:
         plan = attention_plan(nq, nk, d)
-    if out is None:
-        out = torch.empty((b, nq, c), dtype=out_dtype, device=q.device)
-    elif tuple(out.shape) != (b, nq, c) or out.stride(-1) != 1:
+    if out is not None and (tuple(out.shape) != (b, nq, c)
+                            or out.stride(-1) != 1):
         raise ValueError(f"attention out {tuple(out.shape)}")
+    dp = plan.get("d_pad", d)
+    res = out
+    if dp != d:
+        q, k, v = (pad_heads(t, num_heads, dp) for t in (q, k, v))
+        res = None
+    if res is None:
+        res = torch.empty((b, nq, num_heads * dp),
+                          dtype=out_dtype if out is None else out.dtype,
+                          device=q.device)
     long = bool(plan.get("long"))
     if long:
         q, k, v = (_stream_operand(t) for t in (q, k, v))
     _call("ec_attention_long" if long else "ec_attention", q.data_ptr(),
           k.data_ptr(), v.data_ptr(), _dt(q), q.stride(0), q.stride(1),
           k.stride(0), k.stride(1), v.stride(0), v.stride(1), b, num_heads,
-          d, nq, nk, kv_ptr, kv_stride, _ptr(bias), float(scale),
-          out.data_ptr(), _dt(out), out.stride(0), out.stride(1),
+          dp, nq, nk, kv_ptr, kv_stride, _ptr(bias), float(scale),
+          res.data_ptr(), _dt(res), res.stride(0), res.stride(1),
           *_plan_args(plan), _stream())
     launches["attn_long_kernel" if long else "attn_kernel"] += 1
+    if dp == d:
+        return res
+    res = unpad_heads(res, num_heads, d)
+    if out is None:
+        return res
+    out.copy_(res)
     return out
 
 
@@ -786,9 +895,9 @@ def _train_head(q, k, v, num_heads, scale, key_valid, bias, seed, rate):
     b, nq, c = q.shape
     nk = k.shape[1]
     d = c // num_heads
-    if d not in (32, 64):
-        raise ValueError(f"training attention takes head dim 32 or 64, got "
-                         f"D={d}")
+    if d not in ATT_HEAD_DIMS:
+        raise ValueError(f"training attention runs at head dims "
+                         f"{ATT_HEAD_DIMS} (pad_heads), got D={d}")
     for t in (q, k, v):
         if t.stride(-1) != 1:
             raise ValueError("attention operands need a unit last stride")
@@ -815,16 +924,22 @@ def attention_train_fwd(q, k, v, *, num_heads: int, scale: float,
     keyed by `seed`, a one-element int64 CUDA tensor. One launch of
     train_fwd_kernel, or of train_fwd_long_kernel where the plan streams
     the keys (its operands as _stream_operand gives them; the scale must
-    be positive)."""
+    be positive). A padded head dim (the plan's `d_pad`) runs on q, k, v
+    laid out by pad_heads; the output drops the padding columns."""
+    _cuda(q, k, v)
     b, nq, c = q.shape
+    d = c // num_heads
     if plan is None:
-        plan = attention_plan(nq, k.shape[1], c // num_heads, train=True)
+        plan = attention_plan(nq, k.shape[1], d, train=True)
+    dp = plan.get("d_pad", d)
+    q, k, v = (pad_heads(t, num_heads, dp) for t in (q, k, v))
     long = bool(plan.get("long"))
     if long:
         q, k, v = (_stream_operand(t) for t in (q, k, v))
     args, keep_alive = _train_head(q, k, v, num_heads, scale, key_valid,
                                    bias, seed, rate)
-    out = torch.empty((b, nq, c), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, nq, num_heads * dp), dtype=torch.float32,
+                      device=q.device)
     stats = torch.empty((b * num_heads, nq, 2), dtype=torch.float32,
                         device=q.device)
     _call("ec_attn_train_fwd_long" if long else "ec_attn_train_fwd", *args,
@@ -832,7 +947,7 @@ def attention_train_fwd(q, k, v, *, num_heads: int, scale: float,
           *_plan_args(plan), _stream())
     launches["train_fwd_long_kernel" if long else "train_fwd_kernel"] += 1
     del keep_alive
-    return out, stats
+    return unpad_heads(out, num_heads, d), stats
 
 
 def attention_train_bwd(q, k, v, dout, stats, *, num_heads: int,
@@ -850,22 +965,31 @@ def attention_train_bwd(q, k, v, dout, stats, *, num_heads: int,
     The streaming pair also takes `out`, the forward's fp32 output [B, Nq,
     H*D] (delta = rowsum(bf16(dout) * out)), and its operands and dout as
     _stream_operand gives them (dout rounded to bf16 once, as the TPU
-    kernel casts it); the scale must be positive."""
+    kernel casts it); the scale must be positive. A padded head dim (the
+    plan's `d_pad`) runs on q, k, v, dout and `out` laid out by
+    pad_heads; the gradients drop the padding columns."""
     b, nq, c = q.shape
     nk = k.shape[1]
+    d = c // num_heads
     if plan is None:
-        plan = attention_bwd_plan(nq, nk, c // num_heads)
+        plan = attention_bwd_plan(nq, nk, d)
     long = bool(plan.get("long"))
     _cuda(q, k, v, dout, stats, out)
     if tuple(dout.shape) != (b, nq, c):
         raise ValueError(f"dout shape {tuple(dout.shape)}")
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
+    if long and (out is None or tuple(out.shape) != (b, nq, c)
+                 or out.dtype != torch.float32 or out.stride(-1) != 1):
+        raise ValueError("the streaming backward takes the forward's fp32 "
+                         f"output [{b}, {nq}, {c}] as `out`")
+    dp = plan.get("d_pad", d)
+    if dp != d:
+        q, k, v, dout = (pad_heads(t, num_heads, dp) for t in (q, k, v, dout))
+        if out is not None:
+            out = pad_heads(out, num_heads, dp)
+        c = num_heads * dp
     if long:
-        if out is None or tuple(out.shape) != (b, nq, c) \
-                or out.dtype != torch.float32 or out.stride(-1) != 1:
-            raise ValueError("the streaming backward takes the forward's fp32 "
-                             f"output [{b}, {nq}, {c}] as `out`")
         q, k, v, dout = (_stream_operand(t) for t in (q, k, v, dout))
     args, keep_alive = _train_head(q, k, v, num_heads, scale, key_valid,
                                    bias, seed, rate)
@@ -889,6 +1013,7 @@ def attention_train_bwd(q, k, v, dout, stats, *, num_heads: int,
     launches[f"train_bwd_q{form}_kernel"] += 1
     launches[f"train_bwd_k{form}_kernel"] += 1
     del keep_alive
+    dq, dk, dv = (unpad_heads(t, num_heads, d) for t in (dq, dk, dv))
     return dq, dk, dv, dbias
 
 
@@ -924,34 +1049,114 @@ def module_weights(module, attr: str, build, *extra):
 # tiles of POST_TILE rows; the encoder's FFN hidden in chunks of ENC_CHUNK
 # columns, the decoder's GCN width in chunks of DEC_CHUNK.
 POST_C, POST_TILE, ENC_CHUNK, DEC_CHUNK = 256, 128, 128, 64
+# Their companions at every other width (csrc/head_wide.cu): up to
+# WIDE_MAX_C channels in tiles of WIDE_TILE rows (the cross kernel: a batch
+# row of up to POST_TILE keypoints), K and N of every product padded to
+# multiples of WIDE_K, hidden widths to multiples of WIDE_CHUNK, in shared
+# memory of at most ATT_SMEM_LIMIT a block.
+WIDE_MAX_C, WIDE_TILE, WIDE_K, WIDE_CHUNK = 512, 16, 16, 64
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _wide_tile(cols: int, el: int) -> int:
+    """Bytes of a 16-row shared-memory tile of head_wide.cu (hw_btile,
+    hw_ftile): rows padded by 16 bytes, rounded up to 128."""
+    return _up(el * WIDE_TILE * (cols + 16 // el), 128)
 
 
 def post_plan(rows: int, c: int, f: int, *, chunk: int = ENC_CHUNK,
               keypoints: Optional[int] = None) -> dict:
     """How a post-attention kernel covers `rows` token rows of c channels
-    with a hidden of width f: `tiles` of POST_TILE rows, whose `pad_rows`
-    missing rows (the last tile's) the TMA fills with zeros and the kernel
-    does not store, and `chunks` of the hidden. With `keypoints` (the
-    decoder's cross kernel): a tile is one batch row of K keypoints, padded
-    to POST_TILE rows with zero rows and zero adjacency columns. Raises
-    for what the kernels do not take."""
-    if c != POST_C:
-        raise ValueError(f"the post-attention kernels take {POST_C} "
+    with a hidden of width f. At POST_C channels: `tiles` of POST_TILE
+    rows, whose `pad_rows` missing rows (the last tile's) the TMA fills with
+    zeros and the kernel does not store, and `chunks` of the hidden, which
+    is padded to `f_pad` columns (a multiple of `chunk`) where f is not one.
+    With `keypoints` (the decoder's cross kernel): a tile is one batch row
+    of K keypoints, padded to POST_TILE rows with zero rows and zero
+    adjacency columns.
+
+    Any other c up to WIDE_MAX_C takes the head_wide.cu kernels, and the
+    plan holds `wide`: True, `c_pad` (c in multiples of WIDE_K), `f_pad`
+    (f in chunks of WIDE_CHUNK), `tiles` of WIDE_TILE rows (with
+    `keypoints`: a batch row each) and the largest `smem_bytes` of the
+    three kernels. The padding columns are zero in the weights
+    (pad_cols, pad_ffn, pad_gcn), so the products are unchanged. Raises for
+    what the kernels do not take: c outside 1..WIDE_MAX_C, no hidden, no
+    rows, keypoints outside 1..POST_TILE or no whole batch rows."""
+    if not 1 <= c <= WIDE_MAX_C:
+        raise ValueError(f"the post-attention kernels take 1..{WIDE_MAX_C} "
                          f"channels, got {c}")
-    if f <= 0 or f % chunk:
-        raise ValueError(f"hidden width {f} is not a positive multiple of "
-                         f"{chunk}")
+    if f <= 0:
+        raise ValueError(f"no hidden width ({f})")
     if rows <= 0:
         raise ValueError(f"no rows ({rows})")
-    if keypoints is None:
-        tiles = -(-rows // POST_TILE)
-        return {"tiles": tiles, "chunks": f // chunk,
-                "pad_rows": tiles * POST_TILE - rows}
-    if not 1 <= keypoints <= POST_TILE or rows % keypoints:
+    if keypoints is not None and (not 1 <= keypoints <= POST_TILE
+                                  or rows % keypoints):
         raise ValueError(f"{rows} rows are no batch of rows of 1..{POST_TILE}"
                          f" keypoints (K={keypoints})")
-    return {"tiles": rows // keypoints, "chunks": f // chunk,
-            "pad_rows": POST_TILE - keypoints}
+    if c != POST_C:
+        cp, c2p, f_pad = _up(c, WIDE_K), _up(2 * c, WIDE_K), _up(f, WIDE_CHUNK)
+        b, f4 = partial(_wide_tile, el=2), partial(_wide_tile, el=4)
+        smem = max(
+            b(cp) + 2 * f4(cp) + f4(WIDE_CHUNK) + b(WIDE_CHUNK),     # encoder
+            2 * b(cp) + f4(cp) + f4(c2p),                            # self
+            b(c2p) + f4(c2p) + f4(max(cp, WIDE_CHUNK)) + b(cp) + f4(128)
+            + 2 * b(_up(keypoints or POST_TILE, 16)) + b(WIDE_CHUNK))
+        tiles = rows // keypoints if keypoints else -(-rows // WIDE_TILE)
+        return {"wide": True, "c_pad": cp, "f_pad": f_pad,
+                "chunks": f_pad // WIDE_CHUNK, "tiles": tiles,
+                "pad_rows": (_up(keypoints, WIDE_TILE) - keypoints
+                             if keypoints else tiles * WIDE_TILE - rows),
+                "smem_bytes": smem}
+    f_pad = _up(f, chunk)
+    if keypoints is None:
+        tiles = -(-rows // POST_TILE)
+        plan = {"tiles": tiles, "chunks": f_pad // chunk,
+                "pad_rows": tiles * POST_TILE - rows}
+    else:
+        plan = {"tiles": rows // keypoints, "chunks": f_pad // chunk,
+                "pad_rows": POST_TILE - keypoints}
+    if f_pad != f:
+        plan["f_pad"] = f_pad
+    return plan
+
+
+def pad_cols(w: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """A matrix [r, c] inside a zero [rows, cols] one (w itself where it
+    has that shape): the layout of a padded weight."""
+    if tuple(w.shape) == (rows, cols):
+        return w
+    out = w.new_zeros((rows, cols))
+    out[:w.shape[0], :w.shape[1]] = w
+    return out
+
+
+def pad_ffn(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+            f_pad: int, c_pad: Optional[int] = None):
+    """The FFN relu(x W1^T + b1) W2^T with its hidden padded to f_pad:
+    zero rows of W1 [F, C] and b1, zero columns of W2 [C, F], exact under
+    ReLU; with c_pad also the channels (W1's columns, W2's rows)."""
+    c_pad = w1.shape[1] if c_pad is None else c_pad
+    return (pad_cols(w1, f_pad, c_pad), pad_cols(b1[None], 1, f_pad)[0],
+            pad_cols(w2, c_pad, f_pad))
+
+
+def pad_gcn(wg: torch.Tensor, bg: torch.Tensor, wf: torch.Tensor,
+            f_pad: int, c_pad: Optional[int] = None):
+    """The GCN conv [2F, C] (slices y0 | y1 of F rows each) and its bias,
+    each slice padded to f_pad zero rows, and ffn2 [C, F] to f_pad zero
+    columns: m = adj0 . y0 + adj1 . y1 then relu and ffn2 are unchanged;
+    with c_pad also the channels."""
+    f = wg.shape[0] // 2
+    c_pad = wg.shape[1] if c_pad is None else c_pad
+    wgp = torch.cat([pad_cols(wg[:f], f_pad, c_pad),
+                     pad_cols(wg[f:], f_pad, c_pad)])
+    bgp = torch.cat([pad_cols(bg[None, :f], 1, f_pad)[0],
+                     pad_cols(bg[None, f:], 1, f_pad)[0]])
+    return wgp, bgp, pad_cols(wf, c_pad, f_pad)
 
 
 def _operand(t: torch.Tensor, shape, dtype=torch.bfloat16,
@@ -975,16 +1180,21 @@ def enc_post(att: torch.Tensor, src: torch.Tensor, w: dict, *, eps: float,
     """The joint encoder layer after its attention, one launch:
     x = LN1(src + att . wo^T + bo); y = LN2(x + relu(bf16(x) . w1^T + b1)
     . w2^T + b2), the hidden in chunks and the second product accumulated
-    onto x. att, src: contiguous bf16 [R, 256]; w: the layer's weights
-    (wo, bo, g1, be1, w1, b1, w2, b2, g2, be2; ops/fused_encoder.py).
-    Returns (y [R, 256] in out_dtype, or None when out_dtype is None;
-    with pos [N, 256] bf16, the next layer's src = bf16(bf16(y) +
-    pos[row % N]) bf16 [R, 256], else None)."""
+    onto x. att, src: contiguous bf16 [R, C]; w: the layer's weights
+    (wo, bo, g1, be1, w1, b1, w2, b2, g2, be2; ops/fused_encoder.py
+    _prepare, in post_plan's layout). Returns (y [R, C] in out_dtype, or
+    None when out_dtype is None; with pos [N, C] bf16, the next layer's
+    src = bf16(bf16(y) + pos[row % N]) bf16 [R, C], else None).
+    enc_post_kernel at POST_C channels, enc_post_wide_kernel at the
+    others."""
     r, c = att.shape
     f = w["w1"].shape[0]
-    post_plan(r, c, f)
+    plan = post_plan(r, c, f)
     if out_dtype is None and pos is None:
         raise ValueError("enc_post writes y, the next src or both")
+    if plan.get("wide"):
+        return _enc_post_wide(att, src, w, plan, eps=eps,
+                              out_dtype=out_dtype, pos=pos)
     ptrs = [_operand(att, (r, c)), _operand(src, (r, c)),
             _operand(w["wo"], (c, c))] + _vectors(w, "bo", "g1", "be1") + [
         _operand(w["w1"], (f, c))] + _vectors(w, "b1") + [
@@ -1003,15 +1213,51 @@ def enc_post(att: torch.Tensor, src: torch.Tensor, w: dict, *, eps: float,
     return out, nxt
 
 
+def _enc_post_wide(att, src, w, plan, *, eps, out_dtype, pos):
+    r, c = att.shape
+    cp, fp = plan["c_pad"], plan["f_pad"]
+    ptrs = [_operand(att, (r, c)), _operand(src, (r, c)),
+            _operand(w["wo"], (cp, cp))] + _vectors(w, "bo", "g1", "be1") + [
+        _operand(w["w1"], (fp, cp))] + _vectors(w, "b1") + [
+        _operand(w["w2"], (cp, fp))] + _vectors(w, "b2", "g2", "be2")
+    out = None if out_dtype is None else torch.empty(
+        (r, c), dtype=out_dtype, device=att.device)
+    nxt = n_tok = None
+    if pos is not None:
+        n_tok = pos.shape[0]
+        _operand(pos, (n_tok, c))
+        nxt = torch.empty((r, c), dtype=torch.bfloat16, device=att.device)
+    _call("ec_enc_post_wide", *ptrs, _ptr(pos), n_tok or 0, _ptr(out),
+          _dt(out) if out is not None else 0, _ptr(nxt), r, c, cp, fp,
+          float(eps), _stream())
+    launches["enc_post_wide_kernel"] += 1
+    return out, nxt
+
+
 def dec_post_self(att: torch.Tensor, xb: torch.Tensor, qpos: torch.Tensor,
                   w: dict, *, eps: float):
     """The decoder layer after its self-attention, one launch:
     x1 = LN1(xb + att . wso^T + bso) and the cross-attention's query
     q2 = bf16(bf16(x1) . wcq_x^T + qpos . wcq_p^T + bcq). att, xb, qpos:
-    contiguous bf16 [R, 256]; w: the layer's weights (ops/fused_decoder.py).
-    Returns (x1 fp32 [R, 256], q2 bf16 [R, 512])."""
+    contiguous bf16 [R, C]; w: the layer's weights (ops/fused_decoder.py
+    _prepare). Returns (x1 fp32 [R, C], q2 bf16 [R, 2C]).
+    dec_post_self_kernel at POST_C channels, dec_post_self_wide_kernel at
+    the others."""
     r, c = att.shape
-    post_plan(r, c, ENC_CHUNK)
+    plan = post_plan(r, c, ENC_CHUNK)
+    if plan.get("wide"):
+        cp, c2p = plan["c_pad"], _up(2 * c, WIDE_K)
+        ptrs = [_operand(att, (r, c)), _operand(xb, (r, c)),
+                _operand(qpos, (r, c)), _operand(w["wso"], (cp, cp))] + \
+            _vectors(w, "bso", "g1", "be1") + [
+                _operand(w["wcq_x"], (c2p, cp)),
+                _operand(w["wcq_p"], (c2p, cp))] + _vectors(w, "bcq")
+        x1 = torch.empty((r, c), dtype=torch.float32, device=att.device)
+        q2 = torch.empty((r, 2 * c), dtype=torch.bfloat16, device=att.device)
+        _call("ec_dec_post_self_wide", *ptrs, x1.data_ptr(), q2.data_ptr(),
+              r, c, cp, c2p, float(eps), _stream())
+        launches["dec_post_self_wide_kernel"] += 1
+        return x1, q2
     ptrs = [_operand(att, (r, c)), _operand(xb, (r, c)),
             _operand(qpos, (r, c)), _operand(w["wso"], (c, c))] + _vectors(
         w, "bso", "g1", "be1") + [_operand(w["wcq_x"], (2 * c, c)),
@@ -1031,16 +1277,21 @@ def dec_post_cross(att2: torch.Tensor, x1: torch.Tensor, adj: torch.Tensor,
     one batch row of K keypoints per tile: o2 = bf16(att2 . wco^T + bco),
     x2 = LN2(x1 + o2 . wch^T + bch), per F chunk y_s = bf16(bf16(x2) .
     wg_s^T + bg_s) and m = adj0 . y0 + adj1 . y1, then out = LN3(x2 +
-    bf16(relu(m)) . wf^T + bf). att2: contiguous bf16 [B, K, 512]; x1:
-    fp32 [B K, 256]; adj: [B, 2, K, K] fp32 or bf16 (rounded to bf16 in
-    the kernel). Returns [B K, 256] in out_dtype."""
+    bf16(relu(m)) . wf^T + bf). att2: contiguous bf16 [B, K, 2C]; x1:
+    fp32 [B K, C]; adj: [B, 2, K, K] fp32 or bf16 (rounded to bf16 in
+    the kernel). Returns [B K, C] in out_dtype. dec_post_cross_kernel at
+    POST_C channels, dec_post_cross_wide_kernel (a block a batch row, x2
+    and y through scratch buffers) at the others."""
     b, k, c2 = att2.shape
     c = c2 // 2
     f = w["wf"].shape[1]
-    post_plan(b * k, c, f, chunk=DEC_CHUNK, keypoints=k)
+    plan = post_plan(b * k, c, f, chunk=DEC_CHUNK, keypoints=k)
     if adj.dtype not in (torch.float32, torch.bfloat16):
         adj = adj.to(torch.float32)
     adj = adj.contiguous()
+    if plan.get("wide"):
+        return _dec_post_cross_wide(att2, x1, adj, w, plan, eps=eps,
+                                    out_dtype=out_dtype)
     ptrs = [_operand(att2, (b, k, c2)), _operand(w["wco"], (c2, c2))] + \
         _vectors(w, "bco") + [_operand(w["wch"], (c, c2))] + \
         _vectors(w, "bch") + [_operand(x1, (b * k, c), torch.float32)] + \
@@ -1055,6 +1306,31 @@ def dec_post_cross(att2: torch.Tensor, x1: torch.Tensor, adj: torch.Tensor,
           _operand(w["wf"], (c, f)), *_vectors(w, "bf", "g3", "be3"),
           out.data_ptr(), _dt(out), b, k, f, float(eps), _stream())
     launches["dec_post_cross_kernel"] += 1
+    return out
+
+
+def _dec_post_cross_wide(att2, x1, adj, w, plan, *, eps, out_dtype):
+    b, k, c2 = att2.shape
+    c = c2 // 2
+    cp, c2p, fp = plan["c_pad"], _up(c2, WIDE_K), plan["f_pad"]
+    _cuda(adj)
+    if tuple(adj.shape) != (b, 2, k, k):
+        raise ValueError(f"adjacency {tuple(adj.shape)} is not "
+                         f"{(b, 2, k, k)}")
+    ptrs = [_operand(att2, (b, k, c2)), _operand(w["wco"], (c2p, c2p))] + \
+        _vectors(w, "bco") + [_operand(w["wch"], (cp, c2p))] + \
+        _vectors(w, "bch") + [_operand(x1, (b * k, c), torch.float32)] + \
+        _vectors(w, "g2", "be2") + [_operand(w["wg"], (2 * fp, cp))] + \
+        _vectors(w, "bg")
+    x2 = torch.empty((b * k, c), dtype=torch.float32, device=att2.device)
+    y = torch.empty((b, _up(k, 16), 2 * fp), dtype=torch.bfloat16,
+                    device=att2.device)
+    out = torch.empty((b * k, c), dtype=out_dtype, device=att2.device)
+    _call("ec_dec_post_cross_wide", *ptrs, adj.data_ptr(), _dt(adj),
+          _operand(w["wf"], (cp, fp)), *_vectors(w, "bf", "g3", "be3"),
+          x2.data_ptr(), y.data_ptr(), out.data_ptr(), _dt(out), b, k, c, cp,
+          c2p, fp, float(eps), _stream())
+    launches["dec_post_cross_wide_kernel"] += 1
     return out
 
 
@@ -1223,14 +1499,26 @@ BA_MLP_BYTES = (2 * BA_HID_MAX * 8 + BA_HID_MAX + BA_HEADS) * 4
 BA_MIN_BLOCKS = 264
 
 
+# bias_attn_wide_kernel (csrc/head_wide.cu) at every other head count and
+# head dim: up to BA_WIDE_HEADS heads of up to ATT_HEAD_DIMS[-1], a warp a
+# query row, BA_WIDE_WARPS warps a block.
+BA_WIDE_HEADS, BA_WIDE_WARPS = 16, 8
+
+
 @functools.lru_cache(maxsize=None)
 def _bias_attention_plan(b, n, heads, d):
-    if heads != BA_HEADS or d != BA_D:
-        raise ValueError(f"the bias attention takes {BA_HEADS} heads of "
-                         f"{BA_D}, got {heads} of {d}")
+    if not (1 <= heads <= BA_WIDE_HEADS and 1 <= d <= ATT_HEAD_DIMS[-1]):
+        raise ValueError(f"the bias attention takes 1..{BA_WIDE_HEADS} heads "
+                         f"of 1..{ATT_HEAD_DIMS[-1]}, got {heads} of {d}")
     if b < 1 or not 1 <= n <= ATT_ROW16 * 16:
         raise ValueError(f"the bias attention takes 1..{ATT_ROW16 * 16} "
                          f"keypoints and a batch, got B={b}, K={n}")
+    if (heads, d) != (BA_HEADS, BA_D):
+        smem = 4 * (BA_HOP_MAX * BA_HID_MAX + BA_HID_MAX
+                    + BA_HID_MAX * BA_WIDE_HEADS + BA_WIDE_HEADS) \
+            + 4 * BA_WIDE_WARPS * (heads + 2) * ATT_ROW16 * 16
+        return (("wide", True), ("row_blocks", -(-n // BA_WIDE_WARPS)),
+                ("smem_bytes", smem))
     tiles = -(-n // 16)
     q_split = min(tiles, -(-BA_MIN_BLOCKS // b))
     per_block = -(-tiles // q_split)
@@ -1251,8 +1539,11 @@ def bias_attention_plan(b: int, n: int, heads: int, d: int) -> dict:
     (y + 1) * tiles_per_block); key_tiles 16-key tiles hold the row;
     smem_bytes: keys and values [key_tiles * 16, 264] bf16, a query tile,
     the bias of a tile [heads, 16, key_tiles * 16] fp32, the key mask and
-    the MLP's weights. Raises for what the kernel does not take: other
-    than 8 heads of 32, more than 128 keypoints."""
+    the MLP's weights. That is bias_attn_kernel's, for 8 heads of 32; at
+    any other head count and dim the plan holds `wide`: True and
+    bias_attn_wide_kernel's `row_blocks` (BA_WIDE_WARPS query rows a
+    block) and `smem_bytes`. Raises for what the kernels do not take: more
+    than 16 heads, head dims above 128, more than 128 keypoints."""
     return dict(_bias_attention_plan(int(b), int(n), int(heads), int(d)))
 
 
@@ -1281,6 +1572,13 @@ def bias_attention(qkv: torch.Tensor, key_valid, hops: torch.Tensor,
         (b2, (num_heads,)))]
     key_valid, kv_ptr, kv_stride = _key_mask(key_valid, b, n)
     out = torch.empty((b, n, c), dtype=torch.bfloat16, device=qkv.device)
+    if plan.get("wide"):
+        d = c // num_heads
+        _call("ec_bias_attention_wide", ptrs[0], b, n, num_heads, d, kv_ptr,
+              kv_stride, ptrs[1], nhop, hid, *ptrs[2:], float(d ** -0.5),
+              out.data_ptr(), _stream())
+        launches["bias_attn_wide_kernel"] += 1
+        return out
     _call("ec_bias_attention", ptrs[0], b, n, kv_ptr, kv_stride, ptrs[1],
           nhop, hid, *ptrs[2:], float((c // num_heads) ** -0.5),
           out.data_ptr(), plan["q_split"], plan["tiles_per_block"],
@@ -1296,10 +1594,26 @@ def kpt_head(x: torch.Tensor, ct: torch.Tensor, fn, kpt, kow, kob,
     from h = x and from h = n, dd = h . kow^T + kob, and pts =
     sigmoid(inverse_sigmoid(ct) + dd of x), outs = the same of n (the
     log-odds clipped at 1e-3, pos_enc.inverse_sigmoid's), written in
-    place. x: contiguous bf16 [R, 256]; kpt: three (bf16 [256, 256],
-    fp32 [256]); kow bf16 [2, 256], kob fp32 [2]; ct, pts, outs:
-    contiguous fp32 [R, 2]."""
-    r = x.shape[0]
+    place. x: contiguous bf16 [R, C]; kpt: three (bf16 [C, C], fp32
+    [C]); kow bf16 [2, C], kob fp32 [2]; ct, pts, outs: contiguous fp32
+    [R, 2]. kpt_head_kernel at POST_C channels; at any other C up to
+    WIDE_MAX_C (kpt_head_plan) kpt_head_wide_kernel, whose kpt weights are
+    [c_pad, c_pad] with zero padding (pad_cols)."""
+    r, c = x.shape
+    plan = kpt_head_plan(r, c)
+    if plan.get("wide"):
+        cp = plan["c_pad"]
+        ptrs = [_operand(x, (r, c))] + [
+            _operand(v, (c,), torch.float32) for v in fn]
+        for w, bb in kpt:
+            ptrs += [_operand(w, (cp, cp)), _operand(bb, (c,), torch.float32)]
+        ptrs += [_operand(kow, (2, c)), _operand(kob, (2,), torch.float32)]
+        ptrs += [_operand(t, (r, 2), torch.float32, 4)
+                 for t in (ct, pts, outs)]
+        _call("ec_kpt_head_wide", *ptrs, r, c, cp, float(eps), 1e-3,
+              _stream())
+        launches["kpt_head_wide_kernel"] += 1
+        return
     ptrs = [_operand(x, (r, POST_C))] + [
         _operand(v, (POST_C,), torch.float32) for v in fn]
     for w, bb in kpt:
@@ -1309,6 +1623,24 @@ def kpt_head(x: torch.Tensor, ct: torch.Tensor, fn, kpt, kow, kob,
     ptrs += [_operand(t, (r, 2), torch.float32, 4) for t in (ct, pts, outs)]
     _call("ec_kpt_head", *ptrs, r, float(eps), 1e-3, _stream())
     launches["kpt_head_kernel"] += 1
+
+
+def kpt_head_plan(rows: int, c: int) -> dict:
+    """How the keypoint head covers `rows` rows of c channels:
+    kpt_head_kernel's tiles of 64 rows at POST_C channels, else (`wide`:
+    True) kpt_head_wide_kernel's tiles of WIDE_TILE rows with the kpt
+    weights padded to `c_pad`. Raises for c outside 1..WIDE_MAX_C or no
+    rows."""
+    if not 1 <= c <= WIDE_MAX_C:
+        raise ValueError(f"the keypoint head takes 1..{WIDE_MAX_C} channels, "
+                         f"got {c}")
+    if rows <= 0:
+        raise ValueError(f"no rows ({rows})")
+    if c == POST_C:
+        return {"tiles": -(-rows // 64)}
+    cp = _up(c, WIDE_K)
+    return {"wide": True, "c_pad": cp, "tiles": -(-rows // WIDE_TILE),
+            "smem_bytes": _wide_tile(cp, 2) + _wide_tile(cp, 4)}
 
 
 # The matmul chain of the probe tool (csrc/mm_chain.cu mm_chain_kernel):
@@ -1411,18 +1743,21 @@ def width_misfits(cfg, vit_dim: Optional[int] = None,
 
     * fused_vit_block (and fused_vit_block2): 384 channels in 6 heads (any
       token count: above VIT_KEYS the attention streams its keys);
-    * flash_mha (ViT / encoder / keypoints): the attention kernels' head
-      dims (32, 64) at the trunk's tokens, the joint encoder's image +
+    * flash_mha (ViT / encoder / keypoints): head dims 1..128 (run at 32,
+      64 or 128) at the trunk's tokens, the joint encoder's image +
       keypoint tokens, the keypoint tokens (the skeleton's and the
-      decoder's self-attention), eval and training; any key count (above
-      ATT_MAX_KEYS the streaming kernels);
-    * fused_encoder_stack: the post-attention kernel's POST_C channels and
-      a hidden in chunks of ENC_CHUNK, and the encoder's attention;
-    * fused_decoder_layer: POST_C channels, a GCN width in chunks of
-      DEC_CHUNK, at most POST_TILE keypoints, the self- and the
-      cross-attention;
-    * fused_decoder_stack: the layer's, the bias attention's 8 heads of 32
-      (with the Markov bias) and the keypoint head's POST_C channels."""
+      decoder's self-attention), eval and training; any key count at head
+      dims up to 64 (above ATT_MAX_KEYS the streaming kernels), as many as
+      a block holds (416 keys) above;
+    * fused_encoder_stack: the post-attention kernels' 1..WIDE_MAX_C
+      channels (any hidden width), and the encoder's attention;
+    * fused_decoder_layer: the same channels, at most POST_TILE
+      keypoints, the self- and the cross-attention (head dim 2 C / H);
+    * fused_decoder_stack: the layer's, the bias attention's 1..16 heads
+      of 1..128 (with the Markov bias) and the keypoint head's channels.
+    What stays refused, by the plan that refuses it: a trunk other than
+    384 channels in 6 heads, more than WIDE_MAX_C channels, head dims
+    above 128, more than POST_TILE keypoints."""
     c, h, f = int(cfg.d_model), int(cfg.nhead), int(cfg.dim_feedforward)
     k = int(cfg.max_kpt)
     vc = int(cfg.backbone_dim if vit_dim is None else vit_dim)
@@ -1442,17 +1777,13 @@ def width_misfits(cfg, vit_dim: Optional[int] = None,
         return lambda: (attention_plan(nq, nk, hd),
                         attention_plan(nq, nk, hd, train=True))
 
-    def post_c():
-        if c != POST_C:
-            raise ValueError(f"the post-attention kernels take {POST_C} "
-                             f"channels, got {c}")
-
     enc_att = att(hw + k, hw + k, d)
     layer = (heads(c, h), lambda: post_plan(1, c, ENC_CHUNK),
              lambda: post_plan(k, c, f, chunk=DEC_CHUNK, keypoints=k),
              att(k, k, d), att(k, hw, d2))
     stack = layer + ((lambda: bias_attention_plan(1, k, h, d),)
-                     if cfg.attn_bias else ()) + (post_c,)
+                     if cfg.attn_bias else ()) + (
+                         lambda: kpt_head_plan(k, c),)
     return {
         "fused_vit_block": _why(
             lambda: vit_attn_plan(1, tokens, vc, vit_heads),

@@ -123,6 +123,32 @@ LONG_SHAPES = [
       0.0), False),
 ]
 
+# The head dims the kernels run padded (ops/kernels.py pad_heads: 25 at 32,
+# 50 at 64) or at their own head dim 128, at the shapes of the heads of
+# 200 channels in 8 heads (self-attention 25, cross-attention 50; FFN 300)
+# and of 512 in 8 (64 and 128), a cached eval chunk of 4 x 15 queries and
+# a training step of 8 rows at 224 px, K 100: every instance of the eval
+# and the training kernels at head dim 128 (one pass and two, the training
+# pair's direct call), and bias_attn_wide_kernel (8 heads of 25 and of 64).
+WIDTH_SHAPES = [
+    ("encoder, head dim 25", 60, 356, 356, 8, 25, True, None, None),
+    ("decoder self, head dim 25, bias from hops", 60, 100, 100, 8, 25, True,
+     "hops", None),
+    ("decoder cross, head dim 50", 60, 100, 256, 8, 50, False, None, None),
+    ("decoder self, head dim 64, bias from hops", 60, 100, 100, 8, 64, True,
+     "hops", None),
+    ("decoder cross, head dim 128", 60, 100, 256, 8, 128, False, None, None),
+    ("keypoints, head dim 128", 60, 100, 100, 4, 128, True, None, None),
+    ("train encoder, head dim 25, rate 0.1", 8, 356, 356, 8, 25, True, None,
+     0.1),
+    ("train decoder, head dim 25, bias, rate 0.1", 8, 100, 100, 8, 25, True,
+     "read", 0.1),
+    ("train encoder, head dim 128, rate 0.1", 8, 356, 356, 4, 128, True,
+     None, 0.1),
+    ("train keypoints, head dim 128, rate 0", 8, 100, 100, 4, 128, True,
+     None, 0.0),
+]
+
 
 def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     """Median CUDA-event time of fn() in ms."""

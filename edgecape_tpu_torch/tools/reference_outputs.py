@@ -1,0 +1,148 @@
+"""The stage-3 model's outputs at its reference widths (d_model 256 in 8
+heads, FFN 384, K 100, 224 px, bf16, seeded weights and episodes), for
+holding two checkouts of the port against each other bit for bit on the
+card:
+
+* one cached eval chunk of 34 groups x 15 queries with the decoder stack
+  off, then on (510 x 100 x 2 coordinates each), with the kernels each
+  launched;
+* flash_mha_train on [16, 356, 8, 32] fp32 operands with a key mask at
+  dropout 0.1 (the training step's encoder shape): its output and the
+  gradients of q, k and v.
+
+    python edgecape_tpu_torch/tools/reference_outputs.py [--root DIR] OUT.npz
+    python edgecape_tpu_torch/tools/reference_outputs.py --compare A.npz B.npz
+
+--root runs the package of another checkout (the parent's, unpacked from
+`git archive`), with this script. --compare prints, array by array,
+whether the two files are bit-equal (and the largest difference where
+not), and exits 1 unless every array and every launch count is equal.
+Needs a CUDA device."""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+
+GROUPS, QUERIES, K, SIZE, SEED = 34, 15, 100, 224, 0
+TRAIN_SHAPE, RATE = (16, 356, 8, 32), 0.1
+
+
+def _episodes(rng):
+    """One chunk of GROUPS x QUERIES uint8 episodes, a chain skeleton."""
+    adj = np.zeros((K, K), np.float32)
+    for i in range(K - 1):
+        adj[i, i + 1] = adj[i + 1, i] = 1.0
+    vis = (rng.uniform(size=(GROUPS, 1, K)) > 0.1).astype(np.float32)
+    support = {
+        "img_s": rng.integers(0, 256, (GROUPS, 1, SIZE, SIZE, 3),
+                              dtype=np.uint8),
+        "joints_s": rng.uniform(8, SIZE - 8, (GROUPS, 1, K, 2)).astype(
+            np.float32),
+        "vis_s": vis, "binary_adj": np.tile(adj, (GROUPS, 1, 1))}
+    query = {"img_q": rng.integers(0, 256, (GROUPS * QUERIES, SIZE, SIZE, 3),
+                                   dtype=np.uint8),
+             "group": np.repeat(np.arange(GROUPS, dtype=np.int32), QUERIES)}
+    return support, query
+
+
+def run(root: str, out: str) -> None:
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    from edgecape_tpu_torch.api import PoseEstimator
+    from edgecape_tpu_torch.config import Config, ModelConfig
+    from edgecape_tpu_torch.models.convert import (init_params,
+                                                   redraw_zero_inits)
+    from edgecape_tpu_torch.ops import counters, kernel_config
+    from edgecape_tpu_torch.ops import flash_attention as FA
+    if not torch.cuda.is_available():
+        raise SystemExit("reference_outputs needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = Config(model=ModelConfig(
+        image_size=SIZE, max_kpt=K, learn_skeleton=True, attn_bias=True,
+        max_hops=4, compute_dtype="bfloat16", head_dtype="bfloat16",
+        use_flash=True))
+    gen = torch.Generator().manual_seed(SEED)
+    bb, head = init_params(gen, cfg.model)
+    redraw_zero_inits(bb, head, gen)
+    support, query = _episodes(np.random.default_rng(SEED))
+    arrays, launches = {}, {}
+    kernel_config.set_vit_pair_blocks(False)
+    for stack in (False, True):
+        kernel_config.set_decoder_stack(stack)
+        est = PoseEstimator(cfg, bb, head, device=dev)
+        est.forward_cached(support, query)                  # warm-up
+        torch.cuda.synchronize()
+        counters.zero_counts()
+        pred = est.forward_cached(support, query)[0]
+        torch.cuda.synchronize()
+        arrays[f"preds_stack_{stack}"] = pred.cpu().numpy()
+        launches[f"stack_{stack}"] = counters.launch_counts()["kernels"]
+        del est
+    g = torch.Generator().manual_seed(SEED + 1)
+    q, k, v, go = (torch.randn(*TRAIN_SHAPE, generator=g).to(dev)
+                   for _ in range(4))
+    valid = (torch.rand(TRAIN_SHAPE[0], TRAIN_SHAPE[1], generator=g)
+             > 0.2).to(dev)
+    valid[:, 0] = True
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    att = FA.flash_mha_train(
+        *leaves, valid, None, dropout_rate=RATE,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 2))
+    grads = torch.autograd.grad(att, leaves, go)
+    arrays["train_out"] = att.detach().cpu().numpy()
+    for name, t in zip(("dq", "dk", "dv"), grads):
+        arrays[f"train_{name}"] = t.cpu().numpy()
+    np.savez(out, launches=json.dumps(launches, sort_keys=True),
+             device=torch.cuda.get_device_name(0), **arrays)
+    print(f"wrote {out}: {sorted(arrays)} on {torch.cuda.get_device_name(0)}"
+          f"; launches {json.dumps(launches, sort_keys=True)}")
+
+
+def compare(a_path: str, b_path: str) -> bool:
+    a, b = np.load(a_path), np.load(b_path)
+    same = True
+    for name in sorted(set(a.files) | set(b.files)):
+        if name == "device":
+            continue
+        if name not in a.files or name not in b.files:
+            print(f"{name}: in one file only")
+            same = False
+            continue
+        x, y = a[name], b[name]
+        if name == "launches":
+            eq = str(x) == str(y)
+            print(f"launches equal: {eq}" + ("" if eq else
+                                            f" ({x} against {y})"))
+        else:
+            eq = x.shape == y.shape and np.array_equal(x, y)
+            diff = "" if eq or x.shape != y.shape else \
+                f", max |d| {np.abs(x.astype(np.float64) - y).max():.4g}"
+            print(f"{name} {x.shape}: bit-equal {eq}{diff}")
+        same = same and eq
+    print(f"all equal: {same}")
+    return same
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--root", default=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "..", ".."))
+    p.add_argument("--compare", nargs=2, metavar=("A", "B"))
+    p.add_argument("out", nargs="?")
+    args = p.parse_args(argv)
+    if args.compare:
+        sys.exit(0 if compare(*args.compare) else 1)
+    if not args.out:
+        p.error("OUT.npz is needed")
+    run(args.root, args.out)
+
+
+if __name__ == "__main__":
+    main()

@@ -118,7 +118,7 @@ def test_plan_sweep(kind, d):
 
 
 @pytest.mark.parametrize("args,kw", [
-    ((100, 100, 48), {}), ((100, 100, 128), {}),
+    ((100, 100, 129), {}), ((100, 600, 128), {}),
     ((100, 513, 32), {"chunk_tiles": 2}),
     ((100, 0, 32), {}), ((0, 100, 32), {}),
     ((100, 129, 32), {"chunk_tiles": 8}),
@@ -172,7 +172,7 @@ def test_bias_plan_sweep(bs):
             _check_bias_plan(K.bias_attention_plan(b, n, 8, 32), b, n)
 
 
-@pytest.mark.parametrize("args", [(510, 100, 4, 32), (510, 100, 8, 64),
+@pytest.mark.parametrize("args", [(510, 100, 17, 32), (510, 100, 8, 129),
                                   (510, 129, 8, 32), (0, 100, 8, 32),
                                   (510, 0, 8, 32)])
 def test_bias_plan_refuses_unsupported_shapes(args):

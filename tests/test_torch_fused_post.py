@@ -8,9 +8,16 @@ cross-attention query as one accumulation over [x1; qpos], o2 in
 64-column pieces each fed to the choker, one batch row of K keypoints a
 tile padded to 128 rows with zero adjacency rows and columns. Held
 against the ops' plain versions and, for whole layers, against the JAX
-Pallas kernels in interpret mode. Also: the tile plan of
-ops/kernels.py post_plan, the weight cache of kernels.module_weights and
-the wrappers' refusal of CPU operands.
+Pallas kernels in interpret mode. At the other widths (C 128, 200 with
+its padding, 512, whose weights the kernels read from device memory
+tile by tile) the same for their csrc/head_wide.cu forms: tiles of 16
+rows, K and N padded to multiples of 16 and the hidden to chunks of 64 by
+zero rows and columns of the prepared weights, LayerNorm over the true
+C, the FFN's second product summed apart and added with its bias, the
+cross kernel's y of a whole batch row formed before the adjacency
+contraction; and the 256-channel kernels on an FFN of 300, padded to its
+chunks. Also: the tile plan of ops/kernels.py post_plan, the weight cache
+of kernels.module_weights and the wrappers' refusal of CPU operands.
 
 Tolerances. Emulation against the plain version: the same bf16 rounding
 points and the same weights, only the fp32 sums are grouped otherwise, so
@@ -48,14 +55,14 @@ def _ln(x, w, g, b, eps=1e-5):
     return plain.layer_norm(x, w[g], w[b], eps)
 
 
-def _tiles(t, pad_value=None):
-    """t [R, ...] cut into tiles of TILE rows; the last one's missing rows
-    zero (the TMA's fill) or, with pad_value="last", row R - 1."""
+def _tiles(t, pad_value=None, size=TILE):
+    """t [R, ...] cut into tiles of `size` rows; the last one's missing
+    rows zero (the TMA's fill) or, with pad_value="last", row R - 1."""
     r = t.shape[0]
-    pad = (-r) % TILE
+    pad = (-r) % size
     fill = t[-1:].expand(pad, *t.shape[1:]) if pad_value == "last" \
         else t.new_zeros((pad,) + t.shape[1:])
-    return torch.cat([t, fill]).split(TILE)
+    return torch.cat([t, fill]).split(size)
 
 
 # ------------------------------------------------------------- emulations
@@ -125,6 +132,78 @@ def dec_post_cross_tiled(att2, x1, adj, w, eps=1e-5, chunk=K.DEC_CHUNK):
     return torch.cat(out)
 
 
+def _cols(t, n):
+    """t [R, c] with zero columns up to n: a tile as the wide kernels hold
+    it in shared memory."""
+    return torch.cat([t, t.new_zeros(t.shape[0], n - t.shape[1])], 1)
+
+
+def enc_post_wide_tiled(att, src, w, eps=1e-5):
+    """enc_post_wide_kernel's order on att, src [R, C] and the prepared
+    (padded) weights: fp32 [R, C]."""
+    r, c = att.shape
+    cp, fp = w["wo"].shape[0], w["w1"].shape[0]
+    out = []
+    for a_t, s_t in zip(_tiles(att, size=K.WIDE_TILE),
+                        _tiles(src, size=K.WIDE_TILE)):
+        x = plain.bf16(s_t) + (plain.linear(_cols(a_t, cp), w["wo"])[:, :c]
+                               + w["bo"])
+        x = _ln(x, w, "g1", "be1")
+        xb = _cols(plain.bf16(x), cp)
+        acc = 0
+        for j in range(0, fp, K.WIDE_CHUNK):
+            h = plain.bf16(torch.relu(
+                plain.linear(xb, w["w1"][j:j + K.WIDE_CHUNK])
+                + w["b1"][j:j + K.WIDE_CHUNK]))
+            acc = acc + plain.linear(h, w["w2"][:, j:j + K.WIDE_CHUNK])
+        out.append(_ln(x + (acc[:, :c] + w["b2"]), w, "g2", "be2"))
+    return torch.cat(out)[:r]
+
+
+def dec_post_self_wide_tiled(att, xb, qpos, w, eps=1e-5):
+    """dec_post_self_wide_kernel's order: (x1 fp32 [R, C], q2 [R, 2C]
+    holding bf16 values)."""
+    r, c = att.shape
+    cp = w["wso"].shape[0]
+    x1s, q2s = [], []
+    for a_t, x_t, q_t in zip(*(_tiles(t, size=K.WIDE_TILE)
+                               for t in (att, xb, qpos))):
+        x1 = _ln(plain.bf16(x_t) + (plain.linear(_cols(a_t, cp),
+                                                 w["wso"])[:, :c]
+                                    + w["bso"]), w, "g1", "be1")
+        z = plain.linear(_cols(x1, cp), w["wcq_x"]) \
+            + plain.linear(_cols(q_t, cp), w["wcq_p"])
+        x1s.append(x1)
+        q2s.append(plain.bf16(z[:, :2 * c] + w["bcq"]))
+    return torch.cat(x1s)[:r], torch.cat(q2s)[:r]
+
+
+def dec_post_cross_wide_tiled(att2, x1, adj, w, eps=1e-5):
+    """dec_post_cross_wide_kernel's order, a block a batch row: phase A
+    (o2, x2, the whole row's y), then phase B (the adjacency contraction
+    per chunk of 64 GCN features, ffn2 summed apart, LN3): fp32 [B K, C]."""
+    b, k, c2 = att2.shape
+    c = c2 // 2
+    cp, c2p, fp = w["wch"].shape[0], w["wco"].shape[0], w["wf"].shape[1]
+    out = []
+    for bi in range(b):
+        o2 = plain.bf16(plain.linear(_cols(att2[bi], c2p),
+                                     w["wco"])[:, :c2] + w["bco"])
+        x2 = _ln(x1[bi * k:(bi + 1) * k] + (
+            plain.linear(_cols(o2, c2p), w["wch"])[:, :c] + w["bch"]),
+            w, "g2", "be2")
+        y = plain.bf16(plain.linear(_cols(x2, cp), w["wg"]) + w["bg"])
+        a = plain.bf16(adj[bi].float())
+        acc = 0
+        for j in range(0, fp, K.WIDE_CHUNK):
+            m = a[0] @ y[:, j:j + K.WIDE_CHUNK] \
+                + a[1] @ y[:, fp + j:fp + j + K.WIDE_CHUNK]
+            acc = acc + plain.linear(plain.bf16(torch.relu(m)),
+                                     w["wf"][:, j:j + K.WIDE_CHUNK])
+        out.append(_ln(x2 + (acc[:, :c] + w["bf"]), w, "g3", "be3"))
+    return torch.cat(out)
+
+
 def encoder_layer_tiled(tokens, pos, valid, layer, *, num_heads=HEADS,
                         eps=1e-5):
     """A whole encoder layer as the card runs it: the op's prepared
@@ -138,7 +217,8 @@ def encoder_layer_tiled(tokens, pos, valid, layer, *, num_heads=HEADS,
                           num_heads=num_heads,
                           scale=1.0 / math.sqrt(c // num_heads),
                           kb=plain.key_bias(valid))
-    y = enc_post_tiled(att.reshape(b * n, c), src.reshape(b * n, c), w, eps)
+    post = enc_post_tiled if c == K.POST_C else enc_post_wide_tiled
+    y = post(att.reshape(b * n, c), src.reshape(b * n, c), w, eps)
     return y.view(b, n, c).to(tokens.dtype)
 
 
@@ -154,8 +234,10 @@ def decoder_layer_tiled(x, qpos, img, ipos, valid, bias, adj, layer, *,
     att = plain.attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
                           num_heads=num_heads, scale=(c // num_heads) ** -0.5,
                           kb=plain.key_bias(valid), bias=bias)
-    x1, q2 = dec_post_self_tiled(att.reshape(r, c), xb.reshape(r, c),
-                                 plain.bf16(qpos).reshape(r, c), w, eps)
+    wide = c != K.POST_C
+    x1, q2 = (dec_post_self_wide_tiled if wide else dec_post_self_tiled)(
+        att.reshape(r, c), xb.reshape(r, c), plain.bf16(qpos).reshape(r, c),
+        w, eps)
     imgb = plain.bf16(img)
     kpos = plain.linear(plain.bf16(ipos), w["wck_pos"], w["bck"])
     k2 = plain.linear(imgb, w["wck_img"]) + kpos
@@ -163,8 +245,8 @@ def decoder_layer_tiled(x, qpos, img, ipos, valid, bias, adj, layer, *,
     att2 = plain.attention(q2.view(b, k, 2 * c), k2, v2,
                            num_heads=num_heads,
                            scale=(2 * c // num_heads) ** -0.5)
-    return dec_post_cross_tiled(att2, x1, adj, w, eps).view(
-        b, k, c).to(x.dtype)
+    cross = dec_post_cross_wide_tiled if wide else dec_post_cross_tiled
+    return cross(att2, x1, adj, w, eps).view(b, k, c).to(x.dtype)
 
 
 # ------------------------------------------------------------- inputs
@@ -183,22 +265,22 @@ def _mha(rng, e, q_dim, v_dim):
             "v_proj": _dense(rng, v_dim, e), "out_proj": _dense(rng, e, e)}
 
 
-def _encoder(rng):
-    tree = {"self_attn": _mha(rng, C, C, C), "norm1": _norm(rng, C),
-            "linear1": _dense(rng, C, F), "linear2": _dense(rng, F, C),
-            "norm2": _norm(rng, C)}
-    layer = EncoderLayer(C, HEADS, F)
+def _encoder(rng, c=C, f=F, heads=HEADS):
+    tree = {"self_attn": _mha(rng, c, c, c), "norm1": _norm(rng, c),
+            "linear1": _dense(rng, c, f), "linear2": _dense(rng, f, c),
+            "norm2": _norm(rng, c)}
+    layer = EncoderLayer(c, heads, f)
     layer.load_state_dict(state_from_flax(tree))
     return tree, layer.eval()
 
 
-def _decoder(rng):
-    tree = {"self_attn": _mha(rng, C, C, C), "norm1": _norm(rng, C),
-            "cross_attn": _mha(rng, 2 * C, 2 * C, C),
-            "choker": _dense(rng, 2 * C, C), "norm2": _norm(rng, C),
-            "gcn": {"conv": _dense(rng, C, 2 * F)},
-            "ffn2": _dense(rng, F, C), "norm3": _norm(rng, C)}
-    layer = DecoderLayer(C, HEADS, F)
+def _decoder(rng, c=C, f=F, heads=HEADS):
+    tree = {"self_attn": _mha(rng, c, c, c), "norm1": _norm(rng, c),
+            "cross_attn": _mha(rng, 2 * c, 2 * c, c),
+            "choker": _dense(rng, 2 * c, c), "norm2": _norm(rng, c),
+            "gcn": {"conv": _dense(rng, c, 2 * f)},
+            "ffn2": _dense(rng, f, c), "norm3": _norm(rng, c)}
+    layer = DecoderLayer(c, heads, f)
     layer.load_state_dict(state_from_flax(tree))
     return tree, layer.eval()
 
@@ -213,14 +295,14 @@ def _encoder_args(tree):
         tree["norm2"]["scale"], tree["norm2"]["bias"])
 
 
-def _decoder_inputs(rng, b, k, hw):
-    x, qpos = (rng.normal(size=(b, k, C)).astype(np.float32)
+def _decoder_inputs(rng, b, k, hw, c=C, heads=HEADS):
+    x, qpos = (rng.normal(size=(b, k, c)).astype(np.float32)
                for _ in range(2))
-    img = rng.normal(size=(b, hw, C)).astype(np.float32)
-    ipos = rng.normal(size=(hw, C)).astype(np.float32)
+    img = rng.normal(size=(b, hw, c)).astype(np.float32)
+    ipos = rng.normal(size=(hw, c)).astype(np.float32)
     valid = rng.uniform(size=(b, k)) > 0.3
     valid[:, 0] = True
-    bias = rng.normal(size=(b, HEADS, k, k)).astype(np.float32)
+    bias = rng.normal(size=(b, heads, k, k)).astype(np.float32)
     adj = rng.uniform(size=(b, 2, k, k)).astype(np.float32) / k
     return x, qpos, img, ipos, valid, bias, adj
 
@@ -359,6 +441,86 @@ def test_decoder_emulation_matches_jax_kernel():
     _close(out, ref.astype(jnp.float32), BF16_MAX, BF16_MEAN)
 
 
+# widths of the head_wide.cu kernels (C, FFN, heads): head dims 16 / 32,
+# 25 / 50 (C and FFN padded), 64 / 128 at 512 channels; and the
+# 256-channel kernels on an FFN of 300, padded to their chunks
+WIDE = [(128, 256, 8), (200, 300, 8), (512, 1024, 8), (256, 300, 8)]
+
+
+@pytest.mark.parametrize("c,f,heads", WIDE)
+def test_wide_encoder_emulation_matches_the_plain_layer(c, f, heads):
+    """40 rows a batch row: two whole 16-row tiles and a ragged one."""
+    rng = np.random.default_rng(c + f)
+    _, layer = _encoder(rng, c, f, heads)
+    b, n = 2, 40
+    tokens = torch.from_numpy(rng.normal(size=(b, n, c)).astype(
+        np.float32)).to(torch.bfloat16)
+    pos = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32))
+    valid = torch.from_numpy(rng.uniform(size=(b, n)) > 0.3)
+    valid[:, 0] = True
+    with torch.no_grad():
+        out = encoder_layer_tiled(tokens, pos, valid, layer, num_heads=heads)
+        ref = tenc.fused_encoder_layer_plain(tokens, pos, valid, layer,
+                                             num_heads=heads)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("c,f,heads", WIDE)
+def test_wide_decoder_emulation_matches_the_plain_layer(c, f, heads):
+    """K = 37 (a ragged last tile of the cross kernel's batch row)."""
+    rng = np.random.default_rng(c + f + 1)
+    _, layer = _decoder(rng, c, f, heads)
+    x, qpos, img, ipos, valid, bias, adj = (
+        torch.from_numpy(a) for a in _decoder_inputs(rng, 2, 37, 16, c,
+                                                     heads))
+    x, qpos, img, ipos = (t.to(torch.bfloat16) for t in (x, qpos, img, ipos))
+    with torch.no_grad():
+        out = decoder_layer_tiled(x, qpos, img, ipos, valid, bias, adj, layer,
+                                  num_heads=heads)
+        ref = tdec.fused_decoder_layer_plain(x, qpos, img, ipos, valid, bias,
+                                             adj, layer, num_heads=heads)
+    _close(out, ref)
+
+
+def test_wide_layers_at_200_channels_match_jax_kernels():
+    """d_model 200 in 8 heads (head dims 25 and 50), FFN 300: the
+    emulated wide kernels on the padded weights against the JAX Pallas
+    layers in interpret mode on the unpadded ones."""
+    c, f, heads = 200, 300, 8
+    rng = np.random.default_rng(16)
+    tree, layer = _encoder(rng, c, f, heads)
+    b, n = 2, 30
+    tokens = rng.normal(size=(b, n, c)).astype(np.float32)
+    pos = rng.normal(size=(n, c)).astype(np.float32)
+    valid = rng.uniform(size=(b, n)) > 0.3
+    valid[:, 0] = True
+    ref = jenc.fused_encoder_layer(
+        jnp.asarray(tokens).astype(jnp.bfloat16), jnp.asarray(pos),
+        jnp.asarray(valid), *_encoder_args(tree), num_heads=heads, eps=1e-5,
+        interpret=True)
+    with torch.no_grad():
+        out = encoder_layer_tiled(
+            torch.from_numpy(tokens).to(torch.bfloat16),
+            torch.from_numpy(pos), torch.from_numpy(valid), layer,
+            num_heads=heads)
+    _close(out, ref.astype(jnp.float32), BF16_MAX, BF16_MEAN)
+    tree, layer = _decoder(rng, c, f, heads)
+    x, qpos, img, ipos, valid, bias, adj = _decoder_inputs(rng, 2, 12, 16, c,
+                                                           heads)
+    ref = jdec.fused_decoder_layer(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (x, qpos, img, ipos)),
+        jnp.asarray(valid), jnp.asarray(bias), jnp.asarray(adj), tree,
+        num_heads=heads, eps=1e-5, interpret=True)
+    tx = [torch.from_numpy(a).to(torch.bfloat16)
+          for a in (x, qpos, img, ipos)]
+    with torch.no_grad():
+        out = decoder_layer_tiled(*tx, torch.from_numpy(valid),
+                                  torch.from_numpy(bias),
+                                  torch.from_numpy(adj), layer,
+                                  num_heads=heads)
+    _close(out, ref.astype(jnp.float32), BF16_MAX, BF16_MEAN)
+
+
 # rows, hidden, chunk, keypoints -> tiles, chunks, padded rows: the eval
 # chunk's encoder (510 x 356 rows), decoder self (510 x 100) and cross
 # (510 batch rows of K = 100) kernels, and edges
@@ -379,8 +541,8 @@ def test_post_plan_tiles_and_padding(args, want):
 
 
 @pytest.mark.parametrize("args,kw", [
-    ((100, 64, 96), {}),                       # C = 64
-    ((100, 256, 96), {}),                      # F not in chunks of 128
+    ((100, 513, 96), {}),                      # C above 512
+    ((100, 256, 0), {}),                       # no hidden
     ((100, 256, 384), {"chunk": 64, "keypoints": 129}),
     ((150, 256, 384), {"chunk": 64, "keypoints": 100}),  # no whole rows
     ((0, 256, 384), {})])

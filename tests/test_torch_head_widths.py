@@ -1,0 +1,287 @@
+"""The head widths the hand-written kernels take (ops/kernels.py): every
+attention head dim from 1 to 128 runs at the kernels' 32, 64 or 128 with
+its q, k, v padded by zero columns (pad_heads); the post-attention
+kernels, the keypoint head and the bias attention take every width up to
+512 channels in 1..16 heads (the 256-channel kernels at 256, their
+csrc/head_wide.cu companions elsewhere), the FFN and GCN hidden padded by
+zero rows and columns (pad_ffn, pad_gcn, laid out once by the fused ops'
+`_prepare`). What stays refused is named by the plan that refuses it.
+
+The padding forms are held against the JAX package on unpadded operands:
+plain attention on padded heads (eval and training, with gradients)
+against the JAX Pallas kernels in interpret mode, at head dims 25 and 50,
+with the bounds of tests/test_torch_attention_plan.py; the plain layers
+on padded weights against the unpadded ones to fp32 noise. The kernels'
+own order at these widths is emulated in tests/test_torch_fused_post.py,
+the whole model at d_model 200 in tests/test_torch_width_routes.py."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_threads  # noqa: F401  (caps torch's threads per worker)
+from edgecape_tpu.ops import flash_attention as jflash
+from edgecape_tpu_torch.config import ModelConfig
+from edgecape_tpu_torch.models.transformer import DecoderLayer, EncoderLayer
+from edgecape_tpu_torch.ops import flash_attention as tflash
+from edgecape_tpu_torch.ops import fused_decoder as tdec
+from edgecape_tpu_torch.ops import fused_encoder as tenc
+from edgecape_tpu_torch.ops import kernels as K
+from edgecape_tpu_torch.ops import plain
+
+STAGE3 = dict(learn_skeleton=True, attn_bias=True, use_flash=True)
+# (d_model, nhead, dim_feedforward) the card's [widths] phase runs
+WIDTHS = [(128, 8, 256), (200, 8, 300), (256, 4, 512), (384, 8, 768),
+          (512, 16, 1024), (512, 8, 1024)]
+
+
+def _width_cfg(c, h, ffn, **kw):
+    return ModelConfig(**STAGE3, d_model=c, nhead=h, dim_feedforward=ffn,
+                       num_feats=c // 2, similarity_proj_dim=c, **kw)
+
+
+# ------------------------------------------------------------- plans
+def test_every_head_dim_runs_at_a_launched_instance():
+    """Head dims 1..128 run at the first of 32, 64, 128 at or above them,
+    in every eval and training plan the head's shapes give; the plan
+    names the padded dim where it differs; every plan fits a block's
+    shared memory."""
+    for d in range(1, 129):
+        dp = K.attention_head_dim(d)
+        assert dp in K.ATT_HEAD_DIMS and dp >= d
+        assert dp == 32 or dp // 2 < d
+        plans = [K.attention_plan(100, 100, d), K.attention_plan(100, 256, d),
+                 K.attention_plan(356, 356, d, train=True),
+                 K.attention_bwd_plan(356, 356, d),
+                 K.attention_bwd_plan(100, 100, d)]
+        for plan in plans:
+            assert plan.get("d_pad", d) == dp
+            assert ("d_pad" in plan) == (d not in K.ATT_HEAD_DIMS)
+            assert max(v for k, v in plan.items() if "smem" in k) \
+                <= K.ATT_SMEM_LIMIT
+        if dp <= 64:        # the streaming kernels take the padded form
+            assert K.attention_plan(100, 1369, d)["long"]
+        else:
+            with pytest.raises(ValueError, match="streaming"):
+                K.attention_plan(100, 1369, d)
+    for d in (0, 129, 192, 256):
+        with pytest.raises(ValueError, match="head dims 1..128"):
+            K.attention_plan(100, 100, d)
+
+
+def test_head_dim_128_holds_as_many_keys_as_a_block_does():
+    """At head dim 128 the resident kernels take fewer warps a block where
+    the keys and values leave no room (up to 416 keys), and refuse more."""
+    assert K.attention_plan(100, 256, 128)["warps"] == 4
+    assert K.attention_plan(100, 416, 128)["warps"] == 1
+    with pytest.raises(ValueError, match="does not fit"):
+        K.attention_plan(100, 417, 128)
+    bwd = K.attention_bwd_plan(356, 356, 128)
+    assert bwd["q_warps"] < K.BWD_MAX_WARPS and bwd["k_warps"] < 4
+    with pytest.raises(ValueError, match="does not fit"):
+        K.attention_bwd_plan(400, 400, 128)
+
+
+@pytest.mark.parametrize("c", [1, 16, 100, 128, 200, 255, 256, 257, 384,
+                               511, 512])
+def test_post_and_keypoint_plans_take_every_width(c):
+    for f in (1, 64, 300, 384, 1024, 3000):
+        for chunk, k in ((K.ENC_CHUNK, None), (K.DEC_CHUNK, 100)):
+            plan = K.post_plan(100 * 7, c, f, chunk=chunk, keypoints=k)
+            assert plan.get("wide", False) == (c != K.POST_C)
+            fp = plan.get("f_pad", f)
+            assert fp >= f and fp % (K.WIDE_CHUNK if c != K.POST_C
+                                     else chunk) == 0
+            if c != K.POST_C:
+                assert plan["c_pad"] % K.WIDE_K == 0 and plan["c_pad"] >= c
+                assert plan["smem_bytes"] <= K.ATT_SMEM_LIMIT
+                assert plan["tiles"] == (7 if k else -(-700 // K.WIDE_TILE))
+    kp = K.kpt_head_plan(51000, c)
+    assert kp.get("wide", False) == (c != K.POST_C)
+    for bad in (0, 513, 1024):
+        with pytest.raises(ValueError, match="1..512 channels"):
+            K.post_plan(10, bad, 64)
+        with pytest.raises(ValueError, match="1..512 channels"):
+            K.kpt_head_plan(10, bad)
+
+
+def test_bias_plan_takes_1_to_16_heads_of_up_to_128():
+    for heads in range(1, 17):
+        for d in (1, 25, 32, 64, 128):
+            plan = K.bias_attention_plan(60, 100, heads, d)
+            assert plan.get("wide", False) == ((heads, d) != (8, 32))
+            assert plan["smem_bytes"] <= K.ATT_SMEM_LIMIT
+            if plan.get("wide"):
+                assert plan["row_blocks"] == -(-100 // K.BA_WIDE_WARPS)
+    for args in ((60, 100, 17, 32), (60, 100, 8, 129), (60, 129, 4, 32)):
+        with pytest.raises(ValueError):
+            K.bias_attention_plan(*args)
+
+
+@pytest.mark.parametrize("c,h,ffn", WIDTHS)
+def test_width_misfits_take_the_six_widths(c, h, ffn):
+    out = K.width_misfits(_width_cfg(c, h, ffn))
+    assert all(why is None for why in out.values()), out
+
+
+@pytest.mark.parametrize("cfg,vit,op,why", [
+    (ModelConfig(**STAGE3), (768, 12), "fused_vit_block",
+     "6 heads of 64 (384 channels), got 12 heads and 768 channels"),
+    (_width_cfg(1024, 16, 2048), None, "fused_encoder_stack",
+     "1..512 channels, got 1024"),
+    (_width_cfg(384, 2, 768), None, "flash_mha (encoder)",
+     "head dims 1..128, got 192"),
+    (ModelConfig(**STAGE3, max_kpt=160), None, "fused_decoder_layer",
+     "1..128 keypoints (K=160)"),
+], ids=["vit-768/12", "d_model-1024", "head-dim-192", "K-160"])
+def test_what_stays_refused_is_named(cfg, vit, op, why):
+    kw = {} if vit is None else dict(vit_dim=vit[0], vit_heads=vit[1])
+    out = K.width_misfits(cfg, **kw)
+    assert out[op] is not None and why in out[op], out[op]
+
+
+# ------------------------------------------------------------- padding
+def test_pad_heads_lays_out_zero_columns():
+    t = torch.arange(2 * 3 * 4 * 5, dtype=torch.float32).view(2, 3, 20)
+    p = K.pad_heads(t, 4, 32)
+    assert p.shape == (2, 3, 128)
+    heads = p.view(2, 3, 4, 32)
+    assert torch.equal(heads[..., :5], t.view(2, 3, 4, 5))
+    assert not heads[..., 5:].any()
+    assert torch.equal(K.unpad_heads(p, 4, 5), t)
+    assert K.pad_heads(t, 4, 5) is t and K.unpad_heads(t, 4, 5) is t
+
+
+def test_weight_padding_is_exact():
+    """pad_ffn / pad_gcn / pad_cols: zero rows and columns that change no
+    product (the FFN on padded weights equals it unpadded to fp32 noise:
+    the zeros add +0, the sums are only grouped otherwise) and leave the
+    weights themselves where no padding is needed."""
+    g = torch.Generator().manual_seed(0)
+    w1, b1, w2 = (torch.randn(300, 200, generator=g), torch.randn(
+        300, generator=g), torch.randn(200, 300, generator=g))
+    x = torch.randn(7, 200, generator=g)
+    p1, pb1, p2 = K.pad_ffn(w1, b1, w2, 320, 208)
+    assert p1.shape == (320, 208) and p2.shape == (208, 320)
+    xp = torch.cat([x, torch.zeros(7, 8)], 1)
+    ref = torch.relu(x @ w1.t() + b1) @ w2.t()
+    got = torch.relu(xp @ p1.t() + pb1) @ p2.t()
+    assert not got[:, 200:].any()
+    torch.testing.assert_close(got[:, :200], ref, rtol=0, atol=1e-4)
+    wg, bg, wf = (torch.randn(600, 200, generator=g),
+                  torch.randn(600, generator=g),
+                  torch.randn(200, 300, generator=g))
+    gp, gbp, fp = K.pad_gcn(wg, bg, wf, 320)
+    assert torch.equal(gp[:300], wg[:300]) and torch.equal(
+        gp[320:620], wg[300:]) and not gp[300:320].any()
+    assert torch.equal(gbp[320:620], bg[300:]) and fp.shape == (200, 320)
+    same = K.pad_ffn(w1, b1, w2, 300)
+    assert same[0] is w1 and same[2] is w2
+
+
+@pytest.mark.parametrize("d", [25, 50])
+@pytest.mark.parametrize("nq,nk", [(100, 100), (100, 256)])
+def test_padded_attention_matches_jax_flash_mha(d, nq, nk):
+    """The eval kernels' form at a padded head dim: plain attention on
+    pad_heads' q, k, v with the true scale, the padding dropped, against
+    the JAX flash_mha (Pallas, interpret mode) on the unpadded heads."""
+    rng = np.random.default_rng(d + nk)
+    b, h = 2, 2
+    q = rng.normal(size=(b, nq, h, d)).astype(np.float32)
+    k, v = (rng.normal(size=(b, nk, h, d)).astype(np.float32)
+            for _ in range(2))
+    valid = rng.uniform(size=(b, nk)) > 0.3
+    valid[:, 0] = True
+    ref = jflash.flash_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           jnp.asarray(valid), interpret=True)
+    dp = K.attention_head_dim(d)
+    tq, tk, tv = (K.pad_heads(torch.from_numpy(t).reshape(b, -1, h * d), h,
+                              dp) for t in (q, k, v))
+    out = plain.attention(tq, tk, tv, num_heads=h, scale=d ** -0.5,
+                          kb=plain.key_bias(torch.from_numpy(valid)))
+    out = K.unpad_heads(out, h, d).reshape(b, nq, h, d)
+    diff = np.abs(out.numpy() - np.asarray(ref, np.float32))
+    assert diff.max() <= 2 ** -7 * 2, diff.max()
+    assert diff.mean() <= 1e-3, diff.mean()
+
+
+@pytest.mark.parametrize("d", [25, 50])
+def test_padded_training_attention_matches_jax(d):
+    """The training pair's form at a padded head dim: the plain
+    flash_mha_train on padded heads, forward and gradients of q, k, v and
+    the bias, against the JAX training kernels in interpret mode on the
+    unpadded heads (the bounds of tests/test_torch_attention_plan.py)."""
+    rng = np.random.default_rng(d)
+    b, n, h = 1, 100, 2
+    q, k, v, g = (rng.normal(size=(b, n, h, d)).astype(np.float32)
+                  for _ in range(4))
+    bias = (0.3 * rng.normal(size=(b, h, n, n))).astype(np.float32)
+    valid = rng.uniform(size=(b, n)) > 0.3
+    valid[:, 0] = True
+    jargs = [jnp.asarray(t) for t in (q, k, v, bias)]
+    jvalid = jnp.asarray(valid)
+
+    def jloss(q, k, v, bias):
+        return jnp.sum(jflash.flash_mha_train(q, k, v, jvalid, bias,
+                                              interpret=True) * g)
+
+    jout = jflash.flash_mha_train(*jargs[:3], jvalid, jargs[3],
+                                  interpret=True)
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2, 3))(*jargs)
+    dp = K.attention_head_dim(d)
+    leaves = [torch.tensor(t, requires_grad=True) for t in (q, k, v, bias)]
+    padded = [K.pad_heads(t.reshape(b, n, h * d), h, dp).view(b, n, h, dp)
+              for t in leaves[:3]]
+    tout = tflash.flash_mha_train_plain(*padded, torch.from_numpy(valid),
+                                        leaves[3], scale=d ** -0.5)
+    tout = K.unpad_heads(tout.reshape(b, n, h * dp), h, d).view(b, n, h, d)
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout),
+                               atol=0.02, rtol=0.02)
+    tgrads = torch.autograd.grad(tout, leaves, torch.from_numpy(g))
+    for name, tg, jg in zip(("dq", "dk", "dv", "dbias"), tgrads, jgrads):
+        np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=0.05,
+                                   rtol=0.05, err_msg=name)
+
+
+def test_prepared_weights_follow_the_plan():
+    """The fused ops' `_prepare` lays out the weights the kernels read:
+    at 256 channels as they are (hidden padded to its chunks), elsewhere
+    padded to c_pad and 2C to a multiple of 16, the GEMMs' weights as
+    they are; and the 256-channel kernels' inputs stay the parameters
+    themselves where no padding is needed."""
+    enc = EncoderLayer(200, 8, 300)
+    w = tenc._prepare(enc)
+    assert w["wo"].shape == (208, 208) and w["w1"].shape == (320, 208)
+    assert w["w2"].shape == (208, 320) and w["b1"].shape == (320,)
+    assert w["wqkv"].shape == (600, 200) and w["bo"].shape == (200,)
+    dec = DecoderLayer(200, 8, 300)
+    w = tdec._prepare(dec)
+    assert w["wso"].shape == (208, 208) and w["wcq_x"].shape == (400, 208)
+    assert w["wco"].shape == (400, 400) and w["wch"].shape == (208, 400)
+    assert w["wg"].shape == (640, 208) and w["bg"].shape == (640,)
+    assert w["wf"].shape == (208, 320) and w["wck_img"].shape == (400, 200)
+    w = tenc._prepare(EncoderLayer(256, 8, 300))
+    assert w["w1"].shape == (384, 256) and w["wo"].shape == (256, 256)
+    ref = EncoderLayer(256, 8, 384)
+    w = tenc._prepare(ref)
+    assert torch.equal(w["w1"], ref.linear1.weight.detach().to(
+        torch.bfloat16))
+
+
+def test_the_cpu_route_takes_any_width_without_launches():
+    """On CPU tensors the ops are their plain versions at any width and
+    count nothing (the card's route at these widths is the kernels')."""
+    cfg = dataclasses.replace(_width_cfg(200, 8, 300))
+    assert K.width_misfits(cfg)["fused_decoder_stack"] is None
+    n0 = dict(K.launches)
+    layer = EncoderLayer(200, 8, 300).eval()
+    tok = torch.randn(2, 10, 200)
+    with torch.no_grad():
+        out = tenc.fused_encoder_layer(tok, torch.randn(10, 200),
+                                       torch.ones(2, 10, dtype=torch.bool),
+                                       layer, num_heads=8)
+    assert out.shape == tok.shape and K.launches == n0

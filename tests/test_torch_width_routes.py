@@ -4,14 +4,21 @@ fused ops on raises ValueError at build time, naming each op whose
 kernels do not take its widths and the width, so that no forward pass
 raises half way; use_flash=False builds the plain modules. On the CPU
 nothing is checked (an op takes its plain version, which takes any
-width). The head is only built here, never moved to a card.
+width). The head is only built here, never moved to a card. The kernels
+take every head of up to 512 channels in up to 16 heads with head dims
+(self- and cross-attention) up to 128; what stays refused is a trunk
+other than ViT-S/14, a wider head, larger head dims and more than 128
+keypoints.
 
 A port model at d_model 128 (4 heads, num_feats 64) matches the JAX model
 on the same weights in fp32 on the CPU, to the strict path's tolerance of
 tests/test_torch_slice.py (1e-4 on normalised coordinates), with that
 file's toy trunk and configuration; so does the same model at DINOv2's own
 518 px (1370 ViT tokens, 1369 + K joint-encoder keys: the rows the
-streaming attention kernels take on the card)."""
+streaming attention kernels take on the card), and a model at d_model 200
+in 8 heads with an FFN of 300 (head dims 25 and 50, every padding the
+kernels apply on the card), whose training step's gradients also match
+the JAX step's to the bounds of tests/test_torch_train.py."""
 
 import dataclasses
 
@@ -24,35 +31,51 @@ import torch_threads  # noqa: F401  (caps torch's threads per worker)
 from edgecape_tpu.api import PoseEstimator as JaxEstimator
 from edgecape_tpu.models import dinov2 as jdinov2
 from edgecape_tpu_torch.config import ModelConfig
+from edgecape_tpu_torch.models.convert import state_from_flax
 from edgecape_tpu_torch.models.edgecape import EdgeCape
 from edgecape_tpu_torch.ops import kernel_config as KC
 from edgecape_tpu_torch.ops import kernels as K
 from test_torch_slice import (COORD_TOL, K as KPT, SIZE, TRUNK, _cfg,
                               _episodes, _jax_estimator, _perturb,
                               _torch_estimator)
+import test_torch_train as ttrain
 
 NARROW = dict(d_model=128, nhead=4, num_feats=64, similarity_proj_dim=128)
+# every padding of the kernels: head dims 25 and 50, C and the FFN
+D200 = dict(d_model=200, nhead=8, num_feats=100, dim_feedforward=300,
+            similarity_proj_dim=200)
+WIDE = dict(d_model=1024, nhead=8, num_feats=512, similarity_proj_dim=1024)
 POST_OPS = {"fused_encoder_stack", "fused_decoder_layer",
             "fused_decoder_stack"}
+DEC_OPS = {"fused_decoder_layer", "fused_decoder_stack"}
 STAGE3 = dict(learn_skeleton=True, attn_bias=True, use_flash=True)
 
 
 @pytest.mark.parametrize("kw,misfit", [
     ({}, set()),
-    (NARROW, POST_OPS),
+    (NARROW, set()),
     (dict(d_model=192, nhead=8, num_feats=96, similarity_proj_dim=192),
+     set()),
+    (dict(nhead=2), DEC_OPS),
+    (WIDE, POST_OPS),
+    (dict(max_kpt=160), DEC_OPS),
+    (dict(d_model=384, nhead=2, num_feats=192, similarity_proj_dim=384),
      POST_OPS | {"flash_mha (encoder)", "flash_mha (keypoints)"}),
-    (dict(nhead=2), POST_OPS | {"flash_mha (encoder)",
-                                "flash_mha (keypoints)"}),
-], ids=["256/8", "128/4", "192/8", "256/2"])
+], ids=["256/8", "128/4", "192/8", "256/2", "1024/8", "K160", "384/2"])
 def test_width_predicate(kw, misfit):
-    """All fused at the stage-3 widths; at the others exactly the ops whose
-    kernels refuse them, each with the plan's reason."""
+    """All fused at the stage-3 widths and at the others the kernels take
+    (d_model 128 in 4 heads, 192 in 8: head dims 32 and 24, run at 32);
+    where a width stays refused, exactly the ops whose plans refuse it,
+    each with the plan's reason: the cross-attention's head dim 2 x 256 /
+    2 = 256, 1024 channels, 160 keypoints, a self-attention head dim of
+    192."""
     out = K.width_misfits(ModelConfig(**STAGE3, **kw))
     assert {op for op, why in out.items() if why is not None} == misfit
     assert out["fused_vit_block"] is None and out["flash_mha (ViT)"] is None
     for op in misfit:
-        assert "256 channels" in out[op] or "head dim" in out[op], out[op]
+        assert "512 channels, got 1024" in out[op] \
+            or "head dims 1..128, got" in out[op] \
+            or "1..128 keypoints (K=160)" in out[op], out[op]
 
 
 def test_the_vit_route_follows_the_trunk():
@@ -69,16 +92,16 @@ def test_the_vit_route_follows_the_trunk():
 
 
 def test_a_head_built_for_the_card_refuses_other_widths():
-    """At d_model 128 the three post-attention ops refuse, in one error
-    raised before any module is built; the attention kernels take 4
-    heads of 32, so those ops are not named."""
-    cfg = ModelConfig(**STAGE3, **NARROW)
+    """At d_model 1024 the three post-attention ops refuse, in one error
+    raised before any module is built; the attention kernels take 8
+    heads of 128, so those ops are not named."""
+    cfg = ModelConfig(**STAGE3, **WIDE)
     with pytest.raises(ValueError) as err:
         EdgeCape(cfg, use_flash=True, device="cuda")
     msg = str(err.value)
     for op in POST_OPS:
-        assert f"{op} (the post-attention kernels take 256 channels, " \
-            f"got 128)" in msg, msg
+        assert f"{op} (the post-attention kernels take 1..512 channels, " \
+            f"got 1024)" in msg, msg
     assert "flash_mha" not in msg and "use_flash=False" in msg
     with pytest.raises(ValueError, match="train_backbone_fast"):
         KC.require_widths(("fused_vit_block",),
@@ -90,7 +113,9 @@ def test_a_head_built_for_the_card_refuses_other_widths():
 @pytest.mark.parametrize("kw,flash,device", [
     ({}, True, "cuda"), ({}, True, torch.device("cuda", 0)),
     (NARROW, True, "cpu"), (NARROW, True, None), (NARROW, False, "cuda"),
-], ids=["256-cuda", "256-cuda:0", "128-cpu", "128-nodevice", "128-plain"])
+    (NARROW, True, "cuda"), (WIDE, True, "cpu"), (WIDE, False, "cuda"),
+], ids=["256-cuda", "256-cuda:0", "128-cpu", "128-nodevice", "128-plain",
+        "128-cuda", "1024-cpu", "1024-plain"])
 def test_a_head_builds_where_its_ops_take_its_widths(kw, flash, device):
     """The stage-3 widths on the card, any width for the CPU (or with no
     device named), and any width with use_flash off: built, the fused
@@ -185,3 +210,50 @@ def test_forward_cached_at_518px_matches_jax_strict(narrow_weights):
                                atol=COORD_TOL, rtol=0)
     np.testing.assert_allclose(tadj.numpy(), np.asarray(jadj), atol=1e-5,
                                rtol=0)
+
+
+@pytest.fixture(scope="module")
+def d200_weights():
+    """(flax backbone tree, flax head tree) of the d_model 200 head."""
+    bb = jdinov2.init_params(jax.random.PRNGKey(0), SIZE, TRUNK)
+    est = JaxEstimator(_cfg(**D200), backbone_params=bb,
+                       rng=jax.random.PRNGKey(1))
+    return _perturb(bb, est.head_params)
+
+
+def test_forward_cached_d_model_200_matches_jax_strict(d200_weights):
+    cfg = _cfg(**D200)
+    from edgecape_tpu_torch.models.edgecape import HEAD_OPS
+    misfits = K.width_misfits(cfg.model)
+    assert all(misfits[op] is None for op in HEAD_OPS), misfits
+    support, query = _episodes()
+    jpred, jadj = _jax_estimator(cfg, d200_weights).forward_cached(
+        support, query)
+    tpred, tadj = _torch_estimator(cfg, d200_weights).forward_cached(
+        support, query)
+    assert tpred.shape == (6, KPT, 2)
+    np.testing.assert_allclose(tpred.numpy(), np.asarray(jpred),
+                               atol=COORD_TOL, rtol=0)
+    np.testing.assert_allclose(tadj.numpy(), np.asarray(jadj), atol=1e-5,
+                               rtol=0)
+
+
+def test_training_step_d_model_200_matches_jax():
+    """One stage-3 step at d_model 200 / 8 heads / FFN 300 (the training
+    tests' toy trunk, K and batch): the loss dict and every gradient
+    against the JAX step's, within tests/test_torch_train.py's bounds."""
+    cfg = ttrain._cfg(3, **D200)
+    weights = ttrain._weights(cfg)
+    batch = ttrain._batch(seed=3)
+    jm, jg = ttrain._jax_step(cfg, weights, batch)
+    tm, tg = ttrain._torch_grads(cfg, weights, batch)
+    jg = {n: v.numpy() for n, v in state_from_flax(jg).items()}
+    assert set(tm) == set(jm) and set(tg) == set(jg)
+    for key in jm:
+        assert tm[key] == pytest.approx(jm[key], abs=ttrain.LOSS_TOL), key
+    live = 0
+    for name in sorted(jg):
+        np.testing.assert_allclose(tg[name], jg[name], atol=ttrain.GRAD_ATOL,
+                                   rtol=ttrain.GRAD_RTOL, err_msg=name)
+        live += int(np.abs(jg[name]).max() > 1e-8)
+    assert live >= 0.8 * len(jg), (live, len(jg))
