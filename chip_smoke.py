@@ -59,10 +59,10 @@ Phases (any failure exits non-zero before the last line):
    every kernel the path launched with its count beside MAIN_PATH_KERNELS
    (what the path launched before the streaming kernels existed) and
    fails if they differ or a streaming kernel ran. Then `[widths]`
-   (width_check): a ViT-B/14 trunk and a head of d_model 1024, asked for on
-   the card with the kernels on, must be refused when they are built,
-   naming the ops whose kernels do not take them, with no kernel launched,
-   and the stage-3 widths in bf16 must be taken at 224, 256 and 518 px;
+   (width_check): a head of d_model 1024, asked for on the card with the
+   kernels on, must be refused when it is built, naming the ops whose
+   kernels do not take it, with no kernel launched, and the stage-3
+   widths in bf16 must be taken at 224, 256 and 518 px;
    the head_wide.cu kernels (enc_post_wide_kernel, dec_post_self_wide_kernel,
    dec_post_cross_wide_kernel, kpt_head_wide_kernel, bias_attn_wide_kernel)
    and the attention at padded head dims (25, 50) and at head dim 128,
@@ -76,7 +76,24 @@ Phases (any failure exits non-zero before the last line):
    predictions against the plain path; 2 stage-3 Trainer steps of 8 rows,
    one step's gradients against the training attention's plain version
    (and, for information, against the fp32 plain path), the training
-   attention's launches counted; the phase's seconds;
+   attention's launches counted; the phase's seconds. Then `[trunks]`
+   (trunk_check): DINOv2's ViT-B/14 (768 channels, 12 heads, depth 12)
+   and ViT-L/14 (1024, 16, depth 24) on the wide route (csrc/vit_wide.cu
+   vit_ln_gemm_kernel for LN + qkv and LN + fc1 + GELU, the attention
+   kernels, the GEMM): trunks of 1088 channels and of 4 heads of 256
+   refused at build time by name with no launch; `[op] vit_ln_gemm` lines
+   (qkv and fc1 of both trunks at the query pass, the support pass and the
+   training step, against vit_ln_gemm_plain, device / plain / bound ms and
+   torch.matmul of the product as information) beside their halves'
+   `[op] vit_attn` / `[op] vit_mlp` lines; a block of each trunk at [510,
+   257, C] against the plain block, fused_vit_block2 bit-equal to two
+   calls, at ViT-B rows bit-equal across batch places; cached eval of the
+   stage-3 model over full-depth ViT-B (34 x 15 queries, vit_pair_blocks
+   off and on), ViT-L (8 x 15) and ViT-B at 518 px (4 x 15), each with
+   vit_ln_gemm_kernel twice a block and no resident ViT kernel, against
+   the plain path, with device ms, idle share, peak memory and img/s; two
+   stage-3 Trainer steps over ViT-B of 8 rows against the training
+   attention's plain version, the trunk's kernels counted;
 4. the training path: the port's Trainer (stage 3: learned skeleton,
    Markov bias, masked supervision, skeleton frozen; full ViT-S/14,
    K=100, 224 px, 64x64 heatmaps, batch 16, dropout 0.1, fp32 head over
@@ -244,7 +261,9 @@ Phases (any failure exits non-zero before the last line):
    `long_launches`) its count on the 518 px eval (attn_long_kernel,
    switches off) or on phase 17's direct flash_mha_train call (the
    training kernels); a `[widths]` entry's `launches` its kernels' count
-   over that phase's model runs (`width_kernels`).
+   over that phase's model runs (`width_kernels`), a `[trunks]` entry's
+   the count of vit_ln_gemm_kernel over that phase's model runs
+   (`trunk_kernels`).
 Nothing here imports jax or the JAX package.
 """
 
@@ -992,7 +1011,8 @@ def profile(run, what, power, rows=30):
     chunk of the eval kernel path, or one training step), and the share
     of its wall time (call to synchronize) in which the device ran a
     kernel or a copy: the union of those intervals in the profiler's
-    trace."""
+    trace. Returns (device busy ms, idle share), (None, None) where the
+    trace held no device event."""
     import os
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -1026,6 +1046,9 @@ def profile(run, what, power, rows=30):
           f"{wall_us / 1e3:.3f} ms (profiler on), {busy}", flush=True)
     print(prof.key_averages().table(sort_by="cuda_time_total",
                                     row_limit=rows), flush=True)
+    if not spans:
+        return None, None
+    return busy_us / 1e3, 1.0 - busy_us / wall_us
 
 
 # ------------------------------------------- training attention op checks
@@ -1660,6 +1683,36 @@ def width_op_checks(dev, entries, power):
              f"or did not run: {bad}")
 
 
+def refused_at_build(dev, tag, what, model_kw, bb_cfg, ops):
+    """A stage-3 PoseEstimator asked for on the card with the kernels on
+    (the main path's configuration with model_kw, over the trunk bb_cfg)
+    must raise when it is built, naming each op of `ops`, with no
+    hand-written kernel launched; prints a `[tag]` line, fails otherwise."""
+    from edgecape_tpu_torch import config as C
+    from edgecape_tpu_torch.api import PoseEstimator
+    from edgecape_tpu_torch.tools import bench_attention as BA
+    cfg = main_path_config()
+    cfg.model = C.replace(cfg.model, **model_kw)
+    err = []
+
+    def build():
+        try:
+            PoseEstimator(cfg, generator=torch.Generator().manual_seed(SEED),
+                          device=dev, backbone_cfg=bb_cfg)
+        except ValueError as e:
+            err.append(str(e))
+    ran = BA.launched(build)
+    msg = err[0] if err else ""
+    named = [op for op in ops if op in msg]
+    ok = named == list(ops) and not ran
+    print(f"[{tag}] {what}, use_flash on the card: the build raised "
+          f"{bool(err)} naming {named} ({msg or 'no error'}); hand-written "
+          f"launches {sum(ran.values())} {'OK' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail(f"{what} was not refused by name when it was built")
+
+
 def width_check(dev, entries, power):
     """[widths]: what stays refused, then the op lines (width_op_checks),
     then the stage-3 model at 224 px, K 100, at every head width of
@@ -1690,37 +1743,12 @@ def width_check(dev, entries, power):
                                                make_loss_fn)
     t_phase = time.perf_counter()
 
-    # --- what stays refused: a ViT-B/14 trunk, a head of 1024 channels
-    def refused(what, model_kw, bb_cfg, ops):
-        cfg = main_path_config()
-        cfg.model = C.replace(cfg.model, **model_kw)
-        err = []
-
-        def build():
-            try:
-                PoseEstimator(cfg, generator=torch.Generator().manual_seed(
-                    SEED), device=dev, backbone_cfg=bb_cfg)
-            except ValueError as e:
-                err.append(str(e))
-        ran = BA.launched(build)
-        msg = err[0] if err else ""
-        named = [op for op in ops if op in msg]
-        ok = named == list(ops) and not ran
-        print(f"[widths] {what}, use_flash on the card: the build raised "
-              f"{bool(err)} naming {named} ({msg or 'no error'}); hand-"
-              f"written launches {sum(ran.values())} "
-              f"{'OK' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            fail(f"{what} was not refused by name when it was built")
-
-    refused("a ViT-B/14 trunk (768 channels, 12 heads, 2 blocks)", {},
-            DinoV2Config(embed_dim=768, num_heads=12, depth=2),
-            ("fused_vit_block",))
-    refused("a head of d_model 1024 in 16 heads", width_model_kw(1024, 16,
-                                                                 2048),
-            DinoV2Config(depth=2), ("fused_encoder_stack",
-                                    "fused_decoder_layer",
-                                    "fused_decoder_stack"))
+    # --- what stays refused: a head of 1024 channels (the trunks that stay
+    # refused: [trunks])
+    refused_at_build(dev, "widths", "a head of d_model 1024 in 16 heads",
+                     width_model_kw(1024, 16, 2048), DinoV2Config(depth=2),
+                     ("fused_encoder_stack", "fused_decoder_layer",
+                      "fused_decoder_stack"))
     taken = []
     for size in (SIZE, DEMO_SIZE, LONG_SIZE):
         model = main_path_config(size).model
@@ -1904,6 +1932,336 @@ def width_check(dev, entries, power):
                                     for k in entry["width_kernels"])
     print(f"[widths] every width taken on its kernels: {summary}; the phase "
           f"took {time.perf_counter() - t_phase:.1f} s on {power}", flush=True)
+
+
+# DINOv2's ViT-B/14 and ViT-L/14 as published (channels, heads, depth),
+# the trunks of [trunks]; neither package defines them
+TRUNK_WIDTHS = {"ViT-B/14": (768, 12, 12), "ViT-L/14": (1024, 16, 24)}
+TRUNK_SOURCE = "edgecape_tpu_torch/csrc/vit_wide.cu"
+# the phase's cached evals: trunk, px, groups of QUERIES queries, the
+# vit_pair_blocks settings (the main path's chunk at ViT-B; ViT-L and 518
+# px cut to fewer groups); Trainer steps of TRUNK_ROWS rows at ViT-B
+TRUNK_EVALS = (("ViT-B/14", SIZE, GROUPS, (False, True)),
+               ("ViT-L/14", SIZE, 8, (False,)),
+               ("ViT-B/14", 518, 4, (False,)))
+TRUNK_ROWS, TRUNK_STEPS = 8, 2
+
+
+def trunk_check(dev, entries, power):
+    """[trunks]: DINOv2's ViT-B/14 and ViT-L/14 trunks on the wide route
+    (ops/kernels.py vit_attn_wide, vit_mlp_wide: vit_ln_gemm_kernel of
+    csrc/vit_wide.cu, the attention kernels, the GEMM). What stays refused
+    (1088 channels, above the route's cap; 1024 in 4 heads of 256), by name
+    at build time with no launch; the `[op] vit_ln_gemm` lines (qkv and fc1
+    of both trunks at the query pass, the support pass and the training
+    step, each beside its half's `[op] vit_attn` / `[op] vit_mlp` line:
+    tools/bench_vit_attn.py, bench_vit_mlp.py); a whole block of each trunk
+    at [510, 257, C] against fused_vit_block_plain, fused_vit_block2
+    bit-equal to two calls, and at ViT-B a query pass's rows bit-equal
+    across batch places (its halves, a permuted batch); then the stage-3
+    model over each trunk at full depth (backbone_dim the trunk's width),
+    bf16, cached: TRUNK_EVALS, each chunk's launches (vit_ln_gemm_kernel
+    twice a block, none of the resident ViT kernels, no plain version, no
+    thread-copy GEMM), its predictions against the plain path (the main
+    path's gates) and, as information, its device ms, idle share, peak
+    memory and img/s; two stage-3 Trainer steps over ViT-B of TRUNK_ROWS
+    rows (dropout 0), one step's loss and head gradients against the
+    training attention's plain version (the [widths] gates; the fp32
+    plain path as information), the trunk's launches counted. The kernel
+    line's entries of the phase get the launches of vit_ln_gemm_kernel
+    over its model runs."""
+    from edgecape_tpu_torch import config as C
+    from edgecape_tpu_torch.api import PoseEstimator
+    from edgecape_tpu_torch.models.convert import (init_params,
+                                                   redraw_zero_inits)
+    from edgecape_tpu_torch.models.dinov2 import Block, DinoV2Config
+    from edgecape_tpu_torch.ops import kernel_config
+    from edgecape_tpu_torch.ops import kernels as KN
+    import edgecape_tpu_torch.ops.fused_vit_block as FV
+    from edgecape_tpu_torch.tools import bench_attention as BA
+    from edgecape_tpu_torch.tools import bench_vit_attn as BVA
+    from edgecape_tpu_torch.tools import bench_vit_mlp as BVM
+    from edgecape_tpu_torch.train import checkpoint as ck
+    from edgecape_tpu_torch.train.loop import (Trainer, batch_to_tensors,
+                                               make_loss_fn)
+    t_phase = time.perf_counter()
+    bf = torch.bfloat16
+    bad = []
+
+    # --- what stays refused, by name, before anything runs
+    for c, h in ((1088, 17), (1024, 4)):
+        refused_at_build(dev, "trunks", f"a trunk of {c} channels in {h} "
+                         f"heads of {c // h} (2 blocks)", {"backbone_dim": c},
+                         DinoV2Config(embed_dim=c, num_heads=h, depth=2),
+                         ("fused_vit_block",))
+
+    # --- vit_ln_gemm_kernel at the path shapes, beside its halves
+    for tool, specs in ((BVA, [s for s in BVA.SHAPES if s[-2] != 384]),
+                        (BVM, [s for s in BVM.SHAPES if s[-1] != 384])):
+        for spec in specs:
+            row = tool.run_case(spec, dev, power)
+            lg = row["ln_gemm"]
+            if not row["ok"]:
+                bad.append(f"{spec[0]} ({tool.__name__.split('.')[-1]})")
+            name = f"vit_ln_gemm ({lg['name']})"
+            entries[name] = {
+                "name": name, "route": "cuda", "source": TRUNK_SOURCE,
+                "op": "edgecape_tpu_torch/ops/kernels.py vit_ln_gemm",
+                "replaces": "edgecape_tpu/ops/fused_vit_block.py:157",
+                "part_of": "#1, #2, #9, #10 at widths other than 384 / 6",
+                "launches": 0, "max_abs_err": lg["max_abs_err"],
+                "ms": lg["ms"], "device_ms": lg["device_ms"],
+                "kernels_per_call": lg["kernels"], "plain_ms": lg["plain_ms"],
+                "bound_ms": lg["bound_ms"], "bound_by": lg["bound_by"],
+                "library_ms": None, "matmul_ms": lg["matmul_ms"],
+                "shape": [lg["rows"], lg["c"], lg["n"]],
+                "half_device_ms": row["ms"], "half_kernels": row["kernels"],
+                "trunk_kernels": ["vit_ln_gemm_kernel"]}
+            torch.cuda.empty_cache()
+
+    # --- a whole block of each trunk at the query pass
+    nq, n_tok = GROUPS * QUERIES, 257
+    for trunk, (c, h, _) in TRUNK_WIDTHS.items():
+        g, rn = seeded_randn(SEED + 90 + c, dev)
+        bcfg = DinoV2Config(embed_dim=c, num_heads=h, depth=2)
+        blk_a = randomize(Block(bcfg), rn, dev)
+        blk_b = randomize(Block(bcfg), rn, dev)
+        x = rn(nq, n_tok, c).to(bf)
+        name = f"fused_vit_block ({trunk})"
+        with torch.no_grad():
+            def call():
+                return FV.fused_vit_block(x, blk_a, num_heads=h)
+
+            def plain():
+                return FV.fused_vit_block_plain(x, blk_a, num_heads=h)
+            resident = {k: n for k, n in BA.launched(call).items()
+                        if k in VIT_KERNELS}
+            if resident:
+                bad.append(f"{name}: the resident ViT kernels ran {resident}")
+            extra, dev_ms, per_call, _ = device_extra(
+                name, call, 5, bad, ("vit_ln_gemm_kernel",))
+            w_bytes = 2 * 12 * c * c + 4 * 13 * c
+            check_op(entries, bad, name,
+                     "edgecape_tpu/ops/fused_vit_block.py:157",
+                     "edgecape_tpu_torch/ops/fused_vit_block.py", call(),
+                     plain(), call, plain,
+                     bound(2 * nbytes(x) + w_bytes,
+                           24 * nq * n_tok * c * c + 4 * nq * n_tok ** 2 * c),
+                     counter=(FV, "launches"), copy_gemms=0, tma_gemms=2,
+                     extra=extra + f"; [{nq}, {n_tok}, {c}], {h} heads of "
+                     f"{c // h} on {power}")
+            entries[name].update(source=TRUNK_SOURCE, device_ms=dev_ms,
+                                 kernels_per_call=per_call,
+                                 trunk_kernels=["vit_ln_gemm_kernel"])
+            for xin in (x, x.float()):
+                pair = FV.fused_vit_block2(xin, blk_a, blk_b, num_heads=h)
+                two = FV.fused_vit_block(FV.fused_vit_block(
+                    xin, blk_a, num_heads=h), blk_b, num_heads=h)
+                same = torch.equal(pair, two) and pair.dtype == xin.dtype
+                print(f"[trunks] fused_vit_block2 ({trunk}) on {xin.dtype}: "
+                      f"bit-equal to two fused_vit_block calls: {same}",
+                      flush=True)
+                if not same:
+                    bad.append(f"fused_vit_block2 ({trunk}) on {xin.dtype}")
+            del pair, two
+            if trunk == "ViT-B/14":
+                whole = call()
+                half = nq // 2
+                halves = torch.cat([
+                    FV.fused_vit_block(x[:half].contiguous(), blk_a,
+                                       num_heads=h),
+                    FV.fused_vit_block(x[half:].contiguous(), blk_a,
+                                       num_heads=h)])
+                perm = torch.randperm(nq, generator=g).to(dev)
+                permuted = FV.fused_vit_block(x[perm].contiguous(), blk_a,
+                                              num_heads=h)
+                n_half = int((halves != whole).sum())
+                n_perm = int((permuted != whole[perm]).sum())
+                print(f"[trunks] fused_vit_block ({trunk}) rows across batch "
+                      f"places: {nq} images against two calls on their "
+                      f"halves {n_half} differing elements, against a "
+                      f"permuted batch {n_perm} "
+                      f"{'OK' if n_half == n_perm == 0 else 'FAIL'}",
+                      flush=True)
+                if n_half or n_perm:
+                    bad.append(f"{name} rows depend on their batch place")
+                del whole, halves, permuted
+        del blk_a, blk_b, x
+        torch.cuda.empty_cache()
+    if bad:
+        fail(f"the wide ViT route disagrees with its plain version or did "
+             f"not run: {bad}")
+
+    # --- the stage-3 model over each trunk, cached eval
+    trunk_launches = 0
+    for trunk, size, groups, pairs in TRUNK_EVALS:
+        c, h, depth = TRUNK_WIDTHS[trunk]
+        bbc = DinoV2Config(embed_dim=c, num_heads=h, depth=depth)
+        cfg = main_path_config(size)
+        cfg.model = C.replace(cfg.model, backbone_dim=c)
+        gen = torch.Generator().manual_seed(SEED + 91 + c + size)
+        bb, head = init_params(gen, cfg.model, bbc)
+        redraw_zero_inits(bb, head, gen)
+        support, query, _ = episodes(np.random.default_rng(SEED + 92),
+                                     groups=groups, size=size, chunks=1)[0]
+        tag = f"{trunk} at {size} px, {groups} x {QUERIES} queries"
+        preds = {}
+        for pair in pairs:
+            kernel_config.set_vit_pair_blocks(pair)
+            est = PoseEstimator(cfg, bb, head, device=dev, backbone_cfg=bbc)
+            est.forward_cached(support, query)                  # warm-up
+            torch.cuda.synchronize()
+            zero_counts()
+            with PlainCalls() as plain_calls:
+                t0 = time.perf_counter()
+                preds[pair] = est.forward_cached(support, query)[0].cpu() \
+                    .numpy()
+                wall = time.perf_counter() - t0
+            ops, kern = read_counts()
+            trunk_launches += kern.get("vit_ln_gemm_kernel", 0)
+            blocks = ops["fused_vit_block"] + 2 * ops["fused_vit_block2"]
+            want = {"vit_ln_gemm_kernel": 2 * 2 * depth,
+                    **dict.fromkeys(VIT_KERNELS, 0)}
+            got = {k: kern.get(k, 0) for k in want}
+            ok = (got == want and blocks == 2 * depth
+                  and plain_calls.n == 0 and not kern.get("gemm_kernel"))
+            print(f"[trunks] {tag}, vit_pair_blocks {'on' if pair else 'off'}"
+                  f": one chunk {wall:.3f} s ({groups * QUERIES / wall:.1f} "
+                  f"img/s) on {power}; ViT blocks {blocks} (fused_vit_block "
+                  f"{ops['fused_vit_block']}, fused_vit_block2 "
+                  f"{ops['fused_vit_block2']}), trunk kernels {got} expected "
+                  f"{want}, thread-copy GEMMs {kern.get('gemm_kernel', 0)}, "
+                  f"plain versions run {plain_calls.n}; launches {kern} "
+                  f"{'OK' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"the {tag} eval did not run on the wide route's "
+                     f"kernels as its path implies")
+            torch.cuda.reset_peak_memory_stats()
+            busy_ms, idle = profile(
+                lambda: est.forward_cached(support, query),
+                f"[trunks] one chunk, {tag}, vit_pair_blocks "
+                f"{'on' if pair else 'off'}", power, rows=8)
+            busy = "not measured" if busy_ms is None else f"{busy_ms:.3f} ms"
+            idle = "not measured" if idle is None else f"{idle:.4f}"
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"[trunks] {tag}, vit_pair_blocks {'on' if pair else 'off'}"
+                  f": device {busy} a chunk, idle share {idle}, peak device "
+                  f"memory {peak:.3f} GiB, {groups * QUERIES / wall:.1f} img/s "
+                  f"on {power} (information)", flush=True)
+            del est
+            torch.cuda.empty_cache()
+        kernel_config.set_vit_pair_blocks(False)
+        pcfg = C.replace(cfg, model=C.replace(cfg.model, use_flash=False))
+        ref = PoseEstimator(pcfg, bb, head, device=dev,
+                            backbone_cfg=bbc).forward_cached(
+                                support, query)[0].cpu().numpy()
+        for pair in pairs:
+            med, mx, within = coord_gap(preds[pair], ref)
+            ok = (med <= PATH_MEDIAN_TOL and within >= PATH_WITHIN_SHARE
+                  and np.isfinite(preds[pair]).all())
+            print(f"[trunks] {tag}, vit_pair_blocks "
+                  f"{'on' if pair else 'off'}, vs the plain path: median |d| "
+                  f"{med:.4g} (tol {PATH_MEDIAN_TOL}), max {mx:.4g}, share "
+                  f"within {PATH_CELL:.4g}: {within:.4f} (tol >= "
+                  f"{PATH_WITHIN_SHARE}) {'OK' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"the {tag} eval disagrees with the plain path")
+        del bb, head
+        torch.cuda.empty_cache()
+
+    # --- two stage-3 Trainer steps over ViT-B/14
+    c, h, depth = TRUNK_WIDTHS["ViT-B/14"]
+    bbc = DinoV2Config(embed_dim=c, num_heads=h, depth=depth)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = train_config(tmp)
+        base.model = C.replace(base.model, backbone_dim=c)
+        stage3 = C.replace(C.stage3_config(base), work_dir=f"{tmp}/s3")
+        stage3.model = C.replace(stage3.model, dropout=0.0)
+        stage3.train = C.replace(stage3.train, batch_size=TRUNK_ROWS)
+        gen = torch.Generator().manual_seed(SEED + 93)
+        bbt, headt = init_params(gen, stage3.model, bbc)
+        redraw_zero_inits(bbt, headt, gen)
+        ck.save_checkpoint(f"{tmp}/seeded", {"model": headt})
+        stage3.load_from = f"{tmp}/seeded"
+        data = RefedBatch(TRUNK_STEPS, np.random.default_rng(SEED + 94),
+                          b=TRUNK_ROWS)
+        fcfg = C.replace(stage3, work_dir=f"{tmp}/fp32",
+                         model=C.replace(stage3.model, use_flash=False))
+        tr = Trainer(stage3, data, lambda ds, bs, **kw: ds,
+                     backbone_state=bbt, device=dev, log_fn=lambda *a: None,
+                     backbone_cfg=bbc)
+        ref = Trainer(fcfg, data, lambda ds, bs, **kw: ds,
+                      backbone_state=bbt, device=dev, log_fn=lambda *a: None,
+                      backbone_cfg=bbc)
+        grads, losses = {}, {}
+        for route, t, ctx in (
+                ("kernels", tr, contextlib.nullcontext()),
+                ("plain versions", tr, PlainTrainingAttention()),
+                ("fp32", ref, contextlib.nullcontext())):
+            with ctx:
+                total, _ = make_loss_fn(t.model, t.backbone, t.cfg)(
+                    batch_to_tensors(data.batch, dev))
+                total.backward()
+            losses[route] = float(total)
+            grads[route] = {n: p.grad.float() for n, p in
+                            t.model.named_parameters() if p.grad is not None}
+            t.model.zero_grad(set_to_none=True)
+        del ref
+        for other, gate in (("plain versions", True), ("fp32", False)):
+            what = ("the training attention's plain version" if gate else
+                    "the fp32 plain path (use_flash=False)")
+            rel_l2, worst, worst_name, _ = grad_gap(grads["kernels"],
+                                                    grads[other])
+            loss_rel = abs(losses["kernels"] - losses[other]) \
+                / abs(losses[other])
+            ok = (rel_l2 <= GRAD_REL_L2 and worst <= GRAD_TENSOR_REL_L2
+                  and loss_rel <= LONG_LOSS_REL
+                  and np.isfinite(losses["kernels"]))
+            print(f"[trunks] ViT-B/14 training, {TRUNK_ROWS} rows, dropout 0, "
+                  f"one step, kernel path vs {what}: loss "
+                  f"{losses['kernels']:.6f} / {losses[other]:.6f} (relative "
+                  f"{loss_rel:.3g}, tol {LONG_LOSS_REL}), gradients relative "
+                  f"L2 over all {rel_l2:.4g} (tol {GRAD_REL_L2}), worst "
+                  f"tensor {worst:.4g} {worst_name} (tol {GRAD_TENSOR_REL_L2}) "
+                  f"{('OK' if ok else 'FAIL') if gate else '(information)'}",
+                  flush=True)
+            if gate and not ok:
+                fail("the ViT-B/14 training step disagrees with the plain "
+                     "version of its kernels")
+        del grads
+        zero_counts()
+        with PlainCalls() as plain_calls:
+            t0 = time.perf_counter()
+            tr.fit()
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+        ops, kern = read_counts()
+        trunk_launches += kern.get("vit_ln_gemm_kernel", 0)
+        blocks = ops["fused_vit_block"] + 2 * ops["fused_vit_block2"]
+        got = {k: kern.get(k, 0) for k in ("vit_ln_gemm_kernel",)
+               + VIT_KERNELS}
+        ok = (blocks > 0 and blocks % depth == 0
+              and got == {"vit_ln_gemm_kernel": 2 * blocks,
+                          **dict.fromkeys(VIT_KERNELS, 0)}
+              and plain_calls.n == 0 and tr.step == TRUNK_STEPS)
+        print(f"[trunks] ViT-B/14: {TRUNK_STEPS} stage-3 Trainer steps of "
+              f"{TRUNK_ROWS} rows in {fit_s:.3f} s on {power}; the frozen "
+              f"trunk's blocks {blocks}, its kernels {got} "
+              f"(vit_ln_gemm_kernel twice a block, the resident ViT kernels "
+              f"0), plain versions run {plain_calls.n} "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail("the ViT-B/14 training steps did not run the trunk on the "
+                 "wide route")
+        del tr
+    torch.cuda.empty_cache()
+    for entry in entries.values():
+        if "trunk_kernels" in entry:
+            entry["launches"] = trunk_launches
+    print(f"[trunks] ViT-B/14 and ViT-L/14 taken on the wide route, "
+          f"vit_ln_gemm_kernel launched {trunk_launches} times in the "
+          f"phase's model runs; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s on {power}", flush=True)
 
 
 # ------------------------------------------------------------ phase 4
@@ -2341,7 +2699,8 @@ def variant_op_checks(dev, entries, power):
         # vit_mlp_kernel at every shape the paths give it, beside the chain
         # of three launches it replaced (tools/bench_vit_mlp.py)
         from edgecape_tpu_torch.tools import bench_vit_mlp as BVM
-        rows = [BVM.run_case(spec, dev, power) for spec in BVM.SHAPES]
+        rows = [BVM.run_case(spec, dev, power) for spec in BVM.SHAPES
+                if spec[-1] == 384]          # the wider ones: [trunks]
         bad += [f"vit_mlp {r['shape']}" for r in rows if not r["ok"]]
         entries["fused_ln_mlp"]["vit_mlp_shapes"] = rows
         # two kernels a call (vit_qkv_kernel, vit_attn_kernel), no GEMM
@@ -2367,7 +2726,8 @@ def variant_op_checks(dev, entries, power):
         # them, beside the four launches they replaced
         # (tools/bench_vit_attn.py)
         from edgecape_tpu_torch.tools import bench_vit_attn as BVA
-        rows = [BVA.run_case(spec, dev, power) for spec in BVA.SHAPES]
+        rows = [BVA.run_case(spec, dev, power) for spec in BVA.SHAPES
+                if spec[-2] == 384]          # the wider ones: [trunks]
         bad += [f"vit_attn {r['shape']}" for r in rows if not r["ok"]]
         entries["fused_attn_block"]["vit_attn_shapes"] = rows
 
@@ -5177,6 +5537,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     est, data, preds, weights = main_path(dev, entries, power, figures)
     width_check(dev, entries, power)
+    torch.cuda.empty_cache()
+    trunk_check(dev, entries, power)
     torch.cuda.empty_cache()
     train_path(dev, entries, power, figures)
     torch.cuda.empty_cache()

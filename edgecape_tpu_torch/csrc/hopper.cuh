@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the kernels of edgecape_tpu_torch
-// (kernels.cu, mm_chain.cu, attn_long.cu): mbarriers, TMA copies in and
-// out of 128-byte swizzled shared memory, wgmma descriptors and products
-// (from shared memory, or with A in registers), the weight ring
-// of the kernels without producer warps (CountRing), and the host's
+// (kernels.cu, mm_chain.cu, attn_long.cu, head_wide.cu, vit_wide.cu):
+// the row arithmetic of the LayerNorm and GELU epilogues, mbarriers, TMA
+// copies in and out of 128-byte swizzled shared memory, wgmma descriptors
+// and products (from shared memory, or with A in registers), the weight
+// ring of the kernels without producer warps (CountRing), and the host's
 // tensor-map encoder. Each source that includes this header is its own
 // library (ops/kernels.py builds one per source), so every definition
 // here is inline or static.
@@ -42,6 +43,53 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// v rounded to bf16, in fp32.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The steps of the LayerNorm that layernorm_kernel, vit_mlp_kernel,
+// vit_qkv_kernel (kernels.cu) and vit_ln_gemm_kernel (vit_wide.cu) share,
+// each rounded on its own (the _rn intrinsics) so that the compiler
+// contracts nothing differently in them: the mean, 1 / sqrt(var + eps),
+// q + (v - mean)^2 and (v - mean) * inv * g + b.
+__device__ __forceinline__ float ln_mean(float sum, int C) { return __fdiv_rn(sum, (float)C); }
+__device__ __forceinline__ float ln_inv(float sq, int C, float eps) {
+  return rsqrtf(__fadd_rn(__fdiv_rn(sq, (float)C), eps));
+}
+__device__ __forceinline__ float ln_sq(float q, float v, float mean) {
+  const float d = __fsub_rn(v, mean);
+  return __fmaf_rn(d, d, q);
+}
+__device__ __forceinline__ float ln_apply(float v, float mean, float inv, float g, float b) {
+  return __fmaf_rn(__fmul_rn(__fsub_rn(v, mean), inv), g, b);
+}
+
+// Exact-erf GELU of vit_mlp_kernel and vit_ln_gemm_kernel, with the TPU
+// kernel's own erf (Abramowitz & Stegun 7.1.26,
+// edgecape_tpu/ops/fused_decoder.py _erf: within 1.5e-7 of erf): an
+// approximate reciprocal, five multiply-adds and an approximate
+// exponential, written out (__fdividef and __expf add range checks):
+// about 16 instructions and two MUFU operations a value, under half the
+// instructions of erff.
+__device__ __forceinline__ float gelu_as(float x) {
+  float t, e;
+  const float az = fabsf(x) * 0.70710678118654752f;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(fmaf(0.3275911f, az, 1.0f)));
+  const float poly =
+      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f), 1.421413741f),
+                       -0.284496736f), 0.254829592f);
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(az * az * -1.4426950408889634f));
+  const float hx = 0.5f * x;
+  return fmaf(hx, copysignf(fmaf(-poly, e, 1.0f), x), hx);
 }
 
 // Spins until the barrier's phase of the given parity has completed.

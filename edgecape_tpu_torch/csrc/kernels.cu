@@ -65,17 +65,6 @@ using namespace nvcuda;
 
 enum { ACT_NONE = 0, ACT_GELU = 1, ACT_RELU = 2 };
 
-// v rounded to bf16, in fp32.
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -764,23 +753,10 @@ extern "C" int ec_gemm(const void* A, long lda, long sA,
 // them in that order; the 32 partial sums meet in the butterfly of lanes
 // 16, 8, 4, 2 and 1 apart (warp_sum). Every step is rounded on its own
 // (the _rn intrinsics), so that the compiler contracts nothing
-// differently in the two kernels.
+// differently in the two kernels (the steps: hopper.cuh ln_mean, ln_inv,
+// ln_sq, ln_apply; vit_wide.cu sums in the same order).
 
 #define LN_MAXV 16
-
-__device__ __forceinline__ float ln_mean(float sum, int C) { return __fdiv_rn(sum, (float)C); }
-__device__ __forceinline__ float ln_inv(float sq, int C, float eps) {
-  return rsqrtf(__fadd_rn(__fdiv_rn(sq, (float)C), eps));
-}
-// q + (v - mean)^2
-__device__ __forceinline__ float ln_sq(float q, float v, float mean) {
-  const float d = __fsub_rn(v, mean);
-  return __fmaf_rn(d, d, q);
-}
-// (v - mean) * inv * g + b
-__device__ __forceinline__ float ln_apply(float v, float mean, float inv, float g, float b) {
-  return __fmaf_rn(__fmul_rn(__fsub_rn(v, mean), inv), g, b);
-}
 
 __global__ void layernorm_kernel(const void* x, int x_dt, long ldx,
                                  const void* r, int r_dt, long ldr,
@@ -2681,24 +2657,6 @@ __global__ void __launch_bounds__(PA_THREADS, 1)
 #define KH_STAGES 6
 #define KH_SMEM PA_SMEM(8, KH_STAGES)
 static_assert(KH_SMEM <= 232448, "the keypoint head exceeds the shared memory of a block");
-
-// Exact-erf GELU with the TPU kernel's own erf (Abramowitz & Stegun
-// 7.1.26, edgecape_tpu/ops/fused_decoder.py _erf: within 1.5e-7 of erf):
-// an approximate reciprocal, five multiply-adds and an approximate
-// exponential, written out (__fdividef and __expf add range checks):
-// about 16 instructions and two MUFU operations a value, under half the
-// instructions of erff.
-__device__ __forceinline__ float gelu_as(float x) {
-  float t, e;
-  const float az = fabsf(x) * 0.70710678118654752f;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(fmaf(0.3275911f, az, 1.0f)));
-  const float poly =
-      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, 1.061405429f, -1.453152027f), 1.421413741f),
-                       -0.284496736f), 0.254829592f);
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(az * az * -1.4426950408889634f));
-  const float hx = 0.5f * x;
-  return fmaf(hx, copysignf(fmaf(-poly, e, 1.0f), x), hx);
-}
 
 struct KptHeadArgs {
   const bf16* x;

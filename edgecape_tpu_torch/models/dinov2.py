@@ -1,12 +1,16 @@
-"""DINOv2 ViT-S/14 trunk in PyTorch; counterpart of
-edgecape_tpu/models/dinov2.py.
+"""DINOv2 ViT trunks in PyTorch (ViT-S/14 by default, any DinoV2Config:
+ViT-B/14 is 768 channels in 12 heads, depth 12; ViT-L/14 1024 in 16,
+depth 24); counterpart of edgecape_tpu/models/dinov2.py.
 
 Channels-last [B, H, W, C] images like the JAX module, the patch embed as
 reshape + matmul, the position embedding stored at the target grid,
 pre-norm blocks with LayerScale and a fused qkv projection, exact GELU.
 `fast_forward` is the bf16 eval path: every block goes through the
 hand-written `fused_vit_block` op, or every pair of blocks through
-`fused_vit_block2` when the vit_pair_blocks switch is on."""
+`fused_vit_block2` when the vit_pair_blocks switch is on; 384 channels
+in 6 heads run on the resident ViT kernels, every other width the
+kernels take (ops/kernels.py width_misfits: 64..1024 channels in steps
+of 64, heads of up to 128) on the wide route."""
 
 from __future__ import annotations
 

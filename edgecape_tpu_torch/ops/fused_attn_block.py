@@ -19,7 +19,11 @@ its keys in one register pass, the head outputs kept on chip as the
 operand of the projection, and bias, LayerScale and the residual in its
 epilogue. Only q, k and v pass through device memory. The same two
 kernels are the first half of fused_vit_block; above 272 tokens the
-second is attn_long_kernel and the GEMM (ops/kernels.py vit_attn).
+second is attn_long_kernel and the GEMM (ops/kernels.py vit_attn). At any
+other width than 384 channels in 6 heads the op is the wide route's three
+launches (ops/kernels.py vit_attn_wide): vit_ln_gemm_kernel
+(csrc/vit_wide.cu: LN and the q / k / v projection), `attention` on the
+q, k, v columns, the GEMM with bias, LayerScale and the residual.
 
 Weights are laid out as the JAX function takes them: wq, wk, wv, wproj
 [C, C] applied as `h @ w`; their bf16 [out, in] forms (the three
@@ -114,11 +118,15 @@ def fused_attn_block(x, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wproj,
             layerscale, num_heads=num_heads, eps=eps)
     from . import kernels as K
     b, n, c = x.shape
-    K.vit_attn_plan(b, n, c, num_heads)
+    plan = K.vit_attn_plan(b, n, c, num_heads)
     w = _kernel_weights(ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wproj,
                         bproj, layerscale)
     x = x.contiguous()
-    qkv = K.vit_qkv(x.view(b * n, c), w, eps=eps)
-    out = K.vit_attn(qkv.view(b, n, 3 * c), x, w, out_dtype=x.dtype)
+    if plan.get("wide"):
+        out = K.vit_attn_wide(x, w, num_heads=num_heads, eps=eps,
+                              out_dtype=x.dtype)
+    else:
+        qkv = K.vit_qkv(x.view(b * n, c), w, eps=eps)
+        out = K.vit_attn(qkv.view(b, n, 3 * c), x, w, out_dtype=x.dtype)
     launches += 1
     return out

@@ -16,6 +16,11 @@ F = 1536: 309 GFLOP, 0.31 ms at the bf16 peak, against 0.2 GB of x in
 and out). It is one launch of vit_mlp_kernel (ops/kernels.py vit_mlp,
 csrc/kernels.cu), which runs LayerNorm, fc1, GELU and fc2 on tiles of
 128 rows with the [rows, F] hidden kept on chip in chunks of 64 columns.
+At any other width than 384 channels it is the wide route's two launches
+(ops/kernels.py vit_mlp_wide): vit_ln_gemm_kernel (csrc/vit_wide.cu: LN,
+fc1, bias, GELU; the bf16 hidden stored) and the GEMM with fc2's bias,
+LayerScale and the residual in its epilogue, both reading the weights in
+this layout.
 
 Weights are laid out as the JAX function takes them, w1 [C, F] and w2
 [F, C], and read so by the kernel (no transposed copy). Weights that are
@@ -69,8 +74,11 @@ def _fused_ln_mlp_cuda(x, ln_scale, ln_bias, w1, b1, w2, b2, layerscale, *,
          "w2": _bf16(w2), "b2": b2, "ls": layerscale}
     w = {k: K._f32(v) if v.dim() == 1 else v for k, v in w.items()}
     w["kmajor"] = False
-    y, _ = K.vit_mlp(x.reshape(-1, c).contiguous(), w, eps=eps,
-                     out_dtype=x.dtype)
+    rows = x.reshape(-1, c).contiguous()
+    if K.vit_mlp_plan(rows.shape[0], c, w["b1"].numel()).get("wide"):
+        y = K.vit_mlp_wide(rows, w, eps=eps, out_dtype=x.dtype)
+    else:
+        y, _ = K.vit_mlp(rows, w, eps=eps, out_dtype=x.dtype)
     return y.view(x.shape)
 
 

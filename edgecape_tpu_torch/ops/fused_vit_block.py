@@ -28,6 +28,22 @@ its epilogue: four launches a block. The bf16 and fp32 forms of a block's
 weights are made once per block module and kept until a parameter
 changes.
 
+Those kernels hold 384 channels in 6 heads. At any other trunk width
+(DINOv2's ViT-B/14, 768 channels in 12 heads of 64, and ViT-L/14, 1024 in
+16) a block is the wide route, five launches (ops/kernels.py
+vit_attn_wide, vit_mlp_wide): vit_ln_gemm_kernel (csrc/vit_wide.cu: LN1
+and the q / k / v projection), `attention` on the q, k, v columns
+(attn_kernel; attn_long_kernel above 512 tokens), the GEMM with the
+projection's bias and the LayerScale residual in its epilogue (the fp32
+x1), vit_ln_gemm_kernel again (LN2, fc1 and GELU: the bf16 hidden), the
+GEMM with fc2's bias and the LayerScale residual. Its rounding points
+are the resident kernels', so fused_vit_block_plain is the plain version
+of both routes; q / k / v, the attention output, x1 and the hidden pass
+through device memory (keeping the hidden on chip at these widths is
+later work). A width the route does not take (above 1024 channels, not a
+multiple of 64, heads above 128 channels) is refused at build time
+(ops/kernels.py width_misfits).
+
 `fused_vit_block2` replaces the TPU kernel `fused_vit_block2`
 (`_kernel2`) of the same file: two consecutive blocks in one op, the
 intermediate rounded to bf16 between them, bit-equal to two calls of
@@ -78,6 +94,18 @@ def fused_vit_block_plain(x: torch.Tensor, blk, *, num_heads: int,
     return y.to(x.dtype)
 
 
+def vit_ln_gemm_plain(x: torch.Tensor, g, be, w: torch.Tensor, bias, *,
+                      eps: float, b_nk: bool = True, gelu: bool = False,
+                      round_in: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of ops/kernels.py vit_ln_gemm:
+    bf16(act(bf16(LN(x)) . W + bias)) with fp32 LayerNorm statistics (of
+    bf16(x) with round_in), exact GELU with gelu; W [N, C] (b_nk) or
+    [C, N]. Returns bf16 [.., N]."""
+    h = plain.layer_norm(plain.bf16(x) if round_in else x, g, be, eps)
+    y = plain.linear(h, w if b_nk else w.t(), bias)
+    return (plain.gelu(y) if gelu else y).to(torch.bfloat16)
+
+
 def _prepare(blk) -> dict:
     """The block's weights as the kernels take them: bf16 matrices (torch
     Linear layout, so vit_mlp reads w1, w2 K-major), fp32 vectors."""
@@ -92,17 +120,27 @@ def _prepare(blk) -> dict:
 
 
 def _fused_vit_block_cuda(x, blk, *, num_heads, eps, out_dtype=None):
-    """The three launches of one block; the result is stored as
-    out_dtype (x.dtype by default)."""
+    """The launches of one block: three at 384 channels in 6 heads, five
+    on the wide route (the attention half's three, the MLP half's two).
+    The result is stored as out_dtype (x.dtype by default)."""
     from . import kernels as K
     w = K.module_weights(blk, "_kernel_weights", _prepare)
     b, n, c = x.shape
-    K.vit_attn_plan(b, n, c, num_heads)
+    plan = K.vit_attn_plan(b, n, c, num_heads)
+    mlp_wide = K.vit_mlp_plan(b * n, c, w["b1"].numel()).get("wide")
     x = x.contiguous()
-    qkv = K.vit_qkv(x.view(b * n, c), w, eps=eps)
-    x1 = K.vit_attn(qkv.view(b, n, 3 * c), x, w, out_dtype=torch.float32)
-    y, _ = K.vit_mlp(x1.view(b * n, c), w, eps=eps,
-                     out_dtype=out_dtype or x.dtype)
+    if plan.get("wide"):
+        x1 = K.vit_attn_wide(x, w, num_heads=num_heads, eps=eps,
+                             out_dtype=torch.float32)
+    else:
+        qkv = K.vit_qkv(x.view(b * n, c), w, eps=eps)
+        x1 = K.vit_attn(qkv.view(b, n, 3 * c), x, w, out_dtype=torch.float32)
+    x1 = x1.view(b * n, c)
+    out_dtype = out_dtype or x.dtype
+    if mlp_wide:
+        y = K.vit_mlp_wide(x1, w, eps=eps, out_dtype=out_dtype)
+    else:
+        y, _ = K.vit_mlp(x1, w, eps=eps, out_dtype=out_dtype)
     return y.view(b, n, c)
 
 

@@ -5,8 +5,10 @@ the decoder stack's own kernels and the training attention's forward /
 backward pair, in `attn_long.cu` the same attention kernels with the keys
 streamed, for rows longer than a block holds, in `head_wide.cu` the
 head's post-attention kernels, keypoint head and bias attention at every
-width other than 256 channels in 8 heads of 32, in `mm_chain.cu` the
-matmul chain of the probe tool.
+width other than 256 channels in 8 heads of 32, in `vit_wide.cu` the
+LayerNorm + projection of the ViT block at every trunk width other than
+384 channels in 6 heads, in `mm_chain.cu` the matmul chain of the probe
+tool.
 
 Each source is compiled with `nvcc` for `sm_90a` into a shared library
 with a plain C interface at first use (one compiler process per source,
@@ -64,7 +66,8 @@ launches = dict.fromkeys((
     "train_fwd_long_kernel", "train_bwd_q_long_kernel",
     "train_bwd_k_long_kernel", "enc_post_wide_kernel",
     "dec_post_self_wide_kernel", "dec_post_cross_wide_kernel",
-    "kpt_head_wide_kernel", "bias_attn_wide_kernel"), 0)
+    "kpt_head_wide_kernel", "bias_attn_wide_kernel", "vit_ln_gemm_kernel"),
+    0)
 
 _P = ctypes.c_void_p
 _L = ctypes.c_long
@@ -136,6 +139,10 @@ _SIGNATURES = {
     # four tensors, scale, out
     "ec_bias_attention_wide": [_P, _I, _I, _I, _I, _P, _L, _P, _I, _I, _P,
                                _P, _P, _P, _F, _P, _P],
+    # vit_wide.cu: x, its dtype, round_in, g, be, W, kmajor, bias, act,
+    # out, R, C, N, eps, smem
+    "ec_vit_ln_gemm": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I,
+                       _F, _L, _P],
 }
 
 
@@ -1341,19 +1348,24 @@ VIT_C, VIT_TILE, VIT_CHUNK = 384, 128, 64
 
 
 def vit_mlp_plan(rows: int, c: int, f: int) -> dict:
-    """How vit_mlp_kernel covers `rows` rows of c channels with a hidden of
-    width f: `tiles` of VIT_TILE rows (a persistent grid of at most one
-    block an SM walks them), whose `pad_rows` missing rows (the last
-    tile's) the prologue fills with zeros and the epilogue does not store,
-    and `chunks` of VIT_CHUNK hidden columns. Raises for what the kernel
-    does not take."""
-    if c != VIT_C:
-        raise ValueError(f"the ViT MLP kernel takes {VIT_C} channels, got {c}")
+    """How the ViT MLP half covers `rows` rows of c channels with a hidden
+    of width f. At VIT_C channels vit_mlp_kernel: `tiles` of VIT_TILE rows
+    (a persistent grid of at most one block an SM walks them), whose
+    `pad_rows` missing rows (the last tile's) the prologue fills with zeros
+    and the epilogue does not store, and `chunks` of VIT_CHUNK hidden
+    columns. At any other width the wide route (vit_mlp_wide):
+    vit_ln_gemm_kernel (LN2, fc1, bias and GELU; its plan `fc1`), then the
+    GEMM (fc2, its bias and the LayerScale residual); the plan holds
+    `wide`: True. Raises for what the kernels do not take: a hidden width
+    that is not a positive multiple of VIT_CHUNK, no rows, a width
+    vit_ln_gemm_plan refuses."""
     if f <= 0 or f % VIT_CHUNK:
         raise ValueError(f"hidden width {f} is not a positive multiple of "
                          f"{VIT_CHUNK}")
     if rows <= 0:
         raise ValueError(f"no rows ({rows})")
+    if c != VIT_C:
+        return {"wide": True, "fc1": vit_ln_gemm_plan(rows, c, f)}
     tiles = -(-rows // VIT_TILE)
     return {"tiles": tiles, "pad_rows": tiles * VIT_TILE - rows,
             "chunks": f // VIT_CHUNK}
@@ -1372,7 +1384,9 @@ def vit_mlp(x: torch.Tensor, w: dict, *, eps: float, out_dtype,
     _cuda(x)
     r, c = x.shape
     f = w["b1"].numel()
-    vit_mlp_plan(r, c, f)
+    if vit_mlp_plan(r, c, f).get("wide"):
+        raise ValueError(f"the ViT MLP kernel takes {VIT_C} channels, got {c} "
+                         f"(vit_mlp_wide takes the others)")
     shapes = ((f, c), (c, f)) if w["kmajor"] else ((c, f), (f, c))
     ptrs = [_operand(x, (r, c), x.dtype), _dt(x)] + _vectors(w, "g", "be") + [
         _operand(w["w1"], shapes[0])] + _vectors(w, "b1") + [
@@ -1415,15 +1429,30 @@ def vit_attn_plan(b: int, n: int, c: int, heads: int) -> dict:
     and v columns of its output, then the GEMM with the projection's bias
     and the LayerScale residual in its epilogue: the plan holds `long`:
     True, `qkv_tiles` and the attention's plan as `attention`. Raises for
-    what the kernels do not take: other than 384 channels in 6 heads, no
-    image or token."""
-    if c != VIT_C or heads != VIT_HEADS:
-        raise ValueError(f"the ViT attention kernels take {VIT_HEADS} heads "
-                         f"of {VIT_D} ({VIT_C} channels), got {heads} heads "
-                         f"and {c} channels")
+    what the kernels do not take: no image or token.
+
+    Any other width whose heads are at most 128 channels takes the wide
+    route (vit_attn_wide): vit_ln_gemm_kernel (LN1 and the q | k | v
+    projection), `attention` on the q, k and v columns of its output
+    (attn_kernel, or attn_long_kernel above ATT_MAX_KEYS tokens), then the
+    GEMM with the projection's bias and the LayerScale residual in its
+    epilogue: the plan holds `wide`: True, `qkv` (vit_ln_gemm_plan's) and
+    `attention` (attention_plan's). Raises for channels that do not split
+    into the heads, a head dim above 128, a width vit_ln_gemm_plan refuses
+    and a token count the attention kernels do not take at the head dim."""
     if b < 1 or n < 1:
         raise ValueError(f"the ViT attention kernels take an image and a "
                          f"token, got B={b}, N={n}")
+    if (c, heads) != (VIT_C, VIT_HEADS):
+        if heads < 1 or c % heads:
+            raise ValueError(f"{c} channels do not split into {heads} heads")
+        d = c // heads
+        if d > ATT_HEAD_DIMS[-1]:
+            raise ValueError(f"the ViT kernels take head dims up to "
+                             f"{ATT_HEAD_DIMS[-1]}, got {d} ({c} channels in "
+                             f"{heads} heads)")
+        return {"wide": True, "qkv": vit_ln_gemm_plan(b * n, c, 3 * c),
+                "attention": attention_plan(n, n, d)}
     qkv_tiles = -(-(b * n) // VIT_TILE)
     if n > VIT_KEYS:
         return {"qkv_tiles": qkv_tiles, "long": True,
@@ -1471,6 +1500,10 @@ def vit_attn(qkv: torch.Tensor, x: torch.Tensor, w: dict, *,
     b, n, c3 = qkv.shape
     c = c3 // 3
     plan = vit_attn_plan(b, n, c, VIT_HEADS)
+    if plan.get("wide"):
+        raise ValueError(f"the ViT attention kernels take {VIT_HEADS} heads "
+                         f"of {VIT_D} ({VIT_C} channels), got {c} channels "
+                         f"(vit_attn_wide takes the others)")
     ptrs = [_operand(qkv, (b, n, c3)), _operand(x, (b, n, c), x.dtype),
             _dt(x), _operand(w["wp"], (c, c))] + _vectors(w, "bp", "ls1")
     if plan.get("long"):
@@ -1486,6 +1519,114 @@ def vit_attn(qkv: torch.Tensor, x: torch.Tensor, w: dict, *,
           float(VIT_D ** -0.5), plan["smem_bytes"], _stream())
     launches["vit_attn_kernel"] += 1
     return out
+
+
+# The ViT block at every other trunk width (csrc/vit_wide.cu
+# vit_ln_gemm_kernel, LayerNorm + projection): tiles of VIT_WIDE_TILE rows
+# whose LayerNorm output (C / 64 swizzled [64 x 64] bf16 slabs of
+# VIT_WIDE_SLAB bytes) stays in shared memory beside a ring of slots of
+# VIT_WIDE_SLOT bytes ([VIT_WIDE_GROUP output columns x 64 k]): three at C
+# above 768, four above 512, five below. C is a multiple of 64 up to
+# VIT_WIDE_MAX_C: at 1088 the slabs (136 KB) and the fewest slots the ring
+# runs with (3 x 32 KB) pass the 227 KB of a block.
+VIT_WIDE_TILE, VIT_WIDE_GROUP, VIT_WIDE_MAX_C = 64, 256, 1024
+VIT_WIDE_SLAB, VIT_WIDE_SLOT = 8192, 32768
+
+
+def _vit_wide_stages(c: int) -> int:
+    return 3 if c > 768 else 4 if c > 512 else 5
+
+
+def vit_ln_gemm_plan(rows: int, c: int, n: int) -> dict:
+    """How vit_ln_gemm_kernel covers `rows` rows of c channels with n
+    output columns: `tiles` of VIT_WIDE_TILE rows (a persistent grid of at
+    most one block an SM walks them; `pad_rows` of the last are zeros and
+    not stored), `k_slabs` of 64 channels, `groups` of VIT_WIDE_GROUP
+    output columns (the last may be partly past n), a ring of `stages`
+    slots and `smem_bytes` of shared memory a block. Raises for what the
+    kernel does not take: c not a multiple of 64 in 64..VIT_WIDE_MAX_C, n
+    not a positive multiple of 64, no rows."""
+    if c % 64 or not 64 <= c <= VIT_WIDE_MAX_C:
+        raise ValueError(f"the wide ViT kernel takes 64..{VIT_WIDE_MAX_C} "
+                         f"channels in steps of 64, got {c}")
+    if n <= 0 or n % 64:
+        raise ValueError(f"the wide ViT kernel takes output widths in steps "
+                         f"of 64, got {n}")
+    if rows <= 0:
+        raise ValueError(f"no rows ({rows})")
+    stages = _vit_wide_stages(c)
+    tiles = -(-rows // VIT_WIDE_TILE)
+    return {"tiles": tiles, "pad_rows": tiles * VIT_WIDE_TILE - rows,
+            "k_slabs": c // 64, "groups": -(-n // VIT_WIDE_GROUP),
+            "stages": stages,
+            "smem_bytes": 1024 + (c // 64) * VIT_WIDE_SLAB
+            + stages * VIT_WIDE_SLOT + _up(stages * 12, 8)}
+
+
+def vit_ln_gemm(x: torch.Tensor, g, be, w: torch.Tensor, bias, *,
+                eps: float, b_nk: bool = True, gelu: bool = False,
+                round_in: bool = False) -> torch.Tensor:
+    """bf16(act(bf16(LN(x)) . W + bias)), one launch of
+    vit_ln_gemm_kernel: LayerNorm with fp32 statistics (of bf16(x) with
+    round_in), act GELU (gelu) or none. x: contiguous fp32 or bf16 [R, C];
+    g, be [C] and bias [N] vectors; W bf16, [N, C] (b_nk, torch Linear
+    layout) or [C, N]. Returns bf16 [R, N]."""
+    _cuda(x, w)
+    if x.dim() != 2 or w.dim() != 2:
+        raise ValueError(f"vit_ln_gemm takes x [R, C] and a matrix W, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    r, c = x.shape
+    n = w.shape[0] if b_nk else w.shape[1]
+    if (w.shape[1] if b_nk else w.shape[0]) != c:
+        raise ValueError(f"vit_ln_gemm: W {tuple(w.shape)} does not take "
+                         f"{c} channels (b_nk={b_nk})")
+    plan = vit_ln_gemm_plan(r, c, n)
+    vec = {"g": _f32(g), "be": _f32(be), "bias": _f32(bias)}
+    if vec["g"].numel() != c or vec["be"].numel() != c \
+            or vec["bias"].numel() != n:
+        raise ValueError("vit_ln_gemm: LayerNorm or bias widths differ")
+    ptrs = [_operand(x, (r, c), x.dtype), _dt(x), int(bool(round_in))] + \
+        _vectors(vec, "g", "be") + [_operand(w, tuple(w.shape)), int(b_nk)] \
+        + _vectors(vec, "bias")
+    out = torch.empty((r, n), dtype=torch.bfloat16, device=x.device)
+    _call("ec_vit_ln_gemm", *ptrs, ACT_GELU if gelu else ACT_NONE,
+          out.data_ptr(), r, c, n, float(eps), plan["smem_bytes"], _stream())
+    launches["vit_ln_gemm_kernel"] += 1
+    return out
+
+
+def vit_attn_wide(x: torch.Tensor, w: dict, *, num_heads: int, eps: float,
+                  out_dtype) -> torch.Tensor:
+    """The ViT block's attention half on the wide route (vit_attn_plan's
+    `wide`): y = bf16(x) + ls1 * (att . Wp^T + bp), att the attention over
+    qkv = vit_ln_gemm(x, LN1, Wqkv, round_in) per head. x: contiguous fp32
+    or bf16 [B, N, C]; w: n1w, n1b, wqkv bf16 [3 C, C], bqkv, wp bf16
+    [C, C] (torch Linear layouts), bp, ls1. Three launches: vit_ln_gemm,
+    attention (on the q, k, v column views of qkv), the GEMM. Returns
+    [B, N, C] in out_dtype."""
+    b, n, c = x.shape
+    qkv = vit_ln_gemm(x.view(b * n, c), w["n1w"], w["n1b"], w["wqkv"],
+                      w["bqkv"], eps=eps, round_in=True).view(b, n, 3 * c)
+    att = attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
+                    num_heads=num_heads, scale=(c // num_heads) ** -0.5)
+    res = x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)
+    return gemm(att.reshape(b * n, c), w["wp"], b_nk=True,
+                out_dtype=out_dtype, bias=w["bp"], res=res.view(b * n, c),
+                ls=w["ls1"]).view(b, n, c)
+
+
+def vit_mlp_wide(x: torch.Tensor, w: dict, *, eps: float,
+                 out_dtype) -> torch.Tensor:
+    """The ViT block's MLP half on the wide route (vit_mlp_plan's `wide`):
+    y = x + ls * (f . W2 + b2), f = vit_ln_gemm(x, LN, W1, b1, GELU), the
+    hidden stored as bf16. x: contiguous fp32 or bf16 [R, C] (the residual
+    as given); w as vit_mlp takes it (g, be, w1, b1, w2, b2, ls, kmajor).
+    Two launches: vit_ln_gemm and the GEMM. Returns [R, C] in out_dtype."""
+    kmajor = bool(w["kmajor"])
+    f = vit_ln_gemm(x, w["g"], w["be"], w["w1"], w["b1"], eps=eps,
+                    b_nk=kmajor, gelu=True)
+    return gemm(f, w["w2"], b_nk=kmajor, out_dtype=out_dtype, bias=w["b2"],
+                res=x, ls=w["ls"])
 
 
 # The decoder stack's own kernels (csrc/kernels.cu bias_attn_kernel,
@@ -1741,8 +1882,13 @@ def width_misfits(cfg, vit_dim: Optional[int] = None,
     patch-size patches, with an MLP hidden of vit_hidden (4 x the width by
     default). Pure Python, from the shapes the plans see at run time:
 
-    * fused_vit_block (and fused_vit_block2): 384 channels in 6 heads (any
-      token count: above VIT_KEYS the attention streams its keys);
+    * fused_vit_block (and fused_vit_block2; also #9 and #10's halves):
+      384 channels in 6 heads on the resident kernels (any token count:
+      above VIT_KEYS the attention streams its keys), any other width of
+      64..VIT_WIDE_MAX_C channels in steps of 64 in heads of up to 128 on
+      the wide route (vit_ln_gemm_kernel, attention, GEMM) at the token
+      counts the attention takes at its head dim; an MLP hidden in steps
+      of 64;
     * flash_mha (ViT / encoder / keypoints): head dims 1..128 (run at 32,
       64 or 128) at the trunk's tokens, the joint encoder's image +
       keypoint tokens, the keypoint tokens (the skeleton's and the
@@ -1755,9 +1901,10 @@ def width_misfits(cfg, vit_dim: Optional[int] = None,
       keypoints, the self- and the cross-attention (head dim 2 C / H);
     * fused_decoder_stack: the layer's, the bias attention's 1..16 heads
       of 1..128 (with the Markov bias) and the keypoint head's channels.
-    What stays refused, by the plan that refuses it: a trunk other than
-    384 channels in 6 heads, more than WIDE_MAX_C channels, head dims
-    above 128, more than POST_TILE keypoints."""
+    What stays refused, by the plan that refuses it: a trunk above
+    VIT_WIDE_MAX_C channels or not in steps of 64, a head of more than
+    WIDE_MAX_C channels, head dims above 128 (above 64 past the resident
+    attention's keys), more than POST_TILE keypoints."""
     c, h, f = int(cfg.d_model), int(cfg.nhead), int(cfg.dim_feedforward)
     k = int(cfg.max_kpt)
     vc = int(cfg.backbone_dim if vit_dim is None else vit_dim)

@@ -65,7 +65,7 @@ def main(argv=None) -> int:
     power = card()
     w = BM.weights(dev, True)
     g = torch.Generator().manual_seed(1)
-    x = torch.randn(BM.SHAPES[0][1], BM.C, generator=g).to(dev)
+    x = torch.randn(BM.SHAPES[0][1], BA.K.VIT_C, generator=g).to(dev)
     case = BA.Case(BA.SHAPES[0], dev)
     fns = {"vit_mlp": lambda: BA.K.vit_mlp(x, w, eps=BM.EPS,
                                            out_dtype=torch.bfloat16),

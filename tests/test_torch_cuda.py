@@ -384,11 +384,12 @@ def test_flash_mha_train_fully_masked_row_is_zero(dev):
 
 
 def test_flash_mha_train_refuses_unsupported_shapes(dev):
-    """Head dims other than 32 and 64 (any token count is taken: above
-    512 the streaming kernels)."""
+    """Head dims above 128, and above 64 past what a block holds (any
+    token count is taken at head dims up to 64: above 512 the streaming
+    kernels; head dims below 128 run padded to 32, 64 or 128)."""
     from edgecape_tpu_torch.ops import flash_attention as FA
     with pytest.raises(ValueError):
-        FA.flash_mha_train(*(_rn(dev, 1, 8, 2, 16) for _ in range(3)))
+        FA.flash_mha_train(*(_rn(dev, 1, 8, 2, 129) for _ in range(3)))
     with pytest.raises(ValueError):
         FA.flash_mha_train(*(_rn(dev, 1, 513, 1, 128) for _ in range(3)))
 
@@ -1363,13 +1364,14 @@ def test_vit_attn_kernels_refuse_what_they_do_not_take(dev):
 
 
 def test_fused_attn_block_refuses_other_widths(dev):
-    """The kernels take the model's C 384 in 6 heads; another width raises
-    on the card (the CPU takes the plain version)."""
+    """The kernels take C 384 in 6 heads and, on the wide route, every C of
+    64..1024 in steps of 64 in heads of up to 128; a wider trunk (1088
+    channels) raises on the card (the CPU takes the plain version)."""
     from edgecape_tpu_torch.ops import fused_attn_block as FB
-    attn, _ = _half_args(dev, 128, 200)
+    attn, _ = _half_args(dev, 1088, 64)
     n0 = FB.launches
     with pytest.raises(ValueError):
-        FB.fused_attn_block(_rn(dev, 3, 37, 128), *attn, num_heads=2)
+        FB.fused_attn_block(_rn(dev, 3, 37, 1088), *attn, num_heads=17)
     assert FB.launches == n0
 
 
@@ -1620,3 +1622,120 @@ def test_main_path_plans_do_not_stream(dev):
     assert "long" not in K.attention_bwd_plan(356, 356, 32)
     for b in (510, 34, 32):
         assert "long" not in K.vit_attn_plan(b, 257, 384, 6)
+
+
+# ------------------------------------------ the wide ViT route (vit_wide.cu)
+# (rows, C, N) of vit_ln_gemm_kernel: ViT-B/14's qkv and fc1, ViT-L/14's,
+# widths whose last 256-column group is partly or half past N (448 x 1344,
+# 576 x 192), the narrowest, each with a ragged last 64-row tile
+LN_GEMM_SHAPES = [(300, 768, 2304), (129, 768, 3072), (77, 1024, 3072),
+                  (65, 1024, 4096), (130, 448, 1344), (5, 64, 64),
+                  (200, 576, 192)]
+
+
+@pytest.mark.parametrize("form", ["qkv", "fc1"])
+@pytest.mark.parametrize("b_nk", [True, False])
+@pytest.mark.parametrize("shape", LN_GEMM_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_vit_ln_gemm_matches_plain(dev, shape, b_nk, form):
+    """qkv: fp32 x rounded to bf16 before LN1, no activation; fc1: fp32 x
+    as it is, GELU; W as torch Linear weights or in the JAX layout."""
+    from edgecape_tpu_torch.ops import fused_vit_block as FV
+    from edgecape_tpu_torch.ops import kernels as K
+    r, c, n = shape
+    x = _rn(dev, r, c, seed=c)
+    g, be = 1 + _rn(dev, c, s=0.1, seed=1), _rn(dev, c, s=0.1, seed=2)
+    w = _rn(dev, n, c, s=c ** -0.5, seed=3).to(torch.bfloat16)
+    if not b_nk:
+        w = w.t().contiguous()
+    bias = _rn(dev, n, s=0.1, seed=4)
+    kw = dict(eps=1e-6, b_nk=b_nk, gelu=form == "fc1",
+              round_in=form == "qkv")
+    n0 = K.launches["vit_ln_gemm_kernel"]
+    out = K.vit_ln_gemm(x, g, be, w, bias, **kw)
+    assert K.launches["vit_ln_gemm_kernel"] == n0 + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (r, n)
+    _close(out, FV.vit_ln_gemm_plain(x, g, be, w, bias, **kw))
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_vit_ln_gemm_rows_do_not_depend_on_the_call(dev, x_dtype):
+    """A row's bits are the same in a call on 1000 rows as in calls on
+    its halves (each element sums its k slabs in one order)."""
+    from edgecape_tpu_torch.ops import kernels as K
+    x = _rn(dev, 1000, 768, seed=5).to(x_dtype)
+    g, be = 1 + _rn(dev, 768, s=0.1, seed=6), _rn(dev, 768, s=0.1, seed=7)
+    w = _rn(dev, 2304, 768, s=768 ** -0.5, seed=8).to(torch.bfloat16)
+    bias = _rn(dev, 2304, s=0.1, seed=9)
+
+    def call(rows):
+        return K.vit_ln_gemm(rows.contiguous(), g, be, w, bias, eps=1e-6,
+                             round_in=True)
+    assert torch.equal(call(x), torch.cat([call(x[:437]), call(x[437:])]))
+
+
+def test_vit_ln_gemm_refuses_what_it_does_not_take(dev):
+    from edgecape_tpu_torch.ops import kernels as K
+    before = dict(K.launches)
+    for c, n in ((1088, 2304), (100, 256), (768, 100)):
+        with pytest.raises(ValueError):
+            K.vit_ln_gemm(_rn(dev, 10, c), torch.ones(c, device=dev),
+                          torch.zeros(c, device=dev),
+                          torch.zeros(n, c, device=dev, dtype=torch.bfloat16),
+                          torch.zeros(n, device=dev), eps=1e-6)
+    with pytest.raises(ValueError):          # not contiguous
+        K.vit_ln_gemm(_rn(dev, 768, 20).t(), torch.ones(768, device=dev),
+                      torch.zeros(768, device=dev),
+                      torch.zeros(64, 768, device=dev, dtype=torch.bfloat16),
+                      torch.zeros(64, device=dev), eps=1e-6)
+    assert K.launches == before
+
+
+@pytest.mark.parametrize("c,h,n", [(768, 12, 37), (1024, 16, 37),
+                                   (768, 12, 600), (448, 7, 50)],
+                         ids=["vit-b", "vit-l", "vit-b-long", "448-7"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_block_matches_plain(dev, c, h, n, dtype):
+    """fused_vit_block on the wide route against the plain block: two
+    vit_ln_gemm_kernel launches, the attention (streamed above 512
+    tokens), two GEMMs, none of the resident ViT kernels; fused_vit_block2
+    bit-equal to two calls."""
+    from edgecape_tpu_torch.ops import fused_vit_block as FV
+    from edgecape_tpu_torch.ops import kernels as K
+    Block, DinoV2Config, _, _ = _modules()
+    cfg = DinoV2Config(embed_dim=c, num_heads=h)
+    with torch.no_grad():
+        a, b = _randomize(Block(cfg), dev, 1), _randomize(Block(cfg), dev, 2)
+    x = _rn(dev, 3, n, c, seed=n).to(dtype)
+    before = dict(K.launches)
+    with torch.no_grad():
+        out = FV.fused_vit_block(x, a, num_heads=h)
+        ran = {k: K.launches[k] - before[k] for k in K.launches
+               if K.launches[k] != before[k]}
+        _close(out, FV.fused_vit_block_plain(x, a, num_heads=h))
+        pair = FV.fused_vit_block2(x, a, b, num_heads=h)
+        two = FV.fused_vit_block(FV.fused_vit_block(x, a, num_heads=h), b,
+                                 num_heads=h)
+    attn = "attn_long_kernel" if n > K.ATT_MAX_KEYS else "attn_kernel"
+    assert ran == {"vit_ln_gemm_kernel": 2, attn: 1, "gemm_tma_kernel": 2}, \
+        ran
+    assert out.dtype == dtype and torch.equal(pair, two)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_halves_match_plain(dev, dtype):
+    """fused_ln_mlp (weights in the JAX layout) and fused_attn_block at
+    ViT-B/14's width, 111 rows, each against its plain version."""
+    from edgecape_tpu_torch.ops import fused_attn_block as FB
+    from edgecape_tpu_torch.ops import fused_mlp as FM
+    from edgecape_tpu_torch.ops import kernels as K
+    attn, mlp = _half_args(dev, 768, 3072)
+    x = _rn(dev, 3, 37, 768).to(dtype)
+    n0 = K.launches["vit_ln_gemm_kernel"]
+    out = FM.fused_ln_mlp(x, *mlp)
+    assert out.dtype == dtype
+    _close(out, FM.fused_ln_mlp_plain(x, *mlp))
+    out = FB.fused_attn_block(x, *attn, num_heads=12)
+    assert out.dtype == dtype
+    _close(out, FB.fused_attn_block_plain(x, *attn, num_heads=12))
+    assert K.launches["vit_ln_gemm_kernel"] == n0 + 2

@@ -129,17 +129,25 @@ def test_width_misfits_take_the_six_widths(c, h, ffn):
 
 
 @pytest.mark.parametrize("cfg,vit,op,why", [
-    (ModelConfig(**STAGE3), (768, 12), "fused_vit_block",
-     "6 heads of 64 (384 channels), got 12 heads and 768 channels"),
+    (ModelConfig(**STAGE3), (768, 12, 3000), "fused_vit_block",
+     "hidden width 3000 is not a positive multiple of 64"),
+    (ModelConfig(**STAGE3), (1088, 17), "fused_vit_block",
+     "64..1024 channels in steps of 64, got 1088"),
+    (ModelConfig(**STAGE3), (1024, 4), "fused_vit_block",
+     "head dims up to 128, got 256 (1024 channels in 4 heads)"),
     (_width_cfg(1024, 16, 2048), None, "fused_encoder_stack",
      "1..512 channels, got 1024"),
     (_width_cfg(384, 2, 768), None, "flash_mha (encoder)",
      "head dims 1..128, got 192"),
     (ModelConfig(**STAGE3, max_kpt=160), None, "fused_decoder_layer",
      "1..128 keypoints (K=160)"),
-], ids=["vit-768/12", "d_model-1024", "head-dim-192", "K-160"])
+], ids=["vit-768/12", "vit-1088/17", "vit-1024/4", "d_model-1024",
+        "head-dim-192", "K-160"])
 def test_what_stays_refused_is_named(cfg, vit, op, why):
-    kw = {} if vit is None else dict(vit_dim=vit[0], vit_heads=vit[1])
+    """ViT-B/14's 768 channels in 12 heads are taken (the wide route):
+    what stays refused of it is an MLP hidden off the 64-column grid."""
+    kw = {} if vit is None else dict(zip(("vit_dim", "vit_heads",
+                                          "vit_hidden"), vit))
     out = K.width_misfits(cfg, **kw)
     assert out[op] is not None and why in out[op], out[op]
 

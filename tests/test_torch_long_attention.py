@@ -190,7 +190,10 @@ def test_long_plans_above_the_caps(nk, d):
 @pytest.mark.parametrize("n", [273, 325, 1370])
 def test_vit_plan_above_272_tokens_streams(n):
     """vit_qkv_kernel stays (row by row); the rest of the half is the
-    streaming attention, forced long, and the GEMM."""
+    streaming attention, forced long, and the GEMM. A ViT-B/14 trunk (768
+    channels in 12 heads) takes the wide route, its attention planned as
+    `attention` plans any other (streamed above 512 keys); 1088 channels
+    stay refused."""
     plan = K.vit_attn_plan(120, n, 384, 6)
     assert plan["long"] and plan["qkv_tiles"] == -(-(120 * n) // 128)
     assert plan["attention"] == K.attention_plan(n, n, 64, long=True)
@@ -198,8 +201,11 @@ def test_vit_plan_above_272_tokens_streams(n):
         "long": True, "q_split": -(-n // 128), "warps": 12, "one_pass": True,
         "smem_bytes": _stream_smem(64), "key_tiles": -(-n // 128),
         "stages": 4}
+    wide = K.vit_attn_plan(1, n, 768, 12)
+    assert wide["wide"] and wide["attention"] == K.attention_plan(n, n, 64)
+    assert wide["attention"].get("long", False) == (n > K.ATT_MAX_KEYS)
     with pytest.raises(ValueError):
-        K.vit_attn_plan(1, n, 768, 12)
+        K.vit_attn_plan(1, n, 1088, 17)
 
 
 STAGE3 = dict(learn_skeleton=True, attn_bias=True, use_flash=True)

@@ -311,8 +311,12 @@ def test_vit_attn_plan():
     assert K.VIT_ATTN_SMEM <= 232448
     # past the score row's 272 keys the attention streams its keys
     assert K.vit_attn_plan(1, 273, C, H)["long"]
+    # other widths take the wide route (tests/test_torch_vit_widths.py);
+    # what it does not take stays refused
+    assert K.vit_attn_plan(2, 37, 128, 2)["wide"]
+    assert K.vit_attn_plan(2, 37, C, 8)["wide"]
     for b, n, c, h in ((1, 0, C, H), (0, 10, C, H),
-                       (2, 37, 256, H), (2, 37, 128, 2), (2, 37, C, 8)):
+                       (2, 37, 256, H), (2, 37, 1088, 17), (2, 37, 1024, 4)):
         with pytest.raises(ValueError):
             K.vit_attn_plan(b, n, c, h)
 

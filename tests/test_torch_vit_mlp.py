@@ -305,7 +305,9 @@ def test_vit_mlp_plan():
     assert K.vit_mlp_plan(2 * 16 * 257, C, F)["tiles"] == 65
     assert K.vit_mlp_plan(1, C, 64) == {"tiles": 1, "pad_rows": 127,
                                         "chunks": 1}
-    for rows, c, f in ((300, 256, F), (300, 128, 200), (300, C, 1000),
+    # another width takes the wide route (tests/test_torch_vit_widths.py)
+    assert K.vit_mlp_plan(300, 256, F)["wide"]
+    for rows, c, f in ((300, 1088, F), (300, 128, 200), (300, C, 1000),
                        (300, C, 0), (0, C, F)):
         with pytest.raises(ValueError):
             K.vit_mlp_plan(rows, c, f)

@@ -6,9 +6,10 @@ raises half way; use_flash=False builds the plain modules. On the CPU
 nothing is checked (an op takes its plain version, which takes any
 width). The head is only built here, never moved to a card. The kernels
 take every head of up to 512 channels in up to 16 heads with head dims
-(self- and cross-attention) up to 128; what stays refused is a trunk
-other than ViT-S/14, a wider head, larger head dims and more than 128
-keypoints.
+(self- and cross-attention) up to 128, and every trunk of 64..1024
+channels in steps of 64 in heads of up to 128 (ViT-S/14 on its resident
+kernels, ViT-B/14 and ViT-L/14 on the wide route); what stays refused is
+a wider trunk or head, larger head dims and more than 128 keypoints.
 
 A port model at d_model 128 (4 heads, num_feats 64) matches the JAX model
 on the same weights in fp32 on the CPU, to the strict path's tolerance of
@@ -79,12 +80,19 @@ def test_width_predicate(kw, misfit):
 
 
 def test_the_vit_route_follows_the_trunk():
-    """Another trunk width is refused; more tokens than vit_attn_kernel's
+    """ViT-B/14 (768 channels in 12 heads) and ViT-L/14 (1024 in 16) are
+    taken on the wide route; a trunk above its 1024 channels or with heads
+    above 128 channels is refused; more tokens than vit_attn_kernel's
     score row holds (325 at 256 px) are taken, the attention streaming its
     keys."""
     cfg = ModelConfig(**STAGE3)
-    assert K.width_misfits(cfg, vit_dim=768, vit_heads=12)[
-        "fused_vit_block"] is not None
+    for vit in ((768, 12), (1024, 16)):
+        assert K.width_misfits(cfg, vit_dim=vit[0], vit_heads=vit[1])[
+            "fused_vit_block"] is None
+    assert "got 1088" in K.width_misfits(cfg, vit_dim=1088, vit_heads=17)[
+        "fused_vit_block"]
+    assert "head dims up to 128, got 256" in K.width_misfits(
+        cfg, vit_dim=1024, vit_heads=4)["fused_vit_block"]
     big = K.width_misfits(dataclasses.replace(cfg, image_size=256))
     assert big["fused_vit_block"] is None
     assert big["flash_mha (ViT)"] is None and big["fused_encoder_stack"] \
@@ -105,7 +113,7 @@ def test_a_head_built_for_the_card_refuses_other_widths():
     assert "flash_mha" not in msg and "use_flash=False" in msg
     with pytest.raises(ValueError, match="train_backbone_fast"):
         KC.require_widths(("fused_vit_block",),
-                          K.width_misfits(cfg, vit_dim=768, vit_heads=12),
+                          K.width_misfits(cfg, vit_dim=1088, vit_heads=17),
                           torch.device("cuda", 0),
                           "model.train_backbone_fast=False")
 
@@ -135,9 +143,10 @@ def test_a_head_builds_where_its_ops_take_its_widths(kw, flash, device):
 def test_the_trunk_check_follows_the_compute_dtype(size, dtype, refused):
     """The estimator checks the trunk op its compute dtype launches: the
     fused block at bf16, flash_mha at fp32; both take 256 px (325 tokens:
-    the fused block's attention streams its keys past 272). A trunk of 12
-    heads (768 channels) is refused by the fused block, not by flash_mha.
-    require_widths for "cuda" needs no card."""
+    the fused block's attention streams its keys past 272). A trunk of
+    1088 channels (17 heads of 64), above the wide route's 1024, is
+    refused by the fused block, not by flash_mha. require_widths for
+    "cuda" needs no card."""
     from edgecape_tpu_torch.models import dinov2 as tdinov2
     from edgecape_tpu_torch.models.edgecape import HEAD_OPS
     cfg = ModelConfig(**STAGE3, image_size=size, compute_dtype=dtype,
@@ -148,11 +157,11 @@ def test_the_trunk_check_follows_the_compute_dtype(size, dtype, refused):
     if refused is None:
         KC.require_widths(ops, tdinov2.width_misfits(cfg), "cuda")
         return
-    wide = tdinov2.DinoV2Config(embed_dim=768, num_heads=12)
+    wide = tdinov2.DinoV2Config(embed_dim=1088, num_heads=17)
     with pytest.raises(ValueError) as err:
         KC.require_widths(ops, tdinov2.width_misfits(cfg, wide), "cuda")
     msg = str(err.value)
-    assert f"{refused} (" in msg and "768 channels" in msg, msg
+    assert f"{refused} (" in msg and "got 1088" in msg, msg
     assert "flash_mha" not in msg, msg
 
 
