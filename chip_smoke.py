@@ -83,8 +83,10 @@ Phases (any failure exits non-zero before the last line):
    kernels, the GEMM): trunks of 1088 channels and of 4 heads of 256
    refused at build time by name with no launch; `[op] vit_ln_gemm` lines
    (qkv and fc1 of both trunks at the query pass, the support pass and the
-   training step, against vit_ln_gemm_plain, device / plain / bound ms and
-   torch.matmul of the product as information) beside their halves'
+   training step, against vit_ln_gemm_plain, device / plain / bound ms,
+   TFLOP/s, the share of the bound, the card's CTAs and the column split
+   in use, the kernel's registers and spills, and torch.matmul of the product
+   with the kernel's ratio to it as information) beside their halves'
    `[op] vit_attn` / `[op] vit_mlp` lines; a block of each trunk at [510,
    257, C] against the plain block, fused_vit_block2 bit-equal to two
    calls, at ViT-B rows bit-equal across batch places; cached eval of the
@@ -1006,13 +1008,14 @@ def main_path(dev, entries, power, figures):
     return est, data, preds, (bb, head)
 
 
-def profile(run, what, power, rows=30):
+def profile(run, what, power, rows=30, share_of=()):
     """Prints device time by kernel over one warm call of run() (one
     chunk of the eval kernel path, or one training step), and the share
     of its wall time (call to synchronize) in which the device ran a
     kernel or a copy: the union of those intervals in the profiler's
-    trace. Returns (device busy ms, idle share), (None, None) where the
-    trace held no device event."""
+    trace; for each name in share_of, the share of the device time that
+    kernels of that name took. Returns (device busy ms, idle share),
+    (None, None) where the trace held no device event."""
     import os
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -1048,6 +1051,12 @@ def profile(run, what, power, rows=30):
                                     row_limit=rows), flush=True)
     if not spans:
         return None, None
+    for name in share_of:
+        own = sum(float(e["dur"]) for e in events
+                  if e.get("ph") == "X" and e.get("cat") == "kernel"
+                  and name in e.get("name", ""))
+        print(f"[profile] {what}: {name} {own / 1e3:.3f} ms, "
+              f"{own / busy_us * 100:.1f}% of the device time", flush=True)
     return busy_us / 1e3, 1.0 - busy_us / wall_us
 
 
@@ -1963,8 +1972,9 @@ def trunk_check(dev, entries, power):
     bf16, cached: TRUNK_EVALS, each chunk's launches (vit_ln_gemm_kernel
     twice a block, none of the resident ViT kernels, no plain version, no
     thread-copy GEMM), its predictions against the plain path (the main
-    path's gates) and, as information, its device ms, idle share, peak
-    memory and img/s; two stage-3 Trainer steps over ViT-B of TRUNK_ROWS
+    path's gates) and, as information, its device ms, idle share, the
+    shares of vit_ln_gemm_kernel and the GEMM, peak memory and img/s;
+    two stage-3 Trainer steps over ViT-B of TRUNK_ROWS
     rows (dropout 0), one step's loss and head gradients against the
     training attention's plain version (the [widths] gates; the fp32
     plain path as information), the trunk's launches counted. The kernel
@@ -2016,6 +2026,13 @@ def trunk_check(dev, entries, power):
                 "library_ms": None, "matmul_ms": lg["matmul_ms"],
                 "shape": [lg["rows"], lg["c"], lg["n"]],
                 "half_device_ms": row["ms"], "half_kernels": row["kernels"],
+                "column_split": lg["column_split"],
+                "registers": lg["registers"], "spills": lg["spills"],
+                "share_of_bound": (lg["bound_ms"] / lg["device_ms"]
+                                   if lg["device_ms"] else None),
+                "matmul_ratio": (lg["device_ms"] / lg["matmul_ms"]
+                                 if lg["device_ms"] and lg["matmul_ms"]
+                                 else None),
                 "trunk_kernels": ["vit_ln_gemm_kernel"]}
             torch.cuda.empty_cache()
 
@@ -2140,7 +2157,8 @@ def trunk_check(dev, entries, power):
             busy_ms, idle = profile(
                 lambda: est.forward_cached(support, query),
                 f"[trunks] one chunk, {tag}, vit_pair_blocks "
-                f"{'on' if pair else 'off'}", power, rows=8)
+                f"{'on' if pair else 'off'}", power, rows=8,
+                share_of=("vit_ln_gemm_kernel", "gemm_tma_kernel"))
             busy = "not measured" if busy_ms is None else f"{busy_ms:.3f} ms"
             idle = "not measured" if idle is None else f"{idle:.4f}"
             peak = torch.cuda.max_memory_allocated() / 2 ** 30

@@ -140,9 +140,11 @@ _SIGNATURES = {
     "ec_bias_attention_wide": [_P, _I, _I, _I, _I, _P, _L, _P, _I, _I, _P,
                                _P, _P, _P, _F, _P, _P],
     # vit_wide.cu: x, its dtype, round_in, g, be, W, kmajor, bias, act,
-    # out, R, C, N, eps, smem
-    "ec_vit_ln_gemm": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I,
-                       _F, _L, _P],
+    # the scratch h, out, R, C, N, eps, smem, column parts
+    "ec_vit_ln_gemm": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I,
+                       _I, _F, _L, _I, _P],
+    # the count out
+    "ec_vit_ln_gemm_ctas": [_P],
 }
 
 
@@ -1522,30 +1524,50 @@ def vit_attn(qkv: torch.Tensor, x: torch.Tensor, w: dict, *,
 
 
 # The ViT block at every other trunk width (csrc/vit_wide.cu
-# vit_ln_gemm_kernel, LayerNorm + projection): tiles of VIT_WIDE_TILE rows
-# whose LayerNorm output (C / 64 swizzled [64 x 64] bf16 slabs of
-# VIT_WIDE_SLAB bytes) stays in shared memory beside a ring of slots of
-# VIT_WIDE_SLOT bytes ([VIT_WIDE_GROUP output columns x 64 k]): three at C
-# above 768, four above 512, five below. C is a multiple of 64 up to
-# VIT_WIDE_MAX_C: at 1088 the slabs (136 KB) and the fewest slots the ring
-# runs with (3 x 32 KB) pass the 227 KB of a block.
-VIT_WIDE_TILE, VIT_WIDE_GROUP, VIT_WIDE_MAX_C = 64, 256, 1024
-VIT_WIDE_SLAB, VIT_WIDE_SLOT = 8192, 32768
+# vit_ln_gemm_kernel, LayerNorm + projection): the grid first normalises
+# every row once into h, a bf16 scratch copy of x that the wrapper
+# allocates, then multiplies tiles of VIT_WIDE_TILE rows by the output
+# columns in groups of VIT_WIDE_GROUP, h and W streamed by TMA through a
+# ring of VIT_WIDE_STAGES stages of VIT_WIDE_STAGE bytes ([128 rows x 64
+# k] of h and [256 columns x 64 k] of W), as many as fit in VIT_WIDE_SMEM
+# beside the bias. C is a multiple of 64 up to VIT_WIDE_MAX_C (a warp
+# holds four rows of 1024 channels in registers for the LayerNorm). A CTA
+# has VIT_WIDE_THREADS threads: two consumer warpgroups and a producer
+# warpgroup whose one warp issues the loads.
+VIT_WIDE_TILE, VIT_WIDE_GROUP, VIT_WIDE_MAX_C = 128, 256, 1024
+VIT_WIDE_STAGE = 128 * 64 * 2 + 256 * 64 * 2
+VIT_WIDE_SMEM, VIT_WIDE_STAGES, VIT_WIDE_THREADS = 232448, 4, 384
+# output columns whose bias the epilogue reads from shared memory
+VIT_WIDE_BIAS = 8192
+# the CTAs an H100 SXM runs at once (one an SM), where no card is asked
+VIT_WIDE_SMS = 132
 
 
-def _vit_wide_stages(c: int) -> int:
-    return 3 if c > 768 else 4 if c > 512 else 5
+def _vit_wide_parts(tiles: int, groups: int, ctas: int) -> int:
+    """The column parts (1..groups) that finish first: rounds of the
+    ctas over tiles x parts units of ceil(groups / parts) groups each; the
+    fewest parts on a tie."""
+    def cost(parts):
+        return -(-tiles * parts // ctas) * -(-groups // parts)
+    return min(range(1, groups + 1), key=lambda parts: (cost(parts), parts))
 
 
-def vit_ln_gemm_plan(rows: int, c: int, n: int) -> dict:
+def vit_ln_gemm_plan(rows: int, c: int, n: int, *,
+                     ctas: Optional[int] = None) -> dict:
     """How vit_ln_gemm_kernel covers `rows` rows of c channels with n
-    output columns: `tiles` of VIT_WIDE_TILE rows (a persistent grid of at
-    most one block an SM walks them; `pad_rows` of the last are zeros and
-    not stored), `k_slabs` of 64 channels, `groups` of VIT_WIDE_GROUP
-    output columns (the last may be partly past n), a ring of `stages`
-    slots and `smem_bytes` of shared memory a block. Raises for what the
-    kernel does not take: c not a multiple of 64 in 64..VIT_WIDE_MAX_C, n
-    not a positive multiple of 64, no rows."""
+    output columns: `tiles` of VIT_WIDE_TILE rows (`pad_rows` of the last
+    are zeros and not stored), `k_slabs` of 64 channels, `groups` of
+    VIT_WIDE_GROUP output columns (the last may be partly past n), a ring
+    of `stages` (a tile's [128 x 64] of its normalised rows and a group's
+    [256 x 64] of W), `smem_bytes` of shared memory (the ring, the bias
+    of up to VIT_WIDE_BIAS columns, barriers) a CTA of `threads`
+    (`producer_warps` issuing loads, `consumer_warpgroups` of 64 rows each).
+    `column_split` parts of a tile's groups (at most `groups_per_unit`
+    each) make `units`, which a persistent grid of `ctas` CTAs walks (the
+    card's count where the wrapper plans, else VIT_WIDE_SMS). The split is
+    the one whose last round ends first. Raises for what the kernel does
+    not take: c not a multiple of 64 in 64..VIT_WIDE_MAX_C, n not a
+    positive multiple of 64, no rows."""
     if c % 64 or not 64 <= c <= VIT_WIDE_MAX_C:
         raise ValueError(f"the wide ViT kernel takes 64..{VIT_WIDE_MAX_C} "
                          f"channels in steps of 64, got {c}")
@@ -1554,23 +1576,47 @@ def vit_ln_gemm_plan(rows: int, c: int, n: int) -> dict:
                          f"of 64, got {n}")
     if rows <= 0:
         raise ValueError(f"no rows ({rows})")
-    stages = _vit_wide_stages(c)
+    ctas = ctas or VIT_WIDE_SMS
     tiles = -(-rows // VIT_WIDE_TILE)
+    groups = -(-n // VIT_WIDE_GROUP)
+    parts = _vit_wide_parts(tiles, groups, ctas)
     return {"tiles": tiles, "pad_rows": tiles * VIT_WIDE_TILE - rows,
-            "k_slabs": c // 64, "groups": -(-n // VIT_WIDE_GROUP),
-            "stages": stages,
-            "smem_bytes": 1024 + (c // 64) * VIT_WIDE_SLAB
-            + stages * VIT_WIDE_SLOT + _up(stages * 12, 8)}
+            "k_slabs": c // 64, "groups": groups, "stages": VIT_WIDE_STAGES,
+            "ctas": ctas, "column_split": parts,
+            "groups_per_unit": -(-groups // parts), "units": tiles * parts,
+            "threads": VIT_WIDE_THREADS, "producer_warps": 1,
+            "consumer_warpgroups": 2,
+            "smem_bytes": 1024 + VIT_WIDE_STAGES * (VIT_WIDE_STAGE + 16)
+            + 4 * VIT_WIDE_BIAS}
+
+
+@functools.lru_cache(maxsize=None)
+def vit_ln_gemm_ctas() -> int:
+    """The CTAs of vit_ln_gemm_kernel the card runs at once (occupancy
+    times the SMs)."""
+    n = ctypes.c_int(0)
+    _call("ec_vit_ln_gemm_ctas", ctypes.addressof(n))
+    return n.value
+
+
+def vit_ln_gemm_card_plan(rows: int, c: int, n: int) -> dict:
+    """vit_ln_gemm_plan with the card's own count of CTAs: the plan a
+    launch of vit_ln_gemm takes."""
+    return vit_ln_gemm_plan(rows, c, n, ctas=vit_ln_gemm_ctas())
 
 
 def vit_ln_gemm(x: torch.Tensor, g, be, w: torch.Tensor, bias, *,
                 eps: float, b_nk: bool = True, gelu: bool = False,
-                round_in: bool = False) -> torch.Tensor:
+                round_in: bool = False,
+                column_split: Optional[int] = None) -> torch.Tensor:
     """bf16(act(bf16(LN(x)) . W + bias)), one launch of
     vit_ln_gemm_kernel: LayerNorm with fp32 statistics (of bf16(x) with
     round_in), act GELU (gelu) or none. x: contiguous fp32 or bf16 [R, C];
     g, be [C] and bias [N] vectors; W bf16, [N, C] (b_nk, torch Linear
-    layout) or [C, N]. Returns bf16 [R, N]."""
+    layout) or [C, N]. column_split: the parts of a tile's groups (the
+    plan's unless given: measurements of other splits, 1..the groups). The
+    kernel's scratch, bf16(LN(x)) [R, C] and the grid barrier's counter,
+    is allocated here. Returns bf16 [R, N]."""
     _cuda(x, w)
     if x.dim() != 2 or w.dim() != 2:
         raise ValueError(f"vit_ln_gemm takes x [R, C] and a matrix W, got "
@@ -1580,7 +1626,11 @@ def vit_ln_gemm(x: torch.Tensor, g, be, w: torch.Tensor, bias, *,
     if (w.shape[1] if b_nk else w.shape[0]) != c:
         raise ValueError(f"vit_ln_gemm: W {tuple(w.shape)} does not take "
                          f"{c} channels (b_nk={b_nk})")
-    plan = vit_ln_gemm_plan(r, c, n)
+    plan = vit_ln_gemm_card_plan(r, c, n)              # refusals, by name
+    parts = plan["column_split"] if column_split is None else column_split
+    if not 1 <= parts <= plan["groups"]:
+        raise ValueError(f"vit_ln_gemm: a column split of {parts}, not "
+                         f"1..{plan['groups']}")
     vec = {"g": _f32(g), "be": _f32(be), "bias": _f32(bias)}
     if vec["g"].numel() != c or vec["be"].numel() != c \
             or vec["bias"].numel() != n:
@@ -1588,9 +1638,12 @@ def vit_ln_gemm(x: torch.Tensor, g, be, w: torch.Tensor, bias, *,
     ptrs = [_operand(x, (r, c), x.dtype), _dt(x), int(bool(round_in))] + \
         _vectors(vec, "g", "be") + [_operand(w, tuple(w.shape)), int(b_nk)] \
         + _vectors(vec, "bias")
+    # h [R, C], then 16 bytes for the counter of the kernel's grid barrier
+    h = torch.empty(r * c + 8, dtype=torch.bfloat16, device=x.device)
     out = torch.empty((r, n), dtype=torch.bfloat16, device=x.device)
     _call("ec_vit_ln_gemm", *ptrs, ACT_GELU if gelu else ACT_NONE,
-          out.data_ptr(), r, c, n, float(eps), plan["smem_bytes"], _stream())
+          h.data_ptr(), out.data_ptr(), r, c, n, float(eps),
+          plan["smem_bytes"], parts, _stream())
     launches["vit_ln_gemm_kernel"] += 1
     return out
 

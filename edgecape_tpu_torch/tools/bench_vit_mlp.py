@@ -10,9 +10,12 @@ for LN2, fc1 and GELU, then the GEMM), the half against plain and its
 vit_ln_gemm_kernel alone (`ln_gemm_case`).
 
     python -m edgecape_tpu_torch.tools.bench_vit_mlp
+    python -m edgecape_tpu_torch.tools.bench_vit_mlp --splits
 
 One `[op] vit_mlp` line per shape, and at the wide widths one `[op]
-vit_ln_gemm` line. `device` is the time of the kernels one call launches
+vit_ln_gemm` line; with --splits only vit_ln_gemm_kernel at every column
+split of its forms and passes (`ln_gemm_splits`, `[split]` lines).
+`device` is the time of the kernels one call launches
 (torch.profiler, mean over REPS calls; tools/bench_attention device_ms;
 "not measured" where the traces lost their device events).
 
@@ -113,16 +116,30 @@ def bound_ms(n_bytes: float, flops: float):
         "bytes" if t_bytes > t_ops else "operations"
 
 
+def ln_gemm_ptxas(b_nk: bool):
+    """(registers, spill store bytes, spill load bytes) of the
+    vit_ln_gemm_kernel instance a call takes (ptxas's report of this
+    process's build), or None where the library was built before it."""
+    tag = f"ILb{int(bool(b_nk))}EE"
+    for name, regs, st, ld in K.ptxas_usage("vit_ln_gemm_kernel"):
+        if tag in name:
+            return regs, st, ld
+    return None
+
+
 def ln_gemm_case(name, x, g, be, w, bias, power, *, b_nk=True, gelu=False,
                  round_in=False) -> dict:
     """One `[op] vit_ln_gemm` line: vit_ln_gemm_kernel (ops/kernels.py
     vit_ln_gemm) on x [R, C] against its plain version
     (ops/fused_vit_block.py vit_ln_gemm_plain); its device time, kernels
-    a call and CUDA-event ms, the plain version's ms, the bound (x, W, the
-    vectors read once, the bf16 output written once; 2 R C N products)
-    and, as information, torch.matmul of the same product (the bf16
-    LayerNorm output, made outside the timing, times W): no single
-    PyTorch call computes LayerNorm + GEMM."""
+    a call and CUDA-event ms, TFLOP/s, the share of the bound it reaches
+    (x, W, the vectors read once, the bf16 output written once; 2 R C N
+    products), the plain version's ms, the plan in use (the card's CTAs,
+    column split: ops/kernels.py vit_ln_gemm_card_plan), the instance's
+    registers and spills, and, as information, torch.matmul of the same
+    product (the bf16 LayerNorm output, made outside the timing, times
+    W) and the kernel's ratio to it: no single PyTorch call computes
+    LayerNorm + GEMM."""
     from ..ops.fused_vit_block import vit_ln_gemm_plain
     r, c = x.shape
     n = w.shape[0] if b_nk else w.shape[1]
@@ -152,23 +169,98 @@ def ln_gemm_case(name, x, g, be, w, bias, power, *, b_nk=True, gelu=False,
     del h
     bnd, by = bound_ms(r * c * x.element_size() + 2 * c * n + 2 * r * n
                        + 4 * (2 * c + n), 2.0 * r * c * n)
-    rate = "not measured" if not dev_ms else \
-        f"{2.0 * r * c * n / dev_ms / 1e9:.1f}"
+    plan = K.vit_ln_gemm_card_plan(r, c, n)
+    usage = ln_gemm_ptxas(b_nk)
+    regs = "not in this process's build" if usage is None else \
+        f"{usage[0]} registers, spills {usage[1]} / {usage[2]} B"
+    if dev_ms:
+        rate = (f"{2.0 * r * c * n / dev_ms / 1e9:.1f} TFLOP/s, "
+                f"{bnd / dev_ms * 100:.1f}% of the bound")
+    else:
+        rate = "TFLOP/s and share of the bound not measured"
+    ratio = f"{dev_ms / mm_ms:.2f}x" if dev_ms and mm_ms else "not measured"
     print(f"[op] vit_ln_gemm {name}: rows {r}, C {c}, N {n}, x "
           f"{str(x.dtype).split('.')[-1]}{' rounded' if round_in else ''}, "
           f"{'K' if b_nk else 'MN'}-major W, {'GELU' if gelu else 'no act'}, "
-          f"{K.vit_ln_gemm_plan(r, c, n)}: {ms_text(dev_ms, wall)} in {per} "
-          f"kernels, {rate} TFLOP/s, kernel {ms:.3f} ms, plain "
+          f"{plan['ctas']} CTAs, "
+          f"column split {plan['column_split']} ({plan['units']} units), "
+          f"{plan['stages']} slots, {regs}; {ms_text(dev_ms, wall)} in {per} "
+          f"kernels, {rate}, kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, bound "
           f"{bnd:.4f} ms ({by}); torch.matmul of the product alone "
-          f"{ms_text(mm_ms, mm_wall)} (information); max_abs_err "
+          f"{ms_text(mm_ms, mm_wall)}, the kernel {ratio} of it "
+          f"(information); max_abs_err "
           f"{float(d.max()):.4g} mean {float(d.mean()):.3g} (tol {ATOL} + "
           f"{RTOL:.4g}*|ref|, mean {MEAN_TOL}) {'OK' if ok else 'FAIL'} on "
           f"{power}", flush=True)
     return {"name": name, "rows": r, "c": c, "n": n, "device_ms": dev_ms,
             "kernels": per, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
             "bound_by": by, "matmul_ms": mm_ms, "max_abs_err": float(d.max()),
+            "column_split": plan["column_split"],
+            "registers": None if usage is None else usage[0],
+            "spills": None if usage is None else usage[1:],
             "ok": ok}
+
+
+# vit_ln_gemm_kernel's forms at the two trunks: (name, C, N, GELU), and
+# the passes whose rows it takes (the eval chunk's query and support
+# passes, the training step's frozen trunk)
+SPLIT_FORMS = [("qkv, ViT-B", 768, 2304, False), ("fc1, ViT-B", 768, 3072, True),
+               ("qkv, ViT-L", 1024, 3072, False),
+               ("fc1, ViT-L", 1024, 4096, True)]
+SPLIT_PASSES = [("query pass", 510 * 257), ("support pass", 34 * 257),
+                ("training step", 32 * 257)]
+
+
+def ln_gemm_splits(dev, power) -> list:
+    """vit_ln_gemm_kernel at every column split 1..groups of each form and
+    pass (fp32 x, K-major W): the device ms of each split (torch.profiler,
+    device_ms: at the small passes a call's host work outlasts its
+    kernel, so CUDA events would time the host), the one the plan
+    (ops/kernels.py vit_ln_gemm_card_plan) chooses and the fastest; every
+    split's output bit-equal to the whole tiles' (split 1). One `[split]`
+    line a form and pass."""
+    rows_out = []
+    for name, c, n, gelu in SPLIT_FORMS:
+        g = torch.Generator().manual_seed(c + n)
+        w = (torch.randn(n, c, generator=g) * c ** -0.5).to(dev).to(
+            torch.bfloat16)
+        gg = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
+        be = (0.1 * torch.randn(c, generator=g)).to(dev)
+        bias = (0.1 * torch.randn(n, generator=g)).to(dev)
+        for where, r in SPLIT_PASSES:
+            x = torch.randn(r, c, generator=g).to(dev)
+            plan = K.vit_ln_gemm_card_plan(r, c, n)
+
+            def call(parts):
+                return K.vit_ln_gemm(x, gg, be, w, bias, eps=EPS, gelu=gelu,
+                                     round_in=not gelu, column_split=parts)
+            whole = call(1)
+            times, same = {}, True
+            for parts in range(1, plan["groups"] + 1):
+                same = same and torch.equal(call(parts), whole)
+                times[parts] = device_ms(lambda: call(parts))[0]
+            if None in times.values():
+                print(f"[split] vit_ln_gemm {name}, {where}: device time not "
+                      f"measured (the traces lost their device events)",
+                      flush=True)
+                continue
+            best = min(times, key=times.get)
+            chosen = plan["column_split"]
+            print(f"[split] vit_ln_gemm {name}, {where}: rows {r}, "
+                  f"{plan['tiles']} tiles x {plan['groups']} groups on "
+                  f"{plan['ctas']} CTAs; device ms by column split "
+                  + ", ".join(f"{k}: {v:.4f}" for k, v in times.items())
+                  + f"; the plan's {chosen} ({times[chosen]:.4f} ms, "
+                  f"{times[chosen] / times[best]:.3f}x the fastest, {best}); "
+                  f"outputs bit-equal across splits: {same} on {power}",
+                  flush=True)
+            rows_out.append({"name": name, "pass": where, "rows": r,
+                             "ms": times, "chosen": chosen, "best": best,
+                             "bit_equal": same})
+            del x, whole
+        torch.cuda.empty_cache()
+    return rows_out
 
 
 def run_case(spec, dev, power):
@@ -233,6 +325,11 @@ def main(argv=None) -> int:
         raise SystemExit("bench_vit_mlp needs a CUDA device")
     dev = torch.device("cuda", 0)
     power = card()
+    if "--splits" in (sys.argv[1:] if argv is None else argv):
+        rows = ln_gemm_splits(dev, power)
+        if not all(row["bit_equal"] for row in rows):
+            raise SystemExit("vit_ln_gemm's bits depend on its column split")
+        return 0
     bad = [spec[0] for spec in SHAPES if not run_case(spec, dev, power)["ok"]]
     if bad:
         raise SystemExit(f"vit_mlp disagrees with plain at: {bad}")

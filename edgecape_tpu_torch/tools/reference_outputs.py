@@ -8,9 +8,13 @@ card:
   launched;
 * flash_mha_train on [16, 356, 8, 32] fp32 operands with a key mask at
   dropout 0.1 (the training step's encoder shape): its output and the
-  gradients of q, k and v.
+  gradients of q, k and v;
+* with --wide, vit_ln_gemm (the wide route's LayerNorm + projection) at
+  ViT-B/14's and ViT-L/14's qkv and fc1 widths (WIDE_CASES: fp32 and bf16
+  x, both W layouts, the support pass's rows), its bf16 bits as int16.
 
-    python edgecape_tpu_torch/tools/reference_outputs.py [--root DIR] OUT.npz
+    python edgecape_tpu_torch/tools/reference_outputs.py [--root DIR]
+        [--wide] OUT.npz
     python edgecape_tpu_torch/tools/reference_outputs.py --compare A.npz B.npz
 
 --root runs the package of another checkout (the parent's, unpacked from
@@ -30,6 +34,13 @@ import numpy as np
 
 GROUPS, QUERIES, K, SIZE, SEED = 34, 15, 100, 224, 0
 TRAIN_SHAPE, RATE = (16, 356, 8, 32), 0.1
+# name, rows, C, N, x fp32 (rounded to bf16 before the LayerNorm) or bf16,
+# W [N, C] (else [C, N]), GELU
+WIDE_CASES = (("qkv_b", 2000, 768, 2304, True, True, False),
+              ("fc1_b", 2000, 768, 3072, False, False, True),
+              ("qkv_l", 1000, 1024, 3072, True, False, False),
+              ("fc1_l", 1000, 1024, 4096, False, True, True),
+              ("qkv_b_support", 34 * 257, 768, 2304, True, True, False))
 
 
 def _episodes(rng):
@@ -50,7 +61,29 @@ def _episodes(rng):
     return support, query
 
 
-def run(root: str, out: str) -> None:
+def _wide(dev, arrays, launches) -> None:
+    """vit_ln_gemm at WIDE_CASES, seeded, into arrays (bits as int16)."""
+    import torch
+    from edgecape_tpu_torch.ops import kernels as KN
+    g = torch.Generator().manual_seed(SEED + 3)
+    n0 = KN.launches["vit_ln_gemm_kernel"]
+    for name, r, c, n, f32, b_nk, gelu in WIDE_CASES:
+        x = torch.randn(r, c, generator=g).to(dev)
+        x = x if f32 else x.to(torch.bfloat16)
+        gam = (1 + 0.1 * torch.randn(c, generator=g)).to(dev)
+        bet = (0.1 * torch.randn(c, generator=g)).to(dev)
+        w = (torch.randn(n, c, generator=g) * c ** -0.5).to(dev).to(
+            torch.bfloat16)
+        bias = (0.1 * torch.randn(n, generator=g)).to(dev)
+        out = KN.vit_ln_gemm(x, gam, bet, w if b_nk else w.t().contiguous(),
+                             bias, eps=1e-6, b_nk=b_nk, gelu=gelu,
+                             round_in=f32)
+        arrays[f"wide_{name}"] = out.view(torch.int16).cpu().numpy()
+    launches["wide"] = {"vit_ln_gemm_kernel":
+                        KN.launches["vit_ln_gemm_kernel"] - n0}
+
+
+def run(root: str, out: str, wide: bool = False) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from edgecape_tpu_torch.api import PoseEstimator
@@ -99,6 +132,8 @@ def run(root: str, out: str) -> None:
     arrays["train_out"] = att.detach().cpu().numpy()
     for name, t in zip(("dq", "dk", "dv"), grads):
         arrays[f"train_{name}"] = t.cpu().numpy()
+    if wide:
+        _wide(dev, arrays, launches)
     np.savez(out, launches=json.dumps(launches, sort_keys=True),
              device=torch.cuda.get_device_name(0), **arrays)
     print(f"wrote {out}: {sorted(arrays)} on {torch.cuda.get_device_name(0)}"
@@ -135,13 +170,15 @@ def main(argv=None) -> None:
     p.add_argument("--root", default=os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "..", ".."))
     p.add_argument("--compare", nargs=2, metavar=("A", "B"))
+    p.add_argument("--wide", action="store_true",
+                   help="also vit_ln_gemm at WIDE_CASES")
     p.add_argument("out", nargs="?")
     args = p.parse_args(argv)
     if args.compare:
         sys.exit(0 if compare(*args.compare) else 1)
     if not args.out:
         p.error("OUT.npz is needed")
-    run(args.root, args.out)
+    run(args.root, args.out, args.wide)
 
 
 if __name__ == "__main__":

@@ -1627,23 +1627,30 @@ def test_main_path_plans_do_not_stream(dev):
 # ------------------------------------------ the wide ViT route (vit_wide.cu)
 # (rows, C, N) of vit_ln_gemm_kernel: ViT-B/14's qkv and fc1, ViT-L/14's,
 # widths whose last 256-column group is partly or half past N (448 x 1344,
-# 576 x 192), the narrowest, each with a ragged last 64-row tile
+# 1024 x 1088: N = 64 (4 g + 1); 576 x 192), the narrowest, each with a
+# ragged last 128-row tile; odd counts of tiles (300 rows, 8738); fewer
+# rows than a tile (5, 37, 77, 65) and than the grid's warps' quads; the
+# support pass's 34 x 257 rows, whose plan splits the groups
 LN_GEMM_SHAPES = [(300, 768, 2304), (129, 768, 3072), (77, 1024, 3072),
                   (65, 1024, 4096), (130, 448, 1344), (5, 64, 64),
-                  (200, 576, 192)]
+                  (200, 576, 192), (37, 768, 2304), (200, 1024, 1088),
+                  (8738, 768, 2304)]
 
 
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("form", ["qkv", "fc1"])
 @pytest.mark.parametrize("b_nk", [True, False])
 @pytest.mark.parametrize("shape", LN_GEMM_SHAPES,
                          ids=lambda s: "x".join(map(str, s)))
-def test_vit_ln_gemm_matches_plain(dev, shape, b_nk, form):
-    """qkv: fp32 x rounded to bf16 before LN1, no activation; fc1: fp32 x
-    as it is, GELU; W as torch Linear weights or in the JAX layout."""
+def test_vit_ln_gemm_matches_plain(dev, shape, b_nk, form, x_dtype):
+    """qkv: x (fp32 or bf16) rounded to bf16 before LN1, no activation;
+    fc1: x as it is, GELU; W as torch Linear weights or in the JAX
+    layout."""
     from edgecape_tpu_torch.ops import fused_vit_block as FV
     from edgecape_tpu_torch.ops import kernels as K
     r, c, n = shape
-    x = _rn(dev, r, c, seed=c)
+    x = _rn(dev, r, c, seed=c).to(x_dtype)
     g, be = 1 + _rn(dev, c, s=0.1, seed=1), _rn(dev, c, s=0.1, seed=2)
     w = _rn(dev, n, c, s=c ** -0.5, seed=3).to(torch.bfloat16)
     if not b_nk:
@@ -1660,18 +1667,34 @@ def test_vit_ln_gemm_matches_plain(dev, shape, b_nk, form):
 
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 def test_vit_ln_gemm_rows_do_not_depend_on_the_call(dev, x_dtype):
-    """A row's bits are the same in a call on 1000 rows as in calls on
-    its halves (each element sums its k slabs in one order)."""
+    """A row's bits are the same in a call on the support pass's 8738
+    rows (69 tiles; the plan splits each tile's groups into parts) as in
+    calls on its pieces: two halves cut at row 437 (other tiles, another
+    share of the LayerNorm pass), the first 2000 rows (another column
+    split), and in calls on all rows at every column split 1..9 (each
+    part's columns from another CTA): each element sums its k slabs in
+    one order."""
     from edgecape_tpu_torch.ops import kernels as K
-    x = _rn(dev, 1000, 768, seed=5).to(x_dtype)
+    x = _rn(dev, 8738, 768, seed=5).to(x_dtype)
     g, be = 1 + _rn(dev, 768, s=0.1, seed=6), _rn(dev, 768, s=0.1, seed=7)
     w = _rn(dev, 2304, 768, s=768 ** -0.5, seed=8).to(torch.bfloat16)
     bias = _rn(dev, 2304, s=0.1, seed=9)
 
-    def call(rows):
+    def call(rows, **kw):
         return K.vit_ln_gemm(rows.contiguous(), g, be, w, bias, eps=1e-6,
-                             round_in=True)
-    assert torch.equal(call(x), torch.cat([call(x[:437]), call(x[437:])]))
+                             round_in=True, **kw)
+    whole = call(x)
+    split = K.vit_ln_gemm_card_plan(8738, 768, 2304)["column_split"]
+    assert split > 1
+    assert K.vit_ln_gemm_card_plan(2000, 768, 2304)["column_split"] != split
+    assert torch.equal(whole[:1000],
+                       torch.cat([call(x[:437]), call(x[437:1000])]))
+    assert torch.equal(whole[128:1128], call(x[128:1128]))
+    assert torch.equal(whole[:2000], call(x[:2000]))
+    for parts in range(1, 10):
+        assert torch.equal(whole, call(x, column_split=parts)), parts
+    with pytest.raises(ValueError, match="column split"):
+        call(x, column_split=10)
 
 
 def test_vit_ln_gemm_refuses_what_it_does_not_take(dev):

@@ -77,13 +77,16 @@ def _gelu_gap() -> float:
 
 # ---------------------------------------------------------------- plans
 @pytest.mark.parametrize("c,heads,wide,stages", [
-    (384, 6, False, None), (384, 12, True, 5), (448, 7, True, 5),
-    (768, 12, True, 4), (1024, 16, True, 3), (64, 1, True, 5)],
+    (384, 6, False, None), (384, 12, True, 4), (448, 7, True, 4),
+    (768, 12, True, 4), (1024, 16, True, 4), (64, 1, True, 4)],
     ids=["384/6", "384/12", "448/7", "768/12", "1024/16", "64/1"])
 def test_the_route_follows_the_width(c, heads, wide, stages):
     """384 channels in 6 heads keep the resident kernels (their plans as
     they were); every other width takes the wide route, whose plans hold
-    vit_ln_gemm_kernel's tiles, groups, ring and shared memory."""
+    vit_ln_gemm_kernel's 128-row tiles, 256-column groups, ring (as many
+    48 KB stages as fit beside the bias), the producer / consumer split,
+    the grid's CTAs, work units and shared memory: at the query pass the
+    column split whose last round of groups ends first."""
     b, n = 510, 257
     att = K.vit_attn_plan(b, n, c, heads)
     mlp = K.vit_mlp_plan(b * n, c, 4 * c)
@@ -98,13 +101,47 @@ def test_the_route_follows_the_width(c, heads, wide, stages):
         if plan is None:                 # 384 channels: vit_mlp_kernel
             continue
         assert plan == K.vit_ln_gemm_plan(b * n, c, cols)
-        assert plan["tiles"] == -(-b * n // 64) and plan["pad_rows"] == \
-            plan["tiles"] * 64 - b * n
+        assert plan["tiles"] == -(-b * n // 128) and plan["pad_rows"] == \
+            plan["tiles"] * 128 - b * n
         assert plan["k_slabs"] == c // 64
         assert plan["groups"] == -(-cols // 256) and plan["stages"] == stages
         assert plan["smem_bytes"] <= 232448
-        assert plan["smem_bytes"] == 1024 + (c // 64) * 8192 \
-            + stages * 32768 + -(-stages * 12 // 8) * 8
+        assert plan["smem_bytes"] == 1024 + stages * (49152 + 16) \
+            + 4 * 8192
+        assert 232448 - plan["smem_bytes"] < 49152 + 16  # as many as fit
+        assert plan["ctas"] == 132
+        assert (plan["threads"], plan["producer_warps"],
+                plan["consumer_warpgroups"]) == (384, 1, 2)
+        split = plan["column_split"]
+        assert plan["units"] == plan["tiles"] * split
+        assert plan["groups_per_unit"] == -(-plan["groups"] // split)
+        rounds = -(-plan["units"] // 132) * plan["groups_per_unit"]
+        assert rounds <= -(-plan["tiles"] // 132) * plan["groups"]
+
+
+@pytest.mark.parametrize("c,cols,split", [
+    (768, 2304, 9), (768, 3072, 12), (1024, 3072, 12), (1024, 4096, 16)],
+    ids=["qkv-B", "fc1-B", "qkv-L", "fc1-L"])
+def test_the_support_pass_splits_its_columns(c, cols, split):
+    """At the support pass (34 x 257 rows: 69 tiles on 132 CTAs) whole
+    tiles would leave half the card idle: the plan splits each tile's
+    groups into the parts whose last round of groups ends first (the
+    fewest on a tie; a part does no LayerNorm of its own). The training
+    step's 65 tiles split in two: one round of units."""
+    plan = K.vit_ln_gemm_plan(34 * 257, c, cols)
+    assert plan["tiles"] == 69 and plan["column_split"] == split
+    assert plan["units"] == 69 * split
+    assert plan["groups_per_unit"] == -(-plan["groups"] // split)
+
+    def rounds_cost(parts):
+        return -(-69 * parts // 132) * -(-plan["groups"] // parts)
+    assert all(rounds_cost(split) < rounds_cost(p)
+               for p in range(1, plan["groups"] + 1) if p != split)
+    train = K.vit_ln_gemm_plan(32 * 257, c, cols)
+    assert train["tiles"] == 65 and train["column_split"] == 2
+    assert train["units"] == 130 <= train["ctas"]
+    assert K.vit_ln_gemm_plan(34 * 257, c, cols, ctas=66)["column_split"] \
+        <= split
 
 
 def test_the_wide_route_streams_long_rows():
