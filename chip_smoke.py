@@ -1308,6 +1308,9 @@ WIDTH_OPS = [(200, 8, 300), (512, 8, 1024)]
 # an eval chunk of WIDTH_GROUPS x QUERIES queries; WIDTH_STEPS stage-3
 # Trainer steps of WIDTH_ROWS rows (dropout 0)
 WIDTH_GROUPS, WIDTH_ROWS, WIDTH_STEPS = 4, 8, 2
+# the query rows of the redesigned head_wide.cu kernels' own [op] lines:
+# the [widths] chunk's 4 x 15 and the eval chunk's 34 x 15
+WIDE_OP_ROWS = (WIDTH_GROUPS * QUERIES, GROUPS * QUERIES)
 WIDE_SOURCE = "edgecape_tpu_torch/csrc/head_wide.cu"
 # the ops' plain versions, none of which may run on the kernel path
 PLAIN_FNS = (("fused_encoder", "fused_encoder_layer_plain"),
@@ -1405,6 +1408,116 @@ class PlainCalls:
             setattr(m, fn, orig)
 
 
+def enc_post_plain(att, src, layer):
+    """The plain formulas of the encoder's post-attention half (ops/
+    fused_encoder.py fused_encoder_layer_plain after its attention) on the
+    layer's own weights: fp32 [R, C]."""
+    from edgecape_tpu_torch.ops import plain
+    op, n1 = layer.self_attn.out_proj, layer.norm1
+    x = plain.layer_norm(src.float() + plain.linear(att, op.weight, op.bias),
+                         n1.weight, n1.bias, 1e-5)
+    h = torch.relu(plain.linear(x, layer.linear1.weight, layer.linear1.bias))
+    return plain.layer_norm(
+        x + plain.linear(h, layer.linear2.weight, layer.linear2.bias),
+        layer.norm2.weight, layer.norm2.bias, 1e-5)
+
+
+def enc_post_wide_lines(dev, power, bad):
+    """[op] enc_post_wide_kernel lines at the WIDTH_OPS widths and the
+    WIDE_OP_ROWS query rows of 356 tokens: one launch's device ms
+    (profiler) beside its bound (the products of the true widths / 989
+    TFLOP/s, or att, src, out and the weights once / 3.35 TB/s) and the
+    share of it, the three launches of a stack, the same rows through the
+    port's whole encoder stack and through 3 x nn.TransformerEncoderLayer
+    (the library, whole layers), the output against the plain formulas
+    (ATOL + RTOL |ref|, MEAN_TOL) and the launch counted."""
+    import edgecape_tpu_torch.ops.fused_encoder as FE
+    from edgecape_tpu_torch.models.transformer import EncoderLayer
+    from edgecape_tpu_torch.ops import kernels as KN
+    from edgecape_tpu_torch.tools import bench_attention as BA
+    bf, hw = torch.bfloat16, 256
+    for c, h, ffn in WIDTH_OPS:
+        tag = f"{c}/{h}/{ffn}"
+        _, rn = seeded_randn(SEED + 90 + c + h, dev)
+        enc = [randomize(EncoderLayer(c, h, ffn), rn, dev) for _ in range(3)]
+        lib = library_encoder(enc, c, ffn, dev)
+        w = FE._prepare(enc[0])
+        for nq in WIDE_OP_ROWS:
+            r = nq * (hw + K)
+            att, src = rn(r, c).to(bf), rn(r, c).to(bf)
+            tok, pos = rn(nq, hw + K, c).to(bf), rn(hw + K, c).to(bf)
+
+            def kern():
+                return KN.enc_post(att, src, w, eps=1e-5, out_dtype=bf)[0]
+
+            def library_stack():
+                with torch.inference_mode():
+                    x = tok + pos
+                    for layer in lib:
+                        x = layer(x)
+                return x
+            with torch.no_grad():
+                n0 = KN.launches["enc_post_wide_kernel"]
+                out = kern()
+                counted = KN.launches["enc_post_wide_kernel"] - n0
+                ref = enc_post_plain(att, src, enc[0])
+                torch.cuda.synchronize()
+                d = (out.float() - ref).abs()
+                excess = (d - (ATOL + RTOL * ref.abs())).max().item()
+                err, mean = d.max().item(), d.mean().item()
+                del ref, d
+                ok = excess <= 0 and mean <= MEAN_TOL and counted == 1 and \
+                    bool(torch.isfinite(out.float()).all())
+                dev_ms, _, wall = BA.device_ms(kern)
+                stack_ms, _, stack_wall = BA.device_ms(
+                    lambda: FE.fused_encoder_stack(tok, pos, None, enc,
+                                                   num_heads=h))
+                lib_ms, _, lib_wall = BA.device_ms(library_stack)
+            bnd = bound(nbytes(att, src, out) + param_bytes(
+                enc[0].self_attn.out_proj, enc[0].linear1, enc[0].linear2,
+                enc[0].norm1, enc[0].norm2), 2 * r * (c * c + 2 * c * ffn))
+            plan = KN.post_plan(r, c, ffn)
+            three = "" if dev_ms is None else \
+                f" (3 a stack: {3 * dev_ms:.4f} ms)"
+            share = "" if dev_ms is None else \
+                f", {100 * bnd[0] / dev_ms:.1f}% of it"
+            print(f"[op] enc_post_wide_kernel ({tag}, {nq} x {hw + K} = {r} "
+                  f"rows): {BA.ms_text(dev_ms, wall)} a launch{three}, "
+                  f"bound {bnd[0]:.4f} ms ({bnd[1]}){share}; the port's "
+                  f"stack {BA.ms_text(stack_ms, stack_wall)}; library 3 x "
+                  f"nn.TransformerEncoderLayer {BA.ms_text(lib_ms, lib_wall)}"
+                  f"; max_abs_err {err:.4g} mean_abs_err {mean:.3g} (worst "
+                  f"excess {excess:.3g}); {counted} launch counted; plan: "
+                  f"{plan['enc_tiles']} tiles of {KN.ENC_WIDE_TILE} rows, "
+                  f"half width {plan['enc_half']}, {plan['enc_chunks']} "
+                  f"hidden chunks, {plan['enc_slots']} ring slots a "
+                  f"warpgroup on {power} {'OK' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                bad.append(f"enc_post_wide_kernel ({tag}, {nq} rows)")
+            del att, src, out, tok
+        del enc, lib, w
+        torch.cuda.empty_cache()
+
+
+def bias_wide_line(row, power):
+    """The [op] bias_attn_wide_kernel summary of a WIDTH_SHAPES row of the
+    hop bias (tools/bench_attention.py run_case): device ms beside its
+    bound and the share of it, and SDPA on a bias made beforehand (the
+    library), the same run's."""
+    dev_ms, bnd, sdpa = row["device_ms"], row["bound_ms"], \
+        row["sdpa_device_ms"]
+    share = "" if dev_ms is None else f", {100 * bnd / dev_ms:.1f}% of it"
+    ratio = "" if dev_ms is None or sdpa is None else \
+        f" (kernel / SDPA {dev_ms / sdpa:.3f})"
+    print(f"[op] bias_attn_wide_kernel {row['shape']}: device "
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}, "
+          f"bound {bnd:.4f} ms ({row['bound_by']}){share}; library SDPA "
+          f"{'not measured' if sdpa is None else f'device {sdpa:.4f} ms'} "
+          f"(wall {row['sdpa_ms']:.4f} ms){ratio}; plan {row['plan']} on "
+          f"{power}", flush=True)
+
+
 def width_op_checks(dev, entries, power):
     """[op] lines of the head_wide.cu kernels and of the attention at the
     padded head dims and at head dim 128, at the WIDTH_OPS widths: the
@@ -1413,7 +1526,9 @@ def width_op_checks(dev, entries, power):
     plain versions, the whole decoder stack layer by layer; the attention
     shapes of tools/bench_attention.py WIDTH_SHAPES (eval and training,
     forward and backward). Each line: device ms, kernels a call, plain
-    ms, bound, library ms."""
+    ms, bound, library ms. Then the redesigned kernels' own lines:
+    bias_attn_wide_kernel's summary of each hop-bias row (60 and 510 query
+    rows: bias_wide_line) and enc_post_wide_lines."""
     import edgecape_tpu_torch.ops.fused_decoder as FD
     import edgecape_tpu_torch.ops.fused_encoder as FE
     from edgecape_tpu_torch.ops import kernels as KN
@@ -1672,6 +1787,8 @@ def width_op_checks(dev, entries, power):
                     ["attn_kernel"])
             if not row["ok"]:
                 bad.append(name)
+            if "hops" in row["name"]:
+                bias_wide_line(row, power)
             entries[name] = {
                 "name": name, "route": "cuda",
                 "source": WIDE_SOURCE if "hops" in row["name"] else
@@ -1687,6 +1804,7 @@ def width_op_checks(dev, entries, power):
                 "library_device_ms": row["sdpa_device_ms"],
                 "by_kernel": row.get("by_kernel"), "plan": row["plan"]}
         torch.cuda.empty_cache()
+    enc_post_wide_lines(dev, power, bad)
     if bad:
         fail(f"kernels at the new widths disagree with their plain versions "
              f"or did not run: {bad}")

@@ -136,9 +136,10 @@ _SIGNATURES = {
     + [_F, _P],
     "ec_kpt_head_wide": [_P] * 14 + [_L, _I, _I, _F, _F, _P],
     # qkv, B, N, H, D, key mask + stride, hops, n_hop, hidden, the MLP's
-    # four tensors, scale, out
+    # four tensors, scale, out, then the plan: query split, tiles a block,
+    # heads a pass, resident, smem
     "ec_bias_attention_wide": [_P, _I, _I, _I, _I, _P, _L, _P, _I, _I, _P,
-                               _P, _P, _P, _F, _P, _P],
+                               _P, _P, _P, _F, _P, _I, _I, _I, _I, _L, _P],
     # vit_wide.cu: x, its dtype, round_in, g, be, W, kmajor, bias, act,
     # the scratch h, out, R, C, N, eps, smem, column parts
     "ec_vit_ln_gemm": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I,
@@ -1064,6 +1065,12 @@ POST_C, POST_TILE, ENC_CHUNK, DEC_CHUNK = 256, 128, 128, 64
 # multiples of WIDE_K, hidden widths to multiples of WIDE_CHUNK, in shared
 # memory of at most ATT_SMEM_LIMIT a block.
 WIDE_MAX_C, WIDE_TILE, WIDE_K, WIDE_CHUNK = 512, 16, 16, 64
+# enc_post_wide_kernel: tiles of ENC_WIDE_TILE rows, each of its two
+# consumer warpgroups holding half the channels rounded up to 64
+# (enc_wide_half), the hidden in chunks of ENC_WIDE_CHUNK, the weights
+# through a ring of at most ENC_WIDE_SLOTS slots a warpgroup, in
+# ATT_SMEM_LIMIT bytes of shared memory (head_wide.cu ew_smem).
+ENC_WIDE_TILE, ENC_WIDE_CHUNK, ENC_WIDE_SLOTS = 64, 128, 8
 
 
 def _up(n: int, m: int) -> int:
@@ -1074,6 +1081,25 @@ def _wide_tile(cols: int, el: int) -> int:
     """Bytes of a 16-row shared-memory tile of head_wide.cu (hw_btile,
     hw_ftile): rows padded by 16 bytes, rounded up to 128."""
     return _up(el * WIDE_TILE * (cols + 16 // el), 128)
+
+
+def enc_wide_half(c: int) -> int:
+    """The channels each consumer warpgroup of enc_post_wide_kernel holds:
+    half of c rounded up to 64 (64, 128, 192 or 256; one instance each)."""
+    return _up(-(-c // 2), 64)
+
+
+def enc_wide_ring(c: int) -> tuple:
+    """(slots of each warpgroup's weight ring, shared-memory bytes) of
+    enc_post_wide_kernel at c channels: alignment slack, the x tile
+    [64, 2 nh] bf16, two buffers of a hidden chunk [64, 128] bf16, the
+    LayerNorm's partial sums, then the two rings of nh x 128-byte slots
+    (as many as fit, at most ENC_WIDE_SLOTS) with two barriers a slot."""
+    nh = enc_wide_half(c)
+    fixed = 1024 + nh * 256 + 4 * 8192 + 4 * 2 * 2 * ENC_WIDE_TILE
+    slots = min(ENC_WIDE_SLOTS,
+                (ATT_SMEM_LIMIT - fixed) // (2 * (nh * 128 + 16)))
+    return slots, fixed + 2 * slots * (nh * 128 + 16)
 
 
 def post_plan(rows: int, c: int, f: int, *, chunk: int = ENC_CHUNK,
@@ -1089,9 +1115,16 @@ def post_plan(rows: int, c: int, f: int, *, chunk: int = ENC_CHUNK,
 
     Any other c up to WIDE_MAX_C takes the head_wide.cu kernels, and the
     plan holds `wide`: True, `c_pad` (c in multiples of WIDE_K), `f_pad`
-    (f in chunks of WIDE_CHUNK), `tiles` of WIDE_TILE rows (with
-    `keypoints`: a batch row each) and the largest `smem_bytes` of the
-    three kernels. The padding columns are zero in the weights
+    (f in chunks of WIDE_CHUNK), the decoder kernels' `tiles` of
+    WIDE_TILE rows (with `keypoints`: a batch row each) and the largest
+    `smem_bytes` of the three kernels; without `keypoints` also
+    enc_post_wide_kernel's `enc_tiles` of ENC_WIDE_TILE rows
+    (`enc_pad_rows` missing in the last), its warpgroups' `enc_half`
+    channels each (enc_wide_half), its weights' padded widths
+    `enc_c_pad` (2 enc_half) and `enc_f_pad` (f in `enc_chunks` chunks of
+    ENC_WIDE_CHUNK), so that every box its TMA reads lies inside them,
+    and `enc_slots` ring slots a warpgroup. The padding columns are zero
+    in the weights
     (pad_cols, pad_ffn, pad_gcn), so the products are unchanged. Raises for
     what the kernels do not take: c outside 1..WIDE_MAX_C, no hidden, no
     rows, keypoints outside 1..POST_TILE or no whole batch rows."""
@@ -1109,17 +1142,28 @@ def post_plan(rows: int, c: int, f: int, *, chunk: int = ENC_CHUNK,
     if c != POST_C:
         cp, c2p, f_pad = _up(c, WIDE_K), _up(2 * c, WIDE_K), _up(f, WIDE_CHUNK)
         b, f4 = partial(_wide_tile, el=2), partial(_wide_tile, el=4)
+        slots, enc_smem = enc_wide_ring(c)
         smem = max(
-            b(cp) + 2 * f4(cp) + f4(WIDE_CHUNK) + b(WIDE_CHUNK),     # encoder
+            enc_smem,                                                # encoder
             2 * b(cp) + f4(cp) + f4(c2p),                            # self
             b(c2p) + f4(c2p) + f4(max(cp, WIDE_CHUNK)) + b(cp) + f4(128)
             + 2 * b(_up(keypoints or POST_TILE, 16)) + b(WIDE_CHUNK))
         tiles = rows // keypoints if keypoints else -(-rows // WIDE_TILE)
-        return {"wide": True, "c_pad": cp, "f_pad": f_pad,
+        plan = {"wide": True, "c_pad": cp, "f_pad": f_pad,
                 "chunks": f_pad // WIDE_CHUNK, "tiles": tiles,
                 "pad_rows": (_up(keypoints, WIDE_TILE) - keypoints
                              if keypoints else tiles * WIDE_TILE - rows),
                 "smem_bytes": smem}
+        if keypoints is None:
+            enc_tiles = -(-rows // ENC_WIDE_TILE)
+            enc_f_pad = _up(f, ENC_WIDE_CHUNK)
+            plan.update(enc_tiles=enc_tiles,
+                        enc_pad_rows=enc_tiles * ENC_WIDE_TILE - rows,
+                        enc_half=enc_wide_half(c),
+                        enc_c_pad=2 * enc_wide_half(c), enc_f_pad=enc_f_pad,
+                        enc_chunks=enc_f_pad // ENC_WIDE_CHUNK,
+                        enc_slots=slots)
+        return plan
     f_pad = _up(f, chunk)
     if keypoints is None:
         tiles = -(-rows // POST_TILE)
@@ -1191,7 +1235,9 @@ def enc_post(att: torch.Tensor, src: torch.Tensor, w: dict, *, eps: float,
     . w2^T + b2), the hidden in chunks and the second product accumulated
     onto x. att, src: contiguous bf16 [R, C]; w: the layer's weights
     (wo, bo, g1, be1, w1, b1, w2, b2, g2, be2; ops/fused_encoder.py
-    _prepare, in post_plan's layout). Returns (y [R, C] in out_dtype, or
+    _prepare, in post_plan's layout: at POST_C the hidden padded to
+    f_pad, elsewhere wo, w1, w2 and b1 padded to enc_c_pad channels and
+    enc_f_pad hidden columns). Returns (y [R, C] in out_dtype, or
     None when out_dtype is None; with pos [N, C] bf16, the next layer's
     src = bf16(bf16(y) + pos[row % N]) bf16 [R, C], else None).
     enc_post_kernel at POST_C channels, enc_post_wide_kernel at the
@@ -1224,7 +1270,7 @@ def enc_post(att: torch.Tensor, src: torch.Tensor, w: dict, *, eps: float,
 
 def _enc_post_wide(att, src, w, plan, *, eps, out_dtype, pos):
     r, c = att.shape
-    cp, fp = plan["c_pad"], plan["f_pad"]
+    cp, fp = plan["enc_c_pad"], plan["enc_f_pad"]
     ptrs = [_operand(att, (r, c)), _operand(src, (r, c)),
             _operand(w["wo"], (cp, cp))] + _vectors(w, "bo", "g1", "be1") + [
         _operand(w["w1"], (fp, cp))] + _vectors(w, "b1") + [
@@ -1694,9 +1740,31 @@ BA_MIN_BLOCKS = 264
 
 
 # bias_attn_wide_kernel (csrc/head_wide.cu) at every other head count and
-# head dim: up to BA_WIDE_HEADS heads of up to ATT_HEAD_DIMS[-1], a warp a
-# query row, BA_WIDE_WARPS warps a block.
+# head dim: up to BA_WIDE_HEADS heads of up to ATT_HEAD_DIMS[-1] (run at
+# attention_head_dim), BA_WIDE_WARPS warps a block taking the heads of a
+# pass; the MLP's tables in shared memory hold BA_WIDE_MLP_FLOATS.
 BA_WIDE_HEADS, BA_WIDE_WARPS = 16, 8
+BA_WIDE_MLP_FLOATS = BA_HID_MAX * (8 + BA_WIDE_HEADS + 1) + BA_WIDE_HEADS
+
+
+def bias_wide_smem(heads: int, nkp: int, dp: int, per_pass: int,
+                   resident: bool) -> int:
+    """Shared memory of bias_attn_wide_kernel (head_wide.cu bw_smem):
+    per_pass head slots (bf16 rows of dp + 8: resident, K and V [nkp]
+    each, else K, then V over it, [nkp]; and a query tile [16]), the bias
+    of a tile for every head [heads, 16, nkp] fp32, the key mask and the
+    MLP."""
+    slot = ((2 if resident else 1) * nkp + 16) * (dp + 8) * 2
+    return per_pass * slot + 4 * heads * 16 * nkp + 4 * nkp \
+        + 4 * BA_WIDE_MLP_FLOATS
+
+
+def _q_split(b, tiles):
+    """Blocks a batch row of how many 16-query tiles each, so that a call
+    has BA_MIN_BLOCKS blocks where its tiles allow."""
+    q_split = min(tiles, -(-BA_MIN_BLOCKS // b))
+    per_block = -(-tiles // q_split)
+    return -(-tiles // per_block), per_block
 
 
 @functools.lru_cache(maxsize=None)
@@ -1707,16 +1775,30 @@ def _bias_attention_plan(b, n, heads, d):
     if b < 1 or not 1 <= n <= ATT_ROW16 * 16:
         raise ValueError(f"the bias attention takes 1..{ATT_ROW16 * 16} "
                          f"keypoints and a batch, got B={b}, K={n}")
-    if (heads, d) != (BA_HEADS, BA_D):
-        smem = 4 * (BA_HOP_MAX * BA_HID_MAX + BA_HID_MAX
-                    + BA_HID_MAX * BA_WIDE_HEADS + BA_WIDE_HEADS) \
-            + 4 * BA_WIDE_WARPS * (heads + 2) * ATT_ROW16 * 16
-        return (("wide", True), ("row_blocks", -(-n // BA_WIDE_WARPS)),
-                ("smem_bytes", smem))
     tiles = -(-n // 16)
-    q_split = min(tiles, -(-BA_MIN_BLOCKS // b))
-    per_block = -(-tiles // q_split)
-    q_split = -(-tiles // per_block)
+    if (heads, d) != (BA_HEADS, BA_D):
+        dp, nkp = attention_head_dim(d), tiles * 16
+
+        def fits(per_pass, resident):
+            return bias_wide_smem(heads, nkp, dp, per_pass,
+                                  resident) <= ATT_SMEM_LIMIT
+        resident = fits(heads, True)
+        if resident:                    # K, V of every head once a block
+            per_pass = heads
+            q_split, per_block = _q_split(b, tiles)
+        else:                           # passes of heads, a tile a block
+            per_pass = max(g for g in range(1, min(heads, BA_WIDE_WARPS) + 1)
+                           if fits(g, False))
+            per_pass = -(-heads // -(-heads // per_pass))
+            q_split, per_block = tiles, 1
+        return (("wide", True), ("q_split", q_split),
+                ("tiles_per_block", per_block), ("key_tiles", tiles),
+                ("d_pad", dp), ("resident", resident),
+                ("heads_per_pass", per_pass),
+                ("passes", -(-heads // per_pass)),
+                ("smem_bytes", bias_wide_smem(heads, nkp, dp, per_pass,
+                                              resident)))
+    q_split, per_block = _q_split(b, tiles)
     nkp, ld = tiles * 16, heads * d + 8
     smem = 2 * nkp * ld * 2 + 16 * ld * 2 + heads * 16 * nkp * 4 + nkp * 4 \
         + BA_MLP_BYTES
@@ -1735,9 +1817,15 @@ def bias_attention_plan(b: int, n: int, heads: int, d: int) -> dict:
     the bias of a tile [heads, 16, key_tiles * 16] fp32, the key mask and
     the MLP's weights. That is bias_attn_kernel's, for 8 heads of 32; at
     any other head count and dim the plan holds `wide`: True and
-    bias_attn_wide_kernel's `row_blocks` (BA_WIDE_WARPS query rows a
-    block) and `smem_bytes`. Raises for what the kernels do not take: more
-    than 16 heads, head dims above 128, more than 128 keypoints."""
+    bias_attn_wide_kernel's: the head dim run at `d_pad`; `resident`
+    where every head's K, V and queries fit beside the bias (one pass, a
+    block taking tiles_per_block tiles with K and V loaded once), else one
+    tile a block and the heads in `passes` of `heads_per_pass` (at most
+    BA_WIDE_WARPS, a warp a head), each head's V copied over its K after
+    the scores; smem_bytes: the slots, the bias of a tile for every head
+    [heads, 16, key_tiles * 16] fp32, the key mask and the MLP
+    (bias_wide_smem). Raises for what the kernels do not take: more than
+    16 heads, head dims above 128, more than 128 keypoints."""
     return dict(_bias_attention_plan(int(b), int(n), int(heads), int(d)))
 
 
@@ -1770,7 +1858,9 @@ def bias_attention(qkv: torch.Tensor, key_valid, hops: torch.Tensor,
         d = c // num_heads
         _call("ec_bias_attention_wide", ptrs[0], b, n, num_heads, d, kv_ptr,
               kv_stride, ptrs[1], nhop, hid, *ptrs[2:], float(d ** -0.5),
-              out.data_ptr(), _stream())
+              out.data_ptr(), plan["q_split"], plan["tiles_per_block"],
+              plan["heads_per_pass"], int(plan["resident"]),
+              plan["smem_bytes"], _stream())
         launches["bias_attn_wide_kernel"] += 1
         return out
     _call("ec_bias_attention", ptrs[0], b, n, kv_ptr, kv_stride, ptrs[1],

@@ -129,14 +129,19 @@ LONG_SHAPES = [
 # and of 512 in 8 (64 and 128), a cached eval chunk of 4 x 15 queries and
 # a training step of 8 rows at 224 px, K 100: every instance of the eval
 # and the training kernels at head dim 128 (one pass and two, the training
-# pair's direct call), and bias_attn_wide_kernel (8 heads of 25 and of 64).
+# pair's direct call), and bias_attn_wide_kernel (8 heads of 25 and of 64,
+# also at the eval chunk's 510 rows).
 WIDTH_SHAPES = [
     ("encoder, head dim 25", 60, 356, 356, 8, 25, True, None, None),
     ("decoder self, head dim 25, bias from hops", 60, 100, 100, 8, 25, True,
      "hops", None),
+    ("decoder self, head dim 25, bias from hops, 510 rows", 510, 100, 100, 8,
+     25, True, "hops", None),
     ("decoder cross, head dim 50", 60, 100, 256, 8, 50, False, None, None),
     ("decoder self, head dim 64, bias from hops", 60, 100, 100, 8, 64, True,
      "hops", None),
+    ("decoder self, head dim 64, bias from hops, 510 rows", 510, 100, 100, 8,
+     64, True, "hops", None),
     ("decoder cross, head dim 128", 60, 100, 256, 8, 128, False, None, None),
     ("keypoints, head dim 128", 60, 100, 100, 4, 128, True, None, None),
     ("train encoder, head dim 25, rate 0.1", 8, 356, 356, 8, 25, True, None,

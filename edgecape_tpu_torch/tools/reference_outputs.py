@@ -11,10 +11,13 @@ card:
   gradients of q, k and v;
 * with --wide, vit_ln_gemm (the wide route's LayerNorm + projection) at
   ViT-B/14's and ViT-L/14's qkv and fc1 widths (WIDE_CASES: fp32 and bf16
-  x, both W layouts, the support pass's rows), its bf16 bits as int16.
+  x, both W layouts, the support pass's rows), its bf16 bits as int16;
+* with --heads, csrc/head_wide.cu's decoder kernels and keypoint head
+  (dec_post_self / dec_post_cross / kpt_head at HEAD_CASES' widths, 60
+  batch rows of K keypoints, seeded DecoderLayer weights), their outputs.
 
     python edgecape_tpu_torch/tools/reference_outputs.py [--root DIR]
-        [--wide] OUT.npz
+        [--wide] [--heads] OUT.npz
     python edgecape_tpu_torch/tools/reference_outputs.py --compare A.npz B.npz
 
 --root runs the package of another checkout (the parent's, unpacked from
@@ -41,6 +44,10 @@ WIDE_CASES = (("qkv_b", 2000, 768, 2304, True, True, False),
               ("qkv_l", 1000, 1024, 3072, True, False, False),
               ("fc1_l", 1000, 1024, 4096, False, True, True),
               ("qkv_b_support", 34 * 257, 768, 2304, True, True, False))
+
+
+# (d_model, heads, FFN) of the --heads cases, and their batch rows
+HEAD_CASES, HEAD_ROWS = ((200, 8, 300), (512, 8, 1024)), 60
 
 
 def _episodes(rng):
@@ -83,7 +90,58 @@ def _wide(dev, arrays, launches) -> None:
                         KN.launches["vit_ln_gemm_kernel"] - n0}
 
 
-def run(root: str, out: str, wide: bool = False) -> None:
+def _heads(dev, arrays, launches) -> None:
+    """dec_post_self, dec_post_cross and kpt_head at HEAD_CASES (their
+    csrc/head_wide.cu kernels), seeded, into arrays (bf16 bits as
+    int16)."""
+    import torch
+    from edgecape_tpu_torch.models.transformer import DecoderLayer
+    from edgecape_tpu_torch.ops import fused_decoder as FD
+    from edgecape_tpu_torch.ops import kernels as KN
+    names = ("dec_post_self_wide_kernel", "dec_post_cross_wide_kernel",
+             "kpt_head_wide_kernel")
+    n0 = {n: KN.launches[n] for n in names}
+    g = torch.Generator().manual_seed(SEED + 4)
+    bf, b = torch.bfloat16, HEAD_ROWS
+
+    def rn(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to(dev)
+
+    def bits(t):
+        return t.view(torch.int16).cpu().numpy()
+    for c, h, f in HEAD_CASES:
+        layer = DecoderLayer(c, h, f)
+        with torch.no_grad():
+            for name, p in layer.named_parameters():
+                if p.dim() == 2:
+                    p.copy_(torch.randn(p.shape, generator=g)
+                            * p.shape[1] ** -0.5)
+                else:
+                    p.copy_(0.1 * torch.randn(p.shape, generator=g)
+                            + (1.0 if name.endswith("weight") else 0.0))
+        w = FD._prepare(layer.to(dev).eval())
+        r = b * K
+        x1, q2 = KN.dec_post_self(rn(r, c).to(bf), rn(r, c).to(bf),
+                                  rn(r, c).to(bf), w, eps=1e-5)
+        adj = (torch.rand(b, 2, K, K, generator=g) / K).to(dev)
+        y = KN.dec_post_cross(rn(b, K, 2 * c).to(bf), x1, adj, w, eps=1e-5,
+                              out_dtype=bf)
+        cp = KN.kpt_head_plan(r, c)["c_pad"]
+        kpt = [(KN.pad_cols(rn(c, c, s=c ** -0.5), cp, cp).to(bf)
+                .contiguous(), rn(c, s=0.1)) for _ in range(3)]
+        fn = (1.0 + rn(c, s=0.1), rn(c, s=0.1))
+        x, ct = rn(r, c).to(bf), torch.rand(r, 2, generator=g).to(dev)
+        pts, outs = torch.empty_like(ct), torch.empty_like(ct)
+        KN.kpt_head(x, ct, fn, kpt, rn(2, c, s=0.02).to(bf), rn(2, s=0.02),
+                    pts, outs, eps=1e-5)
+        arrays.update({f"heads_{c}_x1": x1.cpu().numpy(),
+                       f"heads_{c}_q2": bits(q2), f"heads_{c}_out": bits(y),
+                       f"heads_{c}_pts": pts.cpu().numpy(),
+                       f"heads_{c}_outs": outs.cpu().numpy()})
+    launches["heads"] = {n: KN.launches[n] - n0[n] for n in names}
+
+
+def run(root: str, out: str, wide: bool = False, heads: bool = False) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from edgecape_tpu_torch.api import PoseEstimator
@@ -134,6 +192,8 @@ def run(root: str, out: str, wide: bool = False) -> None:
         arrays[f"train_{name}"] = t.cpu().numpy()
     if wide:
         _wide(dev, arrays, launches)
+    if heads:
+        _heads(dev, arrays, launches)
     np.savez(out, launches=json.dumps(launches, sort_keys=True),
              device=torch.cuda.get_device_name(0), **arrays)
     print(f"wrote {out}: {sorted(arrays)} on {torch.cuda.get_device_name(0)}"
@@ -172,13 +232,16 @@ def main(argv=None) -> None:
     p.add_argument("--compare", nargs=2, metavar=("A", "B"))
     p.add_argument("--wide", action="store_true",
                    help="also vit_ln_gemm at WIDE_CASES")
+    p.add_argument("--heads", action="store_true",
+                   help="also the decoder kernels and keypoint head of "
+                        "csrc/head_wide.cu at HEAD_CASES")
     p.add_argument("out", nargs="?")
     args = p.parse_args(argv)
     if args.compare:
         sys.exit(0 if compare(*args.compare) else 1)
     if not args.out:
         p.error("OUT.npz is needed")
-    run(args.root, args.out, args.wide)
+    run(args.root, args.out, args.wide, args.heads)
 
 
 if __name__ == "__main__":

@@ -1762,3 +1762,145 @@ def test_wide_halves_match_plain(dev, dtype):
     assert out.dtype == dtype
     _close(out, FB.fused_attn_block_plain(x, *attn, num_heads=12))
     assert K.launches["vit_ln_gemm_kernel"] == n0 + 2
+
+
+# ---------------------------------------- head_wide.cu: the two redesigns
+# (C, heads, FFN) of chip_smoke.py WIDTHS; enc_post_wide_kernel runs where
+# C is not 256, bias_attn_wide_kernel where the heads are not 8 of 32
+HEAD_WIDTHS = [(128, 8, 256), (200, 8, 300), (256, 4, 512), (384, 8, 768),
+               (512, 16, 1024), (512, 8, 1024)]
+WIDE_ENC = [w for w in HEAD_WIDTHS if w[0] != 256] + [(100, 4, 96)]
+
+
+def _wide_encoder(dev, c, h, f, seed):
+    """An EncoderLayer of width c (random weights) and its prepared,
+    padded kernel weights (ops/fused_encoder.py _prepare)."""
+    from edgecape_tpu_torch.models.transformer import EncoderLayer
+    from edgecape_tpu_torch.ops import fused_encoder as FE
+    layer = _randomize(EncoderLayer(c, h, f), dev, seed)
+    return layer, FE._prepare(layer)
+
+
+def _enc_post_ref(att, src, layer):
+    """The plain formulas of the encoder's post-attention half on the
+    layer's own (unpadded) weights."""
+    from edgecape_tpu_torch.ops import plain
+    op, n1 = layer.self_attn.out_proj, layer.norm1
+    x = plain.layer_norm(src.float() + plain.linear(att, op.weight, op.bias),
+                         n1.weight, n1.bias, 1e-5)
+    h = torch.relu(plain.linear(x, layer.linear1.weight, layer.linear1.bias))
+    return plain.layer_norm(
+        x + plain.linear(h, layer.linear2.weight, layer.linear2.bias),
+        layer.norm2.weight, layer.norm2.bias, 1e-5)
+
+
+@pytest.mark.parametrize("c,h,f", WIDE_ENC, ids=lambda v: str(v))
+@pytest.mark.parametrize("rows", [60 * 356, 300, 129, 1])
+def test_enc_post_wide_matches_plain(dev, c, h, f, rows):
+    """enc_post_wide_kernel against the plain formulas at the widths of
+    [widths] (and 100 channels: an unaligned row), over ragged 64-row
+    tiles: y in fp32 and bf16, the next layer's src = bf16(bf16(y) + pos);
+    one launch of it and none of enc_post_kernel."""
+    from edgecape_tpu_torch.ops import kernels as K
+    layer, w = _wide_encoder(dev, c, h, f, seed=c + f)
+    att = _rn(dev, rows, c, seed=41).to(torch.bfloat16)
+    src = _rn(dev, rows, c, seed=42).to(torch.bfloat16)
+    pos = _rn(dev, 356, c, seed=43).to(torch.bfloat16)
+    with torch.no_grad():
+        ref = _enc_post_ref(att, src, layer)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            before = dict(K.launches)
+            y, nxt = K.enc_post(att, src, w, eps=1e-5, out_dtype=out_dtype,
+                                pos=pos)
+            ran = {k: K.launches[k] - before[k] for k in K.launches
+                   if K.launches[k] != before[k]}
+            assert ran == {"enc_post_wide_kernel": 1}, ran
+            assert y.dtype == out_dtype and y.shape == (rows, c)
+            _close(y, ref)
+            want = (y.to(torch.bfloat16).float()
+                    + pos.float().repeat(-(-rows // 356), 1)[:rows]).to(
+                torch.bfloat16)
+            assert torch.equal(nxt, want)
+
+
+@pytest.mark.parametrize("c,h,f", [(200, 8, 300), (512, 8, 1024)])
+def test_enc_post_wide_rows_keep_their_bits_at_another_place(dev, c, h, f):
+    """A row's output does not depend on its place in the batch or on the
+    row count: the rows reversed, and a slice of them alone, give each row
+    the same bits."""
+    from edgecape_tpu_torch.ops import kernels as K
+    _, w = _wide_encoder(dev, c, h, f, seed=7)
+    att = _rn(dev, 700, c, seed=44).to(torch.bfloat16)
+    src = _rn(dev, 700, c, seed=45).to(torch.bfloat16)
+    with torch.no_grad():
+        y, _ = K.enc_post(att, src, w, eps=1e-5, out_dtype=torch.float32)
+        rev = torch.arange(699, -1, -1, device=dev)
+        y_rev, _ = K.enc_post(att[rev].contiguous(), src[rev].contiguous(), w,
+                              eps=1e-5, out_dtype=torch.float32)
+        part, _ = K.enc_post(att[37:137].contiguous(),
+                             src[37:137].contiguous(), w, eps=1e-5,
+                             out_dtype=torch.float32)
+    assert torch.equal(y_rev[rev], y)
+    assert torch.equal(part, y[37:137])
+
+
+def _wide_bias_operands(dev, b, n, heads, d, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    c, nhop, hid = heads * d, 5, 4 + heads
+    qkv = torch.randn(b, n, 3 * c, generator=g).to(dev).to(torch.bfloat16)
+    hops = torch.rand(b, n, n, nhop, generator=g).to(dev).to(torch.bfloat16)
+    mlp = (torch.randn(nhop, hid, generator=g).to(dev),
+           (torch.randn(hid, generator=g) * 0.1).to(dev),
+           (torch.randn(hid, heads, generator=g) / math.sqrt(hid)).to(dev),
+           (torch.randn(heads, generator=g) * 0.1).to(dev))
+    valid = (torch.rand(b, n, generator=g) > 0.3).to(dev)
+    valid[:, 0] = True
+    return qkv, valid, hops, mlp
+
+
+# the [widths] self-attention heads (8 of 16, 25, 48, 64; 4 of 64; 16 of
+# 32) and head dim 128 (4 heads; 16: several passes of one head)
+WIDE_HEADS = [(8, 16), (8, 25), (4, 64), (8, 48), (16, 32), (8, 64),
+              (4, 128), (16, 128)]
+
+
+@pytest.mark.parametrize("heads,d", WIDE_HEADS, ids=lambda v: str(v))
+@pytest.mark.parametrize("b,n", [(60, 100), (3, 37), (2, 128), (5, 7)])
+def test_bias_attention_wide_matches_plain(dev, heads, d, b, n):
+    """bias_attn_wide_kernel against the plain version at K = 100 (the
+    model's), 37, 128 and 7, every padding of the head dim, resident heads
+    and passes of heads: within the tolerance and an ulp of an output
+    (the MLP summed in another order); one launch of it and none of
+    bias_attn_kernel."""
+    from edgecape_tpu_torch.ops import fused_decoder as FD
+    from edgecape_tpu_torch.ops import kernels as K
+    qkv, valid, hops, mlp = _wide_bias_operands(dev, b, n, heads, d,
+                                                seed=heads + d + n)
+    before = dict(K.launches)
+    out = K.bias_attention(qkv, valid, hops, mlp, num_heads=heads)
+    ran = {k: K.launches[k] - before[k] for k in K.launches
+           if K.launches[k] != before[k]}
+    assert ran == {"bias_attn_wide_kernel": 1}, ran
+    ref = FD.bias_attention_plain(qkv, valid, hops, mlp, num_heads=heads)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, n, heads * d)
+    _close(out, ref)
+    d_ = (out.float() - ref).abs()
+    assert d_.max().item() <= 2 ** -7 and d_.mean().item() <= 1e-4
+
+
+@pytest.mark.parametrize("heads,d", [(8, 25), (8, 64), (16, 32)])
+def test_bias_attention_wide_rows_keep_their_bits_at_another_place(dev, heads,
+                                                                   d):
+    """A batch row's output does not depend on its place in the batch or
+    on the batch size: the batch reversed, and one row alone, give the
+    same bits."""
+    from edgecape_tpu_torch.ops import kernels as K
+    qkv, valid, hops, mlp = _wide_bias_operands(dev, 60, 100, heads, d, 3)
+    out = K.bias_attention(qkv, valid, hops, mlp, num_heads=heads)
+    rev = torch.arange(59, -1, -1, device=dev)
+    out_rev = K.bias_attention(qkv[rev].contiguous(), valid[rev].contiguous(),
+                               hops[rev].contiguous(), mlp, num_heads=heads)
+    one = K.bias_attention(qkv[17:18].contiguous(), valid[17:18].contiguous(),
+                           hops[17:18].contiguous(), mlp, num_heads=heads)
+    assert torch.equal(out_rev[rev], out)
+    assert torch.equal(one[0], out[17])

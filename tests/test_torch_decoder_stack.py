@@ -6,7 +6,9 @@ emulated tile by tile in plain PyTorch on the CPU:
 * the bias attention: per 16-query tile the Markov bias MLP's hidden layer
   formed once per (query, key) in the kernel's order (b1, the hop terms
   ascending, ReLU; b2 and the hidden terms ascending), all heads' biases
-  from it, then each head's attention;
+  from it, then each head's attention (csrc/head_wide.cu
+  bias_attn_wide_kernel at other head counts and dims: the same order,
+  each head's q, k and v padded with zero columns to 32, 64 or 128);
 * the keypoint head: tiles of 64 keypoint rows (missing rows zero, the
   TMA's fill), the raw rows and their final norm, three GELU products
   rounded to bf16, the N = 2 head summed as four column groups (a row's
@@ -61,10 +63,16 @@ T = torch.from_numpy
 
 # ------------------------------------------------------------- emulations
 def bias_attention_tiled(qkv, valid, hops, hop_mlp, *, num_heads):
-    """bias_attn_kernel's order on qkv [B, K, 3C], hops [B, K, K, n_hop]:
-    [B, K, C] fp32 holding bf16 values."""
+    """bias_attn_kernel's order on qkv [B, K, 3C], hops [B, K, K, n_hop]
+    (and bias_attn_wide_kernel's at any other head count and dim: each
+    head's q, k and v padded by zero columns to attention_head_dim, the
+    scale of the true dim): [B, K, C] fp32 holding bf16 values."""
     b, n, c3 = qkv.shape
     c = c3 // 3
+    d = c // num_heads
+    dp = K.attention_head_dim(d)
+    q, k, v = (K.pad_heads(qkv[..., i * c:(i + 1) * c], num_heads, dp)
+               for i in range(3))
     w1, b1, w2, b2 = (t.float() for t in hop_mlp)
     nhop, hid = w1.shape
     out = []
@@ -83,10 +91,9 @@ def bias_attention_tiled(qkv, valid, hops, hop_mlp, *, num_heads):
                 acc = acc + hidden[m] * w2[m, h]
             bias.append(acc)
         out.append(plain.attention(
-            qkv[:, q0:q0 + QT, :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
-            num_heads=num_heads, scale=(c // num_heads) ** -0.5,
+            q[:, q0:q0 + QT], k, v, num_heads=num_heads, scale=d ** -0.5,
             kb=plain.key_bias(valid), bias=torch.stack(bias, 1)))
-    return torch.cat(out, 1)
+    return K.unpad_heads(torch.cat(out, 1), num_heads, d)
 
 
 def kpt_head_tiled(x, ct, fn, kpt, kow, kob, eps=1e-5):
@@ -234,13 +241,19 @@ def _close(out, ref, max_tol, mean_tol):
 
 
 # ------------------------------------------------------------- tests
-@pytest.mark.parametrize("b,n,nhop,hid,heads", [
-    (3, 100, 5, 12, 8),      # the model's shape, 7 query tiles, ragged
-    (2, 16, 5, 12, 8),       # exactly one tile
-    (2, 37, 3, 7, 2)])       # other MLP widths, fewer heads
-def test_bias_attention_emulation_matches_plain(b, n, nhop, hid, heads):
+@pytest.mark.parametrize("b,n,nhop,hid,heads,d", [
+    (3, 100, 5, 12, 8, 32),     # the model's shape, 7 query tiles, ragged
+    (2, 16, 5, 12, 8, 32),      # exactly one tile
+    (2, 37, 3, 7, 2, 32),       # other MLP widths, fewer heads
+    # bias_attn_wide_kernel at the [widths] head dims (chip_smoke.py
+    # WIDTHS: 128 / 8, 200 / 8, 256 / 4, 384 / 8, 512 / 16 and 512 / 8)
+    # and head dim 128, each padded to 32, 64 or 128
+    (2, 100, 5, 12, 8, 16), (2, 100, 5, 12, 8, 25), (2, 37, 5, 8, 4, 64),
+    (2, 100, 5, 12, 8, 48), (1, 100, 5, 20, 16, 32), (2, 128, 5, 12, 8, 64),
+    (2, 37, 5, 8, 4, 128)])
+def test_bias_attention_emulation_matches_plain(b, n, nhop, hid, heads, d):
     g = torch.Generator().manual_seed(n + hid)
-    c = 32 * heads
+    c = d * heads
     qkv = plain.bf16(torch.randn(b, n, 3 * c, generator=g))
     valid = torch.rand(b, n, generator=g) > 0.3
     valid[:, 0] = True

@@ -9,15 +9,19 @@ cross-attention query as one accumulation over [x1; qpos], o2 in
 tile padded to 128 rows with zero adjacency rows and columns. Held
 against the ops' plain versions and, for whole layers, against the JAX
 Pallas kernels in interpret mode. At the other widths (C 128, 200 with
-its padding, 512, whose weights the kernels read from device memory
-tile by tile) the same for their csrc/head_wide.cu forms: tiles of 16
-rows, K and N padded to multiples of 16 and the hidden to chunks of 64 by
-zero rows and columns of the prepared weights, LayerNorm over the true
-C, the FFN's second product summed apart and added with its bias, the
-cross kernel's y of a whole batch row formed before the adjacency
-contraction; and the 256-channel kernels on an FFN of 300, padded to its
-chunks. Also: the tile plan of ops/kernels.py post_plan, the weight cache
-of kernels.module_weights and the wrappers' refusal of CPU operands.
+its padding, 512) the same for their csrc/head_wide.cu forms:
+enc_post_wide_kernel's tiles of 64 rows (missing rows zero, src read as
+row R - 1), the channels padded to twice its warpgroups' half width and
+the hidden to chunks of 128 by zero rows and columns of the prepared
+weights, LayerNorm over the true C, the FFN's second product accumulated
+onto the LN1 output and its bias added after; the decoder kernels'
+tiles of 16 rows, K and N padded to multiples of 16 and the hidden to
+chunks of 64, the FFN's second product summed apart and added with its
+bias, the cross kernel's y of a whole batch row formed before the
+adjacency contraction; and the 256-channel kernels on an FFN of 300,
+padded to its chunks. Also: the tile plan of ops/kernels.py post_plan,
+the weight cache of kernels.module_weights and the wrappers' refusal of
+CPU operands.
 
 Tolerances. Emulation against the plain version: the same bf16 rounding
 points and the same weights, only the fp32 sums are grouped otherwise, so
@@ -140,23 +144,26 @@ def _cols(t, n):
 
 def enc_post_wide_tiled(att, src, w, eps=1e-5):
     """enc_post_wide_kernel's order on att, src [R, C] and the prepared
-    (padded) weights: fp32 [R, C]."""
+    weights (wo [Cq, Cq], w1 [Fq, Cq], w2 [Cq, Fq]: zero rows and columns
+    past C and F): tiles of ENC_WIDE_TILE rows, x over the Cq padded
+    channels (zero past C), the hidden in chunks of ENC_WIDE_CHUNK, each
+    chunk's second product accumulated onto x, b2 added after: fp32
+    [R, C]."""
     r, c = att.shape
     cp, fp = w["wo"].shape[0], w["w1"].shape[0]
+    ch = K.ENC_WIDE_CHUNK
     out = []
-    for a_t, s_t in zip(_tiles(att, size=K.WIDE_TILE),
-                        _tiles(src, size=K.WIDE_TILE)):
+    for a_t, s_t in zip(_tiles(att, size=K.ENC_WIDE_TILE),
+                        _tiles(src, "last", size=K.ENC_WIDE_TILE)):
         x = plain.bf16(s_t) + (plain.linear(_cols(a_t, cp), w["wo"])[:, :c]
                                + w["bo"])
-        x = _ln(x, w, "g1", "be1")
-        xb = _cols(plain.bf16(x), cp)
-        acc = 0
-        for j in range(0, fp, K.WIDE_CHUNK):
-            h = plain.bf16(torch.relu(
-                plain.linear(xb, w["w1"][j:j + K.WIDE_CHUNK])
-                + w["b1"][j:j + K.WIDE_CHUNK]))
-            acc = acc + plain.linear(h, w["w2"][:, j:j + K.WIDE_CHUNK])
-        out.append(_ln(x + (acc[:, :c] + w["b2"]), w, "g2", "be2"))
+        x = _cols(_ln(x, w, "g1", "be1"), cp)
+        xb = plain.bf16(x)
+        for j in range(0, fp, ch):
+            h = plain.bf16(torch.relu(plain.linear(xb, w["w1"][j:j + ch])
+                                      + w["b1"][j:j + ch]))
+            x = x + plain.linear(h, w["w2"][:, j:j + ch])
+        out.append(_ln(x[:, :c] + w["b2"], w, "g2", "be2"))
     return torch.cat(out)[:r]
 
 
@@ -449,7 +456,8 @@ WIDE = [(128, 256, 8), (200, 300, 8), (512, 1024, 8), (256, 300, 8)]
 
 @pytest.mark.parametrize("c,f,heads", WIDE)
 def test_wide_encoder_emulation_matches_the_plain_layer(c, f, heads):
-    """40 rows a batch row: two whole 16-row tiles and a ragged one."""
+    """40 rows a batch row, 80 in all: a whole 64-row tile of
+    enc_post_wide_kernel and a ragged one."""
     rng = np.random.default_rng(c + f)
     _, layer = _encoder(rng, c, f, heads)
     b, n = 2, 40

@@ -116,10 +116,81 @@ def test_bias_plan_takes_1_to_16_heads_of_up_to_128():
             assert plan.get("wide", False) == ((heads, d) != (8, 32))
             assert plan["smem_bytes"] <= K.ATT_SMEM_LIMIT
             if plan.get("wide"):
-                assert plan["row_blocks"] == -(-100 // K.BA_WIDE_WARPS)
+                assert plan["d_pad"] == K.attention_head_dim(d)
+                assert plan["key_tiles"] == 7
+                assert plan["q_split"] * plan["tiles_per_block"] >= 7
     for args in ((60, 100, 17, 32), (60, 100, 8, 129), (60, 129, 4, 32)):
         with pytest.raises(ValueError):
             K.bias_attention_plan(*args)
+
+
+def test_bias_wide_plan_fits_every_shape_it_takes():
+    """bias_attn_wide_kernel's plan over 1..16 heads x head dims 1..128 x
+    K 1..128: its shared memory (bias_wide_smem, head_wide.cu bw_smem)
+    fits a block; resident heads take one pass and may share a block's K
+    and V over several tiles, else a tile a block and passes of at most a
+    warp's worth of heads (BA_WIDE_WARPS) that cover the heads; the
+    blocks of a batch row cover its query tiles."""
+    plan_of = K._bias_attention_plan.__wrapped__
+    seen = set()
+    for heads in range(1, 17):
+        for d in range(1, 129):
+            for n in range(1, 129):
+                if (heads, d) == (K.BA_HEADS, K.BA_D):
+                    continue
+                plan = dict(plan_of(60, n, heads, d))
+                tiles = -(-n // 16)
+                assert plan["wide"] and plan["key_tiles"] == tiles
+                assert plan["d_pad"] == K.attention_head_dim(d)
+                g, passes = plan["heads_per_pass"], plan["passes"]
+                assert plan["smem_bytes"] == K.bias_wide_smem(
+                    heads, tiles * 16, plan["d_pad"], g, plan["resident"])
+                assert plan["smem_bytes"] <= K.ATT_SMEM_LIMIT
+                assert (passes - 1) * g < heads <= passes * g
+                if plan["resident"]:
+                    assert (g, passes) == (heads, 1)
+                else:
+                    assert g <= K.BA_WIDE_WARPS
+                    assert plan["tiles_per_block"] == 1
+                assert plan["q_split"] * plan["tiles_per_block"] >= tiles
+                assert (plan["q_split"] - 1) * plan["tiles_per_block"] < tiles
+                seen.add((plan["resident"], passes > 1))
+    assert seen == {(True, False), (False, False), (False, True)}
+    # 60 batch rows still fill the card: K = 100 gives 7 tiles a row
+    for heads, d in ((8, 25), (8, 64), (16, 32), (4, 128)):
+        plan = K.bias_attention_plan(60, 100, heads, d)
+        assert 60 * plan["q_split"] >= 132
+
+
+@pytest.mark.parametrize("c", [1, 16, 100, 128, 129, 200, 255, 257, 384,
+                               385, 511, 512])
+def test_post_plan_wide_encoder_tile(c):
+    """enc_post_wide_kernel's part of post_plan: tiles of ENC_WIDE_TILE
+    rows, each of its two warpgroups holding enc_half channels (half of c
+    rounded up to 64: one of four instances), the weights padded to
+    enc_c_pad = 2 enc_half channels and the hidden to whole chunks of
+    ENC_WIDE_CHUNK, a ring of at least two slots a warpgroup, all in a
+    block's shared memory."""
+    for rows, f in ((60 * 356, 300), (510 * 356, 1024), (129, 1), (1, 64)):
+        plan = K.post_plan(rows, c, f)
+        if c == K.POST_C:
+            assert "enc_tiles" not in plan
+            continue
+        half = plan["enc_half"]
+        assert half in (64, 128, 192, 256) and half == K.enc_wide_half(c)
+        assert half - 64 < -(-c // 2) <= half
+        assert plan["enc_c_pad"] == 2 * half >= c
+        assert plan["enc_f_pad"] % K.ENC_WIDE_CHUNK == 0
+        assert plan["enc_f_pad"] - K.ENC_WIDE_CHUNK < f <= plan["enc_f_pad"]
+        assert plan["enc_chunks"] == plan["enc_f_pad"] // K.ENC_WIDE_CHUNK
+        assert plan["enc_tiles"] == -(-rows // K.ENC_WIDE_TILE)
+        assert plan["enc_pad_rows"] == \
+            plan["enc_tiles"] * K.ENC_WIDE_TILE - rows
+        slots, smem = K.enc_wide_ring(c)
+        assert plan["enc_slots"] == slots and 2 <= slots <= K.ENC_WIDE_SLOTS
+        assert smem <= plan["smem_bytes"] <= K.ATT_SMEM_LIMIT
+    assert "enc_tiles" not in K.post_plan(700, 200, 300, chunk=K.DEC_CHUNK,
+                                          keypoints=100)
 
 
 @pytest.mark.parametrize("c,h,ffn", WIDTHS)
@@ -258,13 +329,14 @@ def test_padded_training_attention_matches_jax(d):
 def test_prepared_weights_follow_the_plan():
     """The fused ops' `_prepare` lays out the weights the kernels read:
     at 256 channels as they are (hidden padded to its chunks), elsewhere
-    padded to c_pad and 2C to a multiple of 16, the GEMMs' weights as
-    they are; and the 256-channel kernels' inputs stay the parameters
-    themselves where no padding is needed."""
+    the encoder's padded to enc_c_pad channels and enc_f_pad hidden
+    columns, the decoder's to c_pad and 2C to a multiple of 16, the GEMMs'
+    weights as they are; and the 256-channel kernels' inputs stay the
+    parameters themselves where no padding is needed."""
     enc = EncoderLayer(200, 8, 300)
     w = tenc._prepare(enc)
-    assert w["wo"].shape == (208, 208) and w["w1"].shape == (320, 208)
-    assert w["w2"].shape == (208, 320) and w["b1"].shape == (320,)
+    assert w["wo"].shape == (256, 256) and w["w1"].shape == (384, 256)
+    assert w["w2"].shape == (256, 384) and w["b1"].shape == (384,)
     assert w["wqkv"].shape == (600, 200) and w["bo"].shape == (200,)
     dec = DecoderLayer(200, 8, 300)
     w = tdec._prepare(dec)
