@@ -63,12 +63,17 @@ Phases (any failure exits non-zero before the last line):
    kernels on, must be refused when it is built, naming the ops whose
    kernels do not take it, with no kernel launched, and the stage-3
    widths in bf16 must be taken at 224, 256 and 518 px;
-   the head_wide.cu kernels (enc_post_wide_kernel, dec_post_self_wide_kernel,
-   dec_post_cross_wide_kernel, kpt_head_wide_kernel, bias_attn_wide_kernel)
-   and the attention at padded head dims (25, 50) and at head dim 128,
-   eval and training, each against its plain version at the 200 / 8 /
-   300 and 512 / 8 / 1024 widths (`[op]` lines: device, plain, bound and
-   library ms; tools/bench_attention.py WIDTH_SHAPES); then the stage-3
+   the wide head kernels (head_wide.cu: enc_post_wide_kernel,
+   kpt_head_wide_kernel, bias_attn_wide_kernel; dec_self_wide.cu and
+   dec_wide.cu:
+   dec_post_self_wide_kernel, and dec_post_cross_wide_kernel with
+   dec_post_gcn_wide_kernel, the cross layer's two launches) and the
+   attention at padded head dims (25, 50) and at head dim 128, eval and
+   training, each against its plain version at the 200 / 8 / 300 and 512
+   / 8 / 1024 widths (`[op]` lines: device, plain, bound and library ms;
+   tools/bench_attention.py WIDTH_SHAPES; the redesigned kernels' own
+   lines at 60 and 510 query rows: device ms, bound and share of it,
+   plain ms, launches, plan and ptxas registers); then the stage-3
    model at 224 px, K 100, at six head widths (WIDTHS: d_model 128 to 512,
    4 to 16 heads, head dims 16 to 128), the decoder stack off and on: one
    cached chunk of 4 x 15 queries each, the head's kernels counted as the
@@ -440,6 +445,13 @@ def nbytes(*tensors) -> int:
 
 def param_bytes(*modules) -> int:
     return sum(nbytes(*m.parameters()) for m in modules)
+
+
+def kernel_param_bytes(*modules) -> int:
+    """The modules' parameters as a kernel reads them: weight matrices in
+    bf16, biases and LayerNorm vectors in fp32, each at its unpadded size."""
+    return sum(p.numel() * (2 if p.dim() >= 2 else 4)
+               for m in modules for p in m.parameters())
 
 
 def seeded_randn(seed, dev):
@@ -1312,6 +1324,9 @@ WIDTH_GROUPS, WIDTH_ROWS, WIDTH_STEPS = 4, 8, 2
 # the [widths] chunk's 4 x 15 and the eval chunk's 34 x 15
 WIDE_OP_ROWS = (WIDTH_GROUPS * QUERIES, GROUPS * QUERIES)
 WIDE_SOURCE = "edgecape_tpu_torch/csrc/head_wide.cu"
+DEC_SOURCES = {"dec_post_self_wide_kernel":
+               "edgecape_tpu_torch/csrc/dec_self_wide.cu",
+               "dec_post_cross_wide_kernel": "edgecape_tpu_torch/csrc/dec_wide.cu"}
 # the ops' plain versions, none of which may run on the kernel path
 PLAIN_FNS = (("fused_encoder", "fused_encoder_layer_plain"),
              ("fused_decoder", "fused_decoder_layer_plain"),
@@ -1337,6 +1352,14 @@ def padding_kernels(c, h):
     return pad(c // h), pad(2 * c // h)
 
 
+def wide_extra(c):
+    """Launches a decoder layer adds at width c beside the 256-channel
+    kernels' count: away from 256 channels the layer after the
+    cross-attention is two launches (dec_post_cross_wide_kernel,
+    dec_post_gcn_wide_kernel) where dec_post_cross_kernel is one."""
+    return 0 if c == 256 else 1
+
+
 def width_path_kernels(c, h, stack):
     """The head's kernels one cached chunk launches at width c / h (the
     bf16 ViT's are the main path's), by name: the encoder's add_pos and 3
@@ -1345,11 +1368,16 @@ def width_path_kernels(c, h, stack):
     the two post-attention kernels, or with the decoder stack 3 GEMMs for
     all layers and per layer the sine features, 3 GEMMs, the bias
     attention, 1 attention, the two post-attention kernels and the
-    keypoint head. The 256-channel kernels at 256 channels, their
-    head_wide.cu forms elsewhere; bias_attn_kernel at 8 heads of 32."""
+    keypoint head. The 256-channel kernels at 256 channels, their wide
+    forms elsewhere (head_wide.cu, dec_self_wide.cu, dec_wide.cu: there the
+    decoder's cross
+    kernel is two launches, wide_extra); bias_attn_kernel at 8 heads of
+    32."""
     w = "" if c == 256 else "_wide"
     want = {"add_pos_kernel": 1, f"enc_post{w}_kernel": 3,
             f"dec_post_self{w}_kernel": 3, f"dec_post_cross{w}_kernel": 3}
+    if w:
+        want["dec_post_gcn_wide_kernel"] = 3
     if stack:
         ba = "" if (h, c // h) == (8, 32) else "_wide"
         want.update({"gemm_tma_kernel": 3 + 3 + 9, "attn_kernel": 3 + 3 + 3,
@@ -1488,15 +1516,163 @@ def enc_post_wide_lines(dev, power, bad):
                   f"nn.TransformerEncoderLayer {BA.ms_text(lib_ms, lib_wall)}"
                   f"; max_abs_err {err:.4g} mean_abs_err {mean:.3g} (worst "
                   f"excess {excess:.3g}); {counted} launch counted; plan: "
-                  f"{plan['enc_tiles']} tiles of {KN.ENC_WIDE_TILE} rows, "
-                  f"half width {plan['enc_half']}, {plan['enc_chunks']} "
-                  f"hidden chunks, {plan['enc_slots']} ring slots a "
+                  f"{plan['tiles']} tiles of {KN.ENC_WIDE_TILE} rows, "
+                  f"half width {plan['half']}, {plan['chunks']} hidden "
+                  f"chunks, {plan['kernels']['enc_post_wide_kernel']['slots']}"
+                  f" ring slots a "
                   f"warpgroup on {power} {'OK' if ok else 'FAIL'}",
                   flush=True)
             if not ok:
                 bad.append(f"enc_post_wide_kernel ({tag}, {nq} rows)")
             del att, src, out, tok
         del enc, lib, w
+        torch.cuda.empty_cache()
+
+
+def ptxas_text(kernel, half):
+    """ptxas's registers and spills of a kernel's instance at half width
+    `half` (this process's build; "not built here" when the library was
+    built before it)."""
+    from edgecape_tpu_torch.ops import kernels as KN
+    rows = [r for r in KN.ptxas_usage(kernel) if f"Li{half}E" in r[0]]
+    return "; ".join(f"ptxas {kernel}<{half}>: {regs} registers, spill "
+                     f"{st} / {ld} B" for _, regs, st, ld in rows) or \
+        f"ptxas {kernel}<{half}>: not built here"
+
+
+def dec_post_wide_lines(dev, entries, power, bad):
+    """[op] dec_post_self_wide_kernel and [op] dec_post_cross_wide_kernel
+    lines (csrc/dec_self_wide.cu, dec_wide.cu) at the WIDTH_OPS widths and
+    WIDE_OP_ROWS query
+    rows of K keypoints: one call's device ms (profiler; the cross layer's
+    two launches, dec_post_cross_wide_kernel and dec_post_gcn_wide_kernel,
+    together and each), its bound (the products of the true widths / 989
+    TFLOP/s, or the inputs, outputs and weights once / 3.35 TB/s) and the
+    share of it, the plain formulas' ms, the launches counted, the plan
+    (tiles, ring slots and shared memory as the built launches take them,
+    which must equal the plan's, launches) and each instance's ptxas
+    registers and spills; the outputs against the plain formulas
+    (ops/fused_decoder.py post_self_plain, cross_query_plain,
+    post_cross_plain; ATOL + RTOL |ref|, MEAN_TOL), a failure appended to
+    `bad`. The 60-row calls also become kernels-line entries."""
+    import edgecape_tpu_torch.ops.fused_decoder as FD
+    from edgecape_tpu_torch.models.transformer import DecoderLayer
+    from edgecape_tpu_torch.ops import kernels as KN
+    from edgecape_tpu_torch.tools import bench_attention as BA
+    bf = torch.bfloat16
+    names = ("dec_post_self_wide_kernel", "dec_post_cross_wide_kernel",
+             "dec_post_gcn_wide_kernel")
+
+    def gate(pairs):
+        excess, err, mean = -1.0, 0.0, 0.0
+        for out, ref in pairs:
+            d = (out.float() - ref.float()).abs()
+            excess = max(excess, (d - (ATOL + RTOL * ref.float().abs()))
+                         .max().item())
+            err, mean = max(err, d.max().item()), max(mean, d.mean().item())
+            if not bool(torch.isfinite(out.float()).all()):
+                excess = math.inf
+        return excess, err, mean
+
+    def self_plain(att, xb, qpos, layer):
+        x1 = FD.post_self_plain(att, xb, layer)
+        return x1, FD.cross_query_plain(x1, qpos, layer)
+
+    for c, h, ffn in WIDTH_OPS:
+        tag = f"{c}/{h}/{ffn}"
+        _, rn = seeded_randn(SEED + 95 + c + h, dev)
+        layer = randomize(DecoderLayer(c, h, ffn), rn, dev)
+        w = FD._prepare(layer)
+        half = KN.enc_wide_half(c)
+        for nq in WIDE_OP_ROWS:
+            r = nq * K
+            att, xb, qpos = (rn(r, c).to(bf) for _ in range(3))
+            att2, x1 = rn(nq, K, 2 * c).to(bf), rn(r, c)
+            adj = torch.rand(nq, 2, K, K, device=dev) / K
+            ops = (
+                ("dec_post_self_wide_kernel", names[:1],
+                 lambda: KN.dec_post_self(att, xb, qpos, w, eps=1e-5),
+                 lambda: self_plain(att, xb, qpos, layer),
+                 KN.post_plan(r, c, KN.ENC_CHUNK),
+                 bound(nbytes(att, xb, qpos) + r * c * 4 + r * 2 * c * 2
+                       + kernel_param_bytes(layer.self_attn.out_proj,
+                                            layer.norm1,
+                                            layer.cross_attn.q_proj),
+                       2 * r * (c * c + 4 * c * c))),
+                ("dec_post_cross_wide_kernel", names[1:],
+                 lambda: KN.dec_post_cross(att2, x1, adj, w, eps=1e-5,
+                                           out_dtype=torch.float32),
+                 lambda: FD.post_cross_plain(att2, x1.view(nq, K, c), adj,
+                                             layer).view(r, c),
+                 KN.post_plan(r, c, ffn, chunk=KN.DEC_CHUNK, keypoints=K),
+                 bound(nbytes(att2, x1, adj) + r * c * 4 + kernel_param_bytes(
+                     layer.cross_attn.out_proj, layer.choker, layer.norm2,
+                     layer.gcn.conv, layer.ffn2, layer.norm3),
+                     2 * r * (6 * c * c + 3 * c * ffn) + 4 * nq * K * K * ffn)))
+            for op, kerns, kern, plain_fn, plan, bnd in ops:
+                with torch.no_grad():
+                    n0 = {k: KN.launches[k] for k in names}
+                    out = kern()
+                    counted = {k: KN.launches[k] - n0[k] for k in names}
+                    ref = plain_fn()
+                    torch.cuda.synchronize()
+                    if op == names[0]:
+                        excess, err, mean = gate(zip(out, ref))
+                    else:
+                        excess, err, mean = gate([(out, ref)])
+                    del out, ref
+                    dev_ms, _, wall = BA.device_ms(kern)
+                    by_name = BA.kernel_ms(kern)
+                    plain_ms = time_ms(plain_fn, reps=3)
+                    ms = time_ms(kern)
+                want = {k: int(k in kerns) for k in names}
+                # the plan's rings against those the built launches take
+                card = KN.dec_wide_card_rings(c)
+                same = all(card[k] == (plan["kernels"][k]["slots"],
+                                       plan["kernels"][k]["smem_bytes"])
+                           for k in kerns)
+                ok = excess <= 0 and mean <= MEAN_TOL and counted == want \
+                    and same
+                each = ", ".join(
+                    f"{k} {sum(v for n, v in by_name.items() if k in n):.4f}"
+                    for k in kerns) if by_name else "not measured"
+                share = "" if dev_ms is None else \
+                    f", {100 * bnd[0] / dev_ms:.1f}% of it"
+                rings = ", ".join(
+                    f"{k}: {card[k][0]} ring slots a warpgroup, "
+                    f"{card[k][1]} B shared memory" for k in kerns) + (
+                    "" if same else " (the plan disagrees: "
+                    f"{plan['kernels']})")
+                tiles = f"{plan['tiles']} tiles of {KN.ENC_WIDE_TILE} rows" + (
+                    f" + {plan['gcn_tiles']} gcn tiles of {KN.ENC_WIDE_TILE} "
+                    f"rows of a batch row" if "gcn_tiles" in plan else "")
+                print(f"[op] {op} ({tag}, {nq} x {K} = {r} rows): "
+                      f"{BA.ms_text(dev_ms, wall)} a call in {len(kerns)} "
+                      f"launch{'es' if len(kerns) > 1 else ''} ({each}), "
+                      f"bound {bnd[0]:.4f} ms ({bnd[1]}){share}; kernel "
+                      f"{ms:.4f} ms (CUDA events); plain {plain_ms:.3f} ms; "
+                      f"max_abs_err {err:.4g} mean_abs_err {mean:.3g} (tol "
+                      f"{ATOL} + {RTOL:.4g}*|ref|, mean {MEAN_TOL}; worst "
+                      f"excess {excess:.3g}); launches counted {counted}; "
+                      f"plan: {tiles}, half width {half}, {rings}, "
+                      f"{len(kerns)} launch{'es' if len(kerns) > 1 else ''}; "
+                      + "; ".join(ptxas_text(k, half) for k in kerns)
+                      + f" on {power} {'OK' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    bad.append(f"{op} ({tag}, {nq} rows)")
+                if nq == WIDE_OP_ROWS[0]:
+                    name = f"{op} ({tag})"
+                    entries[name] = {
+                        "name": name, "route": "cuda",
+                        "source": DEC_SOURCES[op],
+                        "op": "edgecape_tpu_torch/ops/kernels.py",
+                        "replaces": "edgecape_tpu/ops/fused_decoder.py:262",
+                        "launches": 0, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bnd[0],
+                        "bound_by": bnd[1], "library_ms": None,
+                        "device_ms": dev_ms, "width_kernels": list(kerns)}
+            del att, xb, qpos, att2, x1, adj
+        del layer, w
         torch.cuda.empty_cache()
 
 
@@ -1528,7 +1704,7 @@ def width_op_checks(dev, entries, power):
     forward and backward). Each line: device ms, kernels a call, plain
     ms, bound, library ms. Then the redesigned kernels' own lines:
     bias_attn_wide_kernel's summary of each hop-bias row (60 and 510 query
-    rows: bias_wide_line) and enc_post_wide_lines."""
+    rows: bias_wide_line), enc_post_wide_lines and dec_post_wide_lines."""
     import edgecape_tpu_torch.ops.fused_decoder as FD
     import edgecape_tpu_torch.ops.fused_encoder as FE
     from edgecape_tpu_torch.ops import kernels as KN
@@ -1593,6 +1769,8 @@ def width_op_checks(dev, entries, power):
                      + 2 * nq * 2 * K * K * ffn)
         w = "" if c == 256 else "_wide"
         pad_self, pad_cross = padding_kernels(c, h)
+        dec_kernels = (f"dec_post_self{w}_kernel", f"dec_post_cross{w}_kernel"
+                       ) + (("dec_post_gcn_wide_kernel",) if w else ())
         cases = [
             (f"fused_encoder_stack ({tag})",
              "edgecape_tpu/ops/fused_encoder.py:188",
@@ -1614,8 +1792,7 @@ def width_op_checks(dev, entries, power):
              None,
              bound(2 * nbytes(kx) + nbytes(qpos, img, ipos, kvalid, bias, adj)
                    + param_bytes(dec), dec_flops), None,
-             8 + pad_self + pad_cross,
-             (f"dec_post_self{w}_kernel", f"dec_post_cross{w}_kernel")),
+             8 + wide_extra(c) + pad_self + pad_cross, dec_kernels),
         ]
         with torch.no_grad():
             for name, replaces, op_src, kern, plain, pairs, bnd, lib, cap, \
@@ -1626,7 +1803,8 @@ def width_op_checks(dev, entries, power):
                 check_op(entries, bad, name, replaces, op_src, out, ref, kern,
                          plain, bnd, library=lib, copy_gemms=0,
                          extra=extra + f" on {power}")
-                entries[name].update(source=WIDE_SOURCE, device_ms=dev_ms,
+                entries[name].update(source=WIDE_SOURCE if "encoder" in name
+                                     else DEC_SOURCES[must[1]], device_ms=dev_ms,
                                      kernels_per_call=per_call,
                                      width_kernels=list(must))
             del out, ref
@@ -1739,9 +1917,9 @@ def width_op_checks(dev, entries, power):
             stack_call = lambda: FD.fused_decoder_stack(*args, sdec, **kw)  # noqa: E731
             text, dev_ms, per_call, _ = device_extra(
                 f"fused_decoder_stack ({tag})", stack_call,
-                STACK_KERNELS + layers * pad_cross, bad,
-                (f"bias_attn{ba}_kernel", f"kpt_head{w}_kernel",
-                 f"dec_post_self{w}_kernel", f"dec_post_cross{w}_kernel"))
+                STACK_KERNELS + layers * (pad_cross + wide_extra(c)), bad,
+                (f"bias_attn{ba}_kernel", f"kpt_head{w}_kernel")
+                + dec_kernels)
             ms = time_ms(stack_call)
             plain_ms = time_ms(lambda: FD.fused_decoder_stack_plain(
                 *args, sdec, **kw), reps=3)
@@ -1767,9 +1945,7 @@ def width_op_checks(dev, entries, power):
                 "bound_by": bnd[1], "library_ms": None, "device_ms": dev_ms,
                 "kernels_per_call": per_call,
                 "width_kernels": [f"bias_attn{ba}_kernel",
-                                  f"kpt_head{w}_kernel",
-                                  f"dec_post_self{w}_kernel",
-                                  f"dec_post_cross{w}_kernel"]}
+                                  f"kpt_head{w}_kernel", *dec_kernels]}
         del enc, dec, sdec, tok, img, args, qkv, xk
         torch.cuda.empty_cache()
 
@@ -1805,6 +1981,7 @@ def width_op_checks(dev, entries, power):
                 "by_kernel": row.get("by_kernel"), "plan": row["plan"]}
         torch.cuda.empty_cache()
     enc_post_wide_lines(dev, power, bad)
+    dec_post_wide_lines(dev, entries, power, bad)
     if bad:
         fail(f"kernels at the new widths disagree with their plain versions "
              f"or did not run: {bad}")
@@ -1844,7 +2021,8 @@ def width_check(dev, entries, power):
     """[widths]: what stays refused, then the op lines (width_op_checks),
     then the stage-3 model at 224 px, K 100, at every head width of
     WIDTHS, with the decoder stack off and on: one cached chunk of
-    WIDTH_GROUPS x QUERIES queries (the head's kernels counted against
+    WIDTH_GROUPS x QUERIES queries, timed twice after a warm-up (the
+    second run's head kernels counted against
     width_path_kernels, no thread-copy GEMM, no plain version run, the
     predictions against the plain path on the same weights), and
     WIDTH_STEPS stage-3 Trainer steps of WIDTH_ROWS rows (dropout 0; one
@@ -1922,6 +2100,11 @@ def width_check(dev, entries, power):
             kernel_config.set_decoder_stack(stack)
             est.forward_cached(support, query)          # warm-up
             torch.cuda.synchronize()
+            # a first timed chunk after the warm-up, not counted: a slow
+            # chunk that the counted one does not repeat is no first launch
+            t0 = time.perf_counter()
+            est.forward_cached(support, query)[0].cpu()
+            first_s = time.perf_counter() - t0
             zero_counts()
             with PlainCalls() as plain_calls:
                 t0 = time.perf_counter()
@@ -1940,7 +2123,8 @@ def width_check(dev, entries, power):
             print(f"[widths] {tag} (head dims {c // h} / {2 * c // h}), "
                   f"decoder stack {'on' if stack else 'off'}: one chunk of "
                   f"{WIDTH_GROUPS} x {QUERIES} queries {chunk_s[stack]:.3f} s "
-                  f"({WIDTH_GROUPS * QUERIES / chunk_s[stack]:.1f} img/s) on "
+                  f"({WIDTH_GROUPS * QUERIES / chunk_s[stack]:.1f} img/s; the "
+                  f"timed chunk before it {first_s:.3f} s) on "
                   f"{power}; head kernels {got} expected {want}, ViT "
                   f"kernels {vit}, thread-copy GEMMs "
                   f"{kern.get('gemm_kernel', 0)}, plain versions run "

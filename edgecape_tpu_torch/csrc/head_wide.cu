@@ -1,8 +1,12 @@
 // Width-generic companions of the head's kernels in kernels.cu, for every
 // head the JAX package takes other than the 256 channels (8 heads of 32)
-// those are written for: enc_post_wide_kernel, dec_post_self_wide_kernel,
-// dec_post_cross_wide_kernel, kpt_head_wide_kernel (C up to 512 channels,
-// any hidden width) and bias_attn_wide_kernel (1..16 heads of 1..128).
+// those are written for: enc_post_wide_kernel, kpt_head_wide_kernel (C up
+// to 512 channels, any hidden width) and bias_attn_wide_kernel (1..16
+// heads of 1..128); the decoder layer's post-attention kernels at those
+// widths are dec_self_wide.cu's and dec_wide.cu's (dec_post_self_wide_kernel,
+// dec_post_cross_wide_kernel, dec_post_gcn_wide_kernel: built from the
+// parts enc_post_wide_kernel shares in head_wide.cuh, libraries of their
+// own so that nvcc builds them beside this file).
 // They replace the same TPU kernels as their 256-channel forms
 // (edgecape_tpu/ops/fused_encoder.py _layer_body, fused_decoder.py _kernel
 // and _stack_kernel) with the same rounding points as the plain versions
@@ -83,24 +87,21 @@
 //     (2^x) and P (rounded to bf16) in registers, the output staged
 //     through the head's query rows.
 //
-// dec_post_self_wide_kernel, dec_post_cross_wide_kernel and
-// kpt_head_wide_kernel are simple and right at every width, not fast:
-//   * a block owns a tile of 16 rows (a batch row of K <= 128 keypoints for
-//     the decoder's cross kernel, walked 16 rows at a time), 256 threads;
+// kpt_head_wide_kernel is simple and right at every width, not fast:
+//   * a block owns a tile of 16 rows, 256 threads;
 //   * products are WMMA m16n16k16 (bf16 in, fp32 out): A from shared memory,
 //     B straight from the weights in device memory (L2 holds them: every
 //     tile reads the same ones), outputs into fp32 rows in shared memory;
-//   * K and N are padded to multiples of 16 (hidden widths to 64) with zero
-//     rows and columns in the weights, laid out once by the fused ops'
-//     `_prepare` (ops/kernels.py pad_cols / pad_ffn / pad_gcn); rows and
-//     channels past the true ones are zero in the A tiles, so the padding
-//     adds exact zeros, and every LayerNorm, bias and store runs over the
-//     true C alone;
-//   * row work (bias, residual, LayerNorm, activations, stores) takes a
-//     half-warp a row, its sums by shuffles.
-// What bounds them: each 16-row tile reads every weight of its op from L2,
-// so they run at L2's rate, far above the bytes and operations the work
-// needs. Their times are in PERF.md.
+//   * K and N are padded to multiples of 16 with zero rows and columns in
+//     the weights, laid out once by the decoder stack's weights
+//     (ops/kernels.py kpt_head_plan, pad_cols); rows and channels past the
+//     true ones are zero in the A tiles, so the padding adds exact zeros,
+//     and every LayerNorm, bias and store runs over the true C alone;
+//   * row work (bias, LayerNorm, activations, stores) takes a half-warp a
+//     row, its sums by shuffles.
+// What bounds it: each 16-row tile reads every weight from L2, so it runs
+// at L2's rate, far above the bytes and operations the work needs. Its
+// times are in PERF.md.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -111,43 +112,30 @@
 
 #include "hopper.cuh"
 #include "attention.cuh"
+#include "head_wide.cuh"
 
 using namespace nvcuda;
 
 #define HW_ROWS 16         // rows of a tile
 #define HW_THREADS 256     // 8 warps
-#define HW_CHUNK 64        // hidden columns a chunk
-#define HW_MAX_C 512       // channels
-#define HW_MAX_K 128       // keypoints of a batch row (the cross kernel)
-#define HW_SMEM_LIMIT (227 * 1024)
 
-// out[16, n] (fp32 shared memory, row stride ldo) = (acc ? out : 0) +
-// a[16, k] (bf16 shared, stride lda) . B, with B [k, n] the transpose of a
-// [n, k] weight of row stride ldb (B_NK), or a [k, n] matrix of row stride
-// ldb; n and k multiples of 16, every base 32-byte aligned. Warps take the
-// 16-column tiles in turn; the caller synchronises the block around it.
-template <bool B_NK>
+// out[16, n] (fp32 shared memory, row stride ldo) = a[16, k] (bf16
+// shared, stride lda) . B, with B [k, n] the transpose of a [n, k] weight
+// of row stride ldb; n and k multiples of 16, every base 32-byte aligned.
+// Warps take the 16-column tiles in turn; the caller synchronises the
+// block around it.
 __device__ __forceinline__ void tile_mm(float* out, int ldo, const bf16* a, int lda,
-                                        const bf16* b, long ldb, int n, int k, bool acc) {
+                                        const bf16* b, long ldb, int n, int k) {
   const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   for (int n0 = warp * 16; n0 < n; n0 += nw * 16) {
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (acc)
-      wmma::load_matrix_sync(c, out + n0, ldo, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(c, 0.0f);
+    wmma::fill_fragment(c, 0.0f);
     for (int k0 = 0; k0 < k; k0 += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
       wmma::load_matrix_sync(fa, a + k0, lda);
-      if constexpr (B_NK) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, b + (long)n0 * ldb + k0, (unsigned)ldb);
-        wmma::mma_sync(c, fa, fb, c);
-      } else {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, b + (long)k0 * ldb + n0, (unsigned)ldb);
-        wmma::mma_sync(c, fa, fb, c);
-      }
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+      wmma::load_matrix_sync(fb, b + (long)n0 * ldb + k0, (unsigned)ldb);
+      wmma::mma_sync(c, fa, fb, c);
     }
     wmma::store_matrix_sync(out + n0, c, ldo, wmma::mem_row_major);
   }
@@ -158,8 +146,6 @@ __device__ __forceinline__ float hsum16(float v) {
   for (int o = 8; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
-
-__device__ __forceinline__ float bfr(float v) { return __bfloat162float(__float2bfloat16(v)); }
 
 // The half-warp of a row: rows 2 warp and 2 warp + 1 of the tile.
 struct RowLane {
@@ -217,19 +203,6 @@ static int hw_launch_check(const void* f, long smem, bool& configured) {
   return 0;
 }
 
-static bool hw_aligned(const void* p) {
-  return p && (reinterpret_cast<uintptr_t>(p) & 31) == 0;
-}
-
-// The producer warpgroup's registers to the consumers: 128 (168 - 40) =
-// 256 (232 - 168) from the launch's 168 a thread.
-__device__ __forceinline__ void regs_producer() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-}
-__device__ __forceinline__ void regs_consumer() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-}
-
 // ---- joint encoder: enc_post_wide_kernel (the design: this file's
 // header). x = LN1(src + (att . Wo^T + bo)); y = LN2((x + sum_j h_j .
 // W2_j^T) + b2), h_j = bf16(relu(bf16(x) . W1_j^T + b1_j)) over the hidden
@@ -244,12 +217,6 @@ struct EncWideArgs {
   int C, Fp, n_tok;
   float eps;
 };
-
-#define EW_ROWS 64            // rows of a tile
-#define EW_THREADS 384        // the producer warpgroup + two consumer warpgroups
-#define EW_CHUNK 128          // hidden columns a chunk, 64 a consumer warpgroup
-#define EW_BOX 8192           // a swizzled [64 rows x 64] bf16 box
-#define EW_MAX_SLOTS 8        // slots of a warpgroup's ring at most
 
 // Shared memory at half width nh (the channels a consumer warpgroup holds,
 // 64, 128, 192 or 256): alignment slack, the x tile ([64 rows x 2 nh] bf16
@@ -271,315 +238,6 @@ __host__ __device__ constexpr int ew_smem(int nh) {
 }
 static_assert(ew_slots(256) >= 2 && ew_smem(256) <= HW_SMEM_LIMIT && ew_smem(64) <= HW_SMEM_LIMIT,
               "enc_post_wide_kernel's ring does not fit a block");
-
-// The half width of C channels: C / 2 in steps of 64.
-__host__ __device__ constexpr int ew_half(int c) { return ((c + 1) / 2 + 63) / 64 * 64; }
-
-// Byte offset of element (r, c) in consecutive swizzled boxes of [64 rows x
-// 64] bf16 (column c in box c / 64): the layout of the TMA's and wgmma's
-// 128-byte swizzle, as hopper.cuh sw_off for boxes of 64 rows.
-__device__ __forceinline__ unsigned ew_off(int r, int c) {
-  return (unsigned)((c >> 6) * EW_BOX + r * 128 + ((((c >> 3) & 7) ^ (r & 7)) << 4) +
-                    ((c & 7) << 1));
-}
-
-// d (+)= a . b for one m64n192k16 tile, a and b K-major in shared memory;
-// `accumulate` 0 overwrites d.
-__device__ __forceinline__ void wgmma_m64n192k16_ss(float (&d)[96], uint64_t da, uint64_t db,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %98, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63,"
-      " %64, %65, %66, %67, %68, %69, %70, %71,"
-      " %72, %73, %74, %75, %76, %77, %78, %79,"
-      " %80, %81, %82, %83, %84, %85, %86, %87,"
-      " %88, %89, %90, %91, %92, %93, %94, %95},"
-      " %96, %97, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (+)= a . b for one m64n256k16 tile, a and b K-major in shared memory;
-// `accumulate` 0 overwrites d.
-__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t da, uint64_t db,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63,"
-      " %64, %65, %66, %67, %68, %69, %70, %71,"
-      " %72, %73, %74, %75, %76, %77, %78, %79,"
-      " %80, %81, %82, %83, %84, %85, %86, %87,"
-      " %88, %89, %90, %91, %92, %93, %94, %95,"
-      " %96, %97, %98, %99, %100, %101, %102, %103,"
-      " %104, %105, %106, %107, %108, %109, %110, %111,"
-      " %112, %113, %114, %115, %116, %117, %118, %119,"
-      " %120, %121, %122, %123, %124, %125, %126, %127},"
-      " %128, %129, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// x += A . B^T over one 64-deep k slab for a warpgroup's accumulator x
-// [64 rows x NH] (wgmma's layout: columns 8 j + 2 t + e of rows r, r + 8
-// in x[4 j + 2 rh + e]): A the tile's rows at shared address xa, B NH
-// rows of the weight (K-major) at bb, one product per 16 of k.
-template <int NH>
-__device__ __forceinline__ void ew_mma(float (&x)[NH / 2], unsigned xa, unsigned bb) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint64_t da = wg_desc(xa + kk * 32, 16), db = wg_desc(bb + kk * 32, 16);
-    if constexpr (NH == 64) wgmma_m64n64k16<0>(x, da, db, 1);
-    else if constexpr (NH == 128) wgmma_m64n128k16<0>(x, da, db, 1);
-    else if constexpr (NH == 192) wgmma_m64n192k16_ss(x, da, db, 1);
-    else wgmma_m64n256k16_ss(x, da, db, 1);
-  }
-}
-
-// A consumer warpgroup's ring: slot i % S holds load unit i of the
-// warpgroup (SLOT bytes by TMA, one or several boxes, arming the slot's
-// full barrier with their bytes), released by the warpgroup's 4 warps
-// (the empty barrier) once its products are complete.
-template <int S, int SLOT>
-struct EwRing {
-  unsigned char* slots;
-  uint64_t* full;
-  uint64_t* empty;
-  unsigned it;     // the next slot to fill (producer) or to take (consumers)
-  unsigned done;   // consumers: the next slot to hand back
-
-  __device__ __forceinline__ void place(unsigned char* at, uint64_t* bars) {
-    slots = at;
-    full = bars;
-    empty = bars + S;
-    it = done = 0;
-  }
-  // producer: the next slot once it is free, armed for `bytes`
-  __device__ __forceinline__ unsigned char* arm(unsigned bytes, uint64_t*& bar) {
-    const unsigned s = it % S;
-    if (it >= S) mbar_wait(&empty[s], ((it / S) - 1) & 1);
-    bar = &full[s];
-    mbar_expect_tx(bar, bytes);
-    ++it;
-    return slots + s * SLOT;
-  }
-  // consumers: the next slot's shared address once it has arrived, ready
-  // for products
-  __device__ __forceinline__ unsigned next() {
-    const unsigned s = it % S;
-    mbar_wait(&full[s], (it / S) & 1);
-    ++it;
-    wg_fence();
-    return smem_u32(slots + s * SLOT);
-  }
-  // consumers, after issuing a slot's products: commit them and hand back
-  // the slot before it (`first`: there is none in this run of slots)
-  __device__ __forceinline__ void issued(int lane, bool first) {
-    wg_commit();
-    if (!first) {
-      wg_wait<1>();
-      give(lane);
-    }
-  }
-  __device__ __forceinline__ void drain(int lane) {
-    wg_wait<0>();
-    give(lane);
-  }
-  __device__ __forceinline__ void give(int lane) {
-    if (lane == 0) mbar_arrive(&empty[done % S]);
-    ++done;
-  }
-};
-
-// Columns c, c + 1 of a row of n values, 0 at or past n: one load where n
-// is even (c is even, so c + 1 < n with c < n).
-__device__ __forceinline__ float2 ew_ld2(const bf16* row, int c, int n) {
-  if (!(n & 1)) {
-    if (c >= n) return make_float2(0.0f, 0.0f);
-    const unsigned u = __ldg(reinterpret_cast<const unsigned*>(row + c));
-    return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
-  }
-  return make_float2(c < n ? __bfloat162float(row[c]) : 0.0f,
-                     c + 1 < n ? __bfloat162float(row[c + 1]) : 0.0f);
-}
-__device__ __forceinline__ float2 ew_ld2(const float* row, int c, int n) {
-  if (!(n & 1)) return c < n ? __ldg(reinterpret_cast<const float2*>(row + c))
-                             : make_float2(0.0f, 0.0f);
-  return make_float2(c < n ? row[c] : 0.0f, c + 1 < n ? row[c + 1] : 0.0f);
-}
-
-// a, b into columns c, c + 1 (those below n) of element offset `off` of a
-// bf16 or fp32 matrix with rows of n values
-__device__ __forceinline__ void ew_st2(void* m, int dt, long off, float a, float b, int c,
-                                       int n) {
-  if (!(n & 1)) {
-    if (dt == DT_BF16)
-      *reinterpret_cast<unsigned*>(static_cast<bf16*>(m) + off) = pack_bf16(a, b);
-    else
-      *reinterpret_cast<float2*>(static_cast<float*>(m) + off) = make_float2(a, b);
-    return;
-  }
-  st_val(m, dt, off, a);
-  if (c + 1 < n) st_val(m, dt, off + 1, b);
-}
-
-// LayerNorm of the tile's rows `row`, `row + 8` held by the two consumer
-// warpgroups (each its NH columns of v in wgmma's accumulator layout,
-// columns at or past C zero and kept zero), fp32 statistics over the true
-// C and the two-pass variance, as ops/plain.py layer_norm: (v - mean) *
-// rsqrt(var + eps) * g + be. A row's sums: over the thread's columns in
-// order, over the quad by shuffles, then warpgroup 0's part plus
-// warpgroup 1's through `red` (shared memory), the same for every row.
-template <int NH>
-__device__ __forceinline__ void ew_layernorm(float (&v)[NH / 2], float* red, const float* g,
-                                             const float* be, int C, float eps, int wg,
-                                             int row, int t) {
-  float s[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int j = 0; j < NH / 8; ++j)
-#pragma unroll
-    for (int rh = 0; rh < 2; ++rh) s[rh] += v[4 * j + 2 * rh] + v[4 * j + 2 * rh + 1];
-#pragma unroll
-  for (int rh = 0; rh < 2; ++rh) {
-    s[rh] = quad_sum(s[rh]);
-    if (t == 0) red[wg * EW_ROWS + row + 8 * rh] = s[rh];
-  }
-  bar_consumers();
-  float mean[2], q[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int rh = 0; rh < 2; ++rh)
-    mean[rh] = (red[row + 8 * rh] + red[EW_ROWS + row + 8 * rh]) / (float)C;
-#pragma unroll
-  for (int j = 0; j < NH / 8; ++j) {
-    const int c = wg * NH + 8 * j + 2 * t;
-#pragma unroll
-    for (int rh = 0; rh < 2; ++rh)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float d = c + e < C ? v[4 * j + 2 * rh + e] - mean[rh] : 0.0f;
-        q[rh] += d * d;
-      }
-  }
-  float* rq = red + 2 * EW_ROWS;
-#pragma unroll
-  for (int rh = 0; rh < 2; ++rh) {
-    q[rh] = quad_sum(q[rh]);
-    if (t == 0) rq[wg * EW_ROWS + row + 8 * rh] = q[rh];
-  }
-  bar_consumers();
-  float inv[2];
-#pragma unroll
-  for (int rh = 0; rh < 2; ++rh)
-    inv[rh] = rsqrtf((rq[row + 8 * rh] + rq[EW_ROWS + row + 8 * rh]) / (float)C + eps);
-#pragma unroll
-  for (int j = 0; j < NH / 8; ++j) {
-    const int c = wg * NH + 8 * j + 2 * t;
-    const float2 gg = ew_ld2(g, c, C), bb = ew_ld2(be, c, C);
-#pragma unroll
-    for (int rh = 0; rh < 2; ++rh) {
-      float& v0 = v[4 * j + 2 * rh];
-      float& v1 = v[4 * j + 2 * rh + 1];
-      v0 = c < C ? (v0 - mean[rh]) * inv[rh] * gg.x + bb.x : 0.0f;
-      v1 = c + 1 < C ? (v1 - mean[rh]) * inv[rh] * gg.y + bb.y : 0.0f;
-    }
-  }
-}
-
-// The att rows [row0, row0 + 64) of warpgroup wg's columns [wg NH, wg NH +
-// NH) into the x boxes: 16-byte cp.async where C is a multiple of 8 (the
-// rows are then 16-byte aligned), else element loads; zeros past R and C.
-template <int NH>
-__device__ __forceinline__ void ew_load_att(unsigned char* xs, const bf16* att, long row0,
-                                            long R, int C, int wg, int ct) {
-  const bool vec = !(C & 7);
-  for (int i = ct; i < EW_ROWS * NH / 8; i += 128) {
-    const int r = i / (NH / 8), c = wg * NH + (i % (NH / 8)) * 8;
-    unsigned char* dst = xs + ew_off(r, c);
-    const long row = row0 + r;
-    const bf16* src = att + row * C + c;
-    if (vec && row < R && c + 8 <= C) {
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
-    } else {
-      unsigned u[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float a = row < R && c + 2 * e < C ? __bfloat162float(src[2 * e]) : 0.0f;
-        const float b = row < R && c + 2 * e + 1 < C ? __bfloat162float(src[2 * e + 1]) : 0.0f;
-        u[e] = pack_bf16(a, b);
-      }
-      *reinterpret_cast<uint4*>(dst) = make_uint4(u[0], u[1], u[2], u[3]);
-    }
-  }
-}
-
-// Starts the row r (skipped when < 0) of a [*, C] bf16 matrix, columns
-// [c0, c0 + NH) below C, on its way into L2: the quad's threads take every
-// fourth 128-byte line.
-template <int NH>
-__device__ __forceinline__ void ew_prefetch(const bf16* m, long r, int C, int c0, int t) {
-  if (r < 0 || c0 >= C) return;
-  const char* row = reinterpret_cast<const char*>(m + r * C + c0);
-  const int bytes = 2 * (C - c0 < NH ? C - c0 : NH);
-  for (int off = 128 * t; off < bytes; off += 512)
-    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(row + off));
-}
 
 template <int NH>
 __global__ void __launch_bounds__(EW_THREADS, 1)
@@ -784,185 +442,6 @@ __global__ void __launch_bounds__(EW_THREADS, 1)
   }
 }
 
-// ---- decoder, after the self-attention: x1 = LN1(xb + (att . Wso^T +
-// bso)), written in fp32; q2 = bf16(bf16(x1) . Wcq_x^T + qpos . Wcq_p^T +
-// bcq) for the cross-attention (2C columns).
-struct DecSelfWideArgs {
-  const bf16 *att, *xb, *qpos, *wso, *wcqx, *wcqp;
-  const float *bso, *g1, *be1, *bcq;
-  float* x1;
-  bf16* q2;
-  long R;
-  int C, Cp, C2p;
-  float eps;
-};
-
-__host__ __device__ constexpr long dec_self_wide_smem(int cp, int c2p) {
-  return 2 * hw_btile(cp) + hw_ftile(cp) + hw_ftile(c2p);
-}
-
-__global__ void __launch_bounds__(HW_THREADS) dec_post_self_wide_kernel(DecSelfWideArgs p) {
-  extern __shared__ __align__(128) unsigned char hw_raw[];
-  const int cp = p.Cp, lda = hw_bld(cp), ldx = hw_fld(cp), ldz = hw_fld(p.C2p);
-  bf16* A = reinterpret_cast<bf16*>(hw_raw);
-  bf16* Q = reinterpret_cast<bf16*>(hw_raw + hw_btile(cp));
-  float* X = reinterpret_cast<float*>(hw_raw + 2 * hw_btile(cp));
-  float* Z = reinterpret_cast<float*>(hw_raw + 2 * hw_btile(cp) + hw_ftile(cp));
-  const long row0 = (long)blockIdx.x * HW_ROWS;
-  const RowLane rl = row_lane();
-  const long row = row0 + rl.r;
-
-  load_rows(A, lda, p.att, p.C, row0, p.R, p.C, cp);
-  load_rows(Q, lda, p.qpos, p.C, row0, p.R, p.C, cp);
-  __syncthreads();
-  tile_mm<true>(X, ldx, A, lda, p.wso, cp, cp, cp, false);
-  __syncthreads();
-  {
-    float* v = X + rl.r * ldx;
-    for (int i = rl.l; i < p.C; i += 16) {
-      const float s = row < p.R ? __bfloat162float(p.xb[row * p.C + i]) : 0.0f;
-      v[i] = s + (v[i] + p.bso[i]);
-    }
-    row_layernorm(v, p.C, p.g1, p.be1, p.eps, rl.l);
-    for (int i = rl.l; i < p.C; i += 16) {
-      A[rl.r * lda + i] = __float2bfloat16(v[i]);
-      if (row < p.R) p.x1[row * p.C + i] = v[i];
-    }
-  }
-  __syncthreads();
-  tile_mm<true>(Z, ldz, A, lda, p.wcqx, cp, p.C2p, cp, false);
-  __syncthreads();
-  tile_mm<true>(Z, ldz, Q, lda, p.wcqp, cp, p.C2p, cp, true);
-  __syncthreads();
-  if (row >= p.R) return;
-  for (int i = rl.l; i < 2 * p.C; i += 16)
-    p.q2[row * 2 * p.C + i] = __float2bfloat16(Z[rl.r * ldz + i] + p.bcq[i]);
-}
-
-// ---- decoder, after the cross-attention, one block a batch row of K <=
-// 128 keypoints, 16 rows at a time: phase A per tile o2 = bf16(att2 .
-// Wco^T + bco); x2 = LN2(x1 + (o2 . Wch^T + bch)) into the x2 scratch;
-// y = bf16(bf16(x2) . Wg^T + bg) into the y scratch [B, K16, 2 Fp] (its
-// rows past K zero). Phase B per tile, the block's
-// own y written and synchronised: per hidden chunk of 64, m = bf16(adj0) .
-// y0 + bf16(adj1) . y1, f += bf16(relu(m)) . Wf^T; out = LN3(x2 + (f +
-// bf)).
-struct DecCrossWideArgs {
-  const bf16 *att2, *wco, *wch, *wg, *wf;
-  const float *bco, *bch, *g2, *be2, *bg, *bf, *g3, *be3;
-  const float* x1;
-  const void* adj; int adj_dt;
-  float* x2;       // scratch [B K, C]
-  bf16* y;         // scratch [B, K16, 2 Fp]
-  void* out; int out_dt;
-  int B, K, K16, C, Cp, C2p, Fp;
-  float eps;
-};
-
-__host__ __device__ constexpr long dec_cross_wide_smem(int cp, int c2p, int k16) {
-  return hw_btile(c2p) + hw_ftile(c2p) + hw_ftile(cp > HW_CHUNK ? cp : HW_CHUNK) +
-         hw_btile(cp) + hw_ftile(128) + 2 * hw_btile(k16) + hw_btile(HW_CHUNK);
-}
-
-__global__ void __launch_bounds__(HW_THREADS) dec_post_cross_wide_kernel(DecCrossWideArgs p) {
-  extern __shared__ __align__(128) unsigned char hw_raw[];
-  const int cp = p.Cp, c2p = p.C2p;
-  const int lda2 = hw_bld(c2p), ldz = hw_fld(c2p), ldx = hw_fld(cp), lda = hw_bld(cp);
-  const int ldj = hw_bld(p.K16), ldy = 2 * p.Fp;
-  unsigned char* at = hw_raw;
-  bf16* A2 = reinterpret_cast<bf16*>(at);
-  at += hw_btile(c2p);
-  float* Z = reinterpret_cast<float*>(at);        // o2; phase B: f
-  at += hw_ftile(c2p);
-  float* X = reinterpret_cast<float*>(at);        // a2, x2; phase B: m
-  at += hw_ftile(cp > HW_CHUNK ? cp : HW_CHUNK);
-  bf16* A = reinterpret_cast<bf16*>(at);          // bf16(x2)
-  at += hw_btile(cp);
-  float* H = reinterpret_cast<float*>(at);        // a 128-column piece of y
-  at += hw_ftile(128);
-  bf16* ADJ = reinterpret_cast<bf16*>(at);        // [2][16, K16]
-  at += 2 * hw_btile(p.K16);
-  bf16* HB = reinterpret_cast<bf16*>(at);         // bf16(relu(m))
-  const int b = blockIdx.x;
-  const long base = (long)b * p.K;
-  const RowLane rl = row_lane();
-  bf16* yb = p.y + (long)b * p.K16 * ldy;
-
-  for (int i0 = 0; i0 < p.K; i0 += HW_ROWS) {
-    const int i = i0 + rl.r;
-    const long row = base + i;
-    load_rows(A2, lda2, p.att2, 2 * p.C, base + i0, base + p.K, 2 * p.C, c2p);
-    __syncthreads();
-    tile_mm<true>(Z, ldz, A2, lda2, p.wco, c2p, c2p, c2p, false);
-    __syncthreads();
-    for (int e = rl.l; e < 2 * p.C; e += 16)
-      A2[rl.r * lda2 + e] = __float2bfloat16(Z[rl.r * ldz + e] + p.bco[e]);
-    __syncthreads();
-    tile_mm<true>(X, ldx, A2, lda2, p.wch, c2p, cp, c2p, false);
-    __syncthreads();
-    {
-      float* v = X + rl.r * ldx;
-      for (int e = rl.l; e < p.C; e += 16) {
-        const float s = i < p.K ? p.x1[row * p.C + e] : 0.0f;
-        v[e] = s + (v[e] + p.bch[e]);
-      }
-      row_layernorm(v, p.C, p.g2, p.be2, p.eps, rl.l);
-      for (int e = rl.l; e < cp; e += 16) {
-        A[rl.r * lda + e] = __float2bfloat16(e < p.C ? v[e] : 0.0f);
-        if (e < p.C && i < p.K) p.x2[row * p.C + e] = v[e];
-      }
-    }
-    __syncthreads();
-    for (int n0 = 0; n0 < 2 * p.Fp; n0 += 128) {
-      const int n = 2 * p.Fp - n0 < 128 ? 2 * p.Fp - n0 : 128;
-      tile_mm<true>(H, hw_fld(128), A, lda, p.wg + (long)n0 * cp, cp, n, cp, false);
-      __syncthreads();
-      for (int e = rl.l; e < n; e += 16)      // rows past K: zeros for phase B
-        yb[(long)i * ldy + n0 + e] =
-            __float2bfloat16(i < p.K ? H[rl.r * hw_fld(128) + e] + p.bg[n0 + e] : 0.0f);
-      __syncthreads();
-    }
-  }
-  __syncthreads();   // the block's y and x2 rows are written: phase B reads them
-
-  const long adj_base = (long)b * 2 * p.K * p.K;
-  for (int i0 = 0; i0 < p.K; i0 += HW_ROWS) {
-    const int i = i0 + rl.r;
-    const long row = base + i;
-    for (int e = threadIdx.x; e < 2 * HW_ROWS * p.K16; e += blockDim.x) {
-      const int s = e / (HW_ROWS * p.K16), r = (e / p.K16) % HW_ROWS, j = e % p.K16;
-      float a = 0.0f;
-      if (i0 + r < p.K && j < p.K)
-        a = ld_val(p.adj, p.adj_dt, adj_base + ((long)s * p.K + i0 + r) * p.K + j);
-      ADJ[s * HW_ROWS * ldj + r * ldj + j] = __float2bfloat16(a);
-    }
-    __syncthreads();
-    for (int j = 0; j < p.Fp / HW_CHUNK; ++j) {
-      tile_mm<false>(X, hw_fld(HW_CHUNK), ADJ, ldj, yb + j * HW_CHUNK, ldy, HW_CHUNK, p.K16,
-                     false);
-      tile_mm<false>(X, hw_fld(HW_CHUNK), ADJ + HW_ROWS * ldj, ldj, yb + p.Fp + j * HW_CHUNK,
-                     ldy, HW_CHUNK, p.K16, true);
-      __syncthreads();
-      for (int e = threadIdx.x; e < HW_ROWS * HW_CHUNK; e += blockDim.x) {
-        const int r = e / HW_CHUNK, cc = e % HW_CHUNK;
-        HB[r * hw_bld(HW_CHUNK) + cc] = __float2bfloat16(fmaxf(X[r * hw_fld(HW_CHUNK) + cc], 0.0f));
-      }
-      __syncthreads();
-      tile_mm<true>(Z, ldx, HB, hw_bld(HW_CHUNK), p.wf + j * HW_CHUNK, p.Fp, cp, HW_CHUNK, j > 0);
-      __syncthreads();
-    }
-    float* v = Z + rl.r * ldx;
-    for (int e = rl.l; e < p.C; e += 16) {
-      const float s = i < p.K ? p.x2[row * p.C + e] : 0.0f;
-      v[e] = s + (v[e] + p.bf[e]);
-    }
-    row_layernorm(v, p.C, p.g3, p.be3, p.eps, rl.l);
-    if (i < p.K)
-      for (int e = rl.l; e < p.C; e += 16) st_val(p.out, p.out_dt, row * p.C + e, v[e]);
-    __syncthreads();
-  }
-}
-
 // ---- decoder stack, a layer's keypoint head: for h = x and h = bf16(LN(x))
 // (the final norm), h = bf16(gelu(h . W_i^T + b_i)) for the three kpt_branch
 // layers, dd = h . Wo^T + bo, and sigmoid(inverse_sigmoid(ct) + dd) into
@@ -1002,7 +481,7 @@ __global__ void __launch_bounds__(HW_THREADS) kpt_head_wide_kernel(KptWideArgs p
       __syncthreads();
     }
     for (int layer = 0; layer < 3; ++layer) {
-      tile_mm<true>(Z, ldz, A, lda, ws[layer], cp, cp, cp, false);
+      tile_mm(Z, ldz, A, lda, ws[layer], cp, cp, cp);
       __syncthreads();
       for (int e = rl.l; e < p.C; e += 16) {
         const float z = Z[rl.r * ldz + e] + bs[layer][e];
@@ -1354,21 +833,6 @@ __global__ void __launch_bounds__(BW_THREADS, 1) bias_attn_wide_kernel(BiasWideA
 // Each returns cudaGetLastError() after its launch, or cudaErrorInvalidValue
 // for a shape it does not take.
 
-static int ew_sms(int& sms) {
-  static int count = 0;
-  if (!count) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) {
-      count = 0;
-      return (int)e;
-    }
-  }
-  sms = count;
-  return 0;
-}
-
 template <int NH>
 static int launch_enc_wide(const CUtensorMap (&m)[3], const EncWideArgs& p, cudaStream_t s) {
   static bool configured = false;
@@ -1427,66 +891,6 @@ extern "C" int ec_enc_post_wide(const void* att, const void* src, const void* wo
     case 192: return launch_enc_wide<192>(m, p, s);
     default: return launch_enc_wide<256>(m, p, s);
   }
-}
-
-extern "C" int ec_dec_post_self_wide(const void* att, const void* xb, const void* qpos,
-                                     const void* wso, const void* bso, const void* g1,
-                                     const void* be1, const void* wcqx, const void* wcqp,
-                                     const void* bcq, void* x1, void* q2, long R, int C,
-                                     int Cp, int C2p, float eps, void* stream) {
-  static bool configured = false;
-  if (R <= 0 || C <= 0 || C > HW_MAX_C || Cp % 16 || Cp < C || C2p % 16 || C2p < 2 * C ||
-      !hw_aligned(wso) || !hw_aligned(wcqx) || !hw_aligned(wcqp))
-    return (int)cudaErrorInvalidValue;
-  const long smem = dec_self_wide_smem(Cp, C2p);
-  const int rc = hw_launch_check((const void*)dec_post_self_wide_kernel, smem, configured);
-  if (rc) return rc;
-  DecSelfWideArgs p;
-  p.att = static_cast<const bf16*>(att); p.xb = static_cast<const bf16*>(xb);
-  p.qpos = static_cast<const bf16*>(qpos); p.wso = static_cast<const bf16*>(wso);
-  p.wcqx = static_cast<const bf16*>(wcqx); p.wcqp = static_cast<const bf16*>(wcqp);
-  p.bso = static_cast<const float*>(bso); p.g1 = static_cast<const float*>(g1);
-  p.be1 = static_cast<const float*>(be1); p.bcq = static_cast<const float*>(bcq);
-  p.x1 = static_cast<float*>(x1); p.q2 = static_cast<bf16*>(q2);
-  p.R = R; p.C = C; p.Cp = Cp; p.C2p = C2p; p.eps = eps;
-  dec_post_self_wide_kernel<<<(unsigned)((R + HW_ROWS - 1) / HW_ROWS), HW_THREADS, smem,
-                              static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int ec_dec_post_cross_wide(const void* att2, const void* wco, const void* bco,
-                                      const void* wch, const void* bch, const void* x1,
-                                      const void* g2, const void* be2, const void* wg,
-                                      const void* bg, const void* adj, int adj_dt,
-                                      const void* wf, const void* bf, const void* g3,
-                                      const void* be3, void* x2, void* y, void* out,
-                                      int out_dt, int B, int K, int C, int Cp, int C2p, int Fp,
-                                      float eps, void* stream) {
-  static bool configured = false;
-  const int k16 = (K + 15) / 16 * 16;
-  if (B <= 0 || K <= 0 || K > HW_MAX_K || C <= 0 || C > HW_MAX_C || Cp % 16 || Cp < C ||
-      C2p % 16 || C2p < 2 * C || Fp <= 0 || Fp % HW_CHUNK || !hw_aligned(wco) ||
-      !hw_aligned(wch) || !hw_aligned(wg) || !hw_aligned(wf) || !hw_aligned(y))
-    return (int)cudaErrorInvalidValue;
-  const long smem = dec_cross_wide_smem(Cp, C2p, k16);
-  const int rc = hw_launch_check((const void*)dec_post_cross_wide_kernel, smem, configured);
-  if (rc) return rc;
-  DecCrossWideArgs p;
-  p.att2 = static_cast<const bf16*>(att2); p.wco = static_cast<const bf16*>(wco);
-  p.wch = static_cast<const bf16*>(wch); p.wg = static_cast<const bf16*>(wg);
-  p.wf = static_cast<const bf16*>(wf);
-  p.bco = static_cast<const float*>(bco); p.bch = static_cast<const float*>(bch);
-  p.g2 = static_cast<const float*>(g2); p.be2 = static_cast<const float*>(be2);
-  p.bg = static_cast<const float*>(bg); p.bf = static_cast<const float*>(bf);
-  p.g3 = static_cast<const float*>(g3); p.be3 = static_cast<const float*>(be3);
-  p.x1 = static_cast<const float*>(x1);
-  p.adj = adj; p.adj_dt = adj_dt;
-  p.x2 = static_cast<float*>(x2); p.y = static_cast<bf16*>(y);
-  p.out = out; p.out_dt = out_dt;
-  p.B = B; p.K = K; p.K16 = k16; p.C = C; p.Cp = Cp; p.C2p = C2p; p.Fp = Fp; p.eps = eps;
-  dec_post_cross_wide_kernel<<<(unsigned)B, HW_THREADS, smem,
-                               static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
 }
 
 extern "C" int ec_kpt_head_wide(const void* x, const void* g, const void* be, const void* w0,

@@ -67,11 +67,13 @@ ffn2 onto the LN2 output it is added to (ops/kernels.py dec_post_cross).
 The kernels of the layer body and the keypoint head are written for the
 model's width C = 256 and the bias attention for 8 heads of 32; every
 other width up to 512 channels, 1..16 heads of up to 128, takes their
-companions in csrc/head_wide.cu (dec_post_self_wide_kernel,
-dec_post_cross_wide_kernel, kpt_head_wide_kernel, bias_attn_wide_kernel:
-simple 16-row WMMA kernels; ops/kernels.py post_plan, kpt_head_plan,
-bias_attention_plan choose), one launch each where the 256-channel form
-has one, so a call keeps its 3 + 9 L launches. The stack's own weights (the permuted fc1, the stacked
+companions (ops/kernels.py post_plan, kpt_head_plan, bias_attention_plan
+choose): dec_post_self_wide_kernel, and for dec_post_cross_kernel's work
+two launches, dec_post_cross_wide_kernel and dec_post_gcn_wide_kernel
+(csrc/dec_self_wide.cu, csrc/dec_wide.cu: persistent 64-row tiles,
+weights by TMA into wgmma),
+kpt_head_wide_kernel and bias_attn_wide_kernel (csrc/head_wide.cu), so a
+layer is 9 launches and a stack call 3 + 10 L. The stack's own weights (the permuted fc1, the stacked
 cross-attention weights, kpt_branch, the bias MLPs) are prepared once per
 decoder module and the layers' once per layer module, each kept until a
 parameter changes.
@@ -92,6 +94,44 @@ launches = 0
 stack_launches = 0
 
 
+def post_self_plain(att, xb, layer, eps: float = 1e-5):
+    """The plain formulas after the self-attention: x1 = LN1(xb +
+    out_proj(att)) in fp32. att is the attention's output [..., C], xb
+    the layer's input rounded to bf16."""
+    op = layer.self_attn.out_proj
+    return plain.layer_norm(
+        xb.to(torch.float32) + plain.linear(att, op.weight, op.bias),
+        layer.norm1.weight, layer.norm1.bias, eps)
+
+
+def cross_query_plain(x1, query_pos, layer):
+    """The cross-attention's query from [x1; query_pos], fp32."""
+    ca = layer.cross_attn
+    return plain.linear(torch.cat([x1, query_pos.to(torch.float32)], dim=-1),
+                        ca.q_proj.weight, ca.q_proj.bias)
+
+
+def post_cross_plain(att2, x1, adj, layer, eps: float = 1e-5):
+    """The plain formulas after the cross-attention: att2 [B, K, 2C] its
+    output, x1 [B, K, C] the LN1 output, adj [B, 2, K, K]; out_proj
+    (rounded to bf16), the choker and LN2, then the GCN (both adjacency
+    slices summed in fp32), ReLU, ffn2 and LN3. Returns [B, K, C] fp32."""
+    op = layer.cross_attn.out_proj
+    o2 = plain.bf16(plain.linear(att2, op.weight, op.bias))
+    x2 = plain.layer_norm(
+        x1 + plain.linear(o2, layer.choker.weight, layer.choker.bias),
+        layer.norm2.weight, layer.norm2.bias, eps)
+    y = plain.bf16(plain.linear(x2, layer.gcn.conv.weight,
+                                layer.gcn.conv.bias))
+    f_dim = y.shape[-1] // 2
+    a = plain.bf16(adj)
+    m = (torch.matmul(a[:, 0], y[..., :f_dim])
+         + torch.matmul(a[:, 1], y[..., f_dim:]))
+    f = plain.linear(torch.relu(m), layer.ffn2.weight, layer.ffn2.bias)
+    return plain.layer_norm(x2 + f, layer.norm3.weight, layer.norm3.bias,
+                            eps)
+
+
 def fused_decoder_layer_plain(x, query_pos, img_tokens, img_pos, kp_valid,
                               bias, adj, layer, *, num_heads: int,
                               eps: float = 1e-5):
@@ -108,41 +148,24 @@ def fused_decoder_layer_plain(x, query_pos, img_tokens, img_pos, kp_valid,
     v = plain.linear(xb, sa.v_proj.weight, sa.v_proj.bias)
     att = plain.attention(q, k, v, num_heads=num_heads, scale=d ** -0.5,
                           kb=plain.key_bias(kp_valid), bias=bias)
-    att = plain.linear(att, sa.out_proj.weight, sa.out_proj.bias)
-    x1 = plain.layer_norm(xb + att, layer.norm1.weight, layer.norm1.bias,
-                          eps)
+    x1 = post_self_plain(att, xb, layer, eps)
 
     img = plain.bf16(img_tokens)
     ipos = plain.bf16(img_pos)[None].expand(img.shape[0], -1, -1)
-    qc = torch.cat([x1, query_pos.to(torch.float32)], dim=-1)
     kc = torch.cat([img, ipos], dim=-1)
-    q2 = plain.linear(qc, ca.q_proj.weight, ca.q_proj.bias)
+    q2 = cross_query_plain(x1, query_pos, layer)
     k2 = plain.linear(kc, ca.k_proj.weight, ca.k_proj.bias)
     v2 = plain.linear(img, ca.v_proj.weight, ca.v_proj.bias)
     att2 = plain.attention(q2, k2, v2, num_heads=num_heads, scale=d2 ** -0.5)
-    att2 = plain.bf16(plain.linear(att2, ca.out_proj.weight,
-                                   ca.out_proj.bias))
-    att2 = plain.linear(att2, layer.choker.weight, layer.choker.bias)
-    x2 = plain.layer_norm(x1 + att2, layer.norm2.weight, layer.norm2.bias,
-                          eps)
-
-    y = plain.bf16(plain.linear(x2, layer.gcn.conv.weight,
-                                layer.gcn.conv.bias))
-    f_dim = y.shape[-1] // 2
-    a = plain.bf16(adj)
-    m = (torch.matmul(a[:, 0], y[..., :f_dim])
-         + torch.matmul(a[:, 1], y[..., f_dim:]))
-    f = plain.linear(torch.relu(m), layer.ffn2.weight, layer.ffn2.bias)
-    return plain.layer_norm(x2 + f, layer.norm3.weight, layer.norm3.bias,
-                            eps).to(x.dtype)
+    return post_cross_plain(att2, x1, adj, layer, eps).to(x.dtype)
 
 
 def _prepare(layer) -> dict:
     """The layer's weights as the kernels take them, in the layout of
     ops/kernels.py post_plan: the GCN width padded to its chunks and, at a
     width other than 256, the post-attention kernels' weights padded to
-    c_pad channels and 2C to a multiple of WIDE_K (zero rows and columns,
-    pad_gcn / pad_cols); the GEMMs' weights as they are."""
+    c_pad channels and 2C to c2_pad (zero rows and columns, pad_gcn /
+    pad_cols); the GEMMs' weights as they are."""
     from . import kernels as K
     sa, ca = layer.self_attn, layer.cross_attn
     w16 = lambda w: w.detach().to(torch.bfloat16).contiguous()  # noqa: E731
@@ -151,7 +174,7 @@ def _prepare(layer) -> dict:
     f = layer.ffn2.in_features
     plan = K.post_plan(1, c, f, chunk=K.DEC_CHUNK)
     cp = plan.get("c_pad", c)
-    c2p = K._up(2 * c, K.WIDE_K) if plan.get("wide") else 2 * c
+    c2p = plan.get("c2_pad", 2 * c)
     wg, bg, wf = K.pad_gcn(layer.gcn.conv.weight, layer.gcn.conv.bias,
                            layer.ffn2.weight, plan.get("f_pad", f), cp)
     pad = K.pad_cols

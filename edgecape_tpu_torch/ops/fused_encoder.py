@@ -70,18 +70,17 @@ def _prepare(layer) -> dict:
     """The layer's weights as the kernels take them, in the layout of
     ops/kernels.py post_plan: the FFN hidden padded to its chunks and, at
     a width other than 256, wo, w1 and w2 padded to enc_post_wide_kernel's
-    enc_c_pad channels and enc_f_pad hidden columns (zero rows and
-    columns, pad_ffn / pad_cols)."""
+    c_pad channels and f_pad hidden columns (zero rows and columns,
+    pad_ffn / pad_cols)."""
     from . import kernels as K
     at = layer.self_attn
     w16 = lambda w: w.detach().to(torch.bfloat16).contiguous()  # noqa: E731
     v32 = lambda v: v.detach().to(torch.float32).contiguous()  # noqa: E731
     c, f = layer.linear1.in_features, layer.linear1.out_features
     plan = K.post_plan(1, c, f)
-    cp = plan.get("enc_c_pad", c)
+    cp = plan.get("c_pad", c)
     w1, b1, w2 = K.pad_ffn(layer.linear1.weight, layer.linear1.bias,
-                           layer.linear2.weight,
-                           plan.get("enc_f_pad", plan.get("f_pad", f)), cp)
+                           layer.linear2.weight, plan.get("f_pad", f), cp)
     return {
         "wqkv": w16(torch.cat([at.q_proj.weight, at.k_proj.weight,
                                at.v_proj.weight])),

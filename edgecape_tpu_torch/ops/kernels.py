@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from functools import partial
 import glob
 import hashlib
 import os
@@ -66,7 +65,7 @@ launches = dict.fromkeys((
     "train_fwd_long_kernel", "train_bwd_q_long_kernel",
     "train_bwd_k_long_kernel", "enc_post_wide_kernel",
     "dec_post_self_wide_kernel", "dec_post_cross_wide_kernel",
-    "kpt_head_wide_kernel", "bias_attn_wide_kernel", "vit_ln_gemm_kernel"),
+    "dec_post_gcn_wide_kernel", "kpt_head_wide_kernel", "bias_attn_wide_kernel", "vit_ln_gemm_kernel"),
     0)
 
 _P = ctypes.c_void_p
@@ -146,6 +145,8 @@ _SIGNATURES = {
                        _I, _F, _L, _I, _P],
     # the count out
     "ec_vit_ln_gemm_ctas": [_P],
+    # dec_wide.cu: C, the six numbers out
+    "ec_dec_wide_layout": [_I, _P],
 }
 
 
@@ -1059,18 +1060,21 @@ def module_weights(module, attr: str, build, *extra):
 # tiles of POST_TILE rows; the encoder's FFN hidden in chunks of ENC_CHUNK
 # columns, the decoder's GCN width in chunks of DEC_CHUNK.
 POST_C, POST_TILE, ENC_CHUNK, DEC_CHUNK = 256, 128, 128, 64
-# Their companions at every other width (csrc/head_wide.cu): up to
-# WIDE_MAX_C channels in tiles of WIDE_TILE rows (the cross kernel: a batch
-# row of up to POST_TILE keypoints), K and N of every product padded to
-# multiples of WIDE_K, hidden widths to multiples of WIDE_CHUNK, in shared
-# memory of at most ATT_SMEM_LIMIT a block.
-WIDE_MAX_C, WIDE_TILE, WIDE_K, WIDE_CHUNK = 512, 16, 16, 64
-# enc_post_wide_kernel: tiles of ENC_WIDE_TILE rows, each of its two
-# consumer warpgroups holding half the channels rounded up to 64
-# (enc_wide_half), the hidden in chunks of ENC_WIDE_CHUNK, the weights
-# through a ring of at most ENC_WIDE_SLOTS slots a warpgroup, in
-# ATT_SMEM_LIMIT bytes of shared memory (head_wide.cu ew_smem).
-ENC_WIDE_TILE, ENC_WIDE_CHUNK, ENC_WIDE_SLOTS = 64, 128, 8
+# Their companions at every other width, up to WIDE_MAX_C channels, in
+# shared memory of at most ATT_SMEM_LIMIT a block: kpt_head_wide_kernel
+# (csrc/head_wide.cu) in tiles of WIDE_TILE rows, K and N of its products
+# padded to multiples of WIDE_K.
+WIDE_MAX_C, WIDE_TILE, WIDE_K = 512, 16, 16
+# enc_post_wide_kernel (csrc/head_wide.cu) and the decoder's
+# dec_post_self_wide_kernel, dec_post_cross_wide_kernel and
+# dec_post_gcn_wide_kernel (csrc/dec_wide.cuh): tiles of ENC_WIDE_TILE
+# rows, each of their two consumer warpgroups holding half the channels
+# rounded up to 64 (enc_wide_half), hidden widths in chunks of
+# ENC_WIDE_CHUNK, the weights through a ring of at most ENC_WIDE_SLOTS
+# slots a warpgroup (the decoder's of WIDE_BOX bytes, one [64 x 64] bf16
+# box), in ATT_SMEM_LIMIT bytes of shared memory (head_wide.cu ew_smem,
+# dec_wide.cuh dw_smem).
+ENC_WIDE_TILE, ENC_WIDE_CHUNK, ENC_WIDE_SLOTS, WIDE_BOX = 64, 128, 8, 8192
 
 
 def _up(n: int, m: int) -> int:
@@ -1084,8 +1088,9 @@ def _wide_tile(cols: int, el: int) -> int:
 
 
 def enc_wide_half(c: int) -> int:
-    """The channels each consumer warpgroup of enc_post_wide_kernel holds:
-    half of c rounded up to 64 (64, 128, 192 or 256; one instance each)."""
+    """The channels each consumer warpgroup of enc_post_wide_kernel and
+    the decoder's wide kernels holds: half of c rounded up to 64 (64, 128,
+    192 or 256; one instance each)."""
     return _up(-(-c // 2), 64)
 
 
@@ -1102,6 +1107,41 @@ def enc_wide_ring(c: int) -> tuple:
     return slots, fixed + 2 * slots * (nh * 128 + 16)
 
 
+def dec_wide_rings(c: int) -> dict:
+    """{kernel: (slots of each warpgroup's weight ring, shared-memory
+    bytes)} of the decoder's wide kernels at c channels (csrc/dec_wide.cuh
+    dw_smem): alignment slack, the boxes each keeps (the self kernel's att,
+    then bf16(x1), and qpos, [64, 2 nh] bf16 each; the cross kernel's att2
+    [64, 4 nh], then bf16(x2) over it, and two o2 chunks [64, 128]; the gcn
+    kernel's adjacency rows [2, 64, 128] and two relu(m) chunks), the
+    LayerNorm's partial sums, then the two rings of WIDE_BOX slots (as many
+    as fit, at most ENC_WIDE_SLOTS) with two barriers a slot. At 512
+    channels: 6, 4 and 8 slots."""
+    nh = enc_wide_half(c)
+    red = 4 * 2 * 2 * ENC_WIDE_TILE
+    fixed = {"dec_post_self_wide_kernel": 1024 + 2 * nh * 256 + red,
+             "dec_post_cross_wide_kernel": 1024 + nh * 512 + 4 * WIDE_BOX
+             + red,
+             "dec_post_gcn_wide_kernel": 1024 + 8 * WIDE_BOX + red}
+    rings = {}
+    for name, f in fixed.items():
+        slots = min(ENC_WIDE_SLOTS,
+                    (ATT_SMEM_LIMIT - f) // (2 * (WIDE_BOX + 16)))
+        rings[name] = (slots, f + 2 * slots * (WIDE_BOX + 16))
+    return rings
+
+
+@functools.lru_cache(maxsize=None)
+def dec_wide_card_rings(c: int) -> dict:
+    """dec_wide_rings as the built kernels take them: the slots and shared
+    memory that csrc/dec_wide.cu's launches compute at c channels."""
+    out = (ctypes.c_int * 6)()
+    _call("ec_dec_wide_layout", c, ctypes.addressof(out))
+    names = ("dec_post_self_wide_kernel", "dec_post_cross_wide_kernel",
+             "dec_post_gcn_wide_kernel")
+    return {n: (out[2 * i], out[2 * i + 1]) for i, n in enumerate(names)}
+
+
 def post_plan(rows: int, c: int, f: int, *, chunk: int = ENC_CHUNK,
               keypoints: Optional[int] = None) -> dict:
     """How a post-attention kernel covers `rows` token rows of c channels
@@ -1113,21 +1153,24 @@ def post_plan(rows: int, c: int, f: int, *, chunk: int = ENC_CHUNK,
     of K keypoints, padded to POST_TILE rows with zero rows and zero
     adjacency columns.
 
-    Any other c up to WIDE_MAX_C takes the head_wide.cu kernels, and the
-    plan holds `wide`: True, `c_pad` (c in multiples of WIDE_K), `f_pad`
-    (f in chunks of WIDE_CHUNK), the decoder kernels' `tiles` of
-    WIDE_TILE rows (with `keypoints`: a batch row each) and the largest
-    `smem_bytes` of the three kernels; without `keypoints` also
-    enc_post_wide_kernel's `enc_tiles` of ENC_WIDE_TILE rows
-    (`enc_pad_rows` missing in the last), its warpgroups' `enc_half`
-    channels each (enc_wide_half), its weights' padded widths
-    `enc_c_pad` (2 enc_half) and `enc_f_pad` (f in `enc_chunks` chunks of
-    ENC_WIDE_CHUNK), so that every box its TMA reads lies inside them,
-    and `enc_slots` ring slots a warpgroup. The padding columns are zero
-    in the weights
-    (pad_cols, pad_ffn, pad_gcn), so the products are unchanged. Raises for
-    what the kernels do not take: c outside 1..WIDE_MAX_C, no hidden, no
-    rows, keypoints outside 1..POST_TILE or no whole batch rows."""
+    Any other c up to WIDE_MAX_C takes the wide kernels, and the plan
+    holds `wide`: True and their common layout: `tiles` of ENC_WIDE_TILE
+    rows over the rows flattened (`pad_rows` missing in the last), the
+    warpgroups' `half` channels each (enc_wide_half), the weights'
+    padded widths `c_pad` (2 half), `c2_pad` (for 2C: 2 c_pad) and
+    `f_pad` (f in `chunks` chunks of ENC_WIDE_CHUNK), so that every box
+    their TMA reads lies inside them; `kernels`: each kernel of the
+    plan's launch by name with its `slots` a warpgroup and `smem_bytes`
+    (dec_wide_rings, enc_wide_ring), and the largest as `smem_bytes`.
+    Without `keypoints`: dec_post_self_wide_kernel and
+    enc_post_wide_kernel; with them: the cross layer's two launches, dec_post_cross_wide_kernel
+    over the `tiles` and dec_post_gcn_wide_kernel over `gcn_tiles` of
+    ENC_WIDE_TILE rows of one batch row each (ceil(K / 64) a batch row,
+    `gcn_pad_rows` missing in a batch row's last). The padding columns
+    are zero in the weights (pad_cols, pad_ffn, pad_gcn), so the products
+    are unchanged. Raises for what the kernels do not take: c outside
+    1..WIDE_MAX_C, no hidden, no rows, keypoints outside 1..POST_TILE or
+    no whole batch rows."""
     if not 1 <= c <= WIDE_MAX_C:
         raise ValueError(f"the post-attention kernels take 1..{WIDE_MAX_C} "
                          f"channels, got {c}")
@@ -1140,29 +1183,26 @@ def post_plan(rows: int, c: int, f: int, *, chunk: int = ENC_CHUNK,
         raise ValueError(f"{rows} rows are no batch of rows of 1..{POST_TILE}"
                          f" keypoints (K={keypoints})")
     if c != POST_C:
-        cp, c2p, f_pad = _up(c, WIDE_K), _up(2 * c, WIDE_K), _up(f, WIDE_CHUNK)
-        b, f4 = partial(_wide_tile, el=2), partial(_wide_tile, el=4)
-        slots, enc_smem = enc_wide_ring(c)
-        smem = max(
-            enc_smem,                                                # encoder
-            2 * b(cp) + f4(cp) + f4(c2p),                            # self
-            b(c2p) + f4(c2p) + f4(max(cp, WIDE_CHUNK)) + b(cp) + f4(128)
-            + 2 * b(_up(keypoints or POST_TILE, 16)) + b(WIDE_CHUNK))
-        tiles = rows // keypoints if keypoints else -(-rows // WIDE_TILE)
-        plan = {"wide": True, "c_pad": cp, "f_pad": f_pad,
-                "chunks": f_pad // WIDE_CHUNK, "tiles": tiles,
-                "pad_rows": (_up(keypoints, WIDE_TILE) - keypoints
-                             if keypoints else tiles * WIDE_TILE - rows),
-                "smem_bytes": smem}
-        if keypoints is None:
-            enc_tiles = -(-rows // ENC_WIDE_TILE)
-            enc_f_pad = _up(f, ENC_WIDE_CHUNK)
-            plan.update(enc_tiles=enc_tiles,
-                        enc_pad_rows=enc_tiles * ENC_WIDE_TILE - rows,
-                        enc_half=enc_wide_half(c),
-                        enc_c_pad=2 * enc_wide_half(c), enc_f_pad=enc_f_pad,
-                        enc_chunks=enc_f_pad // ENC_WIDE_CHUNK,
-                        enc_slots=slots)
+        half, f_pad = enc_wide_half(c), _up(f, ENC_WIDE_CHUNK)
+        tiles = -(-rows // ENC_WIDE_TILE)
+        rings = dec_wide_rings(c)
+        names = (("dec_post_cross_wide_kernel", "dec_post_gcn_wide_kernel")
+                 if keypoints else ("dec_post_self_wide_kernel",))
+        kernels = {n: {"slots": rings[n][0], "smem_bytes": rings[n][1]}
+                   for n in names}
+        plan = {"wide": True, "half": half, "c_pad": 2 * half,
+                "c2_pad": 4 * half, "f_pad": f_pad,
+                "chunks": f_pad // ENC_WIDE_CHUNK, "tiles": tiles,
+                "pad_rows": tiles * ENC_WIDE_TILE - rows, "kernels": kernels}
+        if keypoints:
+            kt = -(-keypoints // ENC_WIDE_TILE)
+            plan.update(gcn_tiles=rows // keypoints * kt,
+                        gcn_pad_rows=kt * ENC_WIDE_TILE - keypoints)
+        else:
+            slots, enc_smem = enc_wide_ring(c)
+            kernels["enc_post_wide_kernel"] = {"slots": slots,
+                                               "smem_bytes": enc_smem}
+        plan["smem_bytes"] = max(k["smem_bytes"] for k in kernels.values())
         return plan
     f_pad = _up(f, chunk)
     if keypoints is None:
@@ -1236,8 +1276,8 @@ def enc_post(att: torch.Tensor, src: torch.Tensor, w: dict, *, eps: float,
     onto x. att, src: contiguous bf16 [R, C]; w: the layer's weights
     (wo, bo, g1, be1, w1, b1, w2, b2, g2, be2; ops/fused_encoder.py
     _prepare, in post_plan's layout: at POST_C the hidden padded to
-    f_pad, elsewhere wo, w1, w2 and b1 padded to enc_c_pad channels and
-    enc_f_pad hidden columns). Returns (y [R, C] in out_dtype, or
+    f_pad, elsewhere wo, w1, w2 and b1 padded to c_pad channels and
+    f_pad hidden columns). Returns (y [R, C] in out_dtype, or
     None when out_dtype is None; with pos [N, C] bf16, the next layer's
     src = bf16(bf16(y) + pos[row % N]) bf16 [R, C], else None).
     enc_post_kernel at POST_C channels, enc_post_wide_kernel at the
@@ -1270,7 +1310,7 @@ def enc_post(att: torch.Tensor, src: torch.Tensor, w: dict, *, eps: float,
 
 def _enc_post_wide(att, src, w, plan, *, eps, out_dtype, pos):
     r, c = att.shape
-    cp, fp = plan["enc_c_pad"], plan["enc_f_pad"]
+    cp, fp = plan["c_pad"], plan["f_pad"]
     ptrs = [_operand(att, (r, c)), _operand(src, (r, c)),
             _operand(w["wo"], (cp, cp))] + _vectors(w, "bo", "g1", "be1") + [
         _operand(w["w1"], (fp, cp))] + _vectors(w, "b1") + [
@@ -1295,31 +1335,24 @@ def dec_post_self(att: torch.Tensor, xb: torch.Tensor, qpos: torch.Tensor,
     x1 = LN1(xb + att . wso^T + bso) and the cross-attention's query
     q2 = bf16(bf16(x1) . wcq_x^T + qpos . wcq_p^T + bcq). att, xb, qpos:
     contiguous bf16 [R, C]; w: the layer's weights (ops/fused_decoder.py
-    _prepare). Returns (x1 fp32 [R, C], q2 bf16 [R, 2C]).
-    dec_post_self_kernel at POST_C channels, dec_post_self_wide_kernel at
-    the others."""
+    _prepare, in post_plan's layout). Returns (x1 fp32 [R, C], q2 bf16
+    [R, 2C]). dec_post_self_kernel at POST_C channels,
+    dec_post_self_wide_kernel (csrc/dec_self_wide.cu) at the others."""
     r, c = att.shape
     plan = post_plan(r, c, ENC_CHUNK)
+    cp, c2p = plan.get("c_pad", c), plan.get("c2_pad", 2 * c)
+    ptrs = [_operand(att, (r, c)), _operand(xb, (r, c)),
+            _operand(qpos, (r, c)), _operand(w["wso"], (cp, cp))] + \
+        _vectors(w, "bso", "g1", "be1") + [
+            _operand(w["wcq_x"], (c2p, cp)),
+            _operand(w["wcq_p"], (c2p, cp))] + _vectors(w, "bcq")
+    x1 = torch.empty((r, c), dtype=torch.float32, device=att.device)
+    q2 = torch.empty((r, 2 * c), dtype=torch.bfloat16, device=att.device)
     if plan.get("wide"):
-        cp, c2p = plan["c_pad"], _up(2 * c, WIDE_K)
-        ptrs = [_operand(att, (r, c)), _operand(xb, (r, c)),
-                _operand(qpos, (r, c)), _operand(w["wso"], (cp, cp))] + \
-            _vectors(w, "bso", "g1", "be1") + [
-                _operand(w["wcq_x"], (c2p, cp)),
-                _operand(w["wcq_p"], (c2p, cp))] + _vectors(w, "bcq")
-        x1 = torch.empty((r, c), dtype=torch.float32, device=att.device)
-        q2 = torch.empty((r, 2 * c), dtype=torch.bfloat16, device=att.device)
         _call("ec_dec_post_self_wide", *ptrs, x1.data_ptr(), q2.data_ptr(),
               r, c, cp, c2p, float(eps), _stream())
         launches["dec_post_self_wide_kernel"] += 1
         return x1, q2
-    ptrs = [_operand(att, (r, c)), _operand(xb, (r, c)),
-            _operand(qpos, (r, c)), _operand(w["wso"], (c, c))] + _vectors(
-        w, "bso", "g1", "be1") + [_operand(w["wcq_x"], (2 * c, c)),
-                                  _operand(w["wcq_p"], (2 * c, c))] + \
-        _vectors(w, "bcq")
-    x1 = torch.empty((r, c), dtype=torch.float32, device=att.device)
-    q2 = torch.empty((r, 2 * c), dtype=torch.bfloat16, device=att.device)
     _call("ec_dec_post_self", *ptrs, x1.data_ptr(), q2.data_ptr(), r,
           float(eps), _stream())
     launches["dec_post_self_kernel"] += 1
@@ -1328,15 +1361,17 @@ def dec_post_self(att: torch.Tensor, xb: torch.Tensor, qpos: torch.Tensor,
 
 def dec_post_cross(att2: torch.Tensor, x1: torch.Tensor, adj: torch.Tensor,
                    w: dict, *, eps: float, out_dtype) -> torch.Tensor:
-    """The decoder layer after its cross-attention, one launch per call,
-    one batch row of K keypoints per tile: o2 = bf16(att2 . wco^T + bco),
-    x2 = LN2(x1 + o2 . wch^T + bch), per F chunk y_s = bf16(bf16(x2) .
-    wg_s^T + bg_s) and m = adj0 . y0 + adj1 . y1, then out = LN3(x2 +
-    bf16(relu(m)) . wf^T + bf). att2: contiguous bf16 [B, K, 2C]; x1:
+    """The decoder layer after its cross-attention: o2 = bf16(att2 . wco^T
+    + bco), x2 = LN2(x1 + o2 . wch^T + bch), y_s = bf16(bf16(x2) . wg_s^T
+    + bg_s) and per batch row m = adj0 . y0 + adj1 . y1, then out = LN3(x2
+    + bf16(relu(m)) . wf^T + bf). att2: contiguous bf16 [B, K, 2C]; x1:
     fp32 [B K, C]; adj: [B, 2, K, K] fp32 or bf16 (rounded to bf16 in
-    the kernel). Returns [B K, C] in out_dtype. dec_post_cross_kernel at
-    POST_C channels, dec_post_cross_wide_kernel (a block a batch row, x2
-    and y through scratch buffers) at the others."""
+    the kernel). Returns [B K, C] in out_dtype. At POST_C channels one
+    launch of dec_post_cross_kernel, a batch row a tile, y formed per F
+    chunk; at the others two launches (csrc/dec_wide.cu):
+    dec_post_cross_wide_kernel over the flattened rows (x2 and y into
+    scratch buffers), then dec_post_gcn_wide_kernel over tiles of one
+    batch row."""
     b, k, c2 = att2.shape
     c = c2 // 2
     f = w["wf"].shape[1]
@@ -1367,7 +1402,7 @@ def dec_post_cross(att2: torch.Tensor, x1: torch.Tensor, adj: torch.Tensor,
 def _dec_post_cross_wide(att2, x1, adj, w, plan, *, eps, out_dtype):
     b, k, c2 = att2.shape
     c = c2 // 2
-    cp, c2p, fp = plan["c_pad"], _up(c2, WIDE_K), plan["f_pad"]
+    cp, c2p, fp = plan["c_pad"], plan["c2_pad"], plan["f_pad"]
     _cuda(adj)
     if tuple(adj.shape) != (b, 2, k, k):
         raise ValueError(f"adjacency {tuple(adj.shape)} is not "
@@ -1378,14 +1413,14 @@ def _dec_post_cross_wide(att2, x1, adj, w, plan, *, eps, out_dtype):
         _vectors(w, "g2", "be2") + [_operand(w["wg"], (2 * fp, cp))] + \
         _vectors(w, "bg")
     x2 = torch.empty((b * k, c), dtype=torch.float32, device=att2.device)
-    y = torch.empty((b, _up(k, 16), 2 * fp), dtype=torch.bfloat16,
-                    device=att2.device)
+    y = torch.empty((b * k, 2 * fp), dtype=torch.bfloat16, device=att2.device)
     out = torch.empty((b * k, c), dtype=out_dtype, device=att2.device)
     _call("ec_dec_post_cross_wide", *ptrs, adj.data_ptr(), _dt(adj),
           _operand(w["wf"], (cp, fp)), *_vectors(w, "bf", "g3", "be3"),
           x2.data_ptr(), y.data_ptr(), out.data_ptr(), _dt(out), b, k, c, cp,
           c2p, fp, float(eps), _stream())
     launches["dec_post_cross_wide_kernel"] += 1
+    launches["dec_post_gcn_wide_kernel"] += 1
     return out
 
 

@@ -12,9 +12,15 @@ card:
 * with --wide, vit_ln_gemm (the wide route's LayerNorm + projection) at
   ViT-B/14's and ViT-L/14's qkv and fc1 widths (WIDE_CASES: fp32 and bf16
   x, both W layouts, the support pass's rows), its bf16 bits as int16;
-* with --heads, csrc/head_wide.cu's decoder kernels and keypoint head
-  (dec_post_self / dec_post_cross / kpt_head at HEAD_CASES' widths, 60
-  batch rows of K keypoints, seeded DecoderLayer weights), their outputs.
+* with --heads, the wide head kernels (the decoder kernels of
+  csrc/dec_self_wide.cu and dec_wide.cu through dec_post_self /
+  dec_post_cross, csrc/head_wide.cu's
+  through kpt_head, enc_post and bias_attention) at HEAD_CASES' widths,
+  60 batch rows of K keypoints (enc_post: of 356 tokens), seeded
+  DecoderLayer / EncoderLayer weights: their outputs, each kernel's
+  arrays named apart (heads_<C>_x1 / _q2 / _out, _pts / _outs, _enc_y /
+  _enc_nxt, _bias), so that a comparison shows which kernels kept their
+  bits.
 
     python edgecape_tpu_torch/tools/reference_outputs.py [--root DIR]
         [--wide] [--heads] OUT.npz
@@ -91,16 +97,20 @@ def _wide(dev, arrays, launches) -> None:
 
 
 def _heads(dev, arrays, launches) -> None:
-    """dec_post_self, dec_post_cross and kpt_head at HEAD_CASES (their
-    csrc/head_wide.cu kernels), seeded, into arrays (bf16 bits as
-    int16)."""
+    """dec_post_self, dec_post_cross, kpt_head, enc_post and
+    bias_attention at HEAD_CASES (their wide kernels), seeded, into arrays
+    (bf16 bits as int16). Launches are read with a default of 0, so that
+    a checkout without one of the kernels runs the same script."""
     import torch
-    from edgecape_tpu_torch.models.transformer import DecoderLayer
+    from edgecape_tpu_torch.models.transformer import (DecoderLayer,
+                                                       EncoderLayer)
     from edgecape_tpu_torch.ops import fused_decoder as FD
+    from edgecape_tpu_torch.ops import fused_encoder as FE
     from edgecape_tpu_torch.ops import kernels as KN
     names = ("dec_post_self_wide_kernel", "dec_post_cross_wide_kernel",
-             "kpt_head_wide_kernel")
-    n0 = {n: KN.launches[n] for n in names}
+             "dec_post_gcn_wide_kernel", "kpt_head_wide_kernel",
+             "enc_post_wide_kernel", "bias_attn_wide_kernel")
+    n0 = {n: KN.launches.get(n, 0) for n in names}
     g = torch.Generator().manual_seed(SEED + 4)
     bf, b = torch.bfloat16, HEAD_ROWS
 
@@ -109,8 +119,8 @@ def _heads(dev, arrays, launches) -> None:
 
     def bits(t):
         return t.view(torch.int16).cpu().numpy()
-    for c, h, f in HEAD_CASES:
-        layer = DecoderLayer(c, h, f)
+
+    def seeded(layer):
         with torch.no_grad():
             for name, p in layer.named_parameters():
                 if p.dim() == 2:
@@ -119,7 +129,9 @@ def _heads(dev, arrays, launches) -> None:
                 else:
                     p.copy_(0.1 * torch.randn(p.shape, generator=g)
                             + (1.0 if name.endswith("weight") else 0.0))
-        w = FD._prepare(layer.to(dev).eval())
+        return layer.to(dev).eval()
+    for c, h, f in HEAD_CASES:
+        w = FD._prepare(seeded(DecoderLayer(c, h, f)))
         r = b * K
         x1, q2 = KN.dec_post_self(rn(r, c).to(bf), rn(r, c).to(bf),
                                   rn(r, c).to(bf), w, eps=1e-5)
@@ -134,11 +146,28 @@ def _heads(dev, arrays, launches) -> None:
         pts, outs = torch.empty_like(ct), torch.empty_like(ct)
         KN.kpt_head(x, ct, fn, kpt, rn(2, c, s=0.02).to(bf), rn(2, s=0.02),
                     pts, outs, eps=1e-5)
+        we = FE._prepare(seeded(EncoderLayer(c, h, f)))
+        re = b * 356
+        enc_y, enc_nxt = KN.enc_post(rn(re, c).to(bf), rn(re, c).to(bf), we,
+                                     eps=1e-5, out_dtype=bf,
+                                     pos=rn(356, c).to(bf))
+        hid = 4 + h
+        mlp = (rn(5, hid), rn(hid, s=0.1), rn(hid, h, s=hid ** -0.5),
+               rn(h, s=0.1))
+        valid = torch.rand(b, K, generator=g).to(dev) > 0.3
+        valid[:, 0] = True
+        att = KN.bias_attention(
+            rn(b, K, 3 * c).to(bf), valid,
+            torch.rand(b, K, K, 5, generator=g).to(dev).to(bf), mlp,
+            num_heads=h)
         arrays.update({f"heads_{c}_x1": x1.cpu().numpy(),
                        f"heads_{c}_q2": bits(q2), f"heads_{c}_out": bits(y),
                        f"heads_{c}_pts": pts.cpu().numpy(),
-                       f"heads_{c}_outs": outs.cpu().numpy()})
-    launches["heads"] = {n: KN.launches[n] - n0[n] for n in names}
+                       f"heads_{c}_outs": outs.cpu().numpy(),
+                       f"heads_{c}_enc_y": bits(enc_y),
+                       f"heads_{c}_enc_nxt": bits(enc_nxt),
+                       f"heads_{c}_bias": bits(att)})
+    launches["heads"] = {n: KN.launches.get(n, 0) - n0[n] for n in names}
 
 
 def run(root: str, out: str, wide: bool = False, heads: bool = False) -> None:

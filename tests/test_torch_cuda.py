@@ -1904,3 +1904,135 @@ def test_bias_attention_wide_rows_keep_their_bits_at_another_place(dev, heads,
                            hops[17:18].contiguous(), mlp, num_heads=heads)
     assert torch.equal(out_rev[rev], out)
     assert torch.equal(one[0], out[17])
+
+
+# -------- dec_self_wide.cu, dec_wide.cu: the decoder's post-attention kernels
+def _wide_decoder(dev, c, h, f, seed):
+    """A DecoderLayer of width c (random weights) and its prepared kernel
+    weights (ops/fused_decoder.py _prepare)."""
+    from edgecape_tpu_torch.models.transformer import DecoderLayer
+    from edgecape_tpu_torch.ops import fused_decoder as FD
+    layer = _randomize(DecoderLayer(c, h, f), dev, seed)
+    return layer, FD._prepare(layer)
+
+
+def _ran(before):
+    from edgecape_tpu_torch.ops import kernels as K
+    return {k: K.launches[k] - before[k] for k in K.launches
+            if K.launches[k] != before[k]}
+
+
+# batch rows and K: the [widths] chunk's 60 x 100, and K 1, 63 and 128
+DEC_ROWS = [(60, 100), (133, 1), (3, 63), (2, 128)]
+# the six [widths] widths, a width of no multiple of 8 (element loads of
+# the attention outputs) and an odd one (the scalar residual and stores)
+DEC_WIDTHS = HEAD_WIDTHS + [(100, 4, 96), (511, 7, 300)]
+
+
+@pytest.mark.parametrize("c", [1, 100, 200, 384, 511])
+def test_dec_wide_plan_rings_are_the_kernels(dev, c):
+    """ops/kernels.py dec_wide_rings, which post_plan reports, equals the
+    ring slots and shared memory that csrc/dec_wide.cu's launches take."""
+    from edgecape_tpu_torch.ops import kernels as K
+    assert K.dec_wide_card_rings(c) == K.dec_wide_rings(c)
+
+
+@pytest.mark.parametrize("c,h,f", DEC_WIDTHS, ids=lambda v: str(v))
+@pytest.mark.parametrize("b,k", DEC_ROWS)
+def test_dec_post_self_wide_matches_plain(dev, c, h, f, b, k):
+    """dec_post_self at the six [widths] widths, 100 and 511 channels
+    (dec_post_self_wide_kernel but at 256 channels) against the plain
+    formulas on the unpadded weights, over ragged 64-row tiles; one
+    launch."""
+    from edgecape_tpu_torch.ops import fused_decoder as FD
+    from edgecape_tpu_torch.ops import kernels as K
+    layer, w = _wide_decoder(dev, c, h, f, seed=c + f)
+    r = b * k
+    att, xb, qpos = (_rn(dev, r, c, seed=60 + i).to(torch.bfloat16)
+                     for i in range(3))
+    with torch.no_grad():
+        before = dict(K.launches)
+        x1, q2 = K.dec_post_self(att, xb, qpos, w, eps=1e-5)
+        name = "dec_post_self_kernel" if c == 256 else \
+            "dec_post_self_wide_kernel"
+        assert _ran(before) == {name: 1}
+        ref = FD.post_self_plain(att, xb, layer)
+        qref = FD.cross_query_plain(x1, qpos, layer)
+    assert x1.dtype == torch.float32 and x1.shape == (r, c)
+    assert q2.dtype == torch.bfloat16 and q2.shape == (r, 2 * c)
+    _close(x1, ref)
+    _close(q2, qref)
+
+
+@pytest.mark.parametrize("c,h,f", DEC_WIDTHS, ids=lambda v: str(v))
+@pytest.mark.parametrize("b,k", DEC_ROWS)
+@pytest.mark.parametrize("adj_dtype", [torch.float32, torch.bfloat16])
+def test_dec_post_cross_wide_matches_plain(dev, c, h, f, b, k, adj_dtype):
+    """dec_post_cross at the six widths, 100 and 511 channels: away from
+    256 channels its two launches, dec_post_cross_wide_kernel and
+    dec_post_gcn_wide_kernel (one or two 64-row tiles a batch row),
+    against the plain formulas on the unpadded weights, fp32 and bf16
+    adjacency."""
+    from edgecape_tpu_torch.ops import fused_decoder as FD
+    from edgecape_tpu_torch.ops import kernels as K
+    layer, w = _wide_decoder(dev, c, h, f, seed=c + f + 1)
+    att2 = _rn(dev, b, k, 2 * c, seed=70).to(torch.bfloat16)
+    x1 = _rn(dev, b * k, c, seed=71)
+    adj = (_rn(dev, b, 2, k, k, seed=72).abs() / k).to(adj_dtype)
+    with torch.no_grad():
+        before = dict(K.launches)
+        out = K.dec_post_cross(att2, x1, adj, w, eps=1e-5,
+                               out_dtype=torch.float32)
+        want = {"dec_post_cross_kernel": 1} if c == 256 else {
+            "dec_post_cross_wide_kernel": 1, "dec_post_gcn_wide_kernel": 1}
+        assert _ran(before) == want
+        ref = FD.post_cross_plain(att2, x1.view(b, k, c), adj, layer)
+    assert out.dtype == torch.float32 and out.shape == (b * k, c)
+    _close(out.view(b, k, c), ref)
+
+
+@pytest.mark.parametrize("c,h,f", [(200, 8, 300), (512, 8, 1024)])
+def test_dec_post_wide_rows_keep_their_bits_at_another_place(dev, c, h, f):
+    """A batch row's outputs do not depend on its place in the batch: the
+    batch reversed, and one batch row alone, give its rows the same bits
+    (x1 and q2 of the self kernel, the cross layer's output)."""
+    from edgecape_tpu_torch.ops import kernels as K
+    _, w = _wide_decoder(dev, c, h, f, seed=9)
+    b, k = 60, 100
+    att, xb, qpos = (_rn(dev, b, k, c, seed=80 + i).to(torch.bfloat16)
+                     for i in range(3))
+    att2 = _rn(dev, b, k, 2 * c, seed=83).to(torch.bfloat16)
+    adj = _rn(dev, b, 2, k, k, seed=84).abs() / k
+    rev = torch.arange(b - 1, -1, -1, device=dev)
+
+    def run(sel):
+        x1, q2 = K.dec_post_self(*(t[sel].reshape(-1, c).contiguous()
+                                   for t in (att, xb, qpos)), w, eps=1e-5)
+        out = K.dec_post_cross(att2[sel].contiguous(), x1,
+                               adj[sel].contiguous(), w, eps=1e-5,
+                               out_dtype=torch.float32)
+        n = x1.shape[0] // k
+        return x1.view(n, k, c), q2.view(n, k, 2 * c), out.view(n, k, c)
+    with torch.no_grad():
+        whole = run(torch.arange(b, device=dev))
+        flipped = run(rev)
+        one = run(torch.arange(17, 18, device=dev))
+    for a, r_, o in zip(whole, flipped, one):
+        assert torch.equal(r_[rev], a)
+        assert torch.equal(o[0], a[17])
+
+
+def test_dec_post_wide_refuse_cpu_operands_and_count_nothing(dev):
+    """The wide decoder ops take CUDA operands only: a CPU operand raises
+    before any launch, and nothing is counted."""
+    from edgecape_tpu_torch.ops import kernels as K
+    _, w = _wide_decoder(dev, 200, 8, 300, seed=11)
+    att = _rn(dev, 100, 200).to(torch.bfloat16)
+    before = dict(K.launches)
+    with pytest.raises(ValueError):
+        K.dec_post_self(att.cpu(), att, att, w, eps=1e-5)
+    with pytest.raises(ValueError):
+        K.dec_post_cross(_rn(dev, 1, 100, 400).to(torch.bfloat16),
+                         _rn(dev, 100, 200), _rn(dev, 1, 2, 100, 100).cpu(),
+                         w, eps=1e-5, out_dtype=torch.float32)
+    assert K.launches == before

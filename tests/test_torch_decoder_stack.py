@@ -53,7 +53,9 @@ from edgecape_tpu_torch.ops import plain
 from edgecape_tpu_torch.ops.pos_enc import inverse_sigmoid
 
 from test_torch_fused_post import (NOISE_MEAN, ULP_MAX, dec_post_cross_tiled,
-                                   dec_post_self_tiled)
+                                   dec_post_cross_wide_tiled,
+                                   dec_post_self_tiled,
+                                   dec_post_self_wide_tiled)
 
 COORD_MAX, COORD_MEAN = 1e-4, 2e-6
 STACK_LAYER_MAX, STACK_LAYER_MEAN = 2e-3, 1e-4
@@ -138,6 +140,9 @@ def stack_tiled(x, coords, img, ipos, valid, hops, adj, dec, *, num_heads,
     ct = coords.float().reshape(r, 2)
     imgb, iposb = plain.bf16(img), plain.bf16(ipos)
     outs, pts = [], []
+    wide = c != K.POST_C
+    post_self = dec_post_self_wide_tiled if wide else dec_post_self_tiled
+    post_cross = dec_post_cross_wide_tiled if wide else dec_post_cross_tiled
     for layer, sw in zip(dec.layers, w["layers"]):
         lw = tdec._prepare(layer)
         h = plain.bf16(plain.gelu(plain.linear(_sine_feats(ct, w["rdt"]),
@@ -153,14 +158,14 @@ def stack_tiled(x, coords, img, ipos, valid, hops, adj, dec, *, num_heads,
                                   qkv[..., 2 * c:], num_heads=num_heads,
                                   scale=(c // num_heads) ** -0.5,
                                   kb=plain.key_bias(valid))
-        x1, q2 = dec_post_self_tiled(att.reshape(r, c), xb, qpos, lw, eps)
+        x1, q2 = post_self(att.reshape(r, c), xb, qpos, lw, eps)
         kpos = plain.linear(iposb, lw["wck_pos"], lw["bck"])
         k2 = plain.bf16(plain.linear(imgb, lw["wck_img"]) + kpos)
         v2 = plain.bf16(plain.linear(imgb, lw["wcv"], lw["bcv"]))
         att2 = plain.attention(q2.view(b, k, 2 * c), k2, v2,
                                num_heads=num_heads,
                                scale=(2 * c // num_heads) ** -0.5)
-        xb = plain.bf16(dec_post_cross_tiled(att2, x1, adj, lw, eps))
+        xb = plain.bf16(post_cross(att2, x1, adj, lw, eps))
         p, o = kpt_head_tiled(xb, ct, w["fn"], sw["kpt"], sw["kow"],
                               sw["kob"], eps)
         pts.append(p.view(b, k, 2))

@@ -9,17 +9,19 @@ cross-attention query as one accumulation over [x1; qpos], o2 in
 tile padded to 128 rows with zero adjacency rows and columns. Held
 against the ops' plain versions and, for whole layers, against the JAX
 Pallas kernels in interpret mode. At the other widths (C 128, 200 with
-its padding, 512) the same for their csrc/head_wide.cu forms:
-enc_post_wide_kernel's tiles of 64 rows (missing rows zero, src read as
-row R - 1), the channels padded to twice its warpgroups' half width and
-the hidden to chunks of 128 by zero rows and columns of the prepared
-weights, LayerNorm over the true C, the FFN's second product accumulated
-onto the LN1 output and its bias added after; the decoder kernels'
-tiles of 16 rows, K and N padded to multiples of 16 and the hidden to
-chunks of 64, the FFN's second product summed apart and added with its
-bias, the cross kernel's y of a whole batch row formed before the
-adjacency contraction; and the 256-channel kernels on an FFN of 300,
-padded to its chunks. Also: the tile plan of ops/kernels.py post_plan,
+its padding, 512) the same for their wide forms (csrc/head_wide.cu,
+csrc/dec_self_wide.cu, csrc/dec_wide.cu): tiles of 64 rows (missing rows
+zero, the residual read as row R - 1), the channels padded to twice the
+warpgroups' half width (2C to twice that) and the hidden to chunks of 128
+by zero rows and columns of the prepared weights, LayerNorm over the true
+C;
+enc_post_wide_kernel's FFN second product accumulated onto the LN1 output
+and its bias added after; the decoder's q2 in 128-column chunks, o2 in
+128-column chunks each fed to the choker at once, y of the flattened rows
+formed before the adjacency contraction, which takes tiles of 64 rows of
+one batch row and keys in boxes of 64, the GCN's ffn2 summed apart and
+added with its bias; and the 256-channel kernels on an FFN of 300, padded
+to its chunks. Also: the tile plan of ops/kernels.py post_plan,
 the weight cache of kernels.module_weights and the wrappers' refusal of
 CPU operands.
 
@@ -168,46 +170,74 @@ def enc_post_wide_tiled(att, src, w, eps=1e-5):
 
 
 def dec_post_self_wide_tiled(att, xb, qpos, w, eps=1e-5):
-    """dec_post_self_wide_kernel's order: (x1 fp32 [R, C], q2 [R, 2C]
+    """dec_post_self_wide_kernel's order (csrc/dec_self_wide.cu) on att, xb,
+    qpos [R, C] and the prepared weights (wso [Cq, Cq], wcq_x, wcq_p [C2q,
+    Cq]: zero rows and columns past C and 2C): tiles of ENC_WIDE_TILE rows
+    (missing rows zero, xb read as row R - 1), x1 over the Cq padded
+    channels (zero past C), q2 in chunks of ENC_WIDE_CHUNK columns, each one
+    accumulation over bf16(x1) then qpos: (x1 fp32 [R, C], q2 [R, 2C]
     holding bf16 values)."""
     r, c = att.shape
-    cp = w["wso"].shape[0]
+    cp, ch = w["wso"].shape[0], K.ENC_WIDE_CHUNK
+    wq = torch.cat([w["wcq_x"], w["wcq_p"]], 1)
     x1s, q2s = [], []
-    for a_t, x_t, q_t in zip(*(_tiles(t, size=K.WIDE_TILE)
-                               for t in (att, xb, qpos))):
+    for a_t, x_t, q_t in zip(_tiles(att, size=K.ENC_WIDE_TILE),
+                             _tiles(xb, "last", size=K.ENC_WIDE_TILE),
+                             _tiles(qpos, size=K.ENC_WIDE_TILE)):
         x1 = _ln(plain.bf16(x_t) + (plain.linear(_cols(a_t, cp),
                                                  w["wso"])[:, :c]
                                     + w["bso"]), w, "g1", "be1")
-        z = plain.linear(_cols(x1, cp), w["wcq_x"]) \
-            + plain.linear(_cols(q_t, cp), w["wcq_p"])
+        xq = torch.cat([_cols(x1, cp), _cols(q_t, cp)], 1)
+        z = torch.cat([plain.linear(xq, wq[j:j + ch])
+                       for j in range(0, wq.shape[0], ch)], 1)
         x1s.append(x1)
         q2s.append(plain.bf16(z[:, :2 * c] + w["bcq"]))
     return torch.cat(x1s)[:r], torch.cat(q2s)[:r]
 
 
 def dec_post_cross_wide_tiled(att2, x1, adj, w, eps=1e-5):
-    """dec_post_cross_wide_kernel's order, a block a batch row: phase A
-    (o2, x2, the whole row's y), then phase B (the adjacency contraction
-    per chunk of 64 GCN features, ffn2 summed apart, LN3): fp32 [B K, C]."""
+    """The wide cross layer's two launches (csrc/dec_wide.cu):
+    dec_post_cross_wide_kernel over the rows flattened over the batch in
+    tiles of ENC_WIDE_TILE (missing rows zero, x1 read as row R - 1), o2 in
+    chunks of ENC_WIDE_CHUNK columns each fed to the choker at once, LN2,
+    y over the tile; then dec_post_gcn_wide_kernel over tiles of
+    ENC_WIDE_TILE rows of one batch row: per chunk of ENC_WIDE_CHUNK GCN
+    features m = adj0 . y0 + adj1 . y1 over keys in boxes of 64 (zero past
+    K), bf16(relu(m)) . Wf^T summed apart, LN3(x2 + (f + bf)): fp32
+    [B K, C]."""
     b, k, c2 = att2.shape
-    c = c2 // 2
+    c, r = c2 // 2, b * k
     cp, c2p, fp = w["wch"].shape[0], w["wco"].shape[0], w["wf"].shape[1]
+    ch, tile = K.ENC_WIDE_CHUNK, K.ENC_WIDE_TILE
+    bco = _cols(w["bco"][None], c2p)[0]
+    x2s, ys = [], []
+    for a_t, x_t in zip(_tiles(att2.reshape(r, c2), size=tile),
+                        _tiles(x1, "last", size=tile)):
+        acc = 0
+        for j in range(0, c2p, ch):
+            o = plain.bf16(plain.linear(_cols(a_t, c2p), w["wco"][j:j + ch])
+                           + bco[j:j + ch])
+            acc = acc + plain.linear(o, w["wch"][:, j:j + ch])
+        x2 = _ln(x_t + (acc[:, :c] + w["bch"]), w, "g2", "be2")
+        x2s.append(x2)
+        ys.append(plain.bf16(plain.linear(_cols(x2, cp), w["wg"]) + w["bg"]))
+    x2, y = torch.cat(x2s)[:r], torch.cat(ys)[:r]
+    keys = -(-k // tile) * tile
     out = []
     for bi in range(b):
-        o2 = plain.bf16(plain.linear(_cols(att2[bi], c2p),
-                                     w["wco"])[:, :c2] + w["bco"])
-        x2 = _ln(x1[bi * k:(bi + 1) * k] + (
-            plain.linear(_cols(o2, c2p), w["wch"])[:, :c] + w["bch"]),
-            w, "g2", "be2")
-        y = plain.bf16(plain.linear(_cols(x2, cp), w["wg"]) + w["bg"])
-        a = plain.bf16(adj[bi].float())
-        acc = 0
-        for j in range(0, fp, K.WIDE_CHUNK):
-            m = a[0] @ y[:, j:j + K.WIDE_CHUNK] \
-                + a[1] @ y[:, fp + j:fp + j + K.WIDE_CHUNK]
-            acc = acc + plain.linear(plain.bf16(torch.relu(m)),
-                                     w["wf"][:, j:j + K.WIDE_CHUNK])
-        out.append(_ln(x2 + (acc[:, :c] + w["bf"]), w, "g3", "be3"))
+        yb = torch.zeros(keys, 2 * fp)
+        yb[:k] = y[bi * k:(bi + 1) * k]
+        for i0 in range(0, k, tile):
+            n = min(tile, k - i0)
+            a = torch.zeros(2, tile, keys)
+            a[:, :n, :k] = plain.bf16(adj[bi, :, i0:i0 + n].float())
+            f = 0
+            for j in range(0, fp, ch):
+                m = a[0] @ yb[:, j:j + ch] + a[1] @ yb[:, fp + j:fp + j + ch]
+                f = f + plain.linear(plain.bf16(torch.relu(m)),
+                                     w["wf"][:, j:j + ch])
+            x2_t = x2[bi * k + i0:bi * k + i0 + n]
+            out.append(_ln(x2_t + (f[:n, :c] + w["bf"]), w, "g3", "be3"))
     return torch.cat(out)
 
 
@@ -482,6 +512,31 @@ def test_wide_decoder_emulation_matches_the_plain_layer(c, f, heads):
         torch.from_numpy(a) for a in _decoder_inputs(rng, 2, 37, 16, c,
                                                      heads))
     x, qpos, img, ipos = (t.to(torch.bfloat16) for t in (x, qpos, img, ipos))
+    with torch.no_grad():
+        out = decoder_layer_tiled(x, qpos, img, ipos, valid, bias, adj, layer,
+                                  num_heads=heads)
+        ref = tdec.fused_decoder_layer_plain(x, qpos, img, ipos, valid, bias,
+                                             adj, layer, num_heads=heads)
+    _close(out, ref)
+
+
+@pytest.mark.parametrize("c,f,heads", [(128, 256, 8), (200, 300, 8)])
+@pytest.mark.parametrize("k", [65, 100])
+def test_wide_decoder_emulation_takes_two_gcn_tiles_a_batch_row(c, f, heads,
+                                                               k):
+    """K above 64: dec_post_gcn_wide_kernel takes a batch row in two tiles
+    of 64 rows (the second partly filled), keys in two boxes of 64. fp32
+    tokens, so that the layer's output is not rounded to bf16 (at this
+    many rows some output lies above 4, where one bf16 ulp exceeds
+    ULP_MAX). The tiling does not depend on C; at 512 channels the
+    intermediates' bf16 flips over 2 x 100 rows put the mean at the
+    NOISE_MEAN bound itself, and that width is held at K 37 above and on
+    the card."""
+    rng = np.random.default_rng(c + k)
+    _, layer = _decoder(rng, c, f, heads)
+    x, qpos, img, ipos, valid, bias, adj = (
+        torch.from_numpy(a) for a in _decoder_inputs(rng, 2, k, 16, c,
+                                                     heads))
     with torch.no_grad():
         out = decoder_layer_tiled(x, qpos, img, ipos, valid, bias, adj, layer,
                                   num_heads=heads)

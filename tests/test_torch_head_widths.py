@@ -94,12 +94,20 @@ def test_post_and_keypoint_plans_take_every_width(c):
             plan = K.post_plan(100 * 7, c, f, chunk=chunk, keypoints=k)
             assert plan.get("wide", False) == (c != K.POST_C)
             fp = plan.get("f_pad", f)
-            assert fp >= f and fp % (K.WIDE_CHUNK if c != K.POST_C
+            assert fp >= f and fp % (K.ENC_WIDE_CHUNK if c != K.POST_C
                                      else chunk) == 0
             if c != K.POST_C:
-                assert plan["c_pad"] % K.WIDE_K == 0 and plan["c_pad"] >= c
+                assert plan["c_pad"] == 2 * plan["half"] >= c
+                assert plan["c_pad"] % 128 == 0
+                assert plan["c2_pad"] == 2 * plan["c_pad"]
                 assert plan["smem_bytes"] <= K.ATT_SMEM_LIMIT
-                assert plan["tiles"] == (7 if k else -(-700 // K.WIDE_TILE))
+                assert plan["tiles"] == -(-700 // K.ENC_WIDE_TILE)
+                assert sorted(plan["kernels"]) == (
+                    ["dec_post_cross_wide_kernel", "dec_post_gcn_wide_kernel"]
+                    if k else ["dec_post_self_wide_kernel",
+                               "enc_post_wide_kernel"])
+                if k:
+                    assert plan["gcn_tiles"] == 7 * 2
     kp = K.kpt_head_plan(51000, c)
     assert kp.get("wide", False) == (c != K.POST_C)
     for bad in (0, 513, 1024):
@@ -166,31 +174,86 @@ def test_bias_wide_plan_fits_every_shape_it_takes():
                                385, 511, 512])
 def test_post_plan_wide_encoder_tile(c):
     """enc_post_wide_kernel's part of post_plan: tiles of ENC_WIDE_TILE
-    rows, each of its two warpgroups holding enc_half channels (half of c
+    rows, each of its two warpgroups holding `half` channels (half of c
     rounded up to 64: one of four instances), the weights padded to
-    enc_c_pad = 2 enc_half channels and the hidden to whole chunks of
+    c_pad = 2 half channels and the hidden to whole chunks of
     ENC_WIDE_CHUNK, a ring of at least two slots a warpgroup, all in a
     block's shared memory."""
     for rows, f in ((60 * 356, 300), (510 * 356, 1024), (129, 1), (1, 64)):
         plan = K.post_plan(rows, c, f)
         if c == K.POST_C:
-            assert "enc_tiles" not in plan
+            assert "kernels" not in plan
             continue
-        half = plan["enc_half"]
+        half = plan["half"]
         assert half in (64, 128, 192, 256) and half == K.enc_wide_half(c)
         assert half - 64 < -(-c // 2) <= half
-        assert plan["enc_c_pad"] == 2 * half >= c
-        assert plan["enc_f_pad"] % K.ENC_WIDE_CHUNK == 0
-        assert plan["enc_f_pad"] - K.ENC_WIDE_CHUNK < f <= plan["enc_f_pad"]
-        assert plan["enc_chunks"] == plan["enc_f_pad"] // K.ENC_WIDE_CHUNK
-        assert plan["enc_tiles"] == -(-rows // K.ENC_WIDE_TILE)
-        assert plan["enc_pad_rows"] == \
-            plan["enc_tiles"] * K.ENC_WIDE_TILE - rows
+        assert plan["c_pad"] == 2 * half >= c
+        assert plan["f_pad"] % K.ENC_WIDE_CHUNK == 0
+        assert plan["f_pad"] - K.ENC_WIDE_CHUNK < f <= plan["f_pad"]
+        assert plan["chunks"] == plan["f_pad"] // K.ENC_WIDE_CHUNK
+        assert plan["tiles"] == -(-rows // K.ENC_WIDE_TILE)
+        assert plan["pad_rows"] == plan["tiles"] * K.ENC_WIDE_TILE - rows
         slots, smem = K.enc_wide_ring(c)
-        assert plan["enc_slots"] == slots and 2 <= slots <= K.ENC_WIDE_SLOTS
+        enc = plan["kernels"]["enc_post_wide_kernel"]
+        assert enc["slots"] == slots and 2 <= slots <= K.ENC_WIDE_SLOTS
+        assert enc["smem_bytes"] == smem
         assert smem <= plan["smem_bytes"] <= K.ATT_SMEM_LIMIT
-    assert "enc_tiles" not in K.post_plan(700, 200, 300, chunk=K.DEC_CHUNK,
-                                          keypoints=100)
+    assert "enc_post_wide_kernel" not in K.post_plan(
+        700, 200, 300, chunk=K.DEC_CHUNK, keypoints=100)["kernels"]
+
+
+@pytest.mark.parametrize("c", [1, 16, 100, 200, 384, 511, 512])
+@pytest.mark.parametrize("k", [1, 64, 65, 100, 128])
+def test_decoder_wide_plan_fits_and_covers_every_row(c, k):
+    """The wide decoder kernels' part of post_plan (csrc/dec_wide.cuh): each
+    kernel's rings of at least four WIDE_BOX slots a warpgroup in a block's
+    shared memory (dec_wide_rings, dw_smem); the self and cross kernels'
+    tiles of ENC_WIDE_TILE flattened rows and the gcn kernel's tiles of
+    ENC_WIDE_TILE rows of one batch row cover every row once, a last tile
+    partly filled where the rows are no multiple of 64 (`pad_rows`,
+    `gcn_pad_rows`); C, 2C and F fit the padded widths in whole boxes and
+    chunks."""
+    tile = K.ENC_WIDE_TILE
+    partial = set()
+    for b, f in ((1, 1), (7, 300), (60, 1024), (3, 3000)):
+        # the self kernel's rows need be no batch of keypoint rows
+        for rows, kp in ((b * k, None), (b * k + 5, None), (b * k, k)):
+            plan = K.post_plan(rows, c, f, chunk=K.DEC_CHUNK, keypoints=kp)
+            assert plan["wide"] and plan["half"] == K.enc_wide_half(c)
+            assert plan["c_pad"] == 2 * plan["half"] >= c
+            assert plan["c2_pad"] == 2 * plan["c_pad"] >= 2 * c
+            assert plan["f_pad"] % K.ENC_WIDE_CHUNK == 0
+            assert plan["f_pad"] - K.ENC_WIDE_CHUNK < f <= plan["f_pad"]
+            assert plan["chunks"] == plan["f_pad"] // K.ENC_WIDE_CHUNK
+            rings = K.dec_wide_rings(c)
+            for name, kern in plan["kernels"].items():
+                if name == "enc_post_wide_kernel":
+                    continue
+                assert (kern["slots"], kern["smem_bytes"]) == rings[name]
+                assert 4 <= kern["slots"] <= K.ENC_WIDE_SLOTS
+                assert kern["smem_bytes"] <= plan["smem_bytes"] \
+                    <= K.ATT_SMEM_LIMIT
+            # the flattened rows: every row in exactly one tile
+            cover = [t * tile + i for t in range(plan["tiles"])
+                     for i in range(tile) if t * tile + i < rows]
+            assert cover == list(range(rows))
+            assert plan["pad_rows"] == plan["tiles"] * tile - rows
+            assert 0 <= plan["pad_rows"] < tile
+            partial.add(plan["pad_rows"] > 0)
+            if kp is None:
+                assert "gcn_tiles" not in plan
+                continue
+            # the gcn kernel: ceil(K / 64) tiles a batch row, each row of
+            # each batch row in one of them
+            kt = -(-k // tile)
+            assert plan["gcn_tiles"] == b * kt
+            seen = [(g // kt, (g % kt) * tile + i)
+                    for g in range(plan["gcn_tiles"]) for i in range(tile)
+                    if (g % kt) * tile + i < k]
+            assert seen == [(bi, i) for bi in range(b) for i in range(k)]
+            assert plan["gcn_pad_rows"] == kt * tile - k
+            partial.add(plan["gcn_pad_rows"] > 0)
+    assert True in partial            # a last tile only partly filled
 
 
 @pytest.mark.parametrize("c,h,ffn", WIDTHS)
@@ -329,9 +392,9 @@ def test_padded_training_attention_matches_jax(d):
 def test_prepared_weights_follow_the_plan():
     """The fused ops' `_prepare` lays out the weights the kernels read:
     at 256 channels as they are (hidden padded to its chunks), elsewhere
-    the encoder's padded to enc_c_pad channels and enc_f_pad hidden
-    columns, the decoder's to c_pad and 2C to a multiple of 16, the GEMMs'
-    weights as they are; and the 256-channel kernels' inputs stay the
+    the encoder's padded to c_pad channels and f_pad hidden columns, the
+    decoder's to c_pad, 2C to c2_pad and the GCN width to f_pad, the
+    GEMMs' weights as they are; and the 256-channel kernels' inputs stay the
     parameters themselves where no padding is needed."""
     enc = EncoderLayer(200, 8, 300)
     w = tenc._prepare(enc)
@@ -340,10 +403,10 @@ def test_prepared_weights_follow_the_plan():
     assert w["wqkv"].shape == (600, 200) and w["bo"].shape == (200,)
     dec = DecoderLayer(200, 8, 300)
     w = tdec._prepare(dec)
-    assert w["wso"].shape == (208, 208) and w["wcq_x"].shape == (400, 208)
-    assert w["wco"].shape == (400, 400) and w["wch"].shape == (208, 400)
-    assert w["wg"].shape == (640, 208) and w["bg"].shape == (640,)
-    assert w["wf"].shape == (208, 320) and w["wck_img"].shape == (400, 200)
+    assert w["wso"].shape == (256, 256) and w["wcq_x"].shape == (512, 256)
+    assert w["wco"].shape == (512, 512) and w["wch"].shape == (256, 512)
+    assert w["wg"].shape == (768, 256) and w["bg"].shape == (768,)
+    assert w["wf"].shape == (256, 384) and w["wck_img"].shape == (400, 200)
     w = tenc._prepare(EncoderLayer(256, 8, 300))
     assert w["w1"].shape == (384, 256) and w["wo"].shape == (256, 256)
     ref = EncoderLayer(256, 8, 384)
