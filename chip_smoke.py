@@ -64,8 +64,8 @@ Phases (any failure exits non-zero before the last line):
    kernels do not take it, with no kernel launched, and the stage-3
    widths in bf16 must be taken at 224, 256 and 518 px;
    the wide head kernels (head_wide.cu: enc_post_wide_kernel,
-   kpt_head_wide_kernel, bias_attn_wide_kernel; dec_self_wide.cu and
-   dec_wide.cu:
+   bias_attn_wide_kernel; kpt_wide.cu: kpt_head_wide_kernel;
+   dec_self_wide.cu and dec_wide.cu:
    dec_post_self_wide_kernel, and dec_post_cross_wide_kernel with
    dec_post_gcn_wide_kernel, the cross layer's two launches) and the
    attention at padded head dims (25, 50) and at head dim 128, eval and
@@ -675,12 +675,12 @@ def op_checks(dev, entries):
             2 * nbytes(x) + param_bytes(blk),
             2 * nq * n_tok * 12 * c_vit ** 2 + 4 * nq * n_tok ** 2 * c_vit),
         "fused_encoder_stack": bound(
-            2 * nbytes(tok) + nbytes(pos, valid) + param_bytes(*enc),
+            2 * nbytes(tok) + nbytes(pos, valid) + kernel_param_bytes(*enc),
             3 * (2 * nq * (hw + K) * (4 * c_hd ** 2 + 2 * c_hd * ffn)
                  + 4 * nq * (hw + K) ** 2 * c_hd)),
         "fused_decoder_layer": bound(
             2 * nbytes(kx) + nbytes(qpos, img, ipos, kvalid, bias, adj)
-            + param_bytes(dec),
+            + kernel_param_bytes(dec),
             # self-attention; cross-attention at 2C (q, out and choker on
             # K tokens, k and v on the image tokens); GCN and ffn2
             2 * nq * K * 4 * c_hd ** 2 + 4 * nq * K * K * c_hd
@@ -1320,13 +1320,14 @@ WIDTH_OPS = [(200, 8, 300), (512, 8, 1024)]
 # an eval chunk of WIDTH_GROUPS x QUERIES queries; WIDTH_STEPS stage-3
 # Trainer steps of WIDTH_ROWS rows (dropout 0)
 WIDTH_GROUPS, WIDTH_ROWS, WIDTH_STEPS = 4, 8, 2
-# the query rows of the redesigned head_wide.cu kernels' own [op] lines:
+# the query rows of the redesigned wide kernels' own [op] lines:
 # the [widths] chunk's 4 x 15 and the eval chunk's 34 x 15
 WIDE_OP_ROWS = (WIDTH_GROUPS * QUERIES, GROUPS * QUERIES)
 WIDE_SOURCE = "edgecape_tpu_torch/csrc/head_wide.cu"
 DEC_SOURCES = {"dec_post_self_wide_kernel":
                "edgecape_tpu_torch/csrc/dec_self_wide.cu",
                "dec_post_cross_wide_kernel": "edgecape_tpu_torch/csrc/dec_wide.cu"}
+KPT_SOURCE = "edgecape_tpu_torch/csrc/kpt_wide.cu"
 # the ops' plain versions, none of which may run on the kernel path
 PLAIN_FNS = (("fused_encoder", "fused_encoder_layer_plain"),
              ("fused_decoder", "fused_decoder_layer_plain"),
@@ -1369,7 +1370,8 @@ def width_path_kernels(c, h, stack):
     all layers and per layer the sine features, 3 GEMMs, the bias
     attention, 1 attention, the two post-attention kernels and the
     keypoint head. The 256-channel kernels at 256 channels, their wide
-    forms elsewhere (head_wide.cu, dec_self_wide.cu, dec_wide.cu: there the
+    forms elsewhere (head_wide.cu, kpt_wide.cu, dec_self_wide.cu,
+    dec_wide.cu: there the
     decoder's cross
     kernel is two launches, wide_extra); bias_attn_kernel at 8 heads of
     32."""
@@ -1501,7 +1503,7 @@ def enc_post_wide_lines(dev, power, bad):
                     lambda: FE.fused_encoder_stack(tok, pos, None, enc,
                                                    num_heads=h))
                 lib_ms, _, lib_wall = BA.device_ms(library_stack)
-            bnd = bound(nbytes(att, src, out) + param_bytes(
+            bnd = bound(nbytes(att, src, out) + kernel_param_bytes(
                 enc[0].self_attn.out_proj, enc[0].linear1, enc[0].linear2,
                 enc[0].norm1, enc[0].norm2), 2 * r * (c * c + 2 * c * ffn))
             plan = KN.post_plan(r, c, ffn)
@@ -1676,6 +1678,122 @@ def dec_post_wide_lines(dev, entries, power, bad):
         torch.cuda.empty_cache()
 
 
+def kpt_wide_lines(dev, entries, power, bad):
+    """[op] kpt_head_wide_kernel lines (csrc/kpt_wide.cu) at the WIDTH_OPS
+    widths and WIDE_OP_ROWS query rows of K keypoints, on a seeded
+    one-layer decoder's final norm and kpt_branch (bf16, as the stack's
+    weights): one launch's device ms (profiler) beside its bound (the two
+    passes' products of the true widths / 989 TFLOP/s, or x, ct, pts,
+    outs and the weights once / 3.35 TB/s) and the share of it, CUDA-event
+    ms, the plain version's ms, the coordinates against
+    ops/fused_decoder.py kpt_head_plain with its products summed in
+    float64 (KPT_MAX, KPT_MEAN: at 51000 rows the fp32 sums' own rounding
+    puts the plain version up to about 2e-4 from it, PERF.md) and, as
+    information, against the fp32 plain version, the launch counted, the
+    plan (instance, padded width, tiles of source rows, the
+    blocks of the persistent grid and the SMs they fill, ring slots and
+    shared memory as the built launch takes them, which must equal the
+    plan's) and the instance's ptxas registers and spills; a failure is
+    appended to `bad`. The 60-row calls also become kernels-line
+    entries."""
+    import edgecape_tpu_torch.ops.fused_decoder as FD
+    from edgecape_tpu_torch.models.transformer import Decoder
+    from edgecape_tpu_torch.ops import kernels as KN
+    from edgecape_tpu_torch.tools import bench_attention as BA
+    bf, name = torch.bfloat16, "kpt_head_wide_kernel"
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for c, h, ffn in WIDTH_OPS:
+        tag = f"{c}/{h}/{ffn}"
+        g, rn = seeded_randn(SEED + 97 + c + h, dev)
+        dec = randomize(Decoder(c, h, ffn, 1, attn_bias=True, max_hops=4,
+                                num_feats=c // 2), rn, dev).to(bf)
+        sw = FD._build_stack_weights(dec, c // 2, True)
+        lw = sw["layers"][0]
+        br = dec.kpt_branches[0]
+        kpt0 = [(fc.weight, fc.bias) for fc in (br.fc0, br.fc1, br.fc2)]
+        card = KN.kpt_wide_card_layout(c)
+        lay = KN.kpt_wide_layout(c)
+        ptx = [f"ptxas {n}: {regs} registers, spill {st} / {ld} B"
+               for n, regs, st, ld in KN.ptxas_usage(name)
+               if f"Li{lay['half']}ELb{int(lay['split'])}E" in n] or \
+            [f"ptxas {name}: not built here"]
+        for nq in WIDE_OP_ROWS:
+            r = nq * K
+            x = rn(r, c).to(bf)
+            ct = torch.rand(r, 2, generator=g).to(dev)
+            pts, outs = torch.empty_like(ct), torch.empty_like(ct)
+
+            def kern():
+                KN.kpt_head(x, ct, sw["fn"], lw["kpt"], lw["kow"], lw["kob"],
+                            pts, outs, eps=1e-5)
+
+            def plain_fn(sums=torch.float32):
+                return FD.kpt_head_plain(x, ct, sw["fn"], kpt0, lw["kow"],
+                                         lw["kob"], eps=1e-5, sums=sums)
+            with torch.no_grad():
+                n0 = KN.launches[name]
+                kern()
+                counted = KN.launches[name] - n0
+                ref = torch.stack(plain_fn(torch.float64))
+                ref32 = torch.stack(plain_fn())
+                torch.cuda.synchronize()
+                got = torch.stack([pts, outs])
+                d = (got - ref).abs()
+                err, mean = d.max().item(), d.mean().item()
+                d32 = (got - ref32).abs()
+                err32, mean32 = d32.max().item(), d32.mean().item()
+                own = (ref32 - ref).abs().max().item()
+                finite_out = bool(torch.isfinite(got).all())
+                del ref, ref32, d, d32, got
+                dev_ms, _, wall = BA.device_ms(kern)
+                plain_ms = time_ms(plain_fn, reps=3)
+                ms = time_ms(kern)
+            plan = KN.kpt_head_plan(r, c)
+            same = card == lay and (lay["slots"], lay["smem_bytes"]) == (
+                plan["slots"], plan["smem_bytes"])
+            ok = err <= KPT_MAX and mean <= KPT_MEAN and finite_out and \
+                counted == 1 and same
+            bnd = bound(nbytes(x, ct, pts, outs, *sw["fn"], lw["kow"],
+                               lw["kob"], *(b for _, b in lw["kpt"]))
+                        + 3 * c * c * 2, 2 * 2 * r * (3 * c * c + 2 * c))
+            blocks = min(plan["tiles"], sms)
+            share, three = ("", "not measured") if dev_ms is None else (
+                f", {100 * bnd[0] / dev_ms:.1f}% of it", f"{3 * dev_ms:.4f} ms")
+            print(f"[op] {name} ({tag}, {nq} x {K} = {r} rows): "
+                  f"{BA.ms_text(dev_ms, wall)} a launch (3 a stack: {three}), "
+                  f"bound {bnd[0]:.4f} ms ({bnd[1]}){share}; kernel "
+                  f"{ms:.4f} ms (CUDA events); plain {plain_ms:.3f} ms; "
+                  f"coordinates against the float64-summed plain version "
+                  f"max_abs_err {err:.4g} mean_abs_err {mean:.3g} (tol "
+                  f"{KPT_MAX}, mean {KPT_MEAN}), against the fp32 one max "
+                  f"{err32:.4g} mean {mean32:.3g} (the fp32 one's own max "
+                  f"{own:.4g}); {counted} launch "
+                  f"counted; plan: instance '{plan['instance']}' at c_pad "
+                  f"{plan['c_pad']} ({plan['half']} channels a warpgroup), "
+                  f"{plan['tiles']} tiles of {plan['source_rows']} source "
+                  f"rows ({plan['tile_rows']} stacked) on {blocks} blocks of "
+                  f"{sms} SMs, {card['rings']} ring(s) of {card['slots']} slots, "
+                  f"{card['smem_bytes']} B shared memory"
+                  + ("" if same else f" (the plan disagrees: {plan})")
+                  + f"; {'; '.join(ptx)} on {power} {'OK' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                bad.append(f"{name} ({tag}, {nq} rows)")
+            if nq == WIDE_OP_ROWS[0]:
+                entries[f"{name} ({tag})"] = {
+                    "name": f"{name} ({tag})", "route": "cuda",
+                    "source": KPT_SOURCE,
+                    "op": "edgecape_tpu_torch/ops/kernels.py",
+                    "replaces": "edgecape_tpu/ops/fused_decoder.py:531",
+                    "launches": 0, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bnd[0],
+                    "bound_by": bnd[1], "library_ms": None,
+                    "device_ms": dev_ms, "width_kernels": [name]}
+            del x, ct, pts, outs
+        del dec, sw
+        torch.cuda.empty_cache()
+
+
 def bias_wide_line(row, power):
     """The [op] bias_attn_wide_kernel summary of a WIDTH_SHAPES row of the
     hop bias (tools/bench_attention.py run_case): device ms beside its
@@ -1704,7 +1822,8 @@ def width_op_checks(dev, entries, power):
     forward and backward). Each line: device ms, kernels a call, plain
     ms, bound, library ms. Then the redesigned kernels' own lines:
     bias_attn_wide_kernel's summary of each hop-bias row (60 and 510 query
-    rows: bias_wide_line), enc_post_wide_lines and dec_post_wide_lines."""
+    rows: bias_wide_line), enc_post_wide_lines, dec_post_wide_lines and
+    kpt_wide_lines."""
     import edgecape_tpu_torch.ops.fused_decoder as FD
     import edgecape_tpu_torch.ops.fused_encoder as FE
     from edgecape_tpu_torch.ops import kernels as KN
@@ -1778,7 +1897,8 @@ def width_op_checks(dev, entries, power):
              lambda: FE.fused_encoder_stack(tok, pos, valid, enc,
                                             num_heads=h),
              plain_stack, stack_pairs,
-             bound(2 * nbytes(tok) + nbytes(pos, valid) + param_bytes(*enc),
+             bound(2 * nbytes(tok) + nbytes(pos, valid)
+                   + kernel_param_bytes(*enc),
                    enc_flops), library_stack,
              1 + 3 * len(enc) + len(enc) * pad_self,
              (f"enc_post{w}_kernel",)),
@@ -1791,7 +1911,7 @@ def width_op_checks(dev, entries, power):
                                                   bias, adj, dec, num_heads=h),
              None,
              bound(2 * nbytes(kx) + nbytes(qpos, img, ipos, kvalid, bias, adj)
-                   + param_bytes(dec), dec_flops), None,
+                   + kernel_param_bytes(dec), dec_flops), None,
              8 + wide_extra(c) + pad_self + pad_cross, dec_kernels),
         ]
         with torch.no_grad():
@@ -1887,7 +2007,7 @@ def width_op_checks(dev, entries, power):
                        f"{dk.max().item():.3g} mean {dk.mean().item():.3g} "
                        f"(tol {KPT_MAX}, mean {KPT_MEAN}) "
                        f"{'OK' if kpt_ok else 'FAIL'} on {power}")
-            entries[name].update(source=WIDE_SOURCE,
+            entries[name].update(source=KPT_SOURCE,
                                  width_kernels=[f"kpt_head{w}_kernel"])
             if not kpt_ok:
                 bad.append(f"{name} coordinates")
@@ -1928,7 +2048,7 @@ def width_op_checks(dev, entries, power):
             glue_flops = 2 * r * (4 * nf * c + c * c) \
                 + 2 * 2 * r * (3 * c * c + 2 * c)
             bias_flops = 2 * nq * K * K * (nhop * hid + hid * h)
-            bnd = bound(nbytes(*args) + param_bytes(sdec)
+            bnd = bound(nbytes(*args) + kernel_param_bytes(sdec)
                         + 2 * layers * r * 2 * 4,
                         layers * (dec_flops + glue_flops), layers * bias_flops)
             print(f"[op] fused_decoder_stack ({tag}): {layers} layers, rows "
@@ -1982,6 +2102,7 @@ def width_op_checks(dev, entries, power):
         torch.cuda.empty_cache()
     enc_post_wide_lines(dev, power, bad)
     dec_post_wide_lines(dev, entries, power, bad)
+    kpt_wide_lines(dev, entries, power, bad)
     if bad:
         fail(f"kernels at the new widths disagree with their plain versions "
              f"or did not run: {bad}")
@@ -3246,7 +3367,7 @@ def variant_op_checks(dev, entries, power):
         ms = time_ms(lambda: FD.fused_decoder_stack(*args, dec, **kw))
         plain_ms = time_ms(lambda: FD.fused_decoder_stack_plain(*args, dec,
                                                                 **kw), reps=3)
-        bnd = bound(nbytes(*args) + param_bytes(dec) + outs_bytes,
+        bnd = bound(nbytes(*args) + kernel_param_bytes(dec) + outs_bytes,
                     layers * (layer_flops + glue_flops), layers * bias_flops)
         # device time and kernels of one call (device_extra: the count
         # from the launch counters where the traces lost their events)
@@ -4018,7 +4139,7 @@ def serve_op_checks(dev, entries):
                                                num_heads=heads),
                 plain_stack,
                 bound(2 * nbytes(tok) + nbytes(pos, valid)
-                      + param_bytes(*enc),
+                      + kernel_param_bytes(*enc),
                       layers * (2 * rows * (hw + K) * (4 * c ** 2
                                                        + 2 * c * ffn)
                                 + 4 * rows * (hw + K) ** 2 * c)),
@@ -4072,7 +4193,7 @@ def serve_op_checks(dev, entries):
                 + 2 * rows * 2 * K * K * ffn + 2 * r * (4 * nf * c + c * c)
                 + 4 * r * (3 * c * c + 2 * c))
             hid = nhop - 1 + heads
-            bnd = bound(nbytes(*args) + param_bytes(dec)
+            bnd = bound(nbytes(*args) + kernel_param_bytes(dec)
                         + 2 * layers * r * 2 * 4, flops,
                         layers * 2 * rows * K * K * (nhop * hid + hid * heads))
             print(f"[op] {name}: each layer alone against the plain layer "

@@ -73,9 +73,10 @@
 //          buffers (32 KB) + 1 KB = 66 KB, 8 slots a warpgroup;
 //   8 slots a warpgroup at most (ops/kernels.py dec_wide_rings).
 //
-// This header holds what the three share; dec_self_wide.cu has the self
-// kernel and dec_wide.cu the cross layer's two, each source a library
-// of its own so that nvcc builds them side by side.
+// This header holds what the three share (kpt_wide.cu's keypoint head
+// takes its ring units, parts and launch helpers too); dec_self_wide.cu
+// has the self kernel and dec_wide.cu the cross layer's two, each source a
+// library of its own so that nvcc builds them side by side.
 
 #pragma once
 

@@ -1,15 +1,16 @@
 // Width-generic companions of the head's kernels in kernels.cu, for every
 // head the JAX package takes other than the 256 channels (8 heads of 32)
-// those are written for: enc_post_wide_kernel, kpt_head_wide_kernel (C up
-// to 512 channels, any hidden width) and bias_attn_wide_kernel (1..16
-// heads of 1..128); the decoder layer's post-attention kernels at those
-// widths are dec_self_wide.cu's and dec_wide.cu's (dec_post_self_wide_kernel,
-// dec_post_cross_wide_kernel, dec_post_gcn_wide_kernel: built from the
-// parts enc_post_wide_kernel shares in head_wide.cuh, libraries of their
-// own so that nvcc builds them beside this file).
+// those are written for: enc_post_wide_kernel and bias_attn_wide_kernel
+// (1..16 heads of 1..128); the decoder layer's post-attention kernels at
+// those widths are dec_self_wide.cu's and dec_wide.cu's
+// (dec_post_self_wide_kernel, dec_post_cross_wide_kernel,
+// dec_post_gcn_wide_kernel) and the keypoint head kpt_wide.cu's
+// (kpt_head_wide_kernel), all built from the parts enc_post_wide_kernel
+// shares in head_wide.cuh, libraries of their own so that nvcc builds them
+// beside this file.
 // They replace the same TPU kernels as their 256-channel forms
-// (edgecape_tpu/ops/fused_encoder.py _layer_body, fused_decoder.py _kernel
-// and _stack_kernel) with the same rounding points as the plain versions
+// (edgecape_tpu/ops/fused_encoder.py _layer_body, fused_decoder.py
+// _stack_kernel) with the same rounding points as the plain versions
 // (ops/fused_encoder.py, ops/fused_decoder.py): bf16 operands, fp32
 // accumulation, fp32 LayerNorm statistics over the true C and softmax.
 //
@@ -86,111 +87,16 @@
 //     fragments (attention.cuh attn_scores / attn_pv), the scores, softmax
 //     (2^x) and P (rounded to bf16) in registers, the output staged
 //     through the head's query rows.
-//
-// kpt_head_wide_kernel is simple and right at every width, not fast:
-//   * a block owns a tile of 16 rows, 256 threads;
-//   * products are WMMA m16n16k16 (bf16 in, fp32 out): A from shared memory,
-//     B straight from the weights in device memory (L2 holds them: every
-//     tile reads the same ones), outputs into fp32 rows in shared memory;
-//   * K and N are padded to multiples of 16 with zero rows and columns in
-//     the weights, laid out once by the decoder stack's weights
-//     (ops/kernels.py kpt_head_plan, pad_cols); rows and channels past the
-//     true ones are zero in the A tiles, so the padding adds exact zeros,
-//     and every LayerNorm, bias and store runs over the true C alone;
-//   * row work (bias, LayerNorm, activations, stores) takes a half-warp a
-//     row, its sums by shuffles.
-// What bounds it: each 16-row tile reads every weight from L2, so it runs
-// at L2's rate, far above the bytes and operations the work needs. Its
-// times are in PERF.md.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 #include "attention.cuh"
 #include "head_wide.cuh"
-
-using namespace nvcuda;
-
-#define HW_ROWS 16         // rows of a tile
-#define HW_THREADS 256     // 8 warps
-
-// out[16, n] (fp32 shared memory, row stride ldo) = a[16, k] (bf16
-// shared, stride lda) . B, with B [k, n] the transpose of a [n, k] weight
-// of row stride ldb; n and k multiples of 16, every base 32-byte aligned.
-// Warps take the 16-column tiles in turn; the caller synchronises the
-// block around it.
-__device__ __forceinline__ void tile_mm(float* out, int ldo, const bf16* a, int lda,
-                                        const bf16* b, long ldb, int n, int k) {
-  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  for (int n0 = warp * 16; n0 < n; n0 += nw * 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    wmma::fill_fragment(c, 0.0f);
-    for (int k0 = 0; k0 < k; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, a + k0, lda);
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, b + (long)n0 * ldb + k0, (unsigned)ldb);
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(out + n0, c, ldo, wmma::mem_row_major);
-  }
-}
-
-__device__ __forceinline__ float hsum16(float v) {
-#pragma unroll
-  for (int o = 8; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// The half-warp of a row: rows 2 warp and 2 warp + 1 of the tile.
-struct RowLane {
-  int r, l;   // tile row, lane in the row's half-warp (0..15)
-};
-__device__ __forceinline__ RowLane row_lane() {
-  const int lane = threadIdx.x & 31;
-  return {2 * (threadIdx.x >> 5) + (lane >> 4), lane & 15};
-}
-
-// LayerNorm of v[0 .. c) (a tile row in shared memory) in place, fp32
-// statistics and the two-pass variance over the true c, as
-// ops/plain.py layer_norm: (v - mean) * rsqrt(var + eps) * g + be.
-__device__ __forceinline__ void row_layernorm(float* v, int c, const float* g, const float* be,
-                                              float eps, int l) {
-  float s = 0.0f;
-  for (int i = l; i < c; i += 16) s += v[i];
-  const float mean = hsum16(s) / (float)c;
-  float q = 0.0f;
-  for (int i = l; i < c; i += 16) {
-    const float d = v[i] - mean;
-    q += d * d;
-  }
-  const float inv = rsqrtf(hsum16(q) / (float)c + eps);
-  for (int i = l; i < c; i += 16) v[i] = (v[i] - mean) * inv * g[i] + be[i];
-}
-
-// Rows [row0, row0 + 16) of a bf16 matrix [rows, c] (row stride ld) into
-// the bf16 tile a [16, cp] (stride lda): zeros past `rows` and past c.
-__device__ __forceinline__ void load_rows(bf16* a, int lda, const bf16* m, long ld, long row0,
-                                          long rows, int c, int cp) {
-  for (int i = threadIdx.x; i < HW_ROWS * cp; i += blockDim.x) {
-    const int r = i / cp, cc = i % cp;
-    const long row = row0 + r;
-    a[r * lda + cc] = row < rows && cc < c ? m[row * ld + cc] : __float2bfloat16(0.0f);
-  }
-}
-
-// Shared memory: bf16 and fp32 tiles of 16 rows, strides padded (bf16 by
-// 8, fp32 by 4 elements) and each tile rounded up to 128 bytes.
-__host__ __device__ constexpr int hw_bld(int cols) { return cols + 8; }
-__host__ __device__ constexpr int hw_fld(int cols) { return cols + 4; }
-__host__ __device__ constexpr long hw_bytes(long b) { return (b + 127) / 128 * 128; }
-__host__ __device__ constexpr long hw_btile(int cols) { return hw_bytes(2L * HW_ROWS * hw_bld(cols)); }
-__host__ __device__ constexpr long hw_ftile(int cols) { return hw_bytes(4L * HW_ROWS * hw_fld(cols)); }
 
 static int hw_launch_check(const void* f, long smem, bool& configured) {
   if (smem > HW_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
@@ -439,71 +345,6 @@ __global__ void __launch_bounds__(EW_THREADS, 1)
         }
       }
     }
-  }
-}
-
-// ---- decoder stack, a layer's keypoint head: for h = x and h = bf16(LN(x))
-// (the final norm), h = bf16(gelu(h . W_i^T + b_i)) for the three kpt_branch
-// layers, dd = h . Wo^T + bo, and sigmoid(inverse_sigmoid(ct) + dd) into
-// pts (from x) and outs (from the normed x), as ops/fused_decoder.py
-// kpt_head_plain (exact-erf GELU, log-odds clipped at ieps).
-struct KptWideArgs {
-  const bf16 *x, *w0, *w1, *w2, *wo;
-  const float *g, *be, *b0, *b1, *b2, *bo;
-  const float* ct;
-  float *pts, *outs;
-  long R;
-  int C, Cp;
-  float eps, ieps;
-};
-
-__host__ __device__ constexpr long kpt_wide_smem(int cp) { return hw_btile(cp) + hw_ftile(cp); }
-
-__global__ void __launch_bounds__(HW_THREADS) kpt_head_wide_kernel(KptWideArgs p) {
-  extern __shared__ __align__(128) unsigned char hw_raw[];
-  const int cp = p.Cp, lda = hw_bld(cp), ldz = hw_fld(cp);
-  bf16* A = reinterpret_cast<bf16*>(hw_raw);
-  float* Z = reinterpret_cast<float*>(hw_raw + hw_btile(cp));
-  const long row0 = (long)blockIdx.x * HW_ROWS;
-  const RowLane rl = row_lane();
-  const long row = row0 + rl.r;
-  const bf16* ws[3] = {p.w0, p.w1, p.w2};
-  const float* bs[3] = {p.b0, p.b1, p.b2};
-
-  for (int pass = 0; pass < 2; ++pass) {
-    load_rows(A, lda, p.x, p.C, row0, p.R, p.C, cp);
-    __syncthreads();
-    if (pass) {
-      float* v = Z + rl.r * ldz;
-      for (int e = rl.l; e < p.C; e += 16) v[e] = __bfloat162float(A[rl.r * lda + e]);
-      row_layernorm(v, p.C, p.g, p.be, p.eps, rl.l);
-      for (int e = rl.l; e < p.C; e += 16) A[rl.r * lda + e] = __float2bfloat16(v[e]);
-      __syncthreads();
-    }
-    for (int layer = 0; layer < 3; ++layer) {
-      tile_mm(Z, ldz, A, lda, ws[layer], cp, cp, cp);
-      __syncthreads();
-      for (int e = rl.l; e < p.C; e += 16) {
-        const float z = Z[rl.r * ldz + e] + bs[layer][e];
-        A[rl.r * lda + e] = __float2bfloat16(0.5f * z * (1.0f + erff(z * 0.7071067811865476f)));
-      }
-      __syncthreads();
-    }
-    float dd[2];
-#pragma unroll
-    for (int o = 0; o < 2; ++o) {
-      float s = 0.0f;
-      for (int e = rl.l; e < p.C; e += 16)
-        s += __bfloat162float(A[rl.r * lda + e]) * __bfloat162float(p.wo[o * p.C + e]);
-      dd[o] = hsum16(s) + p.bo[o];
-    }
-    if (row < p.R && rl.l < 2) {
-      const float c = fminf(fmaxf(p.ct[2 * row + rl.l], 0.0f), 1.0f);
-      const float inv = logf(fmaxf(c, p.ieps) / fmaxf(1.0f - c, p.ieps));
-      const float z = inv + dd[rl.l];
-      (pass ? p.outs : p.pts)[2 * row + rl.l] = 1.0f / (1.0f + expf(-z));
-    }
-    __syncthreads();
   }
 }
 
@@ -893,32 +734,6 @@ extern "C" int ec_enc_post_wide(const void* att, const void* src, const void* wo
   }
 }
 
-extern "C" int ec_kpt_head_wide(const void* x, const void* g, const void* be, const void* w0,
-                                const void* b0, const void* w1, const void* b1, const void* w2,
-                                const void* b2, const void* wo, const void* bo, const void* ct,
-                                void* pts, void* outs, long R, int C, int Cp, float eps,
-                                float ieps, void* stream) {
-  static bool configured = false;
-  if (R <= 0 || C <= 0 || C > HW_MAX_C || Cp % 16 || Cp < C || !hw_aligned(w0) ||
-      !hw_aligned(w1) || !hw_aligned(w2))
-    return (int)cudaErrorInvalidValue;
-  const long smem = kpt_wide_smem(Cp);
-  const int rc = hw_launch_check((const void*)kpt_head_wide_kernel, smem, configured);
-  if (rc) return rc;
-  KptWideArgs p;
-  p.x = static_cast<const bf16*>(x);
-  p.w0 = static_cast<const bf16*>(w0); p.w1 = static_cast<const bf16*>(w1);
-  p.w2 = static_cast<const bf16*>(w2); p.wo = static_cast<const bf16*>(wo);
-  p.g = static_cast<const float*>(g); p.be = static_cast<const float*>(be);
-  p.b0 = static_cast<const float*>(b0); p.b1 = static_cast<const float*>(b1);
-  p.b2 = static_cast<const float*>(b2); p.bo = static_cast<const float*>(bo);
-  p.ct = static_cast<const float*>(ct);
-  p.pts = static_cast<float*>(pts); p.outs = static_cast<float*>(outs);
-  p.R = R; p.C = C; p.Cp = Cp; p.eps = eps; p.ieps = ieps;
-  kpt_head_wide_kernel<<<(unsigned)((R + HW_ROWS - 1) / HW_ROWS), HW_THREADS, smem,
-                         static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
-}
 template <int DP, int NHOP>
 static int launch_bias_wide(const BiasWideArgs& p, int B, int qsplit, long smem,
                             cudaStream_t s) {

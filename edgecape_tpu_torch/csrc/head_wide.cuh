@@ -1,7 +1,9 @@
 // The parts of a persistent Hopper kernel that the head_wide.cu,
-// dec_self_wide.cu and dec_wide.cu kernels share (enc_post_wide_kernel, the design of the
-// head_wide.cu header; dec_post_self_wide_kernel,
-// dec_post_cross_wide_kernel and dec_post_gcn_wide_kernel, dec_wide.cuh's):
+// dec_self_wide.cu, dec_wide.cu and kpt_wide.cu kernels share
+// (enc_post_wide_kernel, the design of the head_wide.cu header;
+// dec_post_self_wide_kernel, dec_post_cross_wide_kernel and
+// dec_post_gcn_wide_kernel, dec_wide.cuh's; kpt_head_wide_kernel,
+// kpt_wide.cu's):
 // tiles of 64 rows, a producer warpgroup whose one thread issues every TMA
 // copy of the weights, two consumer warpgroups holding the tile's rows
 // times half the channels each (NH = C / 2 rounded up to 64) in wgmma

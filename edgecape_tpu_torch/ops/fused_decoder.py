@@ -71,8 +71,9 @@ companions (ops/kernels.py post_plan, kpt_head_plan, bias_attention_plan
 choose): dec_post_self_wide_kernel, and for dec_post_cross_kernel's work
 two launches, dec_post_cross_wide_kernel and dec_post_gcn_wide_kernel
 (csrc/dec_self_wide.cu, csrc/dec_wide.cu: persistent 64-row tiles,
-weights by TMA into wgmma),
-kpt_head_wide_kernel and bias_attn_wide_kernel (csrc/head_wide.cu), so a
+weights by TMA into wgmma), kpt_head_wide_kernel (csrc/kpt_wide.cu, the
+same shape: the raw and normed rows stacked so that every weight box
+serves both) and bias_attn_wide_kernel (csrc/head_wide.cu), so a
 layer is 9 launches and a stack call 3 + 10 L. The stack's own weights (the permuted fc1, the stacked
 cross-attention weights, kpt_branch, the bias MLPs) are prepared once per
 decoder module and the layers' once per layer module, each kept until a
@@ -350,16 +351,29 @@ def bias_attention_plain(qkv, key_valid, hops, hop_mlp, *,
 
 
 @torch.no_grad()
-def kpt_head_plain(x, ct, fn, kpt, kow, kob, *, eps: float):
+def kpt_head_plain(x, ct, fn, kpt, kow, kob, *, eps: float,
+                   sums: torch.dtype = torch.float32):
     """Plain version of ops/kernels.py kpt_head, the TPU kernel's final
     norm, dual kpt_branch and coordinate update: x [R, C] (bf16 values);
-    ct [R, 2]; fn (gamma, beta); kpt three (weight, bias); kow, kob the
-    delta head. Returns (pts, outs) fp32 [R, 2]."""
-    r = x.shape[0]
+    ct [R, 2]; fn (gamma, beta); kpt three (weight, bias), the weights
+    [C, C] or, as the wide kernel takes them, padded with zero rows and
+    columns (the hidden then carries zero columns past C); kow, kob the
+    delta head. The products of bf16 values are summed in `sums`: float32
+    (the kernels' accumulation) or float64 (the same function summed all
+    but exactly: the yardstick of a sum's own rounding). Returns (pts,
+    outs) fp32 [R, 2]."""
+    def linear(h, w, b):
+        y = torch.matmul(plain.bf16(h).to(sums), plain.bf16(w).to(sums).t())
+        return y.to(torch.float32) + b.to(torch.float32)
+
+    r, c = x.shape
     kh = torch.cat([x.to(torch.float32), plain.layer_norm(x, *fn, eps)])
     for w, b in kpt:
-        kh = plain.gelu(plain.linear(kh, w, b))
-    dd = plain.linear(kh, kow, kob)
+        kh = torch.nn.functional.pad(kh, (0, w.shape[1] - kh.shape[1]))
+        b = torch.nn.functional.pad(b.to(torch.float32),
+                                    (0, w.shape[0] - b.shape[0]))
+        kh = plain.gelu(linear(kh, w, b))
+    dd = linear(kh[:, :c], kow, kob)
     inv = inverse_sigmoid(ct.to(torch.float32))
     return torch.sigmoid(inv + dd[:r]), torch.sigmoid(inv + dd[r:])
 

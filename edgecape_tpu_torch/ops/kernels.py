@@ -133,6 +133,7 @@ _SIGNATURES = {
     "ec_dec_post_self_wide": [_P] * 12 + [_L, _I, _I, _I, _F, _P],
     "ec_dec_post_cross_wide": [_P] * 11 + [_I] + [_P] * 7 + [_I] * 7
     + [_F, _P],
+    # kpt_wide.cu: the operands, R, C, c_pad, eps, ieps
     "ec_kpt_head_wide": [_P] * 14 + [_L, _I, _I, _F, _F, _P],
     # qkv, B, N, H, D, key mask + stride, hops, n_hop, hidden, the MLP's
     # four tensors, scale, out, then the plan: query split, tiles a block,
@@ -147,6 +148,8 @@ _SIGNATURES = {
     "ec_vit_ln_gemm_ctas": [_P],
     # dec_wide.cu: C, the six numbers out
     "ec_dec_wide_layout": [_I, _P],
+    # kpt_wide.cu: C, the five numbers out
+    "ec_kpt_wide_layout": [_I, _P],
 }
 
 
@@ -1061,10 +1064,8 @@ def module_weights(module, attr: str, build, *extra):
 # columns, the decoder's GCN width in chunks of DEC_CHUNK.
 POST_C, POST_TILE, ENC_CHUNK, DEC_CHUNK = 256, 128, 128, 64
 # Their companions at every other width, up to WIDE_MAX_C channels, in
-# shared memory of at most ATT_SMEM_LIMIT a block: kpt_head_wide_kernel
-# (csrc/head_wide.cu) in tiles of WIDE_TILE rows, K and N of its products
-# padded to multiples of WIDE_K.
-WIDE_MAX_C, WIDE_TILE, WIDE_K = 512, 16, 16
+# shared memory of at most ATT_SMEM_LIMIT a block.
+WIDE_MAX_C = 512
 # enc_post_wide_kernel (csrc/head_wide.cu) and the decoder's
 # dec_post_self_wide_kernel, dec_post_cross_wide_kernel and
 # dec_post_gcn_wide_kernel (csrc/dec_wide.cuh): tiles of ENC_WIDE_TILE
@@ -1079,12 +1080,6 @@ ENC_WIDE_TILE, ENC_WIDE_CHUNK, ENC_WIDE_SLOTS, WIDE_BOX = 64, 128, 8, 8192
 
 def _up(n: int, m: int) -> int:
     return -(-n // m) * m
-
-
-def _wide_tile(cols: int, el: int) -> int:
-    """Bytes of a 16-row shared-memory tile of head_wide.cu (hw_btile,
-    hw_ftile): rows padded by 16 bytes, rounded up to 128."""
-    return _up(el * WIDE_TILE * (cols + 16 // el), 128)
 
 
 def enc_wide_half(c: int) -> int:
@@ -1925,10 +1920,11 @@ def kpt_head(x: torch.Tensor, ct: torch.Tensor, fn, kpt, kow, kob,
         ptrs = [_operand(x, (r, c))] + [
             _operand(v, (c,), torch.float32) for v in fn]
         for w, bb in kpt:
-            ptrs += [_operand(w, (cp, cp)), _operand(bb, (c,), torch.float32)]
+            ptrs += [_operand(w, (cp, cp), align=32),
+                     _operand(bb, (c,), torch.float32)]
         ptrs += [_operand(kow, (2, c)), _operand(kob, (2,), torch.float32)]
-        ptrs += [_operand(t, (r, 2), torch.float32, 4)
-                 for t in (ct, pts, outs)]
+        ptrs += [_operand(t, (r, 2), torch.float32, a)
+                 for t, a in ((ct, 8), (pts, 4), (outs, 4))]
         _call("ec_kpt_head_wide", *ptrs, r, c, cp, float(eps), 1e-3,
               _stream())
         launches["kpt_head_wide_kernel"] += 1
@@ -1944,12 +1940,58 @@ def kpt_head(x: torch.Tensor, ct: torch.Tensor, fn, kpt, kow, kob,
     launches["kpt_head_kernel"] += 1
 
 
+# kpt_head_wide_kernel (csrc/kpt_wide.cu): a consumer warpgroup's
+# KPT_WIDE_TILE accumulator rows are 32 source rows as they are and the
+# same rows normed; up to POST_C channels each warpgroup holds all c_pad
+# (c rounded up to 64) channels of its own 32 rows, above it the two split
+# c_pad = 2 enc_wide_half(c) channels of the same 32; the weights in
+# WIDE_BOX units through rings of at most KPT_WIDE_SLOTS slots (one both
+# warpgroups take, or one each).
+KPT_WIDE_TILE, KPT_WIDE_SLOTS = 64, 16
+
+
+def kpt_wide_layout(c: int) -> dict:
+    """kpt_head_wide_kernel's instance at c channels (csrc/kpt_wide.cu
+    kw_smem): `c_pad`, `half` (the channels a warpgroup holds), `split`
+    (the warpgroups split the channels), `rings`, `slots` a ring and
+    `smem_bytes`: alignment slack, two sets of A boxes [64, c_pad] bf16
+    (a warpgroup's own, or shared), the rings of WIDE_BOX slots, dd's
+    partial sums, two tiles' coordinates in for each warpgroup, the seven
+    vectors (three biases, the final norm's two, Wo's two rows) in fp32
+    [c_pad], two barriers a slot."""
+    split = c > POST_C
+    half = enc_wide_half(c) if split else _up(c, 64)
+    c_pad = 2 * half if split else half
+    rings = 2 if split else 1
+    fixed = 1024 + (2 if split else 4) * (c_pad // 64) * WIDE_BOX \
+        + 4 * 2 * 2 * KPT_WIDE_TILE + 2 * 2 * 32 * 8 + 7 * 4 * c_pad
+    slots = min(KPT_WIDE_SLOTS,
+                (ATT_SMEM_LIMIT - fixed) // (rings * (WIDE_BOX + 16)))
+    return {"c_pad": c_pad, "half": half, "split": split, "rings": rings,
+            "slots": slots,
+            "smem_bytes": fixed + rings * slots * (WIDE_BOX + 16)}
+
+
+@functools.lru_cache(maxsize=None)
+def kpt_wide_card_layout(c: int) -> dict:
+    """kpt_wide_layout as the built kernel takes it: what csrc/kpt_wide.cu
+    ec_kpt_wide_layout computes at c channels."""
+    out = (ctypes.c_int * 5)()
+    _call("ec_kpt_wide_layout", c, ctypes.addressof(out))
+    return {"c_pad": out[0], "half": out[1], "split": out[0] != out[1],
+            "rings": out[2], "slots": out[3], "smem_bytes": out[4]}
+
+
 def kpt_head_plan(rows: int, c: int) -> dict:
     """How the keypoint head covers `rows` rows of c channels:
     kpt_head_kernel's tiles of 64 rows at POST_C channels, else (`wide`:
-    True) kpt_head_wide_kernel's tiles of WIDE_TILE rows with the kpt
-    weights padded to `c_pad`. Raises for c outside 1..WIDE_MAX_C or no
-    rows."""
+    True) kpt_head_wide_kernel's (kpt_wide_layout, with the kpt weights
+    padded to `c_pad`): `instance` "rows" up to 255 channels (a tile of
+    `source_rows` 64, 32 a warpgroup, `tile_rows` 128 stacked: every weight
+    box serves both warpgroups' rows as they are and normed), "channels"
+    above 256 (the warpgroups split the channels over one tile of 32
+    source rows, 64 stacked); `tiles`, `slots` a ring of `rings`,
+    `smem_bytes`. Raises for c outside 1..WIDE_MAX_C or no rows."""
     if not 1 <= c <= WIDE_MAX_C:
         raise ValueError(f"the keypoint head takes 1..{WIDE_MAX_C} channels, "
                          f"got {c}")
@@ -1957,9 +1999,13 @@ def kpt_head_plan(rows: int, c: int) -> dict:
         raise ValueError(f"no rows ({rows})")
     if c == POST_C:
         return {"tiles": -(-rows // 64)}
-    cp = _up(c, WIDE_K)
-    return {"wide": True, "c_pad": cp, "tiles": -(-rows // WIDE_TILE),
-            "smem_bytes": _wide_tile(cp, 2) + _wide_tile(cp, 4)}
+    lay = kpt_wide_layout(c)
+    src = KPT_WIDE_TILE // 2 if lay["split"] else KPT_WIDE_TILE
+    return {"wide": True, "c_pad": lay["c_pad"], "half": lay["half"],
+            "instance": "channels" if lay["split"] else "rows",
+            "tile_rows": 2 * src, "source_rows": src,
+            "tiles": -(-rows // src), "rings": lay["rings"],
+            "slots": lay["slots"], "smem_bytes": lay["smem_bytes"]}
 
 
 # The matmul chain of the probe tool (csrc/mm_chain.cu mm_chain_kernel):

@@ -14,8 +14,8 @@ card:
   x, both W layouts, the support pass's rows), its bf16 bits as int16;
 * with --heads, the wide head kernels (the decoder kernels of
   csrc/dec_self_wide.cu and dec_wide.cu through dec_post_self /
-  dec_post_cross, csrc/head_wide.cu's
-  through kpt_head, enc_post and bias_attention) at HEAD_CASES' widths,
+  dec_post_cross, csrc/kpt_wide.cu's through kpt_head, csrc/head_wide.cu's
+  through enc_post and bias_attention) at HEAD_CASES' widths,
   60 batch rows of K keypoints (enc_post: of 356 tokens), seeded
   DecoderLayer / EncoderLayer weights: their outputs, each kernel's
   arrays named apart (heads_<C>_x1 / _q2 / _out, _pts / _outs, _enc_y /

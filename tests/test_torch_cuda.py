@@ -2036,3 +2036,128 @@ def test_dec_post_wide_refuse_cpu_operands_and_count_nothing(dev):
                          _rn(dev, 100, 200), _rn(dev, 1, 2, 100, 100).cpu(),
                          w, eps=1e-5, out_dtype=torch.float32)
     assert K.launches == before
+
+
+# --------------------------------- kpt_wide.cu: kpt_head_wide_kernel
+# The keypoint head at the [widths] widths but 256 (the 512-channel ones
+# once), a width of no multiple of 8 (element loads of x) and an odd one;
+# row counts: the [widths] and eval chunks' 60 and 510 query rows of K 100,
+# a partial tile, one row. The coordinates are held against kpt_head_plain
+# with its products summed in float64 (KPT_MAX, KPT_MEAN of chip_smoke.py:
+# coordinates in [0, 1] through delta heads of 0.02, where a flipped bf16
+# rounding of a hidden value moves one by about 1e-5) and, on the mean,
+# against the fp32 plain version. Where the fp32 plain version is itself
+# farther than KPT_MAX from the float64-summed one (its own sums' rounding
+# reaches 1.8e-4 at 512 channels and 51000 rows in chip_smoke.py's lines,
+# PERF.md), the max of 102000 coordinates sits at the arithmetic's noise
+# floor: there the kernel's mean error may be no larger than the fp32
+# plain version's, and its max no more than KPT_MAX beyond the plain
+# version's own.
+KPT_WIDE_C = [128, 200, 384, 512, 100, 511]
+KPT_MAX, KPT_MEAN = 2e-4, 1e-5
+
+
+def _kpt_operands(dev, c, r, seed):
+    """x, ct (first row clipped at both ends), the final norm, the three
+    kpt_branch layers unpadded and padded to the plan's c_pad (pad_cols),
+    the delta head."""
+    from edgecape_tpu_torch.ops import kernels as K
+    g = torch.Generator().manual_seed(seed)
+
+    def rn(*shape, s=1.0):
+        return (torch.randn(*shape, generator=g) * s).to(dev)
+    cp = K.kpt_head_plan(r, c)["c_pad"]
+    kpt0 = [(rn(c, c, s=c ** -0.5).to(torch.bfloat16), rn(c, s=0.1))
+            for _ in range(3)]
+    kpt = [(K.pad_cols(w, cp, cp).contiguous(), b) for w, b in kpt0]
+    fn = (1.0 + rn(c, s=0.1), rn(c, s=0.1))
+    kow, kob = rn(2, c, s=0.02).to(torch.bfloat16), rn(2, s=0.02)
+    x = rn(r, c).to(torch.bfloat16)
+    ct = torch.rand(r, 2, generator=g).to(dev)
+    ct[0] = torch.tensor([0.0, 1.0])
+    return x, ct, fn, kpt0, kpt, kow, kob
+
+
+@pytest.mark.parametrize("c", [1, 64, 100, 128, 192, 200, 255, 257, 384,
+                               385, 511, 512])
+def test_kpt_wide_plan_layout_is_the_kernels(dev, c):
+    """ops/kernels.py kpt_wide_layout, which kpt_head_plan reports, equals
+    the padded width, ring slots and shared memory that csrc/kpt_wide.cu's
+    launch takes."""
+    from edgecape_tpu_torch.ops import kernels as K
+    lay = K.kpt_wide_layout(c)
+    assert K.kpt_wide_card_layout(c) == lay
+    plan = K.kpt_head_plan(6000, c)
+    assert (plan["c_pad"], plan["slots"], plan["smem_bytes"]) == (
+        lay["c_pad"], lay["slots"], lay["smem_bytes"])
+
+
+@pytest.mark.parametrize("c", KPT_WIDE_C)
+@pytest.mark.parametrize("rows", [6000, 51000, 129, 1])
+def test_kpt_head_wide_matches_plain(dev, c, rows):
+    """kpt_head at every width but 256 is one launch of
+    kpt_head_wide_kernel, within KPT_MAX and KPT_MEAN of the float64-summed
+    plain version on the unpadded weights (where the fp32 plain version
+    misses KPT_MAX itself: as accurate as it on the mean, within KPT_MAX
+    of its max) and within KPT_MEAN of the fp32 one, finite."""
+    from edgecape_tpu_torch.ops import fused_decoder as FD
+    from edgecape_tpu_torch.ops import kernels as K
+    x, ct, fn, kpt0, kpt, kow, kob = _kpt_operands(dev, c, rows, c + rows)
+    pts, outs = torch.empty_like(ct), torch.empty_like(ct)
+    with torch.no_grad():
+        before = dict(K.launches)
+        K.kpt_head(x, ct, fn, kpt, kow, kob, pts, outs, eps=1e-5)
+        assert _ran(before) == {"kpt_head_wide_kernel": 1}
+        got = torch.stack([pts, outs])
+        ref = torch.stack(FD.kpt_head_plain(x, ct, fn, kpt0, kow, kob,
+                                            eps=1e-5, sums=torch.float64))
+        ref32 = torch.stack(FD.kpt_head_plain(x, ct, fn, kpt0, kow, kob,
+                                              eps=1e-5))
+    assert bool(torch.isfinite(got).all())
+    d, own = (got - ref).abs(), (ref32 - ref).abs()
+    err = (d.max().item(), d.mean().item(), own.max().item(),
+           own.mean().item())
+    if own.max().item() <= KPT_MAX:
+        assert d.max().item() <= KPT_MAX, err
+    else:
+        assert d.mean().item() <= own.mean().item(), err
+        assert d.max().item() <= own.max().item() + KPT_MAX, err
+    assert d.mean().item() <= KPT_MEAN, err
+    assert (got - ref32).abs().mean().item() <= KPT_MEAN
+
+
+@pytest.mark.parametrize("c", [100, 200, 512])
+def test_kpt_head_wide_rows_keep_their_bits_at_another_place(dev, c):
+    """A row's coordinates do not depend on its place in the batch: the
+    rows reversed, and one row alone, give it the same bits."""
+    from edgecape_tpu_torch.ops import kernels as K
+    r = 6000
+    x, ct, fn, _, kpt, kow, kob = _kpt_operands(dev, c, r, 3)
+    rev = torch.arange(r - 1, -1, -1, device=dev)
+
+    def run(sel):
+        xs, cs = x[sel].contiguous(), ct[sel].contiguous()
+        pts, outs = torch.empty_like(cs), torch.empty_like(cs)
+        K.kpt_head(xs, cs, fn, kpt, kow, kob, pts, outs, eps=1e-5)
+        return pts, outs
+    with torch.no_grad():
+        whole = run(torch.arange(r, device=dev))
+        flipped = run(rev)
+        one = run(torch.arange(4321, 4322, device=dev))
+    for a, f, o in zip(whole, flipped, one):
+        assert torch.equal(f[rev], a)
+        assert torch.equal(o[0], a[4321])
+
+
+def test_kpt_head_wide_refuses_cpu_operands_and_counts_nothing(dev):
+    """A CPU operand or unpadded weights raise before any launch, and
+    nothing is counted."""
+    from edgecape_tpu_torch.ops import kernels as K
+    x, ct, fn, kpt0, kpt, kow, kob = _kpt_operands(dev, 200, 300, 5)
+    pts, outs = torch.empty_like(ct), torch.empty_like(ct)
+    before = dict(K.launches)
+    with pytest.raises(ValueError):
+        K.kpt_head(x.cpu(), ct, fn, kpt, kow, kob, pts, outs, eps=1e-5)
+    with pytest.raises(ValueError):
+        K.kpt_head(x, ct, fn, kpt0, kow, kob, pts, outs, eps=1e-5)
+    assert K.launches == before

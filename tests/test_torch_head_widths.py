@@ -16,6 +16,7 @@ own order at these widths is emulated in tests/test_torch_fused_post.py,
 the whole model at d_model 200 in tests/test_torch_width_routes.py."""
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -115,6 +116,111 @@ def test_post_and_keypoint_plans_take_every_width(c):
             K.post_plan(10, bad, 64)
         with pytest.raises(ValueError, match="1..512 channels"):
             K.kpt_head_plan(10, bad)
+
+
+@pytest.mark.parametrize("rows", [6000, 51000, 129, 1])
+def test_kpt_head_plan_takes_every_width(rows):
+    """kpt_head_plan from 1 to 512 channels: kpt_head_kernel's plan at
+    POST_C, elsewhere kpt_head_wide_kernel's instance (rows up to 255
+    channels, at c rounded up to 64; channels above 256, at twice
+    enc_wide_half), c_pad a multiple of 64 holding c, tiles that cover the
+    rows in source rows of 32 a warpgroup, rings of at least four WIDE_BOX
+    slots in a block's shared memory (kpt_wide_layout's arithmetic); the
+    refusals as before."""
+    for c in range(1, K.WIDE_MAX_C + 1):
+        plan = K.kpt_head_plan(rows, c)
+        if c == K.POST_C:
+            assert plan == {"tiles": -(-rows // 64)}
+            continue
+        lay = K.kpt_wide_layout(c)
+        assert plan["wide"] and plan["c_pad"] == lay["c_pad"]
+        assert plan["c_pad"] % 64 == 0 and plan["c_pad"] >= c
+        if c < K.POST_C:
+            assert plan["instance"] == "rows" and plan["rings"] == 1
+            assert plan["c_pad"] - 64 < c and plan["half"] == plan["c_pad"]
+            assert plan["source_rows"] == 64
+        else:
+            assert plan["instance"] == "channels" and plan["rings"] == 2
+            assert plan["half"] == K.enc_wide_half(c)
+            assert plan["c_pad"] == 2 * plan["half"]
+            assert plan["source_rows"] == 32
+        assert plan["tile_rows"] == 2 * plan["source_rows"]
+        assert plan["tiles"] == -(-rows // plan["source_rows"])
+        assert (plan["tiles"] - 1) * plan["source_rows"] < rows
+        assert 4 <= plan["slots"] <= K.KPT_WIDE_SLOTS
+        assert plan["slots"] == lay["slots"]
+        assert plan["smem_bytes"] == lay["smem_bytes"] <= K.ATT_SMEM_LIMIT
+        fixed = 1024 + (2 if lay["split"] else 4) * plan["c_pad"] // 64 \
+            * K.WIDE_BOX + 1024 + 1024 + 7 * 4 * plan["c_pad"]
+        ring = plan["rings"] * (K.WIDE_BOX + 16)
+        assert plan["smem_bytes"] == fixed + plan["slots"] * ring
+        assert plan["slots"] == K.KPT_WIDE_SLOTS or \
+            plan["smem_bytes"] + ring > K.ATT_SMEM_LIMIT
+    for bad in (0, 513, 1024):
+        with pytest.raises(ValueError, match="1..512 channels"):
+            K.kpt_head_plan(rows, bad)
+    with pytest.raises(ValueError, match="no rows"):
+        K.kpt_head_plan(0, 200)
+
+
+def _kpt_decoder(c):
+    """A one-layer decoder of width c with seeded weights."""
+    from edgecape_tpu_torch.models.transformer import Decoder
+    torch.manual_seed(c)
+    dec = Decoder(c, 1, 2 * c, 1, attn_bias=True, max_hops=4,
+                  num_feats=max(c // 2, 1))
+    with torch.no_grad():
+        for p in dec.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    return dec.eval()
+
+
+@pytest.mark.parametrize("c", [2, 100, 200, 255, 256, 384, 511, 512])
+def test_stack_weights_pad_the_kpt_branch_with_exact_zeros(c):
+    """ops/fused_decoder.py _build_stack_weights lays each kpt_branch
+    weight out at kpt_head_plan's c_pad: the layer's own weight (bf16) in
+    the top left, exact zeros elsewhere; biases, the final norm and the
+    delta head stay unpadded."""
+    dec = _kpt_decoder(c)
+    sw = tdec._build_stack_weights(dec, max(c // 2, 1), True)
+    cp = K.kpt_head_plan(1, c).get("c_pad", c)
+    br = dec.kpt_branches[0]
+    lw = sw["layers"][0]
+    for (w, b), fc in zip(lw["kpt"], (br.fc0, br.fc1, br.fc2)):
+        assert w.shape == (cp, cp) and w.dtype == torch.bfloat16
+        assert w.is_contiguous()
+        assert torch.equal(w[:c, :c], fc.weight.detach().to(torch.bfloat16))
+        assert not w[c:].any() and not w[:, c:].any()
+        assert torch.equal(b, fc.bias.detach().float())
+    assert lw["kow"].shape == (2, c) and lw["kob"].shape == (2,)
+    assert all(v.shape == (c,) for v in sw["fn"])
+
+
+@pytest.mark.parametrize("c", [100, 200, 384, 511])
+@pytest.mark.parametrize("sums", [torch.float32, torch.float64])
+def test_kpt_head_plain_over_padded_weights_is_unchanged(c, sums):
+    """kpt_head_plain over the kpt_branch weights as the wide kernel takes
+    them (padded with zeros to c_pad) gives the coordinates it gives over
+    the layer's own weights, bit for bit: the zero columns of the hidden
+    add +0 to every sum."""
+    dec = _kpt_decoder(c)
+    sw = tdec._build_stack_weights(dec, c // 2, True)
+    lw = sw["layers"][0]
+    br = dec.kpt_branches[0]
+    kpt0 = [(fc.weight.detach(), fc.bias.detach())
+            for fc in (br.fc0, br.fc1, br.fc2)]
+    g = torch.Generator().manual_seed(c)
+    x = plain.bf16(torch.randn(300, c, generator=g))
+    ct = torch.rand(300, 2, generator=g)
+    ct[0] = torch.tensor([0.0, 1.0])
+    args = (lw["kow"], lw["kob"])
+    padded = tdec.kpt_head_plain(x, ct, sw["fn"], lw["kpt"], *args, eps=1e-5,
+                                 sums=sums)
+    own = tdec.kpt_head_plain(x, ct, sw["fn"], kpt0, *args, eps=1e-5,
+                              sums=sums)
+    for a, b in zip(padded, own):
+        assert a.shape == (300, 2) and a.dtype == torch.float32
+        assert torch.equal(a, b)
 
 
 def test_bias_plan_takes_1_to_16_heads_of_up_to_128():
@@ -428,3 +534,16 @@ def test_the_cpu_route_takes_any_width_without_launches():
                                        torch.ones(2, 10, dtype=torch.bool),
                                        layer, num_heads=8)
     assert out.shape == tok.shape and K.launches == n0
+
+
+def test_kpt_clock_copy_marks_every_phase():
+    """tools/bench_kpt_head.py's clock copy of csrc/kpt_wide.cu finds every
+    line it marks (the tile's start, the rows in, each layer's first pass
+    and end, the coordinates out) and refuses a source without them."""
+    from edgecape_tpu_torch.tools import bench_kpt_head as BK
+    src = open(os.path.join(K.CSRC, "kpt_wide.cu")).read()
+    out = BK._instrumented(src)
+    assert out.count("KW_MARK(") == 6 and "kw_clock_read" in out
+    assert out.count("++tile_n;") == 1
+    with pytest.raises(SystemExit):
+        BK._instrumented(src.replace("// h is whole in the next boxes", ""))
