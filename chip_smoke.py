@@ -257,7 +257,25 @@ Phases (any failure exits non-zero before the last line):
    the training streaming kernels, counted; one training forward at rate
    0.1 against the plain version fed dropout_mask(seed); device ms, idle
    share and peak memory of a chunk and of a step;
-18. prints {"kernels": [...]} on its own line, then the result line
+18. the stage-3 model at 133 keypoints, COCO-WholeBody's (`[kpts]`,
+   kpts_path): the model built on the card with every fused op taken, a
+   head of 1024 channels at 133 keypoints still refused by name; ptxas
+   registers and spills of bias_attn_long_kernel (csrc/bias_long.cu) and
+   dec_post_gcn_wide_kernel; the cross layer above 128 keypoints (the
+   wide pair at 256 channels too) and bias_attn_long_kernel, each against
+   its plain version at K 133, 256 and 300, 60 and 510 rows, 256 / 8 /
+   384 and 512 / 8 / 1024 (`[op]` lines: device ms, plain ms, bound, SDPA
+   on a bias made beforehand for the attention, plan); the decoder layer
+   and each layer of the stack at K 133 against their plain versions
+   (the stack's coordinates within STACK_LAYER_MAX / STACK_LAYER_MEAN);
+   one cached chunk of 8 x 15 queries (one category of 133 keypoints,
+   the others fewer) with the decoder stack off and on, its decoder
+   kernels counted (the wide pair and, with the stack, the streamed bias
+   attention, 3 each; no dec_post_cross_kernel, no resident bias
+   attention, no plain version), its valid keypoints against the plain
+   path, the stack's chunk profiled; run_eval(cache_supports=True) over
+   12 episodes of 133 keypoints with the default decoder stack;
+19. prints {"kernels": [...]} on its own line, then the result line
    {"ok": true, "device": {...}} last. The kernels line holds, besides
    each kernel op's entry, the serving shapes' entries (`flash_mha (ViT
    fp32, 224 px)` and the rest); an op's `launches` is its count on the
@@ -270,7 +288,8 @@ Phases (any failure exits non-zero before the last line):
    training kernels); a `[widths]` entry's `launches` its kernels' count
    over that phase's model runs (`width_kernels`), a `[trunks]` entry's
    the count of vit_ln_gemm_kernel over that phase's model runs
-   (`trunk_kernels`).
+   (`trunk_kernels`), a `[kpts]` entry's its kernels' count over that
+   phase's chunks and run_eval (`kpts_kernels`).
 Nothing here imports jax or the JAX package.
 """
 
@@ -1794,9 +1813,10 @@ def kpt_wide_lines(dev, entries, power, bad):
         torch.cuda.empty_cache()
 
 
-def bias_wide_line(row, power):
-    """The [op] bias_attn_wide_kernel summary of a WIDTH_SHAPES row of the
-    hop bias (tools/bench_attention.py run_case): device ms beside its
+def bias_wide_line(row, power, kernel="bias_attn_wide_kernel"):
+    """The [op] summary of a bias attention kernel (bias_attn_wide_kernel
+    at a WIDTH_SHAPES row of the hop bias, bias_attn_long_kernel at a
+    [kpts] one; tools/bench_attention.py run_case): device ms beside its
     bound and the share of it, and SDPA on a bias made beforehand (the
     library), the same run's."""
     dev_ms, bnd, sdpa = row["device_ms"], row["bound_ms"], \
@@ -1804,7 +1824,7 @@ def bias_wide_line(row, power):
     share = "" if dev_ms is None else f", {100 * bnd / dev_ms:.1f}% of it"
     ratio = "" if dev_ms is None or sdpa is None else \
         f" (kernel / SDPA {dev_ms / sdpa:.3f})"
-    print(f"[op] bias_attn_wide_kernel {row['shape']}: device "
+    print(f"[op] {kernel} {row['shape']}: device "
           f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'}, "
           f"bound {bnd:.4f} ms ({row['bound_by']}){share}; library SDPA "
           f"{'not measured' if sdpa is None else f'device {sdpa:.4f} ms'} "
@@ -2366,6 +2386,460 @@ def width_check(dev, entries, power):
           f"took {time.perf_counter() - t_phase:.1f} s on {power}", flush=True)
 
 
+# [kpts]: the stage-3 model on whole-body skeletons. COCO-WholeBody has
+# KPTS_K keypoints (Halpe 136): above the 128 that dec_post_cross_kernel's
+# tile and the resident bias attention hold, the decoder takes the cross
+# layer's wide pair (csrc/dec_wide.cu, dec_post_gcn_wide_kernel over
+# ceil(K / 64) key boxes) at every width and bias_attn_long_kernel
+# (csrc/bias_long.cu). The phase's op lines: KPTS_KEYS keypoints (the real
+# count, whole 64-key tiles, a ragged third tile) at KPTS_ROWS query rows
+# (the [widths] chunk's and the eval chunk's) and KPTS_OPS widths; its
+# cached chunk: KPTS_GROUPS groups x QUERIES queries.
+KPTS_K = 133
+KPTS_KEYS = (133, 256, 300)
+KPTS_ROWS = (60, 510)
+KPTS_OPS = [(256, 8, 384), (512, 8, 1024)]
+KPTS_GROUPS = 8
+BIAS_LONG_SOURCE = "edgecape_tpu_torch/csrc/bias_long.cu"
+
+
+def kpt_episodes(rng, groups, kpts, size=SIZE):
+    """One chunk of `groups` groups x QUERIES queries of `size` px with
+    `kpts` keypoint slots: group 0's category uses all of them, the
+    others fewer (the slots past a category's count invisible, as a
+    padded skeleton), a chain skeleton over each category's keypoints with
+    a few chords. Returns (support, query, valid [groups, kpts])."""
+    counts = [kpts] + [int(c) for c in rng.integers(kpts // 2, kpts,
+                                                    groups - 1)]
+    valid = np.zeros((groups, kpts), bool)
+    adj = np.zeros((groups, kpts, kpts), np.float32)
+    for gi, n in enumerate(counts):
+        valid[gi, :n] = True
+        for i in range(n - 1):
+            adj[gi, i, i + 1] = adj[gi, i + 1, i] = 1.0
+        for i, j in rng.integers(0, n, size=(6, 2)):
+            if i != j:
+                adj[gi, i, j] = adj[gi, j, i] = 1.0
+    nq = groups * QUERIES
+    group = np.repeat(np.arange(groups, dtype=np.int32), QUERIES)
+    support = {
+        "img_s": rng.integers(0, 256, (groups, 1, size, size, 3),
+                              dtype=np.uint8),
+        "joints_s": rng.uniform(8, size - 8, (groups, 1, kpts, 2)).astype(
+            np.float32),
+        "vis_s": valid[:, None].astype(np.float32), "binary_adj": adj}
+    query = {"img_q": rng.integers(0, 256, (nq, size, size, 3),
+                                   dtype=np.uint8), "group": group}
+    return support, query, valid
+
+
+def kpts_cross_lines(dev, entries, power, bad):
+    """[op] lines of the cross layer above 128 keypoints: dec_post_cross's
+    two launches (dec_post_cross_wide_kernel, dec_post_gcn_wide_kernel) at
+    KPTS_OPS widths, KPTS_KEYS keypoints and KPTS_ROWS query rows: device
+    ms (profiler) of the call and of each kernel, its bound (the products
+    of the true widths / 989 TFLOP/s, or the inputs, the output and the
+    weights once / 3.35 TB/s) and the share of it, CUDA-event ms, the
+    plain formulas' ms (ops/fused_decoder.py post_cross_plain), the
+    launches counted, the gcn kernel's tiles, adjacency window, ring slots
+    and shared memory as the built launch takes them (which must equal the
+    plan's); the output against the plain formulas (ATOL + RTOL |ref|,
+    MEAN_TOL), a failure appended to `bad`. The 510-row calls at 256
+    channels become kernels-line entries."""
+    import edgecape_tpu_torch.ops.fused_decoder as FD
+    from edgecape_tpu_torch.models.transformer import DecoderLayer
+    from edgecape_tpu_torch.ops import kernels as KN
+    from edgecape_tpu_torch.tools import bench_attention as BA
+    bf = torch.bfloat16
+    names = ("dec_post_cross_wide_kernel", "dec_post_gcn_wide_kernel")
+    for c, h, ffn in KPTS_OPS:
+        tag = f"{c}/{h}/{ffn}"
+        _, rn = seeded_randn(SEED + 135 + c + h, dev)
+        layer = randomize(DecoderLayer(c, h, ffn), rn, dev)
+        for k in KPTS_KEYS:
+            w = FD.cross_weights(layer, FD._prepare(layer), k)
+            for nq in KPTS_ROWS:
+                r = nq * k
+                att2, x1 = rn(nq, k, 2 * c).to(bf), rn(r, c)
+                valid = torch.rand(nq, k, device=dev) > 0.2
+                valid[:, 0] = True
+                keep = (valid[:, None, :, None] & valid[:, None, None, :])
+                adj = torch.rand(nq, 2, k, k, device=dev) / k * keep
+
+                def kern():
+                    return KN.dec_post_cross(att2, x1, adj, w, eps=1e-5,
+                                             out_dtype=torch.float32)
+
+                def plain_fn():
+                    return FD.post_cross_plain(att2, x1.view(nq, k, c), adj,
+                                               layer).view(r, c)
+
+                plan = KN.post_plan(r, c, ffn, chunk=KN.DEC_CHUNK,
+                                    keypoints=k)
+                bnd = bound(nbytes(att2, x1, adj) + r * c * 4
+                            + kernel_param_bytes(
+                                layer.cross_attn.out_proj, layer.choker,
+                                layer.norm2, layer.gcn.conv, layer.ffn2,
+                                layer.norm3),
+                            2 * r * (6 * c * c + 3 * c * ffn)
+                            + 4 * nq * k * k * ffn)
+                with torch.no_grad():
+                    n0 = {n: KN.launches[n] for n in names}
+                    out = kern()
+                    counted = {n: KN.launches[n] - n0[n] for n in names}
+                    ref = plain_fn()
+                    torch.cuda.synchronize()
+                    d = (out - ref).abs()
+                    excess = (d - (ATOL + RTOL * ref.abs())).max().item()
+                    err, mean = d.max().item(), d.mean().item()
+                    finite_out = bool(torch.isfinite(out).all())
+                    del out, ref, d
+                    dev_ms, _, wall = BA.device_ms(kern)
+                    by_name = BA.kernel_ms(kern)
+                    plain_ms = time_ms(plain_fn, reps=3)
+                    ms = time_ms(kern)
+                card = KN.dec_wide_card_rings(c, k)
+                same = all(card[n] == (plan["kernels"][n]["slots"],
+                                       plan["kernels"][n]["smem_bytes"])
+                           for n in names)
+                ok = (excess <= 0 and mean <= MEAN_TOL and finite_out
+                      and counted == dict.fromkeys(names, 1) and same)
+                each = ", ".join(
+                    f"{n} {sum(v for m, v in by_name.items() if n in m):.4f}"
+                    for n in names) if by_name else "not measured"
+                share = "" if dev_ms is None else \
+                    f", {100 * bnd[0] / dev_ms:.1f}% of it"
+                print(f"[op] dec_post_cross above 128 keypoints ({tag}, {nq} "
+                      f"x {k} = {r} rows): {BA.ms_text(dev_ms, wall)} a "
+                      f"call in 2 launches ({each}), bound {bnd[0]:.4f} ms "
+                      f"({bnd[1]}){share}; kernel {ms:.4f} ms (CUDA events); "
+                      f"plain {plain_ms:.3f} ms; max_abs_err {err:.4g} "
+                      f"mean_abs_err {mean:.3g} (tol {ATOL} + {RTOL:.4g}"
+                      f"*|ref|, mean {MEAN_TOL}; worst excess {excess:.3g});"
+                      f" launches counted {counted}; plan: {plan['tiles']} "
+                      f"tiles + {plan['gcn_tiles']} gcn tiles of "
+                      f"{KN.ENC_WIDE_TILE} rows, adjacency window "
+                      f"{plan['adj_boxes']} boxes, gcn ring "
+                      f"{card['dec_post_gcn_wide_kernel'][0]} slots a "
+                      f"warpgroup, {card['dec_post_gcn_wide_kernel'][1]} B "
+                      f"shared memory{'' if same else ' (the plan disagrees)'}"
+                      f" on {power} {'OK' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    bad.append(f"dec_post_cross ({tag}, K {k}, {nq} rows)")
+                if c == 256 and nq == KPTS_ROWS[1]:
+                    name = f"dec_post_gcn_wide_kernel ({tag}, K {k})"
+                    entries[name] = {
+                        "name": name, "route": "cuda",
+                        "source": DEC_SOURCES["dec_post_cross_wide_kernel"],
+                        "op": "edgecape_tpu_torch/ops/kernels.py",
+                        "replaces": "edgecape_tpu/ops/fused_decoder.py:262",
+                        "launches": 0, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bnd[0],
+                        "bound_by": bnd[1], "library_ms": None,
+                        "device_ms": dev_ms, "shape": [nq, k, c, ffn],
+                        "kpts_kernels": list(names)}
+                del att2, x1, adj, valid, keep
+                torch.cuda.empty_cache()
+        del layer
+        torch.cuda.empty_cache()
+
+
+def kpts_bias_lines(dev, entries, power, bad):
+    """bias_attn_long_kernel against bias_attention_plain at KPTS_KEYS
+    keypoints, KPTS_ROWS batch rows and KPTS_OPS's heads (8 of 32, 8 of
+    64): tools/bench_attention.py run_case's `[op] attention` line (device
+    ms from the profiler, wrapper ms, plain ms, the bound with its floors:
+    bytes, tensor cores, exponentials, and SDPA's device time on the bias
+    made beforehand), then the kernel's summary line (bias_wide_line). The
+    510-row call at K 133 and 8 heads of 32 becomes the kernel's
+    kernels-line entry."""
+    from edgecape_tpu_torch.tools import bench_attention as BA
+    for c, h, _ in KPTS_OPS:
+        for k in KPTS_KEYS:
+            for nq in KPTS_ROWS:
+                spec = (f"decoder self above 128 keypoints, K {k}, {h} heads "
+                        f"of {c // h}, {nq} rows, bias from hops", nq, k, k,
+                        h, c // h, True, "hops", None)
+                row = BA.run_case(spec, dev, power, full=True)
+                if not row["ok"] or row["plan"].get("long") is not True:
+                    bad.append(row["name"])
+                bias_wide_line(row, power, "bias_attn_long_kernel")
+                if (c, k, nq) == (256, KPTS_K, KPTS_ROWS[1]):
+                    entries["bias_attn_long_kernel"] = {
+                        "name": "bias_attn_long_kernel", "route": "cuda",
+                        "source": BIAS_LONG_SOURCE,
+                        "op": "edgecape_tpu_torch/ops/kernels.py",
+                        "replaces": "edgecape_tpu/ops/fused_decoder.py:531",
+                        "launches": 0, "max_abs_err": row["max_abs_err"],
+                        "ms": row["wrapper_ms"], "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
+                        "library_ms": row["sdpa_ms"],
+                        "device_ms": row["device_ms"],
+                        "library_device_ms": row["sdpa_device_ms"],
+                        "floors_ms": row["floors_ms"], "shape": row["shape"],
+                        "plan": row["plan"],
+                        "kpts_kernels": ["bias_attn_long_kernel"]}
+                torch.cuda.empty_cache()
+
+
+def kpts_op_checks(dev, entries, power, bad):
+    """The decoder's ops at K = KPTS_K, full width (256 / 8 / 384) and the
+    chunk's rows, each against its plain version: fused_decoder_layer
+    (check_op: ATOL + RTOL |ref|, its kernels a call, the cross layer's
+    wide pair among them) and fused_decoder_stack, each of its 3 layers
+    alone (STACK_LAYER_MAX / STACK_LAYER_MEAN on coordinates), then the
+    whole stack's device ms and kernels a call; every row's keypoints
+    partly invalid."""
+    import edgecape_tpu_torch.ops.fused_decoder as FD
+    from edgecape_tpu_torch.models.transformer import Decoder, DecoderLayer
+    c, h, ffn = 256, 8, 384
+    k, nq, hw, bf = KPTS_K, KPTS_GROUPS * QUERIES, 256, torch.bfloat16
+    g, rn = seeded_randn(SEED + 138, dev)
+    kvalid = torch.rand(nq, k, generator=g).to(dev) > 0.2
+    kvalid[:, 0] = True
+    keep = (kvalid[:, None, :, None] & kvalid[:, None, None, :]).float()
+    adj = torch.rand(nq, 2, k, k, generator=g).to(dev) / k * keep
+    kx, qpos = rn(nq, k, c).to(bf), rn(nq, k, c).to(bf)
+    img, ipos = rn(nq, hw, c).to(bf), rn(hw, c).to(bf)
+    dec = randomize(DecoderLayer(c, h, ffn, attn_bias=True), rn, dev)
+    bias = rn(nq, h, k, k)
+    name = f"fused_decoder_layer (K {k})"
+    dec_flops = (2 * nq * k * 4 * c ** 2 + 4 * nq * k * k * c
+                 + 2 * nq * k * (4 + 4 + 2) * c ** 2
+                 + 2 * nq * hw * (2 + 2) * c ** 2 + 4 * nq * k * hw * 2 * c
+                 + 2 * nq * k * (2 * c * ffn + ffn * c)
+                 + 2 * nq * 2 * k * k * ffn)
+    must = ("dec_post_self_kernel", "dec_post_cross_wide_kernel",
+            "dec_post_gcn_wide_kernel")
+    with torch.no_grad():
+        kern = lambda: FD.fused_decoder_layer(  # noqa: E731
+            kx, qpos, img, ipos, kvalid, bias, adj, dec, num_heads=h)
+        plain = lambda: FD.fused_decoder_layer_plain(  # noqa: E731
+            kx, qpos, img, ipos, kvalid, bias, adj, dec, num_heads=h)
+        out, ref = kern(), plain()
+        extra, dev_ms, per_call, _ = device_extra(name, kern, 9, bad, must)
+        check_op(entries, bad, name, "edgecape_tpu/ops/fused_decoder.py:262",
+                 "edgecape_tpu_torch/ops/fused_decoder.py", out, ref, kern,
+                 plain, bound(2 * nbytes(kx) + nbytes(qpos, img, ipos, kvalid,
+                                                      bias, adj)
+                              + kernel_param_bytes(dec), dec_flops),
+                 copy_gemms=0, extra=extra + f"; [B {nq}, K {k}] on {power}")
+        entries[name].update(source=DEC_SOURCES["dec_post_cross_wide_kernel"],
+                             device_ms=dev_ms, kernels_per_call=per_call,
+                             kpts_kernels=list(must))
+        del out, ref, bias
+
+        nf, nhop, layers = c // 2, 5, 3
+        sdec = randomize(Decoder(c, h, ffn, layers, attn_bias=True,
+                                 max_hops=nhop - 1, num_feats=nf,
+                                 use_flash=True), rn, dev).to(bf)
+        coords = torch.rand(nq, k, 2, generator=g).to(dev) * 0.8 + 0.1
+        hops = torch.rand(nq, k, k, nhop, generator=g).to(dev).to(bf)
+        args = (rn(nq, k, c, s=0.5).to(bf), coords,
+                rn(nq, hw, c, s=0.5).to(bf), rn(hw, c, s=0.5).to(bf),
+                kvalid, hops, adj.to(bf))
+        kw = dict(num_heads=h, num_feats=nf)
+        for i in range(layers):
+            sub = Decoder(c, h, ffn, 1, attn_bias=True, max_hops=nhop - 1,
+                          num_feats=nf)
+            sub.layers[0], sub.kpt_branches[0] = sdec.layers[i], \
+                sdec.kpt_branches[i]
+            sub.ref_point_head, sub.norm = sdec.ref_point_head, sdec.norm
+            sub.to(dev).eval()
+            o, p_ = FD.fused_decoder_stack(*args, sub, **kw)
+            ro, rp = FD.fused_decoder_stack_plain(*args, sub, **kw)
+            torch.cuda.synchronize()
+            dd = torch.cat([(o - ro).abs().flatten(),
+                            (p_ - rp).abs().flatten()])
+            ok = dd.max().item() <= STACK_LAYER_MAX and \
+                dd.mean().item() <= STACK_LAYER_MEAN and \
+                bool(torch.isfinite(o).all() and torch.isfinite(p_).all())
+            print(f"[op] fused_decoder_stack (K {k}) layer {i} alone, "
+                  f"outputs and points {tuple(o.shape)}: max_abs_err "
+                  f"{dd.max().item():.4g} mean_abs_err "
+                  f"{dd.mean().item():.3g} (tol {STACK_LAYER_MAX}, mean "
+                  f"{STACK_LAYER_MEAN}) {'OK' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                bad.append(f"fused_decoder_stack (K {k}) layer {i}")
+        stack_call = lambda: FD.fused_decoder_stack(*args, sdec, **kw)  # noqa: E731
+        text, dev_ms, per_call, _ = device_extra(
+            f"fused_decoder_stack (K {k})", stack_call, STACK_KERNELS + layers,
+            bad, ("bias_attn_long_kernel", "kpt_head_kernel") + must)
+        ms = time_ms(stack_call)
+        plain_ms = time_ms(lambda: FD.fused_decoder_stack_plain(
+            *args, sdec, **kw), reps=3)
+        print(f"[op] fused_decoder_stack (K {k}): {layers} layers, rows {nq}, "
+              f"HW {hw}: kernel {ms:.3f} ms plain {plain_ms:.3f} ms"
+              f"{text} on {power}", flush=True)
+    del sdec, args, dec, kx, img
+    torch.cuda.empty_cache()
+
+
+def kpts_path(dev, entries, power):
+    """[kpts]: the stage-3 model with max_kpt KPTS_K (COCO-WholeBody) on
+    the kernels. A model of 133 keypoints is built on the card with its
+    fused ops on (no refusal), a head of 1024 channels at 133 keypoints is
+    still refused by name; ptxas registers and spills of
+    bias_attn_long_kernel and dec_post_gcn_wide_kernel; the op lines
+    (kpts_cross_lines, kpts_bias_lines, kpts_op_checks); then one cached
+    chunk of KPTS_GROUPS x QUERIES queries (group 0's category of 133
+    keypoints, the others fewer) with the decoder stack off and on, timed
+    after a warm-up: the decoder's kernels counted (the cross layer's wide
+    pair 3 times, bias_attn_long_kernel 3 times with the stack, neither
+    dec_post_cross_kernel nor a resident bias attention, no plain version,
+    no thread-copy GEMM), the valid keypoints' coordinates against the
+    plain path on the same weights, the stack's chunk profiled (device
+    time by kernel, idle share); and run_eval(cache_supports=True) over 4
+    groups x 3 queries of 133 keypoints through the default decoder stack,
+    its metrics finite, its keypoints whole, its kernels counted. Each
+    [kpts] entry of the kernels line gets its kernels' launches over the
+    chunk runs (`kpts_kernels`)."""
+    from edgecape_tpu_torch import config as C
+    from edgecape_tpu_torch.api import PoseEstimator
+    from edgecape_tpu_torch.eval.runner import run_eval
+    from edgecape_tpu_torch.models import dinov2
+    from edgecape_tpu_torch.models.convert import (init_params,
+                                                   redraw_zero_inits)
+    from edgecape_tpu_torch.models.dinov2 import DinoV2Config
+    from edgecape_tpu_torch.models.edgecape import HEAD_OPS
+    from edgecape_tpu_torch.ops import kernel_config
+    from edgecape_tpu_torch.ops import kernels as KN
+    from edgecape_tpu_torch.ops.kernel_config import require_widths
+    t_phase = time.perf_counter()
+    k = KPTS_K
+    cfg = main_path_config()
+    cfg.model = C.replace(cfg.model, max_kpt=k)
+    try:
+        require_widths(dinov2.fused_ops(cfg.model) + HEAD_OPS,
+                       dinov2.width_misfits(cfg.model), dev)
+    except ValueError as e:
+        fail(f"the stage-3 model of {k} keypoints was refused: {e}")
+    print(f"[kpts] the stage-3 model with max_kpt {k}, use_flash on the card:"
+          f" every fused op taken (width_misfits "
+          f"{dinov2.width_misfits(cfg.model)}) OK", flush=True)
+    refused_at_build(dev, "kpts", f"a head of d_model 1024 in 16 heads at {k}"
+                     f" keypoints", dict(width_model_kw(1024, 16, 2048),
+                                         max_kpt=k),
+                     DinoV2Config(depth=2),
+                     ("fused_encoder_stack", "fused_decoder_layer",
+                      "fused_decoder_stack"))
+    for kern in ("bias_attn_long_kernel", "dec_post_gcn_wide_kernel"):
+        for name, regs, st, ld in KN.ptxas_usage(kern):
+            print(f"[kpts] ptxas {name}: {regs} registers, spill stores "
+                  f"{st} B, loads {ld} B", flush=True)
+    bad = []
+    kpts_cross_lines(dev, entries, power, bad)
+    kpts_bias_lines(dev, entries, power, bad)
+    kpts_op_checks(dev, entries, power, bad)
+    if bad:
+        fail(f"the kernels above 128 keypoints disagree with their plain "
+             f"versions or did not run: {bad}")
+
+    gen = torch.Generator().manual_seed(SEED + 131)
+    bb, head = init_params(gen, cfg.model)
+    redraw_zero_inits(bb, head, gen)
+    support, query, valid = kpt_episodes(np.random.default_rng(SEED + 132),
+                                         KPTS_GROUPS, k)
+    est = PoseEstimator(cfg, bb, head, device=dev)
+    names = ("dec_post_cross_wide_kernel", "dec_post_gcn_wide_kernel",
+             "bias_attn_long_kernel", "dec_post_cross_kernel",
+             "bias_attn_kernel", "bias_attn_wide_kernel")
+    preds, totals = {}, {}
+    for stack in (False, True):
+        kernel_config.set_decoder_stack(stack)
+        est.forward_cached(support, query)              # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        with PlainCalls() as plain_calls:
+            t0 = time.perf_counter()
+            preds[stack] = est.forward_cached(support, query)[0].cpu().numpy()
+            wall = time.perf_counter() - t0
+        _, kern = read_counts()
+        for n, c in kern.items():
+            totals[n] = totals.get(n, 0) + c
+        want = {"dec_post_cross_wide_kernel": 3, "dec_post_gcn_wide_kernel": 3,
+                "bias_attn_long_kernel": 3 if stack else 0,
+                "dec_post_cross_kernel": 0, "bias_attn_kernel": 0,
+                "bias_attn_wide_kernel": 0}
+        got = {n: kern.get(n, 0) for n in names}
+        ok = (got == want and plain_calls.n == 0
+              and not kern.get("gemm_kernel")
+              and preds[stack].shape == (KPTS_GROUPS * QUERIES, k, 2))
+        print(f"[kpts] one chunk of {KPTS_GROUPS} x {QUERIES} queries at {k} "
+              f"keypoints (valid a group {valid.sum(1).tolist()}), decoder "
+              f"stack {'on' if stack else 'off'}: {wall:.3f} s "
+              f"({KPTS_GROUPS * QUERIES / wall:.1f} img/s) on {power}; "
+              f"decoder kernels {got} expected {want}; thread-copy GEMMs "
+              f"{kern.get('gemm_kernel', 0)}, plain versions run "
+              f"{plain_calls.n}; every kernel launched {kern} "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"the {k}-keypoint chunk did not run its decoder on the "
+                 f"kernels above 128 keypoints")
+        if stack:
+            profile(lambda: est.forward_cached(support, query),
+                    f"one chunk at {k} keypoints ({KPTS_GROUPS} groups x "
+                    f"{QUERIES} queries, decoder stack on)", power,
+                    share_of=("bias_attn_long_kernel",
+                              "dec_post_gcn_wide_kernel",
+                              "dec_post_cross_wide_kernel"))
+    kernel_config.set_decoder_stack(False)
+    pcfg = C.replace(cfg, model=C.replace(cfg.model, use_flash=False))
+    ref = PoseEstimator(pcfg, bb, head, device=dev).forward_cached(
+        support, query)[0].cpu().numpy()
+    rows = valid[query["group"]]                     # [nq, k]
+    for stack in (False, True):
+        med, mx, within = coord_gap(preds[stack][rows], ref[rows])
+        ok = (med <= PATH_MEDIAN_TOL and within >= PATH_WITHIN_SHARE
+              and np.isfinite(preds[stack]).all())
+        print(f"[kpts] the {k}-keypoint chunk, decoder stack "
+              f"{'on' if stack else 'off'}, vs the plain path on its valid "
+              f"keypoints: median |d| {med:.4g} (tol {PATH_MEDIAN_TOL}), max "
+              f"{mx:.4g}, share within {PATH_CELL:.4g}: {within:.4f} (tol >= "
+              f"{PATH_WITHIN_SHARE}) {'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"the {k}-keypoint chunk disagrees with the plain path")
+
+    # the normal entry point, with the default route's decoder stack
+    kernel_config.set_decoder_stack(True)
+    ds = EvalEpisodes(np.random.default_rng(SEED + 133), groups=4,
+                      queries=3, kpts=k)
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = run_eval(ds, est, batch_size=EVAL_BATCH, res_folder=tmp,
+                       progress=False, cache_supports=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(tmp + "/result_keypoints.json") as f:
+            kp = np.array([r["keypoints"] for r in json.load(f)])
+    kernel_config.set_decoder_stack(False)
+    _, kern = read_counts()
+    for n, c in kern.items():
+        totals[n] = totals.get(n, 0) + c
+    got = {n: kern.get(n, 0) for n in names[:3]}
+    ok = (all(got.values()) and kp.shape[:2] == (len(ds), k)
+          and np.isfinite(kp).all()
+          and all(np.isfinite(res[m]) for m in ("PCK", "NME", "AUC", "EPE")))
+    print(f"[kpts] run_eval(cache_supports=True) over {len(ds)} episodes of "
+          f"{k} keypoints, decoder stack on: PCK {res['PCK']:.4f} NME "
+          f"{res['NME']:.4f} AUC {res['AUC']:.4f} EPE {res['EPE']:.4f} "
+          f"(random weights), keypoints {kp.shape}, {wall:.3f} s on {power}; "
+          f"launches {got} (each above 0) {'OK' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail(f"run_eval at {k} keypoints did not run on the kernels")
+    del est
+    torch.cuda.empty_cache()
+    for entry in entries.values():
+        if "kpts_kernels" in entry:
+            entry["launches"] = sum(totals.get(n, 0)
+                                    for n in entry["kpts_kernels"])
+    print(f"[kpts] phase done in {time.perf_counter() - t_phase:.1f} s on "
+          f"{power}", flush=True)
+
+
 # DINOv2's ViT-B/14 and ViT-L/14 as published (channels, heads, depth),
 # the trunks of [trunks]; neither package defines them
 TRUNK_WIDTHS = {"ViT-B/14": (768, 12, 12), "ViT-L/14": (1024, 16, 24)}
@@ -2772,20 +3246,20 @@ class EvalEpisodes:
     img_prefix = "."
     name2id = {}
 
-    def __init__(self, rng, groups=4, queries=3, shots=1):
+    def __init__(self, rng, groups=4, queries=3, shots=1, kpts=K):
         from edgecape_tpu_torch.config import DataConfig
         self.cfg = DataConfig()
-        self.queries, self.shots = queries, shots
-        adj = np.zeros((K, K), np.float32)
-        for i in range(K - 1):
+        self.queries, self.shots, self.k = queries, shots, kpts
+        adj = np.zeros((kpts, kpts), np.float32)
+        for i in range(kpts - 1):
             adj[i, i + 1] = adj[i + 1, i] = 1.0
         self.adj = adj
 
         def item():
             return {"joints_3d": np.concatenate(
-                        [rng.uniform(8, SIZE - 8, (K, 2)), np.zeros((K, 1))],
-                        axis=1).astype(np.float32),
-                    "joints_3d_visible": np.ones((K, 3), np.float32),
+                        [rng.uniform(8, SIZE - 8, (kpts, 2)),
+                         np.zeros((kpts, 1))], axis=1).astype(np.float32),
+                    "joints_3d_visible": np.ones((kpts, 3), np.float32),
                     "bbox": np.array([0, 0, SIZE, SIZE], np.float32),
                     "image": rng.integers(0, 256, (SIZE, SIZE, 3),
                                           dtype=np.uint8)}
@@ -2828,7 +3302,7 @@ class EvalEpisodes:
         rows = [r for _, rs in chunk for r in rs]
         img_s, joints_s = self._support([sids for sids, _ in chunk])
         support = {"img_s": img_s, "joints_s": joints_s,
-                   "vis_s": np.ones((g, self.shots, K), np.float32),
+                   "vis_s": np.ones((g, self.shots, self.k), np.float32),
                    "binary_adj": np.tile(self.adj, (g, 1, 1))}
         query = {"img_q": np.stack([self.db[self.paired_samples[r][-1]]
                                     ["image"] for r in rows]),
@@ -2851,7 +3325,7 @@ class EvalEpisodes:
                                      len(self.paired_samples))))
             pairs = [self.paired_samples[r] for r in rows]
             img_s, joints_s = self._support([p[:-1] for p in pairs])
-            vis = torch.ones((len(rows), self.shots, K))
+            vis = torch.ones((len(rows), self.shots, self.k))
             target, weight = heatmap.render_msra(
                 torch.from_numpy(joints_s), vis, (64, 64),
                 (float(SIZE), float(SIZE)), 1.0)
@@ -6006,6 +6480,8 @@ def main() -> None:
     bench_run(power, figures)
     torch.cuda.empty_cache()
     long_path(dev, entries, power, figures)
+    torch.cuda.empty_cache()
+    kpts_path(dev, entries, power)
     print(json.dumps({"kernels": finite(list(entries.values()))}), flush=True)
     print(power, flush=True)
     print(json.dumps({"ok": True, "device": {

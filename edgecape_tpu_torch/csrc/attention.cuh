@@ -1,7 +1,7 @@
 // Building blocks of the attention kernels (kernels.cu: attn_kernel,
 // train_fwd_kernel, the backward pair, bias_attn_kernel; attn_long.cu:
 // the same kernels with the keys or queries streamed through shared
-// memory): loads into shared memory, the arguments of a call, the
+// memory; bias_long.cu: the bias attention above 128 keys): loads into shared memory, the arguments of a call, the
 // mma.sync score and P.V tiles with their key permutation, the Philox
 // dropout bits and the backward's chunks. The design notes are beside the
 // kernels in kernels.cu ("attention", "training attention").

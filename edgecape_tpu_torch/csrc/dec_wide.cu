@@ -1,6 +1,7 @@
 // dec_post_cross_wide_kernel and dec_post_gcn_wide_kernel, the decoder
-// layer after its cross-attention at every width but 256 channels, two
-// launches: the design, bound and shared memory are dec_wide.cuh's.
+// layer after its cross-attention at every width but 256 channels, and at
+// 256 channels above 128 keypoints a batch row, two launches: the design,
+// bound and shared memory are dec_wide.cuh's.
 
 #include "dec_wide.cuh"
 
@@ -160,17 +161,122 @@ struct DecGcnWideArgs {
   float eps;
 };
 
-template <int NH>
+// Up to 128 keypoints (kt <= 2): the tile's rows of both adjacency slices
+// as bf16, zero past K, slice s in boxes 2 s, 2 s + 1: two threads a row
+// of a slice, each loading all of its half row (16-byte loads where the
+// rows allow) before it stores.
+__device__ __forceinline__ void dw_adj_rows(unsigned char* js, const DecGcnWideArgs& p, int b,
+                                            int i0, int kt) {
+  const int K = p.K;
+  const int sr = (threadIdx.x - 128) >> 1, s = sr >> 6, r = sr & 63, i = i0 + r;
+  const int half = 32 * kt, c0 = (threadIdx.x & 1) * half;
+  const long off = (((long)b * 2 + s) * K + (i < K ? i : 0)) * K;
+  const bool f32 = p.adj_dt == DT_F32;
+  const bool vec = !(K & 3) && !(reinterpret_cast<uintptr_t>(p.adj) & 15);
+  float v[64];
+#pragma unroll
+  for (int g = 0; g < 16; ++g) {
+    const int c = c0 + 4 * g;
+    if (4 * g < half && i < K && vec && c + 3 < K) {
+      if (f32) {
+        const float4 q = __ldg(reinterpret_cast<const float4*>(
+            static_cast<const float*>(p.adj) + off + c));
+        v[4 * g] = q.x; v[4 * g + 1] = q.y; v[4 * g + 2] = q.z; v[4 * g + 3] = q.w;
+      } else {
+        const uint2 q = __ldg(reinterpret_cast<const uint2*>(
+            static_cast<const bf16*>(p.adj) + off + c));
+        v[4 * g] = __uint_as_float(q.x << 16);
+        v[4 * g + 1] = __uint_as_float(q.x & 0xffff0000u);
+        v[4 * g + 2] = __uint_as_float(q.y << 16);
+        v[4 * g + 3] = __uint_as_float(q.y & 0xffff0000u);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[4 * g + e] = 4 * g < half && i < K && c + e < K ? ld_val(p.adj, p.adj_dt, off + c + e)
+                                                          : 0.0f;
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < 16; ++g)
+    if (4 * g < half)
+      *reinterpret_cast<uint2*>(js + s * 2 * EW_BOX + ew_off(r, c0 + 4 * g)) =
+          make_uint2(pack_bf16(v[4 * g], v[4 * g + 1]), pack_bf16(v[4 * g + 2], v[4 * g + 3]));
+}
+
+// Above 128 keypoints: the adjacency boxes of units [e0, e0 + n) of the
+// tile of batch row b
+// from row i0 (unit e: slice e / kt, keys 64 (e % kt) ..) into boxes 0 ..
+// n - 1 of js, as bf16, zero past K: the consumer thread ct (0 .. 255)
+// takes 16 keys of row ct / 4 of every box, G boxes at a time, all of
+// their loads (16-byte where the rows allow) before its stores.
+template <int G>
+__device__ __forceinline__ void dw_adj_boxes(unsigned char* js, const DecGcnWideArgs& p, int b,
+                                             int i0, int kt, int e0, int n, int ct) {
+  const int r = ct >> 2, c16 = (ct & 3) * 16, i = i0 + r, K = p.K;
+  const bool f32 = p.adj_dt == DT_F32;
+  const bool vec = !(K & 3) && !(reinterpret_cast<uintptr_t>(p.adj) & 15);
+  for (int e = 0; e < n; e += G) {
+    unsigned u[G][8];
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      const int unit = e0 + e + gi, s = unit / kt, c0 = 64 * (unit % kt) + c16;
+      const bool row = e + gi < n && i < K;
+      const long off = (((long)b * 2 + s) * K + (row ? i : 0)) * K;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int c = c0 + 4 * q;
+        float v[4];
+        if (row && vec && c + 3 < K) {
+          if (f32) {
+            const float4 w = __ldg(reinterpret_cast<const float4*>(
+                static_cast<const float*>(p.adj) + off + c));
+            v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
+          } else {
+            const uint2 w = __ldg(reinterpret_cast<const uint2*>(
+                static_cast<const bf16*>(p.adj) + off + c));
+            v[0] = __uint_as_float(w.x << 16);
+            v[1] = __uint_as_float(w.x & 0xffff0000u);
+            v[2] = __uint_as_float(w.y << 16);
+            v[3] = __uint_as_float(w.y & 0xffff0000u);
+          }
+        } else {
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            v[x] = row && c + x < K ? ld_val(p.adj, p.adj_dt, off + c + x) : 0.0f;
+        }
+        u[gi][2 * q] = pack_bf16(v[0], v[1]);
+        u[gi][2 * q + 1] = pack_bf16(v[2], v[3]);
+      }
+    }
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi)
+      if (e + gi < n) {
+        unsigned char* box = js + (e + gi) * EW_BOX;
+        *reinterpret_cast<uint4*>(box + ew_off(r, c16)) =
+            make_uint4(u[gi][0], u[gi][1], u[gi][2], u[gi][3]);
+        *reinterpret_cast<uint4*>(box + ew_off(r, c16 + 8)) =
+            make_uint4(u[gi][4], u[gi][5], u[gi][6], u[gi][7]);
+      }
+  }
+}
+
+template <int NH, int W>
 __global__ void __launch_bounds__(EW_THREADS, 1)
     dec_post_gcn_wide_kernel(const __grid_constant__ CUtensorMap map_y,
                              const __grid_constant__ CUtensorMap map_wf, DecGcnWideArgs p) {
-  constexpr int S = dw_slots(dw_gcn_fixed());
+  constexpr int S = dw_slots(dw_gcn_fixed(W));
   constexpr int NQ = NH / 64;
   extern __shared__ unsigned char hw_raw[];
-  const DwSmem sm = dw_smem_init<S>(hw_raw, 8 * EW_BOX);
-  unsigned char* js = sm.boxes;               // adjacency: slice s, keys 64 q.. in box 2 s + q
-  unsigned char* hs = js + 4 * EW_BOX;        // two buffers of a relu(m) chunk
-  const int kt = (p.K + 63) / 64;
+  const DwSmem sm = dw_smem_init<S>(hw_raw, (W + 4) * EW_BOX);
+  // the adjacency window: unit e0 + e in box e (the short window: unit
+  // s kt + q in box 2 s + q)
+  unsigned char* js = sm.boxes;
+  unsigned char* hs = js + W * EW_BOX;        // two buffers of a relu(m) chunk
+  const int kt = (p.K + 63) / 64, units = 2 * kt;
+  // a tile's boxes resident, loaded once (always in the short window's
+  // instance, which K <= 128 takes: no windowed code in it)
+  const bool whole = W == DW_ADJ_SHORT || units <= W;
   const int tiles = p.B * kt, fch = p.Fp / EW_CHUNK;
 
   if (threadIdx.x < 128) {
@@ -211,69 +317,58 @@ __global__ void __launch_bounds__(EW_THREADS, 1)
     const long s0 = base + (i_0 < K ? i_0 : K - 1), s1 = base + (i_1 < K ? i_1 : K - 1);
     ew_prefetch<2 * NH>(reinterpret_cast<const bf16*>(p.x2), s0, 2 * C, 2 * wg * NH, t);
     ew_prefetch<2 * NH>(reinterpret_cast<const bf16*>(p.x2), s1, 2 * C, 2 * wg * NH, t);
-    // the tile's rows of both adjacency slices as bf16, zero past K (the
-    // last tile's products of these boxes are complete: its LayerNorm's
-    // barriers): two threads a row of a slice, each loading all of its
-    // half row (16-byte loads where the rows allow) before it stores
-    {
-      const int sr = (threadIdx.x - 128) >> 1, s = sr >> 6, r = sr & 63, i = i0 + r;
-      const int half = 32 * kt, c0 = (threadIdx.x & 1) * half;
-      const long off = (((long)b * 2 + s) * K + (i < K ? i : 0)) * K;
-      const bool f32 = p.adj_dt == DT_F32;
-      const bool vec = !(K & 3) && !(reinterpret_cast<uintptr_t>(p.adj) & 15);
-      float v[64];
-#pragma unroll
-      for (int g = 0; g < 16; ++g) {
-        const int c = c0 + 4 * g;
-        if (4 * g < half && i < K && vec && c + 3 < K) {
-          if (f32) {
-            const float4 q = __ldg(reinterpret_cast<const float4*>(
-                static_cast<const float*>(p.adj) + off + c));
-            v[4 * g] = q.x; v[4 * g + 1] = q.y; v[4 * g + 2] = q.z; v[4 * g + 3] = q.w;
-          } else {
-            const uint2 q = __ldg(reinterpret_cast<const uint2*>(
-                static_cast<const bf16*>(p.adj) + off + c));
-            v[4 * g] = __uint_as_float(q.x << 16);
-            v[4 * g + 1] = __uint_as_float(q.x & 0xffff0000u);
-            v[4 * g + 2] = __uint_as_float(q.y << 16);
-            v[4 * g + 3] = __uint_as_float(q.y & 0xffff0000u);
-          }
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            v[4 * g + e] = 4 * g < half && i < K && c + e < K ? ld_val(p.adj, p.adj_dt, off + c + e)
-                                                              : 0.0f;
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < 16; ++g)
-        if (4 * g < half)
-          *reinterpret_cast<uint2*>(js + s * 2 * EW_BOX + ew_off(r, c0 + 4 * g)) =
-              make_uint2(pack_bf16(v[4 * g], v[4 * g + 1]), pack_bf16(v[4 * g + 2], v[4 * g + 3]));
+    if (whole) {
+      // the tile's adjacency rows (the last tile's products of these
+      // boxes are complete: its LayerNorm's barriers)
+      if constexpr (W == DW_ADJ_SHORT) dw_adj_rows(js, p, b, i0, kt);
+      else dw_adj_boxes<4>(js, p, b, i0, kt, 0, units, threadIdx.x - 128);
+      fence_view_async();
+      bar_consumers();
     }
-    fence_view_async();
-    bar_consumers();
 
     float f[NH / 2];
     acc_zero(f);
     reg_fence(f);
     for (int j = 0; j < fch; ++j) {
       // m = adj0 . y0 + adj1 . y1 over this warpgroup's 64 columns of chunk
-      // j; unit (s, q) holds keys [64 q, 64 q + 64) of y_s, MN-major
+      // j; unit e holds keys [64 (e % kt), + 64) of y_(e / kt), MN-major
       float m[32];
       acc_zero(m);
       reg_fence(m);
-      for (int s = 0; s < 2; ++s)
-        for (int q = 0; q < kt; ++q) {
-          const unsigned yb = ring.next();
+      if constexpr (W == DW_ADJ_SHORT) {
+        // slice s's keys [64 q, 64 q + 64) in box 2 s + q
+        for (int s = 0; s < 2; ++s)
+          for (int q = 0; q < kt; ++q) {
+            const unsigned yb = ring.next();
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_m64n64k16<1>(m, wg_desc(ja + (2 * s + q) * EW_BOX + kk * 32, 16),
-                               wg_desc(yb + kk * 2048, EW_BOX));
-          ring.issued(lane, s == 0 && q == 0);
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_m64n64k16<1>(m, wg_desc(ja + (2 * s + q) * EW_BOX + kk * 32, 16),
+                                 wg_desc(yb + kk * 2048, EW_BOX));
+            ring.issued(lane, s == 0 && q == 0);
+          }
+        ring.drain(lane);
+        reg_fence(m);
+      } else {
+        for (int e0 = 0; e0 < units; e0 += W) {
+          const int n = units - e0 < W ? units - e0 : W;
+          if (!whole) {
+            bar_consumers();         // both warpgroups' products of the last window are done
+            dw_adj_boxes<1>(js, p, b, i0, kt, e0, n, threadIdx.x - 128);
+            fence_view_async();
+            bar_consumers();
+          }
+          for (int e = 0; e < n; ++e) {
+            const unsigned yb = ring.next();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_m64n64k16<1>(m, wg_desc(ja + e * EW_BOX + kk * 32, 16),
+                                 wg_desc(yb + kk * 2048, EW_BOX));
+            ring.issued(lane, e == 0);
+          }
+          ring.drain(lane);
+          reg_fence(m);
         }
-      ring.drain(lane);
-      reg_fence(m);
+      }
       // bf16(relu(m)) into buffer j % 2 (free: see the cross kernel)
       unsigned char* hb = hs + (j & 1) * 2 * EW_BOX;
       dw_chunk_to_box(m, hb + wg * EW_BOX, nullptr, 0, 0, true, row, t);
@@ -303,22 +398,33 @@ __global__ void __launch_bounds__(EW_THREADS, 1)
 // Each returns cudaGetLastError() after its launches, or
 // cudaErrorInvalidValue for a shape it does not take.
 
+template <int NH, int W>
+static int launch_gcn(const CUtensorMap& map_y, const CUtensorMap& map_wf,
+                      const DecGcnWideArgs& pb, cudaStream_t s) {
+  static bool configured = false;
+  constexpr int smem = dw_smem(dw_gcn_fixed(W));
+  unsigned grid = 0;
+  int rc = dw_configure((const void*)dec_post_gcn_wide_kernel<NH, W>, smem, configured);
+  if (!rc) rc = dw_grid((long)pb.B * ((pb.K + 63) / 64), grid);
+  if (rc) return rc;
+  dec_post_gcn_wide_kernel<NH, W><<<grid, EW_THREADS, smem, s>>>(map_y, map_wf, pb);
+  return (int)cudaGetLastError();
+}
+
 template <int NH>
 static int launch_dec_cross(const CUtensorMap (&m)[5], const DecCrossWideArgs& pa,
                             const DecGcnWideArgs& pb, cudaStream_t s) {
-  static bool configured[2] = {false, false};
-  constexpr int smem_a = dw_smem(dw_cross_fixed(NH)), smem_b = dw_smem(dw_gcn_fixed());
-  unsigned grid_a = 0, grid_b = 0;
-  int rc = dw_configure((const void*)dec_post_cross_wide_kernel<NH>, smem_a, configured[0]);
-  if (!rc) rc = dw_configure((const void*)dec_post_gcn_wide_kernel<NH>, smem_b, configured[1]);
+  static bool configured = false;
+  constexpr int smem_a = dw_smem(dw_cross_fixed(NH));
+  unsigned grid_a = 0;
+  int rc = dw_configure((const void*)dec_post_cross_wide_kernel<NH>, smem_a, configured);
   if (!rc) rc = dw_grid((pa.R + EW_ROWS - 1) / EW_ROWS, grid_a);
-  if (!rc) rc = dw_grid((long)pb.B * ((pb.K + 63) / 64), grid_b);
   if (rc) return rc;
   dec_post_cross_wide_kernel<NH><<<grid_a, EW_THREADS, smem_a, s>>>(m[0], m[1], m[2], pa);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
-  dec_post_gcn_wide_kernel<NH><<<grid_b, EW_THREADS, smem_b, s>>>(m[3], m[4], pb);
-  return (int)cudaGetLastError();
+  return dw_adj_window(pb.K) == DW_ADJ_SHORT ? launch_gcn<NH, DW_ADJ_SHORT>(m[3], m[4], pb, s)
+                                             : launch_gcn<NH, DW_ADJ_LONG>(m[3], m[4], pb, s);
 }
 
 // att2 [B K, 2C] bf16, 16-byte aligned; wco [C2p, C2p], wch [Cp, C2p], wg
@@ -338,8 +444,8 @@ extern "C" int ec_dec_post_cross_wide(const void* att2, const void* wco, const v
                                       int out_dt, int B, int K, int C, int Cp, int C2p, int Fp,
                                       float eps, void* stream) {
   const int nh = ew_half(C);
-  if (B <= 0 || K <= 0 || K > HW_MAX_K || C <= 0 || C > HW_MAX_C || Cp != 2 * nh ||
-      C2p != 2 * Cp || Fp <= 0 || Fp % EW_CHUNK || (long)B * K > 2147483647L || !att2 ||
+  if (B <= 0 || K <= 0 || C <= 0 || C > HW_MAX_C || Cp != 2 * nh || C2p != 2 * Cp ||
+      Fp <= 0 || Fp % EW_CHUNK || (long)B * K > 2147483647L || !att2 ||
       !x1 || !adj || !x2 || !out || (reinterpret_cast<uintptr_t>(att2) & 15) ||
       !hw_aligned(wco) || !hw_aligned(wch) || !hw_aligned(wg) || !hw_aligned(wf) ||
       !hw_aligned(y))
@@ -378,13 +484,14 @@ extern "C" int ec_dec_post_cross_wide(const void* att2, const void* wco, const v
 }
 
 // The ring slots a warpgroup and the dynamic shared memory each launch
-// above (and dec_self_wide.cu's) takes at C channels, into out[6]: the
-// self, cross and gcn kernels' slots and bytes in turn (ops/kernels.py
-// dec_wide_rings holds the same arithmetic for a plan made off the card).
-extern "C" int ec_dec_wide_layout(int C, int* out) {
-  if (!out || C <= 0 || C > HW_MAX_C) return (int)cudaErrorInvalidValue;
+// above (and dec_self_wide.cu's) takes at C channels and K keypoints a
+// batch row, into out[6]: the self, cross and gcn kernels' slots and bytes
+// in turn (ops/kernels.py dec_wide_rings holds the same arithmetic for a
+// plan made off the card).
+extern "C" int ec_dec_wide_layout(int C, int K, int* out) {
+  if (!out || C <= 0 || C > HW_MAX_C || K <= 0) return (int)cudaErrorInvalidValue;
   const int nh = ew_half(C);
-  const int fixed[3] = {dw_self_fixed(nh), dw_cross_fixed(nh), dw_gcn_fixed()};
+  const int fixed[3] = {dw_self_fixed(nh), dw_cross_fixed(nh), dw_gcn_fixed(dw_adj_window(K))};
   for (int i = 0; i < 3; ++i) {
     out[2 * i] = dw_slots(fixed[i]);
     out[2 * i + 1] = dw_smem(fixed[i]);

@@ -1,7 +1,8 @@
 // The decoder layer's post-attention kernels at every width but the 256
-// channels of kernels.cu's dec_post_self_kernel / dec_post_cross_kernel:
-// C from 1 to 512 (not 256), any GCN width F, K from 1 to 128 keypoints a
-// batch row. They replace the TPU kernel edgecape_tpu/ops/fused_decoder.py
+// channels of kernels.cu's dec_post_self_kernel / dec_post_cross_kernel,
+// and the cross layer's at 256 channels too above the 128 keypoints that
+// dec_post_cross_kernel's tile holds: C from 1 to 512, any GCN width F,
+// any K keypoints a batch row. They replace the TPU kernel edgecape_tpu/ops/fused_decoder.py
 // _kernel (:111-121 and :142-166; through pallas_call at :262 and inside
 // _stack_kernel at :531), with the rounding points of the plain versions
 // (ops/fused_decoder.py fused_decoder_layer_plain): bf16 operands, fp32
@@ -53,10 +54,17 @@
 //     after the cross-attention is two launches: dec_post_cross_wide_kernel
 //     over the flattened rows (x2 and y through scratch buffers), then
 //     dec_post_gcn_wide_kernel over tiles of 64 rows of one batch row (one
-//     tile at K <= 64, two at K <= 128), which loads the tile's adjacency
-//     rows as bf16 boxes [64 x 64] (zero past K) and takes each chunk's y0
-//     and y1 by TMA as MN-major boxes of 64 keys (the rows past K fill
-//     with zeros), m = adj0 . y0 + adj1 . y1 on wgmma;
+//     tile at K <= 64, two at K <= 128, ceil(K / 64) in all), which loads
+//     the tile's adjacency rows as bf16 boxes [64 x 64] (zero past K), a
+//     box for each slice s and each 64 keys q (the unit s kt + q, kt =
+//     ceil(K / 64)), and takes each chunk's y0 and y1 by TMA as MN-major
+//     boxes of 64 keys in the same unit order (the rows past K fill with
+//     zeros), m = adj0 . y0 + adj1 . y1 on wgmma, every unit in that order
+//     into one accumulator. The boxes of a tile stay resident while its
+//     2 kt units fit the adjacency window (DW_ADJ_SHORT boxes up to K 128,
+//     DW_ADJ_LONG above: K <= 320), loaded once a tile; past that each
+//     chunk of F loads them again, a window at a time, its products
+//     complete before the next window's rows overwrite it;
 //   * a row's LayerNorm: head_wide.cuh ew_layernorm. Every element sums its
 //     k slabs in one order, the same for every tile, so a row's bits do not
 //     depend on its place in the batch, nor on which block ran its tile.
@@ -69,8 +77,9 @@
 //   cross: 1 KB + att2 boxes [64 x 4 NH] (128 KB at NH 256: the A operand of
 //          every o2 chunk, then bf16(x2) over its first half) + two o2
 //          buffers (32 KB) + 1 KB = 162 KB, 4 slots a warpgroup;
-//   gcn:   1 KB + adjacency boxes [2][64 x 128] (32 KB) + two relu(m)
-//          buffers (32 KB) + 1 KB = 66 KB, 8 slots a warpgroup;
+//   gcn:   1 KB + the adjacency window, DW_ADJ_SHORT boxes (32 KB) up to
+//          K 128 or DW_ADJ_LONG (80 KB) above, + two relu(m) buffers (32
+//          KB) + 1 KB = 66 KB, 8 slots a warpgroup, or 114 KB, 7 slots;
 //   8 slots a warpgroup at most (ops/kernels.py dec_wide_rings).
 //
 // This header holds what the three share (kpt_wide.cu's keypoint head
@@ -96,7 +105,14 @@ __host__ __device__ constexpr int dw_self_fixed(int nh) { return 1024 + 2 * nh *
 __host__ __device__ constexpr int dw_cross_fixed(int nh) {
   return 1024 + nh * 512 + 4 * EW_BOX + DW_RED;
 }
-__host__ __device__ constexpr int dw_gcn_fixed() { return 1024 + 8 * EW_BOX + DW_RED; }
+// The gcn kernel's adjacency window: DW_ADJ_SHORT boxes up to two key
+// boxes a batch row (K <= 128), DW_ADJ_LONG above.
+#define DW_ADJ_SHORT 4
+#define DW_ADJ_LONG 10
+__host__ __device__ constexpr int dw_gcn_fixed(int w) { return 1024 + (w + 4) * EW_BOX + DW_RED; }
+__host__ __device__ constexpr int dw_adj_window(int k) {
+  return (k + 63) / 64 <= 2 ? DW_ADJ_SHORT : DW_ADJ_LONG;
+}
 __host__ __device__ constexpr int dw_slots(int fixed) {
   return (HW_SMEM_LIMIT - fixed) / (2 * (DW_SLOT + 16)) < EW_MAX_SLOTS
              ? (HW_SMEM_LIMIT - fixed) / (2 * (DW_SLOT + 16))
@@ -107,7 +123,8 @@ __host__ __device__ constexpr int dw_smem(int fixed) {
 }
 static_assert(dw_slots(dw_cross_fixed(256)) >= 2 && dw_smem(dw_cross_fixed(256)) <= HW_SMEM_LIMIT &&
                   dw_smem(dw_self_fixed(256)) <= HW_SMEM_LIMIT &&
-                  dw_smem(dw_gcn_fixed()) <= HW_SMEM_LIMIT,
+                  dw_smem(dw_gcn_fixed(DW_ADJ_LONG)) <= HW_SMEM_LIMIT &&
+                  dw_slots(dw_gcn_fixed(DW_ADJ_LONG)) >= 4,
               "a decoder kernel's rings do not fit a block");
 
 // Columns [64 q, 64 q + 64) of a warpgroup's m64 x NH accumulator x: the

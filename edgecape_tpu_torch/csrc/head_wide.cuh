@@ -22,7 +22,7 @@
 #include "attention.cuh"
 
 #define HW_MAX_C 512       // channels
-#define HW_MAX_K 128       // keypoints of a batch row (the cross kernel)
+#define HW_MAX_K 128       // keypoints of a batch row (bias_attn_wide_kernel)
 #define HW_SMEM_LIMIT (227 * 1024)
 
 __device__ __forceinline__ float bfr(float v) { return __bfloat162float(__float2bfloat16(v)); }

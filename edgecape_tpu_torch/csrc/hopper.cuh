@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the kernels of edgecape_tpu_torch
 // (kernels.cu, mm_chain.cu, attn_long.cu, head_wide.cu, dec_self_wide.cu,
-// dec_wide.cu, vit_wide.cu):
+// dec_wide.cu, kpt_wide.cu, bias_long.cu, vit_wide.cu):
 // the row arithmetic of the LayerNorm and GELU epilogues, mbarriers, TMA
 // copies in and out of 128-byte swizzled shared memory, wgmma descriptors
 // and products (from shared memory, or with A in registers), the weight

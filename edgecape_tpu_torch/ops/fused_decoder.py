@@ -28,8 +28,11 @@ the choker at once, LN2, then per chunk of 64 GCN features both slices'
 linear, the adjacency contraction on tensor cores with the adjacency in
 shared memory (rows and columns past K zero), ReLU and ffn2, then LN3.
 Its adjacency rows of K bf16 values (200 bytes at K = 100) are no TMA
-box, so the threads copy them. The weights are made once per layer
-module and kept until a parameter changes.
+box, so the threads copy them. Above 128 keypoints a batch row (COCO-
+WholeBody's 133, Halpe's 136) the cross layer takes the two launches of
+the other widths (below), dec_post_gcn_wide_kernel walking ceil(K / 64)
+boxes of keys. The weights are made once per layer module and kept until
+a parameter changes.
 
 `fused_decoder_stack` replaces the TPU kernel `fused_decoder_stack`
 (`_stack_kernel` through `_stack_chunk`) of the same file: all decoder
@@ -74,7 +77,12 @@ two launches, dec_post_cross_wide_kernel and dec_post_gcn_wide_kernel
 weights by TMA into wgmma), kpt_head_wide_kernel (csrc/kpt_wide.cu, the
 same shape: the raw and normed rows stacked so that every weight box
 serves both) and bias_attn_wide_kernel (csrc/head_wide.cu), so a
-layer is 9 launches and a stack call 3 + 10 L. The stack's own weights (the permuted fc1, the stacked
+layer is 9 launches and a stack call 3 + 10 L. Above 128 keypoints, at
+every width, the bias attention is bias_attn_long_kernel
+(csrc/bias_long.cu: the keys streamed in tiles, the tile's bias formed
+once for all heads, the two-pass softmax with the finished scores kept in
+a scratch buffer) and the cross layer the wide pair, so a layer is 9
+launches and a stack call 3 + 10 L there too. The stack's own weights (the permuted fc1, the stacked
 cross-attention weights, kpt_branch, the bias MLPs) are prepared once per
 decoder module and the layers' once per layer module, each kept until a
 parameter changes.
@@ -204,6 +212,29 @@ def _prepare(layer) -> dict:
         "g3": v32(layer.norm3.weight), "be3": v32(layer.norm3.bias)}
 
 
+def cross_weights(layer, w: dict, keypoints: int) -> dict:
+    """The layer's weights as dec_post_cross takes them at `keypoints` a
+    batch row: w (from _prepare) itself, except at POST_C channels above
+    POST_TILE keypoints, where the wide pair takes the cross layer and
+    reads the GCN in whole ENC_WIDE_CHUNK chunks: there, where the GCN
+    width is no multiple of them, w with wg, bg, wf padded to the wide
+    plan's f_pad, made once and kept like w (module_weights)."""
+    from . import kernels as K
+    c, f = layer.norm1.weight.shape[0], layer.ffn2.in_features
+    f_pad = K.post_plan(keypoints, c, f, chunk=K.DEC_CHUNK,
+                        keypoints=keypoints).get("f_pad", f)
+    if w["wf"].shape[1] == f_pad:
+        return w
+
+    def build(m):
+        wg, bg, wf = K.pad_gcn(m.gcn.conv.weight, m.gcn.conv.bias,
+                               m.ffn2.weight, f_pad, w["wf"].shape[0])
+        return dict(w, wg=wg.detach().to(torch.bfloat16).contiguous(),
+                    bg=bg.detach().to(torch.float32).contiguous(),
+                    wf=wf.detach().to(torch.bfloat16).contiguous())
+    return K.module_weights(layer, "_kernel_weights_wide_gcn", build, f_pad)
+
+
 def _fused_decoder_layer_cuda(x, query_pos, img_tokens, img_pos, kp_valid,
                               bias, adj, layer, *, num_heads, eps):
     from . import kernels as K
@@ -236,9 +267,10 @@ def _fused_decoder_layer_cuda(x, query_pos, img_tokens, img_pos, kp_valid,
     att2 = K.attention(q2.view(b, k, 2 * c), k2, v2, num_heads=num_heads,
                        scale=d2 ** -0.5)
 
-    # (3) out_proj, choker, LN2, GCN, ffn2, LN3 in one kernel
-    return K.dec_post_cross(att2, x1, adj, w, eps=eps,
-                            out_dtype=x.dtype).view(b, k, c)
+    # (3) out_proj, choker, LN2, GCN, ffn2, LN3 in one kernel (two above
+    # POST_TILE keypoints and away from POST_C channels)
+    return K.dec_post_cross(att2, x1, adj, cross_weights(layer, w, k),
+                            eps=eps, out_dtype=x.dtype).view(b, k, c)
 
 
 def fused_decoder_layer(x, query_pos, img_tokens, img_pos, kp_valid, bias,
@@ -479,7 +511,8 @@ def _fused_decoder_stack_cuda(x, initial_coords, img_tokens, img_pos,
         sl = slice(li * c2, (li + 1) * c2)
         att2 = K.attention(q2.view(b, k, c2), k_all[..., sl], v_all[..., sl],
                            num_heads=num_heads, scale=d2 ** -0.5)
-        xb = K.dec_post_cross(att2, x1, adj, lw, eps=eps, out_dtype=bf)
+        xb = K.dec_post_cross(att2, x1, adj, cross_weights(layer, lw, k),
+                              eps=eps, out_dtype=bf)
 
         # (3) final norm, both kpt_branch passes, the coordinate update
         K.kpt_head(xb, ct, w["fn"], sw["kpt"], sw["kow"], sw["kob"],

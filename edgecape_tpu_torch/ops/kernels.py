@@ -5,7 +5,9 @@ the decoder stack's own kernels and the training attention's forward /
 backward pair, in `attn_long.cu` the same attention kernels with the keys
 streamed, for rows longer than a block holds, in `head_wide.cu` the
 head's post-attention kernels, keypoint head and bias attention at every
-width other than 256 channels in 8 heads of 32, in `vit_wide.cu` the
+width other than 256 channels in 8 heads of 32 (the decoder's in
+`dec_self_wide.cu`, `dec_wide.cu` and `kpt_wide.cu`), in `bias_long.cu`
+the bias attention above 128 keypoints, in `vit_wide.cu` the
 LayerNorm + projection of the ViT block at every trunk width other than
 384 channels in 6 heads, in `mm_chain.cu` the matmul chain of the probe
 tool.
@@ -65,7 +67,8 @@ launches = dict.fromkeys((
     "train_fwd_long_kernel", "train_bwd_q_long_kernel",
     "train_bwd_k_long_kernel", "enc_post_wide_kernel",
     "dec_post_self_wide_kernel", "dec_post_cross_wide_kernel",
-    "dec_post_gcn_wide_kernel", "kpt_head_wide_kernel", "bias_attn_wide_kernel", "vit_ln_gemm_kernel"),
+    "dec_post_gcn_wide_kernel", "kpt_head_wide_kernel", "bias_attn_wide_kernel",
+    "bias_attn_long_kernel", "vit_ln_gemm_kernel"),
     0)
 
 _P = ctypes.c_void_p
@@ -140,14 +143,19 @@ _SIGNATURES = {
     # heads a pass, resident, smem
     "ec_bias_attention_wide": [_P, _I, _I, _I, _I, _P, _L, _P, _I, _I, _P,
                                _P, _P, _P, _F, _P, _I, _I, _I, _I, _L, _P],
+    # bias_long.cu: qkv, B, N, H, D, key mask + stride, hops, n_hop,
+    # hidden, the MLP's four tensors, scale, out, the scores' scratch, then
+    # the plan: blocks, keys a tile, smem
+    "ec_bias_attention_long": [_P, _I, _I, _I, _I, _P, _L, _P, _I, _I, _P,
+                               _P, _P, _P, _F, _P, _P, _I, _I, _L, _P],
     # vit_wide.cu: x, its dtype, round_in, g, be, W, kmajor, bias, act,
     # the scratch h, out, R, C, N, eps, smem, column parts
     "ec_vit_ln_gemm": [_P, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I,
                        _I, _F, _L, _I, _P],
     # the count out
     "ec_vit_ln_gemm_ctas": [_P],
-    # dec_wide.cu: C, the six numbers out
-    "ec_dec_wide_layout": [_I, _P],
+    # dec_wide.cu: C, K, the six numbers out
+    "ec_dec_wide_layout": [_I, _I, _P],
     # kpt_wide.cu: C, the five numbers out
     "ec_kpt_wide_layout": [_I, _P],
 }
@@ -1076,6 +1084,8 @@ WIDE_MAX_C = 512
 # box), in ATT_SMEM_LIMIT bytes of shared memory (head_wide.cu ew_smem,
 # dec_wide.cuh dw_smem).
 ENC_WIDE_TILE, ENC_WIDE_CHUNK, ENC_WIDE_SLOTS, WIDE_BOX = 64, 128, 8, 8192
+# dec_post_gcn_wide_kernel's adjacency window in boxes (dec_adj_window)
+DEC_ADJ_SHORT, DEC_ADJ_LONG = 4, 10
 
 
 def _up(n: int, m: int) -> int:
@@ -1102,22 +1112,32 @@ def enc_wide_ring(c: int) -> tuple:
     return slots, fixed + 2 * slots * (nh * 128 + 16)
 
 
-def dec_wide_rings(c: int) -> dict:
+def dec_adj_window(keypoints: int) -> int:
+    """Adjacency boxes [64 rows x 64 keys] that dec_post_gcn_wide_kernel
+    keeps (csrc/dec_wide.cuh dw_adj_window): DEC_ADJ_SHORT up to two key
+    boxes a batch row (K <= 128), DEC_ADJ_LONG above, which hold a tile's
+    2 ceil(K / 64) boxes up to K = 320 and a window of them past that."""
+    return DEC_ADJ_SHORT if -(-keypoints // 64) <= 2 else DEC_ADJ_LONG
+
+
+def dec_wide_rings(c: int, keypoints: int = POST_TILE) -> dict:
     """{kernel: (slots of each warpgroup's weight ring, shared-memory
-    bytes)} of the decoder's wide kernels at c channels (csrc/dec_wide.cuh
-    dw_smem): alignment slack, the boxes each keeps (the self kernel's att,
-    then bf16(x1), and qpos, [64, 2 nh] bf16 each; the cross kernel's att2
-    [64, 4 nh], then bf16(x2) over it, and two o2 chunks [64, 128]; the gcn
-    kernel's adjacency rows [2, 64, 128] and two relu(m) chunks), the
-    LayerNorm's partial sums, then the two rings of WIDE_BOX slots (as many
-    as fit, at most ENC_WIDE_SLOTS) with two barriers a slot. At 512
-    channels: 6, 4 and 8 slots."""
+    bytes)} of the decoder's wide kernels at c channels and `keypoints` a
+    batch row (csrc/dec_wide.cuh dw_smem): alignment slack, the boxes each
+    keeps (the self kernel's att, then bf16(x1), and qpos, [64, 2 nh] bf16
+    each; the cross kernel's att2 [64, 4 nh], then bf16(x2) over it, and
+    two o2 chunks [64, 128]; the gcn kernel's adjacency window of
+    dec_adj_window boxes and two relu(m) chunks), the LayerNorm's partial
+    sums, then the two rings of WIDE_BOX slots (as many as fit, at most
+    ENC_WIDE_SLOTS) with two barriers a slot. At 512 channels: 6, 4 and 8
+    slots (7 for the gcn kernel above 128 keypoints)."""
     nh = enc_wide_half(c)
     red = 4 * 2 * 2 * ENC_WIDE_TILE
     fixed = {"dec_post_self_wide_kernel": 1024 + 2 * nh * 256 + red,
              "dec_post_cross_wide_kernel": 1024 + nh * 512 + 4 * WIDE_BOX
              + red,
-             "dec_post_gcn_wide_kernel": 1024 + 8 * WIDE_BOX + red}
+             "dec_post_gcn_wide_kernel": 1024 + (dec_adj_window(keypoints)
+                                                 + 4) * WIDE_BOX + red}
     rings = {}
     for name, f in fixed.items():
         slots = min(ENC_WIDE_SLOTS,
@@ -1127,11 +1147,12 @@ def dec_wide_rings(c: int) -> dict:
 
 
 @functools.lru_cache(maxsize=None)
-def dec_wide_card_rings(c: int) -> dict:
+def dec_wide_card_rings(c: int, keypoints: int = POST_TILE) -> dict:
     """dec_wide_rings as the built kernels take them: the slots and shared
-    memory that csrc/dec_wide.cu's launches compute at c channels."""
+    memory that csrc/dec_wide.cu's launches compute at c channels and
+    `keypoints` a batch row."""
     out = (ctypes.c_int * 6)()
-    _call("ec_dec_wide_layout", c, ctypes.addressof(out))
+    _call("ec_dec_wide_layout", c, keypoints, ctypes.addressof(out))
     names = ("dec_post_self_wide_kernel", "dec_post_cross_wide_kernel",
              "dec_post_gcn_wide_kernel")
     return {n: (out[2 * i], out[2 * i + 1]) for i, n in enumerate(names)}
@@ -1144,11 +1165,12 @@ def post_plan(rows: int, c: int, f: int, *, chunk: int = ENC_CHUNK,
     rows, whose `pad_rows` missing rows (the last tile's) the TMA fills with
     zeros and the kernel does not store, and `chunks` of the hidden, which
     is padded to `f_pad` columns (a multiple of `chunk`) where f is not one.
-    With `keypoints` (the decoder's cross kernel): a tile is one batch row
-    of K keypoints, padded to POST_TILE rows with zero rows and zero
-    adjacency columns.
+    With `keypoints` (the decoder's cross kernel) up to POST_TILE: a tile
+    is one batch row of K keypoints, padded to POST_TILE rows with zero
+    rows and zero adjacency columns.
 
-    Any other c up to WIDE_MAX_C takes the wide kernels, and the plan
+    Any other c up to WIDE_MAX_C, and with more than POST_TILE keypoints
+    every c (256 too), takes the wide kernels, and the plan
     holds `wide`: True and their common layout: `tiles` of ENC_WIDE_TILE
     rows over the rows flattened (`pad_rows` missing in the last), the
     warpgroups' `half` channels each (enc_wide_half), the weights'
@@ -1161,11 +1183,12 @@ def post_plan(rows: int, c: int, f: int, *, chunk: int = ENC_CHUNK,
     enc_post_wide_kernel; with them: the cross layer's two launches, dec_post_cross_wide_kernel
     over the `tiles` and dec_post_gcn_wide_kernel over `gcn_tiles` of
     ENC_WIDE_TILE rows of one batch row each (ceil(K / 64) a batch row,
-    `gcn_pad_rows` missing in a batch row's last). The padding columns
-    are zero in the weights (pad_cols, pad_ffn, pad_gcn), so the products
-    are unchanged. Raises for what the kernels do not take: c outside
-    1..WIDE_MAX_C, no hidden, no rows, keypoints outside 1..POST_TILE or
-    no whole batch rows."""
+    `gcn_pad_rows` missing in a batch row's last; its adjacency window of
+    `adj_boxes` boxes, dec_adj_window). The padding columns are zero in
+    the weights (pad_cols, pad_ffn, pad_gcn), so the products are
+    unchanged. Raises for what the kernels do not take: c outside
+    1..WIDE_MAX_C, no hidden, no rows, no keypoints or no whole batch
+    rows of them."""
     if not 1 <= c <= WIDE_MAX_C:
         raise ValueError(f"the post-attention kernels take 1..{WIDE_MAX_C} "
                          f"channels, got {c}")
@@ -1173,14 +1196,13 @@ def post_plan(rows: int, c: int, f: int, *, chunk: int = ENC_CHUNK,
         raise ValueError(f"no hidden width ({f})")
     if rows <= 0:
         raise ValueError(f"no rows ({rows})")
-    if keypoints is not None and (not 1 <= keypoints <= POST_TILE
-                                  or rows % keypoints):
-        raise ValueError(f"{rows} rows are no batch of rows of 1..{POST_TILE}"
-                         f" keypoints (K={keypoints})")
-    if c != POST_C:
+    if keypoints is not None and (keypoints < 1 or rows % keypoints):
+        raise ValueError(f"{rows} rows are no batch of rows of keypoints "
+                         f"(K={keypoints})")
+    if c != POST_C or (keypoints or 0) > POST_TILE:
         half, f_pad = enc_wide_half(c), _up(f, ENC_WIDE_CHUNK)
         tiles = -(-rows // ENC_WIDE_TILE)
-        rings = dec_wide_rings(c)
+        rings = dec_wide_rings(c, keypoints or POST_TILE)
         names = (("dec_post_cross_wide_kernel", "dec_post_gcn_wide_kernel")
                  if keypoints else ("dec_post_self_wide_kernel",))
         kernels = {n: {"slots": rings[n][0], "smem_bytes": rings[n][1]}
@@ -1192,7 +1214,8 @@ def post_plan(rows: int, c: int, f: int, *, chunk: int = ENC_CHUNK,
         if keypoints:
             kt = -(-keypoints // ENC_WIDE_TILE)
             plan.update(gcn_tiles=rows // keypoints * kt,
-                        gcn_pad_rows=kt * ENC_WIDE_TILE - keypoints)
+                        gcn_pad_rows=kt * ENC_WIDE_TILE - keypoints,
+                        adj_boxes=dec_adj_window(keypoints))
         else:
             slots, enc_smem = enc_wide_ring(c)
             kernels["enc_post_wide_kernel"] = {"slots": slots,
@@ -1361,12 +1384,14 @@ def dec_post_cross(att2: torch.Tensor, x1: torch.Tensor, adj: torch.Tensor,
     + bg_s) and per batch row m = adj0 . y0 + adj1 . y1, then out = LN3(x2
     + bf16(relu(m)) . wf^T + bf). att2: contiguous bf16 [B, K, 2C]; x1:
     fp32 [B K, C]; adj: [B, 2, K, K] fp32 or bf16 (rounded to bf16 in
-    the kernel). Returns [B K, C] in out_dtype. At POST_C channels one
-    launch of dec_post_cross_kernel, a batch row a tile, y formed per F
-    chunk; at the others two launches (csrc/dec_wide.cu):
-    dec_post_cross_wide_kernel over the flattened rows (x2 and y into
-    scratch buffers), then dec_post_gcn_wide_kernel over tiles of one
-    batch row."""
+    the kernel). Returns [B K, C] in out_dtype. At POST_C channels and up
+    to POST_TILE keypoints one launch of dec_post_cross_kernel, a batch
+    row a tile, y formed per F chunk; at the others two launches
+    (csrc/dec_wide.cu): dec_post_cross_wide_kernel over the flattened rows
+    (x2 and y into scratch buffers), then dec_post_gcn_wide_kernel over
+    tiles of one batch row, its GCN weights in the wide layout (w["wg"]
+    [2 f_pad, c_pad], w["wf"] [c_pad, f_pad] of post_plan's wide plan:
+    ops/fused_decoder.py cross_weights)."""
     b, k, c2 = att2.shape
     c = c2 // 2
     f = w["wf"].shape[1]
@@ -1797,14 +1822,56 @@ def _q_split(b, tiles):
     return -(-tiles // per_block), per_block
 
 
+# bias_attn_long_kernel (csrc/bias_long.cu) above BA_RESIDENT_KEYS keys:
+# BA_WIDE_WARPS warps a block, a warp one head of a 16-query tile (two
+# above BA_WIDE_WARPS heads); BA_SM_SMEM bytes of shared memory an SM, 1 KB
+# of them reserved a block.
+BA_RESIDENT_KEYS, BA_SM_SMEM = ATT_ROW16 * 16, 233472
+
+
+def bias_long_key_tile(dp: int, heads: int) -> int:
+    """Keys of bias_attn_long_kernel's streamed tile (bias_long.cu
+    bl_key_tile): 64, or 32 / 16 where 16 heads of head dim 64 / 128 leave
+    no room."""
+    if heads <= BA_WIDE_WARPS or dp == 32:
+        return 64
+    return 32 if dp == 64 else 16
+
+
+def bias_long_smem(heads: int, dp: int, key_tile: int) -> int:
+    """Shared memory of bias_attn_long_kernel (bias_long.cu bl_smem): the
+    tile's queries [heads, 16, dp + 8] bf16, a key or value tile [heads,
+    key_tile, dp + 8] bf16, the tile's bias [heads, 16, key_tile] fp32, its
+    key mask and the MLP."""
+    return 32 * heads * (dp + 8) + 2 * heads * key_tile * (dp + 8) \
+        + 64 * heads * key_tile + 4 * key_tile + 4 * BA_WIDE_MLP_FLOATS
+
+
+def _bias_long_plan(b, n, heads, d):
+    dp = attention_head_dim(d)
+    kt = bias_long_key_tile(dp, heads)
+    smem = bias_long_smem(heads, dp, kt)
+    two = heads <= BA_WIDE_WARPS and dp <= 64     # bl_min_blocks
+    per_sm = max(1, min(2 if two else 1, BA_SM_SMEM // (smem + 1024)))
+    qtiles = -(-n // 16)
+    return (("long", True), ("d_pad", dp),
+            ("heads_per_warp", -(-heads // BA_WIDE_WARPS)),
+            ("key_tile", kt), ("query_tiles", qtiles),
+            ("key_tiles", -(-n // kt)), ("items", b * qtiles),
+            ("blocks_per_sm", per_sm), ("smem_bytes", smem),
+            ("scratch_floats", heads * 16 * qtiles * 16))
+
+
 @functools.lru_cache(maxsize=None)
 def _bias_attention_plan(b, n, heads, d):
     if not (1 <= heads <= BA_WIDE_HEADS and 1 <= d <= ATT_HEAD_DIMS[-1]):
         raise ValueError(f"the bias attention takes 1..{BA_WIDE_HEADS} heads "
                          f"of 1..{ATT_HEAD_DIMS[-1]}, got {heads} of {d}")
-    if b < 1 or not 1 <= n <= ATT_ROW16 * 16:
-        raise ValueError(f"the bias attention takes 1..{ATT_ROW16 * 16} "
-                         f"keypoints and a batch, got B={b}, K={n}")
+    if b < 1 or n < 1:
+        raise ValueError(f"the bias attention takes keypoints and a batch, "
+                         f"got B={b}, K={n}")
+    if n > BA_RESIDENT_KEYS:
+        return _bias_long_plan(b, n, heads, d)
     tiles = -(-n // 16)
     if (heads, d) != (BA_HEADS, BA_D):
         dp, nkp = attention_head_dim(d), tiles * 16
@@ -1854,8 +1921,14 @@ def bias_attention_plan(b: int, n: int, heads: int, d: int) -> dict:
     BA_WIDE_WARPS, a warp a head), each head's V copied over its K after
     the scores; smem_bytes: the slots, the bias of a tile for every head
     [heads, 16, key_tiles * 16] fp32, the key mask and the MLP
-    (bias_wide_smem). Raises for what the kernels do not take: more than
-    16 heads, head dims above 128, more than 128 keypoints."""
+    (bias_wide_smem). Above BA_RESIDENT_KEYS keypoints, at every head count
+    and dim, the plan holds `long`: True and bias_attn_long_kernel's: the
+    head dim run at `d_pad`, `heads_per_warp`, the keys streamed in
+    `key_tiles` tiles of `key_tile`, `items` 16-query tiles (`query_tiles`
+    a batch row) walked by a persistent grid of `blocks_per_sm` blocks an
+    SM, `smem_bytes` (bias_long_smem) and each block's scratch of
+    `scratch_floats` finished scores. Raises for what the kernels do not
+    take: more than 16 heads, head dims above 128, no keypoints."""
     return dict(_bias_attention_plan(int(b), int(n), int(heads), int(d)))
 
 
@@ -1867,7 +1940,10 @@ def bias_attention(qkv: torch.Tensor, key_valid, hops: torch.Tensor,
     kernel once for all heads. qkv: contiguous bf16 [B, K, 3 C] (q | k |
     v); key_valid: bool [B, K] or None; hops: contiguous bf16 [B, K, K,
     n_hop] (the hop stack's own layout); hop_mlp: fp32 (w1 [n_hop, hid],
-    b1 [hid], w2 [hid, H], b2 [H]). Returns bf16 [B, K, C]."""
+    b1 [hid], w2 [hid, H], b2 [H]). Returns bf16 [B, K, C].
+    bias_attn_kernel, bias_attn_wide_kernel or, above BA_RESIDENT_KEYS
+    keypoints, bias_attn_long_kernel (bias_attention_plan), which writes
+    each block's finished scores to a scratch buffer made here."""
     w1, b1, w2, b2 = hop_mlp
     _cuda(qkv, key_valid, hops, w1, b1, w2, b2)
     b, n, c3 = qkv.shape
@@ -1884,6 +1960,17 @@ def bias_attention(qkv: torch.Tensor, key_valid, hops: torch.Tensor,
         (b2, (num_heads,)))]
     key_valid, kv_ptr, kv_stride = _key_mask(key_valid, b, n)
     out = torch.empty((b, n, c), dtype=torch.bfloat16, device=qkv.device)
+    if plan.get("long"):
+        grid = min(plan["items"], plan["blocks_per_sm"] * _sms(qkv.device))
+        scores = torch.empty((grid, plan["scratch_floats"]),
+                             dtype=torch.float32, device=qkv.device)
+        d = c // num_heads
+        _call("ec_bias_attention_long", ptrs[0], b, n, num_heads, d, kv_ptr,
+              kv_stride, ptrs[1], nhop, hid, *ptrs[2:], float(d ** -0.5),
+              out.data_ptr(), scores.data_ptr(), grid, plan["key_tile"],
+              plan["smem_bytes"], _stream())
+        launches["bias_attn_long_kernel"] += 1
+        return out
     if plan.get("wide"):
         d = c // num_heads
         _call("ec_bias_attention_wide", ptrs[0], b, n, num_heads, d, kv_ptr,
@@ -1899,6 +1986,12 @@ def bias_attention(qkv: torch.Tensor, key_valid, hops: torch.Tensor,
           plan["smem_bytes"], _stream())
     launches["bias_attn_kernel"] += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def kpt_head(x: torch.Tensor, ct: torch.Tensor, fn, kpt, kow, kob,
@@ -2121,14 +2214,16 @@ def width_misfits(cfg, vit_dim: Optional[int] = None,
       a block holds (416 keys) above;
     * fused_encoder_stack: the post-attention kernels' 1..WIDE_MAX_C
       channels (any hidden width), and the encoder's attention;
-    * fused_decoder_layer: the same channels, at most POST_TILE
-      keypoints, the self- and the cross-attention (head dim 2 C / H);
+    * fused_decoder_layer: the same channels, any keypoint count (above
+      POST_TILE the cross layer's wide pair at every width), the self- and
+      the cross-attention (head dim 2 C / H);
     * fused_decoder_stack: the layer's, the bias attention's 1..16 heads
-      of 1..128 (with the Markov bias) and the keypoint head's channels.
+      of 1..128 (with the Markov bias; above 128 keypoints streamed,
+      bias_attn_long_kernel) and the keypoint head's channels.
     What stays refused, by the plan that refuses it: a trunk above
     VIT_WIDE_MAX_C channels or not in steps of 64, a head of more than
     WIDE_MAX_C channels, head dims above 128 (above 64 past the resident
-    attention's keys), more than POST_TILE keypoints."""
+    attention's keys). No keypoint count is refused."""
     c, h, f = int(cfg.d_model), int(cfg.nhead), int(cfg.dim_feedforward)
     k = int(cfg.max_kpt)
     vc = int(cfg.backbone_dim if vit_dim is None else vit_dim)

@@ -173,11 +173,31 @@ def test_bias_plan_sweep(bs):
 
 
 @pytest.mark.parametrize("args", [(510, 100, 17, 32), (510, 100, 8, 129),
-                                  (510, 129, 8, 32), (0, 100, 8, 32),
+                                  (510, 100, 0, 32), (0, 100, 8, 32),
                                   (510, 0, 8, 32)])
 def test_bias_plan_refuses_unsupported_shapes(args):
+    """17 heads, head dim 129, no heads, no batch, no keypoints; every
+    keypoint count is taken (above 128 by the streaming kernel)."""
     with pytest.raises(ValueError):
         K.bias_attention_plan(*args)
+
+
+@pytest.mark.parametrize("b,n", [(510, 129), (510, 133), (60, 256),
+                                 (1, 300)])
+def test_bias_plan_streams_above_128_keys(b, n):
+    """Past the resident kernels' 128 keys, 8 heads of 32 take
+    bias_attn_long_kernel: 64-key tiles over the row, one 16-query tile an
+    item, its shared memory within a block; 128 keys stay resident."""
+    plan = K.bias_attention_plan(b, n, 8, 32)
+    assert plan["long"] and not plan.get("wide")
+    assert plan["key_tile"] == 64 and plan["d_pad"] == 32
+    assert plan["key_tiles"] == -(-n // 64)
+    assert plan["query_tiles"] == -(-n // 16)
+    assert plan["items"] == b * plan["query_tiles"]
+    assert plan["scratch_floats"] == 8 * 16 * plan["query_tiles"] * 16
+    assert plan["smem_bytes"] <= K.ATT_SMEM_LIMIT
+    assert plan["blocks_per_sm"] == 2
+    assert "long" not in K.bias_attention_plan(b, 128, 8, 32)
 
 
 def _c_signature(name):

@@ -213,11 +213,13 @@ def test_dec_post_self_matches_plain(dev, rows):
 
 
 @pytest.mark.parametrize("b,k", [(510, 100), (3, 100), (2, 13), (1, 128),
-                                 (133, 1)])
+                                 (133, 1), (1, 129), (2, 300)])
 @pytest.mark.parametrize("adj_dtype", [torch.float32, torch.bfloat16])
 def test_dec_post_cross_matches_plain(dev, b, k, adj_dtype):
     """One batch row of K keypoints a tile, padded to 128 rows: the
-    adjacency's padding must contribute nothing."""
+    adjacency's padding must contribute nothing. Above 128 keypoints the
+    cross layer's wide pair (ceil(K / 64) key boxes, a ragged last one)
+    on the same weights: the stage-3 GCN of 384 is whole 128-wide chunks."""
     from edgecape_tpu_torch.ops import kernels as K
     from edgecape_tpu_torch.ops import plain
     c, f = 256, 384
@@ -244,9 +246,9 @@ def test_post_kernels_refuse_what_they_do_not_take(dev):
     att = _rn(dev, 10, 256).to(torch.bfloat16)
     with pytest.raises(ValueError):                  # fp32 operand
         K.enc_post(att.float(), att, w, eps=1e-5, out_dtype=torch.float32)
-    with pytest.raises(ValueError):                  # 129 keypoints
+    with pytest.raises(ValueError):                  # adjacency not [B, 2, K, K]
         K.dec_post_cross(_rn(dev, 1, 129, 512).to(torch.bfloat16),
-                         _rn(dev, 129, 256), _rn(dev, 1, 2, 129, 129), w,
+                         _rn(dev, 129, 256), _rn(dev, 1, 2, 129, 128), w,
                          eps=1e-5, out_dtype=torch.float32)
     with pytest.raises(ValueError):                  # strided src
         K.dec_post_self(att, _rn(dev, 10, 512).to(torch.bfloat16)[:, :256],
@@ -705,6 +707,111 @@ def _bias_attention_operands(dev, b, n, nhop, hid, seed=0):
     valid = (torch.rand(b, n, generator=g) > 0.3).to(dev)
     valid[:, 0] = True
     return qkv, valid, hops, mlp
+
+
+@pytest.mark.parametrize("b,n,heads,d", [(3, 133, 8, 32), (510, 133, 8, 32),
+                                         (2, 256, 8, 32), (2, 300, 8, 64),
+                                         (2, 300, 16, 32), (1, 150, 16, 128),
+                                         (2, 137, 3, 25)])
+def test_bias_attention_above_128_keys_matches_plain(dev, b, n, heads, d):
+    """bias_attn_long_kernel: the stage-3 heads at K 133 (few rows, the
+    eval chunk's 510), whole and ragged key tiles, 512 channels, 16 heads
+    (two a warp; 16-key tiles at head dim 128), a padded head dim; one
+    launch counted, within a bf16 ulp of the plain version, whose
+    probabilities it rounds at the same point."""
+    from edgecape_tpu_torch.ops import fused_decoder as FD
+    from edgecape_tpu_torch.ops import kernels as K
+    g = torch.Generator().manual_seed(n + heads)
+    c = heads * d
+    qkv = torch.randn(b, n, 3 * c, generator=g).to(dev).to(torch.bfloat16)
+    hops = torch.rand(b, n, n, 5, generator=g).to(dev).to(torch.bfloat16)
+    mlp = (torch.randn(5, 12, generator=g).to(dev),
+           (torch.randn(12, generator=g) * 0.1).to(dev),
+           (torch.randn(12, heads, generator=g) / math.sqrt(12)).to(dev),
+           (torch.randn(heads, generator=g) * 0.1).to(dev))
+    valid = (torch.rand(b, n, generator=g) > 0.3).to(dev)
+    valid[:, 0] = True
+    n0 = K.launches["bias_attn_long_kernel"]
+    out = K.bias_attention(qkv, valid, hops, mlp, num_heads=heads)
+    assert K.launches["bias_attn_long_kernel"] == n0 + 1
+    ref = FD.bias_attention_plain(qkv, valid, hops, mlp, num_heads=heads)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, n, c)
+    _close(out, ref)
+    d_ = (out.float() - ref).abs()
+    assert d_.max().item() <= 2 ** -6 and d_.mean().item() <= 1e-4
+    # rows independent of their batch: the first row alone, bit-equal
+    one = K.bias_attention(qkv[:1].contiguous(), valid[:1], hops[:1]
+                           .contiguous(), mlp, num_heads=heads)
+    assert torch.equal(one, out[:1])
+
+
+@pytest.mark.parametrize("c", [100, 256, 512])
+@pytest.mark.parametrize("k", [133, 300, 700])
+def test_dec_wide_plan_rings_above_128_keypoints_are_the_kernels(dev, c, k):
+    """Above 128 keypoints the gcn kernel's adjacency window of
+    DEC_ADJ_LONG boxes: the plan's slots and shared memory are those of
+    csrc/dec_wide.cu's launch; K 700 walks its boxes a window at a
+    time."""
+    from edgecape_tpu_torch.ops import kernels as K
+    assert K.dec_wide_card_rings(c, k) == K.dec_wide_rings(c, k)
+
+
+@pytest.mark.parametrize("c,f", [(256, 384), (256, 320), (200, 300)])
+@pytest.mark.parametrize("b,k", [(3, 133), (1, 700)])
+def test_cross_layer_above_128_keypoints_matches_plain(dev, c, f, b, k):
+    """dec_post_cross above 128 keypoints on a layer's prepared weights
+    (ops/fused_decoder.py cross_weights: an FFN of 320 padded to whole
+    chunks at 256 channels), some keypoints of each batch row invalid
+    (zero adjacency rows and columns), against post_cross_plain; at K 700
+    the gcn kernel reloads its adjacency boxes a window at a time."""
+    from edgecape_tpu_torch.models.transformer import DecoderLayer
+    from edgecape_tpu_torch.ops import fused_decoder as FD
+    from edgecape_tpu_torch.ops import kernels as K
+    layer = _randomize(DecoderLayer(c, 8, f), dev, seed=c + f)
+    w = FD.cross_weights(layer, FD._prepare(layer), k)
+    g = torch.Generator().manual_seed(k)
+    att2 = (torch.randn(b, k, 2 * c, generator=g)).to(dev).to(torch.bfloat16)
+    x1 = torch.randn(b * k, c, generator=g).to(dev)
+    valid = torch.rand(b, k, generator=g) > 0.2
+    keep = (valid[:, None, :, None] & valid[:, None, None, :]).float()
+    adj = (torch.rand(b, 2, k, k, generator=g) / k * keep).to(dev)
+    n0 = {n: K.launches[n] for n in ("dec_post_cross_wide_kernel",
+                                     "dec_post_gcn_wide_kernel")}
+    with torch.no_grad():
+        out = K.dec_post_cross(att2, x1, adj, w, eps=1e-5,
+                               out_dtype=torch.float32)
+        ref = FD.post_cross_plain(att2, x1.view(b, k, c), adj, layer)
+    assert all(K.launches[n] == v + 1 for n, v in n0.items())
+    _close(out.view(b, k, c), ref)
+
+
+def test_decoder_stack_launches_at_133_keypoints(dev):
+    """At 133 keypoints one call of the three-layer stack is 3 + 10 x 3
+    kernels: the bias attention is bias_attn_long_kernel and the cross
+    layer the wide pair (dec_post_cross_wide_kernel,
+    dec_post_gcn_wide_kernel); no resident bias attention, no
+    dec_post_cross_kernel; one layer alone against the plain version to
+    the bound of test_fused_decoder_stack_matches_plain."""
+    from edgecape_tpu_torch.ops import fused_decoder as FD
+    from edgecape_tpu_torch.ops import kernels as K
+    dec = _small_decoder(dev, 3, True, c=256, heads=8, ffn=384, nf=128)
+    args = [t.to(torch.bfloat16) if t.is_floating_point() and i != 1 else t
+            for i, t in enumerate(_small_decoder_inputs(dev, k=133, c=256))]
+    kw = dict(num_heads=8, num_feats=128)
+    with torch.no_grad():
+        names = _kernel_names(lambda: FD.fused_decoder_stack(*args, dec, **kw))
+        o, p = FD.fused_decoder_stack(*args, dec, **kw)
+        ro, rp = FD.fused_decoder_stack_plain(*args, dec, **kw)
+    assert len(names) == 3 + 10 * 3, names
+    for kern in ("bias_attn_long_kernel", "dec_post_cross_wide_kernel",
+                 "dec_post_gcn_wide_kernel", "kpt_head_kernel",
+                 "dec_post_self_kernel"):
+        assert sum(kern in n for n in names) == 3, kern
+    assert not any("bias_attn_kernel" in n or "dec_post_cross_kernel" in n
+                   for n in names)
+    d0 = torch.cat([(o[0] - ro[0]).abs().flatten(),
+                    (p[0] - rp[0]).abs().flatten()])
+    assert d0.max().item() <= 2e-3 and d0.mean().item() <= 2e-4
 
 
 @pytest.mark.parametrize("b,n,nhop,hid", [(3, 100, 5, 12), (2, 37, 5, 12),

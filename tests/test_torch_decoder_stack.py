@@ -9,6 +9,11 @@ emulated tile by tile in plain PyTorch on the CPU:
   from it, then each head's attention (csrc/head_wide.cu
   bias_attn_wide_kernel at other head counts and dims: the same order,
   each head's q, k and v padded with zero columns to 32, 64 or 128);
+  above 128 keypoints bias_attn_long_kernel (csrc/bias_long.cu): the
+  finished scores in base 2 tile by tile of streamed keys, each lane's
+  running max and exp-sum over a tile, joined over the quad, then the
+  probabilities normalised before their bf16 rounding and P.V 16 keys at
+  a time;
 * the keypoint head: tiles of 64 keypoint rows (missing rows zero, the
   TMA's fill), the raw rows and their final norm, three GELU products
   rounded to bf16, the N = 2 head summed as four column groups (a row's
@@ -98,6 +103,100 @@ def bias_attention_tiled(qkv, valid, hops, hop_mlp, *, num_heads):
     return K.unpad_heads(torch.cat(out, 1), num_heads, d)
 
 
+LOG2E = 1.4426950408889634
+
+
+def finished_scores(qkv, valid, hops, hop_mlp, *, num_heads, q0):
+    """What bias_attn_long_kernel's pass 1 writes for the 16-query tile
+    from q0: log2(e) (q.k^T scale) + (log2(e) bias + key mask), the bias
+    in the kernel's MLP order, each head's q and k padded to
+    attention_head_dim, rows past K zero, keys padded with -inf to whole
+    tiles of the plan's key_tile: ([B, H, 16, keys] fp32, the heads' v
+    [B, H, keys, dp] with zero rows past K, the key tile)."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    d = c // num_heads
+    dp = K.attention_head_dim(d)
+    kt = K.bias_attention_plan(b, n, num_heads, d)["key_tile"]
+    keys = -(-n // kt) * kt
+    q, k, v = (plain.bf16(K.pad_heads(qkv[..., i * c:(i + 1) * c],
+                                      num_heads, dp))
+               .view(b, n, num_heads, dp).transpose(1, 2)
+               for i in range(3))
+    qt = torch.zeros(b, num_heads, QT, dp)
+    rows = min(QT, n - q0)
+    qt[:, :, :rows] = q[:, :, q0:q0 + rows]
+    hv = torch.zeros(b, QT, n, hops.shape[-1])
+    hv[:, :rows] = plain.bf16(hops[:, q0:q0 + rows])
+    w1, b1, w2, b2 = (t.float() for t in hop_mlp)
+    nhop, hid = w1.shape
+    hidden = []
+    for m in range(hid):
+        a = b1[m].expand(hv.shape[:-1])
+        for j in range(nhop):
+            a = a + hv[..., j] * w1[j, m]
+        hidden.append(torch.relu(a))
+    bias = []
+    for h in range(num_heads):
+        acc = b2[h].expand(hv.shape[:-1])
+        for m in range(hid):
+            acc = acc + hidden[m] * w2[m, h]
+        bias.append(acc)
+    bias = torch.stack(bias, 1)                       # [B, H, 16, K]
+    sc2 = torch.tensor(d ** -0.5, dtype=torch.float32) * torch.tensor(
+        LOG2E, dtype=torch.float32)
+    kb = plain.key_bias(valid)[:, None, None, :]
+    s2 = (qt @ k.transpose(-1, -2)) * sc2 + (bias * LOG2E + kb)
+    s2 = torch.nn.functional.pad(s2, (0, keys - n), value=-math.inf)
+    vp = torch.nn.functional.pad(v, (0, 0, 0, keys - n))
+    return s2, vp, kt
+
+
+def bias_attention_long_tiled(qkv, valid, hops, hop_mlp, *, num_heads):
+    """bias_attn_long_kernel's order (csrc/bias_long.cu) on qkv [B, K,
+    3C], K above 128: per 16-query tile its finished scores
+    (finished_scores); pass 1 over the key tiles in order, each lane's
+    running max and exp-sum (lane t holds keys 4t .. 4t + 3 of every 16,
+    its sum adding keys 4t, 4t + 1 then 4t + 2, 4t + 3 of each block in
+    turn) rescaled to the tile's new max, then joined over the quad
+    ((l0 + l1) + (l2 + l3)); pass 2: p = 2^(s - max) / sum rounded to
+    bf16, P.V 16 keys at a time, the output rounded to bf16. Returns
+    [B, K, C] fp32 holding bf16 values."""
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    d = c // num_heads
+    out = []
+    for q0 in range(0, n, QT):
+        s2, vp, kt = finished_scores(qkv, valid, hops, hop_mlp,
+                                     num_heads=num_heads, q0=q0)
+        keys = s2.shape[-1]
+        m = torch.full(s2.shape[:-1] + (4,), -math.inf)
+        lsum = torch.zeros_like(m)
+        for t0 in range(0, keys, kt):
+            ch = s2[..., t0:t0 + kt].reshape(*s2.shape[:-1], kt // 16, 4, 4)
+            cm = torch.maximum(m, ch.amax(dim=(-3, -1)))
+            z = torch.where(cm == -math.inf, torch.zeros_like(cm), cm)
+            ex = torch.exp2(ch - z[..., None, :, None])
+            a = torch.zeros_like(lsum)
+            for jb in range(kt // 16):
+                a = a + (ex[..., jb, :, 0] + ex[..., jb, :, 1])
+                a = a + (ex[..., jb, :, 2] + ex[..., jb, :, 3])
+            lsum = lsum * torch.exp2(m - z) + a
+            m = cm
+        f = m.amax(-1)
+        fz = torch.where(f == -math.inf, torch.zeros_like(f), f)
+        lt = lsum * torch.exp2(m - fz[..., None])
+        total = (lt[..., 0] + lt[..., 1]) + (lt[..., 2] + lt[..., 3])
+        inv = torch.where(total > 0, 1.0 / total, torch.zeros_like(total))
+        p = torch.exp2(s2 - fz[..., None]) * inv[..., None]
+        o = 0
+        for b0 in range(0, keys, 16):
+            o = o + plain.bf16(p[..., b0:b0 + 16]) @ vp[..., b0:b0 + 16, :]
+        out.append(plain.bf16(o))
+    o = torch.cat(out, 2)[:, :, :n].transpose(1, 2).reshape(b, n, -1)
+    return K.unpad_heads(o, num_heads, d)
+
+
 def kpt_head_tiled(x, ct, fn, kpt, kow, kob, eps=1e-5):
     """kpt_head_kernel's order on x [R, C]: (pts, outs) fp32 [R, 2]."""
     r, c = x.shape
@@ -141,8 +240,12 @@ def stack_tiled(x, coords, img, ipos, valid, hops, adj, dec, *, num_heads,
     imgb, iposb = plain.bf16(img), plain.bf16(ipos)
     outs, pts = [], []
     wide = c != K.POST_C
+    long = k > K.POST_TILE           # the cross layer's wide pair at any c
     post_self = dec_post_self_wide_tiled if wide else dec_post_self_tiled
-    post_cross = dec_post_cross_wide_tiled if wide else dec_post_cross_tiled
+    post_cross = dec_post_cross_wide_tiled if wide or long else \
+        dec_post_cross_tiled
+    bias_att = bias_attention_long_tiled if k > K.BA_RESIDENT_KEYS else \
+        bias_attention_tiled
     for layer, sw in zip(dec.layers, w["layers"]):
         lw = tdec._prepare(layer)
         h = plain.bf16(plain.gelu(plain.linear(_sine_feats(ct, w["rdt"]),
@@ -151,8 +254,8 @@ def stack_tiled(x, coords, img, ipos, valid, hops, adj, dec, *, num_heads,
         qkv = plain.bf16(plain.linear(xb, lw["wqkv"], lw["bqkv"])).view(
             b, k, 3 * c)
         if hops is not None:
-            att = bias_attention_tiled(qkv, valid, hops, sw["hop_mlp"],
-                                       num_heads=num_heads)
+            att = bias_att(qkv, valid, hops, sw["hop_mlp"],
+                           num_heads=num_heads)
         else:
             att = plain.attention(qkv[..., :c], qkv[..., c:2 * c],
                                   qkv[..., 2 * c:], num_heads=num_heads,
@@ -165,7 +268,8 @@ def stack_tiled(x, coords, img, ipos, valid, hops, adj, dec, *, num_heads,
         att2 = plain.attention(q2.view(b, k, 2 * c), k2, v2,
                                num_heads=num_heads,
                                scale=(2 * c // num_heads) ** -0.5)
-        xb = plain.bf16(post_cross(att2, x1, adj, lw, eps))
+        xb = plain.bf16(post_cross(att2, x1, adj,
+                                   tdec.cross_weights(layer, lw, k), eps))
         p, o = kpt_head_tiled(xb, ct, w["fn"], sw["kpt"], sw["kow"],
                               sw["kob"], eps)
         pts.append(p.view(b, k, 2))

@@ -203,8 +203,11 @@ def dec_post_cross_wide_tiled(att2, x1, adj, w, eps=1e-5):
     y over the tile; then dec_post_gcn_wide_kernel over tiles of
     ENC_WIDE_TILE rows of one batch row: per chunk of ENC_WIDE_CHUNK GCN
     features m = adj0 . y0 + adj1 . y1 over keys in boxes of 64 (zero past
-    K), bf16(relu(m)) . Wf^T summed apart, LN3(x2 + (f + bf)): fp32
-    [B K, C]."""
+    K), one box product at a time into one sum, y0's kt = ceil(K / 64)
+    boxes then y1's (the kernel's load units), bf16(relu(m)) . Wf^T
+    summed apart, LN3(x2 + (f + bf)): fp32 [B K, C]. The same above
+    POST_TILE keypoints at POST_C channels, where the wide pair takes the
+    cross layer."""
     b, k, c2 = att2.shape
     c, r = c2 // 2, b * k
     cp, c2p, fp = w["wch"].shape[0], w["wco"].shape[0], w["wf"].shape[1]
@@ -233,7 +236,11 @@ def dec_post_cross_wide_tiled(att2, x1, adj, w, eps=1e-5):
             a[:, :n, :k] = plain.bf16(adj[bi, :, i0:i0 + n].float())
             f = 0
             for j in range(0, fp, ch):
-                m = a[0] @ yb[:, j:j + ch] + a[1] @ yb[:, fp + j:fp + j + ch]
+                m = 0
+                for s in range(2):
+                    for q in range(0, keys, tile):
+                        m = m + a[s][:, q:q + tile] @ yb[
+                            q:q + tile, s * fp + j:s * fp + j + ch]
                 f = f + plain.linear(plain.bf16(torch.relu(m)),
                                      w["wf"][:, j:j + ch])
             x2_t = x2[bi * k + i0:bi * k + i0 + n]
@@ -266,12 +273,13 @@ def decoder_layer_tiled(x, qpos, img, ipos, valid, bias, adj, layer, *,
     w = tdec._prepare(layer)
     b, k, c = x.shape
     r = b * k
+    wide = c != K.POST_C
+    long = k > K.POST_TILE           # the cross layer's wide pair at any c
     xb = plain.bf16(x)
     qkv = plain.linear(xb, w["wqkv"], w["bqkv"])
     att = plain.attention(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:],
                           num_heads=num_heads, scale=(c // num_heads) ** -0.5,
                           kb=plain.key_bias(valid), bias=bias)
-    wide = c != K.POST_C
     x1, q2 = (dec_post_self_wide_tiled if wide else dec_post_self_tiled)(
         att.reshape(r, c), xb.reshape(r, c), plain.bf16(qpos).reshape(r, c),
         w, eps)
@@ -282,8 +290,10 @@ def decoder_layer_tiled(x, qpos, img, ipos, valid, bias, adj, layer, *,
     att2 = plain.attention(q2.view(b, k, 2 * c), k2, v2,
                            num_heads=num_heads,
                            scale=(2 * c // num_heads) ** -0.5)
-    cross = dec_post_cross_wide_tiled if wide else dec_post_cross_tiled
-    return cross(att2, x1, adj, w, eps).view(b, k, c).to(x.dtype)
+    cross = dec_post_cross_wide_tiled if wide or long else \
+        dec_post_cross_tiled
+    return cross(att2, x1, adj, tdec.cross_weights(layer, w, k), eps).view(
+        b, k, c).to(x.dtype)
 
 
 # ------------------------------------------------------------- inputs
@@ -606,7 +616,7 @@ def test_post_plan_tiles_and_padding(args, want):
 @pytest.mark.parametrize("args,kw", [
     ((100, 513, 96), {}),                      # C above 512
     ((100, 256, 0), {}),                       # no hidden
-    ((100, 256, 384), {"chunk": 64, "keypoints": 129}),
+    ((129, 256, 384), {"chunk": 64, "keypoints": 0}),    # no keypoints
     ((150, 256, 384), {"chunk": 64, "keypoints": 100}),  # no whole rows
     ((0, 256, 384), {})])
 def test_post_plan_refuses_what_the_kernels_do_not_take(args, kw):

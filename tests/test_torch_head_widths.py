@@ -233,7 +233,7 @@ def test_bias_plan_takes_1_to_16_heads_of_up_to_128():
                 assert plan["d_pad"] == K.attention_head_dim(d)
                 assert plan["key_tiles"] == 7
                 assert plan["q_split"] * plan["tiles_per_block"] >= 7
-    for args in ((60, 100, 17, 32), (60, 100, 8, 129), (60, 129, 4, 32)):
+    for args in ((60, 100, 17, 32), (60, 100, 8, 129), (60, 0, 4, 32)):
         with pytest.raises(ValueError):
             K.bias_attention_plan(*args)
 
@@ -379,8 +379,8 @@ def test_width_misfits_take_the_six_widths(c, h, ffn):
      "1..512 channels, got 1024"),
     (_width_cfg(384, 2, 768), None, "flash_mha (encoder)",
      "head dims 1..128, got 192"),
-    (ModelConfig(**STAGE3, max_kpt=160), None, "fused_decoder_layer",
-     "1..128 keypoints (K=160)"),
+    (_width_cfg(1024, 16, 2048, max_kpt=160), None, "fused_decoder_layer",
+     "1..512 channels, got 1024"),
 ], ids=["vit-768/12", "vit-1088/17", "vit-1024/4", "d_model-1024",
         "head-dim-192", "K-160"])
 def test_what_stays_refused_is_named(cfg, vit, op, why):
