@@ -20,10 +20,14 @@ card:
   DecoderLayer / EncoderLayer weights: their outputs, each kernel's
   arrays named apart (heads_<C>_x1 / _q2 / _out, _pts / _outs, _enc_y /
   _enc_nxt, _bias), so that a comparison shows which kernels kept their
-  bits.
+  bits;
+* with --kpts, the bias attention above 128 keypoints (ops/kernels.py
+  bias_attention: csrc/bias_long.cu) at KPTS_KEYS keypoints and
+  KPTS_CASES' heads (8 of 32, 8 of 64), KPTS_ROWS seeded batch rows with
+  a key mask: its bf16 bits as int16, kpts_<K>_<C> an array.
 
     python edgecape_tpu_torch/tools/reference_outputs.py [--root DIR]
-        [--wide] [--heads] OUT.npz
+        [--wide] [--heads] [--kpts] OUT.npz
     python edgecape_tpu_torch/tools/reference_outputs.py --compare A.npz B.npz
 
 --root runs the package of another checkout (the parent's, unpacked from
@@ -54,6 +58,8 @@ WIDE_CASES = (("qkv_b", 2000, 768, 2304, True, True, False),
 
 # (d_model, heads, FFN) of the --heads cases, and their batch rows
 HEAD_CASES, HEAD_ROWS = ((200, 8, 300), (512, 8, 1024)), 60
+# (d_model, heads), keypoints and batch rows of the --kpts cases
+KPTS_CASES, KPTS_KEYS, KPTS_ROWS = ((256, 8), (512, 8)), (133, 256, 300), 60
 
 
 def _episodes(rng):
@@ -170,7 +176,37 @@ def _heads(dev, arrays, launches) -> None:
     launches["heads"] = {n: KN.launches.get(n, 0) - n0[n] for n in names}
 
 
-def run(root: str, out: str, wide: bool = False, heads: bool = False) -> None:
+def _kpts(dev, arrays, launches) -> None:
+    """bias_attention at KPTS_CASES x KPTS_KEYS, seeded (5 hop planes, 12
+    hidden units, about 30% of the keys masked), into arrays (bf16 bits as
+    int16). Launches are read with a default of 0, so that a checkout
+    without one of the kernels runs the same script."""
+    import torch
+    from edgecape_tpu_torch.ops import kernels as KN
+    names = ("bias_attn_long_kernel",)
+    n0 = {n: KN.launches.get(n, 0) for n in names}
+    g = torch.Generator().manual_seed(SEED + 5)
+    b = KPTS_ROWS
+    for c, h in KPTS_CASES:
+        for k in KPTS_KEYS:
+            qkv = torch.randn(b, k, 3 * c, generator=g).to(dev).to(
+                torch.bfloat16)
+            valid = torch.rand(b, k, generator=g).to(dev) > 0.3
+            valid[:, 0] = True
+            hops = torch.rand(b, k, k, 5, generator=g).to(dev).to(
+                torch.bfloat16)
+            mlp = tuple(t.to(dev) for t in (
+                torch.randn(5, 12, generator=g),
+                torch.randn(12, generator=g) * 0.1,
+                torch.randn(12, h, generator=g) * 12 ** -0.5,
+                torch.randn(h, generator=g) * 0.1))
+            att = KN.bias_attention(qkv, valid, hops, mlp, num_heads=h)
+            arrays[f"kpts_{k}_{c}"] = att.view(torch.int16).cpu().numpy()
+    launches["kpts"] = {n: KN.launches.get(n, 0) - n0[n] for n in names}
+
+
+def run(root: str, out: str, wide: bool = False, heads: bool = False,
+        kpts: bool = False) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from edgecape_tpu_torch.api import PoseEstimator
@@ -223,6 +259,8 @@ def run(root: str, out: str, wide: bool = False, heads: bool = False) -> None:
         _wide(dev, arrays, launches)
     if heads:
         _heads(dev, arrays, launches)
+    if kpts:
+        _kpts(dev, arrays, launches)
     np.savez(out, launches=json.dumps(launches, sort_keys=True),
              device=torch.cuda.get_device_name(0), **arrays)
     print(f"wrote {out}: {sorted(arrays)} on {torch.cuda.get_device_name(0)}"
@@ -264,13 +302,16 @@ def main(argv=None) -> None:
     p.add_argument("--heads", action="store_true",
                    help="also the decoder kernels and keypoint head of "
                         "csrc/head_wide.cu at HEAD_CASES")
+    p.add_argument("--kpts", action="store_true",
+                   help="also the bias attention above 128 keypoints at "
+                        "KPTS_CASES x KPTS_KEYS")
     p.add_argument("out", nargs="?")
     args = p.parse_args(argv)
     if args.compare:
         sys.exit(0 if compare(*args.compare) else 1)
     if not args.out:
         p.error("OUT.npz is needed")
-    run(args.root, args.out, args.wide, args.heads)
+    run(args.root, args.out, args.wide, args.heads, args.kpts)
 
 
 if __name__ == "__main__":

@@ -710,15 +710,17 @@ def _bias_attention_operands(dev, b, n, nhop, hid, seed=0):
 
 
 @pytest.mark.parametrize("b,n,heads,d", [(3, 133, 8, 32), (510, 133, 8, 32),
+                                         (510, 136, 8, 32), (60, 145, 8, 64),
                                          (2, 256, 8, 32), (2, 300, 8, 64),
                                          (2, 300, 16, 32), (1, 150, 16, 128),
                                          (2, 137, 3, 25)])
 def test_bias_attention_above_128_keys_matches_plain(dev, b, n, heads, d):
-    """bias_attn_long_kernel: the stage-3 heads at K 133 (few rows, the
-    eval chunk's 510), whole and ragged key tiles, 512 channels, 16 heads
-    (two a warp; 16-key tiles at head dim 128), a padded head dim; one
-    launch counted, within a bf16 ulp of the plain version, whose
-    probabilities it rounds at the same point."""
+    """bias_attn_long_kernel: the stage-3 heads at K 133 and Halpe's 136
+    (few rows, the eval chunk's 510), whole and ragged key tiles, 512
+    channels, 16 heads (two a warp; 16-key tiles at head dim 128), a padded
+    head dim; one launch counted, within a bf16 ulp of the plain version,
+    whose probabilities it rounds at the same point; the first and the last
+    batch row alone give the same bits."""
     from edgecape_tpu_torch.ops import fused_decoder as FD
     from edgecape_tpu_torch.ops import kernels as K
     g = torch.Generator().manual_seed(n + heads)
@@ -739,10 +741,12 @@ def test_bias_attention_above_128_keys_matches_plain(dev, b, n, heads, d):
     _close(out, ref)
     d_ = (out.float() - ref).abs()
     assert d_.max().item() <= 2 ** -6 and d_.mean().item() <= 1e-4
-    # rows independent of their batch: the first row alone, bit-equal
-    one = K.bias_attention(qkv[:1].contiguous(), valid[:1], hops[:1]
-                           .contiguous(), mlp, num_heads=heads)
-    assert torch.equal(one, out[:1])
+    # rows independent of their batch place: the first and the last row
+    # alone (copies, so that their operands stay 16-byte aligned), bit-equal
+    for i in (0, b - 1):
+        one = K.bias_attention(qkv[i:i + 1].clone(), valid[i:i + 1],
+                               hops[i:i + 1].clone(), mlp, num_heads=heads)
+        assert torch.equal(one, out[i:i + 1]), i
 
 
 @pytest.mark.parametrize("c", [100, 256, 512])

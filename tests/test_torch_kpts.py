@@ -119,6 +119,25 @@ def test_bias_long_plan_fits_every_head_shape(heads, d):
     assert plan["scratch_floats"] == heads * 16 * 304
 
 
+@pytest.mark.parametrize("heads", [1, 3, 8, 16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_bias_long_smem_fits_every_head_shape_and_key_count(heads, d):
+    """bias_attn_long_kernel at every head count and head dim it takes, K
+    129 to 1024: shared memory within a block's 227 KB, as many blocks an
+    SM as the launch bounds and the SM's shared memory allow, and a scratch
+    of every 16-query tile's finished scores, [heads, 16, K padded to 16]
+    a block."""
+    for k in (129, 133, 136, 144, 145, 256, 300, 512, 1000, 1024):
+        plan = K.bias_attention_plan(510, k, heads, d)
+        kt = K.bias_long_key_tile(K.attention_head_dim(d), heads)
+        assert plan["long"] and plan["key_tile"] == kt
+        assert plan["smem_bytes"] <= K.ATT_SMEM_LIMIT
+        assert plan["blocks_per_sm"] * (plan["smem_bytes"] + 1024) \
+            <= K.BA_SM_SMEM
+        assert plan["scratch_floats"] == heads * 16 * -(-k // 16) * 16
+        assert plan["items"] == 510 * -(-k // 16)
+
+
 def test_width_misfits_take_133_keypoints():
     """A stage-3 model with max_kpt 133 builds on the kernels at the
     port's head widths; a 1024-channel head stays refused by name."""
