@@ -297,6 +297,7 @@ from __future__ import annotations
 
 import contextlib
 import glob
+import itertools
 import json
 import math
 import os
@@ -3246,10 +3247,12 @@ class EvalEpisodes:
     img_prefix = "."
     name2id = {}
 
-    def __init__(self, rng, groups=4, queries=3, shots=1, kpts=K):
+    def __init__(self, rng, groups=4, queries=3, shots=1, kpts=K,
+                 size=SIZE):
         from edgecape_tpu_torch.config import DataConfig
         self.cfg = DataConfig()
         self.queries, self.shots, self.k = queries, shots, kpts
+        self.size = size
         adj = np.zeros((kpts, kpts), np.float32)
         for i in range(kpts - 1):
             adj[i, i + 1] = adj[i + 1, i] = 1.0
@@ -3257,11 +3260,11 @@ class EvalEpisodes:
 
         def item():
             return {"joints_3d": np.concatenate(
-                        [rng.uniform(8, SIZE - 8, (kpts, 2)),
+                        [rng.uniform(8, size - 8, (kpts, 2)),
                          np.zeros((kpts, 1))], axis=1).astype(np.float32),
                     "joints_3d_visible": np.ones((kpts, 3), np.float32),
-                    "bbox": np.array([0, 0, SIZE, SIZE], np.float32),
-                    "image": rng.integers(0, 256, (SIZE, SIZE, 3),
+                    "bbox": np.array([0, 0, size, size], np.float32),
+                    "image": rng.integers(0, 256, (size, size, 3),
                                           dtype=np.uint8)}
 
         self.db, self.paired_samples, self.groups = [], [], []
@@ -3293,8 +3296,9 @@ class EvalEpisodes:
     def _meta(self, rows):
         nq = len(rows)
         return {"query_image_file": [f"./q{r}.png" for r in rows],
-                "query_center": np.full((nq, 2), SIZE / 2, np.float32),
-                "query_scale": np.full((nq, 2), SIZE / 200.0, np.float32),
+                "query_center": np.full((nq, 2), self.size / 2, np.float32),
+                "query_scale": np.full((nq, 2), self.size / 200.0,
+                                       np.float32),
                 "bbox_id": rows}
 
     def collate_group(self, chunk):
@@ -3328,7 +3332,7 @@ class EvalEpisodes:
             vis = torch.ones((len(rows), self.shots, self.k))
             target, weight = heatmap.render_msra(
                 torch.from_numpy(joints_s), vis, (64, 64),
-                (float(SIZE), float(SIZE)), 1.0)
+                (float(self.size), float(self.size)), 1.0)
             yield types.SimpleNamespace(
                 img_s=norm(img_s),
                 img_q=norm(np.stack([self.db[p[-1]]["image"]
@@ -5827,6 +5831,11 @@ LONG_LOSS_REL = 1e-2
 # step's gradient gap
 LONG_NEAR_CAP = 280
 LONG_SOURCE = "edgecape_tpu_torch/csrc/attn_long.cu"
+# tools/bench_attention.py LONG_SHAPES' training rows by the instance
+# suffix of their kernels' launch counters: the joint encoder at 518 px in
+# 8 heads of 32, and a direct call at its length in 4 heads of 128
+LONG_TRAIN_ROWS = {"": "train encoder 518 px",
+                   "<128>": "train 518 px, 4 x 128"}
 
 
 # the backward pair's kernels: the gradients each writes, and its part of
@@ -5857,7 +5866,9 @@ def long_entry(name, row, replaces, launches, what):
     the gradients it writes; the pair's wrapper, plain and SDPA-backward
     figures go under `pair`, and its `plain_ms` is the pair's, so
     labelled: no plain version or library call computes one kernel's
-    gradients alone."""
+    gradients alone. `name` may carry an instance ("<128>")."""
+    base, sep, arg = name.partition("<")
+    inst = sep + arg
     dev_ms = kernel_device_ms(row, name)
     entry = {"name": name, "route": "cuda", "source": LONG_SOURCE,
              "replaces": replaces, "launches": launches,
@@ -5866,24 +5877,166 @@ def long_entry(name, row, replaces, launches, what):
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
              "bound_by": row["bound_by"], "library_ms": row["sdpa_ms"],
              "shape": row["shape"], "what": what}
-    if name in LONG_BWD_PARTS:
-        grads, part = LONG_BWD_PARTS[name]
+    if base in LONG_BWD_PARTS:
+        grads, part = LONG_BWD_PARTS[base]
         bnd, by = row["part_bounds"][part]
         entry.update(
             max_abs_err=max(row["errs"].get(g, 0.0) for g in grads),
-            gradients=list(grads), ms=dev_ms,
+            gradients=list(grads),
+            ms=row["wrapper_ms"] if dev_ms is None else dev_ms,
             ms_is="this kernel's own device time a call (its wrapper "
-                  "launches the pair)",
+                  "launches the pair)" if dev_ms is not None else
+                  "the pair's wrapper time a call (CUDA events): this "
+                  "run's traces lost the kernel's own device events",
             bound_ms=bnd, bound_by=by, library_ms=None,
             plain_ms_is="the pair's: dq, dk, dv through autograd of "
                         "flash_mha_train_plain",
-            pair={"kernels": list(LONG_BWD_PARTS), "ms": row["wrapper_ms"],
+            pair={"kernels": [k + inst for k in LONG_BWD_PARTS],
+                  "ms": row["wrapper_ms"],
                   "device_ms": row["device_ms"],
                   "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                   "bound_by": row["bound_by"], "library_ms": row["sdpa_ms"],
                   "library_device_ms": row["sdpa_device_ms"],
                   "library": "SDPA backward"})
     return entry
+
+
+# [long]'s heads whose decoder cross-attention runs at head dim 128 (2 C /
+# H: 128, and 96 run padded to 128) over the 1369 image keys of 518 px,
+# past the resident kernel's 416: attn_long_kernel<128>. Each: a cached
+# chunk of LONG_HEAD_GROUPS x QUERIES queries with the decoder stack off and
+# on, and run_eval(cache_supports=True) over LONG_HEAD_EVAL_GROUPS groups
+# of EVAL_QUERIES queries.
+LONG_HEADS = [(512, 8, 1024), (384, 8, 768)]
+LONG_HEAD_GROUPS, LONG_HEAD_EVAL_GROUPS = 4, 2
+# the streaming kernels a cached 518 px chunk of such a head launches: at
+# head dim 64 (48 run at 64) one a ViT block and pass and one an encoder
+# layer, at head dim 128 one a decoder layer's cross-attention
+LONG_HEAD_LAUNCHES = {"attn_long_kernel": 2 * 12 + 3,
+                      "attn_long_kernel<128>": 3}
+
+
+def long_heads(dev, power):
+    """[long]'s heads of LONG_HEADS at LONG_SIZE px on the normal entry
+    points: PoseEstimator.forward_cached on a cached chunk with the
+    decoder stack off and on, each timed after a warm-up, its streaming
+    launches counted against LONG_HEAD_LAUNCHES (no plain version, no
+    thread-copy GEMM), its predictions against the plain path on the same
+    weights (the [widths] bounds), the stack-off chunk profiled (device
+    ms, idle share, attn_long_kernel<128>'s share); then
+    eval.runner.run_eval(cache_supports=True) with the stack off, its
+    metrics finite and attn_long_kernel<128> launched. Returns (the
+    streaming kernels' launches over the runs by head, the figures)."""
+    from edgecape_tpu_torch import config as C
+    from edgecape_tpu_torch.api import PoseEstimator
+    from edgecape_tpu_torch.eval.runner import run_eval
+    from edgecape_tpu_torch.models import dinov2
+    from edgecape_tpu_torch.models.convert import (init_params,
+                                                   redraw_zero_inits)
+    from edgecape_tpu_torch.ops import counters, kernel_config
+    names = counters.LONG_KERNELS
+    launches, figs = {}, {}
+    for c, h, ffn in LONG_HEADS:
+        tag = f"{c}/{h}/{ffn}"
+        cfg = main_path_config(LONG_SIZE)
+        cfg.model = C.replace(cfg.model, **width_model_kw(c, h, ffn))
+        misfits = dinov2.width_misfits(cfg.model)
+        if any(misfits.values()):
+            fail(f"the {tag} head is refused at {LONG_SIZE} px: {misfits}")
+        gen = torch.Generator().manual_seed(SEED + 140 + c)
+        bb, head = init_params(gen, cfg.model)
+        redraw_zero_inits(bb, head, gen)
+        support, query, _ = episodes(np.random.default_rng(SEED + 141),
+                                     groups=LONG_HEAD_GROUPS,
+                                     size=LONG_SIZE, chunks=1)[0]
+        est = PoseEstimator(cfg, bb, head, device=dev)
+        preds, counts, fig = {}, {}, {}
+        for stack in (False, True):
+            kernel_config.set_decoder_stack(stack)
+            est.forward_cached(support, query)          # warm-up
+            torch.cuda.synchronize()
+            zero_counts()
+            with PlainCalls() as plain_calls:
+                t0 = time.perf_counter()
+                preds[stack] = est.forward_cached(support, query)[0].cpu() \
+                    .numpy()
+                wall = time.perf_counter() - t0
+            _, kern = read_counts()
+            got = {k: kern.get(k, 0) for k in names}
+            want = dict.fromkeys(names, 0) | LONG_HEAD_LAUNCHES
+            counts[stack] = got
+            ok = (got == want and plain_calls.n == 0
+                  and not kern.get("gemm_kernel"))
+            print(f"[long] the {tag} head (cross-attention head dim "
+                  f"{2 * c // h}) at {LONG_SIZE} px, decoder stack "
+                  f"{'on' if stack else 'off'}: one chunk of "
+                  f"{LONG_HEAD_GROUPS} x {QUERIES} queries {wall:.3f} s "
+                  f"({LONG_HEAD_GROUPS * QUERIES / wall:.1f} img/s) on "
+                  f"{power}; streaming launches {got} expected {want}, "
+                  f"thread-copy GEMMs {kern.get('gemm_kernel', 0)}, plain "
+                  f"versions run {plain_calls.n}; every kernel launched "
+                  f"{kern} {'OK' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"the {tag} head's {LONG_SIZE} px chunk did not run on "
+                     f"the streaming kernels")
+            fig[f"chunk_s, stack {'on' if stack else 'off'}"] = wall
+            if not stack:
+                busy, idle = profile(
+                    lambda: est.forward_cached(support, query),
+                    f"one {LONG_SIZE} px chunk of the {tag} head "
+                    f"({LONG_HEAD_GROUPS} groups x {QUERIES} queries, "
+                    f"decoder stack off)", power, rows=12,
+                    share_of=("attn_long_kernel<128>",))
+                fig.update(device_ms=busy, idle_share=idle)
+        kernel_config.set_decoder_stack(False)
+        pcfg = C.replace(cfg, model=C.replace(cfg.model, use_flash=False))
+        ref = PoseEstimator(pcfg, bb, head, device=dev).forward_cached(
+            support, query)[0].cpu().numpy()
+        for stack in (False, True):
+            med, mx, within = coord_gap(preds[stack], ref)
+            ok = (med <= PATH_MEDIAN_TOL and within >= PATH_WITHIN_SHARE
+                  and np.isfinite(preds[stack]).all())
+            fig[f"median_gap, stack {'on' if stack else 'off'}"] = med
+            print(f"[long] the {tag} head at {LONG_SIZE} px, decoder stack "
+                  f"{'on' if stack else 'off'}, vs the plain path: median "
+                  f"|d| {med:.4g} (tol {PATH_MEDIAN_TOL}), max {mx:.4g}, "
+                  f"share within {PATH_CELL:.4g}: {within:.4f} (tol >= "
+                  f"{PATH_WITHIN_SHARE}) {'OK' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                fail(f"the {tag} head's {LONG_SIZE} px chunk disagrees with "
+                     f"the plain path")
+        torch.cuda.empty_cache()
+        # the normal entry point
+        ds = EvalEpisodes(np.random.default_rng(SEED + 142),
+                          groups=LONG_HEAD_EVAL_GROUPS, queries=EVAL_QUERIES,
+                          size=LONG_SIZE)
+        zero_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            res = run_eval(ds, est, batch_size=EVAL_BATCH, res_folder=tmp,
+                           progress=False, cache_supports=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _, kern = read_counts()
+        got = {k: kern.get(k, 0) for k in names}
+        ok = (got["attn_long_kernel<128>"] > 0
+              and all(np.isfinite(res[m]) for m in ("PCK", "NME", "AUC",
+                                                    "EPE")))
+        print(f"[long] the {tag} head at {LONG_SIZE} px: run_eval("
+              f"cache_supports=True) over {len(ds)} episodes, decoder stack "
+              f"off: PCK {res['PCK']:.4f} NME {res['NME']:.4f} (random "
+              f"weights), {wall:.3f} s on {power}; streaming launches {got} "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"run_eval with the {tag} head at {LONG_SIZE} px did not "
+                 f"run on the streaming kernels")
+        launches[tag] = {k: counts[False][k] + counts[True][k] + got[k]
+                         for k in names}
+        figs[tag] = fig
+        del est
+        torch.cuda.empty_cache()
+    return launches, figs
 
 
 def long_path(dev, entries, power, figures):
@@ -5939,23 +6092,23 @@ def long_path(dev, entries, power, figures):
     # --- the training kernels at rate 0 and at LONG_RATE, each kernel's
     # own device time beside its bound and SDPA's (information only)
     by_rate = {}
-    for rate in ("0", str(LONG_RATE)):
-        fw = rows[f"train encoder 518 px, rate {rate}"]
-        bw = rows[f"train encoder 518 px, rate {rate}, backward"]
-        ms = {"train_fwd_long_kernel":
-              kernel_device_ms(fw, "train_fwd_long_kernel")}
-        ms.update({k: kernel_device_ms(bw, k) for k in LONG_BWD_PARTS})
-        bounds = {"train_fwd_long_kernel": fw["bound_ms"]}
+    for (inst, prefix), rate in itertools.product(LONG_TRAIN_ROWS.items(),
+                                                  ("0", str(LONG_RATE))):
+        fw = rows[f"{prefix}, rate {rate}"]
+        bw = rows[f"{prefix}, rate {rate}, backward"]
+        fwd = "train_fwd_long_kernel" + inst
+        bwd = {k + inst: part for k, (_, part) in LONG_BWD_PARTS.items()}
+        ms = {fwd: kernel_device_ms(fw, fwd)}
+        ms.update({k: kernel_device_ms(bw, k) for k in bwd})
+        bounds = {fwd: fw["bound_ms"]}
         bounds.update({k: bw["part_bounds"][part][0]
-                       for k, (_, part) in LONG_BWD_PARTS.items()})
-        pair = (None if None in (ms["train_bwd_q_long_kernel"],
-                                 ms["train_bwd_k_long_kernel"])
-                else ms["train_bwd_q_long_kernel"]
-                + ms["train_bwd_k_long_kernel"])
-        by_rate[rate] = {"device_ms": ms, "bound_ms": bounds,
-                         "pair_device_ms": pair,
-                         "sdpa_device_ms": fw["sdpa_device_ms"],
-                         "sdpa_backward_device_ms": bw["sdpa_device_ms"]}
+                       for k, part in bwd.items()})
+        pair = (None if None in [ms[k] for k in bwd]
+                else sum(ms[k] for k in bwd))
+        by_rate[inst, rate] = {
+            "device_ms": ms, "bound_ms": bounds, "pair_device_ms": pair,
+            "sdpa_device_ms": fw["sdpa_device_ms"],
+            "sdpa_backward_device_ms": bw["sdpa_device_ms"]}
         print(f"[long] the training kernels at [B {fw['shape'][0]}, N "
               f"{fw['shape'][1]}, H {fw['shape'][3]}, D {fw['shape'][4]}], "
               f"rate {rate}: "
@@ -6003,7 +6156,9 @@ def long_path(dev, entries, power, figures):
              f"{bad}")
     ptxas = {name: [{"function": fn, "registers": regs,
                      "spill_store_bytes": st, "spill_load_bytes": ld}
-                    for fn, regs, st, ld in KN.ptxas_usage(name)]
+                    for fn, regs, st, ld in KN.ptxas_usage(name)
+                    if "<" in name or ("ILi128E" not in fn
+                                       and f"{len(name)}{name}I" in fn)]
              for name in long_names}
     serialised = [line.split("info    :")[-1].strip() for line in
                   KN.build_logs.get("attn_long.cu", "").splitlines()
@@ -6062,8 +6217,11 @@ def long_path(dev, entries, power, figures):
     # --- forced at the 224 px path's shapes, beside the resident kernel
     # (information: the 224 px path keeps attn_kernel), each against the
     # plain version
+    # (and the 224 px cross-attention at head dim 128, the 512 / 8 head's,
+    # which attn_kernel<128> holds)
     resident_vs_long = {}
-    for spec in (BA.SHAPES[2], BA.SHAPES[5]):
+    cross128 = BA.WIDTH_SHAPES[6]
+    for spec in (BA.SHAPES[2], BA.SHAPES[5], cross128):
         case = BA.Case(spec, dev)
         times, errs = {}, {}
         with torch.no_grad():
@@ -6200,6 +6358,10 @@ def long_path(dev, entries, power, figures):
         if not ok:
             fail("the 518 px eval disagrees with the plain path")
 
+    # --- the heads whose cross-attention runs at head dim 128
+    heads_launches, heads_figures = long_heads(dev, power)
+    figures["long_heads"] = heads_figures
+
     # --- training at 518 px
     def stage3_at(tmp, size):
         """The stage-3 training configuration at `size` px (dropout 0,
@@ -6279,9 +6441,8 @@ def long_path(dev, entries, power, figures):
         enc = stage3.model.num_encoder_layers
         # the encoder's training rows (1469 keys) take the fp32 plain
         # path; the frozen trunk's ViT blocks stream their keys
-        want = {"train_fwd_long_kernel": 0, "train_bwd_q_long_kernel": 0,
-                "train_bwd_k_long_kernel": 0,
-                "attn_long_kernel": LONG_STEPS * 12}
+        want = dict.fromkeys(long_names, 0) | {
+            "attn_long_kernel": LONG_STEPS * 12}
         train_long = {k: kern.get(k, 0) for k in long_names}
         ok = train_long == want and tr.step == LONG_STEPS
         print(f"[long] {LONG_STEPS} stage-3 Trainer steps at {LONG_SIZE} px "
@@ -6303,33 +6464,41 @@ def long_path(dev, entries, power, figures):
 
     # --- the training kernels' path since the model trains rows above 512
     # keys on its fp32 plain path: a direct call of flash_mha_train, forward
-    # and backward, at the 518 px encoder's training shape
-    b, n, h, d = LONG_ROWS, LONG_SIZE ** 2 // 14 ** 2 + K, 8, 32
-    g = torch.Generator().manual_seed(SEED + 47)
-    q, k, v, go = (torch.randn(b, n, h, d, generator=g).to(dev)
-                   .requires_grad_(i < 3) for i in range(4))
-    valid = (torch.rand(b, n, generator=g) > 0.1).to(dev)
-    valid[:, 0] = True
-    zero_counts()
-    out = FA.flash_mha_train(q, k, v, valid, dropout_rate=LONG_RATE,
-                             generator=torch.Generator(device=dev)
-                             .manual_seed(6))
-    torch.autograd.grad(out, (q, k, v), go)
-    torch.cuda.synchronize()
-    _, kern = read_counts()
-    direct = {name: kern.get(name, 0) for name in long_names
-              if name != "attn_long_kernel"}
-    ok = all(count == 1 for count in direct.values())
-    print(f"[long] a direct flash_mha_train call, forward and backward, [B "
-          f"{b}, N {n}, H {h}, D {d}] at rate {LONG_RATE}: launches {direct}"
-          f" (1 each expected; no model path launches them since the "
-          f"routing follows the JAX module) {'OK' if ok else 'FAIL'}",
-          flush=True)
-    if not ok:
-        fail("a direct flash_mha_train call above 512 keys did not go "
-             "through the streaming training kernels")
-    del q, k, v, go, out
-    torch.cuda.empty_cache()
+    # and backward, at the 518 px encoder's training shape, and at its
+    # length in heads of 128 (the instances no model path trains)
+    n = LONG_SIZE ** 2 // 14 ** 2 + K
+    direct, direct_shapes = {}, {}
+    for inst, (b, h, d) in (("", (LONG_ROWS, 8, 32)),
+                            ("<128>", (LONG_ROWS, 4, 128))):
+        g = torch.Generator().manual_seed(SEED + 47)
+        q, k, v, go = (torch.randn(b, n, h, d, generator=g).to(dev)
+                       .requires_grad_(i < 3) for i in range(4))
+        valid = (torch.rand(b, n, generator=g) > 0.1).to(dev)
+        valid[:, 0] = True
+        zero_counts()
+        out = FA.flash_mha_train(q, k, v, valid, dropout_rate=LONG_RATE,
+                                 generator=torch.Generator(device=dev)
+                                 .manual_seed(6))
+        torch.autograd.grad(out, (q, k, v), go)
+        torch.cuda.synchronize()
+        _, kern = read_counts()
+        got = {name: kern.get(name, 0) for name in long_names
+               if not name.startswith("attn_long_kernel")}
+        want = {name: int(name.endswith(">") == bool(inst)) for name in got}
+        direct.update({name: got[name] for name in got
+                       if name.endswith(">") == bool(inst)})
+        direct_shapes[inst] = [b, n, h, d]
+        ok = got == want
+        print(f"[long] a direct flash_mha_train call, forward and backward, "
+              f"[B {b}, N {n}, H {h}, D {d}] at rate {LONG_RATE}: launches "
+              f"{got} expected {want} (no model path launches them since "
+              f"the routing follows the JAX module) {'OK' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail(f"a direct flash_mha_train call at head dim {d} above 512 "
+                 f"keys did not go through the streaming training kernels")
+        del q, k, v, go, out
+        torch.cuda.empty_cache()
 
     # --- the training forward's dropout at LONG_RATE
     b, n, h, d = LONG_ROWS, LONG_SIZE ** 2 // 14 ** 2 + K, 8, 32
@@ -6363,24 +6532,37 @@ def long_path(dev, entries, power, figures):
     torch.cuda.empty_cache()
 
     pass_rows = {"attn_long_kernel": rows["vit 518 px"],
-                 "train_fwd_long_kernel":
-                     rows["train encoder 518 px, rate 0.1"],
-                 "train_bwd_q_long_kernel":
-                     rows["train encoder 518 px, rate 0.1, backward"],
-                 "train_bwd_k_long_kernel":
-                     rows["train encoder 518 px, rate 0.1, backward"]}
+                 "attn_long_kernel<128>":
+                     rows["decoder cross 518 px, 8 x 128"]}
+    for inst, prefix in LONG_TRAIN_ROWS.items():
+        pass_rows.update({
+            "train_fwd_long_kernel" + inst: rows[f"{prefix}, rate 0.1"],
+            "train_bwd_q_long_kernel" + inst:
+                rows[f"{prefix}, rate 0.1, backward"],
+            "train_bwd_k_long_kernel" + inst:
+                rows[f"{prefix}, rate 0.1, backward"]})
     replaces = {
         "attn_long_kernel": "edgecape_tpu/ops/flash_attention.py:132",
         "train_fwd_long_kernel": "edgecape_tpu/ops/flash_attention.py:321",
         "train_bwd_q_long_kernel": "edgecape_tpu/ops/flash_attention.py:361",
         "train_bwd_k_long_kernel":
             "edgecape_tpu/ops/flash_attention.py:361"}
+    heads_total = {name: sum(n[name] for n in heads_launches.values())
+                   for name in long_names}
     for name in long_names:
-        eval_path = name == "attn_long_kernel"
-        launches = eval_long[False][name] if eval_path else direct[name]
+        base, sep, arg = name.partition("<")
+        inst = sep + arg
+        eval_path = base == "attn_long_kernel"
+        if eval_path:
+            launches = heads_total[name] if inst else eval_long[False][name]
+        else:
+            launches = direct[name]
         entries[name] = long_entry(
-            name, pass_rows[name], replaces[name], launches,
-            "the rows longer than the resident kernels hold (518 px)"
+            name, pass_rows[name], replaces[base], launches,
+            ("the decoder's cross-attention at head dim 128 past the "
+             "resident kernel's 416 keys (the 512 / 8 and 384 / 8 heads at "
+             "518 px)" if inst else
+             "the rows longer than the resident kernels hold (518 px)")
             if eval_path else "direct calls of flash_mha_train above 512 "
             "keys (no model path: the model trains those rows on its fp32 "
             "plain path, as the JAX module)")
@@ -6390,18 +6572,28 @@ def long_path(dev, entries, power, figures):
         entries[name]["train_launches"] = train_long[name]
         entries[name]["floors_ms"] = pass_rows[name].get("floors_ms")
         entries[name]["ptxas"] = ptxas[name]
+        if inst and eval_path:
+            entries[name]["launches_from"] = (
+                f"the {LONG_SIZE} px chunks (decoder stack off and on) and "
+                f"run_eval of [long]'s heads {list(heads_launches)}")
+            entries[name]["heads_launches"] = {
+                tag: n[name] for tag, n in heads_launches.items()}
+            entries[name]["heads_figures"] = heads_figures
+            entries[name]["forced_at_224_px"] = resident_vs_long[
+                cross128[0]]
         if not eval_path:
             entries[name]["launches_from"] = (
                 f"a direct flash_mha_train call, forward and backward, at "
-                f"[{b}, {n}, {h}, {d}]")
+                f"{direct_shapes[inst]}")
             entries[name]["by_rate"] = {
                 rate: {"device_ms": r["device_ms"][name],
                        "bound_ms": r["bound_ms"][name],
-                       "library_device_ms": r["sdpa_device_ms" if name ==
+                       "library_device_ms": r["sdpa_device_ms" if base ==
                                               "train_fwd_long_kernel" else
                                               "sdpa_backward_device_ms"]}
-                for rate, r in by_rate.items()}
-            entries[name]["forced_at_224_px"] = forced_224
+                for (i, rate), r in by_rate.items() if i == inst}
+            if not inst:
+                entries[name]["forced_at_224_px"] = forced_224
     entries["attn_long_kernel"]["query_pass"] = query_pass
     entries["attn_long_kernel"]["forced_at_224_px"] = resident_vs_long
     entries["attn_long_kernel"]["rows_bit_equal"] = rows_same

@@ -8,8 +8,9 @@
 // where kernels.cu's hold a head's keys and values in 4 * Nk * (D + 8)
 // bytes of shared memory and so stop at 512 keys (ATT_MAX_KEYS), and the
 // ViT attention kernel keeps a 272-key score row in registers:
-//   * attn_long_kernel: the eval forward, head dim 32 or 64, any Nq and
-//     Nk >= 1, with the key mask and an fp32 [B, H, Nq, Nk] bias;
+//   * attn_long_kernel: the eval forward, head dim 32, 64 or 128 (head
+//     dims 1-128 run at the first of them at or above, zero-padded), any
+//     Nq and Nk >= 1, with the key mask and an fp32 [B, H, Nq, Nk] bias;
 //   * train_fwd_long_kernel: the same body with Philox dropout on the
 //     probabilities, an fp32 output and each row's max and reciprocal
 //     exp-sum saved in the layout the backward reads;
@@ -22,7 +23,20 @@
 // (train_fwd_long_kernel) and autograd through it (the backward pair).
 // The model trains rows above 512 tokens on its fp32 plain path, as the
 // JAX module does, so the training kernels run on direct calls of
-// flash_mha_train alone.
+// flash_mha_train alone. At head dim 128 the resident kernels of
+// kernels.cu hold up to 416 keys (their backward fewer); every longer row
+// at that head dim takes these kernels (ops/kernels.py attention_plan /
+// attention_bwd_plan).
+//
+// Head dim 128 changes three things (AlOperand, AlTile, BwTile): a row of
+// 256 bytes is wider than the 128-byte swizzle span, so each operand tile
+// lies in two slabs of 64 columns (two TMA boxes, al_load), which wgmma
+// reads as two atoms (al_kstep for K-major Q and K, the descriptor's
+// leading offset for MN-major V, Q and do); the forward's ring holds two
+// stages of 65 KB instead of four, and the backward keeps one item slot
+// (64 KB) beside its four-stage ring; the key-major backward, whose dK
+// and dV accumulators take 128 registers a thread, waits for its dK / dV
+// products before it issues the next tile's S^T and dP^T.
 //
 // What bounds them on this card: at 518 px the ViT's [B, 1370, 6 x 64]
 // and the joint encoder's [B, 1469, 8 x 32] make 4 * Nq * Nk * D
@@ -58,11 +72,12 @@
 //     producer warpgroup 2, whose one working warp issues every TMA copy;
 //     setmaxnreg gives the consumers 232 registers and the producer 40;
 //   * Q (once an item, two slots so the next item's lands early) and the
-//     K and V tiles of 128 keys (a ring of AL_STAGES stages with full and
-//     empty mbarriers) arrive by TMA from maps over the [B, N, H * D] views
-//     with their own strides (boxes of [1, 128 rows, D]), 128-byte
-//     swizzled at D 64 and 64-byte swizzled at D 32, whose rows are 64
-//     bytes; rows past N read as zeros. For a tile with a key mask, or
+//     K and V tiles of 128 keys (a ring of AlTile::STAGES stages, 4 or 2
+//     at D 128, with full and empty mbarriers) arrive by TMA from maps
+//     over the [B, N, H * D] views with their own strides (boxes of [1,
+//     128 rows, min(D, 64)]), 128-byte swizzled at D 64 and 128 and
+//     64-byte swizzled at D 32, whose rows are 64 bytes; rows past N read
+//     as zeros. For a tile with a key mask, or
 //     with keys past Nk, the producer warp writes the tile's additive mask
 //     (0 or -inf) beside it;
 //   * S = Q K^T is wgmma m64n128k16 from shared memory (K [keys][D] is
@@ -70,7 +85,8 @@
 //     operand of O += P V (wgmma m64nDk16, V MN-major through the
 //     descriptor's transpose bit): the m64n128 accumulator's fragment is
 //     the A fragment of the next product, so p never reaches shared
-//     memory. 64 registers a thread for S, 32 (D 64) or 16 for O, 32 for P;
+//     memory. 64 registers a thread for S, 64 (D 128), 32 (D 64) or 16
+//     for O, 32 for P;
 //   * the exponentials overlap the products within a warpgroup: S_j is
 //     issued, then O += P_{j-1} V_{j-1} behind it, and the softmax of S_j
 //     runs while the second product does; the first tile's S is issued
@@ -177,21 +193,46 @@
 // the online softmax, TMA loads on mbarriers and wgmma for both products.
 #define AL_ROWS 128        // query rows of an item: two consumer warpgroups of 64
 #define AL_KEYS 128        // keys of a streamed tile
-#define AL_STAGES 4        // key / value tiles in the ring
 #define AL_THREADS 384     // consumer warpgroups 0 and 1, the producer warpgroup 2
 
-// Shared memory of a block: two query slots, the ring (K, V and the
-// additive key mask of a tile), the barriers; rows of 2 * D bytes, 128-
-// (D 64) or 64-byte (D 32) swizzled, every tile on 1024 bytes.
+// How a [rows x D] bf16 operand lies in shared memory: in SLABS slabs of
+// 64 columns (one at D 32 and 64), each slab rows of SW bytes swizzled
+// over SW bytes (64 at D 32, 128 above), the slabs rows * SW bytes apart.
+// A row of D 128 (256 bytes) is wider than the 128-byte swizzle span, so
+// TMA writes its two halves as two boxes of 64 columns and wgmma reads
+// them as two atoms: a K-major operand's 16-column steps 4-7 start in the
+// second slab, an MN-major one's N columns reach it by the descriptor's
+// leading offset.
+template <int D>
+struct AlOperand {
+  static constexpr int SW = D < 64 ? 2 * D : 128;
+  static constexpr int SLABS = D <= 64 ? 1 : D / 64;
+};
+
+// The forward's ring: stages of K, V and the additive key mask, two query
+// slots. At D 128 a stage takes 65 KB, so the ring holds two (four take
+// 332,928 bytes, three with one query slot 1,152 more than a block has).
 template <int D>
 struct AlTile {
   static constexpr int ROW = 2 * D;
   static constexpr int Q = AL_ROWS * ROW;
   static constexpr int KV = AL_KEYS * ROW;
   static constexpr int STAGE = 2 * KV + 1024;
-  static constexpr int SMEM = 1024 + 2 * Q + AL_STAGES * STAGE + 128;
+  static constexpr int STAGES = D == 128 ? 2 : 4;
+  static constexpr int SLOTS = 2;
+  static constexpr int SMEM = 1024 + SLOTS * Q + STAGES * STAGE + 128;
 };
 static_assert(AlTile<64>::SMEM <= ATT_SMEM_LIMIT, "attn_long_kernel's tiles exceed a block");
+static_assert(AlTile<128>::SMEM <= ATT_SMEM_LIMIT, "attn_long_kernel's tiles exceed a block");
+
+// An item slot's index and the parity of its n-th use (n: the block's
+// item count so far) in a ring of SLOTS slots (1 or 2).
+template <int SLOTS>
+__device__ __forceinline__ int al_slot(int n) { return SLOTS == 1 ? 0 : n & 1; }
+template <int SLOTS>
+__device__ __forceinline__ unsigned al_phase(int n) {
+  return SLOTS == 1 ? (unsigned)n & 1u : (unsigned)(n >> 1) & 1u;
+}
 
 struct AlArgs {
   const unsigned char* kvalid; long skvb;   // bool [B, Nk], or null
@@ -205,47 +246,72 @@ struct AlArgs {
   float* stats;                             // [B * H, Nq, 2]: max (base e), 1 / sum
 };
 
-// A wgmma descriptor of a tile whose rows are 2 * D bytes (the 8-row
-// groups 16 * D bytes apart) in the swizzle TMA wrote it with: 128 bytes
-// (layout 1) for D 64, 64 bytes (layout 2) for D 32. K-major (Q, K): the
-// leading offset is unused; MN-major (V, rows are keys): the leading
-// offset would be the next D columns, which no product reaches.
+// A wgmma descriptor of a tile laid out as AlOperand<D> says: the 8-row
+// groups 8 * SW bytes apart, the swizzle of 128 bytes (layout 1) or of 64
+// (layout 2). K-major (Q, K): the leading offset is unused; MN-major (V,
+// rows are keys): the leading offset is the distance to the next 64
+// columns (the next slab), which only D 128's products reach.
 template <int D>
 __device__ __forceinline__ uint64_t al_desc(unsigned addr, unsigned lead) {
-  constexpr uint64_t sbo = 16 * D, layout = D == 64 ? 1 : 2;
+  constexpr uint64_t sbo = 8 * AlOperand<D>::SW, layout = AlOperand<D>::SW == 128 ? 1 : 2;
   return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(lead >> 4) << 16) |
          ((sbo >> 4) << 32) | (layout << 62);
 }
 
-// d += A . B for the NK / 16 16-row steps of an MN-major B tile in shared
-// memory (rows of 2 * D bytes from b), A in registers: O += P V, dq += ds
-// K, dV += p^T do, dK += ds^T Q.
+// The byte offset of a K-major operand's 16-column step kk in a tile
+// whose slabs are `slab` bytes apart (32 bytes a step, four steps a slab).
+__device__ __forceinline__ unsigned al_kstep(int kk, unsigned slab) {
+  return (unsigned)(kk >> 2) * slab + (unsigned)(kk & 3) * 32u;
+}
+
+// One box of a [rows x D] operand tile: SLABS TMA copies of 64 columns
+// (one at D <= 64) from column col of the map, each into its slab.
+template <int D>
+__device__ __forceinline__ void al_load(unsigned char* dst, const CUtensorMap* map,
+                                        uint64_t* bar, int col, int row, int batch, int rows) {
+#pragma unroll
+  for (int s = 0; s < AlOperand<D>::SLABS; ++s)
+    tma_load_3d(dst + s * rows * AlOperand<D>::SW, map, bar, col + 64 * s, row, batch);
+}
+
+// d += A . B for the NK / 16 16-row steps of an MN-major B tile of NK rows
+// in shared memory (from b), A in registers: O += P V, dq += ds K, dV +=
+// p^T do, dK += ds^T Q.
 template <int D, int NK>
 __device__ __forceinline__ void al_rs(float (&d)[D / 2], const unsigned (&a)[NK / 16][4],
                                       unsigned b) {
+  constexpr int SW = AlOperand<D>::SW;
 #pragma unroll
   for (int kk = 0; kk < NK / 16; ++kk) {
-    if constexpr (D == 64)
-      wgmma_rs_m64n64k16<1>(d, a[kk], al_desc<D>(b + kk * 16 * 2 * D, NK * 2 * D));
+    const uint64_t db = al_desc<D>(b + kk * 16 * SW, NK * SW);
+    if constexpr (D == 128)
+      wgmma_rs_m64n128k16<1>(d, a[kk], db);
+    else if constexpr (D == 64)
+      wgmma_rs_m64n64k16<1>(d, a[kk], db);
     else
-      wgmma_rs_m64n32k16<1>(d, a[kk], al_desc<D>(b + kk * 16 * 2 * D, NK * 2 * D));
+      wgmma_rs_m64n32k16<1>(d, a[kk], db);
   }
 }
 
-// S = Q . K_tile^T (m64n128, overwriting s): the D / 16 16-column steps.
+// S = Q . K_tile^T (m64n128, overwriting s): the D / 16 16-column steps;
+// the A and B tiles' slabs aslab and bslab bytes apart.
 template <int D>
-__device__ __forceinline__ void al_scores(float (&s)[64], unsigned qa, unsigned kb) {
+__device__ __forceinline__ void al_scores(float (&s)[64], unsigned qa, unsigned kb,
+                                          unsigned aslab, unsigned bslab) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_m64n128k16<0>(s, al_desc<D>(qa + kk * 32, 16), al_desc<D>(kb + kk * 32, 16), kk > 0);
+    wgmma_m64n128k16<0>(s, al_desc<D>(qa + al_kstep(kk, aslab), 16),
+                        al_desc<D>(kb + al_kstep(kk, bslab), 16), kk > 0);
 }
 
 // The same for a 64-column tile (m64n64): S, dP, S^T, dP^T of the backward.
 template <int D>
-__device__ __forceinline__ void al_scores64(float (&s)[32], unsigned a, unsigned b) {
+__device__ __forceinline__ void al_scores64(float (&s)[32], unsigned a, unsigned b,
+                                            unsigned aslab, unsigned bslab) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_m64n64k16<0>(s, al_desc<D>(a + kk * 32, 16), al_desc<D>(b + kk * 32, 16), kk > 0);
+    wgmma_m64n64k16<0>(s, al_desc<D>(a + al_kstep(kk, aslab), 16),
+                       al_desc<D>(b + al_kstep(kk, bslab), 16), kk > 0);
 }
 
 // The packed bf16 A fragments of an m64nN accumulator (its fragment is the
@@ -440,15 +506,16 @@ template <int D, bool TRAIN>
 __device__ __forceinline__ void attn_long_body(const CUtensorMap& map_q, const CUtensorMap& map_k,
                                                const CUtensorMap& map_v, const AlArgs& p) {
   using T = AlTile<D>;
+  using O = AlOperand<D>;
   extern __shared__ unsigned char al_raw[];
   unsigned char* base = al_base(al_raw);
-  unsigned char* ring = base + 2 * T::Q;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + AL_STAGES * T::STAGE);
-  uint64_t* empty = full + AL_STAGES;
-  uint64_t* q_full = empty + AL_STAGES;
+  unsigned char* ring = base + T::SLOTS * T::Q;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::STAGES * T::STAGE);
+  uint64_t* empty = full + T::STAGES;
+  uint64_t* q_full = empty + T::STAGES;
   uint64_t* q_empty = q_full + 2;
   const int nitems = (p.items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  if (threadIdx.x == 0) al_init(full, empty, q_full, q_empty, AL_STAGES);
+  if (threadIdx.x == 0) al_init(full, empty, q_full, q_empty, T::STAGES);
   __syncthreads();
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
 
@@ -461,15 +528,15 @@ __device__ __forceinline__ void attn_long_body(const CUtensorMap& map_q, const C
       const int item = (int)blockIdx.x + n * (int)gridDim.x;
       const int bh = item / p.qtiles, q0 = (item - bh * p.qtiles) * AL_ROWS;
       const int b = bh / p.H, h = bh - b * p.H;
-      const int slot = n & 1;
-      al_wait(&q_empty[slot], ((n >> 1) & 1) ^ 1);
+      const int slot = al_slot<T::SLOTS>(n);
+      al_wait(&q_empty[slot], al_phase<T::SLOTS>(n) ^ 1);
       if (lane == 0) {
         mbar_expect_tx(&q_full[slot], T::Q);
-        tma_load_3d(base + slot * T::Q, &map_q, &q_full[slot], h * D, q0, b * p.bq);
+        al_load<D>(base + slot * T::Q, &map_q, &q_full[slot], h * D, q0, b * p.bq, AL_ROWS);
       }
       for (int j = 0; j < p.ktiles; ++j, ++it) {
-        const int s = it % AL_STAGES;
-        al_wait(&empty[s], ((it / AL_STAGES) & 1) ^ 1);
+        const int s = it % T::STAGES;
+        al_wait(&empty[s], ((it / T::STAGES) & 1) ^ 1);
         unsigned char* st = ring + s * T::STAGE;
         if (p.kvalid || (j + 1) * AL_KEYS > p.Nk) {
           float* kbs = reinterpret_cast<float*>(st + 2 * T::KV);
@@ -482,8 +549,8 @@ __device__ __forceinline__ void attn_long_body(const CUtensorMap& map_q, const C
         }
         if (lane == 0) {
           mbar_expect_tx(&full[s], 2 * T::KV);
-          tma_load_3d(st, &map_k, &full[s], h * D, j * AL_KEYS, b * p.bk);
-          tma_load_3d(st + T::KV, &map_v, &full[s], h * D, j * AL_KEYS, b * p.bv);
+          al_load<D>(st, &map_k, &full[s], h * D, j * AL_KEYS, b * p.bk, AL_KEYS);
+          al_load<D>(st + T::KV, &map_v, &full[s], h * D, j * AL_KEYS, b * p.bv, AL_KEYS);
         } else {
           mbar_arrive(&full[s]);
         }
@@ -512,22 +579,22 @@ __device__ __forceinline__ void attn_long_body(const CUtensorMap& map_q, const C
     const int item = (int)blockIdx.x + n * (int)gridDim.x;
     const int bh = item / p.qtiles, q0 = (item - bh * p.qtiles) * AL_ROWS;
     const int b = bh / p.H, h = bh - b * p.H;
-    const int slot = n & 1;
+    const int slot = al_slot<T::SLOTS>(n);
     const int r0 = q0 + 64 * wg + 16 * warp + g, r1 = r0 + 8;
     const float* brow[2] = {nullptr, nullptr};
     if (p.bias) {
       if (r0 < p.Nq) brow[0] = p.bias + ((size_t)bh * p.Nq + r0) * p.Nk;
       if (r1 < p.Nq) brow[1] = p.bias + ((size_t)bh * p.Nq + r1) * p.Nk;
     }
-    al_wait(&q_full[slot], (n >> 1) & 1);
-    const unsigned qa = smem_u32(base + slot * T::Q + wg * 64 * T::ROW);
+    al_wait(&q_full[slot], al_phase<T::SLOTS>(n));
+    const unsigned qa = smem_u32(base + slot * T::Q + wg * 64 * O::SW);
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, a[2];
     float o[D / 2];
     unsigned pf[AL_KEYS / 16][4];
     // the next key tile of the ring: its stage, once it has landed
     auto take = [&]() {
-      const int s_i = it % AL_STAGES;
-      al_wait(&full[s_i], (it / AL_STAGES) & 1);
+      const int s_i = it % T::STAGES;
+      al_wait(&full[s_i], (it / T::STAGES) & 1);
       ++it;
       return s_i;
     };
@@ -571,7 +638,7 @@ __device__ __forceinline__ void attn_long_body(const CUtensorMap& map_q, const C
     {
       float s[64];
       wg_fence();
-      al_scores<D>(s, qa, smem_u32(ring + prev * T::STAGE));
+      al_scores<D>(s, qa, smem_u32(ring + prev * T::STAGE), AL_ROWS * O::SW, AL_KEYS * O::SW);
       wg_commit();
       wg_wait<0>();
       soft(s, prev, 0);
@@ -587,7 +654,7 @@ __device__ __forceinline__ void attn_long_body(const CUtensorMap& map_q, const C
       wg_fence();
       // S_j = Q K_j^T, then O += P_{j-1} V_{j-1} behind it: the softmax of
       // S_j runs while the second product does
-      al_scores<D>(s, qa, smem_u32(ring + s_i * T::STAGE));
+      al_scores<D>(s, qa, smem_u32(ring + s_i * T::STAGE), AL_ROWS * O::SW, AL_KEYS * O::SW);
       wg_commit();
       al_rs<D, AL_KEYS>(o, pf, smem_u32(ring + prev * T::STAGE + T::KV));
       wg_commit();
@@ -677,13 +744,16 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
 
 // ----------------------------------------------------------- the backward
 #define BW_TILE 64         // keys (query-major) or queries (key-major) of a streamed tile
-#define BW_STAGES 4        // streamed tiles in the ring
 
-// Shared memory of a backward block: two item slots of two 128-row
-// operands (Q and do, or K and V), the ring (two 64-row operands and 1024
-// bytes of side data a stage: the key mask, or each query's max, 1 / sum
-// and delta), the barriers; rows of 2 * D bytes swizzled as the
-// forward's, every tile on 1024 bytes.
+// Shared memory of a backward block: SLOTS item slots of two 128-row
+// operands (Q and do, or K and V), the ring of STAGES stages (two 64-row
+// operands and 1024 bytes of side data a stage: the key mask, or each
+// query's max, 1 / sum and delta), the barriers; operands laid out as the
+// forward's (AlOperand), every tile on 1024 bytes. At D 128 an item slot
+// takes 64 KB: one slot keeps the four-stage ring (201,856 bytes; two
+// slots and four stages take 267,392, two and three 1,152 more than a
+// block has), so the next item's operands load once the last tile of the
+// current one has been read.
 template <int D>
 struct BwTile {
   static constexpr int ROW = 2 * D;
@@ -691,9 +761,12 @@ struct BwTile {
   static constexpr int SLOT = 2 * ITEM;
   static constexpr int TILE = BW_TILE * ROW;
   static constexpr int STAGE = 2 * TILE + 1024;
-  static constexpr int SMEM = 1024 + 2 * SLOT + BW_STAGES * STAGE + 128;
+  static constexpr int STAGES = 4;
+  static constexpr int SLOTS = D == 128 ? 1 : 2;
+  static constexpr int SMEM = 1024 + SLOTS * SLOT + STAGES * STAGE + 128;
 };
 static_assert(BwTile<64>::SMEM <= ATT_SMEM_LIMIT, "the backward's tiles exceed a block");
+static_assert(BwTile<128>::SMEM <= ATT_SMEM_LIMIT, "the backward's tiles exceed a block");
 
 struct BwArgs {
   const unsigned char* kvalid; long skvb;   // bool [B, Nk], or null
@@ -730,16 +803,17 @@ __device__ __forceinline__ void bw_produce(const CUtensorMap* mi0, const CUtenso
     const int item = (int)blockIdx.x + n * (int)gridDim.x;
     const int bh = item / p.itiles, i0 = (item - bh * p.itiles) * AL_ROWS;
     const int b = bh / p.H, h = bh - b * p.H;
-    const int slot = n & 1;
-    al_wait(&i_empty[slot], ((n >> 1) & 1) ^ 1);
+    const int slot = al_slot<T::SLOTS>(n);
+    al_wait(&i_empty[slot], al_phase<T::SLOTS>(n) ^ 1);
     if (lane == 0) {
       mbar_expect_tx(&i_full[slot], T::SLOT);
-      tma_load_3d(base + slot * T::SLOT, mi0, &i_full[slot], h * D, i0, b * p.bi0);
-      tma_load_3d(base + slot * T::SLOT + T::ITEM, mi1, &i_full[slot], h * D, i0, b * p.bi1);
+      al_load<D>(base + slot * T::SLOT, mi0, &i_full[slot], h * D, i0, b * p.bi0, AL_ROWS);
+      al_load<D>(base + slot * T::SLOT + T::ITEM, mi1, &i_full[slot], h * D, i0, b * p.bi1,
+                 AL_ROWS);
     }
     for (int j = 0; j < p.stiles; ++j, ++it) {
-      const int s = it % BW_STAGES;
-      al_wait(&empty[s], ((it / BW_STAGES) & 1) ^ 1);
+      const int s = it % T::STAGES;
+      al_wait(&empty[s], ((it / T::STAGES) & 1) ^ 1);
       unsigned char* st = ring + s * T::STAGE;
       float* side = reinterpret_cast<float*>(st + 2 * T::TILE);
       if constexpr (KEYS_STREAM) {
@@ -770,8 +844,8 @@ __device__ __forceinline__ void bw_produce(const CUtensorMap* mi0, const CUtenso
       }
       if (lane == 0) {
         mbar_expect_tx(&full[s], 2 * T::TILE);
-        tma_load_3d(st, ms0, &full[s], h * D, j * BW_TILE, b * p.bs0);
-        tma_load_3d(st + T::TILE, ms1, &full[s], h * D, j * BW_TILE, b * p.bs1);
+        al_load<D>(st, ms0, &full[s], h * D, j * BW_TILE, b * p.bs0, BW_TILE);
+        al_load<D>(st + T::TILE, ms1, &full[s], h * D, j * BW_TILE, b * p.bs1, BW_TILE);
       } else {
         mbar_arrive(&full[s]);
       }
@@ -927,15 +1001,16 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
                             const __grid_constant__ CUtensorMap map_k,
                             const __grid_constant__ CUtensorMap map_v, BwArgs p) {
   using T = BwTile<D>;
+  using O = AlOperand<D>;
   extern __shared__ unsigned char bw_raw[];
   unsigned char* base = al_base(bw_raw);
-  unsigned char* ring = base + 2 * T::SLOT;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + BW_STAGES * T::STAGE);
-  uint64_t* empty = full + BW_STAGES;
-  uint64_t* i_full = empty + BW_STAGES;
+  unsigned char* ring = base + T::SLOTS * T::SLOT;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::STAGES * T::STAGE);
+  uint64_t* empty = full + T::STAGES;
+  uint64_t* i_full = empty + T::STAGES;
   uint64_t* i_empty = i_full + 2;
   const int nitems = (p.items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  if (threadIdx.x == 0) al_init(full, empty, i_full, i_empty, BW_STAGES);
+  if (threadIdx.x == 0) al_init(full, empty, i_full, i_empty, T::STAGES);
   __syncthreads();
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   if (wg == 2) {
@@ -959,7 +1034,7 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
     const int item = (int)blockIdx.x + n * (int)gridDim.x;
     const int bh = item / p.itiles, q0 = (item - bh * p.itiles) * AL_ROWS;
     const int b = bh / p.H, h = bh - b * p.H;
-    const int slot = n & 1;
+    const int slot = al_slot<T::SLOTS>(n);
     const int r[2] = {q0 + 64 * wg + 16 * warp + g, q0 + 64 * wg + 16 * warp + g + 8};
     // the rows' statistics, bias and dbias rows, and delta = rowsum(bf16(do)
     // * O) from device memory (the quad's lanes hold D / 4 columns each)
@@ -992,8 +1067,8 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
       dl[rh] = quad_sum(acc);
       if (t == 0 && r[rh] < p.Nq) p.delta[(size_t)bh * p.Nq + r[rh]] = dl[rh];
     }
-    al_wait(&i_full[slot], (n >> 1) & 1);
-    const unsigned qa = smem_u32(base + slot * T::SLOT + wg * 64 * T::ROW);
+    al_wait(&i_full[slot], al_phase<T::SLOTS>(n));
+    const unsigned qa = smem_u32(base + slot * T::SLOT + wg * 64 * O::SW);
     const unsigned da = qa + T::ITEM;
     float dq[D / 2];
     acc_zero(dq);
@@ -1001,8 +1076,8 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
     int prev = 0;
 #pragma unroll 1
     for (int j = 0; j < p.stiles; ++j) {
-      const int s_i = it % BW_STAGES;
-      al_wait(&full[s_i], (it / BW_STAGES) & 1);
+      const int s_i = it % T::STAGES;
+      al_wait(&full[s_i], (it / T::STAGES) & 1);
       ++it;
       const unsigned kb = smem_u32(ring + s_i * T::STAGE), vb = kb + T::TILE;
       float s[32], dp[32];
@@ -1010,8 +1085,8 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
       reg_fence(pf);
       wg_fence();
       // S_j and dP_j behind dq += ds_{j-1} K_{j-1}
-      al_scores64<D>(s, qa, kb);
-      al_scores64<D>(dp, da, vb);
+      al_scores64<D>(s, qa, kb, AL_ROWS * O::SW, BW_TILE * O::SW);
+      al_scores64<D>(dp, da, vb, AL_ROWS * O::SW, BW_TILE * O::SW);
       wg_commit();
       wg_wait<0>();
       reg_fence(s);
@@ -1075,15 +1150,16 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
                             const __grid_constant__ CUtensorMap map_q,
                             const __grid_constant__ CUtensorMap map_do, BwArgs p) {
   using T = BwTile<D>;
+  using O = AlOperand<D>;
   extern __shared__ unsigned char bw_raw[];
   unsigned char* base = al_base(bw_raw);
-  unsigned char* ring = base + 2 * T::SLOT;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + BW_STAGES * T::STAGE);
-  uint64_t* empty = full + BW_STAGES;
-  uint64_t* i_full = empty + BW_STAGES;
+  unsigned char* ring = base + T::SLOTS * T::SLOT;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + T::STAGES * T::STAGE);
+  uint64_t* empty = full + T::STAGES;
+  uint64_t* i_full = empty + T::STAGES;
   uint64_t* i_empty = i_full + 2;
   const int nitems = (p.items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  if (threadIdx.x == 0) al_init(full, empty, i_full, i_empty, BW_STAGES);
+  if (threadIdx.x == 0) al_init(full, empty, i_full, i_empty, T::STAGES);
   __syncthreads();
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   if (wg == 2) {
@@ -1105,7 +1181,7 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
     const int item = (int)blockIdx.x + n * (int)gridDim.x;
     const int bh = item / p.itiles, k0 = (item - bh * p.itiles) * AL_ROWS;
     const int b = bh / p.H, h = bh - b * p.H;
-    const int slot = n & 1;
+    const int slot = al_slot<T::SLOTS>(n);
     const int kw = k0 + 64 * wg + 16 * warp;
     const int key[2] = {kw + g, kw + g + 8};
     float kadd[2];
@@ -1116,8 +1192,8 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
     }
     const bool masked = p.kvalid || k0 + AL_ROWS > p.Nk;
     const float* bias = p.bias ? p.bias + (size_t)bh * p.Nq * p.Nk : nullptr;
-    al_wait(&i_full[slot], (n >> 1) & 1);
-    const unsigned ka = smem_u32(base + slot * T::SLOT + wg * 64 * T::ROW);
+    al_wait(&i_full[slot], al_phase<T::SLOTS>(n));
+    const unsigned ka = smem_u32(base + slot * T::SLOT + wg * 64 * O::SW);
     const unsigned va = ka + T::ITEM;
     float dk[D / 2], dv[D / 2];
     acc_zero(dk);
@@ -1126,8 +1202,8 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
     int prev = 0;
 #pragma unroll 1
     for (int i = 0; i < p.stiles; ++i) {
-      const int s_i = it % BW_STAGES;
-      al_wait(&full[s_i], (it / BW_STAGES) & 1);
+      const int s_i = it % T::STAGES;
+      al_wait(&full[s_i], (it / T::STAGES) & 1);
       ++it;
       const unsigned qb = smem_u32(ring + s_i * T::STAGE), ob = qb + T::TILE;
       float sT[32], dpT[32];
@@ -1137,8 +1213,8 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
       reg_fence(pd);
       wg_fence();
       // S^T_i and dP^T_i behind dV, dK += tile i - 1's products
-      al_scores64<D>(sT, ka, qb);
-      al_scores64<D>(dpT, va, ob);
+      al_scores64<D>(sT, ka, qb, AL_ROWS * O::SW, BW_TILE * O::SW);
+      al_scores64<D>(dpT, va, ob, AL_ROWS * O::SW, BW_TILE * O::SW);
       wg_commit();
       wg_wait<0>();
       reg_fence(sT);
@@ -1163,6 +1239,16 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
       al_rs<D, BW_TILE>(dv, pp, ob);    // dV += bf16(keep p^T / (1 - rate)) do_i
       al_rs<D, BW_TILE>(dk, pd, qb);    // dK += bf16(ds^T) Q_i
       wg_commit();
+      if constexpr (D == 128) {
+        // dK and dV take 128 registers a thread at D 128: these products
+        // end before the next tile's S^T and dP^T are issued, so their
+        // packed operands are not live beside the new scores
+        wg_wait<0>();
+        reg_fence(dk);
+        reg_fence(dv);
+        reg_fence(pp);
+        reg_fence(pd);
+      }
       prev = s_i;
     }
     wg_wait<0>();
@@ -1186,9 +1272,10 @@ __global__ void __launch_bounds__(AL_THREADS, 1)
 
 // ------------------------------------------------------------------ launch
 // A [B, N, H * D] bf16 view (row stride ld, batch stride sb; 0: one
-// shared by the batch) as a map of boxes [1, box_rows, D] in the swizzle of
-// the kernels' tiles; rows past N read as zeros. `has_b`: the map has the
-// batch axis (else the kernel asks for batch 0).
+// shared by the batch) as a map of boxes [1, box_rows, min(D, 64)] in the
+// swizzle of the kernels' tiles (a D 128 tile is two boxes, al_load);
+// rows past N read as zeros. `has_b`: the map has the batch axis (else
+// the kernel asks for batch 0).
 static bool al_map(CUtensorMap* map, const void* ptr, int D, long inner, long rows, long ld,
                    long sb, int batch, int& has_b, unsigned box_rows = AL_ROWS) {
   TensorMapEncodeFn encode = tensor_map_encoder();
@@ -1198,11 +1285,11 @@ static bool al_map(CUtensorMap* map, const void* ptr, int D, long inner, long ro
   const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
                               (cuuint64_t)(has_b ? batch : 1)};
   const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)(has_b ? sb : rows * ld) * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)D, box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)(D < 64 ? D : 64), box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                D >= 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -1254,8 +1341,10 @@ static int al_forward(const void* q, const void* k, const void* v, int in_dt, lo
                       int Nk, const void* kvalid, long skvb, const void* bias, float scale,
                       AlArgs& a, int qsplit, int warps, long smem, bool train, void* stream) {
   const int qtiles = (Nq + AL_ROWS - 1) / AL_ROWS;
-  const long need = D == 64 ? AlTile<64>::SMEM : AlTile<32>::SMEM;
-  if ((D != 32 && D != 64) || in_dt != DT_BF16 || B < 1 || H < 1 || Nq < 1 || Nk < 1 ||
+  const long need = D == 128  ? AlTile<128>::SMEM
+                    : D == 64 ? AlTile<64>::SMEM
+                              : AlTile<32>::SMEM;
+  if ((D != 32 && D != 64 && D != 128) || in_dt != DT_BF16 || B < 1 || H < 1 || Nq < 1 || Nk < 1 ||
       !q || !k || !v || !a.out || !(scale > 0.0f) || qsplit != qtiles ||
       warps * 32 != AL_THREADS || smem != need)
     return (int)cudaErrorInvalidValue;
@@ -1272,6 +1361,7 @@ static int al_forward(const void* q, const void* k, const void* v, int in_dt, lo
       !al_map(&mv, v, D, c, Nk, svn, svb, B, a.bv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128) return launch_attn_long<128>(mq, mk, mv, a, train, s);
   return D == 64 ? launch_attn_long<64>(mq, mk, mv, a, train, s)
                  : launch_attn_long<32>(mq, mk, mv, a, train, s);
 }
@@ -1338,8 +1428,10 @@ extern "C" int ec_attn_train_bwd_long(const void* q, const void* k, const void* 
                                       void* delta, int qsplit, int qwarps, long qsmem,
                                       int ksplit, int kwarps, long ksmem, void* stream) {
   const int qtiles = (Nq + AL_ROWS - 1) / AL_ROWS, ktiles = (Nk + AL_ROWS - 1) / AL_ROWS;
-  const long need = D == 64 ? BwTile<64>::SMEM : BwTile<32>::SMEM;
-  if ((D != 32 && D != 64) || in_dt != DT_BF16 || do_dt != DT_BF16 || B < 1 || H < 1 ||
+  const long need = D == 128  ? BwTile<128>::SMEM
+                    : D == 64 ? BwTile<64>::SMEM
+                              : BwTile<32>::SMEM;
+  if ((D != 32 && D != 64 && D != 128) || in_dt != DT_BF16 || do_dt != DT_BF16 || B < 1 || H < 1 ||
       Nq < 1 || Nk < 1 || !q || !k || !v || !dout || !stats || !o || !dq || !dk || !dv ||
       !delta || (thresh && !seed) || !(scale > 0.0f) || qsplit != qtiles || ksplit != ktiles ||
       qwarps * 32 != AL_THREADS || kwarps * 32 != AL_THREADS || qsmem != need || ksmem != need ||
@@ -1378,6 +1470,7 @@ extern "C" int ec_attn_train_bwd_long(const void* q, const void* k, const void* 
   ka.itiles = ktiles; ka.stiles = (Nq + BW_TILE - 1) / BW_TILE; ka.items = (int)kitems;
   ka.bi0 = bk; ka.bi1 = bv; ka.bs0 = bq; ka.bs1 = bd;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 128) return launch_bwd_long<128>(mq, mk, mv, md, qa, ka, s);
   return D == 64 ? launch_bwd_long<64>(mq, mk, mv, md, qa, ka, s)
                  : launch_bwd_long<32>(mq, mk, mv, md, qa, ka, s);
 }

@@ -28,11 +28,15 @@ OP_COUNTERS = (
 
 # The streaming attention kernels (csrc/attn_long.cu), which the paths
 # launch where a row is longer than the resident kernels hold (ViT above
-# 272 tokens, any attention above 512 keys): counted in kernels.launches
-# like the rest, named here for the paths that must (518 px) or must not
-# (224 px) launch them.
+# 272 tokens, any attention above 512 keys, at head dim 128 above 416):
+# counted in kernels.launches like the rest, their head-dim-128 instances
+# apart, named here for the paths that must (518 px) or must not (224 px)
+# launch them.
 LONG_KERNELS = ("attn_long_kernel", "train_fwd_long_kernel",
-                "train_bwd_q_long_kernel", "train_bwd_k_long_kernel")
+                "train_bwd_q_long_kernel", "train_bwd_k_long_kernel",
+                "attn_long_kernel<128>", "train_fwd_long_kernel<128>",
+                "train_bwd_q_long_kernel<128>",
+                "train_bwd_k_long_kernel<128>")
 
 
 def _module(name: str):

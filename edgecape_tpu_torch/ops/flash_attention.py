@@ -18,12 +18,12 @@ accumulators become the operand of P.V by a pack, a warp per 16-row query
 tile, the key row in one pass where it fits in registers (up to 128 keys)
 and in two register passes over 32-key chunks above, query tiles split
 over blocks by `ops/kernels.attention_plan`, keys and values copied in by
-cp.async, and the bool key mask read by the kernel. Above 512 keys, which
-a block's shared memory does not hold, attn_long_kernel (csrc/
-attn_long.cu) streams the keys in tiles through one pass with the online
-softmax; the training pair has streaming forms as well (one pass each,
-the backward's delta formed from the forward's fp32 output, which the
-autograd Function keeps for them). q/k/v are read
+cp.async, and the bool key mask read by the kernel. Above 512 keys (at
+head dim 128 above 416), which a block's shared memory does not hold,
+attn_long_kernel (csrc/attn_long.cu) streams the keys in tiles through
+one pass with the online softmax; the training pair has streaming forms
+as well (one pass each, the backward's delta formed from the forward's
+fp32 output, which the autograd Function keeps for them). q/k/v are read
 straight from the [B, N, H*D] projections (no head transpose or cast
 pass), and a call is one launch.
 
@@ -205,8 +205,13 @@ def flash_mha_train(q, k, v, key_valid=None, bias=None, *,
     logits [B, H, Nq, Nk] or None (receives a gradient). dropout_rate
     drops probabilities inside the kernel, seeded from `generator`
     (required when the rate is > 0); the backward regenerates the same
-    mask. CUDA tensors go to the kernels (D 32 or 64, else an error; above
-    512 tokens the streaming ones), CPU tensors to the plain version."""
+    mask. CUDA tensors go to the kernels (head dims 1-128, run at 32, 64
+    or 128; above what a resident block holds, 512 tokens or at head dim
+    128 about 400, the streaming ones; above 128 an error), CPU tensors to
+    the plain version. No model path of the port trains a head dim above
+    64 here: the model trains rows above 512 tokens on its fp32 plain path,
+    as the JAX module does, so the streaming training kernels run on
+    direct calls."""
     if dropout_rate > 0.0 and generator is None:
         raise ValueError("dropout needs a generator")
     if not q.is_cuda:

@@ -65,7 +65,9 @@ launches = dict.fromkeys((
     "vit_mlp_kernel", "vit_qkv_kernel", "vit_attn_kernel",
     "bias_attn_kernel", "kpt_head_kernel", "attn_long_kernel",
     "train_fwd_long_kernel", "train_bwd_q_long_kernel",
-    "train_bwd_k_long_kernel", "enc_post_wide_kernel",
+    "train_bwd_k_long_kernel", "attn_long_kernel<128>",
+    "train_fwd_long_kernel<128>", "train_bwd_q_long_kernel<128>",
+    "train_bwd_k_long_kernel<128>", "enc_post_wide_kernel",
     "dec_post_self_wide_kernel", "dec_post_cross_wide_kernel",
     "dec_post_gcn_wide_kernel", "kpt_head_wide_kernel", "bias_attn_wide_kernel",
     "bias_attn_long_kernel", "vit_ln_gemm_kernel"),
@@ -237,7 +239,12 @@ def build(verbose: bool = False) -> list:
 def ptxas_usage(kernel: str) -> list:
     """[(entry function, registers, spill store bytes, spill load bytes)]
     of each instantiation of `kernel` in the ptxas reports of this
-    process's build (empty when the libraries were built before it)."""
+    process's build (empty when the libraries were built before it);
+    `kernel<N>` (a launch counter's name, such as "attn_long_kernel<128>")
+    picks that kernel's instance of template argument N alone."""
+    base, _, arg = kernel.partition("<")
+    if arg:     # the mangled name of that instance
+        kernel = f"{len(base)}{base}ILi{arg.rstrip('>')}E"
     rows, name, spills = [], None, (0, 0)
     for log in build_logs.values():
         for line in log.splitlines():
@@ -470,22 +477,23 @@ def add_pos(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 ATT_MAX_KEYS, ATT_ROW16, ATT_CH16 = 512, 8, 2
 ATT_SMEM_LIMIT = 227 * 1024
 # The streaming kernels (csrc/attn_long.cu), which take rows longer than
-# ATT_MAX_KEYS, all persistent blocks of ATT_STREAM_WARPS warps (two
-# consumer warpgroups and the producer's) walking items of ATT_STREAM_ROWS
-# rows. The forwards (attn_long_kernel, train_fwd_long_kernel): query
-# items, key tiles of ATT_STREAM_KEYS through a ring of ATT_STREAM_STAGES.
-# The backward pair: query items with key tiles (train_bwd_q_long_kernel)
-# and key items with query tiles (train_bwd_k_long_kernel) of
-# ATT_BWD_TILE through a ring of ATT_BWD_STAGES.
+# the resident kernels hold (ATT_MAX_KEYS; fewer at head dim 128), all
+# persistent blocks of ATT_STREAM_WARPS warps (two consumer warpgroups and
+# the producer's) walking items of ATT_STREAM_ROWS rows. The forwards
+# (attn_long_kernel, train_fwd_long_kernel): query items, key tiles of
+# ATT_STREAM_KEYS through a ring of ATT_STREAM_STAGES. The backward pair:
+# query items with key tiles (train_bwd_q_long_kernel) and key items with
+# query tiles (train_bwd_k_long_kernel) of ATT_BWD_TILE through a ring of
+# ATT_BWD_STAGES.
 ATT_STREAM_ROWS, ATT_STREAM_KEYS, ATT_STREAM_STAGES = 128, 128, 4
 ATT_STREAM_WARPS = 12
 ATT_BWD_TILE, ATT_BWD_STAGES = 64, 4
 # Head dims the kernels are instantiated at: the resident kernels (eval,
-# training forward and backward) at all three, the streaming ones at the
-# first two. A head dim d runs at the first of them at or above it, its q,
-# k and v laid out with zero columns (pad_heads), which leave every score
-# and output unchanged: the scale is the caller's, from the true d.
-ATT_HEAD_DIMS, ATT_STREAM_HEAD_DIMS = (32, 64, 128), (32, 64)
+# training forward and backward) and the streaming ones at all three. A
+# head dim d runs at the first of them at or above it, its q, k and v laid
+# out with zero columns (pad_heads), which leave every score and output
+# unchanged: the scale is the caller's, from the true d.
+ATT_HEAD_DIMS = (32, 64, 128)
 
 
 def attention_head_dim(d: int) -> int:
@@ -519,24 +527,40 @@ def unpad_heads(t: torch.Tensor, num_heads: int, d: int) -> torch.Tensor:
     return t.view(b, n, num_heads, dp)[..., :d].reshape(b, n, num_heads * d)
 
 
+def _stream_layout(d: int) -> tuple:
+    """(query slots, ring stages) of the streaming forwards at head dim d
+    (attn_long.cu AlTile): at head dim 128 a stage takes 65 KB, so the
+    ring holds two."""
+    return (2, 2) if d == 128 else (2, ATT_STREAM_STAGES)
+
+
+def _bwd_layout(d: int) -> tuple:
+    """(item slots, ring stages) of the streaming backward pair
+    (attn_long.cu BwTile): at head dim 128 an item slot takes 64 KB, so
+    one is kept beside the ring."""
+    return (1 if d == 128 else 2), ATT_BWD_STAGES
+
+
 def _stream_smem(d: int) -> int:
     """Shared memory of an attn_long_kernel (or train_fwd_long_kernel)
-    block: 1024 bytes of alignment slack, two query slots [128 rows x d]
+    block: 1024 bytes of alignment slack, the query slots [128 rows x d]
     bf16, the ring (k and v tiles [128 x d] bf16 and 1024 bytes for the
     additive key mask a stage) and 128 bytes of barriers."""
+    slots, stages = _stream_layout(d)
     tile = ATT_STREAM_ROWS * 2 * d
-    return 1024 + 2 * tile + ATT_STREAM_STAGES * (2 * tile + 1024) + 128
+    return 1024 + slots * tile + stages * (2 * tile + 1024) + 128
 
 
 def _bwd_stream_smem(d: int) -> int:
     """Shared memory of a block of the streaming backward pair: 1024
-    bytes of alignment slack, two item slots of two [128 rows x d] bf16
+    bytes of alignment slack, the item slots of two [128 rows x d] bf16
     operands, the ring (two [64 x d] bf16 tiles and 1024 bytes of side data
     a stage: the key mask, or each query's statistics and delta) and 128
     bytes of barriers."""
+    slots, stages = _bwd_layout(d)
     row = 2 * d
-    return 1024 + 2 * 2 * ATT_STREAM_ROWS * row \
-        + ATT_BWD_STAGES * (2 * ATT_BWD_TILE * row + 1024) + 128
+    return 1024 + slots * 2 * ATT_STREAM_ROWS * row \
+        + stages * (2 * ATT_BWD_TILE * row + 1024) + 128
 
 
 def _max_warps(d: int, chunk_tiles: int) -> int:
@@ -565,16 +589,16 @@ def _streams(nk: int, chunk_tiles, long: bool) -> bool:
     return False
 
 
-def _stream_head_dim(dp: int, d: int, rows: int) -> None:
-    if dp not in ATT_STREAM_HEAD_DIMS:
-        raise ValueError(f"the streaming attention kernels take head dims up "
-                         f"to {ATT_STREAM_HEAD_DIMS[-1]}, got {d} (rows of "
-                         f"{rows} keys or queries, above what a block holds "
-                         f"at head dim {dp})")
-
-
 def _padded(plan: tuple, dp: int, d: int) -> tuple:
     return plan + ((("d_pad", dp),) if dp != d else ())
+
+
+def _stream_plan(nq: int, nk: int, dp: int, d: int) -> tuple:
+    return _padded((("long", True), ("q_split", -(-nq // ATT_STREAM_ROWS)),
+                    ("warps", ATT_STREAM_WARPS), ("one_pass", True),
+                    ("smem_bytes", _stream_smem(dp)),
+                    ("key_tiles", -(-nk // ATT_STREAM_KEYS)),
+                    ("stages", _stream_layout(dp)[1])), dp, d)
 
 
 @functools.lru_cache(maxsize=None)
@@ -585,12 +609,8 @@ def _attention_plan(nq, nk, d, train, chunk_tiles, long):
                          f"got Nq={nq}, Nk={nk}")
     key_tiles = -(-nk // 16)
     if _streams(nk, chunk_tiles, long):
-        _stream_head_dim(dp, d, nk)
-        return _padded((("long", True), ("q_split", -(-nq // ATT_STREAM_ROWS)),
-                        ("warps", ATT_STREAM_WARPS), ("one_pass", True),
-                        ("smem_bytes", _stream_smem(dp)),
-                        ("key_tiles", -(-nk // ATT_STREAM_KEYS)),
-                        ("stages", ATT_STREAM_STAGES)), dp, d)
+        return _stream_plan(nq, nk, dp, d)
+    chosen = chunk_tiles is not None
     fits = key_tiles <= ATT_ROW16
     if chunk_tiles is None:
         chunk_tiles = ATT_ROW16 if fits else ATT_CH16
@@ -610,6 +630,9 @@ def _attention_plan(nq, nk, d, train, chunk_tiles, long):
         smem = 4 * nkp * kld + 32 * warps * kld + 4 * nkp
         if smem <= ATT_SMEM_LIMIT:
             break
+    if smem > ATT_SMEM_LIMIT and not chosen:
+        # more keys than a block holds (head dim 128 above 416): streamed
+        return _stream_plan(nq, nk, dp, d)
     if smem > ATT_SMEM_LIMIT or q_split > 65535:
         raise ValueError(f"attention plan does not fit: {smem} bytes of "
                          f"shared memory, query split {q_split} (Nk={nk}, "
@@ -636,23 +659,24 @@ def attention_plan(nq: int, nk: int, d: int, train: bool = False,
     * smem_bytes: keys and values [key_tiles * 16, d + 8] bf16, a query
       tile per warp, the additive key mask.
 
-    Above ATT_MAX_KEYS keys (or with `long=True`, for measurements) the
-    plan is the streaming kernels' and holds `long`: True, the same for
-    the eval forward (attn_long_kernel) and the training one
+    Above ATT_MAX_KEYS keys, at head dim 128 above the 416 keys a
+    resident block holds, or with `long=True` (for measurements), the plan
+    is the streaming kernels' and holds `long`: True, the same for the
+    eval forward (attn_long_kernel) and the training one
     (train_fwd_long_kernel): q_split items of ATT_STREAM_ROWS query rows a
     (batch, head), blocks of `warps` = ATT_STREAM_WARPS, one pass over
-    key_tiles tiles of ATT_STREAM_KEYS keys through a ring of `stages`,
-    and smem_bytes (_stream_smem). Every shape up to ATT_MAX_KEYS gets the
-    resident kernels' plan.
+    key_tiles tiles of ATT_STREAM_KEYS keys through a ring of `stages` (2
+    at head dim 128, else ATT_STREAM_STAGES), and smem_bytes
+    (_stream_smem). Every shape a resident block holds gets the resident
+    kernels' plan.
 
     A head dim other than 32, 64 or 128 runs at the next of them
     (attention_head_dim): the plan then holds `d_pad`, the head dim the
     kernel is launched at, over q, k, v laid out by pad_heads.
 
-    Raises for what the kernels do not take: d outside 1..128, a head
-    dim above 64 with more keys than the resident kernel holds (the
-    streaming kernels take 32 and 64), no query or key, chunk_tiles with
-    more than ATT_MAX_KEYS keys or `long`."""
+    Raises for what the kernels do not take: d outside 1..128, no query
+    or key, chunk_tiles with more keys than a resident block holds or with
+    `long`."""
     return dict(_attention_plan(int(nq), int(nk), int(d), bool(train),
                                 chunk_tiles, bool(long)))
 
@@ -682,6 +706,18 @@ def _bwd_split(tiles: int, resident_tiles: int, smem):
         cap -= 1
 
 
+def _bwd_stream_plan(nq: int, nk: int, dp: int, d: int) -> tuple:
+    smem = _bwd_stream_smem(dp)
+    return _padded((("long", True), ("q_split", -(-nq // ATT_STREAM_ROWS)),
+                    ("q_warps", ATT_STREAM_WARPS), ("one_pass", True),
+                    ("q_smem_bytes", smem),
+                    ("k_split", -(-nk // ATT_STREAM_ROWS)),
+                    ("k_warps", ATT_STREAM_WARPS), ("k_smem_bytes", smem),
+                    ("q_tiles", -(-nq // ATT_BWD_TILE)),
+                    ("key_tiles", -(-nk // ATT_BWD_TILE)),
+                    ("stages", _bwd_layout(dp)[1])), dp, d)
+
+
 @functools.lru_cache(maxsize=None)
 def _attention_bwd_plan(nq, nk, d, chunk_tiles, long):
     dp = attention_head_dim(d)
@@ -689,16 +725,8 @@ def _attention_bwd_plan(nq, nk, d, chunk_tiles, long):
         raise ValueError(f"the attention backward takes at least one query "
                          f"and one key, got Nq={nq}, Nk={nk}")
     if _streams(max(nq, nk), chunk_tiles, long):
-        _stream_head_dim(dp, d, max(nq, nk))
-        smem = _bwd_stream_smem(dp)
-        return _padded((("long", True), ("q_split", -(-nq // ATT_STREAM_ROWS)),
-                        ("q_warps", ATT_STREAM_WARPS), ("one_pass", True),
-                        ("q_smem_bytes", smem),
-                        ("k_split", -(-nk // ATT_STREAM_ROWS)),
-                        ("k_warps", ATT_STREAM_WARPS), ("k_smem_bytes", smem),
-                        ("q_tiles", -(-nq // ATT_BWD_TILE)),
-                        ("key_tiles", -(-nk // ATT_BWD_TILE)),
-                        ("stages", ATT_BWD_STAGES)), dp, d)
+        return _bwd_stream_plan(nq, nk, dp, d)
+    chosen = chunk_tiles is not None
     q_tiles, key_tiles = -(-nq // 16), -(-nk // 16)
     fits = key_tiles <= ATT_ROW16
     if chunk_tiles is None:
@@ -720,6 +748,10 @@ def _attention_bwd_plan(nq, nk, d, chunk_tiles, long):
     q_split, q_warps = _bwd_split(q_tiles, key_tiles, q_need)
     k_split, k_warps = _bwd_split(key_tiles, q_tiles, k_need)
     q_smem, k_smem = q_need(q_warps), k_need(k_warps)
+    if max(q_smem, k_smem) > ATT_SMEM_LIMIT and not chosen:
+        # more rows than a block holds (head dim 128 from about 400):
+        # streamed
+        return _bwd_stream_plan(nq, nk, dp, d)
     if max(q_smem, k_smem) > ATT_SMEM_LIMIT:
         raise ValueError(f"attention backward plan does not fit: {q_smem} "
                          f"and {k_smem} bytes of shared memory (Nq={nq}, "
@@ -749,22 +781,24 @@ def attention_bwd_plan(nq: int, nk: int, d: int, chunk_tiles=None,
       bytes of statistics a query and a key and a value tile per warp lie
       in k_smem_bytes.
 
-    Above ATT_MAX_KEYS queries or keys (or with `long=True`, for
-    measurements) the plan is the streaming pair's and holds `long`: True:
+    Above ATT_MAX_KEYS queries or keys, at head dim 128 where the
+    resident kernels' blocks would not hold the rows (from about 400), or
+    with `long=True` (for measurements), the plan is the streaming pair's
+    and holds `long`: True:
     train_bwd_q_long_kernel walks q_split items of ATT_STREAM_ROWS query
     rows a (batch, head) with key_tiles tiles of ATT_BWD_TILE keys (and
     values) streamed, train_bwd_k_long_kernel k_split items of
     ATT_STREAM_ROWS keys with q_tiles tiles of ATT_BWD_TILE queries (and
     do) streamed, both one pass through a ring of `stages`, in blocks of
     q_warps = k_warps = ATT_STREAM_WARPS warps with q_smem_bytes =
-    k_smem_bytes (_bwd_stream_smem) of shared memory.
+    k_smem_bytes (_bwd_stream_smem) of shared memory (one item slot at
+    head dim 128, two below).
 
     A head dim other than 32, 64 or 128 holds `d_pad` as attention_plan's.
 
-    Raises for what the kernels do not take: d outside 1..128, a head
-    dim above 64 with more queries or keys than the resident kernels hold,
-    no query or key, chunk_tiles with more than ATT_MAX_KEYS of either or
-    `long`."""
+    Raises for what the kernels do not take: d outside 1..128, no query
+    or key, chunk_tiles with more rows than the resident kernels hold or
+    with `long`."""
     return dict(_attention_bwd_plan(int(nq), int(nk), int(d), chunk_tiles,
                                     bool(long)))
 
@@ -795,6 +829,13 @@ def _f32_contiguous(t):
     if t.dtype != torch.float32 or not t.is_contiguous():
         t = t.to(torch.float32).contiguous()
     return t
+
+
+def _long_name(kernel: str, dp: int) -> str:
+    """The launch counter of a streaming kernel's instance at head dim dp:
+    the head-dim-128 instances are counted apart ("attn_long_kernel<128>"),
+    those at 32 and 64 under the kernel's name."""
+    return f"{kernel}<128>" if dp == 128 else kernel
 
 
 def _stream_operand(t: torch.Tensor) -> torch.Tensor:
@@ -859,7 +900,8 @@ def attention(q, k, v, *, num_heads: int, scale: float, key_valid=None,
           dp, nq, nk, kv_ptr, kv_stride, _ptr(bias), float(scale),
           res.data_ptr(), _dt(res), res.stride(0), res.stride(1),
           *_plan_args(plan), _stream())
-    launches["attn_long_kernel" if long else "attn_kernel"] += 1
+    launches[_long_name("attn_long_kernel", dp) if long
+             else "attn_kernel"] += 1
     if dp == d:
         return res
     res = unpad_heads(res, num_heads, d)
@@ -967,7 +1009,8 @@ def attention_train_fwd(q, k, v, *, num_heads: int, scale: float,
     _call("ec_attn_train_fwd_long" if long else "ec_attn_train_fwd", *args,
           out.data_ptr(), out.stride(0), out.stride(1), stats.data_ptr(),
           *_plan_args(plan), _stream())
-    launches["train_fwd_long_kernel" if long else "train_fwd_kernel"] += 1
+    launches[_long_name("train_fwd_long_kernel", dp) if long
+             else "train_fwd_kernel"] += 1
     del keep_alive
     return unpad_heads(out, num_heads, d), stats
 
@@ -1032,8 +1075,9 @@ def attention_train_bwd(q, k, v, dout, stats, *, num_heads: int,
           dout.stride(0), dout.stride(1), stats.data_ptr(), *fwd_out,
           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(dbias),
           delta.data_ptr(), *_bwd_plan_args(plan), _stream())
-    launches[f"train_bwd_q{form}_kernel"] += 1
-    launches[f"train_bwd_k{form}_kernel"] += 1
+    for half in ("q", "k"):
+        name = f"train_bwd_{half}{form}_kernel"
+        launches[_long_name(name, dp) if long else name] += 1
     del keep_alive
     dq, dk, dv = (unpad_heads(t, num_heads, d) for t in (dq, dk, dv))
     return dq, dk, dv, dbias
@@ -2209,9 +2253,9 @@ def width_misfits(cfg, vit_dim: Optional[int] = None,
     * flash_mha (ViT / encoder / keypoints): head dims 1..128 (run at 32,
       64 or 128) at the trunk's tokens, the joint encoder's image +
       keypoint tokens, the keypoint tokens (the skeleton's and the
-      decoder's self-attention), eval and training; any key count at head
-      dims up to 64 (above ATT_MAX_KEYS the streaming kernels), as many as
-      a block holds (416 keys) above;
+      decoder's self-attention), eval and training; any key count (above
+      what a resident block holds, ATT_MAX_KEYS or at head dim 128 416
+      keys, the streaming kernels);
     * fused_encoder_stack: the post-attention kernels' 1..WIDE_MAX_C
       channels (any hidden width), and the encoder's attention;
     * fused_decoder_layer: the same channels, any keypoint count (above
@@ -2222,8 +2266,8 @@ def width_misfits(cfg, vit_dim: Optional[int] = None,
       bias_attn_long_kernel) and the keypoint head's channels.
     What stays refused, by the plan that refuses it: a trunk above
     VIT_WIDE_MAX_C channels or not in steps of 64, a head of more than
-    WIDE_MAX_C channels, head dims above 128 (above 64 past the resident
-    attention's keys). No keypoint count is refused."""
+    WIDE_MAX_C channels, head dims above 128. No keypoint count or
+    image size is refused."""
     c, h, f = int(cfg.d_model), int(cfg.nhead), int(cfg.dim_feedforward)
     k = int(cfg.max_kpt)
     vc = int(cfg.backbone_dim if vit_dim is None else vit_dim)

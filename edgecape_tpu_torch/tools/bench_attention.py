@@ -7,9 +7,10 @@ also the plain version's time and each kernel's own device time.
 
 One line per shape; with `long`, the streaming kernels' shapes
 (LONG_SHAPES: the 518 px path's rows, just past the caps, a ragged
-count); with `bwd`, only the backward's lines: the training
-shapes' gradients (dq, dk, dv, dbias through `flash_mha_train`) against
-autograd through the plain version, the backward's device and wrapper time,
+count, head dim 128 past its resident kernel's 416 keys); with `bwd`,
+only the backward's lines: the training shapes' gradients (dq, dk, dv,
+dbias through `flash_mha_train`) against autograd through the plain
+version, the backward's device and wrapper time,
 its bound and SDPA's backward beside it. `device` is the time of the
 kernels one call launches (torch.profiler, mean over REPS calls, the
 kernels matched to the calls by correlation id), so a second kernel (a
@@ -121,6 +122,22 @@ LONG_SHAPES = [
       0.1), False),
     (("train past 512, bias, rate 0", 4, 513, 513, 8, 32, True, "read",
       0.0), False),
+    # head dim 128 past the resident kernel's 416 keys: the decoder's
+    # cross-attention of the 512 / 8 head at 518 px (the [long] chunk's 60
+    # rows and the eval chunk's 510; the 384 / 8 head's head dim 96 runs
+    # padded to it), a direct flash_mha_train call at the joint encoder's
+    # length, and attn_long_kernel<128> forced at the 224 px cross shape
+    # that attn_kernel<128> holds (times only: that route stays resident)
+    (("decoder cross 518 px, 8 x 128", 60, 100, 1369, 8, 128, False, None,
+      None), False),
+    (("decoder cross 518 px, 8 x 128, 510 rows", 510, 100, 1369, 8, 128,
+      False, None, None), False),
+    (("train 518 px, 4 x 128, rate 0", 8, 1469, 1469, 4, 128, True, None,
+      0.0), False),
+    (("train 518 px, 4 x 128, rate 0.1", 8, 1469, 1469, 4, 128, True, None,
+      0.1), False),
+    (("decoder cross 224 px, 8 x 128, forced", 60, 100, 256, 8, 128, False,
+      None, None), True),
 ]
 
 # The head dims the kernels run padded (ops/kernels.py pad_heads: 25 at 32,

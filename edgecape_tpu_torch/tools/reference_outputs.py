@@ -24,10 +24,15 @@ card:
 * with --kpts, the bias attention above 128 keypoints (ops/kernels.py
   bias_attention: csrc/bias_long.cu) at KPTS_KEYS keypoints and
   KPTS_CASES' heads (8 of 32, 8 of 64), KPTS_ROWS seeded batch rows with
-  a key mask: its bf16 bits as int16, kpts_<K>_<C> an array.
+  a key mask: its bf16 bits as int16, kpts_<K>_<C> an array;
+* with --long, the streaming attention kernels (csrc/attn_long.cu) at
+  head dims 32 and 64 on LONG_CASES' 518 px shapes: attention's bf16
+  bits as int16 (long_<name>), and for the training cases
+  flash_mha_train's output and the gradients of q, k, v and the bias at
+  dropout 0.1 (long_<name>_out / _dq / _dk / _dv / _dbias).
 
     python edgecape_tpu_torch/tools/reference_outputs.py [--root DIR]
-        [--wide] [--heads] [--kpts] OUT.npz
+        [--wide] [--heads] [--kpts] [--long] OUT.npz
     python edgecape_tpu_torch/tools/reference_outputs.py --compare A.npz B.npz
 
 --root runs the package of another checkout (the parent's, unpacked from
@@ -205,8 +210,56 @@ def _kpts(dev, arrays, launches) -> None:
     launches["kpts"] = {n: KN.launches.get(n, 0) - n0[n] for n in names}
 
 
+# name, batch, queries, keys, heads, head dim, key mask, training (with
+# a bias) of the --long cases: the 518 px ViT, joint encoder and decoder
+# cross-attention at head dims 64 and 32, and training rows at both
+LONG_CASES = (("vit", 4, 1370, 1370, 6, 64, False, False),
+              ("encoder", 4, 1469, 1469, 8, 32, True, False),
+              ("cross", 8, 100, 1369, 8, 64, False, False),
+              ("train32", 2, 1469, 1469, 8, 32, True, True),
+              ("train64", 2, 600, 600, 4, 64, True, True))
+
+
+def _long(dev, arrays, launches) -> None:
+    """The streaming kernels at LONG_CASES (operands seeded, about 20% of
+    the keys masked), into arrays. Launches are read with a default of 0,
+    as _kpts reads them."""
+    import torch
+    from edgecape_tpu_torch.ops import flash_attention as FA
+    from edgecape_tpu_torch.ops import kernels as KN
+    names = ("attn_long_kernel", "train_fwd_long_kernel",
+             "train_bwd_q_long_kernel", "train_bwd_k_long_kernel")
+    n0 = {n: KN.launches.get(n, 0) for n in names}
+    g = torch.Generator().manual_seed(SEED + 6)
+    for name, b, nq, nk, h, d, masked, train in LONG_CASES:
+        q = torch.randn(b, nq, h, d, generator=g).to(dev)
+        k, v = (torch.randn(b, nk, h, d, generator=g).to(dev)
+                for _ in range(2))
+        valid = None
+        if masked:
+            valid = (torch.rand(b, nk, generator=g) > 0.2).to(dev)
+            valid[:, 0] = True
+        if not train:
+            att = KN.attention(*(t.reshape(t.shape[0], t.shape[1], h * d)
+                                 .to(torch.bfloat16) for t in (q, k, v)),
+                               num_heads=h, scale=d ** -0.5, key_valid=valid)
+            arrays[f"long_{name}"] = att.view(torch.int16).cpu().numpy()
+            continue
+        bias = (0.3 * torch.randn(b, h, nq, nk, generator=g)).to(dev)
+        go = torch.randn(b, nq, h, d, generator=g).to(dev)
+        leaves = [t.requires_grad_(True) for t in (q, k, v, bias)]
+        out = FA.flash_mha_train(
+            *leaves[:3], valid, leaves[3], dropout_rate=RATE,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 7))
+        grads = torch.autograd.grad(out, leaves, go)
+        arrays[f"long_{name}_out"] = out.detach().cpu().numpy()
+        for part, t in zip(("dq", "dk", "dv", "dbias"), grads):
+            arrays[f"long_{name}_{part}"] = t.cpu().numpy()
+    launches["long"] = {n: KN.launches.get(n, 0) - n0[n] for n in names}
+
+
 def run(root: str, out: str, wide: bool = False, heads: bool = False,
-        kpts: bool = False) -> None:
+        kpts: bool = False, long: bool = False) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from edgecape_tpu_torch.api import PoseEstimator
@@ -261,6 +314,8 @@ def run(root: str, out: str, wide: bool = False, heads: bool = False,
         _heads(dev, arrays, launches)
     if kpts:
         _kpts(dev, arrays, launches)
+    if long:
+        _long(dev, arrays, launches)
     np.savez(out, launches=json.dumps(launches, sort_keys=True),
              device=torch.cuda.get_device_name(0), **arrays)
     print(f"wrote {out}: {sorted(arrays)} on {torch.cuda.get_device_name(0)}"
@@ -305,13 +360,16 @@ def main(argv=None) -> None:
     p.add_argument("--kpts", action="store_true",
                    help="also the bias attention above 128 keypoints at "
                         "KPTS_CASES x KPTS_KEYS")
+    p.add_argument("--long", action="store_true",
+                   help="also the streaming attention kernels at "
+                        "LONG_CASES")
     p.add_argument("out", nargs="?")
     args = p.parse_args(argv)
     if args.compare:
         sys.exit(0 if compare(*args.compare) else 1)
     if not args.out:
         p.error("OUT.npz is needed")
-    run(args.root, args.out, args.wide, args.heads, args.kpts)
+    run(args.root, args.out, args.wide, args.heads, args.kpts, args.long)
 
 
 if __name__ == "__main__":

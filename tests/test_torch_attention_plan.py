@@ -118,7 +118,7 @@ def test_plan_sweep(kind, d):
 
 
 @pytest.mark.parametrize("args,kw", [
-    ((100, 100, 129), {}), ((100, 600, 128), {}),
+    ((100, 100, 129), {}), ((100, 600, 129), {}),
     ((100, 513, 32), {"chunk_tiles": 2}),
     ((100, 0, 32), {}), ((0, 100, 32), {}),
     ((100, 129, 32), {"chunk_tiles": 8}),

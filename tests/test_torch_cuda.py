@@ -386,14 +386,25 @@ def test_flash_mha_train_fully_masked_row_is_zero(dev):
 
 
 def test_flash_mha_train_refuses_unsupported_shapes(dev):
-    """Head dims above 128, and above 64 past what a block holds (any
-    token count is taken at head dims up to 64: above 512 the streaming
-    kernels; head dims below 128 run padded to 32, 64 or 128)."""
+    """Head dims above 128 are refused; any token count is taken at head
+    dims up to 128 (past what a block holds the streaming kernels; head
+    dims below 128 run padded to 32, 64 or 128): 513 tokens at head dim
+    128 run the streaming pair's head-dim-128 instances and match autograd
+    through the plain version."""
     from edgecape_tpu_torch.ops import flash_attention as FA
+    from edgecape_tpu_torch.ops import kernels as K
     with pytest.raises(ValueError):
         FA.flash_mha_train(*(_rn(dev, 1, 8, 2, 129) for _ in range(3)))
-    with pytest.raises(ValueError):
-        FA.flash_mha_train(*(_rn(dev, 1, 513, 1, 128) for _ in range(3)))
+    q, k, v, g, valid, _ = _train_case(dev, 1, 513, 1, 128, True, False)
+    before = dict(K.launches)
+    out, grads = _grads(FA.flash_mha_train, q, k, v, g, valid, None)
+    for name in ("train_fwd_long_kernel<128>", "train_bwd_q_long_kernel<128>",
+                 "train_bwd_k_long_kernel<128>"):
+        assert K.launches[name] == before[name] + 1, name
+    ref, rgrads = _grads(FA.flash_mha_train_plain, q, k, v, g, valid, None)
+    _close(out, ref)
+    for a, r in zip(grads, rgrads):
+        _close(a, r)
 
 
 # call sites of a training step (batch cut to 2), mask / bias / both
@@ -1494,7 +1505,19 @@ LONG_SHAPES = [("vit 518", 2, 1370, 1370, 6, 64, False, False),
                ("encoder 518", 2, 1469, 1469, 8, 32, True, False),
                ("cross 518", 2, 100, 1369, 8, 64, False, False),
                ("past 512", 2, 513, 513, 8, 32, True, True),
-               ("ragged 1025", 1, 1025, 1025, 4, 64, True, False)]
+               ("ragged 1025", 1, 1025, 1025, 4, 64, True, False),
+               # head dim 128 past the resident kernels' 416 keys: the
+               # 512 / 8 head's cross-attention at 518 px, just past the
+               # cap with a mask and a bias, head dim 96 run padded
+               ("cross 518 d128", 2, 100, 1369, 8, 128, False, False),
+               ("past 416 d128", 2, 417, 417, 4, 128, True, True),
+               ("ragged 1025 d96", 1, 1025, 1025, 2, 96, True, False)]
+
+
+def _long_counter(name, d):
+    """The launch counter of a streaming kernel's instance at head dim d
+    (the head-dim-128 instances, padded ones included, counted apart)."""
+    return f"{name}<128>" if d > 64 else name
 
 
 @pytest.mark.parametrize("shape", LONG_SHAPES, ids=lambda s: s[0])
@@ -1507,7 +1530,8 @@ def test_long_attention_matches_plain(dev, shape):
     before = dict(K.launches)
     out = K.attention(q, k, v, num_heads=h, scale=d ** -0.5, key_valid=valid,
                       bias=bt)
-    assert K.launches["attn_long_kernel"] == before["attn_long_kernel"] + 1
+    name = _long_counter("attn_long_kernel", d)
+    assert K.launches[name] == before[name] + 1
     assert K.launches["attn_kernel"] == before["attn_kernel"]
     _close(out, _plain_attention(q, k, v, valid, bt, h, d))
 
@@ -1515,7 +1539,9 @@ def test_long_attention_matches_plain(dev, shape):
 @pytest.mark.parametrize("nk,d,mask,bias", [(356, 32, True, False),
                                             (257, 64, False, False),
                                             (100, 32, True, True),
-                                            (7, 64, True, False)])
+                                            (7, 64, True, False),
+                                            (300, 128, True, True),
+                                            (129, 128, False, False)])
 def test_long_attention_is_the_two_pass_form_bit_for_bit(dev, nk, d, mask,
                                                          bias):
     """The streaming training kernels forced at a shape the resident
@@ -1552,12 +1578,10 @@ def test_long_attention_is_the_two_pass_form_bit_for_bit(dev, nk, d, mask,
 
     before = dict(K.launches)
     whole = run()
-    assert K.launches["train_fwd_long_kernel"] \
-        == before["train_fwd_long_kernel"] + 1
-    assert K.launches["train_bwd_q_long_kernel"] \
-        == before["train_bwd_q_long_kernel"] + 1
-    assert K.launches["train_bwd_k_long_kernel"] \
-        == before["train_bwd_k_long_kernel"] + 1
+    for kern in ("train_fwd_long_kernel", "train_bwd_q_long_kernel",
+                 "train_bwd_k_long_kernel"):
+        name = _long_counter(kern, d)
+        assert K.launches[name] == before[name] + 1
     # against the plain version
     heads = [t.reshape(2, -1, h, d) for t in (q, k, v, g)]
     ref, rgrads = _grads(FA.flash_mha_train_plain, *heads, valid,
@@ -1582,7 +1606,9 @@ def test_long_attention_is_the_two_pass_form_bit_for_bit(dev, nk, d, mask,
 @pytest.mark.parametrize("nk,d,mask,bias", [(356, 32, True, False),
                                             (257, 64, False, False),
                                             (100, 32, True, True),
-                                            (7, 64, True, False)])
+                                            (7, 64, True, False),
+                                            (256, 128, False, False),
+                                            (100, 128, True, True)])
 def test_long_attention_forced_matches_plain(dev, nk, d, mask, bias):
     """attn_long_kernel forced at a shape the resident kernels take, and
     attn_kernel there, both against the plain version at the smoke's
@@ -1625,20 +1651,29 @@ def test_long_attention_rows_are_independent(dev, shape):
 
 @pytest.mark.parametrize("n,h,d,masked,with_bias", [
     (1469, 8, 32, True, False), (600, 4, 32, True, True),
-    (513, 2, 64, False, True), (1025, 2, 64, True, False)])
+    (513, 2, 64, False, True), (1025, 2, 64, True, False),
+    (1469, 4, 128, True, False), (600, 2, 96, True, True),
+    (400, 2, 128, False, True)])
 def test_long_train_matches_plain(dev, n, h, d, masked, with_bias):
     """train_fwd_long_kernel and the streaming backward pair against
-    autograd through the plain version at rate 0; both long kernels ran."""
+    autograd through the plain version at rate 0; both long kernels ran
+    (their head-dim-128 instances above head dim 64)."""
     from edgecape_tpu_torch.ops import flash_attention as FA
     from edgecape_tpu_torch.ops import kernels as K
     q, k, v, g, valid, bias = _train_case(dev, 1, n, h, d, masked, with_bias)
     before = dict(K.launches)
     out, grads = _grads(FA.flash_mha_train, q, k, v, g, valid, bias)
     ran = {name: K.launches[name] - before[name] for name in K.launches}
-    assert ran["train_fwd_long_kernel"] == 1
-    assert ran["train_bwd_q_long_kernel"] == ran["train_bwd_k_long_kernel"] \
-        == 1
-    assert ran["train_fwd_kernel"] == ran["train_bwd_q_kernel"] == 0
+    # at head dim 128 up to 416 keys the forward stays resident, while the
+    # backward streams from about 400 rows
+    fwd = (_long_counter("train_fwd_long_kernel", d)
+           if K.attention_plan(n, n, d, train=True).get("long")
+           else "train_fwd_kernel")
+    assert ran[fwd] == 1 and ran["train_fwd_kernel"] == (fwd ==
+                                                         "train_fwd_kernel")
+    assert ran[_long_counter("train_bwd_q_long_kernel", d)] \
+        == ran[_long_counter("train_bwd_k_long_kernel", d)] == 1
+    assert ran["train_bwd_q_kernel"] == 0
     ref, rgrads = _grads(FA.flash_mha_train_plain, q, k, v, g, valid, bias)
     _close(out, ref)
     for a, r in zip(grads, rgrads):
@@ -1681,6 +1716,44 @@ def test_long_train_masked_rows_and_edge_counts(dev, nq, nk):
     _close(o[0], ref[0].reshape(o[0].shape))
     for a, r in zip(grads, rgrads):
         _close(a[0].reshape(r[0].shape), r[0])
+
+
+@pytest.mark.parametrize("nq,nk", [(1469, 1469), (100, 600), (1, 600)])
+def test_long_train_at_head_dim_128_with_dropout(dev, nq, nk):
+    """The head-dim-128 streaming training kernels at rate 0.1 with a key
+    mask and a bias: output and gradients against autograd through the
+    plain version fed dropout_mask(seed), and two calls bit for bit."""
+    from edgecape_tpu_torch.ops import flash_attention as FA
+    from edgecape_tpu_torch.ops import kernels as K
+    b, h, d, rate = 1, 2, 128, 0.1
+    q = _rn(dev, b, nq, h * d, seed=11)
+    k, v = _rn(dev, b, nk, h * d, seed=12), _rn(dev, b, nk, h * d, seed=13)
+    g = _rn(dev, b, nq, h * d, seed=14)
+    bias = _rn(dev, b, h, nq, nk, seed=15)
+    valid = _rn(dev, b, nk, seed=16) > -0.3
+    valid[:, 0] = True
+    seed = FA.dropout_seed(torch.Generator(device=dev).manual_seed(7), dev)
+    kw = dict(num_heads=h, scale=d ** -0.5, key_valid=valid, bias=bias,
+              seed=seed, rate=rate)
+
+    def run():
+        o, st = K.attention_train_fwd(q, k, v, **kw)
+        return [o, st] + list(K.attention_train_bwd(q, k, v, g, st, out=o,
+                                                    **kw))
+
+    before = dict(K.launches)
+    whole = run()
+    for kern in ("train_fwd_long_kernel", "train_bwd_q_long_kernel",
+                 "train_bwd_k_long_kernel"):
+        assert K.launches[kern + "<128>"] == before[kern + "<128>"] + 1
+    keep = K.dropout_mask(seed, rate, b * h, nq, nk).reshape(b, h, nq, nk)
+    heads = [t.reshape(b, -1, h, d) for t in (q, k, v, g)]
+    ref, rgrads = _grads(FA.flash_mha_train_plain, *heads, valid, bias,
+                         dropout_rate=rate, keep=keep)
+    _close(whole[0], ref.reshape(whole[0].shape))
+    for a, r in zip(whole[2:], rgrads):
+        _close(a.reshape(r.shape), r)
+    assert all(torch.equal(a, c) for a, c in zip(run(), whole))
 
 
 def test_long_train_dropout_mask_is_the_mask_of_its_seed(dev):

@@ -154,8 +154,24 @@ def test_fused_encoder_plain_matches_jax_kernel(dtype):
 
 # ---------------------------------------------------------- decoder layer
 def test_fused_decoder_plain_matches_jax_kernel():
-    rng = np.random.default_rng(2)
-    b, k, hw, c, heads, f = 3, 12, 16, 64, 2, 96
+    _decoder_layer_case(2, 3, 12, 16, 64, 2, 96)
+
+
+def test_fused_decoder_at_cross_head_dim_128_past_416_keys_matches_jax():
+    """A head of 128 channels in 2 heads (the cross-attention's head dim
+    2 x 128 / 2 = 128) over 484 image keys (308 px, 22 x 22 patches): on
+    the card past the resident attention's 416 keys, so attn_long_kernel
+    at head dim 128. The port's op (its plain version on the CPU, bf16
+    tokens and fp32 weights as the op takes them) against the JAX kernel in
+    interpret mode to the same bf16-sized bounds."""
+    _decoder_layer_case(26, 2, 8, 22 * 22, 128, 2, 256)
+
+
+def _decoder_layer_case(seed, b, k, hw, c, heads, f):
+    """fused_decoder_layer's plain version against the JAX kernel at
+    batch b, k keypoints, hw image keys, c channels in `heads` heads and a
+    GCN of f."""
+    rng = np.random.default_rng(seed)
     tree = {"self_attn": _mha(rng, c, c, c), "norm1": _ln(rng, c),
             "cross_attn": _mha(rng, 2 * c, 2 * c, c),
             "choker": _dense(rng, 2 * c, c), "norm2": _ln(rng, c),

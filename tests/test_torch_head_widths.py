@@ -64,11 +64,10 @@ def test_every_head_dim_runs_at_a_launched_instance():
             assert ("d_pad" in plan) == (d not in K.ATT_HEAD_DIMS)
             assert max(v for k, v in plan.items() if "smem" in k) \
                 <= K.ATT_SMEM_LIMIT
-        if dp <= 64:        # the streaming kernels take the padded form
-            assert K.attention_plan(100, 1369, d)["long"]
-        else:
-            with pytest.raises(ValueError, match="streaming"):
-                K.attention_plan(100, 1369, d)
+        # the streaming kernels take the padded form at every head dim
+        long = K.attention_plan(100, 1369, d)
+        assert long["long"] and long.get("d_pad", d) == dp
+        assert long["smem_bytes"] <= K.ATT_SMEM_LIMIT
     for d in (0, 129, 192, 256):
         with pytest.raises(ValueError, match="head dims 1..128"):
             K.attention_plan(100, 100, d)
@@ -76,15 +75,25 @@ def test_every_head_dim_runs_at_a_launched_instance():
 
 def test_head_dim_128_holds_as_many_keys_as_a_block_does():
     """At head dim 128 the resident kernels take fewer warps a block where
-    the keys and values leave no room (up to 416 keys), and refuse more."""
+    the keys and values leave no room (up to 416 keys); more keys take the
+    streaming kernels (two ring stages forward, one item slot backward),
+    and chunk_tiles, which picks the resident kernels, still refuses them."""
     assert K.attention_plan(100, 256, 128)["warps"] == 4
     assert K.attention_plan(100, 416, 128)["warps"] == 1
+    assert "long" not in K.attention_plan(100, 416, 128)
+    fwd = K.attention_plan(100, 417, 128)
+    assert fwd["long"] and fwd["stages"] == 2 and fwd["key_tiles"] == 4
+    assert fwd["smem_bytes"] == 199808 <= K.ATT_SMEM_LIMIT
     with pytest.raises(ValueError, match="does not fit"):
-        K.attention_plan(100, 417, 128)
+        K.attention_plan(100, 417, 128, chunk_tiles=K.ATT_CH16)
     bwd = K.attention_bwd_plan(356, 356, 128)
     assert bwd["q_warps"] < K.BWD_MAX_WARPS and bwd["k_warps"] < 4
+    assert "long" not in bwd
+    bwd = K.attention_bwd_plan(400, 400, 128)
+    assert bwd["long"] and bwd["stages"] == 4
+    assert bwd["q_smem_bytes"] == bwd["k_smem_bytes"] == 201856
     with pytest.raises(ValueError, match="does not fit"):
-        K.attention_bwd_plan(400, 400, 128)
+        K.attention_bwd_plan(400, 400, 128, chunk_tiles=K.ATT_CH16)
 
 
 @pytest.mark.parametrize("c", [1, 16, 100, 128, 200, 255, 256, 257, 384,

@@ -146,14 +146,16 @@ def test_the_support_pass_splits_its_columns(c, cols, split):
 
 def test_the_wide_route_streams_long_rows():
     """At 518 px (1370 tokens) the wide route's attention is
-    attn_long_kernel at head dim 64; a head dim of 128 past what the
-    resident attention holds stays refused."""
+    attn_long_kernel at head dim 64, and at head dim 128 (a trunk of 8
+    heads of 128) past what the resident attention holds too."""
     plan = K.vit_attn_plan(4, 1370, 768, 12)
     assert plan["wide"] and plan["attention"]["long"]
     assert plan["attention"] == K.attention_plan(1370, 1370, 64)
     assert K.vit_attn_plan(4, 257, 1024, 8)["wide"]
-    with pytest.raises(ValueError, match="head dims up to 64"):
-        K.vit_attn_plan(4, 1370, 1024, 8)
+    wide = K.vit_attn_plan(4, 1370, 1024, 8)
+    assert wide["wide"] and wide["attention"]["long"]
+    assert wide["attention"] == K.attention_plan(1370, 1370, 128)
+    assert wide["attention"]["stages"] == 2
 
 
 @pytest.mark.parametrize("plan,args,why", [

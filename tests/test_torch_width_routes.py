@@ -221,6 +221,50 @@ def test_forward_cached_at_518px_matches_jax_strict(narrow_weights):
                                rtol=0)
 
 
+# a head of 128 channels in 2 heads: the decoder's cross-attention at head
+# dim 128, at 308 px over 484 image keys (past the resident attention's
+# 416 on the card: attn_long_kernel at head dim 128)
+CROSS128 = dict(d_model=128, nhead=2, num_feats=64, similarity_proj_dim=128)
+CROSS128_SIZE = 308
+
+
+def test_forward_cached_at_cross_head_dim_128_matches_jax_strict():
+    """The slice with the CROSS128 head at 308 px: the port's fp32
+    forward_cached (plain path) against the JAX strict path on the same
+    weights, to the strict path's 1e-4 on normalised coordinates; the
+    width check takes the model."""
+    base = _cfg(**CROSS128)
+    cfg = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, image_size=CROSS128_SIZE))
+    misfits = K.width_misfits(cfg.model, vit_heads=TRUNK.num_heads)
+    assert all(why is None for why in misfits.values()), misfits
+    assert K.attention_plan(KPT, 22 * 22, 128)["long"]
+    bb = jdinov2.init_params(jax.random.PRNGKey(0), CROSS128_SIZE, TRUNK)
+    est = JaxEstimator(cfg, backbone_params=bb, rng=jax.random.PRNGKey(2))
+    weights = _perturb(bb, est.head_params, seed=11)
+    rng = np.random.default_rng(308)
+    n = CROSS128_SIZE
+    adj = np.zeros((1, KPT, KPT), np.float32)
+    for i in range(KPT - 1):
+        adj[:, i, i + 1] = adj[:, i + 1, i] = 1.0
+    support = {"img_s": rng.integers(0, 256, (1, 1, n, n, 3),
+                                     dtype=np.uint8),
+               "joints_s": rng.uniform(10, n - 10, (1, 1, KPT, 2)).astype(
+                   np.float32),
+               "vis_s": np.ones((1, 1, KPT), np.float32),
+               "binary_adj": adj}
+    query = {"img_q": rng.integers(0, 256, (2, n, n, 3), dtype=np.uint8),
+             "group": np.zeros(2, np.int32)}
+    jpred, jadj = _jax_estimator(cfg, weights).forward_cached(support, query)
+    tpred, tadj = _torch_estimator(cfg, weights).forward_cached(support,
+                                                                query)
+    assert tpred.shape == (2, KPT, 2)
+    np.testing.assert_allclose(tpred.numpy(), np.asarray(jpred),
+                               atol=COORD_TOL, rtol=0)
+    np.testing.assert_allclose(tadj.numpy(), np.asarray(jadj), atol=1e-5,
+                               rtol=0)
+
+
 @pytest.fixture(scope="module")
 def d200_weights():
     """(flax backbone tree, flax head tree) of the d_model 200 head."""
