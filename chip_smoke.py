@@ -59,10 +59,11 @@ Phases (any failure exits non-zero before the last line):
    every kernel the path launched with its count beside MAIN_PATH_KERNELS
    (what the path launched before the streaming kernels existed) and
    fails if they differ or a streaming kernel ran. Then `[widths]`
-   (width_check): a head of d_model 1024, asked for on the card with the
-   kernels on, must be refused when it is built, naming the ops whose
-   kernels do not take it, with no kernel launched, and the stage-3
-   widths in bf16 must be taken at 224, 256 and 518 px;
+   (width_check): heads of d_model 1024 in 8 heads (a cross-attention
+   head dim of 256) and 1088 in 17 (17 bias heads), asked for on the card
+   with the kernels on, must be refused when they are built, naming the
+   ops whose kernels do not take them, with no kernel launched, and the
+   stage-3 widths in bf16 must be taken at 224, 256 and 518 px;
    the wide head kernels (head_wide.cu: enc_post_wide_kernel,
    bias_attn_wide_kernel; kpt_wide.cu: kpt_head_wide_kernel;
    dec_self_wide.cu and dec_wide.cu:
@@ -70,12 +71,17 @@ Phases (any failure exits non-zero before the last line):
    dec_post_gcn_wide_kernel, the cross layer's two launches) and the
    attention at padded head dims (25, 50) and at head dim 128, eval and
    training, each against its plain version at the 200 / 8 / 300 and 512
-   / 8 / 1024 widths (`[op]` lines: device, plain, bound and library ms;
-   tools/bench_attention.py WIDTH_SHAPES; the redesigned kernels' own
-   lines at 60 and 510 query rows: device ms, bound and share of it,
-   plain ms, launches, plan and ptxas registers); then the stage-3
-   model at 224 px, K 100, at six head widths (WIDTHS: d_model 128 to 512,
-   4 to 16 heads, head dims 16 to 128), the decoder stack off and on: one
+   / 8 / 1024 widths and, on the split route (ops/kernels.py post_plan:
+   GEMMs, layernorm_kernel, add_pos_kernel, kpt_coord_kernel), 1024 / 16
+   / 2048 at 60 and 510 query rows (`[op]` lines: device, plain, bound
+   and library ms; tools/bench_attention.py WIDTH_SHAPES; the redesigned
+   kernels' own lines at 60 and 510 query rows: device ms, bound and
+   share of it, plain ms, launches, plan and ptxas registers; the split
+   route's own kernels at 1024 channels and the eval chunk's rows); then
+   the stage-3 model at 224 px, K 100, at six head widths (WIDTHS:
+   d_model 128 to 512, 4 to 16 heads, head dims 16 to 128) and at the two
+   of SPLIT_HEADS (768 / 12, 1024 / 16; eval only), the decoder stack off
+   and on: one
    cached chunk of 4 x 15 queries each, the head's kernels counted as the
    path implies with no plain version and no thread-copy GEMM run, the
    predictions against the plain path; 2 stage-3 Trainer steps of 8 rows,
@@ -98,7 +104,11 @@ Phases (any failure exits non-zero before the last line):
    stage-3 model over full-depth ViT-B (34 x 15 queries, vit_pair_blocks
    off and on), ViT-L (8 x 15) and ViT-B at 518 px (4 x 15), each with
    vit_ln_gemm_kernel twice a block and no resident ViT kernel, against
-   the plain path, with device ms, idle share, peak memory and img/s; two
+   the plain path, with device ms, idle share, peak memory and img/s; the
+   slice of the split route: heads as wide as their trunks (1024 / 16 over
+   ViT-L, 8 x 15; 768 / 12 over ViT-B, 34 x 15; decoder stack on), each
+   chunk's kernels counted, against the plain path, profiled, and
+   run_eval(cache_supports=True) over 8 episodes with the first; two
    stage-3 Trainer steps over ViT-B of 8 rows against the training
    attention's plain version, the trunk's kernels counted;
 4. the training path: the port's Trainer (stage 3: learned skeleton,
@@ -258,13 +268,15 @@ Phases (any failure exits non-zero before the last line):
    0.1 against the plain version fed dropout_mask(seed); device ms, idle
    share and peak memory of a chunk and of a step;
 18. the stage-3 model at 133 keypoints, COCO-WholeBody's (`[kpts]`,
-   kpts_path): the model built on the card with every fused op taken, a
-   head of 1024 channels at 133 keypoints still refused by name; ptxas
+   kpts_path): the model built on the card with every fused op taken,
+   heads of 1024 channels in 8 heads and 1088 in 17 at 133 keypoints
+   still refused by name; ptxas
    registers and spills of bias_attn_long_kernel (csrc/bias_long.cu) and
    dec_post_gcn_wide_kernel; the cross layer above 128 keypoints (the
    wide pair at 256 channels too) and bias_attn_long_kernel, each against
    its plain version at K 133, 256 and 300, 60 and 510 rows, 256 / 8 /
-   384 and 512 / 8 / 1024 (`[op]` lines: device ms, plain ms, bound, SDPA
+   384, 512 / 8 / 1024 and 1024 / 16 / 2048 (the split route's eight
+   launches) (`[op]` lines: device ms, plain ms, bound, SDPA
    on a bias made beforehand for the attention, plan); the decoder layer
    and each layer of the stack at K 133 against their plain versions
    (the stack's coordinates within STACK_LAYER_MAX / STACK_LAYER_MEAN);
@@ -273,8 +285,10 @@ Phases (any failure exits non-zero before the last line):
    kernels counted (the wide pair and, with the stack, the streamed bias
    attention, 3 each; no dec_post_cross_kernel, no resident bias
    attention, no plain version), its valid keypoints against the plain
-   path, the stack's chunk profiled; run_eval(cache_supports=True) over
-   12 episodes of 133 keypoints with the default decoder stack;
+   path, the stack's chunk profiled; the same chunk with the 1024 / 16 /
+   2048 head (the split route) against the plain path;
+   run_eval(cache_supports=True) over 12 episodes of 133 keypoints with
+   the default decoder stack;
 19. prints {"kernels": [...]} on its own line, then the result line
    {"ok": true, "device": {...}} last. The kernels line holds, besides
    each kernel op's entry, the serving shapes' entries (`flash_mha (ViT
@@ -289,7 +303,9 @@ Phases (any failure exits non-zero before the last line):
    over that phase's model runs (`width_kernels`), a `[trunks]` entry's
    the count of vit_ln_gemm_kernel over that phase's model runs
    (`trunk_kernels`), a `[kpts]` entry's its kernels' count over that
-   phase's chunks and run_eval (`kpts_kernels`).
+   phase's chunks and run_eval (`kpts_kernels`), and the split route's
+   own kernels' (layernorm_kernel, kpt_coord_kernel) their count over the
+   `[trunks]` slice (`split_kernels`: the heads as wide as their trunks).
 Nothing here imports jax or the JAX package.
 """
 
@@ -356,6 +372,31 @@ STACK_CHAIN_MEDIAN, STACK_CHAIN_P95 = 1e-3, 5e-3
 # through delta heads of 0.02, where a flipped bf16 rounding of a hidden
 # value moves a coordinate by about 1e-5.
 KPT_MAX, KPT_MEAN = 2e-4, 1e-5
+
+
+def kpt_gate(got, ref, ref32):
+    """The keypoint head's coordinates `got` against its plain version,
+    one rule for every kernel line at every width (that of
+    tests/test_torch_cuda.py's keypoint-head tests): `ref` the plain
+    version with its products summed in float64, `ref32` the fp32 one.
+    Within KPT_MAX and KPT_MEAN of ref and within KPT_MEAN of ref32 on
+    the mean, finite; where ref32 is itself farther than KPT_MAX from ref
+    (its own sums' rounding, `own`, grows with the rows and the width),
+    the max may be KPT_MAX beyond own's and the mean no larger than
+    own's. Returns (ok, text)."""
+    d, own = (got - ref).abs(), (ref32 - ref).abs()
+    m, a = d.max().item(), d.mean().item()
+    om, oa = own.max().item(), own.mean().item()
+    a32 = (got - ref32).abs().mean().item()
+    ok = a <= KPT_MEAN and a32 <= KPT_MEAN and bool(
+        torch.isfinite(got).all()) and (
+            m <= KPT_MAX if om <= KPT_MAX else a <= oa and m <= om + KPT_MAX)
+    return ok, (f"coordinates against the float64-summed plain version max "
+                f"{m:.4g} mean {a:.3g} (the fp32 plain version's own max "
+                f"{om:.4g} mean {oa:.3g}), against the fp32 one mean "
+                f"{a32:.3g} (tol {KPT_MAX}, mean {KPT_MEAN}; where the own "
+                f"max is past {KPT_MAX}: own max + {KPT_MAX}, own mean) "
+                f"{'OK' if ok else 'FAIL'}")
 # Kernels and copies one call of the stack may launch: the k, v, kpos
 # GEMMs, then per layer sine_feats, two ref_point_head GEMMs, the qkv
 # GEMM, the bias attention, dec_post_self, the cross-attention,
@@ -1335,11 +1376,26 @@ def gemm_checks(dev, entries, power):
 # would be 256).
 WIDTHS = [(128, 8, 256), (200, 8, 300), (256, 4, 512), (384, 8, 768),
           (512, 16, 1024), (512, 8, 1024)]
-# the widths of the phase's kernel op lines
-WIDTH_OPS = [(200, 8, 300), (512, 8, 1024)]
+# the heads above 512 channels, the split route (ops/kernels.py
+# post_plan, kpt_head_plan): ViT-B/14's and ViT-L/14's widths, in heads of
+# 64 (cross-attention 128); a chunk each with the decoder stack off and
+# on, no training step (the training head runs flash_mha_train and plain
+# PyTorch at every width)
+SPLIT_HEADS = [(768, 12, 1536), (1024, 16, 2048)]
+# heads that stay refused, by the ops named: a cross-attention head dim of
+# 256 (2 x 1024 / 8), 17 bias heads (1088 / 17, with the Markov bias)
+REFUSED_HEADS = [(1024, 8, ("fused_decoder_layer", "fused_decoder_stack")),
+                 (1088, 17, ("fused_decoder_stack",))]
+# the widths of the phase's kernel op lines (the wide kernels' own lines:
+# those up to 512 channels), and the query rows of the split route's: the
+# [widths] chunk's and the eval chunk's
+WIDTH_OPS = [(200, 8, 300), (512, 8, 1024), (1024, 16, 2048)]
+WIDE_OPS = [w for w in WIDTH_OPS if w[0] <= 512]
 # an eval chunk of WIDTH_GROUPS x QUERIES queries; WIDTH_STEPS stage-3
 # Trainer steps of WIDTH_ROWS rows (dropout 0)
 WIDTH_GROUPS, WIDTH_ROWS, WIDTH_STEPS = 4, 8, 2
+WIDTH_OP_CASES = [(w, WIDTH_GROUPS * QUERIES) for w in WIDTH_OPS] + [
+    (w, GROUPS * QUERIES) for w in WIDTH_OPS if w[0] > 512]
 # the query rows of the redesigned wide kernels' own [op] lines:
 # the [widths] chunk's 4 x 15 and the eval chunk's 34 x 15
 WIDE_OP_ROWS = (WIDTH_GROUPS * QUERIES, GROUPS * QUERIES)
@@ -1348,6 +1404,10 @@ DEC_SOURCES = {"dec_post_self_wide_kernel":
                "edgecape_tpu_torch/csrc/dec_self_wide.cu",
                "dec_post_cross_wide_kernel": "edgecape_tpu_torch/csrc/dec_wide.cu"}
 KPT_SOURCE = "edgecape_tpu_torch/csrc/kpt_wide.cu"
+# the split route's kernels: the GEMM, layernorm_kernel, add_pos_kernel;
+# the keypoint head's kpt_coord_kernel
+SPLIT_SOURCE = "edgecape_tpu_torch/csrc/kernels.cu"
+KPT_COORD_SOURCE = "edgecape_tpu_torch/csrc/kpt_coord.cu"
 # the ops' plain versions, none of which may run on the kernel path
 PLAIN_FNS = (("fused_encoder", "fused_encoder_layer_plain"),
              ("fused_decoder", "fused_decoder_layer_plain"),
@@ -1394,7 +1454,9 @@ def width_path_kernels(c, h, stack):
     dec_wide.cu: there the
     decoder's cross
     kernel is two launches, wide_extra); bias_attn_kernel at 8 heads of
-    32."""
+    32. Above 512 channels the split route's (split_path_kernels)."""
+    if c > 512:
+        return split_path_kernels(c, h, stack)
     w = "" if c == 256 else "_wide"
     want = {"add_pos_kernel": 1, f"enc_post{w}_kernel": 3,
             f"dec_post_self{w}_kernel": 3, f"dec_post_cross{w}_kernel": 3}
@@ -1407,6 +1469,34 @@ def width_path_kernels(c, h, stack):
                      f"kpt_head{w}_kernel": 3})
     else:
         want.update({"gemm_tma_kernel": 3 + 12, "attn_kernel": 3 + 3 + 6})
+    return want
+
+
+def split_path_kernels(c, h, stack, keypoints=K):
+    """The head's kernels one cached chunk launches at width c / h above
+    512 channels (the split route, ops/kernels.py post_plan,
+    kpt_head_plan; every GEMM on its TMA mainloop), by name: the encoder's
+    add_pos three times (the position, then each later layer's src) and
+    per layer 4 GEMMs (qkv, out projection, the FFN's two), an attention
+    and 2 LayerNorms; the skeleton's 3 attentions; per decoder layer 12
+    GEMMs, 2 attentions and 3 LayerNorms, or with the decoder stack 3
+    GEMMs for all layers and per layer the sine features, 14 GEMMs
+    (ref_point_head's 2, qkv, the post-attention halves' 8, kpt_branch's
+    3), the bias attention (streamed above 128 keypoints), an attention,
+    4 LayerNorms and kpt_coord_kernel; none of the wide kernels."""
+    want = {"add_pos_kernel": 3, "enc_post_wide_kernel": 0,
+            "dec_post_self_wide_kernel": 0, "dec_post_cross_wide_kernel": 0,
+            "dec_post_gcn_wide_kernel": 0, "kpt_head_wide_kernel": 0,
+            "gemm_kernel": 0}
+    if stack:
+        ba = "bias_attn_long_kernel" if keypoints > 128 else \
+            "bias_attn_wide_kernel"
+        want.update({"gemm_tma_kernel": 12 + 3 + 14 * 3,
+                     "attn_kernel": 3 + 3 + 3, "layernorm_kernel": 6 + 12,
+                     "sine_feats_kernel": 3, ba: 3, "kpt_coord_kernel": 3})
+    else:
+        want.update({"gemm_tma_kernel": 12 + 36, "attn_kernel": 3 + 3 + 6,
+                     "layernorm_kernel": 6 + 9, "kpt_coord_kernel": 0})
     return want
 
 
@@ -1473,7 +1563,7 @@ def enc_post_plain(att, src, layer):
 
 
 def enc_post_wide_lines(dev, power, bad):
-    """[op] enc_post_wide_kernel lines at the WIDTH_OPS widths and the
+    """[op] enc_post_wide_kernel lines at the WIDE_OPS widths and the
     WIDE_OP_ROWS query rows of 356 tokens: one launch's device ms
     (profiler) beside its bound (the products of the true widths / 989
     TFLOP/s, or att, src, out and the weights once / 3.35 TB/s) and the
@@ -1486,7 +1576,7 @@ def enc_post_wide_lines(dev, power, bad):
     from edgecape_tpu_torch.ops import kernels as KN
     from edgecape_tpu_torch.tools import bench_attention as BA
     bf, hw = torch.bfloat16, 256
-    for c, h, ffn in WIDTH_OPS:
+    for c, h, ffn in WIDE_OPS:
         tag = f"{c}/{h}/{ffn}"
         _, rn = seeded_randn(SEED + 90 + c + h, dev)
         enc = [randomize(EncoderLayer(c, h, ffn), rn, dev) for _ in range(3)]
@@ -1564,7 +1654,7 @@ def ptxas_text(kernel, half):
 
 def dec_post_wide_lines(dev, entries, power, bad):
     """[op] dec_post_self_wide_kernel and [op] dec_post_cross_wide_kernel
-    lines (csrc/dec_self_wide.cu, dec_wide.cu) at the WIDTH_OPS widths and
+    lines (csrc/dec_self_wide.cu, dec_wide.cu) at the WIDE_OPS widths and
     WIDE_OP_ROWS query
     rows of K keypoints: one call's device ms (profiler; the cross layer's
     two launches, dec_post_cross_wide_kernel and dec_post_gcn_wide_kernel,
@@ -1600,7 +1690,7 @@ def dec_post_wide_lines(dev, entries, power, bad):
         x1 = FD.post_self_plain(att, xb, layer)
         return x1, FD.cross_query_plain(x1, qpos, layer)
 
-    for c, h, ffn in WIDTH_OPS:
+    for c, h, ffn in WIDE_OPS:
         tag = f"{c}/{h}/{ffn}"
         _, rn = seeded_randn(SEED + 95 + c + h, dev)
         layer = randomize(DecoderLayer(c, h, ffn), rn, dev)
@@ -1699,7 +1789,7 @@ def dec_post_wide_lines(dev, entries, power, bad):
 
 
 def kpt_wide_lines(dev, entries, power, bad):
-    """[op] kpt_head_wide_kernel lines (csrc/kpt_wide.cu) at the WIDTH_OPS
+    """[op] kpt_head_wide_kernel lines (csrc/kpt_wide.cu) at the WIDE_OPS
     widths and WIDE_OP_ROWS query rows of K keypoints, on a seeded
     one-layer decoder's final norm and kpt_branch (bf16, as the stack's
     weights): one launch's device ms (profiler) beside its bound (the two
@@ -1722,7 +1812,7 @@ def kpt_wide_lines(dev, entries, power, bad):
     from edgecape_tpu_torch.tools import bench_attention as BA
     bf, name = torch.bfloat16, "kpt_head_wide_kernel"
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for c, h, ffn in WIDTH_OPS:
+    for c, h, ffn in WIDE_OPS:
         tag = f"{c}/{h}/{ffn}"
         g, rn = seeded_randn(SEED + 97 + c + h, dev)
         dec = randomize(Decoder(c, h, ffn, 1, attn_bias=True, max_hops=4,
@@ -1758,21 +1848,17 @@ def kpt_wide_lines(dev, entries, power, bad):
                 ref32 = torch.stack(plain_fn())
                 torch.cuda.synchronize()
                 got = torch.stack([pts, outs])
-                d = (got - ref).abs()
-                err, mean = d.max().item(), d.mean().item()
-                d32 = (got - ref32).abs()
-                err32, mean32 = d32.max().item(), d32.mean().item()
-                own = (ref32 - ref).abs().max().item()
-                finite_out = bool(torch.isfinite(got).all())
-                del ref, ref32, d, d32, got
+                err = (got - ref).abs().max().item()
+                err32 = (got - ref32).abs().max().item()
+                kpt_ok, kpt_text = kpt_gate(got, ref, ref32)
+                del ref, ref32, got
                 dev_ms, _, wall = BA.device_ms(kern)
                 plain_ms = time_ms(plain_fn, reps=3)
                 ms = time_ms(kern)
             plan = KN.kpt_head_plan(r, c)
             same = card == lay and (lay["slots"], lay["smem_bytes"]) == (
                 plan["slots"], plan["smem_bytes"])
-            ok = err <= KPT_MAX and mean <= KPT_MEAN and finite_out and \
-                counted == 1 and same
+            ok = kpt_ok and counted == 1 and same
             bnd = bound(nbytes(x, ct, pts, outs, *sw["fn"], lw["kow"],
                                lw["kob"], *(b for _, b in lw["kpt"]))
                         + 3 * c * c * 2, 2 * 2 * r * (3 * c * c + 2 * c))
@@ -1783,11 +1869,8 @@ def kpt_wide_lines(dev, entries, power, bad):
                   f"{BA.ms_text(dev_ms, wall)} a launch (3 a stack: {three}), "
                   f"bound {bnd[0]:.4f} ms ({bnd[1]}){share}; kernel "
                   f"{ms:.4f} ms (CUDA events); plain {plain_ms:.3f} ms; "
-                  f"coordinates against the float64-summed plain version "
-                  f"max_abs_err {err:.4g} mean_abs_err {mean:.3g} (tol "
-                  f"{KPT_MAX}, mean {KPT_MEAN}), against the fp32 one max "
-                  f"{err32:.4g} mean {mean32:.3g} (the fp32 one's own max "
-                  f"{own:.4g}); {counted} launch "
+                  f"{kpt_text}, against the fp32 one max {err32:.4g}; "
+                  f"{counted} launch "
                   f"counted; plan: instance '{plan['instance']}' at c_pad "
                   f"{plan['c_pad']} ({plan['half']} channels a warpgroup), "
                   f"{plan['tiles']} tiles of {plan['source_rows']} source "
@@ -1853,9 +1936,11 @@ def width_op_checks(dev, entries, power):
     from edgecape_tpu_torch.tools import bench_attention as BA
     bad = []
     bf = torch.bfloat16
-    nq, hw = WIDTH_GROUPS * QUERIES, 256
-    for c, h, ffn in WIDTH_OPS:
-        tag = f"{c}/{h}/{ffn}"
+    hw = 256
+    for (c, h, ffn), nq in WIDTH_OP_CASES:
+        split = c > 512
+        tag = f"{c}/{h}/{ffn}" + (
+            "" if nq == WIDTH_GROUPS * QUERIES else f", {nq} rows")
         g, rn = seeded_randn(SEED + 70 + c + h, dev)
         enc = [randomize(EncoderLayer(c, h, ffn), rn, dev) for _ in range(3)]
         tok, pos = rn(nq, hw + K, c).to(bf), rn(hw + K, c).to(bf)
@@ -1911,6 +1996,18 @@ def width_op_checks(dev, entries, power):
         pad_self, pad_cross = padding_kernels(c, h)
         dec_kernels = (f"dec_post_self{w}_kernel", f"dec_post_cross{w}_kernel"
                        ) + (("dec_post_gcn_wide_kernel",) if w else ())
+        # kernels a call launches at most, and those it must launch: above
+        # 512 channels the split route's (8 kernels a later encoder layer,
+        # 7 the last; a decoder layer's 17 and two copies: qpos into the
+        # query product's input, the adjacency's padded rows)
+        enc_cap, enc_must = 1 + 3 * len(enc) + len(enc) * pad_self, (
+            f"enc_post{w}_kernel",)
+        dec_cap = 8 + wide_extra(c) + pad_self + pad_cross
+        if split:
+            dec_kernels = ("layernorm_kernel", "gemm_tma_kernel")
+            enc_cap, enc_must = 8 * len(enc), ("layernorm_kernel",
+                                               "add_pos_kernel")
+            dec_cap = 17 + 2
         cases = [
             (f"fused_encoder_stack ({tag})",
              "edgecape_tpu/ops/fused_encoder.py:188",
@@ -1921,8 +2018,7 @@ def width_op_checks(dev, entries, power):
              bound(2 * nbytes(tok) + nbytes(pos, valid)
                    + kernel_param_bytes(*enc),
                    enc_flops), library_stack,
-             1 + 3 * len(enc) + len(enc) * pad_self,
-             (f"enc_post{w}_kernel",)),
+             enc_cap, enc_must),
             (f"fused_decoder_layer ({tag})",
              "edgecape_tpu/ops/fused_decoder.py:262",
              "edgecape_tpu_torch/ops/fused_decoder.py",
@@ -1933,7 +2029,7 @@ def width_op_checks(dev, entries, power):
              None,
              bound(2 * nbytes(kx) + nbytes(qpos, img, ipos, kvalid, bias, adj)
                    + kernel_param_bytes(dec), dec_flops), None,
-             8 + wide_extra(c) + pad_self + pad_cross, dec_kernels),
+             dec_cap, dec_kernels),
         ]
         with torch.no_grad():
             for name, replaces, op_src, kern, plain, pairs, bnd, lib, cap, \
@@ -1944,10 +2040,11 @@ def width_op_checks(dev, entries, power):
                 check_op(entries, bad, name, replaces, op_src, out, ref, kern,
                          plain, bnd, library=lib, copy_gemms=0,
                          extra=extra + f" on {power}")
-                entries[name].update(source=WIDE_SOURCE if "encoder" in name
-                                     else DEC_SOURCES[must[1]], device_ms=dev_ms,
-                                     kernels_per_call=per_call,
-                                     width_kernels=list(must))
+                entries[name].update(
+                    source=SPLIT_SOURCE if split else WIDE_SOURCE
+                    if "encoder" in name else DEC_SOURCES[must[1]],
+                    device_ms=dev_ms, kernels_per_call=per_call,
+                    width_kernels=list(must))
             del out, ref
 
             # the decoder stack's own kernels and the stack, layer by layer
@@ -2003,16 +2100,19 @@ def width_op_checks(dev, entries, power):
             br = sdec.kpt_branches[0]     # the plain version's weights
             kpt0 = [(fc.weight, fc.bias) for fc in (br.fc0, br.fc1, br.fc2)]
 
-            def kpt_plain():
+            def kpt_plain(sums=torch.float32):
                 return torch.stack(FD.kpt_head_plain(
                     xk, ctk, sw["fn"], kpt0, lw0["kow"], lw0["kob"],
-                    eps=1e-5))
+                    eps=1e-5, sums=sums))
 
-            got, want = kpt_kernel().clone(), kpt_plain()
-            dk = (got - want).abs()
-            kpt_ok = dk.max().item() <= KPT_MAX and \
-                dk.mean().item() <= KPT_MEAN
+            got = kpt_kernel().clone()
+            want = kpt_plain(torch.float64)
+            kpt_ok, kpt_text = kpt_gate(got, want, kpt_plain())
             name = f"kpt_head ({tag})"
+            # above 512 channels: the final norm, three GEMMs,
+            # kpt_coord_kernel and the copy of x into the stacked input
+            kpt_cap, kpt_must = (6, ("kpt_coord_kernel", "layernorm_kernel")
+                                 ) if split else (2, (f"kpt_head{w}_kernel",))
             check_op(entries, bad, name,
                      "edgecape_tpu/ops/fused_decoder.py:531",
                      "edgecape_tpu_torch/ops/kernels.py", got, want,
@@ -2022,14 +2122,12 @@ def width_op_checks(dev, entries, power):
                                   *(t for pair in lw0["kpt"] for t in pair)),
                            2 * 2 * r * (3 * c * c + 2 * c)),
                      copy_gemms=0,
-                     extra=device_extra(name, kpt_kernel, 2, bad,
-                                        (f"kpt_head{w}_kernel",))[0]
-                     + f"; [R {r}, C {c}] coordinates max "
-                       f"{dk.max().item():.3g} mean {dk.mean().item():.3g} "
-                       f"(tol {KPT_MAX}, mean {KPT_MEAN}) "
-                       f"{'OK' if kpt_ok else 'FAIL'} on {power}")
-            entries[name].update(source=KPT_SOURCE,
-                                 width_kernels=[f"kpt_head{w}_kernel"])
+                     extra=device_extra(name, kpt_kernel, kpt_cap, bad,
+                                        kpt_must)[0]
+                     + f"; [R {r}, C {c}] {kpt_text} on {power}")
+            entries[name].update(
+                source=KPT_COORD_SOURCE if split else KPT_SOURCE,
+                width_kernels=list(kpt_must))
             if not kpt_ok:
                 bad.append(f"{name} coordinates")
             for i in range(layers):
@@ -2056,11 +2154,13 @@ def width_op_checks(dev, entries, power):
                 if not ok:
                     bad.append(f"fused_decoder_stack ({tag}) layer {i}")
             stack_call = lambda: FD.fused_decoder_stack(*args, sdec, **kw)  # noqa: E731
+            # above 512 channels 3 + 22 a layer and the adjacency's copy
+            stack_cap = 3 + 22 * layers + 1 if split else \
+                STACK_KERNELS + layers * (pad_cross + wide_extra(c))
+            stack_must = (f"bias_attn{ba}_kernel",) + kpt_must + dec_kernels
             text, dev_ms, per_call, _ = device_extra(
-                f"fused_decoder_stack ({tag})", stack_call,
-                STACK_KERNELS + layers * (pad_cross + wide_extra(c)), bad,
-                (f"bias_attn{ba}_kernel", f"kpt_head{w}_kernel")
-                + dec_kernels)
+                f"fused_decoder_stack ({tag})", stack_call, stack_cap, bad,
+                stack_must)
             ms = time_ms(stack_call)
             plain_ms = time_ms(lambda: FD.fused_decoder_stack_plain(
                 *args, sdec, **kw), reps=3)
@@ -2078,15 +2178,14 @@ def width_op_checks(dev, entries, power):
                   f"{text} on {power}", flush=True)
             entries[f"fused_decoder_stack ({tag})"] = {
                 "name": f"fused_decoder_stack ({tag})", "route": "cuda",
-                "source": WIDE_SOURCE,
+                "source": SPLIT_SOURCE if split else WIDE_SOURCE,
                 "op": "edgecape_tpu_torch/ops/fused_decoder.py",
                 "replaces": "edgecape_tpu/ops/fused_decoder.py:531",
                 "launches": 0, "max_abs_err": float(dd.max().item()),
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
                 "bound_by": bnd[1], "library_ms": None, "device_ms": dev_ms,
                 "kernels_per_call": per_call,
-                "width_kernels": [f"bias_attn{ba}_kernel",
-                                  f"kpt_head{w}_kernel", *dec_kernels]}
+                "width_kernels": list(stack_must)}
         del enc, dec, sdec, tok, img, args, qkv, xk
         torch.cuda.empty_cache()
 
@@ -2124,9 +2223,139 @@ def width_op_checks(dev, entries, power):
     enc_post_wide_lines(dev, power, bad)
     dec_post_wide_lines(dev, entries, power, bad)
     kpt_wide_lines(dev, entries, power, bad)
+    split_kernel_lines(dev, entries, power, bad)
     if bad:
         fail(f"kernels at the new widths disagree with their plain versions "
              f"or did not run: {bad}")
+
+
+# layernorm_kernel's cases on the split route at 1024 channels (rows,
+# input type, residual, outputs): the encoder's LN1 over the eval chunk's
+# 510 x 356 rows (fp32 in, fp32 and bf16 out), the decoder's over 510 x
+# 100 rows, the keypoint head's final norm over them (bf16 in and out)
+SPLIT_LN_CASES = (("encoder LN1", GROUPS * QUERIES * (256 + K), "float32",
+                   (True, True)),
+                  ("decoder LN2", GROUPS * QUERIES * K, "float32",
+                   (True, True)),
+                  ("final norm", GROUPS * QUERIES * K, "bfloat16",
+                   (False, True)))
+
+
+def split_kernel_lines(dev, entries, power, bad):
+    """[op] lines of the split route's own kernels at 1024 channels and
+    the eval chunk's rows, each against its plain version: layernorm_kernel
+    (SPLIT_LN_CASES: fp32 out within 1e-5 + 1e-5 |ref| of
+    plain.layer_norm, bf16 out the fp32 one rounded; torch's layer_norm
+    as the library call) and kpt_coord_kernel on the stacked [2 x 51000,
+    1024] rows (coordinates within 1e-5 of kpt_coord_plain): device ms of
+    one launch (profiler), CUDA-event ms, plain ms, bound (bytes: each
+    input read once, each output written once), library ms. Their
+    kernels-line entries (the launches: the [trunks] slice's,
+    `split_kernels`)."""
+    import edgecape_tpu_torch.ops.fused_decoder as FD
+    from edgecape_tpu_torch.ops import kernels as KN
+    from edgecape_tpu_torch.ops import plain
+    from edgecape_tpu_torch.tools import bench_attention as BA
+    c = SPLIT_HEADS[-1][0]
+    _, rn = seeded_randn(SEED + 77, dev)
+    g, be = 1.0 + rn(c, s=0.1), rn(c, s=0.1)
+    for what, r, dt, (o32, o16) in SPLIT_LN_CASES:
+        x = (rn(r, c, s=2.0) + 0.5).to(getattr(torch, dt))
+        outs = [torch.empty(r, c, device=dev) if o32 else False,
+                torch.empty(r, c, dtype=torch.bfloat16, device=dev)
+                if o16 else False]
+
+        def kern():
+            return KN.layernorm(x, g, be, 1e-5, out_f32=outs[0],
+                                out_bf16=outs[1])
+
+        def plain_fn():
+            return plain.layer_norm(x, g, be, 1e-5)
+
+        def library():
+            return F.layer_norm(x.float(), (c,), g, be, 1e-5)
+        with torch.no_grad():
+            of, ob = kern()
+            ref = plain_fn()
+            torch.cuda.synchronize()
+            got = of if of is not None else ob.float()
+            tol = 1e-5 + 1e-5 * ref.abs() if of is not None else \
+                ATOL + RTOL * ref.abs()
+            d = (got - ref).abs()
+            excess = (d - tol).max().item()
+            same = ob is None or of is None or torch.equal(
+                ob, of.to(torch.bfloat16))
+            err = d.max().item()
+            ok = excess <= 0 and same and bool(torch.isfinite(got).all())
+            del got, ref, d
+            name = f"layernorm_kernel ({what}, 1024)"
+            text, dev_ms, per_call, _ = device_extra(
+                name, kern, 1, bad, ("layernorm_kernel",))
+            ms, plain_ms = time_ms(kern), time_ms(plain_fn, reps=3)
+            lib_ms = time_ms(library)
+        bnd = bound(nbytes(x, g, be) + r * c * (4 * o32 + 2 * o16), 0)
+        print(f"[op] {name}: [{r}, {c}] {dt} in, outputs "
+              f"{'fp32 ' if o32 else ''}{'bf16' if o16 else ''}: "
+              f"max_abs_err {err:.4g} (worst excess over its tolerance "
+              f"{excess:.3g}; bf16 = rounded fp32: {same}); kernel {ms:.4f} "
+              f"ms plain {plain_ms:.3f} ms bound {bnd[0]:.4f} ms ({bnd[1]}) "
+              f"library (F.layer_norm) {lib_ms:.4f} ms{text} on {power} "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append(name)
+        entries[name] = {
+            "name": name, "route": "cuda", "source": SPLIT_SOURCE,
+            "op": "edgecape_tpu_torch/ops/kernels.py layernorm",
+            "replaces": "edgecape_tpu/ops/fused_encoder.py:188",
+            "part_of": "#3, #4, #5 above 512 channels", "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": lib_ms,
+            "device_ms": dev_ms, "kernels_per_call": per_call,
+            "shape": [r, c], "split_kernels": ["layernorm_kernel"]}
+        del x, outs
+        torch.cuda.empty_cache()
+
+    r = GROUPS * QUERIES * K
+    h = rn(2 * r, c).to(torch.bfloat16)
+    wo, bo = rn(2, c, s=0.02).to(torch.bfloat16), rn(2, s=0.02)
+    ct = torch.rand(r, 2, device=dev)
+    pts, outs = torch.empty_like(ct), torch.empty_like(ct)
+
+    def kern():
+        KN.kpt_coord(h, ct, wo, bo, pts, outs)
+        return pts, outs
+
+    def plain_fn():
+        return FD.kpt_coord_plain(h, ct, wo, bo)
+    with torch.no_grad():
+        got = [t.clone() for t in kern()]
+        want = plain_fn()
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        ok = err <= 1e-5 and all(bool(torch.isfinite(t).all()) for t in got)
+        name = f"kpt_coord_kernel ([2 x {r}, {c}])"
+        text, dev_ms, per_call, _ = device_extra(name, kern, 1, bad,
+                                                 ("kpt_coord_kernel",))
+        ms, plain_ms = time_ms(kern), time_ms(plain_fn, reps=3)
+    bnd = bound(nbytes(h, ct, wo, bo) + 2 * r * 2 * 4, 0,
+                f32_flops=2 * 2 * 2 * r * c)        # fp32 on the CUDA cores
+    print(f"[op] {name}: coordinates max_abs_err {err:.4g} (tol 1e-05); "
+          f"kernel {ms:.4f} ms plain {plain_ms:.3f} ms bound {bnd[0]:.4f} ms "
+          f"({bnd[1]}) library none{text} on {power} "
+          f"{'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        bad.append(name)
+    entries["kpt_coord_kernel"] = {
+        "name": "kpt_coord_kernel", "route": "cuda",
+        "source": KPT_COORD_SOURCE,
+        "op": "edgecape_tpu_torch/ops/kernels.py kpt_coord",
+        "replaces": "edgecape_tpu/ops/fused_decoder.py:531",
+        "part_of": "#5 above 512 channels", "launches": 0,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+        "device_ms": dev_ms, "kernels_per_call": per_call,
+        "shape": [2 * r, c], "split_kernels": ["kpt_coord_kernel"]}
+    del h
+    torch.cuda.empty_cache()
 
 
 def refused_at_build(dev, tag, what, model_kw, bb_cfg, ops):
@@ -2190,12 +2419,14 @@ def width_check(dev, entries, power):
                                                make_loss_fn)
     t_phase = time.perf_counter()
 
-    # --- what stays refused: a head of 1024 channels (the trunks that stay
-    # refused: [trunks])
-    refused_at_build(dev, "widths", "a head of d_model 1024 in 16 heads",
-                     width_model_kw(1024, 16, 2048), DinoV2Config(depth=2),
-                     ("fused_encoder_stack", "fused_decoder_layer",
-                      "fused_decoder_stack"))
+    # --- what stays refused (the trunks that stay refused: [trunks]): no
+    # head width by its channels; 1024 channels in 8 heads by the
+    # cross-attention's head dim of 256, 1088 in 17 by the Markov bias's 17
+    # heads
+    for c, h, ops in REFUSED_HEADS:
+        refused_at_build(dev, "widths", f"a head of d_model {c} in {h} heads",
+                         width_model_kw(c, h, 2 * c), DinoV2Config(depth=2),
+                         ops)
     taken = []
     for size in (SIZE, DEMO_SIZE, LONG_SIZE):
         model = main_path_config(size).model
@@ -2222,7 +2453,7 @@ def width_check(dev, entries, power):
 
     totals = {}
     summary = []
-    for c, h, ffn in WIDTHS:
+    for c, h, ffn in WIDTHS + SPLIT_HEADS:
         t_width = time.perf_counter()
         tag = f"{c}/{h}/{ffn}"
         model_kw = width_model_kw(c, h, ffn)
@@ -2292,6 +2523,9 @@ def width_check(dev, entries, power):
             if not ok:
                 fail(f"the {tag} eval disagrees with the plain path")
         torch.cuda.empty_cache()
+        if (c, h, ffn) in SPLIT_HEADS:          # eval only (SPLIT_HEADS)
+            summary.append(f"{tag} {time.perf_counter() - t_width:.1f} s")
+            continue
 
         with tempfile.TemporaryDirectory() as tmp:
             base = train_config(tmp)
@@ -2399,8 +2633,15 @@ def width_check(dev, entries, power):
 KPTS_K = 133
 KPTS_KEYS = (133, 256, 300)
 KPTS_ROWS = (60, 510)
-KPTS_OPS = [(256, 8, 384), (512, 8, 1024)]
+KPTS_OPS = [(256, 8, 384), (512, 8, 1024), (1024, 16, 2048)]
 KPTS_GROUPS = 8
+
+
+def kpts_keys(c):
+    """The keypoint counts of the op lines at width c: KPTS_KEYS, the
+    split route's (above 512 channels) at KPTS_K alone (the phase's time:
+    cut key counts, not widths)."""
+    return (KPTS_K,) if c > 512 else KPTS_KEYS
 BIAS_LONG_SOURCE = "edgecape_tpu_torch/csrc/bias_long.cu"
 
 
@@ -2436,8 +2677,9 @@ def kpt_episodes(rng, groups, kpts, size=SIZE):
 
 def kpts_cross_lines(dev, entries, power, bad):
     """[op] lines of the cross layer above 128 keypoints: dec_post_cross's
-    two launches (dec_post_cross_wide_kernel, dec_post_gcn_wide_kernel) at
-    KPTS_OPS widths, KPTS_KEYS keypoints and KPTS_ROWS query rows: device
+    two launches (dec_post_cross_wide_kernel, dec_post_gcn_wide_kernel; at
+    1024 channels the split route's eight, 6 GEMMs and 2 LayerNorms) at
+    KPTS_OPS widths, their kpts_keys and KPTS_ROWS query rows: device
     ms (profiler) of the call and of each kernel, its bound (the products
     of the true widths / 989 TFLOP/s, or the inputs, the output and the
     weights once / 3.35 TB/s) and the share of it, CUDA-event ms, the
@@ -2446,18 +2688,22 @@ def kpts_cross_lines(dev, entries, power, bad):
     and shared memory as the built launch takes them (which must equal the
     plan's); the output against the plain formulas (ATOL + RTOL |ref|,
     MEAN_TOL), a failure appended to `bad`. The 510-row calls at 256
-    channels become kernels-line entries."""
+    channels, and at 1024 that at K 133, become kernels-line entries."""
     import edgecape_tpu_torch.ops.fused_decoder as FD
     from edgecape_tpu_torch.models.transformer import DecoderLayer
     from edgecape_tpu_torch.ops import kernels as KN
     from edgecape_tpu_torch.tools import bench_attention as BA
     bf = torch.bfloat16
-    names = ("dec_post_cross_wide_kernel", "dec_post_gcn_wide_kernel")
     for c, h, ffn in KPTS_OPS:
+        # above 512 channels the split route: 6 GEMMs and 2 LayerNorms
+        split = c > KN.WIDE_MAX_C
+        names = ("gemm_tma_kernel", "layernorm_kernel") if split else (
+            "dec_post_cross_wide_kernel", "dec_post_gcn_wide_kernel")
+        want_n = dict(zip(names, (6, 2) if split else (1, 1)))
         tag = f"{c}/{h}/{ffn}"
         _, rn = seeded_randn(SEED + 135 + c + h, dev)
         layer = randomize(DecoderLayer(c, h, ffn), rn, dev)
-        for k in KPTS_KEYS:
+        for k in kpts_keys(c):
             w = FD.cross_weights(layer, FD._prepare(layer), k)
             for nq in KPTS_ROWS:
                 r = nq * k
@@ -2499,12 +2745,24 @@ def kpts_cross_lines(dev, entries, power, bad):
                     by_name = BA.kernel_ms(kern)
                     plain_ms = time_ms(plain_fn, reps=3)
                     ms = time_ms(kern)
-                card = KN.dec_wide_card_rings(c, k)
-                same = all(card[n] == (plan["kernels"][n]["slots"],
-                                       plan["kernels"][n]["smem_bytes"])
-                           for n in names)
+                if split:
+                    same = True
+                    plan_text = "split route"
+                else:
+                    card = KN.dec_wide_card_rings(c, k)
+                    same = all(card[n] == (plan["kernels"][n]["slots"],
+                                           plan["kernels"][n]["smem_bytes"])
+                               for n in names)
+                    plan_text = (
+                        f"{plan['tiles']} tiles + {plan['gcn_tiles']} gcn "
+                        f"tiles of {KN.ENC_WIDE_TILE} rows, adjacency window "
+                        f"{plan['adj_boxes']} boxes, gcn ring "
+                        f"{card['dec_post_gcn_wide_kernel'][0]} slots a "
+                        f"warpgroup, {card['dec_post_gcn_wide_kernel'][1]} B "
+                        f"shared memory"
+                        f"{'' if same else ' (the plan disagrees)'}")
                 ok = (excess <= 0 and mean <= MEAN_TOL and finite_out
-                      and counted == dict.fromkeys(names, 1) and same)
+                      and counted == want_n and same)
                 each = ", ".join(
                     f"{n} {sum(v for m, v in by_name.items() if n in m):.4f}"
                     for n in names) if by_name else "not measured"
@@ -2512,26 +2770,25 @@ def kpts_cross_lines(dev, entries, power, bad):
                     f", {100 * bnd[0] / dev_ms:.1f}% of it"
                 print(f"[op] dec_post_cross above 128 keypoints ({tag}, {nq} "
                       f"x {k} = {r} rows): {BA.ms_text(dev_ms, wall)} a "
-                      f"call in 2 launches ({each}), bound {bnd[0]:.4f} ms "
+                      f"call in {sum(want_n.values())} launches ({each}), "
+                      f"bound {bnd[0]:.4f} ms "
                       f"({bnd[1]}){share}; kernel {ms:.4f} ms (CUDA events); "
                       f"plain {plain_ms:.3f} ms; max_abs_err {err:.4g} "
                       f"mean_abs_err {mean:.3g} (tol {ATOL} + {RTOL:.4g}"
                       f"*|ref|, mean {MEAN_TOL}; worst excess {excess:.3g});"
-                      f" launches counted {counted}; plan: {plan['tiles']} "
-                      f"tiles + {plan['gcn_tiles']} gcn tiles of "
-                      f"{KN.ENC_WIDE_TILE} rows, adjacency window "
-                      f"{plan['adj_boxes']} boxes, gcn ring "
-                      f"{card['dec_post_gcn_wide_kernel'][0]} slots a "
-                      f"warpgroup, {card['dec_post_gcn_wide_kernel'][1]} B "
-                      f"shared memory{'' if same else ' (the plan disagrees)'}"
+                      f" launches counted {counted}; plan: {plan_text}"
                       f" on {power} {'OK' if ok else 'FAIL'}", flush=True)
                 if not ok:
                     bad.append(f"dec_post_cross ({tag}, K {k}, {nq} rows)")
-                if c == 256 and nq == KPTS_ROWS[1]:
-                    name = f"dec_post_gcn_wide_kernel ({tag}, K {k})"
+                if c in (256, 1024) and nq == KPTS_ROWS[1] and (
+                        c == 256 or k == KPTS_K):
+                    name = (f"dec_post_cross split route ({tag}, K {k})"
+                            if split else
+                            f"dec_post_gcn_wide_kernel ({tag}, K {k})")
                     entries[name] = {
                         "name": name, "route": "cuda",
-                        "source": DEC_SOURCES["dec_post_cross_wide_kernel"],
+                        "source": SPLIT_SOURCE if split else
+                        DEC_SOURCES["dec_post_cross_wide_kernel"],
                         "op": "edgecape_tpu_torch/ops/kernels.py",
                         "replaces": "edgecape_tpu/ops/fused_decoder.py:262",
                         "launches": 0, "max_abs_err": err, "ms": ms,
@@ -2546,17 +2803,18 @@ def kpts_cross_lines(dev, entries, power, bad):
 
 
 def kpts_bias_lines(dev, entries, power, bad):
-    """bias_attn_long_kernel against bias_attention_plain at KPTS_KEYS
+    """bias_attn_long_kernel against bias_attention_plain at kpts_keys
     keypoints, KPTS_ROWS batch rows and KPTS_OPS's heads (8 of 32, 8 of
-    64): tools/bench_attention.py run_case's `[op] attention` line (device
-    ms from the profiler, wrapper ms, plain ms, the bound with its floors:
+    64, 16 of 64): tools/bench_attention.py run_case's `[op] attention`
+    line (device ms from the profiler, wrapper ms, plain ms, the bound with
+    its floors:
     bytes, tensor cores, exponentials, and SDPA's device time on the bias
     made beforehand), then the kernel's summary line (bias_wide_line). The
     510-row call at K 133 and 8 heads of 32 becomes the kernel's
     kernels-line entry."""
     from edgecape_tpu_torch.tools import bench_attention as BA
     for c, h, _ in KPTS_OPS:
-        for k in KPTS_KEYS:
+        for k in kpts_keys(c):
             for nq in KPTS_ROWS:
                 spec = (f"decoder self above 128 keypoints, K {k}, {h} heads "
                         f"of {c // h}, {nq} rows, bias from hops", nq, k, k,
@@ -2677,11 +2935,93 @@ def kpts_op_checks(dev, entries, power, bad):
     torch.cuda.empty_cache()
 
 
+def counted_chunk(est, support, query):
+    """One cached chunk after a warm-up, the launch counters zeroed just
+    before it and read just after: (predictions, the kernels launched,
+    plain versions run, wall seconds)."""
+    est.forward_cached(support, query)                  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    with PlainCalls() as plain_calls:
+        t0 = time.perf_counter()
+        pred = est.forward_cached(support, query)[0].cpu().numpy()
+        wall = time.perf_counter() - t0
+    return pred, read_counts()[1], plain_calls.n, wall
+
+
+def path_gate(tag, pred, ref):
+    """The main path's gates on a chunk's predictions against the plain
+    path's on the same weights (median, share within a cell, finite):
+    prints `tag`'s line, fails when one is missed."""
+    med, mx, within = coord_gap(pred, ref)
+    ok = (med <= PATH_MEDIAN_TOL and within >= PATH_WITHIN_SHARE
+          and np.isfinite(pred).all())
+    print(f"{tag}, vs the plain path: median |d| {med:.4g} (tol "
+          f"{PATH_MEDIAN_TOL}), max {mx:.4g}, share within {PATH_CELL:.4g}: "
+          f"{within:.4f} (tol >= {PATH_WITHIN_SHARE}) "
+          f"{'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{tag}: the chunk disagrees with the plain path")
+
+
+def split_kpts_chunks(dev, power, support, query, valid, totals):
+    """The stage-3 model with the 1024 / 16 head (SPLIT_HEADS' last: the
+    split route) at KPTS_K keypoints on [kpts]' episodes: one cached chunk
+    with the decoder stack off and on after a warm-up, its kernels counted
+    against split_path_kernels (the bias attention streamed), no plain
+    version, the valid keypoints' coordinates against the plain path on
+    the same weights (the main path's gates); the launches added to
+    `totals`."""
+    from edgecape_tpu_torch import config as C
+    from edgecape_tpu_torch.api import PoseEstimator
+    from edgecape_tpu_torch.models.convert import (init_params,
+                                                   redraw_zero_inits)
+    from edgecape_tpu_torch.ops import kernel_config
+    c, h, ffn = SPLIT_HEADS[-1]
+    k, tag = KPTS_K, f"{c}/{h}/{ffn}"
+    cfg = main_path_config()
+    cfg.model = C.replace(cfg.model, max_kpt=k, **width_model_kw(c, h, ffn))
+    gen = torch.Generator().manual_seed(SEED + 136)
+    bb, head = init_params(gen, cfg.model)
+    redraw_zero_inits(bb, head, gen)
+    est = PoseEstimator(cfg, bb, head, device=dev)
+    preds = {}
+    for stack in (False, True):
+        kernel_config.set_decoder_stack(stack)
+        preds[stack], kern, n_plain, wall = counted_chunk(est, support, query)
+        for n, v in kern.items():
+            totals[n] = totals.get(n, 0) + v
+        want = split_path_kernels(c, h, stack, keypoints=k)
+        got = {n: kern.get(n, 0) for n in want}
+        ok = (got == want and n_plain == 0
+              and preds[stack].shape == (len(query["group"]), k, 2))
+        print(f"[kpts] the {tag} head (the split route), one chunk of "
+              f"{KPTS_GROUPS} x {QUERIES} queries at {k} keypoints, decoder "
+              f"stack {'on' if stack else 'off'}: {wall:.3f} s on {power}; "
+              f"kernels {got} expected {want}; plain versions run {n_plain} "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"the {tag} head's {k}-keypoint chunk did not run on the "
+                 f"split route's kernels")
+    kernel_config.set_decoder_stack(False)
+    del est
+    pcfg = C.replace(cfg, model=C.replace(cfg.model, use_flash=False))
+    ref = PoseEstimator(pcfg, bb, head, device=dev).forward_cached(
+        support, query)[0].cpu().numpy()
+    rows = valid[query["group"]]
+    for stack in (False, True):
+        path_gate(f"[kpts] the {tag} head at {k} keypoints, decoder stack "
+                  f"{'on' if stack else 'off'}, on its valid keypoints",
+                  preds[stack][rows], ref[rows])
+    torch.cuda.empty_cache()
+
+
 def kpts_path(dev, entries, power):
     """[kpts]: the stage-3 model with max_kpt KPTS_K (COCO-WholeBody) on
     the kernels. A model of 133 keypoints is built on the card with its
-    fused ops on (no refusal), a head of 1024 channels at 133 keypoints is
-    still refused by name; ptxas registers and spills of
+    fused ops on (no refusal), heads of 1024 channels in 8 heads and of
+    1088 in 17 at 133 keypoints are still refused by name
+    (REFUSED_HEADS); ptxas registers and spills of
     bias_attn_long_kernel and dec_post_gcn_wide_kernel; the op lines
     (kpts_cross_lines, kpts_bias_lines, kpts_op_checks); then one cached
     chunk of KPTS_GROUPS x QUERIES queries (group 0's category of 133
@@ -2691,7 +3031,8 @@ def kpts_path(dev, entries, power):
     dec_post_cross_kernel nor a resident bias attention, no plain version,
     no thread-copy GEMM), the valid keypoints' coordinates against the
     plain path on the same weights, the stack's chunk profiled (device
-    time by kernel, idle share); and run_eval(cache_supports=True) over 4
+    time by kernel, idle share); the same chunk with the 1024 / 16 head
+    (split_kpts_chunks); and run_eval(cache_supports=True) over 4
     groups x 3 queries of 133 keypoints through the default decoder stack,
     its metrics finite, its keypoints whole, its kernels counted. Each
     [kpts] entry of the kernels line gets its kernels' launches over the
@@ -2719,12 +3060,11 @@ def kpts_path(dev, entries, power):
     print(f"[kpts] the stage-3 model with max_kpt {k}, use_flash on the card:"
           f" every fused op taken (width_misfits "
           f"{dinov2.width_misfits(cfg.model)}) OK", flush=True)
-    refused_at_build(dev, "kpts", f"a head of d_model 1024 in 16 heads at {k}"
-                     f" keypoints", dict(width_model_kw(1024, 16, 2048),
-                                         max_kpt=k),
-                     DinoV2Config(depth=2),
-                     ("fused_encoder_stack", "fused_decoder_layer",
-                      "fused_decoder_stack"))
+    for c, h, ops in REFUSED_HEADS:
+        refused_at_build(dev, "kpts", f"a head of d_model {c} in {h} heads "
+                         f"at {k} keypoints",
+                         dict(width_model_kw(c, h, 2 * c), max_kpt=k),
+                         DinoV2Config(depth=2), ops)
     for kern in ("bias_attn_long_kernel", "dec_post_gcn_wide_kernel"):
         for name, regs, st, ld in KN.ptxas_usage(kern):
             print(f"[kpts] ptxas {name}: {regs} registers, spill stores "
@@ -2801,6 +3141,7 @@ def kpts_path(dev, entries, power):
               f"{PATH_WITHIN_SHARE}) {'OK' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"the {k}-keypoint chunk disagrees with the plain path")
+    split_kpts_chunks(dev, power, support, query, valid, totals)
 
     # the normal entry point, with the default route's decoder stack
     kernel_config.set_decoder_stack(True)
@@ -2852,6 +3193,13 @@ TRUNK_EVALS = (("ViT-B/14", SIZE, GROUPS, (False, True)),
                ("ViT-L/14", SIZE, 8, (False,)),
                ("ViT-B/14", 518, 4, (False,)))
 TRUNK_ROWS, TRUNK_STEPS = 8, 2
+# the slice of the split route: heads as wide as their trunks (trunk, groups
+# of QUERIES queries of its cached chunk, the head), with the decoder stack
+# on (the CLIs' and the bench's default), and run_eval over
+# TRUNK_SPLIT_EPISODES episodes (groups x queries) with the first
+TRUNK_SPLIT = (("ViT-L/14", 8, (1024, 16, 2048)),
+               ("ViT-B/14", GROUPS, (768, 12, 1536)))
+TRUNK_SPLIT_EPISODES = (4, 2)
 
 
 def trunk_check(dev, entries, power):
@@ -3171,6 +3519,7 @@ def trunk_check(dev, entries, power):
                  "wide route")
         del tr
     torch.cuda.empty_cache()
+    trunk_launches += trunk_split_heads(dev, entries, power)
     for entry in entries.values():
         if "trunk_kernels" in entry:
             entry["launches"] = trunk_launches
@@ -3178,6 +3527,137 @@ def trunk_check(dev, entries, power):
           f"vit_ln_gemm_kernel launched {trunk_launches} times in the "
           f"phase's model runs; the phase took "
           f"{time.perf_counter() - t_phase:.1f} s on {power}", flush=True)
+
+
+def trunk_split_heads(dev, entries, power) -> int:
+    """The slice: the stage-3 model with a head as wide as its trunk
+    (TRUNK_SPLIT: 1024 / 16 over ViT-L/14, 768 / 12 over ViT-B/14, the
+    split route), bf16, 224 px, K 100, the decoder stack on. For each: one
+    cached chunk after a warm-up, the counters zeroed just before it and
+    read just after (the head's kernels as split_path_kernels gives them,
+    the trunk's vit_ln_gemm_kernel twice a block and its attention and two
+    GEMMs a block, no plain version), its predictions against the plain
+    path on the same weights (the main path's gates), then the chunk
+    profiled (device ms, kernels and copies, idle share) with its peak
+    memory; then run_eval(cache_supports=True) over TRUNK_SPLIT_EPISODES
+    episodes with the first, counted the same way, its metrics finite. The
+    kernels-line entries with `split_kernels` get their launches over
+    these runs; any of layernorm_kernel, kpt_coord_kernel and
+    gemm_tma_kernel not launched in them fails. Returns the trunks'
+    vit_ln_gemm_kernel launches."""
+    from edgecape_tpu_torch import config as C
+    from edgecape_tpu_torch.api import PoseEstimator
+    from edgecape_tpu_torch.eval.runner import run_eval
+    from edgecape_tpu_torch.models.convert import (init_params,
+                                                   redraw_zero_inits)
+    from edgecape_tpu_torch.models.dinov2 import DinoV2Config
+    from edgecape_tpu_torch.ops import kernel_config
+    totals = {}
+
+    def count(kern):
+        for n, v in kern.items():
+            totals[n] = totals.get(n, 0) + v
+    kernel_config.set_decoder_stack(True)
+    kernel_config.set_vit_pair_blocks(False)
+    first = None
+    for trunk, groups, (c, h, ffn) in TRUNK_SPLIT:
+        vc, vh, depth = TRUNK_WIDTHS[trunk]
+        bbc = DinoV2Config(embed_dim=vc, num_heads=vh, depth=depth)
+        cfg = main_path_config()
+        cfg.model = C.replace(cfg.model, backbone_dim=vc,
+                              **width_model_kw(c, h, ffn))
+        gen = torch.Generator().manual_seed(SEED + 95 + c)
+        bb, head = init_params(gen, cfg.model, bbc)
+        redraw_zero_inits(bb, head, gen)
+        support, query, _ = episodes(np.random.default_rng(SEED + 96),
+                                     groups=groups, chunks=1)[0]
+        tag = f"the {c}/{h}/{ffn} head over {trunk}, {groups} x {QUERIES} " \
+              f"queries, decoder stack on"
+        est = PoseEstimator(cfg, bb, head, device=dev, backbone_cfg=bbc)
+        pred, kern, n_plain, wall = counted_chunk(est, support, query)
+        count(kern)
+        want = split_path_kernels(c, h, True)
+        want["gemm_tma_kernel"] += 2 * 2 * depth      # proj, fc2 a block
+        want["attn_kernel"] += 2 * depth
+        want.update({"vit_ln_gemm_kernel": 2 * 2 * depth,
+                     **dict.fromkeys(VIT_KERNELS, 0)})
+        got = {n: kern.get(n, 0) for n in want}
+        ok = got == want and n_plain == 0
+        print(f"[trunks] {tag}: one chunk {wall:.3f} s "
+              f"({groups * QUERIES / wall:.1f} img/s) on {power}; kernels "
+              f"{got} expected {want}, plain versions run {n_plain}; "
+              f"launches {kern} {'OK' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{tag}: the chunk did not run on the split route's "
+                 f"kernels as its path implies")
+        torch.cuda.reset_peak_memory_stats()
+        busy_ms, idle = profile(
+            lambda: est.forward_cached(support, query), f"[trunks] one "
+            f"chunk, {tag}", power, rows=10,
+            share_of=("gemm_tma_kernel", "layernorm_kernel",
+                      "kpt_coord_kernel", "vit_ln_gemm_kernel"))
+        print(f"[trunks] {tag}: device "
+              f"{'not measured' if busy_ms is None else f'{busy_ms:.3f} ms'}"
+              f" a chunk, idle share "
+              f"{'not measured' if idle is None else f'{idle:.4f}'}, peak "
+              f"device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB on "
+              f"{power} (information)", flush=True)
+        if first is None:
+            first = est
+        else:
+            del est
+        kernel_config.set_decoder_stack(False)
+        pcfg = C.replace(cfg, model=C.replace(cfg.model, use_flash=False))
+        ref = PoseEstimator(pcfg, bb, head, device=dev,
+                            backbone_cfg=bbc).forward_cached(
+                                support, query)[0].cpu().numpy()
+        kernel_config.set_decoder_stack(True)
+        path_gate(f"[trunks] {tag}", pred, ref)
+        del bb, head
+        torch.cuda.empty_cache()
+
+    # the normal entry point over the first
+    groups, queries = TRUNK_SPLIT_EPISODES
+    ds = EvalEpisodes(np.random.default_rng(SEED + 97), groups=groups,
+                      queries=queries)
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = run_eval(ds, first, batch_size=EVAL_BATCH, res_folder=tmp,
+                       progress=False, cache_supports=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(tmp + "/result_keypoints.json") as f:
+            kp = np.array([r["keypoints"] for r in json.load(f)])
+    kernel_config.set_decoder_stack(False)
+    _, kern = read_counts()
+    count(kern)
+    del first
+    torch.cuda.empty_cache()
+    split = ("layernorm_kernel", "kpt_coord_kernel", "gemm_tma_kernel")
+    got = {n: kern.get(n, 0) for n in split}
+    ok = (all(got.values()) and kp.shape[:2] == (len(ds), K)
+          and np.isfinite(kp).all()
+          and all(np.isfinite(res[m]) for m in ("PCK", "NME", "AUC", "EPE")))
+    print(f"[trunks] run_eval(cache_supports=True) over {len(ds)} episodes, "
+          f"{TRUNK_SPLIT[0][2]} head over {TRUNK_SPLIT[0][0]}, decoder stack "
+          f"on: PCK {res['PCK']:.4f} NME {res['NME']:.4f} AUC "
+          f"{res['AUC']:.4f} EPE {res['EPE']:.4f} (random weights), "
+          f"keypoints {kp.shape}, {wall:.3f} s on {power}; launches {got} "
+          f"(each above 0) {'OK' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("run_eval over the split head did not run on its kernels")
+    missing = [n for n in split if not totals.get(n)]
+    if missing:
+        fail(f"the slice's runs launched no {missing}")
+    for entry in entries.values():
+        if "split_kernels" in entry:
+            entry["launches"] = sum(totals.get(n, 0)
+                                    for n in entry["split_kernels"])
+    print(f"[trunks] the split route's slice launched "
+          f"{ {n: totals.get(n, 0) for n in split} }", flush=True)
+    return totals.get("vit_ln_gemm_kernel", 0)
 
 
 # ------------------------------------------------------------ phase 4
@@ -3745,14 +4225,13 @@ def variant_op_checks(dev, entries, power):
                         lw0["kob"], pts_k, outs_k, eps=1e-5)
             return torch.stack([pts_k, outs_k])
 
-        def kpt_plain():
+        def kpt_plain(sums=torch.float32):
             return torch.stack(FD.kpt_head_plain(
                 xk, ctk, sw["fn"], lw0["kpt"], lw0["kow"], lw0["kob"],
-                eps=1e-5))
+                eps=1e-5, sums=sums))
 
-        got, want = kpt_kernel().clone(), kpt_plain()
-        dk = (got - want).abs()
-        kpt_ok = dk.max().item() <= KPT_MAX and dk.mean().item() <= KPT_MEAN
+        got, want = kpt_kernel().clone(), kpt_plain(torch.float64)
+        kpt_ok, kpt_text = kpt_gate(got, want, kpt_plain())
         check_op(entries, bad, "kpt_head",
                  "edgecape_tpu/ops/fused_decoder.py:531",
                  "edgecape_tpu_torch/ops/kernels.py", got, want, kpt_kernel,
@@ -3762,13 +4241,10 @@ def variant_op_checks(dev, entries, power):
                                             for t in pair)),
                        2 * 2 * r * (3 * c * c + 2 * c)),
                  copy_gemms=0,
-                 extra=f"; [R {r}, C {c}] pts and outs; coordinates max "
-                       f"{dk.max().item():.3g} mean {dk.mean().item():.3g} "
-                       f"(tol {KPT_MAX}, mean {KPT_MEAN}) "
-                       f"{'OK' if kpt_ok else 'FAIL'}")
+                 extra=f"; [R {r}, C {c}] pts and outs; {kpt_text}")
         if not kpt_ok:
             bad.append("kpt_head coordinates")
-        del qkv, xk, ctk, pts_k, outs_k, got, want, dk
+        del qkv, xk, ctk, pts_k, outs_k, got, want
         worst = 0.0
         for i in range(layers):
             sub = Decoder(c, heads, ffn, 1, attn_bias=True, max_hops=nhop - 1,

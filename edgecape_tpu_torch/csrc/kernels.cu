@@ -15,9 +15,9 @@
 //                   registers, and, for operands a tensor map cannot
 //                   describe, tiles copied by the threads (cp.async) and
 //                   multiplied by WMMA;
-//   * ec_layernorm  row LayerNorm with fp32 statistics and an optional
-//                   residual input, fp32 and/or bf16 outputs, its sums in
-//                   the order vit_mlp_kernel's epilogue shares;
+//   * ec_layernorm  row LayerNorm of any width with fp32 statistics and an
+//                   optional residual input, fp32 and/or bf16 outputs, its
+//                   sums in the order vit_mlp_kernel's epilogue shares;
 //   * ec_vit_mlp    the ViT MLP half as one kernel: y = x + ls * (bf16(
 //                   gelu(bf16(LN(x)) . W1 + b1)) . W2 + b2), the hidden on
 //                   chip, optionally the next block's bf16 LN(bf16(y));
@@ -556,8 +556,16 @@ __device__ __forceinline__ void gemm_epilogue_edge(float (&acc)[64], const GemmA
 // numbered with N fastest, then M, then the batch. The k-tile count `it`
 // runs on across a block's tiles, so the stages and their barriers' phases
 // carry over and the producer loads the next tile under the epilogue.
-template <bool B_NK>
-__global__ void __launch_bounds__(TG_THREADS, 2)
+//
+// SLABS (ec_gemm's mainloop 2, the split route's long products above 512
+// channels): wgmma rounds each 16-deep step of its sum toward zero, so one
+// accumulator over a K of 1024-2048 drifts by tens of ulps and flips more
+// bf16 roundings of the output than fp32 sums do (csrc/kpt_wide.cu found
+// the same at 512). There each 64-deep k tile goes into a fresh
+// accumulator, added into an fp32 sum on the CUDA cores once its products
+// are done; the 64 more registers a thread leave one block an SM.
+template <bool B_NK, bool SLABS>
+__global__ void __launch_bounds__(TG_THREADS, SLABS ? 1 : 2)
     gemm_tma_kernel(const __grid_constant__ CUtensorMap map_a,
                     const __grid_constant__ CUtensorMap map_b, GemmArgs p, int batch) {
   extern __shared__ unsigned char tg_raw[];
@@ -626,6 +634,9 @@ __global__ void __launch_bounds__(TG_THREADS, 2)
     float acc[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    float sum[SLABS ? 64 : 1];     // SLABS: the k tiles' fp32 sum
+#pragma unroll
+    for (int i = 0; i < (SLABS ? 64 : 1); ++i) sum[i] = 0.0f;
     for (int kt = 0; kt < nk; ++kt, ++it) {
       const unsigned s = it % TG_STAGES;
       mbar_wait(&full[s], (it / TG_STAGES) & 1);
@@ -635,15 +646,24 @@ __global__ void __launch_bounds__(TG_THREADS, 2)
 #pragma unroll
       for (int kk = 0; kk < TG_BK / 16; ++kk) {
         const uint64_t da = wg_desc(a_base + kk * 32, 16);
+        const int keep = SLABS ? (kk > 0) : 1;     // SLABS: a fresh sum a tile
         if constexpr (B_NK) {
-          wgmma_m64n128k16<0>(acc, da, wg_desc(b_base + kk * 32, 16), 1);
+          wgmma_m64n128k16<0>(acc, da, wg_desc(b_base + kk * 32, 16), keep);
         } else {
-          wgmma_m64n128k16<1>(acc, da, wg_desc(b_base + kk * 2048, TG_B_BYTES / 2), 1);
+          wgmma_m64n128k16<1>(acc, da, wg_desc(b_base + kk * 2048, TG_B_BYTES / 2), keep);
         }
       }
       wg_commit();
       wg_wait<0>();              // the stage is read: hand it back to the producer
       if (lane == 0) mbar_arrive(&empty[s]);
+      if constexpr (SLABS) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
+      }
+    }
+    if constexpr (SLABS) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = sum[i];
     }
 #pragma unroll
     for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(acc[i])::"memory");
@@ -667,7 +687,7 @@ static bool tma_operand_ok(const void* ptr, long ld, long sz, int batch) {
          (batch == 1 || (sz >= 0 && sz % 8 == 0));
 }
 
-template <bool B_NK>
+template <bool B_NK, bool SLABS>
 static int launch_gemm_tma(const GemmArgs& p, int batch, cudaStream_t s) {
   static bool configured = false;
   if (p.N < TG_MIN_N || !tma_operand_ok(p.A, p.lda, p.sA, batch) ||
@@ -680,22 +700,22 @@ static int launch_gemm_tma(const GemmArgs& p, int batch, cudaStream_t s) {
              : encode_map(&map_b, p.B, p.N, p.K, p.ldb, p.sB, batch, TG_BK)))
     return (int)cudaErrorInvalidValue;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(gemm_tma_kernel<B_NK>,
+    cudaError_t e = cudaFuncSetAttribute(gemm_tma_kernel<B_NK, SLABS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, TG_SMEM);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   static int slots = 0;       // blocks the card holds at once, two an SM
-  if (!slots) {
+  if (!slots) {                // (one with SLABS)
     int dev = 0, sms = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
       return (int)cudaGetLastError();
-    slots = 2 * sms;
+    slots = (SLABS ? 1 : 2) * sms;
   }
   const long total = (long)((p.N + TG_BN - 1) / TG_BN) * ((p.M + TG_BM - 1) / TG_BM) * batch;
   const unsigned grid = (unsigned)(total < slots ? total : slots);
-  gemm_tma_kernel<B_NK><<<grid, TG_THREADS, TG_SMEM, s>>>(map_a, map_b, p, batch);
+  gemm_tma_kernel<B_NK, SLABS><<<grid, TG_THREADS, TG_SMEM, s>>>(map_a, map_b, p, batch);
   return (int)cudaGetLastError();
 }
 
@@ -713,8 +733,9 @@ static int launch_gemm_copy(const GemmArgs& p, int batch, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// mainloop: 0 the thread-copy loader with WMMA, 1 TMA with wgmma (refused
-// with cudaErrorInvalidValue for operands a tensor map cannot describe).
+// mainloop: 0 the thread-copy loader with WMMA, 1 TMA with wgmma, 2 the same
+// summing each 64-deep k tile apart (SLABS; 1 and 2 refused with
+// cudaErrorInvalidValue for operands a tensor map cannot describe).
 extern "C" int ec_gemm(const void* A, long lda, long sA,
                        const void* B, long ldb, long sB, int b_nk,
                        void* C, long ldc, long sC, int c_dt,
@@ -725,7 +746,7 @@ extern "C" int ec_gemm(const void* A, long lda, long sA,
                        const void* res, int res_dt, long ldres, long sRes,
                        const void* ls, int mainloop, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || batch <= 0 || (M + GBM - 1) / GBM > 65535 ||
-      batch > 65535 || mainloop < 0 || mainloop > 1)
+      batch > 65535 || mainloop < 0 || mainloop > 2)
     return (int)cudaErrorInvalidValue;
   GemmArgs p;
   p.A = static_cast<const bf16*>(A); p.lda = lda; p.sA = sA;
@@ -739,13 +760,23 @@ extern "C" int ec_gemm(const void* A, long lda, long sA,
   p.ls = static_cast<const float*>(ls);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mainloop == 1)
-    return b_nk ? launch_gemm_tma<true>(p, batch, s) : launch_gemm_tma<false>(p, batch, s);
+    return b_nk ? launch_gemm_tma<true, false>(p, batch, s)
+                : launch_gemm_tma<false, false>(p, batch, s);
+  if (mainloop == 2)
+    return b_nk ? launch_gemm_tma<true, true>(p, batch, s)
+                : launch_gemm_tma<false, true>(p, batch, s);
   return b_nk ? launch_gemm_copy<true>(p, batch, s) : launch_gemm_copy<false>(p, batch, s);
 }
 
 // ------------------------------------------------------------- LayerNorm
-// One warp per row of C <= 512 values: y = LN(x + r) * gamma + beta with
-// fp32 mean and (two-pass) variance; writes fp32 and/or bf16 rows.
+// One warp per row of any C: y = LN(x + r) * gamma + beta with fp32 mean
+// and (two-pass) variance; writes fp32 and/or bf16 rows (each with its
+// own row stride). It replaces no TPU kernel by itself: it is the
+// residual + LayerNorm step of the post-attention work of
+// edgecape_tpu/ops/fused_encoder.py _run and fused_decoder.py
+// fused_decoder_layer / _stack_chunk above 512 channels (the split route,
+// ops/kernels.py post_plan), between the GEMMs that take the products.
+// Bound: bytes (a row read once, written once or twice).
 //
 // One summation order, shared with vit_mlp_kernel's epilogue (a quad of
 // threads a row there) so that the two give the same bits: lane l = 4 v +
@@ -755,8 +786,21 @@ extern "C" int ec_gemm(const void* A, long lda, long sA,
 // (the _rn intrinsics), so that the compiler contracts nothing
 // differently in the two kernels (the steps: hopper.cuh ln_mean, ln_inv,
 // ln_sq, ln_apply; vit_wide.cu sums in the same order).
+//
+// Up to 32 * LN_MAXV = 512 channels a lane keeps its values in registers;
+// above, the same three passes (sum, squares, apply) loop over the 64-
+// column groups and read the row again in each (from L1 / L2), forming
+// each value as the first pass did, so the order and the bits are the
+// register form's at any C.
 
 #define LN_MAXV 16
+
+__device__ __forceinline__ float ln_in(const void* x, int x_dt, long xo, const void* r,
+                                       int r_dt, long ro) {
+  float t = ld_val(x, x_dt, xo);
+  if (r) t = __fadd_rn(t, ld_val(r, r_dt, ro));
+  return t;
+}
 
 __global__ void layernorm_kernel(const void* x, int x_dt, long ldx,
                                  const void* r, int r_dt, long ldr,
@@ -766,6 +810,31 @@ __global__ void layernorm_kernel(const void* x, int x_dt, long ldx,
   const long row = ((long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
+  if (C > 32 * LN_MAXV) {
+    const int n = 2 * ((C + 63) / 64);
+    float s = 0.0f;
+    for (int i = 0; i < n; ++i) {
+      const int c = 64 * (i >> 1) + 2 * lane + (i & 1);
+      if (c < C) s = __fadd_rn(s, ln_in(x, x_dt, row * ldx + c, r, r_dt, row * ldr + c));
+    }
+    const float mean = ln_mean(warp_sum(s), C);
+    float q = 0.0f;
+    for (int i = 0; i < n; ++i) {
+      const int c = 64 * (i >> 1) + 2 * lane + (i & 1);
+      if (c < C) q = ln_sq(q, ln_in(x, x_dt, row * ldx + c, r, r_dt, row * ldr + c), mean);
+    }
+    const float inv = ln_inv(warp_sum(q), C, eps);
+    for (int i = 0; i < n; ++i) {
+      const int c = 64 * (i >> 1) + 2 * lane + (i & 1);
+      if (c < C) {
+        const float y = ln_apply(ln_in(x, x_dt, row * ldx + c, r, r_dt, row * ldr + c), mean,
+                                 inv, gamma[c], beta[c]);
+        if (of) of[row * ldof + c] = y;
+        if (ob) ob[row * ldob + c] = __float2bfloat16(y);
+      }
+    }
+    return;
+  }
   float v[LN_MAXV];
   float s = 0.0f;
 #pragma unroll
@@ -773,8 +842,7 @@ __global__ void layernorm_kernel(const void* x, int x_dt, long ldx,
     const int c = 64 * (i >> 1) + 2 * lane + (i & 1);
     v[i] = 0.0f;
     if (c < C) {
-      float t = ld_val(x, x_dt, row * ldx + c);
-      if (r) t = __fadd_rn(t, ld_val(r, r_dt, row * ldr + c));
+      const float t = ln_in(x, x_dt, row * ldx + c, r, r_dt, row * ldr + c);
       v[i] = t;
       s = __fadd_rn(s, t);
     }
@@ -803,7 +871,7 @@ extern "C" int ec_layernorm(const void* x, int x_dt, long ldx,
                             const void* gamma, const void* beta, float eps,
                             void* of, long ldof, void* ob, long ldob,
                             int rows, int C, void* stream) {
-  if (C <= 0 || C > 32 * LN_MAXV || rows <= 0) return (int)cudaErrorInvalidValue;
+  if (C <= 0 || rows <= 0) return (int)cudaErrorInvalidValue;
   const int threads = 256;
   const long blocks = ((long)rows * 32 + threads - 1) / threads;
   layernorm_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -82,10 +82,32 @@ every width, the bias attention is bias_attn_long_kernel
 (csrc/bias_long.cu: the keys streamed in tiles, the tile's bias formed
 once for all heads, the two-pass softmax with the finished scores kept in
 a scratch buffer) and the cross layer the wide pair, so a layer is 9
-launches and a stack call 3 + 10 L there too. The stack's own weights (the permuted fc1, the stacked
-cross-attention weights, kpt_branch, the bias MLPs) are prepared once per
-decoder module and the layers' once per layer module, each kept until a
-parameter changes.
+launches and a stack call 3 + 10 L there too.
+
+Above 512 channels (the heads of ViT-B/14's 768 and ViT-L/14's 1024
+widths), where a 64-row tile's fp32 rows fill an SM's registers and one
+bf16 copy of it half its shared memory, the post-attention work and the
+keypoint head take the split route (ops/kernels.py post_plan,
+kpt_head_plan): each step of the plain version a launch of the port's own
+kernels, the activations between them in device memory. The self half
+is the out projection (a GEMM adding bias and xb), LN1 (layernorm_kernel,
+fp32 and bf16(x1) into the first half of qin = [bf16(x1) | qpos]) and the
+query as one product over qin; the cross half the out projection, the
+choker adding x1, LN2, the GCN conv, the adjacency contraction as two
+batched GEMMs per batch row (adj0 . y0 in fp32, then adj1 . y1 plus it
+with the ReLU, the bf16 adjacency's rows at a 16-byte stride:
+kernels.gcn_adjacency), ffn2 adding x2, LN3; the keypoint head the final
+norm into the second half of kin = [x; LN(x)], the three kpt_branch
+layers as GEMMs with the GELU epilogue over both halves at once, and
+kpt_coord_kernel (csrc/kpt_coord.cu: the N = 2 delta head on the CUDA
+cores and the sigmoid update). A layer is 17 launches and a stack call
+3 + 22 L; the stack writes qpos and each layer's output into qin and kin
+in place and lays the adjacency out once.
+
+The stack's own weights (the permuted fc1, the stacked cross-attention
+weights, kpt_branch, the bias MLPs) are prepared once per decoder module
+and the layers' once per layer module, each kept until a parameter
+changes.
 
 The wrappers run the kernels for a CUDA tensor and the plain PyTorch
 version for a CPU tensor; `launches` counts kernel runs of the layer op
@@ -172,9 +194,11 @@ def fused_decoder_layer_plain(x, query_pos, img_tokens, img_pos, kp_valid,
 def _prepare(layer) -> dict:
     """The layer's weights as the kernels take them, in the layout of
     ops/kernels.py post_plan: the GCN width padded to its chunks and, at a
-    width other than 256, the post-attention kernels' weights padded to
-    c_pad channels and 2C to c2_pad (zero rows and columns, pad_gcn /
-    pad_cols); the GEMMs' weights as they are."""
+    width other than 256 up to 512, the post-attention kernels' weights
+    padded to c_pad channels and 2C to c2_pad (zero rows and columns,
+    pad_gcn / pad_cols); the GEMMs' weights as they are (on the split
+    route above 512 channels all of them, with the cross-attention's
+    whole query weight `wcq`)."""
     from . import kernels as K
     sa, ca = layer.self_attn, layer.cross_attn
     w16 = lambda w: w.detach().to(torch.bfloat16).contiguous()  # noqa: E731
@@ -188,7 +212,9 @@ def _prepare(layer) -> dict:
                            layer.ffn2.weight, plan.get("f_pad", f), cp)
     pad = K.pad_cols
     wq, wk = ca.q_proj.weight, ca.k_proj.weight
-    return {
+    # the split route's query product takes [bf16(x1) | qpos] whole
+    split = {"wcq": w16(wq)} if plan.get("split") else {}
+    return {**split,
         "wqkv": w16(torch.cat([sa.q_proj.weight, sa.k_proj.weight,
                                sa.v_proj.weight])),
         "bqkv": v32(torch.cat([sa.q_proj.bias, sa.k_proj.bias,
@@ -410,6 +436,17 @@ def kpt_head_plain(x, ct, fn, kpt, kow, kob, *, eps: float,
     return torch.sigmoid(inv + dd[:r]), torch.sigmoid(inv + dd[r:])
 
 
+@torch.no_grad()
+def kpt_coord_plain(h, ct, kow, kob):
+    """Plain version of ops/kernels.py kpt_coord: h [2R, C] the stacked
+    rows (bf16 values: the raw pass, then the normed one); ct [R, 2];
+    kow, kob the delta head. Returns (pts, outs) fp32 [R, 2]."""
+    r = h.shape[0] // 2
+    dd = plain.linear(h, kow, kob)
+    inv = inverse_sigmoid(ct.to(torch.float32))
+    return torch.sigmoid(inv + dd[:r]), torch.sigmoid(inv + dd[r:])
+
+
 def _stack_weights(decoder, num_feats: int, has_bias: bool) -> dict:
     """What the stack adds to its layers' weights, in the form its
     launches take, built once per decoder module and kept until a
@@ -485,13 +522,23 @@ def _fused_decoder_stack_cuda(x, initial_coords, img_tokens, img_pos,
 
     outs = torch.empty((n_layers, b, k, 2), dtype=f32, device=x.device)
     pts = torch.empty((n_layers, b, k, 2), dtype=f32, device=x.device)
+    # the split route (above 512 channels): the adjacency laid out once for
+    # all layers; qpos written into the second half of the query product's
+    # input qin = [bf16(x1) | qpos], each layer's output into the first
+    # half of the keypoint head's kin = [x; LN(x)]
+    qin = kin = None
+    if K.post_plan(1, c, K.ENC_CHUNK).get("split"):
+        adj = K.gcn_adjacency(adj)
+        qin = torch.empty((r, c2), dtype=bf, device=x.device)
+        kin = torch.empty((2 * r, c), dtype=bf, device=x.device)
     for li, (layer, sw) in enumerate(zip(decoder.layers, w["layers"])):
         lw = K.module_weights(layer, "_kernel_weights", _prepare)
         # query positions from the current points
         feats = K.sine_feats(ct, w["rdt"])
         h = K.gemm(feats, w["fc1p"], b_nk=True, bias=w["rb1"],
                    act=K.ACT_GELU)
-        qpos = K.gemm(h, w["fc2"], b_nk=True, bias=w["rb2"])
+        qpos = K.gemm(h, w["fc2"], b_nk=True, bias=w["rb2"],
+                      out=None if qin is None else qin[:, c:])
 
         # (1) self-attention, the Markov bias formed once for all heads;
         # out_proj, LN1 and the cross-attention's query in one kernel
@@ -504,7 +551,8 @@ def _fused_decoder_stack_cuda(x, initial_coords, img_tokens, img_pos,
             att = K.attention(qkv[..., :c], qkv[..., c:2 * c],
                               qkv[..., 2 * c:], num_heads=num_heads,
                               scale=d ** -0.5, key_valid=kp_valid)
-        x1, q2 = K.dec_post_self(att.view(r, c), xb, qpos, lw, eps=eps)
+        x1, q2 = K.dec_post_self(att.view(r, c), xb, qpos, lw, eps=eps,
+                                 qin=qin)
 
         # (2) cross-attention on this layer's keys and values; out_proj,
         # choker, LN2, GCN, ffn2, LN3 in one kernel
@@ -512,11 +560,13 @@ def _fused_decoder_stack_cuda(x, initial_coords, img_tokens, img_pos,
         att2 = K.attention(q2.view(b, k, c2), k_all[..., sl], v_all[..., sl],
                            num_heads=num_heads, scale=d2 ** -0.5)
         xb = K.dec_post_cross(att2, x1, adj, cross_weights(layer, lw, k),
-                              eps=eps, out_dtype=bf)
+                              eps=eps, out_dtype=bf,
+                              out=None if kin is None else kin[:r])
 
         # (3) final norm, both kpt_branch passes, the coordinate update
         K.kpt_head(xb, ct, w["fn"], sw["kpt"], sw["kow"], sw["kob"],
-                   pts[li].view(r, 2), outs[li].view(r, 2), eps=eps)
+                   pts[li].view(r, 2), outs[li].view(r, 2), eps=eps,
+                   kin=kin)
         ct = pts[li].view(r, 2)
     return outs, pts
 

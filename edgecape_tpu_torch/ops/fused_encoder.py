@@ -12,13 +12,20 @@ On the H100 a layer is three launches: the q, k, v GEMM against the
 concatenated weight, attention with all keys and values of a head in
 shared memory (the [N, N] scores never leave the SM), and
 enc_post_kernel (ops/kernels.py enc_post; enc_post_wide_kernel at a
-width other than 256 channels), which runs everything after
+width other than 256 channels up to 512), which runs everything after
 the attention on tiles of 128 token rows kept on chip: out projection,
 residual and LN1, the ReLU FFN with its hidden in shared memory one
 chunk of 128 at a time, LN2 (see csrc/kernels.cu for its design). The
 stack adds the position once; each layer's kernel writes the next
 layer's src = bf16(bf16(y) + pos) beside (or, before the last layer,
-instead of) its output, so the stack is 1 + 3 L launches. The bf16 and
+instead of) its output, so the stack is 1 + 3 L launches. Above 512
+channels, where a tile's rows no longer fit on chip, the post-attention
+half takes the split route (ops/kernels.py post_plan): the out
+projection, the FFN's two products as GEMMs whose epilogues add the bias,
+the ReLU and the residual, each LayerNorm a layernorm_kernel launch and
+the next src an add_pos_kernel one, the activations between them in
+device memory, so a layer is 7 launches (8 before the last layer) and the
+stack 1 + 8 L - 1. The bf16 and
 concatenated weights are made once per layer module and kept until a
 parameter changes.
 
@@ -139,6 +146,13 @@ def fused_encoder_stack(tokens, pos, key_valid, layers, *, num_heads: int,
             x = fused_encoder_layer(x, pos, key_valid, layer,
                                     num_heads=num_heads, eps=eps)
         return x
+    out = _stack_cuda(tokens, pos, key_valid, layers, num_heads=num_heads,
+                      eps=eps)
+    stack_launches += 1
+    return out
+
+
+def _stack_cuda(tokens, pos, key_valid, layers, *, num_heads, eps):
     from . import kernels as K
     b, n, c = tokens.shape
     src = K.add_pos(tokens, pos).view(b * n, c)
@@ -149,5 +163,4 @@ def fused_encoder_stack(tokens, pos, key_valid, layers, *, num_heads: int,
                                num_heads=num_heads, eps=eps,
                                out_dtype=tokens.dtype if last else None,
                                pos=None if last else posb)
-    stack_launches += 1
     return out.view(b, n, c)

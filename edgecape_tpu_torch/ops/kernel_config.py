@@ -34,9 +34,12 @@ raises, naming each op and the width, so that no forward pass raises
 half way. Which ops a model launches follows its configuration: the
 trunk runs fused_vit_block at bf16 compute and flash_mha at fp32
 (models/dinov2.py fused_ops). Any image size is taken (the key count
-follows it; long rows go to the streaming attention kernels): what is
-refused is a channel or head width. use_flash=False builds the plain
-modules, which take any width. On the CPU an op takes
+follows it; long rows go to the streaming attention kernels), and any
+head width up to 512 channels, above it (the split route) channels and
+a hidden in multiples of 8: what is refused is a trunk's channels, a
+head dim above 128, more than 16 heads with the Markov bias or a split
+width of no multiple of 8, each named with the plan's reason. use_flash=False builds
+the plain modules, which take any width. On the CPU an op takes
 its plain version, so nothing is checked there. There is no
 interpret switch (a CUDA kernel has nothing to interpret: on a CPU
 tensor an op takes its plain version), and no `encoder_stack` switch:

@@ -70,7 +70,7 @@ launches = dict.fromkeys((
     "train_bwd_k_long_kernel<128>", "enc_post_wide_kernel",
     "dec_post_self_wide_kernel", "dec_post_cross_wide_kernel",
     "dec_post_gcn_wide_kernel", "kpt_head_wide_kernel", "bias_attn_wide_kernel",
-    "bias_attn_long_kernel", "vit_ln_gemm_kernel"),
+    "bias_attn_long_kernel", "vit_ln_gemm_kernel", "kpt_coord_kernel"),
     0)
 
 _P = ctypes.c_void_p
@@ -160,6 +160,8 @@ _SIGNATURES = {
     "ec_dec_wide_layout": [_I, _I, _P],
     # kpt_wide.cu: C, the five numbers out
     "ec_kpt_wide_layout": [_I, _P],
+    # kpt_coord.cu: h, wo, bo, ct, pts, outs, R, C, ieps
+    "ec_kpt_coord": [_P] * 6 + [_L, _I, _F, _P],
 }
 
 
@@ -330,8 +332,11 @@ def _f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 # The GEMM's two mainloops (csrc/kernels.cu): tiles copied by the threads
 # and multiplied by WMMA, which takes any operand, and TMA-fed wgmma, which
-# needs operands a tensor map can describe.
-GEMM_COPY, GEMM_TMA = 0, 1
+# needs operands a tensor map can describe; GEMM_TMA_SLABS is the latter
+# summing each 64-deep k tile in a fresh accumulator (one block an SM),
+# for the split route's products above WIDE_MAX_C channels (gemm's
+# `slabs`; split_refusal).
+GEMM_COPY, GEMM_TMA, GEMM_TMA_SLABS = 0, 1, 2
 GEMM_TMA_MIN_N = 32
 
 
@@ -357,7 +362,8 @@ def gemm_mainloop(n: int, batch: int, a, b) -> int:
 
 def gemm(a: torch.Tensor, b: torch.Tensor, *, b_nk: bool,
          out_dtype=torch.bfloat16, bias=None, pre=None, act: int = ACT_NONE,
-         res=None, ls=None, out=None, mainloop=None) -> torch.Tensor:
+         res=None, ls=None, out=None, mainloop=None,
+         slabs: bool = False) -> torch.Tensor:
     """out = epilogue(a @ (b^T if b_nk else b)).
 
     a: [M, K] or batched [Z, M, K] bf16 with unit last stride. b: [N, K]
@@ -368,7 +374,10 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, b_nk: bool,
     `out`: a tensor of the result's shape to write into (its dtype is the
     output dtype), for callers that keep their activation buffers.
     `mainloop`: GEMM_TMA or GEMM_COPY instead of gemm_mainloop's choice
-    (for measurements; GEMM_TMA raises for operands it cannot take)."""
+    (for measurements; GEMM_TMA raises for operands it cannot take).
+    `slabs`: sum each 64-deep k tile apart on the TMA mainloop
+    (GEMM_TMA_SLABS: fp32-accurate over long K); raises where that
+    mainloop cannot take the operands."""
     _cuda(a, b, bias, pre, res, ls, out)
     if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
         raise TypeError("gemm operands must be bfloat16")
@@ -409,34 +418,49 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, b_nk: bool,
     bias, ls = _f32(bias), _f32(ls)
     if mainloop is None:
         mainloop = gemm_mainloop(n, z, (pa, lda, sa), (pb, ldb, sb))
+    if slabs:
+        if mainloop != GEMM_TMA:
+            raise ValueError(
+                f"gemm slabs run on the TMA mainloop, which does not take "
+                f"these operands ([{m}, {k}] x [{k}, {n}], row strides "
+                f"{lda} / {ldb}, batch strides {sa} / {sb})")
+        mainloop = GEMM_TMA_SLABS
     _call("ec_gemm", pa, lda, sa, pb, ldb, sb, int(b_nk), pc, ldc, sc,
           _dt(out), m, n, k, z, _ptr(bias), pp,
           _dt(pre) if pre is not None else 0, ldp, sp, act, pr,
           _dt(res) if res is not None else 0, ldr, sr, _ptr(ls),
           int(mainloop), _stream())
-    launches["gemm_tma_kernel" if mainloop == GEMM_TMA
-             else "gemm_kernel"] += 1
+    launches["gemm_kernel" if mainloop == GEMM_COPY
+             else "gemm_tma_kernel"] += 1
     return out
 
 
 def _ln_out(want, x, dtype):
     """An output of layernorm: None, a new tensor, or the caller's own
-    (contiguous, x's shape, `dtype`)."""
+    (x's shape, `dtype`, on the card; a 2-D one may have any row stride,
+    its rows of unit stride: a column block of a wider buffer; x itself
+    where the types agree, written in place)."""
     if want is False or want is None:
         return None
     if want is True:
         return torch.empty(x.shape, dtype=dtype, device=x.device)
+    _cuda(want)
     if want.dtype != dtype or want.shape != x.shape \
-            or not want.is_contiguous() or not want.is_cuda:
+            or not (want.is_contiguous()
+                    or (want.dim() == 2 and want.stride(-1) == 1)):
         raise ValueError("layernorm output buffer does not fit")
     return want
 
 
+def _ld(t) -> int:
+    return t.stride(-2) if t.dim() >= 2 else t.shape[-1]
+
+
 def layernorm(x: torch.Tensor, gamma, beta, eps: float, *, r=None,
               out_f32=True, out_bf16=False):
-    """LN(x + r) over the last dim with fp32 statistics; returns
-    (fp32 or None, bf16 or None). out_f32 / out_bf16: False, True (a new
-    tensor) or a tensor to write into."""
+    """LN(x + r) over the last dim (any width) with fp32 statistics;
+    returns (fp32 or None, bf16 or None). out_f32 / out_bf16: False, True
+    (a new tensor) or a tensor to write into (_ln_out)."""
     _cuda(x, r, gamma, beta)
     x = x.contiguous()
     c = x.shape[-1]
@@ -450,8 +474,9 @@ def layernorm(x: torch.Tensor, gamma, beta, eps: float, *, r=None,
     gamma, beta = _f32(gamma), _f32(beta)
     _call("ec_layernorm", x.data_ptr(), _dt(x), c, _ptr(r),
           _dt(r) if r is not None else 0, c, gamma.data_ptr(),
-          beta.data_ptr(), float(eps), _ptr(of), c, _ptr(ob), c, rows, c,
-          _stream())
+          beta.data_ptr(), float(eps), _ptr(of),
+          _ld(of) if of is not None else c, _ptr(ob),
+          _ld(ob) if ob is not None else c, rows, c, _stream())
     launches["layernorm_kernel"] += 1
     return of, ob
 
@@ -1116,7 +1141,12 @@ def module_weights(module, attr: str, build, *extra):
 # columns, the decoder's GCN width in chunks of DEC_CHUNK.
 POST_C, POST_TILE, ENC_CHUNK, DEC_CHUNK = 256, 128, 128, 64
 # Their companions at every other width, up to WIDE_MAX_C channels, in
-# shared memory of at most ATT_SMEM_LIMIT a block.
+# shared memory of at most ATT_SMEM_LIMIT a block. Above it, where a
+# 64-row tile's channels no longer fit a block's registers and shared
+# memory, the split route: each step of the post-attention work and of the
+# keypoint head a launch of the port's own kernels (the GEMM with its
+# epilogue, layernorm_kernel, add_pos_kernel, kpt_coord_kernel), the
+# activations between them in device memory (post_plan, kpt_head_plan).
 WIDE_MAX_C = 512
 # enc_post_wide_kernel (csrc/head_wide.cu) and the decoder's
 # dec_post_self_wide_kernel, dec_post_cross_wide_kernel and
@@ -1202,6 +1232,20 @@ def dec_wide_card_rings(c: int, keypoints: int = POST_TILE) -> dict:
     return {n: (out[2 * i], out[2 * i + 1]) for i, n in enumerate(names)}
 
 
+def split_refusal(c: int, f: Optional[int] = None) -> Optional[str]:
+    """Why the split route above WIDE_MAX_C channels does not take c
+    channels with a hidden of f (None: it does). Its every product runs on
+    gemm's slab mainloop, which reads its operands through tensor maps:
+    each row stride and column offset (c, 2 c, f, 2 f) a multiple of 8
+    elements, each output (f the narrowest) GEMM_TMA_MIN_N wide or more."""
+    if c % 8:
+        return f"the split route takes channels in multiples of 8, got {c}"
+    if f is not None and (f % 8 or f < GEMM_TMA_MIN_N):
+        return (f"the split route takes hidden widths in multiples of 8 "
+                f"from {GEMM_TMA_MIN_N}, got {f}")
+    return None
+
+
 def post_plan(rows: int, c: int, f: int, *, chunk: int = ENC_CHUNK,
               keypoints: Optional[int] = None) -> dict:
     """How a post-attention kernel covers `rows` token rows of c channels
@@ -1214,7 +1258,7 @@ def post_plan(rows: int, c: int, f: int, *, chunk: int = ENC_CHUNK,
     rows and zero adjacency columns.
 
     Any other c up to WIDE_MAX_C, and with more than POST_TILE keypoints
-    every c (256 too), takes the wide kernels, and the plan
+    every c up to it (256 too), takes the wide kernels, and the plan
     holds `wide`: True and their common layout: `tiles` of ENC_WIDE_TILE
     rows over the rows flattened (`pad_rows` missing in the last), the
     warpgroups' `half` channels each (enc_wide_half), the weights'
@@ -1230,12 +1274,17 @@ def post_plan(rows: int, c: int, f: int, *, chunk: int = ENC_CHUNK,
     `gcn_pad_rows` missing in a batch row's last; its adjacency window of
     `adj_boxes` boxes, dec_adj_window). The padding columns are zero in
     the weights (pad_cols, pad_ffn, pad_gcn), so the products are
-    unchanged. Raises for what the kernels do not take: c outside
-    1..WIDE_MAX_C, no hidden, no rows, no keypoints or no whole batch
-    rows of them."""
-    if not 1 <= c <= WIDE_MAX_C:
-        raise ValueError(f"the post-attention kernels take 1..{WIDE_MAX_C} "
-                         f"channels, got {c}")
+    unchanged.
+
+    Above WIDE_MAX_C channels, at any keypoint count, the split route
+    (`split`: True): each op a chain of gemm's slab products and
+    layernorm launches, the weights not padded; it takes c and f as
+    split_refusal says. Raises for what the kernels do not take: no
+    channels, no hidden, no rows, no keypoints or no whole batch rows of
+    them, a split width split_refusal names."""
+    if c < 1:
+        raise ValueError(f"the post-attention kernels take 1 channel or "
+                         f"more, got {c}")
     if f <= 0:
         raise ValueError(f"no hidden width ({f})")
     if rows <= 0:
@@ -1243,6 +1292,11 @@ def post_plan(rows: int, c: int, f: int, *, chunk: int = ENC_CHUNK,
     if keypoints is not None and (keypoints < 1 or rows % keypoints):
         raise ValueError(f"{rows} rows are no batch of rows of keypoints "
                          f"(K={keypoints})")
+    if c > WIDE_MAX_C:
+        why = split_refusal(c, f)
+        if why:
+            raise ValueError(why)
+        return {"split": True}
     if c != POST_C or (keypoints or 0) > POST_TILE:
         half, f_pad = enc_wide_half(c), _up(f, ENC_WIDE_CHUNK)
         tiles = -(-rows // ENC_WIDE_TILE)
@@ -1343,12 +1397,16 @@ def enc_post(att: torch.Tensor, src: torch.Tensor, w: dict, *, eps: float,
     None when out_dtype is None; with pos [N, C] bf16, the next layer's
     src = bf16(bf16(y) + pos[row % N]) bf16 [R, C], else None).
     enc_post_kernel at POST_C channels, enc_post_wide_kernel at the
-    others."""
+    others up to WIDE_MAX_C, the split route above (post_plan: five
+    launches, six with pos)."""
     r, c = att.shape
     f = w["w1"].shape[0]
     plan = post_plan(r, c, f)
     if out_dtype is None and pos is None:
         raise ValueError("enc_post writes y, the next src or both")
+    if plan.get("split"):
+        return _enc_post_split(att, src, w, eps=eps, out_dtype=out_dtype,
+                               pos=pos)
     if plan.get("wide"):
         return _enc_post_wide(att, src, w, plan, eps=eps,
                               out_dtype=out_dtype, pos=pos)
@@ -1391,17 +1449,54 @@ def _enc_post_wide(att, src, w, plan, *, eps, out_dtype, pos):
     return out, nxt
 
 
+def _enc_post_split(att, src, w, *, eps, out_dtype, pos):
+    """enc_post above WIDE_MAX_C channels as its plain version's steps:
+    x = LN1(att . wo^T + bo + src), h = bf16(relu(bf16(x) . w1^T + b1)),
+    y = LN2(h . w2^T + b2 + x), the fp32 sums LayerNorm-ed in place."""
+    r, c = att.shape
+    f32 = torch.float32
+    mm = functools.partial(gemm, b_nk=True, slabs=True)
+    x = mm(att, w["wo"], bias=w["bo"], pre=src, out_dtype=f32)
+    _, xb = layernorm(x, w["g1"], w["be1"], eps, out_f32=x, out_bf16=True)
+    h = mm(xb, w["w1"], bias=w["b1"], act=ACT_RELU)
+    y = mm(h, w["w2"], bias=w["b2"], pre=x, out_dtype=f32)
+    del x, xb, h
+    bf = out_dtype == torch.bfloat16 or pos is not None
+    y, yb = layernorm(y, w["g2"], w["be2"], eps,
+                      out_f32=y if out_dtype == f32 else False, out_bf16=bf)
+    out = y if out_dtype == f32 else yb if out_dtype is not None else None
+    nxt = None
+    if pos is not None:
+        n_tok = pos.shape[0]
+        nxt = add_pos(yb.view(r // n_tok, n_tok, c), pos).view(r, c)
+    return out, nxt
+
+
 def dec_post_self(att: torch.Tensor, xb: torch.Tensor, qpos: torch.Tensor,
-                  w: dict, *, eps: float):
+                  w: dict, *, eps: float, qin=None):
     """The decoder layer after its self-attention, one launch:
     x1 = LN1(xb + att . wso^T + bso) and the cross-attention's query
     q2 = bf16(bf16(x1) . wcq_x^T + qpos . wcq_p^T + bcq). att, xb, qpos:
     contiguous bf16 [R, C]; w: the layer's weights (ops/fused_decoder.py
     _prepare, in post_plan's layout). Returns (x1 fp32 [R, C], q2 bf16
     [R, 2C]). dec_post_self_kernel at POST_C channels,
-    dec_post_self_wide_kernel (csrc/dec_self_wide.cu) at the others."""
+    dec_post_self_wide_kernel (csrc/dec_self_wide.cu) at the others up to
+    WIDE_MAX_C, the split route above (post_plan: three launches; qin: a
+    bf16 [R, 2C] buffer whose columns C.. hold qpos, which qpos may be a
+    view of; made here and qpos copied in when None)."""
     r, c = att.shape
     plan = post_plan(r, c, ENC_CHUNK)
+    if plan.get("split"):
+        if qin is None:
+            qin = torch.empty((r, 2 * c), dtype=torch.bfloat16,
+                              device=att.device)
+        if qin[:, c:].data_ptr() != qpos.data_ptr():
+            qin[:, c:].copy_(qpos)
+        x1 = gemm(att, w["wso"], b_nk=True, slabs=True, bias=w["bso"],
+                  pre=xb, out_dtype=torch.float32)
+        layernorm(x1, w["g1"], w["be1"], eps, out_f32=x1,
+                  out_bf16=qin[:, :c])
+        return x1, gemm(qin, w["wcq"], b_nk=True, slabs=True, bias=w["bcq"])
     cp, c2p = plan.get("c_pad", c), plan.get("c2_pad", 2 * c)
     ptrs = [_operand(att, (r, c)), _operand(xb, (r, c)),
             _operand(qpos, (r, c)), _operand(w["wso"], (cp, cp))] + \
@@ -1421,8 +1516,58 @@ def dec_post_self(att: torch.Tensor, xb: torch.Tensor, qpos: torch.Tensor,
     return x1, q2
 
 
+def gcn_adjacency(adj: torch.Tensor) -> torch.Tensor:
+    """The adjacency [B, 2, K, K] as the split route's GCN products take
+    it: bf16, its rows at a stride of K rounded up to 8 (a tensor map
+    needs 16-byte row strides; the columns past K are never read), returned as the [B, 2, K, K] view of that buffer; adj
+    itself where it already is one."""
+    b, _, k, _ = adj.shape
+    k8 = _up(k, 8)
+    if adj.dtype == torch.bfloat16 and adj.stride() == (
+            2 * k * k8, k * k8, k8, 1) and adj.data_ptr() % 16 == 0:
+        return adj
+    buf = torch.empty((b, 2, k, k8), dtype=torch.bfloat16, device=adj.device)
+    view = buf[..., :k]
+    view.copy_(adj)
+    return view
+
+
+def _dec_post_cross_split(att2, x1, adj, w, *, eps, out_dtype, out):
+    """dec_post_cross above WIDE_MAX_C channels as its plain version's
+    steps (eight launches): o2 = bf16(att2 . wco^T + bco), x2
+    = LN2(o2 . wch^T + bch + x1), y = bf16(bf16(x2) . wg^T + bg), per
+    batch row m = adj0 . y0 (fp32) then bf16(relu(adj1 . y1 + m)), out =
+    LN3(relu(m) . wf^T + bf + x2)."""
+    b, k, c2 = att2.shape
+    c, r, f = c2 // 2, b * k, w["wf"].shape[1]
+    f32 = torch.float32
+    a = gcn_adjacency(adj)
+    mm = functools.partial(gemm, b_nk=True, slabs=True)
+    o2 = mm(att2.view(r, c2), w["wco"], bias=w["bco"])
+    x2 = mm(o2, w["wch"], bias=w["bch"], pre=x1, out_dtype=f32)
+    del o2
+    _, x2b = layernorm(x2, w["g2"], w["be2"], eps, out_f32=x2, out_bf16=True)
+    y = mm(x2b, w["wg"], bias=w["bg"]).view(b, k, 2 * f)
+    del x2b
+    m = mm(a[:, 0], y[..., :f], b_nk=False, out_dtype=f32)
+    m = mm(a[:, 1], y[..., f:], b_nk=False, pre=m, act=ACT_RELU)
+    del y
+    o3 = mm(m.view(r, f), w["wf"], bias=w["bf"], pre=x2, out_dtype=f32)
+    if out is None:
+        out = torch.empty((r, c), dtype=out_dtype, device=att2.device)
+    elif out.dtype != out_dtype or tuple(out.shape) != (r, c):
+        raise ValueError(f"dec_post_cross out {out.dtype} "
+                         f"{tuple(out.shape)} is not {out_dtype} {(r, c)}")
+    if out_dtype == f32:
+        layernorm(o3, w["g3"], w["be3"], eps, out_f32=out)
+    else:
+        layernorm(o3, w["g3"], w["be3"], eps, out_f32=False, out_bf16=out)
+    return out
+
+
 def dec_post_cross(att2: torch.Tensor, x1: torch.Tensor, adj: torch.Tensor,
-                   w: dict, *, eps: float, out_dtype) -> torch.Tensor:
+                   w: dict, *, eps: float, out_dtype,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The decoder layer after its cross-attention: o2 = bf16(att2 . wco^T
     + bco), x2 = LN2(x1 + o2 . wch^T + bch), y_s = bf16(bf16(x2) . wg_s^T
     + bg_s) and per batch row m = adj0 . y0 + adj1 . y1, then out = LN3(x2
@@ -1435,11 +1580,24 @@ def dec_post_cross(att2: torch.Tensor, x1: torch.Tensor, adj: torch.Tensor,
     (x2 and y into scratch buffers), then dec_post_gcn_wide_kernel over
     tiles of one batch row, its GCN weights in the wide layout (w["wg"]
     [2 f_pad, c_pad], w["wf"] [c_pad, f_pad] of post_plan's wide plan:
-    ops/fused_decoder.py cross_weights)."""
+    ops/fused_decoder.py cross_weights). Above WIDE_MAX_C channels the
+    split route's eight launches, the adjacency laid out by
+    gcn_adjacency (given so, it is read as it is), the output written into
+    `out` where given (a contiguous [B K, C] tensor of out_dtype)."""
     b, k, c2 = att2.shape
     c = c2 // 2
     f = w["wf"].shape[1]
     plan = post_plan(b * k, c, f, chunk=DEC_CHUNK, keypoints=k)
+    if plan.get("split"):
+        _cuda(adj)
+        if tuple(adj.shape) != (b, 2, k, k):
+            raise ValueError(f"adjacency {tuple(adj.shape)} is not "
+                             f"{(b, 2, k, k)}")
+        return _dec_post_cross_split(att2, x1, adj, w, eps=eps,
+                                     out_dtype=out_dtype, out=out)
+    if out is not None:
+        raise ValueError("dec_post_cross writes into `out` on the split "
+                         "route only")
     if adj.dtype not in (torch.float32, torch.bfloat16):
         adj = adj.to(torch.float32)
     adj = adj.contiguous()
@@ -2038,8 +2196,46 @@ def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def kpt_coord(h: torch.Tensor, ct: torch.Tensor, kow, kob,
+              pts: torch.Tensor, outs: torch.Tensor) -> None:
+    """The keypoint head's delta and coordinate update on the split route,
+    one launch of kpt_coord_kernel (csrc/kpt_coord.cu): for the stacked
+    rows h = [h(x); h(LN(x))] bf16 [2R, C] (the last kpt_branch layer's
+    output), dd = h . kow^T + kob, pts = sigmoid(inverse_sigmoid(ct) + dd
+    of rows 0..R-1), outs = the same of rows R..2R-1, the log-odds clipped
+    at 1e-3, written in place. kow bf16 [2, C], kob fp32 [2]; ct, pts,
+    outs contiguous fp32 [R, 2]."""
+    r2, c = h.shape
+    r = r2 // 2
+    if r2 != 2 * r or r < 1:
+        raise ValueError(f"kpt_coord takes 2 R stacked rows, got {r2}")
+    ptrs = [_operand(h, (r2, c), align=4), _operand(kow, (2, c), align=4),
+            _operand(kob, (2,), torch.float32, 4)]
+    ptrs += [_operand(t, (r, 2), torch.float32, 4) for t in (ct, pts, outs)]
+    _call("ec_kpt_coord", *ptrs, r, c, 1e-3, _stream())
+    launches["kpt_coord_kernel"] += 1
+
+
+def _kpt_head_split(x, ct, fn, kpt, kow, kob, pts, outs, *, eps, kin):
+    r, c = x.shape
+    if kin is None:
+        kin = torch.empty((2 * r, c), dtype=torch.bfloat16, device=x.device)
+    elif kin.dtype != torch.bfloat16 or tuple(kin.shape) != (2 * r, c) \
+            or not kin.is_contiguous():
+        raise ValueError(f"kpt_head kin {kin.dtype} {tuple(kin.shape)} is "
+                         f"not a contiguous bfloat16 {(2 * r, c)}")
+    if kin.data_ptr() != x.data_ptr():
+        kin[:r].copy_(x)
+    layernorm(kin[:r], fn[0], fn[1], eps, out_f32=False, out_bf16=kin[r:])
+    h = kin
+    for w, bb in kpt:
+        h = gemm(h, w, b_nk=True, slabs=True, bias=bb, act=ACT_GELU)
+    kpt_coord(h, ct, kow, kob, pts, outs)
+
+
 def kpt_head(x: torch.Tensor, ct: torch.Tensor, fn, kpt, kow, kob,
-             pts: torch.Tensor, outs: torch.Tensor, *, eps: float) -> None:
+             pts: torch.Tensor, outs: torch.Tensor, *, eps: float,
+             kin: Optional[torch.Tensor] = None) -> None:
     """A decoder layer's keypoint head, one launch: with n = LN(x) (fn =
     (gamma, beta)), h = bf16(gelu(h . w_i^T + b_i)) for (w_i, b_i) in kpt
     from h = x and from h = n, dd = h . kow^T + kob, and pts =
@@ -2049,9 +2245,17 @@ def kpt_head(x: torch.Tensor, ct: torch.Tensor, fn, kpt, kow, kob,
     [C]); kow bf16 [2, C], kob fp32 [2]; ct, pts, outs: contiguous fp32
     [R, 2]. kpt_head_kernel at POST_C channels; at any other C up to
     WIDE_MAX_C (kpt_head_plan) kpt_head_wide_kernel, whose kpt weights are
-    [c_pad, c_pad] with zero padding (pad_cols)."""
+    [c_pad, c_pad] with zero padding (pad_cols); above, the split route
+    (kpt_head_plan: the final norm into the second half of kin, a bf16
+    [2R, C] buffer whose first half holds x (x may be that view; made here
+    and x copied in when None), the three layers as GEMMs with the GELU
+    epilogue, kpt_coord)."""
     r, c = x.shape
     plan = kpt_head_plan(r, c)
+    if plan.get("split"):
+        _kpt_head_split(x, ct, fn, kpt, kow, kob, pts, outs, eps=eps,
+                        kin=kin)
+        return
     if plan.get("wide"):
         cp = plan["c_pad"]
         ptrs = [_operand(x, (r, c))] + [
@@ -2128,12 +2332,21 @@ def kpt_head_plan(rows: int, c: int) -> dict:
     box serves both warpgroups' rows as they are and normed), "channels"
     above 256 (the warpgroups split the channels over one tile of 32
     source rows, 64 stacked); `tiles`, `slots` a ring of `rings`,
-    `smem_bytes`. Raises for c outside 1..WIDE_MAX_C or no rows."""
-    if not 1 <= c <= WIDE_MAX_C:
-        raise ValueError(f"the keypoint head takes 1..{WIDE_MAX_C} channels, "
-                         f"got {c}")
+    `smem_bytes`. Above WIDE_MAX_C channels the split route (`split`:
+    True: the final norm, the three kpt_branch GEMMs with the GELU
+    epilogue, kpt_coord_kernel; the weights not padded), at channels in
+    multiples of 8 (split_refusal). Raises for no channels, no rows or a
+    split width split_refusal names."""
+    if c < 1:
+        raise ValueError(f"the keypoint head takes 1 channel or more, got "
+                         f"{c}")
     if rows <= 0:
         raise ValueError(f"no rows ({rows})")
+    if c > WIDE_MAX_C:
+        why = split_refusal(c)
+        if why:
+            raise ValueError(why)
+        return {"split": True}
     if c == POST_C:
         return {"tiles": -(-rows // 64)}
     lay = kpt_wide_layout(c)
@@ -2256,17 +2469,23 @@ def width_misfits(cfg, vit_dim: Optional[int] = None,
       decoder's self-attention), eval and training; any key count (above
       what a resident block holds, ATT_MAX_KEYS or at head dim 128 416
       keys, the streaming kernels);
-    * fused_encoder_stack: the post-attention kernels' 1..WIDE_MAX_C
-      channels (any hidden width), and the encoder's attention;
+    * fused_encoder_stack: up to WIDE_MAX_C channels the post-attention
+      kernels (any channel count and hidden width), above it the split
+      route (channels and hidden in multiples of 8, split_refusal), and
+      the encoder's attention;
     * fused_decoder_layer: the same channels, any keypoint count (above
-      POST_TILE the cross layer's wide pair at every width), the self- and
-      the cross-attention (head dim 2 C / H);
+      POST_TILE the cross layer's wide pair up to WIDE_MAX_C channels),
+      the self- and the cross-attention (head dim 2 C / H);
     * fused_decoder_stack: the layer's, the bias attention's 1..16 heads
       of 1..128 (with the Markov bias; above 128 keypoints streamed,
-      bias_attn_long_kernel) and the keypoint head's channels.
+      bias_attn_long_kernel) and the keypoint head's channels (the
+      split route's above WIDE_MAX_C).
     What stays refused, by the plan that refuses it: a trunk above
-    VIT_WIDE_MAX_C channels or not in steps of 64, a head of more than
-    WIDE_MAX_C channels, head dims above 128. No keypoint count or
+    VIT_WIDE_MAX_C channels or not in steps of 64, head dims above 128
+    (1024 channels in 8 heads: a cross-attention head dim of 256), more
+    than 16 heads with the Markov bias (1088 in 17), and above WIDE_MAX_C
+    channels or a hidden that is no multiple of 8 (580 in 10: the slab
+    GEMM's tensor maps need 16-byte row strides). No keypoint count or
     image size is refused."""
     c, h, f = int(cfg.d_model), int(cfg.nhead), int(cfg.dim_feedforward)
     k = int(cfg.max_kpt)

@@ -29,10 +29,15 @@ card:
   head dims 32 and 64 on LONG_CASES' 518 px shapes: attention's bf16
   bits as int16 (long_<name>), and for the training cases
   flash_mha_train's output and the gradients of q, k, v and the bias at
-  dropout 0.1 (long_<name>_out / _dq / _dk / _dv / _dbias).
+  dropout 0.1 (long_<name>_out / _dq / _dk / _dv / _dbias);
+* with --split, the stage-3 model with the heads of SPLIT_CASES (768 / 12
+  and 1024 / 16, the split route above 512 channels) over the same
+  trunk: one cached chunk of SPLIT_GROUPS groups x 15 queries with the
+  decoder stack off, then on (split_<C>_stack_<on>), with the kernels each
+  launched.
 
     python edgecape_tpu_torch/tools/reference_outputs.py [--root DIR]
-        [--wide] [--heads] [--kpts] [--long] OUT.npz
+        [--wide] [--heads] [--kpts] [--long] [--split] OUT.npz
     python edgecape_tpu_torch/tools/reference_outputs.py --compare A.npz B.npz
 
 --root runs the package of another checkout (the parent's, unpacked from
@@ -65,23 +70,25 @@ WIDE_CASES = (("qkv_b", 2000, 768, 2304, True, True, False),
 HEAD_CASES, HEAD_ROWS = ((200, 8, 300), (512, 8, 1024)), 60
 # (d_model, heads), keypoints and batch rows of the --kpts cases
 KPTS_CASES, KPTS_KEYS, KPTS_ROWS = ((256, 8), (512, 8)), (133, 256, 300), 60
+# (d_model, heads, FFN) of the --split cases, and their chunk's groups
+SPLIT_CASES, SPLIT_GROUPS = ((768, 12, 1536), (1024, 16, 2048)), 4
 
 
-def _episodes(rng):
-    """One chunk of GROUPS x QUERIES uint8 episodes, a chain skeleton."""
+def _episodes(rng, groups=GROUPS):
+    """One chunk of `groups` x QUERIES uint8 episodes, a chain skeleton."""
     adj = np.zeros((K, K), np.float32)
     for i in range(K - 1):
         adj[i, i + 1] = adj[i + 1, i] = 1.0
-    vis = (rng.uniform(size=(GROUPS, 1, K)) > 0.1).astype(np.float32)
+    vis = (rng.uniform(size=(groups, 1, K)) > 0.1).astype(np.float32)
     support = {
-        "img_s": rng.integers(0, 256, (GROUPS, 1, SIZE, SIZE, 3),
+        "img_s": rng.integers(0, 256, (groups, 1, SIZE, SIZE, 3),
                               dtype=np.uint8),
-        "joints_s": rng.uniform(8, SIZE - 8, (GROUPS, 1, K, 2)).astype(
+        "joints_s": rng.uniform(8, SIZE - 8, (groups, 1, K, 2)).astype(
             np.float32),
-        "vis_s": vis, "binary_adj": np.tile(adj, (GROUPS, 1, 1))}
-    query = {"img_q": rng.integers(0, 256, (GROUPS * QUERIES, SIZE, SIZE, 3),
+        "vis_s": vis, "binary_adj": np.tile(adj, (groups, 1, 1))}
+    query = {"img_q": rng.integers(0, 256, (groups * QUERIES, SIZE, SIZE, 3),
                                    dtype=np.uint8),
-             "group": np.repeat(np.arange(GROUPS, dtype=np.int32), QUERIES)}
+             "group": np.repeat(np.arange(groups, dtype=np.int32), QUERIES)}
     return support, query
 
 
@@ -258,15 +265,52 @@ def _long(dev, arrays, launches) -> None:
     launches["long"] = {n: KN.launches.get(n, 0) - n0[n] for n in names}
 
 
-def run(root: str, out: str, wide: bool = False, heads: bool = False,
-        kpts: bool = False, long: bool = False) -> None:
-    sys.path.insert(0, os.path.abspath(root))
+def _chunks(dev, cfg, seed, groups, name, arrays, launches) -> None:
+    """One cached chunk of the model `cfg` (seeded weights, `groups` x
+    QUERIES episodes) with the decoder stack off, then on: its predictions
+    and the kernels it launched, under `name`_stack_<on>."""
     import torch
     from edgecape_tpu_torch.api import PoseEstimator
-    from edgecape_tpu_torch.config import Config, ModelConfig
     from edgecape_tpu_torch.models.convert import (init_params,
                                                    redraw_zero_inits)
     from edgecape_tpu_torch.ops import counters, kernel_config
+    gen = torch.Generator().manual_seed(seed)
+    bb, head = init_params(gen, cfg.model)
+    redraw_zero_inits(bb, head, gen)
+    support, query = _episodes(np.random.default_rng(seed), groups)
+    kernel_config.set_vit_pair_blocks(False)
+    for stack in (False, True):
+        kernel_config.set_decoder_stack(stack)
+        est = PoseEstimator(cfg, bb, head, device=dev)
+        est.forward_cached(support, query)                  # warm-up
+        torch.cuda.synchronize()
+        counters.zero_counts()
+        pred = est.forward_cached(support, query)[0]
+        torch.cuda.synchronize()
+        arrays[f"{name}_stack_{stack}"] = pred.cpu().numpy()
+        launches[f"{name}_stack_{stack}"] = \
+            counters.launch_counts()["kernels"]
+        del est
+
+
+def _split(dev, cfg, arrays, launches) -> None:
+    """The model at SPLIT_CASES' head widths (cfg's otherwise), its
+    chunks into arrays (split_<C>_stack_<on>)."""
+    import dataclasses
+    for c, h, f in SPLIT_CASES:
+        model = dataclasses.replace(cfg.model, d_model=c, nhead=h,
+                                    dim_feedforward=f, num_feats=c // 2,
+                                    similarity_proj_dim=c)
+        _chunks(dev, dataclasses.replace(cfg, model=model), SEED + 8 + c,
+                SPLIT_GROUPS, f"split_{c}", arrays, launches)
+
+
+def run(root: str, out: str, wide: bool = False, heads: bool = False,
+        kpts: bool = False, long: bool = False,
+        split: bool = False) -> None:
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    from edgecape_tpu_torch.config import Config, ModelConfig
     from edgecape_tpu_torch.ops import flash_attention as FA
     if not torch.cuda.is_available():
         raise SystemExit("reference_outputs needs a CUDA device")
@@ -277,23 +321,10 @@ def run(root: str, out: str, wide: bool = False, heads: bool = False,
         image_size=SIZE, max_kpt=K, learn_skeleton=True, attn_bias=True,
         max_hops=4, compute_dtype="bfloat16", head_dtype="bfloat16",
         use_flash=True))
-    gen = torch.Generator().manual_seed(SEED)
-    bb, head = init_params(gen, cfg.model)
-    redraw_zero_inits(bb, head, gen)
-    support, query = _episodes(np.random.default_rng(SEED))
     arrays, launches = {}, {}
-    kernel_config.set_vit_pair_blocks(False)
-    for stack in (False, True):
-        kernel_config.set_decoder_stack(stack)
-        est = PoseEstimator(cfg, bb, head, device=dev)
-        est.forward_cached(support, query)                  # warm-up
-        torch.cuda.synchronize()
-        counters.zero_counts()
-        pred = est.forward_cached(support, query)[0]
-        torch.cuda.synchronize()
-        arrays[f"preds_stack_{stack}"] = pred.cpu().numpy()
-        launches[f"stack_{stack}"] = counters.launch_counts()["kernels"]
-        del est
+    _chunks(dev, cfg, SEED, GROUPS, "preds", arrays, launches)
+    for stack in (False, True):       # the names of the earlier files
+        launches[f"stack_{stack}"] = launches.pop(f"preds_stack_{stack}")
     g = torch.Generator().manual_seed(SEED + 1)
     q, k, v, go = (torch.randn(*TRAIN_SHAPE, generator=g).to(dev)
                    for _ in range(4))
@@ -316,6 +347,8 @@ def run(root: str, out: str, wide: bool = False, heads: bool = False,
         _kpts(dev, arrays, launches)
     if long:
         _long(dev, arrays, launches)
+    if split:
+        _split(dev, cfg, arrays, launches)
     np.savez(out, launches=json.dumps(launches, sort_keys=True),
              device=torch.cuda.get_device_name(0), **arrays)
     print(f"wrote {out}: {sorted(arrays)} on {torch.cuda.get_device_name(0)}"
@@ -363,13 +396,16 @@ def main(argv=None) -> None:
     p.add_argument("--long", action="store_true",
                    help="also the streaming attention kernels at "
                         "LONG_CASES")
+    p.add_argument("--split", action="store_true",
+                   help="also the model with the heads of SPLIT_CASES")
     p.add_argument("out", nargs="?")
     args = p.parse_args(argv)
     if args.compare:
         sys.exit(0 if compare(*args.compare) else 1)
     if not args.out:
         p.error("OUT.npz is needed")
-    run(args.root, args.out, args.wide, args.heads, args.kpts, args.long)
+    run(args.root, args.out, args.wide, args.heads, args.kpts, args.long,
+        args.split)
 
 
 if __name__ == "__main__":

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-import torch_threads  # noqa: F401  (caps torch's threads per worker)
+import torch_threads  # caps torch's threads per worker; the CLIs' limits
 from edgecape_tpu import config as jcfg
 from edgecape_tpu.data import loader as jloader
 from edgecape_tpu.data import mp100 as jmp
@@ -39,6 +39,16 @@ CONFIG = os.path.join(REPO, "edgecape_tpu_torch", "configs", "synthetic.py")
 # one epoch of 3 steps of batch 24 over the 72 class-balanced pairs
 SMALL = ["train.total_epochs=1", "train.batch_size=24",
          "train.num_workers=2", "train.log_interval=1"]
+# seconds a CLI call may take (torch_threads.within): a few times the
+# longest here, cli.run's curriculum (about 48 s), and cli.train / cli.test
+# (up to about 13 s)
+CURRICULUM_TIMEOUT, CLI_TIMEOUT = 240, 120
+
+
+def _main(cli, argv, timeout=CLI_TIMEOUT):
+    """cli.main(argv) within its limit."""
+    return torch_threads.within(lambda: cli.main(argv),
+                                f"{cli.__name__}.main", timeout)
 
 
 @pytest.fixture(scope="module")
@@ -64,9 +74,9 @@ def _jax_data_cfg(d):
 def trained(synth, tmp_path_factory):
     """cli.train on the CPU: (work dir, the trainer it returns)."""
     work = str(tmp_path_factory.mktemp("train"))
-    trainer = cli_train.main(["--config", CONFIG, "--work-dir", work,
-                              "--device", "cpu", "--seed", "3",
-                              "--cfg-options"] + SMALL)
+    trainer = _main(cli_train, ["--config", CONFIG, "--work-dir", work,
+                                "--device", "cpu", "--seed", "3",
+                                "--cfg-options"] + SMALL)
     return work, trainer
 
 
@@ -142,8 +152,8 @@ def test_cli_test_matches_run_eval_on_the_jax_dataset(trained, synth,
                                                       tmp_path):
     work, _ = trained
     ckpt = os.path.join(work, "epoch_1")
-    res = cli_test.main([CONFIG, ckpt, "--work-dir", str(tmp_path / "cli"),
-                         "--device", "cpu"])
+    res = _main(cli_test, [CONFIG, ckpt, "--work-dir",
+                           str(tmp_path / "cli"), "--device", "cpu"])
     for name in ("result_keypoints.json", "testing_log.txt"):
         assert os.path.exists(tmp_path / "cli" / name)
     log = open(tmp_path / "cli" / "testing_log.txt").read()
@@ -170,21 +180,23 @@ def test_cli_test_flags(trained, synth, tmp_path):
     work, _ = trained
     ckpt = os.path.join(work, "epoch_1")
     common = ["--device", "cpu", "--batch-size", "12"]
-    cached = cli_test.main([CONFIG, ckpt, "--work-dir", str(tmp_path / "a")]
-                           + common)
-    uncached = cli_test.main([CONFIG, ckpt, "--work-dir", str(tmp_path / "b"),
-                              "--no-cache-supports"] + common)
-    strict = cli_test.main([CONFIG, ckpt, "--work-dir", str(tmp_path / "c"),
-                            "--strict-parity"] + common)
+    cached = _main(cli_test, [CONFIG, ckpt, "--work-dir",
+                              str(tmp_path / "a")] + common)
+    uncached = _main(cli_test, [CONFIG, ckpt, "--work-dir",
+                                str(tmp_path / "b"), "--no-cache-supports"]
+                     + common)
+    strict = _main(cli_test, [CONFIG, ckpt, "--work-dir",
+                              str(tmp_path / "c"), "--strict-parity"]
+                   + common)
     assert "host_collate_seconds" in cached
     assert "host_collate_seconds" not in uncached
     # fp32 on the CPU along two loops: the same keypoints to 1e-3 pixels
     for k in ("PCK", "mPCK", "NME", "AUC"):
         assert uncached[k] == pytest.approx(cached[k], abs=1e-3), k
         assert strict[k] == pytest.approx(cached[k], abs=1e-3), k
-    rand = cli_test.main([CONFIG, "--work-dir", str(tmp_path / "d"),
-                          "--cfg-options", "test_data.num_episodes=1"]
-                         + common)
+    rand = _main(cli_test, [CONFIG, "--work-dir", str(tmp_path / "d"),
+                            "--cfg-options", "test_data.num_episodes=1"]
+                 + common)
     assert "<random>" in open(tmp_path / "d" / "testing_log.txt").read()
     assert np.isfinite(rand["NME"])
     assert len(json.load(open(tmp_path / "d" / "result_keypoints.json"))) == 18
@@ -194,8 +206,8 @@ def test_cli_train_flags_resume_and_autoscale(trained, synth, tmp_path,
                                               capsys):
     work, _ = trained
     # auto-resume: the work dir's latest checkpoint is epoch 1 of 1
-    again = cli_train.main(["--config", CONFIG, "--work-dir", work,
-                            "--device", "cpu", "--cfg-options"] + SMALL)
+    again = _main(cli_train, ["--config", CONFIG, "--work-dir", work,
+                              "--device", "cpu", "--cfg-options"] + SMALL)
     assert again.start_epoch == 1 and again.step == 3
     out = capsys.readouterr().out
     assert "resumed from" in out and "randomly initialized DINOv2" in out
@@ -203,11 +215,12 @@ def test_cli_train_flags_resume_and_autoscale(trained, synth, tmp_path,
     # backbone file of the port
     bb = str(tmp_path / "bb.pt")
     torch.save({"backbone": again.backbone_state}, bb)
-    tr = cli_train.main(["--config", CONFIG, "--work-dir", str(tmp_path / "w"),
-                         "--device", "cpu", "--autoscale-lr", "--load-from",
-                         os.path.join(work, "epoch_1"), "--backbone-ckpt", bb,
-                         "--cfg-options"] + SMALL
-                        + ["train.total_epochs=0", "train.tensorboard=false"])
+    tr = _main(cli_train, ["--config", CONFIG, "--work-dir",
+                           str(tmp_path / "w"), "--device", "cpu",
+                           "--autoscale-lr", "--load-from",
+                           os.path.join(work, "epoch_1"), "--backbone-ckpt",
+                           bb, "--cfg-options"] + SMALL
+               + ["train.total_epochs=0", "train.tensorboard=false"])
     assert tr.cfg.train.lr == pytest.approx(1e-5 / 8.0)
     assert "randomly initialized" not in capsys.readouterr().out
     assert all(torch.equal(tr.backbone_state[k], again.backbone_state[k])
@@ -220,10 +233,10 @@ def test_cli_train_flags_resume_and_autoscale(trained, synth, tmp_path,
 
 def test_cli_run_curriculum_artifacts(synth, tmp_path):
     work = str(tmp_path / "run")
-    arts = cli_run.main(["--config", CONFIG, "--work_dir", work, "--device",
-                         "cpu", "--ft_epochs", "1", "--masking_ratio", "0.4",
-                         "--cfg-options"] + SMALL
-                        + ["test_data.num_episodes=1"])
+    arts = _main(cli_run, ["--config", CONFIG, "--work_dir", work,
+                           "--device", "cpu", "--ft_epochs", "1",
+                           "--masking_ratio", "0.4", "--cfg-options"] + SMALL
+                 + ["test_data.num_episodes=1"], CURRICULUM_TIMEOUT)
     for stage in ("base", "base_skeleton", "base_skeleton_bias"):
         assert arts[stage] == os.path.join(work, stage, "epoch_1")
         assert os.path.exists(arts[stage])

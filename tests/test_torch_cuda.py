@@ -2250,7 +2250,7 @@ def _kpt_operands(dev, c, r, seed):
 
     def rn(*shape, s=1.0):
         return (torch.randn(*shape, generator=g) * s).to(dev)
-    cp = K.kpt_head_plan(r, c)["c_pad"]
+    cp = K.kpt_head_plan(r, c).get("c_pad", c)      # no padding: split
     kpt0 = [(rn(c, c, s=c ** -0.5).to(torch.bfloat16), rn(c, s=0.1))
             for _ in range(3)]
     kpt = [(K.pad_cols(w, cp, cp).contiguous(), b) for w, b in kpt0]
@@ -2345,3 +2345,244 @@ def test_kpt_head_wide_refuses_cpu_operands_and_counts_nothing(dev):
     with pytest.raises(ValueError):
         K.kpt_head(x, ct, fn, kpt0, kow, kob, pts, outs, eps=1e-5)
     assert K.launches == before
+
+
+# ------------------------------------------- the split route, C above 512
+# the heads of ViT-B/14's and ViT-L/14's widths
+SPLIT_WIDTHS = [(768, 12, 1536), (1024, 16, 2048)]
+
+
+@pytest.mark.parametrize("c", [600, 640, 1024, 1536])
+def test_layernorm_takes_any_width(dev, c):
+    """layernorm_kernel past 512 channels (the passes looped over 64-column
+    groups) against the plain LayerNorm: LN(x) and LN(x + r) with an fp32
+    or a bf16 residual, the fp32 output written in place over x and the
+    bf16 one into a column block of a wider buffer (its row stride); the
+    bf16 output is the fp32 one rounded; one launch each."""
+    from edgecape_tpu_torch.ops import kernels as K
+    from edgecape_tpu_torch.ops import plain
+    x = _rn(dev, 333, c, s=3.0, seed=c) + 1.0
+    g, be = _rn(dev, c, s=0.1, seed=c + 1) + 1.0, _rn(dev, c, s=0.1,
+                                                      seed=c + 2)
+    for r in (None, _rn(dev, 333, c, seed=c + 3),
+              _rn(dev, 333, c, seed=c + 4).to(torch.bfloat16)):
+        ref = plain.layer_norm(x if r is None else x + r.float(), g, be,
+                               1e-5)
+        buf = torch.zeros(333, 2 * c, dtype=torch.bfloat16, device=dev)
+        xin = x.clone()
+        n0 = K.launches["layernorm_kernel"]
+        of, ob = K.layernorm(xin, g, be, 1e-5, r=r, out_f32=xin,
+                             out_bf16=buf[:, c:])
+        assert K.launches["layernorm_kernel"] == n0 + 1
+        assert of.data_ptr() == xin.data_ptr()
+        torch.testing.assert_close(of, ref, atol=1e-5, rtol=1e-5)
+        assert torch.equal(buf[:, c:], of.to(torch.bfloat16))
+        assert not buf[:, :c].any()
+
+
+@pytest.mark.parametrize("c", [577, 768, 1024])
+def test_kpt_coord_matches_plain(dev, c):
+    """kpt_coord_kernel (the split route's delta head and coordinate
+    update) against kpt_coord_plain on 6000 rows (the [widths] chunk's),
+    coordinates clipped at both ends among them, an odd C (element loads)
+    too: to fp32 noise; one launch."""
+    from edgecape_tpu_torch.ops import fused_decoder as FD
+    from edgecape_tpu_torch.ops import kernels as K
+    r = 6000
+    h = _rn(dev, 2 * r, c, seed=c).to(torch.bfloat16)
+    wo = _rn(dev, 2, c, s=0.02, seed=c + 1).to(torch.bfloat16)
+    bo = _rn(dev, 2, s=0.02, seed=c + 2)
+    ct = torch.rand(r, 2, generator=torch.Generator().manual_seed(c)).to(dev)
+    ct[0], ct[1] = torch.tensor([0.0, 1.0]), torch.tensor([-0.1, 1.1])
+    pts, outs = torch.empty_like(ct), torch.empty_like(ct)
+    n0 = K.launches["kpt_coord_kernel"]
+    K.kpt_coord(h, ct, wo, bo, pts, outs)
+    assert K.launches["kpt_coord_kernel"] == n0 + 1
+    for got, want in zip((pts, outs), FD.kpt_coord_plain(h, ct, wo, bo)):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
+def _split_modules(dev, c, h, f, seed):
+    from edgecape_tpu_torch.models.transformer import (DecoderLayer,
+                                                       EncoderLayer)
+    return (_randomize(EncoderLayer(c, h, f), dev, seed),
+            _randomize(DecoderLayer(c, h, f, attn_bias=True), dev, seed + 1))
+
+
+def _counted(fn):
+    """fn's result and the kernels it launched (the non-zero counts)."""
+    from edgecape_tpu_torch.ops import kernels as K
+    before = dict(K.launches)
+    out = fn()
+    return out, {k: v - before[k] for k, v in K.launches.items()
+                 if v != before[k]}
+
+
+@pytest.mark.parametrize("c,h,f", SPLIT_WIDTHS)
+@pytest.mark.parametrize("k", [100, 133])
+def test_split_post_ops_match_plain(dev, c, h, f, k):
+    """The split route's ops at 768 and 1024 channels on the [widths]
+    chunk's 60 query rows of K 100 or 133 keypoints, against the plain
+    formulas on the same inputs: enc_post (with the next layer's src),
+    dec_post_self, dec_post_cross (fp32 and bf16 out), kpt_head; each
+    call's launches as its plan names them, none on the thread-copy
+    GEMM."""
+    from edgecape_tpu_torch.ops import fused_decoder as FD
+    from edgecape_tpu_torch.ops import fused_encoder as FE
+    from edgecape_tpu_torch.ops import kernels as K
+    from edgecape_tpu_torch.ops import plain
+    bf, b = torch.bfloat16, 60
+    r = b * k
+    enc, dec = _split_modules(dev, c, h, f, seed=c + k)
+    we, wd = FE._prepare(enc), FD._prepare(dec)
+    att, src = (_rn(dev, r, c, seed=s).to(bf) for s in (1, 2))
+    pos = _rn(dev, k, c, seed=3).to(bf)
+    with torch.no_grad():
+        (y, nxt), n = _counted(lambda: K.enc_post(
+            att, src, we, eps=1e-5, out_dtype=torch.float32, pos=pos))
+        assert n == {"gemm_tma_kernel": 3, "layernorm_kernel": 2,
+                     "add_pos_kernel": 1}
+        op, n1 = enc.self_attn.out_proj, enc.norm1
+        x = plain.layer_norm(src.float() + plain.linear(att, op.weight,
+                                                        op.bias),
+                             n1.weight, n1.bias, 1e-5)
+        hid = torch.relu(plain.linear(x, enc.linear1.weight,
+                                      enc.linear1.bias))
+        _close(y, plain.layer_norm(
+            x + plain.linear(hid, enc.linear2.weight, enc.linear2.bias),
+            enc.norm2.weight, enc.norm2.bias, 1e-5))
+        assert torch.equal(nxt, (y.to(bf).float()
+                                 + pos.float().repeat(b, 1)).to(bf))
+
+        qpos = _rn(dev, r, c, seed=4).to(bf)
+        (x1, q2), n = _counted(lambda: K.dec_post_self(att, src, qpos, wd,
+                                                       eps=1e-5))
+        assert n == {"gemm_tma_kernel": 2, "layernorm_kernel": 1}
+        x1r = FD.post_self_plain(att.float(), src, dec)
+        _close(x1, x1r)
+        _close(q2, plain.bf16(FD.cross_query_plain(x1, qpos, dec)))
+
+        att2 = _rn(dev, b, k, 2 * c, seed=5).to(bf)
+        adj = torch.rand(b, 2, k, k, generator=torch.Generator()
+                         .manual_seed(6)).to(dev) / k
+        want = FD.post_cross_plain(att2.float(), x1r.view(b, k, c), adj, dec)
+        for dt in (torch.float32, bf):
+            out, n = _counted(lambda: K.dec_post_cross(
+                att2, x1r, adj, wd, eps=1e-5, out_dtype=dt))
+            assert n == {"gemm_tma_kernel": 6, "layernorm_kernel": 2}
+            assert out.dtype == dt
+            _close(out.view(b, k, c), want)
+
+    xk, ct, fn, kpt, _, kow, kob = _kpt_operands(dev, c, r, k)
+    pts, outs = torch.empty_like(ct), torch.empty_like(ct)
+    _, n = _counted(lambda: K.kpt_head(xk, ct, fn, kpt, kow, kob, pts, outs,
+                                       eps=1e-5))
+    assert n == {"layernorm_kernel": 1, "gemm_tma_kernel": 3,
+                 "kpt_coord_kernel": 1}
+    rp, ro = FD.kpt_head_plain(xk, ct, fn, kpt, kow, kob, eps=1e-5)
+    _close(pts, rp)
+    _close(outs, ro)
+
+
+@pytest.mark.parametrize("c,h,f", SPLIT_WIDTHS)
+def test_split_layers_and_stacks_run_their_launches(dev, c, h, f):
+    """At 768 and 1024 channels: the encoder stack of three layers in
+    1 + 8 x 3 - 1 kernels, bit-equal to its chain of layers; a decoder
+    layer (K 100) in 17 and a decoder stack (K 133, with the Markov bias)
+    in 3 + 22 x 3, each against its plain version (a stack layer by
+    layer, to chip_smoke.py's STACK_LAYER_MAX / STACK_LAYER_MEAN, which
+    assume delta heads of 0.02); no GEMM on the thread-copy mainloop."""
+    from edgecape_tpu_torch.models.transformer import Decoder
+    from edgecape_tpu_torch.ops import fused_decoder as FD
+    from edgecape_tpu_torch.ops import fused_encoder as FE
+    bf, nq, hw = torch.bfloat16, 4, 256
+    encs = [_split_modules(dev, c, h, f, seed=s)[0] for s in (1, 3, 5)]
+    _, dec = _split_modules(dev, c, h, f, seed=7)
+    tok, pos = _rn(dev, nq, hw + 100, c, seed=8).to(bf), _rn(
+        dev, hw + 100, c, seed=9).to(bf)
+    valid = torch.ones(nq, hw + 100, dtype=torch.bool, device=dev)
+    valid[:, -20:] = False
+    with torch.no_grad():
+        out, n = _counted(lambda: FE.fused_encoder_stack(
+            tok, pos, valid, encs, num_heads=h))
+        assert n == {"add_pos_kernel": 3, "gemm_tma_kernel": 12,
+                     "attn_kernel": 3, "layernorm_kernel": 6}
+        x = tok
+        for layer in encs:
+            x = FE.fused_encoder_layer(x, pos, valid, layer, num_heads=h)
+        assert torch.equal(out, x)
+        k = 100
+        kx, qpos = (_rn(dev, nq, k, c, seed=s).to(bf) for s in (10, 11))
+        img, ipos = _rn(dev, nq, hw, c, seed=12).to(bf), _rn(
+            dev, hw, c, seed=13).to(bf)
+        kvalid = torch.rand(nq, k, generator=torch.Generator().manual_seed(
+            14)).to(dev) > 0.3
+        kvalid[:, 0] = True
+        bias = _rn(dev, nq, h, k, k, seed=15)
+        adj = torch.rand(nq, 2, k, k, generator=torch.Generator()
+                         .manual_seed(16)).to(dev) / k
+        out, n = _counted(lambda: FD.fused_decoder_layer(
+            kx, qpos, img, ipos, kvalid, bias, adj, dec, num_heads=h))
+        assert n == {"gemm_tma_kernel": 12, "layernorm_kernel": 3,
+                     "attn_kernel": 2}
+        _close(out, FD.fused_decoder_layer_plain(
+            kx, qpos, img, ipos, kvalid, bias, adj, dec, num_heads=h))
+
+        k, nf, nhop = 133, c // 2, 5
+        g = torch.Generator().manual_seed(17)
+        sdec = _randomize(Decoder(c, h, f, 3, attn_bias=True,
+                                  max_hops=nhop - 1, num_feats=nf), dev, 18)
+        with torch.no_grad():   # the delta heads at 0.02, as the bounds say
+            for i, br in enumerate(sdec.kpt_branches):
+                br.out.weight.copy_(_rn(dev, 2, c, s=0.02, seed=22 + i))
+        kvalid = torch.rand(nq, k, generator=g).to(dev) > 0.2
+        kvalid[:, 0] = True
+        args = (_rn(dev, nq, k, c, s=0.5, seed=19).to(bf),
+                (torch.rand(nq, k, 2, generator=g) * 0.8 + 0.1).to(dev),
+                _rn(dev, nq, hw, c, s=0.5, seed=20).to(bf),
+                _rn(dev, hw, c, s=0.5, seed=21).to(bf), kvalid,
+                torch.rand(nq, k, k, nhop, generator=g).to(dev).to(bf),
+                (torch.rand(nq, 2, k, k, generator=g) / k).to(dev).to(bf))
+        kw = dict(num_heads=h, num_feats=nf)
+        _, n = _counted(lambda: FD.fused_decoder_stack(*args, sdec, **kw))
+        assert n == {"gemm_tma_kernel": 3 + 14 * 3, "layernorm_kernel": 12,
+                     "attn_kernel": 3, "bias_attn_long_kernel": 3,
+                     "sine_feats_kernel": 3, "kpt_coord_kernel": 3}
+        for i in range(3):
+            sub = Decoder(c, h, f, 1, attn_bias=True, max_hops=nhop - 1,
+                          num_feats=nf)
+            sub.layers[0], sub.kpt_branches[0] = sdec.layers[i], \
+                sdec.kpt_branches[i]
+            sub.ref_point_head, sub.norm = sdec.ref_point_head, sdec.norm
+            sub.to(dev).eval()
+            o, p = FD.fused_decoder_stack(*args, sub, **kw)
+            ro, rp = FD.fused_decoder_stack_plain(*args, sub, **kw)
+            d = torch.cat([(o - ro).abs().flatten(),
+                           (p - rp).abs().flatten()])
+            assert d.max().item() <= 2e-3 and d.mean().item() <= 1e-4, \
+                (i, d.max().item(), d.mean().item())
+
+
+@pytest.mark.parametrize("k", [1024, 2048])
+def test_gemm_slabs_sum_as_accurately_as_fp32(dev, k):
+    """The TMA GEMM's slab form (mainloop 2, the split route's): each
+    64-deep k tile summed in a fresh accumulator and added in fp32, so over
+    a long K its error against float64 sums stays at fp32's (torch.matmul
+    in fp32 on the same bf16 values) where one accumulator drifts; the same
+    epilogue, one launch counted as gemm_tma_kernel."""
+    from edgecape_tpu_torch.ops import kernels as K
+    a = _rn(dev, 1000, k, seed=k).to(torch.bfloat16)
+    w = _rn(dev, 512, k, s=k ** -0.5, seed=k + 1).to(torch.bfloat16)
+    bias = _rn(dev, 512, seed=k + 2)
+    ref = (a.double() @ w.double().t() + bias.double()).float()
+    f32 = a.float() @ w.float().t() + bias
+    n0 = K.launches["gemm_tma_kernel"]
+    slab = K.gemm(a, w, b_nk=True, bias=bias, out_dtype=torch.float32,
+                  slabs=True)
+    one = K.gemm(a, w, b_nk=True, bias=bias, out_dtype=torch.float32)
+    assert K.launches["gemm_tma_kernel"] == n0 + 2
+    err = {n: (t - ref).abs().mean().item()
+           for n, t in (("slab", slab), ("one", one), ("fp32", f32))}
+    assert err["slab"] <= 2 * err["fp32"], err
+    assert err["slab"] < err["one"], err
+    torch.testing.assert_close(slab, ref, atol=1e-4, rtol=1e-4)

@@ -614,7 +614,7 @@ def test_post_plan_tiles_and_padding(args, want):
 
 
 @pytest.mark.parametrize("args,kw", [
-    ((100, 513, 96), {}),                      # C above 512
+    ((100, 0, 96), {}),                        # no channels
     ((100, 256, 0), {}),                       # no hidden
     ((129, 256, 384), {"chunk": 64, "keypoints": 0}),    # no keypoints
     ((150, 256, 384), {"chunk": 64, "keypoints": 100}),  # no whole rows

@@ -120,11 +120,19 @@ def test_post_and_keypoint_plans_take_every_width(c):
                     assert plan["gcn_tiles"] == 7 * 2
     kp = K.kpt_head_plan(51000, c)
     assert kp.get("wide", False) == (c != K.POST_C)
-    for bad in (0, 513, 1024):
-        with pytest.raises(ValueError, match="1..512 channels"):
-            K.post_plan(10, bad, 64)
-        with pytest.raises(ValueError, match="1..512 channels"):
-            K.kpt_head_plan(10, bad)
+    # past WIDE_MAX_C the split route (tests/test_torch_split_heads.py)
+    # at channels in multiples of 8; 513 refused by name
+    for big in (520, 1024):
+        assert K.post_plan(10, big, 64)["split"]
+        assert K.kpt_head_plan(10, big)["split"]
+    for plan in (lambda: K.post_plan(10, 513, 64),
+                 lambda: K.kpt_head_plan(10, 513)):
+        with pytest.raises(ValueError, match="multiples of 8, got 513"):
+            plan()
+    with pytest.raises(ValueError, match="1 channel or more"):
+        K.post_plan(10, 0, 64)
+    with pytest.raises(ValueError, match="1 channel or more"):
+        K.kpt_head_plan(10, 0)
 
 
 @pytest.mark.parametrize("rows", [6000, 51000, 129, 1])
@@ -165,9 +173,12 @@ def test_kpt_head_plan_takes_every_width(rows):
         assert plan["smem_bytes"] == fixed + plan["slots"] * ring
         assert plan["slots"] == K.KPT_WIDE_SLOTS or \
             plan["smem_bytes"] + ring > K.ATT_SMEM_LIMIT
-    for bad in (0, 513, 1024):
-        with pytest.raises(ValueError, match="1..512 channels"):
-            K.kpt_head_plan(rows, bad)
+    for big in (520, 1024):             # the split route
+        assert K.kpt_head_plan(rows, big)["split"]
+    with pytest.raises(ValueError, match="multiples of 8, got 513"):
+        K.kpt_head_plan(rows, 513)
+    with pytest.raises(ValueError, match="1 channel or more"):
+        K.kpt_head_plan(rows, 0)
     with pytest.raises(ValueError, match="no rows"):
         K.kpt_head_plan(0, 200)
 
@@ -384,17 +395,20 @@ def test_width_misfits_take_the_six_widths(c, h, ffn):
      "64..1024 channels in steps of 64, got 1088"),
     (ModelConfig(**STAGE3), (1024, 4), "fused_vit_block",
      "head dims up to 128, got 256 (1024 channels in 4 heads)"),
-    (_width_cfg(1024, 16, 2048), None, "fused_encoder_stack",
-     "1..512 channels, got 1024"),
+    (_width_cfg(1024, 8, 2048), None, "fused_decoder_layer",
+     "head dims 1..128, got 256"),
     (_width_cfg(384, 2, 768), None, "flash_mha (encoder)",
      "head dims 1..128, got 192"),
-    (_width_cfg(1024, 16, 2048, max_kpt=160), None, "fused_decoder_layer",
-     "1..512 channels, got 1024"),
+    (_width_cfg(1088, 17, 2176, max_kpt=160), None, "fused_decoder_stack",
+     "the bias attention takes 1..16 heads of 1..128, got 17 of 64"),
 ], ids=["vit-768/12", "vit-1088/17", "vit-1024/4", "d_model-1024",
         "head-dim-192", "K-160"])
 def test_what_stays_refused_is_named(cfg, vit, op, why):
     """ViT-B/14's 768 channels in 12 heads are taken (the wide route):
-    what stays refused of it is an MLP hidden off the 64-column grid."""
+    what stays refused of it is an MLP hidden off the 64-column grid. No
+    head width is refused by its channels: 1024 channels in 8 heads by the
+    cross-attention's head dim of 256, 1088 in 17 (at 160 keypoints) by
+    the Markov bias's 17 heads."""
     kw = {} if vit is None else dict(zip(("vit_dim", "vit_heads",
                                           "vit_hidden"), vit))
     out = K.width_misfits(cfg, **kw)

@@ -140,7 +140,8 @@ def test_bias_long_smem_fits_every_head_shape_and_key_count(heads, d):
 
 def test_width_misfits_take_133_keypoints():
     """A stage-3 model with max_kpt 133 builds on the kernels at the
-    port's head widths; a 1024-channel head stays refused by name."""
+    port's head widths; a 1024-channel head in 8 heads stays refused by
+    name, by its cross-attention's head dim of 256."""
     stage3 = dict(learn_skeleton=True, attn_bias=True, use_flash=True)
     for kw in ({}, dict(d_model=200, nhead=8, dim_feedforward=300,
                         num_feats=100, similarity_proj_dim=200)):
@@ -149,7 +150,7 @@ def test_width_misfits_take_133_keypoints():
     out = K.width_misfits(ModelConfig(**stage3, max_kpt=133, d_model=1024,
                                       num_feats=512,
                                       similarity_proj_dim=1024))
-    assert "1..512 channels, got 1024" in out["fused_decoder_stack"]
+    assert "head dims 1..128, got 256" in out["fused_decoder_stack"]
 
 
 def test_dec_wide_rings_keep_their_figures_up_to_128_keypoints():

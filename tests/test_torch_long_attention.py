@@ -257,8 +257,10 @@ STAGE3 = dict(learn_skeleton=True, attn_bias=True, use_flash=True)
 @pytest.mark.parametrize("size", [256, 336, 448, 518])
 def test_width_misfits_take_the_larger_images(size):
     """The stage-3 model at 256 (the demo's), 336, 448 and 518 px (DINOv2's
-    37 x 37 grid) is taken by every fused op, and so is d_model 128; d_model
-    1024 (16 heads of 64) is refused by the post-attention ops alone."""
+    37 x 37 grid) is taken by every fused op, and so are d_model 128 and
+    d_model 1024 in 16 heads of 64 (the split route); 1024 in 8 heads is
+    refused by the decoder's ops alone, by their cross-attention's head
+    dim of 256."""
     cfg = ModelConfig(**STAGE3, image_size=size)
     assert all(why is None for why in K.width_misfits(cfg).values())
     narrow = dataclasses.replace(cfg, d_model=128, nhead=4, num_feats=64,
@@ -266,11 +268,11 @@ def test_width_misfits_take_the_larger_images(size):
     assert all(why is None for why in K.width_misfits(narrow).values())
     wide = dataclasses.replace(cfg, d_model=1024, nhead=16, num_feats=512,
                                similarity_proj_dim=1024)
-    out = K.width_misfits(wide)
+    assert all(why is None for why in K.width_misfits(wide).values())
+    out = K.width_misfits(dataclasses.replace(wide, nhead=8))
     refused = {op for op, why in out.items() if why is not None}
-    assert refused == {"fused_encoder_stack", "fused_decoder_layer",
-                       "fused_decoder_stack"}
-    assert all("512 channels, got 1024" in out[op] for op in refused)
+    assert refused == {"fused_decoder_layer", "fused_decoder_stack"}
+    assert all("head dims 1..128, got 256" in out[op] for op in refused)
 
 
 @pytest.mark.parametrize("c,h,f", [(256, 4, 512), (384, 8, 768),

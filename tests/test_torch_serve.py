@@ -129,7 +129,7 @@ def server(services):
 
 
 def _post(addr, path, payload):
-    conn = http.client.HTTPConnection(*addr, timeout=120)
+    conn = http.client.HTTPConnection(*addr, timeout=60)
     conn.request("POST", path, json.dumps(payload),
                  {"Content-Type": "application/json"})
     resp = conn.getresponse()
@@ -137,7 +137,7 @@ def _post(addr, path, payload):
 
 
 def _get(addr, path):
-    conn = http.client.HTTPConnection(*addr, timeout=60)
+    conn = http.client.HTTPConnection(*addr, timeout=30)
     conn.request("GET", path)
     resp = conn.getresponse()
     return resp.status, resp.read()
@@ -191,7 +191,7 @@ def test_concurrent_predicts_coalesce_and_match_batch(server, services):
                for i in range(4)]
     for t in threads:
         t.start()
-    torch_threads.join_threads(threads, "four /predict clients", 120)
+    torch_threads.join_threads(threads, "four /predict clients", 60)
     for i in range(4):
         status, pred = results[i]
         assert status == 200, pred

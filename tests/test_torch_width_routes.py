@@ -58,7 +58,7 @@ STAGE3 = dict(learn_skeleton=True, attn_bias=True, use_flash=True)
     (dict(d_model=192, nhead=8, num_feats=96, similarity_proj_dim=192),
      set()),
     (dict(nhead=2), DEC_OPS),
-    (WIDE, POST_OPS),
+    (WIDE, DEC_OPS),
     (dict(max_kpt=160), set()),
     (dict(d_model=384, nhead=2, num_feats=192, similarity_proj_dim=384),
      POST_OPS | {"flash_mha (encoder)", "flash_mha (keypoints)"}),
@@ -68,15 +68,14 @@ def test_width_predicate(kw, misfit):
     (d_model 128 in 4 heads, 192 in 8: head dims 32 and 24, run at 32);
     where a width stays refused, exactly the ops whose plans refuse it,
     each with the plan's reason: the cross-attention's head dim 2 x 256 /
-    2 = 256, 1024 channels, a self-attention head dim of 192; 160
-    keypoints are taken (the streaming bias attention, the cross layer's
-    wide pair)."""
+    2 = 256 and 2 x 1024 / 8 = 256 (1024 channels themselves are taken:
+    the split route), a self-attention head dim of 192; 160 keypoints are
+    taken (the streaming bias attention, the cross layer's wide pair)."""
     out = K.width_misfits(ModelConfig(**STAGE3, **kw))
     assert {op for op, why in out.items() if why is not None} == misfit
     assert out["fused_vit_block"] is None and out["flash_mha (ViT)"] is None
     for op in misfit:
-        assert "512 channels, got 1024" in out[op] \
-            or "head dims 1..128, got" in out[op], out[op]
+        assert "head dims 1..128, got" in out[op], out[op]
 
 
 def test_the_vit_route_follows_the_trunk():
@@ -100,16 +99,19 @@ def test_the_vit_route_follows_the_trunk():
 
 
 def test_a_head_built_for_the_card_refuses_other_widths():
-    """At d_model 1024 the three post-attention ops refuse, in one error
-    raised before any module is built; the attention kernels take 8
-    heads of 128, so those ops are not named."""
+    """At d_model 1024 in 8 heads the decoder's two ops refuse, in one
+    error raised before any module is built, by their cross-attention's
+    head dim of 256; the encoder stack takes 1024 channels (the split
+    route) and the attention kernels 8 heads of 128, so those ops are not
+    named."""
     cfg = ModelConfig(**STAGE3, **WIDE)
     with pytest.raises(ValueError) as err:
         EdgeCape(cfg, use_flash=True, device="cuda")
     msg = str(err.value)
-    for op in POST_OPS:
-        assert f"{op} (the post-attention kernels take 1..512 channels, " \
-            f"got 1024)" in msg, msg
+    for op in DEC_OPS:
+        assert f"{op} (attention takes head dims 1..128, got 256)" in msg, \
+            msg
+    assert "fused_encoder_stack" not in msg
     assert "flash_mha" not in msg and "use_flash=False" in msg
     with pytest.raises(ValueError, match="train_backbone_fast"):
         KC.require_widths(("fused_vit_block",),

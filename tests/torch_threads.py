@@ -8,14 +8,19 @@ workers on 8 cores kept 48 compute threads busy, and every file ran
 several times slower). Child interpreters get the same share through
 `child_env`.
 
-Waits: a child process or a thread that a test waits for gets a limit of
-its own, well under the suite's; past it the test fails, naming what it
-waited for with the tail of its output, and kills the child, so that no
-wait stops the clock of the whole suite.
+Waits: a child process, a thread or an in-process entry point (a CLI's
+main) that a test waits for gets a limit of its own, a few times its
+normal time and well under the suite's; past it the test fails, naming
+what it waited for with the tail of its output, and kills the child (a
+thread is left behind as a daemon), so that no wait stops the clock of
+the whole suite. The longest child (tests/test_torch_no_jax.py's disk
+path) takes about 16 s on 8 cores under six workers, the longest CLI
+(tests/test_torch_cli.py's curriculum) about 48 s.
 """
 
 import os
 import subprocess
+import threading
 import time
 
 import pytest
@@ -24,7 +29,7 @@ import torch
 WORKERS = max(1, int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
 THREADS = max(1, (os.cpu_count() or 1) // WORKERS)
 THREAD_VARS = ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")
-CHILD_TIMEOUT = 300       # seconds a test's child processes may take
+CHILD_TIMEOUT = 120       # seconds a test's child processes may take
 TAIL = 3000               # characters of a child's output a failure shows
 
 torch.set_num_threads(THREADS)
@@ -110,3 +115,24 @@ def join_threads(threads, what: str, timeout: float = 30.0) -> None:
     if alive:
         pytest.fail(f"{what}: threads {alive} still running after "
                     f"{timeout} s")
+
+
+def within(fn, what: str, timeout: float = CHILD_TIMEOUT):
+    """fn() run on a daemon thread within `timeout` seconds: its result,
+    or its exception raised again here; past the limit the test fails
+    naming `what` (the thread is left to finish or to hang on its own)."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:          # SystemExit too: re-raised here
+            box["err"] = e
+    t = threading.Thread(target=run, name=what, daemon=True)
+    t.start()
+    t.join(timeout)
+    if t.is_alive():
+        pytest.fail(f"{what} did not finish within {timeout} s")
+    if "err" in box:
+        raise box["err"]
+    return box.get("out")
